@@ -20,6 +20,11 @@ one batched call carries rows at different slider scales against a single
 weight stream. The hooks live on the shared model, so an overlay holds a lock
 of that model for the whole block: overlays on one model from different
 threads run one after the other and never see each other's hooks.
+
+Training runs through the same overlay: fp32 factors that require grad are
+hooked in as they are, the hook's ops stay on autograd's graph, and a
+backward after the block reaches the factors (the hooks are gone by then;
+the graph holds what it needs). Serving calls it under ``inference_mode``.
 """
 
 from __future__ import annotations
@@ -246,7 +251,7 @@ class LoRAOverlay:
             if mod is None:
                 raise KeyError(f"no module at {'/'.join(site.module_path)} for {site.lora_name}")
             leaf = lora_params[site.lora_name]
-            self._targets.append((mod, site, leaf["down"].float(), leaf["up"].float()))
+            self._targets.append((mod, site, _fp32_factor(leaf["down"]), _fp32_factor(leaf["up"])))
 
     @contextmanager
     def __call__(self, row_scale: Optional[torch.Tensor]) -> Iterator[None]:
@@ -260,6 +265,18 @@ class LoRAOverlay:
             finally:
                 for h in handles:
                     h.remove()
+
+
+def _fp32_factor(t: torch.Tensor) -> torch.Tensor:
+    """The rank-r path runs in fp32. An fp32 factor is used as it is — the
+    very tensor, so a trainable leaf receives its gradient; a lower-precision
+    factor (serving) is upcast once. A trainable factor must be fp32: the
+    upcast copy would cut its gradient."""
+    if t.dtype == torch.float32:
+        return t
+    if t.requires_grad:
+        raise ValueError(f"trainable LoRA factors must be float32, got {t.dtype}")
+    return t.float()
 
 
 def _make_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: torch.Tensor):
@@ -285,25 +302,33 @@ def _make_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: 
 
 def state_dict_numpy(sites: Sequence[LoRASite], lora_params: LoRAParams, dtype=np.float32) -> Dict[str, np.ndarray]:
     """Reference key/layout schema: ``<name>.lora_down.weight``,
-    ``<name>.lora_up.weight``, ``<name>.alpha``."""
+    ``<name>.lora_up.weight``, ``<name>.alpha``, as numpy arrays."""
+    return {k: v.numpy().astype(dtype) for k, v in state_dict_tensors(sites, lora_params).items()}
+
+
+def state_dict_tensors(
+    sites: Sequence[LoRASite], lora_params: LoRAParams, dtype: torch.dtype = torch.float32
+) -> Dict[str, torch.Tensor]:
+    """The reference schema as CPU tensors in ``dtype`` (bfloat16 included,
+    which numpy lacks)."""
     out = {}
     for site in sites:
         leaf = lora_params[site.lora_name]
-        out[f"{site.lora_name}.lora_down.weight"] = leaf["down"].detach().float().cpu().numpy().astype(dtype)
-        out[f"{site.lora_name}.lora_up.weight"] = leaf["up"].detach().float().cpu().numpy().astype(dtype)
-        out[f"{site.lora_name}.alpha"] = np.asarray(site.alpha, dtype=dtype)
+        out[f"{site.lora_name}.lora_down.weight"] = leaf["down"].detach().to("cpu", dtype)
+        out[f"{site.lora_name}.lora_up.weight"] = leaf["up"].detach().to("cpu", dtype)
+        out[f"{site.lora_name}.alpha"] = torch.tensor(site.alpha, dtype=dtype)
     return out
 
 
-def save_weights(path: str, sites: Sequence[LoRASite], lora_params: LoRAParams, dtype=np.float32, metadata=None):
-    """.safetensors (the port's own writer) or torch-pickle .pt."""
-    sd = state_dict_numpy(sites, lora_params, dtype=dtype)
+def save_weights(path: str, sites: Sequence[LoRASite], lora_params: LoRAParams, dtype=torch.float32, metadata=None):
+    """.safetensors (the port's own writer) or torch-pickle .pt, in ``dtype``."""
+    sd = state_dict_tensors(sites, lora_params, dtype=dtype)
     if str(path).endswith(".safetensors"):
         from sliders_conceptmod_tpu_torch.io.safetensors import save_file
 
         save_file(sd, str(path), metadata)
     else:
-        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, str(path))
+        torch.save(sd, str(path))
 
 
 def load_weights_from_tensors(sd, sites: Sequence[LoRASite], dtype=torch.float32, device=None) -> LoRAParams:

@@ -1,22 +1,40 @@
-"""Flash-attention forward on Hopper — the port of the TPU Pallas kernel.
+"""Flash attention on Hopper — the port of the TPU Pallas kernels, forward and
+backward.
 
-Kernel K1 replaces ``sliders_conceptmod_tpu/ops/flash_attention.py::_fwd_kernel``
-(launched by ``_flash_fwd_impl``): ``O = softmax(scale·QKᵀ)·V`` plus the
-row logsumexp, bidirectional, fp32 math, output in the input dtype. The CUDA
-source is ``csrc/flash_attention_fwd.cu`` (its header says what bounds it on
-the H100 and what the design does about it). It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface at first use —
-into ``build/kernels/`` at the repository root — and bound with ``ctypes``.
+Three hand-written CUDA kernels, each replacing one kernel of
+``sliders_conceptmod_tpu/ops/flash_attention.py``:
 
-Beside it sits :func:`flash_attention_reference`, the plain PyTorch version of
-the same function (fp32 softmax, as the TPU kernel computes it). The wrapper
-:func:`flash_attention_fwd` takes the plain version only for tensors on the
-CPU; a CUDA tensor launches the kernel or raises. ``flash_attention_fwd.launches``
-counts kernel launches (and nothing else), so a run can show that its main
-path went through the kernel.
+* K1 (``csrc/flash_attention_fwd.cu``) replaces ``_fwd_kernel`` (launched by
+  ``_flash_fwd_impl``): ``O = softmax(scale·QKᵀ)·V`` plus the row
+  logsumexp, bidirectional, fp32 math, output in the input dtype.
+* K2 (``csrc/flash_attention_bwd.cu``, ``flash_bwd_dq_kernel``) replaces
+  ``_bwd_dq_kernel`` (launched by ``_vjp_bwd``): dQ from P recomputed from
+  K1's lse. It also computes ``δ = rowsum(dO∘O)``, which the JAX package
+  computes with an XLA reduction outside its kernels, and writes it for K3.
+* K3 (same source, ``flash_bwd_dkv_kernel``) replaces ``_bwd_dkv_kernel``
+  (launched by ``_vjp_bwd``): dK and dV.
 
-Layout: BSHD ``[batch, seq, heads, head_dim]``. The kernel reads strides, so
-views such as ``to_q(x).view(B, S, H, D)`` go in without a copy.
+Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface at first use — into
+``build/kernels/`` at the repository root — and bound with ``ctypes``. The
+sources' headers say what bounds each kernel on the H100 and what the design
+does about it.
+
+Beside the kernels sit their plain PyTorch versions:
+:func:`flash_attention_reference` (K1) and :func:`bwd_dq_reference` /
+:func:`bwd_dkv_reference` (K2 / K3), composed in
+:func:`flash_attention_bwd_reference`. A wrapper takes the plain version only
+for tensors on the CPU; a CUDA tensor launches the kernel or raises. Each
+kernel wrapper's ``launches`` counts its kernel's launches and nothing else,
+so a run can show that its main path went through the kernel.
+
+Gradients: :class:`FlashAttention` is the ``torch.autograd.Function`` — K1
+forward (saving q, k, v, o and lse), K2 then K3 backward.
+:func:`flash_attention_fwd` goes through it whenever autograd needs a graph.
+
+Layout: BSHD ``[batch, seq, heads, head_dim]``. The kernels read strides, so
+views such as ``to_q(x).view(B, S, H, D)`` and autograd's gradients go in
+without a copy.
 """
 
 from __future__ import annotations
@@ -30,23 +48,35 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"fwd": CSRC / "flash_attention_fwd.cu", "bwd": CSRC / "flash_attention_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# exported C functions of each library and their ctypes argument types
+_SIGNATURES = {
+    "fwd": {"flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P]},
+    "bwd": {
+        "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+        "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
-build_info: dict = {}
+build_info: Dict[str, dict] = {}  # per source name: path, seconds, cached, ptxas
 
 
 def _nvcc() -> str:
@@ -56,63 +86,122 @@ def _nvcc() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the flash-attention kernel cannot be built")
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the flash-attention kernels cannot be built")
     return found
 
 
-def build() -> Path:
-    """Compile the kernel (once per source content) and return the library path.
-
-    The file name carries a hash of the source and flags, so an edited source
-    never loads a stale library; the compile writes to a temporary name and
-    renames, so two processes compiling at once never load a half-written file."""
-    src = SOURCE.read_bytes()
+def _library_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libflash_attention_fwd_{tag}.so"
-    if out.is_file():
-        build_info.update(path=str(out), seconds=0.0, cached=True)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=time.time() - t0, cached=False, ptxas=proc.stderr[-4000:])
+    return BUILD_DIR / f"lib{SOURCES[name].stem}_{tag}.so"
+
+
+def build(*names: str) -> Dict[str, Path]:
+    """Compile the named sources (all when none is named), once per source
+    content, and return ``{name: library path}``.
+
+    One ``nvcc`` per source, all started together. A file name carries a
+    hash of its source and flags, so an edited source never loads a stale
+    library; each compile writes to a temporary name and renames, so two
+    processes compiling at once never load a half-written file."""
+    names = names or tuple(SOURCES)
+    out, jobs = {}, {}
+    for name in names:
+        path = _library_path(name)
+        out[name] = path
+        if path.is_file():
+            build_info[name] = dict(path=str(path), seconds=0.0, cached=True)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        jobs[name] = (tmp, time.time(), subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures = []
+    for name, (tmp, t0, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{err[-4000:]}")
+            continue
+        os.replace(tmp, out[name])
+        build_info[name] = dict(path=str(out[name]), seconds=time.time() - t0, cached=False, ptxas=err)
+    if failures:
+        raise RuntimeError("\n".join(failures))
     return out
 
 
-def _library():
-    global _lib
+def _library(name: str) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.flash_attention_fwd
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)[name]))
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: fp32 logits and softmax, output in
-    the input dtype, lse fp32 ``[B·H, Sq]``."""
+    """Plain PyTorch version of K1: fp32 logits and softmax, output in the
+    input dtype, lse fp32 ``[B·H, Sq]``."""
     b, sq, h, _ = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     lse = torch.logsumexp(logits, dim=-1).reshape(b * h, sq)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
     return out, lse
+
+
+def _probs(q, k, lse, scale):
+    """P = exp(scale·QKᵀ − lse) in fp32, ``[B, H, Sq, Sk]``."""
+    b, sq, h, _ = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.exp(s - lse.reshape(b, h, sq, 1))
+
+
+def bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``."""
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
+    p = _probs(q, k, lse, scale)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype), delta.reshape(b * h, sq)
+
+
+def bwd_dkv_reference(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: ``(dK, dV)`` in k's / v's dtype."""
+    b, sq, h, _ = q.shape
+    p = _probs(q, k, lse, scale)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.reshape(b, h, sq, 1))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward (K2 then K3): fp32 math with P
+    recomputed from the forward's lse; gradients in the inputs' dtypes."""
+    dq, delta = bwd_dq_reference(q, k, v, o, lse, do, scale)
+    dk, dv = bwd_dkv_reference(q, k, v, lse, delta, do, scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -129,48 +218,47 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bidirectional attention, BSHD. Returns ``(out [B,Sq,H,D], lse [B·H,Sq])``.
-
-    CPU tensors go through :func:`flash_attention_reference`. CUDA tensors
-    launch kernel K1 on the current stream; the head dim must be 64 or 128,
-    the dtype float32 or bfloat16, and the head-dim stride 1."""
-    _check(q, k, v)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if scale is None:
-        scale = d**-0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, not {q.device}")
+def _check_kernel_inputs(*tensors: torch.Tensor) -> None:
+    """What every kernel needs of its BSHD tensors on the card."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, not {t0.device}")
+    b, _, h, d = t0.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {d}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel dtype must be float32 or bfloat16, got {q.dtype}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("kernel needs unit stride over the head dim")
+    if t0.dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel dtype must be float32 or bfloat16, got {t0.dtype}")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError("kernel tensors must share one device and dtype")
+        if t.stride(-1) != 1:
+            raise ValueError("kernel needs unit stride over the head dim")
     if b * h > 65535:
         raise ValueError(f"batch·heads = {b * h} exceeds the grid limit 65535")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        # the output would carry no graph and gradients would silently stop
-        raise NotImplementedError("kernel K1 has no backward yet (K2/K3); run it without autograd")
+
+
+def _strides(*tensors: torch.Tensor):
+    vals = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (or its plain version for CPU tensors), without autograd."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    _check_kernel_inputs(q, k, v)
+    b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-    )
-    lib = _library()
+    lib = _library("fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, sq, sk, d, strides, float(scale), stream,
+            _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, out), float(scale), _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
@@ -178,4 +266,105 @@ def flash_attention_fwd(
     return out, lse
 
 
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional attention, BSHD. Returns ``(out [B,Sq,H,D], lse [B·H,Sq])``.
+
+    CPU tensors go through :func:`flash_attention_reference`. CUDA tensors
+    launch kernel K1 on the current stream; the head dim must be 64 or 128,
+    the dtype float32 or bfloat16, and the head-dim stride 1. When autograd
+    needs a graph (grad mode on and an input that requires grad) the call
+    goes through :class:`FlashAttention`: ``out`` is differentiable, ``lse``
+    is not."""
+    _check(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, float(scale))
+    return _fwd(q, k, v, scale)
+
+
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])``. CPU tensors go
+    through :func:`bwd_dq_reference`."""
+    if q.device.type == "cpu":
+        return bwd_dq_reference(q, k, v, o, lse, do, scale)
+    _check_kernel_inputs(q, k, v, o, do)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    lib = _library("bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+            _strides(q, k, v, o, do, dq), float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: cudaError {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(dK, dV)`` in k's / v's dtype, from K2's δ. CPU tensors go
+    through :func:`bwd_dkv_reference`."""
+    if q.device.type == "cpu":
+        return bwd_dkv_reference(q, k, v, lse, delta, do, scale)
+    _check_kernel_inputs(q, k, v, do)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _library("bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
+            _strides(q, k, v, do, dk, dv), float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: cudaError {err}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_fwd`: K2 (dQ and δ), then K3
+    (dK, dV) on the same stream. CPU tensors go through the plain versions."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward. ``apply(q, k, v, scale) → (out, lse)``;
+    lse is returned for the caller and is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, d_out, d_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if d_out.stride(-1) != 1:  # the kernels read dO with unit head-dim stride
+            d_out = d_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, d_out, ctx.scale)
+        return dq, dk, dv, None

@@ -1,0 +1,95 @@
+"""Trainer-loop observability: the metrics jsonl and steps/s — counterpart
+of ``sliders_conceptmod_tpu/train/loop_utils.py``.
+
+Reading a loss as a Python float every step makes the host wait for the
+card and empties the launch queue, so :class:`MetricsLogger` buffers the
+device scalars and reads them in one batch every ``FLUSH_EVERY`` steps; it
+reads every step only in ``verbose`` mode, where the user asked for per-step
+prints. steps/s leaves out the first step (it carries the kernel build and
+the lazy CUDA set-up): the clock starts when the first step has finished on
+the device.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import time
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import torch
+
+FLUSH_EVERY = 64  # buffered steps per device-to-host read
+
+
+def steps_per_sec(n_steps: int, seconds: float) -> float:
+    return n_steps / seconds if n_steps and seconds > 0 else float("nan")
+
+
+def _sync(value) -> None:
+    if isinstance(value, torch.Tensor) and value.device.type == "cuda":
+        torch.cuda.synchronize(value.device)
+
+
+class MetricsLogger:
+    """Appends one JSON line per step to ``{name}_metrics.jsonl`` in
+    ``save_path`` and a closing ``{"steps_per_sec": ...}`` line. Tensor
+    metrics are buffered; host numbers are written as they are."""
+
+    def __init__(self, save_path, name: str, verbose: bool = False):
+        self.path = Path(save_path)
+        self.path.mkdir(parents=True, exist_ok=True)
+        # line-buffered, and flushed at exit: a crash mid-run keeps the rows
+        self._f = open(self.path / f"{name}_metrics.jsonl", "a", buffering=1)
+        atexit.register(self._flush_safe)
+        self.verbose = verbose
+        self._t_start: Optional[float] = None
+        self._n = 0
+        self._pending: List[Tuple[int, dict]] = []
+        self._last_loss = None
+        self.losses: List[float] = []
+        self.rows: List[dict] = []
+
+    def log(self, step: int, metrics: dict) -> None:
+        if self._t_start is None:
+            _sync(metrics["loss"])  # the first step has finished: start the clock
+            self._t_start = time.time()
+        else:
+            self._n += 1
+        self._last_loss = metrics["loss"]
+        self._pending.append((step, metrics))
+        if self.verbose or len(self._pending) >= FLUSH_EVERY:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        # one transfer for the whole buffer
+        names = [[k for k, v in m.items() if isinstance(v, torch.Tensor)] for _, m in pending]
+        values = torch.cat([torch.stack([m[k].float().reshape(()) for k in ks]) for (_, m), ks in zip(pending, names)])
+        values = iter(values.cpu().tolist())
+        for (step, m), ks in zip(pending, names):
+            row = {"step": step}
+            row.update({k: next(values) for k in ks})
+            row.update({k: v for k, v in m.items() if k not in ks})
+            self.losses.append(row["loss"])
+            self.rows.append(row)
+            self._f.write(json.dumps(row) + "\n")
+            if self.verbose:
+                print(f"step {step} loss*1k {row['loss'] * 1000:.4f}")
+
+    def _flush_safe(self) -> None:
+        if not self._f.closed:
+            self.flush()
+
+    def close(self) -> float:
+        """Flush, write steps/s (device-synchronised), close; returns steps/s."""
+        atexit.unregister(self._flush_safe)
+        _sync(self._last_loss)  # the last step has finished on the device
+        sps = steps_per_sec(self._n, time.time() - self._t_start) if self._t_start else float("nan")
+        self.flush()
+        self._f.write(json.dumps({"steps_per_sec": sps}) + "\n")
+        self._f.close()
+        return sps

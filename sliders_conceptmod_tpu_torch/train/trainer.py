@@ -1,0 +1,204 @@
+"""Textual-slider trainer — counterpart of ``sliders_conceptmod_tpu/train/trainer.py``
+for SDXL.
+
+Flow (reference ``conceptmod/textsliders/train_lora_xl.py:41-394``): load the
+models on the device at ``train.precision`` → LoRA sites and factors →
+encode and stack the 5 prompts per pair, then free the text towers → one ESD
+step per iteration (``train/esd.py``) → periodic and final ``.safetensors``
+saves in the reference key schema at ``save.precision``, a resume checkpoint
+beside each periodic save, and the metrics jsonl.
+
+The XL reference quirk is kept: with ``tpu.honor_network_config: false`` the
+optimizer is the reference's hardcoded AdamW (lr 1e-4, weight decay 1e-6,
+cosine over 50 steps to 1e-6) with grad clip 0.2, whatever ``train.*`` says.
+
+Knobs of the JAX trainer that this port does not carry yet raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, List, Optional
+
+import torch
+
+from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
+from sliders_conceptmod_tpu_torch.core.config import (
+    RootConfig,
+    parse_precision,
+    parse_save_precision,
+    resolve_student_overlay,
+)
+from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
+from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
+from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
+from sliders_conceptmod_tpu_torch.train import esd
+from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
+from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
+
+_QUEUE1 = "ROADMAP.md queue 1"
+
+
+def _uniform_field(prompts: List[PromptSettings], field: str):
+    vals = {getattr(p, field) for p in prompts}
+    if len(vals) > 1:
+        raise NotImplementedError(f"All prompt pairs must share one {field} per run (got {vals})")
+    return vals.pop()
+
+
+def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type: str) -> None:
+    """Refuse what the port does not carry yet, naming where it is queued."""
+    tpu = config.tpu
+    if peft_type != "lora":
+        raise NotImplementedError(f"peft_type {peft_type!r}: DoRA is not ported yet ({_QUEUE1}, the other trainers)")
+    if tpu.samples_per_step > 1:
+        raise NotImplementedError(f"tpu.samples_per_step > 1 is not ported yet ({_QUEUE1}, ESD knobs)")
+    for knob in ("pipeline_warmup", "share_warmup", "fuse_teacher_student"):
+        if getattr(tpu, knob):
+            raise NotImplementedError(f"tpu.{knob} is not ported yet ({_QUEUE1}, ESD knobs)")
+    if tpu.quantize_base or tpu.w8a8_warmup:
+        raise NotImplementedError(f"tpu.quantize_base / tpu.w8a8_warmup are not ported yet ({_QUEUE1}, int8 / W8A8)")
+    if tpu.mesh_model != 1 or tpu.mesh_data not in (-1, 1) or (tpu.num_processes or 1) > 1 or tpu.sequence_parallel:
+        raise NotImplementedError(f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, parallelism)")
+    if tpu.profile_dir:
+        raise NotImplementedError(f"tpu.profile_dir (a trace of the run) is not ported yet ({_QUEUE1})")
+    if any(p.dynamic_resolution for p in prompts):
+        raise NotImplementedError(f"dynamic_resolution is not ported yet ({_QUEUE1}, ESD knobs)")
+    if any(p.dynamic_crops for p in prompts):
+        raise NotImplementedError(f"dynamic_crops is not ported yet ({_QUEUE1}, ESD knobs)")
+
+
+@dataclass
+class TrainResult:
+    sites: list
+    lora_params: dict
+    losses: List[float]
+    steps_per_sec: float  # over the steps after the first
+    metrics: List[dict] = field(default_factory=list)  # the jsonl rows
+    setup_seconds: float = float("nan")  # models, sites, prompt bank: entry to the first step
+    first_step_seconds: float = float("nan")  # the first step, finished on the device
+    # one more ESD step on the trained state (for a profile or a benchmark)
+    next_step: Optional[Callable[[], dict]] = None
+
+
+def train(
+    config: RootConfig,
+    prompts: List[PromptSettings],
+    rank: int = 4,
+    peft_type: str = "lora",
+    on_step_complete: Optional[Callable[[int], None]] = None,
+    save_file: bool = True,
+    resume_from: Optional[str] = None,
+    device: str = "cuda",
+) -> TrainResult:
+    """Train one slider. Runs on ``cuda`` unless ``device="cpu"``."""
+    t_entry = time.time()
+    tpu_cfg = config.tpu
+    is_xl = "xl" in str(config.pretrained_model.name_or_path).lower()
+    if not is_xl:
+        raise NotImplementedError(f"SD1/SD2 training (cli/train_lora.py) is not ported yet ({_QUEUE1}, next slice)")
+    check_supported(config, prompts, peft_type)
+    resolve_student_overlay(tpu_cfg)
+    device = torch.device(device)
+    weight_dtype = parse_precision(config.train.precision)
+    save_dtype = parse_save_precision(config.save.precision)
+    save_path = Path(config.save.path)
+    metadata = {
+        "prompts": json.dumps([p.model_dump() for p in prompts]),
+        "config": config.model_dump_json(),
+    }
+
+    # --- models -----------------------------------------------------------
+    _, text_encoders, unet, scheduler = factory.load_models_xl(
+        config.pretrained_model.name_or_path,
+        scheduler_name=config.train.noise_scheduler,
+        weight_dtype=weight_dtype,
+        device=str(device),
+    )
+
+    def encode_fn(prompt: str):
+        text, pooled = factory.encode_prompts_xl(text_encoders, [prompt])
+        return text[0], pooled[0]
+
+    # --- adapter ----------------------------------------------------------
+    target_replace = ["Attention"]
+    if config.network.type == "c3lier":
+        target_replace = lora_lib.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + lora_lib.UNET_TARGET_REPLACE_MODULE_CONV
+    sites = lora_lib.create_sites(
+        unet, rank=rank, alpha=config.network.alpha, target_replace=target_replace,
+        train_method=config.network.training_method,
+    )
+    init_gen = torch.Generator().manual_seed(tpu_cfg.seed)
+    lora_params = lora_lib.init_lora_params(sites, generator=init_gen)
+    for leaf in lora_params.values():
+        for k in leaf:
+            leaf[k] = leaf[k].to(device).requires_grad_(True)
+
+    # --- optimizer --------------------------------------------------------
+    iterations = config.train.iterations
+    if not tpu_cfg.honor_network_config:
+        # reference hardcoded values, train_lora_xl.py:104-105,349
+        optimizer = get_optimizer("adamw", get_lr_schedule("cosine", 1e-4, 50, 1e-6), weight_decay=1e-6,
+                                  grad_clip_norm=0.2)
+    else:
+        sched = get_lr_schedule(config.train.lr_scheduler, config.train.lr, iterations, config.train.eta_min)
+        optimizer = get_optimizer(config.train.optimizer, sched, config.train.optimizer_args, grad_clip_norm=0.2)
+
+    # --- prompt bank, then the text towers are freed ----------------------
+    bank = esd.build_prompt_bank(prompts, encode_fn)
+    del encode_fn, text_encoders  # the closure holds the towers: drop both
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    resolution = _uniform_field(prompts, "resolution")
+    batch_size = _uniform_field(prompts, "batch_size")
+    schedule = scheduler.set_timesteps(config.train.max_denoising_steps)
+    ecfg = esd.ESDConfig(
+        max_denoising_steps=config.train.max_denoising_steps,
+        train_cfg_scale=config.train.cfg,
+        batch_size=batch_size,
+        height=resolution,
+        width=resolution,
+    )
+    add_tids = torch.from_numpy(get_add_time_ids(resolution, resolution)).to(device)
+    step_fn = esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
+                                      add_time_ids=add_tids)
+    opt_state = optimizer.init(flat_params(sites, lora_params))
+    rng = esd.TrainRNG(tpu_cfg.seed, device)
+    start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
+
+    save_path.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
+
+    if config.logging.use_wandb:
+        print("wandb is not part of the port: metrics go to the jsonl only")
+
+    # --- loop -------------------------------------------------------------
+    t_loop = time.time()
+    first_step_seconds = float("nan")
+    for i in range(start_step, iterations):
+        metrics = step_fn(opt_state, bank, rng)
+        logger.log(i, metrics)  # waits for the first step to finish on the device
+        if i == start_step:
+            first_step_seconds = time.time() - t_loop
+        if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
+            lora_lib.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
+                                  dtype=save_dtype, metadata=metadata)
+            ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
+        if on_step_complete is not None:
+            on_step_complete(i)
+
+    sps = logger.close()
+    if save_file:
+        lora_lib.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
+                              dtype=save_dtype, metadata=metadata)
+    return TrainResult(
+        sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps, metrics=logger.rows,
+        setup_seconds=t_loop - t_entry, first_step_seconds=first_step_seconds,
+        next_step=lambda: step_fn(opt_state, bank, rng),
+    )

@@ -117,7 +117,8 @@ def test_module_imports_without_nvcc_or_triton():
         sys.meta_path.insert(0, Refuse())
         from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
         from sliders_conceptmod_tpu_torch.ops import attention
-        assert fa._lib is None and fa.flash_attention_fwd.launches == 0
+        assert fa._libs == {} and fa.flash_attention_fwd.launches == 0
+        assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dkv.launches == 0
         print("imported")
         """
     )

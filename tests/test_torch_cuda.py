@@ -1,5 +1,6 @@
-"""Kernel K1 on the card: edge shapes, strided views, the dispatch's head-dim
-padding, input checks and the launch count. Marked ``cuda``; every test
+"""Kernels K1, K2 and K3 on the card: edge shapes, strided views (dO from
+autograd included), the dispatch's head-dim padding, gradients through the
+autograd Function, input checks and the launch counts. Marked ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
 
@@ -105,8 +106,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, q.cpu(), q)  # devices
     leaf = q.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_fwd(leaf, q, q)  # no backward kernel yet: refuse, never drop the graph
     with torch.no_grad():
         fa.flash_attention_fwd(leaf, q, q)
     assert fa.flash_attention_fwd.launches == before + 1
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, q, q, q, torch.zeros(2, 8, device="cuda"), q.half(), 0.125)  # dO dtype
+
+
+def _bwd_inputs(gen, shape, dtype):
+    b, sq, sk, h, d = shape
+    # N(0,1) as on the training path: with larger logits |dK| reaches 8 and
+    # more, where bf16's own rounding (2^-8 of the value) passes the 3e-2 cap
+    q, do = (_rand(gen, (b, sq, h, d), dtype) for _ in range(2))
+    k, v = (_rand(gen, (b, sk, h, d), dtype) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def _grad_tol(ref, dtype):
+    # fp32: the same math up to summation order. bf16: rounding the gradient
+    # alone costs up to 2^-8 of its value, so 2e-2 of the largest — with no
+    # 3e-2 cap, since gradients are not bounded as softmax outputs are (with
+    # one key dV is the sum of the dO rows, |dV| up to ~14 here) — and never
+    # below the fp32 bound: with one key dQ is 0 in exact math (δ = dO·v) and
+    # only summation order is left on either side
+    m = ref.abs().max().item()
+    return 1e-4 * max(1.0, m) if dtype == torch.float32 else max(1e-4, 2e-2 * m)
+
+
+@pytest.mark.parametrize("shape", EDGE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_version(gen, shape, dtype):
+    q, k, v, o, lse, do = _bwd_inputs(gen, shape, dtype)
+    b0, b1 = fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (b0 + 1, b1 + 1)
+    want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                            shape[-1] ** -0.5)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        err = (g.float() - w).abs().max().item()
+        assert err <= _grad_tol(w, dtype), (name, err, w.abs().max().item())
+
+
+def test_backward_takes_strided_do_and_views(gen):
+    """dO as a non-contiguous view (a head slice of a wider tensor) and q/k/v
+    as views of a packed tensor give bit-identical gradients to contiguous
+    copies."""
+    b, s, h, d = 2, 130, 3, 64
+    qkv = _rand(gen, (b, s, 3, h, d), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    wide = _rand(gen, (b, s, 2 * h, d), torch.bfloat16)
+    do = wide[:, :, 1::2]
+    assert not do.is_contiguous() and not q.is_contiguous()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+    want = fa.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do.contiguous(), 0.125)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_autograd_through_the_dispatch_runs_k1_k2_k3(gen, d):
+    """Gradients of the dispatch (head dims padded to 64/128 through F.pad)
+    against torch autograd through the plain version, fp32."""
+    q, k, v = (_rand(gen, (2, s, 3, d), torch.float32).requires_grad_(True) for s in (97, 77, 77))
+    w = _rand(gen, (2, 97, 3, d), torch.float32)
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+                      fa.flash_attention_bwd_dkv.launches)
+    before = counts()
+    (attn.dot_product_attention(q, k, v) * w).sum().backward()
+    assert counts() == tuple(c + 1 for c in before)
+    got = [x.grad.clone() for x in (q, k, v)]
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    (fa.flash_attention_reference(qr, kr, vr, d**-0.5)[0] * w).sum().backward()
+    for g, x in zip(got, (qr, kr, vr)):
+        assert (g - x.grad).abs().max().item() <= 1e-4 * max(1.0, x.grad.abs().max().item())
