@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. build        — compile K1 (csrc/flash_attention_fwd.cu) and K2/K3
-                  (csrc/flash_attention_bwd.cu) with nvcc for sm_90a, one
+1. build        — compile K1 (csrc/flash_attention_fwd.cu), K2/K3
+                  (csrc/flash_attention_bwd.cu) and K4a
+                  (csrc/flash_attention_kgrid.cu) with nvcc for sm_90a, one
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
@@ -22,27 +23,45 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   K1's out and lse, which K2/K3 take, are held against the
                   plain version at the same shapes, at batch 1 (warm-up and
                   student) and 3 (the teacher's rows).
-4. parity       — the tiny-xl sampler on the card (K1 inside every UNet
+4. kernel_kgrid — K4a (O and lse) against its plain version at the VAE
+                  mid-block's shapes (one head, d 512): 16384² at rows 1 and 2
+                  (the 1024px decode of serving), 4096² at rows 4 (the 512px
+                  encode of one image folder) and rows 1, bf16 and fp32; ragged
+                  Sq 300 × Sk 77 (B 2, H 2, d 64 and 512); the key-range split
+                  forced to 1 and to more than 1. Times the kernel, its plain
+                  version and SDPA (a yardstick) at every path shape in bf16.
+5. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
-5. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
+6. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
                   the same step on the CPU: weights, LoRA factors, draws, fp32.
-6. serve        — full-width SDXL (random weights from a seed) at 1024px, 25 DDIM
+7. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
+                  in the encoder's mid-block) and one tiny-xl image-pair step
+                  (K1/K2/K3) on the card against the same on the CPU, fp32.
+8. serve        — full-width SDXL (random weights from a seed) at 1024px, 25 DDIM
                   steps: a rank-4 slider made with create_sites, written with the
                   port's .safetensors writer and loaded through add_slider; four
                   requests (scale 0, +2, and -2/+1 concurrently in one micro-batch);
-                  K1's launch count per sampler call; latency, images/s, peak memory.
-7. http         — one /generate through make_handler on localhost.
-8. profile      — one more request under torch.profiler: device busy time,
+                  K1's launch count per sampler call and K4a's per decode;
+                  latency, images/s, peak memory.
+9. http         — one /generate through make_handler on localhost.
+10. profile     — one more request under torch.profiler: device busy time,
                   the idle share, and the kernels that take the device time.
-9. train        — full-width SDXL ESD slider training at 512px through
+11. train       — full-width SDXL ESD slider training at 512px through
                   trainer.train from data/config-xl.yaml + data/prompts-xl.yaml
                   (only train.iterations and save.path overridden): finite
                   losses, moving factors, the saved file's keys, K1/K2/K3
                   launch counts per step, steps/s, first-step seconds, peak
                   memory; then one more step under torch.profiler.
-10. kernels     — every ported kernel with its launches on its paths (serving:
-                  phases 6 and 7, counted from 0 just before phase 6;
-                  training: phase 9, counted from 0 just before it).
+12. imageslider — full-width SDXL image-pair slider training at 512px through
+                  cli/train_lora_scale.train from the same YAML files, four
+                  folders of four synthetic PNGs at scales -2, -1, 1, 2: bank
+                  build seconds, K4a launches at the bank build, K1/K2/K3 per
+                  step, losses, moving factors, saved keys, steps/s, first
+                  step, peak memory; then one more step under torch.profiler.
+13. kernels     — every ported kernel with its launches on its paths (serving:
+                  phases 8 and 9; training: phase 11; image-pair training:
+                  phase 12; each counted from 0 just before it). On every
+                  path the plain attention versions ran 0 times on the card.
 
 Then the card as nvidia-smi names it, and the result line.
 """
@@ -50,6 +69,7 @@ Then the card as nvidia-smi names it, and the result line.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import re
 import subprocess
@@ -66,23 +86,26 @@ import torch
 import torch.nn.functional as F
 
 from sliders_conceptmod_tpu_torch.adapters import lora
+from sliders_conceptmod_tpu_torch.cli import train_lora_scale
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.infer.generate import sample_loop_scales
-from sliders_conceptmod_tpu_torch.io.png import decode_png
+from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
+from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 from sliders_conceptmod_tpu_torch.serve import SliderService, make_handler
-from sliders_conceptmod_tpu_torch.train import esd, trainer
+from sliders_conceptmod_tpu_torch.train import esd, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# K1 vs its fp32 plain version. fp32: the same math up to summation order.
+# K1 and K4a vs their fp32 plain versions. fp32: the same math up to
+# summation order (1e-4 flat; at most the 1e-4·max(1, max|ref|) asked of K4a).
 # bf16: rounding the output alone costs up to 2^-8·|out|, so the bound is
 # 2e-2 of the reference's largest value (and never above 3e-2). At 4096² with
 # N(0,1) inputs the output's typical value is ~sqrt(e/4096) ≈ 0.026 and this
@@ -106,6 +129,19 @@ TRAIN_SHAPES = [
     ("cross_256x77", 256, 77, 20),
 ]
 TRAIN_ITERATIONS = 6
+# (name, rows, tokens): K4a's calls on the paths, the VAE mid-block attention
+# (one head, head dim = channels = 512)
+KGRID_D = 512
+KGRID_PATH_SHAPES = [
+    ("decode_16384", 1, 16384),  # serving: the decode of one 1024px image
+    ("decode_16384", 2, 16384),  # serving: the concurrent pair's decode
+    ("encode_4096", 4, 4096),  # image-pair training: one folder of four 512px images
+    ("encode_4096", 1, 4096),  # one image: the launcher splits the key range
+]
+# image-pair training: folder i holds the renders at IMAGE_SCALES[i]
+IMAGE_FOLDERS = ["minus2", "minus1", "plus1", "plus2"]
+IMAGE_SCALES = [-2.0, -1.0, 1.0, 2.0]
+IMAGES_PER_FOLDER = 4
 REPO = Path(__file__).resolve().parent
 
 
@@ -183,21 +219,33 @@ def grad_tol(ref: torch.Tensor, dtype) -> float:
     return FP32_TOL * max(1.0, m) if dtype == torch.float32 else max(FP32_TOL, BF16_REL * m)
 
 
-def check_k1(q, k, v, what: str) -> dict:
-    """K1 against its fp32 plain version on q, k, v; raises on disagreement.
-    Returns (out, lse) and the errors with their bounds."""
+def check_fwd(name: str, kernel, plain, q, k, v, what: str) -> dict:
+    """A forward kernel (K1 or K4a) against its plain version on q, k, v in
+    fp32; raises on disagreement. Returns (out, lse) and the errors with their
+    bounds."""
     d = q.shape[-1]
-    out, lse = fa.flash_attention_fwd(q, k, v)
+    out, lse = kernel(q, k, v)
     torch.cuda.synchronize()
-    ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
+    ref_out, ref_lse = plain(q.float(), k.float(), v.float(), d**-0.5)
     err = (out.float() - ref_out).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ref_max = ref_out.abs().max().item()
     tol = min(BF16_TOL, BF16_REL * ref_max) if q.dtype == torch.bfloat16 else FP32_TOL
     if not err <= tol or not lse_err <= LSE_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version at {what}: {err} > {tol} (lse {lse_err})")
+        raise AssertionError(f"{name} disagrees with its plain version at {what}: {err} > {tol} (lse {lse_err})")
     return dict(out=out, lse=lse, max_abs_err=err, ref_max_abs=ref_max, tol=tol, lse_max_abs_err=lse_err,
                 lse_tol=LSE_TOL)
+
+
+def check_k1(q, k, v, what: str) -> dict:
+    return check_fwd("K1", fa.flash_attention_fwd, fa.flash_attention_reference, q, k, v, what)
+
+
+def check_k4a(q, k, v, what: str, splits=None) -> dict:
+    """K4a with ``splits`` (None: the launcher's choice) against its plain
+    version cut into the same key ranges."""
+    return check_fwd("K4a", functools.partial(kg.flash_attention_kgrid_fwd, splits=splits),
+                     functools.partial(kg.flash_attention_kgrid_reference, splits=splits), q, k, v, what)
 
 
 def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
@@ -310,6 +358,58 @@ def phase_kernel(gen: torch.Generator) -> list:
     return results
 
 
+def sdpa_ms(q, k, v, iters: int):
+    """F.scaled_dot_product_attention on the same BSHD tensors, or None when
+    no backend takes them."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+    except RuntimeError:
+        return None
+
+
+def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
+    """K4a vs its plain version at the VAE's path shapes (bf16 and fp32,
+    timed in bf16), ragged shapes and forced split counts. Returns the timed
+    rows and every check's error."""
+    d = KGRID_D
+    rows_out, errors = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, rows, s in KGRID_PATH_SHAPES:
+            q, k, v = (torch.randn((rows, s, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+            c = check_k4a(q, k, v, f"{name} rows={rows} {dtype}")
+            row = dict(phase="kernel_kgrid", shape=name, rows=rows, sq=s, sk=s, heads=1, head_dim=d,
+                       dtype=str(dtype), splits=kg.pick_splits(rows, s, s),
+                       **{key: val for key, val in c.items() if key not in ("out", "lse")})
+            del c
+            errors.append(row["max_abs_err"])
+            if dtype == torch.bfloat16:
+                row.update(kernel_ms=cuda_ms(lambda: kg.flash_attention_kgrid_fwd(q, k, v), 5),
+                           plain_ms=cuda_ms(lambda: kg.flash_attention_kgrid_reference(q, k, v, d**-0.5), 2),
+                           library_ms=sdpa_ms(q, k, v, 5))
+                row["bound_ms"], row["bound_by"] = bound(rows, s, s, 1, d, dtype)
+                rows_out.append(row)
+            emit(row)
+            del q, k, v
+            torch.cuda.empty_cache()
+
+    # the split forced to 1 and to more than 1: at one 512px image (the
+    # launcher picks 3) and at the JAX test's ragged shape (3 key tiles)
+    checks = []
+    cases = [(1, 4096, 4096, 1, 512, sp) for sp in (1, 6)]
+    cases += [(2, 300, 77, 2, dd, sp) for dd in (64, 512) for sp in (1, 3)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, sk, h, dd, splits in cases:
+            q = torch.randn((b, sq, h, dd), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, sk, h, dd), generator=gen, device="cuda").to(dtype) for _ in range(2))
+            c = check_k4a(q, k, v, f"B {b} Sq {sq} Sk {sk} H {h} d {dd} splits {splits} {dtype}", splits=splits)
+            checks.append(dict(dtype=str(dtype), b=b, sq=sq, sk=sk, heads=h, head_dim=dd, splits=splits,
+                               max_abs_err=c["max_abs_err"], tol=c["tol"], lse_max_abs_err=c["lse_max_abs_err"]))
+            errors.append(c["max_abs_err"])
+    emit(dict(phase="kernel_kgrid", forced_splits_and_ragged=checks))
+    return rows_out, errors
+
+
 def phase_parity() -> None:
     """tiny-xl sampler: card (K1 in every UNet attention) vs CPU (plain)."""
     _, _, unet_cpu, sched, _ = factory.load_models_xl("tiny-xl", scheduler_name="ddim", device="cpu", with_vae=True)
@@ -342,12 +442,32 @@ def phase_parity() -> None:
         raise AssertionError(f"tiny-xl sampler launched K1 {launches} times")
 
 
+KERNEL_WRAPPERS = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                   kg.flash_attention_kgrid_fwd)  # K1, K2, K3, K4a
+PLAIN_FORWARDS = (fa.flash_attention_reference, kg.flash_attention_kgrid_reference)
+
+
 def counts() -> tuple:
-    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    """Launches of K1, K2, K3, K4a."""
+    return tuple(fn.launches for fn in KERNEL_WRAPPERS)
+
+
+def plain_calls() -> tuple:
+    """Calls of the plain forwards (K1's, K4a's) on CUDA tensors."""
+    return tuple(fn.cuda_calls for fn in PLAIN_FORWARDS)
 
 
 def reset_counts() -> None:
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dq.launches = fa.flash_attention_bwd_dkv.launches = 0
+    """Every launch count and plain-call count to 0, just before a path."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    for fn in PLAIN_FORWARDS:
+        fn.cuda_calls = 0
+
+
+def check_no_plain(path: str) -> None:
+    if plain_calls() != (0, 0):
+        raise AssertionError(f"{path}: a plain attention version ran on the card {plain_calls()} times")
 
 
 def phase_train_parity() -> None:
@@ -388,11 +508,87 @@ def phase_train_parity() -> None:
     factor_err = max(float(np.abs(got[2][k] - want[2][k]).max()) for k in want[2])
     emit(dict(phase="train_parity", model="tiny-xl", timesteps_to=t_to, loss_card=got[0], loss_cpu=want[0],
               loss_abs_err=loss_err, grad_norm_card=got[1], grad_norm_cpu=want[1], factor_max_abs_err=factor_err,
-              tol=1e-3, launches_k1_k2_k3=launches))
+              tol=1e-3, launches_k1_k2_k3_k4a=launches))
     if not (loss_err <= 1e-3 * max(1.0, abs(want[0])) and factor_err <= 1e-3):
         raise AssertionError(f"tiny-xl ESD step on the card differs from the CPU: loss {loss_err}, factors {factor_err}")
-    if launches != [(t_to + 2) * per_fwd, per_fwd, per_fwd]:
-        raise AssertionError(f"tiny-xl ESD step launched K1/K2/K3 {launches} times")
+    if launches != [(t_to + 2) * per_fwd, per_fwd, per_fwd, 0]:
+        raise AssertionError(f"tiny-xl ESD step launched K1/K2/K3/K4a {launches} times")
+
+
+def write_image_folders(root: Path, folders, names, size: int, seed: int) -> None:
+    """Paired synthetic PNGs: every folder holds the same file names; image
+    ``name`` is one smooth random pattern per name, a brightness step
+    brighter in each next folder (the 'concept' the slider learns)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for name in names:
+        freq, phase = rng.uniform(1, 4, (2, 3)), rng.uniform(0, 2 * np.pi, (3,))
+        base = np.stack([np.sin(2 * np.pi * freq[0, c] * xx + phase[c]) * np.cos(2 * np.pi * freq[1, c] * yy)
+                         for c in range(3)], -1) * 50 + 128 + rng.normal(0, 6, (size, size, 3))
+        for i, folder in enumerate(folders):
+            (root / folder).mkdir(parents=True, exist_ok=True)
+            img = np.clip(base + 30 * (i - (len(folders) - 1) / 2), 0, 255).astype(np.uint8)
+            (root / folder / name).write_bytes(encode_png(img))
+
+
+def phase_imageslider_parity(tmp: Path) -> None:
+    """The image bank through the full SDXL VAE at 64px (K4a in the encoder's
+    mid-block, 8×8 tokens × d 512) and one tiny-xl image-pair step (K1/K2/K3),
+    fp32: card vs CPU, same weights, factors, prompts and draws."""
+    _, tes, unet_cpu, sched, vae_cpu = factory.load_models_xl("tiny-xl", scheduler_name="euler_a", device="cpu",
+                                                              with_vae=True)
+    unet_gpu, vae_gpu = copy.deepcopy(unet_cpu).to("cuda"), copy.deepcopy(vae_cpu).to("cuda")
+    root = tmp / "parity_images"
+    write_image_folders(root, IMAGE_FOLDERS, ["a.png", "b.png"], 64, seed=3)
+    sites = lora.create_sites(unet_cpu, rank=2, train_method="full")
+    g = torch.Generator().manual_seed(5)
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+    text, pooled = {}, {}
+    for role, prompt in (("positive", "a photo of a person, smiling"), ("neutral", "a photo of a person")):
+        t, p = factory.encode_prompts_xl(tes, [prompt])
+        text[role], pooled[role] = t[0].clone(), p[0].clone()
+    cfg = imageslider.ImageSliderConfig(max_denoising_steps=4, scaling_factor=vae_cpu.config.scaling_factor)
+    draws = imageslider.Draws(pair=1, image=1, timesteps_to=2, posterior_noise=torch.randn((4, 8, 8), generator=g),
+                              noise=torch.randn((1, 4, 8, 8), generator=g))
+
+    def run(unet, vae, device):
+        bank = imageslider.build_image_bank(str(root), IMAGE_FOLDERS, IMAGE_SCALES, vae.encode, 64, device=device)
+        lp_d = {n: {k: t.to(device).clone().requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10))
+        step = imageslider.make_image_slider_step(
+            unet, sites, lp_d, sched, sched.set_timesteps(cfg.max_denoising_steps), opt, cfg,
+            text["positive"].to(device), text["neutral"].to(device),
+            pooled={r: p.to(device) for r, p in pooled.items()},
+            add_time_ids=torch.from_numpy(get_add_time_ids(64, 64)).to(device))
+        d = imageslider.Draws(draws.pair, draws.image, draws.timesteps_to, draws.posterior_noise.to(device),
+                              draws.noise.to(device))
+        m = step(opt.init(flat_params(sites, lp_d)), bank, draws=d)
+        return bank, float(m["loss"]), lora.state_dict_numpy(sites, lp_d)
+
+    reset_counts()
+    bank, loss, factors = run(unet_gpu, vae_gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("imageslider_parity")
+    want_bank, want_loss, want_factors = run(unet_cpu, vae_cpu, "cpu")
+    moment_err = max((bank.mean.cpu() - want_bank.mean).abs().max().item(),
+                     (bank.logvar.cpu() - want_bank.logvar).abs().max().item())
+    moment_tol = 1e-3 * max(1.0, want_bank.mean.abs().max().item(), want_bank.logvar.abs().max().item())
+    loss_err = abs(loss - want_loss)
+    factor_err = max(float(np.abs(factors[k] - want_factors[k]).max()) for k in want_factors)
+    per_fwd = unet_gpu.config.attention_calls_per_forward()
+    want_launches = [per_fwd, per_fwd, per_fwd, len(IMAGE_FOLDERS)]
+    emit(dict(phase="imageslider_parity", model="tiny-xl + SDXL VAE", image_size=64, bank_shape=list(bank.mean.shape),
+              pair_table=bank.pair_table, moment_max_abs_err=moment_err, moment_tol=moment_tol, loss_card=loss,
+              loss_cpu=want_loss, loss_abs_err=loss_err, factor_max_abs_err=factor_err, tol=1e-3,
+              launches_k1_k2_k3_k4a=launches))
+    if not (moment_err <= moment_tol and loss_err <= 1e-3 * max(1.0, abs(want_loss)) and factor_err <= 1e-3):
+        raise AssertionError(f"the image-pair bank or step on the card differs from the CPU: moments {moment_err}, "
+                             f"loss {loss_err}, factors {factor_err}")
+    if bank.pair_table != want_bank.pair_table or launches != want_launches:
+        raise AssertionError(f"image-pair parity: pair table {bank.pair_table}, launches {launches} "
+                             f"(expected {want_launches})")
 
 
 def device_profile(fn) -> dict:
@@ -417,30 +613,27 @@ def device_profile(fn) -> dict:
     out = dict(wall_seconds_profiled=wall, device_kernels=n_kernels, device_busy_seconds=busy if by_name else "not measured",
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
-    for key, kernel in (("k1", "flash_fwd_kernel"), ("k2", "flash_bwd_dq_kernel"), ("k3", "flash_bwd_dkv_kernel")):
+    for key, kernel in (("k1", "flash_fwd_kernel"), ("k2", "flash_bwd_dq_kernel"), ("k3", "flash_bwd_dkv_kernel"),
+                        ("k4a", "kgrid_")):
         secs = sum(v for k, v in by_name.items() if kernel in k)
         out[f"{key}_seconds"] = secs
         out[f"{key}_share_of_busy"] = secs / busy if busy else "not measured"
     return out
 
 
-def phase_train(tmp: Path) -> tuple:
-    """Full-width SDXL ESD training at 512px through trainer.train."""
+def xl_train_config(save_dir: Path):
+    """data/config-xl.yaml as it is, but for train.iterations and save.path."""
     cfg = load_config_from_yaml(str(REPO / "data" / "config-xl.yaml"))
     cfg.prompts_file = str(REPO / cfg.prompts_file)
     cfg.train.iterations = TRAIN_ITERATIONS
-    cfg.save.path = str(tmp / "train")
-    prompts = load_prompts_from_yaml(cfg.prompts_file)
-    per_fwd = UNetConfig.sdxl().attention_calls_per_forward()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # count the training path only
-    t0 = time.time()
-    res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
-    wall = time.time() - t0
-    launches = list(counts())
-    t_to = [row["timesteps_to"] for row in res.metrics]
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg.save.path = str(save_dir)
+    return cfg, load_prompts_from_yaml(cfg.prompts_file)
 
+
+def trained_summary(cfg, res) -> dict:
+    """The saved ``_last.safetensors`` against the reference key schema for
+    the config's sites, and how many LoRA ``up`` factors are still at their
+    0 start."""
     saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
     with torch.device("meta"):
         meta_unet = UNet2DConditionModel(UNetConfig.sdxl())
@@ -448,7 +641,36 @@ def phase_train(tmp: Path) -> tuple:
                                   train_method=cfg.network.training_method)
     want_keys = {f"{s.lora_name}.{k}" for s in ref_sites for k in ("lora_down.weight", "lora_up.weight", "alpha")}
     ups_zero = [n for n, leaf in res.lora_params.items() if not leaf["up"].detach().abs().max().item() > 0]
-    want_launches = [sum(t + 2 for t in t_to) * per_fwd, TRAIN_ITERATIONS * per_fwd, TRAIN_ITERATIONS * per_fwd]
+    return dict(saved_keys=len(saved), saved_keys_match_reference=set(saved) == want_keys,
+                up_factors_still_zero=len(ups_zero))
+
+
+def check_trained(what: str, res, summary: dict, launches, want_launches) -> None:
+    if not all(np.isfinite(res.losses)) or len(res.losses) != TRAIN_ITERATIONS:
+        raise AssertionError(f"{what}: losses {res.losses}")
+    if summary["up_factors_still_zero"]:
+        raise AssertionError(f"{what}: {summary['up_factors_still_zero']} LoRA up factors are still zero")
+    if not summary["saved_keys_match_reference"]:
+        raise AssertionError(f"{what}: the saved slider's keys are not the reference schema")
+    if launches != want_launches:
+        raise AssertionError(f"{what} launched K1/K2/K3/K4a {launches} times, expected {want_launches}")
+
+
+def phase_train(tmp: Path) -> tuple:
+    """Full-width SDXL ESD training at 512px through trainer.train."""
+    cfg, prompts = xl_train_config(tmp / "train")
+    per_fwd = UNetConfig.sdxl().attention_calls_per_forward()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # count the training path only
+    t0 = time.time()
+    res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain("train")
+    t_to = [row["timesteps_to"] for row in res.metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = trained_summary(cfg, res)
+    want_launches = [sum(t + 2 for t in t_to) * per_fwd, TRAIN_ITERATIONS * per_fwd, TRAIN_ITERATIONS * per_fwd, 0]
     row = dict(
         phase="train", model=cfg.pretrained_model.name_or_path, image_size=prompts[0].resolution,
         scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
@@ -456,23 +678,58 @@ def phase_train(tmp: Path) -> tuple:
         losses=res.losses, grad_norms=[r["grad_norm"] for r in res.metrics], timesteps_to=t_to,
         steps_per_sec_after_first=res.steps_per_sec, first_step_seconds=res.first_step_seconds,
         setup_seconds_models_and_prompt_bank=res.setup_seconds, wall_seconds=wall,
-        max_memory_allocated_gib=peak, launches_k1_k2_k3=launches, expected_launches=want_launches,
-        saved_keys=len(saved), saved_keys_match_reference=set(saved) == want_keys,
+        max_memory_allocated_gib=peak, launches_k1_k2_k3_k4a=launches, expected_launches=want_launches,
+        **summary,
     )
     emit(row)
-    if not all(np.isfinite(res.losses)) or len(res.losses) != TRAIN_ITERATIONS:
-        raise AssertionError(f"training losses {res.losses}")
-    if ups_zero:
-        raise AssertionError(f"{len(ups_zero)} LoRA up factors are still zero after training, e.g. {ups_zero[0]}")
-    if set(saved) != want_keys:
-        raise AssertionError("the saved slider's keys are not the reference schema")
-    if launches != want_launches:
-        raise AssertionError(f"training launched K1/K2/K3 {launches} times, expected {want_launches}")
+    check_trained("training", res, summary, launches, want_launches)
 
     profiled = {}
     prof = device_profile(lambda: profiled.update(res.next_step()))
     emit(dict(phase="train_profile", timesteps_to=profiled["timesteps_to"], **prof))
     return launches, row
+
+
+def phase_imageslider(tmp: Path) -> list:
+    """Full-width SDXL image-pair slider training at 512px through
+    cli/train_lora_scale.train: four folders of paired PNGs, two |scale| pairs."""
+    cfg, prompts = xl_train_config(tmp / "imageslider")
+    root = tmp / "image_pairs"
+    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)],
+                        train_lora_scale.XL_RESOLUTION, seed=6)
+    per_fwd = UNetConfig.sdxl().attention_calls_per_forward()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # count the image-pair training path only
+    t0 = time.time()
+    res = train_lora_scale.train(cfg, prompts, str(root), IMAGE_FOLDERS, IMAGE_SCALES, rank=cfg.network.rank,
+                                 device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain("imageslider")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = trained_summary(cfg, res)
+    # K1/K2/K3 once per attention of the one 2-row student call; K4a once per folder's encode
+    want_launches = [TRAIN_ITERATIONS * per_fwd] * 3 + [len(IMAGE_FOLDERS)]
+    row = dict(
+        phase="imageslider", model=cfg.pretrained_model.name_or_path, image_size=train_lora_scale.XL_RESOLUTION,
+        folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=IMAGES_PER_FOLDER,
+        scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
+        precision=cfg.train.precision, lora_sites=len(res.sites), iterations=TRAIN_ITERATIONS,
+        losses=res.losses, loss_high=[r["loss_high"] for r in res.metrics],
+        loss_low=[r["loss_low"] for r in res.metrics], grad_norms=[r["grad_norm"] for r in res.metrics],
+        pair_scales=[r["scale"] for r in res.metrics], timesteps_to=[r["timesteps_to"] for r in res.metrics],
+        bank_build_seconds=res.bank_seconds, steps_per_sec_after_first=res.steps_per_sec,
+        first_step_seconds=res.first_step_seconds, setup_seconds_models_prompts_bank=res.setup_seconds,
+        wall_seconds=wall, max_memory_allocated_gib=peak, launches_k1_k2_k3_k4a=launches,
+        expected_launches=want_launches, **summary,
+    )
+    emit(row)
+    check_trained("image-pair training", res, summary, launches, want_launches)
+
+    profiled = {}
+    prof = device_profile(lambda: profiled.update(res.next_step()))
+    emit(dict(phase="imageslider_profile", timesteps_to=profiled["timesteps_to"], scale=profiled["scale"], **prof))
+    return launches
 
 
 def make_slider(path: Path) -> None:
@@ -498,7 +755,7 @@ def phase_serve(tmp: Path) -> SliderService:
     svc.add_slider("smoke", str(path))
     per_call = STEPS * svc.unet.config.attention_calls_per_forward()
     batcher = svc._batcher
-    fa.flash_attention_fwd.launches = 0  # count the main path only
+    reset_counts()  # count the serving path only
     requests = []
 
     def timed(scale, seed):
@@ -508,14 +765,15 @@ def phase_serve(tmp: Path) -> SliderService:
 
     images = {}
     for scale in (0.0, 2.0):
-        l0, b0 = fa.flash_attention_fwd.launches, batcher.total_batches
+        (l0, *_, d0), b0 = counts(), batcher.total_batches
         png, secs = timed(scale, 7)
         images[scale] = decode_png(png)
         requests.append(dict(scale=scale, seconds=secs, batch=batcher.batch_sizes[-1],
                              k1_launches=fa.flash_attention_fwd.launches - l0,
+                             k4a_launches=kg.flash_attention_kgrid_fwd.launches - d0,
                              sampler_calls=batcher.total_batches - b0))
 
-    l0, b0 = fa.flash_attention_fwd.launches, batcher.total_batches
+    (l0, *_, d0), b0 = counts(), batcher.total_batches
     pair: dict = {}
     errors: list = []
 
@@ -541,6 +799,7 @@ def phase_serve(tmp: Path) -> SliderService:
         images[scale] = decode_png(png)
         requests.append(dict(scale=scale, seconds=secs, batch=2, concurrent=True))
     pair_launches = fa.flash_attention_fwd.launches - l0
+    pair_k4a = kg.flash_attention_kgrid_fwd.launches - d0
 
     for scale, img in images.items():
         if img.dtype != np.uint8 or img.shape != (IMAGE_SIZE, IMAGE_SIZE, 3):
@@ -550,15 +809,18 @@ def phase_serve(tmp: Path) -> SliderService:
     if pair_calls != 1 or list(batcher.batch_sizes)[-1] != 2:
         raise AssertionError(f"the concurrent pair took {pair_calls} sampler calls")
     for r in requests[:2]:
-        if r["k1_launches"] != per_call or r["sampler_calls"] != 1:
-            raise AssertionError(f"request {r}: expected {per_call} K1 launches in one sampler call")
-    if pair_launches != per_call:
-        raise AssertionError(f"the pair's sampler call launched K1 {pair_launches} times, not {per_call}")
+        if r["k1_launches"] != per_call or r["k4a_launches"] != 1 or r["sampler_calls"] != 1:
+            raise AssertionError(f"request {r}: expected {per_call} K1 launches and one K4a (the VAE decode) in "
+                                 "one sampler call")
+    if pair_launches != per_call or pair_k4a != 1:
+        raise AssertionError(f"the pair's sampler call launched K1 {pair_launches} times, not {per_call}, and K4a "
+                             f"{pair_k4a} times, not 1")
     solo = [r["seconds"] for r in requests[:2]]
     emit(dict(
         phase="serve", model=SDXL, image_size=IMAGE_SIZE, steps=STEPS, weights="random, seeded per module, bf16",
         slider_sites=len(svc.sites), load_seconds=load_s, requests=requests,
         k1_launches_per_sampler_call=per_call, k1_launches=fa.flash_attention_fwd.launches,
+        k4a_launches_per_decode=1, k4a_launches=kg.flash_attention_kgrid_fwd.launches, pair_k4a_launches=pair_k4a,
         solo_seconds_first=solo[0], solo_seconds_second=solo[1],
         pair_wall_seconds=pair_wall, pair_images_per_second=2 / pair_wall,
         images_per_second_solo=1 / solo[1],
@@ -576,7 +838,7 @@ def phase_http(svc: SliderService) -> int:
         base = f"http://127.0.0.1:{server.server_address[1]}"
         health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=60).read())
         sliders = json.loads(urllib.request.urlopen(f"{base}/sliders", timeout=60).read())
-        l0 = fa.flash_attention_fwd.launches
+        l0, d0 = fa.flash_attention_fwd.launches, kg.flash_attention_kgrid_fwd.launches
         t = time.time()
         with urllib.request.urlopen(f"{base}/generate?prompt=a+photo+of+a+cat&scale=1.5&seed=3&slider=smoke",
                                     timeout=600) as resp:
@@ -588,10 +850,13 @@ def phase_http(svc: SliderService) -> int:
         server.server_close()
         thread.join(30)
     launches = fa.flash_attention_fwd.launches - l0
+    k4a = kg.flash_attention_kgrid_fwd.launches - d0
     emit(dict(phase="http", status=status, seconds=secs, shape=list(img.shape), healthz=health["status"],
-              sliders=[s["name"] for s in sliders["sliders"]], k1_launches=launches))
+              sliders=[s["name"] for s in sliders["sliders"]], k1_launches=launches, k4a_launches=k4a))
     if status != 200 or img.shape != (IMAGE_SIZE, IMAGE_SIZE, 3) or health["status"] != "ok":
         raise AssertionError("HTTP /generate failed")
+    if k4a != 1:
+        raise AssertionError(f"the HTTP request's decode launched K4a {k4a} times, not once")
     return launches
 
 
@@ -618,33 +883,48 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_rows = phase_kernel(gen)
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
+    kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
     phase_parity()
     phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
-        svc = phase_serve(Path(tmp))  # sets K1's count to 0 before it serves
+        phase_imageslider_parity(Path(tmp))
+        svc = phase_serve(Path(tmp))  # sets every count to 0 before it serves
         try:
             phase_http(svc)
-            serve_k1 = fa.flash_attention_fwd.launches
+            serve = counts()
+            check_no_plain("serve")
             phase_profile(svc)
         finally:
             svc.close()
         del svc
         torch.cuda.empty_cache()
         train_launches, _ = phase_train(Path(tmp))  # sets every count to 0 before it trains
+        torch.cuda.empty_cache()
+        image_launches = phase_imageslider(Path(tmp))  # and so does the image-pair trainer
 
-    if min(serve_k1, *train_launches) <= 0:
-        raise AssertionError(f"a kernel was not launched on its path: serve K1 {serve_k1}, train {train_launches}")
+    # each kernel ran on each path that runs it (K1 and K4a serving, K1-K3
+    # training, all four image-pair training)
+    ran = [serve[0], serve[3], *train_launches[:3], *image_launches]
+    if min(ran) <= 0:
+        raise AssertionError(f"a kernel was not launched on its path: serve {serve}, train {train_launches}, "
+                             f"imageslider {image_launches}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time
+    kgrid_main = kgrid_rows[0]  # the 1024px decode of one image: K4a's serving call
     at_bwd = f"{bwd_main['shape']} rows=1 heads={bwd_main['heads']} d={bwd_main['head_dim']} bf16"
-    emit({"kernels": [
+
+    def launches(i: int, paths) -> dict:
+        """Kernel i's launches on the paths that run it, and their sum."""
+        every = {"serve": serve[i], "train": train_launches[i], "imageslider": image_launches[i]}
+        return dict(launches=sum(every[p] for p in paths), launches_by_path={p: every[p] for p in paths})
+
+    rows = [
         dict(
             name="flash_attention_fwd",
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
-            launches=serve_k1 + train_launches[0],
-            launches_by_path={"serve": serve_k1, "train": train_launches[0]},
+            **launches(0, ("serve", "train", "imageslider")),
             max_abs_err=max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
             ms=main_row["kernel_ms"],
             plain_ms=main_row["plain_ms"],
@@ -658,8 +938,7 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:107",
-            launches=train_launches[1],
-            launches_by_path={"train": train_launches[1]},
+            **launches(1, ("train", "imageslider")),
             max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
             ms=bwd_main["k2_ms"],
             plain_ms=bwd_main["k2_plain_ms"],
@@ -674,8 +953,7 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:139",
-            launches=train_launches[2],
-            launches_by_path={"train": train_launches[2]},
+            **launches(2, ("train", "imageslider")),
             max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
             ms=bwd_main["k3_ms"],
             plain_ms=bwd_main["k3_plain_ms"],
@@ -685,7 +963,22 @@ def main() -> int:
             library="SDPA backward (dQ, dK, dV together)",
             at=at_bwd,
         ),
-    ]})
+        dict(
+            name="flash_attention_kgrid_fwd",
+            route="cuda",
+            source="sliders_conceptmod_tpu_torch/csrc/flash_attention_kgrid.cu",
+            replaces="sliders_conceptmod_tpu/ops/flash_attention_kgrid.py:77",
+            **launches(3, ("serve", "imageslider")),
+            max_abs_err=max(kgrid_errors),
+            ms=kgrid_main["kernel_ms"],
+            plain_ms=kgrid_main["plain_ms"],
+            bound_ms=kgrid_main["bound_ms"],
+            bound_by=kgrid_main["bound_by"],
+            library_ms=kgrid_main["library_ms"],
+            at=f"{kgrid_main['shape']} rows={kgrid_main['rows']} heads=1 d={kgrid_main['head_dim']} bf16",
+        ),
+    ]
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

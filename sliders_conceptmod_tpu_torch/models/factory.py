@@ -127,7 +127,7 @@ def load_models_xl(
     unet = build_module(lambda: UNet2DConditionModel(unet_cfg), device, weight_dtype, 2)
     out = ([tok1, tok2], [te1, te2], unet, create_noise_scheduler(scheduler_name))
     if with_vae:
-        # both families decode with the full SDXL VAE, as the JAX factory does
+        # both families encode and decode with the full SDXL VAE, as the JAX factory does
         return out + (build_module(lambda: AutoencoderKL(VAEConfig.sdxl()), device, weight_dtype, 3),)
     return out
 

@@ -1,10 +1,17 @@
-"""AutoencoderKL decoder — counterpart of ``sliders_conceptmod_tpu/models/vae.py``
-(the decode half that serving runs), NCHW throughout.
+"""AutoencoderKL — counterpart of ``sliders_conceptmod_tpu/models/vae.py``:
+the decoder that serving runs and the encoder that the image-pair trainer
+runs (``encode`` → posterior mean and clipped log-variance,
+:func:`sample_latents`), NCHW throughout.
 
 The mid-block attention is single-head over the spatial tokens with head dim
-= channels (512 for SDXL), so on the card it takes the dispatch's plain path
-(head dims > 128; see ops/attention.py). The encoder waits for a path that
-needs it (image sliders, inversion).
+= channels (512 for SDXL), so on the card it runs kernel K4a through the
+dispatch (head dims 129..512; see ops/attention.py): 4096 tokens in the
+encoder at 512px, 16384 in the decoder at 1024px.
+
+Module order: the decoder and ``post_quant_conv`` are registered before the
+encoder and ``quant_conv``, so the seeded flax-default initialisation
+(``models/factory.py``) gives the decoder the same weights it had before the
+encoder was added.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from sliders_conceptmod_tpu_torch.ops.attention import dot_product_attention
 
 @dataclass(frozen=True)
 class VAEConfig:
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
@@ -76,6 +84,18 @@ class VAEAttentionBlock(nn.Module):
         return x + out.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
+class VAEDownsample(nn.Module):
+    """diffusers' VAE downsample: an asymmetric (0, 1, 0, 1) pad, then a
+    stride-2 VALID 3×3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -83,6 +103,22 @@ class VAEUpsample(nn.Module):
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class DownEncoderBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_downsample: bool, groups: int):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            VAEResnetBlock(in_ch if i == 0 else out_ch, out_ch, groups) for i in range(num_layers)
+        )
+        self.downsamplers = nn.ModuleList([VAEDownsample(out_ch)]) if add_downsample else None
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
 
 
 class UpDecoderBlock(nn.Module):
@@ -111,6 +147,30 @@ class MidBlock(nn.Module):
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
 
 
+class Encoder(nn.Module):
+    """Images → the 2·latent_channels posterior moments (before quant_conv)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        chs = cfg.block_out_channels
+        g = cfg.norm_num_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            DownEncoderBlock(chs[max(i - 1, 0)], ch, cfg.layers_per_block, i < len(chs) - 1, g)
+            for i, ch in enumerate(chs)
+        )
+        self.mid_block = MidBlock(chs[-1], g)
+        self.conv_norm_out = GroupNorm32(g, chs[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for block in self.down_blocks:
+            x = block(x)
+        x = self.mid_block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -133,15 +193,26 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode path: NCHW latents → NCHW images in [-1, 1]."""
+    """NCHW images in [-1, 1] ↔ NCHW latents. ``encode`` returns (mean,
+    logvar); :func:`sample_latents` draws from them."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
+        # decoder first: see the module docstring
         self.decoder = Decoder(config)
         self.post_quant_conv = (
             nn.Conv2d(config.latent_channels, config.latent_channels, 1) if config.use_post_quant_conv else None
         )
+        self.encoder = Encoder(config)
+        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+
+    def encode(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Images → (mean, logvar clipped to [−30, 20]), each ``[B, C, h, w]``
+        in the weights' dtype."""
+        moments = self.quant_conv(self.encoder(images.to(self.encoder.conv_in.weight.dtype)))
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         z = latents.to(self.decoder.conv_in.weight.dtype)
@@ -150,3 +221,9 @@ class AutoencoderKL(nn.Module):
         return self.decoder(z)
 
     forward = decode
+
+
+def sample_latents(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample() with the normal draw given:
+    ``mean + exp(logvar / 2) · noise``."""
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)

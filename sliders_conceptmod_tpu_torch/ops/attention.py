@@ -1,24 +1,29 @@
-"""Attention dispatch: the Hopper flash kernel for CUDA tensors, plain elsewhere.
+"""Attention dispatch: the Hopper flash kernels for CUDA tensors, plain elsewhere.
 
 Counterpart of ``sliders_conceptmod_tpu/ops/attention.py``. Layout is BSHD
 ``[batch, seq, heads, head_dim]`` throughout.
 
-Dispatch rule (H100):
+Dispatch rule (H100), by head dim d:
 
-* CUDA tensors with head dim <= 128 run kernel K1
+* d <= 128: kernel K1
   (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention.flash_attention_fwd`)
-  at every sequence length. Head dims that are not 64 or 128 are zero-padded
-  up to the next multiple of 64 (padded q·k dims add 0 to the scores; padded V
-  columns are sliced off), as the JAX dispatch does. The JAX package's TPU
-  thresholds (its minimum sequence of 2048 and its VMEM limit) are v5e
-  measurements and do not apply here.
-* Head dims > 128 take the plain path
-  (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention.flash_attention_reference`,
-  the kernel's own plain version). In the served models only the single-head
-  d=512 VAE mid-block attention has one, and the JAX package never sends that
-  one to its kernel at serving sizes either.
-* CPU tensors go the kernel's way too; the wrapper computes them with the
-  same plain version (fp32 logits and softmax, output in the input dtype).
+  at every sequence length; differentiable (K2/K3 backward).
+* 128 < d <= 512: kernel K4a
+  (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid.flash_attention_kgrid_fwd`),
+  forward only. In the served and trained models only the single-head
+  d = 512 VAE mid-block attention has such a head dim.
+* d > 512 on a CUDA tensor raises ``NotImplementedError``: no kernel takes it
+  yet (ROADMAP.md queue 2). The card's path never falls back to a plain
+  version.
+
+Head dims that are not a multiple of 64 are zero-padded up to one (padded q·k
+dims add 0 to the scores; padded V columns are sliced off), as the JAX
+dispatch does. The JAX package's TPU thresholds (its minimum sequence of 2048
+and its VMEM limit) are v5e measurements and do not apply here.
+
+CPU tensors take the same routes; each wrapper computes them with its
+kernel's plain version (fp32 logits and softmax, output in the input dtype),
+and d > 512 with K1's plain version.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from sliders_conceptmod_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_reference
+from sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid import flash_attention_kgrid_fwd
 
-MAX_KERNEL_HEAD_DIM = 128
+MAX_KERNEL_HEAD_DIM = 128  # K1
+MAX_KGRID_HEAD_DIM = 512  # K4a
 
 
 def dot_product_attention(
@@ -40,18 +47,26 @@ def dot_product_attention(
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
-    if d > MAX_KERNEL_HEAD_DIM:
+    if d <= MAX_KERNEL_HEAD_DIM:
+        return kernel_attention(q, k, v, scale)
+    if d <= MAX_KGRID_HEAD_DIM:
+        return _padded(flash_attention_kgrid_fwd, q, k, v, scale)
+    if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)[0]
-    return kernel_attention(q, k, v, scale)
+    raise NotImplementedError(f"head dim {d} > {MAX_KGRID_HEAD_DIM} on the card: no kernel takes it yet "
+                              "(ROADMAP.md queue 2)")
 
 
-def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """K1 with the head dim zero-padded up to a multiple of 64."""
+def _padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """``fn`` with the head dim zero-padded up to a multiple of 64."""
     d = q.shape[-1]
     d_pad = ((d + 63) // 64) * 64
     if d_pad != d:
         pad = (0, d_pad - d)
-        out, _ = flash_attention_fwd(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), scale)
-        return out[..., :d]
-    out, _ = flash_attention_fwd(q, k, v, scale)
-    return out
+        return fn(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), scale)[0][..., :d]
+    return fn(q, k, v, scale)[0]
+
+
+def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """K1 with the head dim zero-padded up to a multiple of 64."""
+    return _padded(flash_attention_fwd, q, k, v, scale)

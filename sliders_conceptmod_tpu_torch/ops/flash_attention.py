@@ -14,11 +14,13 @@ Three hand-written CUDA kernels, each replacing one kernel of
 * K3 (same source, ``flash_bwd_dkv_kernel``) replaces ``_bwd_dkv_kernel``
   (launched by ``_vjp_bwd``): dK and dV.
 
-Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library of its own with a plain C interface at first use — into
-``build/kernels/`` at the repository root — and bound with ``ctypes``. The
-sources' headers say what bounds each kernel on the H100 and what the design
-does about it.
+Each CUDA source of the port — these two and K4a's
+(``csrc/flash_attention_kgrid.cu``, wrapped in ``ops/flash_attention_kgrid.py``)
+— is compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own
+with a plain C interface at first use — into ``build/kernels/`` at the
+repository root — and bound with ``ctypes``; :func:`build` compiles them all
+at once. The sources' headers say what bounds each kernel on the H100 and what
+the design does about it.
 
 Beside the kernels sit their plain PyTorch versions:
 :func:`flash_attention_reference` (K1) and :func:`bwd_dq_reference` /
@@ -26,7 +28,9 @@ Beside the kernels sit their plain PyTorch versions:
 :func:`flash_attention_bwd_reference`. A wrapper takes the plain version only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises. Each
 kernel wrapper's ``launches`` counts its kernel's launches and nothing else,
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel; the plain
+forward's ``cuda_calls`` counts its calls on CUDA tensors, so a run can show
+that its main path never reached it.
 
 Gradients: :class:`FlashAttention` is the ``torch.autograd.Function`` — K1
 forward (saving q, k, v, o and lse), K2 then K3 backward.
@@ -56,7 +60,12 @@ KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"fwd": CSRC / "flash_attention_fwd.cu", "bwd": CSRC / "flash_attention_bwd.cu"}
+# every kernel source of the port; "kgrid" is K4a (ops/flash_attention_kgrid.py)
+SOURCES = {
+    "fwd": CSRC / "flash_attention_fwd.cu",
+    "bwd": CSRC / "flash_attention_bwd.cu",
+    "kgrid": CSRC / "flash_attention_kgrid.cu",
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +81,7 @@ _SIGNATURES = {
         "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
         "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
     },
+    "kgrid": {"flash_attention_kgrid_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -154,12 +164,17 @@ def flash_attention_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1: fp32 logits and softmax, output in the
     input dtype, lse fp32 ``[B·H, Sq]``."""
+    if q.device.type == "cuda":
+        flash_attention_reference.cuda_calls += 1
     b, sq, h, _ = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     lse = torch.logsumexp(logits, dim=-1).reshape(b * h, sq)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
     return out, lse
+
+
+flash_attention_reference.cuda_calls = 0
 
 
 def _probs(q, k, lse, scale):
@@ -218,14 +233,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
-def _check_kernel_inputs(*tensors: torch.Tensor) -> None:
+def _check_kernel_inputs(*tensors: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> None:
     """What every kernel needs of its BSHD tensors on the card."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, not {t0.device}")
     b, _, h, d = t0.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"kernel head dim must be one of {head_dims}, got {d}")
     if t0.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, got {t0.dtype}")
     for t in tensors:

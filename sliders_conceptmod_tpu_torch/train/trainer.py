@@ -82,7 +82,8 @@ class TrainResult:
     metrics: List[dict] = field(default_factory=list)  # the jsonl rows
     setup_seconds: float = float("nan")  # models, sites, prompt bank: entry to the first step
     first_step_seconds: float = float("nan")  # the first step, finished on the device
-    # one more ESD step on the trained state (for a profile or a benchmark)
+    bank_seconds: float = float("nan")  # the image-pair trainer's VAE-encoded image bank
+    # one more step on the trained state (for a profile or a benchmark)
     next_step: Optional[Callable[[], dict]] = None
 
 

@@ -1,6 +1,7 @@
-"""Kernels K1, K2 and K3 on the card: edge shapes, strided views (dO from
-autograd included), the dispatch's head-dim padding, gradients through the
-autograd Function, input checks and the launch counts. Marked ``cuda``; every test
+"""Kernels K1, K2, K3 and K4a on the card: edge shapes, strided views (dO
+from autograd included), the dispatch's head-dim padding and routes,
+gradients through the autograd Function, K4a's key-range splits, input checks
+and the launch counts. Marked ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
 
@@ -12,6 +13,7 @@ import torch
 
 from sliders_conceptmod_tpu_torch.ops import attention as attn
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
+from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 
 pytestmark = pytest.mark.cuda
 
@@ -86,11 +88,96 @@ def test_dispatch_runs_the_kernel_for_every_head_dim_up_to_128(gen, d):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-def test_head_dims_above_128_take_the_plain_path(gen):
-    q = _rand(gen, (1, 64, 1, 512), torch.bfloat16)
-    before = fa.flash_attention_fwd.launches
-    out = attn.dot_product_attention(q, q, q)
-    assert fa.flash_attention_fwd.launches == before and out.shape == q.shape
+def test_head_dims_129_to_512_run_k4a_and_above_raise(gen):
+    """No attention on the card reaches a plain version: d 129..512 runs K4a
+    (padded to a multiple of 64), d > 512 raises."""
+    plain = lambda: (fa.flash_attention_reference.cuda_calls, kg.flash_attention_kgrid_reference.cuda_calls)
+    for d in (200, 512):
+        q, k, v = (_rand(gen, (2, s, 1, d), torch.float32) for s in (97, 77, 77))
+        before, before_plain = (fa.flash_attention_fwd.launches, kg.flash_attention_kgrid_fwd.launches), plain()
+        got = attn.dot_product_attention(q, k, v)
+        assert (fa.flash_attention_fwd.launches, kg.flash_attention_kgrid_fwd.launches) == (before[0], before[1] + 1)
+        assert plain() == before_plain
+        want, _ = kg.flash_attention_kgrid_reference(q, k, v, d**-0.5)
+        assert got.shape == q.shape and (got - want).abs().max().item() <= 1e-4
+    q = _rand(gen, (1, 16, 1, 576), torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attn.dot_product_attention(q, q, q)
+
+
+KGRID_EDGE = [
+    # (B, Sq, Sk, H, D): one row / one key, the JAX test's ragged shape at
+    # D 64 and 512, ragged tails around the 32 tiles, every D class, long keys
+    (1, 1, 1, 1, 512),
+    (2, 300, 77, 2, 64),
+    (2, 300, 77, 2, 512),
+    (1, 65, 33, 1, 192),
+    (3, 100, 130, 2, 256),
+    (1, 40, 1000, 1, 448),
+    (2, 64, 64, 1, 128),
+]
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("shape", KGRID_EDGE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kgrid_kernel_matches_plain_version(gen, shape, dtype, splits):
+    b, sq, sk, h, d = shape
+    q = _rand(gen, (b, sq, h, d), dtype, scale=3.0)  # large logits: the online max must hold
+    k = _rand(gen, (b, sk, h, d), dtype)
+    v = _rand(gen, (b, sk, h, d), dtype)
+    before = kg.flash_attention_kgrid_fwd.launches
+    out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
+    torch.cuda.synchronize()
+    assert kg.flash_attention_kgrid_fwd.launches == before + 1
+    ref, ref_lse = kg.flash_attention_kgrid_reference(q.float(), k.float(), v.float(), d**-0.5, splits=splits)
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (b * h, sq)
+    tol = 1e-4 if dtype == torch.float32 else min(3e-2, 2e-2 * ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * max(1.0, ref_lse.abs().max().item())
+
+
+def test_kgrid_empty_splits_and_strided_views(gen):
+    """More splits than key tiles (empty splits merge to nothing, no NaN),
+    and BSHD views of packed tensors give bit-identical results to copies."""
+    b, s, h, d = 2, 130, 2, 512
+    qkv = _rand(gen, (b, s, 3, h, d), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    for splits in (1, 7):  # 130 keys are 5 tiles: splits 5 and 6 are empty
+        out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
+        out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous(), splits=splits)
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+        assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    one, _ = kg.flash_attention_kgrid_fwd(q, k, v, splits=1)
+    assert (out.float() - one.float()).abs().max().item() <= 2e-2 * one.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kgrid_unaligned_views_match_contiguous_copies(gen, dtype):
+    """Views whose rows do not start on 16 bytes (an offset of one element,
+    a row stride of d + 1) take the element-by-element staging; contiguous
+    copies take the 16-byte one. Both stage the same values."""
+    b, s, h, d = 2, 70, 2, 512
+    q, k, v = (_rand(gen, (b, s, h, d + 1), dtype)[..., 1:] for _ in range(3))
+    for splits in (1, 3):
+        out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
+        out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous(), splits=splits)
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+
+
+def test_kgrid_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    q = _rand(gen, (1, 8, 1, 512), torch.float32)
+    before = kg.flash_attention_kgrid_fwd.launches
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_fwd(*(_rand(gen, (1, 8, 1, 200), torch.float32),) * 3)  # head dim
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_fwd(q.half(), q.half(), q.half())  # dtype
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_fwd(q, q, q, splits=65)
+    with pytest.raises(NotImplementedError):
+        kg.flash_attention_kgrid_fwd(q.clone().requires_grad_(True), q, q)  # no K4b/K4c yet
+    assert kg.flash_attention_kgrid_fwd.launches == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):

@@ -119,11 +119,36 @@ def test_tiny_vae_decode_matches_jax():
     latents = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
     want = np.asarray(model.apply({"params": params}, jnp.asarray(latents), method=model.decode))
     port, unused = bridge(tvae.AutoencoderKL(tvae.VAEConfig.tiny()), params)
-    # the port is the decode half: only the encoder side is left over
-    assert unused and all(p[0] in ("encoder", "quant_conv") for p in unused)
+    assert unused == []  # the whole JAX tree, encoder included
     with torch.no_grad():
         got = port.decode(torch.from_numpy(latents)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_tiny_vae_encode_matches_jax():
+    """Posterior moments of the encoder (asymmetric-pad downsample, mid-block
+    attention through the dispatch, quant_conv, the logvar clip) and a
+    posterior sample from the same normal draw."""
+    cfg = jvae.VAEConfig.tiny()
+    model = jvae.AutoencoderKL(cfg)
+    rng = np.random.default_rng(8)
+    params = random_tree(model.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 16, 16)))["params"], seed=9, scale=0.3)
+    images = rng.uniform(-1, 1, (2, 3, 18, 14)).astype(np.float32)  # odd halves: the (0, 1) pad matters
+    want_mean, want_logvar = (np.asarray(x) for x in model.apply({"params": params}, jnp.asarray(images),
+                                                                    method=model.encode))
+    port, unused = bridge(tvae.AutoencoderKL(tvae.VAEConfig.tiny()), params)
+    assert unused == []
+    with torch.no_grad():
+        mean, logvar = port.encode(torch.from_numpy(images))
+    assert tuple(mean.shape) == want_mean.shape == (2, 4, 9, 7)
+    np.testing.assert_allclose(mean.numpy(), want_mean, **TOL)
+    np.testing.assert_allclose(logvar.numpy(), want_logvar, **TOL)
+    noise = rng.standard_normal(want_mean.shape).astype(np.float32)
+    sample = tvae.sample_latents(mean, logvar, torch.from_numpy(noise)).numpy()
+    np.testing.assert_allclose(sample, want_mean + np.exp(0.5 * want_logvar) * noise, **TOL)
+    # the decoder's parameters come first, so its seeded initialisation is the decode-only one's
+    names = [n for n, _ in port.named_parameters()]
+    assert names.index("post_quant_conv.weight") < names.index("encoder.conv_in.weight")
 
 
 @pytest.mark.parametrize(
@@ -142,9 +167,7 @@ def test_full_width_structures_match_golden(family, factory):
         golden = {k: tuple(v) for k, v in json.load(f)[family].items()}
     with torch.device("meta"):
         shapes = jax_layout_shapes(factory())
-    if family == "vae_sdxl":  # decode half only
-        golden = {k: v for k, v in golden.items() if not k.startswith(("encoder/", "quant_conv/"))}
-    assert shapes == golden
+    assert shapes == golden  # the VAE's encoder and quant_conv included
 
 
 def test_sdxl_config_matches_jax_and_counts_140_attentions():

@@ -42,7 +42,7 @@ def test_sampler_and_decode_match_jax():
     unet = tunet.UNet2DConditionModel(tunet.UNetConfig.tiny_xl())
     vae = tvae.AutoencoderKL(tvae.VAEConfig.sdxl())  # the JAX tiny-xl family decodes with it too
     assert load_jax_params(unet, to_numpy_tree(junet_b.params)) == []
-    assert load_jax_params(vae, to_numpy_tree(jvae_b.params))  # leaves only the encoder
+    assert load_jax_params(vae, to_numpy_tree(jvae_b.params)) == []  # the whole tree, encoder included
     unet.eval(), vae.eval()
 
     jsites = jlora.create_sites(junet_b.params, rank=4, alpha=1.0, target_replace=CONV, train_method="noxattn")
