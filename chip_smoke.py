@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. build        — compile K1 (csrc/flash_attention_fwd.cu), K2/K3
-                  (csrc/flash_attention_bwd.cu) and K4a
-                  (csrc/flash_attention_kgrid.cu) with nvcc for sm_90a, one
+                  (csrc/flash_attention_bwd.cu), K4a
+                  (csrc/flash_attention_kgrid.cu) and K4b/K4c
+                  (csrc/flash_attention_kgrid_bwd.cu) with nvcc for sm_90a, one
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
@@ -16,13 +17,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   kernel_ms, plain_ms, library_ms (F.scaled_dot_product_attention,
                   timed as a yardstick only), bound_ms.
 3. kernel_bwd   — K2 (dQ) and K3 (dK, dV) against their plain versions at the
-                  four attention shapes of 512px SDXL training (batch 1), bf16
-                  and fp32, plus ragged (Sq 65; Sk 77, 129) and strided-dO
-                  cases; error per gradient, kernel_ms, plain_ms, bound_ms and
-                  library_ms (SDPA's backward: forward+backward minus forward).
-                  K1's out and lse, which K2/K3 take, are held against the
-                  plain version at the same shapes, at batch 1 (warm-up and
-                  student) and 3 (the teacher's rows).
+                  K1-class attention shapes of every training path
+                  (TRAIN_SHAPES: 512px SDXL and SD1.5 ESD at batch 1, SD1.5
+                  head dims 40 and 80 zero-padded to 64 and 128 as the path
+                  pads them; SD1.5 image pairs at 256px, rows 2; SD2.1's
+                  4096² with 5 heads), bf16 and fp32, plus ragged (Sq 65; Sk
+                  77, 129) and strided-dO cases; error per gradient,
+                  kernel_ms (CUDA events), device_ms (the kernels' summed
+                  durations under torch.profiler), plain_ms, bound_ms (at the
+                  unpadded head dim) and library_ms (SDPA's backward on the
+                  unpadded head dim: the device time of forward+backward minus
+                  that of the forward). K1's out and lse, which
+                  K2/K3 take, are held against the plain version at the same
+                  shapes, at the student's rows (also the warm-up's) and the
+                  ESD teacher's 3.
 4. kernel_kgrid — K4a (O and lse) against its plain version at the VAE
                   mid-block's shapes (one head, d 512): 16384² at rows 1 and 2
                   (the 1024px decode of serving), 4096² at rows 4 (the 512px
@@ -30,38 +38,63 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   Sq 300 × Sk 77 (B 2, H 2, d 64 and 512); the key-range split
                   forced to 1 and to more than 1. Times the kernel, its plain
                   version and SDPA (a yardstick) at every path shape in bf16.
-5. parity       — the tiny-xl sampler on the card (K1 inside every UNet
+5. kernel_kgrid_bwd — K4b (dQ, δ) and K4c (dK, dV) against their plain
+                  versions at SD1.5's d-160 attentions (8 heads, zero-padded
+                  to 192; bound_ms at d 160): the 512px ESD student (256²,
+                  256×77, 64², 64×77) and
+                  the 256px image-pair student (rows 2: 64², 64×77, 16²,
+                  16×77), bf16 and fp32, on K4a's O and lse (K4a held against
+                  its plain version there too); ragged shapes, d 64 / 320 /
+                  512, a strided dO, K4c's query split forced to 1, 4 and 12,
+                  repeated calls bit-equal; at d 64 against K2/K3 at 300×77
+                  (B 2, H 2) and 16384² (one head). Times K4b, K4c (events and
+                  device time), their plain versions and SDPA's backward
+                  (device time) at every path shape in bf16.
+6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
-6. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
+7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
                   the same step on the CPU: weights, LoRA factors, draws, fp32.
-7. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
+8. sd_train_parity — one tiny-SD DDIM ESD step, card vs CPU, fp32, on
+                  ``tiny`` (K1/K2/K3) and on its variant with a d-160 mid block
+                  (K4a/K4b/K4c inside too).
+9. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
                   in the encoder's mid-block) and one tiny-xl image-pair step
                   (K1/K2/K3) on the card against the same on the CPU, fp32.
-8. serve        — full-width SDXL (random weights from a seed) at 1024px, 25 DDIM
+10. serve       — full-width SDXL (random weights from a seed) at 1024px, 25 DDIM
                   steps: a rank-4 slider made with create_sites, written with the
                   port's .safetensors writer and loaded through add_slider; four
                   requests (scale 0, +2, and -2/+1 concurrently in one micro-batch);
                   K1's launch count per sampler call and K4a's per decode;
                   latency, images/s, peak memory.
-9. http         — one /generate through make_handler on localhost.
-10. profile     — one more request under torch.profiler: device busy time,
+11. http        — one /generate through make_handler on localhost.
+12. profile     — one more request under torch.profiler: device busy time,
                   the idle share, and the kernels that take the device time.
-11. train       — full-width SDXL ESD slider training at 512px through
+13. train       — full-width SDXL ESD slider training at 512px through
                   trainer.train from data/config-xl.yaml + data/prompts-xl.yaml
                   (only train.iterations and save.path overridden): finite
-                  losses, moving factors, the saved file's keys, K1/K2/K3
-                  launch counts per step, steps/s, first-step seconds, peak
-                  memory; then one more step under torch.profiler.
-12. imageslider — full-width SDXL image-pair slider training at 512px through
+                  losses, moving factors, the saved file's keys, launch counts
+                  per step, steps/s, first-step seconds, peak memory; then one
+                  more step under torch.profiler (phase_esd).
+14. imageslider — full-width SDXL image-pair slider training at 512px through
                   cli/train_lora_scale.train from the same YAML files, four
                   folders of four synthetic PNGs at scales -2, -1, 1, 2: bank
                   build seconds, K4a launches at the bank build, K1/K2/K3 per
                   step, losses, moving factors, saved keys, steps/s, first
-                  step, peak memory; then one more step under torch.profiler.
-13. kernels     — every ported kernel with its launches on its paths (serving:
-                  phases 8 and 9; training: phase 11; image-pair training:
-                  phase 12; each counted from 0 just before it). On every
-                  path the plain attention versions ran 0 times on the card.
+                  step, peak memory; then one more step under torch.profiler
+                  (phase_image_pairs).
+15. sd_train    — as 13 for SD1.5 at 512px (cli/train_lora.py's path) from
+                  data/config.yaml + data/prompts.yaml (DDIM,
+                  max_denoising_steps 50): K1 20 and K4a 12 launches per UNet
+                  forward, K2/K3 20 and K4b/K4c 12 per step.
+16. sd2_train   — the same YAML turned to SD2.1 (v2, v_pred), 2 steps: head
+                  dim 64 everywhere, so K1/K2/K3 only (32 per forward / step).
+17. sd_imageslider — as 14 for SD1.5 at 256px: K4a once per folder at the
+                  bank build (the VAE mid-block, 1024², d 512); per step K1
+                  20, K4a 12, K2/K3 20, K4b/K4c 12.
+18. kernels     — every ported kernel with its launches on its paths (each
+                  path counted from 0 just before it). On every path the plain
+                  attention versions, forward and backward, ran 0 times on the
+                  card.
 
 Then the card as nvidia-smi names it, and the result line.
 """
@@ -69,6 +102,7 @@ Then the card as nvidia-smi names it, and the result line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import re
@@ -121,12 +155,24 @@ PATH_SHAPES = [
     ("self_1024", 1024, 1024, 20),
     ("cross_1024x77", 1024, 77, 20),
 ]
-# ... and at 512px, the training resolution of data/config-xl.yaml
+# (name, Sq, Sk, heads, head dim, student rows, teacher rows): K1 (forward, at
+# the student's rows and the ESD teacher's) and K2/K3 (backward, the student's)
+# on the training paths. Head dims 40 and 80 run zero-padded to 64 and 128, as
+# ops/attention.py pads them.
 TRAIN_SHAPES = [
-    ("self_1024", 1024, 1024, 10),
-    ("cross_1024x77", 1024, 77, 10),
-    ("self_256", 256, 256, 20),
-    ("cross_256x77", 256, 77, 20),
+    ("self_1024", 1024, 1024, 10, 64, 1, 3),  # SDXL ESD at 512px (data/config-xl.yaml)
+    ("cross_1024x77", 1024, 77, 10, 64, 1, 3),
+    ("self_256", 256, 256, 20, 64, 1, 3),
+    ("cross_256x77", 256, 77, 20, 64, 1, 3),
+    ("sd15_self_4096", 4096, 4096, 8, 40, 1, 3),  # SD1.5 ESD at 512px (data/config.yaml)
+    ("sd15_cross_4096x77", 4096, 77, 8, 40, 1, 3),
+    ("sd15_self_1024", 1024, 1024, 8, 80, 1, 3),
+    ("sd15_cross_1024x77", 1024, 77, 8, 80, 1, 3),
+    ("sd15_pair_self_1024", 1024, 1024, 8, 40, 2, 0),  # SD1.5 image pairs at 256px: one 2-row student
+    ("sd15_pair_cross_1024x77", 1024, 77, 8, 40, 2, 0),
+    ("sd15_pair_self_256", 256, 256, 8, 80, 2, 0),
+    ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2, 0),
+    ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
 TRAIN_ITERATIONS = 6
 # (name, rows, tokens): K4a's calls on the paths, the VAE mid-block attention
@@ -198,8 +244,9 @@ def bound(rows: int, sq: int, sk: int, h: int, d: int, dtype) -> tuple:
 
 def bwd_bound(kind: str, sq: int, sk: int, h: int, d: int, dtype) -> tuple:
     """Least time for K2 ("dq": 6·BH·Sq·Sk·D flops) or K3 ("dkv": 8·BH·Sq·Sk·D):
-    max(flops / peak, bytes / HBM rate), batch 1; bytes are the kernel's
-    inputs (q, k, v, o, dO, lse, δ) read once and its outputs written once."""
+    max(flops / peak, bytes / HBM rate), ``h`` = batch·heads, ``d`` the head
+    dim the attention needs (before padding); bytes are the kernel's inputs
+    (q, k, v, o, dO, lse, δ) read once and its outputs written once."""
     item = torch.empty((), dtype=dtype).element_size()
     if kind == "dq":  # q, o, dO in, dQ out; k, v in; lse in, δ out
         flops, nbytes = 6 * h * sq * sk * d, item * h * d * (4 * sq + 2 * sk) + 8 * h * sq
@@ -219,14 +266,24 @@ def grad_tol(ref: torch.Tensor, dtype) -> float:
     return FP32_TOL * max(1.0, m) if dtype == torch.float32 else max(FP32_TOL, BF16_REL * m)
 
 
-def check_fwd(name: str, kernel, plain, q, k, v, what: str) -> dict:
+def path_randn(gen: torch.Generator, lead: tuple, d: int, dtype) -> torch.Tensor:
+    """N(0, 1) of shape ``lead + (d,)`` on the card, zero-padded up to a
+    multiple of 64 in the head dim as ops/attention.py pads a path's q, k, v
+    (and as autograd hands the backward a padded dO)."""
+    x = torch.randn((*lead, d), generator=gen, device="cuda").to(dtype)
+    return F.pad(x, (0, -d % 64)) if d % 64 else x
+
+
+def check_fwd(name: str, kernel, plain, q, k, v, what: str, scale=None) -> dict:
     """A forward kernel (K1 or K4a) against its plain version on q, k, v in
     fp32; raises on disagreement. Returns (out, lse) and the errors with their
-    bounds."""
-    d = q.shape[-1]
-    out, lse = kernel(q, k, v)
+    bounds. ``scale`` defaults to the head dim's, as the path's unpadded
+    attentions take it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    out, lse = kernel(q, k, v, scale)
     torch.cuda.synchronize()
-    ref_out, ref_lse = plain(q.float(), k.float(), v.float(), d**-0.5)
+    ref_out, ref_lse = plain(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref_out).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ref_max = ref_out.abs().max().item()
@@ -237,19 +294,38 @@ def check_fwd(name: str, kernel, plain, q, k, v, what: str) -> dict:
                 lse_tol=LSE_TOL)
 
 
-def check_k1(q, k, v, what: str) -> dict:
-    return check_fwd("K1", fa.flash_attention_fwd, fa.flash_attention_reference, q, k, v, what)
+def check_k1(q, k, v, what: str, scale=None) -> dict:
+    return check_fwd("K1", fa.flash_attention_fwd, fa.flash_attention_reference, q, k, v, what, scale)
 
 
-def check_k4a(q, k, v, what: str, splits=None) -> dict:
+def check_k4a(q, k, v, what: str, splits=None, scale=None) -> dict:
     """K4a with ``splits`` (None: the launcher's choice) against its plain
     version cut into the same key ranges."""
     return check_fwd("K4a", functools.partial(kg.flash_attention_kgrid_fwd, splits=splits),
-                     functools.partial(kg.flash_attention_kgrid_reference, splits=splits), q, k, v, what)
+                     functools.partial(kg.flash_attention_kgrid_reference, splits=splits), q, k, v, what, scale)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: the summed durations of the kernels
+    (and copies) it runs on the card, under torch.profiler. Unlike cuda_ms it
+    leaves out the host's gaps between launches, which dominate a call of a
+    few tens of microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return us / 1e3 / iters
 
 
 def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
-    """SDPA's backward (dQ, dK, dV together): forward+backward minus forward."""
+    """SDPA's backward (dQ, dK, dV together): the device time of
+    forward+backward minus that of the forward (device_ms; on the host's
+    clock autograd's own cost swamps the difference at small shapes)."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -259,54 +335,67 @@ def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), dot)
 
-    return cuda_ms(fwd_bwd, iters) - cuda_ms(fwd, iters)
+    return device_ms(fwd_bwd, iters) - device_ms(fwd, iters)
 
 
 def phase_kernel_bwd(gen: torch.Generator) -> tuple:
     """K1 (out and lse) and K2/K3 vs their plain versions at the training
-    path's shapes: K1 at batch 1 (warm-up, student) and 3 (the teacher's
-    [positive, neutral, negative] rows), K2/K3 at batch 1 (the student);
-    ragged and strided-dO checks. Returns the K2/K3 rows (one per shape and
-    dtype) and the K1 rows."""
-    d = 64
+    paths' shapes (TRAIN_SHAPES: SDXL, SD1.5 ESD and image pairs, SD2.1), on
+    inputs zero-padded to the kernel's head dim as the path pads them: K1 at
+    the student's rows (also the ESD warm-up's) and the ESD teacher's 3
+    ([positive, neutral, negative]), K2/K3 at the student's; ragged and
+    strided-dO checks. Returns the K2/K3 rows (one per shape and dtype) and
+    the K1 rows."""
     rows, k1_rows = [], []
-    cases = [(n, sq, sk, h, dt) for dt in (torch.bfloat16, torch.float32) for n, sq, sk, h in TRAIN_SHAPES]
-    for name, sq, sk, h, dtype in cases:
-        q3, k3, v3 = (torch.randn((3, s, h, d), generator=gen, device="cuda").to(dtype) for s in (sq, sk, sk))
-        teacher = check_k1(q3, k3, v3, f"{name} rows=3 {dtype}")
-        q, do = (torch.randn((1, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
-        k, v = (torch.randn((1, sk, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
-        student = check_k1(q, k, v, f"{name} rows=1 {dtype}")
-        o, lse = student["out"], student["lse"]
-        for n_rows, c in ((1, student), (3, teacher)):
-            k1_rows.append(dict(shape=name, rows=n_rows, dtype=str(dtype),
-                                **{key: val for key, val in c.items() if key not in ("out", "lse")}))
+    cases = [(*shape, dt) for dt in (torch.bfloat16, torch.float32) for shape in TRAIN_SHAPES]
+    for name, sq, sk, h, d, n_rows, teacher_rows, dtype in cases:
         scale = d**-0.5
+        checked = []
+        if teacher_rows:
+            q3, k3, v3 = (path_randn(gen, (teacher_rows, s, h), d, dtype) for s in (sq, sk, sk))
+            checked.append((teacher_rows, check_k1(q3, k3, v3, f"{name} rows={teacher_rows} {dtype}", scale)))
+            del q3, k3, v3
+        q, do = (path_randn(gen, (n_rows, sq, h), d, dtype) for _ in range(2))
+        k, v = (path_randn(gen, (n_rows, sk, h), d, dtype) for _ in range(2))
+        student = check_k1(q, k, v, f"{name} rows={n_rows} {dtype}", scale)
+        checked.append((n_rows, student))
+        o, lse = student["out"], student["lse"]
+        for r, c in checked:
+            k1_rows.append(dict(shape=name, rows=r, head_dim=d, padded_head_dim=q.shape[-1], dtype=str(dtype),
+                                **{key: val for key, val in c.items() if key not in ("out", "lse")}))
+        del checked, student
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
         torch.cuda.synchronize()
         ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
         errs = {g: (got.float() - want).abs().max().item() for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         tols = {g: grad_tol(want, dtype) for g, want in zip(("dq", "dk", "dv"), ref)}
+        del dq, dk, dv, ref
         iters = 20 if sk > 77 else 50
         row = dict(
-            phase="kernel_bwd", shape=name, rows=1, sq=sq, sk=sk, heads=h, head_dim=d, dtype=str(dtype),
-            max_abs_err=errs, tol=tols,
+            phase="kernel_bwd", shape=name, rows=n_rows, sq=sq, sk=sk, heads=h, head_dim=d,
+            padded_head_dim=q.shape[-1], dtype=str(dtype), max_abs_err=errs, tol=tols,
             k2_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), iters),
             k3_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), iters),
+            k2_device_ms=device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 10),
+            k3_device_ms=device_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), 10),
             k2_plain_ms=cuda_ms(lambda: fa.bwd_dq_reference(q, k, v, o, lse, do, scale), 5),
             k3_plain_ms=cuda_ms(lambda: fa.bwd_dkv_reference(q, k, v, lse, delta, do, scale), 5),
-            library_ms=sdpa_backward_ms(q, k, v, do, iters),
+            # SDPA on the unpadded head dim: the same function the path needs
+            library_ms=library_backward_ms(*(x[..., :d] for x in (q, k, v, do)), 10),
         )
         (row["k2_bound_ms"], row["k2_bound_by"]), (row["k3_bound_ms"], row["k3_bound_by"]) = (
-            bwd_bound("dq", sq, sk, h, d, dtype), bwd_bound("dkv", sq, sk, h, d, dtype))
+            bwd_bound("dq", sq, sk, n_rows * h, d, dtype), bwd_bound("dkv", sq, sk, n_rows * h, d, dtype))
         emit(row)
         bad = [g for g in errs if not errs[g] <= tols[g]]
         if bad:
             raise AssertionError(f"K2/K3 disagree with their plain versions at {name} {dtype}: {bad} {errs} > {tols}")
         rows.append(row)
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
 
     # ragged tails and a strided dO (a head slice of a wider tensor), both dtypes
+    d = 64
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for sk in (77, 129):
@@ -410,6 +499,156 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
     return rows_out, errors
 
 
+# (name, rows, Sq, Sk): K4b/K4c's calls on the SD1.5 training paths, the
+# 1280-channel level's attentions (8 heads of 160, run zero-padded to 192)
+KGRID_BWD_HEADS, KGRID_BWD_D = 8, 160
+KGRID_BWD_SHAPES = [
+    ("esd_self_256", 1, 256, 256),  # ESD student at 512px, batch 1: down/up levels (16×16)
+    ("esd_cross_256x77", 1, 256, 77),
+    ("esd_self_64", 1, 64, 64),  # the mid block (8×8)
+    ("esd_cross_64x77", 1, 64, 77),
+    ("pair_self_64", 2, 64, 64),  # image-pair student at 256px, rows 2
+    ("pair_cross_64x77", 2, 64, 77),
+    ("pair_self_16", 2, 16, 16),
+    ("pair_cross_16x77", 2, 16, 77),
+]
+
+
+def library_backward_ms(q, k, v, do, iters: int):
+    """SDPA's backward (a yardstick), or None when no backend takes the shape."""
+    try:
+        return sdpa_backward_ms(q, k, v, do, iters)
+    except RuntimeError:
+        return None
+
+
+def check_bwd(name: str, got, want, dtype) -> tuple:
+    """(dQ, δ, dK, dV) against a reference's; raises on disagreement. The
+    bounds are grad_tol's, of the reference's largest value."""
+    keys = ("dq", "delta", "dk", "dv")
+    errs = {g: (x.float() - w.float()).abs().max().item() for g, x, w in zip(keys, got, want)}
+    tols = {g: grad_tol(w.float(), dtype) for g, w in zip(keys, want)}
+    bad = [g for g in errs if not errs[g] <= tols[g]]
+    if bad:
+        raise AssertionError(f"{name}: {bad} {errs} > {tols}")
+    return errs, tols
+
+
+def kgrid_bwd_all(q, k, v, o, lse, do, scale, splits=None) -> tuple:
+    """K4b then K4c: (dQ, δ, dK, dV)."""
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+    return dq, delta, dk, dv
+
+
+def kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits=None) -> tuple:
+    """The plain versions of K4b and K4c in fp32: (dQ, δ, dK, dV)."""
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, do))
+    dq, delta = kg.kgrid_bwd_dq_reference(qf, kf, vf, of, lse, gf, scale)
+    dk, dv = kg.kgrid_bwd_dkv_reference(qf, kf, vf, lse, delta, gf, scale, splits)
+    return dq, delta, dk, dv
+
+
+def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
+    """K4b (dQ, δ) and K4c (dK, dV) against their plain versions at the SD1.5
+    training paths' shapes (bf16 and fp32; timed in bf16), on d-160 inputs
+    zero-padded to 192 as the path pads them, with K4a's O and lse as the
+    forward gives them; ragged shapes, d 64 and 512, a strided dO, the
+    query-range split forced to 1 and to more, two identical calls bit-equal;
+    and at d 64 against K2/K3 on K1's O and lse. Returns the timed rows and
+    every K4b and K4c error."""
+    h, d = KGRID_BWD_HEADS, KGRID_BWD_D
+    scale = d**-0.5
+    rows_out, errs_b, errs_c, k4a_rows = [], [], [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, rows, sq, sk in KGRID_BWD_SHAPES:
+            q, do = (path_randn(gen, (rows, sq, h), d, dtype) for _ in range(2))
+            k, v = (path_randn(gen, (rows, sk, h), d, dtype) for _ in range(2))
+            d_pad = q.shape[-1]
+            fwd = check_k4a(q, k, v, f"{name} rows={rows} {dtype}", scale=scale)
+            o, lse = fwd["out"], fwd["lse"]
+            k4a_rows.append(dict(shape=name, rows=rows, dtype=str(dtype), max_abs_err=fwd["max_abs_err"],
+                                 tol=fwd["tol"], lse_max_abs_err=fwd["lse_max_abs_err"]))
+            splits = kg.pick_dkv_splits(rows * h, sq, sk, d_pad)
+            got = kgrid_bwd_all(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            errs, tols = check_bwd(f"K4b/K4c at {name} rows={rows} {dtype}", got,
+                                   kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits), dtype)
+            errs_b.append(errs["dq"])
+            errs_c.append(max(errs["dk"], errs["dv"]))
+            row = dict(phase="kernel_kgrid_bwd", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
+                       padded_head_dim=d_pad, dtype=str(dtype), dkv_splits=splits, max_abs_err=errs, tol=tols)
+            if dtype == torch.bfloat16:
+                _, delta, _, _ = got
+                row.update(
+                    k4b_ms=cuda_ms(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale), 50),
+                    k4c_ms=cuda_ms(lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale), 50),
+                    k4b_device_ms=device_ms(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale), 10),
+                    k4c_device_ms=device_ms(
+                        lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale), 10),
+                    k4b_plain_ms=cuda_ms(lambda: kg.kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale), 5),
+                    k4c_plain_ms=cuda_ms(lambda: kg.kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale), 5),
+                    # SDPA on the unpadded head dim: the same function the path needs
+                    library_ms=library_backward_ms(*(x[..., :d] for x in (q, k, v, do)), 10),
+                )
+                (row["k4b_bound_ms"], row["k4b_bound_by"]), (row["k4c_bound_ms"], row["k4c_bound_by"]) = (
+                    bwd_bound("dq", sq, sk, rows * h, d, dtype), bwd_bound("dkv", sq, sk, rows * h, d, dtype))
+                rows_out.append(row)
+            emit(row)
+
+    # ragged tails, every head-dim class's edge (d 64, 192, 320, 512), one
+    # row / one key, the split forced to 1 and to more (empty splits
+    # included), a strided dO (a head slice of a wider tensor) equal to a
+    # contiguous one bit for bit, and two identical calls bit-equal
+    checks = []
+    cases = [(1, 65, 33, 3, 192, None), (2, 300, 77, 2, 512, None), (2, 300, 77, 2, 64, None),
+             (1, 1, 1, 1, 512, None), (1, 70, 100, 1, 320, None)]
+    cases += [(1, 256, 77, 8, 192, sp) for sp in (1, 4, 12)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, sk, hh, dd, splits in cases:
+            q = torch.randn((b, sq, hh, dd), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, sk, hh, dd), generator=gen, device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn((b, sq, 2 * hh, dd), generator=gen, device="cuda").to(dtype)[:, :, 1::2]
+            o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+            sc = dd**-0.5
+            got = kgrid_bwd_all(q, k, v, o, lse, do, sc, splits)
+            again = kgrid_bwd_all(q, k, v, o, lse, do.contiguous(), sc, splits)
+            used = kg.pick_dkv_splits(b * hh, sq, sk, dd) if splits is None else splits
+            errs, tols = check_bwd(f"K4b/K4c B {b} Sq {sq} Sk {sk} H {hh} d {dd} splits {used} {dtype}", got,
+                                   kgrid_bwd_plain(q, k, v, o, lse, do, sc, used), dtype)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            checks.append(dict(dtype=str(dtype), b=b, sq=sq, sk=sk, heads=hh, head_dim=dd, dkv_splits=used,
+                               strided_do=True, max_abs_err=errs, tol=tols, repeat_and_contiguous_bit_equal=same))
+            if not same:
+                raise AssertionError(f"K4b/K4c: strided dO or a repeated call changed the bits: {checks[-1]}")
+            errs_b.append(errs["dq"])
+            errs_c.append(max(errs["dk"], errs["dv"]))
+    emit(dict(phase="kernel_kgrid_bwd", ragged_splits_strided=checks))
+
+    # d 64: K4b/K4c against K2/K3 on the same inputs and K1's O and lse
+    versus = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s_q, s_k, hh in ((2, 300, 77, 2), (1, 16384, 16384, 1)):
+            q, do = (torch.randn((b, s_q, hh, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, s_k, hh, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            k4 = kgrid_bwd_all(q, k, v, o, lse, do, 0.125)
+            dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 0.125)
+            dk3, dv3 = fa.flash_attention_bwd_dkv(q, k, v, lse, delta2, do, 0.125)
+            torch.cuda.synchronize()
+            errs, tols = check_bwd(f"K4b/K4c vs K2/K3 at {s_q}x{s_k} B {b} H {hh} d 64 {dtype}", k4,
+                                   (dq2, delta2, dk3, dv3), dtype)
+            versus.append(dict(dtype=str(dtype), b=b, sq=s_q, sk=s_k, heads=hh, head_dim=64, max_abs_err=errs,
+                               tol=tols))
+            errs_b.append(errs["dq"])
+            errs_c.append(max(errs["dk"], errs["dv"]))
+            del q, k, v, o, lse, do, k4, dq2, dk3, dv3
+            torch.cuda.empty_cache()
+    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_vs_k2_k3=versus))
+    emit(dict(phase="kernel_kgrid_bwd", k4a_at_training_shapes=k4a_rows))
+    return rows_out, errs_b, errs_c
+
+
 def phase_parity() -> None:
     """tiny-xl sampler: card (K1 in every UNet attention) vs CPU (plain)."""
     _, _, unet_cpu, sched, _ = factory.load_models_xl("tiny-xl", scheduler_name="ddim", device="cpu", with_vae=True)
@@ -442,47 +681,62 @@ def phase_parity() -> None:
         raise AssertionError(f"tiny-xl sampler launched K1 {launches} times")
 
 
+KERNEL_NAMES = ("K1", "K2", "K3", "K4a", "K4b", "K4c")
 KERNEL_WRAPPERS = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
-                   kg.flash_attention_kgrid_fwd)  # K1, K2, K3, K4a
-PLAIN_FORWARDS = (fa.flash_attention_reference, kg.flash_attention_kgrid_reference)
+                   kg.flash_attention_kgrid_fwd, kg.flash_attention_kgrid_bwd_dq, kg.flash_attention_kgrid_bwd_dkv)
+PLAIN_VERSIONS = (fa.flash_attention_reference, fa.bwd_dq_reference, fa.bwd_dkv_reference,
+                  kg.flash_attention_kgrid_reference, kg.kgrid_bwd_dq_reference, kg.kgrid_bwd_dkv_reference)
 
 
 def counts() -> tuple:
-    """Launches of K1, K2, K3, K4a."""
+    """Launches of K1, K2, K3, K4a, K4b, K4c."""
     return tuple(fn.launches for fn in KERNEL_WRAPPERS)
 
 
 def plain_calls() -> tuple:
-    """Calls of the plain forwards (K1's, K4a's) on CUDA tensors."""
-    return tuple(fn.cuda_calls for fn in PLAIN_FORWARDS)
+    """Calls of the kernels' plain versions (forward and backward, in the
+    order of KERNEL_NAMES) on CUDA tensors."""
+    return tuple(fn.cuda_calls for fn in PLAIN_VERSIONS)
 
 
 def reset_counts() -> None:
     """Every launch count and plain-call count to 0, just before a path."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-    for fn in PLAIN_FORWARDS:
+    for fn in PLAIN_VERSIONS:
         fn.cuda_calls = 0
 
 
 def check_no_plain(path: str) -> None:
-    if plain_calls() != (0, 0):
+    if any(plain_calls()):
         raise AssertionError(f"{path}: a plain attention version ran on the card {plain_calls()} times")
 
 
-def phase_train_parity() -> None:
-    """One tiny-xl ESD step, fp32: card (K1/K2/K3 in every attention) vs CPU
-    (plain versions), same weights, factors, prompt embeddings and draws."""
-    _, tes, unet_cpu, sched = factory.load_models_xl("tiny-xl", scheduler_name="euler_a", device="cpu")
+def per_step_launches(unet_cfg: UNetConfig, forwards: int, steps: int) -> list:
+    """Expected launches of K1..K4c for ``forwards`` UNet forwards and
+    ``steps`` student backwards: head dims ≤ 128 run K1 (K2/K3 backward),
+    129..512 K4a (K4b/K4c backward)."""
+    by_dim = unet_cfg.attention_calls_by_head_dim()
+    k1 = sum(n for d, n in by_dim.items() if d <= 128)
+    k4 = sum(by_dim.values()) - k1
+    return [forwards * k1, steps * k1, steps * k1, forwards * k4, steps * k4, steps * k4]
+
+
+def esd_step_parity(phase: str, model: str, unet_cpu, sched, encode, seed: int, prompts: dict,
+                    xl: bool) -> None:
+    """One ESD step, fp32: card (the kernels in every attention) vs CPU (their
+    plain versions), same weights, LoRA factors, prompt embeddings and draws;
+    ``xl`` adds the pooled embeddings, add_time_ids and the 0.2 clip. Checks
+    the launches of K1..K4c and that no plain version ran on the card."""
     unet_gpu = copy.deepcopy(unet_cpu).to("cuda")
     sites = lora.create_sites(unet_cpu, rank=2, train_method="full")
-    g = torch.Generator().manual_seed(2)
+    g = torch.Generator().manual_seed(seed)
     lp = lora.init_lora_params(sites, generator=g)
     for leaf in lp.values():
         leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
-    settings = [PromptSettings.from_dict(dict(target="person", positive="person, smiling", unconditional="person",
-                                              neutral="person", action="enhance", guidance_scale=3, resolution=64))]
-    bank = esd.build_prompt_bank(settings, lambda p: tuple(t[0] for t in factory.encode_prompts_xl(tes, [p])))
+    settings = [PromptSettings.from_dict(dict(target="person", neutral="person", action="enhance", resolution=64,
+                                              **prompts))]
+    bank = esd.build_prompt_bank(settings, encode)
     schedule = sched.set_timesteps(3)
     t_to = 2
     lat0 = torch.randn((1, 4, 8, 8), generator=g) * schedule.init_noise_sigma
@@ -491,28 +745,40 @@ def phase_train_parity() -> None:
 
     def run(unet, device):
         lp_d = {n: {k: t.to(device).clone().requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
-        bank_d = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign, bank.pooled.to(device))
-        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10), grad_clip_norm=0.2)
-        step = esd.make_esd_train_step(unet, sites, lp_d, sched, schedule, opt, cfg,
-                                       add_time_ids=torch.from_numpy(get_add_time_ids(64, 64)).to(device))
+        bank_d = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign,
+                                bank.pooled.to(device) if xl else None)
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10), grad_clip_norm=0.2 if xl else None)
+        add_time_ids = torch.from_numpy(get_add_time_ids(64, 64)).to(device) if xl else None
+        step = esd.make_esd_train_step(unet, sites, lp_d, sched, schedule, opt, cfg, add_time_ids=add_time_ids)
         m = step(opt.init(flat_params(sites, lp_d)), bank_d,
                  draws=esd.Draws(0, t_to, lat0.to(device), noise.to(device)))
         return float(m["loss"]), float(m["grad_norm"]), lora.state_dict_numpy(sites, lp_d)
 
-    before = counts()
+    reset_counts()
     got = run(unet_gpu, "cuda")
-    launches = [a - b for a, b in zip(counts(), before)]
+    launches = list(counts())
+    check_no_plain(f"{phase} ({model})")
     want = run(unet_cpu, "cpu")
-    per_fwd = unet_gpu.config.attention_calls_per_forward()
+    want_launches = per_step_launches(unet_gpu.config, t_to + 2, 1)
     loss_err = abs(got[0] - want[0])
     factor_err = max(float(np.abs(got[2][k] - want[2][k]).max()) for k in want[2])
-    emit(dict(phase="train_parity", model="tiny-xl", timesteps_to=t_to, loss_card=got[0], loss_cpu=want[0],
-              loss_abs_err=loss_err, grad_norm_card=got[1], grad_norm_cpu=want[1], factor_max_abs_err=factor_err,
-              tol=1e-3, launches_k1_k2_k3_k4a=launches))
+    emit(dict(phase=phase, model=model, timesteps_to=t_to, loss_card=got[0],
+              loss_cpu=want[0], loss_abs_err=loss_err, grad_norm_card=got[1], grad_norm_cpu=want[1],
+              factor_max_abs_err=factor_err, tol=1e-3, launches_k1_to_k4c=launches,
+              expected_launches=want_launches))
     if not (loss_err <= 1e-3 * max(1.0, abs(want[0])) and factor_err <= 1e-3):
-        raise AssertionError(f"tiny-xl ESD step on the card differs from the CPU: loss {loss_err}, factors {factor_err}")
-    if launches != [(t_to + 2) * per_fwd, per_fwd, per_fwd, 0]:
-        raise AssertionError(f"tiny-xl ESD step launched K1/K2/K3/K4a {launches} times")
+        raise AssertionError(f"{model} ESD step on the card differs from the CPU: loss {loss_err}, "
+                             f"factors {factor_err}")
+    if launches != want_launches:
+        raise AssertionError(f"{model} ESD step launched K1..K4c {launches} times, expected {want_launches}")
+
+
+def phase_train_parity() -> None:
+    """One tiny-xl Euler-A ESD step (K1/K2/K3 inside), card vs CPU."""
+    _, tes, unet_cpu, sched = factory.load_models_xl("tiny-xl", scheduler_name="euler_a", device="cpu")
+    esd_step_parity("train_parity", "tiny-xl", unet_cpu, sched,
+                    lambda p: tuple(t[0] for t in factory.encode_prompts_xl(tes, [p])), 2,
+                    dict(positive="person, smiling", unconditional="person", guidance_scale=3), xl=True)
 
 
 def write_image_folders(root: Path, folders, names, size: int, seed: int) -> None:
@@ -578,11 +844,11 @@ def phase_imageslider_parity(tmp: Path) -> None:
     loss_err = abs(loss - want_loss)
     factor_err = max(float(np.abs(factors[k] - want_factors[k]).max()) for k in want_factors)
     per_fwd = unet_gpu.config.attention_calls_per_forward()
-    want_launches = [per_fwd, per_fwd, per_fwd, len(IMAGE_FOLDERS)]
+    want_launches = [per_fwd, per_fwd, per_fwd, len(IMAGE_FOLDERS), 0, 0]
     emit(dict(phase="imageslider_parity", model="tiny-xl + SDXL VAE", image_size=64, bank_shape=list(bank.mean.shape),
               pair_table=bank.pair_table, moment_max_abs_err=moment_err, moment_tol=moment_tol, loss_card=loss,
               loss_cpu=want_loss, loss_abs_err=loss_err, factor_max_abs_err=factor_err, tol=1e-3,
-              launches_k1_k2_k3_k4a=launches))
+              launches_k1_to_k4c=launches))
     if not (moment_err <= moment_tol and loss_err <= 1e-3 * max(1.0, abs(want_loss)) and factor_err <= 1e-3):
         raise AssertionError(f"the image-pair bank or step on the card differs from the CPU: moments {moment_err}, "
                              f"loss {loss_err}, factors {factor_err}")
@@ -613,30 +879,31 @@ def device_profile(fn) -> dict:
     out = dict(wall_seconds_profiled=wall, device_kernels=n_kernels, device_busy_seconds=busy if by_name else "not measured",
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
-    for key, kernel in (("k1", "flash_fwd_kernel"), ("k2", "flash_bwd_dq_kernel"), ("k3", "flash_bwd_dkv_kernel"),
-                        ("k4a", "kgrid_")):
-        secs = sum(v for k, v in by_name.items() if kernel in k)
+    for key, names in (("k1", ("flash_fwd_kernel",)), ("k2", ("flash_bwd_dq_kernel",)),
+                       ("k3", ("flash_bwd_dkv_kernel",)), ("k4a", ("kgrid_fwd_kernel", "kgrid_merge_kernel")),
+                       ("k4b", ("kgrid_bwd_dq_kernel",)), ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_dkv_merge_kernel"))):
+        secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
         out[f"{key}_seconds"] = secs
         out[f"{key}_share_of_busy"] = secs / busy if busy else "not measured"
     return out
 
 
-def xl_train_config(save_dir: Path):
-    """data/config-xl.yaml as it is, but for train.iterations and save.path."""
-    cfg = load_config_from_yaml(str(REPO / "data" / "config-xl.yaml"))
+def train_config(save_dir: Path, yaml_name: str = "config-xl.yaml", iterations: int = TRAIN_ITERATIONS):
+    """data/<yaml_name> as it is, but for train.iterations and save.path."""
+    cfg = load_config_from_yaml(str(REPO / "data" / yaml_name))
     cfg.prompts_file = str(REPO / cfg.prompts_file)
-    cfg.train.iterations = TRAIN_ITERATIONS
+    cfg.train.iterations = iterations
     cfg.save.path = str(save_dir)
     return cfg, load_prompts_from_yaml(cfg.prompts_file)
 
 
-def trained_summary(cfg, res) -> dict:
+def trained_summary(cfg, res, unet_cfg: UNetConfig) -> dict:
     """The saved ``_last.safetensors`` against the reference key schema for
     the config's sites, and how many LoRA ``up`` factors are still at their
     0 start."""
     saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
     with torch.device("meta"):
-        meta_unet = UNet2DConditionModel(UNetConfig.sdxl())
+        meta_unet = UNet2DConditionModel(unet_cfg)
     ref_sites = lora.create_sites(meta_unet, rank=cfg.network.rank, alpha=cfg.network.alpha,
                                   train_method=cfg.network.training_method)
     want_keys = {f"{s.lora_name}.{k}" for s in ref_sites for k in ("lora_down.weight", "lora_up.weight", "alpha")}
@@ -645,73 +912,110 @@ def trained_summary(cfg, res) -> dict:
                 up_factors_still_zero=len(ups_zero))
 
 
-def check_trained(what: str, res, summary: dict, launches, want_launches) -> None:
-    if not all(np.isfinite(res.losses)) or len(res.losses) != TRAIN_ITERATIONS:
+def check_trained(what: str, res, summary: dict, launches, want_launches, iterations: int = TRAIN_ITERATIONS) -> None:
+    if not all(np.isfinite(res.losses)) or len(res.losses) != iterations:
         raise AssertionError(f"{what}: losses {res.losses}")
     if summary["up_factors_still_zero"]:
         raise AssertionError(f"{what}: {summary['up_factors_still_zero']} LoRA up factors are still zero")
     if not summary["saved_keys_match_reference"]:
         raise AssertionError(f"{what}: the saved slider's keys are not the reference schema")
     if launches != want_launches:
-        raise AssertionError(f"{what} launched K1/K2/K3/K4a {launches} times, expected {want_launches}")
+        raise AssertionError(f"{what} launched K1..K4c {launches} times, expected {want_launches}")
 
 
-def phase_train(tmp: Path) -> tuple:
-    """Full-width SDXL ESD training at 512px through trainer.train."""
-    cfg, prompts = xl_train_config(tmp / "train")
-    per_fwd = UNetConfig.sdxl().attention_calls_per_forward()
+# the tiny SD UNet, and a variant whose mid block has one head of 160 (K4a
+# forward, K4b/K4c backward on the card)
+TINY_SD_D160 = dataclasses.replace(UNetConfig.tiny(), block_out_channels=(32, 160), attention_head_dim=1)
+
+
+def phase_sd_train_parity() -> None:
+    """One tiny-SD DDIM ESD step, fp32: card vs CPU, same weights, factors,
+    prompt embeddings and draws — on ``tiny`` (K1/K2/K3 inside) and on its
+    d-160 variant (K1/K2/K3 and K4a/K4b/K4c inside)."""
+    _, te, tiny_unet, sched = factory.load_models("tiny", scheduler_name="ddim", device="cpu")
+    for name, unet_cpu in (("tiny", tiny_unet),
+                           ("tiny, mid block d 160", factory.build_module(
+                               lambda: UNet2DConditionModel(TINY_SD_D160), "cpu", torch.float32, 1))):
+        esd_step_parity("sd_train_parity", name, unet_cpu, sched,
+                        lambda p: (factory.encode_prompts(te, [p])[0], None), 7,
+                        dict(positive="person, very old", unconditional="person, young", guidance_scale=4),
+                        xl=False)
+
+
+def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: int = TRAIN_ITERATIONS) -> list:
+    """Full-width ESD training at the prompts' resolution through
+    trainer.train (the path of cli/train_lora_xl.py and cli/train_lora.py),
+    from data/<yaml_name> and its prompts file (only train.iterations and
+    save.path overridden, plus ``yaml_edit`` for the SD2.1 run); then one more
+    step under torch.profiler. Returns the launches of K1..K4c."""
+    cfg, prompts = train_config(tmp / what, yaml_name, iterations)
+    if yaml_edit is not None:
+        yaml_edit(cfg)
+    model = cfg.pretrained_model
+    unet_cfg = factory.unet_config_for(model.name_or_path, model.v2)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # count the training path only
+    reset_counts()  # count this training path only
     t0 = time.time()
     res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
     wall = time.time() - t0
     launches = list(counts())
-    check_no_plain("train")
+    check_no_plain(what)
     t_to = [row["timesteps_to"] for row in res.metrics]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    summary = trained_summary(cfg, res)
-    want_launches = [sum(t + 2 for t in t_to) * per_fwd, TRAIN_ITERATIONS * per_fwd, TRAIN_ITERATIONS * per_fwd, 0]
+    summary = trained_summary(cfg, res, unet_cfg)
+    want_launches = per_step_launches(unet_cfg, sum(t + 2 for t in t_to), iterations)
     row = dict(
-        phase="train", model=cfg.pretrained_model.name_or_path, image_size=prompts[0].resolution,
-        scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
-        precision=cfg.train.precision, lora_sites=len(res.sites), iterations=TRAIN_ITERATIONS,
-        losses=res.losses, grad_norms=[r["grad_norm"] for r in res.metrics], timesteps_to=t_to,
+        phase=what, model=model.name_or_path, v2=model.v2, v_pred=model.v_pred, clip_skip=model.clip_skip,
+        image_size=prompts[0].resolution, scheduler=cfg.train.noise_scheduler,
+        max_denoising_steps=cfg.train.max_denoising_steps, precision=cfg.train.precision, train_cfg=cfg.train.cfg,
+        lora_sites=len(res.sites), iterations=iterations, losses=res.losses,
+        grad_norms=[r["grad_norm"] for r in res.metrics], timesteps_to=t_to,
         steps_per_sec_after_first=res.steps_per_sec, first_step_seconds=res.first_step_seconds,
-        setup_seconds_models_and_prompt_bank=res.setup_seconds, wall_seconds=wall,
-        max_memory_allocated_gib=peak, launches_k1_k2_k3_k4a=launches, expected_launches=want_launches,
-        **summary,
+        setup_seconds_models_and_prompt_bank=res.setup_seconds, wall_seconds=wall, max_memory_allocated_gib=peak,
+        attention_calls_by_head_dim=unet_cfg.attention_calls_by_head_dim(), launches_k1_to_k4c=launches,
+        expected_launches=want_launches, **summary,
     )
     emit(row)
-    check_trained("training", res, summary, launches, want_launches)
+    check_trained(what, res, summary, launches, want_launches, iterations)
 
     profiled = {}
     prof = device_profile(lambda: profiled.update(res.next_step()))
-    emit(dict(phase="train_profile", timesteps_to=profiled["timesteps_to"], **prof))
-    return launches, row
+    emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
+    return launches
 
 
-def phase_imageslider(tmp: Path) -> list:
-    """Full-width SDXL image-pair slider training at 512px through
-    cli/train_lora_scale.train: four folders of paired PNGs, two |scale| pairs."""
-    cfg, prompts = xl_train_config(tmp / "imageslider")
-    root = tmp / "image_pairs"
-    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)],
-                        train_lora_scale.XL_RESOLUTION, seed=6)
-    per_fwd = UNetConfig.sdxl().attention_calls_per_forward()
+def sd21_config(cfg) -> None:
+    """data/config.yaml turned to SD2.1: the model name, v2 and v_pred."""
+    cfg.pretrained_model.name_or_path = "stabilityai/stable-diffusion-2-1"
+    cfg.pretrained_model.v2 = True
+    cfg.pretrained_model.v_pred = True
+
+
+def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int) -> list:
+    """Full-width image-pair slider training through
+    cli/train_lora_scale.train from data/<yaml_name> and its prompts file
+    (SDXL at 512px, SD1.5 at 256px: the trainer's resolution for the family),
+    four folders of four synthetic PNGs at scales -2, -1, 1, 2; then one more
+    step under torch.profiler. Returns the launches of K1..K4c."""
+    cfg, prompts = train_config(tmp / what, yaml_name)
+    root = tmp / f"{what}_images"
+    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution, seed)
+    unet_cfg = factory.unet_config_for(cfg.pretrained_model.name_or_path, cfg.pretrained_model.v2)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # count the image-pair training path only
+    reset_counts()  # count this image-pair training path only
     t0 = time.time()
     res = train_lora_scale.train(cfg, prompts, str(root), IMAGE_FOLDERS, IMAGE_SCALES, rank=cfg.network.rank,
                                  device="cuda")
     wall = time.time() - t0
     launches = list(counts())
-    check_no_plain("imageslider")
+    check_no_plain(what)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    summary = trained_summary(cfg, res)
-    # K1/K2/K3 once per attention of the one 2-row student call; K4a once per folder's encode
-    want_launches = [TRAIN_ITERATIONS * per_fwd] * 3 + [len(IMAGE_FOLDERS)]
+    summary = trained_summary(cfg, res, unet_cfg)
+    # per step one 2-row student forward and backward; K4a also once per folder's encode (VAE mid-block)
+    want_launches = per_step_launches(unet_cfg, TRAIN_ITERATIONS, TRAIN_ITERATIONS)
+    want_launches[3] += len(IMAGE_FOLDERS)
     row = dict(
-        phase="imageslider", model=cfg.pretrained_model.name_or_path, image_size=train_lora_scale.XL_RESOLUTION,
+        phase=what, model=cfg.pretrained_model.name_or_path, image_size=resolution,
         folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=IMAGES_PER_FOLDER,
         scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
         precision=cfg.train.precision, lora_sites=len(res.sites), iterations=TRAIN_ITERATIONS,
@@ -720,15 +1024,15 @@ def phase_imageslider(tmp: Path) -> list:
         pair_scales=[r["scale"] for r in res.metrics], timesteps_to=[r["timesteps_to"] for r in res.metrics],
         bank_build_seconds=res.bank_seconds, steps_per_sec_after_first=res.steps_per_sec,
         first_step_seconds=res.first_step_seconds, setup_seconds_models_prompts_bank=res.setup_seconds,
-        wall_seconds=wall, max_memory_allocated_gib=peak, launches_k1_k2_k3_k4a=launches,
+        wall_seconds=wall, max_memory_allocated_gib=peak, launches_k1_to_k4c=launches,
         expected_launches=want_launches, **summary,
     )
     emit(row)
-    check_trained("image-pair training", res, summary, launches, want_launches)
+    check_trained(what, res, summary, launches, want_launches)
 
     profiled = {}
     prof = device_profile(lambda: profiled.update(res.next_step()))
-    emit(dict(phase="imageslider_profile", timesteps_to=profiled["timesteps_to"], scale=profiled["scale"], **prof))
+    emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], scale=profiled["scale"], **prof))
     return launches
 
 
@@ -765,7 +1069,7 @@ def phase_serve(tmp: Path) -> SliderService:
 
     images = {}
     for scale in (0.0, 2.0):
-        (l0, *_, d0), b0 = counts(), batcher.total_batches
+        (l0, _, _, d0, _, _), b0 = counts(), batcher.total_batches
         png, secs = timed(scale, 7)
         images[scale] = decode_png(png)
         requests.append(dict(scale=scale, seconds=secs, batch=batcher.batch_sizes[-1],
@@ -773,7 +1077,7 @@ def phase_serve(tmp: Path) -> SliderService:
                              k4a_launches=kg.flash_attention_kgrid_fwd.launches - d0,
                              sampler_calls=batcher.total_batches - b0))
 
-    (l0, *_, d0), b0 = counts(), batcher.total_batches
+    (l0, _, _, d0, _, _), b0 = counts(), batcher.total_batches
     pair: dict = {}
     errors: list = []
 
@@ -863,7 +1167,7 @@ def phase_http(svc: SliderService) -> int:
 def phase_profile(svc: SliderService) -> None:
     """One solo request under torch.profiler."""
     prof = device_profile(lambda: svc.generate("a photo of a person", 1.0, 5, 7.5, slider="smoke"))
-    emit(dict(phase="profile", **{k: v for k, v in prof.items() if not k.startswith(("k2", "k3"))}))
+    emit(dict(phase="profile", **{k: v for k, v in prof.items() if not k.startswith(("k2", "k3", "k4b", "k4c"))}))
 
 
 def main() -> int:
@@ -884,39 +1188,64 @@ def main() -> int:
     k1_rows = phase_kernel(gen)
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
     kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
+    kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
     phase_parity()
     phase_train_parity()
+    phase_sd_train_parity()
+    paths = {}  # each path's launches of K1..K4c, counted from 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
         phase_imageslider_parity(Path(tmp))
         svc = phase_serve(Path(tmp))  # sets every count to 0 before it serves
         try:
             phase_http(svc)
-            serve = counts()
+            paths["serve"] = counts()
             check_no_plain("serve")
             phase_profile(svc)
         finally:
             svc.close()
         del svc
         torch.cuda.empty_cache()
-        train_launches, _ = phase_train(Path(tmp))  # sets every count to 0 before it trains
+        # each training phase sets every count to 0 first
+        paths["train"] = phase_esd(Path(tmp), "train", "config-xl.yaml")
         torch.cuda.empty_cache()
-        image_launches = phase_imageslider(Path(tmp))  # and so does the image-pair trainer
+        paths["imageslider"] = phase_image_pairs(Path(tmp), "imageslider", "config-xl.yaml",
+                                                 train_lora_scale.XL_RESOLUTION, seed=6)
+        torch.cuda.empty_cache()
+        paths["sd_train"] = phase_esd(Path(tmp), "sd_train", "config.yaml")
+        torch.cuda.empty_cache()
+        paths["sd2_train"] = phase_esd(Path(tmp), "sd2_train", "config.yaml", sd21_config, iterations=2)
+        torch.cuda.empty_cache()
+        paths["sd_imageslider"] = phase_image_pairs(Path(tmp), "sd_imageslider", "config.yaml",
+                                                    train_lora_scale.SD_RESOLUTION, seed=8)
 
-    # each kernel ran on each path that runs it (K1 and K4a serving, K1-K3
-    # training, all four image-pair training)
-    ran = [serve[0], serve[3], *train_launches[:3], *image_launches]
-    if min(ran) <= 0:
-        raise AssertionError(f"a kernel was not launched on its path: serve {serve}, train {train_launches}, "
-                             f"imageslider {image_launches}")
+    # the paths that run each kernel: every one launched it, and SD2.1 (head
+    # dim 64 everywhere) launched no K4a/K4b/K4c
+    runs_on = {
+        "K1": ("serve", "train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
+        "K2": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
+        "K3": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
+        "K4a": ("serve", "imageslider", "sd_train", "sd_imageslider"),
+        "K4b": ("sd_train", "sd_imageslider"),
+        "K4c": ("sd_train", "sd_imageslider"),
+    }
+    for i, name in enumerate(KERNEL_NAMES):
+        if min(paths[p][i] for p in runs_on[name]) <= 0:
+            raise AssertionError(f"{name} was not launched on every path that runs it: {paths}")
+    if any(paths["sd2_train"][3:]):
+        raise AssertionError(f"SD2.1 training launched K4a/K4b/K4c: {paths['sd2_train']}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time
     kgrid_main = kgrid_rows[0]  # the 1024px decode of one image: K4a's serving call
+    kb_main = kgrid_bwd_rows[0]  # 256x256 self-attention, 8 heads, d 192, bf16: the ESD student's largest
     at_bwd = f"{bwd_main['shape']} rows=1 heads={bwd_main['heads']} d={bwd_main['head_dim']} bf16"
+    at_kb = (f"{kb_main['shape']} rows={kb_main['rows']} heads={kb_main['heads']} "
+             f"d={kb_main['head_dim']}→{kb_main['padded_head_dim']} bf16")
 
-    def launches(i: int, paths) -> dict:
-        """Kernel i's launches on the paths that run it, and their sum."""
-        every = {"serve": serve[i], "train": train_launches[i], "imageslider": image_launches[i]}
-        return dict(launches=sum(every[p] for p in paths), launches_by_path={p: every[p] for p in paths})
+    def launches(name: str) -> dict:
+        """The kernel's launches on the paths that run it, and their sum."""
+        i = KERNEL_NAMES.index(name)
+        every = {p: paths[p][i] for p in runs_on[name]}
+        return dict(launches=sum(every.values()), launches_by_path=every)
 
     rows = [
         dict(
@@ -924,7 +1253,7 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
-            **launches(0, ("serve", "train", "imageslider")),
+            **launches("K1"),
             max_abs_err=max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
             ms=main_row["kernel_ms"],
             plain_ms=main_row["plain_ms"],
@@ -938,9 +1267,10 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:107",
-            **launches(1, ("train", "imageslider")),
+            **launches("K2"),
             max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
             ms=bwd_main["k2_ms"],
+            device_ms=bwd_main["k2_device_ms"],
             plain_ms=bwd_main["k2_plain_ms"],
             bound_ms=bwd_main["k2_bound_ms"],
             bound_by=bwd_main["k2_bound_by"],
@@ -953,9 +1283,10 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:139",
-            **launches(2, ("train", "imageslider")),
+            **launches("K3"),
             max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
             ms=bwd_main["k3_ms"],
+            device_ms=bwd_main["k3_device_ms"],
             plain_ms=bwd_main["k3_plain_ms"],
             bound_ms=bwd_main["k3_bound_ms"],
             bound_by=bwd_main["k3_bound_by"],
@@ -968,7 +1299,7 @@ def main() -> int:
             route="cuda",
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_kgrid.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention_kgrid.py:77",
-            **launches(3, ("serve", "imageslider")),
+            **launches("K4a"),
             max_abs_err=max(kgrid_errors),
             ms=kgrid_main["kernel_ms"],
             plain_ms=kgrid_main["plain_ms"],
@@ -976,6 +1307,38 @@ def main() -> int:
             bound_by=kgrid_main["bound_by"],
             library_ms=kgrid_main["library_ms"],
             at=f"{kgrid_main['shape']} rows={kgrid_main['rows']} heads=1 d={kgrid_main['head_dim']} bf16",
+        ),
+        dict(
+            name="flash_attention_kgrid_bwd_dq",
+            route="cuda",
+            source="sliders_conceptmod_tpu_torch/csrc/flash_attention_kgrid_bwd.cu",
+            replaces="sliders_conceptmod_tpu/ops/flash_attention_kgrid.py:122",
+            **launches("K4b"),
+            max_abs_err=max(k4b_errors),
+            ms=kb_main["k4b_ms"],
+            device_ms=kb_main["k4b_device_ms"],
+            plain_ms=kb_main["k4b_plain_ms"],
+            bound_ms=kb_main["k4b_bound_ms"],
+            bound_by=kb_main["k4b_bound_by"],
+            library_ms=kb_main["library_ms"],
+            library="SDPA backward (dQ, dK, dV together)",
+            at=at_kb,
+        ),
+        dict(
+            name="flash_attention_kgrid_bwd_dkv",
+            route="cuda",
+            source="sliders_conceptmod_tpu_torch/csrc/flash_attention_kgrid_bwd.cu",
+            replaces="sliders_conceptmod_tpu/ops/flash_attention_kgrid.py:154",
+            **launches("K4c"),
+            max_abs_err=max(k4c_errors),
+            ms=kb_main["k4c_ms"],
+            device_ms=kb_main["k4c_device_ms"],
+            plain_ms=kb_main["k4c_plain_ms"],
+            bound_ms=kb_main["k4c_bound_ms"],
+            bound_by=kb_main["k4c_bound_by"],
+            library_ms=kb_main["library_ms"],
+            library="SDPA backward (dQ, dK, dV together)",
+            at=at_kb,
         ),
     ]
     emit({"kernels": rows})

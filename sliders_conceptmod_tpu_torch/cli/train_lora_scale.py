@@ -1,7 +1,8 @@
 """CLI: image-pair ("visual") slider training — counterpart of
 ``sliders_conceptmod_tpu/cli/train_lora_scale.py`` (reference
-``trainscripts/imagesliders/train_lora-scale.py:376-419`` flag surface, and
-the 512px XL variant ``train_lora-scale-xl.py``):
+``trainscripts/imagesliders/train_lora-scale.py:376-419`` flag surface,
+256px for SD1/SD2, and the 512px XL variant ``train_lora-scale-xl.py`` when
+the model name contains "xl"):
 
   python -m sliders_conceptmod_tpu_torch.cli.train_lora_scale \\
       --config_file data/config-xl.yaml --alpha 1 --rank 4 \\
@@ -14,7 +15,9 @@ same file name. A value that starts with "-" is given as ``--scales=...``
 ``cpu`` runs the kernels' plain versions, for tiny configs).
 
 Flow: models at ``train.precision`` with the VAE → the positive and neutral
-prompt embeddings (then the text towers are freed) → LoRA sites and factors
+prompt embeddings (SD1/SD2: the ``clip_skip`` state; XL: both towers'
+penultimate states and the pooled embeddings; then the text towers are
+freed) → LoRA sites and factors
 → the image bank (one VAE encode per folder; then the VAE is freed) → one
 ``train/imageslider.py`` step per iteration → periodic and final
 ``.safetensors`` saves in the reference key schema, a resume checkpoint
@@ -22,10 +25,10 @@ beside each periodic save, and the metrics jsonl. As in the JAX CLI the
 optimizer is ``train.optimizer`` over ``train.lr_scheduler``, with no
 gradient clip.
 
-Only the XL family is ported (SD1/SD2 is the next slice); the JAX CLI's
-refusals are kept (``tpu.quantize_base``, ``tpu.w8a8_warmup``,
-``tpu.overlay_warmup: true``), and ``tpu.student_overlay: false`` raises
-until ``merge_lora_params`` is ported.
+The JAX CLI's refusals are kept (``tpu.quantize_base``,
+``tpu.w8a8_warmup``, ``tpu.overlay_warmup: true``), and
+``tpu.student_overlay: false`` raises until ``merge_lora_params`` is
+ported.
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.cli.train_lora_xl import _decorate
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
-from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import imageslider
@@ -51,6 +53,7 @@ from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedul
 from sliders_conceptmod_tpu_torch.train.trainer import TrainResult
 
 XL_RESOLUTION = 512  # reference train_lora-scale-xl.py:220
+SD_RESOLUTION = 256  # reference train_lora-scale.py:219
 
 
 def check_supported(config) -> None:
@@ -68,9 +71,6 @@ def check_supported(config) -> None:
         raise NotImplementedError(
             "tpu.student_overlay: false (the merged ±scale students) needs merge_lora_params, not ported yet "
             "(ROADMAP.md queue 1)")
-    if "xl" not in str(config.pretrained_model.name_or_path).lower():
-        raise NotImplementedError(
-            "the SD1/SD2 image-pair trainer (256px) is not ported yet (ROADMAP.md queue 1, the SD1/SD2 slice)")
 
 
 def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, save_file: bool = True,
@@ -88,16 +88,18 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
     settings = prompts[0]
 
     # --- models, then the two prompt embeddings; the text towers are freed -
-    _, text_encoders, unet, scheduler, vae = factory.load_models_xl(
-        config.pretrained_model.name_or_path, scheduler_name=config.train.noise_scheduler,
-        weight_dtype=weight_dtype, with_vae=True, device=str(device),
-    )
+    models = factory.load_for_training(config.pretrained_model, config.train.noise_scheduler, weight_dtype,
+                                       with_vae=True, device=str(device))
+    unet, scheduler, vae = models.unet, models.scheduler, models.vae
+    resolution = XL_RESOLUTION if models.is_xl else SD_RESOLUTION
     emb, pooled = {}, {}
     for role, prompt in (("positive", settings.positive), ("neutral", settings.neutral)):
-        text, pool = factory.encode_prompts_xl(text_encoders, [prompt])
+        text, pool = models.encode(prompt)
         with torch.inference_mode(False):  # they enter the student's graph (cross-attention sites)
-            emb[role], pooled[role] = text[0].clone(), pool[0].clone()
-    del text_encoders
+            emb[role] = text.clone()
+            if pool is not None:
+                pooled[role] = pool.clone()
+    models.encode = models.vae = None
 
     # --- adapter and optimizer --------------------------------------------
     target_replace = list(lora_lib.UNET_TARGET_REPLACE_MODULE_TRANSFORMER)
@@ -116,7 +118,7 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
     # --- the image bank, then the VAE is freed ----------------------------
     t_bank = time.time()
     bank = imageslider.build_image_bank(folder_main, folders, [float(s) for s in scales], vae.encode,
-                                        XL_RESOLUTION, device=device)
+                                        resolution, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     bank_seconds = time.time() - t_bank
@@ -127,10 +129,9 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
         torch.cuda.empty_cache()
 
     schedule = scheduler.set_timesteps(config.train.max_denoising_steps)
-    add_tids = torch.from_numpy(get_add_time_ids(XL_RESOLUTION, XL_RESOLUTION)).to(device)
     step_fn = imageslider.make_image_slider_step(unet, sites, lora_params, scheduler, schedule, optimizer, icfg,
-                                                 emb["positive"], emb["neutral"], pooled=pooled,
-                                                 add_time_ids=add_tids)
+                                                 emb["positive"], emb["neutral"], pooled=pooled or None,
+                                                 add_time_ids=models.add_time_ids(resolution, device))
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = TrainRNG(config.tpu.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)

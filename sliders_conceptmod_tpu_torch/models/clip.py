@@ -1,8 +1,9 @@
 """CLIP text encoder — counterpart of ``sliders_conceptmod_tpu/models/clip.py``.
 
 Causal transformer over 77 tokens with an fp32 softmax, pooled output at the
-EOS position, optional projection head (SDXL te2), and the penultimate
-hidden state that SDXL conditions on. Module names follow the JAX tree
+EOS position, optional projection head (SDXL te2), the penultimate hidden
+state that SDXL conditions on and the ``clip_skip`` state that SD1/SD2
+condition on. Module names follow the JAX tree
 (``layers.<i>.self_attn.q_proj``, ``mlp_fc1``, ...), so the weight bridge and
 text-encoder LoRA names line up. Attention over 77 tokens stays plain
 PyTorch, as it stays plain XLA in the JAX package.
@@ -32,6 +33,22 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 49407
     projection_dim: Optional[int] = None  # set for CLIPTextModelWithProjection
+
+    @classmethod
+    def sd15_te(cls):
+        """openai/clip-vit-large-patch14 text tower (SD1.x)."""
+        return cls()
+
+    @classmethod
+    def sd2_te(cls):
+        """OpenCLIP ViT-H text tower (SD2.x): 1024 wide, 23 used layers of 24, gelu."""
+        return cls(
+            hidden_size=1024,
+            intermediate_size=4096,
+            num_hidden_layers=23,
+            num_attention_heads=16,
+            hidden_act="gelu",
+        )
 
     @classmethod
     def sdxl_te1(cls):
@@ -154,3 +171,11 @@ class CLIPTextEncoder(nn.Module):
 def penultimate_hidden_state(out: CLIPTextOutput) -> torch.Tensor:
     """SDXL conditioning uses hidden_states[-2]."""
     return out.hidden_states[-2]
+
+
+def clip_skip_hidden_state(out: CLIPTextOutput, clip_skip: Optional[int]) -> torch.Tensor:
+    """SD1/2 conditioning (reference model_util.py:91-109): ``clip_skip`` n > 1
+    takes hidden_states[-n] (pre-LN); None or 1 the final LayerNorm output."""
+    if clip_skip is None or clip_skip <= 1:
+        return out.last_hidden_state
+    return out.hidden_states[-clip_skip]

@@ -1,5 +1,5 @@
 """UNet2DCondition — counterpart of ``sliders_conceptmod_tpu/models/unet.py``
-(SDXL and the tiny-xl test topology), NCHW throughout.
+(SD1.5, SD2.1, SDXL and the tiny / tiny-xl test topologies), NCHW throughout.
 
 Module names follow the diffusers module paths (``down_blocks.0.attentions.1.
 transformer_blocks.0.attn1.to_out.0``); joining each index onto the name
@@ -7,14 +7,17 @@ before it gives the JAX tree's path (``down_blocks_0/.../to_out_0``), so the
 LoRA key schema ``lora_unet_<path>`` and the weight bridge line up with the
 JAX package. Norm statistics are fp32; matmuls and convs run in the weight
 dtype. Every self- and cross-attention goes through
-``ops/attention.py::dot_product_attention`` (kernel K1 on the card).
+``ops/attention.py::dot_product_attention``: on the card kernel K1 for head
+dims up to 128 (SDXL's and SD2.1's 64, SD1.5's 40 and 80) and K4a for
+SD1.5's 1280-channel level (8 heads of 160 — diffusers' ``attention_head_dim``
+means heads).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +67,23 @@ class UNetConfig:
         return t[i] if isinstance(t, (tuple, list)) else t
 
     @classmethod
+    def sd15(cls) -> "UNetConfig":
+        """runwayml/stable-diffusion-v1-5 unet/config.json."""
+        return cls()
+
+    @classmethod
+    def sd21(cls) -> "UNetConfig":
+        """stabilityai/stable-diffusion-2-1: 1024-dim context, per-block head
+        counts [5,10,20,20], linear projections (v-prediction is the
+        scheduler's)."""
+        return cls(
+            sample_size=96,
+            cross_attention_dim=1024,
+            attention_head_dim=(5, 10, 20, 20),
+            use_linear_projection=True,
+        )
+
+    @classmethod
     def sdxl(cls) -> "UNetConfig":
         """stabilityai/stable-diffusion-xl-base-1.0 unet/config.json."""
         return cls(
@@ -78,6 +98,20 @@ class UNetConfig:
             addition_embed_type="text_time",
             addition_time_embed_dim=256,
             projection_class_embeddings_input_dim=2816,
+        )
+
+    @classmethod
+    def tiny(cls, cross_attention_dim: int = 32) -> "UNetConfig":
+        """Small config for CPU tests: the SD1.5 topology at tiny widths."""
+        return cls(
+            sample_size=8,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+            block_out_channels=(32, 64),
+            layers_per_block=1,
+            cross_attention_dim=cross_attention_dim,
+            attention_head_dim=4,
+            norm_num_groups=8,
         )
 
     @classmethod
@@ -99,18 +133,28 @@ class UNetConfig:
             norm_num_groups=8,
         )
 
-    def attention_calls_per_forward(self) -> int:
-        """Self- plus cross-attention calls in one forward (SDXL: 140)."""
-        n = 0
+    def attention_calls_by_head_dim(self) -> Dict[int, int]:
+        """Self- plus cross-attention calls in one forward, by head dim
+        (SDXL: {64: 140}; SD1.5: {40: 10, 80: 10, 160: 12})."""
+        calls: Dict[int, int] = {}
+
+        def add(level: int, transformers: int) -> None:
+            d = self.block_out_channels[level] // self.heads_for_block(level)
+            calls[d] = calls.get(d, 0) + 2 * transformers * self.tf_layers_for_block(level)
+
         last = len(self.block_out_channels) - 1
         for i, t in enumerate(self.down_block_types):
             if t == "CrossAttnDownBlock2D":
-                n += self.layers_per_block * self.tf_layers_for_block(i)
-        n += self.tf_layers_for_block(last)
+                add(i, self.layers_per_block)
+        add(last, 1)  # the mid block
         for i, t in enumerate(self.up_block_types):
             if t == "CrossAttnUpBlock2D":
-                n += (self.layers_per_block + 1) * self.tf_layers_for_block(last - i)
-        return 2 * n
+                add(last - i, self.layers_per_block + 1)
+        return calls
+
+    def attention_calls_per_forward(self) -> int:
+        """Self- plus cross-attention calls in one forward (SDXL: 140; SD1.5: 32)."""
+        return sum(self.attention_calls_by_head_dim().values())
 
 
 def timestep_embedding(

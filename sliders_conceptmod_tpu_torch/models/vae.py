@@ -4,7 +4,7 @@ runs (``encode`` → posterior mean and clipped log-variance,
 :func:`sample_latents`), NCHW throughout.
 
 The mid-block attention is single-head over the spatial tokens with head dim
-= channels (512 for SDXL), so on the card it runs kernel K4a through the
+= channels (512 for SD and SDXL), so on the card it runs kernel K4a through the
 dispatch (head dims 129..512; see ops/attention.py): 4096 tokens in the
 encoder at 512px, 16384 in the decoder at 1024px.
 
@@ -37,6 +37,11 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     use_post_quant_conv: bool = True
+
+    @classmethod
+    def sd(cls) -> "VAEConfig":
+        """The SD1.x / SD2.x VAE (scaling 0.18215)."""
+        return cls()
 
     @classmethod
     def sdxl(cls) -> "VAEConfig":

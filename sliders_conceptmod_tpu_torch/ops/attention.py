@@ -9,21 +9,24 @@ Dispatch rule (H100), by head dim d:
   (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention.flash_attention_fwd`)
   at every sequence length; differentiable (K2/K3 backward).
 * 128 < d <= 512: kernel K4a
-  (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid.flash_attention_kgrid_fwd`),
-  forward only. In the served and trained models only the single-head
-  d = 512 VAE mid-block attention has such a head dim.
+  (:func:`~sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid.flash_attention_kgrid_fwd`);
+  differentiable (K4b/K4c backward). In the models these are SD1.5's
+  1280-channel UNet attentions (8 heads of 160, padded to 192) and the
+  single-head d = 512 VAE mid-block attention.
 * d > 512 on a CUDA tensor raises ``NotImplementedError``: no kernel takes it
   yet (ROADMAP.md queue 2). The card's path never falls back to a plain
   version.
 
 Head dims that are not a multiple of 64 are zero-padded up to one (padded q·k
-dims add 0 to the scores; padded V columns are sliced off), as the JAX
-dispatch does. The JAX package's TPU thresholds (its minimum sequence of 2048
-and its VMEM limit) are v5e measurements and do not apply here.
+dims add 0 to the scores; padded V columns are sliced off, and the gradient
+flows back through the pad), as the JAX dispatch does. The JAX package's TPU
+thresholds (its minimum sequence of 2048 and its VMEM limit) are v5e
+measurements and do not apply here.
 
-CPU tensors take the same routes; each wrapper computes them with its
-kernel's plain version (fp32 logits and softmax, output in the input dtype),
-and d > 512 with K1's plain version.
+CPU tensors take the same routes, differentiable as on the card; each
+wrapper computes them with its kernel's plain version (fp32 logits and
+softmax, output in the input dtype), and d > 512 with K1's plain version
+(differentiated by torch autograd).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from sliders_conceptmod_tpu_torch.ops.flash_attention import flash_attention_fwd
 from sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid import flash_attention_kgrid_fwd
 
 MAX_KERNEL_HEAD_DIM = 128  # K1
-MAX_KGRID_HEAD_DIM = 512  # K4a
+MAX_KGRID_HEAD_DIM = 512  # K4a / K4b / K4c
 
 
 def dot_product_attention(

@@ -14,9 +14,10 @@ Three hand-written CUDA kernels, each replacing one kernel of
 * K3 (same source, ``flash_bwd_dkv_kernel``) replaces ``_bwd_dkv_kernel``
   (launched by ``_vjp_bwd``): dK and dV.
 
-Each CUDA source of the port — these two and K4a's
-(``csrc/flash_attention_kgrid.cu``, wrapped in ``ops/flash_attention_kgrid.py``)
-— is compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own
+Each CUDA source of the port — these two, K4a's
+(``csrc/flash_attention_kgrid.cu``) and K4b/K4c's
+(``csrc/flash_attention_kgrid_bwd.cu``), both wrapped in
+``ops/flash_attention_kgrid.py`` — is compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own
 with a plain C interface at first use — into ``build/kernels/`` at the
 repository root — and bound with ``ctypes``; :func:`build` compiles them all
 at once. The sources' headers say what bounds each kernel on the H100 and what
@@ -28,8 +29,8 @@ Beside the kernels sit their plain PyTorch versions:
 :func:`flash_attention_bwd_reference`. A wrapper takes the plain version only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises. Each
 kernel wrapper's ``launches`` counts its kernel's launches and nothing else,
-so a run can show that its main path went through the kernel; the plain
-forward's ``cuda_calls`` counts its calls on CUDA tensors, so a run can show
+so a run can show that its main path went through the kernel; each plain
+version's ``cuda_calls`` counts its calls on CUDA tensors, so a run can show
 that its main path never reached it.
 
 Gradients: :class:`FlashAttention` is the ``torch.autograd.Function`` — K1
@@ -60,11 +61,13 @@ KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# every kernel source of the port; "kgrid" is K4a (ops/flash_attention_kgrid.py)
+# every kernel source of the port; "kgrid" is K4a and "kgrid_bwd" K4b/K4c
+# (ops/flash_attention_kgrid.py)
 SOURCES = {
     "fwd": CSRC / "flash_attention_fwd.cu",
     "bwd": CSRC / "flash_attention_bwd.cu",
     "kgrid": CSRC / "flash_attention_kgrid.cu",
+    "kgrid_bwd": CSRC / "flash_attention_kgrid_bwd.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -82,6 +85,10 @@ _SIGNATURES = {
         "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
     },
     "kgrid": {"flash_attention_kgrid_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
+    "kgrid_bwd": {
+        "flash_attention_kgrid_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+        "flash_attention_kgrid_bwd_dkv": [_P] * 10 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -186,6 +193,8 @@ def _probs(q, k, lse, scale):
 
 def bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``."""
+    if q.device.type == "cuda":
+        bwd_dq_reference.cuda_calls += 1
     b, sq, h, _ = q.shape
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
     p = _probs(q, k, lse, scale)
@@ -195,8 +204,13 @@ def bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Te
     return dq.to(q.dtype), delta.reshape(b * h, sq)
 
 
+bwd_dq_reference.cuda_calls = 0
+
+
 def bwd_dkv_reference(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3: ``(dK, dV)`` in k's / v's dtype."""
+    if q.device.type == "cuda":
+        bwd_dkv_reference.cuda_calls += 1
     b, sq, h, _ = q.shape
     p = _probs(q, k, lse, scale)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
@@ -204,6 +218,9 @@ def bwd_dkv_reference(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, tor
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+bwd_dkv_reference.cuda_calls = 0
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

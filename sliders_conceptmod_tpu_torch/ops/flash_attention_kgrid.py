@@ -1,34 +1,45 @@
-"""K-grid flash attention on Hopper — kernel K4a, the port of the TPU Pallas
-kernel ``sliders_conceptmod_tpu/ops/flash_attention_kgrid.py::_fwd_kernel``
-(launched by ``_flash_fwd_impl``).
+"""K-grid flash attention on Hopper — kernels K4a (forward), K4b (dQ) and
+K4c (dK/dV), the ports of the TPU Pallas kernels of
+``sliders_conceptmod_tpu/ops/flash_attention_kgrid.py``: ``_fwd_kernel``
+(launched by ``_flash_fwd_impl``), ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (both launched by ``_vjp_bwd``).
 
 K4a (``csrc/flash_attention_kgrid.cu``) computes what K1 computes — ``O =
 softmax(scale·QKᵀ)·V`` and the fp32 row logsumexp, bidirectional, fp32 math,
 output in the input dtype — for the head dims K1 does not take: multiples of
-64 up to 512. Its path is the VAE mid-block's single-head attention (head dim
-= channels = 512): 4096 tokens in the encoder at 512px, 16384 in the decoder
-at 1024px.
+64 up to 512. K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are its
+backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
+lse, K4c dK and dV from δ. Their paths: the VAE mid-block's single-head
+attention (head dim = channels = 512; forward only) and SD1.5's UNet
+attentions at 1280 channels (8 heads of 160, padded to 192; forward and, in
+training, backward).
 
-The TPU kernel carries (m, l, acc) in scratch along a sequential k grid axis.
-On the card the key range is split across blocks: each split runs the online
-softmax over its 32-key tiles and writes unnormalised fp32 partials, and a
-second small kernel merges them (``m* = max mₛ``, ``l* = Σ lₛ·e^(mₛ−m*)``,
-``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log l*``). The split count is
-chosen from the shape (:func:`pick_splits`) so that enough blocks fill the
-H100's 132 SMs; ``splits=`` exists so that tests can force 1 or more. The
-source's header says what bounds the kernel and what its design does about
-it. It is built with the other kernels (``ops/flash_attention.py::build``).
+The TPU kernels carry their sums in scratch along a sequential grid axis. On
+the card that axis becomes a loop inside the block over 32-row tiles, and
+where the grid is too small for the H100's 132 SMs the loop's range is split
+across blocks: K4a splits the key range (each split writes unnormalised fp32
+partials and a second small kernel merges them: ``m* = max mₛ``, ``l* = Σ
+lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log l*``), K4c
+splits the query range (fp32 partial dK/dV summed in split order; no
+atomics, so two runs give the same bits). :func:`pick_splits` and
+:func:`pick_dkv_splits` choose the counts from the shape; ``splits=`` exists
+so that tests can force 1 or more. The sources' headers say what bounds the
+kernels and what their design does about it. They are built with the other
+kernels (``ops/flash_attention.py::build``).
 
-:func:`flash_attention_kgrid_reference` is its plain PyTorch version, doing
-the same split-and-merge math over the same key ranges. The wrapper
-:func:`flash_attention_kgrid_fwd` takes it only for CPU tensors; a CUDA
-tensor launches the kernel or raises. ``flash_attention_kgrid_fwd.launches``
-counts the kernel's launches (one per call, merge included) and
-``flash_attention_kgrid_reference.cuda_calls`` the plain version's calls on
-CUDA tensors.
+Beside the kernels sit their plain PyTorch versions, doing the same math over
+the same split ranges: :func:`flash_attention_kgrid_reference` (K4a),
+:func:`kgrid_bwd_dq_reference` (K4b) and :func:`kgrid_bwd_dkv_reference`
+(K4c), composed in :func:`flash_attention_kgrid_bwd_reference`. A wrapper
+takes the plain version only for CPU tensors; a CUDA tensor launches the
+kernel or raises. Each wrapper's ``launches`` counts its kernel's launches
+(one per call, merge included) and each plain version's ``cuda_calls`` its
+calls on CUDA tensors.
 
-The backward (the TPU package's K4b / K4c) is not ported yet (ROADMAP.md
-queue 2): a call that autograd would have to differentiate raises.
+Gradients: :class:`FlashAttentionKGrid` is the ``torch.autograd.Function`` —
+K4a forward (saving q, k, v, o and lse), K4b then K4c backward;
+:func:`flash_attention_kgrid_fwd` goes through it whenever autograd needs a
+graph.
 
 Layout: BSHD ``[batch, seq, heads, head_dim]``, any batch/seq/head strides,
 unit stride over the head dim.
@@ -49,10 +60,10 @@ from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     _strides,
 )
 
-BQ, BK = 32, 32  # the kernel's q rows per block and keys per tile
+BQ, BK = 32, 32  # K4a's q rows per block and keys per tile; K4b/K4c's streamed rows per tile
 KGRID_HEAD_DIMS = tuple(range(64, 513, 64))
 MAX_SPLITS = 64
-# two waves of blocks over the H100's 132 SMs, and at least 4 key tiles per split
+# two waves of blocks over the H100's 132 SMs, and at least 4 tiles per split
 TARGET_BLOCKS = 2 * 132
 MIN_TILES_PER_SPLIT = 4
 NEG_INF = -1e30  # as in the kernel: exp(NEG_INF − m) is an exact 0
@@ -62,24 +73,53 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pick_splits(bh: int, sq: int, sk: int) -> int:
-    """The launcher's split count for ``bh`` = batch·heads rows of ``sq``
-    queries over ``sk`` keys: 1 when the (q tile, batch·head) blocks already
-    fill two waves of the card, else enough splits to reach that, each with
-    at least 4 key tiles, at most 64."""
-    blocks = _cdiv(sq, BQ) * bh
+def _fill_splits(blocks: int, tiles: int) -> int:
+    """1 when ``blocks`` already fill two waves of the card, else enough
+    splits of the ``tiles``-long loop to reach that, each with at least 4
+    tiles, at most 64."""
     if blocks >= TARGET_BLOCKS:
         return 1
-    by_keys = _cdiv(sk, BK) // MIN_TILES_PER_SPLIT
-    return max(1, min(_cdiv(TARGET_BLOCKS, blocks), by_keys, MAX_SPLITS))
+    return max(1, min(_cdiv(TARGET_BLOCKS, blocks), tiles // MIN_TILES_PER_SPLIT, MAX_SPLITS))
 
 
-def split_ranges(sk: int, splits: int) -> List[Tuple[int, int]]:
-    """The key range ``[lo, hi)`` of each split, as the kernel cuts them:
-    ``ceil(tiles / splits)`` 32-key tiles each, the last ones possibly
-    empty."""
-    per = _cdiv(_cdiv(sk, BK), splits) * BK
-    return [(min(sk, s * per), min(sk, (s + 1) * per)) for s in range(splits)]
+def pick_splits(bh: int, sq: int, sk: int) -> int:
+    """K4a's split count of the key range for ``bh`` = batch·heads rows of
+    ``sq`` queries over ``sk`` keys (blocks: one per 32-row q tile and
+    batch·head)."""
+    return _fill_splits(_cdiv(sq, BQ) * bh, _cdiv(sk, BK))
+
+
+def bwd_rows_per_block(d: int) -> int:
+    """Rows a K4b/K4c block owns (q rows for dQ, key rows for dK/dV): 32 at
+    head dims up to 256, 16 above, where 16 threads share a row so that the
+    accumulators stay in registers."""
+    return 32 if d <= 256 else 16
+
+
+def pick_dkv_splits(bh: int, sq: int, sk: int, d: int) -> int:
+    """K4c's split count of the query range (blocks: one per owned key tile
+    and batch·head; tiles: the 32-row q tiles)."""
+    return _fill_splits(_cdiv(sk, bwd_rows_per_block(d)) * bh, _cdiv(sq, BQ))
+
+
+def split_ranges(n: int, splits: int) -> List[Tuple[int, int]]:
+    """The range ``[lo, hi)`` of each split of a length-``n`` axis, as the
+    kernels cut them: ``ceil(tiles / splits)`` 32-row tiles each, the last
+    ones possibly empty."""
+    per = _cdiv(_cdiv(n, BK), splits) * BK
+    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(splits)]
+
+
+def _check_splits(splits: int) -> int:
+    splits = int(splits)
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
+    return splits
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 
 def flash_attention_kgrid_reference(
@@ -122,6 +162,99 @@ def flash_attention_kgrid_reference(
 flash_attention_kgrid_reference.cuda_calls = 0
 
 
+def kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4b: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``, with
+    the scores recomputed from the pre-scaled q as K4a computes them."""
+    if q.device.type == "cuda":
+        kgrid_bwd_dq_reference.cuda_calls += 1
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype), delta.reshape(b * h, sq)
+
+
+kgrid_bwd_dq_reference.cuda_calls = 0
+
+
+def kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4c: per split of the query range, fp32 partial
+    ``dK = Σ dSᵀ·(scale·Q)`` and ``dV = Σ Pᵀ·dO`` (an empty split adds
+    nothing), summed in split order; then ``(dK, dV)`` in k's / v's dtype."""
+    if q.device.type == "cuda":
+        kgrid_bwd_dkv_reference.cuda_calls += 1
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if splits is None:
+        splits = pick_dkv_splits(b * h, sq, sk, d)
+    qs, kf, vf, gf = q.float() * scale, k.float(), v.float(), do.float()
+    lse4, delta4 = lse.reshape(b, h, sq, 1), delta.reshape(b, h, sq, 1)
+    dk = torch.zeros((b, sk, h, d), device=q.device)
+    dv = torch.zeros((b, sk, h, d), device=q.device)
+    for lo, hi in split_ranges(sq, splits):
+        if lo == hi:
+            continue
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs[:, lo:hi], kf) - lse4[:, :, lo:hi])
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf[:, lo:hi], vf)
+        ds = p * (dp - delta4[:, :, lo:hi])
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qs[:, lo:hi])
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, gf[:, lo:hi])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+kgrid_bwd_dkv_reference.cuda_calls = 0
+
+
+def flash_attention_kgrid_bwd_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward (K4b then K4c): fp32 math with P
+    recomputed from the forward's lse; gradients in the inputs' dtypes."""
+    dq, delta = kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale)
+    dk, dv = kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: Optional[int]
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4a (or its plain version for CPU tensors), without autograd."""
+    if q.device.type == "cpu":
+        return flash_attention_kgrid_reference(q, k, v, scale, splits)
+    _check_kernel_inputs(q, k, v, head_dims=KGRID_HEAD_DIMS)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    splits = _check_splits(pick_splits(b * h, sq, sk) if splits is None else splits)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    part_acc = part_m = part_l = None
+    if splits > 1:
+        part_acc = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
+        part_m, part_l = (torch.empty((splits, b * h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
+    lib = _library("kgrid")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_kgrid_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(part_acc), _ptr(part_m),
+            _ptr(part_l), _DTYPE_CODES[q.dtype], b, h, sq, sk, d, splits, _strides(q, k, v, out), float(scale),
+            _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kgrid_fwd launch failed: cudaError {err}")
+    flash_attention_kgrid_fwd.launches += 1
+    return out, lse
+
+
 def flash_attention_kgrid_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None, *,
     splits: Optional[int] = None,
@@ -132,39 +265,108 @@ def flash_attention_kgrid_fwd(
     tensors launch kernel K4a on the current stream (plus its merge when the
     key range is split); the head dim must be a multiple of 64 up to 512, the
     dtype float32 or bfloat16, and the head-dim stride 1. ``splits`` forces
-    the split count (tests); ``None`` lets :func:`pick_splits` choose."""
+    the split count (tests); ``None`` lets :func:`pick_splits` choose. When
+    autograd needs a graph the call goes through :class:`FlashAttentionKGrid`:
+    ``out`` is differentiable (K4b/K4c), ``lse`` is not."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "the backward of the k-grid attention (K4b/K4c) is not ported yet (ROADMAP.md queue 2)")
-    if q.device.type == "cpu":
-        return flash_attention_kgrid_reference(q, k, v, scale, splits)
-    _check_kernel_inputs(q, k, v, head_dims=KGRID_HEAD_DIMS)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    splits = pick_splits(b * h, sq, sk) if splits is None else int(splits)
-    if not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    part_acc = part_m = part_l = None
-    if splits > 1:
-        part_acc = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
-        part_m, part_l = (torch.empty((splits, b * h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _library("kgrid")
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_kgrid_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), ptr(part_acc), ptr(part_m),
-            ptr(part_l), _DTYPE_CODES[q.dtype], b, h, sq, sk, d, splits, _strides(q, k, v, out), float(scale),
-            _stream(q),
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_kgrid_fwd launch failed: cudaError {err}")
-    flash_attention_kgrid_fwd.launches += 1
-    return out, lse
+        return FlashAttentionKGrid.apply(q, k, v, float(scale), splits)
+    return _fwd(q, k, v, scale, splits)
 
 
 flash_attention_kgrid_fwd.launches = 0
+
+
+def flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4b: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])`` from K4a's O and
+    lse. CPU tensors go through :func:`kgrid_bwd_dq_reference`."""
+    if q.device.type == "cpu":
+        return kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale)
+    _check_kernel_inputs(q, k, v, o, do, head_dims=KGRID_HEAD_DIMS)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    lib = _library("kgrid_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_kgrid_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+            _strides(q, k, v, o, do, dq), float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kgrid_bwd_dq launch failed: cudaError {err}")
+    flash_attention_kgrid_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_kgrid_bwd_dq.launches = 0
+
+
+def flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4c: ``(dK, dV)`` in k's / v's dtype, from K4b's δ (plus the sum of
+    the splits' partials when the query range is split). ``splits`` forces
+    the split count (tests); ``None`` lets :func:`pick_dkv_splits` choose.
+    CPU tensors go through :func:`kgrid_bwd_dkv_reference`."""
+    if q.device.type == "cpu":
+        return kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
+    _check_kernel_inputs(q, k, v, do, head_dims=KGRID_HEAD_DIMS)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    splits = _check_splits(pick_dkv_splits(b * h, sq, sk, d) if splits is None else splits)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    part_dk = part_dv = None
+    if splits > 1:
+        part_dk, part_dv = (torch.empty((splits, b * h, sk, d), dtype=torch.float32, device=q.device)
+                            for _ in range(2))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _library("kgrid_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_kgrid_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(part_dk), _ptr(part_dv), _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
+            splits, _strides(q, k, v, do, dk, dv), float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kgrid_bwd_dkv launch failed: cudaError {err}")
+    flash_attention_kgrid_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_kgrid_bwd_dkv.launches = 0
+
+
+def flash_attention_kgrid_bwd(q, k, v, o, lse, do, scale, *, splits: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_kgrid_fwd`: K4b (dQ and δ), then
+    K4c (dK, dV) on the same stream, so K4c reads the δ that K4b wrote. CPU
+    tensors go through the plain versions."""
+    dq, delta = flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+    return dq, dk, dv
+
+
+class FlashAttentionKGrid(torch.autograd.Function):
+    """K4a forward, K4b + K4c backward. ``apply(q, k, v, scale, splits) →
+    (out, lse)``; ``splits`` is K4a's (None: the launcher's choice); lse is
+    returned for the caller and is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, splits):
+        out, lse = _fwd(q, k, v, scale, splits)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, d_out, d_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if d_out.stride(-1) != 1:  # the kernels read dO with unit head-dim stride
+            d_out = d_out.contiguous()
+        dq, dk, dv = flash_attention_kgrid_bwd(q, k, v, o, lse, d_out, ctx.scale)
+        return dq, dk, dv, None, None

@@ -1,16 +1,22 @@
 """Textual-slider trainer — counterpart of ``sliders_conceptmod_tpu/train/trainer.py``
-for SDXL.
+for SD1/SD2 and SDXL.
 
-Flow (reference ``conceptmod/textsliders/train_lora_xl.py:41-394``): load the
-models on the device at ``train.precision`` → LoRA sites and factors →
-encode and stack the 5 prompts per pair, then free the text towers → one ESD
-step per iteration (``train/esd.py``) → periodic and final ``.safetensors``
-saves in the reference key schema at ``save.precision``, a resume checkpoint
-beside each periodic save, and the metrics jsonl.
+Flow (reference ``conceptmod/textsliders/train_lora_xl.py:41-394`` and
+``train_lora.py``): load the models on the device at ``train.precision`` →
+LoRA sites and factors → encode and stack the 5 prompts per pair, then free
+the text towers → one ESD step per iteration (``train/esd.py``) → periodic
+and final ``.safetensors`` saves in the reference key schema at
+``save.precision``, a resume checkpoint beside each periodic save, and the
+metrics jsonl.
 
-The XL reference quirk is kept: with ``tpu.honor_network_config: false`` the
-optimizer is the reference's hardcoded AdamW (lr 1e-4, weight decay 1e-6,
-cosine over 50 steps to 1e-6) with grad clip 0.2, whatever ``train.*`` says.
+``models/factory.py::load_for_training`` picks the family (SDXL when the
+model name contains "xl", else SD1/SD2). SDXL conditions on both towers'
+penultimate states, the pooled embedding and the ``add_time_ids``; SD1/SD2
+on the one tower's ``clip_skip`` state alone. Only
+the XL branch clips the gradient norm (0.2), and only it keeps the XL
+reference quirk: with ``tpu.honor_network_config: false`` the optimizer is
+the reference's hardcoded AdamW (lr 1e-4, weight decay 1e-6, cosine over 50
+steps to 1e-6), whatever ``train.*`` says.
 
 Knobs of the JAX trainer that this port does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
@@ -34,7 +40,6 @@ from sliders_conceptmod_tpu_torch.core.config import (
     resolve_student_overlay,
 )
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
-from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd
@@ -100,9 +105,6 @@ def train(
     """Train one slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
     tpu_cfg = config.tpu
-    is_xl = "xl" in str(config.pretrained_model.name_or_path).lower()
-    if not is_xl:
-        raise NotImplementedError(f"SD1/SD2 training (cli/train_lora.py) is not ported yet ({_QUEUE1}, next slice)")
     check_supported(config, prompts, peft_type)
     resolve_student_overlay(tpu_cfg)
     device = torch.device(device)
@@ -115,16 +117,9 @@ def train(
     }
 
     # --- models -----------------------------------------------------------
-    _, text_encoders, unet, scheduler = factory.load_models_xl(
-        config.pretrained_model.name_or_path,
-        scheduler_name=config.train.noise_scheduler,
-        weight_dtype=weight_dtype,
-        device=str(device),
-    )
-
-    def encode_fn(prompt: str):
-        text, pooled = factory.encode_prompts_xl(text_encoders, [prompt])
-        return text[0], pooled[0]
+    models = factory.load_for_training(config.pretrained_model, config.train.noise_scheduler, weight_dtype,
+                                       device=str(device))
+    unet, scheduler, is_xl = models.unet, models.scheduler, models.is_xl
 
     # --- adapter ----------------------------------------------------------
     target_replace = ["Attention"]
@@ -142,17 +137,18 @@ def train(
 
     # --- optimizer --------------------------------------------------------
     iterations = config.train.iterations
-    if not tpu_cfg.honor_network_config:
+    if is_xl and not tpu_cfg.honor_network_config:
         # reference hardcoded values, train_lora_xl.py:104-105,349
         optimizer = get_optimizer("adamw", get_lr_schedule("cosine", 1e-4, 50, 1e-6), weight_decay=1e-6,
                                   grad_clip_norm=0.2)
     else:
         sched = get_lr_schedule(config.train.lr_scheduler, config.train.lr, iterations, config.train.eta_min)
-        optimizer = get_optimizer(config.train.optimizer, sched, config.train.optimizer_args, grad_clip_norm=0.2)
+        optimizer = get_optimizer(config.train.optimizer, sched, config.train.optimizer_args,
+                                  grad_clip_norm=0.2 if is_xl else None)
 
     # --- prompt bank, then the text towers are freed ----------------------
-    bank = esd.build_prompt_bank(prompts, encode_fn)
-    del encode_fn, text_encoders  # the closure holds the towers: drop both
+    bank = esd.build_prompt_bank(prompts, models.encode)
+    models.encode = None  # the closure holds the towers
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -166,9 +162,8 @@ def train(
         height=resolution,
         width=resolution,
     )
-    add_tids = torch.from_numpy(get_add_time_ids(resolution, resolution)).to(device)
     step_fn = esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
-                                      add_time_ids=add_tids)
+                                      add_time_ids=models.add_time_ids(resolution, device))
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)

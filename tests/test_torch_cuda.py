@@ -1,7 +1,8 @@
-"""Kernels K1, K2, K3 and K4a on the card: edge shapes, strided views (dO
-from autograd included), the dispatch's head-dim padding and routes,
-gradients through the autograd Function, K4a's key-range splits, input checks
-and the launch counts. Marked ``cuda``; every test
+"""Kernels K1, K2, K3, K4a, K4b and K4c on the card: edge shapes, strided
+views (dO from autograd included), the dispatch's head-dim padding and
+routes, gradients through the autograd Functions, K4a's key-range and K4c's
+query-range splits, determinism, input checks and the launch counts. Marked
+``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
 
@@ -175,9 +176,11 @@ def test_kgrid_wrapper_rejects_what_the_kernel_does_not_take(gen):
         kg.flash_attention_kgrid_fwd(q.half(), q.half(), q.half())  # dtype
     with pytest.raises(ValueError):
         kg.flash_attention_kgrid_fwd(q, q, q, splits=65)
-    with pytest.raises(NotImplementedError):
-        kg.flash_attention_kgrid_fwd(q.clone().requires_grad_(True), q, q)  # no K4b/K4c yet
     assert kg.flash_attention_kgrid_fwd.launches == before
+    # an input that requires grad takes the autograd Function (K4b/K4c backward), one K4a launch
+    out, lse = kg.flash_attention_kgrid_fwd(q.clone().requires_grad_(True), q, q)
+    assert out.requires_grad and not lse.requires_grad
+    assert kg.flash_attention_kgrid_fwd.launches == before + 1
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
@@ -270,3 +273,118 @@ def test_autograd_through_the_dispatch_runs_k1_k2_k3(gen, d):
     (fa.flash_attention_reference(qr, kr, vr, d**-0.5)[0] * w).sum().backward()
     for g, x in zip(got, (qr, kr, vr)):
         assert (g - x.grad).abs().max().item() <= 1e-4 * max(1.0, x.grad.abs().max().item())
+
+
+KGRID_BWD_EDGE = [
+    # (B, Sq, Sk, H, D): one row / one key, the JAX test's ragged shape at D
+    # 64 and 512, ragged tails around the 32 tiles, the 16-row blocks above
+    # D 256, SD1.5's d-160 (padded to 192) training shapes, long keys
+    (1, 1, 1, 1, 512),
+    (2, 300, 77, 2, 64),
+    (2, 300, 77, 2, 512),
+    (1, 65, 33, 3, 192),
+    (3, 100, 130, 2, 256),
+    (1, 40, 1000, 1, 448),
+    (1, 256, 77, 8, 192),
+    (2, 64, 64, 8, 192),
+]
+
+
+def _kgrid_bwd_inputs(gen, shape, dtype):
+    b, sq, sk, h, d = shape
+    q, do = (_rand(gen, (b, sq, h, d), dtype) for _ in range(2))
+    k, v = (_rand(gen, (b, sk, h, d), dtype) for _ in range(2))
+    o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("shape", KGRID_BWD_EDGE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kgrid_backward_kernels_match_plain_version(gen, shape, dtype, splits):
+    """K4b (dQ, δ) and K4c (dK, dV, over ``splits`` query ranges) against
+    their plain versions on the same inputs and K4a's O and lse."""
+    q, k, v, o, lse, do = _kgrid_bwd_inputs(gen, shape, dtype)
+    scale = shape[-1] ** -0.5
+    b0, b1 = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+    torch.cuda.synchronize()
+    assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == (b0 + 1, b1 + 1)
+    wdq, wdelta = kg.kgrid_bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+    wdk, wdv = kg.kgrid_bwd_dkv_reference(q.float(), k.float(), v.float(), lse, wdelta, do.float(), scale, splits)
+    assert (delta - wdelta).abs().max().item() <= 1e-4 * max(1.0, wdelta.abs().max().item())
+    for name, g, w, x in zip(("dq", "dk", "dv"), (dq, dk, dv), (wdq, wdk, wdv), (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - w).abs().max().item()
+        assert err <= _grad_tol(w, dtype), (name, err, w.abs().max().item())
+
+
+def test_kgrid_backward_views_are_bit_identical_and_deterministic(gen):
+    """dO as a head slice of a wider tensor and q/k/v as views of a packed
+    tensor give the contiguous copies' gradients bit for bit; views whose rows
+    do not start on 16 bytes (element staging) too; and two identical calls
+    with the query range split give the same bits (no atomics)."""
+    b, s, h, d = 2, 130, 3, 192
+    qkv = _rand(gen, (b, s, 3, h, d), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+    do = _rand(gen, (b, s, 2 * h, d), torch.bfloat16)[:, :, 1::2]
+    assert not do.is_contiguous() and not q.is_contiguous()
+    for splits in (1, 3):
+        got = kg.flash_attention_kgrid_bwd(q, k, v, o, lse, do, d**-0.5, splits=splits)
+        again = kg.flash_attention_kgrid_bwd(q, k, v, o, lse, do, d**-0.5, splits=splits)
+        want = kg.flash_attention_kgrid_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse,
+                                            do.contiguous(), d**-0.5, splits=splits)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a) and torch.equal(g, w)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (_rand(gen, (b, s, h, d + 1), dtype)[..., 1:] for _ in range(4))
+        o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+        got = kg.flash_attention_kgrid_bwd(q, k, v, o, lse, do, d**-0.5, splits=2)
+        want = kg.flash_attention_kgrid_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse,
+                                            do.contiguous(), d**-0.5, splits=2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [160, 200, 512])
+def test_autograd_through_the_dispatch_runs_k4a_k4b_k4c(gen, d):
+    """Gradients of the dispatch at head dims 129..512 (160 and 200 padded to
+    192 and 256 through F.pad) against torch autograd through the plain
+    forward, fp32; one launch of each k-grid kernel and none of a plain
+    version on the card."""
+    q, k, v = (_rand(gen, (2, s, 2, d), torch.float32).requires_grad_(True) for s in (97, 77, 77))
+    w = _rand(gen, (2, 97, 2, d), torch.float32)
+    counts = lambda: (kg.flash_attention_kgrid_fwd.launches, kg.flash_attention_kgrid_bwd_dq.launches,  # noqa: E731
+                      kg.flash_attention_kgrid_bwd_dkv.launches)
+    plain = lambda: (kg.kgrid_bwd_dq_reference.cuda_calls, kg.kgrid_bwd_dkv_reference.cuda_calls,  # noqa: E731
+                     kg.flash_attention_kgrid_reference.cuda_calls)
+    before, before_plain = counts(), plain()
+    (attn.dot_product_attention(q, k, v) * w).sum().backward()
+    assert counts() == tuple(c + 1 for c in before) and plain() == before_plain
+    got = [x.grad.clone() for x in (q, k, v)]
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    (fa.flash_attention_reference(qr, kr, vr, d**-0.5)[0] * w).sum().backward()
+    for g, x in zip(got, (qr, kr, vr)):
+        assert (g - x.grad).abs().max().item() <= 1e-4 * max(1.0, x.grad.abs().max().item())
+
+
+def test_kgrid_backward_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = _rand(gen, (1, 8, 1, 512), torch.float32)
+    lse = torch.zeros((1, 8), device="cuda")
+    before = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+    odd = _rand(gen, (1, 8, 1, 200), torch.float32)
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dq(odd, odd, odd, odd, lse, odd, 0.1)  # head dim
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dq(q, q, q, q, lse, q.half(), 0.1)  # dO dtype
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dkv(q, q, q, lse, lse, _rand(gen, (1, 8, 1, 1024), torch.float32)[..., ::2],
+                                         0.1)  # dO head-dim stride
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dkv(q, q, q, lse, lse, q, 0.1, splits=65)
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dkv(q, q, q.cpu(), lse, lse, q, 0.1)  # devices
+    assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == before

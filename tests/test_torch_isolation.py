@@ -33,9 +33,20 @@ CHECK = textwrap.dedent(
     spec.loader.exec_module(smoke)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not leaked, leaked
-    print(len(names), "modules")
+    print(len(names), "modules:", " ".join(names))
     """
 )
+
+# modules the SD slice added or extended: the SD CLI, the k-grid backward
+# (K4b/K4c), the SD model configs and loaders
+SD_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.cli.train_lora",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_scale",
+    "sliders_conceptmod_tpu_torch.ops.flash_attention_kgrid",
+    "sliders_conceptmod_tpu_torch.models.factory",
+    "sliders_conceptmod_tpu_torch.models.clip",
+    "sliders_conceptmod_tpu_torch.train.trainer",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -46,7 +57,8 @@ def test_port_and_smoke_import_without_jax():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     n = int(res.stdout.split()[0])
-    assert n >= 30  # every module of the package was walked (core/, train/ and cli/ included)
+    assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
+    assert SD_SLICE_MODULES <= set(res.stdout.split(":", 1)[1].split())
 
 
 def test_refusal_hook_bites():

@@ -1,6 +1,7 @@
 """Kernel K4a's plain version (the k-grid flash-attention forward, split and
 merged over key ranges) and the head-dim dispatch against the JAX package:
-its k-grid Pallas kernel in interpret mode and its attention dispatch.
+its k-grid Pallas kernel in interpret mode and its attention dispatch (the
+backward, K4b/K4c, is tests/test_torch_kgrid_bwd.py).
 
 On the CPU the wrapper takes its plain version; the CUDA kernel is held
 against that plain version on the card by chip_smoke.py and
@@ -94,6 +95,9 @@ def test_dispatch_above_512_on_the_cpu_takes_k1s_plain_version():
 
 
 def test_bf16_output_and_no_backward():
+    """bf16 output with an fp32 lse; the backward (K4b/K4c, ported since this
+    test held its refusal) runs where autograd needs it — and only there:
+    under no_grad the forward builds no graph."""
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv((1, 64, 64, 1, 512), seed=8))
     out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=2)
     ref, ref_lse = kg.flash_attention_kgrid_reference(q.float(), k.float(), v.float(), 512**-0.5, splits=2)
@@ -101,10 +105,13 @@ def test_bf16_output_and_no_backward():
     assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
     np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), **TOL)
     leaf = q.float().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K4b/K4c"):
-        kg.flash_attention_kgrid_fwd(leaf, k.float(), v.float())
+    out, _ = kg.flash_attention_kgrid_fwd(leaf, k.float(), v.float())
+    (grad,) = torch.autograd.grad(out.sum(), leaf)
+    want = kg.flash_attention_kgrid_bwd_reference(leaf.detach(), k.float(), v.float(), out.detach(), _,
+                                                  torch.ones_like(out), 512**-0.5)[0]
+    assert torch.equal(grad, want)
     with torch.no_grad():
-        kg.flash_attention_kgrid_fwd(leaf, k.float(), v.float())
+        assert kg.flash_attention_kgrid_fwd(leaf, k.float(), v.float())[0].grad_fn is None
 
 
 def test_cpu_tensors_never_touch_the_build(monkeypatch):
