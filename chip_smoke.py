@@ -13,21 +13,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   spills per kernel, card name and power limit.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
-                  request, 2 rows), in bf16 and in fp32; max-abs error,
-                  kernel_ms, plain_ms, library_ms (F.scaled_dot_product_attention,
-                  timed as a yardstick only), bound_ms.
+                  request, 2 rows), in bf16 (the tensor-core kernel) and in
+                  fp32 (the SIMT kernel); max-abs error, kernel_ms, device_ms,
+                  plain_ms, library_ms (F.scaled_dot_product_attention, timed
+                  as a yardstick only), bound_ms; for bf16 the achieved
+                  TFLOP/s, share of the bound and ratio to SDPA on device
+                  times, and K1's host µs per call at 1024×77. bf16 K1 at
+                  ragged Sq/Sk ∈ {1, 63, 65, 77, 129, 4097} (d 64 and 128),
+                  on head slices of wider tensors and on views off TMA's
+                  16-byte alignment (copied once by the wrapper).
 3. kernel_bwd   — K2 (dQ) and K3 (dK, dV) against their plain versions at the
                   K1-class attention shapes of every training path
                   (TRAIN_SHAPES: 512px SDXL and SD1.5 ESD at batch 1, SD1.5
                   head dims 40 and 80 zero-padded to 64 and 128 as the path
                   pads them; SD1.5 image pairs at 256px, rows 2; SD2.1's
                   4096² with 5 heads), bf16 and fp32, plus ragged (Sq 65; Sk
-                  77, 129) and strided-dO cases; error per gradient,
+                  77, 129) and strided-dO cases; bf16 K3 with its query
+                  split forced to 1, 2 and 64 at every training shape,
+                  against the plain version over the same splits, each
+                  call repeated bit for bit; error per gradient, K3's split,
                   kernel_ms (CUDA events), device_ms (the kernels' summed
                   durations under torch.profiler), plain_ms, bound_ms (at the
                   unpadded head dim) and library_ms (SDPA's backward on the
                   unpadded head dim: the device time of forward+backward minus
-                  that of the forward). K1's out and lse, which
+                  that of the forward), TFLOP/s, share of the bound and
+                  ratio to SDPA on device times. K1's out and lse, which
                   K2/K3 take, are held against the plain version at the same
                   shapes, at the student's rows (also the warm-up's) and the
                   ESD teacher's 3.
@@ -367,14 +377,16 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+        splits = fa.pick_k3_splits(n_rows * h, sq, sk, dtype)  # K3's query-range split, as the wrapper chose it
+        ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
+                                               splits)
         errs = {g: (got.float() - want).abs().max().item() for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         tols = {g: grad_tol(want, dtype) for g, want in zip(("dq", "dk", "dv"), ref)}
         del dq, dk, dv, ref
         iters = 20 if sk > 77 else 50
         row = dict(
             phase="kernel_bwd", shape=name, rows=n_rows, sq=sq, sk=sk, heads=h, head_dim=d,
-            padded_head_dim=q.shape[-1], dtype=str(dtype), max_abs_err=errs, tol=tols,
+            padded_head_dim=q.shape[-1], dtype=str(dtype), k3_splits=splits, max_abs_err=errs, tol=tols,
             k2_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), iters),
             k3_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), iters),
             k2_device_ms=device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 10),
@@ -386,6 +398,11 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
         )
         (row["k2_bound_ms"], row["k2_bound_by"]), (row["k3_bound_ms"], row["k3_bound_by"]) = (
             bwd_bound("dq", sq, sk, n_rows * h, d, dtype), bwd_bound("dkv", sq, sk, n_rows * h, d, dtype))
+        # device times against the bound (at the unpadded head dim) and SDPA's whole backward
+        for kern, mult in (("k2", 6), ("k3", 8)):
+            row.update({f"{kern}_{key}": val for key, val in rates(
+                mult * n_rows * h * sq * sk * d, row[f"{kern}_device_ms"], row[f"{kern}_bound_ms"],
+                row["library_ms"]).items()})
         emit(row)
         bad = [g for g in errs if not errs[g] <= tols[g]]
         if bad:
@@ -417,12 +434,66 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
             if not same or any(not e <= t for e, t in zip(errs, tols)):
                 raise AssertionError(f"K2/K3 ragged/strided check failed: {checks[-1]}")
     emit(dict(phase="kernel_bwd", ragged_and_strided=checks))
+
+    # bf16 K3 with its query split forced to 1, 2 and the maximum (64: empty
+    # splits included) against the plain version over the same splits, and
+    # repeated calls bit for bit, at every training shape
+    forced = []
+    for name, sq, sk, h, d, n_rows, _ in TRAIN_SHAPES:
+        scale = d**-0.5
+        q, do = (path_randn(gen, (n_rows, sq, h), d, torch.bfloat16) for _ in range(2))
+        k, v = (path_randn(gen, (n_rows, sk, h), d, torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+        for splits in (1, 2, fa.MAX_SPLITS):
+            got = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+            again = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+            want = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale, splits)
+            torch.cuda.synchronize()
+            errs = [(x.float() - w).abs().max().item() for x, w in zip(got, want)]
+            tols = [grad_tol(w, torch.bfloat16) for w in want]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            forced.append(dict(shape=name, rows=n_rows, padded_head_dim=q.shape[-1], splits=splits,
+                               rule_splits=fa.pick_k3_splits(n_rows * h, sq, sk), max_abs_err_dk_dv=errs, tol=tols,
+                               repeat_bit_equal=same))
+            if not same or any(not e <= t for e, t in zip(errs, tols)):
+                raise AssertionError(f"K3 with forced splits failed: {forced[-1]}")
+            del got, again, want
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
+    emit(dict(phase="kernel_bwd", k3_forced_splits_bf16=forced))
     emit(dict(phase="kernel_bwd", k1_at_training_shapes=k1_rows))
     return rows, k1_rows
 
 
+def rates(flops: float, ms: float, bound_ms: float, library_ms) -> dict:
+    """Achieved TFLOP/s, the share of the bound, and the time over the
+    library call's (None when there is none)."""
+    return dict(tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
+                over_library=ms / library_ms if library_ms else None)
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds of one call (the wrapper's checks, allocations and
+    launch) on the host's clock, without waiting for the card: meaningful at
+    a shape whose device time is below it."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernel(gen: torch.Generator) -> list:
-    """K1 vs plain at the path's shapes; returns one row per shape."""
+    """K1 vs plain at the path's shapes; per bf16 row the device times of K1
+    and SDPA's forward, and from them the achieved TFLOP/s, the share of the
+    bound and the ratio to SDPA; K1's host microseconds per call at the
+    smallest serving shape. bf16 K1 (the tensor-core kernel) on ragged
+    lengths, a strided view and a view that fails TMA's alignment. Returns
+    one row per path shape."""
     rows, d = 2, 64  # one 1024px request with CFG
     results = []
     cases = [(n, sq, sk, h, torch.bfloat16) for n, sq, sk, h in PATH_SHAPES]
@@ -439,11 +510,52 @@ def phase_kernel(gen: torch.Generator) -> list:
         row = dict(
             phase="kernel", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d, dtype=str(dtype),
             **{key: val for key, val in c.items() if key not in ("out", "lse")},
-            kernel_ms=kernel_ms, plain_ms=plain_ms,
+            kernel_ms=kernel_ms, device_ms=device_ms(lambda: fa.flash_attention_fwd(q, k, v), 10), plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         )
+        if dtype == torch.bfloat16:
+            row["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+            row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], bound_ms, row["library_device_ms"]))
+        if name == "cross_1024x77":  # 12 µs on the card: the host's cost shows
+            row["host_us_per_call"] = host_us(lambda: fa.flash_attention_fwd(q, k, v))
         emit(row)
         results.append(row)
+
+    # bf16 K1 at ragged lengths around its 128-row tiles, at both head dims,
+    # and on q/k/v that are head slices of wider tensors (as a fused
+    # projection's view gives them), bit-equal to contiguous copies
+    checks = []
+    for dd in (64, 128):
+        for s in (1, 63, 65, 77, 129, 4097):
+            for sq, sk in ((s, s), (s, 77), (77, s)):
+                q = torch.randn((2, sq, 3, dd), generator=gen, device="cuda").to(torch.bfloat16)
+                k, v = (torch.randn((2, sk, 3, dd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+                c = check_k1(q, k, v, f"ragged Sq {sq} Sk {sk} d {dd} bf16")
+                checks.append(dict(sq=sq, sk=sk, head_dim=dd, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                                   lse_max_abs_err=c["lse_max_abs_err"]))
+        wide = [torch.randn((2, 300, 6, dd), generator=gen, device="cuda").to(torch.bfloat16)[:, :, 1::2]
+                for _ in range(3)]
+        c = check_k1(*wide, f"strided head slices d {dd} bf16")
+        same = all(torch.equal(a, b) for a, b in zip((c["out"], c["lse"]),
+                                                      fa.flash_attention_fwd(*(x.contiguous() for x in wide))))
+        checks.append(dict(sq=300, sk=300, head_dim=dd, strided=True, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                           lse_max_abs_err=c["lse_max_abs_err"], equals_contiguous=same))
+        if not same:
+            raise AssertionError(f"K1 on strided views differs from contiguous copies at d {dd}")
+        # rows that start 2 bytes past 16: the wrapper copies them once (the
+        # header's rule) and launches the tensor-core kernel on the copy
+        odd = [torch.randn((2, 300, 3, dd + 8), generator=gen, device="cuda").to(torch.bfloat16)[..., 1:dd + 1]
+               for _ in range(3)]
+        before = fa.flash_attention_fwd.launches
+        c = check_k1(*odd, f"views off TMA's 16-byte alignment d {dd} bf16")
+        same = all(torch.equal(a, b) for a, b in zip((c["out"], c["lse"]),
+                                                      fa.flash_attention_fwd(*(x.contiguous() for x in odd))))
+        launched = fa.flash_attention_fwd.launches - before
+        checks.append(dict(sq=300, sk=300, head_dim=dd, unaligned=True, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                           lse_max_abs_err=c["lse_max_abs_err"], equals_contiguous=same, launches=launched))
+        if not same or launched != 2:
+            raise AssertionError(f"K1 on unaligned views: {checks[-1]}")
+    emit(dict(phase="kernel", k1_ragged_strided_unaligned_bf16=checks))
     return results
 
 
@@ -879,8 +991,8 @@ def device_profile(fn) -> dict:
     out = dict(wall_seconds_profiled=wall, device_kernels=n_kernels, device_busy_seconds=busy if by_name else "not measured",
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
-    for key, names in (("k1", ("flash_fwd_kernel",)), ("k2", ("flash_bwd_dq_kernel",)),
-                       ("k3", ("flash_bwd_dkv_kernel",)), ("k4a", ("kgrid_fwd_kernel", "kgrid_merge_kernel")),
+    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel")), ("k2", ("flash_bwd_dq_kernel",)),
+                       ("k3", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_dkv_merge_kernel")), ("k4a", ("kgrid_fwd_kernel", "kgrid_merge_kernel")),
                        ("k4b", ("kgrid_bwd_dq_kernel",)), ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_dkv_merge_kernel"))):
         secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
         out[f"{key}_seconds"] = secs
@@ -1256,10 +1368,16 @@ def main() -> int:
             **launches("K1"),
             max_abs_err=max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
             ms=main_row["kernel_ms"],
+            device_ms=main_row["device_ms"],
             plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
+            library_device_ms=main_row["library_device_ms"],
+            host_us_per_call=next(r["host_us_per_call"] for r in k1_rows if "host_us_per_call" in r),
+            tflops=main_row["tflops"],
+            share_of_bound=main_row["share_of_bound"],
+            over_library=main_row["over_library"],
             at=f"{main_row['shape']} rows={main_row['rows']} heads={main_row['heads']} d={main_row['head_dim']} bf16",
         ),
         dict(
@@ -1292,6 +1410,10 @@ def main() -> int:
             bound_by=bwd_main["k3_bound_by"],
             library_ms=bwd_main["library_ms"],
             library="SDPA backward (dQ, dK, dV together)",
+            splits=bwd_main["k3_splits"],
+            tflops=bwd_main["k3_tflops"],
+            share_of_bound=bwd_main["k3_share_of_bound"],
+            over_library=bwd_main["k3_over_library"],
             at=at_bwd,
         ),
         dict(

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, bidirectional
-// (no mask), fp32 math, gradients in the input dtype.
+// (no mask), gradients in the input dtype.
 //
 // K2 flash_bwd_dq_kernel replaces the TPU kernel
 //   sliders_conceptmod_tpu/ops/flash_attention.py::_bwd_dq_kernel
@@ -10,38 +10,67 @@
 // here it is fused into K2's prologue (the q tile's dO rows are staged
 // anyway) and written out as fp32 [B*H, Sq] for K3.
 //
-// K3 flash_bwd_dkv_kernel replaces
+// K3 replaces
 //   sliders_conceptmod_tpu/ops/flash_attention.py::_bwd_dkv_kernel
-// (launched by _vjp_bwd): per K tile, dV = sum_q P^T dO and
+// (launched by _vjp_bwd): per key tile, dV = sum_q P^T dO and
 // dK = scale * sum_q dS^T Q. Query rows past Sq contribute nothing (their P
-// is forced to 0, as the TPU kernel's row mask does).
+// is forced to an exact 0, as the TPU kernel's row mask does).
 //
-// Both: keys past Sk get P = 0 exactly (the TPU kernel masks their scores
-// to -1e30 before exp). Layout BSHD [B, S, H, D] with arbitrary batch / seq
-// / head strides (in elements) and unit stride over D for every tensor, so
-// autograd's dO and the UNet's q/k/v views go in without copies. D is 64 or
-// 128; dtypes float32 and bfloat16; outputs are written with their own
-// strides.
+// Both: layout BSHD [B, S, H, D] with arbitrary batch / seq / head strides
+// (in elements) and unit stride over D for every tensor, so autograd's dO
+// and the UNet's q/k/v views go in without copies. D is 64 or 128; outputs
+// are written with their own strides. K2 does 6*BH*Sq*Sk*D flops and K3
+// 8*BH*Sq*Sk*D (at the unpadded D) against q, k, v, o, dO, lse, delta and
+// the gradients moved once: the bf16 tensor-core rate (989 TFLOP/s) bounds
+// them at the training paths' self-attentions of 1024 and 4096 tokens, the
+// bytes (3.35 TB/s) at the 77-key cross-attentions and at 256 tokens.
 //
-// What bounds it on the H100: K2 does 6*BH*Sq*Sk*D flops and K3
-// 8*BH*Sq*Sk*D against a few MB of q, k, v, o, dO, lse, delta and the
-// gradients, so at the UNet's training shapes (D = 64, 1024 or 256 tokens)
-// the bound is the bf16 tensor-core rate (989 TFLOP/s). These first kernels
-// do NOT reach it: like K1 they keep the TPU kernels' fp32 math on the CUDA
-// cores (67 TFLOP/s peak). Design, for correctness first:
-//   * one block of 128 threads per (batch*head, 64-row tile) - a q tile for
-//     K2, a key tile for K3 - whose loop over the other operand's 64-row
-//     tiles replaces the TPU grid's sequential axis;
-//   * thread t owns row t/2 of its tile and, of each streamed tile, the even
-//     or odd rows (t & 1), so the two threads of a row share nothing but a
-//     __shfl_xor for delta;
-//   * the streamed tiles are staged in shared memory as fp32 with rows
-//     padded by 4 floats (float4 reads of 8 rows hit distinct banks); P and
-//     dS go through shared memory with row stride 64 + 2 (conflict-free for
-//     the per-thread write and the row-broadcast read);
-//   * P is written to shared memory as soon as it is computed and read back
-//     by the same thread for dS, so only one 32-wide score array is live.
-// Tensor cores (wgmma) with TMA-fed tiles are the next step.
+// K3, bfloat16: flash_bwd_dkv_tc_kernel, on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, fp32 accumulators). Design:
+//   * one block of 4 warps per (batch*head, 64-key tile, split of the query
+//     range); warp w owns keys 16w..16w+15 and keeps their dK and dV
+//     accumulators (16 x D fp32) in registers for the whole loop;
+//   * K and V of the tile stay in shared memory; q tiles of Q, dO, lse and
+//     delta (64 rows at D 64, 32 at D 128, so that dK, dV, P and dP fit in
+//     the registers) stream through a 2-stage cp.async ring: the copy of
+//     tile i+1 overlaps the products of tile i;
+//   * per q tile, four products in this order: S^T = K Q^T;
+//     P^T = exp(scale S^T - lse) (0 on padded query rows); dV += P^T dO;
+//     dP^T = V dO^T; dS^T = P^T o (dP^T - delta); dK += dS^T Q. P^T and dS^T
+//     are rounded to bf16 as A operands straight from the m16n8k16
+//     accumulator layout, which is the A-fragment layout of the next
+//     product, with no trip through shared memory; Q and dO are read as B
+//     with ldmatrix (plain for the [q][d] "col" operand of K Q^T and V dO^T,
+//     .trans for the [k][n] operand of P^T dO and dS^T Q);
+//   * shared-memory rows are bf16 with their 16-byte chunks XOR-swizzled by
+//     (row & 7): ldmatrix's eight rows and cp.async's writes hit distinct
+//     banks. Shared memory per block: K + V 64 x D, 2 stages of Q + dO
+//     (BQ x D) + lse + delta: 49 KB at D 64, 64.5 KB at D 128. ptxas: 198
+//     registers at D 64, 241 at D 128, the merge 34; no spills;
+//   * a grid of key tiles under two waves of the 132 SMs (Sk = 77 gives two
+//     tiles per head) splits the query range across blocks
+//     (ops/flash_attention.py::pick_k3_splits, K4c's rule); each split
+//     writes fp32 partials and flash_dkv_merge_kernel sums them in split
+//     order. No float atomics: two runs give the same bits, as
+//     train/checkpoint.py's bit-identical resume needs.
+//   cp.async needs q, k, v and dO rows on 16 bytes; the wrapper makes one
+//   contiguous copy of a bf16 tensor that fails the check, and this entry
+//   point returns cudaErrorInvalidValue for one that reaches it anyway.
+//   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
+//   700.00 W): SDXL's 1024^2 (10 heads, 2 splits) 0.042 ms, 128 TFLOP/s,
+//   13 % of the bound, 1.22x SDPA's whole backward; SD1.5's 4096^2 (8 heads
+//   of 40 run at 64) 0.305 ms, 14 % of the bound at D 40, 1.45x; SD2.1's
+//   4096^2 17 %, 1.31x; the other shapes 4-12 % of the bound, and the Sk =
+//   77 ones (1-16 splits) 0.15-0.89x SDPA's whole backward (PERF.md,
+//   section 6).
+//
+// K2 (both dtypes) and K3 for float32 keep the first SIMT kernels,
+// unchanged: fp32 math on the CUDA cores (67 TFLOP/s peak), one block of
+// 128 threads per (batch*head, 64-row tile), thread t owning row t/2 and the
+// even or odd rows of each streamed tile, tiles staged as fp32 with rows
+// padded by 4 floats, P and dS through shared memory. fp32 stays there
+// because TF32 tensor cores would break the fp32 bound of 1e-4 against the
+// plain version; K2's redesign is the next one (ROADMAP queue 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -345,6 +374,353 @@ Strides unpack(const long long* s) {
   return st;
 }
 
+// ---------------------------------------------------------------------------
+// K3 for bfloat16: tensor cores (mma.sync m16n8k16), cp.async-fed
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int DKV_THREADS = 128;  // four warps, 16 keys each
+constexpr int DKV_BN = 64;        // keys per block
+constexpr int SPLIT_ROWS = 64;    // the query range splits in whole 64-row units
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of one block: the key tile's K and V (resident), and a
+// 2-stage ring of q tiles (Q, dO, lse, delta). bf16 rows of D elements,
+// 16-byte chunks XOR-swizzled by (row & 7) so that ldmatrix's eight rows
+// hit distinct banks.
+template <int D>
+struct DkvLayout {
+  static constexpr int BQ = D == 64 ? 64 : 32;  // q rows per streamed tile (32 at D 128 keeps dK, dV in registers)
+  static constexpr int ROW = D * 2;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = DKV_BN * ROW;
+  static constexpr int RING_OFF = 2 * DKV_BN * ROW;
+  static constexpr int Q_OFF = 0;
+  static constexpr int G_OFF = BQ * ROW;
+  static constexpr int L_OFF = 2 * BQ * ROW;
+  static constexpr int DL_OFF = L_OFF + BQ * 4;
+  static constexpr int STAGE = DL_OFF + BQ * 4;
+  static constexpr int BYTES = RING_OFF + 2 * STAGE;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int D>
+__device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int chunk) {
+  return tile + row * (D * 2) + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + ROWS) of a bf16 BSHD slice into a swizzled tile; rows at or
+// past n are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, long long row_stride, int r0,
+                                          int n) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += DKV_THREADS) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = r0 + r < n;
+    cp_async16(swz<D>(dst, r, c), src + (ok ? (long long)(r0 + r) * row_stride : 0) + c * 8, ok);
+  }
+}
+
+// acc[16 keys x N] += A[16 keys x 16k] B[16k x N] for the k-slices of one
+// operand pair: A fragments from the warp's key rows of `a_tile` (row-major
+// [key][d]) at d-chunks 2kk, 2kk + 1; used for S^T = K Q^T and dP^T = V dO^T
+// with B = the q tile read as [q][d] (non-transposed ldmatrix).
+template <int D, int BQ>
+__device__ __forceinline__ void keys_by_q(float (&acc)[BQ / 8][4], uint32_t a_tile, uint32_t b_tile, int krow,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, swz<D>(a_tile, krow + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      uint32_t bq[4];
+      ldsm_x4(bq, swz<D>(b_tile, 16 * j + ((lane >> 4) << 3) + (lane & 7), 2 * kk + ((lane >> 3) & 1)));
+      mma_bf16(acc[2 * j], a, bq[0], bq[1]);
+      mma_bf16(acc[2 * j + 1], a, bq[2], bq[3]);
+    }
+  }
+}
+
+// acc[16 keys x D] += P[16 keys x BQ] X[BQ x D]: A = P from registers (the
+// accumulator layout of keys_by_q, rounded to bf16), B = the q tile X read
+// as [q][d] with the transposing ldmatrix; used for dV += P^T dO and
+// dK += dS^T Q.
+template <int D, int BQ>
+__device__ __forceinline__ void keys_by_d(float (&acc)[D / 8][4], const float (&p)[BQ / 8][4], uint32_t x_tile,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t bx[4];
+      ldsm_x4_t(bx, swz<D>(x_tile, 16 * kk + (lane & 15), 2 * n + (lane >> 4)));
+      mma_bf16(acc[2 * n], a, bx[0], bx[1]);
+      mma_bf16(acc[2 * n + 1], a, bx[2], bx[3]);
+    }
+  }
+}
+
+// K3: dK and dV for one (batch*head, 64-key tile, split of the query range).
+// splits == 1 writes dK, dV (bf16, their own strides); splits > 1 writes
+// fp32 partials [splits, B*H, Sk, D] that flash_dkv_merge_kernel sums.
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
+    float* __restrict__ part_dv, int H, int Sq, int Sk, int splits, Strides st, float scale) {
+  using L = DkvLayout<D>;
+  constexpr int BQ = L::BQ;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = warp * 16;  // the warp's 16 keys of the tile
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * DKV_BN;
+  const int split = blockIdx.z;
+  const int per = ((Sq + SPLIT_ROWS - 1) / SPLIT_ROWS + splits - 1) / splits * SPLIT_ROWS;
+  const int lo = min(Sq, split * per);
+  const int hi = min(Sq, lo + per);
+  const int n_tiles = (hi - lo + BQ - 1) / BQ;
+
+  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const __nv_bfloat16* gb = dout + b * st.t[3][0] + h * st.t[3][2];
+  const float* lse_b = lse + (long long)bh * Sq;
+  const float* delta_b = delta + (long long)bh * Sq;
+
+  auto load_q_tile = [&](int stage, int i0) {
+    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
+    load_rows<D, BQ>(ring + L::Q_OFF, qb, st.t[0][1], i0, Sq);
+    load_rows<D, BQ>(ring + L::G_OFF, gb, st.t[3][1], i0, Sq);
+    for (int i = tid; i < BQ; i += DKV_THREADS) {
+      const bool ok = i0 + i < Sq;
+      cp_async4(ring + L::L_OFF + 4 * i, lse_b + (ok ? i0 + i : 0), ok);
+      cp_async4(ring + L::DL_OFF + 4 * i, delta_b + (ok ? i0 + i : 0), ok);
+    }
+  };
+
+  load_rows<D, DKV_BN>(sK, kb, st.t[1][1], k0, Sk);
+  load_rows<D, DKV_BN>(sV, vb, st.t[2][1], k0, Sk);
+  if (n_tiles > 0) load_q_tile(0, lo);
+  cp_async_commit();
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int i0 = lo + it * BQ;
+    if (it + 1 < n_tiles) {
+      load_q_tile((it + 1) & 1, i0 + BQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ring = base + L::RING_OFF + (it & 1) * L::STAGE;
+    const uint32_t sQ = ring + L::Q_OFF, sG = ring + L::G_OFF;
+    const float* sL = reinterpret_cast<const float*>(smem_raw + L::RING_OFF + (it & 1) * L::STAGE + L::L_OFF);
+    const float* sD = reinterpret_cast<const float*>(smem_raw + L::RING_OFF + (it & 1) * L::STAGE + L::DL_OFF);
+
+    // S^T = K Q^T, then P^T = exp(scale S^T - lse): chunk c holds q columns
+    // 8c + 2t (+1) of key rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float p[BQ / 8][4];
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
+    keys_by_q<D, BQ>(p, sK, sQ, krow, lane);
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * c + 2 * t + (e & 1);
+        // padded query rows would add to dK and dV: their P is an exact 0
+        p[c][e] = i0 + col < Sq ? exp2f(fmaf(p[c][e], scale_log2, -sL[col] * LOG2E)) : 0.f;
+      }
+    keys_by_d<D, BQ>(acc_dv, p, sG, lane);  // dV += P^T dO
+
+    // dP^T = V dO^T, then dS^T = P^T o (dP^T - delta)
+    float ds[BQ / 8][4];
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
+    keys_by_q<D, BQ>(ds, sV, sG, krow, lane);
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - sD[8 * c + 2 * t + (e & 1)]);
+    keys_by_d<D, BQ>(acc_dk, ds, sQ, lane);  // dK += dS^T Q (scaled at the end)
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + krow + g + 8 * r;
+    if (key >= Sk) continue;
+    if (splits == 1) {
+      __nv_bfloat16* krow_p = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1];
+      __nv_bfloat16* vrow_p = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(krow_p + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow_p + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+      }
+    } else {
+      const long long row = ((long long)split * gridDim.y + bh) * Sk + key;
+      float* pk = part_dk + row * D;
+      float* pv = part_dv + row * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(pk + 8 * n + 2 * t) =
+            make_float2(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * n + 2 * t) = make_float2(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dK, dV = the sum of the splits' fp32 partials, in split order (no atomics:
+// two runs give the same bits); one thread per (batch*head, key, column pair)
+template <int D>
+__global__ void flash_dkv_merge_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
+                                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH, int H,
+                                       int Sk, int splits, Strides st) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)BH * Sk * D;
+  if (2 * i >= plane) return;
+  const int col = (int)(2 * i % D);
+  const long long row = 2 * i / D;  // bh * Sk + key
+  const int key = (int)(row % Sk);
+  const int bh = (int)(row / Sk);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 a = *reinterpret_cast<const float2*>(part_dk + s * plane + 2 * i);
+    const float2 c = *reinterpret_cast<const float2*>(part_dv + s * plane + 2 * i);
+    sk.x += a.x;
+    sk.y += a.y;
+    sv.x += c.x;
+    sv.y += c.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col) =
+      __floats2bfloat162_rn(sk.x, sk.y);
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col) =
+      __floats2bfloat162_rn(sv.x, sv.y);
+}
+
+// cudaFuncSetAttribute for `kernel` once per device (the attribute is the
+// device's); `done` holds one bit per device, kept by the caller per kernel
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, uint64_t& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && (done >> dev) & 1)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done |= uint64_t(1) << dev;
+  return err;
+}
+
+bool rows_aligned(const void* p, long long sb, long long ss, long long sh, int B, int S, int H) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 8 == 0) && (S == 1 || ss % 8 == 0) &&
+         (H == 1 || sh % 8 == 0);
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
+               const long long* s, float scale, cudaStream_t stream) {
+  // cp.async moves 16-byte chunks: q, k, v and dO rows must start on 16 bytes
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(dout, s[9], s[10], s[11], B, Sq, H))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && (part_dk == nullptr || part_dv == nullptr))) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  constexpr int smem = DkvLayout<D>::BYTES;
+  static uint64_t smem_set = 0;
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const Strides st = unpack(s);
+  dim3 grid((Sk + DKV_BN - 1) / DKV_BN, B * H, splits);
+  kernel<<<grid, DKV_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long pairs = (long long)B * H * Sk * D / 2;
+  flash_dkv_merge_kernel<D><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+      part_dk, part_dv, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B * H, H, Sk, splits, st);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
               float* delta, void* dq, int B, int H, int Sq, int Sk, const long long* strides, float scale,
@@ -404,20 +780,25 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
 }
 
 // K3. strides: 18 element strides, (batch, seq, head) for q, k, v, dO, dK, dV
-// in turn. lse and delta [B*H, Sq] fp32 in (delta as K2 wrote it).
+// in turn. lse and delta [B*H, Sq] fp32 in (delta as K2 wrote it). bfloat16
+// runs the tensor-core kernel over `splits` ranges of the query axis (fp32
+// partials part_dk / part_dv [splits, B*H, Sk, D], then the merge; unused
+// when splits is 1); float32 runs the SIMT kernel, which does not split.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                       const float* lse, const float* delta, void* dk, void* dv, int dtype, int B,
-                                       int H, int Sq, int Sk, int D, const long long* strides, float scale,
-                                       void* stream) {
-  if (!shape_ok(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
+                                       const float* lse, const float* delta, void* dk, void* dv, float* part_dk,
+                                       float* part_dv, int dtype, int B, int H, int Sq, int Sk, int D, int splits,
+                                       const long long* strides, float scale, void* stream) {
+  if (!shape_ok(B, H, Sq, Sk) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
+  if (dtype == 0 && splits == 1 && D == 64)
     return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && splits == 1 && D == 128)
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 1 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
+    return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, strides,
+                              scale, s);
   if (dtype == 1 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
+    return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, strides,
+                               scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,36 +1,74 @@
 // Flash-attention forward for Hopper (sm_90a): O = softmax(scale * Q K^T) V
-// and the row logsumexp, bidirectional (no mask), fp32 math.
+// and the row logsumexp, bidirectional (no mask). Kernel K1.
 //
 // Replaces the TPU kernel sliders_conceptmod_tpu/ops/flash_attention.py::
 // _fwd_kernel (launched by _flash_fwd_impl). It computes the same function:
-// inputs upcast to fp32, q pre-scaled, an online (max, sum, acc) carry over
-// 64-wide K tiles, keys past Sk masked to NEG_INF = -1e30 (so exp() of a
-// masked score is an exact 0), output cast back to the input dtype, and
-// lse = m + log(l) stored as fp32 [B*H, Sq] (the TPU's lane-replicated
-// [..., 128] lse layout was a tiling workaround and is not carried over).
+// an online (max, sum, acc) carry over K tiles with fp32 statistics, keys
+// past Sk masked to NEG_INF = -1e30 before the max (so exp() of a masked
+// score is an exact 0), output cast back to the input dtype, and
+// lse = m + log(l) stored as fp32 [B*H, Sq] (K2 and K3 read it; the TPU's
+// lane-replicated [..., 128] lse layout was a tiling workaround and is not
+// carried over).
 //
 // Layout: BSHD [B, S, H, D] with arbitrary batch/seq/head strides (in
 // elements) and unit stride over D, so the caller needs no fold or pad copy.
 // D is 64 or 128 (the dispatch zero-pads other head dims up to a multiple of
-// 64); dtypes are float32 and bfloat16.
+// 64). The entry point dispatches by dtype:
 //
-// What bounds it on the H100: at the UNet's shapes (D = 64, Sq = Sk = 1024 or
-// 4096) the work is 4*B*H*Sq*Sk*D flops against a few MB of Q/K/V/O, i.e.
-// far above the card's ~295 flop/byte ridge, so the bound is the tensor-core
-// rate (989 TFLOP/s bf16). This first kernel does NOT reach it: it keeps the
-// TPU kernel's fp32 math on the CUDA cores (67 TFLOP/s peak), one block per
-// (batch*head, 64-row q tile), K/V tiles staged in shared memory as fp32.
-// Design for correctness first:
-//   * 128 threads; thread t owns q row t/2 of the tile and, within each K
-//     tile, the even (t&1 == 0) or odd key columns, so the pair shares one
-//     row's running max/sum through a single __shfl_xor;
-//   * P goes through shared memory (row stride BK + 2, conflict-free for
-//     both the write and the broadcast read) into the P*V product, where each
-//     thread owns interleaved float4 groups of the output columns;
-//   * Q/K rows are padded by 4 floats so float4 reads of 8 consecutive rows
-//     land on distinct banks.
-// Tensor cores (wgmma) with TMA-fed K/V are the next step.
+// * bfloat16 -> flash_fwd_tc_kernel, on the tensor cores. What bounds it on
+//   the H100 (4*B*H*Sq*Sk*D flops at the unpadded D against Q, K, V and O
+//   moved once): the bf16 tensor-core rate (989 TFLOP/s) at every path
+//   self-attention of 1024 or 4096 tokens; the bytes (3.35 TB/s) at the
+//   77-key cross-attentions and at 256 tokens, where a call is a few
+//   microseconds. Design:
+//     - one block of two consumer warpgroups (256 threads) per (batch*head,
+//       128-row q tile); warpgroup w owns q rows 64w..64w+63;
+//     - S = Q K^T with wgmma.mma_async m64n128k16, Q and K read from shared
+//       memory (K stored [keys, d] is K-major for B); the scale is applied
+//       to S in fp32 after the product (q is never rounded after scaling);
+//     - the online softmax stays in registers (base 2: x = s * scale *
+//       log2(e)); a row's max and sum reduce over the four threads of a
+//       quad with __shfl_xor; P is rounded to bf16 in the accumulator's own
+//       layout, which is the register A-fragment layout of the next product;
+//     - O += P V with wgmma m64n64k16, A = P from registers, B = V from
+//       shared memory with the transpose flag (V stored [keys, d] is
+//       MN-major), one product per 64-column half of the head dim;
+//     - Q and a 2-stage ring of 128-key K/V tiles are filled by TMA
+//       (cp.async.bulk.tensor, 4-D maps over (D, S, H, B) encoded per call
+//       from the tensor's strides), completion on mbarriers, with the
+//       128-byte swizzle the wgmma descriptors read: each tile is stored as
+//       64-column sub-tiles of 128-byte rows. One thread issues the copy of
+//       tile j+2 once both warpgroups are done with tile j, so a tile's copy
+//       overlaps the previous tile's products;
+//     - ragged Sq and Sk: TMA zero-fills the box past the tensor's end;
+//       padded key columns are set to -1e30 before the max, padded q rows
+//       are never stored;
+//     - shared memory per block: Q 128 x D + 2 stages x (K + V) 128 x D, bf16:
+//       80 KB at D 64, 160 KB at D 128 (plus 1 KB to align the base to the
+//       swizzle's 1024 bytes). ptxas: 127 registers at D 64 (capped at 128
+//       by __launch_bounds__ so that two blocks share an SM and one block's
+//       softmax overlaps the other's products), 173 at D 128; no spills.
+//   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
+//   700.00 W): serving's 4096^2 (2 rows, 10 heads) 0.208 ms, 412 TFLOP/s,
+//   42 % of the bound, 1.10x SDPA's forward; its 1024^2 29 %, its 77-key
+//   crosses 29-36 %; SD1.5's and SD2.1's 4096^2 26 %; the training paths'
+//   1024- and 256-token shapes 7-16 %. 0.89-1.30x SDPA's forward at every
+//   path shape (PERF.md, section 6).
+//   TMA needs 16-byte-aligned base addresses and strides. The wrapper
+//   (ops/flash_attention.py) makes one contiguous copy of a bf16 tensor
+//   that fails the check; this entry point returns cudaErrorInvalidValue
+//   for one that reaches it anyway.
+//
+// * float32 -> flash_fwd_kernel, the first (SIMT) kernel, unchanged: fp32
+//   math on the CUDA cores (67 TFLOP/s peak), one block per (batch*head,
+//   64-row q tile), thread pairs per q row, K/V staged in shared memory as
+//   fp32 (rows padded by 4 floats), P through shared memory. fp32 inputs
+//   stay there because TF32 tensor cores would round the operands to 10
+//   mantissa bits and break the fp32 bound of 1e-4 against the plain
+//   version; on the path only the card-vs-CPU parity runs and a user's
+//   `precision: fp32` take it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,20 +86,12 @@ template <>
 __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 template <int D>
@@ -200,6 +230,360 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma), TMA-fed
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 128;        // q rows per block: 64 per consumer warpgroup
+constexpr int BN = 128;        // keys per K/V tile
+constexpr int NTHREADS = 256;  // two warpgroups
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory of one block, byte offsets from a 1024-aligned base. A tile
+// of R rows x D columns is stored as D/64 sub-tiles of R rows x 128 bytes,
+// each in the 128-byte-swizzled layout TMA writes and wgmma reads.
+template <int D>
+struct Layout {
+  static constexpr int NSUB = D / 64;
+  static constexpr int Q_SUB = BM * 128;
+  static constexpr int KV_SUB = BN * 128;
+  static constexpr int Q_BYTES = NSUB * Q_SUB;
+  static constexpr int KV_BYTES = NSUB * KV_SUB;  // one K (or V) tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;  // bar_q, full[0], full[1]
+  static constexpr int BYTES = BAR_OFF + 64 + 1024;          // + slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box (64 columns x the map's rows, of one head) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d0, int row, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. `lbo`/`sbo` in bytes: the
+// stride byte offset is the step between groups of eight 128-byte rows
+// (1024); the leading byte offset is not read at these shapes (one swizzle
+// atom across the product's K-major depth or MN-major width).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accesses of wgmma accumulators across the
+// asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
+      "1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),
+        "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs in the
+// accumulator's layout), B from shared memory MN-major (transpose flag set)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 2 : 1) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
+    int Sk, long long o_sb, long long o_ss, long long o_sh, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int NSUB = L::NSUB;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t bar_q = base + L::BAR_OFF;  // full[st] at bar_q + 8 * (1 + st)
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;          // consumer warpgroup
+  const int warp = (tid >> 5) & 3;  // warp of the warpgroup: 16 q rows each
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // a thread holds rows g, g + 8 and columns 2t, 2t + 1 of each 8-column chunk
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * BM;
+  const int num_k = (Sk + BN - 1) / BN;
+
+  auto load_kv = [&](int tile, int st) {
+    const uint32_t bar = bar_q + 8 * (1 + st);
+    mbar_expect_tx(bar, 2 * L::KV_BYTES);
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load(sK + st * L::KV_BYTES + s * L::KV_SUB, &tm_k, bar, 64 * s, tile * BN, h, b);
+      tma_load(sV + st * L::KV_BYTES + s * L::KV_SUB, &tm_v, bar, 64 * s, tile * BN, h, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q + 8, 1);
+    mbar_init(bar_q + 16, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) tma_load(sQ + s * L::Q_SUB, &tm_q, bar_q, 64 * s, q0, h, b);
+    for (int st = 0; st < STAGES && st < num_k; ++st) load_kv(st, st);
+  }
+
+  float acc[NSUB][32];
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[s][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};  // running max of x = score * scale * log2(e), rows g and g + 8
+  float l_r[2] = {0.f, 0.f};          // this thread's part of the running sum (quad-reduced at the end)
+  const uint32_t q_rows = sQ + wg * 64 * 128;  // this warpgroup's 64 rows of each Q sub-tile
+
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int st = kt & 1;
+    mbar_wait(bar_q + 8 * (1 + st), (kt >> 1) & 1);
+    const uint32_t k_tile = sK + st * L::KV_BYTES;
+    const uint32_t v_tile = sV + st * L::KV_BYTES;
+
+    // S = Q K^T over D in steps of 16 (32 bytes inside a 128-byte swizzled row)
+    float s_acc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_m64n128k16_ss(s_acc, sw128_desc(q_rows + (kk >> 2) * L::Q_SUB + off, 16, 1024),
+                          sw128_desc(k_tile + (kk >> 2) * L::KV_SUB + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s_acc);
+
+    // online softmax: chunk c holds keys 8c + 2t (+1) of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    const int k0 = kt * BN;
+    const bool ragged = k0 + BN > Sk;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s_acc[4 * c + e] * scale_log2;
+        if (ragged && k0 + 8 * c + 2 * t + (e & 1) >= Sk) x = NEG_INF;
+        s_acc[4 * c + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+    uint32_t pf[BN / 16][4];  // P in bf16: the A fragments of O += P V, one per 16 keys
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s_acc[4 * c + e] - m_r[e >> 1]);
+        l_r[e >> 1] += p[e];
+      }
+      pf[c >> 1][2 * (c & 1) + 0] = pack_bf16(p[0], p[1]);
+      pf[c >> 1][2 * (c & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[s][e] *= corr[(e >> 1) & 1];
+
+    // O += P V: V's 16-key steps are 2048 bytes apart in each 64-column sub-tile
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) reg_fence(acc[s]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int s = 0; s < NSUB; ++s)
+        wgmma_m64n64k16_rs(acc[s], pf[kk], sw128_desc(v_tile + s * L::KV_SUB + kk * 2048, 1024, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) reg_fence(acc[s]);
+
+    __syncthreads();  // both warpgroups are done with this stage
+    if (tid == 0 && kt + STAGES < num_k) load_kv(kt + STAGES, st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    const float inv = 1.f / l_r[r];
+    __nv_bfloat16* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * s + 8 * c + 2 * t) =
+            __floats2bfloat162_rn(acc[s][4 * c + 2 * r] * inv, acc[s][4 * c + 2 * r + 1] * inv);
+    if (t == 0) lse[(long long)bh * Sq + qi] = (m_r[r] + log2f(l_r[r])) * LN2;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, fetched once through
+// cudaGetDriverEntryPoint (the library links no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// cudaFuncSetAttribute for `kernel` once per device (the attribute is the
+// device's); `done` holds one bit per device, kept by the caller per kernel
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, uint64_t& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && (done >> dev) & 1)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done |= uint64_t(1) << dev;
+  return err;
+}
+
+// A [B, S, H, D] bf16 tensor as TMA sees it: dims innermost first (D, S, H,
+// B), byte strides of S, H and B (a dim of size 1 takes a dense stride: its
+// own is never stepped), boxes of 64 columns x `rows` rows of one head.
+// Returns false for what TMA refuses: a base or stride not on 16 bytes.
+bool bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb, long long ss,
+              long long sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (S == 1) ss = (long long)H * D;
+  if (H == 1) sh = D;
+  if (B == 1) sb = (long long)S * H * D;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || ss % 8 || sh % 8 || sb % 8 || ss <= 0 || sh <= 0 || sb <= 0)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq, int Sk,
+           const long long* st, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!bshd_map(&mq, q, B, Sq, H, D, st[0], st[1], st[2], BM) ||
+      !bshd_map(&mk, k, B, Sk, H, D, st[3], st[4], st[5], BN) ||
+      !bshd_map(&mv, v, B, Sk, H, D, st[6], st[7], st[8], BN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  constexpr int smem = Layout<D>::BYTES;
+  static uint64_t smem_set = 0;
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + BM - 1) / BM, B * H);
+  kernel<<<grid, NTHREADS, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Sq, Sk, st[9],
+                                           st[10], st[11], scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
            int Sk, const long long* st, float scale, cudaStream_t stream) {
@@ -216,7 +600,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
+// Plain C entry point (bound with ctypes). dtype: 0 = float32 (the SIMT
+// kernel), 1 = bfloat16 (the tensor-core kernel).
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn.
 // Returns the cudaError_t of the launch (0 = launched), or
 // cudaErrorInvalidValue for a head dim / dtype / shape it does not take.
@@ -227,7 +612,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 0 && D == 128) return launch<float, 128>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 1 && D == 64) return tc::launch<64>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 1 && D == 128) return tc::launch<128>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

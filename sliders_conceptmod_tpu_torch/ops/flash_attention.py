@@ -5,14 +5,45 @@ Three hand-written CUDA kernels, each replacing one kernel of
 ``sliders_conceptmod_tpu/ops/flash_attention.py``:
 
 * K1 (``csrc/flash_attention_fwd.cu``) replaces ``_fwd_kernel`` (launched by
-  ``_flash_fwd_impl``): ``O = softmax(scale·QKᵀ)·V`` plus the row
-  logsumexp, bidirectional, fp32 math, output in the input dtype.
+  ``_flash_fwd_impl``): ``O = softmax(scale·QKᵀ)·V`` plus the fp32 row
+  logsumexp, bidirectional, output in the input dtype.
 * K2 (``csrc/flash_attention_bwd.cu``, ``flash_bwd_dq_kernel``) replaces
   ``_bwd_dq_kernel`` (launched by ``_vjp_bwd``): dQ from P recomputed from
   K1's lse. It also computes ``δ = rowsum(dO∘O)``, which the JAX package
   computes with an XLA reduction outside its kernels, and writes it for K3.
-* K3 (same source, ``flash_bwd_dkv_kernel``) replaces ``_bwd_dkv_kernel``
-  (launched by ``_vjp_bwd``): dK and dV.
+* K3 (same source) replaces ``_bwd_dkv_kernel`` (launched by ``_vjp_bwd``):
+  dK and dV.
+
+What bounds them on the H100 (K1 does 4·B·H·Sq·Sk·D flops, K2 6·, K3 8·,
+at the unpadded head dim, against their tensors moved once): the bf16
+tensor-core rate (989 TFLOP/s) at the paths' self-attentions of 1024 and
+4096 tokens; the bytes (3.35 TB/s) at the 77-key cross-attentions and at
+256 tokens, where a call takes a few microseconds. The designs, by dtype:
+
+* bfloat16 (the paths' dtype), on the tensor cores:
+
+  - K1: ``wgmma`` (S = QKᵀ from shared memory, O += PV with P from
+    registers); 128 q rows per block (two warpgroups) against 128-key K/V
+    tiles in a 2-stage ring filled by TMA on mbarriers; 80 KB of shared
+    memory at d 64, 160 KB at d 128; 127 / 173 registers, no spills; 42 %
+    of the bound at serving's 4096², 7–36 % at the other path shapes.
+  - K3: ``mma.sync`` m16n8k16 (Sᵀ = KQᵀ, dV += PᵀdO, dPᵀ = VdOᵀ, dK +=
+    dSᵀQ, P and dS from registers); 64 keys per block (four warps) against
+    q tiles of 64 rows (d 64) or 32 (d 128) in a 2-stage ``cp.async``
+    ring; 49 / 64.5 KB of shared memory; 198 / 241 registers, no spills;
+    13 % of the bound at SDXL's 1024², 14–17 % at 4096², 4–12 % elsewhere.
+
+  (ptxas and the device times of ``bench_attention.py``, NVIDIA H100 80GB
+  HBM3, 700.00 W; every path shape in ``PERF.md``.) K3 splits its query
+  range across blocks when its key tiles fill less than two waves of the
+  card (:func:`pick_k3_splits`, K4c's rule): fp32 partials summed in split
+  order, no atomics, so two runs give the same bits. TMA and ``cp.async``
+  need 16-byte-aligned bases and row strides: the wrappers make one
+  contiguous copy of a bf16 tensor that fails the check (:func:`_aligned`).
+* float32: the first (SIMT) kernels, fp32 math on the CUDA cores, which
+  keep the fp32 bound of 1e-4; K3 does not split there.
+* K2, both dtypes, keeps its first SIMT kernel (the next redesign, ROADMAP
+  queue 2).
 
 Each CUDA source of the port — these two, K4a's
 (``csrc/flash_attention_kgrid.cu``) and K4b/K4c's
@@ -20,18 +51,18 @@ Each CUDA source of the port — these two, K4a's
 ``ops/flash_attention_kgrid.py`` — is compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own
 with a plain C interface at first use — into ``build/kernels/`` at the
 repository root — and bound with ``ctypes``; :func:`build` compiles them all
-at once. The sources' headers say what bounds each kernel on the H100 and what
-the design does about it.
+at once.
 
 Beside the kernels sit their plain PyTorch versions:
 :func:`flash_attention_reference` (K1) and :func:`bwd_dq_reference` /
-:func:`bwd_dkv_reference` (K2 / K3), composed in
-:func:`flash_attention_bwd_reference`. A wrapper takes the plain version only
-for tensors on the CPU; a CUDA tensor launches the kernel or raises. Each
-kernel wrapper's ``launches`` counts its kernel's launches and nothing else,
-so a run can show that its main path went through the kernel; each plain
-version's ``cuda_calls`` counts its calls on CUDA tensors, so a run can show
-that its main path never reached it.
+:func:`bwd_dkv_reference` (K2 / K3, the latter over the same query splits),
+composed in :func:`flash_attention_bwd_reference`. A wrapper takes the plain
+version only for tensors on the CPU; a CUDA tensor launches the kernel or
+raises. Each kernel wrapper's ``launches`` counts its calls that launch the
+kernel (K3's merge included) and nothing else, so a run can show that its
+main path went through the kernel; each plain version's ``cuda_calls``
+counts its calls on CUDA tensors, so a run can show that its main path never
+reached it.
 
 Gradients: :class:`FlashAttention` is the ``torch.autograd.Function`` — K1
 forward (saving q, k, v, o and lse), K2 then K3 backward.
@@ -53,7 +84,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -82,7 +113,7 @@ _SIGNATURES = {
     "fwd": {"flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P]},
     "bwd": {
         "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
-        "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+        "flash_attention_bwd_dkv": [_P] * 10 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
     },
     "kgrid": {"flash_attention_kgrid_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
     "kgrid_bwd": {
@@ -94,6 +125,51 @@ _SIGNATURES = {
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 build_info: Dict[str, dict] = {}  # per source name: path, seconds, cached, ptxas
+
+# Splitting a kernel's sequential loop across blocks (K3 here, K4a and K4c in
+# ops/flash_attention_kgrid.py): two waves of blocks over the H100's 132
+# SMs, at least 4 loop tiles per split, at most 64 splits.
+MAX_SPLITS = 64
+TARGET_BLOCKS = 2 * 132
+MIN_TILES_PER_SPLIT = 4
+K3_TILE = 64  # K3's keys per block, and the unit of its query-range split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fill_splits(blocks: int, tiles: int) -> int:
+    """1 when ``blocks`` already fill two waves of the card, else enough
+    splits of the ``tiles``-long loop to reach that, each with at least 4
+    tiles, at most 64."""
+    if blocks >= TARGET_BLOCKS:
+        return 1
+    return max(1, min(_cdiv(TARGET_BLOCKS, blocks), tiles // MIN_TILES_PER_SPLIT, MAX_SPLITS))
+
+
+def split_ranges(n: int, splits: int, tile: int) -> List[Tuple[int, int]]:
+    """The range ``[lo, hi)`` of each split of a length-``n`` axis, as the
+    kernels cut them: ``ceil(tiles / splits)`` ``tile``-row tiles each, the
+    last ones possibly empty."""
+    per = _cdiv(_cdiv(n, tile), splits) * tile
+    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(splits)]
+
+
+def _check_splits(splits: int) -> int:
+    splits = int(splits)
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
+    return splits
+
+
+def pick_k3_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """K3's split count of the query range for ``bh`` = batch·heads (blocks:
+    one per 64-key tile and batch·head; tiles: the 64-row q units). The fp32
+    kernel does not split: 1."""
+    if dtype == torch.float32:
+        return 1
+    return _fill_splits(_cdiv(sk, K3_TILE) * bh, _cdiv(sq, K3_TILE))
 
 
 def _nvcc() -> str:
@@ -207,27 +283,45 @@ def bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Te
 bwd_dq_reference.cuda_calls = 0
 
 
-def bwd_dkv_reference(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3: ``(dK, dV)`` in k's / v's dtype."""
+def bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: ``(dK, dV)`` in k's / v's dtype. Per split of the
+    query range (:func:`split_ranges` in 64-row units; ``None``:
+    :func:`pick_k3_splits` for the inputs' shape and dtype), fp32 partial
+    ``dK = scale·Σ dSᵀQ`` and ``dV = Σ PᵀdO`` over the split's rows, summed
+    in split order as the kernel's merge sums them."""
     if q.device.type == "cuda":
         bwd_dkv_reference.cuda_calls += 1
-    b, sq, h, _ = q.shape
-    p = _probs(q, k, lse, scale)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta.reshape(b, h, sq, 1))
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if splits is None:
+        splits = pick_k3_splits(b * h, sq, sk, q.dtype)
+    lse4, delta4 = lse.reshape(b, h, sq, 1), delta.reshape(b, h, sq, 1)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros((b, sk, h, d), device=q.device)
+    dv = torch.zeros((b, sk, h, d), device=q.device)
+    for lo, hi in split_ranges(sq, splits, K3_TILE):
+        if lo == hi:
+            continue
+        qs, gs = q[:, lo:hi].float(), do[:, lo:hi].float()
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, kf) * scale - lse4[:, :, lo:hi])
+        dp = torch.einsum("bqhd,bkhd->bhqk", gs, vf)
+        ds = p * (dp - delta4[:, :, lo:hi])
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qs) * scale
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, gs)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 bwd_dkv_reference.cuda_calls = 0
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward (K2 then K3): fp32 math with P
-    recomputed from the forward's lse; gradients in the inputs' dtypes."""
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward (K2 then K3, ``splits`` as
+    :func:`bwd_dkv_reference` takes it): fp32 math with P recomputed from
+    the forward's lse; gradients in the inputs' dtypes."""
     dq, delta = bwd_dq_reference(q, k, v, o, lse, do, scale)
-    dk, dv = bwd_dkv_reference(q, k, v, lse, delta, do, scale)
+    dk, dv = bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
     return dq, dk, dv
 
 
@@ -269,9 +363,23 @@ def _check_kernel_inputs(*tensors: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> 
         raise ValueError(f"batch·heads = {b * h} exceeds the grid limit 65535")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when its base and its batch/seq/head strides (of dims longer
+    than 1) sit on 16 bytes, as TMA (K1) and ``cp.async`` (K3) need for bf16
+    rows; else one contiguous copy, which does."""
+    item = t.element_size()
+    ok = t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and (t.stride(i) * item) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(*tensors: torch.Tensor):
     vals = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -283,6 +391,8 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Tup
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check_kernel_inputs(q, k, v)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's TMA loads
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
@@ -346,23 +456,37 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, to
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: ``(dK, dV)`` in k's / v's dtype, from K2's δ. CPU tensors go
-    through :func:`bwd_dkv_reference`."""
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(dK, dV)`` in k's / v's dtype, from K2's δ. bf16 runs the
+    tensor-core kernel over ``splits`` ranges of the query axis (plus the
+    sum of their partials when there are more than one); ``None`` lets
+    :func:`pick_k3_splits` choose, a number forces it (tests). fp32 runs the
+    SIMT kernel, which does not split (a forced count above 1 raises). CPU
+    tensors go through :func:`bwd_dkv_reference`."""
     if q.device.type == "cpu":
-        return bwd_dkv_reference(q, k, v, lse, delta, do, scale)
+        return bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
     _check_kernel_inputs(q, k, v, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    splits = _check_splits(pick_k3_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
+    if q.dtype == torch.float32 and splits != 1:
+        raise ValueError(f"the fp32 K3 kernel does not split the query range (splits={splits})")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's cp.async loads
+        q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    part_dk = part_dv = None
+    if splits > 1:
+        part_dk, part_dv = (torch.empty((splits, b * h, sk, d), dtype=torch.float32, device=q.device)
+                            for _ in range(2))
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = _library("bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
-            _strides(q, k, v, do, dk, dv), float(scale), _stream(q),
+            dk.data_ptr(), dv.data_ptr(), _ptr(part_dk), _ptr(part_dv), _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
+            splits, _strides(q, k, v, do, dk, dv), float(scale), _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: cudaError {err}")

@@ -53,33 +53,21 @@ import torch
 
 from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     _DTYPE_CODES,
+    _cdiv,
     _check,
     _check_kernel_inputs,
+    _check_splits,
+    _fill_splits,
     _library,
+    _ptr,
     _stream,
     _strides,
+    split_ranges as _split_ranges,
 )
 
 BQ, BK = 32, 32  # K4a's q rows per block and keys per tile; K4b/K4c's streamed rows per tile
 KGRID_HEAD_DIMS = tuple(range(64, 513, 64))
-MAX_SPLITS = 64
-# two waves of blocks over the H100's 132 SMs, and at least 4 tiles per split
-TARGET_BLOCKS = 2 * 132
-MIN_TILES_PER_SPLIT = 4
 NEG_INF = -1e30  # as in the kernel: exp(NEG_INF − m) is an exact 0
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _fill_splits(blocks: int, tiles: int) -> int:
-    """1 when ``blocks`` already fill two waves of the card, else enough
-    splits of the ``tiles``-long loop to reach that, each with at least 4
-    tiles, at most 64."""
-    if blocks >= TARGET_BLOCKS:
-        return 1
-    return max(1, min(_cdiv(TARGET_BLOCKS, blocks), tiles // MIN_TILES_PER_SPLIT, MAX_SPLITS))
 
 
 def pick_splits(bh: int, sq: int, sk: int) -> int:
@@ -106,15 +94,7 @@ def split_ranges(n: int, splits: int) -> List[Tuple[int, int]]:
     """The range ``[lo, hi)`` of each split of a length-``n`` axis, as the
     kernels cut them: ``ceil(tiles / splits)`` 32-row tiles each, the last
     ones possibly empty."""
-    per = _cdiv(_cdiv(n, BK), splits) * BK
-    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(splits)]
-
-
-def _check_splits(splits: int) -> int:
-    splits = int(splits)
-    if not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
-    return splits
+    return _split_ranges(n, splits, BK)
 
 
 # ---------------------------------------------------------------------------
@@ -221,10 +201,6 @@ def flash_attention_kgrid_bwd_reference(q, k, v, o, lse, do, scale, splits: Opti
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: Optional[int]

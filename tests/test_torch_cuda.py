@@ -388,3 +388,104 @@ def test_kgrid_backward_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         kg.flash_attention_kgrid_bwd_dkv(q, q, q.cpu(), lse, lse, q, 0.1)  # devices
     assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == before
+
+
+# --- the tensor-core kernels: K1 (wgmma, TMA) and K3 (mma.sync, cp.async) on bf16
+
+
+def _fwd_tol(ref):
+    return min(3e-2, 2e-2 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 77, 129, 4097])
+def test_tensor_core_k1_on_ragged_lengths(gen, d, s):
+    """bf16 K1 with Sq and Sk around its 128-row tiles (TMA zero-fills the
+    box past the end; padded keys are masked before the max)."""
+    for sq, sk in ((s, s), (s, 77), (77, s)):
+        q = _rand(gen, (2, sq, 3, d), torch.bfloat16, scale=3.0)
+        k, v = (_rand(gen, (2, sk, 3, d), torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
+        assert (out.float() - ref).abs().max().item() <= _fwd_tol(ref), (sq, sk)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4 * max(1.0, ref_lse.abs().max().item()), (sq, sk)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_kernels_take_head_slices_and_unaligned_views(gen, d):
+    """q/k/v/dO as head slices of a wider tensor (the TMA maps and cp.async
+    read their strides) give the contiguous copies' results bit for bit; a
+    view whose rows do not start on 16 bytes is copied once by the wrapper
+    (as the sources' headers say) and gives the same bits too."""
+    b, s, h = 2, 200, 3
+    wide = [_rand(gen, (b, s, 2 * h, d), torch.bfloat16)[:, :, 1::2] for _ in range(4)]
+    odd = [_rand(gen, (b, s, h, d + 8), torch.bfloat16)[..., 1:d + 1] for _ in range(4)]
+    for q, k, v, do in (wide, odd):
+        assert not q.is_contiguous()
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        out_c, lse_c = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, d**-0.5)
+        want = fa.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, lse, do.contiguous(),
+                                      d**-0.5)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 77, 2, 64), (1, 256, 77, 8, 128), (2, 65, 129, 3, 64)])
+def test_tensor_core_k3_forced_splits_match_plain_version(gen, shape):
+    """K3 bf16 with the query range split 1, 2 and 64 ways (empty splits
+    included) against the plain version over the same splits; a repeated call
+    gives the same bits (partials summed in split order, no atomics); the
+    fp32 kernel refuses a split."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, shape, torch.bfloat16)
+    scale = shape[-1] ** -0.5
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    for splits in (1, 2, fa.MAX_SPLITS):
+        before = fa.flash_attention_bwd_dkv.launches
+        got = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+        again = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bwd_dkv.launches == before + 2
+        want = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale, splits=splits)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            assert (g.float() - w).abs().max().item() <= _grad_tol(w, torch.bfloat16), splits
+    f = [x.float() for x in (q, k, v, do)]
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(f[0], f[1], f[2], lse, delta, f[3], scale, splits=2)
+
+
+def test_tensor_core_k3_is_deterministic_at_the_split_shapes(gen):
+    """SDXL's 1024x77 cross attention (10 heads: 4 splits by the rule) and
+    1024² (2 splits): two calls, the same bits."""
+    for sk, want_splits in ((77, 4), (1024, 2)):
+        q, k, v, o, lse, do = _bwd_inputs(gen, (1, 1024, sk, 10, 64), torch.bfloat16)
+        assert fa.pick_k3_splits(10, 1024, sk) == want_splits
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+        second = fa.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+def test_autograd_through_the_dispatch_in_bf16(gen, d):
+    """bf16 through ops/attention.py (head dims padded to 64/128): K1 forward,
+    K2 + K3 backward, one launch each and no plain version on the card;
+    gradients against fp32 torch autograd through the plain forward within
+    the bf16 gradient bound."""
+    q, k, v = (_rand(gen, (2, s, 3, d), torch.bfloat16).requires_grad_(True) for s in (300, 77, 77))
+    w = _rand(gen, (2, 300, 3, d), torch.bfloat16)
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,  # noqa: E731
+                      fa.flash_attention_bwd_dkv.launches)
+    plain = lambda: (fa.flash_attention_reference.cuda_calls, fa.bwd_dq_reference.cuda_calls,  # noqa: E731
+                     fa.bwd_dkv_reference.cuda_calls)
+    before, before_plain = counts(), plain()
+    (attn.dot_product_attention(q, k, v).float() * w.float()).sum().backward()
+    assert counts() == tuple(c + 1 for c in before) and plain() == before_plain
+    got = [x.grad.float() for x in (q, k, v)]
+    qr, kr, vr = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+    (fa.flash_attention_reference(qr, kr, vr, d**-0.5)[0] * w.float()).sum().backward()
+    for g, x in zip(got, (qr, kr, vr)):
+        assert g.shape == x.shape
+        assert (g - x.grad).abs().max().item() <= _grad_tol(x.grad, torch.bfloat16)
