@@ -28,10 +28,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   head dims 40 and 80 zero-padded to 64 and 128 as the path
                   pads them; SD1.5 image pairs at 256px, rows 2; SD2.1's
                   4096² with 5 heads), bf16 and fp32, plus ragged (Sq 65; Sk
-                  77, 129) and strided-dO cases; bf16 K3 with its query
-                  split forced to 1, 2 and 64 at every training shape,
-                  against the plain version over the same splits, each
-                  call repeated bit for bit; error per gradient, K3's split,
+                  77, 129) and strided-dO cases; bf16 K2 with its key split
+                  and K3 with its query split forced to 1, 2 and 64 at every
+                  training shape, against the plain versions over the same
+                  splits, each call repeated bit for bit (K2's δ the same bits
+                  at every split); bf16 K2 at ragged Sq/Sk ∈ {1, 63, 65, 77,
+                  129, 4097} (d 64 and 128) and on head slices and views off
+                  16 bytes of q, k, v, O and dO; K2's host µs per call; error
+                  per gradient, K2's and K3's splits,
                   kernel_ms (CUDA events), device_ms (the kernels' summed
                   durations under torch.profiler), plain_ms, bound_ms (at the
                   unpadded head dim) and library_ms (SDPA's backward on the
@@ -41,13 +45,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   K2/K3 take, are held against the plain version at the same
                   shapes, at the student's rows (also the warm-up's) and the
                   ESD teacher's 3.
-4. kernel_kgrid — K4a (O and lse) against its plain version at the VAE
-                  mid-block's shapes (one head, d 512): 16384² at rows 1 and 2
-                  (the 1024px decode of serving), 4096² at rows 4 (the 512px
-                  encode of one image folder) and rows 1, bf16 and fp32; ragged
-                  Sq 300 × Sk 77 (B 2, H 2, d 64 and 512); the key-range split
-                  forced to 1 and to more than 1. Times the kernel, its plain
-                  version and SDPA (a yardstick) at every path shape in bf16.
+4. kernel_kgrid — K4a (O and lse) against its plain version at every path
+                  shape (KGRID_PATH_SHAPES): the VAE mid-block (one head, d
+                  512) at 16384² rows 1 and 2 (the 1024px decode of serving),
+                  4096² rows 4 and 1 (the 512px encode) and 1024² rows 4 (the
+                  256px encode), and SD1.5's d-160 (→ 192) UNet level at 256²,
+                  256×77, 64², 64×77 (rows 1 and 3) and the image pairs' 64
+                  and 16 tokens (rows 2), bf16 and fp32; bf16 with the
+                  key-range split forced to 1, 2 and 64 at every path shape,
+                  repeated calls bit for bit; bf16 at ragged Sq/Sk ∈ {1, 63,
+                  65, 77, 129, 4097} at d 64, 192, 320 and 512, on head slices
+                  and on views off 16 bytes; fp32 with forced splits. Times
+                  the kernel (events, device time, host µs per call), its
+                  plain version and SDPA's forward (a yardstick) at every
+                  path shape in bf16, with the bound and its share.
 5. kernel_kgrid_bwd — K4b (dQ, δ) and K4c (dK, dV) against their plain
                   versions at SD1.5's d-160 attentions (8 heads, zero-padded
                   to 192; bound_ms at d 160): the 512px ESD student (256²,
@@ -185,14 +196,26 @@ TRAIN_SHAPES = [
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
 TRAIN_ITERATIONS = 6
-# (name, rows, tokens): K4a's calls on the paths, the VAE mid-block attention
-# (one head, head dim = channels = 512)
-KGRID_D = 512
+# (name, rows, Sq, Sk, heads, head dim): K4a's calls on the paths — the VAE
+# mid-block attention (one head, head dim = channels = 512) and SD1.5's
+# 1280-channel UNet level (8 heads of 160, run zero-padded to 192; bound_ms
+# at 160)
 KGRID_PATH_SHAPES = [
-    ("decode_16384", 1, 16384),  # serving: the decode of one 1024px image
-    ("decode_16384", 2, 16384),  # serving: the concurrent pair's decode
-    ("encode_4096", 4, 4096),  # image-pair training: one folder of four 512px images
-    ("encode_4096", 1, 4096),  # one image: the launcher splits the key range
+    ("decode_16384", 1, 16384, 16384, 1, 512),  # serving: the decode of one 1024px image
+    ("decode_16384", 2, 16384, 16384, 1, 512),  # serving: the concurrent pair's decode
+    ("encode_4096", 4, 4096, 4096, 1, 512),  # SDXL image pairs: one folder of four 512px images
+    ("encode_4096", 1, 4096, 4096, 1, 512),  # one image: the launcher splits the key range
+    ("encode_1024", 4, 1024, 1024, 1, 512),  # SD1.5 image pairs: one folder of four 256px images
+    ("sd15_self_256", 1, 256, 256, 8, 160),  # SD1.5 ESD at 512px: the student and warm-up (rows 1) ...
+    ("sd15_cross_256x77", 1, 256, 77, 8, 160),
+    ("sd15_self_64", 1, 64, 64, 8, 160),
+    ("sd15_cross_64x77", 1, 64, 77, 8, 160),
+    ("sd15_self_256", 3, 256, 256, 8, 160),  # ... and the teacher (rows 3)
+    ("sd15_cross_256x77", 3, 256, 77, 8, 160),
+    ("sd15_pair_self_64", 2, 64, 64, 8, 160),  # SD1.5 image pairs at 256px: rows 2
+    ("sd15_pair_cross_64x77", 2, 64, 77, 8, 160),
+    ("sd15_pair_self_16", 2, 16, 16, 8, 160),
+    ("sd15_pair_cross_16x77", 2, 16, 77, 8, 160),
 ]
 # image-pair training: folder i holds the renders at IMAGE_SCALES[i]
 IMAGE_FOLDERS = ["minus2", "minus1", "plus1", "plus2"]
@@ -310,26 +333,34 @@ def check_k1(q, k, v, what: str, scale=None) -> dict:
 
 def check_k4a(q, k, v, what: str, splits=None, scale=None) -> dict:
     """K4a with ``splits`` (None: the launcher's choice) against its plain
-    version cut into the same key ranges."""
+    version cut into the same key ranges, as the kernel for q's dtype cuts
+    them."""
     return check_fwd("K4a", functools.partial(kg.flash_attention_kgrid_fwd, splits=splits),
-                     functools.partial(kg.flash_attention_kgrid_reference, splits=splits), q, k, v, what, scale)
+                     functools.partial(kg.flash_attention_kgrid_reference, splits=splits, cut_as=q.dtype),
+                     q, k, v, what, scale)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Device time of one call of ``fn``: the summed durations of the kernels
     (and copies) it runs on the card, under torch.profiler. Unlike cuda_ms it
     leaves out the host's gaps between launches, which dominate a call of a
-    few tens of microseconds."""
+    few tens of microseconds. The profiler now and then returns a window
+    with no device activity at all: such a window is taken again, up to
+    three times, and then reported as not measured (None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / iters
+    return None
 
 
 def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
@@ -345,7 +376,8 @@ def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), dot)
 
-    return device_ms(fwd_bwd, iters) - device_ms(fwd, iters)
+    both, forward = device_ms(fwd_bwd, iters), device_ms(fwd, iters)
+    return None if both is None or forward is None else both - forward
 
 
 def phase_kernel_bwd(gen: torch.Generator) -> tuple:
@@ -377,16 +409,19 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
         torch.cuda.synchronize()
-        splits = fa.pick_k3_splits(n_rows * h, sq, sk, dtype)  # K3's query-range split, as the wrapper chose it
+        # K2's key-range and K3's query-range splits, as the wrappers chose them
+        k2_splits = fa.pick_k2_splits(n_rows * h, sq, sk, dtype)
+        splits = fa.pick_k3_splits(n_rows * h, sq, sk, dtype)
         ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
-                                               splits)
+                                               splits, dq_splits=k2_splits)
         errs = {g: (got.float() - want).abs().max().item() for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         tols = {g: grad_tol(want, dtype) for g, want in zip(("dq", "dk", "dv"), ref)}
         del dq, dk, dv, ref
         iters = 20 if sk > 77 else 50
         row = dict(
             phase="kernel_bwd", shape=name, rows=n_rows, sq=sq, sk=sk, heads=h, head_dim=d,
-            padded_head_dim=q.shape[-1], dtype=str(dtype), k3_splits=splits, max_abs_err=errs, tol=tols,
+            padded_head_dim=q.shape[-1], dtype=str(dtype), k2_splits=k2_splits, k3_splits=splits,
+            max_abs_err=errs, tol=tols,
             k2_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), iters),
             k3_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), iters),
             k2_device_ms=device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 10),
@@ -396,6 +431,8 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
             # SDPA on the unpadded head dim: the same function the path needs
             library_ms=library_backward_ms(*(x[..., :d] for x in (q, k, v, do)), 10),
         )
+        if dtype == torch.bfloat16:  # the wrapper's host cost per call (checks, allocations, launches)
+            row["k2_host_us_per_call"] = host_us(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale))
         (row["k2_bound_ms"], row["k2_bound_by"]), (row["k3_bound_ms"], row["k3_bound_by"]) = (
             bwd_bound("dq", sq, sk, n_rows * h, d, dtype), bwd_bound("dkv", sq, sk, n_rows * h, d, dtype))
         # device times against the bound (at the unpadded head dim) and SDPA's whole backward
@@ -435,10 +472,11 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
                 raise AssertionError(f"K2/K3 ragged/strided check failed: {checks[-1]}")
     emit(dict(phase="kernel_bwd", ragged_and_strided=checks))
 
-    # bf16 K3 with its query split forced to 1, 2 and the maximum (64: empty
-    # splits included) against the plain version over the same splits, and
-    # repeated calls bit for bit, at every training shape
-    forced = []
+    # bf16 K2 with its key split and K3 with its query split forced to 1, 2
+    # and the maximum (64: empty splits included) against the plain versions
+    # over the same splits, and repeated calls bit for bit, at every training
+    # shape; K2's δ is the same bits at every split count (split 0 writes it)
+    forced, forced_k2 = [], []
     for name, sq, sk, h, d, n_rows, _ in TRAIN_SHAPES:
         scale = d**-0.5
         q, do = (path_randn(gen, (n_rows, sq, h), d, torch.bfloat16) for _ in range(2))
@@ -446,6 +484,18 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         for splits in (1, 2, fa.MAX_SPLITS):
+            got, got_delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+            again, again_delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+            want, _ = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale, splits)
+            torch.cuda.synchronize()
+            err, tol = (got.float() - want).abs().max().item(), grad_tol(want, torch.bfloat16)
+            same = torch.equal(got, again) and torch.equal(got_delta, again_delta) and torch.equal(got_delta, delta)
+            forced_k2.append(dict(shape=name, rows=n_rows, padded_head_dim=q.shape[-1], splits=splits,
+                                  rule_splits=fa.pick_k2_splits(n_rows * h, sq, sk), max_abs_err_dq=err, tol=tol,
+                                  repeat_and_delta_bit_equal=same))
+            if not same or not err <= tol:
+                raise AssertionError(f"K2 with forced splits failed: {forced_k2[-1]}")
+            del got, again, want
             got = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
             again = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
             want = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale, splits)
@@ -461,14 +511,72 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
             del got, again, want
         del q, k, v, o, lse, do, delta
         torch.cuda.empty_cache()
+    emit(dict(phase="kernel_bwd", k2_forced_splits_bf16=forced_k2))
     emit(dict(phase="kernel_bwd", k3_forced_splits_bf16=forced))
+    emit(dict(phase="kernel_bwd", k2_ragged_and_views_bf16=check_k2_edges(gen)))
     emit(dict(phase="kernel_bwd", k1_at_training_shapes=k1_rows))
     return rows, k1_rows
 
 
-def rates(flops: float, ms: float, bound_ms: float, library_ms) -> dict:
+def check_k2(q, k, v, o, lse, do, what: str) -> dict:
+    """K2 (with the split its rule picks) against its plain version over the
+    same key splits, δ within the fp32 bound; raises on disagreement."""
+    scale = q.shape[-1] ** -0.5
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+    b, sq, h, _ = q.shape
+    splits = fa.pick_k2_splits(b * h, sq, k.shape[1], q.dtype)
+    want, want_delta = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
+                                           splits)
+    err, tol = (dq.float() - want).abs().max().item(), grad_tol(want, q.dtype)
+    delta_err, delta_tol = (delta - want_delta).abs().max().item(), grad_tol(want_delta, torch.float32)
+    if not err <= tol or not delta_err <= delta_tol:
+        raise AssertionError(f"K2 disagrees with its plain version at {what}: dq {err} > {tol} or delta "
+                             f"{delta_err} > {delta_tol}")
+    return dict(dq=dq, delta=delta, splits=splits, max_abs_err=err, tol=tol, delta_max_abs_err=delta_err)
+
+
+def check_k2_edges(gen: torch.Generator) -> list:
+    """bf16 K2 at ragged Sq/Sk around its 64-row and 64-key tiles (d 64 and
+    128); on q, k, v, o and dO that are head slices of wider tensors (a
+    strided dO as autograd hands it) and views off 16 bytes (copied once by
+    the wrapper), bit-equal to contiguous copies."""
+    checks = []
+    bf = torch.bfloat16
+    for dd in (64, 128):
+        for s in (1, 63, 65, 77, 129, 4097):
+            for sq, sk in ((s, s), (s, 77), (77, s)):
+                q, do = (torch.randn((2, sq, 3, dd), generator=gen, device="cuda").to(bf) for _ in range(2))
+                k, v = (torch.randn((2, sk, 3, dd), generator=gen, device="cuda").to(bf) for _ in range(2))
+                o, lse = fa.flash_attention_fwd(q, k, v)
+                c = check_k2(q, k, v, o, lse, do, f"ragged Sq {sq} Sk {sk} d {dd} bf16")
+                checks.append(dict(sq=sq, sk=sk, head_dim=dd, splits=c["splits"], max_abs_err=c["max_abs_err"],
+                                   tol=c["tol"], delta_max_abs_err=c["delta_max_abs_err"]))
+        for kind, make in (("strided", lambda n: torch.randn((2, n, 6, dd), generator=gen, device="cuda").to(bf)[
+                                :, :, 1::2]),
+                           ("unaligned", lambda n: torch.randn((2, n, 3, dd + 8), generator=gen, device="cuda").to(bf)[
+                                ..., 1:dd + 1])):
+            q, k, v, o, do = make(300), make(200), make(200), make(300), make(300)
+            out, lse = fa.flash_attention_fwd(q, k, v)
+            o.copy_(out)
+            before = fa.flash_attention_bwd_dq.launches
+            c = check_k2(q, k, v, o, lse, do, f"{kind} views d {dd} bf16")
+            contiguous = fa.flash_attention_bwd_dq(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous(),
+                                                   dd**-0.5)
+            same = torch.equal(c["dq"], contiguous[0]) and torch.equal(c["delta"], contiguous[1])
+            launched = fa.flash_attention_bwd_dq.launches - before
+            checks.append(dict(sq=300, sk=200, head_dim=dd, views=kind, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                               equals_contiguous=same, launches=launched))
+            if not same or launched != 2:
+                raise AssertionError(f"K2 on {kind} views: {checks[-1]}")
+    return checks
+
+
+def rates(flops: float, ms, bound_ms: float, library_ms) -> dict:
     """Achieved TFLOP/s, the share of the bound, and the time over the
-    library call's (None when there is none)."""
+    library call's (None when there is none, or when ``ms`` was not
+    measured)."""
+    if not ms:
+        return dict(tflops=None, share_of_bound=None, over_library=None)
     return dict(tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
                 over_library=ms / library_ms if library_ms else None)
 
@@ -570,44 +678,112 @@ def sdpa_ms(q, k, v, iters: int):
 
 
 def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
-    """K4a vs its plain version at the VAE's path shapes (bf16 and fp32,
-    timed in bf16), ragged shapes and forced split counts. Returns the timed
+    """K4a vs its plain version at every path shape (KGRID_PATH_SHAPES; bf16
+    and fp32, timed in bf16: events, device time, host µs per call, the plain
+    version, SDPA's forward on the unpadded head dim, the bound); bf16 with
+    the key-range split forced to 1, 2 and 64 at every path shape, repeated
+    calls bit for bit; ragged Sq/Sk at d 64, 192, 320 and 512 (one and two
+    consumer warpgroups); head slices and views off 16 bytes bit-equal to
+    contiguous copies; the fp32 kernel's forced splits. Returns the timed
     rows and every check's error."""
-    d = KGRID_D
     rows_out, errors = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, rows, s in KGRID_PATH_SHAPES:
-            q, k, v = (torch.randn((rows, s, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
-            c = check_k4a(q, k, v, f"{name} rows={rows} {dtype}")
-            row = dict(phase="kernel_kgrid", shape=name, rows=rows, sq=s, sk=s, heads=1, head_dim=d,
-                       dtype=str(dtype), splits=kg.pick_splits(rows, s, s),
+        for name, rows, sq, sk, h, d in KGRID_PATH_SHAPES:
+            q, k, v = (path_randn(gen, (rows, n, h), d, dtype) for n in (sq, sk, sk))
+            scale = d**-0.5
+            c = check_k4a(q, k, v, f"{name} rows={rows} {dtype}", scale=scale)
+            row = dict(phase="kernel_kgrid", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
+                       padded_head_dim=q.shape[-1], dtype=str(dtype),
+                       splits=kg.pick_splits(rows * h, sq, sk, dtype),
                        **{key: val for key, val in c.items() if key not in ("out", "lse")})
             del c
             errors.append(row["max_abs_err"])
             if dtype == torch.bfloat16:
-                row.update(kernel_ms=cuda_ms(lambda: kg.flash_attention_kgrid_fwd(q, k, v), 5),
-                           plain_ms=cuda_ms(lambda: kg.flash_attention_kgrid_reference(q, k, v, d**-0.5), 2),
-                           library_ms=sdpa_ms(q, k, v, 5))
-                row["bound_ms"], row["bound_by"] = bound(rows, s, s, 1, d, dtype)
+                big = rows * sq * sk >= 1 << 26
+                k4a = lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale)  # noqa: E731
+                qt, kt, vt = (x[..., :d].transpose(1, 2) for x in (q, k, v))
+                row.update(kernel_ms=cuda_ms(k4a, 5 if big else 50), device_ms=device_ms(k4a, 3 if big else 10),
+                           host_us_per_call=host_us(k4a, 10 if big else 200),
+                           plain_ms=cuda_ms(lambda: kg.flash_attention_kgrid_reference(q, k, v, scale), 2),
+                           library_ms=sdpa_ms(*(x[..., :d] for x in (q, k, v)), 5 if big else 50))
+                try:
+                    row["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+                except RuntimeError:
+                    row["library_device_ms"] = None
+                row["bound_ms"], row["bound_by"] = bound(rows, sq, sk, h, d, dtype)
+                row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], row["bound_ms"],
+                                 row["library_device_ms"]))
                 rows_out.append(row)
             emit(row)
             del q, k, v
             torch.cuda.empty_cache()
 
-    # the split forced to 1 and to more than 1: at one 512px image (the
-    # launcher picks 3) and at the JAX test's ragged shape (3 key tiles)
+    # bf16: the split forced to 1, 2 and the maximum (64: empty splits
+    # included) at every path shape, against the plain version cut into the
+    # same 64-key units; a repeated call gives the same bits
+    forced = []
+    for name, rows, sq, sk, h, d in KGRID_PATH_SHAPES:
+        q, k, v = (path_randn(gen, (rows, n, h), d, torch.bfloat16) for n in (sq, sk, sk))
+        for splits in (1, 2, fa.MAX_SPLITS):
+            c = check_k4a(q, k, v, f"{name} rows={rows} splits {splits} bf16", splits=splits, scale=d**-0.5)
+            again = kg.flash_attention_kgrid_fwd(q, k, v, d**-0.5, splits=splits)
+            same = torch.equal(c["out"], again[0]) and torch.equal(c["lse"], again[1])
+            forced.append(dict(shape=name, rows=rows, splits=splits, rule_splits=kg.pick_splits(
+                rows * h, sq, sk, torch.bfloat16), max_abs_err=c["max_abs_err"], tol=c["tol"],
+                lse_max_abs_err=c["lse_max_abs_err"], repeat_bit_equal=same))
+            errors.append(c["max_abs_err"])
+            if not same:
+                raise AssertionError(f"K4a with forced splits changed its bits on repeat: {forced[-1]}")
+            del c, again
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit(dict(phase="kernel_kgrid", k4a_forced_splits_bf16=forced))
+
+    # bf16 at ragged lengths around the 64-row q tiles and the 32/64-key
+    # tiles, one and two consumer warpgroups; head slices of wider tensors
+    # and views off TMA's 16-byte alignment (copied once by the wrapper),
+    # bit-equal to contiguous copies
+    edges = []
+    for dd in (64, 192, 320, 512):
+        for s in (1, 63, 65, 77, 129, 4097):
+            for sq, sk in ((s, s), (s, 77), (77, s)):
+                q = torch.randn((2, sq, 2, dd), generator=gen, device="cuda").to(torch.bfloat16)
+                k, v = (torch.randn((2, sk, 2, dd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+                c = check_k4a(q, k, v, f"ragged Sq {sq} Sk {sk} d {dd} bf16")
+                edges.append(dict(sq=sq, sk=sk, head_dim=dd, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                                  lse_max_abs_err=c["lse_max_abs_err"]))
+                errors.append(c["max_abs_err"])
+    for dd in (192, 512):
+        for kind, make in (("strided", lambda: torch.randn((2, 300, 4, dd), generator=gen, device="cuda").to(
+                               torch.bfloat16)[:, :, 1::2]),
+                           ("unaligned", lambda: torch.randn((2, 300, 2, dd + 8), generator=gen, device="cuda").to(
+                               torch.bfloat16)[..., 1:dd + 1])):
+            q, k, v = make(), make(), make()
+            before = kg.flash_attention_kgrid_fwd.launches
+            c = check_k4a(q, k, v, f"{kind} views d {dd} bf16")
+            out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+            same = torch.equal(c["out"], out_c) and torch.equal(c["lse"], lse_c)
+            launched = kg.flash_attention_kgrid_fwd.launches - before
+            edges.append(dict(sq=300, sk=300, head_dim=dd, views=kind, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                              equals_contiguous=same, launches=launched))
+            errors.append(c["max_abs_err"])
+            if not same or launched != 2:
+                raise AssertionError(f"K4a on {kind} views: {edges[-1]}")
+    emit(dict(phase="kernel_kgrid", k4a_ragged_and_views_bf16=edges))
+
+    # fp32 (the SIMT kernel): the split forced to 1 and to more than 1, at one
+    # 512px image (the launcher picks 3) and at the JAX test's ragged shape
     checks = []
     cases = [(1, 4096, 4096, 1, 512, sp) for sp in (1, 6)]
     cases += [(2, 300, 77, 2, dd, sp) for dd in (64, 512) for sp in (1, 3)]
-    for dtype in (torch.bfloat16, torch.float32):
-        for b, sq, sk, h, dd, splits in cases:
-            q = torch.randn((b, sq, h, dd), generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn((b, sk, h, dd), generator=gen, device="cuda").to(dtype) for _ in range(2))
-            c = check_k4a(q, k, v, f"B {b} Sq {sq} Sk {sk} H {h} d {dd} splits {splits} {dtype}", splits=splits)
-            checks.append(dict(dtype=str(dtype), b=b, sq=sq, sk=sk, heads=h, head_dim=dd, splits=splits,
-                               max_abs_err=c["max_abs_err"], tol=c["tol"], lse_max_abs_err=c["lse_max_abs_err"]))
-            errors.append(c["max_abs_err"])
-    emit(dict(phase="kernel_kgrid", forced_splits_and_ragged=checks))
+    for b, sq, sk, h, dd, splits in cases:
+        q = torch.randn((b, sq, h, dd), generator=gen, device="cuda")
+        k, v = (torch.randn((b, sk, h, dd), generator=gen, device="cuda") for _ in range(2))
+        c = check_k4a(q, k, v, f"B {b} Sq {sq} Sk {sk} H {h} d {dd} splits {splits} fp32", splits=splits)
+        checks.append(dict(dtype="torch.float32", b=b, sq=sq, sk=sk, heads=h, head_dim=dd, splits=splits,
+                           max_abs_err=c["max_abs_err"], tol=c["tol"], lse_max_abs_err=c["lse_max_abs_err"]))
+        errors.append(c["max_abs_err"])
+    emit(dict(phase="kernel_kgrid", forced_splits_fp32=checks))
     return rows_out, errors
 
 
@@ -991,8 +1167,12 @@ def device_profile(fn) -> dict:
     out = dict(wall_seconds_profiled=wall, device_kernels=n_kernels, device_busy_seconds=busy if by_name else "not measured",
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
-    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel")), ("k2", ("flash_bwd_dq_kernel",)),
-                       ("k3", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_dkv_merge_kernel")), ("k4a", ("kgrid_fwd_kernel", "kgrid_merge_kernel")),
+    # profiler names by substring: a tensor-core kernel's name does not
+    # contain its SIMT sibling's ("flash_bwd_dq_tc_kernel")
+    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
+                       ("k2", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_dq_merge_kernel")),
+                       ("k3", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_dkv_merge_kernel")),
+                       ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_merge_kernel")),
                        ("k4b", ("kgrid_bwd_dq_kernel",)), ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_dkv_merge_kernel"))):
         secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
         out[f"{key}_seconds"] = secs
@@ -1394,6 +1574,11 @@ def main() -> int:
             bound_by=bwd_main["k2_bound_by"],
             library_ms=bwd_main["library_ms"],
             library="SDPA backward (dQ, dK, dV together)",
+            host_us_per_call=bwd_main["k2_host_us_per_call"],
+            splits=bwd_main["k2_splits"],
+            tflops=bwd_main["k2_tflops"],
+            share_of_bound=bwd_main["k2_share_of_bound"],
+            over_library=bwd_main["k2_over_library"],
             at=at_bwd,
         ),
         dict(
@@ -1424,10 +1609,17 @@ def main() -> int:
             **launches("K4a"),
             max_abs_err=max(kgrid_errors),
             ms=kgrid_main["kernel_ms"],
+            device_ms=kgrid_main["device_ms"],
             plain_ms=kgrid_main["plain_ms"],
             bound_ms=kgrid_main["bound_ms"],
             bound_by=kgrid_main["bound_by"],
             library_ms=kgrid_main["library_ms"],
+            library_device_ms=kgrid_main["library_device_ms"],
+            host_us_per_call=kgrid_main["host_us_per_call"],
+            splits=kgrid_main["splits"],
+            tflops=kgrid_main["tflops"],
+            share_of_bound=kgrid_main["share_of_bound"],
+            over_library=kgrid_main["over_library"],
             at=f"{kgrid_main['shape']} rows={kgrid_main['rows']} heads=1 d={kgrid_main['head_dim']} bf16",
         ),
         dict(

@@ -1,25 +1,28 @@
-"""Times kernels K1 (flash-attention forward) and K3 (dK/dV) on the card at
-every path shape, and holds them against their plain versions; with several
-``--tree`` arguments, compares the kernels of two checkouts on one card.
+"""Times kernels K1 (flash-attention forward), K2 (dQ), K3 (dK/dV) and K4a
+(the k-grid forward) on the card at every path shape, and holds them against
+their plain versions; with several ``--tree`` arguments, compares the
+kernels of two checkouts on one card.
 
     python -m sliders_conceptmod_tpu_torch.bench_attention                 # this checkout
     python -m sliders_conceptmod_tpu_torch.bench_attention \\
         --tree build/parent --tree . --rounds 2                            # A B B A
 
 Each tree runs in a process of its own (it imports that tree's
-``sliders_conceptmod_tpu_torch.ops.flash_attention`` and builds its kernels
-into the tree's ``build/kernels/``); with two trees and ``--rounds 2`` the
-order is A, B, B, A. Every process prints one JSON line per shape: K1's time
-(CUDA events over back-to-back calls, the device time under
-``torch.profiler``, and the host microseconds per call on the host's clock)
-at the serving shapes (rows 2) and the training shapes (the student's rows),
-K3's at the training shapes (inputs from K1 and K2 as the backward gets
-them), each kernel's max-abs error against its fp32 plain
+``sliders_conceptmod_tpu_torch.ops.flash_attention`` and ``.flash_attention_kgrid``
+and builds its kernels into the tree's ``build/kernels/``); with two trees
+and ``--rounds 2`` the order is A, B, B, A. Every process prints one JSON
+line per shape: K1's time (CUDA events over back-to-back calls, the device
+time under ``torch.profiler``, and the host microseconds per call on the
+host's clock) at the serving shapes (rows 2) and the training shapes (the
+student's rows); K2's and K3's at the training shapes (inputs from K1 and
+K2 as the backward gets them); K4a's, and its plain version's, at the VAE
+mid-block's shapes (one head of 512) and SD1.5's 1280-channel level (8 heads
+of 160, run at 192); each kernel's max-abs error against its fp32 plain
 version, and ``scaled_dot_product_attention``'s forward and whole-backward
 device time on the unpadded head dim as the yardstick. bf16, N(0, 1) inputs
-from a seeded generator, head dims zero-padded to 64/128 as
-``ops/attention.py`` pads them. Each process ends with a SHA-256 of K1, K2
-and K3's fp32 outputs on fixed inputs (equal across trees whose fp32
+from a seeded generator, head dims zero-padded to a multiple of 64 as
+``ops/attention.py`` pads them. Each process ends with a SHA-256 of K1, K2,
+K3 and K4a's fp32 outputs on fixed inputs (equal across trees whose fp32
 kernels compute the same bits). Then a line with the card's name and power
 limit. Needs a CUDA device: exits 2 without one.
 """
@@ -58,20 +61,44 @@ TRAIN_SHAPES = [
     ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2),
     ("sd21_self_4096", 4096, 4096, 5, 64, 1),
 ]
+# K4a's calls on the paths (chip_smoke.py's KGRID_PATH_SHAPES and KGRID_BWD_SHAPES)
+KGRID_SHAPES = [
+    ("vae_decode_16384", 16384, 16384, 1, 512, 1),  # serving: the decode of one 1024px image
+    ("vae_decode_16384", 16384, 16384, 1, 512, 2),  # the concurrent pair's decode
+    ("vae_encode_4096", 4096, 4096, 1, 512, 4),  # SDXL image pairs: one folder of four 512px images
+    ("vae_encode_4096", 4096, 4096, 1, 512, 1),
+    ("vae_encode_1024", 1024, 1024, 1, 512, 4),  # SD1.5 image pairs: one folder of four 256px images
+    ("sd15_self_256", 256, 256, 8, 160, 1),  # SD1.5 ESD at 512px: the student (rows 1), the teacher (rows 3)
+    ("sd15_cross_256x77", 256, 77, 8, 160, 1),
+    ("sd15_self_64", 64, 64, 8, 160, 1),
+    ("sd15_cross_64x77", 64, 77, 8, 160, 1),
+    ("sd15_self_256", 256, 256, 8, 160, 3),
+    ("sd15_cross_256x77", 256, 77, 8, 160, 3),
+    ("sd15_pair_self_64", 64, 64, 8, 160, 2),  # SD1.5 image pairs at 256px: rows 2
+    ("sd15_pair_cross_64x77", 64, 77, 8, 160, 2),
+    ("sd15_pair_self_16", 16, 16, 8, 160, 2),
+    ("sd15_pair_cross_16x77", 16, 77, 8, 160, 2),
+]
 
 
-def _device_ms(torch, fn, iters: int) -> float:
-    """Summed durations of the kernels ``fn`` runs, per call (torch.profiler)."""
+def _device_ms(torch, fn, iters: int):
+    """Summed durations of the kernels ``fn`` runs, per call (torch.profiler);
+    a window with no device activity at all (the profiler drops one now and
+    then) is taken again, up to three times, then None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / iters
+    return None
 
 
 def _event_ms(torch, fn, iters: int) -> float:
@@ -105,18 +132,25 @@ def worker(tree: str) -> int:
     import torch.nn.functional as F
 
     from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
+    from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 
     if not torch.cuda.is_available():
         print("bench_attention: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    fa.build("fwd", "bwd")
+    fa.build("fwd", "bwd", "kgrid")
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = torch.bfloat16
 
     def randn(lead, d):
         x = torch.randn((*lead, d), generator=gen, device="cuda").to(dt)
         return F.pad(x, (0, -d % 64)) if d % 64 else x
+
+    def sdpa_fwd_ms(qt, kt, vt):  # None where no backend takes the head dim
+        try:
+            return _device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        except RuntimeError:
+            return None
 
     for kind, shapes in (("serve", SERVE_SHAPES), ("train", TRAIN_SHAPES)):
         for name, sq, sk, h, d, rows in shapes:
@@ -136,7 +170,16 @@ def worker(tree: str) -> int:
             qt, kt, vt = (x[..., :d].transpose(1, 2) for x in (q, k, v))
             row["sdpa_fwd_device_ms"] = _device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
             if kind == "train":
-                _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+                dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+                ref, ref_delta = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                                     scale)
+                row["k2_err"], row["k2_ref_max"] = (dq.float() - ref).abs().max().item(), ref.abs().max().item()
+                row["k2_delta_err"] = (delta - ref_delta).abs().max().item()
+                del dq, ref, ref_delta
+                k2 = lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)  # noqa: E731
+                row["k2_ms"] = _event_ms(torch, k2, iters)
+                row["k2_device_ms"] = _device_ms(torch, k2, 10)
+                row["k2_host_us"] = _host_us(torch, k2)
                 dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
                 ref = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale)
                 row["k3_err"] = max((x.float() - w).abs().max().item() for x, w in zip((dk, dv), ref))
@@ -146,14 +189,35 @@ def worker(tree: str) -> int:
                 row["k3_ms"] = _event_ms(torch, k3, iters)
                 row["k3_device_ms"] = _device_ms(torch, k3, 10)
                 row["k3_host_us"] = _host_us(torch, k3)
-                qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+                qr, kr, vr = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
                 dot = do[..., :d].transpose(1, 2)
-                fwd = lambda: F.scaled_dot_product_attention(qg, kg, vg)  # noqa: E731
-                row["sdpa_bwd_device_ms"] = (_device_ms(torch, lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dot), 10)
-                                             - _device_ms(torch, fwd, 10))
+                fwd = lambda: F.scaled_dot_product_attention(qr, kr, vr)  # noqa: E731
+                both = _device_ms(torch, lambda: torch.autograd.grad(fwd(), (qr, kr, vr), dot), 10)
+                forward = _device_ms(torch, fwd, 10)
+                row["sdpa_bwd_device_ms"] = None if both is None or forward is None else both - forward
             print(json.dumps(row), flush=True)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
+
+    for name, sq, sk, h, d, rows in KGRID_SHAPES:
+        scale = d**-0.5
+        q, k, v = (randn((rows, s, h), d) for s in (sq, sk, sk))
+        o, lse = kg.flash_attention_kgrid_fwd(q, k, v, scale)
+        ref_o, ref_lse = kg.flash_attention_kgrid_reference(q.float(), k.float(), v.float(), scale, 1)
+        row = dict(tree=tree, kind="kgrid", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
+                   k4a_err=(o.float() - ref_o).abs().max().item(), k4a_ref_max=ref_o.abs().max().item(),
+                   k4a_lse_err=(lse - ref_lse).abs().max().item())
+        del o, lse, ref_o, ref_lse
+        big = rows * sq * sk >= 1 << 26
+        k4a = lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale)  # noqa: E731
+        row["k4a_ms"] = _event_ms(torch, k4a, 3 if big else 50)
+        row["k4a_device_ms"] = _device_ms(torch, k4a, 3 if big else 10)
+        row["k4a_host_us"] = _host_us(torch, k4a, 10 if big else 100)
+        row["k4a_plain_ms"] = _event_ms(torch, lambda: kg.flash_attention_kgrid_reference(q, k, v, scale), 2)
+        row["sdpa_fwd_device_ms"] = sdpa_fwd_ms(*(x[..., :d].transpose(1, 2) for x in (q, k, v)))
+        print(json.dumps(row), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
 
     # fp32 runs the first (SIMT) kernels: a digest of their outputs on fixed
     # inputs, which two trees with the same fp32 kernels print alike
@@ -166,6 +230,11 @@ def worker(tree: str) -> int:
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, d**-0.5)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, d**-0.5)
         for t in (o, lse, dq, delta, dk, dv):
+            digest.update(t.cpu().contiguous().numpy().tobytes())
+    # K4a: the ragged JAX-test shape, one 512px image's encode (split 3 ways), d 192
+    for b, sq, sk, h, d in ((2, 300, 77, 2, 512), (1, 4096, 4096, 1, 512), (1, 256, 77, 8, 192)):
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda") for s in (sq, sk, sk))
+        for t in kg.flash_attention_kgrid_fwd(q, k, v):
             digest.update(t.cpu().contiguous().numpy().tobytes())
     print(json.dumps(dict(tree=tree, fp32_sha256=digest.hexdigest())), flush=True)
     return 0

@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, bidirectional
 // (no mask), gradients in the input dtype.
 //
-// K2 flash_bwd_dq_kernel replaces the TPU kernel
+// K2 replaces the TPU kernel
 //   sliders_conceptmod_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (launched by _vjp_bwd): dQ = scale * sum_k dS K, with
 //   P  = exp(scale * Q K^T - lse)     (recomputed from K1's saved fp32 lse)
@@ -24,6 +24,42 @@
 // the gradients moved once: the bf16 tensor-core rate (989 TFLOP/s) bounds
 // them at the training paths' self-attentions of 1024 and 4096 tokens, the
 // bytes (3.35 TB/s) at the 77-key cross-attentions and at 256 tokens.
+//
+// By dtype:
+//
+// K2, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 accumulators); the mirror image of K3's
+// loop. Design:
+//   * one block of 4 warps per (batch*head, 64-row q tile, split of the key
+//     range); warp w owns q rows 16w..16w+15 and keeps their dQ (16 x D
+//     fp32) in registers for the whole loop;
+//   * Q and dO of the tile stay in shared memory; a prologue computes
+//     delta = rowsum(dO o O) in fp32 (a quad of threads per row, O read
+//     from device memory in 16-byte chunks) and writes it [B*H, Sq] for K3;
+//   * 64-key tiles of K and V stream through a 2-stage cp.async ring; per
+//     tile three products: S = Q K^T; P = exp(scale S - lse) (an exact 0 for
+//     keys past Sk); dP = dO V^T; dS = P o (dP - delta), rounded to bf16
+//     straight from the accumulator layout as the A operand of dQ += dS K
+//     (K as B through ldmatrix.trans). Q and dO are re-read as A fragments
+//     with ldmatrix per tile (K3's keys_by_q with the roles of the two tiles
+//     swapped). Shared memory: 48 KB at D 64, 96 KB at D 128;
+//   * a grid of q tiles under two waves of the 132 SMs (SDXL's 1024^2 with 10
+//     heads gives 160 blocks) splits the key range in 64-key units
+//     (ops/flash_attention.py::pick_k2_splits, K3's rule); each split writes
+//     unscaled fp32 partials and flash_dq_merge_kernel sums them in split
+//     order, then scales and casts. No float atomics. Only split 0 writes
+//     delta.
+//   What bounds it: 6*BH*Sq*Sk*D flops at the bf16 tensor-core rate at the
+//   self-attentions of 1024 and 4096 tokens; the bytes at the 77-key
+//   crosses and 256 tokens. ptxas: 160 registers at D 64, 232 at D 128, the
+//   merge 32; no spills.
+//   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
+//   700.00 W): SDXL's 1024^2 (10 heads, 2 splits) 0.027 ms, 149 TFLOP/s,
+//   15 % of the bound, 0.78x SDPA's whole backward (the first SIMT kernel:
+//   0.486 ms); SD1.5's 4096^2 (8 heads of 40 run at 64) 0.224 ms, 15 % of
+//   the bound at D 40, 1.09x; SD2.1's 4096^2 0.156 ms, 22 %; the other
+//   shapes 10-26 % of the bound and 0.11-1.01x SDPA's whole backward
+//   (PERF.md, section 6).
 //
 // K3, bfloat16: flash_bwd_dkv_tc_kernel, on the tensor cores
 // (mma.sync.m16n8k16, bf16 operands, fp32 accumulators). Design:
@@ -53,9 +89,6 @@
 //     writes fp32 partials and flash_dkv_merge_kernel sums them in split
 //     order. No float atomics: two runs give the same bits, as
 //     train/checkpoint.py's bit-identical resume needs.
-//   cp.async needs q, k, v and dO rows on 16 bytes; the wrapper makes one
-//   contiguous copy of a bf16 tensor that fails the check, and this entry
-//   point returns cudaErrorInvalidValue for one that reaches it anyway.
 //   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
 //   700.00 W): SDXL's 1024^2 (10 heads, 2 splits) 0.042 ms, 128 TFLOP/s,
 //   13 % of the bound, 1.22x SDPA's whole backward; SD1.5's 4096^2 (8 heads
@@ -64,17 +97,23 @@
 //   77 ones (1-16 splits) 0.15-0.89x SDPA's whole backward (PERF.md,
 //   section 6).
 //
-// K2 (both dtypes) and K3 for float32 keep the first SIMT kernels,
-// unchanged: fp32 math on the CUDA cores (67 TFLOP/s peak), one block of
-// 128 threads per (batch*head, 64-row tile), thread t owning row t/2 and the
-// even or odd rows of each streamed tile, tiles staged as fp32 with rows
-// padded by 4 floats, P and dS through shared memory. fp32 stays there
-// because TF32 tensor cores would break the fp32 bound of 1e-4 against the
-// plain version; K2's redesign is the next one (ROADMAP queue 2).
+// Both tensor-core kernels read rows with 16-byte loads (cp.async, K2's O):
+// the wrapper makes one contiguous copy of a bf16 tensor whose rows fail the
+// check, and these entry points return cudaErrorInvalidValue for one that
+// reaches them anyway.
+//
+// float32 keeps the first SIMT kernels of K2 and K3, unchanged: fp32 math on
+// the CUDA cores (67 TFLOP/s peak), one block of 128 threads per
+// (batch*head, 64-row tile), thread t owning row t/2 and the even or odd
+// rows of each streamed tile, tiles staged as fp32 with rows padded by 4
+// floats, P and dS through shared memory. fp32 stays there because TF32
+// tensor cores would break the fp32 bound of 1e-4 against the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -89,20 +128,12 @@ template <>
 __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // (batch, seq, head) element strides of the six tensors a kernel touches
@@ -379,10 +410,11 @@ Strides unpack(const long long* s) {
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 constexpr int DKV_THREADS = 128;  // four warps, 16 keys each
 constexpr int DKV_BN = 64;        // keys per block
 constexpr int SPLIT_ROWS = 64;    // the query range splits in whole 64-row units
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of one block: the key tile's K and V (resident), and a
 // 2-stage ring of q tiles (Q, dO, lse, delta). bf16 rows of D elements,
@@ -402,54 +434,6 @@ struct DkvLayout {
   static constexpr int STAGE = DL_OFF + BQ * 4;
   static constexpr int BYTES = RING_OFF + 2 * STAGE;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int D>
-__device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int chunk) {
-  return tile + row * (D * 2) + ((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // rows [r0, r0 + ROWS) of a bf16 BSHD slice into a swizzled tile; rows at or
 // past n are zero-filled
@@ -674,23 +658,6 @@ __global__ void flash_dkv_merge_kernel(const float* __restrict__ part_dk, const 
       __floats2bfloat162_rn(sv.x, sv.y);
 }
 
-// cudaFuncSetAttribute for `kernel` once per device (the attribute is the
-// device's); `done` holds one bit per device, kept by the caller per kernel
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, uint64_t& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && (done >> dev) & 1)) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 64) done |= uint64_t(1) << dev;
-  return err;
-}
-
-bool rows_aligned(const void* p, long long sb, long long ss, long long sh, int B, int S, int H) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 8 == 0) && (S == 1 || ss % 8 == 0) &&
-         (H == 1 || sh % 8 == 0);
-}
-
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
@@ -719,37 +686,272 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
-}  // namespace tc
+// ---------------------------------------------------------------------------
+// K2 for bfloat16: tensor cores (mma.sync m16n8k16), cp.async-fed
+// ---------------------------------------------------------------------------
 
-template <typename T, int D>
+constexpr int DQ_THREADS = 128;  // four warps, 16 q rows each
+constexpr int DQ_BM = 64;        // q rows per block
+constexpr int DQ_BN = 64;        // keys per streamed tile, and the unit of the key-range split
+
+// Shared memory of one block: the q tile's Q and dO (resident), and a
+// 2-stage ring of key tiles (K, V), bf16 rows swizzled as in K3.
+template <int D>
+struct DqLayout {
+  static constexpr int ROW = D * 2;
+  static constexpr int Q_OFF = 0;
+  static constexpr int G_OFF = DQ_BM * ROW;
+  static constexpr int RING_OFF = 2 * DQ_BM * ROW;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = DQ_BN * ROW;
+  static constexpr int STAGE = 2 * DQ_BN * ROW;
+  static constexpr int BYTES = RING_OFF + 2 * STAGE;
+};
+
+// the sum of the eight products of two 16-byte chunks of bf16 pairs, in fp32
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// K2: dQ for one (batch*head, 64-row q tile, split of the key range).
+// splits == 1 writes dQ (bf16, its own strides); splits > 1 writes unscaled
+// fp32 partials [splits, B*H, Sq, D] that flash_dq_merge_kernel sums. Every
+// split computes delta for its rows; split 0 writes it for K3.
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS) flash_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, float* __restrict__ part_dq, int H, int Sq, int Sk,
+    int splits, Strides st, float scale) {
+  using L = DqLayout<D>;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = base + L::Q_OFF, sG = base + L::G_OFF;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = warp * 16;  // the warp's 16 q rows of the tile
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * DQ_BM;
+  const int split = blockIdx.z;
+  const int per = ((Sk + DQ_BN - 1) / DQ_BN + splits - 1) / splits * DQ_BN;
+  const int lo = min(Sk, split * per);
+  const int hi = min(Sk, lo + per);
+  const int n_tiles = (hi - lo + DQ_BN - 1) / DQ_BN;
+
+  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const __nv_bfloat16* ob = o + b * st.t[3][0] + h * st.t[3][2];
+  const __nv_bfloat16* gb = dout + b * st.t[4][0] + h * st.t[4][2];
+
+  auto load_kv_tile = [&](int stage, int k0) {
+    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
+    load_rows<D, DQ_BN>(ring + L::K_OFF, kb, st.t[1][1], k0, Sk);
+    load_rows<D, DQ_BN>(ring + L::V_OFF, vb, st.t[2][1], k0, Sk);
+  };
+
+  load_rows<D, DQ_BM>(sQ, qb, st.t[0][1], q0, Sq);
+  load_rows<D, DQ_BM>(sG, gb, st.t[4][1], q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: lse, and delta =
+  // rowsum(dO o O) in fp32, the four threads of a quad splitting the head dim
+  float lse_l2[2], dl[2];
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + g + 8 * r;
+    const int qi = q0 + row;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const __nv_bfloat16* orow = ob + (long long)qi * st.t[3][1];
+#pragma unroll
+      for (int c = t * (CH / 4); c < (t + 1) * (CH / 4); ++c)
+        acc += dot8_bf16(*reinterpret_cast<const uint4*>(orow + 8 * c),
+                         *reinterpret_cast<const uint4*>(smem_raw + swz<D>(L::G_OFF, row, c)));
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[r] = acc;
+    lse_l2[r] = qi < Sq ? lse[(long long)bh * Sq + qi] * LOG2E : 0.f;
+    if (split == 0 && t == 0 && qi < Sq) delta[(long long)bh * Sq + qi] = acc;
+  }
+
+  float acc_dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dq[n][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = lo + it * DQ_BN;
+    if (it + 1 < n_tiles) {
+      load_kv_tile((it + 1) & 1, k0 + DQ_BN);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ring = base + L::RING_OFF + (it & 1) * L::STAGE;
+    const uint32_t sK = ring + L::K_OFF, sV = ring + L::V_OFF;
+
+    // S = Q K^T, then P = exp(scale S - lse): chunk c holds keys 8c + 2t (+1)
+    // of q rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float p[DQ_BN / 8][4];
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
+    keys_by_q<D, DQ_BN>(p, sQ, sK, qrow, lane);
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // keys past the split's end (Sk) would add to dQ: their P is an exact 0
+        const bool ok = k0 + 8 * c + 2 * t + (e & 1) < hi;
+        p[c][e] = ok ? exp2f(fmaf(p[c][e], scale_log2, -lse_l2[e >> 1])) : 0.f;
+      }
+
+    // dP = dO V^T, then dS = P o (dP - delta), then dQ += dS K
+    float ds[DQ_BN / 8][4];
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
+    keys_by_q<D, DQ_BN>(ds, sG, sV, qrow, lane);
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - dl[e >> 1]);
+    keys_by_d<D, DQ_BN>(acc_dq, ds, sK, lane);
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qrow + g + 8 * r;
+    if (qi >= Sq) continue;
+    if (splits == 1) {
+      __nv_bfloat16* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(scale * acc_dq[n][2 * r], scale * acc_dq[n][2 * r + 1]);
+    } else {
+      float* row = part_dq + (((long long)split * gridDim.y + bh) * Sq + qi) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n + 2 * t) = make_float2(acc_dq[n][2 * r], acc_dq[n][2 * r + 1]);
+    }
+  }
+}
+
+// dQ = scale * the sum of the splits' fp32 partials, in split order (no
+// atomics: two runs give the same bits); one thread per (batch*head, row,
+// column pair)
+template <int D>
+__global__ void flash_dq_merge_kernel(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH, int H,
+                                      int Sq, int splits, Strides st, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)BH * Sq * D;
+  if (2 * i >= plane) return;
+  const int col = (int)(2 * i % D);
+  const long long row = 2 * i / D;  // bh * Sq + qi
+  const int qi = (int)(row % Sq);
+  const int bh = (int)(row / Sq);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  float2 sum = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 a = *reinterpret_cast<const float2*>(part_dq + s * plane + 2 * i);
+    sum.x += a.x;
+    sum.y += a.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col) =
+      __floats2bfloat162_rn(scale * sum.x, scale * sum.y);
+}
+
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-              float* delta, void* dq, int B, int H, int Sq, int Sk, const long long* strides, float scale,
-              cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = Smem<D>::dq_bytes;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+              float* delta, void* dq, float* part_dq, int B, int H, int Sq, int Sk, int splits, const long long* s,
+              float scale, cudaStream_t stream) {
+  // cp.async and the delta prologue move 16-byte chunks: q, k, v, o and dO
+  // rows must start on 16 bytes
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(o, s[9], s[10], s[11], B, Sq, H) ||
+      !rows_aligned(dout, s[12], s[13], s[14], B, Sq, H))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && part_dq == nullptr)) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  constexpr int smem = DqLayout<D>::BYTES;
+  static uint64_t smem_set = 0;
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<const T*>(o),
-                                           static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), H, Sq, Sk,
-                                           unpack(strides), scale);
+  const Strides st = unpack(s);
+  dim3 grid((Sq + DQ_BM - 1) / DQ_BM, B * H, splits);
+  kernel<<<grid, DQ_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), part_dq, H, Sq, Sk, splits, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long pairs = (long long)B * H * Sq * D / 2;
+  flash_dq_merge_kernel<D><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+      part_dq, static_cast<__nv_bfloat16*>(dq), B * H, H, Sq, splits, st, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+}  // namespace tc
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+              float* delta, void* dq, int B, int H, int Sq, int Sk, const long long* strides, float scale,
+              cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<float, D>;
+  const int smem = (int)Smem<D>::dq_bytes;
+  static uint64_t smem_set = 0;
+  cudaError_t err = hopper::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                           static_cast<const float*>(v), static_cast<const float*>(o),
+                                           static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), H,
+                                           Sq, Sk, unpack(strides), scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int B, int H, int Sq, int Sk, const long long* strides, float scale,
                cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  const size_t smem = Smem<D>::dkv_bytes;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = flash_bwd_dkv_kernel<float, D>;
+  const int smem = (int)Smem<D>::dkv_bytes;
+  static uint64_t smem_set = 0;
+  cudaError_t err = hopper::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sk + BK - 1) / BK, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-                                           static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, unpack(strides),
-                                           scale);
+  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                           static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+                                           static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
+                                           unpack(strides), scale);
   return (int)cudaGetLastError();
 }
 
@@ -762,20 +964,24 @@ bool shape_ok(int B, int H, int Sq, int Sk) { return B > 0 && H > 0 && Sq > 0 &&
 // cudaErrorInvalidValue for a head dim / dtype / shape it does not take.
 //
 // K2. strides: 18 element strides, (batch, seq, head) for q, k, v, o, dO, dQ
-// in turn. lse [B*H, Sq] fp32 in; delta [B*H, Sq] fp32 out.
+// in turn. lse [B*H, Sq] fp32 in; delta [B*H, Sq] fp32 out. bfloat16 runs
+// the tensor-core kernel over `splits` ranges of the key axis (fp32 partials
+// part_dq [splits, B*H, Sq, D], then the merge; unused when splits is 1);
+// float32 runs the SIMT kernel, which does not split.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                      const float* lse, float* delta, void* dq, int dtype, int B, int H, int Sq,
-                                      int Sk, int D, const long long* strides, float scale, void* stream) {
-  if (!shape_ok(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
+                                      const float* lse, float* delta, void* dq, float* part_dq, int dtype, int B,
+                                      int H, int Sq, int Sk, int D, int splits, const long long* strides, float scale,
+                                      void* stream) {
+  if (!shape_ok(B, H, Sq, Sk) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 0 && splits == 1 && D == 64)
+    return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 0 && splits == 1 && D == 128)
+    return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+    return tc::launch_dq<64>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale, s);
   if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+    return tc::launch_dq<128>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -791,9 +997,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   if (!shape_ok(B, H, Sq, Sk) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && splits == 1 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 0 && splits == 1 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 1 && D == 64)
     return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, strides,
                               scale, s);

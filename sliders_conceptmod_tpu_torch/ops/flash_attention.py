@@ -7,10 +7,10 @@ Three hand-written CUDA kernels, each replacing one kernel of
 * K1 (``csrc/flash_attention_fwd.cu``) replaces ``_fwd_kernel`` (launched by
   ``_flash_fwd_impl``): ``O = softmax(scale·QKᵀ)·V`` plus the fp32 row
   logsumexp, bidirectional, output in the input dtype.
-* K2 (``csrc/flash_attention_bwd.cu``, ``flash_bwd_dq_kernel``) replaces
-  ``_bwd_dq_kernel`` (launched by ``_vjp_bwd``): dQ from P recomputed from
-  K1's lse. It also computes ``δ = rowsum(dO∘O)``, which the JAX package
-  computes with an XLA reduction outside its kernels, and writes it for K3.
+* K2 (``csrc/flash_attention_bwd.cu``) replaces ``_bwd_dq_kernel``
+  (launched by ``_vjp_bwd``): dQ from P recomputed from K1's lse. It also
+  computes ``δ = rowsum(dO∘O)``, which the JAX package computes with an XLA
+  reduction outside its kernels, and writes it for K3.
 * K3 (same source) replaces ``_bwd_dkv_kernel`` (launched by ``_vjp_bwd``):
   dK and dV.
 
@@ -27,6 +27,11 @@ tensor-core rate (989 TFLOP/s) at the paths' self-attentions of 1024 and
     tiles in a 2-stage ring filled by TMA on mbarriers; 80 KB of shared
     memory at d 64, 160 KB at d 128; 127 / 173 registers, no spills; 42 %
     of the bound at serving's 4096², 7–36 % at the other path shapes.
+  - K2: ``mma.sync`` m16n8k16 (S = QKᵀ, dP = dOVᵀ, dQ += dSK, dS from
+    registers); 64 q rows per block (four warps) against 64-key K/V tiles
+    in a 2-stage ``cp.async`` ring; δ = rowsum(dO∘O) in its prologue; 48 /
+    96 KB of shared memory; 160 / 232 registers, no spills; 15 % of the
+    bound at SDXL's 1024² and SD1.5's 4096², 10–26 % elsewhere.
   - K3: ``mma.sync`` m16n8k16 (Sᵀ = KQᵀ, dV += PᵀdO, dPᵀ = VdOᵀ, dK +=
     dSᵀQ, P and dS from registers); 64 keys per block (four warps) against
     q tiles of 64 rows (d 64) or 32 (d 128) in a 2-stage ``cp.async``
@@ -34,35 +39,36 @@ tensor-core rate (989 TFLOP/s) at the paths' self-attentions of 1024 and
     13 % of the bound at SDXL's 1024², 14–17 % at 4096², 4–12 % elsewhere.
 
   (ptxas and the device times of ``bench_attention.py``, NVIDIA H100 80GB
-  HBM3, 700.00 W; every path shape in ``PERF.md``.) K3 splits its query
-  range across blocks when its key tiles fill less than two waves of the
-  card (:func:`pick_k3_splits`, K4c's rule): fp32 partials summed in split
-  order, no atomics, so two runs give the same bits. TMA and ``cp.async``
-  need 16-byte-aligned bases and row strides: the wrappers make one
-  contiguous copy of a bf16 tensor that fails the check (:func:`_aligned`).
+  HBM3, 700.00 W; every path shape in ``PERF.md``.) When their grids fill
+  less than two waves of the card, K2 splits its key range
+  (:func:`pick_k2_splits`) and K3 its query range (:func:`pick_k3_splits`,
+  K4c's rule) across blocks: fp32 partials summed in split order by a
+  second kernel, no atomics, so two runs give the same bits. TMA and
+  ``cp.async`` need 16-byte-aligned bases and row strides: the wrappers
+  make one contiguous copy of a bf16 tensor that fails the check
+  (:func:`_aligned`).
 * float32: the first (SIMT) kernels, fp32 math on the CUDA cores, which
-  keep the fp32 bound of 1e-4; K3 does not split there.
-* K2, both dtypes, keeps its first SIMT kernel (the next redesign, ROADMAP
-  queue 2).
+  keep the fp32 bound of 1e-4; K2 and K3 do not split there.
 
 Each CUDA source of the port — these two, K4a's
 (``csrc/flash_attention_kgrid.cu``) and K4b/K4c's
 (``csrc/flash_attention_kgrid_bwd.cu``), both wrapped in
-``ops/flash_attention_kgrid.py`` — is compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own
-with a plain C interface at first use — into ``build/kernels/`` at the
-repository root — and bound with ``ctypes``; :func:`build` compiles them all
-at once.
+``ops/flash_attention_kgrid.py`` — is compiled with ``nvcc`` for ``sm_90a``
+into a shared library of its own with a plain C interface at first use —
+into ``build/kernels/`` at the repository root — and bound with ``ctypes``;
+:func:`build` compiles them all at once. The tensor-core kernels share the
+building blocks of ``csrc/hopper_tc.cuh``.
 
 Beside the kernels sit their plain PyTorch versions:
 :func:`flash_attention_reference` (K1) and :func:`bwd_dq_reference` /
-:func:`bwd_dkv_reference` (K2 / K3, the latter over the same query splits),
+:func:`bwd_dkv_reference` (K2 / K3, over the same key / query splits),
 composed in :func:`flash_attention_bwd_reference`. A wrapper takes the plain
 version only for tensors on the CPU; a CUDA tensor launches the kernel or
 raises. Each kernel wrapper's ``launches`` counts its calls that launch the
-kernel (K3's merge included) and nothing else, so a run can show that its
-main path went through the kernel; each plain version's ``cuda_calls``
-counts its calls on CUDA tensors, so a run can show that its main path never
-reached it.
+kernel (K2's and K3's merges included) and nothing else, so a run can show
+that its main path went through the kernel; each plain version's
+``cuda_calls`` counts its calls on CUDA tensors, so a run can show that its
+main path never reached it.
 
 Gradients: :class:`FlashAttention` is the ``torch.autograd.Function`` — K1
 forward (saving q, k, v, o and lse), K2 then K3 backward.
@@ -112,7 +118,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "fwd": {"flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P]},
     "bwd": {
-        "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+        "flash_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
         "flash_attention_bwd_dkv": [_P] * 10 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
     },
     "kgrid": {"flash_attention_kgrid_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
@@ -126,12 +132,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 build_info: Dict[str, dict] = {}  # per source name: path, seconds, cached, ptxas
 
-# Splitting a kernel's sequential loop across blocks (K3 here, K4a and K4c in
-# ops/flash_attention_kgrid.py): two waves of blocks over the H100's 132
-# SMs, at least 4 loop tiles per split, at most 64 splits.
+# Splitting a kernel's sequential loop across blocks (K2 and K3 here, K4a
+# and K4c in ops/flash_attention_kgrid.py): two waves of blocks over the
+# H100's 132 SMs, at least 4 loop tiles per split, at most 64 splits.
 MAX_SPLITS = 64
 TARGET_BLOCKS = 2 * 132
 MIN_TILES_PER_SPLIT = 4
+K2_TILE = 64  # K2's q rows per block, and the unit of its key-range split
 K3_TILE = 64  # K3's keys per block, and the unit of its query-range split
 
 
@@ -163,6 +170,15 @@ def _check_splits(splits: int) -> int:
     return splits
 
 
+def pick_k2_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """K2's split count of the key range for ``bh`` = batch·heads (blocks:
+    one per 64-row q tile and batch·head; tiles: the 64-key units). The fp32
+    kernel does not split: 1."""
+    if dtype == torch.float32:
+        return 1
+    return _fill_splits(_cdiv(sq, K2_TILE) * bh, _cdiv(sk, K2_TILE))
+
+
 def pick_k3_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """K3's split count of the query range for ``bh`` = batch·heads (blocks:
     one per 64-key tile and batch·head; tiles: the 64-row q units). The fp32
@@ -184,7 +200,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
+    # the source and every header of csrc/ it may include
+    src = SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{SOURCES[name].stem}_{tag}.so"
 
@@ -260,24 +277,31 @@ def flash_attention_reference(
 flash_attention_reference.cuda_calls = 0
 
 
-def _probs(q, k, lse, scale):
-    """P = exp(scale·QKᵀ − lse) in fp32, ``[B, H, Sq, Sk]``."""
-    b, sq, h, _ = q.shape
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    return torch.exp(s - lse.reshape(b, h, sq, 1))
-
-
-def bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``."""
+def bwd_dq_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``. Per
+    split of the key range (:func:`split_ranges` in 64-key units; ``None``:
+    :func:`pick_k2_splits` for the inputs' shape and dtype), the fp32 partial
+    ``Σ dS·K`` over the split's keys, summed in split order and then scaled,
+    as the kernel's merge sums them."""
     if q.device.type == "cuda":
         bwd_dq_reference.cuda_calls += 1
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if splits is None:
+        splits = pick_k2_splits(b * h, sq, sk, q.dtype)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
-    p = _probs(q, k, lse, scale)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    return dq.to(q.dtype), delta.reshape(b * h, sq)
+    qf, gf, lse4 = q.float(), do.float(), lse.reshape(b, h, sq, 1)
+    dq = torch.zeros((b, sq, h, d), device=q.device)
+    for lo, hi in split_ranges(sk, splits, K2_TILE):
+        if lo == hi:
+            continue
+        ks, vs = k[:, lo:hi].float(), v[:, lo:hi].float()
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, ks) * scale - lse4)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, vs)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, ks)
+    return (dq * scale).to(q.dtype), delta.reshape(b * h, sq)
 
 
 bwd_dq_reference.cuda_calls = 0
@@ -315,12 +339,14 @@ def bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits: Optional[int] = No
 bwd_dkv_reference.cuda_calls = 0
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None,
+                                  dq_splits: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward (K2 then K3, ``splits`` as
-    :func:`bwd_dkv_reference` takes it): fp32 math with P recomputed from
-    the forward's lse; gradients in the inputs' dtypes."""
-    dq, delta = bwd_dq_reference(q, k, v, o, lse, do, scale)
+    """Plain PyTorch version of the backward (K2 then K3; ``dq_splits`` as
+    :func:`bwd_dq_reference` takes its ``splits``, ``splits`` as
+    :func:`bwd_dkv_reference` does): fp32 math with P recomputed from the
+    forward's lse; gradients in the inputs' dtypes."""
+    dq, delta = bwd_dq_reference(q, k, v, o, lse, do, scale, dq_splits)
     dk, dv = bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
     return dq, dk, dv
 
@@ -365,8 +391,8 @@ def _check_kernel_inputs(*tensors: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` when its base and its batch/seq/head strides (of dims longer
-    than 1) sit on 16 bytes, as TMA (K1) and ``cp.async`` (K3) need for bf16
-    rows; else one contiguous copy, which does."""
+    than 1) sit on 16 bytes, as TMA (K1, K4a) and 16-byte loads (K2, K3)
+    need for bf16 rows; else one contiguous copy, which does."""
     item = t.element_size()
     ok = t.data_ptr() % 16 == 0 and all(
         t.stride(i) > 0 and (t.stride(i) * item) % 16 == 0 for i in range(3) if t.shape[i] > 1)
@@ -430,21 +456,35 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])``. CPU tensors go
-    through :func:`bwd_dq_reference`."""
+def flash_attention_bwd_dq(q, k, v, o, lse, do, scale, *, splits: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])``. bf16 runs the
+    tensor-core kernel over ``splits`` ranges of the key axis (plus the sum
+    of their partials when there are more than one); ``None`` lets
+    :func:`pick_k2_splits` choose, a number forces it (tests). fp32 runs the
+    SIMT kernel, which does not split (a forced count above 1 raises). CPU
+    tensors go through :func:`bwd_dq_reference`."""
     if q.device.type == "cpu":
-        return bwd_dq_reference(q, k, v, o, lse, do, scale)
+        return bwd_dq_reference(q, k, v, o, lse, do, scale, splits)
     _check_kernel_inputs(q, k, v, o, do)
     b, sq, h, d = q.shape
+    sk = k.shape[1]
+    splits = _check_splits(pick_k2_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
+    if q.dtype == torch.float32 and splits != 1:
+        raise ValueError(f"the fp32 K2 kernel does not split the key range (splits={splits})")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte loads
+        q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    part_dq = None
+    if splits > 1:
+        part_dq = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     lib = _library("bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+            delta.data_ptr(), dq.data_ptr(), _ptr(part_dq), _DTYPE_CODES[q.dtype], b, h, sq, sk, d, splits,
             _strides(q, k, v, o, do, dq), float(scale), _stream(q),
         )
     if err != 0:

@@ -5,22 +5,27 @@ K4c (dK/dV), the ports of the TPU Pallas kernels of
 ``_bwd_dkv_kernel`` (both launched by ``_vjp_bwd``).
 
 K4a (``csrc/flash_attention_kgrid.cu``) computes what K1 computes — ``O =
-softmax(scale·QKᵀ)·V`` and the fp32 row logsumexp, bidirectional, fp32 math,
-output in the input dtype — for the head dims K1 does not take: multiples of
-64 up to 512. K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are its
-backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
+softmax(scale·QKᵀ)·V`` and the fp32 row logsumexp, bidirectional, output in
+the input dtype — for the head dims K1 does not take: multiples of 64 up to
+512. bf16 runs on the tensor cores (``wgmma`` fed by TMA, 64 q rows per
+block, up to two consumer warpgroups that each own a slice of O's columns;
+20 % of the bound at the VAE decode's 16384², d 512, on an NVIDIA H100 80GB
+HBM3 at 700 W, ``PERF.md``); fp32 keeps the first (SIMT) kernel, fp32 math
+on the CUDA cores. K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are
+its backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
 lse, K4c dK and dV from δ. Their paths: the VAE mid-block's single-head
 attention (head dim = channels = 512; forward only) and SD1.5's UNet
 attentions at 1280 channels (8 heads of 160, padded to 192; forward and, in
 training, backward).
 
 The TPU kernels carry their sums in scratch along a sequential grid axis. On
-the card that axis becomes a loop inside the block over 32-row tiles, and
+the card that axis becomes a loop inside the block over tiles of rows, and
 where the grid is too small for the H100's 132 SMs the loop's range is split
-across blocks: K4a splits the key range (each split writes unnormalised fp32
-partials and a second small kernel merges them: ``m* = max mₛ``, ``l* = Σ
-lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log l*``), K4c
-splits the query range (fp32 partial dK/dV summed in split order; no
+across blocks: K4a splits the key range — in 32-key tiles for fp32, in
+64-key units for bf16 (:func:`split_unit`); each split writes unnormalised
+fp32 partials and a second small kernel merges them: ``m* = max mₛ``,
+``l* = Σ lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log
+l*``. K4c splits the query range (fp32 partial dK/dV summed in split order; no
 atomics, so two runs give the same bits). :func:`pick_splits` and
 :func:`pick_dkv_splits` choose the counts from the shape; ``splits=`` exists
 so that tests can force 1 or more. The sources' headers say what bounds the
@@ -53,6 +58,7 @@ import torch
 
 from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     _DTYPE_CODES,
+    _aligned,
     _cdiv,
     _check,
     _check_kernel_inputs,
@@ -65,16 +71,27 @@ from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     split_ranges as _split_ranges,
 )
 
-BQ, BK = 32, 32  # K4a's q rows per block and keys per tile; K4b/K4c's streamed rows per tile
+BQ, BK = 32, 32  # fp32 K4a's q rows per block and keys per tile; K4b/K4c's streamed rows per tile
+TC_BQ, TC_SPLIT_KEYS = 64, 64  # bf16 K4a's q rows per block and the unit of its key-range split
 KGRID_HEAD_DIMS = tuple(range(64, 513, 64))
 NEG_INF = -1e30  # as in the kernel: exp(NEG_INF − m) is an exact 0
 
 
-def pick_splits(bh: int, sq: int, sk: int) -> int:
+def split_unit(dtype: torch.dtype) -> int:
+    """Keys per unit of K4a's key-range split for inputs of ``dtype``: the
+    fp32 kernel's 32-key tile, or 64 for the bf16 kernel (whose 32- or
+    64-key tiles both divide it)."""
+    return TC_SPLIT_KEYS if dtype == torch.bfloat16 else BK
+
+
+def pick_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.float32) -> int:
     """K4a's split count of the key range for ``bh`` = batch·heads rows of
-    ``sq`` queries over ``sk`` keys (blocks: one per 32-row q tile and
-    batch·head)."""
-    return _fill_splits(_cdiv(sq, BQ) * bh, _cdiv(sk, BK))
+    ``sq`` queries over ``sk`` keys, as the kernel for ``dtype`` (by default
+    the fp32 one) runs them (blocks: one per q tile — 32 rows in fp32, 64 in
+    bf16 — and batch·head; tiles: the :func:`split_unit` units of the
+    keys)."""
+    q_rows = TC_BQ if dtype == torch.bfloat16 else BQ
+    return _fill_splits(_cdiv(sq, q_rows) * bh, _cdiv(sk, split_unit(dtype)))
 
 
 def bwd_rows_per_block(d: int) -> int:
@@ -103,21 +120,25 @@ def split_ranges(n: int, splits: int) -> List[Tuple[int, int]]:
 
 
 def flash_attention_kgrid_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: Optional[int] = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: Optional[int] = None,
+    cut_as: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4a: per split, fp32 logits, the split's max
     m, l = Σ e^(s−m) and acc = e^(s−m)·V (an empty split gives m = −1e30,
-    l = 0, acc = 0); then the merge. Output in the input dtype, lse fp32
-    ``[B·H, Sq]``."""
+    l = 0, acc = 0); then the merge. The key range is cut as the kernel for
+    ``cut_as`` (default: q's dtype) cuts it — :func:`split_unit`, and
+    :func:`pick_splits` when ``splits`` is None. Output in the input dtype,
+    lse fp32 ``[B·H, Sq]``."""
     if q.device.type == "cuda":
         flash_attention_kgrid_reference.cuda_calls += 1
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    cut_as = q.dtype if cut_as is None else cut_as
     if splits is None:
-        splits = pick_splits(b * h, sq, sk)
+        splits = pick_splits(b * h, sq, sk, cut_as)
     qf, kf, vf = q.float() * scale, k.float(), v.float()
     ms, ls, accs = [], [], []
-    for lo, hi in split_ranges(sk, splits):
+    for lo, hi in _split_ranges(sk, splits, split_unit(cut_as)):
         if lo == hi:
             ms.append(torch.full((b, h, sq), NEG_INF, device=q.device))
             ls.append(torch.zeros((b, h, sq), device=q.device))
@@ -211,7 +232,9 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits
     _check_kernel_inputs(q, k, v, head_dims=KGRID_HEAD_DIMS)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    splits = _check_splits(pick_splits(b * h, sq, sk) if splits is None else splits)
+    splits = _check_splits(pick_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's TMA loads
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     part_acc = part_m = part_l = None
@@ -241,9 +264,10 @@ def flash_attention_kgrid_fwd(
     tensors launch kernel K4a on the current stream (plus its merge when the
     key range is split); the head dim must be a multiple of 64 up to 512, the
     dtype float32 or bfloat16, and the head-dim stride 1. ``splits`` forces
-    the split count (tests); ``None`` lets :func:`pick_splits` choose. When
-    autograd needs a graph the call goes through :class:`FlashAttentionKGrid`:
-    ``out`` is differentiable (K4b/K4c), ``lse`` is not."""
+    the split count (tests); ``None`` lets :func:`pick_splits` choose for the
+    inputs' dtype. When autograd needs a graph the call goes through
+    :class:`FlashAttentionKGrid`: ``out`` is differentiable (K4b/K4c),
+    ``lse`` is not."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5

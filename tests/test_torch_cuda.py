@@ -145,7 +145,7 @@ def test_kgrid_empty_splits_and_strided_views(gen):
     qkv = _rand(gen, (b, s, 3, h, d), torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
-    for splits in (1, 7):  # 130 keys are 5 tiles: splits 5 and 6 are empty
+    for splits in (1, 7):  # 130 keys are 3 of the bf16 kernel's 64-key units: splits 3 to 6 are empty
         out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
         out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous(), splits=splits)
         assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
@@ -489,3 +489,173 @@ def test_autograd_through_the_dispatch_in_bf16(gen, d):
     for g, x in zip(got, (qr, kr, vr)):
         assert g.shape == x.shape
         assert (g - x.grad).abs().max().item() <= _grad_tol(x.grad, torch.bfloat16)
+
+
+# --- the tensor-core kernels K2 (mma.sync, cp.async) and K4a (wgmma, TMA) on bf16
+
+
+def _kernel_names(fn):
+    """Names of the kernels ``fn`` runs on the card (torch.profiler). The
+    profiler now and then returns a window with no device activity at all:
+    such a window is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")}
+        if names:
+            return names
+    return names
+
+
+def _check_k2(q, k, v, o, lse, do, scale, splits=None):
+    """K2 against its plain version over the same key splits; δ within the
+    fp32 bound (the same products, summed in another order). Returns
+    (dQ, δ)."""
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+    torch.cuda.synchronize()
+    b, sq, h, _ = q.shape
+    used = fa.pick_k2_splits(b * h, sq, k.shape[1], q.dtype) if splits is None else splits
+    want, want_delta = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale, used)
+    assert dq.dtype == q.dtype and dq.shape == q.shape and delta.shape == (b * h, sq)
+    assert (dq.float() - want).abs().max().item() <= _grad_tol(want, q.dtype), (tuple(q.shape), k.shape[1], used)
+    assert (delta - want_delta).abs().max().item() <= 1e-4 * max(1.0, want_delta.abs().max().item())
+    return dq, delta
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 77, 129, 4097])
+def test_tensor_core_k2_on_ragged_lengths(gen, d, s):
+    """bf16 K2 with Sq and Sk around its 64-row q tiles and 64-key tiles
+    (cp.async zero-fills rows past the end; keys past Sk get P = 0), with the
+    split the rule picks."""
+    for sq, sk in ((s, s), (s, 77), (77, s)):
+        b, h = 2, 3
+        q, do = (_rand(gen, (b, sq, h, d), torch.bfloat16) for _ in range(2))
+        k, v = (_rand(gen, (b, sk, h, d), torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        _check_k2(q, k, v, o, lse, do, d**-0.5)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024, 10, 64), (1, 1024, 77, 10, 64), (2, 300, 129, 3, 128),
+                                   (1, 65, 4097, 2, 64)])
+def test_tensor_core_k2_forced_splits_match_plain_version(gen, shape):
+    """K2 bf16 with the key range split 1, 2 and 64 ways (empty splits
+    included) against the plain version over the same splits; a repeated
+    call gives the same bits (partials summed in split order, no atomics);
+    δ is the same bits whatever the split (split 0 writes it); the fp32
+    kernel refuses a split."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, shape, torch.bfloat16)
+    scale = shape[-1] ** -0.5
+    deltas = []
+    for splits in (1, 2, fa.MAX_SPLITS):
+        before = fa.flash_attention_bwd_dq.launches
+        got, delta = _check_k2(q, k, v, o, lse, do, scale, splits)
+        again, delta_again = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bwd_dq.launches == before + 2
+        assert torch.equal(got, again) and torch.equal(delta, delta_again)
+        deltas.append(delta)
+    assert all(torch.equal(deltas[0], x) for x in deltas[1:])
+    f = [x.float() for x in (q, k, v, o, do)]
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(*f[:4], lse, f[4], scale, splits=2)
+
+
+def test_tensor_core_k2_takes_strided_do_head_slices_and_unaligned_views(gen):
+    """q, k, v, o and dO as head slices of wider tensors (autograd's strided
+    dO among them) and as views off 16 bytes (copied once by the wrapper):
+    the contiguous copies' bits, with one K2 launch each."""
+    b, sq, sk, h, d = 2, 200, 77, 3, 64
+    for make in (lambda s: _rand(gen, (b, s, 2 * h, d), torch.bfloat16)[:, :, 1::2],
+                 lambda s: _rand(gen, (b, s, h, d + 8), torch.bfloat16)[..., 1:d + 1]):
+        q, k, v, do = make(sq), make(sk), make(sk), make(sq)
+        o = make(sq)
+        o.copy_(fa.flash_attention_fwd(q, k, v)[0])
+        _, lse = fa.flash_attention_fwd(q, k, v)
+        assert not (q.is_contiguous() or o.is_contiguous() or do.is_contiguous())
+        before = fa.flash_attention_bwd_dq.launches
+        got = _check_k2(q, k, v, o, lse, do, d**-0.5)
+        want = fa.flash_attention_bwd_dq(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous(), d**-0.5)
+        assert fa.flash_attention_bwd_dq.launches == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_k2_and_k4a_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen):
+    """The kernels that run, by name: bf16 K2 is flash_bwd_dq_tc_kernel (and
+    its merge when split), fp32 K2 the SIMT flash_bwd_dq_kernel; bf16 K4a is
+    kgrid_fwd_tc_kernel, fp32 K4a the SIMT kgrid_fwd_kernel."""
+    for dtype, want_k2, want_k4a in ((torch.bfloat16, "flash_bwd_dq_tc_kernel", "kgrid_fwd_tc_kernel"),
+                                     (torch.float32, "flash_bwd_dq_kernel", "kgrid_fwd_kernel")):
+        q, k, v, o, lse, do = _bwd_inputs(gen, (1, 1024, 1024, 10, 64), dtype)
+        names = _kernel_names(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 0.125))
+        assert any(want_k2 in n for n in names), names
+        assert dtype == torch.float32 or any("flash_dq_merge_kernel" in n for n in names), names  # 2 splits
+        if dtype == torch.float32:
+            assert not any("_tc_" in n for n in names), names
+        x = _rand(gen, (1, 1024, 1, 512), dtype)
+        names = _kernel_names(lambda: kg.flash_attention_kgrid_fwd(x, x, x))
+        assert any(want_k4a in n for n in names), names
+        if dtype == torch.float32:
+            assert not any("_tc_" in n for n in names), names
+
+
+def _check_k4a(q, k, v, splits=None):
+    """K4a against its plain version cut into the same key ranges; returns (O, lse)."""
+    out, lse = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
+    torch.cuda.synchronize()
+    d = q.shape[-1]
+    ref, ref_lse = kg.flash_attention_kgrid_reference(q.float(), k.float(), v.float(), d**-0.5, splits=splits,
+                                                      cut_as=q.dtype)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = 1e-4 if q.dtype == torch.float32 else _fwd_tol(ref)
+    assert (out.float() - ref).abs().max().item() <= tol, (tuple(q.shape), k.shape[1], splits)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5 * max(1.0, ref_lse.abs().max().item())
+    return out, lse
+
+
+@pytest.mark.parametrize("d", [64, 192, 320, 512])
+@pytest.mark.parametrize("s", [1, 63, 65, 77, 129, 4097])
+def test_tensor_core_k4a_on_ragged_lengths(gen, d, s):
+    """bf16 K4a with Sq and Sk around its 64-row q tiles and 32/64-key tiles
+    (TMA zero-fills the box past the end; keys past Sk are masked before the
+    max) at one and at two consumer warpgroups, with the split the rule
+    picks."""
+    for sq, sk in ((s, s), (s, 77), (77, s)):
+        q = _rand(gen, (2, sq, 2, d), torch.bfloat16, scale=3.0)  # large logits: the online max must hold
+        k, v = (_rand(gen, (2, sk, 2, d), torch.bfloat16) for _ in range(2))
+        _check_k4a(q, k, v)
+
+
+@pytest.mark.parametrize("d", [64, 192, 320, 512])
+def test_tensor_core_k4a_forced_splits_are_right_and_deterministic(gen, d):
+    """K4a bf16 with the key range split 1, 2 and 64 ways (empty splits
+    included) against the plain version over the same 64-key units; a
+    repeated call gives the same bits."""
+    q = _rand(gen, (1, 1000, 2, d), torch.bfloat16, scale=3.0)
+    k, v = (_rand(gen, (1, 4100, 2, d), torch.bfloat16) for _ in range(2))
+    for splits in (1, 2, fa.MAX_SPLITS):
+        out, lse = _check_k4a(q, k, v, splits)
+        again = kg.flash_attention_kgrid_fwd(q, k, v, splits=splits)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("d", [192, 512])
+def test_tensor_core_k4a_takes_head_slices_and_unaligned_views(gen, d):
+    """q, k, v as head slices of wider tensors (the TMA maps read their
+    strides) and as views off 16 bytes (copied once by the wrapper): the
+    contiguous copies' bits, one K4a launch each."""
+    b, s, h = 2, 300, 2
+    wide = [_rand(gen, (b, s, 2 * h, d), torch.bfloat16)[:, :, 1::2] for _ in range(3)]
+    odd = [_rand(gen, (b, s, h, d + 8), torch.bfloat16)[..., 1:d + 1] for _ in range(3)]
+    for q, k, v in (wide, odd):
+        assert not q.is_contiguous()
+        before = kg.flash_attention_kgrid_fwd.launches
+        out, lse = _check_k4a(q, k, v)
+        out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+        assert kg.flash_attention_kgrid_fwd.launches == before + 2
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
