@@ -64,13 +64,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   to 192; bound_ms at d 160): the 512px ESD student (256²,
                   256×77, 64², 64×77) and
                   the 256px image-pair student (rows 2: 64², 64×77, 16²,
-                  16×77), bf16 and fp32, on K4a's O and lse (K4a held against
-                  its plain version there too); ragged shapes, d 64 / 320 /
-                  512, a strided dO, K4c's query split forced to 1, 4 and 12,
-                  repeated calls bit-equal; at d 64 against K2/K3 at 300×77
-                  (B 2, H 2) and 16384² (one head). Times K4b, K4c (events and
-                  device time), their plain versions and SDPA's backward
-                  (device time) at every path shape in bf16.
+                  16×77), bf16 (the tensor-core kernels) and fp32 (the SIMT
+                  kernels), on K4a's O and lse (K4a held against its plain
+                  version there too), with the splits their rules pick;
+                  ragged shapes, d 64 / 320 / 512, a strided dO, K4c's query
+                  split forced to 1, 4 and 12, repeated calls bit-equal; bf16
+                  K4b's key split and K4c's query split forced to 1, 2 and 64
+                  at every path shape, repeats bit-equal and δ the same bits
+                  at every split; bf16 at ragged Sq/Sk ∈ {1, 63, 65, 77, 129}
+                  at d 64, 192, 256, 320 and 512; head slices and views off
+                  16 bytes of q, k, v, O and dO bit-equal to contiguous
+                  copies; at d 64 against K2/K3 at 300×77 (B 2, H 2) and
+                  16384² (one head). Times K4b, K4c (events, device time and
+                  host µs per call), their plain versions and SDPA's backward
+                  (device time) at every path shape in bf16, with each
+                  kernel's TFLOP/s, share of the bound, ratio to SDPA's whole
+                  backward and split.
 6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
 7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
@@ -822,19 +831,34 @@ def check_bwd(name: str, got, want, dtype) -> tuple:
     return errs, tols
 
 
-def kgrid_bwd_all(q, k, v, o, lse, do, scale, splits=None) -> tuple:
-    """K4b then K4c: (dQ, δ, dK, dV)."""
-    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+def kgrid_bwd_all(q, k, v, o, lse, do, scale, splits=None, dq_splits=None) -> tuple:
+    """K4b then K4c: (dQ, δ, dK, dV); ``dq_splits`` is K4b's split of the key
+    range, ``splits`` K4c's of the query range (None: the rules')."""
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits)
     dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
     return dq, delta, dk, dv
 
 
-def kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits=None) -> tuple:
-    """The plain versions of K4b and K4c in fp32: (dQ, δ, dK, dV)."""
+def kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits=None, dq_splits=None) -> tuple:
+    """The plain versions of K4b and K4c in fp32, over the key and query
+    ranges the kernels for q's dtype cut (None: the rules' counts): (dQ, δ,
+    dK, dV)."""
     qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, do))
-    dq, delta = kg.kgrid_bwd_dq_reference(qf, kf, vf, of, lse, gf, scale)
-    dk, dv = kg.kgrid_bwd_dkv_reference(qf, kf, vf, lse, delta, gf, scale, splits)
+    dq, delta = kg.kgrid_bwd_dq_reference(qf, kf, vf, of, lse, gf, scale, dq_splits, cut_as=q.dtype)
+    dk, dv = kg.kgrid_bwd_dkv_reference(qf, kf, vf, lse, delta, gf, scale, splits, cut_as=q.dtype)
     return dq, delta, dk, dv
+
+
+def check_kgrid_bwd(q, k, v, o, lse, do, what: str, scale=None, splits=None, dq_splits=None) -> dict:
+    """K4b and K4c (splits as kgrid_bwd_all takes them) against their plain
+    versions over the same ranges; raises on disagreement. Returns the
+    gradients (dQ, δ, dK, dV), the errors and their bounds."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    got = kgrid_bwd_all(q, k, v, o, lse, do, scale, splits, dq_splits)
+    torch.cuda.synchronize()
+    errs, tols = check_bwd(f"K4b/K4c at {what}", got, kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits, dq_splits),
+                           q.dtype)
+    return dict(grads=got, max_abs_err=errs, tol=tols)
 
 
 def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
@@ -843,11 +867,18 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
     zero-padded to 192 as the path pads them, with K4a's O and lse as the
     forward gives them; ragged shapes, d 64 and 512, a strided dO, the
     query-range split forced to 1 and to more, two identical calls bit-equal;
-    and at d 64 against K2/K3 on K1's O and lse. Returns the timed rows and
-    every K4b and K4c error."""
+    bf16 with both splits forced at every path shape; bf16 ragged lengths
+    at five head dims, head slices and unaligned views; and at d 64 against
+    K2/K3 on K1's O and lse. Returns the timed rows and every K4b and K4c
+    error."""
     h, d = KGRID_BWD_HEADS, KGRID_BWD_D
     scale = d**-0.5
     rows_out, errs_b, errs_c, k4a_rows = [], [], [], []
+
+    def note(c: dict) -> None:
+        errs_b.append(c["max_abs_err"]["dq"])
+        errs_c.append(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"]))
+
     for dtype in (torch.bfloat16, torch.float32):
         for name, rows, sq, sk in KGRID_BWD_SHAPES:
             q, do = (path_randn(gen, (rows, sq, h), d, dtype) for _ in range(2))
@@ -857,23 +888,21 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
             o, lse = fwd["out"], fwd["lse"]
             k4a_rows.append(dict(shape=name, rows=rows, dtype=str(dtype), max_abs_err=fwd["max_abs_err"],
                                  tol=fwd["tol"], lse_max_abs_err=fwd["lse_max_abs_err"]))
-            splits = kg.pick_dkv_splits(rows * h, sq, sk, d_pad)
-            got = kgrid_bwd_all(q, k, v, o, lse, do, scale)
-            torch.cuda.synchronize()
-            errs, tols = check_bwd(f"K4b/K4c at {name} rows={rows} {dtype}", got,
-                                   kgrid_bwd_plain(q, k, v, o, lse, do, scale, splits), dtype)
-            errs_b.append(errs["dq"])
-            errs_c.append(max(errs["dk"], errs["dv"]))
+            c = check_kgrid_bwd(q, k, v, o, lse, do, f"{name} rows={rows} {dtype}", scale)
+            note(c)
             row = dict(phase="kernel_kgrid_bwd", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
-                       padded_head_dim=d_pad, dtype=str(dtype), dkv_splits=splits, max_abs_err=errs, tol=tols)
+                       padded_head_dim=d_pad, dtype=str(dtype),
+                       k4b_splits=kg.pick_k4b_splits(rows * h, sq, sk, d_pad, dtype),
+                       dkv_splits=kg.pick_dkv_splits(rows * h, sq, sk, d_pad, dtype),
+                       max_abs_err=c["max_abs_err"], tol=c["tol"])
             if dtype == torch.bfloat16:
-                _, delta, _, _ = got
+                delta = c["grads"][1]
+                k4b = lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)  # noqa: E731
+                k4c = lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale)  # noqa: E731
                 row.update(
-                    k4b_ms=cuda_ms(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale), 50),
-                    k4c_ms=cuda_ms(lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale), 50),
-                    k4b_device_ms=device_ms(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale), 10),
-                    k4c_device_ms=device_ms(
-                        lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale), 10),
+                    k4b_ms=cuda_ms(k4b, 50), k4c_ms=cuda_ms(k4c, 50),
+                    k4b_device_ms=device_ms(k4b, 10), k4c_device_ms=device_ms(k4c, 10),
+                    k4b_host_us_per_call=host_us(k4b), k4c_host_us_per_call=host_us(k4c),
                     k4b_plain_ms=cuda_ms(lambda: kg.kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale), 5),
                     k4c_plain_ms=cuda_ms(lambda: kg.kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale), 5),
                     # SDPA on the unpadded head dim: the same function the path needs
@@ -881,8 +910,15 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
                 )
                 (row["k4b_bound_ms"], row["k4b_bound_by"]), (row["k4c_bound_ms"], row["k4c_bound_by"]) = (
                     bwd_bound("dq", sq, sk, rows * h, d, dtype), bwd_bound("dkv", sq, sk, rows * h, d, dtype))
+                # device times against the bound (at the unpadded head dim) and SDPA's whole backward
+                for kern, mult in (("k4b", 6), ("k4c", 8)):
+                    row.update({f"{kern}_{key}": val for key, val in rates(
+                        mult * rows * h * sq * sk * d, row[f"{kern}_device_ms"], row[f"{kern}_bound_ms"],
+                        row["library_ms"]).items()})
                 rows_out.append(row)
             emit(row)
+            del q, k, v, o, lse, do, c
+            torch.cuda.empty_cache()
 
     # ragged tails, every head-dim class's edge (d 64, 192, 320, 512), one
     # row / one key, the split forced to 1 and to more (empty splits
@@ -898,20 +934,80 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
             k, v = (torch.randn((b, sk, hh, dd), generator=gen, device="cuda").to(dtype) for _ in range(2))
             do = torch.randn((b, sq, 2 * hh, dd), generator=gen, device="cuda").to(dtype)[:, :, 1::2]
             o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
-            sc = dd**-0.5
-            got = kgrid_bwd_all(q, k, v, o, lse, do, sc, splits)
-            again = kgrid_bwd_all(q, k, v, o, lse, do.contiguous(), sc, splits)
-            used = kg.pick_dkv_splits(b * hh, sq, sk, dd) if splits is None else splits
-            errs, tols = check_bwd(f"K4b/K4c B {b} Sq {sq} Sk {sk} H {hh} d {dd} splits {used} {dtype}", got,
-                                   kgrid_bwd_plain(q, k, v, o, lse, do, sc, used), dtype)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            used = kg.pick_dkv_splits(b * hh, sq, sk, dd, dtype) if splits is None else splits
+            c = check_kgrid_bwd(q, k, v, o, lse, do, f"B {b} Sq {sq} Sk {sk} H {hh} d {dd} splits {used} {dtype}",
+                                splits=used)
+            again = kgrid_bwd_all(q, k, v, o, lse, do.contiguous(), dd**-0.5, used)
+            same = all(torch.equal(x, y) for x, y in zip(c["grads"], again))
             checks.append(dict(dtype=str(dtype), b=b, sq=sq, sk=sk, heads=hh, head_dim=dd, dkv_splits=used,
-                               strided_do=True, max_abs_err=errs, tol=tols, repeat_and_contiguous_bit_equal=same))
+                               strided_do=True, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                               repeat_and_contiguous_bit_equal=same))
             if not same:
                 raise AssertionError(f"K4b/K4c: strided dO or a repeated call changed the bits: {checks[-1]}")
-            errs_b.append(errs["dq"])
-            errs_c.append(max(errs["dk"], errs["dv"]))
+            note(c)
     emit(dict(phase="kernel_kgrid_bwd", ragged_splits_strided=checks))
+
+    # bf16: K4b's key split and K4c's query split forced to 1, 2 and the
+    # maximum (64: empty splits included) at every path shape, against the
+    # plain versions over the same 32-row units; repeated calls bit-equal,
+    # and δ the same bits at every split (split 0 writes it)
+    forced = []
+    for name, rows, sq, sk in KGRID_BWD_SHAPES:
+        q, do = (path_randn(gen, (rows, sq, h), d, torch.bfloat16) for _ in range(2))
+        k, v = (path_randn(gen, (rows, sk, h), d, torch.bfloat16) for _ in range(2))
+        o, lse = kg.flash_attention_kgrid_fwd(q, k, v, scale)
+        _, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+        for splits in (1, 2, fa.MAX_SPLITS):
+            c = check_kgrid_bwd(q, k, v, o, lse, do, f"{name} rows={rows} splits {splits} bf16", scale, splits, splits)
+            again = kgrid_bwd_all(q, k, v, o, lse, do, scale, splits, splits)
+            same = all(torch.equal(x, y) for x, y in zip(c["grads"], again)) and torch.equal(c["grads"][1], delta)
+            forced.append(dict(shape=name, rows=rows, splits=splits,
+                               rule_k4b_splits=kg.pick_k4b_splits(rows * h, sq, sk, q.shape[-1], torch.bfloat16),
+                               rule_dkv_splits=kg.pick_dkv_splits(rows * h, sq, sk, q.shape[-1], torch.bfloat16),
+                               max_abs_err=c["max_abs_err"], tol=c["tol"], repeat_and_delta_bit_equal=same))
+            if not same:
+                raise AssertionError(f"K4b/K4c with forced splits changed their bits: {forced[-1]}")
+            note(c)
+            del c, again
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
+    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_forced_splits_bf16=forced))
+
+    # bf16 at ragged lengths around the 32-row tiles and the 64/32-row
+    # blocks, at one, two and four warps per slab; head slices of wider
+    # tensors and views off 16 bytes (copied once by the wrappers) of q, k,
+    # v, O and dO, bit-equal to contiguous copies
+    edges = []
+    for dd in (64, 192, 256, 320, 512):
+        for s in (1, 63, 65, 77, 129):
+            for sq, sk in ((s, s), (s, 77), (77, s)):
+                q, do = (torch.randn((2, sq, 2, dd), generator=gen, device="cuda").to(torch.bfloat16)
+                         for _ in range(2))
+                k, v = (torch.randn((2, sk, 2, dd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+                o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+                c = check_kgrid_bwd(q, k, v, o, lse, do, f"ragged Sq {sq} Sk {sk} d {dd} bf16")
+                edges.append(dict(sq=sq, sk=sk, head_dim=dd, max_abs_err=c["max_abs_err"], tol=c["tol"]))
+                note(c)
+    for dd in (192, 512):
+        for kind, make in (("strided", lambda n: torch.randn((2, n, 4, dd), generator=gen, device="cuda").to(
+                               torch.bfloat16)[:, :, 1::2]),
+                           ("unaligned", lambda n: torch.randn((2, n, 2, dd + 8), generator=gen, device="cuda").to(
+                               torch.bfloat16)[..., 1:dd + 1])):
+            q, k, v, o, do = make(300), make(200), make(200), make(300), make(300)
+            out, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+            o.copy_(out)
+            before = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+            c = check_kgrid_bwd(q, k, v, o, lse, do, f"{kind} views d {dd} bf16")
+            contiguous = kgrid_bwd_all(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous(), dd**-0.5)
+            same = all(torch.equal(x, y) for x, y in zip(c["grads"], contiguous))
+            launched = (kg.flash_attention_kgrid_bwd_dq.launches - before[0],
+                        kg.flash_attention_kgrid_bwd_dkv.launches - before[1])
+            edges.append(dict(sq=300, sk=200, head_dim=dd, views=kind, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                              equals_contiguous=same, launches=launched))
+            note(c)
+            if not same or launched != (2, 2):
+                raise AssertionError(f"K4b/K4c on {kind} views: {edges[-1]}")
+    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_ragged_and_views_bf16=edges))
 
     # d 64: K4b/K4c against K2/K3 on the same inputs and K1's O and lse
     versus = []
@@ -928,8 +1024,7 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
                                    (dq2, delta2, dk3, dv3), dtype)
             versus.append(dict(dtype=str(dtype), b=b, sq=s_q, sk=s_k, heads=hh, head_dim=64, max_abs_err=errs,
                                tol=tols))
-            errs_b.append(errs["dq"])
-            errs_c.append(max(errs["dk"], errs["dv"]))
+            note(dict(max_abs_err=errs))
             del q, k, v, o, lse, do, k4, dq2, dk3, dv3
             torch.cuda.empty_cache()
     emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_vs_k2_k3=versus))
@@ -1173,7 +1268,8 @@ def device_profile(fn) -> dict:
                        ("k2", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_dq_merge_kernel")),
                        ("k3", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_dkv_merge_kernel")),
                        ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_merge_kernel")),
-                       ("k4b", ("kgrid_bwd_dq_kernel",)), ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_dkv_merge_kernel"))):
+                       ("k4b", ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel")),
+                       ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel"))):
         secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
         out[f"{key}_seconds"] = secs
         out[f"{key}_share_of_busy"] = secs / busy if busy else "not measured"
@@ -1636,6 +1732,11 @@ def main() -> int:
             bound_by=kb_main["k4b_bound_by"],
             library_ms=kb_main["library_ms"],
             library="SDPA backward (dQ, dK, dV together)",
+            host_us_per_call=kb_main["k4b_host_us_per_call"],
+            splits=kb_main["k4b_splits"],
+            tflops=kb_main["k4b_tflops"],
+            share_of_bound=kb_main["k4b_share_of_bound"],
+            over_library=kb_main["k4b_over_library"],
             at=at_kb,
         ),
         dict(
@@ -1652,6 +1753,11 @@ def main() -> int:
             bound_by=kb_main["k4c_bound_by"],
             library_ms=kb_main["library_ms"],
             library="SDPA backward (dQ, dK, dV together)",
+            host_us_per_call=kb_main["k4c_host_us_per_call"],
+            splits=kb_main["dkv_splits"],
+            tflops=kb_main["k4c_tflops"],
+            share_of_bound=kb_main["k4c_share_of_bound"],
+            over_library=kb_main["k4c_over_library"],
             at=at_kb,
         ),
     ]

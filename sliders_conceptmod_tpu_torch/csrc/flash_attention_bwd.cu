@@ -27,6 +27,11 @@
 //
 // By dtype:
 //
+// The bf16 kernels' bodies (bwd_dq_tc, bwd_dkv_tc and their merges dq_merge,
+// dkv_merge) live in hopper_tc.cuh, where K4b/K4c (flash_attention_kgrid_bwd.cu)
+// run them at other block shapes; the kernels here are thin wrappers that fix
+// this file's shapes (DqCfg, DkvCfg) and names.
+//
 // K2, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores (mma.sync
 // m16n8k16, bf16 operands, fp32 accumulators); the mirror image of K3's
 // loop. Design:
@@ -136,10 +141,8 @@ __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
 
-// (batch, seq, head) element strides of the six tensors a kernel touches
-struct Strides {
-  long long t[6][3];
-};
+using hopper::Strides;
+using hopper::unpack;
 
 template <int D>
 struct Smem {
@@ -398,525 +401,70 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(
   }
 }
 
-Strides unpack(const long long* s) {
-  Strides st;
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 3; ++j) st.t[i][j] = s[3 * i + j];
-  return st;
-}
-
 // ---------------------------------------------------------------------------
-// K3 for bfloat16: tensor cores (mma.sync m16n8k16), cp.async-fed
+// K2 and K3 for bfloat16: the tensor-core loops of hopper_tc.cuh (bwd_dq_tc,
+// bwd_dkv_tc) at this file's block shapes, under kernel names of their own
 // ---------------------------------------------------------------------------
 namespace tc {
 
 using namespace hopper;
 
-constexpr int DKV_THREADS = 128;  // four warps, 16 keys each
-constexpr int DKV_BN = 64;        // keys per block
-constexpr int SPLIT_ROWS = 64;    // the query range splits in whole 64-row units
-
-// Shared memory of one block: the key tile's K and V (resident), and a
-// 2-stage ring of q tiles (Q, dO, lse, delta). bf16 rows of D elements,
-// 16-byte chunks XOR-swizzled by (row & 7) so that ldmatrix's eight rows
-// hit distinct banks.
+// K2: four warps per 64-row q tile, 64-key tiles, the key range split in
+// 64-key units
 template <int D>
-struct DkvLayout {
-  static constexpr int BQ = D == 64 ? 64 : 32;  // q rows per streamed tile (32 at D 128 keeps dK, dV in registers)
-  static constexpr int ROW = D * 2;
-  static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = DKV_BN * ROW;
-  static constexpr int RING_OFF = 2 * DKV_BN * ROW;
-  static constexpr int Q_OFF = 0;
-  static constexpr int G_OFF = BQ * ROW;
-  static constexpr int L_OFF = 2 * BQ * ROW;
-  static constexpr int DL_OFF = L_OFF + BQ * 4;
-  static constexpr int STAGE = DL_OFF + BQ * 4;
-  static constexpr int BYTES = RING_OFF + 2 * STAGE;
-};
-
-// rows [r0, r0 + ROWS) of a bf16 BSHD slice into a swizzled tile; rows at or
-// past n are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, long long row_stride, int r0,
-                                          int n) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += DKV_THREADS) {
-    const int r = i / CH;
-    const int c = i - r * CH;
-    const bool ok = r0 + r < n;
-    cp_async16(swz<D>(dst, r, c), src + (ok ? (long long)(r0 + r) * row_stride : 0) + c * 8, ok);
-  }
-}
-
-// acc[16 keys x N] += A[16 keys x 16k] B[16k x N] for the k-slices of one
-// operand pair: A fragments from the warp's key rows of `a_tile` (row-major
-// [key][d]) at d-chunks 2kk, 2kk + 1; used for S^T = K Q^T and dP^T = V dO^T
-// with B = the q tile read as [q][d] (non-transposed ldmatrix).
-template <int D, int BQ>
-__device__ __forceinline__ void keys_by_q(float (&acc)[BQ / 8][4], uint32_t a_tile, uint32_t b_tile, int krow,
-                                          int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, swz<D>(a_tile, krow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      uint32_t bq[4];
-      ldsm_x4(bq, swz<D>(b_tile, 16 * j + ((lane >> 4) << 3) + (lane & 7), 2 * kk + ((lane >> 3) & 1)));
-      mma_bf16(acc[2 * j], a, bq[0], bq[1]);
-      mma_bf16(acc[2 * j + 1], a, bq[2], bq[3]);
-    }
-  }
-}
-
-// acc[16 keys x D] += P[16 keys x BQ] X[BQ x D]: A = P from registers (the
-// accumulator layout of keys_by_q, rounded to bf16), B = the q tile X read
-// as [q][d] with the transposing ldmatrix; used for dV += P^T dO and
-// dK += dS^T Q.
-template <int D, int BQ>
-__device__ __forceinline__ void keys_by_d(float (&acc)[D / 8][4], const float (&p)[BQ / 8][4], uint32_t x_tile,
-                                          int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      uint32_t bx[4];
-      ldsm_x4_t(bx, swz<D>(x_tile, 16 * kk + (lane & 15), 2 * n + (lane >> 4)));
-      mma_bf16(acc[2 * n], a, bx[0], bx[1]);
-      mma_bf16(acc[2 * n + 1], a, bx[2], bx[3]);
-    }
-  }
-}
-
-// K3: dK and dV for one (batch*head, 64-key tile, split of the query range).
-// splits == 1 writes dK, dV (bf16, their own strides); splits > 1 writes
-// fp32 partials [splits, B*H, Sk, D] that flash_dkv_merge_kernel sums.
+using DqCfg = BwdCfg<D, 4, 1, 64, 64>;
+// K3: four warps per 64-key tile; q tiles of 64 rows at D 64 and 32 at D 128
+// (which keeps dK, dV in registers); the query range split in 64-row units
 template <int D>
-__global__ void __launch_bounds__(DKV_THREADS) flash_bwd_dkv_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
-    float* __restrict__ part_dv, int H, int Sq, int Sk, int splits, Strides st, float scale) {
-  using L = DkvLayout<D>;
-  constexpr int BQ = L::BQ;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  const uint32_t base = smem_u32(smem_raw);
-  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int krow = warp * 16;  // the warp's 16 keys of the tile
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.x * DKV_BN;
-  const int split = blockIdx.z;
-  const int per = ((Sq + SPLIT_ROWS - 1) / SPLIT_ROWS + splits - 1) / splits * SPLIT_ROWS;
-  const int lo = min(Sq, split * per);
-  const int hi = min(Sq, lo + per);
-  const int n_tiles = (hi - lo + BQ - 1) / BQ;
-
-  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const __nv_bfloat16* gb = dout + b * st.t[3][0] + h * st.t[3][2];
-  const float* lse_b = lse + (long long)bh * Sq;
-  const float* delta_b = delta + (long long)bh * Sq;
-
-  auto load_q_tile = [&](int stage, int i0) {
-    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
-    load_rows<D, BQ>(ring + L::Q_OFF, qb, st.t[0][1], i0, Sq);
-    load_rows<D, BQ>(ring + L::G_OFF, gb, st.t[3][1], i0, Sq);
-    for (int i = tid; i < BQ; i += DKV_THREADS) {
-      const bool ok = i0 + i < Sq;
-      cp_async4(ring + L::L_OFF + 4 * i, lse_b + (ok ? i0 + i : 0), ok);
-      cp_async4(ring + L::DL_OFF + 4 * i, delta_b + (ok ? i0 + i : 0), ok);
-    }
-  };
-
-  load_rows<D, DKV_BN>(sK, kb, st.t[1][1], k0, Sk);
-  load_rows<D, DKV_BN>(sV, vb, st.t[2][1], k0, Sk);
-  if (n_tiles > 0) load_q_tile(0, lo);
-  cp_async_commit();
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-  const float scale_log2 = scale * LOG2E;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int i0 = lo + it * BQ;
-    if (it + 1 < n_tiles) {
-      load_q_tile((it + 1) & 1, i0 + BQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t ring = base + L::RING_OFF + (it & 1) * L::STAGE;
-    const uint32_t sQ = ring + L::Q_OFF, sG = ring + L::G_OFF;
-    const float* sL = reinterpret_cast<const float*>(smem_raw + L::RING_OFF + (it & 1) * L::STAGE + L::L_OFF);
-    const float* sD = reinterpret_cast<const float*>(smem_raw + L::RING_OFF + (it & 1) * L::STAGE + L::DL_OFF);
-
-    // S^T = K Q^T, then P^T = exp(scale S^T - lse): chunk c holds q columns
-    // 8c + 2t (+1) of key rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float p[BQ / 8][4];
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
-    keys_by_q<D, BQ>(p, sK, sQ, krow, lane);
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * c + 2 * t + (e & 1);
-        // padded query rows would add to dK and dV: their P is an exact 0
-        p[c][e] = i0 + col < Sq ? exp2f(fmaf(p[c][e], scale_log2, -sL[col] * LOG2E)) : 0.f;
-      }
-    keys_by_d<D, BQ>(acc_dv, p, sG, lane);  // dV += P^T dO
-
-    // dP^T = V dO^T, then dS^T = P^T o (dP^T - delta)
-    float ds[BQ / 8][4];
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
-    keys_by_q<D, BQ>(ds, sV, sG, krow, lane);
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - sD[8 * c + 2 * t + (e & 1)]);
-    keys_by_d<D, BQ>(acc_dk, ds, sQ, lane);  // dK += dS^T Q (scaled at the end)
-    __syncthreads();  // the stage is free for the tile after next
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + krow + g + 8 * r;
-    if (key >= Sk) continue;
-    if (splits == 1) {
-      __nv_bfloat16* krow_p = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1];
-      __nv_bfloat16* vrow_p = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(krow_p + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(vrow_p + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
-      }
-    } else {
-      const long long row = ((long long)split * gridDim.y + bh) * Sk + key;
-      float* pk = part_dk + row * D;
-      float* pv = part_dv + row * D;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<float2*>(pk + 8 * n + 2 * t) =
-            make_float2(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(pv + 8 * n + 2 * t) = make_float2(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
-      }
-    }
-  }
-}
-
-// dK, dV = the sum of the splits' fp32 partials, in split order (no atomics:
-// two runs give the same bits); one thread per (batch*head, key, column pair)
-template <int D>
-__global__ void flash_dkv_merge_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
-                                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH, int H,
-                                       int Sk, int splits, Strides st) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long plane = (long long)BH * Sk * D;
-  if (2 * i >= plane) return;
-  const int col = (int)(2 * i % D);
-  const long long row = 2 * i / D;  // bh * Sk + key
-  const int key = (int)(row % Sk);
-  const int bh = (int)(row / Sk);
-  const int b = bh / H;
-  const int h = bh - b * H;
-  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
-  for (int s = 0; s < splits; ++s) {
-    const float2 a = *reinterpret_cast<const float2*>(part_dk + s * plane + 2 * i);
-    const float2 c = *reinterpret_cast<const float2*>(part_dv + s * plane + 2 * i);
-    sk.x += a.x;
-    sk.y += a.y;
-    sv.x += c.x;
-    sv.y += c.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col) =
-      __floats2bfloat162_rn(sk.x, sk.y);
-  *reinterpret_cast<__nv_bfloat162*>(dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col) =
-      __floats2bfloat162_rn(sv.x, sv.y);
-}
+using DkvCfg = BwdCfg<D, 4, 1, D == 64 ? 64 : 32, 64>;
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-               void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
-               const long long* s, float scale, cudaStream_t stream) {
-  // cp.async moves 16-byte chunks: q, k, v and dO rows must start on 16 bytes
-  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
-      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(dout, s[9], s[10], s[11], B, Sq, H))
-    return (int)cudaErrorInvalidValue;
-  if (splits < 1 || (splits > 1 && (part_dk == nullptr || part_dv == nullptr))) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dkv_tc_kernel<D>;
-  constexpr int smem = DkvLayout<D>::BYTES;
-  static uint64_t smem_set = 0;
-  cudaError_t err = allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const Strides st = unpack(s);
-  dim3 grid((Sk + DKV_BN - 1) / DKV_BN, B * H, splits);
-  kernel<<<grid, DKV_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), part_dk, part_dv, H, Sq, Sk, splits, st, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long pairs = (long long)B * H * Sk * D / 2;
-  flash_dkv_merge_kernel<D><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-      part_dk, part_dv, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B * H, H, Sk, splits, st);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K2 for bfloat16: tensor cores (mma.sync m16n8k16), cp.async-fed
-// ---------------------------------------------------------------------------
-
-constexpr int DQ_THREADS = 128;  // four warps, 16 q rows each
-constexpr int DQ_BM = 64;        // q rows per block
-constexpr int DQ_BN = 64;        // keys per streamed tile, and the unit of the key-range split
-
-// Shared memory of one block: the q tile's Q and dO (resident), and a
-// 2-stage ring of key tiles (K, V), bf16 rows swizzled as in K3.
-template <int D>
-struct DqLayout {
-  static constexpr int ROW = D * 2;
-  static constexpr int Q_OFF = 0;
-  static constexpr int G_OFF = DQ_BM * ROW;
-  static constexpr int RING_OFF = 2 * DQ_BM * ROW;
-  static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = DQ_BN * ROW;
-  static constexpr int STAGE = 2 * DQ_BN * ROW;
-  static constexpr int BYTES = RING_OFF + 2 * STAGE;
-};
-
-// the sum of the eight products of two 16-byte chunks of bf16 pairs, in fp32
-__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
-  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
-    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
-  }
-  return acc;
-}
-
-// K2: dQ for one (batch*head, 64-row q tile, split of the key range).
-// splits == 1 writes dQ (bf16, its own strides); splits > 1 writes unscaled
-// fp32 partials [splits, B*H, Sq, D] that flash_dq_merge_kernel sums. Every
-// split computes delta for its rows; split 0 writes it for K3.
-template <int D>
-__global__ void __launch_bounds__(DQ_THREADS) flash_bwd_dq_tc_kernel(
+__global__ void __launch_bounds__(DqCfg<D>::THREADS) flash_bwd_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, float* __restrict__ part_dq, int H, int Sq, int Sk,
     int splits, Strides st, float scale) {
-  using L = DqLayout<D>;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  const uint32_t base = smem_u32(smem_raw);
-  const uint32_t sQ = base + L::Q_OFF, sG = base + L::G_OFF;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qrow = warp * 16;  // the warp's 16 q rows of the tile
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * DQ_BM;
-  const int split = blockIdx.z;
-  const int per = ((Sk + DQ_BN - 1) / DQ_BN + splits - 1) / splits * DQ_BN;
-  const int lo = min(Sk, split * per);
-  const int hi = min(Sk, lo + per);
-  const int n_tiles = (hi - lo + DQ_BN - 1) / DQ_BN;
-
-  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const __nv_bfloat16* ob = o + b * st.t[3][0] + h * st.t[3][2];
-  const __nv_bfloat16* gb = dout + b * st.t[4][0] + h * st.t[4][2];
-
-  auto load_kv_tile = [&](int stage, int k0) {
-    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
-    load_rows<D, DQ_BN>(ring + L::K_OFF, kb, st.t[1][1], k0, Sk);
-    load_rows<D, DQ_BN>(ring + L::V_OFF, vb, st.t[2][1], k0, Sk);
-  };
-
-  load_rows<D, DQ_BM>(sQ, qb, st.t[0][1], q0, Sq);
-  load_rows<D, DQ_BM>(sG, gb, st.t[4][1], q0, Sq);
-  cp_async_commit();
-  if (n_tiles > 0) load_kv_tile(0, lo);
-  cp_async_commit();
-
-  // this thread's rows g and g + 8 of the warp's 16: lse, and delta =
-  // rowsum(dO o O) in fp32, the four threads of a quad splitting the head dim
-  float lse_l2[2], dl[2];
-  cp_async_wait<1>();  // Q and dO have landed
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow + g + 8 * r;
-    const int qi = q0 + row;
-    float acc = 0.f;
-    if (qi < Sq) {
-      const __nv_bfloat16* orow = ob + (long long)qi * st.t[3][1];
-#pragma unroll
-      for (int c = t * (CH / 4); c < (t + 1) * (CH / 4); ++c)
-        acc += dot8_bf16(*reinterpret_cast<const uint4*>(orow + 8 * c),
-                         *reinterpret_cast<const uint4*>(smem_raw + swz<D>(L::G_OFF, row, c)));
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    dl[r] = acc;
-    lse_l2[r] = qi < Sq ? lse[(long long)bh * Sq + qi] * LOG2E : 0.f;
-    if (split == 0 && t == 0 && qi < Sq) delta[(long long)bh * Sq + qi] = acc;
-  }
-
-  float acc_dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dq[n][e] = 0.f;
-  const float scale_log2 = scale * LOG2E;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = lo + it * DQ_BN;
-    if (it + 1 < n_tiles) {
-      load_kv_tile((it + 1) & 1, k0 + DQ_BN);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t ring = base + L::RING_OFF + (it & 1) * L::STAGE;
-    const uint32_t sK = ring + L::K_OFF, sV = ring + L::V_OFF;
-
-    // S = Q K^T, then P = exp(scale S - lse): chunk c holds keys 8c + 2t (+1)
-    // of q rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float p[DQ_BN / 8][4];
-#pragma unroll
-    for (int c = 0; c < DQ_BN / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
-    keys_by_q<D, DQ_BN>(p, sQ, sK, qrow, lane);
-#pragma unroll
-    for (int c = 0; c < DQ_BN / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // keys past the split's end (Sk) would add to dQ: their P is an exact 0
-        const bool ok = k0 + 8 * c + 2 * t + (e & 1) < hi;
-        p[c][e] = ok ? exp2f(fmaf(p[c][e], scale_log2, -lse_l2[e >> 1])) : 0.f;
-      }
-
-    // dP = dO V^T, then dS = P o (dP - delta), then dQ += dS K
-    float ds[DQ_BN / 8][4];
-#pragma unroll
-    for (int c = 0; c < DQ_BN / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
-    keys_by_q<D, DQ_BN>(ds, sG, sV, qrow, lane);
-#pragma unroll
-    for (int c = 0; c < DQ_BN / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - dl[e >> 1]);
-    keys_by_d<D, DQ_BN>(acc_dq, ds, sK, lane);
-    __syncthreads();  // the stage is free for the tile after next
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + qrow + g + 8 * r;
-    if (qi >= Sq) continue;
-    if (splits == 1) {
-      __nv_bfloat16* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(scale * acc_dq[n][2 * r], scale * acc_dq[n][2 * r + 1]);
-    } else {
-      float* row = part_dq + (((long long)split * gridDim.y + bh) * Sq + qi) * D;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(row + 8 * n + 2 * t) = make_float2(acc_dq[n][2 * r], acc_dq[n][2 * r + 1]);
-    }
-  }
+  bwd_dq_tc<DqCfg<D>>(q, k, v, o, dout, lse, delta, dq, part_dq, H, Sq, Sk, splits, st, scale);
 }
 
-// dQ = scale * the sum of the splits' fp32 partials, in split order (no
-// atomics: two runs give the same bits); one thread per (batch*head, row,
-// column pair)
 template <int D>
 __global__ void flash_dq_merge_kernel(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH, int H,
                                       int Sq, int splits, Strides st, float scale) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long plane = (long long)BH * Sq * D;
-  if (2 * i >= plane) return;
-  const int col = (int)(2 * i % D);
-  const long long row = 2 * i / D;  // bh * Sq + qi
-  const int qi = (int)(row % Sq);
-  const int bh = (int)(row / Sq);
-  const int b = bh / H;
-  const int h = bh - b * H;
-  float2 sum = make_float2(0.f, 0.f);
-  for (int s = 0; s < splits; ++s) {
-    const float2 a = *reinterpret_cast<const float2*>(part_dq + s * plane + 2 * i);
-    sum.x += a.x;
-    sum.y += a.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col) =
-      __floats2bfloat162_rn(scale * sum.x, scale * sum.y);
+  dq_merge<D>(part_dq, dq, BH, H, Sq, splits, st, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
+    float* __restrict__ part_dv, int H, int Sq, int Sk, int splits, Strides st, float scale) {
+  bwd_dkv_tc<DkvCfg<D>>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+}
+
+template <int D>
+__global__ void flash_dkv_merge_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
+                                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH, int H,
+                                       int Sk, int splits, Strides st) {
+  dkv_merge<D>(part_dk, part_dv, dk, dv, BH, H, Sk, splits, st);
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
               float* delta, void* dq, float* part_dq, int B, int H, int Sq, int Sk, int splits, const long long* s,
               float scale, cudaStream_t stream) {
-  // cp.async and the delta prologue move 16-byte chunks: q, k, v, o and dO
-  // rows must start on 16 bytes
-  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
-      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(o, s[9], s[10], s[11], B, Sq, H) ||
-      !rows_aligned(dout, s[12], s[13], s[14], B, Sq, H))
-    return (int)cudaErrorInvalidValue;
-  if (splits < 1 || (splits > 1 && part_dq == nullptr)) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dq_tc_kernel<D>;
-  constexpr int smem = DqLayout<D>::BYTES;
   static uint64_t smem_set = 0;
-  cudaError_t err = allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const Strides st = unpack(s);
-  dim3 grid((Sq + DQ_BM - 1) / DQ_BM, B * H, splits);
-  kernel<<<grid, DQ_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), part_dq, H, Sq, Sk, splits, st, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long pairs = (long long)B * H * Sq * D / 2;
-  flash_dq_merge_kernel<D><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-      part_dq, static_cast<__nv_bfloat16*>(dq), B * H, H, Sq, splits, st, scale);
-  return (int)cudaGetLastError();
+  return launch_bwd_dq<DqCfg<D>>(flash_bwd_dq_tc_kernel<D>, flash_dq_merge_kernel<D>, smem_set, q, k, v, o, dout, lse,
+                                 delta, dq, part_dq, B, H, Sq, Sk, splits, s, scale, stream);
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
+               const long long* s, float scale, cudaStream_t stream) {
+  static uint64_t smem_set = 0;
+  return launch_bwd_dkv<DkvCfg<D>>(flash_bwd_dkv_tc_kernel<D>, flash_dkv_merge_kernel<D>, smem_set, q, k, v, dout,
+                                   lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, s, scale, stream);
 }
 
 }  // namespace tc

@@ -1,8 +1,8 @@
 // K-grid flash-attention backward for Hopper (sm_90a): bidirectional (no
-// mask), fp32 math, gradients in the input dtype, head dims 64..512
-// (multiples of 64). The backward of K4a (flash_attention_kgrid.cu).
+// mask), gradients in the input dtype, head dims 64..512 (multiples of 64).
+// The backward of K4a (flash_attention_kgrid.cu).
 //
-// K4b kgrid_bwd_dq_kernel replaces the TPU kernel
+// K4b replaces the TPU kernel
 //   sliders_conceptmod_tpu/ops/flash_attention_kgrid.py::_bwd_dq_kernel
 // (launched by _vjp_bwd): dQ = scale * sum_k dS K, accumulated over the key
 // axis, with
@@ -13,60 +13,96 @@
 // prologue from the staged dO rows and writes it as fp32 [B*H, Sq] for K4c,
 // as K2 does for K3.
 //
-// K4c kgrid_bwd_dkv_kernel replaces ::_bwd_dkv_kernel (launched by
-// _vjp_bwd): per key tile, dV = sum_q P^T dO and dK = scale * sum_q dS^T Q,
-// accumulated over the query axis. Query rows past Sq contribute nothing:
-// their P is forced to 0, as the TPU kernel's row mask does.
+// K4c replaces ::_bwd_dkv_kernel (launched by _vjp_bwd): per key tile,
+// dV = sum_q P^T dO and dK = scale * sum_q dS^T Q, accumulated over the
+// query axis. Query rows past Sq contribute nothing: their P is forced to 0,
+// as the TPU kernel's row mask does.
 //
 // The TPU grids are (bh, q block, k block) with k sequential for dQ and
 // (bh, k block, q block) with q sequential for dK/dV; the carry lives in
 // VMEM scratch. On the card blocks run in parallel and in no order, so the
 // sequential axis becomes a loop inside the block over 32-row tiles of the
-// streamed operand (keys for K4b, queries for K4c), staged in shared memory,
-// with the accumulators in registers. K4c may also split its query range
-// across blocks (grid z) when the (key tile, batch*head) grid is too small
-// for the 132 SMs (at Sk = 77 and 8 heads it is 24 blocks): each split
-// writes fp32 partial dK/dV, and kgrid_dkv_merge_kernel sums them in split
-// order. No float atomics: two runs give the same bits.
+// streamed operand (keys for K4b, queries for K4c), with the accumulators in
+// registers. Where the grid is small for the 132 SMs the loop's range is
+// split across blocks (grid z): each split writes fp32 partials, and a merge
+// kernel sums them in split order. No float atomics: two runs give the same
+// bits, as train/checkpoint.py's bit-identical resume needs.
 //
-// Both: keys past Sk and query rows past Sq are staged as zeros and their P
+// Both: keys past Sk and query rows past Sq are loaded as zeros and their P
 // is selected to exactly 0 (never exp of a -1e30 score), so padding adds
 // nothing and makes no NaN. Layout BSHD [B, S, H, D] with arbitrary batch /
 // seq / head strides (in elements) and unit stride over D for every tensor,
 // so autograd's dO (a slice of the padded output's gradient) goes in without
-// a copy. dtypes float32 and bfloat16.
+// a copy.
 //
-// What bounds it on the H100: K4b does 6*BH*Sq*Sk*D flops and K4c
+// What bounds them on the H100: K4b does 6*BH*Sq*Sk*D flops and K4c
 // 8*BH*Sq*Sk*D against a few MB of q, k, v, o, dO, lse, delta and the
-// gradients; at SD1.5's d-160 attentions (padded to 192; 256 or 64 tokens
-// against 256, 64 or 77 keys) that is a few microseconds at the bf16
-// tensor-core rate (989 TFLOP/s) and about as long at the memory rate.
-// These first kernels do NOT reach it: like K1-K4a they keep fp32 math on
-// the CUDA cores (67 TFLOP/s peak), and at these small shapes the grid is a
-// fraction of the SMs. Design, for correctness first:
-//   * 256 threads; each block owns R rows (q rows for K4b, key rows for
-//     K4c) and TPR threads share a row: TPR = 8, R = 32 for D <= 256, and
-//     TPR = 16, R = 16 above, so that the accumulators (D/TPR floats each,
-//     at most 32; K4c keeps two) stay in registers and the staged tiles fit
-//     the 227 KB of shared memory at D = 512 (about 200 KB);
-//   * within a 32-row streamed tile, thread (r, c) takes rows c + TPR*j, so
-//     the TPR lanes of a row reduce nothing but delta (shuffles) and write
-//     their P / dS columns to shared memory, which only the row's own warp
-//     reads back (a __syncwarp orders the two);
-//   * tiles are staged as fp32 with rows padded by 4 floats (float4 reads
-//     of 8 consecutive rows land on distinct banks), in 16-byte chunks with
-//     up to 8 loads in flight per thread when every row starts 16-byte
-//     aligned, element by element otherwise (as K4a stages);
-//   * q is staged pre-scaled, as K4a stages it, so the recomputed scores
-//     are K4a's to the bit: dQ multiplies by scale at the end, dK takes the
-//     scaled q directly.
-// Tensor cores (wgmma) with TMA-fed tiles are the next step.
+// gradients moved once; at SD1.5's d-160 attentions (padded to 192; 256, 64
+// or 16 tokens against as many keys or 77) the bytes bound them (3.35 TB/s:
+// 1.2 us at 256^2 with 8 heads), and a call is a few microseconds of work
+// spread over a grid of a few dozen blocks.
+//
+// By dtype:
+//
+// bfloat16: kgrid_bwd_dq_tc_kernel (K4b) and kgrid_bwd_dkv_tc_kernel (K4c),
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators): thin kernels over the bodies K2 and K3 run
+// (flash_attention_bwd.cu), hopper_tc.cuh's bwd_dq_tc and bwd_dkv_tc, at the
+// block shapes of TcCfg below, which take head dims up to 512. Design:
+//   * a block owns 16-row slabs of the non-streamed axis (K4b: q rows, K4c:
+//     keys): 4 slabs (64 rows) at D <= 128, 2 (32 rows) above; the resident
+//     tiles (K4b: Q, dO; K4c: K, V) stay in shared memory, and 32-row tiles
+//     of the streamed operand (K4b: K, V; K4c: Q, dO, lse, delta) pass
+//     through a 2-stage cp.async ring, rows XOR-swizzled by swz<D>;
+//   * the gradient accumulators of a 16-row slab are 16 x D fp32 (K4c keeps
+//     two), too many registers above D 128. So CS warps share a slab (CS 1
+//     at D <= 128, 2 at D 192/256, 4 above): each computes the slab's S and
+//     dP over the whole head dim (repeated products, no synchronisation)
+//     and owns D / CS of the gradient columns (96 at D 192; at most 128);
+//   * per tile: K4b S = Q K^T, P = exp(scale S - lse) (scale applied to S in
+//     fp32, as K2 does; an exact 0 for keys past the split's end), dP = dO
+//     V^T, dS = P o (dP - delta), dQ += dS K; K4c S^T = K Q^T, P^T (0 on
+//     padded query rows), dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
+//     P and dS are rounded to bf16 straight from the accumulator layout as
+//     the A operand of the next product; delta = rowsum(dO o O) in fp32 in
+//     K4b's prologue (a quad of threads per row, O in 16-byte loads);
+//   * K4b splits its key range and K4c its query range in 32-row units when
+//     the grid is under two waves of the 132 SMs
+//     (ops/flash_attention_kgrid.py::pick_k4b_splits, pick_dkv_splits):
+//     SD1.5's 256^2 with 8 heads runs 128 blocks of 2 splits instead of 64.
+//     K4b's unscaled partials are summed in split order, then scaled, by
+//     kgrid_dq_merge_kernel; K4c's (dK already scaled) by
+//     kgrid_dkv_merge_kernel (hopper_tc.cuh's dq_merge and dkv_merge, as K2's
+//     and K3's merges run them). Only split 0 writes delta.
+//   Shared memory: K4b 32-192 KB, K4c 32.5-192.5 KB (D 64-512; 72 / 72.5
+//   KB at D 192). ptxas, registers at D 64 / 128 / 192 / 256 / 320 / 384 /
+//   448 / 512: K4b 126 / 174 / 168 / 221 / 177 / 179 / 255 / 247, K4c 168 /
+//   241 / 243 / 255 / 253 / 251 / 255 / 252, the merges 32-34. No spills but
+//   at K4b's D 448 (40 bytes), a head dim no path differentiates.
+//   cp.async moves 16-byte chunks: the wrappers make one contiguous copy of
+//   a bf16 tensor whose rows do not start on 16 bytes, and these entry
+//   points return cudaErrorInvalidValue for one that reaches them anyway.
+//
+// float32 keeps the first (SIMT) kernels kgrid_bwd_dq_kernel and
+// kgrid_bwd_dkv_kernel, unchanged: fp32 math on the CUDA cores, because TF32
+// tensor cores would break the fp32 bound of 1e-4 against the plain version.
+// 256 threads; each block owns R rows (q rows for K4b, key rows for K4c) and
+// TPR threads share a row: TPR = 8, R = 32 for D <= 256, and TPR = 16, R =
+// 16 above, so that the accumulators stay in registers; 32-row streamed
+// tiles staged as fp32 with rows padded by 4 floats, P and dS through shared
+// memory; q staged pre-scaled, as K4a's SIMT kernel stages it. Only K4c
+// splits (its query range, in 32-row tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_tc.cuh"
+
 namespace {
+
+using hopper::Strides;
+using hopper::unpack;
 
 constexpr int NTHREADS = 256;
 constexpr int BS = 32;  // rows of the streamed operand per tile
@@ -95,10 +131,6 @@ template <>
 __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -106,13 +138,9 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// One 16-byte chunk of T (4 fp32 or 8 bf16), as fp32 times `mul`, into
-// shared memory at `out` (16-byte aligned). A bf16 is the top half of an fp32.
+// One 16-byte chunk of T (4 fp32), as fp32 times `mul`, into shared memory at
+// `out` (16-byte aligned).
 template <typename T>
 __device__ __forceinline__ void store_chunk(const uint4& raw, float* out, float mul);
 template <>
@@ -120,17 +148,6 @@ __device__ __forceinline__ void store_chunk<float>(const uint4& raw, float* out,
   *reinterpret_cast<float4*>(out) = make_float4(__uint_as_float(raw.x) * mul, __uint_as_float(raw.y) * mul,
                                                 __uint_as_float(raw.z) * mul, __uint_as_float(raw.w) * mul);
 }
-template <>
-__device__ __forceinline__ void store_chunk<__nv_bfloat16>(const uint4& raw, float* out, float mul) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    *reinterpret_cast<float4*>(out + 4 * h) = make_float4(
-        __uint_as_float(w[2 * h] << 16) * mul, __uint_as_float(w[2 * h] & 0xffff0000u) * mul,
-        __uint_as_float(w[2 * h + 1] << 16) * mul, __uint_as_float(w[2 * h + 1] & 0xffff0000u) * mul);
-  }
-}
-
 // Stages rows [row0, row0 + ROWS) of one (batch, head) slice (row i at
 // src + i * rs, D contiguous elements) into shared memory as fp32 times
 // `mul`, row i - row0 at dst + (i - row0) * (D + 4); rows at or past `limit`
@@ -188,11 +205,6 @@ __device__ __forceinline__ void axpy4(float (&acc)[4], float a, const float4& x)
   acc[2] = fmaf(a, x.z, acc[2]);
   acc[3] = fmaf(a, x.w, acc[3]);
 }
-
-// (batch, seq, head) element strides of the six tensors a kernel touches
-struct Strides {
-  long long t[6][3];
-};
 
 // K4b: dQ for one (R-row q tile, batch*head); also writes delta for its rows.
 // Strides: q, k, v, o, dO, dQ.
@@ -446,13 +458,6 @@ __global__ void __launch_bounds__(MERGE_THREADS) kgrid_dkv_merge_kernel(
   }
 }
 
-Strides unpack(const long long* s) {
-  Strides st;
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 3; ++j) st.t[i][j] = s[3 * i + j];
-  return st;
-}
-
 // 16-byte staging when every staged tensor's rows start 16-byte aligned:
 // aligned bases and batch/seq/head strides in whole 16-byte chunks. `which`
 // lists the staged tensors' indices into the 6 pointers / stride triples.
@@ -514,30 +519,100 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K4b / K4c for bfloat16: the tensor-core loops of hopper_tc.cuh (bwd_dq_tc,
+// bwd_dkv_tc) at this file's block shapes, under kernel names of their own
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+// Four 16-row slabs a block at D <= 128, two above; 1 / 2 / 4 warps share a
+// slab at D <= 128 / 192-256 / 320-512; 32-row streamed tiles, which are also
+// the unit of both splits.
+template <int D>
+using TcCfg = BwdCfg<D, D <= 128 ? 4 : 2, D <= 128 ? 1 : D <= 256 ? 2 : 4, 32, 32>;
+
+template <int D>
+__global__ void __launch_bounds__(TcCfg<D>::THREADS) kgrid_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, float* __restrict__ part_dq, int H, int Sq, int Sk,
+    int splits, Strides st, float scale) {
+  bwd_dq_tc<TcCfg<D>>(q, k, v, o, dout, lse, delta, dq, part_dq, H, Sq, Sk, splits, st, scale);
+}
+
+template <int D>
+__global__ void kgrid_dq_merge_kernel(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH, int H,
+                                      int Sq, int splits, Strides st, float scale) {
+  dq_merge<D>(part_dq, dq, BH, H, Sq, splits, st, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcCfg<D>::THREADS) kgrid_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
+    float* __restrict__ part_dv, int H, int Sq, int Sk, int splits, Strides st, float scale) {
+  bwd_dkv_tc<TcCfg<D>>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+}
+
+template <int D>
+__global__ void kgrid_dkv_merge_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
+                                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH, int H,
+                                       int Sk, int splits, Strides st) {
+  dkv_merge<D>(part_dk, part_dv, dk, dv, BH, H, Sk, splits, st);
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+              float* delta, void* dq, float* part_dq, int B, int H, int Sq, int Sk, int splits, const long long* s,
+              float scale, cudaStream_t stream) {
+  static uint64_t smem_set = 0;
+  return launch_bwd_dq<TcCfg<D>>(kgrid_bwd_dq_tc_kernel<D>, kgrid_dq_merge_kernel<D>, smem_set, q, k, v, o, dout,
+                                 lse, delta, dq, part_dq, B, H, Sq, Sk, splits, s, scale, stream);
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
+               const long long* s, float scale, cudaStream_t stream) {
+  static uint64_t smem_set = 0;
+  return launch_bwd_dkv<TcCfg<D>>(kgrid_bwd_dkv_tc_kernel<D>, kgrid_dkv_merge_kernel<D>, smem_set, q, k, v, dout,
+                                  lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, s, scale, stream);
+}
+
+}  // namespace tc
+
 #define KGRID_HEAD_DIM_CASES(X) X(64) X(128) X(192) X(256) X(320) X(384) X(448) X(512)
 
-template <typename T>
-int dispatch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-                float* delta, void* dq, int B, int H, int Sq, int Sk, int D, const long long* strides, float scale,
-                cudaStream_t s) {
+// fp32: the SIMT kernel (one split); bf16: the tensor-core kernel
+int dispatch_dq(int dtype, const void* q, const void* k, const void* v, const void* o, const void* dout,
+                const float* lse, float* delta, void* dq, float* part_dq, int B, int H, int Sq, int Sk, int D,
+                int splits, const long long* strides, float scale, cudaStream_t s) {
   switch (D) {
-#define CASE(DD) \
-  case DD: return launch_dq<T, DD>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+#define CASE(DD)                                                                                               \
+  case DD:                                                                                                     \
+    return dtype == 0 ? launch_dq<float, DD>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s) \
+                      : tc::launch_dq<DD>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits,      \
+                                          strides, scale, s);
     KGRID_HEAD_DIM_CASES(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-                 void* dk, void* dv, float* pdk, float* pdv, int B, int H, int Sq, int Sk, int D, int splits,
-                 const long long* strides, float scale, cudaStream_t s) {
+int dispatch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, void* dk, void* dv, float* pdk, float* pdv, int B, int H, int Sq, int Sk, int D,
+                 int splits, const long long* strides, float scale, cudaStream_t s) {
   switch (D) {
-#define CASE(DD)                                                                                                  \
-  case DD:                                                                                                        \
-    return launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, pdk, pdv, B, H, Sq, Sk, splits, strides, scale, \
-                             s);
+#define CASE(DD)                                                                                                   \
+  case DD:                                                                                                         \
+    return dtype == 0 ? launch_dkv<float, DD>(q, k, v, dout, lse, delta, dk, dv, pdk, pdv, B, H, Sq, Sk, splits, \
+                                              strides, scale, s)                                                   \
+                      : tc::launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, pdk, pdv, B, H, Sq, Sk, splits,      \
+                                           strides, scale, s);
     KGRID_HEAD_DIM_CASES(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -555,36 +630,33 @@ bool shape_ok(int B, int H, int Sq, int Sk) { return B > 0 && H > 0 && Sq > 0 &&
 //
 // K4b. strides: 18 element strides, (batch, seq, head) for q, k, v, o, dO,
 // dQ in turn. lse [B*H, Sq] fp32 in (as K4a wrote it); delta [B*H, Sq] fp32
-// out.
+// out. bfloat16 runs the tensor-core kernel over `splits` ranges of the key
+// axis (fp32 partials part_dq [splits, B*H, Sq, D], then the merge; unused
+// when splits is 1); float32 runs the SIMT kernel, which does not split.
 extern "C" int flash_attention_kgrid_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                            const void* dout, const float* lse, float* delta, void* dq, int dtype,
-                                            int B, int H, int Sq, int Sk, int D, const long long* strides,
-                                            float scale, void* stream) {
-  if (!shape_ok(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dq<float>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D, strides, scale, s);
-  if (dtype == 1)
-    return dispatch_dq<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                            const void* dout, const float* lse, float* delta, void* dq,
+                                            float* part_dq, int dtype, int B, int H, int Sq, int Sk, int D,
+                                            int splits, const long long* strides, float scale, void* stream) {
+  if (!shape_ok(B, H, Sq, Sk) || splits < 1 || splits > MAX_SPLITS || (dtype == 0 && splits != 1) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return dispatch_dq(dtype, q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, D, splits, strides, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // K4c. strides: 18 element strides, (batch, seq, head) for q, k, v, dO, dK,
 // dV in turn. lse and delta [B*H, Sq] fp32 in (delta as K4b wrote it, on the
 // same stream). splits > 1 needs part_dk / part_dv [splits, B*H, Sk, D],
-// fp32 and contiguous; with splits == 1 they are unused.
+// fp32 and contiguous; with splits == 1 they are unused. Both dtypes split
+// the query range in 32-row units.
 extern "C" int flash_attention_kgrid_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                              const float* lse, const float* delta, void* dk, void* dv,
                                              float* part_dk, float* part_dv, int dtype, int B, int H, int Sq,
                                              int Sk, int D, int splits, const long long* strides, float scale,
                                              void* stream) {
-  if (!shape_ok(B, H, Sq, Sk) || splits < 1 || splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, Sq, Sk) || splits < 1 || splits > MAX_SPLITS || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (splits > 1 && (part_dk == nullptr || part_dv == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, D, splits, strides,
-                               scale, s);
-  if (dtype == 1)
-    return dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, D, splits,
-                                       strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dkv(dtype, q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, D, splits, strides,
+                      scale, static_cast<cudaStream_t>(stream));
 }

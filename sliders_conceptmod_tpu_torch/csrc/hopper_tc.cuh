@@ -1,12 +1,18 @@
 // Building blocks of the port's tensor-core kernels for Hopper (sm_90a),
-// shared by K1 (flash_attention_fwd.cu), K2/K3 (flash_attention_bwd.cu) and
-// K4a (flash_attention_kgrid.cu):
+// shared by K1 (flash_attention_fwd.cu), K2/K3 (flash_attention_bwd.cu), K4a
+// (flash_attention_kgrid.cu) and K4b/K4c (flash_attention_kgrid_bwd.cu):
 //   * TMA tile loads completing on shared-memory mbarriers, and the per-call
 //     encode of a 4-D BSHD tensor map (cuTensorMapEncodeTiled through
 //     cudaGetDriverEntryPoint, so no library links -lcuda);
 //   * wgmma: 128-byte-swizzle shared-memory descriptors and the m64nNk16
 //     products the forward kernels issue;
-//   * mma.sync m16n8k16, ldmatrix and cp.async for the backward kernels;
+//   * mma.sync m16n8k16, ldmatrix and cp.async for the backward kernels, and
+//     the backward kernels themselves: the shared-memory layout of a block
+//     (BwdLayout), the swizzled row loads (load_rows), the two products
+//     (keys_by_q, keys_by_d), the bodies of K2/K4b (bwd_dq_tc) and K3/K4c
+//     (bwd_dkv_tc) over a block shape (BwdCfg), their split merges (dq_merge,
+//     dkv_merge) and launches (launch_bwd_dq, launch_bwd_dkv); each source
+//     wraps a body in a __global__ kernel of its own name and shape;
 //   * allow_smem (the dynamic shared-memory attribute, once per device) and
 //     rows_aligned (what cp.async and TMA need of a tensor's rows).
 // Every function is inline; each source that includes this header is built
@@ -199,6 +205,485 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // ---------------------------------------------------------------------------
+// the mma.sync backward loops (K2/K3 in flash_attention_bwd.cu, K4b/K4c in
+// flash_attention_kgrid_bwd.cu)
+// ---------------------------------------------------------------------------
+
+// the sum of the eight products of two 16-byte chunks of bf16 pairs, in fp32
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// Shared memory of a backward block: two resident [ROWS][D] bf16 tiles
+// (K2/K4b: Q and dO; K3/K4c: K and V) and a 2-stage ring of two streamed
+// [TILE][D] bf16 tiles (K2/K4b: K and V; K3/K4c: Q and dO), with SCALARS two
+// fp32 [TILE] vectors per stage (lse and delta). Rows are swizzled by swz<D>;
+// every tile starts on 128 bytes.
+template <int D, int ROWS, int TILE, bool SCALARS>
+struct BwdLayout {
+  static constexpr int ROW = D * 2;
+  static constexpr int A_OFF = 0;  // the resident tiles
+  static constexpr int B_OFF = ROWS * ROW;
+  static constexpr int RING_OFF = 2 * ROWS * ROW;
+  static constexpr int X_OFF = 0;  // the streamed tiles, within a stage
+  static constexpr int Y_OFF = TILE * ROW;
+  static constexpr int L_OFF = 2 * TILE * ROW;
+  static constexpr int DL_OFF = L_OFF + TILE * 4;
+  static constexpr int STAGE = 2 * TILE * ROW + (SCALARS ? 8 * TILE : 0);
+  static constexpr int BYTES = RING_OFF + 2 * STAGE;
+};
+
+// rows [r0, r0 + ROWS) of a bf16 BSHD slice into a swizzled tile by a block of
+// THREADS threads, one 16-byte cp.async per chunk; rows at or past n are
+// zero-filled
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, long long row_stride, int r0,
+                                          int n) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = r0 + r < n;
+    cp_async16(swz<D>(dst, r, c), src + (ok ? (long long)(r0 + r) * row_stride : 0) + c * 8, ok);
+  }
+}
+
+// acc[16 rows x BQ] += A[16 rows x D] B[BQ x D]^T over the whole head dim: A
+// fragments from the warp's rows `row0`.. of `a_tile`, B the rows of `b_tile`
+// (both row-major [row][d], non-transposed ldmatrix). K3/K4c: S^T = K Q^T and
+// dP^T = V dO^T; K2/K4b: S = Q K^T and dP = dO V^T. Chunk c of acc holds
+// columns 8c + 2t (+1) of rows g (e = 0, 1) and g + 8 (e = 2, 3).
+template <int D, int BQ>
+__device__ __forceinline__ void keys_by_q(float (&acc)[BQ / 8][4], uint32_t a_tile, uint32_t b_tile, int row0,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, swz<D>(a_tile, row0 + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      uint32_t bq[4];
+      ldsm_x4(bq, swz<D>(b_tile, 16 * j + ((lane >> 4) << 3) + (lane & 7), 2 * kk + ((lane >> 3) & 1)));
+      mma_bf16(acc[2 * j], a, bq[0], bq[1]);
+      mma_bf16(acc[2 * j + 1], a, bq[2], bq[3]);
+    }
+  }
+}
+
+// acc[16 rows x N] += P[16 rows x BQ] X[BQ x (columns 8*chunk0 .. + N)]: A =
+// P from registers (the accumulator layout of keys_by_q, rounded to bf16), B
+// = N columns of the [BQ][D] tile X from 16-byte chunk `chunk0` (even) on,
+// read with the transposing ldmatrix. K3/K4c: dV += P^T dO, dK += dS^T Q;
+// K2/K4b: dQ += dS K. N = D takes every column; a column split (K4b/K4c
+// above D 128) gives each warp N = D / warps of it.
+template <int D, int N, int BQ>
+__device__ __forceinline__ void keys_by_d(float (&acc)[N / 8][4], const float (&p)[BQ / 8][4], uint32_t x_tile,
+                                          int chunk0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < N / 16; ++n) {
+      uint32_t bx[4];
+      ldsm_x4_t(bx, swz<D>(x_tile, 16 * kk + (lane & 15), chunk0 + 2 * n + (lane >> 4)));
+      mma_bf16(acc[2 * n], a, bx[0], bx[1]);
+      mma_bf16(acc[2 * n + 1], a, bx[2], bx[3]);
+    }
+  }
+}
+
+// (batch, seq, head) element strides of the six tensors a backward kernel
+// touches, in the order of its C entry point
+struct Strides {
+  long long t[6][3];
+};
+
+// The shape of a backward block. It owns SLABS 16-row slabs of the resident
+// axis (K2/K4b: q rows; K3/K4c: keys); CS warps share a slab, each computing
+// the slab's S and dP over the whole head dim and owning DC = D / CS of the
+// gradient columns. The streamed axis (K2/K4b: keys; K3/K4c: q rows) passes
+// in TILE-row tiles through a 2-stage ring, and splits across blocks (grid z)
+// in runs of whole UNIT rows.
+template <int D_, int SLABS, int CS_, int TILE_, int UNIT_>
+struct BwdCfg {
+  static constexpr int D = D_, CS = CS_, TILE = TILE_, UNIT = UNIT_;
+  static constexpr int ROWS = 16 * SLABS;
+  static constexpr int THREADS = 32 * SLABS * CS;
+  static constexpr int DC = D / CS;
+  using DqSmem = BwdLayout<D, ROWS, TILE, false>;  // Q, dO resident; K, V streamed
+  using DkvSmem = BwdLayout<D, ROWS, TILE, true>;  // K, V resident; Q, dO, lse, delta streamed
+  static_assert(DC % 16 == 0, "a warp's columns are whole 16-column ldmatrix blocks");
+  static_assert(UNIT % TILE == 0, "a split is whole tiles");
+};
+
+// [lo, hi) of split `split` of a length-n axis cut in `splits` runs of whole
+// `unit`-row units (ops/flash_attention.py::split_ranges)
+__device__ __forceinline__ int2 split_range(int n, int splits, int split, int unit) {
+  const int per = ((n + unit - 1) / unit + splits - 1) / splits * unit;
+  const int lo = min(n, split * per);
+  return make_int2(lo, min(n, lo + per));
+}
+
+// The body of K2 (flash_bwd_dq_tc_kernel) and K4b (kgrid_bwd_dq_tc_kernel):
+// dQ for one (ROWS-row q tile, batch*head, split of the key range). Per
+// TILE-key tile: S = Q K^T, P = exp(scale S - lse) (scale applied to S in
+// fp32; an exact 0 for keys past the split's end), dP = dO V^T, dS = P o (dP
+// - delta), dQ[:, col0..] += dS K[:, col0..]. delta = rowsum(dO o O) in the
+// prologue (a quad of threads per row, O in 16-byte loads); split 0 writes it.
+// splits == 1 writes dQ (bf16, its own strides); splits > 1 writes unscaled
+// fp32 partials [splits, B*H, Sq, D] for dq_merge. Strides: q, k, v, o, dO, dQ.
+template <class C>
+__device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                                          float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                                          float* __restrict__ part_dq, int H, int Sq, int Sk, int splits, Strides st,
+                                          float scale) {
+  constexpr int D = C::D, TILE = C::TILE;
+  using L = typename C::DqSmem;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(128) uint8_t bwd_smem[];
+  const uint32_t base = smem_u32(bwd_smem);
+  const uint32_t sQ = base + L::A_OFF, sG = base + L::B_OFF;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = warp / C::CS * 16;  // the warp's 16 q rows of the tile
+  const int part = warp % C::CS;       // and its share of dQ's columns:
+  const int col0 = part * C::DC;       // [col0, col0 + DC)
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * C::ROWS;
+  const int split = blockIdx.z;
+  const int2 range = split_range(Sk, splits, split, C::UNIT);
+  const int lo = range.x, hi = range.y;
+  const int n_tiles = (hi - lo + TILE - 1) / TILE;
+
+  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const __nv_bfloat16* ob = o + b * st.t[3][0] + h * st.t[3][2];
+  const __nv_bfloat16* gb = dout + b * st.t[4][0] + h * st.t[4][2];
+
+  auto load_kv_tile = [&](int stage, int k0) {
+    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
+    load_rows<D, TILE, C::THREADS>(ring + L::X_OFF, kb, st.t[1][1], k0, Sk);
+    load_rows<D, TILE, C::THREADS>(ring + L::Y_OFF, vb, st.t[2][1], k0, Sk);
+  };
+
+  load_rows<D, C::ROWS, C::THREADS>(sQ, qb, st.t[0][1], q0, Sq);
+  load_rows<D, C::ROWS, C::THREADS>(sG, gb, st.t[4][1], q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, lo);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of the warp's 16: lse, and delta =
+  // rowsum(dO o O) in fp32, the four threads of a quad splitting the head dim
+  float lse_l2[2], dl[2];
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + g + 8 * r;
+    const int qi = q0 + row;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const __nv_bfloat16* orow = ob + (long long)qi * st.t[3][1];
+#pragma unroll
+      for (int c = t * (CH / 4); c < (t + 1) * (CH / 4); ++c)
+        acc += dot8_bf16(*reinterpret_cast<const uint4*>(orow + 8 * c),
+                         *reinterpret_cast<const uint4*>(bwd_smem + swz<D>(L::B_OFF, row, c)));
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[r] = acc;
+    lse_l2[r] = qi < Sq ? lse[(long long)bh * Sq + qi] * LOG2E : 0.f;
+    if (split == 0 && part == 0 && t == 0 && qi < Sq) delta[(long long)bh * Sq + qi] = acc;
+  }
+
+  float acc_dq[C::DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dq[n][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = lo + it * TILE;
+    if (it + 1 < n_tiles) {
+      load_kv_tile((it + 1) & 1, k0 + TILE);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ring = base + L::RING_OFF + (it & 1) * L::STAGE;
+    const uint32_t sK = ring + L::X_OFF, sV = ring + L::Y_OFF;
+
+    // S = Q K^T, then P = exp(scale S - lse): chunk c holds keys 8c + 2t (+1)
+    // of q rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float p[TILE / 8][4];
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
+    keys_by_q<D, TILE>(p, sQ, sK, qrow, lane);
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // keys past the split's end (Sk) would add to dQ: their P is an exact 0
+        const bool ok = k0 + 8 * c + 2 * t + (e & 1) < hi;
+        p[c][e] = ok ? exp2f(fmaf(p[c][e], scale_log2, -lse_l2[e >> 1])) : 0.f;
+      }
+
+    // dP = dO V^T, then dS = P o (dP - delta), then dQ[:, col0..] += dS K[:, col0..]
+    float ds[TILE / 8][4];
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
+    keys_by_q<D, TILE>(ds, sG, sV, qrow, lane);
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - dl[e >> 1]);
+    keys_by_d<D, C::DC, TILE>(acc_dq, ds, sK, col0 / 8, lane);
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qrow + g + 8 * r;
+    if (qi >= Sq) continue;
+    if (splits == 1) {
+      __nv_bfloat16* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col0;
+#pragma unroll
+      for (int n = 0; n < C::DC / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(scale * acc_dq[n][2 * r], scale * acc_dq[n][2 * r + 1]);
+    } else {
+      float* row = part_dq + (((long long)split * gridDim.y + bh) * Sq + qi) * D + col0;
+#pragma unroll
+      for (int n = 0; n < C::DC / 8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n + 2 * t) = make_float2(acc_dq[n][2 * r], acc_dq[n][2 * r + 1]);
+    }
+  }
+}
+
+// The body of K3 (flash_bwd_dkv_tc_kernel) and K4c (kgrid_bwd_dkv_tc_kernel):
+// dK and dV for one (ROWS-key tile, batch*head, split of the query range).
+// Per TILE-row q tile: S^T = K Q^T, P^T = exp(scale S^T - lse) (an exact 0 on
+// padded query rows), dV += P^T dO, dP^T = V dO^T, dS^T = P^T o (dP^T -
+// delta), dK += dS^T Q, each over the warp's DC columns. splits == 1 writes
+// dK, dV (bf16, their own strides); splits > 1 writes fp32 partials [splits,
+// B*H, Sk, D] (dK already scaled; zeros for a split with no q rows) for
+// dkv_merge. Strides: q, k, v, dO, dK, dV.
+template <class C>
+__device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                                           const __nv_bfloat16* __restrict__ v,
+                                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                                           __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
+                                           float* __restrict__ part_dv, int H, int Sq, int Sk, int splits,
+                                           Strides st, float scale) {
+  constexpr int D = C::D, TILE = C::TILE;
+  using L = typename C::DkvSmem;
+  extern __shared__ __align__(128) uint8_t bwd_smem[];
+  const uint32_t base = smem_u32(bwd_smem);
+  const uint32_t sK = base + L::A_OFF, sV = base + L::B_OFF;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = warp / C::CS * 16;  // the warp's 16 keys of the tile
+  const int part = warp % C::CS;       // and its share of dK's and dV's columns:
+  const int col0 = part * C::DC;       // [col0, col0 + DC)
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * C::ROWS;
+  const int split = blockIdx.z;
+  const int2 range = split_range(Sq, splits, split, C::UNIT);
+  const int lo = range.x, hi = range.y;
+  const int n_tiles = (hi - lo + TILE - 1) / TILE;
+
+  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const __nv_bfloat16* gb = dout + b * st.t[3][0] + h * st.t[3][2];
+  const float* lse_b = lse + (long long)bh * Sq;
+  const float* delta_b = delta + (long long)bh * Sq;
+
+  auto load_q_tile = [&](int stage, int i0) {
+    const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
+    load_rows<D, TILE, C::THREADS>(ring + L::X_OFF, qb, st.t[0][1], i0, Sq);
+    load_rows<D, TILE, C::THREADS>(ring + L::Y_OFF, gb, st.t[3][1], i0, Sq);
+    for (int i = tid; i < TILE; i += C::THREADS) {
+      const bool ok = i0 + i < Sq;
+      cp_async4(ring + L::L_OFF + 4 * i, lse_b + (ok ? i0 + i : 0), ok);
+      cp_async4(ring + L::DL_OFF + 4 * i, delta_b + (ok ? i0 + i : 0), ok);
+    }
+  };
+
+  load_rows<D, C::ROWS, C::THREADS>(sK, kb, st.t[1][1], k0, Sk);
+  load_rows<D, C::ROWS, C::THREADS>(sV, vb, st.t[2][1], k0, Sk);
+  if (n_tiles > 0) load_q_tile(0, lo);
+  cp_async_commit();
+
+  float acc_dk[C::DC / 8][4], acc_dv[C::DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int i0 = lo + it * TILE;
+    if (it + 1 < n_tiles) {
+      load_q_tile((it + 1) & 1, i0 + TILE);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int stage_off = L::RING_OFF + (it & 1) * L::STAGE;
+    const uint32_t sQ = base + stage_off + L::X_OFF, sG = base + stage_off + L::Y_OFF;
+    const float* sL = reinterpret_cast<const float*>(bwd_smem + stage_off + L::L_OFF);
+    const float* sD = reinterpret_cast<const float*>(bwd_smem + stage_off + L::DL_OFF);
+
+    // S^T = K Q^T, then P^T = exp(scale S^T - lse): chunk c holds q columns
+    // 8c + 2t (+1) of key rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float p[TILE / 8][4];
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
+    keys_by_q<D, TILE>(p, sK, sQ, krow, lane);
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * c + 2 * t + (e & 1);
+        // padded query rows would add to dK and dV: their P is an exact 0
+        p[c][e] = i0 + col < Sq ? exp2f(fmaf(p[c][e], scale_log2, -sL[col] * LOG2E)) : 0.f;
+      }
+    keys_by_d<D, C::DC, TILE>(acc_dv, p, sG, col0 / 8, lane);  // dV += P^T dO
+
+    // dP^T = V dO^T, then dS^T = P^T o (dP^T - delta)
+    float ds[TILE / 8][4];
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
+    keys_by_q<D, TILE>(ds, sV, sG, krow, lane);
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - sD[8 * c + 2 * t + (e & 1)]);
+    keys_by_d<D, C::DC, TILE>(acc_dk, ds, sQ, col0 / 8, lane);  // dK += dS^T Q (scaled at the end)
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + krow + g + 8 * r;
+    if (key >= Sk) continue;
+    if (splits == 1) {
+      __nv_bfloat16* krow_p = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col0;
+      __nv_bfloat16* vrow_p = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col0;
+#pragma unroll
+      for (int n = 0; n < C::DC / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(krow_p + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow_p + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+      }
+    } else {
+      const long long row = ((long long)split * gridDim.y + bh) * Sk + key;
+      float* pk = part_dk + row * D + col0;
+      float* pv = part_dv + row * D + col0;
+#pragma unroll
+      for (int n = 0; n < C::DC / 8; ++n) {
+        *reinterpret_cast<float2*>(pk + 8 * n + 2 * t) =
+            make_float2(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * n + 2 * t) = make_float2(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dQ = scale * the sum of the splits' fp32 partials, in split order (no
+// atomics: two runs give the same bits); one thread per (batch*head, q row,
+// column pair)
+template <int D>
+__device__ __forceinline__ void dq_merge(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH,
+                                         int H, int Sq, int splits, Strides st, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)BH * Sq * D;
+  if (2 * i >= plane) return;
+  const int col = (int)(2 * i % D);
+  const long long row = 2 * i / D;  // bh * Sq + qi
+  const int qi = (int)(row % Sq);
+  const int bh = (int)(row / Sq);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  float2 sum = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 a = *reinterpret_cast<const float2*>(part_dq + s * plane + 2 * i);
+    sum.x += a.x;
+    sum.y += a.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col) =
+      __floats2bfloat162_rn(scale * sum.x, scale * sum.y);
+}
+
+// dK, dV = the sum of the splits' fp32 partials, in split order; one thread
+// per (batch*head, key, column pair)
+template <int D>
+__device__ __forceinline__ void dkv_merge(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
+                                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH,
+                                          int H, int Sk, int splits, Strides st) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)BH * Sk * D;
+  if (2 * i >= plane) return;
+  const int col = (int)(2 * i % D);
+  const long long row = 2 * i / D;  // bh * Sk + key
+  const int key = (int)(row % Sk);
+  const int bh = (int)(row / Sk);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 a = *reinterpret_cast<const float2*>(part_dk + s * plane + 2 * i);
+    const float2 c = *reinterpret_cast<const float2*>(part_dv + s * plane + 2 * i);
+    sk.x += a.x;
+    sk.y += a.y;
+    sv.x += c.x;
+    sv.y += c.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col) =
+      __floats2bfloat162_rn(sk.x, sk.y);
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col) =
+      __floats2bfloat162_rn(sv.x, sv.y);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -218,6 +703,74 @@ inline cudaError_t allow_smem(K kernel, int bytes, uint64_t& done) {
 inline bool rows_aligned(const void* p, long long sb, long long ss, long long sh, int B, int S, int H) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 8 == 0) && (S == 1 || ss % 8 == 0) &&
          (H == 1 || sh % 8 == 0);
+}
+
+inline Strides unpack(const long long* s) {
+  Strides st;
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 3; ++j) st.t[i][j] = s[3 * i + j];
+  return st;
+}
+
+// The launch of a bwd_dq_tc kernel (K2, K4b) of shape C over a grid of
+// (q tiles, B*H, splits), then of its dq_merge kernel when split. cp.async and
+// the delta prologue move 16-byte chunks: q, k, v, o and dO rows must start on
+// 16 bytes (else cudaErrorInvalidValue). `smem_set` is the kernel's
+// allow_smem record. Strides: q, k, v, o, dO, dQ.
+template <class C, typename Kernel, typename Merge>
+inline int launch_bwd_dq(Kernel kernel, Merge merge, uint64_t& smem_set, const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse, float* delta, void* dq, float* part_dq,
+                         int B, int H, int Sq, int Sk, int splits, const long long* s, float scale,
+                         cudaStream_t stream) {
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(o, s[9], s[10], s[11], B, Sq, H) ||
+      !rows_aligned(dout, s[12], s[13], s[14], B, Sq, H))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && part_dq == nullptr)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = C::DqSmem::BYTES;
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const Strides st = unpack(s);
+  dim3 grid((Sq + C::ROWS - 1) / C::ROWS, B * H, splits);
+  kernel<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), part_dq, H, Sq, Sk, splits, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long pairs = (long long)B * H * Sq * C::D / 2;
+  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(part_dq, static_cast<__nv_bfloat16*>(dq), B * H, H, Sq,
+                                                              splits, st, scale);
+  return (int)cudaGetLastError();
+}
+
+// The launch of a bwd_dkv_tc kernel (K3, K4c) of shape C over a grid of (key
+// tiles, B*H, splits), then of its dkv_merge kernel when split; q, k, v and dO
+// rows must start on 16 bytes. Strides: q, k, v, dO, dK, dV.
+template <class C, typename Kernel, typename Merge>
+inline int launch_bwd_dkv(Kernel kernel, Merge merge, uint64_t& smem_set, const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* delta, void* dk, void* dv, float* part_dk,
+                          float* part_dv, int B, int H, int Sq, int Sk, int splits, const long long* s, float scale,
+                          cudaStream_t stream) {
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(dout, s[9], s[10], s[11], B, Sq, H))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && (part_dk == nullptr || part_dv == nullptr))) return (int)cudaErrorInvalidValue;
+  constexpr int smem = C::DkvSmem::BYTES;
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const Strides st = unpack(s);
+  dim3 grid((Sk + C::ROWS - 1) / C::ROWS, B * H, splits);
+  kernel<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long pairs = (long long)B * H * Sk * C::D / 2;
+  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+      part_dk, part_dv, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B * H, H, Sk, splits, st);
+  return (int)cudaGetLastError();
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

@@ -123,7 +123,7 @@ _SIGNATURES = {
     },
     "kgrid": {"flash_attention_kgrid_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
     "kgrid_bwd": {
-        "flash_attention_kgrid_bwd_dq": [_P] * 8 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P],
+        "flash_attention_kgrid_bwd_dq": [_P] * 9 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
         "flash_attention_kgrid_bwd_dkv": [_P] * 10 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
     },
 }
@@ -132,8 +132,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 build_info: Dict[str, dict] = {}  # per source name: path, seconds, cached, ptxas
 
-# Splitting a kernel's sequential loop across blocks (K2 and K3 here, K4a
-# and K4c in ops/flash_attention_kgrid.py): two waves of blocks over the
+# Splitting a kernel's sequential loop across blocks (K2 and K3 here, K4a,
+# K4b and K4c in ops/flash_attention_kgrid.py): two waves of blocks over the
 # H100's 132 SMs, at least 4 loop tiles per split, at most 64 splits.
 MAX_SPLITS = 64
 TARGET_BLOCKS = 2 * 132
@@ -393,14 +393,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` when its base and its batch/seq/head strides (of dims longer
     than 1) sit on 16 bytes, as TMA (K1, K4a) and 16-byte loads (K2, K3)
     need for bf16 rows; else one contiguous copy, which does."""
+    b, s, h, _ = t.shape  # one read of the shape, the strides and the base: this runs on every call
+    sb, ss, sh, _ = t.stride()
     item = t.element_size()
-    ok = t.data_ptr() % 16 == 0 and all(
-        t.stride(i) > 0 and (t.stride(i) * item) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+    ok = (t.data_ptr() % 16 == 0 and (b == 1 or sb > 0 and sb * item % 16 == 0)
+          and (s == 1 or ss > 0 and ss * item % 16 == 0) and (h == 1 or sh > 0 and sh * item % 16 == 0))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*tensors: torch.Tensor):
-    vals = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 

@@ -13,10 +13,13 @@ block, up to two consumer warpgroups that each own a slice of O's columns;
 HBM3 at 700 W, ``PERF.md``); fp32 keeps the first (SIMT) kernel, fp32 math
 on the CUDA cores. K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are
 its backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
-lse, K4c dK and dV from δ. Their paths: the VAE mid-block's single-head
-attention (head dim = channels = 512; forward only) and SD1.5's UNet
-attentions at 1280 channels (8 heads of 160, padded to 192; forward and, in
-training, backward).
+lse, K4c dK and dV from δ. bf16 runs them on the tensor cores (``mma.sync``
+fed by ``cp.async``, K2's and K3's loops with the gradient columns split
+between the warps that share a 16-row slab above d 128); fp32 keeps the first
+(SIMT) kernels. Their paths: the VAE mid-block's single-head attention (head
+dim = channels = 512; forward only) and SD1.5's UNet attentions at 1280
+channels (8 heads of 160, padded to 192; forward and, in training,
+backward).
 
 The TPU kernels carry their sums in scratch along a sequential grid axis. On
 the card that axis becomes a loop inside the block over tiles of rows, and
@@ -25,12 +28,14 @@ across blocks: K4a splits the key range — in 32-key tiles for fp32, in
 64-key units for bf16 (:func:`split_unit`); each split writes unnormalised
 fp32 partials and a second small kernel merges them: ``m* = max mₛ``,
 ``l* = Σ lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log
-l*``. K4c splits the query range (fp32 partial dK/dV summed in split order; no
-atomics, so two runs give the same bits). :func:`pick_splits` and
-:func:`pick_dkv_splits` choose the counts from the shape; ``splits=`` exists
-so that tests can force 1 or more. The sources' headers say what bounds the
-kernels and what their design does about it. They are built with the other
-kernels (``ops/flash_attention.py::build``).
+l*``. K4b splits the key range (bf16 only) and K4c the query range, both in
+32-row units: fp32 partials summed in split order by a merge kernel, no
+atomics, so two runs give the same bits. :func:`pick_splits`,
+:func:`pick_k4b_splits` and :func:`pick_dkv_splits` choose the counts from
+the shape and dtype; ``splits=`` exists so that tests can force 1 or more.
+The sources' headers say what bounds the kernels and what their design does
+about it. They are built with the other kernels
+(``ops/flash_attention.py::build``).
 
 Beside the kernels sit their plain PyTorch versions, doing the same math over
 the same split ranges: :func:`flash_attention_kgrid_reference` (K4a),
@@ -94,22 +99,35 @@ def pick_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.float32) -
     return _fill_splits(_cdiv(sq, q_rows) * bh, _cdiv(sk, split_unit(dtype)))
 
 
-def bwd_rows_per_block(d: int) -> int:
-    """Rows a K4b/K4c block owns (q rows for dQ, key rows for dK/dV): 32 at
-    head dims up to 256, 16 above, where 16 threads share a row so that the
-    accumulators stay in registers."""
+def bwd_rows_per_block(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Rows a K4b/K4c block owns (q rows for dQ, key rows for dK/dV). The
+    fp32 kernels: 32 at head dims up to 256, 16 above, where 16 threads
+    share a row so that the accumulators stay in registers. The bf16
+    (tensor-core) kernels: 64 up to 128, 32 above, where two or four warps
+    share each 16-row slab and own a part of its gradient columns."""
+    if dtype == torch.bfloat16:
+        return 64 if d <= 128 else 32
     return 32 if d <= 256 else 16
 
 
-def pick_dkv_splits(bh: int, sq: int, sk: int, d: int) -> int:
-    """K4c's split count of the query range (blocks: one per owned key tile
-    and batch·head; tiles: the 32-row q tiles)."""
-    return _fill_splits(_cdiv(sk, bwd_rows_per_block(d)) * bh, _cdiv(sq, BQ))
+def pick_k4b_splits(bh: int, sq: int, sk: int, d: int, dtype: torch.dtype) -> int:
+    """K4b's split count of the key range (blocks: one per owned q tile and
+    batch·head; tiles: the 32-key units). The fp32 kernel does not split: 1."""
+    if dtype == torch.float32:
+        return 1
+    return _fill_splits(_cdiv(sq, bwd_rows_per_block(d, dtype)) * bh, _cdiv(sk, BK))
+
+
+def pick_dkv_splits(bh: int, sq: int, sk: int, d: int, dtype: torch.dtype = torch.float32) -> int:
+    """K4c's split count of the query range, as the kernel for ``dtype`` (by
+    default the fp32 one) runs it (blocks: one per owned key tile and
+    batch·head; tiles: the 32-row q tiles, both dtypes' unit)."""
+    return _fill_splits(_cdiv(sk, bwd_rows_per_block(d, dtype)) * bh, _cdiv(sq, BQ))
 
 
 def split_ranges(n: int, splits: int) -> List[Tuple[int, int]]:
-    """The range ``[lo, hi)`` of each split of a length-``n`` axis, as the
-    kernels cut them: ``ceil(tiles / splits)`` 32-row tiles each, the last
+    """The range ``[lo, hi)`` of each split of a length-``n`` axis, as K4b
+    and K4c cut them: ``ceil(tiles / splits)`` 32-row tiles each, the last
     ones possibly empty."""
     return _split_ranges(n, splits, BK)
 
@@ -163,35 +181,52 @@ def flash_attention_kgrid_reference(
 flash_attention_kgrid_reference.cuda_calls = 0
 
 
-def kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+def kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale, splits: Optional[int] = None,
+                           cut_as: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4b: ``(dQ in q's dtype, δ fp32 [B·H, Sq])``, with
-    the scores recomputed from the pre-scaled q as K4a computes them."""
+    the scores recomputed from the pre-scaled q as K4a computes them. Per
+    split of the key range (:func:`split_ranges`; ``None``: what
+    :func:`pick_k4b_splits` gives the kernel for ``cut_as``, by default q's
+    dtype), the unscaled fp32 partial ``Σ dS·K`` over the split's keys;
+    the partials summed in split order, then scaled, as the kernel's merge
+    sums them. One split is the unsplit formula."""
     if q.device.type == "cuda":
         kgrid_bwd_dq_reference.cuda_calls += 1
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if splits is None:
+        splits = pick_k4b_splits(b * h, sq, sk, d, q.dtype if cut_as is None else cut_as)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    p = torch.exp(s - lse.reshape(b, h, sq, 1))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    return dq.to(q.dtype), delta.reshape(b * h, sq)
+    qs, gf, kf, vf = q.float() * scale, do.float(), k.float(), v.float()
+    lse4 = lse.reshape(b, h, sq, 1)
+    dq = None
+    for lo, hi in split_ranges(sk, splits):
+        if lo == hi:
+            continue
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, kf[:, lo:hi]) - lse4)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf[:, lo:hi])
+        ds = p * (dp - delta[..., None])
+        part = torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, lo:hi])
+        dq = part if dq is None else dq + part
+    return (dq * scale).to(q.dtype), delta.reshape(b * h, sq)
 
 
 kgrid_bwd_dq_reference.cuda_calls = 0
 
 
-def kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits: Optional[int] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K4c: per split of the query range, fp32 partial
-    ``dK = Σ dSᵀ·(scale·Q)`` and ``dV = Σ Pᵀ·dO`` (an empty split adds
-    nothing), summed in split order; then ``(dK, dV)`` in k's / v's dtype."""
+def kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits: Optional[int] = None,
+                            cut_as: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4c: per split of the query range (:func:`split_ranges`;
+    ``None``: what :func:`pick_dkv_splits` gives the kernel for ``cut_as``,
+    by default q's dtype), fp32 partial ``dK = Σ dSᵀ·(scale·Q)`` and ``dV =
+    Σ Pᵀ·dO`` (an empty split adds nothing), summed in split order; then
+    ``(dK, dV)`` in k's / v's dtype."""
     if q.device.type == "cuda":
         kgrid_bwd_dkv_reference.cuda_calls += 1
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if splits is None:
-        splits = pick_dkv_splits(b * h, sq, sk, d)
+        splits = pick_dkv_splits(b * h, sq, sk, d, q.dtype if cut_as is None else cut_as)
     qs, kf, vf, gf = q.float() * scale, k.float(), v.float(), do.float()
     lse4, delta4 = lse.reshape(b, h, sq, 1), delta.reshape(b, h, sq, 1)
     dk = torch.zeros((b, sk, h, d), device=q.device)
@@ -279,21 +314,35 @@ def flash_attention_kgrid_fwd(
 flash_attention_kgrid_fwd.launches = 0
 
 
-def flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, *, splits: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4b: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])`` from K4a's O and
-    lse. CPU tensors go through :func:`kgrid_bwd_dq_reference`."""
+    lse. bf16 runs the tensor-core kernel over ``splits`` ranges of the key
+    axis (plus the sum of their partials when there are more than one);
+    ``None`` lets :func:`pick_k4b_splits` choose, a number forces it
+    (tests). fp32 runs the SIMT kernel, which does not split (a forced count
+    above 1 raises). CPU tensors go through :func:`kgrid_bwd_dq_reference`."""
     if q.device.type == "cpu":
-        return kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale)
+        return kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale, splits)
     _check_kernel_inputs(q, k, v, o, do, head_dims=KGRID_HEAD_DIMS)
     b, sq, h, d = q.shape
+    sk = k.shape[1]
+    splits = _check_splits(pick_k4b_splits(b * h, sq, sk, d, q.dtype) if splits is None else splits)
+    if q.dtype == torch.float32 and splits != 1:
+        raise ValueError(f"the fp32 K4b kernel does not split the key range (splits={splits})")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte loads
+        q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    part_dq = None
+    if splits > 1:
+        part_dq = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     lib = _library("kgrid_bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_kgrid_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+            delta.data_ptr(), dq.data_ptr(), _ptr(part_dq), _DTYPE_CODES[q.dtype], b, h, sq, sk, d, splits,
             _strides(q, k, v, o, do, dq), float(scale), _stream(q),
         )
     if err != 0:
@@ -308,15 +357,19 @@ flash_attention_kgrid_bwd_dq.launches = 0
 def flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4c: ``(dK, dV)`` in k's / v's dtype, from K4b's δ (plus the sum of
-    the splits' partials when the query range is split). ``splits`` forces
-    the split count (tests); ``None`` lets :func:`pick_dkv_splits` choose.
-    CPU tensors go through :func:`kgrid_bwd_dkv_reference`."""
+    the splits' partials when the query range is split). bf16 runs the
+    tensor-core kernel, fp32 the SIMT kernel; both split in 32-row units.
+    ``splits`` forces the split count (tests); ``None`` lets
+    :func:`pick_dkv_splits` choose for the inputs' dtype. CPU tensors go
+    through :func:`kgrid_bwd_dkv_reference`."""
     if q.device.type == "cpu":
         return kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
     _check_kernel_inputs(q, k, v, do, head_dims=KGRID_HEAD_DIMS)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    splits = _check_splits(pick_dkv_splits(b * h, sq, sk, d) if splits is None else splits)
+    splits = _check_splits(pick_dkv_splits(b * h, sq, sk, d, q.dtype) if splits is None else splits)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's cp.async loads
+        q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
     part_dk = part_dv = None

@@ -659,3 +659,117 @@ def test_tensor_core_k4a_takes_head_slices_and_unaligned_views(gen, d):
         out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous())
         assert kg.flash_attention_kgrid_fwd.launches == before + 2
         assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+
+
+# --- the tensor-core kernels K4b and K4c (mma.sync, cp.async) on bf16
+
+
+def _check_k4b_k4c(q, k, v, o, lse, do, splits=None, dq_splits=None):
+    """K4b and K4c against their plain versions over the same key and query
+    ranges (None: the rules' for q's dtype), δ within the fp32 bound.
+    Returns (dQ, δ, dK, dV)."""
+    scale = q.shape[-1] ** -0.5
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits)
+    dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, o, do)]
+    wdq, wdelta = kg.kgrid_bwd_dq_reference(*f[:4], lse, f[4], scale, dq_splits, cut_as=q.dtype)
+    wdk, wdv = kg.kgrid_bwd_dkv_reference(*f[:3], lse, wdelta, f[4], scale, splits, cut_as=q.dtype)
+    assert (delta - wdelta).abs().max().item() <= 1e-4 * max(1.0, wdelta.abs().max().item())
+    for name, g, w, x in zip(("dq", "dk", "dv"), (dq, dk, dv), (wdq, wdk, wdv), (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        err = (g.float() - w).abs().max().item()
+        assert err <= _grad_tol(w, q.dtype), (name, err, tuple(q.shape), k.shape[1], splits, dq_splits)
+    return dq, delta, dk, dv
+
+
+@pytest.mark.parametrize("d", [64, 192, 256, 320, 512])
+@pytest.mark.parametrize("s", [1, 63, 65, 77, 129])
+def test_tensor_core_k4b_k4c_on_ragged_lengths(gen, d, s):
+    """bf16 K4b and K4c with Sq and Sk around their 32-row tiles and 64- or
+    32-row blocks (cp.async zero-fills rows past the end; keys past Sk and
+    query rows past Sq get P = 0), at one, two and four warps per 16-row
+    slab, with the splits the rules pick."""
+    for sq, sk in ((s, s), (s, 77), (77, s)):
+        q, do = (_rand(gen, (2, sq, 2, d), torch.bfloat16) for _ in range(2))
+        k, v = (_rand(gen, (2, sk, 2, d), torch.bfloat16) for _ in range(2))
+        o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+        _check_k4b_k4c(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 8, 192), (1, 256, 77, 8, 192), (2, 64, 77, 8, 192),
+                                   (1, 300, 129, 2, 512), (2, 100, 70, 3, 64)])
+def test_tensor_core_k4b_k4c_forced_splits_match_plain_version(gen, shape):
+    """K4b's key range and K4c's query range split 1, 2 and 64 ways (empty
+    splits included) against the plain versions over the same 32-row units;
+    repeated calls give the same bits (partials summed in split order, no
+    atomics) and δ the same bits at every split (split 0 writes it); the
+    fp32 K4b kernel refuses a split."""
+    b, sq, sk, h, d = shape
+    q, do = (_rand(gen, (b, sq, h, d), torch.bfloat16) for _ in range(2))
+    k, v = (_rand(gen, (b, sk, h, d), torch.bfloat16) for _ in range(2))
+    o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+    deltas = []
+    for splits in (1, 2, fa.MAX_SPLITS):
+        before = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+        got = _check_k4b_k4c(q, k, v, o, lse, do, splits, splits)
+        dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, d**-0.5, splits=splits)
+        dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, d**-0.5, splits=splits)
+        assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, x) for a, x in zip(got, (dq, delta, dk, dv))), splits
+        deltas.append(delta)
+    assert all(torch.equal(deltas[0], x) for x in deltas[1:])
+    f = [x.float() for x in (q, k, v, o, do)]
+    with pytest.raises(ValueError):
+        kg.flash_attention_kgrid_bwd_dq(*f[:4], lse, f[4], d**-0.5, splits=2)
+
+
+@pytest.mark.parametrize("d", [192, 512])
+def test_tensor_core_k4b_k4c_take_head_slices_and_unaligned_views(gen, d):
+    """q, k, v, O and dO as head slices of wider tensors (autograd's strided
+    dO among them; cp.async reads their strides) and as views off 16 bytes
+    (copied once by the wrappers): the contiguous copies' bits, with one K4b
+    and one K4c launch each."""
+    b, sq, sk, h = 2, 200, 77, 2
+    for make in (lambda s: _rand(gen, (b, s, 2 * h, d), torch.bfloat16)[:, :, 1::2],
+                 lambda s: _rand(gen, (b, s, h, d + 8), torch.bfloat16)[..., 1:d + 1]):
+        q, k, v, o, do = make(sq), make(sk), make(sk), make(sq), make(sq)
+        out, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+        o.copy_(out)
+        assert not (q.is_contiguous() or o.is_contiguous() or do.is_contiguous())
+        before = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+        got = _check_k4b_k4c(q, k, v, o, lse, do)
+        dq, delta = kg.flash_attention_kgrid_bwd_dq(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous(),
+                                                    d**-0.5)
+        dk, dv = kg.flash_attention_kgrid_bwd_dkv(q.contiguous(), k.contiguous(), v.contiguous(), lse, delta,
+                                                  do.contiguous(), d**-0.5)
+        assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, x) for a, x in zip(got, (dq, delta, dk, dv)))
+
+
+def test_k4b_k4c_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen):
+    """The kernels that run, by name, at SD1.5's 256² with 8 heads of 192
+    (both rules split 2 ways in bf16): bf16 K4b is kgrid_bwd_dq_tc_kernel and
+    kgrid_dq_merge_kernel, bf16 K4c kgrid_bwd_dkv_tc_kernel and
+    kgrid_dkv_merge_kernel; fp32 runs the SIMT kgrid_bwd_dq_kernel and
+    kgrid_bwd_dkv_kernel (which splits too)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, do = (_rand(gen, (1, 256, 8, 192), dtype) for _ in range(2))
+        k, v = (_rand(gen, (1, 256, 8, 192), dtype) for _ in range(2))
+        o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+        dq_names = _kernel_names(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, 0.1))
+        _, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, 0.1)
+        dkv_names = _kernel_names(lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, 0.1))
+        assert any("kgrid_dkv_merge_kernel" in n for n in dkv_names), dkv_names
+        if dtype == torch.bfloat16:
+            assert kg.pick_k4b_splits(8, 256, 256, 192, dtype) == kg.pick_dkv_splits(8, 256, 256, 192, dtype) == 2
+            assert any("kgrid_bwd_dq_tc_kernel" in n for n in dq_names), dq_names
+            assert any("kgrid_dq_merge_kernel" in n for n in dq_names), dq_names
+            assert any("kgrid_bwd_dkv_tc_kernel" in n for n in dkv_names), dkv_names
+        else:
+            assert any("kgrid_bwd_dq_kernel" in n for n in dq_names), dq_names
+            assert any("kgrid_bwd_dkv_kernel" in n for n in dkv_names), dkv_names
+            assert not any("_tc_" in n or "merge" in n for n in dq_names), dq_names
+            assert not any("_tc_" in n for n in dkv_names), dkv_names
