@@ -80,6 +80,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   (device time) at every path shape in bf16, with each
                   kernel's TFLOP/s, share of the bound, ratio to SDPA's whole
                   backward and split.
+5b. kernel_sd_serve — K1 and K4a against their plain versions at SD1.5
+                  serving's shapes (512px, CFG: rows 2 for one request and 4
+                  for a pair), bf16: K1 at 4096² and 4096×77 (8 heads, d 40 →
+                  64) and 1024² and 1024×77 (d 80 → 128), K4a at 256² and
+                  256×77 (d 160 → 192). (The SD decode's 4096² at d 512 is
+                  phase 4's encode_4096 at rows 1.)
 6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
 7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
@@ -94,7 +100,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   steps: a rank-4 slider made with create_sites, written with the
                   port's .safetensors writer and loaded through add_slider; four
                   requests (scale 0, +2, and -2/+1 concurrently in one micro-batch);
-                  K1's launch count per sampler call and K4a's per decode;
+                  per sampler call K1 25×140 launches and one K4a (the decode);
                   latency, images/s, peak memory.
 11. http        — one /generate through make_handler on localhost.
 12. profile     — one more request under torch.profiler: device busy time,
@@ -121,10 +127,40 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 17. sd_imageslider — as 14 for SD1.5 at 256px: K4a once per folder at the
                   bank build (the VAE mid-block, 1024², d 512); per step K1
                   20, K4a 12, K2/K3 20, K4b/K4c 12.
-18. kernels     — every ported kernel with its launches on its paths (each
-                  path counted from 0 just before it). On every path the plain
-                  attention versions, forward and backward, ran 0 times on the
-                  card.
+18. load        — a full-width SD1.5 diffusers directory written with the
+                  port's .safetensors writer (seeded random bf16 weights;
+                  unet/ in two shards with an index, vae/, text_encoder/ under
+                  transformers names, config.json files, tokenizer/ with the
+                  synthetic vocab.json/merges.txt of the CPU tests'
+                  generator), loaded by factory.load_models(dir, "cuda", bf16,
+                  with_vae=True): every tensor bit-equal to its source; load
+                  seconds and bytes.
+19. sd_serve    — SD1SliderService over that directory, 512px, 50 DDIM steps,
+                  a rank-4 slider: scale 0 and +2 solo (different images), -2
+                  and +1 in one micro-batch, one /generate through
+                  make_handler (sd_serve_http), one profiled request
+                  (sd_serve_profile). Per sampler call K1 50×20 = 1000 and K4a
+                  50×12 + 1 = 601 launches.
+20. sd2_serve   — SD1SliderService on stabilityai/stable-diffusion-2-1 with
+                  v2 and v_pred, 512px, 10 steps, scales 0 and +2: per call K1
+                  10×32 = 320, K4a 1 (the decode).
+21. sweep_xl    — cli/generate_images_xl.run on the SDXL name at the CLI's
+                  defaults (512px, 50 DDIM steps, start_noise 750), scales
+                  -2, 0, 2 and one sample of prompts/prompts-person.csv's
+                  first case: sequential (merged weights; K1 50×140 per
+                  trajectory, 3 trajectories), --batch_scales (one
+                  trajectory), and each scale alone with --batch_scales; one
+                  K4a per decode. Files and composite, seconds per image, the
+                  merged-vs-overlay pixel gap at the same batch and batched.
+22. sweep_sd1   — cli/generate_images_sd1.run over the SD1.5 directory: LMS,
+                  50 steps, start_noise 850, scales -2 and 2, one sample;
+                  per trajectory K1 1000 and K4a 600, plus one K4a per decode;
+                  the composite 512 × 1024.
+23. kernels     — every ported kernel with its launches on its paths (each
+                  path counted from 0 just before it; the inference paths
+                  sd_serve, sd2_serve, sweep_xl and sweep_sd1 run K1 and K4a
+                  and no backward kernel). On every path the plain attention
+                  versions, forward and backward, ran 0 times on the card.
 
 Then the card as nvidia-smi names it, and the result line.
 """
@@ -150,18 +186,24 @@ import torch
 import torch.nn.functional as F
 
 from sliders_conceptmod_tpu_torch.adapters import lora
+from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
+from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
 from sliders_conceptmod_tpu_torch.cli import train_lora_scale
+from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.infer.generate import sample_loop_scales
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
-from sliders_conceptmod_tpu_torch.io.safetensors import load_file
+from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+from sliders_conceptmod_tpu_torch.models.tokenizer import write_synthetic_bpe_files
 from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
-from sliders_conceptmod_tpu_torch.serve import SliderService, make_handler
+from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SliderService, make_handler
 from sliders_conceptmod_tpu_torch.train import esd, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 
@@ -178,6 +220,7 @@ FP32_TOL, BF16_REL, BF16_TOL = 1e-4, 2e-2, 3e-2
 LSE_TOL = 1e-3
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
 IMAGE_SIZE, STEPS = 1024, 25
+SD2_STEPS = 10  # SD2.1 serving: cut from the service's 50 to keep the smoke short
 # (name, Sq, Sk, heads): the attention calls of one SDXL UNet forward at 1024px
 PATH_SHAPES = [
     ("self_4096", 4096, 4096, 10),
@@ -225,6 +268,21 @@ KGRID_PATH_SHAPES = [
     ("sd15_pair_cross_64x77", 2, 64, 77, 8, 160),
     ("sd15_pair_self_16", 2, 16, 16, 8, 160),
     ("sd15_pair_cross_16x77", 2, 16, 77, 8, 160),
+]
+# SD1.5 serving at 512px: (name, Sq, Sk, heads, head dim), each at rows 2
+# (one request with CFG) and 4 (a pair). K1's head dims 40 and 80 run padded
+# to 64 and 128, K4a's 160 to 192.
+SD15 = "runwayml/stable-diffusion-v1-5"
+SD21 = "stabilityai/stable-diffusion-2-1"
+SD_SERVE_K1_SHAPES = [
+    ("sd15_serve_self_4096", 4096, 4096, 8, 40),
+    ("sd15_serve_cross_4096x77", 4096, 77, 8, 40),
+    ("sd15_serve_self_1024", 1024, 1024, 8, 80),
+    ("sd15_serve_cross_1024x77", 1024, 77, 8, 80),
+]
+SD_SERVE_K4A_SHAPES = [
+    ("sd15_serve_self_256", 256, 256, 8, 160),
+    ("sd15_serve_cross_256x77", 256, 77, 8, 160),
 ]
 # image-pair training: folder i holds the renders at IMAGE_SCALES[i]
 IMAGE_FOLDERS = ["minus2", "minus1", "plus1", "plus2"]
@@ -1424,10 +1482,10 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     return launches
 
 
-def make_slider(path: Path) -> None:
-    """Rank-4 noxattn/c3lier slider over the SDXL module tree, non-zero up."""
+def make_slider(path: Path, unet_cfg: UNetConfig) -> None:
+    """Rank-4 noxattn/c3lier slider over ``unet_cfg``'s module tree, non-zero up."""
     with torch.device("meta"):
-        unet = UNet2DConditionModel(UNetConfig.sdxl())
+        unet = UNet2DConditionModel(unet_cfg)
     targets = lora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + lora.UNET_TARGET_REPLACE_MODULE_CONV
     sites = lora.create_sites(unet, rank=4, alpha=1.0, target_replace=targets, train_method="noxattn")
     g = torch.Generator().manual_seed(4)
@@ -1437,17 +1495,22 @@ def make_slider(path: Path) -> None:
     lora.save_weights(str(path), sites, lp)
 
 
-def phase_serve(tmp: Path) -> SliderService:
-    path = tmp / "smoke_noxattn_rank4_alpha1.safetensors"
-    make_slider(path)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    svc = SliderService(SDXL, str(path), image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0)
-    load_s = time.time() - t0
-    svc.add_slider("smoke", str(path))
-    per_call = STEPS * svc.unet.config.attention_calls_per_forward()
+def per_sampler_call(unet_cfg: UNetConfig, steps: int) -> tuple:
+    """(K1, K4a) launches of one sampler call and its decode: ``steps`` UNet
+    forwards, then one K4a in the VAE's mid-block."""
+    k1, _, _, k4a, _, _ = per_step_launches(unet_cfg, steps, 0)
+    return k1, k4a + 1
+
+
+def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: bool = True) -> dict:
+    """Requests through ``svc`` (every count set to 0 first): scale 0 and +2
+    solo (their images must differ), then, with ``pair``, -2 and +1
+    concurrently in one micro-batch. K1 and K4a launch their per-call counts
+    in every sampler call; latency, images/s, peak memory."""
+    size, steps = svc.image_size, svc.steps
+    k1_call, k4a_call = per_sampler_call(svc.unet.config, steps)
     batcher = svc._batcher
-    reset_counts()  # count the serving path only
+    reset_counts()  # count this serving path only
     requests = []
 
     def timed(scale, seed):
@@ -1464,65 +1527,66 @@ def phase_serve(tmp: Path) -> SliderService:
                              k1_launches=fa.flash_attention_fwd.launches - l0,
                              k4a_launches=kg.flash_attention_kgrid_fwd.launches - d0,
                              sampler_calls=batcher.total_batches - b0))
+    for r in requests:
+        if r["k1_launches"] != k1_call or r["k4a_launches"] != k4a_call or r["sampler_calls"] != 1:
+            raise AssertionError(f"{what} request {r}: expected {k1_call} K1 and {k4a_call} K4a launches in one "
+                                 "sampler call")
+    extra = {}
+    if pair:
+        (l0, _, _, d0, _, _), b0 = counts(), batcher.total_batches
+        got: dict = {}
+        errors: list = []
 
-    (l0, _, _, d0, _, _), b0 = counts(), batcher.total_batches
-    pair: dict = {}
-    errors: list = []
+        def client(scale, seed):
+            try:
+                got[scale] = timed(scale, seed)
+            except Exception as e:  # noqa: BLE001 — re-raised below on the main thread
+                errors.append(e)
 
-    def client(scale, seed):
-        try:
-            pair[scale] = timed(scale, seed)
-        except Exception as e:  # noqa: BLE001 — re-raised below on the main thread
-            errors.append(e)
-
-    t = time.time()
-    threads = [threading.Thread(target=client, args=(s, 11)) for s in (-2.0, 1.0)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(600)
-    pair_wall = time.time() - t
-    if errors:
-        raise errors[0]
-    if any(th.is_alive() for th in threads) or len(pair) != 2:
-        raise AssertionError("concurrent requests did not finish")
-    pair_calls = batcher.total_batches - b0
-    for scale, (png, secs) in pair.items():
-        images[scale] = decode_png(png)
-        requests.append(dict(scale=scale, seconds=secs, batch=2, concurrent=True))
-    pair_launches = fa.flash_attention_fwd.launches - l0
-    pair_k4a = kg.flash_attention_kgrid_fwd.launches - d0
-
+        t = time.time()
+        threads = [threading.Thread(target=client, args=(s, 11)) for s in (-2.0, 1.0)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        pair_wall = time.time() - t
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads) or len(got) != 2:
+            raise AssertionError(f"{what}: concurrent requests did not finish")
+        pair_calls = batcher.total_batches - b0
+        for scale, (png, secs) in got.items():
+            images[scale] = decode_png(png)
+            requests.append(dict(scale=scale, seconds=secs, batch=2, concurrent=True))
+        pair_k1 = fa.flash_attention_fwd.launches - l0
+        pair_k4a = kg.flash_attention_kgrid_fwd.launches - d0
+        if pair_calls != 1 or list(batcher.batch_sizes)[-1] != 2:
+            raise AssertionError(f"{what}: the concurrent pair took {pair_calls} sampler calls")
+        if pair_k1 != k1_call or pair_k4a != k4a_call:
+            raise AssertionError(f"{what}: the pair's sampler call launched K1 {pair_k1} and K4a {pair_k4a} times, "
+                                 f"not {k1_call} and {k4a_call}")
+        extra = dict(pair_wall_seconds=pair_wall, pair_images_per_second=2 / pair_wall, pair_k1_launches=pair_k1,
+                     pair_k4a_launches=pair_k4a)
     for scale, img in images.items():
-        if img.dtype != np.uint8 or img.shape != (IMAGE_SIZE, IMAGE_SIZE, 3):
-            raise AssertionError(f"scale {scale}: image {img.dtype} {img.shape}")
+        if img.dtype != np.uint8 or img.shape != (size, size, 3):
+            raise AssertionError(f"{what} scale {scale}: image {img.dtype} {img.shape}")
     if np.array_equal(images[0.0], images[2.0]):
-        raise AssertionError("scale 0 and scale +2 gave the same image")
-    if pair_calls != 1 or list(batcher.batch_sizes)[-1] != 2:
-        raise AssertionError(f"the concurrent pair took {pair_calls} sampler calls")
-    for r in requests[:2]:
-        if r["k1_launches"] != per_call or r["k4a_launches"] != 1 or r["sampler_calls"] != 1:
-            raise AssertionError(f"request {r}: expected {per_call} K1 launches and one K4a (the VAE decode) in "
-                                 "one sampler call")
-    if pair_launches != per_call or pair_k4a != 1:
-        raise AssertionError(f"the pair's sampler call launched K1 {pair_launches} times, not {per_call}, and K4a "
-                             f"{pair_k4a} times, not 1")
+        raise AssertionError(f"{what}: scale 0 and scale +2 gave the same image")
     solo = [r["seconds"] for r in requests[:2]]
-    emit(dict(
-        phase="serve", model=SDXL, image_size=IMAGE_SIZE, steps=STEPS, weights="random, seeded per module, bf16",
+    row = dict(
+        phase=what, model=model, image_size=size, steps=steps, weights="random, seeded per module, bf16",
         slider_sites=len(svc.sites), load_seconds=load_s, requests=requests,
-        k1_launches_per_sampler_call=per_call, k1_launches=fa.flash_attention_fwd.launches,
-        k4a_launches_per_decode=1, k4a_launches=kg.flash_attention_kgrid_fwd.launches, pair_k4a_launches=pair_k4a,
-        solo_seconds_first=solo[0], solo_seconds_second=solo[1],
-        pair_wall_seconds=pair_wall, pair_images_per_second=2 / pair_wall,
-        images_per_second_solo=1 / solo[1],
+        k1_launches_per_sampler_call=k1_call, k4a_launches_per_sampler_call=k4a_call,
+        k1_launches=fa.flash_attention_fwd.launches, k4a_launches=kg.flash_attention_kgrid_fwd.launches,
+        solo_seconds_first=solo[0], solo_seconds_second=solo[1], images_per_second_solo=1 / solo[1], **extra,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
         scale0_vs_scale2_max_abs=int(np.abs(images[0.0].astype(int) - images[2.0]).max()),
-    ))
-    return svc
+    )
+    emit(row)
+    return row
 
 
-def phase_http(svc: SliderService) -> int:
+def phase_http(svc: SliderService, what: str = "http") -> int:
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1543,19 +1607,279 @@ def phase_http(svc: SliderService) -> int:
         thread.join(30)
     launches = fa.flash_attention_fwd.launches - l0
     k4a = kg.flash_attention_kgrid_fwd.launches - d0
-    emit(dict(phase="http", status=status, seconds=secs, shape=list(img.shape), healthz=health["status"],
+    k1_call, k4a_call = per_sampler_call(svc.unet.config, svc.steps)
+    emit(dict(phase=what, status=status, seconds=secs, shape=list(img.shape), healthz=health["status"],
               sliders=[s["name"] for s in sliders["sliders"]], k1_launches=launches, k4a_launches=k4a))
-    if status != 200 or img.shape != (IMAGE_SIZE, IMAGE_SIZE, 3) or health["status"] != "ok":
-        raise AssertionError("HTTP /generate failed")
-    if k4a != 1:
-        raise AssertionError(f"the HTTP request's decode launched K4a {k4a} times, not once")
+    if status != 200 or img.shape != (svc.image_size, svc.image_size, 3) or health["status"] != "ok":
+        raise AssertionError(f"{what}: HTTP /generate failed")
+    if launches != k1_call or k4a != k4a_call:
+        raise AssertionError(f"{what}: the HTTP request launched K1 {launches} and K4a {k4a} times, not "
+                             f"{k1_call} and {k4a_call}")
     return launches
 
 
-def phase_profile(svc: SliderService) -> None:
+def phase_profile(svc: SliderService, what: str = "profile") -> dict:
     """One solo request under torch.profiler."""
     prof = device_profile(lambda: svc.generate("a photo of a person", 1.0, 5, 7.5, slider="smoke"))
-    emit(dict(phase="profile", **{k: v for k, v in prof.items() if not k.startswith(("k2", "k3", "k4b", "k4c"))}))
+    row = dict(phase=what, **{k: v for k, v in prof.items() if not k.startswith(("k2", "k3", "k4b", "k4c"))})
+    emit(row)
+    return row
+
+
+def served(tmp: Path, what: str, make, unet_cfg: UNetConfig, model: str, pair: bool = True,
+           http: bool = True, profile: bool = True) -> tuple:
+    """Build a service with ``make(slider_path)``, register the smoke slider,
+    drive :func:`phase_serve`, the HTTP request and one profiled request;
+    the path's launches, counted from 0 just before its first request."""
+    path = tmp / f"{what}_noxattn_rank4_alpha1.safetensors"
+    make_slider(path, unet_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    svc = make(str(path))
+    load_s = time.time() - t0
+    svc.add_slider("smoke", str(path))
+    try:
+        phase_serve(svc, what, model, load_s, pair)
+        if http:
+            phase_http(svc, "http" if what == "serve" else f"{what}_http")
+        launches = counts()
+        check_no_plain(what)
+        if profile:
+            phase_profile(svc, "profile" if what == "serve" else f"{what}_profile")
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def clip_transformers_names(sd: dict) -> dict:
+    """The port's CLIP state dict under the transformers names a diffusers
+    directory's text_encoder/ holds (the inverse of
+    io/torch_convert.py::clip_state_dict)."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("mlp_fc1.", "mlp.fc1.").replace("mlp_fc2.", "mlp.fc2.")
+        if k.startswith(("token_embedding.", "position_embedding.")):
+            k = "text_model.embeddings." + k
+        elif k.startswith("layers."):
+            k = "text_model.encoder." + k
+        elif k.startswith("final_layer_norm."):
+            k = "text_model." + k
+        out[k] = v
+    return out
+
+
+def phase_load(tmp: Path) -> Path:
+    """A full-width SD1.5 diffusers directory (seeded random bf16 weights):
+    unet/ in two shards with an index, vae/, text_encoder/ (transformers
+    names), each with its config.json, and tokenizer/ with the synthetic
+    vocab.json/merges.txt of the CPU tests' generator; then
+    factory.load_models(dir, device="cuda", bf16, with_vae=True), every
+    tensor bit-equal to its source. Returns the directory."""
+    root = tmp / "sd15-diffusers"
+    t0 = time.time()
+    src = {
+        "text_encoder": factory.build_module(lambda: CLIPTextEncoder(CLIPTextConfig.sd15_te()), "cuda",
+                                             torch.bfloat16, 0),
+        "unet": factory.build_module(lambda: UNet2DConditionModel(UNetConfig.sd15()), "cuda", torch.bfloat16, 1),
+        "vae": factory.build_module(lambda: AutoencoderKL(VAEConfig.sd()), "cuda", torch.bfloat16, 2),
+    }
+    configs = {"unet": dataclasses.asdict(UNetConfig.sd15()), "vae": dataclasses.asdict(VAEConfig.sd()),
+               "text_encoder": dataclasses.asdict(CLIPTextConfig.sd15_te())}
+    nbytes = 0
+    for comp, module in src.items():
+        sd = {k: v.cpu() for k, v in module.state_dict().items()}
+        if comp == "text_encoder":
+            sd = clip_transformers_names(sd)
+        sub = root / comp
+        sub.mkdir(parents=True)
+        (sub / "config.json").write_text(json.dumps(configs[comp]))
+        keys = sorted(sd)
+        shards = 2 if comp == "unet" else 1
+        weight_map = {}
+        for i in range(shards):
+            name = (f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
+                    else "model.safetensors")
+            save_file({k: sd[k] for k in keys[i::shards]}, str(sub / name))
+            weight_map.update({k: name for k in keys[i::shards]})
+            nbytes += (sub / name).stat().st_size
+        if shards > 1:
+            (sub / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+    prompts = [p for f in sorted((REPO / "data").glob("prompts*.yaml"))
+               for e in yaml_subset.load_file(str(f)) or [] for k, p in e.items()
+               if k in ("target", "positive", "negative", "neutral", "unconditional") and isinstance(p, str)]
+    write_synthetic_bpe_files(str(root / "tokenizer"), prompts)
+    write_s = time.time() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tok, te, unet, _, vae = factory.load_models(str(root), device="cuda", weight_dtype=torch.bfloat16, with_vae=True)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    mismatched = [f"{comp}.{k}" for comp, got in (("text_encoder", te.model), ("unet", unet), ("vae", vae))
+                  for k, v in got.state_dict().items()
+                  if v.dtype != torch.bfloat16 or not torch.equal(v, src[comp].state_dict()[k])]
+    n_tensors = sum(len(m.state_dict()) for m in src.values())
+    ids = tok(["a photo of a person, smiling"])
+    emit(dict(phase="load", model=SD15, layout="diffusers directory (unet in 2 shards)", tensors=n_tensors,
+              bytes=nbytes, write_seconds=write_s, load_seconds=load_s, load_gb_per_second=nbytes / load_s / 1e9,
+              tokenizer=type(tok).__name__, first_ids=ids[0, :8].tolist(), bit_equal=not mismatched))
+    if mismatched or type(tok).__name__ != "CLIPTokenizerFiles":
+        raise AssertionError(f"load: {len(mismatched)} tensors differ from their source (e.g. {mismatched[:3]}); "
+                             f"tokenizer {type(tok).__name__}")
+    del src, te, unet, vae
+    torch.cuda.empty_cache()
+    return root
+
+
+def timed_sweep(module, argv: list) -> dict:
+    """One sweep CLI run: wall seconds, and the seconds from the first
+    sampler call to the end (the sweep without the model load)."""
+    marks = {}
+    wrapped = {}
+    for name in ("sample_loop", "sample_loop_scales"):
+        real = getattr(module, name, None)
+        if real is None:
+            continue
+
+        def timed_call(*a, _real=real, **k):
+            torch.cuda.synchronize()
+            marks.setdefault("first", time.time())
+            return _real(*a, **k)
+
+        wrapped[name] = real
+        setattr(module, name, timed_call)
+    reset_counts()
+    t0 = time.time()
+    try:
+        module.main(argv)
+    finally:
+        for name, real in wrapped.items():
+            setattr(module, name, real)
+    torch.cuda.synchronize()
+    end = time.time()
+    return dict(wall_seconds=end - t0, sweep_seconds=end - marks["first"], launches=counts())
+
+
+def check_sweep_tree(root: Path, scales, case: int, size: int) -> dict:
+    """Every scale's PNG and the composite: shapes, and the images differ."""
+    imgs = {s: decode_png((root / str(s) / f"{case}_0.png").read_bytes()) for s in scales}
+    comp = decode_png((root / "all" / f"{case}.png").read_bytes())
+    for s, img in imgs.items():
+        if img.shape != (size, size, 3):
+            raise AssertionError(f"{root}: scale {s} image {img.shape}")
+    if comp.shape != (size, size * len(scales), 3):
+        raise AssertionError(f"{root}: composite {comp.shape}, not {(size, size * len(scales), 3)}")
+    if np.array_equal(imgs[scales[0]], imgs[scales[-1]]):
+        raise AssertionError(f"{root}: scales {scales[0]} and {scales[-1]} gave the same image")
+    return imgs
+
+
+def phase_sweep_xl(tmp: Path) -> tuple:
+    """cli/generate_images_xl.run on the SDXL family name at the CLI's
+    defaults (512px, 50 DDIM steps, start_noise 750), reduced to scales
+    -2, 0, 2 and one sample of the first case of prompts/prompts-person.csv:
+    once sequential (merged weights) and once with --batch_scales (the
+    overlay, all scales in one trajectory). Launches per trajectory and
+    seconds per image. Then each scale alone with --batch_scales (the
+    overlay at the merged run's batch of 2 rows), so the pixel gap between
+    merged and overlay at a scale is that of the bf16 merge alone, and the
+    gap to the batched run shows what the batch's size adds."""
+    slider = tmp / "sweep_xl_noxattn_rank4_alpha1.safetensors"
+    make_slider(slider, UNetConfig.sdxl())
+    scales = [-2.0, 0.0, 2.0]
+    k1_traj = per_step_launches(UNetConfig.sdxl(), 50, 0)[0]
+    out, launches = {}, [0] * len(KERNEL_NAMES)
+    runs = [("merged", [None], []), ("batch_scales", [None], ["--batch_scales"]),
+            ("overlay_per_scale", scales, ["--batch_scales"])]
+    for mode, only, extra in runs:
+        save = tmp / f"sweep_xl_{mode}"
+        torch.cuda.reset_peak_memory_stats()
+        res = dict(wall_seconds=0.0, sweep_seconds=0.0)
+        trajectories = 0
+        for scale in only:
+            argv = ["--model_name", str(slider), "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+                    "--save_path", str(save), "--base", SDXL, "--num_samples", "1", "--till_case", "0",
+                    "--scales=" + (",".join(str(x) for x in scales) if scale is None else str(scale)), *extra]
+            run = timed_sweep(gen_xl, argv)
+            n_scales = len(scales) if scale is None else 1
+            n_traj = 1 if extra else n_scales
+            want = (n_traj * k1_traj, n_scales)  # SDXL's UNet has no K4a: one per decode
+            got = (run["launches"][0], run["launches"][3])
+            check_no_plain(f"sweep_xl {mode}")
+            if got != want:
+                raise AssertionError(f"sweep_xl {mode} scale {scale}: K1/K4a launched {got}, expected {want}")
+            launches = [a + b for a, b in zip(launches, run["launches"])]
+            res["wall_seconds"] += run["wall_seconds"]
+            res["sweep_seconds"] += run["sweep_seconds"]
+            trajectories += n_traj
+        out[mode] = {s: decode_png((save / slider.name / str(s) / "0_0.png").read_bytes()) for s in scales}
+        if mode != "overlay_per_scale":
+            check_sweep_tree(save / slider.name, scales, 0, 512)
+        emit(dict(phase="sweep_xl", mode=mode, model=SDXL, image_size=512, steps=50, start_noise=750,
+                  scales=scales, num_samples=1, trajectories=trajectories, k1_per_trajectory=k1_traj,
+                  k4a_per_decode=1, seconds_per_image=res["sweep_seconds"] / len(scales),
+                  max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, **res))
+        torch.cuda.empty_cache()
+
+    def gap(a: str, b: str) -> dict:
+        return {str(s): dict(max_abs=int(np.abs(out[a][s].astype(int) - out[b][s]).max()),
+                             mean_abs=float(np.abs(out[a][s].astype(int) - out[b][s]).mean())) for s in scales}
+
+    emit(dict(phase="sweep_xl", merged_vs_overlay_same_batch=gap("merged", "overlay_per_scale"),
+              merged_vs_overlay_batched=gap("merged", "batch_scales"),
+              overlay_same_batch_vs_batched=gap("overlay_per_scale", "batch_scales")))
+    return tuple(launches)
+
+
+def phase_sweep_sd1(tmp: Path, sd_dir: Path) -> tuple:
+    """cli/generate_images_sd1.run over the SD1.5 directory: LMS, 50 steps,
+    start_noise 850, scales -2 and 2, one sample; the composite 512 × 1024."""
+    slider = tmp / "sweep_sd1_noxattn_rank4_alpha1.safetensors"
+    make_slider(slider, UNetConfig.sd15())
+    scales = [-2.0, 2.0]
+    k1_traj, _, _, k4a_traj, _, _ = per_step_launches(UNetConfig.sd15(), 50, 0)
+    save = tmp / "sweep_sd1"
+    argv = ["--model_name", str(slider), "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+            "--save_path", str(save), "--base", str(sd_dir), "--num_samples", "1", "--scales=-2,2", "--till_case", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    res = timed_sweep(gen_sd1, argv)
+    launches = res.pop("launches")
+    want = (len(scales) * k1_traj, len(scales) * (k4a_traj + 1))
+    got = (launches[0], launches[3])
+    check_no_plain("sweep_sd1")
+    if got != want:
+        raise AssertionError(f"sweep_sd1: K1/K4a launched {got}, expected {want}")
+    check_sweep_tree(save / slider.name, scales, 0, 512)
+    emit(dict(phase="sweep_sd1", model=f"{SD15} (the load phase's directory)", scheduler="lms", image_size=512,
+              steps=50, start_noise=850, scales=scales, num_samples=1, k1_launches=got[0], k4a_launches=got[1],
+              seconds_per_image=res["sweep_seconds"] / len(scales), composite_shape=[512, 1024, 3],
+              max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, **res))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kernel_sd_serve(gen: torch.Generator) -> tuple:
+    """K1 and K4a against their plain versions at SD1.5 serving's shapes
+    (512px with CFG: rows 2 for one request, 4 for a pair), bf16, on inputs
+    zero-padded as the path pads them: K1 at 4096² and 4096×77 (8 heads, d
+    40 → 64) and 1024² and 1024×77 (d 80 → 128); K4a at 256² and 256×77 (d
+    160 → 192). Returns the errors of K1 and of K4a."""
+    k1_errors, k4a_errors, checks = [], [], []
+    for kernel, shapes in (("K1", SD_SERVE_K1_SHAPES), ("K4a", SD_SERVE_K4A_SHAPES)):
+        for name, sq, sk, h, d in shapes:
+            for rows in (2, 4):
+                q, k, v = (path_randn(gen, (rows, n, h), d, torch.bfloat16) for n in (sq, sk, sk))
+                what = f"{name} rows={rows} bf16"
+                c = (check_k1 if kernel == "K1" else check_k4a)(q, k, v, what, scale=d**-0.5)
+                (k1_errors if kernel == "K1" else k4a_errors).append(c["max_abs_err"])
+                checks.append(dict(kernel=kernel, shape=name, rows=rows, heads=h, head_dim=d,
+                                   padded_head_dim=q.shape[-1], max_abs_err=c["max_abs_err"], tol=c["tol"],
+                                   lse_max_abs_err=c["lse_max_abs_err"]))
+                del q, k, v, c
+    emit(dict(phase="kernel_sd_serve", checks=checks))
+    return k1_errors, k4a_errors
 
 
 def main() -> int:
@@ -1577,42 +1901,50 @@ def main() -> int:
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
     kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
     kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
+    k1_sd_errors, k4a_sd_errors = phase_kernel_sd_serve(gen)
     phase_parity()
     phase_train_parity()
     phase_sd_train_parity()
     paths = {}  # each path's launches of K1..K4c, counted from 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
-        phase_imageslider_parity(Path(tmp))
-        svc = phase_serve(Path(tmp))  # sets every count to 0 before it serves
-        try:
-            phase_http(svc)
-            paths["serve"] = counts()
-            check_no_plain("serve")
-            phase_profile(svc)
-        finally:
-            svc.close()
-        del svc
+        tmp = Path(tmp)
+        phase_imageslider_parity(tmp)
+        # each serving and training phase sets every count to 0 first
+        paths["serve"] = served(tmp, "serve", lambda p: SliderService(
+            SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL)
+        paths["train"] = phase_esd(tmp, "train", "config-xl.yaml")
         torch.cuda.empty_cache()
-        # each training phase sets every count to 0 first
-        paths["train"] = phase_esd(Path(tmp), "train", "config-xl.yaml")
-        torch.cuda.empty_cache()
-        paths["imageslider"] = phase_image_pairs(Path(tmp), "imageslider", "config-xl.yaml",
+        paths["imageslider"] = phase_image_pairs(tmp, "imageslider", "config-xl.yaml",
                                                  train_lora_scale.XL_RESOLUTION, seed=6)
         torch.cuda.empty_cache()
-        paths["sd_train"] = phase_esd(Path(tmp), "sd_train", "config.yaml")
+        paths["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
         torch.cuda.empty_cache()
-        paths["sd2_train"] = phase_esd(Path(tmp), "sd2_train", "config.yaml", sd21_config, iterations=2)
+        paths["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2)
         torch.cuda.empty_cache()
-        paths["sd_imageslider"] = phase_image_pairs(Path(tmp), "sd_imageslider", "config.yaml",
+        paths["sd_imageslider"] = phase_image_pairs(tmp, "sd_imageslider", "config.yaml",
                                                     train_lora_scale.SD_RESOLUTION, seed=8)
+        torch.cuda.empty_cache()
+        t_new = time.time()
+        sd_dir = phase_load(tmp)
+        paths["sd_serve"] = served(tmp, "sd_serve", lambda p: SD1SliderService(
+            str(sd_dir), p, image_size=512, steps=50, device="cuda", batch_window_ms=50.0), UNetConfig.sd15(),
+            f"{SD15} (the load phase's directory)")
+        paths["sd2_serve"] = served(tmp, "sd2_serve", lambda p: SD1SliderService(
+            SD21, p, image_size=512, steps=SD2_STEPS, v2=True, v_pred=True, device="cuda"), UNetConfig.sd21(),
+            SD21, pair=False, http=False, profile=False)
+        paths["sweep_xl"] = phase_sweep_xl(tmp)
+        paths["sweep_sd1"] = phase_sweep_sd1(tmp, sd_dir)
+        emit(dict(phase="inference_paths", seconds=time.time() - t_new))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
-    # dim 64 everywhere) launched no K4a/K4b/K4c
+    # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
+    # its decodes when serving
+    inference = ("sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1")
     runs_on = {
-        "K1": ("serve", "train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
+        "K1": ("serve", "train", "imageslider", "sd_train", "sd2_train", "sd_imageslider") + inference,
         "K2": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
         "K3": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
-        "K4a": ("serve", "imageslider", "sd_train", "sd_imageslider"),
+        "K4a": ("serve", "imageslider", "sd_train", "sd_imageslider") + inference,
         "K4b": ("sd_train", "sd_imageslider"),
         "K4c": ("sd_train", "sd_imageslider"),
     }
@@ -1621,6 +1953,8 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on every path that runs it: {paths}")
     if any(paths["sd2_train"][3:]):
         raise AssertionError(f"SD2.1 training launched K4a/K4b/K4c: {paths['sd2_train']}")
+    if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5] for p in inference + ("serve",)):
+        raise AssertionError(f"an inference path launched a backward kernel: {paths}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time
     kgrid_main = kgrid_rows[0]  # the 1024px decode of one image: K4a's serving call
@@ -1642,7 +1976,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
             **launches("K1"),
-            max_abs_err=max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
+            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows] + k1_sd_errors),
             ms=main_row["kernel_ms"],
             device_ms=main_row["device_ms"],
             plain_ms=main_row["plain_ms"],
@@ -1703,7 +2037,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_kgrid.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention_kgrid.py:77",
             **launches("K4a"),
-            max_abs_err=max(kgrid_errors),
+            max_abs_err=max(kgrid_errors + k4a_sd_errors),
             ms=kgrid_main["kernel_ms"],
             device_ms=kgrid_main["device_ms"],
             plain_ms=kgrid_main["plain_ms"],

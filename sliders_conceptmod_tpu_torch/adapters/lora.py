@@ -227,7 +227,9 @@ _MODEL_LOCKS: "weakref.WeakKeyDictionary[nn.Module, threading.RLock]" = weakref.
 _MODEL_LOCKS_GUARD = threading.Lock()
 
 
-def _model_lock(model: nn.Module) -> threading.RLock:
+def model_lock(model: nn.Module) -> threading.RLock:
+    """The one re-entrant lock of ``model``: held by an overlay block and by a
+    merged-weight call, so the two never interleave on a shared model."""
     with _MODEL_LOCKS_GUARD:
         lock = _MODEL_LOCKS.get(model)
         if lock is None:
@@ -243,7 +245,7 @@ class LoRAOverlay:
     safe from other threads' hooks."""
 
     def __init__(self, model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams):
-        self._lock = _model_lock(model)
+        self._lock = model_lock(model)
         by_path = {module_path(n): m for n, m in model.named_modules()}
         self._targets = []
         for site in sites:
@@ -293,6 +295,46 @@ def _make_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: 
         return out + (scale * gain * lora_out).to(out.dtype)
 
     return hook
+
+
+# ---------------------------------------------------------------------------
+# merged weights
+# ---------------------------------------------------------------------------
+
+
+def _delta_weight(site: LoRASite, leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(α/r)·(up∘down) in the base weight's layout: ``[out, in]`` for a
+    Linear; for a conv the k×k down conv followed by the 1×1 up conv,
+    composed into one ``[out, in, kh, kw]`` kernel."""
+    down, up = leaf["down"], leaf["up"]
+    if site.kind == "dense":
+        delta = up @ down
+    else:
+        delta = torch.einsum("or,rihw->oihw", up[:, :, 0, 0], down)
+    return delta * site.scale
+
+
+@torch.no_grad()
+def merge_lora_params(model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams,
+                      multiplier: float) -> Dict[str, torch.Tensor]:
+    """``{parameter name: W + (m·(α/r)·up∘down).to(W.dtype)}`` for the site
+    modules only, the delta added in W's dtype as the JAX merge adds it. Feed
+    the result to ``torch.func.functional_call(model, merged, ...)``: the
+    other parameters stay the model's own, and no new weight is written into
+    the model. An integer (quantized) weight cannot hold a delta and raises."""
+    by_path = {module_path(n): n for n, _ in model.named_modules()}
+    merged = {}
+    for site in sites:
+        name = by_path.get(site.module_path)
+        if name is None:
+            raise KeyError(f"no module at {'/'.join(site.module_path)} for {site.lora_name}")
+        key = f"{name}.weight" if name else "weight"
+        weight = model.get_parameter(key)
+        if not weight.dtype.is_floating_point:
+            raise ValueError(f"cannot merge LoRA into integer (quantized) weight {key}: use the overlay")
+        delta = _delta_weight(site, {k: t.to(weight.device) for k, t in lora_params[site.lora_name].items()})
+        merged[key] = weight + (multiplier * delta).to(weight.dtype)
+    return merged
 
 
 # ---------------------------------------------------------------------------

@@ -87,6 +87,6 @@ def load_slider_file(path: str) -> SliderParts:
     if te:
         raise NotImplementedError(
             f"slider file {path} carries text-encoder parts ({', '.join(te)}); the PyTorch port "
-            "applies UNet slider parts only so far"
+            "applies UNet slider parts only so far (ROADMAP.md queue 1, item 7)"
         )
     return SliderParts(unet=parts.get("unet"))

@@ -1,0 +1,196 @@
+"""A diffusers model directory → the port's state dicts and configs.
+
+Counterpart of ``sliders_conceptmod_tpu/io/torch_convert.py``. A diffusers
+directory holds ``unet/``, ``vae/``, ``text_encoder/`` and (SDXL)
+``text_encoder_2/``, each with a ``config.json`` and its weights as one
+``.safetensors`` file or as shards listed in a ``*.safetensors.index.json``.
+The weights are read with the port's own reader (``io/safetensors.py``).
+
+The port's UNet and VAE use diffusers' module names, so their state dicts
+load by name; the VAE attention's older diffusers names, which the
+SD1.x-era directories still carry, are renamed (``query/key/value/proj_attn``
+→ ``to_q/to_k/to_v/to_out.0``). The CLIP
+towers come in the transformers layout and map onto
+``models/clip.py::CLIPTextEncoder``:
+
+* ``text_model.embeddings.{token,position}_embedding.weight`` →
+  ``{token,position}_embedding.weight``;
+* ``text_model.encoder.layers.N.…`` → ``layers.N.…``, with ``mlp.fc1`` /
+  ``mlp.fc2`` → ``mlp_fc1`` / ``mlp_fc2``;
+* ``text_model.final_layer_norm.…`` → ``final_layer_norm.…``;
+* ``text_projection.weight`` stays (SDXL's te2); the ``position_ids`` buffers
+  are dropped.
+
+:func:`load_state` copies a state dict into a module (strict: every key on
+both sides), casting to the module's dtype on its device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from sliders_conceptmod_tpu_torch.io.safetensors import load_file
+from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig
+from sliders_conceptmod_tpu_torch.models.unet import UNetConfig
+from sliders_conceptmod_tpu_torch.models.vae import VAEConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+_OLD_VAE_ATTENTION = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+
+
+def read_json(path: str) -> dict:
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def weight_files(subdir: str) -> list:
+    """The ``.safetensors`` files of one component: the shards an
+    ``*.safetensors.index.json`` lists, else the file(s) without a variant
+    infix (``model.safetensors``, not ``model.fp16.safetensors``), else
+    every ``.safetensors`` file."""
+    names = sorted(os.listdir(subdir))
+    index = [n for n in names if n.endswith(".safetensors.index.json")]
+    if index:
+        shards = sorted(set(read_json(os.path.join(subdir, index[0]))["weight_map"].values()))
+        return [os.path.join(subdir, s) for s in shards]
+    files = [n for n in names if n.endswith(".safetensors")]
+    plain = [n for n in files if n.count(".") == 1]
+    if not files:
+        raise FileNotFoundError(f"no .safetensors weights in {subdir}")
+    return [os.path.join(subdir, n) for n in (plain or files)]
+
+
+def read_component(model_dir: str, component: str) -> Tuple[StateDict, dict]:
+    """(state dict as stored, config.json) of ``<model_dir>/<component>``."""
+    sub = os.path.join(model_dir, component)
+    sd: StateDict = {}
+    for path in weight_files(sub):
+        sd.update(load_file(path))
+    return sd, read_json(os.path.join(sub, "config.json"))
+
+
+def unet_config_from_json(cfg: dict) -> UNetConfig:
+    """diffusers ``unet/config.json`` → ``UNetConfig`` (the JAX factory's
+    ``_unet_config_from_json``)."""
+
+    def per_block(key, default):
+        v = cfg.get(key, default)
+        return tuple(v) if isinstance(v, list) else v
+
+    return UNetConfig(
+        sample_size=cfg.get("sample_size", 64),
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        down_block_types=tuple(cfg["down_block_types"]),
+        up_block_types=tuple(cfg["up_block_types"]),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        cross_attention_dim=cfg.get("cross_attention_dim", 768),
+        attention_head_dim=per_block("attention_head_dim", 8),
+        transformer_layers_per_block=per_block("transformer_layers_per_block", 1),
+        use_linear_projection=cfg.get("use_linear_projection", False),
+        addition_embed_type=cfg.get("addition_embed_type"),
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim"),
+        projection_class_embeddings_input_dim=cfg.get("projection_class_embeddings_input_dim"),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        freq_shift=cfg.get("freq_shift", 0),
+    )
+
+
+def vae_config_from_json(cfg: dict) -> VAEConfig:
+    """diffusers ``vae/config.json`` → ``VAEConfig``. The flow families'
+    VAEs (no quant convs, a shift factor) are queue item 9 and raise."""
+    if not cfg.get("use_quant_conv", True) or not cfg.get("use_post_quant_conv", True) or cfg.get("shift_factor"):
+        raise NotImplementedError("a VAE without quant convs or with a shift factor (SD3, Flux) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 9)")
+    return VAEConfig(
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+    )
+
+
+def clip_config_from_json(cfg: dict, base: CLIPTextConfig, sd: StateDict) -> CLIPTextConfig:
+    """The tower's own ``config.json`` over the family's config; the
+    projection head only when the weights carry it (transformers configs
+    declare a ``projection_dim`` even for plain towers)."""
+    proj = sd.get("text_projection.weight")
+    return dataclasses.replace(
+        base,
+        vocab_size=cfg.get("vocab_size", base.vocab_size),
+        hidden_size=cfg.get("hidden_size", base.hidden_size),
+        intermediate_size=cfg.get("intermediate_size", base.intermediate_size),
+        num_hidden_layers=cfg.get("num_hidden_layers", base.num_hidden_layers),
+        num_attention_heads=cfg.get("num_attention_heads", base.num_attention_heads),
+        max_position_embeddings=cfg.get("max_position_embeddings", base.max_position_embeddings),
+        hidden_act=cfg.get("hidden_act", base.hidden_act),
+        projection_dim=(cfg.get("projection_dim") or int(proj.shape[0])) if proj is not None else None,
+    )
+
+
+def diffusers_state_dict(sd: StateDict) -> StateDict:
+    """A diffusers UNet or VAE state dict under the port's names."""
+    out = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if len(parts) >= 2 and parts[-2] in _OLD_VAE_ATTENTION:
+            key = ".".join(parts[:-2] + [_OLD_VAE_ATTENTION[parts[-2]], parts[-1]])
+        out[key] = value
+    return out
+
+
+def clip_state_dict(sd: StateDict) -> StateDict:
+    """A transformers-layout CLIP text tower under the port's names."""
+    out = {}
+    for key, value in sd.items():
+        if key.endswith("position_ids"):
+            continue
+        for prefix in ("text_model.embeddings.", "text_model.encoder.", "text_model."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        out[key.replace("mlp.fc1.", "mlp_fc1.").replace("mlp.fc2.", "mlp_fc2.")] = value
+    return out
+
+
+@torch.no_grad()
+def load_state(module: nn.Module, sd: StateDict, what: str) -> None:
+    """Copy ``sd`` into ``module``'s parameters, cast to each one's dtype on
+    its device. Every parameter needs its tensor of the same shape, and every
+    tensor its parameter."""
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(sd))
+    unexpected = sorted(set(sd) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"{what}: {len(missing)} parameters have no tensor (e.g. {missing[:3]}), "
+                       f"{len(unexpected)} tensors have no parameter (e.g. {unexpected[:3]})")
+    for name, p in params.items():
+        if tuple(sd[name].shape) != tuple(p.shape):
+            raise ValueError(f"{what}: {name} is {tuple(sd[name].shape)} in the checkpoint, {tuple(p.shape)} in the model")
+        p.copy_(sd[name])
+
+
+def load_unet_state(model_dir: str) -> Tuple[StateDict, UNetConfig]:
+    sd, cfg = read_component(model_dir, "unet")
+    return diffusers_state_dict(sd), unet_config_from_json(cfg)
+
+
+def load_vae_state(model_dir: str) -> Tuple[StateDict, VAEConfig]:
+    sd, cfg = read_component(model_dir, "vae")
+    return diffusers_state_dict(sd), vae_config_from_json(cfg)
+
+
+def load_text_encoder_state(model_dir: str, component: str, base: CLIPTextConfig) -> Tuple[StateDict, CLIPTextConfig]:
+    sd, cfg = read_component(model_dir, component)
+    sd = clip_state_dict(sd)
+    return sd, clip_config_from_json(cfg, base, sd)

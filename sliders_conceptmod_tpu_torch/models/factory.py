@@ -18,14 +18,28 @@ uses, so random-weight models stay finite the same way:
 * biases zero, norm scales one;
 * embeddings: normal with std ``1/sqrt(features)``.
 
+Real weights load as the JAX factory loads them:
+
+* a diffusers directory (one holding ``unet/``): ``io/torch_convert.py``, each
+  module's architecture from its ``config.json``, the tokenizer from
+  ``tokenizer/`` (``tokenizer_2/``) when it has a ``vocab.json``;
+* a single ``.safetensors`` / ``.ckpt`` file in the LDM/SGM layout:
+  ``io/ldm_convert.py``, with the family's architecture (``v2`` picks SD2.1's)
+  — except a file whose name contains "tiny", which is the tiny family with
+  ``layers_per_block`` and the VAE's width read off the checkpoint (the JAX
+  factory's escape that keeps the single-file surface testable on the CPU).
+
+Weights are copied onto the device in ``weight_dtype``. ``with_vae`` on a
+single file without a VAE raises.
+
 ``load_for_training`` is the trainers' one entry: it picks the family from
 the config and returns the UNet, scheduler, optional VAE and a one-prompt
-encoder. Loading real weights (a diffusers directory or a single-file
-checkpoint) waits until such files are in the repository.
+encoder.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
@@ -36,6 +50,7 @@ from torch import nn
 
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler
+from sliders_conceptmod_tpu_torch.io import torch_convert as tc
 from sliders_conceptmod_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPTextEncoder,
@@ -118,17 +133,60 @@ def unet_config_for(name_or_path: str, v2: bool = False) -> UNetConfig:
     return _UNET_CONFIGS[_family(name_or_path, v2)]()
 
 
+def is_single_file(name_or_path: str) -> bool:
+    return os.path.isfile(str(name_or_path)) and str(name_or_path).endswith((".ckpt", ".safetensors"))
+
+
+def is_diffusers_dir(name_or_path: str) -> bool:
+    return os.path.isdir(os.path.join(str(name_or_path), "unet"))
+
+
 def _check_target(name_or_path: str, device: str) -> torch.device:
-    if os.path.exists(str(name_or_path)):
-        raise NotImplementedError(
-            f"{name_or_path}: loading diffusers directories and single-file checkpoints is not ported "
-            "yet; use a weightless family name (tiny, runwayml/stable-diffusion-v1-5, "
-            "stabilityai/stable-diffusion-2-1, tiny-xl, stabilityai/stable-diffusion-xl-base-1.0)"
-        )
+    p = str(name_or_path)
+    if os.path.exists(p) and not (is_single_file(p) or is_diffusers_dir(p)):
+        raise ValueError(f"{p}: neither a diffusers directory (no unet/) nor a .ckpt/.safetensors checkpoint")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
     return device
+
+
+def module_from_state(factory, sd, device, dtype, what: str) -> nn.Module:
+    """Construct on the meta device, materialise on ``device`` at ``dtype``,
+    then copy ``sd`` in (``io/torch_convert.py::load_state``)."""
+    with torch.device("meta"):
+        model = factory().to(dtype)
+    model = model.to_empty(device=device)
+    tc.load_state(model, sd, what)
+    return model.eval().requires_grad_(False)
+
+
+def _tokenizer(name_or_path: str, component: str, pad_token_id=None):
+    p = str(name_or_path)
+    return load_tokenizer(p if os.path.isdir(p) else "", component=component, pad_token_id=pad_token_id)
+
+
+def _text_encoder(name_or_path: str, component: str, cfg: CLIPTextConfig, device, dtype, seed: int,
+                  tok) -> TextEncoderBundle:
+    """A directory's tower when it has ``component/``, else the weightless
+    one from ``seed``."""
+    if os.path.isdir(os.path.join(str(name_or_path), component)):
+        sd, cfg = tc.load_text_encoder_state(str(name_or_path), component, cfg)
+        return TextEncoderBundle(module_from_state(lambda: CLIPTextEncoder(cfg), sd, device, dtype, component), tok)
+    return TextEncoderBundle(build_module(lambda: CLIPTextEncoder(cfg), device, dtype, seed), tok)
+
+
+def _single_file_vae(path: str, trees: dict, full: VAEConfig, device, dtype) -> nn.Module:
+    if not trees.get("vae"):
+        raise ValueError(f"{path} carries no VAE (first_stage_model.*) but with_vae=True was requested")
+    # the tiny escape may carry the tiny VAE or the full one: width off the checkpoint
+    cfg = VAEConfig.tiny() if trees["vae"]["decoder.conv_in.weight"].shape[0] <= 32 else full
+    return module_from_state(lambda: AutoencoderKL(cfg), trees["vae"], device, dtype, f"{path} vae")
+
+
+def _tiny_lpb(unet_sd) -> int:
+    """The stride-3 LDM slots round-trip layers_per_block 1 and 2."""
+    return 2 if any(k.startswith("down_blocks.0.resnets.1.") for k in unet_sd) else 1
 
 
 def load_models(
@@ -140,24 +198,61 @@ def load_models(
     with_vae: bool = False,
     device: str = "cuda",
 ):
-    """SD1/SD2: (tokenizer, te, unet, scheduler[, vae]). Weightless families
-    only (see module docstring); module i of (te, unet, vae) is initialised
-    from seed i. The scheduler predicts ``v_prediction`` when ``v_pred``; every
-    family encodes with the full SD VAE, as the JAX factory does."""
+    """SD1/SD2: (tokenizer, te, unet, scheduler[, vae]) from a diffusers
+    directory, a single file or a weightless family name (see the module
+    docstring; module i of a weightless (te, unet, vae) is initialised from
+    seed i). The scheduler predicts ``v_prediction`` when ``v_pred``; a
+    weightless family encodes with the full SD VAE, as the JAX factory's
+    does."""
     device = _check_target(name_or_path, device)
+    scheduler = create_noise_scheduler(scheduler_name, prediction_type="v_prediction" if v_pred else "epsilon")
+    if is_single_file(name_or_path):
+        from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
+
+        path = str(name_or_path)
+        trees = load_ldm_checkpoint(path)
+        if "tiny" in os.path.basename(path).lower():
+            clip_cfg = CLIPTextConfig.tiny()
+            unet_cfg = dataclasses.replace(UNetConfig.tiny(), layers_per_block=_tiny_lpb(trees["unet"]))
+        else:
+            clip_cfg = CLIPTextConfig.sd2_te() if v2 else CLIPTextConfig.sd15_te()
+            unet_cfg = UNetConfig.sd21() if v2 else UNetConfig.sd15()
+        tok = load_tokenizer("", component="tokenizer")
+        te = TextEncoderBundle(module_from_state(lambda: CLIPTextEncoder(clip_cfg), trees.get("text_encoder", {}),
+                                                 device, weight_dtype, f"{path} text_encoder"), tok)
+        unet = module_from_state(lambda: UNet2DConditionModel(unet_cfg), trees["unet"], device, weight_dtype,
+                                 f"{path} unet")
+        out = (tok, te, unet, scheduler)
+        if with_vae:
+            return out + (_single_file_vae(path, trees, VAEConfig.sd(), device, weight_dtype),)
+        return out
+
     family = _family(name_or_path, v2)
     if family in _XL_FAMILIES:
         raise ValueError(f"load_models: {name_or_path!r} is an SDXL family name; use load_models_xl")
     clip_cfg = {"tiny": CLIPTextConfig.tiny, "sd21": CLIPTextConfig.sd2_te, "sd15": CLIPTextConfig.sd15_te}[family]()
-    unet_cfg = _UNET_CONFIGS[family]()
-    tok = load_tokenizer("", component="tokenizer")
-    te = TextEncoderBundle(build_module(lambda: CLIPTextEncoder(clip_cfg), device, weight_dtype, 0), tok)
-    unet = build_module(lambda: UNet2DConditionModel(unet_cfg), device, weight_dtype, 1)
-    scheduler = create_noise_scheduler(scheduler_name, prediction_type="v_prediction" if v_pred else "epsilon")
+    tok = _tokenizer(name_or_path, "tokenizer")
+    te = _text_encoder(name_or_path, "text_encoder", clip_cfg, device, weight_dtype, 0, tok)
+    unet = _unet(name_or_path, family, device, weight_dtype, 1)
     out = (tok, te, unet, scheduler)
     if with_vae:
-        return out + (build_module(lambda: AutoencoderKL(VAEConfig.sd()), device, weight_dtype, 2),)
+        return out + (_vae(name_or_path, VAEConfig.sd(), device, weight_dtype, 2),)
     return out
+
+
+def _unet(name_or_path: str, family: str, device, dtype, seed: int) -> nn.Module:
+    if is_diffusers_dir(name_or_path):
+        sd, cfg = tc.load_unet_state(str(name_or_path))
+        return module_from_state(lambda: UNet2DConditionModel(cfg), sd, device, dtype, f"{name_or_path}/unet")
+    cfg = _UNET_CONFIGS[family]()
+    return build_module(lambda: UNet2DConditionModel(cfg), device, dtype, seed)
+
+
+def _vae(name_or_path: str, cfg: VAEConfig, device, dtype, seed: int) -> nn.Module:
+    if os.path.isdir(os.path.join(str(name_or_path), "vae")):
+        sd, cfg = tc.load_vae_state(str(name_or_path))
+        return module_from_state(lambda: AutoencoderKL(cfg), sd, device, dtype, f"{name_or_path}/vae")
+    return build_module(lambda: AutoencoderKL(cfg), device, dtype, seed)
 
 
 def load_models_xl(
@@ -167,30 +262,50 @@ def load_models_xl(
     with_vae: bool = False,
     device: str = "cuda",
 ):
-    """SDXL: ([tok1, tok2], [te1, te2], unet, scheduler[, vae]). te2 pads with
-    id 0. Weightless families only (see module docstring); module i of
-    (te1, te2, unet, vae) is initialised from seed i."""
+    """SDXL: ([tok1, tok2], [te1, te2], unet, scheduler[, vae]) from a
+    diffusers directory, an SGM single file or a weightless family name; te2
+    pads with id 0. Module i of a weightless (te1, te2, unet, vae) is
+    initialised from seed i."""
     device = _check_target(name_or_path, device)
+    scheduler = create_noise_scheduler(scheduler_name)
+    tiny_cfgs = (CLIPTextConfig.tiny(hidden_size=16), CLIPTextConfig.tiny(hidden_size=16, projection_dim=32))
+    if is_single_file(name_or_path):
+        from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
+
+        path = str(name_or_path)
+        trees = load_ldm_checkpoint(path)
+        if "tiny" in os.path.basename(path).lower():
+            te_cfgs = tiny_cfgs
+            unet_cfg = dataclasses.replace(UNetConfig.tiny_xl(), layers_per_block=_tiny_lpb(trees["unet"]))
+        else:
+            te_cfgs = (CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2())
+            unet_cfg = UNetConfig.sdxl()
+        toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
+        tes = [TextEncoderBundle(module_from_state(lambda c=c: CLIPTextEncoder(c), trees.get(comp, {}), device,
+                                                   weight_dtype, f"{path} {comp}"), tok)
+               for c, comp, tok in zip(te_cfgs, ("text_encoder", "text_encoder_2"), toks)]
+        unet = module_from_state(lambda: UNet2DConditionModel(unet_cfg), trees["unet"], device, weight_dtype,
+                                 f"{path} unet")
+        out = (toks, tes, unet, scheduler)
+        if with_vae:
+            return out + (_single_file_vae(path, trees, VAEConfig.sdxl(), device, weight_dtype),)
+        return out
+
     family = _family(name_or_path)
     if family == "tiny":
         raise ValueError("load_models_xl: use a 'tiny-xl' name for the weightless XL smoke family")
-    if family not in _XL_FAMILIES:
+    if family not in _XL_FAMILIES and not is_diffusers_dir(name_or_path):
         raise ValueError(f"load_models_xl: {name_or_path!r} is not an SDXL family name")
-    if family == "tiny-xl":
-        te1_cfg = CLIPTextConfig.tiny(hidden_size=16)
-        te2_cfg = CLIPTextConfig.tiny(hidden_size=16, projection_dim=32)
-    else:
-        te1_cfg, te2_cfg = CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2()
-    unet_cfg = _UNET_CONFIGS[family]()
-    tok1 = load_tokenizer("", component="tokenizer")
-    tok2 = load_tokenizer("", component="tokenizer_2", pad_token_id=0)
-    te1 = TextEncoderBundle(build_module(lambda: CLIPTextEncoder(te1_cfg), device, weight_dtype, 0), tok1)
-    te2 = TextEncoderBundle(build_module(lambda: CLIPTextEncoder(te2_cfg), device, weight_dtype, 1), tok2)
-    unet = build_module(lambda: UNet2DConditionModel(unet_cfg), device, weight_dtype, 2)
-    out = ([tok1, tok2], [te1, te2], unet, create_noise_scheduler(scheduler_name))
+    te1_cfg, te2_cfg = tiny_cfgs if family == "tiny-xl" else (CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2())
+    tok1 = _tokenizer(name_or_path, "tokenizer")
+    tok2 = _tokenizer(name_or_path, "tokenizer_2", pad_token_id=0)
+    te1 = _text_encoder(name_or_path, "text_encoder", te1_cfg, device, weight_dtype, 0, tok1)
+    te2 = _text_encoder(name_or_path, "text_encoder_2", te2_cfg, device, weight_dtype, 1, tok2)
+    unet = _unet(name_or_path, "tiny-xl" if family == "tiny-xl" else "sdxl", device, weight_dtype, 2)
+    out = ([tok1, tok2], [te1, te2], unet, scheduler)
     if with_vae:
-        # both families encode and decode with the full SDXL VAE, as the JAX factory does
-        return out + (build_module(lambda: AutoencoderKL(VAEConfig.sdxl()), device, weight_dtype, 3),)
+        # both weightless families decode with the full SDXL VAE, as the JAX factory's do
+        return out + (_vae(name_or_path, VAEConfig.sdxl(), device, weight_dtype, 3),)
     return out
 
 

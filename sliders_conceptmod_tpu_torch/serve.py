@@ -1,4 +1,5 @@
-"""SDXL slider serving on the GPU — counterpart of ``sliders_conceptmod_tpu/serve.py``.
+"""Slider serving on the GPU, SDXL and SD1.x/SD2.x — counterpart of
+``sliders_conceptmod_tpu/serve.py``.
 
 Models load once (bf16 weights, resident on the device); each request pays
 the prompt encode (cached per prompt) and one batched DDIM trajectory with
@@ -7,6 +8,13 @@ PNG encode. Concurrent requests that arrive within a short window share one
 sampler call (:class:`MicroBatcher`), padded to a {1, 2, 4} bucket.
 
   python -m sliders_conceptmod_tpu_torch.serve --slider s.safetensors --port 8500
+  python -m sliders_conceptmod_tpu_torch.serve --base path/to/sd15 --family sd1 --slider s.safetensors
+
+``--family`` (xl or sd1) is read off ``--base`` when omitted
+(:func:`detect_family`); ``--base`` is a family name, a diffusers directory or
+a single checkpoint file. :class:`SliderService` serves SDXL (both CLIP
+towers, 25 DDIM steps by default), :class:`SD1SliderService` SD1.x/SD2.x (one
+tower, no added conditioning, 50 steps; ``--v2``, ``--v_pred``).
 
   curl -s 'localhost:8500/generate?prompt=a+photo+of+a+person&scale=1.5&seed=7' > out.png
   curl -s localhost:8500/healthz
@@ -35,6 +43,13 @@ import torch
 
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
+from sliders_conceptmod_tpu_torch.cli.generate_images_xl import (  # noqa: F401 — re-exported, as JAX's serve has them
+    infer_network_settings,
+    load_prompts_csv,
+    settings_from_checkpoint,
+    settings_from_tensors,
+    unet_slider,
+)
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.infer.generate import (
     flip_step_for_start_noise,
@@ -139,35 +154,16 @@ class MicroBatcher:
                 return
 
 
-def infer_network_settings(lora_weight: str):
-    """Filename sniffing (reference generate_images_xl.py:459-484)."""
-    train_method = "full" if "full" in lora_weight else "noxattn"
-    network_type = "lierla" if train_method == "xattn" else "c3lier"
-    rank, alpha = 1, 4.0
-    if "rank4" in lora_weight:
-        rank = 4
-    if "rank8" in lora_weight:
-        rank = 8
-    if "alpha1" in lora_weight:
-        alpha = 1.0
-    return train_method, network_type, rank, alpha
-
-
-def settings_from_tensors(sd):
-    """Exact (rank, alpha) from the checkpoint tensors, when it has one alpha."""
-    ranks = {int(v.shape[0]) for k, v in sd.items() if k.endswith(".lora_down.weight")}
-    alphas = {float(v) for k, v in sd.items() if k.endswith(".alpha")}
-    if ranks and len(alphas) == 1:
-        return max(ranks), alphas.pop()
-    return None
-
-
 class SliderService:
     """SDXL slider serving: bf16 weights, DDIM, the slider through the per-row
     LoRA overlay gated off while ``t > start_noise``, a registry of sliders
-    over one loaded base, and micro-batched requests."""
+    over one loaded base, and micro-batched requests. A subclass loads
+    another family (:meth:`_load`) and encodes its way (:meth:`_encode_impl`,
+    :meth:`_conditioning`); the registry, the batcher and the sampler call are
+    shared."""
 
     _BUCKETS = (1, 2, 4)
+    weight_dtype = torch.bfloat16  # the weights' and the sampled latents' dtype
 
     def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 25,
                  start_noise: float = 750, batch_window_ms: float = 8.0,
@@ -176,9 +172,7 @@ class SliderService:
         self.device = torch.device(device)
         self.image_size = image_size
         self.steps = steps
-        (self.tokenizers, self.text_encoders, self.unet, self.scheduler, self.vae) = factory.load_models_xl(
-            base, scheduler_name="ddim", weight_dtype=torch.bfloat16, with_vae=True, device=device
-        )
+        self._load(base)
         self.schedule = self.scheduler.set_timesteps(steps)
         self.flip = flip_step_for_start_noise(self.schedule, start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
@@ -193,6 +187,11 @@ class SliderService:
         )
         self.load_seconds = time.time() - t0
 
+    def _load(self, base: str) -> None:
+        (self.tokenizers, self.text_encoders, self.unet, self.scheduler, self.vae) = factory.load_models_xl(
+            base, scheduler_name="ddim", weight_dtype=self.weight_dtype, with_vae=True, device=self.device
+        )
+
     # -- slider registry -----------------------------------------------------
 
     def add_slider(self, name: str, slider_path: str) -> None:
@@ -200,20 +199,7 @@ class SliderService:
         parts = load_slider_file(slider_path)
         if parts.unet is None:
             raise ValueError(f"{slider_path} carries no unet slider part")
-        train_method, network_type, rank, alpha = infer_network_settings(str(slider_path))
-        exact = settings_from_tensors(parts.unet)
-        if exact is not None:
-            rank, alpha = exact
-        targets = lora_lib.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + (
-            lora_lib.UNET_TARGET_REPLACE_MODULE_CONV if network_type == "c3lier" else []
-        )
-        all_sites = lora_lib.create_sites(
-            self.unet, rank=rank, alpha=alpha, target_replace=targets, train_method=train_method
-        )
-        sites = lora_lib.filter_sites_to_keys(parts.unet.keys(), all_sites)
-        if not sites:
-            raise ValueError(f"No matching LoRA keys between UNet and {slider_path}")
-        lora_params = lora_lib.load_weights_from_tensors(parts.unet, sites, device=self.device)
+        sites, lora_params = unet_slider(self.unet, str(slider_path), parts.unet, device=self.device)
         overlay = lora_lib.LoRAOverlay(self.unet, sites, lora_params)
         with self._registry_lock:
             self._sliders[name] = (sites, lora_params, overlay)
@@ -275,37 +261,90 @@ class SliderService:
     def _encode_impl(self, prompt: str):
         return factory.encode_prompts_xl(self.text_encoders, [prompt])
 
-    @torch.inference_mode()
-    def _sample_group(self, padded, guidance: float, entry):
-        sites, lora_params, overlay = entry
+    def _conditioning(self, padded):
+        """(embeddings [2B] uncond ++ cond, added conditioning) of a group."""
         bucket = len(padded)
-        dev = self.device
         text_u, pooled_u = self._encode("")
         conds = [self._encode(r[0]) for r in padded]
         emb = torch.cat([text_u.expand(bucket, -1, -1)] + [t for t, _ in conds])
         added = {
             "text_embeds": torch.cat([pooled_u.expand(bucket, -1)] + [p for _, p in conds]),
             "time_ids": torch.from_numpy(get_add_time_ids(self.image_size, self.image_size))
-            .to(dev)
+            .to(self.device)
             .expand(2 * bucket, -1),
         }
+        return emb, added
+
+    def _initial_latents(self, gens) -> torch.Tensor:
+        """Each row's N(0, 1) draw from its own generator, fp32."""
         res = self.image_size // 8
+        return torch.cat(
+            [torch.randn((1, 4, res, res), generator=g, device=self.device, dtype=torch.float32) for g in gens]
+        )
+
+    @torch.inference_mode()
+    def _sample_group(self, padded, guidance: float, entry):
+        sites, lora_params, overlay = entry
+        dev = self.device
+        emb, added = self._conditioning(padded)
         # one generator per row from its request's seed: the row's initial
         # latents (and any stochastic-scheduler noise) depend only on its seed
         gens = [torch.Generator(device=dev).manual_seed(r[2]) for r in padded]
-        latents = torch.cat(
-            [torch.randn((1, 4, res, res), generator=g, device=dev, dtype=torch.float32) for g in gens]
-        ) * self.schedule.init_noise_sigma
+        latents = self._initial_latents(gens) * self.schedule.init_noise_sigma
         scales = torch.tensor([r[1] for r in padded], dtype=torch.float32, device=dev)
         final = sample_loop_scales(
             self.unet, sites, lora_params, scales, self.flip, self.scheduler, self.schedule,
-            latents.to(torch.bfloat16), emb, added_cond_kwargs=added,
+            latents.to(self.weight_dtype), emb, added_cond_kwargs=added,
             # a tensor guidance: CFG for every value, as the JAX service's
             # traced guidance
             guidance_scale=torch.tensor(guidance, dtype=torch.float32, device=dev),
             generators=gens, overlay=overlay,
         )
         return latents_to_images(self.vae.decode, final, self.vae.config.scaling_factor)
+
+
+class SD1SliderService(SliderService):
+    """SD1.x/SD2.x slider serving: one CLIP tower (its final hidden state), no
+    added conditioning, DDIM with 50 steps by default and ``start_noise``
+    750; ``v2`` loads SD2.x (the OpenCLIP tower and SD2.1's UNet widths from a
+    family name or a single file), ``v_pred`` samples with v-prediction. The
+    registry, the micro-batcher and the per-request generators are
+    :class:`SliderService`'s."""
+
+    def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 50,
+                 start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
+                 max_queue: int = 64, v2: bool = False, v_pred: bool = False, device: str = "cuda"):
+        self.v2, self.v_pred = v2, v_pred
+        super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
+                         max_batch=max_batch, max_queue=max_queue, device=device)
+
+    def _load(self, base: str) -> None:
+        tok, te, self.unet, self.scheduler, self.vae = factory.load_models(
+            base, scheduler_name="ddim", v2=self.v2, v_pred=self.v_pred, weight_dtype=self.weight_dtype,
+            with_vae=True, device=self.device,
+        )
+        self.tokenizers, self.text_encoders = [tok], [te]
+
+    def _encode_impl(self, prompt: str):
+        return factory.encode_prompts(self.text_encoders[0], [prompt])
+
+    def _conditioning(self, padded):
+        conds = [self._encode(r[0]) for r in padded]
+        return torch.cat([self._encode("").expand(len(padded), -1, -1)] + conds), None
+
+
+def detect_family(base: str) -> str:
+    """The family of a ``--base`` from its name (the JAX ``detect_family``):
+    flux, sd3, sd1 (SD1.x and SD2.x names) or xl."""
+    base_l = str(base).lower()
+    if "flux" in base_l:
+        return "flux"
+    if "sd3" in base_l or "stable-diffusion-3" in base_l:
+        return "sd3"
+    if any(tag in base_l for tag in ("sd1", "v1-4", "v1-5", "stable-diffusion-v1", "sd2", "v2-1",
+                                     "stable-diffusion-2")):
+        return "sd1"
+    return "xl"
 
 
 def make_handler(service: SliderService):
@@ -371,7 +410,7 @@ def make_handler(service: SliderService):
     return Handler
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--base", default="stabilityai/stable-diffusion-xl-base-1.0")
     ap.add_argument("--slider", required=True)
@@ -379,18 +418,40 @@ def main():
                     help="register extra sliders over the same base (repeatable)")
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--image_size", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=25)
-    ap.add_argument("--start_noise", type=float, default=750)
+    ap.add_argument("--steps", type=int, default=None, help="default 25 (xl) / 50 (sd1)")
+    ap.add_argument("--start_noise", type=float, default=None, help="default 750")
+    ap.add_argument("--family", choices=["xl", "sd3", "flux", "sd1"], default=None,
+                    help="read off --base when omitted")
+    ap.add_argument("--v2", action="store_true", help="sd1 family only: SD2.x base (OpenCLIP tower, SD2.1 widths)")
+    ap.add_argument("--v_pred", action="store_true", help="sd1 family only: v-prediction scheduler")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch_window_ms", type=float, default=8.0)
     ap.add_argument("--max_batch", type=int, default=4, help="1 serves one request per sampler call")
     ap.add_argument("--max_queue", type=int, default=64)
-    args = ap.parse_args()
-    service = SliderService(
-        args.base, args.slider, args.image_size, args.steps, args.start_noise,
-        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
-        max_queue=args.max_queue, device=args.device,
-    )
+    return ap
+
+
+def service_settings(args):
+    """(service class, keyword arguments) for parsed ``main`` arguments: the
+    family (``--family`` or :func:`detect_family`) and its step and
+    ``start_noise`` defaults. SD3 and Flux are not ported yet."""
+    family = args.family or detect_family(args.base)
+    if family in ("sd3", "flux"):
+        raise SystemExit(f"--family {family}: SD3 and Flux serving are not ported yet (ROADMAP.md queue 1, item 9)")
+    kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
+                  batch_window_ms=args.batch_window_ms, max_batch=args.max_batch, max_queue=args.max_queue,
+                  device=args.device)
+    if family == "sd1":
+        return SD1SliderService, dict(kwargs, steps=50 if args.steps is None else args.steps, v2=args.v2,
+                                      v_pred=args.v_pred)
+    return SliderService, dict(kwargs, steps=25 if args.steps is None else args.steps)
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    cls, kwargs = service_settings(args)
+    service = cls(args.base, args.slider, **kwargs)
     for spec in args.add_slider:
         name, _, path = spec.partition("=")
         if not path:

@@ -315,10 +315,11 @@ def test_cli_refusals_and_parser(tmp_path):
         with pytest.raises(NotImplementedError, match=match):
             tcli.train(cfg, prompts, str(tmp_path), ["a", "b"], [-1.0, 1.0], device="cpu")
     # the SD1/SD2 branch trains since the SD slice (tests/test_torch_sd_imageslider.py);
-    # a model path on disk still waits for real-weight loading
+    # a path on disk loads when it is a diffusers directory or a checkpoint
+    # file (tests/test_torch_loaders.py), and any other path raises
     cfg = _tiny_config(tmp_path)
     cfg.pretrained_model.name_or_path = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="neither a diffusers directory"):
         tcli.train(cfg, prompts, str(tmp_path), ["a", "b"], [-1.0, 1.0], device="cpu")
     with pytest.raises(ValueError, match="index-matched"):
         tcli.train(_tiny_config(tmp_path), prompts, str(tmp_path), ["a", "b"], [-1.0], device="cpu")

@@ -1,9 +1,14 @@
 """The port and chip_smoke.py import nothing of JAX and nothing of the JAX
-package: every module is imported in a fresh interpreter whose import system
-refuses ``jax``, ``flax``, ``optax`` and ``sliders_conceptmod_tpu`` (that exact
-top-level name, so ``sliders_conceptmod_tpu_torch`` itself still imports), and
-also ``yaml`` and ``pydantic``, which the GPU machine does not have."""
+package, nor any package the GPU machine lacks: every module is imported in a
+fresh interpreter whose import system refuses ``jax``, ``flax``, ``optax`` and
+``sliders_conceptmod_tpu`` (that exact top-level name, so
+``sliders_conceptmod_tpu_torch`` itself still imports), and also ``yaml``,
+``pydantic``, ``transformers``, ``tokenizers``, ``PIL``, ``safetensors`` and
+``regex``. A lazy import inside a function escapes that check, so the source
+of every port module and of chip_smoke.py is also scanned for an import
+statement of a refused package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -15,7 +20,8 @@ CHECK = textwrap.dedent(
     """
     import importlib, importlib.util, pkgutil, sys
 
-    REFUSED = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic"}
+    REFUSED = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
+               "tokenizers", "PIL", "safetensors", "regex"}
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -47,6 +53,13 @@ SD_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.models.clip",
     "sliders_conceptmod_tpu_torch.train.trainer",
 }
+# modules the sweep and loader slice added
+SWEEP_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.cli.generate_images_xl",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_sd1",
+    "sliders_conceptmod_tpu_torch.io.torch_convert",
+    "sliders_conceptmod_tpu_torch.io.ldm_convert",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -58,7 +71,8 @@ def test_port_and_smoke_import_without_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     n = int(res.stdout.split()[0])
     assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
-    assert SD_SLICE_MODULES <= set(res.stdout.split(":", 1)[1].split())
+    walked = set(res.stdout.split(":", 1)[1].split())
+    assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():
@@ -67,3 +81,41 @@ def test_refusal_hook_bites():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and "refused import of sliders_conceptmod_tpu" in res.stderr
+
+
+REFUSED_TOP = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
+               "tokenizers", "PIL", "safetensors", "regex"}
+
+
+def _imported_tops(path):
+    """Top-level names of every import statement in a file, at any depth."""
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((alias.name.split(".")[0], node.lineno) for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_refused_import_anywhere_in_the_source():
+    """Function-level (lazy) imports included."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "sliders_conceptmod_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 35
+    found = [(os.path.relpath(f, REPO), line, top) for f in files for top, line in _imported_tops(f)
+             if top in REFUSED_TOP]
+    assert not found, found
+
+
+def test_source_scan_bites():
+    """A lazy import inside a function is found by the scan."""
+    code = "def f():\n    from transformers import CLIPTokenizer\n    import PIL.Image\n"
+    import tempfile
+
+    with tempfile.NamedTemporaryFile("w", suffix=".py", delete=False) as f:
+        f.write(code)
+    try:
+        assert sorted(top for top, _ in _imported_tops(f.name)) == ["PIL", "transformers"]
+    finally:
+        os.unlink(f.name)

@@ -242,7 +242,7 @@ def test_load_models_family_rule_v_prediction_and_refusals(tmp_path):
     again = tfactory.load_models("tiny", device="cpu")[2]  # seeded: the same weights twice
     assert all(torch.equal(a, b) for a, b in zip(unet.state_dict().values(), again.state_dict().values()))
     assert tfactory.encode_prompts(te, ["a", "b"], 2).shape == (2, 77, 32)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="neither a diffusers directory"):  # no unet/, not a checkpoint file
         tfactory.load_models(str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="load_models_xl"):
         tfactory.load_models("tiny-xl", device="cpu")

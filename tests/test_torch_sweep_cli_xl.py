@@ -1,0 +1,84 @@
+"""The port's SDXL sweep CLI against the JAX CLI on the CPU.
+
+Both packages' CLIs run on a tiny-xl checkpoint that the JAX package
+writes (``io/ldm_export.py``, with the tiny VAE; ``tests/_sweep_cli_assets.py``) and on
+one JAX-written slider (``train_method`` full, Linear and conv sites): 64px,
+3 steps, scales -1 and +1, one sample, the port's latent draw patched to the
+JAX CLI's ``normal(PRNGKey(seed))``. Both write the same file tree.
+
+* With the CLIs' weight dtype turned to fp32 in both packages the pixels
+  agree within 1 of 255 (the rounding of the last step).
+* At the CLIs' own bf16 (both load bf16 weights) the pixels are held within
+  a bf16 bound: bf16 keeps 8 mantissa bits, and the two packages round
+  different intermediates (the matmuls' and convolutions' partial sums, the
+  merged weights); through 3 steps and the decode of a random tiny model
+  that moves a pixel by at most ``PIXEL_MAX`` of 255 and the image's mean
+  absolute difference by at most ``PIXEL_MEAN`` (the bound in
+  ``tests/_sweep_cli_assets.py``; the largest mean measured on the CPU
+  was 2.18).
+
+The CLI resumes (files that exist are kept) and refuses the flags that are
+not ported; its parser has the JAX flags and defaults (and ``--device``)."""
+
+import os
+
+import pytest
+import torch
+
+import _sweep_cli_assets as A
+from sliders_conceptmod_tpu.cli import generate_images_xl as jcli_xl
+from sliders_conceptmod_tpu_torch.cli import generate_images_xl as tcli_xl
+from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    root = tmp_path_factory.mktemp("sweep_xl")
+    A.make_assets(root, "xl")
+    return root
+
+
+@pytest.mark.parametrize("batch,fp32", [(False, True), (False, False), (True, False)],
+                         ids=["merged_fp32", "merged_bf16", "batch_scales_bf16"])
+def test_xl_sweep_matches_jax(assets, tmp_path, monkeypatch, batch, fp32):
+    if fp32:
+        A.fp32(monkeypatch, jcli_xl, tcli_xl)
+    extra = ["--start_noise", "500"] + (["--batch_scales"] if batch else [])
+    jcli_xl.run(jcli_xl.build_parser().parse_args(A.args(assets, "xl", tmp_path / "jax", *extra)))
+    monkeypatch.setattr(tcli_xl, "draw_latents", A.jax_draw)
+    tcli_xl.main(A.args(assets, "xl", tmp_path / "port", *extra, "--device", "cpu"))
+    A.assert_same_sweep(tmp_path / "port", tmp_path / "jax", fp32)
+
+
+def test_xl_sweep_resumes(assets, tmp_path, monkeypatch):
+    out = tmp_path / "port"
+    tcli_xl.main(A.args(assets, "xl", out, "--device", "cpu"))
+    keep = out / A.SLIDER / "1.0" / "0_0.png"
+    kept = keep.read_bytes()
+    os.remove(out / A.SLIDER / "-1.0" / "0_0.png")
+    calls = []
+    real = tcli_xl.sample_loop
+    monkeypatch.setattr(tcli_xl, "sample_loop", lambda *a, **k: calls.append(1) or real(*a, **k))
+    os.utime(keep, (0, 0))
+    tcli_xl.main(A.args(assets, "xl", out, "--device", "cpu"))
+    assert len(calls) == 1  # only the missing scale ran
+    assert keep.read_bytes() == kept and os.stat(keep).st_mtime == 0
+    assert (out / A.SLIDER / "-1.0" / "0_0.png").exists()
+
+
+def test_sweep_refusals(assets, tmp_path):
+    for flag, item in (("--quantize_base", "item 8"), ("--w8a8", "item 8"), ("--mesh_data=2", "item 12")):
+        with pytest.raises(SystemExit, match=item):
+            tcli_xl.main(A.args(assets, "xl", tmp_path / "out", flag, "--device", "cpu"))
+    te_slider = tmp_path / "te_slider.safetensors"
+    sd = load_file(str(assets / "xl" / A.SLIDER))
+    sd["lora_te1_text_model_encoder_layers_0_self_attn_q_proj.lora_down.weight"] = torch.zeros(2, 16)
+    save_file(sd, str(te_slider))
+    args = A.args(assets, "xl", tmp_path / "out", "--device", "cpu")
+    args[1] = str(te_slider)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tcli_xl.main(args)
+    p = tcli_xl.build_parser()
+    defaults = vars(p.parse_args(["--model_name", "m", "--prompts_path", "p", "--save_path", "s"]))
+    jdefaults = vars(jcli_xl.build_parser().parse_args(["--model_name", "m", "--prompts_path", "p", "--save_path", "s"]))
+    assert {k: v for k, v in defaults.items() if k != "device"} == jdefaults  # the JAX flags and defaults

@@ -331,12 +331,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.train(cfg, prompts, device="cpu")
     # SD1/SD2 trains since the SD slice (tests/test_torch_sd_train.py); a path
-    # on disk in either family still waits for real-weight loading
+    # on disk in either family loads when it is a diffusers directory or a
+    # checkpoint file (tests/test_torch_loaders.py), and any other path raises
     for name in ("tiny", "tiny-xl"):
         cfg = _tiny_config(tmp_path)
         cfg.pretrained_model.name_or_path = str(tmp_path / name)
         (tmp_path / name).mkdir(exist_ok=True)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="neither a diffusers directory"):
             ttrainer.train(cfg, prompts, device="cpu")
 
 
