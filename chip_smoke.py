@@ -107,10 +107,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   the idle share, and the kernels that take the device time.
 13. train       — full-width SDXL ESD slider training at 512px through
                   trainer.train from data/config-xl.yaml + data/prompts-xl.yaml
-                  (only train.iterations and save.path overridden): finite
-                  losses, moving factors, the saved file's keys, launch counts
-                  per step, steps/s, first-step seconds, peak memory; then one
-                  more step under torch.profiler (phase_esd).
+                  (only train.iterations and save.path overridden; the unset
+                  tpu block resolves, as in JAX, to the overlay student with
+                  the merged warm-up): finite losses, moving factors, the saved
+                  file's keys, launch counts per step, steps/s, first-step
+                  seconds, peak memory; then one more step under
+                  torch.profiler (phase_esd).
+13b. train_overlay_warmup — as 13 with tpu.overlay_warmup: true (the warm-up
+                  through the overlay, the port's route before the default
+                  followed JAX), 3 steps; then warmup_routes: steps/s, UNet
+                  forwards/s and first-step seconds of both warm-up routes.
+13c. train_merged — as 13 with tpu.student_overlay: false (the merged
+                  student: autograd through the merge, full dL/dW′ per site),
+                  3 steps, profiled; then merged_call_cost: the host cost of
+                  one merged-weights forward (SDXL 512px, 560 merged weights),
+                  by the port's parameter swap and by functional_call.
 14. imageslider — full-width SDXL image-pair slider training at 512px through
                   cli/train_lora_scale.train from the same YAML files, four
                   folders of four synthetic PNGs at scales -2, -1, 1, 2: bank
@@ -122,11 +133,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   data/config.yaml + data/prompts.yaml (DDIM,
                   max_denoising_steps 50): K1 20 and K4a 12 launches per UNet
                   forward, K2/K3 20 and K4b/K4c 12 per step.
+15b. sd_dora_train — as 15 with peft_type dora (the merged route), 3 steps:
+                  every dora_scale moved, the saved .dora_scale keys [1, in],
+                  the file reloaded through adapters/dora.py bit-equal.
 16. sd2_train   — the same YAML turned to SD2.1 (v2, v_pred), 2 steps: head
                   dim 64 everywhere, so K1/K2/K3 only (32 per forward / step).
 17. sd_imageslider — as 14 for SD1.5 at 256px: K4a once per folder at the
                   bank build (the VAE mid-block, 1024², d 512); per step K1
                   20, K4a 12, K2/K3 20, K4b/K4c 12.
+17b. sd_imageslider_merged — as 17 with tpu.student_overlay: false, 2 steps:
+                  the merged ±s students, two 1-row calls a step, so every
+                  kernel launches twice per step what the overlay launches.
 18. load        — a full-width SD1.5 diffusers directory written with the
                   port's .safetensors writer (seeded random bf16 weights;
                   unet/ in two shards with an index, vae/, text_encoder/ under
@@ -156,11 +173,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   50 steps, start_noise 850, scales -2 and 2, one sample;
                   per trajectory K1 1000 and K4a 600, plus one K4a per decode;
                   the composite 512 × 1024.
+22b. export     — cli/export_single_file over the SD1.5 directory and the
+                  sd_serve slider at --scale 2 (fp32); the file reloaded in
+                  bf16: every non-site tensor bit-equal to the directory's,
+                  every site weight to the fp32 merge rounded once; one 512px
+                  50-step sampler call over it equal, pixel for pixel, to the
+                  directory's model with those weights (K1 1000, K4a 601);
+                  write and reload seconds, and the gap to the sweeps' bf16
+                  merge.
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
-                  sd_serve, sd2_serve, sweep_xl and sweep_sd1 run K1 and K4a
-                  and no backward kernel). On every path the plain attention
-                  versions, forward and backward, ran 0 times on the card.
+                  sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
+                  and K4a and no backward kernel). On every path the plain
+                  attention versions, forward and backward, ran 0 times on the
+                  card.
 
 Then the card as nvidia-smi names it, and the result line.
 """
@@ -184,16 +210,19 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
-from sliders_conceptmod_tpu_torch.adapters import lora
+from sliders_conceptmod_tpu_torch.adapters import dora, lora
+from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
+from sliders_conceptmod_tpu_torch.cli import export_single_file
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
 from sliders_conceptmod_tpu_torch.cli import train_lora_scale
 from sliders_conceptmod_tpu_torch.core import yaml_subset
-from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml
+from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
-from sliders_conceptmod_tpu_torch.infer.generate import sample_loop_scales
+from sliders_conceptmod_tpu_torch.infer.generate import latents_to_images, sample_loop, sample_loop_scales
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory
@@ -248,6 +277,7 @@ TRAIN_SHAPES = [
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
 TRAIN_ITERATIONS = 6
+ROUTE_ITERATIONS = 3  # the other slider routes and DoRA: 3 steps each
 # (name, rows, Sq, Sk, heads, head dim): K4a's calls on the paths — the VAE
 # mid-block attention (one head, head dim = channels = 512) and SD1.5's
 # 1280-channel UNet level (8 heads of 160, run zero-padded to 192; bound_ms
@@ -1343,19 +1373,34 @@ def train_config(save_dir: Path, yaml_name: str = "config-xl.yaml", iterations: 
     return cfg, load_prompts_from_yaml(cfg.prompts_file)
 
 
-def trained_summary(cfg, res, unet_cfg: UNetConfig) -> dict:
+def trained_summary(cfg, res, unet_cfg: UNetConfig, initial_scales=None) -> dict:
     """The saved ``_last.safetensors`` against the reference key schema for
     the config's sites, and how many LoRA ``up`` factors are still at their
-    0 start."""
-    saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
+    0 start. With DoRA's ``initial_scales`` (each site's ``dora_scale`` at
+    init): the ``.dora_scale`` keys and their ``[1, in]`` shapes, how many
+    scales never moved, and the file reloaded through
+    ``adapters/dora.py::load_weights`` against the trained leaves, bit for bit."""
+    path = str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors")
+    saved = load_file(path)
     with torch.device("meta"):
         meta_unet = UNet2DConditionModel(unet_cfg)
     ref_sites = lora.create_sites(meta_unet, rank=cfg.network.rank, alpha=cfg.network.alpha,
                                   train_method=cfg.network.training_method)
-    want_keys = {f"{s.lora_name}.{k}" for s in ref_sites for k in ("lora_down.weight", "lora_up.weight", "alpha")}
+    leaves = ("lora_down.weight", "lora_up.weight", "alpha") + (("dora_scale",) if initial_scales else ())
+    want_keys = {f"{s.lora_name}.{k}" for s in ref_sites for k in leaves}
     ups_zero = [n for n, leaf in res.lora_params.items() if not leaf["up"].detach().abs().max().item() > 0]
-    return dict(saved_keys=len(saved), saved_keys_match_reference=set(saved) == want_keys,
-                up_factors_still_zero=len(ups_zero))
+    out = dict(saved_keys=len(saved), saved_keys_match_reference=set(saved) == want_keys,
+               up_factors_still_zero=len(ups_zero))
+    if initial_scales:
+        back = dora.load_weights(path, res.sites, device="cuda")
+        out.update(
+            dora_scale_shapes_ok=all(tuple(saved[f"{s.lora_name}.dora_scale"].shape) == (1, s.in_dim)
+                                     for s in ref_sites),
+            dora_scales_unmoved=sum(torch.equal(res.lora_params[n]["dora_scale"].detach().cpu(), t)
+                                    for n, t in initial_scales.items()),
+            reload_bit_equal=all(torch.equal(back[n][k], t.detach()) for n, leaf in res.lora_params.items()
+                                 for k, t in leaf.items()))
+    return out
 
 
 def check_trained(what: str, res, summary: dict, launches, want_launches, iterations: int = TRAIN_ITERATIONS) -> None:
@@ -1365,6 +1410,9 @@ def check_trained(what: str, res, summary: dict, launches, want_launches, iterat
         raise AssertionError(f"{what}: {summary['up_factors_still_zero']} LoRA up factors are still zero")
     if not summary["saved_keys_match_reference"]:
         raise AssertionError(f"{what}: the saved slider's keys are not the reference schema")
+    if "dora_scales_unmoved" in summary and (summary["dora_scales_unmoved"] or not summary["dora_scale_shapes_ok"]
+                                             or not summary["reload_bit_equal"]):
+        raise AssertionError(f"{what}: DoRA's dora_scale {summary}")
     if launches != want_launches:
         raise AssertionError(f"{what} launched K1..K4c {launches} times, expected {want_launches}")
 
@@ -1388,35 +1436,54 @@ def phase_sd_train_parity() -> None:
                         xl=False)
 
 
-def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: int = TRAIN_ITERATIONS) -> list:
+def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: int = TRAIN_ITERATIONS,
+              peft_type: str = "lora") -> dict:
     """Full-width ESD training at the prompts' resolution through
     trainer.train (the path of cli/train_lora_xl.py and cli/train_lora.py),
     from data/<yaml_name> and its prompts file (only train.iterations and
-    save.path overridden, plus ``yaml_edit`` for the SD2.1 run); then one more
-    step under torch.profiler. Returns the launches of K1..K4c."""
+    save.path overridden, plus ``yaml_edit``: SD2.1, or a tpu route knob);
+    then one more step under torch.profiler. The row names the slider's
+    route as the trainer resolves it; returns it with the launches of
+    K1..K4c."""
     cfg, prompts = train_config(tmp / what, yaml_name, iterations)
     if yaml_edit is not None:
         yaml_edit(cfg)
     model = cfg.pretrained_model
     unet_cfg = factory.unet_config_for(model.name_or_path, model.v2)
+    route = resolve_student_overlay(cfg.tpu, False, peft_type, default_overlay=(peft_type == "lora"))
+    initial_scales = {}
+    real_init = dora.init_lora_params
+
+    def recording_init(*a, **k):  # keeps each site's dora_scale at init, to see it move
+        params = real_init(*a, **k)
+        initial_scales.update({n: leaf["dora_scale"].clone() for n, leaf in params.items()})
+        return params
+
+    dora.init_lora_params = recording_init
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # count this training path only
     t0 = time.time()
-    res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    try:
+        res = trainer.train(cfg, prompts, rank=cfg.network.rank, peft_type=peft_type, device="cuda")
+    finally:
+        dora.init_lora_params = real_init
     wall = time.time() - t0
     launches = list(counts())
     check_no_plain(what)
     t_to = [row["timesteps_to"] for row in res.metrics]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    summary = trained_summary(cfg, res, unet_cfg)
+    summary = trained_summary(cfg, res, unet_cfg, initial_scales)
     want_launches = per_step_launches(unet_cfg, sum(t + 2 for t in t_to), iterations)
+    forwards_after_first = sum(t + 2 for t in t_to[1:])
     row = dict(
         phase=what, model=model.name_or_path, v2=model.v2, v_pred=model.v_pred, clip_skip=model.clip_skip,
+        peft_type=peft_type, student_overlay=route[0], overlay_warmup=route[1],
         image_size=prompts[0].resolution, scheduler=cfg.train.noise_scheduler,
         max_denoising_steps=cfg.train.max_denoising_steps, precision=cfg.train.precision, train_cfg=cfg.train.cfg,
         lora_sites=len(res.sites), iterations=iterations, losses=res.losses,
         grad_norms=[r["grad_norm"] for r in res.metrics], timesteps_to=t_to,
         steps_per_sec_after_first=res.steps_per_sec, first_step_seconds=res.first_step_seconds,
+        unet_forwards_per_sec_after_first=forwards_after_first / (iterations - 1) * res.steps_per_sec,
         setup_seconds_models_and_prompt_bank=res.setup_seconds, wall_seconds=wall, max_memory_allocated_gib=peak,
         attention_calls_by_head_dim=unet_cfg.attention_calls_by_head_dim(), launches_k1_to_k4c=launches,
         expected_launches=want_launches, **summary,
@@ -1427,7 +1494,14 @@ def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: 
     profiled = {}
     prof = device_profile(lambda: profiled.update(res.next_step()))
     emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
-    return launches
+    row["profile"] = prof
+    return row
+
+
+def set_tpu(cfg, **knobs) -> None:
+    """Set ``tpu.<knob>`` of a loaded config (a route of the slider)."""
+    for k, v in knobs.items():
+        setattr(cfg.tpu, k, v)
 
 
 def sd21_config(cfg) -> None:
@@ -1437,16 +1511,21 @@ def sd21_config(cfg) -> None:
     cfg.pretrained_model.v_pred = True
 
 
-def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int) -> list:
+def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int, yaml_edit=None,
+                      iterations: int = TRAIN_ITERATIONS) -> list:
     """Full-width image-pair slider training through
     cli/train_lora_scale.train from data/<yaml_name> and its prompts file
     (SDXL at 512px, SD1.5 at 256px: the trainer's resolution for the family),
-    four folders of four synthetic PNGs at scales -2, -1, 1, 2; then one more
-    step under torch.profiler. Returns the launches of K1..K4c."""
-    cfg, prompts = train_config(tmp / what, yaml_name)
+    four folders of four synthetic PNGs at scales -2, -1, 1, 2, plus
+    ``yaml_edit`` (the merged students: ``tpu.student_overlay: false``); then
+    one more step under torch.profiler. Returns the launches of K1..K4c."""
+    cfg, prompts = train_config(tmp / what, yaml_name, iterations)
+    if yaml_edit is not None:
+        yaml_edit(cfg)
     root = tmp / f"{what}_images"
     write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution, seed)
     unet_cfg = factory.unet_config_for(cfg.pretrained_model.name_or_path, cfg.pretrained_model.v2)
+    student_overlay = train_lora_scale.resolve_student(cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # count this image-pair training path only
     t0 = time.time()
@@ -1457,14 +1536,17 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     check_no_plain(what)
     peak = torch.cuda.max_memory_allocated() / 2**30
     summary = trained_summary(cfg, res, unet_cfg)
-    # per step one 2-row student forward and backward; K4a also once per folder's encode (VAE mid-block)
-    want_launches = per_step_launches(unet_cfg, TRAIN_ITERATIONS, TRAIN_ITERATIONS)
+    # per step one 2-row student forward and backward through the overlay, or
+    # two 1-row merged students; K4a also once per folder's encode (VAE mid-block)
+    calls = iterations * (1 if student_overlay else 2)
+    want_launches = per_step_launches(unet_cfg, calls, calls)
     want_launches[3] += len(IMAGE_FOLDERS)
     row = dict(
         phase=what, model=cfg.pretrained_model.name_or_path, image_size=resolution,
+        student_overlay=student_overlay, student_calls_per_step=calls // iterations,
         folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=IMAGES_PER_FOLDER,
         scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
-        precision=cfg.train.precision, lora_sites=len(res.sites), iterations=TRAIN_ITERATIONS,
+        precision=cfg.train.precision, lora_sites=len(res.sites), iterations=iterations,
         losses=res.losses, loss_high=[r["loss_high"] for r in res.metrics],
         loss_low=[r["loss_low"] for r in res.metrics], grad_norms=[r["grad_norm"] for r in res.metrics],
         pair_scales=[r["scale"] for r in res.metrics], timesteps_to=[r["timesteps_to"] for r in res.metrics],
@@ -1474,11 +1556,133 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
         expected_launches=want_launches, **summary,
     )
     emit(row)
-    check_trained(what, res, summary, launches, want_launches)
+    check_trained(what, res, summary, launches, want_launches, iterations)
 
     profiled = {}
     prof = device_profile(lambda: profiled.update(res.next_step()))
     emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], scale=profiled["scale"], **prof))
+    return launches
+
+
+def phase_merged_call_cost(iters: int = 10) -> dict:
+    """The host cost of a merged-weights call: full-width SDXL (seeded random
+    bf16 weights) at 512px, one ESD student's row, the 560 ``full``-method
+    sites of data/config-xl.yaml merged once; median wall of ``iters``
+    synchronised forwards of the plain module, of ``esd.merged_call`` (the
+    port's route: ``lora.merged_weights`` swaps the module's parameter
+    entries) and of ``torch.func.functional_call`` (the same kernels: the
+    differences are the swaps)."""
+    unet = factory.build_module(lambda: UNet2DConditionModel(UNetConfig.sdxl()), "cuda", torch.bfloat16, 2)
+    sites = lora.create_sites(unet, rank=4, alpha=1.0, train_method="full")
+    lp = lora.init_lora_params(sites, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    merged = lora.merge_lora_params(unet, sites, lp, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 4, 64, 64), generator=g, device="cuda")
+    text = torch.randn((1, 77, 2048), generator=g, device="cuda")
+    added = {"text_embeds": torch.randn((1, 1280), generator=g, device="cuda"),
+             "time_ids": torch.from_numpy(get_add_time_ids(512, 512)).cuda()}
+    overlay = lora.LoRAOverlay(unet, sites, lp)
+
+    def median_ms(fn) -> float:
+        times = []
+        for i in range(iters + 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad(), overlay(None):
+                fn(x, 500, text, added_cond_kwargs=added)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    plain = median_ms(unet)
+    swapped = median_ms(esd.merged_call(unet, merged))
+    func = median_ms(lambda *a, **k: functional_call(unet, merged, a, k))
+    row = dict(phase="merged_call_cost", model=SDXL, image_size=512, rows=1, merged_tensors=len(merged), iters=iters,
+               plain_forward_ms=plain, merged_weights_forward_ms=swapped, functional_call_forward_ms=func,
+               merged_weights_host_ms_per_call=swapped - plain, functional_call_host_ms_per_call=func - plain)
+    emit(row)
+    del unet, merged, lp, overlay
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_export(tmp: Path, sd_dir: Path) -> list:
+    """cli/export_single_file over the load phase's SD1.5 directory and the
+    sd_serve slider at --scale 2, in fp32; the file reloaded with
+    factory.load_models in bf16: every non-site tensor bit-equal to the
+    directory's (loaded in bf16), every site weight bit-equal to
+    merge_lora_params over the fp32 directory at 2.0 rounded once to bf16;
+    then one 512px, 50-step DDIM sample_loop over the reloaded model against
+    the directory's model with those merged weights (swapped in per call),
+    pixel for pixel, and against the sweeps' merge over the bf16 weights (the
+    double rounding, reported). Returns the launches of the reloaded model's
+    sampler call and decode."""
+    slider = tmp / "sd_serve_noxattn_rank4_alpha1.safetensors"
+    out = tmp / "sd15_slider_x2.safetensors"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    n_tensors = len(export_single_file.main(["--base", str(sd_dir), "--slider", str(slider), "--scale", "2",
+                                             "--output", str(out)]))
+    torch.cuda.synchronize()
+    write_s = time.time() - t0
+    t0 = time.time()
+    _, te, unet, sched, vae = factory.load_models(str(out), device="cuda", weight_dtype=torch.bfloat16,
+                                                  with_vae=True)
+    torch.cuda.synchronize()
+    reload_s = time.time() - t0
+
+    _, _, unet32, _ = factory.load_models(str(sd_dir), device="cuda", weight_dtype=torch.float32)
+    parts = load_slider_file(str(slider))
+    sites, lp = gen_xl.unet_slider(unet32, str(slider), parts.unet, "cuda")
+    exact = {k: v.to(torch.bfloat16) for k, v in lora.merge_lora_params(unet32, sites, lp, 2.0).items()}
+    del unet32
+    _, te_b, unet_b, _, vae_b = factory.load_models(str(sd_dir), device="cuda", weight_dtype=torch.bfloat16,
+                                                    with_vae=True)
+    mismatched = [f"{comp}.{k}" for comp, got, src in (("text_encoder", te.model, te_b.model), ("vae", vae, vae_b),
+                                                       ("unet", unet, unet_b))
+                  for k, v in got.state_dict().items()
+                  if not torch.equal(v, exact[k] if comp == "unet" and k in exact else src.state_dict()[k])]
+
+    schedule = sched.set_timesteps(50)
+    with torch.inference_mode():
+        emb = torch.cat([factory.encode_prompts(te, [""]), factory.encode_prompts(te, ["a photo of a person"])])
+    lat = torch.randn((1, 4, 64, 64), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    lat = (lat * schedule.init_noise_sigma).to(torch.bfloat16)
+
+    def images(model, merged):
+        final = sample_loop(model, merged, 0, sched, schedule, lat, emb, guidance_scale=7.5)
+        return latents_to_images(vae.decode, final, vae.config.scaling_factor)[0]
+
+    reset_counts()  # the exported model's sampler call and decode
+    t0 = time.time()
+    got = images(unet, None)
+    torch.cuda.synchronize()
+    sample_s = time.time() - t0
+    launches = list(counts())
+    check_no_plain("export")
+    want = images(unet_b, exact)
+    sweep = images(unet_b, lora.merge_lora_params(unet_b, sites, lp, 2.0))
+    k1, k4a = per_sampler_call(UNetConfig.sd15(), 50)
+    row = dict(phase="export", model=f"{SD15} (the load phase's directory)", slider=slider.name, scale=2.0,
+               file_bytes=out.stat().st_size, tensors=n_tensors, export_dtype="float32",
+               reload_dtype="bfloat16", baked_sites=len(sites), write_seconds=write_s, reload_seconds=reload_s,
+               bit_equal=not mismatched, sample_seconds=sample_s,
+               pixels_equal_to_directory_merged=bool(np.array_equal(got, want)),
+               pixel_max_abs_vs_directory_merged=int(np.abs(got.astype(int) - want).max()),
+               pixel_max_abs_vs_bf16_merge=int(np.abs(got.astype(int) - sweep).max()),
+               pixel_mean_abs_vs_bf16_merge=float(np.abs(got.astype(int) - sweep).mean()),
+               launches_k1_to_k4c=launches, max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    emit(row)
+    if mismatched:
+        raise AssertionError(f"export: {len(mismatched)} tensors differ (e.g. {mismatched[:3]})")
+    if (launches[0], launches[3]) != (k1, k4a) or any(launches[i] for i in (1, 2, 4, 5)):
+        raise AssertionError(f"export: the sampler launched K1..K4c {launches}, expected K1 {k1} and K4a {k4a}")
+    if not row["pixels_equal_to_directory_merged"]:
+        raise AssertionError(f"export: the reloaded file's image differs from the merged directory's by "
+                             f"{row['pixel_max_abs_vs_directory_merged']}")
+    del te, unet, vae, te_b, unet_b, vae_b, exact
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1912,18 +2116,43 @@ def main() -> int:
         # each serving and training phase sets every count to 0 first
         paths["serve"] = served(tmp, "serve", lambda p: SliderService(
             SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL)
-        paths["train"] = phase_esd(tmp, "train", "config-xl.yaml")
+        train_rows = {"train": phase_esd(tmp, "train", "config-xl.yaml")}
         torch.cuda.empty_cache()
+        t_routes = time.time()
+        train_rows["train_overlay_warmup"] = phase_esd(tmp, "train_overlay_warmup", "config-xl.yaml",
+                                                       functools.partial(set_tpu, overlay_warmup=True),
+                                                       iterations=ROUTE_ITERATIONS)
+        torch.cuda.empty_cache()
+        emit(dict(phase="warmup_routes", model=SDXL, **{
+            name: {k: row[k] for k in ("student_overlay", "overlay_warmup", "iterations", "timesteps_to",
+                                       "steps_per_sec_after_first", "unet_forwards_per_sec_after_first",
+                                       "first_step_seconds")}
+            for name, row in (("merged_warmup", train_rows["train"]),
+                              ("overlay_warmup", train_rows["train_overlay_warmup"]))}))
+        train_rows["train_merged"] = phase_esd(tmp, "train_merged", "config-xl.yaml",
+                                               functools.partial(set_tpu, student_overlay=False),
+                                               iterations=ROUTE_ITERATIONS)
+        torch.cuda.empty_cache()
+        phase_merged_call_cost()
         paths["imageslider"] = phase_image_pairs(tmp, "imageslider", "config-xl.yaml",
                                                  train_lora_scale.XL_RESOLUTION, seed=6)
         torch.cuda.empty_cache()
-        paths["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
+        train_rows["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
         torch.cuda.empty_cache()
-        paths["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2)
+        train_rows["sd_dora_train"] = phase_esd(tmp, "sd_dora_train", "config.yaml", iterations=ROUTE_ITERATIONS,
+                                                peft_type="dora")
         torch.cuda.empty_cache()
+        train_rows["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2)
+        torch.cuda.empty_cache()
+        paths.update({k: row["launches_k1_to_k4c"] for k, row in train_rows.items()})
         paths["sd_imageslider"] = phase_image_pairs(tmp, "sd_imageslider", "config.yaml",
                                                     train_lora_scale.SD_RESOLUTION, seed=8)
         torch.cuda.empty_cache()
+        paths["sd_imageslider_merged"] = phase_image_pairs(
+            tmp, "sd_imageslider_merged", "config.yaml", train_lora_scale.SD_RESOLUTION, seed=8,
+            yaml_edit=functools.partial(set_tpu, student_overlay=False), iterations=2)
+        torch.cuda.empty_cache()
+        emit(dict(phase="route_phases", seconds=time.time() - t_routes))
         t_new = time.time()
         sd_dir = phase_load(tmp)
         paths["sd_serve"] = served(tmp, "sd_serve", lambda p: SD1SliderService(
@@ -1935,18 +2164,23 @@ def main() -> int:
         paths["sweep_xl"] = phase_sweep_xl(tmp)
         paths["sweep_sd1"] = phase_sweep_sd1(tmp, sd_dir)
         emit(dict(phase="inference_paths", seconds=time.time() - t_new))
+        t_export = time.time()
+        paths["export"] = phase_export(tmp, sd_dir)
+        emit(dict(phase="export_path", seconds=time.time() - t_export))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
     # its decodes when serving
-    inference = ("sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1")
+    inference = ("sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export")
+    xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider")
+    sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged")
     runs_on = {
-        "K1": ("serve", "train", "imageslider", "sd_train", "sd2_train", "sd_imageslider") + inference,
-        "K2": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
-        "K3": ("train", "imageslider", "sd_train", "sd2_train", "sd_imageslider"),
-        "K4a": ("serve", "imageslider", "sd_train", "sd_imageslider") + inference,
-        "K4b": ("sd_train", "sd_imageslider"),
-        "K4c": ("sd_train", "sd_imageslider"),
+        "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference,
+        "K2": xl_train + sd15_train + ("sd2_train",),
+        "K3": xl_train + sd15_train + ("sd2_train",),
+        "K4a": ("serve", "imageslider") + sd15_train + inference,
+        "K4b": sd15_train,
+        "K4c": sd15_train,
     }
     for i, name in enumerate(KERNEL_NAMES):
         if min(paths[p][i] for p in runs_on[name]) <= 0:

@@ -25,6 +25,11 @@ Training runs through the same overlay: fp32 factors that require grad are
 hooked in as they are, the hook's ops stay on autograd's graph, and a
 backward after the block reaches the factors (the hooks are gone by then;
 the graph holds what it needs). Serving calls it under ``inference_mode``.
+
+The merged route (:func:`merge_lora_params`) returns the site weights with
+the slider added, which :func:`merged_weights` puts in place of the model's
+for the calls of a block: the sweeps and the trainers' merged warm-up take
+them without a graph, the merged student with autograd through the merge.
 """
 
 from __future__ import annotations
@@ -32,9 +37,9 @@ from __future__ import annotations
 import re
 import threading
 import weakref
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -242,7 +247,8 @@ class LoRAOverlay:
     adapts every site for the calls made inside the block, holding the
     model's lock (another thread's overlay on the same model waits).
     ``overlay(None)`` holds the lock and adapts nothing: the plain model,
-    safe from other threads' hooks."""
+    safe from other threads' hooks — the block the merged route's calls run
+    in (it raises if a site module still carries a hook)."""
 
     def __init__(self, model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams):
         self._lock = model_lock(model)
@@ -260,6 +266,9 @@ class LoRAOverlay:
         targets = self._targets if row_scale is not None else []
         handles = []
         with self._lock:
+            if row_scale is None and any(mod._forward_hooks for mod, *_ in self._targets):
+                # a merged-weights call under another overlay's hooks would add the slider twice
+                raise RuntimeError("overlay(None) entered while a site module carries a forward hook")
             try:
                 for mod, site, down, up in targets:
                     handles.append(mod.register_forward_hook(_make_hook(site, down, up, row_scale.float())))
@@ -302,39 +311,84 @@ def _make_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: 
 # ---------------------------------------------------------------------------
 
 
-def _delta_weight(site: LoRASite, leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """(α/r)·(up∘down) in the base weight's layout: ``[out, in]`` for a
-    Linear; for a conv the k×k down conv followed by the 1×1 up conv,
-    composed into one ``[out, in, kh, kw]`` kernel."""
+def compose_factors(site: LoRASite, leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """up∘down in the base weight's layout: ``[out, in]`` for a Linear; for
+    a conv the k×k down conv followed by the 1×1 up conv, composed into one
+    ``[out, in, kh, kw]`` kernel."""
     down, up = leaf["down"], leaf["up"]
     if site.kind == "dense":
-        delta = up @ down
-    else:
-        delta = torch.einsum("or,rihw->oihw", up[:, :, 0, 0], down)
-    return delta * site.scale
+        return up @ down
+    return torch.einsum("or,rihw->oihw", up[:, :, 0, 0], down)
 
 
-@torch.no_grad()
-def merge_lora_params(model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams,
-                      multiplier: float) -> Dict[str, torch.Tensor]:
-    """``{parameter name: W + (m·(α/r)·up∘down).to(W.dtype)}`` for the site
-    modules only, the delta added in W's dtype as the JAX merge adds it. Feed
-    the result to ``torch.func.functional_call(model, merged, ...)``: the
-    other parameters stay the model's own, and no new weight is written into
-    the model. An integer (quantized) weight cannot hold a delta and raises."""
+def _delta_weight(site: LoRASite, leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(α/r)·(up∘down) in the base weight's layout."""
+    return compose_factors(site, leaf) * site.scale
+
+
+def site_weights(model: nn.Module, sites: Sequence[LoRASite]) -> Iterator[Tuple[LoRASite, str, torch.Tensor]]:
+    """(site, parameter name, weight) of each site's module, in site order."""
     by_path = {module_path(n): n for n, _ in model.named_modules()}
-    merged = {}
     for site in sites:
         name = by_path.get(site.module_path)
         if name is None:
             raise KeyError(f"no module at {'/'.join(site.module_path)} for {site.lora_name}")
         key = f"{name}.weight" if name else "weight"
-        weight = model.get_parameter(key)
-        if not weight.dtype.is_floating_point:
-            raise ValueError(f"cannot merge LoRA into integer (quantized) weight {key}: use the overlay")
-        delta = _delta_weight(site, {k: t.to(weight.device) for k, t in lora_params[site.lora_name].items()})
-        merged[key] = weight + (multiplier * delta).to(weight.dtype)
+        yield site, key, model.get_parameter(key)
+
+
+def merge_site_weights(model: nn.Module, sites: Sequence[LoRASite], params: LoRAParams, multiplier: float,
+                       delta_fn: Callable[[LoRASite, Dict[str, torch.Tensor], torch.Tensor], torch.Tensor],
+                       grad: bool = False) -> Dict[str, torch.Tensor]:
+    """``{parameter name: W + (m·delta_fn(site, leaf, W)).to(W.dtype)}`` for
+    the site modules only — the merge every adapter shares (LoRA here, DoRA
+    in ``adapters/dora.py``). ``grad`` keeps autograd's graph through the
+    factors and the cast, whose gradient reaches the fp32 factors in fp32 (the
+    merged student); without it no graph is built (sweeps, the warm-up). An
+    integer (quantized) weight cannot hold a delta and raises."""
+    merged = {}
+    with nullcontext() if grad else torch.no_grad():
+        for site, key, weight in site_weights(model, sites):
+            if not weight.dtype.is_floating_point:
+                raise ValueError(f"cannot merge an adapter into integer (quantized) weight {key}: use the overlay")
+            leaf = {k: t.to(weight.device) for k, t in params[site.lora_name].items()}
+            merged[key] = weight + (multiplier * delta_fn(site, leaf, weight)).to(weight.dtype)
     return merged
+
+
+def merge_lora_params(model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams,
+                      multiplier: float, grad: bool = False) -> Dict[str, torch.Tensor]:
+    """``{parameter name: W + (m·(α/r)·up∘down).to(W.dtype)}`` for the site
+    modules only, the delta added in W's dtype as the JAX merge adds it. Run
+    the model on it inside :func:`merged_weights` under the model's lock:
+    the other parameters stay the model's own, and no weight of the model is
+    written. ``grad``: see :func:`merge_site_weights`."""
+    return merge_site_weights(model, sites, lora_params, multiplier,
+                              lambda site, leaf, weight: _delta_weight(site, leaf), grad)
+
+
+@contextmanager
+def merged_weights(model: nn.Module, merged: Dict[str, torch.Tensor]) -> Iterator[None]:
+    """``merged`` (parameter name → tensor) in place of those parameters for
+    the calls inside the block: each module's ``_parameters`` entry is
+    swapped, and the very Parameter it held is put back after. A tensor with
+    a graph stays on it, so a backward reaches what it was made from. Hold
+    the model's lock around the block (``model_lock``, or an overlay's
+    ``overlay(None)``). It costs a dict write per tensor, where
+    ``torch.func.functional_call`` re-parametrises the module on every call
+    (``chip_smoke.py``'s merged_call_cost times both; PERF.md §6)."""
+    slots = []
+    for name, tensor in merged.items():
+        mod_name, _, leaf = name.rpartition(".")
+        slots.append((model.get_submodule(mod_name), leaf, tensor))
+    originals = [mod._parameters[leaf] for mod, leaf, _ in slots]
+    try:
+        for mod, leaf, tensor in slots:
+            mod._parameters[leaf] = tensor
+        yield
+    finally:
+        for (mod, leaf, _), orig in zip(slots, originals):
+            mod._parameters[leaf] = orig
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +418,10 @@ def state_dict_tensors(
 
 def save_weights(path: str, sites: Sequence[LoRASite], lora_params: LoRAParams, dtype=torch.float32, metadata=None):
     """.safetensors (the port's own writer) or torch-pickle .pt, in ``dtype``."""
-    sd = state_dict_tensors(sites, lora_params, dtype=dtype)
+    write_state_dict(path, state_dict_tensors(sites, lora_params, dtype=dtype), metadata)
+
+
+def write_state_dict(path: str, sd: Dict[str, torch.Tensor], metadata=None) -> None:
     if str(path).endswith(".safetensors"):
         from sliders_conceptmod_tpu_torch.io.safetensors import save_file
 

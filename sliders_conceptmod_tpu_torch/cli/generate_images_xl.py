@@ -97,7 +97,8 @@ def unet_slider(unet, path: str, unet_sd, device=None):
     """(sites, factors) of a UNet slider part over ``unet``: the settings
     from the tensors (else the file name), the sites the file carries."""
     if any(k.endswith(".dora_scale") for k in unet_sd):
-        raise NotImplementedError(f"{path} is a DoRA slider; DoRA is not ported yet (ROADMAP.md queue 1, item 4)")
+        raise NotImplementedError(f"{path} is a DoRA slider: the sweeps and the export apply LoRA sliders only "
+                                  "(the JAX CLIs would read its factors and drop its dora_scale)")
     train_method, network_type, rank, alpha = infer_network_settings(str(path))
     exact = settings_from_tensors(unet_sd)
     if exact is not None:

@@ -8,7 +8,8 @@
 The same flags and save-name decoration (``_alpha{a}_rank{r}_{method}``) as
 the JAX CLI. ``--device`` picks the torch device (default ``cuda``; ``cpu``
 runs the kernels' plain versions, for tiny configs such as
-``data/config-tiny.yaml``). As in the JAX package, a prompt pair without a
+``data/config-tiny.yaml``); ``--peft_type dora`` trains a DoRA slider
+(``adapters/dora.py``). As in the JAX package, a prompt pair without a
 ``negative`` takes the ``unconditional`` one (``core/prompts.py``), which
 gives the upstream 4-prompt loss.
 """
@@ -45,7 +46,7 @@ def build_parser():
                         help="torch device (cuda, cuda:1, or cpu for tiny configs).")
     parser.add_argument("--name", type=str, default=None)
     parser.add_argument("--attributes", type=str, default=None)
-    parser.add_argument("--peft_type", type=str, default="lora", help="lora (dora is not ported yet)")
+    parser.add_argument("--peft_type", type=str, default="lora", help="dora or lora (default)")
     parser.add_argument("--resume_from", type=str, default=None,
                         help="resume checkpoint ({name}_resume.pt next to the saves, or its directory): restores "
                              "the factors, optimizer state, step and generators")

@@ -25,10 +25,12 @@ beside each periodic save, and the metrics jsonl. As in the JAX CLI the
 optimizer is ``train.optimizer`` over ``train.lr_scheduler``, with no
 gradient clip.
 
-The JAX CLI's refusals are kept (``tpu.quantize_base``,
-``tpu.w8a8_warmup``, ``tpu.overlay_warmup: true``), and
-``tpu.student_overlay: false`` raises until ``merge_lora_params`` is
-ported.
+The student's route resolves as in the JAX CLI
+(``core/config.py::resolve_student_overlay`` with ``default_overlay=True``):
+unset or ``tpu.student_overlay: true`` is the 2-row overlay student,
+``false`` the reference's two merged ±scale students. The JAX CLI's
+refusals are kept (``tpu.quantize_base``, ``tpu.w8a8_warmup``,
+``tpu.overlay_warmup: true``).
 """
 
 from __future__ import annotations
@@ -56,28 +58,27 @@ XL_RESOLUTION = 512  # reference train_lora-scale-xl.py:220
 SD_RESOLUTION = 256  # reference train_lora-scale.py:219
 
 
-def check_supported(config) -> None:
-    """The JAX CLI's refusals, and what the port does not carry yet."""
+def resolve_student(config) -> bool:
+    """The JAX CLI's refusals and its route rule: whether the student runs
+    through the overlay (else the merged ±scale students)."""
     tpu = config.tpu
     if tpu.quantize_base or tpu.w8a8_warmup:
         raise NotImplementedError(
             "tpu.quantize_base / tpu.w8a8_warmup are supported by the text-slider trainers only; the image-pair "
             "trainer takes the bf16 base — set quantize_base: false")
-    if tpu.overlay_warmup:
+    student_overlay, overlay_warmup = config_util.resolve_student_overlay(tpu, False, "lora", default_overlay=True)
+    if overlay_warmup:
         raise NotImplementedError(
             "tpu.overlay_warmup: true — the image-pair trainer has no warm-up chain (latents come from noised VAE "
             "posteriors); leave it unset")
-    if tpu.student_overlay is False:
-        raise NotImplementedError(
-            "tpu.student_overlay: false (the merged ±scale students) needs merge_lora_params, not ported yet "
-            "(ROADMAP.md queue 1)")
+    return student_overlay
 
 
 def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, save_file: bool = True,
           resume_from=None, device: str = "cuda") -> TrainResult:
     """Train one image-pair slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
-    check_supported(config)
+    student_overlay = resolve_student(config)
     scales, folders = list(scales), list(folders)
     if len(folders) != len(scales):
         raise ValueError("--folders and --scales must be index-matched")
@@ -131,7 +132,8 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
     schedule = scheduler.set_timesteps(config.train.max_denoising_steps)
     step_fn = imageslider.make_image_slider_step(unet, sites, lora_params, scheduler, schedule, optimizer, icfg,
                                                  emb["positive"], emb["neutral"], pooled=pooled or None,
-                                                 add_time_ids=models.add_time_ids(resolution, device))
+                                                 add_time_ids=models.add_time_ids(resolution, device),
+                                                 student_overlay=student_overlay)
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = TrainRNG(config.tpu.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)

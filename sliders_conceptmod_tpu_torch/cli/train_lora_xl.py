@@ -7,7 +7,8 @@ programmatic API.
       --config_file data/config-xl.yaml --alpha 1 --rank 4
 
 ``--device`` picks the torch device (default ``cuda``; ``cpu`` runs the
-kernels' plain versions, for tiny configs). ``main`` decorates the save name
+kernels' plain versions, for tiny configs); ``--peft_type dora`` trains a
+DoRA slider (``adapters/dora.py``). ``main`` decorates the save name
 as the reference does: ``_alpha{a}_rank{r}_{method}``.
 """
 
@@ -19,6 +20,7 @@ import os
 
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
+from sliders_conceptmod_tpu_torch.adapters import dora as dora_lib
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.train import trainer
 
@@ -66,7 +68,7 @@ def train_lora(
 ):
     """Programmatic API (reference train_lora_xl.py:421-458): writes a
     prompts YAML next to the config, trains, returns the state dict (numpy,
-    reference schema)."""
+    reference schema, with ``.dora_scale`` for DoRA)."""
     spec = {
         "target": target,
         "positive": positive,
@@ -95,7 +97,8 @@ def train_lora(
         config, prompts, rank=rank, peft_type=peft_type, on_step_complete=on_step_complete, save_file=False,
         device=device,
     )
-    return lora_lib.state_dict_numpy(result.sites, result.lora_params)
+    peft_mod = dora_lib if peft_type == "dora" else lora_lib
+    return peft_mod.state_dict_numpy(result.sites, result.lora_params)
 
 
 def build_parser():
@@ -108,7 +111,7 @@ def build_parser():
     parser.add_argument("--name", type=str, required=False, default=None)
     parser.add_argument("--attributes", type=str, required=False, default=None,
                         help="attributes to disentangle (comma separated string)")
-    parser.add_argument("--peft_type", type=str, required=False, default="lora", help="lora (dora is not ported yet)")
+    parser.add_argument("--peft_type", type=str, required=False, default="lora", help="dora or lora (default)")
     parser.add_argument("--resume_from", type=str, required=False, default=None,
                         help="resume checkpoint ({name}_resume.pt next to the saves, or its directory): restores "
                              "the factors, optimizer state, step and generators")

@@ -238,19 +238,57 @@ def parse_save_precision(precision: Optional[str]) -> torch.dtype:
     raise ValueError(f"Invalid precision type: {precision}")
 
 
-def resolve_student_overlay(tpu_cfg) -> None:
-    """The port runs the student and the warm-up through the LoRA overlay
-    (the JAX ``student_overlay=True, overlay_warmup=True`` route, exact in
-    any precision); ``tpu.student_overlay`` / ``tpu.overlay_warmup`` unset or
-    true select it. Set false, they ask for a merged tree, which needs
-    ``merge_lora_params`` (not ported yet): refused. The JAX default for a
-    bf16 LoRA, a merged warm-up, was a TPU-fusion measurement and rounds ΔW
-    into bf16 weights."""
-    for knob in ("student_overlay", "overlay_warmup"):
-        if getattr(tpu_cfg, knob, None) is False:
+def resolve_student_overlay(tpu_cfg, quantize_base: bool, peft_type: str, default_overlay=None):
+    """``tpu.student_overlay`` / ``tpu.overlay_warmup`` → ``(student_overlay,
+    overlay_warmup)``: the JAX ``resolve_student_overlay``, rule for rule.
+
+    ``student_overlay``: ``None`` follows ``default_overlay`` when the caller
+    gives one (the ESD trainers pass ``peft_type == "lora"``, the image-pair
+    CLI ``True``), else ``quantize_base``. An explicit ``true`` with DoRA
+    raises (its norm decomposition needs the merged weights); DoRA under a
+    default resolves to the merged student. An explicit ``false`` over an
+    int8 base raises.
+
+    ``overlay_warmup``: only with the overlay student (``true`` without it
+    raises); ``None`` → ``quantize_base``, so a bf16 LoRA warms up through
+    the merged weights and only the student runs the overlay. An explicit
+    ``false`` over an int8 base raises. Without the overlay student the
+    warm-up is merged and the second value is ``None``."""
+    student_overlay = getattr(tpu_cfg, "student_overlay", None)
+    if student_overlay is None:
+        if default_overlay is not None:
+            student_overlay = bool(default_overlay) or quantize_base
+        else:
+            student_overlay = quantize_base
+    else:
+        student_overlay = bool(student_overlay)
+        if student_overlay and peft_type == "dora":
             raise NotImplementedError(
-                f"tpu.{knob}: false needs the merged tree (merge_lora_params), not ported yet (ROADMAP.md queue 1)"
+                "tpu.student_overlay supports LoRA only (DoRA's norm decomposition merges)"
             )
+    if quantize_base and not student_overlay:
+        raise ValueError(
+            "tpu.student_overlay: false is incompatible with quantize_base: "
+            "true — an int8 base cannot host the merged student"
+        )
+    if peft_type == "dora":
+        student_overlay = False
+
+    overlay_warmup = getattr(tpu_cfg, "overlay_warmup", None)
+    if not student_overlay:
+        if overlay_warmup:
+            raise ValueError("tpu.overlay_warmup: true requires tpu.student_overlay: true")
+        return False, None
+    if overlay_warmup is None:
+        overlay_warmup = bool(quantize_base)
+    else:
+        overlay_warmup = bool(overlay_warmup)
+    if quantize_base and not overlay_warmup:
+        raise ValueError(
+            "tpu.overlay_warmup: false needs the merged warm-up tree — "
+            "impossible over a quantized (int8) base"
+        )
+    return student_overlay, overlay_warmup
 
 
 def load_config_from_yaml(config_path: str) -> RootConfig:

@@ -5,8 +5,8 @@ Two samplers over one denoising loop, each with the slider gated off while
 
 * ``sample_loop`` — the two-phase trajectory of the sweep CLIs: the base
   weights before the flip, the merged slider weights
-  (``adapters/lora.py::merge_lora_params``) after it, through
-  ``torch.func.functional_call``; one scheduler state carries across the
+  (``adapters/lora.py::merge_lora_params``) after it, swapped in for each
+  call (``merged_weights``); one scheduler state carries across the
   flip (the LMS derivative history spans it);
 * ``sample_loop_scales`` — every row of a batch in ONE trajectory, each row
   under its own slider scale via the per-row LoRA overlay (serving and
@@ -24,9 +24,8 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 from torch import nn
-from torch.func import functional_call
 
-from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, LoRASite, model_lock
+from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, LoRASite, merged_weights, model_lock
 from sliders_conceptmod_tpu_torch.diffusion.sampling import rescale_noise_cfg
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import Generators, NoiseScheduler, Schedule
 
@@ -114,7 +113,7 @@ def sample_loop(
     before it run the model's own weights, the rest run ``merged`` in place
     of the site weights (``None``: the base weights throughout).
 
-    ``functional_call`` swaps the merged tensors into the module for the
+    ``merged_weights`` swaps the merged tensors into the module for the
     length of one call, so each call holds the model's lock (as an overlay
     does): another thread's calls on the same model wait and never see the
     merged weights. CFG and randomness as :func:`sample_loop_scales`."""
@@ -123,7 +122,8 @@ def sample_loop(
         with model_lock(unet):
             if i < flip_step or merged is None:
                 return unet(scaled, t, emb, added_cond_kwargs=added)
-            return functional_call(unet, merged, (scaled, t, emb), {"added_cond_kwargs": added})
+            with merged_weights(unet, merged):
+                return unet(scaled, t, emb, added_cond_kwargs=added)
 
     return _denoise(call, _use_cfg(guidance_scale), scheduler, schedule, latents, text_embeddings,
                     guidance_scale, guidance_rescale, added_cond_kwargs, generators, step_noise)

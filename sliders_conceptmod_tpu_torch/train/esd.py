@@ -12,11 +12,22 @@ One iteration (reference ``conceptmod/textsliders/train_lora_xl.py:165-351``):
 5. loss = MSE(student, neutral + sign·g·(positive − negative)) in fp32, then
    the global gradient norm, the clip and AdamW.
 
-The slider is the LoRA overlay throughout (the JAX package's
-``ESDConfig(student_overlay=True, overlay_warmup=True)`` route): no merged
-weight tree, so ΔW is never rounded into bf16 weights. On the card every
-UNet attention runs kernel K1, and the student's backward runs K2 and K3
-(``ops/flash_attention.py``).
+The slider takes the JAX step's routes (``ESDConfig.student_overlay`` /
+``overlay_warmup``, resolved by ``core/config.py::resolve_student_overlay``):
+
+* the warm-up through the per-row LoRA overlay, or through the site weights
+  merged once per step at multiplier 1 (``merge_fn``, detached; every
+  warm-up call with them in place, ``adapters/lora.py::merged_weights``,
+  and no hooks) —
+  the merged warm-up rounds ΔW into bf16 weights, as the JAX default does;
+* the student through the overlay (only the rank-r path is differentiated),
+  or through weights merged inside autograd's region (the merged student:
+  full dL/dW′ per site, back through the merge to the fp32 factors). DoRA
+  always merges (``adapters/dora.py::merge_lora_params``).
+
+The teacher is the bare base. On the card every UNet attention runs kernel
+K1 (K4a at head dims 129…512), and the student's backward runs K2 and K3
+(K4b and K4c) (``ops/flash_attention.py``, ``ops/flash_attention_kgrid.py``).
 
 Randomness: the step takes the draws (:class:`Draws`) — as the parity tests
 derive them from the JAX key — or makes them from :class:`TrainRNG`: the
@@ -32,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, LoRASite
 from sliders_conceptmod_tpu_torch.core.prompts import action_sign
 from sliders_conceptmod_tpu_torch.diffusion.sampling import (
@@ -103,6 +115,25 @@ class ESDConfig:
     height: int = 512
     width: int = 512
     num_train_timesteps: int = 1000
+    # the JAX ESDConfig's route knobs: the student through the overlay, or
+    # merged with autograd through the merge; overlay_warmup None follows
+    # student_overlay. The trainer passes resolve_student_overlay's pair; the
+    # defaults keep the overlay throughout.
+    student_overlay: bool = True
+    overlay_warmup: Optional[bool] = None
+
+
+def merged_call(unet: torch.nn.Module, merged: Dict[str, torch.Tensor]) -> Callable[..., torch.Tensor]:
+    """The UNet with ``merged`` in place of its site weights, for one call at
+    a time (``adapters/lora.py::merged_weights``); run it inside
+    ``overlay(None)``, which holds the model's lock and checks that no hook
+    would add the slider again."""
+
+    def call(sample, timestep, text, added_cond_kwargs=None):
+        with lora_lib.merged_weights(unet, merged):
+            return unet(sample, timestep, text, added_cond_kwargs=added_cond_kwargs)
+
+    return call
 
 
 @dataclass
@@ -150,13 +181,22 @@ def make_esd_train_step(
     optimizer: AdamW,
     cfg: ESDConfig,
     add_time_ids: Optional[torch.Tensor] = None,  # [1, 6] for XL
+    merge_fn: Optional[Callable] = None,  # adapter merge (LoRA default; DoRA passes its own)
 ) -> Callable[..., dict]:
     """Build ``step(opt_state, bank, rng=None, draws=None) -> {"loss",
     "grad_norm", "timesteps_to"}``: device scalars (the pre-clip global
     gradient norm) and the host int of the warm-up's length.
 
-    ``lora_params`` (fp32 factors that require grad) and ``opt_state`` are
-    updated in place; the overlay binds the factors once."""
+    ``lora_params`` (fp32 leaves that require grad) and ``opt_state`` are
+    updated in place; the overlay binds the factors once. The JAX step's
+    refusals hold: the overlay is LoRA's only, and an overlay warm-up needs
+    the overlay student."""
+    merge = merge_fn if merge_fn is not None else lora_lib.merge_lora_params
+    if cfg.student_overlay and merge is not lora_lib.merge_lora_params:
+        raise ValueError("student_overlay supports the LoRA overlay only (DoRA merges)")
+    if cfg.overlay_warmup and not cfg.student_overlay:
+        raise ValueError("overlay_warmup=True requires student_overlay=True")
+    overlay_warmup = cfg.overlay_warmup if cfg.overlay_warmup is not None else cfg.student_overlay
     is_xl = add_time_ids is not None
     b = cfg.batch_size
     use_cfg = float(cfg.train_cfg_scale) != 1.0
@@ -187,13 +227,15 @@ def make_esd_train_step(
         g_pair, sign = bank.guidance[draws.pair], bank.sign[draws.pair]
         target_rows, target_kw = rows(text, pooled, ROLE_TARGET)
 
-        # (2) warm-up: slider ON, no gradients
-        with torch.no_grad(), overlay(one):
+        # (2) warm-up: slider ON, no gradients — the overlay, or one merge per step
+        with torch.no_grad(), overlay(one if overlay_warmup else None):
+            warm_unet = unet if overlay_warmup else merged_call(unet, merge(unet, sites, lora_params, 1.0))
             denoised = denoise_partial(
-                unet, scheduler, schedule, draws.latents0, target_rows,
+                warm_unet, scheduler, schedule, draws.latents0, target_rows,
                 total_steps=draws.timesteps_to, guidance_scale=cfg.train_cfg_scale,
                 added_cond_kwargs=target_kw, noise=draws.warm_noise,
             )
+            del warm_unet  # the merged warm-up weights go before the student's are made
         current_t = current_train_timestep(draws.timesteps_to, cfg.max_denoising_steps, cfg.num_train_timesteps)
 
         # (3) teacher: slider OFF, one batched call
@@ -217,11 +259,13 @@ def make_esd_train_step(
             # ESD target neutral ∓ g·(positive − negative), fp32 as the JAX step promotes it
             target = e_neu.float() + (sign * g_pair) * (e_pos - e_neg).float()
 
-        # (4) student: slider ON, gradients through the factors
+        # (4) student: slider ON, gradients through the factors (overlay) or through the merge
         with torch.enable_grad():
-            with overlay(one):
+            with overlay(one if cfg.student_overlay else None):
+                student_unet = (unet if cfg.student_overlay
+                                else merged_call(unet, merge(unet, sites, lora_params, 1.0, grad=True)))
                 student = predict_noise(
-                    unet, scheduler, schedule, denoised, target_rows, train_t=current_t,
+                    student_unet, scheduler, schedule, denoised, target_rows, train_t=current_t,
                     guidance_scale=cfg.train_cfg_scale, added_cond_kwargs=target_kw,
                 )
             loss = torch.mean((student.float() - target) ** 2)

@@ -6,16 +6,16 @@ Per iteration (reference ``train_lora-scale.py:173-343``): draw a |scale|
 pair u (its folders hold the −s and +s renders), an image index and
 ``timesteps_to ∈ [1, max_denoising_steps − 1)``; take both images' VAE
 posterior samples from ONE normal draw, scale them, noise both with ONE noise
-draw at ``schedule.timesteps[timesteps_to]``; then one 2-row student call
-through the LoRA overlay with per-row multipliers [+s, −s] — rows (high
-image, positive prompt) and (low image, neutral prompt) — and loss =
-mean((ε_high − noise)²) + mean((ε_low − noise)²), its gradient and the
-optimizer update.
+draw at ``schedule.timesteps[timesteps_to]``; then the student for rows
+(high image, positive prompt) at slider +s and (low image, neutral prompt)
+at −s, and loss = mean((ε_high − noise)²) + mean((ε_low − noise)²), its
+gradient and the optimizer update.
 
-The student is the overlay route only (the JAX ``student_overlay=True``
-route, the JAX CLI's default); the CLI refuses ``tpu.student_overlay:
-false``, whose merged route needs ``merge_lora_params``, not ported yet
-(ROADMAP.md queue 1). Every image is VAE-encoded once
+Two student routes, as in JAX (``student_overlay``): one 2-row call through
+the LoRA overlay with per-row multipliers [+s, −s] (the JAX CLI's default),
+or the reference's two merged students — the site weights merged at +s and
+at −s inside autograd's region, and one 1-row call through each
+(``train/esd.py::merged_call``). Every image is VAE-encoded once
 into an :class:`ImageBank` of posterior moments on the device; on the card the
 encoder's mid-block attention runs kernel K4a, and the student's attentions
 run K1 forward and K2/K3 backward.
@@ -41,12 +41,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, LoRASite
 from sliders_conceptmod_tpu_torch.diffusion.sampling import current_train_timestep
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import NoiseScheduler, Schedule
 from sliders_conceptmod_tpu_torch.io.png import decode_png
 from sliders_conceptmod_tpu_torch.models.vae import sample_latents
-from sliders_conceptmod_tpu_torch.train.esd import TrainRNG
+from sliders_conceptmod_tpu_torch.train.esd import TrainRNG, merged_call
 from sliders_conceptmod_tpu_torch.train.optim import AdamW, flat_params
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp")
@@ -161,13 +162,15 @@ def make_image_slider_step(
     neutral_emb: torch.Tensor,
     pooled: Optional[Dict[str, torch.Tensor]] = None,  # XL: {"positive", "neutral"} [Dp]
     add_time_ids: Optional[torch.Tensor] = None,  # XL: [1, 6]
+    student_overlay: bool = True,
 ) -> Callable[..., dict]:
     """Build ``step(opt_state, bank, rng=None, draws=None) -> {"loss",
     "loss_high", "loss_low", "grad_norm", "timesteps_to", "scale"}`` (device
     scalars, the pre-clip global gradient norm, then the draw's host int and
     the pair's |scale|). SD1 rows when
-    ``pooled`` is None; the XL text_time conditioning otherwise. The factors
-    and ``opt_state`` are updated in place."""
+    ``pooled`` is None; the XL text_time conditioning otherwise.
+    ``student_overlay`` picks the 2-row overlay student, else the two merged
+    1-row students. The factors and ``opt_state`` are updated in place."""
     overlay = LoRAOverlay(unet, sites, lora_params)
     params = flat_params(sites, lora_params)
     device = params[0].device
@@ -196,9 +199,20 @@ def make_image_slider_step(
         current_t = current_train_timestep(draws.timesteps_to, cfg.max_denoising_steps, cfg.num_train_timesteps)
 
         with torch.enable_grad():
-            with overlay(torch.tensor([scale, -scale], device=device)):
-                scaled = scheduler.scale_model_input_train_t(schedule, noisy, current_t)
-                eps = unet(scaled, current_t, rows, added_cond_kwargs=added)
+            if student_overlay:
+                with overlay(torch.tensor([scale, -scale], device=device)):
+                    scaled = scheduler.scale_model_input_train_t(schedule, noisy, current_t)
+                    eps = unet(scaled, current_t, rows, added_cond_kwargs=added)
+            else:  # the merged ±s students, one row each
+                eps = []
+                with overlay(None):
+                    for i, mult in enumerate((scale, -scale)):
+                        student = merged_call(unet, lora_lib.merge_lora_params(unet, sites, lora_params, mult,
+                                                                                grad=True))
+                        scaled = scheduler.scale_model_input_train_t(schedule, noisy[i:i + 1], current_t)
+                        row_added = None if added is None else {k: v[i:i + 1] for k, v in added.items()}
+                        eps.append(student(scaled, current_t, rows[i:i + 1], added_cond_kwargs=row_added))
+                eps = torch.cat(eps)
             eps_high, eps_low = eps.float().chunk(2)
             l_high = torch.mean((eps_high - noise.float()) ** 2)
             l_low = torch.mean((eps_low - noise.float()) ** 2)

@@ -159,5 +159,9 @@ def get_optimizer(
 
 
 def flat_params(sites, lora_params) -> List[torch.Tensor]:
-    """The factors in a fixed order: (down, up) of each site in site order."""
-    return [lora_params[s.lora_name][k] for s in sites for k in ("down", "up")]
+    """Every trained leaf in a fixed order: (down, up) of each site in site
+    order, then its ``dora_scale`` where it has one (DoRA: the JAX trainer
+    trains every leaf of the adapter, so the magnitude is in the clip's
+    global norm and in AdamW)."""
+    return [leaf[k] for s in sites for leaf in (lora_params[s.lora_name],)
+            for k in ("down", "up", "dora_scale") if k in leaf]

@@ -18,7 +18,13 @@ reference quirk: with ``tpu.honor_network_config: false`` the optimizer is
 the reference's hardcoded AdamW (lr 1e-4, weight decay 1e-6, cosine over 50
 steps to 1e-6), whatever ``train.*`` says.
 
-Knobs of the JAX trainer that this port does not carry yet raise
+The adapter is LoRA or DoRA (``peft_type``; ``adapters/dora.py``, its
+``dora_scale`` initialised from the base weights and trained with the
+factors). The slider's route resolves as in JAX
+(``core/config.py::resolve_student_overlay`` with ``default_overlay`` =
+LoRA): an unset ``tpu:`` block over LoRA is the overlay student with the
+merged warm-up; DoRA and ``tpu.student_overlay: false`` merge the student
+too. Knobs of the JAX trainer that this port does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
@@ -32,6 +38,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from sliders_conceptmod_tpu_torch.adapters import dora as dora_lib
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.core.config import (
     RootConfig,
@@ -59,8 +66,8 @@ def _uniform_field(prompts: List[PromptSettings], field: str):
 def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type: str) -> None:
     """Refuse what the port does not carry yet, naming where it is queued."""
     tpu = config.tpu
-    if peft_type != "lora":
-        raise NotImplementedError(f"peft_type {peft_type!r}: DoRA is not ported yet ({_QUEUE1}, the other trainers)")
+    if peft_type not in ("lora", "dora"):
+        raise ValueError(f"peft_type must be 'lora' or 'dora', got {peft_type!r}")
     if tpu.samples_per_step > 1:
         raise NotImplementedError(f"tpu.samples_per_step > 1 is not ported yet ({_QUEUE1}, ESD knobs)")
     for knob in ("pipeline_warmup", "share_warmup", "fuse_teacher_student"):
@@ -106,7 +113,9 @@ def train(
     t_entry = time.time()
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
-    resolve_student_overlay(tpu_cfg)
+    # the int8 base is refused above (not ported), so quantize_base is False here
+    student_overlay, overlay_warmup = resolve_student_overlay(tpu_cfg, False, peft_type,
+                                                              default_overlay=(peft_type == "lora"))
     device = torch.device(device)
     weight_dtype = parse_precision(config.train.precision)
     save_dtype = parse_save_precision(config.save.precision)
@@ -125,12 +134,16 @@ def train(
     target_replace = ["Attention"]
     if config.network.type == "c3lier":
         target_replace = lora_lib.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + lora_lib.UNET_TARGET_REPLACE_MODULE_CONV
-    sites = lora_lib.create_sites(
+    peft_mod = dora_lib if peft_type == "dora" else lora_lib
+    sites = peft_mod.create_sites(
         unet, rank=rank, alpha=config.network.alpha, target_replace=target_replace,
         train_method=config.network.training_method,
     )
     init_gen = torch.Generator().manual_seed(tpu_cfg.seed)
-    lora_params = lora_lib.init_lora_params(sites, generator=init_gen)
+    if peft_type == "dora":  # dora_scale = the column norms of the base weights
+        lora_params = dora_lib.init_lora_params(sites, unet, generator=init_gen)
+    else:
+        lora_params = lora_lib.init_lora_params(sites, generator=init_gen)
     for leaf in lora_params.values():
         for k in leaf:
             leaf[k] = leaf[k].to(device).requires_grad_(True)
@@ -161,9 +174,12 @@ def train(
         batch_size=batch_size,
         height=resolution,
         width=resolution,
+        student_overlay=student_overlay,
+        overlay_warmup=overlay_warmup,
     )
     step_fn = esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
-                                      add_time_ids=models.add_time_ids(resolution, device))
+                                      add_time_ids=models.add_time_ids(resolution, device),
+                                      merge_fn=peft_mod.merge_lora_params)
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
@@ -183,7 +199,7 @@ def train(
         if i == start_step:
             first_step_seconds = time.time() - t_loop
         if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
-            lora_lib.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
+            peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
                                   dtype=save_dtype, metadata=metadata)
             ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
         if on_step_complete is not None:
@@ -191,7 +207,7 @@ def train(
 
     sps = logger.close()
     if save_file:
-        lora_lib.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
+        peft_mod.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
                               dtype=save_dtype, metadata=metadata)
     return TrainResult(
         sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps, metrics=logger.rows,

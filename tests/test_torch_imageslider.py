@@ -185,6 +185,13 @@ def _jax_draws(key, bank):
 
 
 def test_image_pair_steps_match_jax():
+    image_pair_steps_match_jax(student_overlay=True)
+
+
+def image_pair_steps_match_jax(student_overlay, seeds=(21, 22, 23), optimizer_args=""):
+    """Steps of the port and of the JAX package from the same state, with the
+    2-row overlay student or the two merged ±s students; ``optimizer_args``
+    go to both packages' AdamW."""
     cfg = junet.UNetConfig.tiny_xl()
     model = junet.UNet2DConditionModel(cfg)
     added = {"text_embeds": jnp.zeros((1, 32)), "time_ids": jnp.zeros((1, 6))}
@@ -220,26 +227,27 @@ def test_image_pair_steps_match_jax():
         return model.apply({"params": p}, sample, t, ctx, added_cond_kwargs=added_cond_kwargs)
 
     jsched = jscheduler("euler_a")
-    jopt = joptim.get_optimizer("adamw", joptim.get_lr_schedule("constant", 1e-2, 10))
+    jopt = joptim.get_optimizer("adamw", joptim.get_lr_schedule("constant", 1e-2, 10), optimizer_args)
     icfg = dict(max_denoising_steps=MAX_STEPS, scaling_factor=0.13025)
     jstep = jimage.make_image_slider_step(
         unet_apply, jsites, jsched, jsched.set_timesteps(MAX_STEPS), jopt, jimage.ImageSliderConfig(**icfg),
         positive_emb=jnp.asarray(emb["positive"]), neutral_emb=jnp.asarray(emb["neutral"]),
         uncond_emb=jnp.asarray(emb["uncond"]), pooled={k: jnp.asarray(v) for k, v in pooled.items()},
-        add_time_ids=jnp.asarray(add), student_overlay=True)
+        add_time_ids=jnp.asarray(add), student_overlay=student_overlay)
     tsched = tscheduler("euler_a")
-    topt = toptim.get_optimizer("adamw", toptim.get_lr_schedule("constant", 1e-2, 10))
+    topt = toptim.get_optimizer("adamw", toptim.get_lr_schedule("constant", 1e-2, 10), optimizer_args)
     tstep = timage.make_image_slider_step(
         port, tsites, tlp, tsched, tsched.set_timesteps(MAX_STEPS), topt, timage.ImageSliderConfig(**icfg),
         torch.from_numpy(emb["positive"]), torch.from_numpy(emb["neutral"]),
-        pooled={k: torch.from_numpy(pooled[k]) for k in ("positive", "neutral")}, add_time_ids=torch.from_numpy(add))
+        pooled={k: torch.from_numpy(pooled[k]) for k in ("positive", "neutral")}, add_time_ids=torch.from_numpy(add),
+        student_overlay=student_overlay)
     tstate = topt.init(toptim.flat_params(tsites, tlp))
 
     lp = jax.tree.map(jnp.array, jlp)
     jstate = jopt.init(lp)
     before = tlora.state_dict_numpy(tsites, tlp)
     seen = set()
-    for i, seed in enumerate((21, 22, 23)):
+    for i, seed in enumerate(seeds):
         key = jax.random.PRNGKey(seed)
         draws = _jax_draws(key, jbank)
         seen.add((draws.pair, draws.timesteps_to))
@@ -309,11 +317,20 @@ def test_cli_trains_tiny_xl_on_the_cpu_and_saves_the_jax_key_set(tmp_path):
 def test_cli_refusals_and_parser(tmp_path):
     prompts = tprompts.load_prompts_from_yaml(os.path.join(REPO, "data", "prompts-tiny.yaml"))
     for knob, value, match in (("quantize_base", True, "quantize_base"), ("w8a8_warmup", True, "w8a8"),
-                               ("overlay_warmup", True, "warm-up"), ("student_overlay", False, "merge_lora_params")):
+                               ("overlay_warmup", True, "warm-up")):
         cfg = _tiny_config(tmp_path)
         setattr(cfg.tpu, knob, value)
         with pytest.raises(NotImplementedError, match=match):
             tcli.train(cfg, prompts, str(tmp_path), ["a", "b"], [-1.0, 1.0], device="cpu")
+    # the JAX CLI's route rule: the overlay student unless tpu.student_overlay is false,
+    # which selects the merged ±scale students; an overlay warm-up without it raises
+    cfg = _tiny_config(tmp_path)
+    assert tcli.resolve_student(cfg) is True
+    cfg.tpu.student_overlay = False
+    assert tcli.resolve_student(cfg) is False
+    cfg.tpu.overlay_warmup = True
+    with pytest.raises(ValueError, match="requires tpu.student_overlay"):
+        tcli.train(cfg, prompts, str(tmp_path), ["a", "b"], [-1.0, 1.0], device="cpu")
     # the SD1/SD2 branch trains since the SD slice (tests/test_torch_sd_imageslider.py);
     # a path on disk loads when it is a diffusers directory or a checkpoint
     # file (tests/test_torch_loaders.py), and any other path raises

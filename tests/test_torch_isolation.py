@@ -60,6 +60,13 @@ SWEEP_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.io.torch_convert",
     "sliders_conceptmod_tpu_torch.io.ldm_convert",
 }
+# modules the merged-route, DoRA and export slice added
+MERGED_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.adapters.dora",
+    "sliders_conceptmod_tpu_torch.io.ldm_export",
+    "sliders_conceptmod_tpu_torch.cli.export_single_file",
+    "sliders_conceptmod_tpu_torch.cli.combine_loras",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -72,7 +79,7 @@ def test_port_and_smoke_import_without_jax():
     n = int(res.stdout.split()[0])
     assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
     walked = set(res.stdout.split(":", 1)[1].split())
-    assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked
+    assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():

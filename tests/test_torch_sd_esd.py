@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from sliders_conceptmod_tpu.adapters import dora as jdora
 from sliders_conceptmod_tpu.adapters import lora as jlora
 from sliders_conceptmod_tpu.core import prompts as jprompts
 from sliders_conceptmod_tpu.diffusion import sampling as jsampling
 from sliders_conceptmod_tpu.diffusion.schedulers import create_noise_scheduler as jscheduler
 from sliders_conceptmod_tpu.train import esd as jesd
 from sliders_conceptmod_tpu.train import optim as joptim
+from sliders_conceptmod_tpu_torch.adapters import dora as tdora
 from sliders_conceptmod_tpu_torch.adapters import lora as tlora
 from sliders_conceptmod_tpu_torch.core import prompts as tprompts
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler as tscheduler
@@ -56,13 +58,18 @@ def test_sd_ddim_esd_steps_match_jax(prediction, train_cfg):
     esd_steps_match_jax("tiny", prediction, train_cfg)
 
 
-def esd_steps_match_jax(variant, prediction, train_cfg):
-    """Two steps of the port and of the JAX package from the same state;
-    ``variant`` is the UNet ("tiny" or "d160")."""
+def esd_steps_match_jax(variant, prediction, train_cfg, route=(True, True), peft="lora", seeds=(11, 12)):
+    """Steps of the port and of the JAX package from the same state;
+    ``variant`` is the UNet ("tiny" or "d160"), ``route`` the
+    ``(student_overlay, overlay_warmup)`` pair, ``peft`` "lora" or "dora"
+    (then ``dora_scale`` is held too)."""
+    jpeft, tpeft = (jdora, tdora) if peft == "dora" else (jlora, tlora)
+    student_overlay, overlay_warmup = route
     model, params, port = _random_unet(variant, seed=4)
     rng = np.random.default_rng(5)
     jsites = jlora.create_sites(params, rank=2, alpha=1.0, train_method="full")
-    jlp = jlora.init_lora_params(jax.random.PRNGKey(1), jsites)
+    jlp = (jdora.init_lora_params(jax.random.PRNGKey(1), jsites, base_params=params) if peft == "dora"
+           else jlora.init_lora_params(jax.random.PRNGKey(1), jsites))
     # non-zero up factors, so the first step's gradient reaches the downs too
     jlp = {n: {k: (v if k != "up" else jnp.asarray(0.05 * rng.standard_normal(v.shape), jnp.float32))
                for k, v in leaf.items()} for n, leaf in jlp.items()}
@@ -83,14 +90,16 @@ def esd_steps_match_jax(variant, prediction, train_cfg):
     jschedule = jsched.set_timesteps(MAX_STEPS)
     jopt = joptim.get_optimizer("adamw", joptim.get_lr_schedule("constant", 1e-2, 10))
     ecfg = jesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64,
-                          batch_size=1, student_overlay=True, overlay_warmup=True, remat_unet=False)
+                          batch_size=1, student_overlay=student_overlay, overlay_warmup=overlay_warmup,
+                          remat_unet=False)
 
     def unet_apply(p, sample, t, ctx, added_cond_kwargs=None):
         return model.apply({"params": p}, sample, t, ctx, added_cond_kwargs=added_cond_kwargs)
 
-    jstep = jesd.make_esd_train_step(unet_apply, jsites, jsched, jschedule, jopt, ecfg)
+    jstep = jesd.make_esd_train_step(unet_apply, jsites, jsched, jschedule, jopt, ecfg,
+                                     merge_fn=jpeft.merge_lora_params)
 
-    tlp = tlora.load_weights_from_tensors(jlora.state_dict_numpy(jsites, jlp), tsites)
+    tlp = tpeft.load_weights_from_tensors(jpeft.state_dict_numpy(jsites, jlp), tsites)
     for leaf in tlp.values():
         for t in leaf.values():
             t.requires_grad_(True)
@@ -98,21 +107,25 @@ def esd_steps_match_jax(variant, prediction, train_cfg):
     topt = toptim.get_optimizer("adamw", toptim.get_lr_schedule("constant", 1e-2, 10))
     tstep = tesd.make_esd_train_step(
         port, tsites, tlp, tsched, tsched.set_timesteps(MAX_STEPS), topt,
-        tesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64))
+        tesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64,
+                       student_overlay=student_overlay, overlay_warmup=overlay_warmup),
+        merge_fn=tpeft.merge_lora_params)
     tstate = topt.init(toptim.flat_params(tsites, tlp))
 
     lp = jax.tree.map(jnp.array, jlp)  # the JAX step donates its inputs
     jstate = jopt.init(lp)
-    before = tlora.state_dict_numpy(tsites, tlp)
-    for i, seed in enumerate((11, 12)):
+    before = tpeft.state_dict_numpy(tsites, tlp)
+    for i, seed in enumerate(seeds):
         key = jax.random.PRNGKey(seed)
         draws = _jax_draws(key, jschedule, len(SETTINGS))
         lp, jstate, jm = jstep(params, lp, jstate, key, jbank)
         tm = tstep(tstate, tbank, draws=draws)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=STEP_TOL, atol=1e-7)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=STEP_TOL)
-        want = jlora.state_dict_numpy(jsites, lp)
-        got = tlora.state_dict_numpy(tsites, tlp)
+        want = jpeft.state_dict_numpy(jsites, lp)
+        got = tpeft.state_dict_numpy(tsites, tlp)
+        assert set(got) == set(want)
         for k in want:
             np.testing.assert_allclose(got[k], want[k], atol=STEP_TOL, rtol=0, err_msg=f"step {i}: {k}")
     assert max(np.abs(got[k] - before[k]).max() for k in got) > 5e-3  # the factors moved
+    return before, got

@@ -19,6 +19,7 @@
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -58,8 +59,10 @@ def _unet_configs(variant):
     return dataclasses.replace(junet.UNetConfig.tiny(), **D160), dataclasses.replace(tunet.UNetConfig.tiny(), **D160)
 
 
+@functools.lru_cache(maxsize=None)
 def _random_unet(variant, seed):
-    """JAX params (N(0, 0.1²) leaves) and the port's UNet holding them."""
+    """JAX params (N(0, 0.1²) leaves) and the port's UNet holding them (made
+    once per process; callers only read them)."""
     jcfg, tcfg = _unet_configs(variant)
     model = junet.UNet2DConditionModel(jcfg)
     params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 8, 8)), jnp.zeros((1,)), jnp.zeros((1, SEQ, CTX)))

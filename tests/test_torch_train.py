@@ -111,14 +111,21 @@ def test_precision_and_overlay_rules():
     assert tconfig.parse_precision("bfloat16") == tconfig.parse_precision("fp16") == torch.bfloat16
     assert tconfig.parse_save_precision("fp16") == torch.float16
     assert tconfig.parse_save_precision("bf16") == torch.bfloat16
-    # the port's one route is the JAX package's (student_overlay, overlay_warmup) = (True, True)
-    jcfg = jconfig.TPUConfig(student_overlay=True, overlay_warmup=True)
-    assert jconfig.resolve_student_overlay(jcfg, False, "lora") == (True, True)
-    for so, ow in ((None, None), (True, None), (True, True)):
-        tconfig.resolve_student_overlay(tconfig.TPUConfig(student_overlay=so, overlay_warmup=ow))
-    for so, ow in ((True, False), (False, None)):
-        with pytest.raises(NotImplementedError, match="merge_lora_params"):
-            tconfig.resolve_student_overlay(tconfig.TPUConfig(student_overlay=so, overlay_warmup=ow))
+    # the JAX rule: an unset tpu block over a bf16 LoRA in the ESD trainers is the
+    # overlay student with the merged warm-up; false knobs select the merged routes
+    # (the whole grid against JAX: tests/test_torch_merged_routes.py)
+    for so, ow, want in ((None, None, (True, False)), (True, None, (True, False)), (True, True, (True, True)),
+                         (True, False, (True, False)), (False, None, (False, None))):
+        jcfg = jconfig.TPUConfig(student_overlay=so, overlay_warmup=ow)
+        tcfg = tconfig.TPUConfig(student_overlay=so, overlay_warmup=ow)
+        assert jconfig.resolve_student_overlay(jcfg, False, "lora", default_overlay=True) == want
+        assert tconfig.resolve_student_overlay(tcfg, False, "lora", default_overlay=True) == want
+    # the JAX refusals: DoRA with the overlay student; an overlay warm-up without it
+    with pytest.raises(NotImplementedError, match="LoRA only"):
+        tconfig.resolve_student_overlay(tconfig.TPUConfig(student_overlay=True), False, "dora", False)
+    with pytest.raises(ValueError, match="requires tpu.student_overlay"):
+        tconfig.resolve_student_overlay(tconfig.TPUConfig(student_overlay=False, overlay_warmup=True), False, "lora",
+                                        True)
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +229,20 @@ def _jax_draws(key, schedule, n_pairs):
 
 @pytest.mark.parametrize("train_cfg", [1.0, 2.0])
 def test_esd_steps_match_jax(slice_setup, train_cfg):
+    xl_esd_steps_match_jax(slice_setup, train_cfg)
+
+
+def xl_esd_steps_match_jax(slice_setup, train_cfg, route=(True, True), seeds=(11, 12)):
+    """Steps of the port and of the JAX package from the same state on the
+    ``(student_overlay, overlay_warmup)`` route."""
     model, params, port, jsites, jlp, tsites, jbank, tbank = slice_setup
+    student_overlay, overlay_warmup = route
     jsched = jscheduler("euler_a")
     jschedule = jsched.set_timesteps(MAX_STEPS)
     jopt = joptim.get_optimizer("adamw", joptim.get_lr_schedule("constant", 1e-2, 10), grad_clip_norm=0.2)
     ecfg = jesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64,
-                          batch_size=1, student_overlay=True, overlay_warmup=True, remat_unet=False)
+                          batch_size=1, student_overlay=student_overlay, overlay_warmup=overlay_warmup,
+                          remat_unet=False)
     add = jsampling.get_add_time_ids(64, 64)
 
     def unet_apply(p, sample, t, ctx, added_cond_kwargs=None):
@@ -244,7 +259,8 @@ def test_esd_steps_match_jax(slice_setup, train_cfg):
     topt = toptim.get_optimizer("adamw", toptim.get_lr_schedule("constant", 1e-2, 10), grad_clip_norm=0.2)
     tstep = tesd.make_esd_train_step(
         port, tsites, tlp, tsched, tsched.set_timesteps(MAX_STEPS), topt,
-        tesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64),
+        tesd.ESDConfig(max_denoising_steps=MAX_STEPS, train_cfg_scale=train_cfg, height=64, width=64,
+                       student_overlay=student_overlay, overlay_warmup=overlay_warmup),
         add_time_ids=torch.from_numpy(add),
     )
     tstate = topt.init(toptim.flat_params(tsites, tlp))
@@ -252,7 +268,7 @@ def test_esd_steps_match_jax(slice_setup, train_cfg):
     lp = jax.tree.map(jnp.array, jlp)  # the JAX step donates its inputs
     jstate = jopt.init(lp)
     before = tlora.state_dict_numpy(tsites, tlp)
-    for i, seed in enumerate((11, 12)):
+    for i, seed in enumerate(seeds):
         key = jax.random.PRNGKey(seed)
         draws = _jax_draws(key, jschedule, 2)
         lp, jstate, jm = jstep(params, lp, jstate, key, jbank)
@@ -326,10 +342,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg.tpu.samples_per_step = 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.train(cfg, prompts, device="cpu")
+    # the merged routes train since they were ported; the JAX trainer's refusals of them stay
     cfg = _tiny_config(tmp_path)
-    cfg.tpu.overlay_warmup = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.tpu.student_overlay, cfg.tpu.overlay_warmup = False, True
+    with pytest.raises(ValueError, match="requires tpu.student_overlay"):
         ttrainer.train(cfg, prompts, device="cpu")
+    cfg = _tiny_config(tmp_path)
+    cfg.tpu.student_overlay = True
+    with pytest.raises(NotImplementedError, match="LoRA only"):
+        ttrainer.train(cfg, prompts, peft_type="dora", device="cpu")
+    with pytest.raises(ValueError, match="peft_type"):
+        ttrainer.train(_tiny_config(tmp_path), prompts, peft_type="lokr", device="cpu")
     # SD1/SD2 trains since the SD slice (tests/test_torch_sd_train.py); a path
     # on disk in either family loads when it is a diffusers directory or a
     # checkpoint file (tests/test_torch_loaders.py), and any other path raises
