@@ -105,6 +105,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 11. http        — one /generate through make_handler on localhost.
 12. profile     — one more request under torch.profiler: device busy time,
                   the idle share, and the kernels that take the device time.
+12b. serve_sliders — on the same service: sliders a (noxattn, rank 4, α 1),
+                  b (noxattn, rank 1, α 4), x (xattn) and te (a
+                  cli/combine_loras.py file: a's UNet part plus random
+                  full-width lora_te1 parts over CLIP-L, 12 × 4, and lora_te3
+                  parts over OpenCLIP bigG, 32 × 4). a and b sent together
+                  ride one stacked sampler call (one call's K1 and K4a),
+                  each image within a mean of 2/255 of its solo image; a and
+                  x take two calls; te at 0 equals a at 0 bit for bit, and
+                  te at +2 differs from it and from a at +2; the host ms of
+                  one merged two-tower encode; POST /sliders, DELETE
+                  /sliders/<name> (the pinned default: 400), GET /metrics
+                  through make_handler; max_sliders 3 evicting the least
+                  recently used slider and keeping default.
 13. train       — full-width SDXL ESD slider training at 512px through
                   trainer.train from data/config-xl.yaml + data/prompts-xl.yaml
                   (only train.iterations and save.path overridden; the unset
@@ -124,7 +137,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   by the port's parameter swap and by functional_call.
 14. imageslider — full-width SDXL image-pair slider training at 512px through
                   cli/train_lora_scale.train from the same YAML files, four
-                  folders of four synthetic PNGs at scales -2, -1, 1, 2: bank
+                  folders of four synthetic PNGs at scales -2, -1, 1, 2 (the
+                  first folder's at 600×400, resized by the bank): bank
                   build seconds, K4a launches at the bank build, K1/K2/K3 per
                   step, losses, moving factors, saved keys, steps/s, first
                   step, peak memory; then one more step under torch.profiler
@@ -169,6 +183,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   trajectory), and each scale alone with --batch_scales; one
                   K4a per decode. Files and composite, seconds per image, the
                   merged-vs-overlay pixel gap at the same batch and batched.
+                  Then a combine_loras file with text-encoder parts (the UNet
+                  slider, lora_te1 and lora_te3 at full width), merged and
+                  --batch_scales at scales -2 and 2 (25 steps): the gap
+                  between the two routes, its mean held to 2/255.
 22. sweep_sd1   — cli/generate_images_sd1.run over the SD1.5 directory: LMS,
                   50 steps, start_noise 850, scales -2 and 2, one sample;
                   per trajectory K1 1000 and K4a 600, plus one K4a per decode;
@@ -203,6 +221,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -213,8 +232,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from sliders_conceptmod_tpu_torch.adapters import dora, lora
-from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
-from sliders_conceptmod_tpu_torch.cli import export_single_file
+from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
+from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
 from sliders_conceptmod_tpu_torch.cli import train_lora_scale
@@ -232,7 +251,7 @@ from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetC
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
-from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SliderService, make_handler
+from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SliderService, make_handler, metrics
 from sliders_conceptmod_tpu_torch.train import esd, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 
@@ -1252,10 +1271,12 @@ def phase_train_parity() -> None:
                     dict(positive="person, smiling", unconditional="person", guidance_scale=3), xl=True)
 
 
-def write_image_folders(root: Path, folders, names, size: int, seed: int) -> None:
+def write_image_folders(root: Path, folders, names, size: int, seed: int, first_wh=None) -> None:
     """Paired synthetic PNGs: every folder holds the same file names; image
     ``name`` is one smooth random pattern per name, a brightness step
-    brighter in each next folder (the 'concept' the slider learns)."""
+    brighter in each next folder (the 'concept' the slider learns).
+    ``first_wh`` = (w, h) writes the first folder's images stretched to that
+    size (nearest pixel), so the bank resizes them back."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:size, 0:size] / size
     for name in names:
@@ -1265,6 +1286,9 @@ def write_image_folders(root: Path, folders, names, size: int, seed: int) -> Non
         for i, folder in enumerate(folders):
             (root / folder).mkdir(parents=True, exist_ok=True)
             img = np.clip(base + 30 * (i - (len(folders) - 1) / 2), 0, 255).astype(np.uint8)
+            if i == 0 and first_wh is not None:
+                w, h = first_wh
+                img = img[np.arange(h) * size // h][:, np.arange(w) * size // w]
             (root / folder / name).write_bytes(encode_png(img))
 
 
@@ -1512,18 +1536,20 @@ def sd21_config(cfg) -> None:
 
 
 def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int, yaml_edit=None,
-                      iterations: int = TRAIN_ITERATIONS) -> list:
+                      iterations: int = TRAIN_ITERATIONS, first_wh=None) -> list:
     """Full-width image-pair slider training through
     cli/train_lora_scale.train from data/<yaml_name> and its prompts file
     (SDXL at 512px, SD1.5 at 256px: the trainer's resolution for the family),
-    four folders of four synthetic PNGs at scales -2, -1, 1, 2, plus
+    four folders of four synthetic PNGs at scales -2, -1, 1, 2 (``first_wh``:
+    the first folder's at that size, resized on the host by the bank), plus
     ``yaml_edit`` (the merged students: ``tpu.student_overlay: false``); then
     one more step under torch.profiler. Returns the launches of K1..K4c."""
     cfg, prompts = train_config(tmp / what, yaml_name, iterations)
     if yaml_edit is not None:
         yaml_edit(cfg)
     root = tmp / f"{what}_images"
-    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution, seed)
+    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution, seed,
+                        first_wh)
     unet_cfg = factory.unet_config_for(cfg.pretrained_model.name_or_path, cfg.pretrained_model.v2)
     student_overlay = train_lora_scale.resolve_student(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1545,6 +1571,7 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
         phase=what, model=cfg.pretrained_model.name_or_path, image_size=resolution,
         student_overlay=student_overlay, student_calls_per_step=calls // iterations,
         folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=IMAGES_PER_FOLDER,
+        first_folder_image_wh=first_wh or (resolution, resolution),
         scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
         precision=cfg.train.precision, lora_sites=len(res.sites), iterations=iterations,
         losses=res.losses, loss_high=[r["loss_high"] for r in res.metrics],
@@ -1686,17 +1713,49 @@ def phase_export(tmp: Path, sd_dir: Path) -> list:
     return launches
 
 
-def make_slider(path: Path, unet_cfg: UNetConfig) -> None:
-    """Rank-4 noxattn/c3lier slider over ``unet_cfg``'s module tree, non-zero up."""
+def make_slider(path: Path, unet_cfg: UNetConfig, rank: int = 4, alpha: float = 1.0, train_method: str = "noxattn",
+                seed: int = 4) -> None:
+    """A slider over ``unet_cfg``'s module tree (rank-4 noxattn/c3lier by
+    default; xattn: the attention sites only), non-zero up."""
     with torch.device("meta"):
         unet = UNet2DConditionModel(unet_cfg)
-    targets = lora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + lora.UNET_TARGET_REPLACE_MODULE_CONV
-    sites = lora.create_sites(unet, rank=4, alpha=1.0, target_replace=targets, train_method="noxattn")
-    g = torch.Generator().manual_seed(4)
+    targets = lora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER
+    if train_method != "xattn":
+        targets = targets + lora.UNET_TARGET_REPLACE_MODULE_CONV
+    sites = lora.create_sites(unet, rank=rank, alpha=alpha, target_replace=targets, train_method=train_method)
+    g = torch.Generator().manual_seed(seed)
     lp = lora.init_lora_params(sites, generator=g)
     for leaf in lp.values():
         leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
     lora.save_weights(str(path), sites, lp)
+
+
+def make_te_slider(tmp: Path, unet_slider: Path, name: str) -> Path:
+    """A cli/combine_loras.py file: ``unet_slider`` plus random rank-4
+    lora_te1 parts over CLIP-L (12 layers × 4 projections) and lora_te2 parts
+    over OpenCLIP bigG (32 × 4), which the combiner writes as lora_te3."""
+    g = torch.Generator().manual_seed(9)
+    parts = []
+    for i, cfg in enumerate((CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2())):
+        with torch.device("meta"):
+            tower = CLIPTextEncoder(cfg)
+        sites = lora.create_sites(tower, rank=4, alpha=1.0, target_replace=["CLIPAttention"], prefix=f"lora_te{i + 1}",
+                                  train_method="full", name_path_prefix=CLIP_NAME_PATH_PREFIX)
+        if len(sites) != 4 * cfg.num_hidden_layers:
+            raise AssertionError(f"te{i + 1}: {len(sites)} sites, not 4 × {cfg.num_hidden_layers}")
+        lp = lora.init_lora_params(sites, generator=g)
+        for leaf in lp.values():
+            leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+        parts.append(tmp / f"{name}_te{i + 1}.safetensors")
+        lora.save_weights(str(parts[-1]), sites, lp)
+    out = tmp / f"{name}_noxattn_rank4_alpha1.safetensors"
+    combine_loras.combine(str(unet_slider), str(parts[0]), str(parts[1]), str(out), 1.0, 1.0, 1.0)
+    return out
+
+
+def image_gap(a: np.ndarray, b: np.ndarray) -> dict:
+    d = np.abs(a.astype(int) - b.astype(int))
+    return dict(max_abs=int(d.max()), mean_abs=float(d.mean()))
 
 
 def per_sampler_call(unet_cfg: UNetConfig, steps: int) -> tuple:
@@ -1830,11 +1889,159 @@ def phase_profile(svc: SliderService, what: str = "profile") -> dict:
     return row
 
 
+def phase_serve_sliders(tmp: Path, svc: SliderService) -> tuple:
+    """Several sliders on one loaded service (every count set to 0 first):
+    the stacked pair, the incompatible pair, the text-encoder slider, one
+    merged encode's host time, the registry over HTTP and its LRU bound.
+    Returns the path's launches of K1..K4c."""
+    t_phase = time.time()
+    cfg, batcher = svc.unet.config, svc._batcher
+    k1_call, k4a_call = per_sampler_call(cfg, svc.steps)
+    paths = {"a": tmp / "ss_a_noxattn_rank4_alpha1.safetensors", "b": tmp / "ss_b_noxattn.safetensors",
+             "x": tmp / "ss_x_xattn_full.safetensors"}  # "full": the file-name rule then keeps every site kind
+    make_slider(paths["a"], cfg, 4, 1.0, "noxattn", seed=21)
+    make_slider(paths["b"], cfg, 1, 4.0, "noxattn", seed=22)
+    make_slider(paths["x"], cfg, 2, 1.0, "xattn", seed=23)
+    paths["te"] = make_te_slider(tmp, paths["a"], "ss_te")
+    t = time.time()
+    for name, path in paths.items():
+        svc.add_slider(name, str(path))
+    register_s = time.time() - t
+    idx_seen = []
+    real_group = svc._sample_group
+
+    def spy(padded, guidance, entry, adapter_idx=None):
+        idx_seen.append(adapter_idx)
+        return real_group(padded, guidance, entry, adapter_idx=adapter_idx)
+
+    svc._sample_group = spy
+    reset_counts()  # count this path only
+
+    def solo(name, scale, seed):
+        return decode_png(svc.generate("a photo of a person", scale, seed, 7.5, slider=name))
+
+    def together(reqs) -> tuple:
+        """(images, sampler calls, K1 and K4a launches, wall seconds) of requests sent at once."""
+        (l0, _, _, d0, _, _), b0, n0 = counts(), batcher.total_batches, len(idx_seen)
+        got, errors = {}, []
+
+        def client(i, name, scale, seed):
+            try:
+                got[i] = solo(name, scale, seed)
+            except Exception as e:  # noqa: BLE001 — re-raised below on the main thread
+                errors.append(e)
+
+        t = time.time()
+        threads = [threading.Thread(target=client, args=(i, *r)) for i, r in enumerate(reqs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.time() - t
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads) or len(got) != len(reqs):
+            raise AssertionError(f"serve_sliders: concurrent requests {reqs} did not finish")
+        (l1, _, _, d1, _, _) = counts()
+        return ([got[i] for i in range(len(reqs))], len(idx_seen) - n0, l1 - l0, d1 - d0, wall,
+                batcher.total_batches - b0, idx_seen[n0:])
+
+    try:
+        pair = [("a", 1.5, 3), ("b", -2.0, 4)]
+        t = time.time()
+        solos = [solo(*r) for r in pair]
+        solo_s = (time.time() - t) / 2
+        imgs, calls, k1, k4a, pair_wall, batches, idx = together(pair)
+        if (calls, batches, k1, k4a) != (1, 1, k1_call, k4a_call) or idx != [[0, 1]]:
+            raise AssertionError(f"serve_sliders: a + b took {calls} sampler calls (adapter_idx {idx}) launching K1 "
+                                 f"{k1} and K4a {k4a} times, not one call of {k1_call} and {k4a_call}")
+        stacked_gaps = [image_gap(i, j) for i, j in zip(imgs, solos)]
+        if any(g["mean_abs"] > 2.0 for g in stacked_gaps):
+            raise AssertionError(f"serve_sliders: stacked images against their solo images: {stacked_gaps}")
+        if np.array_equal(imgs[0], imgs[1]):
+            raise AssertionError("serve_sliders: the stacked rows of a and b gave the same image")
+        cached = metrics(svc)["stacked_combos_cached"]
+        if cached < 1:
+            raise AssertionError(f"serve_sliders: /metrics stacked_combos_cached {cached}")
+        _, calls_ax, k1_ax, k4a_ax, _, _, idx_ax = together([("a", 1.0, 5), ("x", 1.0, 5)])
+        if calls_ax != 2 or idx_ax != [None, None] or (k1_ax, k4a_ax) != (2 * k1_call, 2 * k4a_call):
+            raise AssertionError(f"serve_sliders: a + x took {calls_ax} calls ({idx_ax}), K1 {k1_ax}, K4a {k4a_ax}")
+
+        te0, a0, te2, a2 = (solo(n, s, 6) for n, s in (("te", 0.0), ("a", 0.0), ("te", 2.0), ("a", 2.0)))
+        te_gaps = dict(te0_vs_a0=image_gap(te0, a0), te2_vs_te0=image_gap(te2, te0), te2_vs_a2=image_gap(te2, a2))
+        if not np.array_equal(te0, a0):
+            raise AssertionError(f"serve_sliders: te at 0 is not its UNet part at 0: {te_gaps}")
+        if np.array_equal(te2, te0) or np.array_equal(te2, a2):
+            raise AssertionError(f"serve_sliders: te at +2 did not differ: {te_gaps}")
+
+        version = svc._te["te"][1]
+        encode_ms = []
+        for scale in (1.0, -1.0, 0.5, 1.5, 2.5):
+            torch.cuda.synchronize()
+            t = time.time()
+            svc._encode_te_impl("te", version, "a photo of a person", scale)
+            torch.cuda.synchronize()
+            encode_ms.append((time.time() - t) * 1e3)
+        launches = list(counts())
+        check_no_plain("serve_sliders")
+    finally:
+        svc._sample_group = real_group
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}{path}", method=method,
+                                     data=None if body is None else json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:  # /metrics first: any registry change clears the stack cache
+        got_metrics = call("GET", "/metrics")
+        post = call("POST", "/sliders", {"name": "posted", "path": str(paths["b"])})
+        delete = call("DELETE", "/sliders/posted")
+        delete_default = call("DELETE", "/sliders/default")
+        delete_missing = call("DELETE", "/sliders/posted")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    http = dict(post=post[0], delete=delete[0], delete_default=delete_default[0], delete_missing=delete_missing[0],
+                metrics=got_metrics[1])
+    if (post[0], delete[0], delete_default[0], delete_missing[0], got_metrics[0]) != (200, 200, 400, 404, 200) or \
+            "posted" not in [e["name"] for e in post[1]["sliders"]] or got_metrics[1]["stacked_combos_cached"] < 1:
+        raise AssertionError(f"serve_sliders: HTTP registry {http}")
+
+    for name in ("smoke", "x", "te"):
+        svc.remove_slider(name)
+    svc.max_sliders = 3
+    svc._resolve("b"), svc._resolve("a")  # LRU order: default, b, a
+    svc.add_slider("d", str(paths["b"]))
+    registry = [e["name"] for e in svc.list_sliders()]
+    svc.max_sliders = None
+    if registry != ["default", "a", "d"]:
+        raise AssertionError(f"serve_sliders: max_sliders 3 left {registry}, not default, a, d (b evicted)")
+    emit(dict(phase="serve_sliders", model=SDXL, image_size=svc.image_size, steps=svc.steps,
+              sliders={n: str(p.name) for n, p in paths.items()}, register_seconds=register_s,
+              solo_seconds=solo_s, pair_wall_seconds=pair_wall, pair_sampler_calls=1, pair_k1_launches=k1,
+              pair_k4a_launches=k4a, k1_launches_per_sampler_call=k1_call, k4a_launches_per_sampler_call=k4a_call,
+              stacked_vs_solo=stacked_gaps, incompatible_pair_sampler_calls=calls_ax, te_gaps=te_gaps,
+              merged_two_tower_encode_host_ms=encode_ms, stacked_combos_cached=cached, http=http,
+              registry_after_eviction=registry, launches_k1_to_k4c=launches, seconds=time.time() - t_phase))
+    return tuple(launches)
+
+
 def served(tmp: Path, what: str, make, unet_cfg: UNetConfig, model: str, pair: bool = True,
-           http: bool = True, profile: bool = True) -> tuple:
+           http: bool = True, profile: bool = True, after=None) -> tuple:
     """Build a service with ``make(slider_path)``, register the smoke slider,
     drive :func:`phase_serve`, the HTTP request and one profiled request;
-    the path's launches, counted from 0 just before its first request."""
+    the path's launches, counted from 0 just before its first request.
+    ``after(svc)`` then runs on the same service (a path of its own, which
+    counts its own launches)."""
     path = tmp / f"{what}_noxattn_rank4_alpha1.safetensors"
     make_slider(path, unet_cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1850,6 +2057,8 @@ def served(tmp: Path, what: str, make, unet_cfg: UNetConfig, model: str, pair: b
         check_no_plain(what)
         if profile:
             phase_profile(svc, "profile" if what == "serve" else f"{what}_profile")
+        if after is not None:
+            after(svc)
     finally:
         svc.close()
     del svc
@@ -2034,6 +2243,30 @@ def phase_sweep_xl(tmp: Path) -> tuple:
     emit(dict(phase="sweep_xl", merged_vs_overlay_same_batch=gap("merged", "overlay_per_scale"),
               merged_vs_overlay_batched=gap("merged", "batch_scales"),
               overlay_same_batch_vs_batched=gap("overlay_per_scale", "batch_scales")))
+
+    # a combine_loras file with text-encoder parts: each scale's encode through the merged towers
+    te_slider = make_te_slider(tmp, slider, "sweep_xl_te")
+    te_scales, te_steps = [-2.0, 2.0], 25
+    k1_te = per_step_launches(UNetConfig.sdxl(), te_steps, 0)[0]
+    te_out = {}
+    for mode, extra in (("te_merged", []), ("te_batch_scales", ["--batch_scales"])):
+        save = tmp / f"sweep_xl_{mode}"
+        argv = ["--model_name", str(te_slider), "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+                "--save_path", str(save), "--base", SDXL, "--num_samples", "1", "--till_case", "0",
+                "--ddim_steps", str(te_steps), "--scales=-2.0,2.0", *extra]
+        run = timed_sweep(gen_xl, argv)
+        check_no_plain(f"sweep_xl {mode}")
+        want = ((1 if extra else 2) * k1_te, 2)
+        if (run["launches"][0], run["launches"][3]) != want:
+            raise AssertionError(f"sweep_xl {mode}: K1/K4a launched {run['launches']}, expected {want}")
+        launches = [a + b for a, b in zip(launches, run["launches"])]
+        te_out[mode] = check_sweep_tree(save / te_slider.name, te_scales, 0, 512)
+        emit(dict(phase="sweep_xl", mode=mode, slider=te_slider.name, steps=te_steps, scales=te_scales,
+                  seconds_per_image=run["sweep_seconds"] / 2, wall_seconds=run["wall_seconds"]))
+    te_gap = {str(sc): image_gap(te_out["te_merged"][sc], te_out["te_batch_scales"][sc]) for sc in te_scales}
+    emit(dict(phase="sweep_xl", te_merged_vs_batch_scales=te_gap))
+    if any(g["mean_abs"] > 2.0 for g in te_gap.values()):
+        raise AssertionError(f"sweep_xl: the te file's merged and batched routes differ: {te_gap}")
     return tuple(launches)
 
 
@@ -2115,7 +2348,8 @@ def main() -> int:
         phase_imageslider_parity(tmp)
         # each serving and training phase sets every count to 0 first
         paths["serve"] = served(tmp, "serve", lambda p: SliderService(
-            SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL)
+            SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL,
+            after=lambda svc: paths.__setitem__("serve_sliders", phase_serve_sliders(tmp, svc)))
         train_rows = {"train": phase_esd(tmp, "train", "config-xl.yaml")}
         torch.cuda.empty_cache()
         t_routes = time.time()
@@ -2135,7 +2369,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_merged_call_cost()
         paths["imageslider"] = phase_image_pairs(tmp, "imageslider", "config-xl.yaml",
-                                                 train_lora_scale.XL_RESOLUTION, seed=6)
+                                                 train_lora_scale.XL_RESOLUTION, seed=6, first_wh=(600, 400))
         torch.cuda.empty_cache()
         train_rows["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
         torch.cuda.empty_cache()
@@ -2171,7 +2405,7 @@ def main() -> int:
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
     # its decodes when serving
-    inference = ("sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export")
+    inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export")
     xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider")
     sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged")
     runs_on = {
@@ -2330,6 +2564,7 @@ def main() -> int:
         ),
     ]
     emit({"kernels": rows})
+    emit(dict(phase="smoke", seconds=time.time() - t0))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,12 @@ weight stream. The hooks live on the shared model, so an overlay holds a lock
 of that model for the whole block: overlays on one model from different
 threads run one after the other and never see each other's hooks.
 
+Cross-slider batches: :func:`stack_adapters` stacks compatible sliders into
+``[S, ...]`` factors (ranks zero-padded, α/r folded into the up factors), and
+an overlay over them is entered with a ``[B]`` ``adapter_idx`` as well: each
+row gathers its own adapter's factors, a dense site is one batched product
+over the rows and a conv site one grouped convolution.
+
 Training runs through the same overlay: fp32 factors that require grad are
 hooked in as they are, the hook's ops stay on autograd's graph, and a
 backward after the block reaches the factors (the hooks are gone by then;
@@ -248,7 +254,10 @@ class LoRAOverlay:
     model's lock (another thread's overlay on the same model waits).
     ``overlay(None)`` holds the lock and adapts nothing: the plain model,
     safe from other threads' hooks — the block the merged route's calls run
-    in (it raises if a site module still carries a hook)."""
+    in (it raises if a site module still carries a hook). Over stacked
+    factors (:func:`stack_adapters`) the block is entered as
+    ``overlay(row_scale, adapter_idx)``: row b runs adapter
+    ``adapter_idx[b]``, with no α/r gain (it is in the stacked up factors)."""
 
     def __init__(self, model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams):
         self._lock = model_lock(model)
@@ -262,7 +271,8 @@ class LoRAOverlay:
             self._targets.append((mod, site, _fp32_factor(leaf["down"]), _fp32_factor(leaf["up"])))
 
     @contextmanager
-    def __call__(self, row_scale: Optional[torch.Tensor]) -> Iterator[None]:
+    def __call__(self, row_scale: Optional[torch.Tensor],
+                 adapter_idx: Optional[torch.Tensor] = None) -> Iterator[None]:
         targets = self._targets if row_scale is not None else []
         handles = []
         with self._lock:
@@ -271,7 +281,11 @@ class LoRAOverlay:
                 raise RuntimeError("overlay(None) entered while a site module carries a forward hook")
             try:
                 for mod, site, down, up in targets:
-                    handles.append(mod.register_forward_hook(_make_hook(site, down, up, row_scale.float())))
+                    if adapter_idx is None:
+                        hook = _make_hook(site, down, up, row_scale.float())
+                    else:
+                        hook = _make_indexed_hook(site, down, up, row_scale.float(), adapter_idx)
+                    handles.append(mod.register_forward_hook(hook))
                 yield
             finally:
                 for h in handles:
@@ -304,6 +318,77 @@ def _make_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: 
         return out + (scale * gain * lora_out).to(out.dtype)
 
     return hook
+
+
+def _make_indexed_hook(site: LoRASite, down: torch.Tensor, up: torch.Tensor, row_scale: torch.Tensor,
+                       adapter_idx: torch.Tensor):
+    """Row b through adapter ``adapter_idx[b]`` of the stacked ``[S, ...]``
+    factors; the gain is already in the up factors."""
+    dg, ug = down[adapter_idx], up[adapter_idx]  # [B, r, in(, kh, kw)], [B, out, r(, 1, 1)]
+    rows = dg.shape[0]
+
+    def hook(mod, args, out):
+        x = args[0].float()
+        if site.kind == "dense":
+            lora_out = torch.einsum("b...r,bor->b...o", torch.einsum("b...i,bri->b...r", x, dg), ug)
+        else:  # one grouped conv over the rows: group b is row b's down (then up) conv
+            h = F.conv2d(x.reshape(1, -1, *x.shape[2:]), dg.flatten(0, 1), stride=mod.stride,
+                         padding=mod.padding, dilation=mod.dilation, groups=rows)
+            lora_out = F.conv2d(h, ug.flatten(0, 1), groups=rows).reshape(rows, -1, *h.shape[2:])
+        scale = row_scale.reshape((-1,) + (1,) * (out.ndim - 1))
+        return out + (scale * lora_out).to(out.dtype)
+
+    return hook
+
+
+# ---------------------------------------------------------------------------
+# cross-slider stacks
+# ---------------------------------------------------------------------------
+
+
+def sites_stack_compatible(a: Sequence[LoRASite], b: Sequence[LoRASite]) -> bool:
+    """Whether two adapters target the same modules with the same kind and
+    dims, the condition for one stack (ranks and alphas may differ)."""
+    return len(a) == len(b) and all(
+        sa.module_path == sb.module_path and sa.kind == sb.kind and sa.in_dim == sb.in_dim
+        and sa.out_dim == sb.out_dim and sa.kernel_size == sb.kernel_size
+        for sa, sb in zip(a, b)
+    )
+
+
+def stack_adapters(entries: Sequence[Tuple[Sequence[LoRASite], LoRAParams]],
+                   pad_to: int = 0) -> Tuple[List[LoRASite], LoRAParams]:
+    """``(ref_sites, stacked)`` of compatible ``(sites, factors)`` entries:
+    per site an fp32 ``down`` ``[S, r_max, in(, kh, kw)]`` and ``up``
+    ``[S, out, r_max(, 1, 1)]``, each rank axis zero-padded to the largest
+    rank (zero rank columns add nothing), each adapter's α/r multiplied into
+    its up factor, and all-zero adapters appended up to ``pad_to``. The
+    reference sites route modules only; their rank and alpha are not
+    applied. Incompatible site sets raise."""
+    if not entries:
+        raise ValueError("stack_adapters needs at least one adapter")
+    ref_sites = list(entries[0][0])
+    for sites_i, _ in entries[1:]:
+        if not sites_stack_compatible(ref_sites, sites_i):
+            raise ValueError("adapters target different module sets/dims — serve them in separate groups "
+                             "(sites_stack_compatible is the precondition)")
+    n = max(len(entries), pad_to)
+    stacked: LoRAParams = {}
+    for j, ref in enumerate(ref_sites):
+        r_max = max(int(e[0][j].rank) for e in entries)
+        downs, ups = [], []
+        for sites_i, params_i in entries:
+            site = sites_i[j]
+            leaf = params_i[site.lora_name]
+            pad = r_max - int(site.rank)
+            down = leaf["down"].detach().float()
+            up = leaf["up"].detach().float() * site.scale  # fold α/r
+            downs.append(F.pad(down, (0, 0) * (down.ndim - 1) + (0, pad)))  # rank: down's first axis
+            ups.append(F.pad(up, (0, 0) * (up.ndim - 2) + (0, pad)))  # rank: up's second axis
+        downs += [torch.zeros_like(downs[0])] * (n - len(downs))
+        ups += [torch.zeros_like(ups[0])] * (n - len(ups))
+        stacked[ref.lora_name] = {"down": torch.stack(downs), "up": torch.stack(ups)}
+    return ref_sites, stacked
 
 
 # ---------------------------------------------------------------------------

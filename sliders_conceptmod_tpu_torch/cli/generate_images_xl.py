@@ -23,10 +23,13 @@ Two paths, as in JAX:
   overlay (``sample_loop_scales``), then one decode per scale.
 
 Rank and alpha come from the checkpoint's tensors when it has one alpha, else
-from the file name (the reference's sniffing). ``--device`` is a CUDA
-ordinal (default ``0``) or ``cpu``. ``--quantize_base``, ``--w8a8`` and
-``--mesh_data > 1`` exit naming the ROADMAP items that own them; a slider
-file with text-encoder parts raises.
+from the file name (the reference's sniffing). A file with text-encoder parts
+(a notrigger save, or a ``cli/combine_loras.py`` output) merges them into the
+CLIP towers at each scale before the encode, the negative/uncond prompt's
+included (``adapters/slider_file.py``); a file with text-encoder parts only
+runs with no UNet sites. ``--device`` is a CUDA ordinal (default ``0``) or
+``cpu``. ``--quantize_base``, ``--w8a8`` and ``--mesh_data > 1`` exit naming
+the ROADMAP items that own them.
 """
 
 from __future__ import annotations
@@ -163,10 +166,12 @@ def run(args):
     _, text_encoders, unet, scheduler, vae = factory.load_models_xl(
         args.base, scheduler_name="ddim", weight_dtype=WEIGHT_DTYPE, with_vae=True, device=device
     )
-    parts = load_slider_file(args.model_name)  # raises on text-encoder parts (queue 1, item 7)
-    if parts.unet is None:
-        raise ValueError(f"{args.model_name} carries no unet slider part")
-    sites, lora_params = unet_slider(unet, args.model_name, parts.unet, device)
+    parts = load_slider_file(args.model_name, [te.model for te in text_encoders])
+    sites, lora_params = [], {}
+    if parts.unet is not None:
+        sites, lora_params = unet_slider(unet, args.model_name, parts.unet, device)
+    elif not parts.has_te:
+        raise ValueError(f"{args.model_name} carries neither unet nor text-encoder slider parts")
 
     schedule = scheduler.set_timesteps(args.ddim_steps)
     flip = flip_step_for_start_noise(schedule, args.start_noise)
@@ -175,12 +180,20 @@ def run(args):
     neg = args.negative_prompts or ""
     time_ids = torch.from_numpy(get_add_time_ids(args.image_size, args.image_size)).to(device)
 
+    def encode_case(prompt: str, scale: float):
+        """(uncond ++ cond embeddings [2N], pooled [2N]) of one prompt, the
+        text-encoder parts merged at ``scale`` (no start_noise gate: the
+        embeddings hold for the whole trajectory)."""
+        with parts.merged_text_encoders(scale), torch.inference_mode():
+            text, pooled = factory.encode_prompts_xl(text_encoders, [prompt] * N)
+            text_u, pooled_u = factory.encode_prompts_xl(text_encoders, [neg] * N)
+        return torch.cat([text_u, text]), torch.cat([pooled_u, pooled])
+
     for case_number, prompt, seed in rows:
         if not (args.from_case <= case_number <= args.till_case):
             continue
-        with torch.inference_mode():
-            text, pooled = factory.encode_prompts_xl(text_encoders, [prompt] * N)
-            text_u, pooled_u = factory.encode_prompts_xl(text_encoders, [neg] * N)
+        if not parts.has_te:
+            emb, pooled = encode_case(prompt, 0.0)
         firsts = []
         if args.batch_scales:
             paths = [f"{root}/{s}/{case_number}_0.png" for s in scales]
@@ -188,12 +201,14 @@ def run(args):
                 firsts = [read_png(p) for p in paths]
             else:
                 lat0 = draw_latents(seed, (N, 4, res, res), device) * schedule.init_noise_sigma
-                emb = torch.cat([text_u.repeat(S, 1, 1), text.repeat(S, 1, 1)])
-                added = {"text_embeds": torch.cat([pooled_u.repeat(S, 1), pooled.repeat(S, 1)]),
+                # rows are scale-major uncond (S·N) ++ cond (S·N), as sample_loop_scales reads them
+                per_scale = [encode_case(prompt, s) for s in scales] if parts.has_te else [(emb, pooled)] * S
+                emb_b = torch.cat([e[:N] for e, _ in per_scale] + [e[N:] for e, _ in per_scale])
+                added = {"text_embeds": torch.cat([p[:N] for _, p in per_scale] + [p[N:] for _, p in per_scale]),
                          "time_ids": time_ids.expand(2 * S * N, -1)}
                 final = sample_loop_scales(
                     unet, sites, lora_params, scales, flip, scheduler, schedule, lat0.repeat(S, 1, 1, 1).to(WEIGHT_DTYPE),
-                    emb, guidance_scale=args.guidance_scale, added_cond_kwargs=added,
+                    emb_b, guidance_scale=args.guidance_scale, added_cond_kwargs=added,
                 )
                 for si, scale in enumerate(scales):
                     images = latents_to_images(vae.decode, final[si * N:(si + 1) * N], vae.config.scaling_factor)
@@ -201,13 +216,14 @@ def run(args):
                     firsts.append(images[0])
                 print(f"case {case_number}: saved {S * N} images (batched scales)")
         else:
-            emb = torch.cat([text_u, text])
-            added = {"text_embeds": torch.cat([pooled_u, pooled]), "time_ids": time_ids.expand(2 * N, -1)}
             for scale in scales:
                 out_path = f"{root}/{scale}/{case_number}_0.png"
                 if os.path.exists(out_path):  # resume: keep the column for the composite
                     firsts.append(read_png(out_path))
                     continue
+                if parts.has_te:
+                    emb, pooled = encode_case(prompt, scale)
+                added = {"text_embeds": pooled, "time_ids": time_ids.expand(2 * N, -1)}
                 latents = draw_latents(seed, (N, 4, res, res), device) * schedule.init_noise_sigma
                 merged = None  # free the previous scale's merged weights first
                 merged = lora_lib.merge_lora_params(unet, sites, lora_params, scale)

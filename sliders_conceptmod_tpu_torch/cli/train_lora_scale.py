@@ -133,7 +133,8 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
     step_fn = imageslider.make_image_slider_step(unet, sites, lora_params, scheduler, schedule, optimizer, icfg,
                                                  emb["positive"], emb["neutral"], pooled=pooled or None,
                                                  add_time_ids=models.add_time_ids(resolution, device),
-                                                 student_overlay=student_overlay)
+                                                 student_overlay=student_overlay,
+                                                 debug_nans=config.tpu.debug_nans)
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = TrainRNG(config.tpu.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
@@ -144,7 +145,10 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
     t_loop = time.time()
     first_step_seconds = float("nan")
     for i in range(start_step, iterations):
-        metrics = step_fn(opt_state, bank, rng)
+        try:
+            metrics = step_fn(opt_state, bank, rng)
+        except FloatingPointError as e:  # tpu.debug_nans: stop at the first non-finite step, as JAX does
+            raise FloatingPointError(f"step {i}: {e}") from None
         logger.log(i, metrics)  # waits for the first step to finish on the device
         if i == start_step:
             first_step_seconds = time.time() - t_loop

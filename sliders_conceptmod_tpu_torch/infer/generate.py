@@ -59,6 +59,7 @@ def sample_loop_scales(
     generators: Generators = None,
     step_noise: Optional[torch.Tensor] = None,
     overlay: Optional[LoRAOverlay] = None,
+    adapter_idx: Optional[Union[Sequence[int], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Every slider scale of a batch in one trajectory.
 
@@ -71,6 +72,10 @@ def sample_loop_scales(
     ``generators`` (one per row: a row's noise then depends only on its own
     generator, whatever rows share the batch). ``overlay`` reuses a bound
     :class:`LoRAOverlay` (serving binds one per slider).
+
+    ``adapter_idx`` (``[B]`` ints) routes each row through its own adapter of
+    stacked factors (``adapters/lora.py::stack_adapters``): rows of different
+    sliders share the trajectory (serving's cross-slider batches).
     """
     B = latents.shape[0]
     device = latents.device
@@ -79,14 +84,16 @@ def sample_loop_scales(
     use_cfg = _use_cfg(guidance_scale)
     if overlay is None:
         overlay = LoRAOverlay(unet, sites, lora_params)
+    row_idx = None if adapter_idx is None else torch.as_tensor(adapter_idx, dtype=torch.long).to(device)
     if use_cfg:
         row_scales = torch.cat([row_scales] * 2)
+        row_idx = None if row_idx is None else torch.cat([row_idx] * 2)
 
     def call(i, scaled, t, emb, added):
         # slider off while t > start_noise: every row scale is 0, which is
         # exactly the base model — no hooks to run, but the model's lock is
         # still held so no other thread's hooks reach these rows
-        with overlay(row_scales if i >= flip_step else None):
+        with overlay(row_scales if i >= flip_step else None, row_idx):
             return unet(scaled, t, emb, added_cond_kwargs=added)
 
     return _denoise(call, use_cfg, scheduler, schedule, latents, text_embeddings, guidance_scale,

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sliders_conceptmod_tpu_torch.adapters.lora import model_lock
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler
 from sliders_conceptmod_tpu_torch.io import torch_convert as tc
@@ -70,9 +71,13 @@ class TextEncoderBundle:
     tokenizer: object
 
     def encode(self, prompts: List[str]):
+        """The tower's output; holds the tower's lock, so an encode never
+        overlaps a text-encoder slider's weight swap on another thread
+        (``adapters/slider_file.py``)."""
         device = self.model.token_embedding.weight.device
         ids = torch.from_numpy(self.tokenizer(prompts).astype(np.int64)).to(device)
-        return self.model(ids)
+        with model_lock(self.model):
+            return self.model(ids)
 
 
 @torch.no_grad()

@@ -18,7 +18,19 @@ tower, no added conditioning, 50 steps; ``--v2``, ``--v_pred``).
 
   curl -s 'localhost:8500/generate?prompt=a+photo+of+a+person&scale=1.5&seed=7' > out.png
   curl -s localhost:8500/healthz
-  curl -s localhost:8500/sliders
+  curl -s localhost:8500/sliders          # LRU order, most recently used last
+  curl -s localhost:8500/metrics
+  curl -X POST localhost:8500/sliders -d '{"name": "age", "path": "age.safetensors"}'
+  curl -X DELETE localhost:8500/sliders/age
+
+Sliders are managed at run time over the loaded base: ``POST /sliders``
+registers or replaces one (a UNet part, text-encoder parts, or a
+``combine_loras`` file with both), ``DELETE /sliders/<name>`` drops one,
+``--max_sliders N`` bounds the registry (least recently used evicted,
+``default`` pinned). Concurrent requests for different sliders share one
+sampler call when the sliders' site sets stack (``--no_stack`` splits them).
+``--static_guidance g`` fixes the guidance (<= 1: cond-only);
+``--no_microbatch`` is ``--max_batch 1``.
 
 GET /generate params: prompt (required), scale (default 0), seed (default
 0), guidance (default 7.5), slider (default "default"). A seed reproduces the
@@ -37,6 +49,7 @@ import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 import torch
@@ -160,25 +173,53 @@ class SliderService:
     over one loaded base, and micro-batched requests. A subclass loads
     another family (:meth:`_load`) and encodes its way (:meth:`_encode_impl`,
     :meth:`_conditioning`); the registry, the batcher and the sampler call are
-    shared."""
+    shared.
+
+    The registry (JAX ``_SliderRegistry``): :meth:`add_slider` registers or
+    replaces a slider — a UNet part, text-encoder parts, or both;
+    :meth:`remove_slider` drops one; ``max_sliders`` bounds it, evicting the
+    least recently used slider (``default`` is pinned). Rows of different
+    sliders in one micro-batch ride one sampler call when their site sets
+    stack (``adapters/lora.py::stack_adapters``, per-row ``adapter_idx``),
+    else one call per slider (``cross_slider_stack=False`` always splits).
+    A slider with text-encoder parts encodes its rows' uncond and cond
+    prompts through the towers merged at the row's scale. ``static_guidance``
+    fixes the guidance for every request: a Python float, so a value <= 1
+    takes the sampler's cond-only path and per-request guidances no longer
+    split a micro-batch."""
 
     _BUCKETS = (1, 2, 4)
+    _STACK_CACHE_MAX = 16  # each stack holds fp32 copies of its members' factors
     weight_dtype = torch.bfloat16  # the weights' and the sampled latents' dtype
 
     def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 25,
                  start_noise: float = 750, batch_window_ms: float = 8.0,
-                 max_batch: int = 4, max_queue: int = 64, device: str = "cuda"):
+                 max_batch: int = 4, max_queue: int = 64, max_sliders: Optional[int] = None,
+                 cross_slider_stack: bool = True, static_guidance: Optional[float] = None,
+                 device: str = "cuda"):
         t0 = time.time()
         self.device = torch.device(device)
         self.image_size = image_size
         self.steps = steps
+        self._static_guidance = static_guidance
         self._load(base)
         self.schedule = self.scheduler.set_timesteps(steps)
         self.flip = flip_step_for_start_noise(self.schedule, start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
+        self._te: dict = {}  # slider name -> (SliderParts with text-encoder parts, version)
+        self._te_version = 0
         self._registry_lock = threading.Lock()
-        # per-instance cache: a class-level lru_cache would pin every service
+        self.max_sliders = max_sliders
+        self._stack_enabled = cross_slider_stack
+        # sorted names -> stacked entry, or None where the sites do not stack;
+        # cleared on every registry change, and the generation counter keeps
+        # a stack built across a change out of the cache
+        self._stack_cache: "collections.OrderedDict" = collections.OrderedDict()
+        self._registry_generation = 0
+        self._stack_warned = False
+        # per-instance caches: a class-level lru_cache would pin every service
         self._encode = functools.lru_cache(maxsize=256)(self._encode_impl)
+        self._encode_te = functools.lru_cache(maxsize=256)(self._encode_te_impl)
         self.add_slider("default", slider_path)
         # every sampler call runs on the batcher's one worker thread: the
         # overlay hooks live on the shared UNet, so calls must not overlap
@@ -195,15 +236,47 @@ class SliderService:
     # -- slider registry -----------------------------------------------------
 
     def add_slider(self, name: str, slider_path: str) -> None:
-        """Register (or replace) a UNet slider checkpoint under ``name``."""
-        parts = load_slider_file(slider_path)
-        if parts.unet is None:
-            raise ValueError(f"{slider_path} carries no unet slider part")
-        sites, lora_params = unet_slider(self.unet, str(slider_path), parts.unet, device=self.device)
+        """Register (or replace) a slider file under ``name``: a UNet part,
+        text-encoder parts (a notrigger save, a ``combine_loras`` output), or
+        both. A text-encoder-only slider has no UNet sites."""
+        parts = load_slider_file(slider_path, [te.model for te in self.text_encoders])
+        sites, lora_params = [], {}
+        if parts.unet is not None:
+            sites, lora_params = unet_slider(self.unet, str(slider_path), parts.unet, device=self.device)
+        elif not parts.has_te:
+            raise ValueError(f"{slider_path} carries neither unet nor text-encoder slider parts")
         overlay = lora_lib.LoRAOverlay(self.unet, sites, lora_params)
         with self._registry_lock:
             self._sliders[name] = (sites, lora_params, overlay)
             self._sliders.move_to_end(name)
+            if parts.has_te:  # a new version: no cached embedding of a replaced slider is reused
+                self._te_version += 1
+                self._te[name] = (parts, self._te_version)
+            else:
+                self._te.pop(name, None)
+            if self.max_sliders is not None:
+                evictable = [n for n in self._sliders if n not in (name, "default")]
+                while len(self._sliders) > self.max_sliders and evictable:
+                    evicted = evictable.pop(0)  # least recently used first
+                    del self._sliders[evicted]
+                    self._te.pop(evicted, None)
+            self._registry_changed()
+
+    def remove_slider(self, name: str) -> None:
+        """Drop a slider; ``default`` is pinned (``ValueError``), an unknown
+        name raises ``KeyError``."""
+        if name == "default":
+            raise ValueError("the 'default' slider is pinned and cannot be removed")
+        with self._registry_lock:
+            if name not in self._sliders:
+                raise KeyError(f"unknown slider {name!r}")
+            del self._sliders[name]
+            self._te.pop(name, None)
+            self._registry_changed()
+
+    def _registry_changed(self) -> None:  # under the registry lock
+        self._stack_cache.clear()
+        self._registry_generation += 1
 
     def _resolve(self, name: str):
         with self._registry_lock:
@@ -213,12 +286,52 @@ class SliderService:
             return self._sliders[name]
 
     def list_sliders(self) -> list:
+        """Names in LRU order (most recently used last), with their UNet site
+        count and whether they carry text-encoder parts."""
         with self._registry_lock:
-            return [{"name": n, "sites": len(entry[0])} for n, entry in self._sliders.items()]
+            return [{"name": n, "sites": len(entry[0]), "te": n in self._te} for n, entry in self._sliders.items()]
+
+    def stacked_combos_cached(self) -> int:
+        with self._registry_lock:
+            return sum(v is not None for v in self._stack_cache.values())
 
     @property
     def sites(self):
         return self._sliders["default"][0]
+
+    def _stacked_entry(self, names: tuple):
+        """``(sites, stacked factors, overlay, name -> adapter index)`` for a
+        sorted tuple of slider names, or None when their site sets do not
+        stack. The adapter axis is padded to a power of two. A name gone from
+        the registry raises ``KeyError``. The stack is built outside the
+        lock and cached only if no registry change landed meanwhile."""
+        with self._registry_lock:
+            if names in self._stack_cache:
+                self._stack_cache.move_to_end(names)
+                for n in names:  # a stacked use touches every member's LRU slot
+                    if n in self._sliders:
+                        self._sliders.move_to_end(n)
+                return self._stack_cache[names]
+            generation = self._registry_generation
+            entries = []
+            for n in names:
+                if n not in self._sliders:
+                    raise KeyError(f"unknown slider {n!r}")
+                self._sliders.move_to_end(n)
+                entries.append(self._sliders[n])
+        value = None
+        if all(lora_lib.sites_stack_compatible(entries[0][0], e[0]) for e in entries[1:]):
+            bucket = 1 << (len(names) - 1).bit_length()
+            sites, stacked = lora_lib.stack_adapters([(e[0], e[1]) for e in entries], pad_to=bucket)
+            value = (sites, stacked, lora_lib.LoRAOverlay(self.unet, sites, stacked),
+                     {n: i for i, n in enumerate(names)})
+        with self._registry_lock:
+            if self._registry_generation == generation:
+                self._stack_cache[names] = value
+                self._stack_cache.move_to_end(names)
+                while len(self._stack_cache) > self._STACK_CACHE_MAX:
+                    self._stack_cache.popitem(last=False)
+        return value
 
     # -- requests --------------------------------------------------------------
 
@@ -236,44 +349,86 @@ class SliderService:
             return next(b for b in self._BUCKETS if b >= n)
         return n
 
-    def _generate_batch(self, reqs) -> list:
-        """Group by (guidance, slider), pad each group to a bucket, run one
-        sampler call per group, PNG-encode, and route results back by request
-        index. A failing group poisons only its own requests: their result is
-        the exception."""
-        groups: dict = {}
-        for i, r in enumerate(reqs):
-            groups.setdefault((r[3], r[4]), []).append((i, r))
-        out: dict = {}
-        for (guidance, slider), rows in groups.items():
+    def _groups(self, rows) -> list:
+        """``[(rows, entry or slider name, adapter_idx or None)]`` of one
+        guidance group: one stacked group when its sliders stack, else one
+        group per slider. A stacking failure other than a vanished name is
+        printed once, and the rows fall back to per-slider groups."""
+        names = tuple(sorted({r[4] for _, r in rows}))
+        stacked = None
+        if len(names) > 1 and self._stack_enabled:
             try:
-                entry = self._resolve(slider)
-                n = len(rows)
-                padded = [r for _, r in rows] + [rows[-1][1]] * (self._bucket_for(n) - n)
-                imgs = self._sample_group(padded, guidance, entry)
-                for (i, _), img in zip(rows, imgs[:n]):
-                    out[i] = encode_png(img)
-            except Exception as e:  # noqa: BLE001 — contain to this group
-                for i, _ in rows:
-                    out[i] = e
+                stacked = self._stacked_entry(names)
+            except KeyError:  # a vanished name: the per-slider groups poison exactly its rows
+                stacked = None
+            except Exception as e:  # noqa: BLE001 — traffic survives; say so once
+                if not self._stack_warned:
+                    self._stack_warned = True
+                    print(f"[serve] cross-slider stacking failed ({e!r}) — falling back to per-slider batches")
+        if stacked is not None:
+            sites, params, overlay, name_to_idx = stacked
+            return [(rows, (sites, params, overlay), [name_to_idx[r[4]] for _, r in rows])]
+        by_slider: dict = {}
+        for row in rows:
+            by_slider.setdefault(row[1][4], []).append(row)
+        return [(srows, name, None) for name, srows in by_slider.items()]
+
+    def _generate_batch(self, reqs) -> list:
+        """Group by guidance (or one group under ``static_guidance``), then
+        by :meth:`_groups`; pad each group to a bucket, run one sampler call
+        per group, PNG-encode, and route results back by request index. A
+        failing group poisons only its own requests: their result is the
+        exception."""
+        by_guidance: dict = {}
+        for i, r in enumerate(reqs):
+            key = self._static_guidance if self._static_guidance is not None else r[3]
+            by_guidance.setdefault(key, []).append((i, r))
+        out: dict = {}
+        for guidance, rows in by_guidance.items():
+            for srows, entry, idx in self._groups(rows):
+                try:
+                    if idx is None:
+                        entry = self._resolve(entry)
+                    n = len(srows)
+                    pad = self._bucket_for(n) - n
+                    padded = [r for _, r in srows] + [srows[-1][1]] * pad
+                    imgs = self._sample_group(padded, guidance, entry,
+                                              adapter_idx=None if idx is None else idx + [idx[-1]] * pad)
+                    for (i, _), img in zip(srows, imgs[:n]):
+                        out[i] = encode_png(img)
+                except Exception as e:  # noqa: BLE001 — contain to this group
+                    for i, _ in srows:
+                        out[i] = e
         return [out[i] for i in range(len(reqs))]
 
     def _encode_impl(self, prompt: str):
         return factory.encode_prompts_xl(self.text_encoders, [prompt])
 
+    def _encode_te_impl(self, slider: str, version: int, prompt: str, scale: float):
+        """``prompt`` through the towers with ``slider``'s text-encoder parts
+        merged at ``scale`` (cached per slider, version, prompt and scale)."""
+        with self._te[slider][0].merged_text_encoders(scale):
+            return self._encode_impl(prompt)
+
+    def _encode_row(self, prompt: str, row):
+        """A row's embeddings of ``prompt``: through its slider's merged
+        towers at its scale when the slider has text-encoder parts, else the
+        plain cached encode."""
+        te = self._te.get(row[4])
+        if te is None:
+            return self._encode(prompt)
+        return self._encode_te(row[4], te[1], prompt, row[1])
+
     def _conditioning(self, padded):
         """(embeddings [2B] uncond ++ cond, added conditioning) of a group."""
-        bucket = len(padded)
-        text_u, pooled_u = self._encode("")
-        conds = [self._encode(r[0]) for r in padded]
-        emb = torch.cat([text_u.expand(bucket, -1, -1)] + [t for t, _ in conds])
+        enc = [self._encode_row("", r) for r in padded] + [self._encode_row(r[0], r) for r in padded]
         added = {
-            "text_embeds": torch.cat([pooled_u.expand(bucket, -1)] + [p for _, p in conds]),
+            "text_embeds": torch.cat([p for _, p in enc]),
             "time_ids": torch.from_numpy(get_add_time_ids(self.image_size, self.image_size))
             .to(self.device)
-            .expand(2 * bucket, -1),
+            .expand(len(enc), -1),
         }
-        return emb, added
+        return torch.cat([t for t, _ in enc]), added
 
     def _initial_latents(self, gens) -> torch.Tensor:
         """Each row's N(0, 1) draw from its own generator, fp32."""
@@ -283,7 +438,7 @@ class SliderService:
         )
 
     @torch.inference_mode()
-    def _sample_group(self, padded, guidance: float, entry):
+    def _sample_group(self, padded, guidance: float, entry, adapter_idx=None):
         sites, lora_params, overlay = entry
         dev = self.device
         emb, added = self._conditioning(padded)
@@ -292,13 +447,14 @@ class SliderService:
         gens = [torch.Generator(device=dev).manual_seed(r[2]) for r in padded]
         latents = self._initial_latents(gens) * self.schedule.init_noise_sigma
         scales = torch.tensor([r[1] for r in padded], dtype=torch.float32, device=dev)
+        # per-request guidance is a tensor: CFG for every value, as the JAX
+        # service's traced guidance; a static guidance is a Python float
+        g = (self._static_guidance if self._static_guidance is not None
+             else torch.tensor(guidance, dtype=torch.float32, device=dev))
         final = sample_loop_scales(
             self.unet, sites, lora_params, scales, self.flip, self.scheduler, self.schedule,
-            latents.to(self.weight_dtype), emb, added_cond_kwargs=added,
-            # a tensor guidance: CFG for every value, as the JAX service's
-            # traced guidance
-            guidance_scale=torch.tensor(guidance, dtype=torch.float32, device=dev),
-            generators=gens, overlay=overlay,
+            latents.to(self.weight_dtype), emb, added_cond_kwargs=added, guidance_scale=g,
+            generators=gens, overlay=overlay, adapter_idx=adapter_idx,
         )
         return latents_to_images(self.vae.decode, final, self.vae.config.scaling_factor)
 
@@ -313,10 +469,13 @@ class SD1SliderService(SliderService):
 
     def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 50,
                  start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
-                 max_queue: int = 64, v2: bool = False, v_pred: bool = False, device: str = "cuda"):
+                 max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
+                 static_guidance: Optional[float] = None, v2: bool = False, v_pred: bool = False,
+                 device: str = "cuda"):
         self.v2, self.v_pred = v2, v_pred
         super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
-                         max_batch=max_batch, max_queue=max_queue, device=device)
+                         max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
+                         cross_slider_stack=cross_slider_stack, static_guidance=static_guidance, device=device)
 
     def _load(self, base: str) -> None:
         tok, te, self.unet, self.scheduler, self.vae = factory.load_models(
@@ -329,8 +488,7 @@ class SD1SliderService(SliderService):
         return factory.encode_prompts(self.text_encoders[0], [prompt])
 
     def _conditioning(self, padded):
-        conds = [self._encode(r[0]) for r in padded]
-        return torch.cat([self._encode("").expand(len(padded), -1, -1)] + conds), None
+        return torch.cat([self._encode_row("", r) for r in padded] + [self._encode_row(r[0], r) for r in padded]), None
 
 
 def detect_family(base: str) -> str:
@@ -347,6 +505,36 @@ def detect_family(base: str) -> str:
     return "xl"
 
 
+def metrics(service: SliderService) -> dict:
+    """``GET /metrics``: the JAX service's keys — the registry, the stack
+    cache, and the micro-batcher's batches, latency percentiles, queue and
+    shed/error counts. ``microbatch`` is whether a batch may hold more than
+    one request (``--no_microbatch`` is ``--max_batch 1``)."""
+    b = service._batcher
+    with b._stats_lock:
+        recent, lats = list(b.batch_sizes), sorted(b.latencies)
+
+    def pct(q):
+        return round(lats[min(int(q * (len(lats) - 1) + 0.5), len(lats) - 1)], 4) if lats else 0.0
+
+    return {
+        "sliders": len(service.list_sliders()),
+        "stacked_combos_cached": service.stacked_combos_cached(),
+        "microbatch": b.max_batch > 1,
+        "total_batches": b.total_batches,
+        "total_rows": b.total_rows,
+        "mean_batch": round(sum(recent) / max(len(recent), 1), 3),
+        "max_batch": b.max_batch,
+        "queue_depth": b.queue_depth(),
+        "max_queue": b.max_queue,
+        "p50_seconds": pct(0.50),
+        "p99_seconds": pct(0.99),
+        "rejected": b.rejected,
+        "errored": b.errored,
+        "error_rate": round((b.rejected + b.errored) / max(b.total_rows + b.rejected, 1), 4),
+    }
+
+
 def make_handler(service: SliderService):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
@@ -360,8 +548,46 @@ def make_handler(service: SliderService):
             self.end_headers()
             self.wfile.write(body)
 
+        def do_POST(self):
+            # POST /sliders {"name": ..., "path": ...}: register or replace a
+            # slider over the loaded base, no restart
+            if urlparse(self.path).path != "/sliders":
+                self._json(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                spec = json.loads(self.rfile.read(int(self.headers.get("Content-Length", "0"))) or b"{}")
+                name, path = spec["name"], spec["path"]
+            except (ValueError, KeyError, TypeError) as e:
+                self._json(400, {"error": f"body must be JSON with name+path ({e})"})
+                return
+            try:
+                service.add_slider(str(name), str(path))
+            except (ValueError, OSError, KeyError, NotImplementedError) as e:
+                self._json(400, {"error": str(e)})
+                return
+            self._json(200, {"sliders": service.list_sliders()})
+
+        def do_DELETE(self):
+            # DELETE /sliders/<name>: 404 for an unknown name, 400 for the pinned default
+            path = urlparse(self.path).path
+            if not path.startswith("/sliders/"):
+                self._json(404, {"error": f"no route {path}"})
+                return
+            try:
+                service.remove_slider(path[len("/sliders/"):])
+            except KeyError as e:
+                self._json(404, {"error": str(e)})
+                return
+            except ValueError as e:
+                self._json(400, {"error": str(e)})
+                return
+            self._json(200, {"sliders": service.list_sliders()})
+
         def do_GET(self):
             url = urlparse(self.path)
+            if url.path == "/metrics":
+                self._json(200, metrics(service))
+                return
             if url.path == "/healthz":
                 self._json(200, {
                     "status": "ok",
@@ -427,7 +653,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch_window_ms", type=float, default=8.0)
     ap.add_argument("--max_batch", type=int, default=4, help="1 serves one request per sampler call")
+    ap.add_argument("--no_microbatch", action="store_true",
+                    help="one request per sampler call: --max_batch 1. Requests still run one at a time on the "
+                         "batcher's one worker thread, never from parallel HTTP threads (the overlay's hooks live "
+                         "on the shared UNet)")
     ap.add_argument("--max_queue", type=int, default=64)
+    ap.add_argument("--static_guidance", type=float, default=None,
+                    help="a fixed guidance for every request (per-request ?guidance= is ignored and no longer "
+                         "splits a micro-batch); <= 1 takes the cond-only path (half the UNet rows)")
+    ap.add_argument("--no_stack", action="store_true",
+                    help="no cross-slider batching: a micro-batch with several sliders runs one sampler call per "
+                         "slider")
+    ap.add_argument("--max_sliders", type=int, default=None,
+                    help="bound the slider registry: registering past it (POST /sliders) evicts the least "
+                         "recently used slider ('default' is pinned)")
     return ap
 
 
@@ -439,8 +678,9 @@ def service_settings(args):
     if family in ("sd3", "flux"):
         raise SystemExit(f"--family {family}: SD3 and Flux serving are not ported yet (ROADMAP.md queue 1, item 9)")
     kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
-                  batch_window_ms=args.batch_window_ms, max_batch=args.max_batch, max_queue=args.max_queue,
-                  device=args.device)
+                  batch_window_ms=args.batch_window_ms, max_batch=1 if args.no_microbatch else args.max_batch,
+                  max_queue=args.max_queue, max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack,
+                  static_guidance=args.static_guidance, device=args.device)
     if family == "sd1":
         return SD1SliderService, dict(kwargs, steps=50 if args.steps is None else args.steps, v2=args.v2,
                                       v_pred=args.v_pred)

@@ -172,6 +172,16 @@ def draw(rng: TrainRNG, n_pairs: int, schedule: Schedule, cfg: ESDConfig, device
     return Draws(pair, timesteps_to, latents0, warm_noise)
 
 
+def raise_if_nonfinite(loss: torch.Tensor, grads: Sequence[torch.Tensor]) -> None:
+    """``FloatingPointError`` unless the loss and every gradient are finite —
+    ``tpu.debug_nans``, where the JAX trainers set ``jax_debug_nans`` and
+    stop at the first NaN. One device-to-host read; a caller without the
+    flag never calls it, so the default step adds no sync."""
+    finite = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]).all()
+    if not bool(finite):
+        raise FloatingPointError("non-finite loss or gradient (tpu.debug_nans)")
+
+
 def make_esd_train_step(
     unet: torch.nn.Module,
     sites: Sequence[LoRASite],
@@ -182,6 +192,7 @@ def make_esd_train_step(
     cfg: ESDConfig,
     add_time_ids: Optional[torch.Tensor] = None,  # [1, 6] for XL
     merge_fn: Optional[Callable] = None,  # adapter merge (LoRA default; DoRA passes its own)
+    debug_nans: bool = False,
 ) -> Callable[..., dict]:
     """Build ``step(opt_state, bank, rng=None, draws=None) -> {"loss",
     "grad_norm", "timesteps_to"}``: device scalars (the pre-clip global
@@ -190,7 +201,8 @@ def make_esd_train_step(
     ``lora_params`` (fp32 leaves that require grad) and ``opt_state`` are
     updated in place; the overlay binds the factors once. The JAX step's
     refusals hold: the overlay is LoRA's only, and an overlay warm-up needs
-    the overlay student."""
+    the overlay student. ``debug_nans`` (``tpu.debug_nans``) checks the loss
+    and the gradients before the update: :func:`raise_if_nonfinite`."""
     merge = merge_fn if merge_fn is not None else lora_lib.merge_lora_params
     if cfg.student_overlay and merge is not lora_lib.merge_lora_params:
         raise ValueError("student_overlay supports the LoRA overlay only (DoRA merges)")
@@ -270,6 +282,8 @@ def make_esd_train_step(
                 )
             loss = torch.mean((student.float() - target) ** 2)
             grads = torch.autograd.grad(loss, params)
+        if debug_nans:
+            raise_if_nonfinite(loss, grads)
 
         # (5) clip + AdamW
         g_norm = optimizer.global_norm(grads)

@@ -20,11 +20,13 @@ into an :class:`ImageBank` of posterior moments on the device; on the card the
 encoder's mid-block attention runs kernel K4a, and the student's attentions
 run K1 forward and K2/K3 backward.
 
-Images: PNG only, already at the training resolution (``io/png.py``; the GPU
-machine has no PIL). Resizing and JPEG/WebP raise ``NotImplementedError``:
-the JAX package's two loaders disagree on the resize filter (its native
-bilinear vs PIL's default), and the port waits for one rule (ROADMAP.md
-queue 1, image loading).
+Images: PNG of any size (``io/png.py``; the GPU machine has no PIL), resized
+to the training resolution as the JAX ``load_image_array`` resizes them —
+PIL's default bicubic with antialiasing, mirrored bit for bit in numpy
+(``io/resample.py``). The JAX bank prefers its native loader when
+``libimload.so`` loads, which resizes bilinearly; the port follows the PIL
+path, the reference's. JPEG/WebP raise ``NotImplementedError``: the port has
+no decoder for them.
 
 Randomness: the step takes its draws (:class:`Draws`) — as the parity tests
 derive them from the JAX key — or makes them from ``esd.TrainRNG``: pair,
@@ -46,12 +48,12 @@ from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, 
 from sliders_conceptmod_tpu_torch.diffusion.sampling import current_train_timestep
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import NoiseScheduler, Schedule
 from sliders_conceptmod_tpu_torch.io.png import decode_png
+from sliders_conceptmod_tpu_torch.io.resample import resize_like_pil
 from sliders_conceptmod_tpu_torch.models.vae import sample_latents
-from sliders_conceptmod_tpu_torch.train.esd import TrainRNG, merged_call
+from sliders_conceptmod_tpu_torch.train.esd import TrainRNG, merged_call, raise_if_nonfinite
 from sliders_conceptmod_tpu_torch.train.optim import AdamW, flat_params
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp")
-_IMAGE_QUEUE = "ROADMAP.md queue 1, image loading"
 
 
 @dataclass
@@ -77,20 +79,18 @@ def list_paired_images(folder_main: str, folders: Sequence[str]) -> List[str]:
 
 
 def load_image_array(path: str, resolution: int) -> np.ndarray:
-    """A PNG at ``resolution``² → ``[1, 3, R, R]`` float32 in [-1, 1] (the
-    JAX loader's arithmetic; grey is repeated, alpha dropped, as PIL's
-    ``convert("RGB")`` does)."""
+    """A PNG → ``[1, 3, R, R]`` float32 in [-1, 1], as the JAX loader's
+    ``Image.open(p).convert("RGB").resize((R, R))``: grey repeated, alpha
+    dropped, then PIL's default resize (``io/resample.py``; an image at
+    ``R × R`` passes unchanged)."""
     if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: JPEG/WebP loading is not ported yet ({_IMAGE_QUEUE}); save as PNG")
+        raise NotImplementedError(f"{path}: the port has no JPEG/WebP decoder (PNG only, io/png.py); save as PNG")
     with open(path, "rb") as f:
         img = decode_png(f.read())
     if img.ndim == 2:
         img = img[:, :, None]
     img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] in (1, 2) else img[:, :, :3]
-    if img.shape[:2] != (resolution, resolution):
-        raise NotImplementedError(
-            f"{path} is {img.shape[1]}x{img.shape[0]}, not {resolution}x{resolution}: resizing is not ported yet "
-            f"({_IMAGE_QUEUE}: the JAX package's native bilinear and PIL's default filter disagree)")
+    img = resize_like_pil(img, (resolution, resolution))
     arr = np.asarray(img, dtype=np.float32) / 255.0
     arr = arr * 2.0 - 1.0
     return arr.transpose(2, 0, 1)[None]
@@ -163,6 +163,7 @@ def make_image_slider_step(
     pooled: Optional[Dict[str, torch.Tensor]] = None,  # XL: {"positive", "neutral"} [Dp]
     add_time_ids: Optional[torch.Tensor] = None,  # XL: [1, 6]
     student_overlay: bool = True,
+    debug_nans: bool = False,
 ) -> Callable[..., dict]:
     """Build ``step(opt_state, bank, rng=None, draws=None) -> {"loss",
     "loss_high", "loss_low", "grad_norm", "timesteps_to", "scale"}`` (device
@@ -170,7 +171,8 @@ def make_image_slider_step(
     the pair's |scale|). SD1 rows when
     ``pooled`` is None; the XL text_time conditioning otherwise.
     ``student_overlay`` picks the 2-row overlay student, else the two merged
-    1-row students. The factors and ``opt_state`` are updated in place."""
+    1-row students. The factors and ``opt_state`` are updated in place.
+    ``debug_nans``: ``esd.raise_if_nonfinite`` before the update."""
     overlay = LoRAOverlay(unet, sites, lora_params)
     params = flat_params(sites, lora_params)
     device = params[0].device
@@ -218,6 +220,8 @@ def make_image_slider_step(
             l_low = torch.mean((eps_low - noise.float()) ** 2)
             loss = l_high + l_low
             grads = torch.autograd.grad(loss, params)
+        if debug_nans:
+            raise_if_nonfinite(loss, grads)
 
         g_norm = optimizer.global_norm(grads)
         optimizer.step(params, grads, opt_state, g_norm=g_norm)

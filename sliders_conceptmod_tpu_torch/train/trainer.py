@@ -179,7 +179,7 @@ def train(
     )
     step_fn = esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
                                       add_time_ids=models.add_time_ids(resolution, device),
-                                      merge_fn=peft_mod.merge_lora_params)
+                                      merge_fn=peft_mod.merge_lora_params, debug_nans=tpu_cfg.debug_nans)
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
@@ -194,7 +194,10 @@ def train(
     t_loop = time.time()
     first_step_seconds = float("nan")
     for i in range(start_step, iterations):
-        metrics = step_fn(opt_state, bank, rng)
+        try:
+            metrics = step_fn(opt_state, bank, rng)
+        except FloatingPointError as e:  # tpu.debug_nans: stop at the first non-finite step, as JAX does
+            raise FloatingPointError(f"step {i}: {e}") from None
         logger.log(i, metrics)  # waits for the first step to finish on the device
         if i == start_step:
             first_step_seconds = time.time() - t_loop

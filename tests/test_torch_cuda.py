@@ -773,3 +773,75 @@ def test_k4b_k4c_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen
             assert any("kgrid_bwd_dkv_kernel" in n for n in dkv_names), dkv_names
             assert not any("_tc_" in n or "merge" in n for n in dq_names), dq_names
             assert not any("_tc_" in n for n in dkv_names), dkv_names
+
+
+def _tiny_xl_unet_and_stack(device):
+    """The tiny-xl UNet (seeded) and two noxattn sliders of ranks 1 and 4,
+    stacked; the same weights and factors on every device."""
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    unet = factory.build_module(lambda: UNet2DConditionModel(UNetConfig.tiny_xl()), "cpu", torch.float32, seed=0)
+    targets = lora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + lora.UNET_TARGET_REPLACE_MODULE_CONV
+    g = torch.Generator().manual_seed(1)
+    entries = []
+    for rank, alpha in ((1, 4.0), (4, 1.0)):
+        sites = lora.create_sites(unet, rank=rank, alpha=alpha, target_replace=targets, train_method="noxattn")
+        lp = lora.init_lora_params(sites, generator=g)
+        for leaf in lp.values():
+            leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.3
+        entries.append((sites, {n: {k: t.to(device) for k, t in leaf.items()} for n, leaf in lp.items()}))
+    sites, stacked = lora.stack_adapters(entries, pad_to=4)
+    return unet.to(device).eval(), lora.LoRAOverlay(unet.to(device), sites, stacked)
+
+
+def test_indexed_overlay_on_the_card_matches_the_cpu(gen):
+    """Three rows routed to two stacked adapters and a pad adapter: the card's
+    fp32 UNet forward (K1 in its attentions) against the CPU's plain one."""
+    g = torch.Generator().manual_seed(2)
+    x, ctx = torch.randn((3, 4, 16, 16), generator=g), torch.randn((3, 77, 32), generator=g)
+    added = {"text_embeds": torch.randn((3, 32), generator=g), "time_ids": torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 3)}
+    t, scales, idx = torch.tensor([100.0, 500.0, 900.0]), torch.tensor([1.5, -2.0, 1.0]), torch.tensor([0, 1, 3])
+    out = {}
+    for device in ("cpu", "cuda"):
+        unet, overlay = _tiny_xl_unet_and_stack(device)
+        with torch.inference_mode(), torch.backends.cudnn.flags(allow_tf32=False), \
+                overlay(scales.to(device), idx.to(device)):
+            out[device] = unet(x.to(device), t.to(device), ctx.to(device),
+                               added_cond_kwargs={k: v.to(device) for k, v in added.items()}).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=2e-4, rtol=0)
+
+
+def test_merged_two_tower_encode_on_the_card_matches_the_cpu(gen, tmp_path):
+    """A ``lora_te1`` + ``lora_te2`` slider over tiny-xl's towers, merged at
+    −2 and 1.5: the card's fp32 embeddings and pooled outputs against the CPU's."""
+    import copy
+    import dataclasses
+
+    from sliders_conceptmod_tpu_torch.adapters import lora, slider_file
+    from sliders_conceptmod_tpu_torch.models import factory
+
+    _, towers, _, _ = factory.load_models_xl("tiny-xl", device="cpu")
+    g = torch.Generator().manual_seed(3)
+    sd = {}
+    for i, te in enumerate(towers):
+        sites = lora.create_sites(te.model, rank=2, alpha=1.0, target_replace=["CLIPAttention"],
+                                  prefix=f"lora_te{i + 1}", train_method="full",
+                                  name_path_prefix=slider_file.CLIP_NAME_PATH_PREFIX)
+        lp = lora.init_lora_params(sites, generator=g)
+        for leaf in lp.values():
+            leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.3
+        sd.update(lora.state_dict_tensors(sites, lp))
+    path = str(tmp_path / "te.safetensors")
+    lora.write_state_dict(path, sd)
+    out = {}
+    for device in ("cpu", "cuda"):  # the CPU's seeded towers, copied to the card
+        tes = [dataclasses.replace(te, model=copy.deepcopy(te.model).to(device)) for te in towers]
+        parts = slider_file.load_slider_file(path, [te.model for te in tes])
+        for scale in (-2.0, 1.5):
+            with parts.merged_text_encoders(scale), torch.inference_mode():
+                out[device, scale] = [t.cpu() for t in factory.encode_prompts_xl(tes, ["a photo of a person", ""])]
+    for scale in (-2.0, 1.5):
+        for got, want in zip(out["cuda", scale], out["cpu", scale]):
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=0)

@@ -20,6 +20,7 @@ import torch
 from sliders_conceptmod_tpu.ops.flash_attention import flash_attention as jax_flash
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 TOL = 2e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -44,6 +44,7 @@ from sliders_conceptmod_tpu_torch.train import trainer as ttrainer
 from test_torch_sd_esd import esd_steps_match_jax
 from test_torch_merged_routes import ROUTE_IDS, ROUTES
 from test_torch_sd_train import _random_unet
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TARGETS = tlora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + tlora.UNET_TARGET_REPLACE_MODULE_CONV

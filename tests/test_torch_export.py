@@ -54,6 +54,7 @@ from sliders_conceptmod_tpu_torch.train import esd as tesd
 from sliders_conceptmod_tpu_torch.train import optim as toptim
 from test_torch_loaders import _tiny_vae_params
 from test_torch_train import MAX_STEPS, _jax_draws, slice_setup  # noqa: F401 (fixture)
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 FAMILIES = ["sd1", "sd2", "sdxl"]
 

@@ -18,6 +18,7 @@ import torch
 from sliders_conceptmod_tpu.ops.flash_attention import flash_attention as jax_flash
 from sliders_conceptmod_tpu_torch.ops import attention as attn
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 TOL = 1e-4
 

@@ -3,8 +3,8 @@
 * ``io/png.py``: every PNG row filter (0-4) decodes to the raw pixels, the
   alpha colour types load as PIL's ``convert("RGB")`` does, and palette,
   16-bit and interlaced files raise;
-* ``load_image_array`` gives the JAX loader's array for a PNG at the
-  training resolution, and refuses resizing and JPEG/WebP;
+* ``load_image_array`` gives the JAX loader's array for a PNG, at the
+  training resolution and resized, and refuses JPEG/WebP;
 * ``build_image_bank`` over a folder of PNGs written here, through the tiny
   VAE on the same weights: the same pair table and moments (≤ 2e-4);
 * the slice as a whole: three tiny-xl image-pair steps (fp32, Euler-A) from
@@ -48,6 +48,7 @@ from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.models import vae as tvae
 from sliders_conceptmod_tpu_torch.train import imageslider as timage
 from sliders_conceptmod_tpu_torch.train import optim as toptim
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_TOL = 2e-4
@@ -125,10 +126,11 @@ def test_load_image_array_matches_the_jax_loader(tmp_path):
         path = str(tmp_path / f"im_{mode}.png")
         Image.fromarray(img).convert(mode).save(path)
         np.testing.assert_array_equal(timage.load_image_array(path, 16), jimage.load_image_array(path, 16))
-    with pytest.raises(NotImplementedError, match="resizing.*ROADMAP"):
-        timage.load_image_array(str(tmp_path / "im_RGB.png"), 32)
+    # resizing follows the JAX loader's PIL resize since it was ported (tests/test_torch_image_resize.py)
+    np.testing.assert_array_equal(timage.load_image_array(str(tmp_path / "im_RGB.png"), 32),
+                                  jimage.load_image_array(str(tmp_path / "im_RGB.png"), 32))
     Image.fromarray(img[:, :, :3]).save(tmp_path / "im.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="JPEG/WebP decoder"):
         timage.load_image_array(str(tmp_path / "im.jpg"), 16)
 
 

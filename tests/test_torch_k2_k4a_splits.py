@@ -26,6 +26,7 @@ from sliders_conceptmod_tpu.ops.flash_attention import flash_attention as jax_fl
 from sliders_conceptmod_tpu.ops.flash_attention_kgrid import _flash_fwd_impl as jax_kgrid_fwd
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 TOL = 2e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

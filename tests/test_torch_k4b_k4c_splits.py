@@ -24,6 +24,7 @@ import torch
 
 from sliders_conceptmod_tpu.ops.flash_attention_kgrid import flash_attention as jax_kgrid
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -17,6 +17,7 @@ from sliders_conceptmod_tpu.ops.flash_attention_kgrid import _flash_fwd_impl as 
 from sliders_conceptmod_tpu_torch.ops import attention as attn
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

@@ -20,6 +20,7 @@ from sliders_conceptmod_tpu.ops.flash_attention_kgrid import flash_attention as 
 from sliders_conceptmod_tpu_torch.ops import attention as attn
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REL = 1e-5
 

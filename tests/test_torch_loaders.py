@@ -35,6 +35,7 @@ from sliders_conceptmod_tpu_torch.io.jax_params import load_jax_params, to_numpy
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory as tfactory
 from sliders_conceptmod_tpu_torch.models.tokenizer import CLIPTokenizerFiles, write_synthetic_bpe_files
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-4

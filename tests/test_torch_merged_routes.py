@@ -37,6 +37,7 @@ from sliders_conceptmod_tpu_torch.train import esd as tesd
 from sliders_conceptmod_tpu_torch.train import optim as toptim
 from test_torch_imageslider import image_pair_steps_match_jax
 from test_torch_train import MAX_STEPS, _jax_draws, slice_setup, xl_esd_steps_match_jax  # noqa: F401 (fixture)
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 ROUTES = [(True, False), (False, None)]
 ROUTE_IDS = ["overlay_student_merged_warmup", "merged_student"]

@@ -21,6 +21,7 @@ from sliders_conceptmod_tpu_torch.models import clip as tclip
 from sliders_conceptmod_tpu_torch.models import tokenizer as ttok
 from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.models import vae as tvae
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "model_structures.json")
 TOL = dict(atol=2e-4, rtol=1e-4)

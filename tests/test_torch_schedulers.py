@@ -12,6 +12,7 @@ import torch
 
 from sliders_conceptmod_tpu.diffusion import schedulers as jsched
 from sliders_conceptmod_tpu_torch.diffusion import schedulers as tsched
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "scheduler_trajectories.npz")
 KINDS = ["ddim", "ddpm", "lms", "euler_a"]

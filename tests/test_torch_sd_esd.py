@@ -28,6 +28,7 @@ from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_sched
 from sliders_conceptmod_tpu_torch.train import esd as tesd
 from sliders_conceptmod_tpu_torch.train import optim as toptim
 from test_torch_sd_train import CTX, MAX_STEPS, SEQ, STEP_TOL, _random_unet
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 
 # ---------------------------------------------------------------------------

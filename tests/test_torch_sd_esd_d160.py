@@ -10,6 +10,7 @@ import pytest
 
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 from test_torch_sd_esd import esd_steps_match_jax
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 
 @pytest.mark.parametrize("train_cfg", [1.0, 2.0])

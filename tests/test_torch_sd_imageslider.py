@@ -33,6 +33,7 @@ from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.train import imageslider as timage
 from sliders_conceptmod_tpu_torch.train import optim as toptim
 from test_torch_imageslider import MAX_STEPS, _jax_draws, _write_folders
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_TOL = 2e-4

@@ -33,6 +33,7 @@ from sliders_conceptmod_tpu_torch.io.jax_params import load_jax_params, to_numpy
 from sliders_conceptmod_tpu_torch.io.png import decode_png
 from sliders_conceptmod_tpu_torch.models import factory as tfactory
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 CONV = jlora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + jlora.UNET_TARGET_REPLACE_MODULE_CONV
 SLIDER = "slider_full_rank2_alpha1.safetensors"

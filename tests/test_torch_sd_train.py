@@ -44,6 +44,7 @@ from sliders_conceptmod_tpu_torch.models import factory as tfactory
 from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.models import vae as tvae
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-4, rtol=1e-4)

@@ -33,6 +33,7 @@ from sliders_conceptmod_tpu_torch.models import factory as tfactory
 from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.models import vae as tvae
 from sliders_conceptmod_tpu_torch.serve import MicroBatcher, QueueFullError, SliderService, make_handler
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 CONV = jlora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + jlora.UNET_TARGET_REPLACE_MODULE_CONV
 

@@ -26,6 +26,7 @@ from PIL import Image
 import _sweep_cli_assets as A
 from sliders_conceptmod_tpu.cli import generate_images_sd1 as jcli_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as tcli_sd1
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ import _sweep_cli_assets as A
 from sliders_conceptmod_tpu.cli import generate_images_xl as jcli_xl
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as tcli_xl
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 
 @pytest.fixture(scope="module")
@@ -70,13 +71,19 @@ def test_sweep_refusals(assets, tmp_path):
     for flag, item in (("--quantize_base", "item 8"), ("--w8a8", "item 8"), ("--mesh_data=2", "item 12")):
         with pytest.raises(SystemExit, match=item):
             tcli_xl.main(A.args(assets, "xl", tmp_path / "out", flag, "--device", "cpu"))
+    # text-encoder parts apply since they were ported (tests/test_torch_te_slider.py); a partial
+    # one raises as JAX's load_te_part does: a down factor without its up, a key on no site
     te_slider = tmp_path / "te_slider.safetensors"
     sd = load_file(str(assets / "xl" / A.SLIDER))
     sd["lora_te1_text_model_encoder_layers_0_self_attn_q_proj.lora_down.weight"] = torch.zeros(2, 16)
     save_file(sd, str(te_slider))
     args = A.args(assets, "xl", tmp_path / "out", "--device", "cpu")
     args[1] = str(te_slider)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(KeyError, match="lora_up"):
+        tcli_xl.main(args)
+    sd["lora_te1_text_model_encoder_layers_0_mlp_fc1.lora_down.weight"] = torch.zeros(2, 16)
+    save_file(sd, str(te_slider))
+    with pytest.raises(ValueError, match="match no full site"):
         tcli_xl.main(args)
     p = tcli_xl.build_parser()
     defaults = vars(p.parse_args(["--model_name", "m", "--prompts_path", "p", "--save_path", "s"]))

@@ -22,6 +22,7 @@ from sliders_conceptmod_tpu_torch.diffusion import schedulers as tsched
 from sliders_conceptmod_tpu_torch.infer import generate as tgen
 from sliders_conceptmod_tpu_torch.io.jax_params import load_jax_params, to_numpy_tree
 from sliders_conceptmod_tpu_torch.models import unet as tunet
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 CONV = jlora.UNET_TARGET_REPLACE_MODULE_TRANSFORMER + jlora.UNET_TARGET_REPLACE_MODULE_CONV
 

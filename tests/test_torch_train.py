@@ -15,6 +15,7 @@
   the JAX trainer's, and a resumed run is bit-identical.
 """
 
+import dataclasses
 import glob
 import os
 import zlib
@@ -48,6 +49,7 @@ from sliders_conceptmod_tpu_torch.models import unet as tunet
 from sliders_conceptmod_tpu_torch.train import esd as tesd
 from sliders_conceptmod_tpu_torch.train import optim as toptim
 from sliders_conceptmod_tpu_torch.train import trainer as ttrainer
+from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "data", "config*.yaml")))
@@ -329,6 +331,52 @@ def test_trainer_saves_the_jax_key_set_and_resumes_bit_identically(tmp_path):
     resumed = tst.load_file(str(tmp_path / "resumed" / "tinyxl_slider_last.safetensors"))
     for k, v in saved.items():
         assert torch.equal(resumed[k], v), k
+
+
+def test_debug_nans_raises_at_the_first_non_finite_step(slice_setup, tmp_path, monkeypatch):
+    """``tpu.debug_nans``: a tiny-xl step whose prompt embeddings hold a NaN
+    raises ``FloatingPointError`` before the update (JAX stops at its first
+    NaN); without the flag the same step runs on and leaves NaN factors. The
+    trainer passes the flag and names the step."""
+    _, _, port, _, jlp, tsites, _, tbank = slice_setup
+    nan_bank = dataclasses.replace(tbank, text=tbank.text.clone())
+    nan_bank.text[:, :, 0, 0] = float("nan")
+    tsched = tscheduler("euler_a")
+    schedule = tsched.set_timesteps(MAX_STEPS)
+    draws = _jax_draws(jax.random.PRNGKey(11), schedule, 2)
+    for debug_nans in (True, False):
+        tlp = tlora.load_weights_from_tensors(jlora.state_dict_numpy(tsites, jlp), tsites)
+        for leaf in tlp.values():
+            for t in leaf.values():
+                t.requires_grad_(True)
+        topt = toptim.get_optimizer("adamw", toptim.get_lr_schedule("constant", 1e-2, 10), grad_clip_norm=0.2)
+        step = tesd.make_esd_train_step(
+            port, tsites, tlp, tsched, schedule, topt,
+            tesd.ESDConfig(max_denoising_steps=MAX_STEPS, height=64, width=64), add_time_ids=torch.from_numpy(
+                tsampling.get_add_time_ids(64, 64)), debug_nans=debug_nans)
+        before = tlora.state_dict_numpy(tsites, tlp)
+        state = topt.init(toptim.flat_params(tsites, tlp))
+        if debug_nans:
+            with pytest.raises(FloatingPointError, match="non-finite"):
+                step(state, nan_bank, draws=draws)
+            after = tlora.state_dict_numpy(tsites, tlp)
+            assert all(np.array_equal(after[k], before[k]) for k in before)  # no update was made
+        else:
+            m = step(state, nan_bank, draws=draws)
+            assert not np.isfinite(float(m["loss"]))
+    cfg = _tiny_config(tmp_path)
+    cfg.tpu.debug_nans = True
+    real_bank = tesd.build_prompt_bank
+
+    def nan_prompt_bank(*a, **k):
+        bank = real_bank(*a, **k)
+        bank.text[:, :, 0, 0] = float("nan")
+        return bank
+
+    monkeypatch.setattr(tesd, "build_prompt_bank", nan_prompt_bank)
+    prompts = tprompts.load_prompts_from_yaml(cfg.prompts_file)
+    with pytest.raises(FloatingPointError, match="step 0: non-finite"):
+        ttrainer.train(cfg, prompts, rank=2, device="cpu", save_file=False)
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
