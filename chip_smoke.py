@@ -236,7 +236,7 @@ from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PRE
 from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
-from sliders_conceptmod_tpu_torch.cli import train_lora_scale
+from sliders_conceptmod_tpu_torch.cli import train_lora_scale, train_notrigger
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
@@ -253,7 +253,7 @@ from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SliderService, make_handler, metrics
 from sliders_conceptmod_tpu_torch.train import esd, imageslider, trainer
-from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
+from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params, get_lr_schedule, get_optimizer
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1535,6 +1535,299 @@ def sd21_config(cfg) -> None:
     cfg.pretrained_model.v_pred = True
 
 
+KNOB_ITERATIONS = 3  # steps of each trainer knob (train_knobs); 2 on SD1.5 (sd_train_knobs)
+
+
+def knob_forwards(cfg, metrics: list, remat: bool) -> tuple:
+    """(UNet forwards, student backwards) the ESD step runs for ``metrics``'
+    draws, counted from train/esd.py: a warm-up of tₖ forwards (fused
+    samples and share_warmup: one call per step to max(tₖ)), one teacher
+    and one student call (fuse_teacher_student: one call for both), the
+    student's forward again in the backward when it is checkpointed, and
+    under pipeline_warmup the warm-up drawn after the last step."""
+    forwards = 0
+    for m in metrics:
+        t = m["timesteps_to"]
+        if isinstance(t, list):
+            forwards += max(t) + 2
+        else:
+            forwards += t + (1 if cfg.tpu.fuse_teacher_student else 2)
+        forwards += int(remat)
+    if cfg.tpu.pipeline_warmup:
+        forwards += metrics[-1]["next_timesteps_to"]
+    return forwards, len(metrics)
+
+
+def phase_knob(tmp: Path, what: str, yaml_name: str, iterations: int = KNOB_ITERATIONS, tpu=None, train=None,
+               resolution=None, prompt_edit=None) -> dict:
+    """One trainer knob at full width through trainer.train from
+    data/<yaml_name> (``tpu``/``train``: the config's fields to set;
+    ``resolution``/``prompt_edit``: the prompts' fields): steps/s, peak
+    memory, K1..K4c launches per step beside the count knob_forwards
+    predicts, losses and grad norms finite, the factors moved, no plain
+    attention version on the card."""
+    cfg, prompts = train_config(tmp / what, yaml_name, iterations)
+    set_tpu(cfg, **(tpu or {}))
+    for k, v in (train or {}).items():
+        setattr(cfg.train, k, v)
+    edit = dict(prompt_edit or {}, **({"resolution": resolution} if resolution else {}))
+    prompts = [dataclasses.replace(p, **edit) for p in prompts]
+    model = cfg.pretrained_model
+    unet_cfg = factory.unet_config_for(model.name_or_path, model.v2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # count this knob's path only
+    t0 = time.time()
+    res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain(what)
+    size = prompts[0].resolution
+    remat = max(size, size) > 512
+    forwards, backwards = knob_forwards(cfg, res.metrics, remat)
+    want = per_step_launches(unet_cfg, forwards, backwards)
+    summary = trained_summary(cfg, res, unet_cfg)
+    grad_norms = [r["grad_norm"] for r in res.metrics]
+    row = dict(
+        phase=what, model=model.name_or_path, image_size=size, iterations=iterations,
+        tpu={k: getattr(cfg.tpu, k) for k in (tpu or {})}, train={k: getattr(cfg.train, k) for k in (train or {})},
+        prompts={k: getattr(prompts[0], k) for k in edit}, remat_student=remat, losses=res.losses,
+        grad_norms=grad_norms, timesteps_to=[r["timesteps_to"] for r in res.metrics],
+        buckets=[(r["height"], r["width"]) for r in res.metrics if "height" in r],
+        steps_per_sec_after_first=res.steps_per_sec, first_step_seconds=res.first_step_seconds,
+        setup_seconds=res.setup_seconds, wall_seconds=wall,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        unet_forwards=forwards, student_backwards=backwards, launches_k1_to_k4c=launches,
+        expected_launches=want, launches_per_step=[n / iterations for n in launches],
+        expected_per_step=[n / iterations for n in want], **summary,
+    )
+    emit(row)
+    if not all(np.isfinite(grad_norms)):
+        raise AssertionError(f"{what}: grad norms {grad_norms}")
+    check_trained(what, res, summary, launches, want, iterations)
+    return row
+
+
+def phase_train_knobs(tmp: Path) -> dict:
+    """The JAX trainer's knobs on full-width SDXL (seeded random bf16
+    weights) from data/config-xl.yaml at 512px, KNOB_ITERATIONS steps each;
+    then one 1024px step with the student under torch.utils.checkpoint
+    beside the same step at 512px (which also writes tpu.profile_dir's
+    trace). Returns each path's launches."""
+    knobs = {
+        "knob_samples2": dict(tpu=dict(samples_per_step=2)),
+        "knob_fuse_teacher_student": dict(tpu=dict(fuse_teacher_student=True)),
+        "knob_pipeline_warmup": dict(tpu=dict(pipeline_warmup=True)),
+        "knob_share_warmup": dict(tpu=dict(samples_per_step=2, share_warmup=True)),
+        "knob_dynamic_res_crops": dict(prompt_edit=dict(dynamic_resolution=True, dynamic_crops=True)),
+        "knob_lion": dict(train=dict(optimizer="lion", lr=1e-4)),
+        "knob_prodigy_restarts": dict(train=dict(optimizer="prodigy", lr=1.0, lr_scheduler="cosine_with_restarts")),
+    }
+    rows = {what: phase_knob(tmp, what, "config-xl.yaml", **kw) for what, kw in knobs.items()}
+    rows["knob_1024_remat"] = phase_knob(tmp, "knob_1024_remat", "config-xl.yaml", iterations=1, resolution=1024)
+    trace_dir = tmp / "profile_dir"
+    rows["profile_dir"] = phase_knob(tmp, "profile_dir", "config-xl.yaml", iterations=1,
+                                     tpu=dict(profile_dir=str(trace_dir)))
+    traces = sorted(trace_dir.glob("*_trace.json"))
+    text = traces[0].read_text() if traces else ""
+    emit(dict(phase="profile_dir", files=[t.name for t in traces], trace_bytes=len(text),
+              names_k1_symbol="flash_fwd_tc_kernel" in text, names_k2_symbol="flash_bwd_dq_tc_kernel" in text))
+    if "flash_fwd_tc_kernel" not in text:
+        raise AssertionError(f"profile_dir: no trace naming K1's kernel in {trace_dir}: {traces}")
+    emit(dict(phase="knob_1024_remat", peak_gib_1024_checkpointed=rows["knob_1024_remat"]["max_memory_allocated_gib"],
+              peak_gib_512=rows["profile_dir"]["max_memory_allocated_gib"],
+              k1_per_step_1024=rows["knob_1024_remat"]["launches_per_step"][0],
+              k1_per_step_512=rows["profile_dir"]["launches_per_step"][0]))
+    return {what: row["launches_k1_to_k4c"] for what, row in rows.items()}
+
+
+class GradSpy:
+    """An optimizer that records the gradients it is handed and leaves the
+    factors as they are (the card-side parities compare steps on one state)."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, params):
+        return {"count": 0}
+
+    global_norm = staticmethod(Optimizer.global_norm)
+
+    def step(self, params, grads, state, g_norm=None):
+        self.grads = [g.detach().clone() for g in grads]
+
+
+def phase_knob_parity(tmp: Path) -> None:
+    """Three parities on full-width SDXL (bf16) at 512px, on the same draws
+    and factors: pipeline_warmup at lr 0 reproduces the unpipelined losses
+    (JAX: bit for bit; the largest gap printed); fuse_teacher_student's loss
+    and gradient within esd_step_parity's tolerance of the separate teacher
+    and student calls; the fused two-sample step within it of the mean of the
+    two one-sample steps."""
+    cfg, prompts = train_config(tmp / "knob_parity", "config-xl.yaml", 1)
+    _, tes, unet, sched = factory.load_models_xl(SDXL, weight_dtype=torch.bfloat16, device="cuda")
+    bank = esd.build_prompt_bank(prompts, lambda p: tuple(t[0] for t in factory.encode_prompts_xl(tes, [p])))
+    del tes
+    torch.cuda.empty_cache()
+    sites = lora.create_sites(unet, rank=4, alpha=1.0, train_method="full")
+    g = torch.Generator().manual_seed(12)
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.01
+    lp = {n: {k: t.to("cuda").requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+    steps_n = cfg.train.max_denoising_steps
+    schedule = sched.set_timesteps(steps_n)
+    add = torch.from_numpy(get_add_time_ids(512, 512)).to("cuda")
+
+    def make(opt, **knobs):
+        ecfg = esd.ESDConfig(max_denoising_steps=steps_n, height=512, width=512, student_overlay=True,
+                             overlay_warmup=False, **knobs)
+        return esd.make_esd_train_step(unet, sites, lp, sched, schedule, opt, ecfg, add_time_ids=add)
+
+    # (1) pipeline_warmup at lr 0 against the unpipelined steps, from one seed
+    losses = {}
+    for pipelined in (False, True):
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 0.0, 10), grad_clip_norm=0.2)
+        step = make(opt, pipeline_warmup=pipelined)
+        state = opt.init(flat_params(sites, lp))
+        rng = esd.TrainRNG(21, "cuda")
+        if pipelined:
+            step.init_carry(bank, rng)
+        losses[pipelined] = [float(step(state, bank, rng)["loss"]) for _ in range(KNOB_ITERATIONS)]
+    pipe_gap = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+
+    def loss_and_grads(step_knobs, draws):
+        spy = GradSpy()
+        m = make(spy, **step_knobs)(spy.init(None), bank, draws=draws)
+        return float(m["loss"]), spy.grads
+
+    def gap(got, want) -> dict:
+        norm = lambda gs: float(torch.linalg.vector_norm(torch.stack([x.norm() for x in gs])))  # noqa: E731
+        diff = norm([a - b for a, b in zip(got[1], want[1])])
+        return dict(loss=got[0], loss_ref=want[0], loss_abs_err=abs(got[0] - want[0]), grad_norm=norm(got[1]),
+                    grad_norm_ref=norm(want[1]), grad_diff_norm=diff,
+                    grad_norm_abs_err=abs(norm(got[1]) - norm(want[1])))
+
+    rng = esd.TrainRNG(22, "cuda")
+    one = esd.draw(rng, bank.text.shape[0], schedule, esd.ESDConfig(max_denoising_steps=steps_n), "cuda")
+    fuse = gap(loss_and_grads(dict(fuse_teacher_student=True), one), loss_and_grads({}, one))
+    two = esd.draw_fused(rng, bank.text.shape[0], schedule,
+                         esd.ESDConfig(max_denoising_steps=steps_n, samples_per_step=2), "cuda")
+    singles = [loss_and_grads({}, esd.Draws(two.pairs[s], two.timesteps_to[s], two.latents0[s:s + 1],
+                                             two.warm_noise[:two.timesteps_to[s], s:s + 1])) for s in range(2)]
+    mean = (sum(x[0] for x in singles) / 2, [(a + b) / 2 for a, b in zip(singles[0][1], singles[1][1])])
+    fused2 = gap(loss_and_grads(dict(samples_per_step=2), two), mean)
+    emit(dict(phase="knob_parity", model=SDXL, image_size=512, dtype="bfloat16", tol=1e-3,
+              pipeline_lr0_losses=losses[True], unpipelined_lr0_losses=losses[False],
+              pipeline_lr0_max_gap=pipe_gap, fuse_teacher_student=fuse, fused_two_samples=fused2,
+              two_sample_timesteps_to=two.timesteps_to, one_sample_timesteps_to=one.timesteps_to))
+    for what, r in (("fuse_teacher_student", fuse), ("fused two samples", fused2)):
+        if r["loss_abs_err"] > 1e-3 * max(1.0, abs(r["loss_ref"])) or \
+                r["grad_norm_abs_err"] > 1e-3 * max(1.0, r["grad_norm_ref"]):
+            raise AssertionError(f"knob_parity: {what} differs from the separate steps: {r}")
+    if pipe_gap > 1e-3 * max(1.0, max(abs(x) for x in losses[False])):
+        raise AssertionError(f"knob_parity: pipelined losses at lr 0 {losses[True]} vs {losses[False]}")
+    del unet
+    torch.cuda.empty_cache()
+
+
+def phase_sd_train_knobs(tmp: Path) -> dict:
+    """SD1.5 at full width from data/config.yaml (512px), 2 steps each: Lion
+    with the step schedule; SGD with the linear schedule and a value clip
+    (the trainer has no knob for it, as in JAX: the smoke hands get_optimizer
+    grad_clip_value); DAdaptAdam with samples_per_step 2. K1..K4c counted as
+    in sd_train."""
+    real = trainer.get_optimizer
+    rows = {"sd_knob_lion_step": phase_knob(tmp, "sd_knob_lion_step", "config.yaml", 2,
+                                            train=dict(optimizer="lion", lr=1e-4, lr_scheduler="step"))}
+    trainer.get_optimizer = functools.partial(real, grad_clip_value=1e-3)
+    try:
+        rows["sd_knob_sgd_linear_clip"] = phase_knob(tmp, "sd_knob_sgd_linear_clip", "config.yaml", 2,
+                                                     train=dict(optimizer="sgd", lr=1.0, lr_scheduler="linear"))
+    finally:
+        trainer.get_optimizer = real
+    rows["sd_knob_dadaptadam_samples2"] = phase_knob(tmp, "sd_knob_dadaptadam_samples2", "config.yaml", 2,
+                                                     tpu=dict(samples_per_step=2), train=dict(optimizer="dadaptadam",
+                                                                                             lr=1.0))
+    return {what: row["launches_k1_to_k4c"] for what, row in rows.items()}
+
+
+NOTRIGGER_STEPS = 5
+NOTRIGGER_LR = 1.0  # the warm-up's lr is lr·k/100 (0 … 0.04 over 5 steps): the factors move past bf16's rounding
+
+
+def phase_notrigger(tmp: Path) -> dict:
+    """cli/train_notrigger.train on the full-width SDXL towers (CLIP-L and
+    OpenCLIP bigG, bf16) from data/config-notrigger-xl.yaml: clip_index 0
+    with DoRA (the CLI's default) and 1 with LoRA, NOTRIGGER_STEPS steps
+    each; steps/s, pdist/ndist at the first and last step. Each file loads
+    through load_slider_file as its tower's part; cli/combine_loras.py
+    merges both (with an empty UNet part) into one file, which the
+    sweep_xl CLI runs at scales 0 and +1 (25 DDIM steps): at 0 the image is
+    bit-equal to the image of a slider that changes nothing (a zero UNet
+    slider), at +1 it differs. The trainer reaches no kernel."""
+    runs, files = {}, []
+    for clip_index, peft in ((0, "dora"), (1, "lora")):
+        cfg = load_config_from_yaml(str(REPO / "data" / "config-notrigger-xl.yaml"))
+        cfg.save.path = str(tmp / f"notrigger_{clip_index}")
+        cfg.train.iterations, cfg.train.lr = NOTRIGGER_STEPS, NOTRIGGER_LR
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        train_notrigger.train(cfg, positive="a person, smiling", negative="a person, frowning",
+                              clip_index=clip_index, peft_type=peft, model="SDXL", device="cuda")
+        wall = time.time() - t0
+        if any(counts()) or any(plain_calls()):
+            raise AssertionError(f"notrigger launched attention kernels {counts()} / plain {plain_calls()}")
+        lines = [json.loads(x) for x in (Path(cfg.save.path) / f"{cfg.save.name}_metrics.jsonl").read_text().splitlines()]
+        rows, sps = [x for x in lines if "step" in x], lines[-1]["steps_per_sec"]
+        files.append(Path(cfg.save.path) / f"{cfg.save.name}_{clip_index}_last.safetensors")
+        runs[clip_index] = dict(peft_type=peft, steps=len(rows), steps_per_sec_after_first=sps, wall_seconds=wall,
+                                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                pdist=(rows[0]["pdist"], rows[-1]["pdist"]), ndist=(rows[0]["ndist"], rows[-1]["ndist"]),
+                                losses=[r["loss"] for r in rows], file_keys=len(load_file(str(files[-1]))))
+        if len(rows) != NOTRIGGER_STEPS or not all(np.isfinite([r["loss"] for r in rows])):
+            raise AssertionError(f"notrigger clip_index {clip_index}: {rows}")
+    _, tes, _, _ = factory.load_models_xl(SDXL, weight_dtype=torch.bfloat16, device="cuda", with_unet=False)
+    for clip_index, path in enumerate(files):
+        parts = load_slider_file(str(path), text_encoders=[te.model for te in tes])
+        bound = [(p.index, len(p.sites), p.peft.__name__.rsplit(".", 1)[-1]) for p in parts.te_parts]
+        runs[clip_index]["loaded_parts"] = bound
+        want_sites = 4 * tes[clip_index].model.config.num_hidden_layers
+        if parts.unet is not None or bound != [(clip_index, want_sites, runs[clip_index]["peft_type"])]:
+            raise AssertionError(f"notrigger file {path.name} loaded as {bound}")
+    del tes
+    torch.cuda.empty_cache()
+    empty = tmp / "notrigger_empty_unet.safetensors"
+    save_file({}, str(empty))
+    combined = tmp / "notrigger_combined.safetensors"
+    combine_loras.combine(str(empty), str(files[0]), str(files[1]), str(combined), 1.0, 1.0, 1.0)
+    zero = tmp / "notrigger_zero_unet.safetensors"
+    make_slider(zero, UNetConfig.sdxl())
+    zsd = load_file(str(zero))
+    save_file({k: (torch.zeros_like(v) if k.endswith("lora_up.weight") else v) for k, v in zsd.items()}, str(zero))
+    steps = 25
+    imgs, launches = {}, [0] * len(KERNEL_NAMES)
+    for name, slider, scales in (("no_slider", zero, "0.0"), ("notrigger", combined, "0.0,1.0")):
+        save = tmp / f"notrigger_sweep_{name}"
+        argv = ["--model_name", str(slider), "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+                "--save_path", str(save), "--base", SDXL, "--num_samples", "1", "--till_case", "0",
+                "--ddim_steps", str(steps), "--scales=" + scales]
+        run = timed_sweep(gen_xl, argv)
+        check_no_plain(f"notrigger sweep {name}")
+        launches = [a + b for a, b in zip(launches, run["launches"])]
+        for sc in scales.split(","):
+            imgs[(name, float(sc))] = decode_png((save / slider.name / sc / "0_0.png").read_bytes())
+    at0 = np.array_equal(imgs[("notrigger", 0.0)], imgs[("no_slider", 0.0)])
+    at1 = image_gap(imgs[("notrigger", 1.0)], imgs[("no_slider", 0.0)])
+    emit(dict(phase="notrigger", model=SDXL, steps_each=NOTRIGGER_STEPS, lr=NOTRIGGER_LR, runs=runs,
+              combined_keys=len(load_file(str(combined))), sweep_steps=steps, scale0_bit_equal_to_no_slider=at0,
+              scale1_vs_no_slider=at1, sweep_launches_k1_to_k4c=launches))
+    if not at0 or at1["max_abs"] == 0:
+        raise AssertionError(f"notrigger sweep: scale 0 bit-equal {at0}, scale +1 gap {at1}")
+    return {"notrigger_sweep": launches}
+
+
 def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int, yaml_edit=None,
                       iterations: int = TRAIN_ITERATIONS, first_wh=None) -> list:
     """Full-width image-pair slider training through
@@ -2379,6 +2672,12 @@ def main() -> int:
         train_rows["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2)
         torch.cuda.empty_cache()
         paths.update({k: row["launches_k1_to_k4c"] for k, row in train_rows.items()})
+        t_knobs = time.time()
+        paths.update(phase_train_knobs(tmp))
+        phase_knob_parity(tmp)
+        paths.update(phase_sd_train_knobs(tmp))
+        paths.update(phase_notrigger(tmp))
+        emit(dict(phase="knob_phases", seconds=time.time() - t_knobs))
         paths["sd_imageslider"] = phase_image_pairs(tmp, "sd_imageslider", "config.yaml",
                                                     train_lora_scale.SD_RESOLUTION, seed=8)
         torch.cuda.empty_cache()
@@ -2405,9 +2704,12 @@ def main() -> int:
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
     # its decodes when serving
-    inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export")
-    xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider")
-    sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged")
+    inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep")
+    xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider", "knob_samples2",
+                "knob_fuse_teacher_student", "knob_pipeline_warmup", "knob_share_warmup", "knob_dynamic_res_crops",
+                "knob_lion", "knob_prodigy_restarts", "knob_1024_remat", "profile_dir")
+    sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged", "sd_knob_lion_step",
+                  "sd_knob_sgd_linear_clip", "sd_knob_dadaptadam_samples2")
     runs_on = {
         "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference,
         "K2": xl_train + sd15_train + ("sd2_train",),

@@ -11,7 +11,7 @@ parity tests derive it from the JAX key) or drawn from a
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,8 @@ def predict_noise(
         scaled = scheduler.scale_model_input(schedule, model_in, step_index)
         timestep = schedule.timesteps[step_index].item()
     else:
+        if use_cfg and isinstance(train_t, torch.Tensor) and train_t.ndim >= 1:
+            train_t = train_t.repeat(2)  # per-row timesteps double with the CFG rows
         scaled = scheduler.scale_model_input_train_t(schedule, model_in, train_t)
         timestep = train_t
     eps = unet(scaled, timestep, text_embeddings, added_cond_kwargs=added_cond_kwargs)
@@ -110,6 +112,72 @@ def denoise_partial(
             schedule, eps, i, latents, state, noise=None if noise is None else noise[i], generator=generator
         )
     return latents
+
+
+def denoise_partial_per_row(
+    unet: UNetCall,
+    scheduler: NoiseScheduler,
+    schedule: Schedule,
+    latents: torch.Tensor,  # [S, C, H, W]: independent samples as rows
+    text_embeddings: torch.Tensor,
+    *,
+    total_steps: Sequence[int],  # per-row trip counts
+    guidance_scale: float = 1.0,
+    added_cond_kwargs: Optional[dict] = None,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """Like :func:`denoise_partial`, but row s denoises its own
+    ``total_steps[s]`` steps inside one loop to ``max(total_steps)``: every
+    step runs all rows in one call and a finished row keeps its latent (and
+    its LMS history) — the fused-sample warm-up of ``samples_per_step``.
+    ``noise`` is ``[max(total_steps), *latents.shape]``."""
+    state = scheduler.init_step_state(latents.shape, device=latents.device)
+    n = max(total_steps)
+    active = torch.tensor([[i < t for t in total_steps] for i in range(n)], device=latents.device)
+    row = (len(total_steps),) + (1,) * (latents.ndim - 1)
+    for i in range(n):
+        eps = predict_noise(
+            unet, scheduler, schedule, latents, text_embeddings,
+            step_index=i, guidance_scale=guidance_scale, added_cond_kwargs=added_cond_kwargs,
+        )
+        new_lat, new_state = scheduler.step(schedule, eps, i, latents, state, noise=noise[i])
+        mask = active[i].reshape(row)
+        latents = torch.where(mask, new_lat, latents)
+        if new_state is not state:  # LMS: the derivative history, [order, S, ...]
+            state = type(state)(torch.where(mask[None], new_state.derivatives, state.derivatives))
+    return latents
+
+
+def denoise_shared_snapshots(
+    unet: UNetCall,
+    scheduler: NoiseScheduler,
+    schedule: Schedule,
+    latents: torch.Tensor,  # [1, C, H, W]: one shared chain
+    text_embeddings: torch.Tensor,  # [1 or 2, S, D]
+    *,
+    total_steps: Sequence[int],  # per-row snapshot depths, each ≥ 1
+    guidance_scale: float = 1.0,
+    added_cond_kwargs: Optional[dict] = None,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """The shared-prefix warm-up (``tpu.share_warmup``): one batch-1 chain
+    to ``max(total_steps)``; row s of the ``[len(total_steps), ...]`` result
+    is the chain after ``total_steps[s]`` steps. The samples' warm-ups are
+    snapshots of one trajectory (one initial latent, one noise draw per
+    step), not independent chains — the JAX package's documented deviation.
+    ``noise`` is ``[max(total_steps), 1, ...]``."""
+    state = scheduler.init_step_state(latents.shape, device=latents.device)
+    snaps: List[Optional[torch.Tensor]] = [None] * len(total_steps)
+    for i in range(max(total_steps)):
+        eps = predict_noise(
+            unet, scheduler, schedule, latents, text_embeddings,
+            step_index=i, guidance_scale=guidance_scale, added_cond_kwargs=added_cond_kwargs,
+        )
+        latents, state = scheduler.step(schedule, eps, i, latents, state, noise=noise[i])
+        for s, t in enumerate(total_steps):
+            if t == i + 1:
+                snaps[s] = latents
+    return torch.cat(snaps)
 
 
 def current_train_timestep(timesteps_to: int, max_denoising_steps: int, num_train_timesteps: int = 1000) -> int:
@@ -152,3 +220,18 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
     std_cfg = noise_cfg.std(dim=dims, keepdim=True, unbiased=False)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
+
+
+def dynamic_resolution_buckets(bucket_resolution: int = 512, step: int = 64) -> List[Tuple[int, int]]:
+    """The JAX package's fixed ≤4-shape quantisation of the reference's
+    per-iteration resolution range [r/2, r) in 64px steps: the two scale
+    extremes and both aspect orientations (deduplicated, in order)."""
+    r = bucket_resolution
+    lo = max(step, (r // 2 // step) * step)
+    hi = max(lo, ((r - step) // step) * step)
+    mid = max(lo, ((lo + hi) // 2 // step) * step)
+    out: List[Tuple[int, int]] = []
+    for b in [(lo, lo), (hi, mid), (mid, hi), (hi, hi)]:
+        if b not in out:
+            out.append(b)
+    return out

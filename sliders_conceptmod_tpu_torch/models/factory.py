@@ -266,11 +266,13 @@ def load_models_xl(
     weight_dtype: torch.dtype = torch.float32,
     with_vae: bool = False,
     device: str = "cuda",
+    with_unet: bool = True,
 ):
     """SDXL: ([tok1, tok2], [te1, te2], unet, scheduler[, vae]) from a
     diffusers directory, an SGM single file or a weightless family name; te2
     pads with id 0. Module i of a weightless (te1, te2, unet, vae) is
-    initialised from seed i."""
+    initialised from seed i. ``with_unet=False`` leaves the UNet unloaded
+    (None): the text-encoder trainer needs only the towers."""
     device = _check_target(name_or_path, device)
     scheduler = create_noise_scheduler(scheduler_name)
     tiny_cfgs = (CLIPTextConfig.tiny(hidden_size=16), CLIPTextConfig.tiny(hidden_size=16, projection_dim=32))
@@ -290,7 +292,7 @@ def load_models_xl(
                                                    weight_dtype, f"{path} {comp}"), tok)
                for c, comp, tok in zip(te_cfgs, ("text_encoder", "text_encoder_2"), toks)]
         unet = module_from_state(lambda: UNet2DConditionModel(unet_cfg), trees["unet"], device, weight_dtype,
-                                 f"{path} unet")
+                                 f"{path} unet") if with_unet else None
         out = (toks, tes, unet, scheduler)
         if with_vae:
             return out + (_single_file_vae(path, trees, VAEConfig.sdxl(), device, weight_dtype),)
@@ -306,7 +308,7 @@ def load_models_xl(
     tok2 = _tokenizer(name_or_path, "tokenizer_2", pad_token_id=0)
     te1 = _text_encoder(name_or_path, "text_encoder", te1_cfg, device, weight_dtype, 0, tok1)
     te2 = _text_encoder(name_or_path, "text_encoder_2", te2_cfg, device, weight_dtype, 1, tok2)
-    unet = _unet(name_or_path, "tiny-xl" if family == "tiny-xl" else "sdxl", device, weight_dtype, 2)
+    unet = _unet(name_or_path, "tiny-xl" if family == "tiny-xl" else "sdxl", device, weight_dtype, 2) if with_unet else None
     out = ([tok1, tok2], [te1, te2], unet, scheduler)
     if with_vae:
         # both weightless families decode with the full SDXL VAE, as the JAX factory's do

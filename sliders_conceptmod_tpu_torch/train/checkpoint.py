@@ -29,7 +29,7 @@ def _cpu(tree):
 
 def save(path: str, lora_params: LoRAParams, opt_state: dict, step: int, rng) -> None:
     payload = {"lora_params": _cpu(lora_params), "opt_state": _cpu(opt_state), "step": int(step),
-               "rng": rng.get_state()}
+               "rng": None if rng is None else rng.get_state()}
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -40,20 +40,39 @@ def save_resume(save_dir, name: str, lora_params: LoRAParams, opt_state: dict, n
     save(os.path.join(str(save_dir), f"{name}_resume.pt"), lora_params, opt_state, next_step, rng)
 
 
+def _copy_into(live, saved, where: str):
+    """``saved`` (from :func:`_cpu`) into ``live``: tensors copied in place on
+    their devices, lists and dicts entry by entry, host numbers returned."""
+    if isinstance(live, torch.Tensor):
+        live.copy_(saved)
+        return live
+    if isinstance(live, (list, tuple)):
+        if len(live) != len(saved):
+            raise ValueError(f"resume checkpoint: {where} holds {len(saved)} entries, this run {len(live)}")
+        return type(live)(_copy_into(a, b, f"{where}[{i}]") for i, (a, b) in enumerate(zip(live, saved)))
+    if isinstance(live, dict):
+        if set(live) != set(saved):
+            raise ValueError(f"resume checkpoint: {where} keys {sorted(saved)} != this run's {sorted(live)} "
+                             "(another optimizer?)")
+        for k in live:
+            live[k] = _copy_into(live[k], saved[k], f"{where}.{k}")
+        return live
+    return saved
+
+
 @torch.no_grad()
 def restore(path: str, lora_params: LoRAParams, opt_state: dict, rng) -> int:
-    """Load a resume checkpoint into the given factors, optimizer state and
-    generators (in place, on their devices); returns the step to start at."""
+    """Load a resume checkpoint into the given factors, optimizer state (any
+    optimizer of ``train/optim.py``: its tensors, lists of tensors and host
+    scalars) and generators (in place, on their devices); returns the step
+    to start at."""
     payload = torch.load(path, map_location="cpu", weights_only=False)
     for name, leaf in lora_params.items():
         for k, t in leaf.items():
             t.copy_(payload["lora_params"][name][k])
-    saved = payload["opt_state"]
-    for key in ("mu", "nu"):
-        for t, s in zip(opt_state[key], saved[key]):
-            t.copy_(s)
-    opt_state["count"] = int(saved["count"])
-    rng.set_state(payload["rng"])
+    _copy_into(opt_state, payload["opt_state"], "opt_state")
+    if rng is not None:
+        rng.set_state(payload["rng"])
     return int(payload["step"])
 
 

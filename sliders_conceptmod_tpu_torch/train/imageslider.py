@@ -51,7 +51,7 @@ from sliders_conceptmod_tpu_torch.io.png import decode_png
 from sliders_conceptmod_tpu_torch.io.resample import resize_like_pil
 from sliders_conceptmod_tpu_torch.models.vae import sample_latents
 from sliders_conceptmod_tpu_torch.train.esd import TrainRNG, merged_call, raise_if_nonfinite
-from sliders_conceptmod_tpu_torch.train.optim import AdamW, flat_params
+from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp")
 
@@ -156,7 +156,7 @@ def make_image_slider_step(
     lora_params: LoRAParams,
     scheduler: NoiseScheduler,
     schedule: Schedule,
-    optimizer: AdamW,
+    optimizer: Optimizer,
     cfg: ImageSliderConfig,
     positive_emb: torch.Tensor,  # [S, D]
     neutral_emb: torch.Tensor,

@@ -16,11 +16,32 @@ import atexit
 import json
 import time
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from sliders_conceptmod_tpu_torch.diffusion.sampling import dynamic_resolution_buckets
+
 FLUSH_EVERY = 64  # buffered steps per device-to-host read
+
+
+def resolution_bucket_picker(dynamic: bool, resolution: int,
+                             seed: int) -> Tuple[List[Tuple[int, int]], Optional[Callable[[int], int]]]:
+    """``(buckets, pick)`` for dynamic-resolution training, as the JAX
+    package has it: the buckets of ``dynamic_resolution_buckets`` and
+    ``pick(i)``, the bucket of iteration i from
+    ``np.random.default_rng((seed, i))`` (so the port's sequence is JAX's,
+    and a resumed run replays it). ``dynamic=False``: the one square
+    bucket and no picker."""
+    if not dynamic:
+        return [(resolution, resolution)], None
+    buckets = dynamic_resolution_buckets(resolution)
+
+    def pick(step_i: int) -> int:
+        return int(np.random.default_rng((seed, step_i)).integers(len(buckets)))
+
+    return buckets, pick
 
 
 def steps_per_sec(n_steps: int, seconds: float) -> float:
@@ -79,6 +100,11 @@ class MetricsLogger:
             self._f.write(json.dumps(row) + "\n")
             if self.verbose:
                 print(f"step {step} loss*1k {row['loss'] * 1000:.4f}")
+
+    def current_loss(self) -> Optional[float]:
+        """The latest loss as a float: flushes the buffer (a device read)."""
+        self.flush()
+        return self.losses[-1] if self.losses else None
 
     def _flush_safe(self) -> None:
         if not self._f.closed:

@@ -24,17 +24,28 @@ factors). The slider's route resolves as in JAX
 (``core/config.py::resolve_student_overlay`` with ``default_overlay`` =
 LoRA): an unset ``tpu:`` block over LoRA is the overlay student with the
 merged warm-up; DoRA and ``tpu.student_overlay: false`` merge the student
-too. Knobs of the JAX trainer that this port does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+too. Every optimizer and schedule of the JAX package trains
+(``train/optim.py``).
+
+The JAX trainer's ``tpu:`` knobs: ``samples_per_step``,
+``fuse_teacher_student``, ``pipeline_warmup`` and ``share_warmup`` go to the
+ESD step (``train/esd.py``, with JAX's refusals of invalid combinations);
+``dynamic_resolution`` builds one step per resolution bucket and picks one
+per iteration (``loop_utils.resolution_bucket_picker``); ``dynamic_crops``
+(XL) redraws the crop conditioning per iteration; ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of the loop. Above 512px the student runs
+under ``torch.utils.checkpoint``. The int8 base and meshes are not ported
+yet: they raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import torch
 
@@ -47,10 +58,11 @@ from sliders_conceptmod_tpu_torch.core.config import (
     resolve_student_overlay,
 )
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
+from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd
-from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
+from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 
 _QUEUE1 = "ROADMAP.md queue 1"
@@ -68,21 +80,30 @@ def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type
     tpu = config.tpu
     if peft_type not in ("lora", "dora"):
         raise ValueError(f"peft_type must be 'lora' or 'dora', got {peft_type!r}")
-    if tpu.samples_per_step > 1:
-        raise NotImplementedError(f"tpu.samples_per_step > 1 is not ported yet ({_QUEUE1}, ESD knobs)")
-    for knob in ("pipeline_warmup", "share_warmup", "fuse_teacher_student"):
-        if getattr(tpu, knob):
-            raise NotImplementedError(f"tpu.{knob} is not ported yet ({_QUEUE1}, ESD knobs)")
     if tpu.quantize_base or tpu.w8a8_warmup:
         raise NotImplementedError(f"tpu.quantize_base / tpu.w8a8_warmup are not ported yet ({_QUEUE1}, int8 / W8A8)")
     if tpu.mesh_model != 1 or tpu.mesh_data not in (-1, 1) or (tpu.num_processes or 1) > 1 or tpu.sequence_parallel:
         raise NotImplementedError(f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, parallelism)")
-    if tpu.profile_dir:
-        raise NotImplementedError(f"tpu.profile_dir (a trace of the run) is not ported yet ({_QUEUE1})")
-    if any(p.dynamic_resolution for p in prompts):
-        raise NotImplementedError(f"dynamic_resolution is not ported yet ({_QUEUE1}, ESD knobs)")
-    if any(p.dynamic_crops for p in prompts):
-        raise NotImplementedError(f"dynamic_crops is not ported yet ({_QUEUE1}, ESD knobs)")
+
+
+@contextmanager
+def profiled(profile_dir: Optional[str], name: str, device: torch.device) -> Iterator[None]:
+    """``tpu.profile_dir``: ``torch.profiler`` (CPU, and CUDA on the card)
+    around the block — the training loop, as JAX's ``start_trace`` /
+    ``stop_trace`` frame it — written as a Chrome trace
+    ``{profile_dir}/{name}_trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(profile_dir) / f"{name}_trace.json"))
 
 
 @dataclass
@@ -167,22 +188,43 @@ def train(
 
     resolution = _uniform_field(prompts, "resolution")
     batch_size = _uniform_field(prompts, "batch_size")
+    dynamic_crops = _uniform_field(prompts, "dynamic_crops")
+    dynamic_resolution = _uniform_field(prompts, "dynamic_resolution")
+    if tpu_cfg.pipeline_warmup and dynamic_resolution:
+        raise ValueError("tpu.pipeline_warmup carries the warm-up state across steps at one fixed shape — "
+                         "incompatible with dynamic_resolution buckets")
     schedule = scheduler.set_timesteps(config.train.max_denoising_steps)
-    ecfg = esd.ESDConfig(
-        max_denoising_steps=config.train.max_denoising_steps,
-        train_cfg_scale=config.train.cfg,
-        batch_size=batch_size,
-        height=resolution,
-        width=resolution,
-        student_overlay=student_overlay,
-        overlay_warmup=overlay_warmup,
-    )
-    step_fn = esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
-                                      add_time_ids=models.add_time_ids(resolution, device),
-                                      merge_fn=peft_mod.merge_lora_params, debug_nans=tpu_cfg.debug_nans)
+
+    def build_step(height: int, width: int) -> esd.ESDStep:
+        ecfg = esd.ESDConfig(
+            max_denoising_steps=config.train.max_denoising_steps,
+            train_cfg_scale=config.train.cfg,
+            batch_size=batch_size,
+            height=height,
+            width=width,
+            student_overlay=student_overlay,
+            overlay_warmup=overlay_warmup,
+            samples_per_step=max(tpu_cfg.samples_per_step, 1),
+            fuse_teacher_student=tpu_cfg.fuse_teacher_student,
+            dynamic_crops=bool(dynamic_crops) and is_xl,
+            pipeline_warmup=tpu_cfg.pipeline_warmup,
+            share_warmup=tpu_cfg.share_warmup,
+            # the student under torch.utils.checkpoint above 512px, as the JAX trainer sets remat_unet
+        )
+        add_time_ids = torch.from_numpy(get_add_time_ids(height, width)).to(device) if is_xl else None
+        return esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
+                                       add_time_ids=add_time_ids, merge_fn=peft_mod.merge_lora_params,
+                                       debug_nans=tpu_cfg.debug_nans)
+
+    # one step per resolution bucket, a bucket per iteration (dynamic_resolution)
+    buckets, pick_bucket = resolution_bucket_picker(dynamic_resolution, resolution, tpu_cfg.seed)
+    step_fns = [build_step(h, w) for h, w in buckets]
     opt_state = optimizer.init(flat_params(sites, lora_params))
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
+    if tpu_cfg.pipeline_warmup:
+        # a resumed run re-draws the carry (it is not checkpointed), as the JAX trainer does
+        step_fns[0].init_carry(bank, rng)
 
     save_path.mkdir(parents=True, exist_ok=True)
     logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
@@ -193,27 +235,31 @@ def train(
     # --- loop -------------------------------------------------------------
     t_loop = time.time()
     first_step_seconds = float("nan")
-    for i in range(start_step, iterations):
-        try:
-            metrics = step_fn(opt_state, bank, rng)
-        except FloatingPointError as e:  # tpu.debug_nans: stop at the first non-finite step, as JAX does
-            raise FloatingPointError(f"step {i}: {e}") from None
-        logger.log(i, metrics)  # waits for the first step to finish on the device
-        if i == start_step:
-            first_step_seconds = time.time() - t_loop
-        if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
-            peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
-                                  dtype=save_dtype, metadata=metadata)
-            ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
-        if on_step_complete is not None:
-            on_step_complete(i)
+    with profiled(tpu_cfg.profile_dir, config.save.name, device):
+        for i in range(start_step, iterations):
+            bi = pick_bucket(i) if pick_bucket is not None else 0
+            try:
+                metrics = step_fns[bi](opt_state, bank, rng)
+            except FloatingPointError as e:  # tpu.debug_nans: stop at the first non-finite step, as JAX does
+                raise FloatingPointError(f"step {i}: {e}") from None
+            if pick_bucket is not None:
+                metrics = dict(metrics, height=buckets[bi][0], width=buckets[bi][1])
+            logger.log(i, metrics)  # waits for the first step to finish on the device
+            if i == start_step:
+                first_step_seconds = time.time() - t_loop
+            if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
+                peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
+                                      dtype=save_dtype, metadata=metadata)
+                ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
+            if on_step_complete is not None:
+                on_step_complete(i)
+        sps = logger.close()
 
-    sps = logger.close()
     if save_file:
         peft_mod.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
                               dtype=save_dtype, metadata=metadata)
     return TrainResult(
         sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps, metrics=logger.rows,
         setup_seconds=t_loop - t_entry, first_step_seconds=first_step_seconds,
-        next_step=lambda: step_fn(opt_state, bank, rng),
+        next_step=lambda: step_fns[0](opt_state, bank, rng),
     )

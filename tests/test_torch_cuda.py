@@ -845,3 +845,119 @@ def test_merged_two_tower_encode_on_the_card_matches_the_cpu(gen, tmp_path):
     for scale in (-2.0, 1.5):
         for got, want in zip(out["cuda", scale], out["cpu", scale]):
             torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+def test_prodigy_step_on_the_card_matches_the_cpu(gen):
+    """Three Prodigy steps (device-scalar d-estimates, a norm and a value
+    clip) on the card against the CPU, fp32."""
+    from sliders_conceptmod_tpu_torch.train import optim
+
+    g = torch.Generator().manual_seed(4)
+    init = [torch.randn(s, generator=g) for s in ((64, 320), (320, 64), (7,))]
+    grads = [[torch.randn(p.shape, generator=g) * sc for p in init] for sc in (0.1, 2.0, 0.5)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        opt = optim.get_optimizer("prodigy", optim.get_lr_schedule("cosine_with_restarts", 1.0, 30),
+                                  "use_bias_correction=true d0=0.01", grad_clip_norm=1.0, grad_clip_value=0.05)
+        params = [p.clone().to(device) for p in init]
+        state = opt.init(params)
+        for gs in grads:
+            opt.step(params, [x.to(device) for x in gs], state)
+        assert state["d"].device.type == device
+        out[device] = ([p.cpu() for p in params], float(state["d"]))
+    for got, want in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
+
+
+def _tiny_xl_esd(device, knobs):
+    """A tiny-xl ESD step (seeded weights, factors with non-zero ups) on
+    ``device`` with ESD knobs, its state and the prompt bank."""
+    import copy
+
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
+    from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.train import esd, optim
+
+    _, tes, unet, sched = factory.load_models_xl("tiny-xl", device="cpu")
+    settings = [PromptSettings.from_dict(dict(target="person", positive="person, smiling", neutral="person",
+                                              unconditional="person", action="enhance", resolution=64))]
+    bank = esd.build_prompt_bank(settings, lambda p: tuple(t[0] for t in factory.encode_prompts_xl(tes, [p])))
+    bank = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign, bank.pooled.to(device))
+    sites = lora.create_sites(unet, rank=2, train_method="full")
+    g = torch.Generator().manual_seed(5)
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+    lp = {n: {k: t.to(device).requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+    opt = optim.get_optimizer("adamw", optim.get_lr_schedule("constant", 1e-2, 10), grad_clip_norm=0.2)
+    step = esd.make_esd_train_step(copy.deepcopy(unet).to(device), sites, lp, sched, sched.set_timesteps(3), opt,
+                                   esd.ESDConfig(max_denoising_steps=3, height=64, width=64, **knobs),
+                                   add_time_ids=torch.from_numpy(get_add_time_ids(64, 64)).to(device))
+    return step, opt.init(optim.flat_params(sites, lp)), bank, lp, sched.set_timesteps(3)
+
+
+def test_fused_two_sample_step_on_the_card_matches_the_cpu(gen):
+    """samples_per_step 2 on the row axis (with dynamic crops): the card's
+    fp32 step (K1/K2/K3 inside) against the CPU's on the same draws."""
+    from sliders_conceptmod_tpu_torch.train import esd
+
+    g = torch.Generator().manual_seed(6)
+    draws = esd.FusedDraws([0, 0], [2, 1], torch.randn((2, 4, 8, 8), generator=g) * 14.6,
+                           torch.randn((2, 2, 4, 8, 8), generator=g),
+                           torch.from_numpy(esd.draw_time_ids(0.3, 0.6, 0.1, 64, 64).repeat(2, 0)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        step, state, bank, lp, _ = _tiny_xl_esd(device, dict(samples_per_step=2, dynamic_crops=True))
+        d = esd.FusedDraws(draws.pairs, draws.timesteps_to, draws.latents0.to(device), draws.warm_noise.to(device),
+                           draws.time_ids.to(device))
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            m = step(state, bank, draws=d)
+        out[device] = (float(m["loss"]), [t.detach().cpu() for leaf in lp.values() for t in leaf.values()])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * max(1.0, abs(out["cpu"][0]))
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+def test_notrigger_step_on_the_card_matches_the_cpu(gen):
+    """Two notrigger steps (both signs, DoRA, tower 1) on the card against the
+    CPU, fp32: metrics and factors."""
+    import copy
+
+    import numpy as np
+
+    from sliders_conceptmod_tpu_torch.adapters import dora
+    from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.train import notrigger as nt
+    from sliders_conceptmod_tpu_torch.train import optim
+
+    _, towers, _, _ = factory.load_models_xl("tiny-xl", device="cpu", with_unet=False)
+    te = towers[1]
+    ids = {p: torch.from_numpy(te.tokenizer([p]).astype(np.int64)) for p in ("", "smiling", "frowning")}
+    out = {}
+    for device in ("cpu", "cuda"):
+        enc = copy.deepcopy(te.model).to(device)
+        sites = dora.create_sites(enc, rank=2, target_replace=nt.CLIP_TARGET_REPLACE, prefix="lora_te2",
+                                  train_method="full", name_path_prefix=CLIP_NAME_PATH_PREFIX)
+        lp = dora.init_lora_params(sites, enc, generator=torch.Generator().manual_seed(7))
+        for leaf in lp.values():
+            leaf["up"] = leaf["up"] + 0.1
+        lp = {n: {k: t.to(device).requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        x = {p: v.to(device) for p, v in ids.items()}
+        with torch.no_grad():
+            pos, neg, neu = (enc(x[p]).hidden_states[-1] for p in ("smiling", "frowning", ""))
+        opt = optim.get_optimizer("sgd", optim.get_lr_schedule("constant_with_warmup", 10.0, 10), grad_clip_value=1.0)
+        d1, d2 = nt.initial_distances(enc, sites, lp, x[""], pos, neg, merge_fn=dora.merge_lora_params)
+        step = nt.make_notrigger_step(enc, sites, lp, opt, nt.NoTriggerConfig(), x[""], pos, neg, neu, d1, d2,
+                                      merge_fn=dora.merge_lora_params)
+        state = opt.init(optim.flat_params(sites, lp))
+        ms = [{k: float(v) for k, v in step(state).items()} for _ in range(2)]
+        out[device] = (ms, [t.detach().cpu() for leaf in lp.values() for t in leaf.values()])
+    for mg, mw in zip(out["cuda"][0], out["cpu"][0]):
+        for k in mw:
+            assert abs(mg[k] - mw[k]) <= 2e-4 * max(1.0, abs(mw[k])), k
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=0)

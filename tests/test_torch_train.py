@@ -161,8 +161,14 @@ def test_adamw_clip_and_schedule_match_optax(sched):
 
 
 def test_unported_optimizers_raise():
-    for name in ("lion", "sgd", "prodigy"):
-        with pytest.raises(NotImplementedError):
+    """Every optimizer JAX's get_optimizer takes is ported (its parity:
+    tests/test_torch_optim.py); the names JAX refuses raise its ValueError."""
+    for name in ("lion", "sgd", "prodigy", "dadaptadam", "dadaptlion"):
+        assert isinstance(toptim.get_optimizer(name, toptim.get_lr_schedule("constant", 1e-3, 10)), toptim.Optimizer)
+    for name in ("dadaptsgd", "rmsprop"):
+        with pytest.raises(ValueError):
+            joptim.get_optimizer(name, joptim.get_lr_schedule("constant", 1e-3, 10))
+        with pytest.raises(ValueError):
             toptim.get_optimizer(name, toptim.get_lr_schedule("constant", 1e-3, 10))
 
 
@@ -380,16 +386,42 @@ def test_debug_nans_raises_at_the_first_non_finite_step(slice_setup, tmp_path, m
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """The int8 base and meshes are refused (not ported); the ESD knobs train
+    (tests/test_torch_esd_knobs.py), and the JAX trainer's ValueErrors for
+    their invalid combinations come across."""
     prompts = tprompts.load_prompts_from_yaml(os.path.join(REPO, "data", "prompts-tiny.yaml"))
-    for knob in ("pipeline_warmup", "share_warmup", "fuse_teacher_student", "quantize_base", "w8a8_warmup"):
+    for knob in ("quantize_base", "w8a8_warmup"):
         cfg = _tiny_config(tmp_path)
         setattr(cfg.tpu, knob, True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.train(cfg, prompts, device="cpu")
+    for knobs in (dict(mesh_model=2), dict(mesh_data=4), dict(num_processes=2), dict(sequence_parallel=True)):
+        cfg = _tiny_config(tmp_path)
+        for k, v in knobs.items():
+            setattr(cfg.tpu, k, v)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttrainer.train(cfg, prompts, device="cpu")
+    for knobs, match in ((dict(share_warmup=True), "share_warmup needs"),
+                         (dict(pipeline_warmup=True, samples_per_step=2), "pipeline_warmup supports"),
+                         (dict(fuse_teacher_student=True, samples_per_step=2), "fuse_teacher_student supports")):
+        cfg = _tiny_config(tmp_path)
+        for k, v in knobs.items():
+            setattr(cfg.tpu, k, v)
+        with pytest.raises(ValueError, match=match):
+            ttrainer.train(cfg, prompts, device="cpu")
     cfg = _tiny_config(tmp_path)
-    cfg.tpu.samples_per_step = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.tpu.fuse_teacher_student, cfg.train.cfg = True, 2.0
+    with pytest.raises(ValueError, match="guidance == 1"):
         ttrainer.train(cfg, prompts, device="cpu")
+    cfg = _tiny_config(tmp_path)
+    cfg.tpu.fuse_teacher_student = True
+    with pytest.raises(ValueError, match="LoRA overlay only"):
+        ttrainer.train(cfg, prompts, peft_type="dora", device="cpu")
+    cfg = _tiny_config(tmp_path)
+    cfg.tpu.pipeline_warmup = True
+    dyn = [dataclasses.replace(p, dynamic_resolution=True) for p in prompts]
+    with pytest.raises(ValueError, match="dynamic_resolution"):
+        ttrainer.train(cfg, dyn, device="cpu")
     # the merged routes train since they were ported; the JAX trainer's refusals of them stay
     cfg = _tiny_config(tmp_path)
     cfg.tpu.student_overlay, cfg.tpu.overlay_warmup = False, True
