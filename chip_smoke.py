@@ -199,6 +199,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   directory's model with those weights (K1 1000, K4a 601);
                   write and reload seconds, and the gap to the sweeps' bf16
                   merge.
+22c. quant      — the SDXL UNet (seeded random bf16) quantized in place on
+                  the card (adapters/quant.py): 743 QuantLinears, the UNet's
+                  bytes before and after (torch.cuda.memory_allocated), the
+                  seconds; int8_matmul at three SDXL shapes (the 2-row
+                  time_embedding padded for torch._int_mm among them) equal
+                  to the CPU's int32 product; the weight-only QuantLinear
+                  against F.linear of its dequantized weight in bf16; device
+                  ms and host µs per call of nn.Linear, weight-only and W8A8.
+22d. train_int8 — SDXL ESD (data/config-xl.yaml) 3 steps each on bf16,
+                  tpu.quantize_base, the dual-tree tpu.w8a8_warmup, and both;
+                  SD1.5 ESD on bf16 and quantize_base, 2 steps: steps/s on the
+                  same timesteps_to draws, peak, K1..K4c per step equal to the
+                  bf16 route's count, finite losses, moved factors.
+22e. serve_int8 — one SDXL 1024px request (seed 7, scale 2) twice through
+                  SliderService with quantize_base and with w8a8: latency,
+                  peak, UNet bytes, the pixel gap to the bf16 image.
+22f. quantize_checkpoint — cli/quantize_checkpoint on the SD1.5 directory:
+                  artifact bytes and seconds; one UNet forward from the
+                  artifact bit-equal to load_models(dir, quantize_base=True)'s.
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
@@ -214,6 +233,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import gc
+import itertools
 import json
 import re
 import subprocess
@@ -231,9 +252,9 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from sliders_conceptmod_tpu_torch.adapters import dora, lora
+from sliders_conceptmod_tpu_torch.adapters import dora, lora, quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
-from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file
+from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file, quantize_checkpoint
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
 from sliders_conceptmod_tpu_torch.cli import train_lora_scale, train_notrigger
@@ -2590,6 +2611,204 @@ def phase_sweep_sd1(tmp: Path, sd_dir: Path) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the int8 / W8A8 frozen base
+# ---------------------------------------------------------------------------
+
+# (rows, in, out) of int8_matmul's exact check: SDXL's time_embedding.linear_1
+# with CFG (2 rows, padded for torch._int_mm), a 1024px level-1 to_q with CFG,
+# a level-2 feed-forward net_2 at 1024px with CFG
+INT8_SHAPES = [(2, 320, 1280), (2 * 4096, 640, 640), (2 * 1024, 5120, 1280)]
+INT8_REQUEST = ("a photo of a person", 2.0, 7, 7.5)  # the serve phase's second solo request
+
+
+def phase_quant() -> dict:
+    """The SDXL UNet (seeded random bf16) quantized in place on the card:
+    QuantLinear count, bytes before and after (torch.cuda.memory_allocated),
+    seconds; int8_matmul at INT8_SHAPES against the CPU's int32 product
+    (exact); the weight-only QuantLinear against F.linear of its dequantized
+    weight in bf16; device ms and host µs per call of nn.Linear and of the
+    QuantLinear weight-only and W8A8."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    unet = factory.build_module(lambda: UNet2DConditionModel(UNetConfig.sdxl()), "cuda", torch.bfloat16, 2)
+    torch.cuda.synchronize()
+    bf16_bytes = torch.cuda.memory_allocated() - m0
+    n_linears = sum(isinstance(m, torch.nn.Linear) for m in unet.modules())
+    # bf16 copies of two Linears for the per-call timings, left out of the int8 bytes
+    to_q, emb2 = "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q", "time_embedding.linear_2"
+    m1 = torch.cuda.memory_allocated()
+    lin, small_lin = (copy.deepcopy(unet.get_submodule(n)) for n in (to_q, emb2))
+    kept = torch.cuda.memory_allocated() - m1
+    t0 = time.time()
+    scales = quant.quantize_module(unet)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    int8_bytes = torch.cuda.memory_allocated() - m0 - kept
+    n_quant = sum(isinstance(m, quant.QuantLinear) for m in unet.modules())
+    if n_quant != len(scales) or n_quant != 743:
+        raise AssertionError(f"quant: {n_quant} QuantLinears, {len(scales)} scales; SDXL has 743 by JAX's rule")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    exact = []
+    for m, k, n in INT8_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        got = quant.int8_matmul(xq, wq)
+        want = torch._int_mm(xq.cpu(), wq.cpu().t())
+        exact.append(dict(shape=[m, k, n], equal=bool(torch.equal(got.cpu(), want)),
+                          ms=cuda_ms(lambda: quant.int8_matmul(xq, wq), 20)))
+    if not all(e["equal"] for e in exact):
+        raise AssertionError(f"quant: int8_matmul on the card is not the CPU's int32 product: {exact}")
+
+    # the codes and scales the card computes are the CPU's (the JAX package's rule), bit for bit
+    same_codes = all(torch.equal(a.cpu(), b) for m in (lin, small_lin)
+                     for a, b in zip(quant.quantize_leaf(m.weight), quant.quantize_leaf(m.weight.cpu())))
+    if not same_codes:
+        raise AssertionError("quant: quantize_leaf on the card differs from the CPU's")
+    ql = unet.get_submodule(to_q)  # 640 → 640
+    x = torch.randn((2, 4096, 640), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        got = ql(x).float()
+        ref = F.linear(x, quant.dequantize(ql.weight_q, ql.scale, torch.bfloat16)).float()
+    wo_err = float((got - ref).abs().max() / ref.abs().max())
+    if not wo_err <= 2e-2:
+        raise AssertionError(f"quant: weight-only QuantLinear vs F.linear of its dequantized weight: {wo_err}")
+    small = unet.get_submodule(emb2)  # 1280 → 1280 on the 2 CFG rows
+    x2 = torch.randn((2, 1280), generator=gen, device="cuda").to(torch.bfloat16)
+    per_call = {}
+    with torch.inference_mode():
+        for mode in ("linear", "weight_only", "w8a8"):
+            if mode != "linear":
+                quant.set_act_quant(unet, mode == "w8a8")
+            big, tiny = (lin, small_lin) if mode == "linear" else (ql, small)
+            per_call[mode] = dict(device_ms_to_q_8192x640=cuda_ms(lambda: big(x), 50),
+                                  host_us_time_embedding_2x1280=host_us(lambda: tiny(x2)))
+        quant.set_act_quant(unet, False)
+    row = dict(phase="quant", model=SDXL, weights="random, seeded, bf16", quant_linears=n_quant,
+               linears_before=n_linears, unet_bytes_bf16=bf16_bytes, unet_bytes_int8=int8_bytes,
+               int8_over_bf16=int8_bytes / bf16_bytes, quantize_seconds=quant_s, codes_equal_to_cpu=same_codes,
+               int8_matmul_exact=exact,
+               weight_only_vs_dequantized_linear_rel_err=wo_err, per_call=per_call)
+    emit(row)
+    del unet, lin, small_lin
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_int8(tmp: Path) -> dict:
+    """SDXL ESD (data/config-xl.yaml, 512px) for 3 steps on bf16 and on each
+    int8 route — quantize_base, the dual-tree w8a8_warmup, both — and SD1.5
+    ESD (data/config.yaml) for 2 steps on bf16 and quantize_base, through
+    trainer.train (phase_knob: K1..K4c per step as the bf16 route's count,
+    finite losses, moved factors); the runs of one model draw the same
+    timesteps_to, so their steps/s and peaks compare inside this call."""
+    rows = {
+        "int8_bf16_reference": phase_knob(tmp, "int8_bf16_reference", "config-xl.yaml"),
+        "int8_quantize_base": phase_knob(tmp, "int8_quantize_base", "config-xl.yaml", tpu=dict(quantize_base=True)),
+        "int8_w8a8_dual": phase_knob(tmp, "int8_w8a8_dual", "config-xl.yaml", tpu=dict(w8a8_warmup=True)),
+        "int8_both": phase_knob(tmp, "int8_both", "config-xl.yaml", tpu=dict(quantize_base=True, w8a8_warmup=True)),
+        "sd_int8_bf16_reference": phase_knob(tmp, "sd_int8_bf16_reference", "config.yaml", iterations=2),
+        "sd_int8_quantize_base": phase_knob(tmp, "sd_int8_quantize_base", "config.yaml", iterations=2,
+                                            tpu=dict(quantize_base=True)),
+    }
+    keys = ("steps_per_sec_after_first", "max_memory_allocated_gib", "first_step_seconds", "timesteps_to")
+    emit(dict(phase="train_int8", **{name: {k: row[k] for k in keys} for name, row in rows.items()}))
+    for name, ref in (("int8_quantize_base", "int8_bf16_reference"), ("sd_int8_quantize_base", "sd_int8_bf16_reference")):
+        if rows[name]["timesteps_to"] != rows[ref]["timesteps_to"]:
+            raise AssertionError(f"train_int8: {name} drew {rows[name]['timesteps_to']}, {ref} "
+                                 f"{rows[ref]['timesteps_to']}")
+    torch.cuda.empty_cache()
+    return {what: row["launches_k1_to_k4c"] for what, row in rows.items()}
+
+
+def phase_serve_int8(tmp: Path, ref_png: bytes) -> dict:
+    """One SDXL 1024px request (INT8_REQUEST, the serve slider) through
+    SliderService with quantize_base and one with w8a8, each twice (the
+    second is the steady-state latency): load seconds, latency, peak, the
+    pixel gap to the bf16 service's image of the same request, K1/K4a per
+    sampler call."""
+    path = tmp / "serve_noxattn_rank4_alpha1.safetensors"
+    ref = decode_png(ref_png)
+    k1_call, k4a_call = per_sampler_call(UNetConfig.sdxl(), STEPS)
+    out = {}
+    for mode in ("quantize_base", "w8a8"):
+        what = f"serve_int8_{mode}"
+        gc.collect()  # a closed service is held by reference cycles (its lru caches) until collected
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        svc = SliderService(SDXL, str(path), image_size=IMAGE_SIZE, steps=STEPS, device="cuda", **{mode: True})
+        load_s = time.time() - t0
+        try:
+            reset_counts()  # count this serving path only
+            secs = []
+            for _ in range(2):
+                t = time.time()
+                png = svc.generate(*INT8_REQUEST)
+                secs.append(time.time() - t)
+            launches = counts()
+            check_no_plain(what)
+            unet_bytes = sum(t.numel() * t.element_size() for t in itertools.chain(svc.unet.parameters(),
+                                                                                    svc.unet.buffers()))
+            acts = {m.act_quant for m in svc.unet.modules() if isinstance(m, quant.QuantLinear)}
+        finally:
+            svc.close()
+        del svc
+        img = decode_png(png)
+        row = dict(phase=what, model=SDXL, image_size=IMAGE_SIZE, steps=STEPS, request=INT8_REQUEST,
+                   load_seconds=load_s, seconds_first=secs[0], seconds_second=secs[1],
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, unet_bytes=unet_bytes,
+                   act_quant=sorted(acts), launches_k1_to_k4c=list(launches),
+                   gap_to_bf16_image=image_gap(img, ref))
+        emit(row)
+        if img.shape != ref.shape or acts != {mode == "w8a8"}:
+            raise AssertionError(f"{what}: image {img.shape}, act_quant {acts}")
+        if launches[0] != 2 * k1_call or launches[3] != 2 * k4a_call or any(launches[i] for i in (1, 2, 4, 5)):
+            raise AssertionError(f"{what}: launched K1..K4c {launches}, expected {2 * k1_call} K1, "
+                                 f"{2 * k4a_call} K4a")
+        out[what] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_quantize_checkpoint(tmp: Path, sd_dir: Path) -> list:
+    """cli/quantize_checkpoint on the load phase's SD1.5 directory: the
+    artifact's bytes against the directory's UNet and seconds; then one
+    UNet forward from the artifact (load_models(artifact)) against
+    load_models(dir, quantize_base=True)'s, bit for bit."""
+    out = tmp / "sd15.int8.safetensors"
+    t0 = time.time()
+    n_q = quantize_checkpoint.main(["--base", str(sd_dir), "--family", "sd1", "--out", str(out)])
+    cli_s = time.time() - t0
+    dir_bytes = sum(f.stat().st_size for f in (sd_dir / "unet").glob("*.safetensors"))
+    reset_counts()  # count this path only
+    t0 = time.time()
+    _, _, from_artifact, _ = factory.load_models(str(out), weight_dtype=torch.bfloat16, device="cuda")
+    reload_s = time.time() - t0
+    _, _, from_dir, _ = factory.load_models(str(sd_dir), weight_dtype=torch.bfloat16, device="cuda",
+                                            quantize_base=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([261.0, 761.0], device="cuda")
+    with torch.inference_mode():
+        a, b = from_artifact(x, t, ctx), from_dir(x, t, ctx)
+    launches = list(counts())
+    check_no_plain("quantize_checkpoint")
+    want = per_step_launches(UNetConfig.sd15(), 2, 0)
+    row = dict(phase="quantize_checkpoint", model=f"{SD15} (the load phase's directory)", int8_kernels=n_q,
+               artifact_bytes=out.stat().st_size, directory_unet_bytes=dir_bytes, cli_seconds=cli_s,
+               reload_seconds=reload_s, forward_bit_equal=bool(torch.equal(a, b)),
+               forward_finite=bool(torch.isfinite(a).all()), launches_k1_to_k4c=launches, expected_launches=want)
+    emit(row)
+    if n_q != 184 or not row["forward_bit_equal"] or not row["forward_finite"] or launches != want:
+        raise AssertionError(f"quantize_checkpoint: {row}")
+    del from_artifact, from_dir
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_kernel_sd_serve(gen: torch.Generator) -> tuple:
     """K1 and K4a against their plain versions at SD1.5 serving's shapes
     (512px with CFG: rows 2 for one request, 4 for a pair), bf16, on inputs
@@ -2640,9 +2859,15 @@ def main() -> int:
         tmp = Path(tmp)
         phase_imageslider_parity(tmp)
         # each serving and training phase sets every count to 0 first
+        bf16_ref = {}  # the bf16 service's image of INT8_REQUEST, for serve_int8's gap
+
+        def after_serve(svc):
+            paths["serve_sliders"] = phase_serve_sliders(tmp, svc)
+            bf16_ref["png"] = svc.generate(*INT8_REQUEST)
+
         paths["serve"] = served(tmp, "serve", lambda p: SliderService(
             SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL,
-            after=lambda svc: paths.__setitem__("serve_sliders", phase_serve_sliders(tmp, svc)))
+            after=after_serve)
         train_rows = {"train": phase_esd(tmp, "train", "config-xl.yaml")}
         torch.cuda.empty_cache()
         t_routes = time.time()
@@ -2700,16 +2925,25 @@ def main() -> int:
         t_export = time.time()
         paths["export"] = phase_export(tmp, sd_dir)
         emit(dict(phase="export_path", seconds=time.time() - t_export))
+        t_int8 = time.time()
+        phase_quant()
+        paths.update(phase_train_int8(tmp))
+        paths.update(phase_serve_int8(tmp, bf16_ref["png"]))
+        paths["quantize_checkpoint"] = phase_quantize_checkpoint(tmp, sd_dir)
+        emit(dict(phase="int8_phases", seconds=time.time() - t_int8))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
     # its decodes when serving
-    inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep")
+    inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep",
+                 "serve_int8_quantize_base", "serve_int8_w8a8", "quantize_checkpoint")
     xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider", "knob_samples2",
                 "knob_fuse_teacher_student", "knob_pipeline_warmup", "knob_share_warmup", "knob_dynamic_res_crops",
-                "knob_lion", "knob_prodigy_restarts", "knob_1024_remat", "profile_dir")
+                "knob_lion", "knob_prodigy_restarts", "knob_1024_remat", "profile_dir", "int8_bf16_reference",
+                "int8_quantize_base", "int8_w8a8_dual", "int8_both")
     sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged", "sd_knob_lion_step",
-                  "sd_knob_sgd_linear_clip", "sd_knob_dadaptadam_samples2")
+                  "sd_knob_sgd_linear_clip", "sd_knob_dadaptadam_samples2", "sd_int8_bf16_reference",
+                  "sd_int8_quantize_base")
     runs_on = {
         "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference,
         "K2": xl_train + sd15_train + ("sd2_train",),

@@ -12,7 +12,8 @@ LoRA factors are held in the torch (= checkpoint) layout: ``down`` is
 ``[r, in]`` (Linear) or ``[r, in, kh, kw]`` (Conv), ``up`` is ``[out, r]`` or
 ``[out, r, 1, 1]``.
 
-The per-row overlay (:class:`LoRAOverlay`) wraps each adapted ``nn.Linear`` /
+The per-row overlay (:class:`LoRAOverlay`) wraps each adapted ``nn.Linear``
+(or the int8 ``QuantLinear`` of ``adapters/quant.py`` in its place) /
 ``nn.Conv2d`` with a forward hook for the duration of one model call: the
 output becomes ``org(x) + row_scale·(α/r)·up(down(x))``, the rank-r path in
 fp32 and added in the output dtype, with ``row_scale`` a ``[B]`` vector — so
@@ -175,15 +176,18 @@ def create_sites(
     name_path_prefix: Sequence[str] = (),
     delimiter: str = "_",
 ) -> List[LoRASite]:
-    """Walk the model's Linear/Conv2d modules (in the JAX package's sorted
-    path order) and emit LoRA sites."""
+    """Walk the model's Linear/Conv2d modules — an int8 ``QuantLinear``
+    (``adapters/quant.py``) counts as the Linear it replaced — in the JAX
+    package's sorted path order, and emit LoRA sites."""
+    from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
+
     targets = set(target_replace)
     if "DownBlock2D" in targets or "UpBlock2D" in targets:
         targets.update(("ResnetBlock2D", "Downsample2D", "Upsample2D"))
     layers = sorted(
         (module_path(name), mod)
         for name, mod in model.named_modules()
-        if isinstance(mod, (nn.Linear, nn.Conv2d))
+        if isinstance(mod, (nn.Linear, QuantLinear, nn.Conv2d))
     )
     sites: List[LoRASite] = []
     seen = set()
@@ -198,7 +202,7 @@ def create_sites(
         if lora_name in seen:
             continue
         seen.add(lora_name)
-        if isinstance(mod, nn.Linear):
+        if not isinstance(mod, nn.Conv2d):
             sites.append(LoRASite(path, lora_name, "dense", rank, alpha, mod.in_features, mod.out_features))
         else:
             r = min(rank, mod.in_channels, mod.out_channels)  # reference conv rank clamp
@@ -411,13 +415,27 @@ def _delta_weight(site: LoRASite, leaf: Dict[str, torch.Tensor]) -> torch.Tensor
     return compose_factors(site, leaf) * site.scale
 
 
+def _refuse_quantized(mod: nn.Module, path: Sequence[str]) -> None:
+    """An int8 base cannot hold a merged delta: JAX's words."""
+    from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
+
+    if isinstance(mod, QuantLinear):
+        raise ValueError(
+            f"cannot merge LoRA into integer (quantized) kernel at "
+            f"{'/'.join(path)} — use the apply-time overlay "
+            "(student_overlay / lora_overlay) over a quantized base"
+        )
+
+
 def site_weights(model: nn.Module, sites: Sequence[LoRASite]) -> Iterator[Tuple[LoRASite, str, torch.Tensor]]:
-    """(site, parameter name, weight) of each site's module, in site order."""
+    """(site, parameter name, weight) of each site's module, in site order; a
+    quantized site raises."""
     by_path = {module_path(n): n for n, _ in model.named_modules()}
     for site in sites:
         name = by_path.get(site.module_path)
         if name is None:
             raise KeyError(f"no module at {'/'.join(site.module_path)} for {site.lora_name}")
+        _refuse_quantized(model.get_submodule(name), site.module_path)
         key = f"{name}.weight" if name else "weight"
         yield site, key, model.get_parameter(key)
 
@@ -465,7 +483,9 @@ def merged_weights(model: nn.Module, merged: Dict[str, torch.Tensor]) -> Iterato
     slots = []
     for name, tensor in merged.items():
         mod_name, _, leaf = name.rpartition(".")
-        slots.append((model.get_submodule(mod_name), leaf, tensor))
+        mod = model.get_submodule(mod_name)
+        _refuse_quantized(mod, module_path(mod_name))
+        slots.append((mod, leaf, tensor))
     originals = [mod._parameters[leaf] for mod, leaf, _ in slots]
     try:
         for mod, leaf, tensor in slots:

@@ -28,8 +28,15 @@ from the file name (the reference's sniffing). A file with text-encoder parts
 CLIP towers at each scale before the encode, the negative/uncond prompt's
 included (``adapters/slider_file.py``); a file with text-encoder parts only
 runs with no UNet sites. ``--device`` is a CUDA ordinal (default ``0``) or
-``cpu``. ``--quantize_base``, ``--w8a8`` and ``--mesh_data > 1`` exit naming
-the ROADMAP items that own them.
+``cpu``.
+
+``--quantize_base`` loads the UNet's large Linears as int8
+(``adapters/quant.py``); ``--w8a8`` also quantizes their activations per
+token (and implies ``--quantize_base``). Both need ``--batch_scales``: the
+default path merges the slider into the weights, which an int8 base cannot
+hold (JAX's rule and message). The text towers are never quantized, so
+text-encoder parts merge into them as before. ``--mesh_data > 1`` exits
+naming the ROADMAP item that owns it.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
+from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.infer.generate import (
@@ -128,9 +136,14 @@ def draw_latents(seed: int, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
 
-def refuse_unported(args) -> None:
-    if getattr(args, "quantize_base", False) or getattr(args, "w8a8", False):
-        raise SystemExit("--quantize_base / --w8a8: the int8 base is not ported yet (ROADMAP.md queue 1, item 8)")
+def check_args(args) -> None:
+    """JAX's int8 rules (``--w8a8`` implies ``--quantize_base``, which needs
+    ``--batch_scales``), then what is not ported."""
+    if getattr(args, "w8a8", False):
+        args.quantize_base = True
+    if getattr(args, "quantize_base", False) and not args.batch_scales:
+        raise SystemExit("--quantize_base requires --batch_scales (the slider "
+                         "runs via the apply-time overlay, never merged)")
     if getattr(args, "mesh_data", 1) > 1:
         raise SystemExit("--mesh_data > 1: sharded sweeps are not ported yet (ROADMAP.md queue 1, item 12)")
 
@@ -154,7 +167,7 @@ def save_composite(root: str, case_number: int, firsts) -> None:
 
 
 def run(args):
-    refuse_unported(args)
+    check_args(args)
     device = torch_device(args.device)
     rows = load_prompts_csv(args.prompts_path)
     scales = [float(s) for s in args.scales.split(",")]
@@ -164,8 +177,10 @@ def run(args):
         os.makedirs(f"{root}/{scale}", exist_ok=True)
 
     _, text_encoders, unet, scheduler, vae = factory.load_models_xl(
-        args.base, scheduler_name="ddim", weight_dtype=WEIGHT_DTYPE, with_vae=True, device=device
+        args.base, scheduler_name="ddim", weight_dtype=WEIGHT_DTYPE, with_vae=True, device=device,
+        quantize_base=args.quantize_base,
     )
+    quant.set_act_quant(unet, args.w8a8)
     parts = load_slider_file(args.model_name, [te.model for te in text_encoders])
     sites, lora_params = [], {}
     if parts.unet is not None:
@@ -255,8 +270,11 @@ def build_parser():
     parser.add_argument("--scales", type=str, default="-2,-1,0,1,2")
     parser.add_argument("--batch_scales", action="store_true",
                         help="the whole scale grid as one batched trajectory through the per-row LoRA overlay")
-    parser.add_argument("--quantize_base", action="store_true", help="not ported yet (ROADMAP.md queue 1, item 8)")
-    parser.add_argument("--w8a8", action="store_true", help="not ported yet (ROADMAP.md queue 1, item 8)")
+    parser.add_argument("--quantize_base", action="store_true",
+                        help="int8 UNet Linears (adapters/quant.py); requires --batch_scales")
+    parser.add_argument("--w8a8", action="store_true",
+                        help="per-token int8 activations on the int8 Linears, int8 x int8 matmuls "
+                             "(implies --quantize_base)")
     parser.add_argument("--mesh_data", type=int, default=1, help="> 1 is not ported yet (ROADMAP.md queue 1, item 12)")
     parser.add_argument("--device", type=str, default="0", help="CUDA ordinal, or cpu")
     return parser

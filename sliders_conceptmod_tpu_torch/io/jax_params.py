@@ -10,6 +10,12 @@ the name before it), and its leaves convert by the layer type:
 * ``scale``                           → norm ``weight``
 * ``embedding``                       → ``Embedding.weight``
 * ``bias``                            → ``bias``
+
+An int8 ``QuantLinear`` (``adapters/quant.py``) takes JAX's quantized leaves:
+an int8 ``kernel [in, out]`` → ``weight_q [out, in]`` and ``kernel_scale`` →
+``scale``; given a full-precision kernel it quantizes it (from fp32).
+:func:`to_jax_tree` is the way back: a module's state in the JAX layout.
+Leaves may be numpy arrays or torch tensors (bfloat16 included).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from sliders_conceptmod_tpu_torch.adapters.lora import module_path
+from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
 
 
 def _leaf_paths(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterable[Tuple[str, ...]]:
@@ -31,19 +38,51 @@ def _leaf_paths(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterable[Tuple[s
             yield prefix + (k,)
 
 
-def _convert(mod: nn.Module, pname: str, node: Mapping) -> Tuple[str, np.ndarray]:
-    """(JAX leaf name, array in the torch layout) for one torch parameter."""
+def _tensor(x) -> torch.Tensor:
+    """A leaf as a CPU tensor: int8 and torch tensors as they are, any other
+    array through fp32 (numpy has no bfloat16 of its own)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    a = np.asarray(x)
+    return torch.from_numpy(np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+
+
+def _convert(mod: nn.Module, pname: str, node: Mapping) -> Tuple[str, torch.Tensor]:
+    """(JAX leaf name, tensor in the torch layout) for one torch parameter."""
     if pname == "bias":
-        return "bias", np.asarray(node["bias"])
+        return "bias", _tensor(node["bias"])
     if isinstance(mod, nn.Linear):
-        return "kernel", np.asarray(node["kernel"]).T
+        return "kernel", _tensor(node["kernel"]).T
     if isinstance(mod, nn.Conv2d):
-        return "kernel", np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
+        return "kernel", _tensor(node["kernel"]).permute(3, 2, 0, 1)
     if isinstance(mod, nn.Embedding):
-        return "embedding", np.asarray(node["embedding"])
+        return "embedding", _tensor(node["embedding"])
     if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-        return "scale", np.asarray(node["scale"])
+        return "scale", _tensor(node["scale"])
     raise TypeError(f"no JAX layout rule for {type(mod).__name__}.{pname}")
+
+
+def _state(mod: nn.Module):
+    """(name, tensor) of a module's own state: its parameters, and a
+    QuantLinear's int8 codes and scales."""
+    own = list(mod.named_parameters(recurse=False))
+    if isinstance(mod, QuantLinear):
+        own = [("weight_q", mod.weight_q), ("scale", mod.scale)] + own
+    return own
+
+
+def _load_quant(mod: QuantLinear, node: Mapping, path: Tuple[str, ...]) -> List[Tuple[str, ...]]:
+    """A QuantLinear from its JAX node; the leaf paths it took."""
+    kernel = _tensor(node["kernel"]).T
+    if tuple(kernel.shape) != tuple(mod.weight_q.shape):
+        raise ValueError(f"{'/'.join(path)}: JAX kernel gives {tuple(kernel.shape)}, "
+                         f"module has {tuple(mod.weight_q.shape)}")
+    if kernel.dtype != torch.int8:
+        mod.set_weight(kernel)
+        return [path + ("kernel",)]
+    mod.weight_q.copy_(kernel)
+    mod.scale.copy_(_tensor(node["kernel_scale"]))
+    return [path + ("kernel",), path + ("kernel_scale",)]
 
 
 @torch.no_grad()
@@ -54,7 +93,7 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> List[Tuple[str, ...]]:
     module), sorted."""
     used: Set[Tuple[str, ...]] = set()
     for name, mod in module.named_modules():
-        own = list(mod.named_parameters(recurse=False))
+        own = _state(mod)
         if not own:
             continue
         path = module_path(name)
@@ -63,37 +102,59 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> List[Tuple[str, ...]]:
             if seg not in node:
                 raise KeyError(f"JAX tree has no {'/'.join(path)} (torch module {name!r})")
             node = node[seg]
+        if isinstance(mod, QuantLinear):
+            used.update(_load_quant(mod, node, path))
+            own = [(n, p) for n, p in own if n == "bias"]
         for pname, p in own:
-            leaf, arr = _convert(mod, pname, node)
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}.{pname}: JAX {leaf} gives {arr.shape}, module has {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype))
+            leaf, t = _convert(mod, pname, node)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}.{pname}: JAX {leaf} gives {tuple(t.shape)}, module has {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
             used.add(path + (leaf,))
     return sorted(set(_leaf_paths(tree)) - used)
+
+
+def _jax_leaves(mod: nn.Module):
+    """(JAX leaf name, tensor in the JAX layout) of a module's own state."""
+    for pname, t in _state(mod):
+        if pname == "bias":
+            yield "bias", t
+        elif pname == "weight_q":
+            yield "kernel", t.T
+        elif pname == "scale" and isinstance(mod, QuantLinear):
+            yield "kernel_scale", t
+        elif isinstance(mod, nn.Linear):
+            yield "kernel", t.T
+        elif isinstance(mod, nn.Conv2d):
+            yield "kernel", t.permute(2, 3, 1, 0)
+        elif isinstance(mod, nn.Embedding):
+            yield "embedding", t
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            yield "scale", t
+        else:
+            raise TypeError(f"no JAX layout rule for {type(mod).__name__}.{pname}")
 
 
 def jax_layout_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """``{"a/b/kernel": shape}`` of the JAX tree this module's state maps to —
     works on a ``meta``-device module, so full-width structures cost no
     memory."""
-    out = {}
+    return {"/".join(module_path(name) + (leaf,)): tuple(t.shape)
+            for name, mod in module.named_modules() for leaf, t in _jax_leaves(mod)}
+
+
+def to_jax_tree(module: nn.Module) -> Dict:
+    """The module's state as a nested dict in the JAX layout and names
+    (contiguous CPU tensors at their dtype; a QuantLinear gives its int8
+    ``kernel`` and fp32 ``kernel_scale``) — :func:`load_jax_params`'s inverse."""
+    tree: Dict = {}
     for name, mod in module.named_modules():
-        for pname, p in mod.named_parameters(recurse=False):
-            shape = tuple(p.shape)
-            if pname == "bias":
-                leaf = "bias"
-            elif isinstance(mod, nn.Linear):
-                leaf, shape = "kernel", shape[::-1]
-            elif isinstance(mod, nn.Conv2d):
-                leaf, shape = "kernel", (shape[2], shape[3], shape[1], shape[0])
-            elif isinstance(mod, nn.Embedding):
-                leaf = "embedding"
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-                leaf = "scale"
-            else:
-                raise TypeError(f"no JAX layout rule for {type(mod).__name__}.{pname}")
-            out["/".join(module_path(name) + (leaf,))] = shape
-    return out
+        for leaf, t in _jax_leaves(mod):
+            node = tree
+            for seg in module_path(name):
+                node = node.setdefault(seg, {})
+            node[leaf] = t.detach().to("cpu").contiguous()
+    return tree
 
 
 def to_numpy_tree(tree) -> Dict:

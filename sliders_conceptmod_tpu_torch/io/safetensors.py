@@ -29,12 +29,27 @@ _DTYPES = {
     "BOOL": torch.bool,
 }
 _NAMES = {v: k for k, v in _DTYPES.items()}
+_MAX_HEADER = 100 << 20  # the format's own limit on the JSON header
 
 
 def _as_tensor(value) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu()
     return torch.from_numpy(np.ascontiguousarray(value))
+
+
+def read_metadata(path: str) -> Dict[str, str]:
+    """The header's ``__metadata__`` (empty when it has none), read without
+    the tensors."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: too short for a safetensors file")
+        (n,) = struct.unpack("<Q", head)
+        if n > _MAX_HEADER:
+            raise ValueError(f"{path}: header length {n} is not a safetensors header's")
+        header = json.loads(f.read(n).decode("utf-8"))
+    return dict(header.get("__metadata__") or {})
 
 
 def load_file(path: str) -> Dict[str, torch.Tensor]:

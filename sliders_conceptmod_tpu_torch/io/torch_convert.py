@@ -35,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig
 from sliders_conceptmod_tpu_torch.models.unet import UNetConfig
@@ -166,18 +167,25 @@ def clip_state_dict(sd: StateDict) -> StateDict:
 @torch.no_grad()
 def load_state(module: nn.Module, sd: StateDict, what: str) -> None:
     """Copy ``sd`` into ``module``'s parameters, cast to each one's dtype on
-    its device. Every parameter needs its tensor of the same shape, and every
-    tensor its parameter."""
+    its device; an int8 ``QuantLinear`` (``adapters/quant.py``) quantizes its
+    ``<name>.weight`` from fp32. Every parameter needs its tensor of the same
+    shape, and every tensor its parameter."""
     params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(sd))
-    unexpected = sorted(set(sd) - set(params))
+    quant = {f"{n}.weight": m for n, m in module.named_modules() if isinstance(m, QuantLinear)}
+    missing = sorted((set(params) | set(quant)) - set(sd))
+    unexpected = sorted(set(sd) - set(params) - set(quant))
     if missing or unexpected:
         raise KeyError(f"{what}: {len(missing)} parameters have no tensor (e.g. {missing[:3]}), "
                        f"{len(unexpected)} tensors have no parameter (e.g. {unexpected[:3]})")
+    shapes = {**{n: tuple(p.shape) for n, p in params.items()},
+              **{n: tuple(m.weight_q.shape) for n, m in quant.items()}}
+    for name, shape in shapes.items():
+        if tuple(sd[name].shape) != shape:
+            raise ValueError(f"{what}: {name} is {tuple(sd[name].shape)} in the checkpoint, {shape} in the model")
     for name, p in params.items():
-        if tuple(sd[name].shape) != tuple(p.shape):
-            raise ValueError(f"{what}: {name} is {tuple(sd[name].shape)} in the checkpoint, {tuple(p.shape)} in the model")
         p.copy_(sd[name])
+    for name, m in quant.items():
+        m.set_weight(sd[name])
 
 
 def load_unet_state(model_dir: str) -> Tuple[StateDict, UNetConfig]:

@@ -32,6 +32,16 @@ Real weights load as the JAX factory loads them:
 Weights are copied onto the device in ``weight_dtype``. ``with_vae`` on a
 single file without a VAE raises.
 
+``quantize_base`` (the JAX loaders' knob) stores the UNet's large Linears as
+int8 ``QuantLinear``s (``adapters/quant.py``), quantized from the source
+precision before any cast to ``weight_dtype``: the fp32 draw of the
+weightless family, the checkpoint's own tensors of a directory or single
+file — as JAX's ``quantize_init`` and ``quantize_host_tree`` do. A single
+file that is an int8 artifact (``io/quant_cache.py``, written by
+``cli/quantize_checkpoint.py`` in either package) is sniffed as the JAX
+loaders sniff it: the UNet comes from it, and the text towers and the VAE
+are the weightless family's.
+
 ``load_for_training`` is the trainers' one entry: it picks the family from
 the config and returns the UNet, scheduler, optional VAE and a one-prompt
 encoder.
@@ -48,10 +58,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.adapters.lora import model_lock
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler
+from sliders_conceptmod_tpu_torch.io import quant_cache
 from sliders_conceptmod_tpu_torch.io import torch_convert as tc
+from sliders_conceptmod_tpu_torch.io.jax_params import load_jax_params
 from sliders_conceptmod_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPTextEncoder,
@@ -80,12 +93,23 @@ class TextEncoderBundle:
             return self.model(ids)
 
 
+def _lecun_normal(shape, device, generator: torch.Generator) -> torch.Tensor:
+    fan_in = int(np.prod(shape[1:]))
+    std = fan_in**-0.5 / _TRUNC_STD
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 @torch.no_grad()
 def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter as flax's default initialisers would (see module
     docstring), in ``named_parameters`` order from one generator. Values are
-    drawn in fp32 and cast to the parameter's dtype."""
+    drawn in fp32 and cast to the parameter's dtype; a ``QuantLinear``
+    quantizes its fp32 draw, at the place of the Linear's weight in the
+    order."""
     for name, mod in module.named_modules():
+        if isinstance(mod, quant.QuantLinear):
+            mod.set_weight(_lecun_normal((mod.out_features, mod.in_features), mod.weight_q.device, generator))
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
@@ -96,21 +120,26 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
                 w.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
                 p.copy_(w)
             elif isinstance(mod, (nn.Linear, nn.Conv2d)):
-                fan_in = int(np.prod(p.shape[1:]))
-                std = fan_in**-0.5 / _TRUNC_STD
-                w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-                p.copy_(w)
+                p.copy_(_lecun_normal(p.shape, p.device, generator))
             else:
                 raise TypeError(f"no initialiser for {name}.{pname} ({type(mod).__name__})")
 
 
-def build_module(factory, device, dtype, seed: int) -> nn.Module:
-    """Construct on the meta device, materialise on ``device`` at ``dtype``,
-    then fill with the seeded flax-default initialisers."""
+def _empty(factory, device, dtype, quantize: bool) -> nn.Module:
+    """Construct on the meta device at ``dtype`` (with ``quantize``, its large
+    Linears as int8 QuantLinears) and allocate, uninitialised, on ``device``."""
     with torch.device("meta"):
         model = factory().to(dtype)
-    model = model.to_empty(device=device)
+        if quantize:
+            quant.quantize_module(model)
+    return model.to_empty(device=device)
+
+
+def build_module(factory, device, dtype, seed: int, quantize: bool = False) -> nn.Module:
+    """Construct on the meta device, materialise on ``device`` at ``dtype``,
+    then fill with the seeded flax-default initialisers (``quantize``: the
+    large Linears int8, quantized from their fp32 draws)."""
+    model = _empty(factory, device, dtype, quantize)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_flax_default(model, gen)
     return model.eval().requires_grad_(False)
@@ -156,12 +185,11 @@ def _check_target(name_or_path: str, device: str) -> torch.device:
     return device
 
 
-def module_from_state(factory, sd, device, dtype, what: str) -> nn.Module:
+def module_from_state(factory, sd, device, dtype, what: str, quantize: bool = False) -> nn.Module:
     """Construct on the meta device, materialise on ``device`` at ``dtype``,
-    then copy ``sd`` in (``io/torch_convert.py::load_state``)."""
-    with torch.device("meta"):
-        model = factory().to(dtype)
-    model = model.to_empty(device=device)
+    then copy ``sd`` in (``io/torch_convert.py::load_state``; ``quantize``:
+    the large Linears int8, quantized from the checkpoint's tensors)."""
+    model = _empty(factory, device, dtype, quantize)
     tc.load_state(model, sd, what)
     return model.eval().requires_grad_(False)
 
@@ -189,6 +217,20 @@ def _single_file_vae(path: str, trees: dict, full: VAEConfig, device, dtype) -> 
     return module_from_state(lambda: AutoencoderKL(cfg), trees["vae"], device, dtype, f"{path} vae")
 
 
+def quantized_unet_from_artifact(path: str, cfg: UNetConfig, device, dtype) -> nn.Module:
+    """A UNet from an int8 artifact (``io/quant_cache.py``): the file's int8
+    set is quantized, every other leaf is cast to ``dtype``."""
+    tree, scales = quant_cache.load_quantized(path, dtype)
+    with torch.device("meta"):
+        model = UNet2DConditionModel(cfg).to(dtype)
+        quant.quantize_module(model, paths=scales)
+    model = model.to_empty(device=device)
+    unused = load_jax_params(model, tree)
+    if unused:
+        raise KeyError(f"{path}: {len(unused)} tensors have no parameter (e.g. {unused[:3]})")
+    return model.eval().requires_grad_(False)
+
+
 def _tiny_lpb(unet_sd) -> int:
     """The stride-3 LDM slots round-trip layers_per_block 1 and 2."""
     return 2 if any(k.startswith("down_blocks.0.resnets.1.") for k in unet_sd) else 1
@@ -202,15 +244,25 @@ def load_models(
     weight_dtype: torch.dtype = torch.float32,
     with_vae: bool = False,
     device: str = "cuda",
+    quantize_base: bool = False,
 ):
     """SD1/SD2: (tokenizer, te, unet, scheduler[, vae]) from a diffusers
-    directory, a single file or a weightless family name (see the module
-    docstring; module i of a weightless (te, unet, vae) is initialised from
-    seed i). The scheduler predicts ``v_prediction`` when ``v_pred``; a
-    weightless family encodes with the full SD VAE, as the JAX factory's
-    does."""
+    directory, a single file, an int8 artifact or a weightless family name
+    (see the module docstring; module i of a weightless (te, unet, vae) is
+    initialised from seed i). The scheduler predicts ``v_prediction`` when
+    ``v_pred``; a weightless family encodes with the full SD VAE, as the JAX
+    factory's does. ``quantize_base``: the UNet's large Linears int8."""
     device = _check_target(name_or_path, device)
     scheduler = create_noise_scheduler(scheduler_name, prediction_type="v_prediction" if v_pred else "epsilon")
+    if is_single_file(name_or_path) and quant_cache.is_quantized_artifact(name_or_path):
+        tiny = "tiny" in os.path.basename(str(name_or_path)).lower()
+        unet_cfg = UNetConfig.tiny() if tiny else (UNetConfig.sd21() if v2 else UNetConfig.sd15())
+        clip_cfg = CLIPTextConfig.tiny() if tiny else (CLIPTextConfig.sd2_te() if v2 else CLIPTextConfig.sd15_te())
+        tok = load_tokenizer("", component="tokenizer")
+        te = _text_encoder("", "text_encoder", clip_cfg, device, weight_dtype, 0, tok)
+        unet = quantized_unet_from_artifact(str(name_or_path), unet_cfg, device, weight_dtype)
+        out = (tok, te, unet, scheduler)
+        return out + (_vae("", VAEConfig.sd(), device, weight_dtype, 2),) if with_vae else out
     if is_single_file(name_or_path):
         from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
 
@@ -226,7 +278,7 @@ def load_models(
         te = TextEncoderBundle(module_from_state(lambda: CLIPTextEncoder(clip_cfg), trees.get("text_encoder", {}),
                                                  device, weight_dtype, f"{path} text_encoder"), tok)
         unet = module_from_state(lambda: UNet2DConditionModel(unet_cfg), trees["unet"], device, weight_dtype,
-                                 f"{path} unet")
+                                 f"{path} unet", quantize_base)
         out = (tok, te, unet, scheduler)
         if with_vae:
             return out + (_single_file_vae(path, trees, VAEConfig.sd(), device, weight_dtype),)
@@ -238,19 +290,20 @@ def load_models(
     clip_cfg = {"tiny": CLIPTextConfig.tiny, "sd21": CLIPTextConfig.sd2_te, "sd15": CLIPTextConfig.sd15_te}[family]()
     tok = _tokenizer(name_or_path, "tokenizer")
     te = _text_encoder(name_or_path, "text_encoder", clip_cfg, device, weight_dtype, 0, tok)
-    unet = _unet(name_or_path, family, device, weight_dtype, 1)
+    unet = _unet(name_or_path, family, device, weight_dtype, 1, quantize_base)
     out = (tok, te, unet, scheduler)
     if with_vae:
         return out + (_vae(name_or_path, VAEConfig.sd(), device, weight_dtype, 2),)
     return out
 
 
-def _unet(name_or_path: str, family: str, device, dtype, seed: int) -> nn.Module:
+def _unet(name_or_path: str, family: str, device, dtype, seed: int, quantize: bool = False) -> nn.Module:
     if is_diffusers_dir(name_or_path):
         sd, cfg = tc.load_unet_state(str(name_or_path))
-        return module_from_state(lambda: UNet2DConditionModel(cfg), sd, device, dtype, f"{name_or_path}/unet")
+        return module_from_state(lambda: UNet2DConditionModel(cfg), sd, device, dtype, f"{name_or_path}/unet",
+                                 quantize)
     cfg = _UNET_CONFIGS[family]()
-    return build_module(lambda: UNet2DConditionModel(cfg), device, dtype, seed)
+    return build_module(lambda: UNet2DConditionModel(cfg), device, dtype, seed, quantize)
 
 
 def _vae(name_or_path: str, cfg: VAEConfig, device, dtype, seed: int) -> nn.Module:
@@ -267,15 +320,27 @@ def load_models_xl(
     with_vae: bool = False,
     device: str = "cuda",
     with_unet: bool = True,
+    quantize_base: bool = False,
 ):
     """SDXL: ([tok1, tok2], [te1, te2], unet, scheduler[, vae]) from a
-    diffusers directory, an SGM single file or a weightless family name; te2
-    pads with id 0. Module i of a weightless (te1, te2, unet, vae) is
-    initialised from seed i. ``with_unet=False`` leaves the UNet unloaded
-    (None): the text-encoder trainer needs only the towers."""
+    diffusers directory, an SGM single file, an int8 artifact or a weightless
+    family name; te2 pads with id 0. Module i of a weightless (te1, te2,
+    unet, vae) is initialised from seed i. ``with_unet=False`` leaves the
+    UNet unloaded (None): the text-encoder trainer needs only the towers.
+    ``quantize_base``: the UNet's large Linears int8."""
     device = _check_target(name_or_path, device)
     scheduler = create_noise_scheduler(scheduler_name)
     tiny_cfgs = (CLIPTextConfig.tiny(hidden_size=16), CLIPTextConfig.tiny(hidden_size=16, projection_dim=32))
+    if is_single_file(name_or_path) and quant_cache.is_quantized_artifact(name_or_path):
+        tiny = "tiny" in os.path.basename(str(name_or_path)).lower()
+        te_cfgs = tiny_cfgs if tiny else (CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2())
+        toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
+        tes = [_text_encoder("", comp, c, device, weight_dtype, seed, tok)
+               for seed, (c, comp, tok) in enumerate(zip(te_cfgs, ("text_encoder", "text_encoder_2"), toks))]
+        unet = (quantized_unet_from_artifact(str(name_or_path), UNetConfig.tiny_xl() if tiny else UNetConfig.sdxl(),
+                                             device, weight_dtype) if with_unet else None)
+        out = (toks, tes, unet, scheduler)
+        return out + (_vae("", VAEConfig.sdxl(), device, weight_dtype, 3),) if with_vae else out
     if is_single_file(name_or_path):
         from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
 
@@ -292,7 +357,7 @@ def load_models_xl(
                                                    weight_dtype, f"{path} {comp}"), tok)
                for c, comp, tok in zip(te_cfgs, ("text_encoder", "text_encoder_2"), toks)]
         unet = module_from_state(lambda: UNet2DConditionModel(unet_cfg), trees["unet"], device, weight_dtype,
-                                 f"{path} unet") if with_unet else None
+                                 f"{path} unet", quantize_base) if with_unet else None
         out = (toks, tes, unet, scheduler)
         if with_vae:
             return out + (_single_file_vae(path, trees, VAEConfig.sdxl(), device, weight_dtype),)
@@ -308,7 +373,8 @@ def load_models_xl(
     tok2 = _tokenizer(name_or_path, "tokenizer_2", pad_token_id=0)
     te1 = _text_encoder(name_or_path, "text_encoder", te1_cfg, device, weight_dtype, 0, tok1)
     te2 = _text_encoder(name_or_path, "text_encoder_2", te2_cfg, device, weight_dtype, 1, tok2)
-    unet = _unet(name_or_path, "tiny-xl" if family == "tiny-xl" else "sdxl", device, weight_dtype, 2) if with_unet else None
+    unet = (_unet(name_or_path, "tiny-xl" if family == "tiny-xl" else "sdxl", device, weight_dtype, 2, quantize_base)
+            if with_unet else None)
     out = ([tok1, tok2], [te1, te2], unet, scheduler)
     if with_vae:
         # both weightless families decode with the full SDXL VAE, as the JAX factory's do
@@ -354,14 +420,15 @@ class TrainingModels:
 
 
 def load_for_training(model_cfg, scheduler_name: str, weight_dtype: torch.dtype, with_vae: bool = False,
-                      device: str = "cuda") -> TrainingModels:
+                      device: str = "cuda", quantize_base: bool = False) -> TrainingModels:
     """The trainers' one loader: the family from ``model_cfg`` (its
     ``name_or_path`` and ``v2``), then ``load_models_xl`` (both towers'
     penultimate states and te2's pool) or ``load_models`` (``v_pred``; the
-    ``clip_skip`` state, no pool)."""
+    ``clip_skip`` state, no pool); ``quantize_base``: an int8 UNet."""
     name = model_cfg.name_or_path
     if _family(name, model_cfg.v2) in _XL_FAMILIES:
-        _, tes, unet, scheduler, *vae = load_models_xl(name, scheduler_name, weight_dtype, with_vae, device)
+        _, tes, unet, scheduler, *vae = load_models_xl(name, scheduler_name, weight_dtype, with_vae, device,
+                                                       quantize_base=quantize_base)
 
         def encode(prompt: str):
             text, pooled = encode_prompts_xl(tes, [prompt])
@@ -370,7 +437,7 @@ def load_for_training(model_cfg, scheduler_name: str, weight_dtype: torch.dtype,
         is_xl = True
     else:
         _, te, unet, scheduler, *vae = load_models(name, scheduler_name, model_cfg.v2, model_cfg.v_pred,
-                                                   weight_dtype, with_vae, device)
+                                                   weight_dtype, with_vae, device, quantize_base)
 
         def encode(prompt: str):
             return encode_prompts(te, [prompt], model_cfg.clip_skip)[0], None

@@ -30,7 +30,11 @@ registers or replaces one (a UNet part, text-encoder parts, or a
 ``default`` pinned). Concurrent requests for different sliders share one
 sampler call when the sliders' site sets stack (``--no_stack`` splits them).
 ``--static_guidance g`` fixes the guidance (<= 1: cond-only);
-``--no_microbatch`` is ``--max_batch 1``.
+``--no_microbatch`` is ``--max_batch 1``. ``--quantize_base`` loads the
+UNet's large Linears as int8 (``adapters/quant.py``) and ``--w8a8`` (which
+implies it) also quantizes their activations per token; sliders ride the
+overlay on the int8 UNet, and text-encoder parts merge into the CLIP towers,
+which are never quantized.
 
 GET /generate params: prompt (required), scale (default 0), seed (default
 0), guidance (default 7.5), slider (default "default"). A seed reproduces the
@@ -55,6 +59,7 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
+from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
 from sliders_conceptmod_tpu_torch.cli.generate_images_xl import (  # noqa: F401 — re-exported, as JAX's serve has them
     infer_network_settings,
@@ -186,7 +191,8 @@ class SliderService:
     prompts through the towers merged at the row's scale. ``static_guidance``
     fixes the guidance for every request: a Python float, so a value <= 1
     takes the sampler's cond-only path and per-request guidances no longer
-    split a micro-batch."""
+    split a micro-batch. ``quantize_base``: an int8 UNet; ``w8a8`` (implies
+    it): W8A8 on its int8 Linears."""
 
     _BUCKETS = (1, 2, 4)
     _STACK_CACHE_MAX = 16  # each stack holds fp32 copies of its members' factors
@@ -196,13 +202,15 @@ class SliderService:
                  start_noise: float = 750, batch_window_ms: float = 8.0,
                  max_batch: int = 4, max_queue: int = 64, max_sliders: Optional[int] = None,
                  cross_slider_stack: bool = True, static_guidance: Optional[float] = None,
-                 device: str = "cuda"):
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
         t0 = time.time()
         self.device = torch.device(device)
         self.image_size = image_size
         self.steps = steps
         self._static_guidance = static_guidance
+        self.quantize_base = quantize_base or w8a8
         self._load(base)
+        quant.set_act_quant(self.unet, w8a8)
         self.schedule = self.scheduler.set_timesteps(steps)
         self.flip = flip_step_for_start_noise(self.schedule, start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
@@ -230,7 +238,8 @@ class SliderService:
 
     def _load(self, base: str) -> None:
         (self.tokenizers, self.text_encoders, self.unet, self.scheduler, self.vae) = factory.load_models_xl(
-            base, scheduler_name="ddim", weight_dtype=self.weight_dtype, with_vae=True, device=self.device
+            base, scheduler_name="ddim", weight_dtype=self.weight_dtype, with_vae=True, device=self.device,
+            quantize_base=self.quantize_base,
         )
 
     # -- slider registry -----------------------------------------------------
@@ -471,16 +480,17 @@ class SD1SliderService(SliderService):
                  start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
                  max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
                  static_guidance: Optional[float] = None, v2: bool = False, v_pred: bool = False,
-                 device: str = "cuda"):
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
         self.v2, self.v_pred = v2, v_pred
         super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
                          max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
-                         cross_slider_stack=cross_slider_stack, static_guidance=static_guidance, device=device)
+                         cross_slider_stack=cross_slider_stack, static_guidance=static_guidance,
+                         quantize_base=quantize_base, w8a8=w8a8, device=device)
 
     def _load(self, base: str) -> None:
         tok, te, self.unet, self.scheduler, self.vae = factory.load_models(
             base, scheduler_name="ddim", v2=self.v2, v_pred=self.v_pred, weight_dtype=self.weight_dtype,
-            with_vae=True, device=self.device,
+            with_vae=True, device=self.device, quantize_base=self.quantize_base,
         )
         self.tokenizers, self.text_encoders = [tok], [te]
 
@@ -651,6 +661,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--v2", action="store_true", help="sd1 family only: SD2.x base (OpenCLIP tower, SD2.1 widths)")
     ap.add_argument("--v_pred", action="store_true", help="sd1 family only: v-prediction scheduler")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize_base", action="store_true",
+                    help="int8 frozen UNet Linears (adapters/quant.py); sliders ride the overlay on it")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="per-token int8 activations on the int8 Linears, int8 x int8 matmuls "
+                         "(implies --quantize_base)")
     ap.add_argument("--batch_window_ms", type=float, default=8.0)
     ap.add_argument("--max_batch", type=int, default=4, help="1 serves one request per sampler call")
     ap.add_argument("--no_microbatch", action="store_true",
@@ -680,7 +695,8 @@ def service_settings(args):
     kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
                   batch_window_ms=args.batch_window_ms, max_batch=1 if args.no_microbatch else args.max_batch,
                   max_queue=args.max_queue, max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack,
-                  static_guidance=args.static_guidance, device=args.device)
+                  static_guidance=args.static_guidance, quantize_base=args.quantize_base, w8a8=args.w8a8,
+                  device=args.device)
     if family == "sd1":
         return SD1SliderService, dict(kwargs, steps=50 if args.steps is None else args.steps, v2=args.v2,
                                       v_pred=args.v_pred)

@@ -51,6 +51,14 @@ combinations (``ValueError``):
   above 512px as the JAX trainer sets ``remat_unet``. The recompute runs the
   student's forward kernels a second time.
 
+The int8 base (``tpu.quantize_base``) needs no code of its own here: its
+``QuantLinear``s (``adapters/quant.py``) sit where the Linears were, so the
+overlay's hooks and the checkpointed student's recompute go through them.
+``warm_unet`` (``tpu.w8a8_warmup``) is the warm-up's own UNet — the int8
+base's tensors with W8A8 on, or an int8 copy of a full-precision base
+(the dual tree) — under an overlay bound to it with the same factor tensors;
+the teacher and the student stay weight-only on ``unet``, as JAX's do.
+
 The teacher is the bare base. On the card every UNet attention runs kernel
 K1 (K4a at head dims 129…512), and the student's backward runs K2 and K3
 (K4b and K4c) (``ops/flash_attention.py``, ``ops/flash_attention_kgrid.py``).
@@ -316,7 +324,7 @@ class ESDStep:
     next."""
 
     def __init__(self, unet, sites, lora_params, scheduler, schedule, optimizer, cfg: ESDConfig,
-                 add_time_ids=None, merge_fn=None, debug_nans=False):
+                 add_time_ids=None, merge_fn=None, debug_nans=False, warm_unet=None):
         merge = merge_fn if merge_fn is not None else lora_lib.merge_lora_params
         is_lora = merge is lora_lib.merge_lora_params
         use_cfg = float(cfg.train_cfg_scale) != 1.0
@@ -333,6 +341,13 @@ class ESDStep:
                              "(samples_per_step > 1, fuse_samples, batch_size == 1)")
         if cfg.student_overlay and not is_lora:
             raise ValueError("student_overlay supports the LoRA overlay only (DoRA merges)")
+        if warm_unet is not None and not cfg.student_overlay:
+            raise ValueError("warm_apply requires student_overlay=True (quantized base)")
+        if cfg.overlay_warmup is False and warm_unet is not None:
+            raise ValueError(
+                "overlay_warmup=False needs the merged warm-up tree — impossible "
+                "with a distinct warm_apply (quantized base)"
+            )
         if cfg.overlay_warmup and not cfg.student_overlay:
             raise ValueError("overlay_warmup=True requires student_overlay=True")
         if cfg.pipeline_warmup and cfg.samples_per_step != 1:
@@ -345,6 +360,8 @@ class ESDStep:
         self.add_time_ids = add_time_ids
         self.crops = cfg.dynamic_crops and self.is_xl
         self.overlay = LoRAOverlay(unet, sites, lora_params)
+        self.warm_unet = unet if warm_unet is None else warm_unet
+        self.warm_overlay = self.overlay if warm_unet is None else LoRAOverlay(warm_unet, sites, lora_params)
         self.params = flat_params(sites, lora_params)
         self.device = self.params[0].device
         self.one = torch.ones((1,), device=self.device)
@@ -398,10 +415,14 @@ class ESDStep:
 
     @contextmanager
     def _warm_unet(self) -> Iterator[Callable]:
-        """Slider ON, no gradients: the overlay, or one merge per step."""
-        with torch.no_grad(), self.overlay(self.one if self.overlay_warmup else None):
-            yield (self.unet if self.overlay_warmup
-                   else merged_call(self.unet, self.merge(self.unet, self.sites, self.lora_params, 1.0)))
+        """Slider ON, no gradients: the overlay (on ``warm_unet``), or one
+        merge per step."""
+        if self.overlay_warmup:
+            with torch.no_grad(), self.warm_overlay(self.one):
+                yield self.warm_unet
+            return
+        with torch.no_grad(), self.overlay(None):
+            yield merged_call(self.unet, self.merge(self.unet, self.sites, self.lora_params, 1.0))
 
     def warm_draw(self, bank: PromptBank, draws: Union[Draws, FusedDraws]) -> Carry:
         """(2): the warm-up of one sample, or of fused samples."""
@@ -581,10 +602,14 @@ def make_esd_train_step(
     add_time_ids: Optional[torch.Tensor] = None,  # [1, 6] for XL
     merge_fn: Optional[Callable] = None,  # adapter merge (LoRA default; DoRA passes its own)
     debug_nans: bool = False,
+    warm_unet: Optional[torch.nn.Module] = None,
 ) -> ESDStep:
     """Build the step (:class:`ESDStep`). ``lora_params`` (fp32 leaves that
     require grad) and ``opt_state`` are updated in place; the overlay binds
     the factors once. The JAX step's refusals of invalid combinations raise
     ``ValueError``. ``debug_nans`` (``tpu.debug_nans``) checks the loss and
-    the gradients before the update: :func:`raise_if_nonfinite`."""
-    return ESDStep(unet, sites, lora_params, scheduler, schedule, optimizer, cfg, add_time_ids, merge_fn, debug_nans)
+    the gradients before the update: :func:`raise_if_nonfinite`.
+    ``warm_unet``: the warm-up's own UNet (JAX's ``warm_apply``; see the
+    module docstring)."""
+    return ESDStep(unet, sites, lora_params, scheduler, schedule, optimizer, cfg, add_time_ids, merge_fn, debug_nans,
+                   warm_unet)

@@ -34,8 +34,17 @@ ESD step (``train/esd.py``, with JAX's refusals of invalid combinations);
 per iteration (``loop_utils.resolution_bucket_picker``); ``dynamic_crops``
 (XL) redraws the crop conditioning per iteration; ``profile_dir`` writes a
 ``torch.profiler`` Chrome trace of the loop. Above 512px the student runs
-under ``torch.utils.checkpoint``. The int8 base and meshes are not ported
-yet: they raise ``NotImplementedError`` naming the ROADMAP item.
+under ``torch.utils.checkpoint``.
+
+The int8 base (JAX's rules and messages): ``tpu.quantize_base`` loads the
+UNet's large Linears as int8 (``adapters/quant.py``) and forces the overlay
+student and warm-up (an int8 base cannot host a merge); DoRA with it raises.
+``tpu.w8a8_warmup`` runs the warm-up alone with W8A8 — over the int8 base,
+or, without ``quantize_base``, over an int8 copy of the full-precision base
+quantized once after the text towers are freed (the dual tree: it shares
+every tensor it does not quantize with the base); the dual tree needs LoRA
+and the overlay student and warm-up. Meshes and multi-process worlds are not
+ported yet: they raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 
 from sliders_conceptmod_tpu_torch.adapters import dora as dora_lib
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
+from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.core.config import (
     RootConfig,
     parse_precision,
@@ -80,10 +90,42 @@ def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type
     tpu = config.tpu
     if peft_type not in ("lora", "dora"):
         raise ValueError(f"peft_type must be 'lora' or 'dora', got {peft_type!r}")
-    if tpu.quantize_base or tpu.w8a8_warmup:
-        raise NotImplementedError(f"tpu.quantize_base / tpu.w8a8_warmup are not ported yet ({_QUEUE1}, int8 / W8A8)")
     if tpu.mesh_model != 1 or tpu.mesh_data not in (-1, 1) or (tpu.num_processes or 1) > 1 or tpu.sequence_parallel:
         raise NotImplementedError(f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, parallelism)")
+
+
+def resolve_int8_routes(tpu_cfg, peft_type: str):
+    """``(student_overlay, overlay_warmup, quantize_base)``: the
+    slider's route (``resolve_student_overlay``) under the int8 knobs, with
+    the JAX trainer's refusals and messages."""
+    quantize_base = bool(tpu_cfg.quantize_base)
+    if quantize_base and peft_type == "dora":
+        raise NotImplementedError(
+            "tpu.quantize_base requires full-precision base magnitudes for "
+            "DoRA's norm decomposition — use peft_type='lora' or "
+            "quantize_base: false."
+        )
+    dual_tree = bool(tpu_cfg.w8a8_warmup) and not quantize_base
+    if dual_tree and peft_type != "lora":
+        raise NotImplementedError(
+            "tpu.w8a8_warmup without quantize_base (dual-tree) rides the LoRA "
+            "overlay on the int8 warm-up copy — DoRA merges; use peft_type='lora'."
+        )
+    student_overlay, overlay_warmup = resolve_student_overlay(tpu_cfg, quantize_base, peft_type,
+                                                              default_overlay=(peft_type == "lora"))
+    if dual_tree:
+        if not student_overlay:
+            raise ValueError(
+                "tpu.w8a8_warmup with a bf16 base needs tpu.student_overlay "
+                "(the int8 warm-up copy rides the apply-time LoRA overlay)"
+            )
+        if tpu_cfg.overlay_warmup is False:
+            raise ValueError(
+                "tpu.overlay_warmup: false is incompatible with the dual-tree "
+                "w8a8_warmup — the int8 warm-up copy cannot host a merged tree"
+            )
+        overlay_warmup = True
+    return student_overlay, overlay_warmup, quantize_base
 
 
 @contextmanager
@@ -134,9 +176,7 @@ def train(
     t_entry = time.time()
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
-    # the int8 base is refused above (not ported), so quantize_base is False here
-    student_overlay, overlay_warmup = resolve_student_overlay(tpu_cfg, False, peft_type,
-                                                              default_overlay=(peft_type == "lora"))
+    student_overlay, overlay_warmup, quantize_base = resolve_int8_routes(tpu_cfg, peft_type)
     device = torch.device(device)
     weight_dtype = parse_precision(config.train.precision)
     save_dtype = parse_save_precision(config.save.precision)
@@ -148,7 +188,7 @@ def train(
 
     # --- models -----------------------------------------------------------
     models = factory.load_for_training(config.pretrained_model, config.train.noise_scheduler, weight_dtype,
-                                       device=str(device))
+                                       device=str(device), quantize_base=quantize_base)
     unet, scheduler, is_xl = models.unet, models.scheduler, models.is_xl
 
     # --- adapter ----------------------------------------------------------
@@ -185,6 +225,8 @@ def train(
     models.encode = None  # the closure holds the towers
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    # tpu.w8a8_warmup: the warm-up's own UNet, made after the towers are freed
+    warm_unet = quant.quantized_copy(unet, act_quant=True) if tpu_cfg.w8a8_warmup else None
 
     resolution = _uniform_field(prompts, "resolution")
     batch_size = _uniform_field(prompts, "batch_size")
@@ -214,7 +256,7 @@ def train(
         add_time_ids = torch.from_numpy(get_add_time_ids(height, width)).to(device) if is_xl else None
         return esd.make_esd_train_step(unet, sites, lora_params, scheduler, schedule, optimizer, ecfg,
                                        add_time_ids=add_time_ids, merge_fn=peft_mod.merge_lora_params,
-                                       debug_nans=tpu_cfg.debug_nans)
+                                       debug_nans=tpu_cfg.debug_nans, warm_unet=warm_unet)
 
     # one step per resolution bucket, a bucket per iteration (dynamic_resolution)
     buckets, pick_bucket = resolution_bucket_picker(dynamic_resolution, resolution, tpu_cfg.seed)

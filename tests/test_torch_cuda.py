@@ -870,12 +870,13 @@ def test_prodigy_step_on_the_card_matches_the_cpu(gen):
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
 
 
-def _tiny_xl_esd(device, knobs):
+def _tiny_xl_esd(device, knobs, int8=False):
     """A tiny-xl ESD step (seeded weights, factors with non-zero ups) on
-    ``device`` with ESD knobs, its state and the prompt bank."""
+    ``device`` with ESD knobs, its state and the prompt bank; ``int8``: every
+    Linear int8, quantized on ``device``."""
     import copy
 
-    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.adapters import lora, quant
     from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
     from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
     from sliders_conceptmod_tpu_torch.models import factory
@@ -893,7 +894,10 @@ def _tiny_xl_esd(device, knobs):
         leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
     lp = {n: {k: t.to(device).requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
     opt = optim.get_optimizer("adamw", optim.get_lr_schedule("constant", 1e-2, 10), grad_clip_norm=0.2)
-    step = esd.make_esd_train_step(copy.deepcopy(unet).to(device), sites, lp, sched, sched.set_timesteps(3), opt,
+    unet = copy.deepcopy(unet).to(device)
+    if int8:
+        quant.quantize_module(unet, min_elems=1)
+    step = esd.make_esd_train_step(unet, sites, lp, sched, sched.set_timesteps(3), opt,
                                    esd.ESDConfig(max_denoising_steps=3, height=64, width=64, **knobs),
                                    add_time_ids=torch.from_numpy(get_add_time_ids(64, 64)).to(device))
     return step, opt.init(optim.flat_params(sites, lp)), bank, lp, sched.set_timesteps(3)
@@ -961,3 +965,74 @@ def test_notrigger_step_on_the_card_matches_the_cpu(gen):
             assert abs(mg[k] - mw[k]) <= 2e-4 * max(1.0, abs(mw[k])), k
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the int8 frozen base (adapters/quant.py) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 320, 1280), (16, 64, 40), (17, 64, 40), (2, 77, 2048, 640), (8192, 640, 640)])
+def test_int8_matmul_on_the_card_is_the_cpu_product(gen, shape):
+    """``torch._int_mm`` on CUDA needs more than 16 rows: fewer are padded
+    with zero rows and dropped again; the product is exact."""
+    from sliders_conceptmod_tpu_torch.adapters import quant
+
+    *lead, k, n = shape
+    xq = torch.randint(-127, 128, (*lead, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    got = quant.int8_matmul(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (*lead, n)
+    assert torch.equal(got.cpu(), quant.int8_matmul(xq.cpu(), wq.cpu()))
+
+
+@pytest.mark.parametrize("act_quant", [False, True], ids=["weight_only", "w8a8"])
+def test_quant_linear_on_the_card_matches_the_cpu(gen, act_quant):
+    """fp32: the weight's codes and scales and the activation codes
+    bit-equal (quantized on each device), the output and the input's
+    gradient (weight-only) within 1e-5."""
+    from sliders_conceptmod_tpu_torch.adapters import quant
+
+    lin = torch.nn.Linear(640, 1280).requires_grad_(False)
+    x = torch.randn((2, 33, 640), generator=gen, device="cuda")
+    out = {}
+    for device in ("cpu", "cuda"):
+        mod = quant.QuantLinear.from_linear(torch.nn.Linear(640, 1280).to(device).requires_grad_(False),
+                                            act_quant=act_quant)
+        mod.set_weight(lin.weight.to(device))
+        mod.bias.copy_(lin.bias.to(device))
+        xi = x.to(device).requires_grad_(not act_quant)
+        y = mod(xi)
+        if not act_quant:
+            (y**2).sum().backward()
+        out[device] = (y.detach().cpu(), None if act_quant else xi.grad.cpu(), quant.quantize_activations(xi)[0].cpu(),
+                       mod.weight_q.cpu(), mod.scale.cpu())
+    assert torch.equal(out["cuda"][3], out["cpu"][3]) and torch.equal(out["cuda"][4], out["cpu"][4])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-5)
+    if act_quant:
+        assert torch.equal(out["cuda"][2], out["cpu"][2])
+    else:
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-4)
+
+
+def test_int8_esd_step_on_the_card_matches_the_cpu(gen):
+    """A tiny-xl ESD step over an int8 base (every Linear int8, quantized on
+    each device to the same codes; the student's backward through the
+    QuantLinears) on the card against the CPU, fp32: the loss and the
+    factors (K1/K2/K3 inside). W8A8 is held at the QuantLinear: its codes
+    move where x/sx crosses a rounding midpoint, and the card's fp32 sums
+    differ from the CPU's."""
+    from sliders_conceptmod_tpu_torch.train import esd
+
+    g = torch.Generator().manual_seed(8)
+    draws = esd.Draws(0, 2, torch.randn((1, 4, 8, 8), generator=g) * 14.6, torch.randn((2, 1, 4, 8, 8), generator=g))
+    out = {}
+    for device in ("cpu", "cuda"):
+        step, state, bank, lp, _ = _tiny_xl_esd(device, dict(student_overlay=True, overlay_warmup=True), int8=True)
+        d = esd.Draws(draws.pair, draws.timesteps_to, draws.latents0.to(device), draws.warm_noise.to(device))
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            m = step(state, bank, draws=d)
+        out[device] = (float(m["loss"]), [t.detach().cpu() for leaf in lp.values() for t in leaf.values()])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * max(1.0, abs(out["cpu"][0]))
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)

@@ -18,7 +18,8 @@ JAX CLI's ``normal(PRNGKey(seed))``. Both write the same file tree.
   was 2.18).
 
 The CLI resumes (files that exist are kept) and refuses the flags that are
-not ported; its parser has the JAX flags and defaults (and ``--device``)."""
+not ported, and the int8 flags without ``--batch_scales`` as JAX does; its
+parser has the JAX flags and defaults (and ``--device``)."""
 
 import os
 
@@ -68,8 +69,11 @@ def test_xl_sweep_resumes(assets, tmp_path, monkeypatch):
 
 
 def test_sweep_refusals(assets, tmp_path):
-    for flag, item in (("--quantize_base", "item 8"), ("--w8a8", "item 8"), ("--mesh_data=2", "item 12")):
-        with pytest.raises(SystemExit, match=item):
+    # the int8 base runs with --batch_scales (tests/test_torch_quant_serve.py); without it JAX's rule
+    # refuses it (the default path merges), and sharded sweeps are not ported
+    for flag, match in (("--quantize_base", "requires --batch_scales"), ("--w8a8", "requires --batch_scales"),
+                        ("--mesh_data=2", "item 12")):
+        with pytest.raises(SystemExit, match=match):
             tcli_xl.main(A.args(assets, "xl", tmp_path / "out", flag, "--device", "cpu"))
     # text-encoder parts apply since they were ported (tests/test_torch_te_slider.py); a partial
     # one raises as JAX's load_te_part does: a down factor without its up, a key on no site

@@ -386,15 +386,18 @@ def test_debug_nans_raises_at_the_first_non_finite_step(slice_setup, tmp_path, m
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """The int8 base and meshes are refused (not ported); the ESD knobs train
-    (tests/test_torch_esd_knobs.py), and the JAX trainer's ValueErrors for
-    their invalid combinations come across."""
+    """Meshes are refused (not ported); the int8 base trains
+    (tests/test_torch_quant_train.py) under JAX's rules — DoRA over an int8
+    base, or on the dual-tree W8A8 warm-up, raises — and the ESD knobs train
+    (tests/test_torch_esd_knobs.py), with the JAX trainer's ValueErrors for
+    their invalid combinations."""
     prompts = tprompts.load_prompts_from_yaml(os.path.join(REPO, "data", "prompts-tiny.yaml"))
-    for knob in ("quantize_base", "w8a8_warmup"):
+    for knob, match in (("quantize_base", "requires full-precision base magnitudes"),
+                        ("w8a8_warmup", "rides the LoRA overlay on the int8 warm-up copy")):
         cfg = _tiny_config(tmp_path)
         setattr(cfg.tpu, knob, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.train(cfg, prompts, device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            ttrainer.train(cfg, prompts, peft_type="dora", device="cpu")
     for knobs in (dict(mesh_model=2), dict(mesh_data=4), dict(num_processes=2), dict(sequence_parallel=True)):
         cfg = _tiny_config(tmp_path)
         for k, v in knobs.items():
