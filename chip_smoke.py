@@ -86,6 +86,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   64) and 1024² and 1024×77 (d 80 → 128), K4a at 256² and
                   256×77 (d 160 → 192). (The SD decode's 4096² at d 512 is
                   phase 4's encode_4096 at rows 1.)
+5c. kernel_sd3 — SD3-Medium's joint attention (24 heads of 64, bf16): K1
+                  against its plain version at 4429² rows 2 (1024px serving
+                  with CFG: 4096 image + 77 CLIP + 256 zero T5 tokens) and
+                  1357² rows 1, 2, 4, 16 and 32 (512px training: one
+                  prompt's warm-up/student and teacher rows, and
+                  data/prompts-sd3.yaml's batch of 8), K2/K3 at 1357² rows
+                  2 and 16 with the splits their rules pick; device ms,
+                  TFLOP/s, share of the bound, ratio to SDPA (forward, or
+                  whole backward). Emitted as kernel / kernel_bwd rows.
 6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
 7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
@@ -93,6 +102,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8. sd_train_parity — one tiny-SD DDIM ESD step, card vs CPU, fp32, on
                   ``tiny`` (K1/K2/K3) and on its variant with a d-160 mid block
                   (K4a/K4b/K4c inside too).
+8b. sd3_parity — the tiny MMDiT flow sampler (3 steps, CFG 7, the overlay)
+                  and one tiny SD3 ESD step (CFG 7, blocks checkpointed),
+                  card vs CPU, fp32; K1 2 per forward, K2/K3 2 per step.
 9. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
                   in the encoder's mid-block) and one tiny-xl image-pair step
                   (K1/K2/K3) on the card against the same on the CPU, fp32.
@@ -176,9 +188,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   v2 and v_pred, 512px, 10 steps, scales 0 and +2: per call K1
                   10×32 = 320, K4a 1 (the decode).
 21. sweep_xl    — cli/generate_images_xl.run on the SDXL name at the CLI's
-                  defaults (512px, 50 DDIM steps, start_noise 750), scales
-                  -2, 0, 2 and one sample of prompts/prompts-person.csv's
-                  first case: sequential (merged weights; K1 50×140 per
+                  defaults (512px, start_noise 750) but 25 DDIM steps
+                  (SWEEP_XL_STEPS, cut from 50), scales -2, 0, 2 and one
+                  sample of prompts/prompts-person.csv's first case:
+                  sequential (merged weights; K1 25×140 per
                   trajectory, 3 trajectories), --batch_scales (one
                   trajectory), and each scale alone with --batch_scales; one
                   K4a per decode. Files and composite, seconds per image, the
@@ -218,12 +231,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 22f. quantize_checkpoint — cli/quantize_checkpoint on the SD1.5 directory:
                   artifact bytes and seconds; one UNet forward from the
                   artifact bit-equal to load_models(dir, quantize_base=True)'s.
+22g. sd3_load  — a full-width SD3-Medium diffusers directory of seeded bf16
+                  weights (transformer in two shards, CLIP-L with its
+                  projection, bigG, the 16-channel VAE with use_quant_conv
+                  false, scaling 1.5305, shift 0.0609, both tokenizers),
+                  loaded by factory.load_models_sd3 bit for bit; GB, GB/s.
+22h. sd3_train — cli/train_lora_sd3.train from data/config-sd3.yaml +
+                  data/prompts-sd3.yaml over that directory (512px, batch 8,
+                  CFG 7, 28 flow steps; iterations cut 1000 → 4): K1
+                  24·(tₖ + 3), K2 = K3 = 24 per step; steps/s, first step,
+                  peak memory, timesteps_to, saved keys; one step profiled.
+22i. sd3_serve — SD3SliderService over the directory, 1024px, 28 steps, CFG
+                  7: two solo requests, a concurrent pair, one over HTTP,
+                  one profiled; 672 K1 per sampler call and 1 K4a per decode.
+22j. sd3_sweep — cli/generate_images_sd3 at its defaults (512px, 28 steps),
+                  scales -2, 0, 2 × 1 sample × case 0.
+22k. sd3_int8  — 2 training steps with tpu.quantize_base, one 1024px
+                  request under --w8a8 (its gap to the bf16 image), and the
+                  quantize_checkpoint --family sd3 artifact loaded, its
+                  forward bit-equal to the quantized directory's.
+22l. sd3_export — cli/export_single_file --sd3 (a slider at scale 2, fp32)
+                  reloaded: every tensor bit-equal to the directory's or to
+                  the fp32 merge rounded once.
+22m. sd3_notrigger — cli/train_notrigger --model SD3-Medium in the
+                  directory's bigG, 5 steps (no kernel: the towers'
+                  attention is plain).
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
-                  and K4a and no backward kernel). On every path the plain
-                  attention versions, forward and backward, ran 0 times on the
-                  card.
+                  and K4a and no backward kernel; the SD3 paths join K1, K2/K3
+                  in training and K4a where they decode). On every path the
+                  plain attention versions, forward and backward, ran 0 times
+                  on the card.
 
 Then the card as nvidia-smi names it, and the result line.
 """
@@ -256,24 +295,28 @@ from sliders_conceptmod_tpu_torch.adapters import dora, lora, quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
 from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file, quantize_checkpoint
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
+from sliders_conceptmod_tpu_torch.cli import generate_images_sd3 as gen_sd3
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
-from sliders_conceptmod_tpu_torch.cli import train_lora_scale, train_notrigger
+from sliders_conceptmod_tpu_torch.cli import train_lora_scale, train_lora_sd3, train_notrigger
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
+from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
+from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop
 from sliders_conceptmod_tpu_torch.infer.generate import latents_to_images, sample_loop, sample_loop_scales
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
 from sliders_conceptmod_tpu_torch.models.tokenizer import write_synthetic_bpe_files
 from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
-from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SliderService, make_handler, metrics
-from sliders_conceptmod_tpu_torch.train import esd, imageslider, trainer
+from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SD3SliderService, SliderService, make_handler, metrics
+from sliders_conceptmod_tpu_torch.train import esd, esd_sd3, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params, get_lr_schedule, get_optimizer
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
@@ -316,7 +359,7 @@ TRAIN_SHAPES = [
     ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2, 0),
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
-TRAIN_ITERATIONS = 6
+TRAIN_ITERATIONS = 4  # SDXL and SD1.5 ESD: 500 / 1000 cut (6 before the SD3 phases joined the smoke)
 ROUTE_ITERATIONS = 3  # the other slider routes and DoRA: 3 steps each
 # (name, rows, Sq, Sk, heads, head dim): K4a's calls on the paths — the VAE
 # mid-block attention (one head, head dim = channels = 512) and SD1.5's
@@ -1556,7 +1599,7 @@ def sd21_config(cfg) -> None:
     cfg.pretrained_model.v_pred = True
 
 
-KNOB_ITERATIONS = 3  # steps of each trainer knob (train_knobs); 2 on SD1.5 (sd_train_knobs)
+KNOB_ITERATIONS = 2  # steps of each trainer knob (train_knobs, 3 before the SD3 phases); 2 on SD1.5 too
 
 
 def knob_forwards(cfg, metrics: list, remat: bool) -> tuple:
@@ -2079,7 +2122,8 @@ def per_sampler_call(unet_cfg: UNetConfig, steps: int) -> tuple:
     return k1, k4a + 1
 
 
-def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: bool = True) -> dict:
+def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: bool = True,
+                guidance: float = 7.5) -> dict:
     """Requests through ``svc`` (every count set to 0 first): scale 0 and +2
     solo (their images must differ), then, with ``pair``, -2 and +1
     concurrently in one micro-batch. K1 and K4a launch their per-call counts
@@ -2092,7 +2136,7 @@ def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: 
 
     def timed(scale, seed):
         t = time.time()
-        png = svc.generate("a photo of a person", scale, seed, 7.5, slider="smoke")
+        png = svc.generate("a photo of a person", scale, seed, guidance, slider="smoke")
         return png, time.time() - t
 
     images = {}
@@ -2151,7 +2195,8 @@ def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: 
         raise AssertionError(f"{what}: scale 0 and scale +2 gave the same image")
     solo = [r["seconds"] for r in requests[:2]]
     row = dict(
-        phase=what, model=model, image_size=size, steps=steps, weights="random, seeded per module, bf16",
+        phase=what, model=model, image_size=size, steps=steps, guidance=guidance,
+        weights="random, seeded per module, bf16",
         slider_sites=len(svc.sites), load_seconds=load_s, requests=requests,
         k1_launches_per_sampler_call=k1_call, k4a_launches_per_sampler_call=k4a_call,
         k1_launches=fa.flash_attention_fwd.launches, k4a_launches=kg.flash_attention_kgrid_fwd.launches,
@@ -2163,7 +2208,7 @@ def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: 
     return row
 
 
-def phase_http(svc: SliderService, what: str = "http") -> int:
+def phase_http(svc: SliderService, what: str = "http", guidance: float = 7.5) -> int:
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2173,8 +2218,8 @@ def phase_http(svc: SliderService, what: str = "http") -> int:
         sliders = json.loads(urllib.request.urlopen(f"{base}/sliders", timeout=60).read())
         l0, d0 = fa.flash_attention_fwd.launches, kg.flash_attention_kgrid_fwd.launches
         t = time.time()
-        with urllib.request.urlopen(f"{base}/generate?prompt=a+photo+of+a+cat&scale=1.5&seed=3&slider=smoke",
-                                    timeout=600) as resp:
+        with urllib.request.urlopen(f"{base}/generate?prompt=a+photo+of+a+cat&scale=1.5&seed=3&slider=smoke"
+                                    f"&guidance={guidance}", timeout=600) as resp:
             status, png = resp.status, resp.read()
         secs = time.time() - t
         img = decode_png(png)
@@ -2195,9 +2240,9 @@ def phase_http(svc: SliderService, what: str = "http") -> int:
     return launches
 
 
-def phase_profile(svc: SliderService, what: str = "profile") -> dict:
+def phase_profile(svc: SliderService, what: str = "profile", guidance: float = 7.5) -> dict:
     """One solo request under torch.profiler."""
-    prof = device_profile(lambda: svc.generate("a photo of a person", 1.0, 5, 7.5, slider="smoke"))
+    prof = device_profile(lambda: svc.generate("a photo of a person", 1.0, 5, guidance, slider="smoke"))
     row = dict(phase=what, **{k: v for k, v in prof.items() if not k.startswith(("k2", "k3", "k4b", "k4c"))})
     emit(row)
     return row
@@ -2350,27 +2395,28 @@ def phase_serve_sliders(tmp: Path, svc: SliderService) -> tuple:
 
 
 def served(tmp: Path, what: str, make, unet_cfg: UNetConfig, model: str, pair: bool = True,
-           http: bool = True, profile: bool = True, after=None) -> tuple:
+           http: bool = True, profile: bool = True, after=None, guidance: float = 7.5, slider=None) -> tuple:
     """Build a service with ``make(slider_path)``, register the smoke slider,
     drive :func:`phase_serve`, the HTTP request and one profiled request;
     the path's launches, counted from 0 just before its first request.
     ``after(svc)`` then runs on the same service (a path of its own, which
-    counts its own launches)."""
+    counts its own launches). ``slider(path)`` writes the slider (default:
+    make_slider over ``unet_cfg``)."""
     path = tmp / f"{what}_noxattn_rank4_alpha1.safetensors"
-    make_slider(path, unet_cfg)
+    (slider or functools.partial(make_slider, unet_cfg=unet_cfg))(path)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     svc = make(str(path))
     load_s = time.time() - t0
     svc.add_slider("smoke", str(path))
     try:
-        phase_serve(svc, what, model, load_s, pair)
+        phase_serve(svc, what, model, load_s, pair, guidance)
         if http:
-            phase_http(svc, "http" if what == "serve" else f"{what}_http")
+            phase_http(svc, "http" if what == "serve" else f"{what}_http", guidance)
         launches = counts()
         check_no_plain(what)
         if profile:
-            phase_profile(svc, "profile" if what == "serve" else f"{what}_profile")
+            phase_profile(svc, "profile" if what == "serve" else f"{what}_profile", guidance)
         if after is not None:
             after(svc)
     finally:
@@ -2503,10 +2549,13 @@ def check_sweep_tree(root: Path, scales, case: int, size: int) -> dict:
     return imgs
 
 
+SWEEP_XL_STEPS = 25  # the XL sweep CLI's 50 DDIM steps, cut (since the SD3 phases joined the smoke)
+
+
 def phase_sweep_xl(tmp: Path) -> tuple:
     """cli/generate_images_xl.run on the SDXL family name at the CLI's
-    defaults (512px, 50 DDIM steps, start_noise 750), reduced to scales
-    -2, 0, 2 and one sample of the first case of prompts/prompts-person.csv:
+    defaults (512px, start_noise 750) but SWEEP_XL_STEPS DDIM steps, reduced
+    to scales -2, 0, 2 and one sample of the first case of prompts/prompts-person.csv:
     once sequential (merged weights) and once with --batch_scales (the
     overlay, all scales in one trajectory). Launches per trajectory and
     seconds per image. Then each scale alone with --batch_scales (the
@@ -2516,7 +2565,7 @@ def phase_sweep_xl(tmp: Path) -> tuple:
     slider = tmp / "sweep_xl_noxattn_rank4_alpha1.safetensors"
     make_slider(slider, UNetConfig.sdxl())
     scales = [-2.0, 0.0, 2.0]
-    k1_traj = per_step_launches(UNetConfig.sdxl(), 50, 0)[0]
+    k1_traj = per_step_launches(UNetConfig.sdxl(), SWEEP_XL_STEPS, 0)[0]
     out, launches = {}, [0] * len(KERNEL_NAMES)
     runs = [("merged", [None], []), ("batch_scales", [None], ["--batch_scales"]),
             ("overlay_per_scale", scales, ["--batch_scales"])]
@@ -2528,6 +2577,7 @@ def phase_sweep_xl(tmp: Path) -> tuple:
         for scale in only:
             argv = ["--model_name", str(slider), "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
                     "--save_path", str(save), "--base", SDXL, "--num_samples", "1", "--till_case", "0",
+                    "--ddim_steps", str(SWEEP_XL_STEPS),
                     "--scales=" + (",".join(str(x) for x in scales) if scale is None else str(scale)), *extra]
             run = timed_sweep(gen_xl, argv)
             n_scales = len(scales) if scale is None else 1
@@ -2544,7 +2594,7 @@ def phase_sweep_xl(tmp: Path) -> tuple:
         out[mode] = {s: decode_png((save / slider.name / str(s) / "0_0.png").read_bytes()) for s in scales}
         if mode != "overlay_per_scale":
             check_sweep_tree(save / slider.name, scales, 0, 512)
-        emit(dict(phase="sweep_xl", mode=mode, model=SDXL, image_size=512, steps=50, start_noise=750,
+        emit(dict(phase="sweep_xl", mode=mode, model=SDXL, image_size=512, steps=SWEEP_XL_STEPS, start_noise=750,
                   scales=scales, num_samples=1, trajectories=trajectories, k1_per_trajectory=k1_traj,
                   k4a_per_decode=1, seconds_per_image=res["sweep_seconds"] / len(scales),
                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, **res))
@@ -2831,6 +2881,482 @@ def phase_kernel_sd_serve(gen: torch.Generator) -> tuple:
     return k1_errors, k4a_errors
 
 
+# ---------------------------------------------------------------------------
+# SD3-Medium: the MMDiT's joint attention (24 heads of 64) and its paths
+# ---------------------------------------------------------------------------
+
+SD3 = "stabilityai/stable-diffusion-3-medium"
+SD3_TRAIN_ITERATIONS = 4  # data/config-sd3.yaml's 1000, cut
+SD3_SERVE_SIZE, SD3_SERVE_STEPS, SD3_GUIDANCE = 1024, 28, 7.0
+# (name, rows, S, heads, head dim): K1 at the joint sequence (image tokens +
+# 77 CLIP + 256 zero T5 tokens). 1024px serving with CFG: 4096 + 333 = 4429
+# at rows 2; 512px training: 1024 + 333 = 1357 at rows 1, 2 and 4 (one
+# prompt: the warm-up and student with CFG, the 4-row teacher) and at the
+# path's own rows for data/prompts-sd3.yaml's batch of 8 (16: warm-up and
+# student, 32: the teacher)
+SD3_K1_SHAPES = [
+    ("sd3_serve_joint_4429", 2, 4429, 24, 64),
+    ("sd3_train_joint_1357", 1, 1357, 24, 64),
+    ("sd3_train_joint_1357", 2, 1357, 24, 64),
+    ("sd3_train_joint_1357", 4, 1357, 24, 64),
+    ("sd3_train_joint_1357", 16, 1357, 24, 64),
+    ("sd3_train_joint_1357", 32, 1357, 24, 64),
+]
+SD3_K23_SHAPES = [("sd3_train_joint_1357", 2, 1357, 24, 64), ("sd3_train_joint_1357", 16, 1357, 24, 64)]
+SD3_INT8_REQUEST = ("a photo of a person", 2.0, 7, SD3_GUIDANCE, "smoke")
+
+
+def phase_kernel_sd3(gen: torch.Generator) -> tuple:
+    """K1 (bf16) against its plain version at SD3-Medium's joint shapes
+    (SD3_K1_SHAPES) and K2/K3 at the 512px student's (SD3_K23_SHAPES), with
+    the splits their rules pick at 24 heads: errors, events, device ms, the
+    plain versions, SDPA (forward; whole backward), the bound, TFLOP/s, share
+    of the bound. Returns (K1 rows, K2/K3 rows)."""
+    k1_rows, bwd_rows = [], []
+    for name, rows, s, h, d in SD3_K1_SHAPES:
+        q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        c = check_k1(q, k, v, f"{name} rows={rows} bf16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound_ms, bound_by = bound(rows, s, s, h, d, torch.bfloat16)
+        row = dict(phase="kernel", shape=name, rows=rows, sq=s, sk=s, heads=h, head_dim=d, dtype="torch.bfloat16",
+                   **{key: val for key, val in c.items() if key not in ("out", "lse")},
+                   kernel_ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 10),
+                   device_ms=device_ms(lambda: fa.flash_attention_fwd(q, k, v), 5),
+                   plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, d**-0.5), 2),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
+                   library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        row.update(rates(4 * rows * h * s * s * d, row["device_ms"], bound_ms, row["library_device_ms"]))
+        emit(row)
+        k1_rows.append(row)
+        del q, k, v, qt, kt, vt, c
+        torch.cuda.empty_cache()
+    for name, rows, s, h, d in SD3_K23_SHAPES:
+        scale = d**-0.5
+        q, k, v, do = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
+        torch.cuda.synchronize()
+        k2_splits = fa.pick_k2_splits(rows * h, s, s, torch.bfloat16)
+        k3_splits = fa.pick_k3_splits(rows * h, s, s, torch.bfloat16)
+        ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
+                                               k3_splits, dq_splits=k2_splits)
+        errs = {g: (got.float() - want).abs().max().item() for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+        tols = {g: grad_tol(want, torch.bfloat16) for g, want in zip(("dq", "dk", "dv"), ref)}
+        del dq, dk, dv, ref
+        row = dict(phase="kernel_bwd", shape=name, rows=rows, sq=s, sk=s, heads=h, head_dim=d,
+                   padded_head_dim=d, dtype="torch.bfloat16", k2_splits=k2_splits, k3_splits=k3_splits,
+                   max_abs_err=errs, tol=tols,
+                   k2_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 10),
+                   k3_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), 10),
+                   k2_device_ms=device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 5),
+                   k3_device_ms=device_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale), 5),
+                   k2_plain_ms=cuda_ms(lambda: fa.bwd_dq_reference(q, k, v, o, lse, do, scale), 2),
+                   k3_plain_ms=cuda_ms(lambda: fa.bwd_dkv_reference(q, k, v, lse, delta, do, scale), 2),
+                   library_ms=library_backward_ms(q, k, v, do, 5))
+        (row["k2_bound_ms"], row["k2_bound_by"]), (row["k3_bound_ms"], row["k3_bound_by"]) = (
+            bwd_bound("dq", s, s, rows * h, d, torch.bfloat16), bwd_bound("dkv", s, s, rows * h, d, torch.bfloat16))
+        for kern, mult in (("k2", 6), ("k3", 8)):
+            row.update({f"{kern}_{key}": val for key, val in rates(
+                mult * rows * h * s * s * d, row[f"{kern}_device_ms"], row[f"{kern}_bound_ms"],
+                row["library_ms"]).items()})
+        emit(row)
+        bad = [g for g in errs if not errs[g] <= tols[g]]
+        if bad:
+            raise AssertionError(f"K2/K3 disagree with their plain versions at {name} rows={rows}: {errs} > {tols}")
+        bwd_rows.append(row)
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
+    return k1_rows, bwd_rows
+
+
+def sd3_lora(model, seed: int, rank: int = 2):
+    """Sites over ``model``'s MMDiT and factors with a non-zero up (CPU)."""
+    sites = lora.create_sites(model, rank=rank, target_replace=["Attention"], train_method="full", delimiter="-")
+    g = torch.Generator().manual_seed(seed)
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+    return sites, lp
+
+
+def phase_sd3_parity() -> None:
+    """The tiny SD3 flow sampler (3 steps, CFG 7, the slider through the
+    overlay from step 1) and one tiny SD3 ESD step (train.cfg 7, the overlay
+    student with the merged warm-up, each block checkpointed), fp32: card
+    (K1 in every joint attention, K2/K3 in the student's backward) against
+    the CPU, same weights, factors, inputs and draws."""
+    cpu = factory.build_module(lambda: SD3Transformer2DModel(MMDiTConfig.tiny()), "cpu", torch.float32, 5)
+    sites, lp = sd3_lora(cpu, 1)
+    g = torch.Generator().manual_seed(2)
+    lat = torch.randn((2, 16, 8, 8), generator=g)
+    text, pooled = torch.randn((4, 81, 32), generator=g), torch.randn((4, 32), generator=g)
+    sched = FlowMatchScheduler().set_timesteps(3)
+    row_scale = torch.tensor([1.5, -1.0, 1.5, -1.0])
+
+    def sample(model, device):
+        lp_d = {n: {k: t.to(device) for k, t in leaf.items()} for n, leaf in lp.items()}
+        return sample_flow_loop(model, 1, sched, lat.to(device), text.to(device), pooled.to(device),
+                                guidance_scale=SD3_GUIDANCE, overlay=lora.LoRAOverlay(model, sites, lp_d),
+                                row_scale=row_scale.to(device)).cpu()
+
+    gpu = copy.deepcopy(cpu).to("cuda")
+    reset_counts()
+    got = sample(gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("sd3_parity sampler")
+    err = (got - sample(cpu, "cpu")).abs().max().item()
+    emit(dict(phase="sd3_parity", what="sampler", model="tiny MMDiT", steps=3, max_abs_err=err, tol=1e-3,
+              launches_k1_to_k4c=launches))
+    if not err <= 1e-3 or launches != per_step_launches(gpu.config, 3, 0):
+        raise AssertionError(f"tiny SD3 sampler on the card: error {err}, launches {launches}")
+
+    bank_g = torch.Generator().manual_seed(3)
+    bank = esd.PromptBank(torch.randn((1, 5, 81, 32), generator=bank_g), [3.0], [1.0],
+                          torch.randn((1, 5, 32), generator=bank_g))
+    t_to = 2
+    lat0 = torch.randn((1, 16, 8, 8), generator=bank_g)
+
+    def step(model, device):
+        lp_d = {n: {k: t.to(device).clone().requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10), grad_clip_norm=0.2)
+        cfg = esd_sd3.SD3ESDConfig(max_denoising_steps=3, train_cfg_scale=SD3_GUIDANCE, height=64, width=64,
+                                   remat=True, student_overlay=True, overlay_warmup=False)
+        st = esd_sd3.make_sd3_esd_train_step(model, sites, lp_d, FlowMatchScheduler().set_timesteps(3), opt, cfg)
+        bank_d = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign, bank.pooled.to(device))
+        m = st(opt.init(flat_params(sites, lp_d)), bank_d, draws=[esd_sd3.Draw(0, t_to, lat0.to(device))])
+        return float(m["loss"]), lora.state_dict_numpy(sites, lp_d)
+
+    reset_counts()
+    got = step(gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("sd3_parity ESD step")
+    want = step(cpu, "cpu")
+    want_launches = per_step_launches(gpu.config, t_to + 3, 1)
+    loss_err = abs(got[0] - want[0])
+    factor_err = max(float(np.abs(got[1][k] - want[1][k]).max()) for k in want[1])
+    emit(dict(phase="sd3_parity", what="esd_step", model="tiny MMDiT", timesteps_to=t_to, loss_card=got[0],
+              loss_cpu=want[0], loss_abs_err=loss_err, factor_max_abs_err=factor_err, tol=1e-3,
+              launches_k1_to_k4c=launches, expected_launches=want_launches))
+    if not (loss_err <= 1e-3 * max(1.0, abs(want[0])) and factor_err <= 1e-3) or launches != want_launches:
+        raise AssertionError(f"tiny SD3 ESD step on the card: loss {loss_err}, factors {factor_err}, "
+                             f"launches {launches} (expected {want_launches})")
+
+
+SD3_TE_CONFIGS = {"text_encoder": CLIPTextConfig(projection_dim=768), "text_encoder_2": CLIPTextConfig.sdxl_te2()}
+
+
+def phase_sd3_load(tmp: Path) -> Path:
+    """A full-width SD3-Medium diffusers directory of seeded random bf16
+    weights: transformer/ (MMDiTConfig.sd3_medium(), two shards and an
+    index), text_encoder/ (CLIP-L with its 768-dim projection) and
+    text_encoder_2/ (bigG) under transformers names, vae/ (VAEConfig.sd3():
+    16 channels, use_quant_conv false, scaling 1.5305, shift 0.0609),
+    config.json files, tokenizer/ and tokenizer_2/ (the synthetic BPE
+    files); then factory.load_models_sd3(dir, "cuda", bf16, with_vae=True),
+    every tensor bit-equal to its source; GB and GB/s."""
+    root = tmp / "sd3-medium-diffusers"
+    t0 = time.time()
+    src = {comp: factory.build_module(lambda c=c: CLIPTextEncoder(c), "cuda", torch.bfloat16, seed)
+           for seed, (comp, c) in enumerate(SD3_TE_CONFIGS.items())}
+    src["transformer"] = factory.build_module(lambda: SD3Transformer2DModel(MMDiTConfig.sd3_medium()), "cuda",
+                                              torch.bfloat16, 2)
+    src["vae"] = factory.build_module(lambda: AutoencoderKL(VAEConfig.sd3()), "cuda", torch.bfloat16, 3)
+    configs = {"transformer": MMDiTConfig.sd3_medium(), "vae": VAEConfig.sd3(), **SD3_TE_CONFIGS}
+    nbytes = 0
+    for comp, module in src.items():
+        sd = {k: v.cpu() for k, v in module.state_dict().items()}
+        if comp.startswith("text_encoder"):
+            sd = clip_transformers_names(sd)
+        sub = root / comp
+        sub.mkdir(parents=True)
+        (sub / "config.json").write_text(json.dumps(dataclasses.asdict(configs[comp])))
+        keys = sorted(sd)
+        shards = 2 if comp == "transformer" else 1
+        weight_map = {}
+        for i in range(shards):
+            name = (f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
+                    else "model.safetensors")
+            save_file({k: sd[k] for k in keys[i::shards]}, str(sub / name))
+            weight_map.update({k: name for k in keys[i::shards]})
+            nbytes += (sub / name).stat().st_size
+        if shards > 1:
+            (sub / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+        del sd
+    prompts = [p for f in sorted((REPO / "data").glob("prompts*.yaml"))
+               for e in yaml_subset.load_file(str(f)) or [] for k, p in e.items()
+               if k in ("target", "positive", "negative", "neutral", "unconditional") and isinstance(p, str)]
+    for tok in ("tokenizer", "tokenizer_2"):
+        write_synthetic_bpe_files(str(root / tok), prompts)
+    write_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks, tes, transformer, sched, vae = factory.load_models_sd3(str(root), weight_dtype=torch.bfloat16,
+                                                                 device="cuda", with_vae=True)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    got = {"text_encoder": tes[0].model, "text_encoder_2": tes[1].model, "transformer": transformer, "vae": vae}
+    mismatched = [f"{comp}.{k}" for comp, m in got.items() for k, v in m.state_dict().items()
+                  if v.dtype != torch.bfloat16 or not torch.equal(v, src[comp].state_dict()[k])]
+    emit(dict(phase="sd3_load", model=f"{SD3} (seeded random weights)",
+              layout="diffusers directory (transformer in 2 shards)",
+              params={c: sum(p.numel() for p in m.parameters()) for c, m in got.items()},
+              tensors=sum(len(m.state_dict()) for m in src.values()), gb=nbytes / 1e9, write_seconds=write_s,
+              load_seconds=load_s, load_gb_per_second=nbytes / load_s / 1e9,
+              tokenizers=[type(t).__name__ for t in toks], vae_shift_factor=vae.config.shift_factor,
+              vae_quant_convs=vae.quant_conv is not None, scheduler_shift=sched.shift, bit_equal=not mismatched))
+    if mismatched or vae.quant_conv is not None or transformer.config != MMDiTConfig.sd3_medium():
+        raise AssertionError(f"sd3_load: {len(mismatched)} tensors differ from their source (e.g. {mismatched[:3]})")
+    del src, got, tes, transformer, vae
+    torch.cuda.empty_cache()
+    return root
+
+
+def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iterations: int = SD3_TRAIN_ITERATIONS,
+                    yaml_edit=None, profile: bool = True) -> list:
+    """Full-width SD3-Medium ESD training at 512px through
+    cli/train_lora_sd3.train from data/config-sd3.yaml + data/prompts-sd3.yaml
+    (batch 8, CFG 7, 28 flow steps; only the model — the sd3_load directory —,
+    train.iterations and save.path overridden): per step K1 24·(tₖ + 3) (the
+    warm-up, teacher, student and the student's recompute) and K2 = K3 = 24;
+    steps/s after the first, first-step seconds, peak memory, the drawn
+    timesteps_to, the saved keys; one more step profiled."""
+    cfg, prompts = train_config(tmp / what, "config-sd3.yaml", iterations)
+    cfg.pretrained_model.name_or_path = str(sd3_dir)
+    if yaml_edit is not None:
+        yaml_edit(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = train_lora_sd3.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain(what)
+    t_to = [r["timesteps_to"] for r in res.metrics]
+    mm_cfg = MMDiTConfig.sd3_medium()
+    want = per_step_launches(mm_cfg, sum(t + 3 for t in t_to), iterations)
+    saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
+    with torch.device("meta"):
+        ref_sites = lora.create_sites(SD3Transformer2DModel(mm_cfg), rank=cfg.network.rank,
+                                      target_replace=["Attention"], train_method=cfg.network.training_method,
+                                      delimiter="-")
+    keys_ok = set(saved) == {f"{s.lora_name}.{k}" for s in ref_sites
+                             for k in ("lora_down.weight", "lora_up.weight", "alpha")}
+    ups_zero = sum(not leaf["up"].detach().abs().max().item() > 0 for leaf in res.lora_params.values())
+    row = dict(phase=what, model=f"{SD3} (the sd3_load directory)", image_size=prompts[0].resolution,
+               batch_size=prompts[0].batch_size, train_cfg=cfg.train.cfg,
+               max_denoising_steps=cfg.train.max_denoising_steps, precision=cfg.train.precision,
+               quantize_base=cfg.tpu.quantize_base, lora_sites=len(res.sites), iterations=iterations,
+               losses=res.losses, grad_norms=[r["grad_norm"] for r in res.metrics], timesteps_to=t_to,
+               steps_per_sec_after_first=res.steps_per_sec, first_step_seconds=res.first_step_seconds,
+               setup_seconds=res.setup_seconds, wall_seconds=wall,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, launches_k1_to_k4c=launches,
+               expected_launches=want, saved_keys=len(saved), saved_keys_match_reference=keys_ok,
+               up_factors_still_zero=ups_zero)
+    emit(row)
+    if (not all(np.isfinite(res.losses)) or len(res.losses) != iterations or ups_zero or not keys_ok
+            or len(res.sites) != 96 or launches != want):
+        raise AssertionError(f"{what}: {row}")
+    if profile:
+        profiled = {}
+        prof = device_profile(lambda: profiled.update(res.next_step()))
+        emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def make_sd3_slider(path: Path, rank: int = 4, seed: int = 4) -> None:
+    """A rank-4 '-'-delimited slider over SD3-Medium's 96 image-stream sites
+    (the trainer's under train_method full), non-zero up."""
+    with torch.device("meta"):
+        model = SD3Transformer2DModel(MMDiTConfig.sd3_medium())
+    lora.save_weights(str(path), *sd3_lora(model, seed, rank))
+
+
+def phase_sd3_serve(tmp: Path, sd3_dir: Path, ref: dict) -> tuple:
+    """SD3SliderService over the sd3_load directory at 1024px, 28 flow steps,
+    CFG 7: two solo requests, a concurrent pair, one /generate over HTTP, one
+    profiled request; 24 × 28 = 672 K1 launches per sampler call and one K4a
+    per decode (the fp32 VAE's mid-block). Keeps the slider and the bf16
+    image of SD3_INT8_REQUEST in ``ref`` for sd3_int8."""
+    ref["slider"] = str(tmp / "sd3_serve_noxattn_rank4_alpha1.safetensors")
+
+    def after(svc):
+        ref["png"] = svc.generate(*SD3_INT8_REQUEST)
+
+    return served(tmp, "sd3_serve", lambda p: SD3SliderService(str(sd3_dir), p, image_size=SD3_SERVE_SIZE,
+                                                               steps=SD3_SERVE_STEPS, device="cuda",
+                                                               batch_window_ms=50.0),
+                  MMDiTConfig.sd3_medium(), f"{SD3} (the sd3_load directory)", guidance=SD3_GUIDANCE,
+                  slider=make_sd3_slider, after=after)
+
+
+def phase_sd3_sweep(tmp: Path, sd3_dir: Path, slider: str) -> list:
+    """cli/generate_images_sd3 at its defaults (512px, 28 steps, CFG 7,
+    start_noise 750) over the sd3_load directory, scales -2, 0, 2 × one
+    sample × case 0 of prompts/prompts-person.csv: per trajectory 24 × 28 K1,
+    one K4a per decode; seconds per image."""
+    save = tmp / "sd3_sweep"
+    scales = ("-2.0", "0.0", "2.0")
+    argv = ["--model_name", slider, "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+            "--save_path", str(save), "--base", str(sd3_dir), "--scales=" + ",".join(scales), "--till_case", "0"]
+    reset_counts()
+    t0 = time.time()
+    gen_sd3.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain("sd3_sweep")
+    imgs = {s: decode_png((save / Path(slider).name / s / "0_0.png").read_bytes()) for s in scales}
+    k1_call, k4a_call = per_sampler_call(MMDiTConfig.sd3_medium(), 28)
+    want = [len(scales) * k1_call, 0, 0, len(scales) * k4a_call, 0, 0]
+    row = dict(phase="sd3_sweep", model=f"{SD3} (the sd3_load directory)", image_size=512, steps=28,
+               scales=list(scales), wall_seconds=wall, seconds_per_image=wall / len(scales),
+               launches_k1_to_k4c=launches, expected_launches=want, shapes=[list(i.shape) for i in imgs.values()],
+               scale_minus2_vs_2=image_gap(imgs["-2.0"], imgs["2.0"]))
+    emit(row)
+    if launches != want or any(i.shape != (512, 512, 3) for i in imgs.values()) or np.array_equal(
+            imgs["-2.0"], imgs["2.0"]):
+        raise AssertionError(f"sd3_sweep: {row}")
+    return launches
+
+
+def phase_sd3_int8(tmp: Path, sd3_dir: Path, ref: dict) -> dict:
+    """SD3's int8 base: 2 training steps with tpu.quantize_base (launches as
+    bf16's, finite, moved factors); one 1024px request under --w8a8
+    (latency, peak, the gap to the bf16 image); the quantize_checkpoint
+    --family sd3 artifact (bytes, seconds) loaded as the base, one forward
+    bit-equal to load_models_sd3(dir, quantize_base=True)'s."""
+    paths = {"sd3_int8_train": phase_sd3_train(tmp, sd3_dir, "sd3_int8_train", 2,
+                                               functools.partial(set_tpu, quantize_base=True), profile=False)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    svc = SD3SliderService(str(sd3_dir), ref["slider"], image_size=SD3_SERVE_SIZE, steps=SD3_SERVE_STEPS,
+                           device="cuda", w8a8=True)
+    load_s = time.time() - t0
+    try:
+        svc.add_slider("smoke", ref["slider"])
+        reset_counts()
+        t0 = time.time()
+        png = svc.generate(*SD3_INT8_REQUEST)
+        secs = time.time() - t0
+        paths["sd3_int8_serve"] = list(counts())
+        check_no_plain("sd3_int8_serve")
+        n_q = sum(isinstance(m, quant.QuantLinear) for m in svc.unet.modules())
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    img, bf16 = decode_png(png), decode_png(ref["png"])
+    k1_call, k4a_call = per_sampler_call(MMDiTConfig.sd3_medium(), SD3_SERVE_STEPS)
+    row = dict(phase="sd3_int8_serve", mode="w8a8", load_seconds=load_s, request_seconds=secs, quant_linears=n_q,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               gap_to_bf16=image_gap(img, bf16), launches_k1_to_k4c=paths["sd3_int8_serve"])
+    emit(row)
+    if paths["sd3_int8_serve"] != [k1_call, 0, 0, k4a_call, 0, 0] or img.shape != bf16.shape:
+        raise AssertionError(f"sd3_int8_serve: {row}")
+
+    out = tmp / "sd3-medium.int8.safetensors"
+    t0 = time.time()
+    n_q = quantize_checkpoint.main(["--base", str(sd3_dir), "--family", "sd3", "--out", str(out)])
+    cli_s = time.time() - t0
+    reset_counts()
+    t0 = time.time()
+    _, _, from_artifact, _ = factory.load_models_sd3(str(out), weight_dtype=torch.bfloat16, device="cuda")
+    reload_s = time.time() - t0
+    _, _, from_dir, _ = factory.load_models_sd3(str(sd3_dir), weight_dtype=torch.bfloat16, device="cuda",
+                                                quantize_base=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((2, 16, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((2, 333, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    pooled = torch.randn((2, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([261.0, 761.0], device="cuda")
+    with torch.inference_mode():
+        a, b = from_artifact(x, t, ctx, pooled), from_dir(x, t, ctx, pooled)
+    paths["sd3_quantize_checkpoint"] = list(counts())
+    check_no_plain("sd3_quantize_checkpoint")
+    dir_bytes = sum(f.stat().st_size for f in (sd3_dir / "transformer").glob("*.safetensors"))
+    row = dict(phase="sd3_quantize_checkpoint", int8_kernels=n_q, artifact_bytes=out.stat().st_size,
+               directory_transformer_bytes=dir_bytes, cli_seconds=cli_s, reload_seconds=reload_s,
+               forward_bit_equal=bool(torch.equal(a, b)), forward_finite=bool(torch.isfinite(a).all()),
+               launches_k1_to_k4c=paths["sd3_quantize_checkpoint"])
+    emit(row)
+    if (not row["forward_bit_equal"] or not row["forward_finite"]
+            or paths["sd3_quantize_checkpoint"] != per_step_launches(MMDiTConfig.sd3_medium(), 2, 0)):
+        raise AssertionError(f"sd3_quantize_checkpoint: {row}")
+    del from_artifact, from_dir, a, b
+    out.unlink()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_sd3_export(tmp: Path, sd3_dir: Path, slider: str) -> None:
+    """cli/export_single_file --sd3 over the sd3_load directory and the serve
+    slider at --scale 2 (fp32, the *_incl_clips layout); the file reloaded
+    through factory.load_models_sd3 in bf16: every non-site tensor bit-equal
+    to the directory's, every site weight to the fp32 merge rounded once;
+    write and reload seconds."""
+    out = tmp / "sd3-medium-merged_incl_clips.safetensors"
+    t0 = time.time()
+    export_single_file.main(["--base", str(sd3_dir), "--slider", slider, "--scale", "2", "--output", str(out),
+                             "--sd3", "--device", "0"])
+    write_s = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    _, tes, merged_model, _ = factory.load_models_sd3(str(out), weight_dtype=torch.bfloat16, device="cuda")
+    reload_s = time.time() - t0
+    _, dir_tes, base, _ = factory.load_models_sd3(str(sd3_dir), weight_dtype=torch.float32, device="cuda")
+    sites, lp = gen_sd3.sd3_slider(base, slider, load_slider_file(slider).unet, "cuda")
+    merged = lora.merge_lora_params(base, sites, lp, 2.0)  # the CLI's fp32 merge
+    want = {k: v.to(torch.bfloat16) for k, v in base.state_dict().items()}
+    want.update({k: v.to(torch.bfloat16) for k, v in merged.items()})
+    got = merged_model.state_dict()
+    bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    bad += [f"te{i}.{k}" for i, (a, b) in enumerate(zip(tes, dir_tes)) for k, v in b.model.state_dict().items()
+            if not torch.equal(a.model.state_dict()[k], v.to(torch.bfloat16))]
+    row = dict(phase="sd3_export", model=f"{SD3} (the sd3_load directory)", scale=2.0, sites=len(sites),
+               file_bytes=out.stat().st_size, write_seconds=write_s, reload_seconds=reload_s,
+               tensors_checked=len(want), mismatched=len(bad))
+    emit(row)
+    out.unlink()
+    del tes, merged_model, dir_tes, base, got, want, merged
+    torch.cuda.empty_cache()
+    if bad or len(sites) != 96:
+        raise AssertionError(f"sd3_export: {len(bad)} tensors differ (e.g. {bad[:3]}), {len(sites)} sites")
+
+
+def phase_sd3_notrigger(tmp: Path, sd3_dir: Path) -> None:
+    """cli/train_notrigger.train with --model SD3-Medium over the sd3_load
+    directory's towers: a LoRA slider in bigG (clip_index 1), NOTRIGGER_STEPS
+    steps; finite losses, the saved keys (lora_te2_…, 4 sites per bigG
+    layer); no attention kernel (the towers' causal attention is plain)."""
+    cfg = load_config_from_yaml(str(REPO / "data" / "config-notrigger-xl.yaml"))
+    cfg.pretrained_model.name_or_path = str(sd3_dir)
+    cfg.save.path = str(tmp / "sd3_notrigger")
+    cfg.train.iterations, cfg.train.lr = NOTRIGGER_STEPS, NOTRIGGER_LR
+    reset_counts()
+    t0 = time.time()
+    train_notrigger.train(cfg, positive="a person, smiling", negative="a person, frowning", clip_index=1,
+                          peft_type="lora", model="SD3-Medium", device="cuda")
+    wall = time.time() - t0
+    lines = [json.loads(x) for x in (Path(cfg.save.path) / f"{cfg.save.name}_metrics.jsonl").read_text().splitlines()]
+    rows = [x for x in lines if "step" in x]
+    saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_1_last.safetensors"))
+    row = dict(phase="sd3_notrigger", model=f"{SD3} (the sd3_load directory's bigG)", steps=len(rows),
+               losses=[r["loss"] for r in rows], wall_seconds=wall,
+               steps_per_sec_after_first=lines[-1]["steps_per_sec"], saved_keys=len(saved),
+               launches_k1_to_k4c=list(counts()))
+    emit(row)
+    if (len(rows) != NOTRIGGER_STEPS or not all(np.isfinite(row["losses"])) or any(counts()) or any(plain_calls())
+            or len(saved) != 3 * 4 * CLIPTextConfig.sdxl_te2().num_hidden_layers
+            or not all(k.startswith("lora_te2_") for k in saved)):
+        raise AssertionError(f"sd3_notrigger: {row}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -2851,9 +3377,11 @@ def main() -> int:
     kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
     kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
     k1_sd_errors, k4a_sd_errors = phase_kernel_sd_serve(gen)
+    sd3_k1_rows, sd3_bwd_rows = phase_kernel_sd3(gen)
     phase_parity()
     phase_train_parity()
     phase_sd_train_parity()
+    phase_sd3_parity()
     paths = {}  # each path's launches of K1..K4c, counted from 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2931,6 +3459,16 @@ def main() -> int:
         paths.update(phase_serve_int8(tmp, bf16_ref["png"]))
         paths["quantize_checkpoint"] = phase_quantize_checkpoint(tmp, sd_dir)
         emit(dict(phase="int8_phases", seconds=time.time() - t_int8))
+        t_sd3 = time.time()
+        sd3_dir = phase_sd3_load(tmp)
+        paths["sd3_train"] = phase_sd3_train(tmp, sd3_dir)
+        sd3_ref = {}
+        paths["sd3_serve"] = phase_sd3_serve(tmp, sd3_dir, sd3_ref)
+        paths["sd3_sweep"] = phase_sd3_sweep(tmp, sd3_dir, sd3_ref["slider"])
+        paths.update(phase_sd3_int8(tmp, sd3_dir, sd3_ref))
+        phase_sd3_export(tmp, sd3_dir, sd3_ref["slider"])
+        phase_sd3_notrigger(tmp, sd3_dir)
+        emit(dict(phase="sd3_phases", seconds=time.time() - t_sd3))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
@@ -2944,11 +3482,15 @@ def main() -> int:
     sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged", "sd_knob_lion_step",
                   "sd_knob_sgd_linear_clip", "sd_knob_dadaptadam_samples2", "sd_int8_bf16_reference",
                   "sd_int8_quantize_base")
+    # SD3: the MMDiT's joint attention is K1 (K2/K3 in training); its decodes K4a
+    sd3_train = ("sd3_train", "sd3_int8_train")
+    sd3_decode = ("sd3_serve", "sd3_sweep", "sd3_int8_serve")
+    sd3_inference = sd3_decode + ("sd3_quantize_checkpoint",)
     runs_on = {
-        "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference,
-        "K2": xl_train + sd15_train + ("sd2_train",),
-        "K3": xl_train + sd15_train + ("sd2_train",),
-        "K4a": ("serve", "imageslider") + sd15_train + inference,
+        "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference,
+        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train,
+        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train,
+        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode,
         "K4b": sd15_train,
         "K4c": sd15_train,
     }
@@ -2957,7 +3499,9 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on every path that runs it: {paths}")
     if any(paths["sd2_train"][3:]):
         raise AssertionError(f"SD2.1 training launched K4a/K4b/K4c: {paths['sd2_train']}")
-    if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5] for p in inference + ("serve",)):
+    if any(paths[p][4] or paths[p][5] or paths[p][3] for p in sd3_train + ("sd3_quantize_checkpoint",)):
+        raise AssertionError(f"an SD3 path launched a k-grid kernel in the MMDiT: {paths}")
+    if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5] for p in inference + ("serve",) + sd3_inference):
         raise AssertionError(f"an inference path launched a backward kernel: {paths}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time
@@ -2980,7 +3524,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
             **launches("K1"),
-            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows] + k1_sd_errors),
+            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows + sd3_k1_rows] + k1_sd_errors),
             ms=main_row["kernel_ms"],
             device_ms=main_row["device_ms"],
             plain_ms=main_row["plain_ms"],
@@ -2993,6 +3537,9 @@ def main() -> int:
             share_of_bound=main_row["share_of_bound"],
             over_library=main_row["over_library"],
             at=f"{main_row['shape']} rows={main_row['rows']} heads={main_row['heads']} d={main_row['head_dim']} bf16",
+            sd3=[{k: r[k] for k in ("shape", "rows", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                    "library_device_ms", "tflops", "share_of_bound", "over_library", "max_abs_err")}
+                 for r in sd3_k1_rows],
         ),
         dict(
             name="flash_attention_bwd_dq",
@@ -3000,7 +3547,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:107",
             **launches("K2"),
-            max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
+            max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows + sd3_bwd_rows),
             ms=bwd_main["k2_ms"],
             device_ms=bwd_main["k2_device_ms"],
             plain_ms=bwd_main["k2_plain_ms"],
@@ -3014,6 +3561,9 @@ def main() -> int:
             share_of_bound=bwd_main["k2_share_of_bound"],
             over_library=bwd_main["k2_over_library"],
             at=at_bwd,
+            sd3=[{k: r[k] for k in ("shape", "rows", "k2_splits", "k2_ms", "k2_device_ms", "k2_plain_ms", "k2_bound_ms",
+                                    "library_ms", "k2_tflops", "k2_share_of_bound", "k2_over_library")}
+                 for r in sd3_bwd_rows],
         ),
         dict(
             name="flash_attention_bwd_dkv",
@@ -3021,7 +3571,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:139",
             **launches("K3"),
-            max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows),
+            max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows + sd3_bwd_rows),
             ms=bwd_main["k3_ms"],
             device_ms=bwd_main["k3_device_ms"],
             plain_ms=bwd_main["k3_plain_ms"],
@@ -3034,6 +3584,9 @@ def main() -> int:
             share_of_bound=bwd_main["k3_share_of_bound"],
             over_library=bwd_main["k3_over_library"],
             at=at_bwd,
+            sd3=[{k: r[k] for k in ("shape", "rows", "k3_splits", "k3_ms", "k3_device_ms", "k3_plain_ms", "k3_bound_ms",
+                                    "library_ms", "k3_tflops", "k3_share_of_bound", "k3_over_library")}
+                 for r in sd3_bwd_rows],
         ),
         dict(
             name="flash_attention_kgrid_fwd",

@@ -4,7 +4,7 @@ checkpoint (an A1111-style ``.safetensors``) — counterpart of
 
   python -m sliders_conceptmod_tpu_torch.cli.export_single_file \\
       --base /ckpts/sd15 --slider slider.safetensors --scale 1.0 \\
-      --output merged.safetensors [--v2 | --xl] [--half]
+      --output merged.safetensors [--v2 | --xl | --sd3] [--half]
 
 ``--base`` is a diffusers directory, a single file or a family name
 (``models/factory.py``), loaded in fp32 with its VAE. The slider (a UNet part;
@@ -12,7 +12,9 @@ rank and alpha from its tensors, else its file name) is merged at ``--scale``
 (``adapters/lora.py::merge_lora_params``) into the site weights, and the
 whole model is written through ``io/ldm_export.py`` in float32, or float16
 with ``--half`` (which rounds: only the float32 export is bit-exact).
-``--sd3`` and ``--flux`` raise: their models are ROADMAP.md queue 1, item 9.
+``--sd3`` writes SD3's ``*_incl_clips`` layout (the MMDiT and both CLIP
+towers, no VAE, as the JAX CLI writes it) with a ``-``-delimited slider baked
+in; ``--flux`` raises: its model is ROADMAP.md queue 1, item 9.
 Runs on ``cuda`` unless ``--device cpu``.
 """
 
@@ -24,6 +26,7 @@ import torch
 
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
+from sliders_conceptmod_tpu_torch.cli.generate_images_sd3 import sd3_slider
 from sliders_conceptmod_tpu_torch.cli.generate_images_xl import torch_device, unet_slider
 from sliders_conceptmod_tpu_torch.io import ldm_export
 from sliders_conceptmod_tpu_torch.models import factory
@@ -37,7 +40,7 @@ def build_parser():
     parser.add_argument("--output", required=True)
     parser.add_argument("--v2", action="store_true", help="SD2 (OpenCLIP text-tower layout)")
     parser.add_argument("--xl", action="store_true", help="SDXL (SGM conditioner layout)")
-    parser.add_argument("--sd3", action="store_true", help="SD3: not ported yet (ROADMAP.md queue 1, item 9)")
+    parser.add_argument("--sd3", action="store_true", help="SD3 (SGM MMDiT layout, CLIP towers included)")
     parser.add_argument("--flux", action="store_true", help="Flux: not ported yet (ROADMAP.md queue 1, item 9)")
     parser.add_argument("--half", action="store_true", help="save float16 tensors")
     parser.add_argument("--device", type=str, default="cuda", help="torch device or CUDA ordinal (cpu for tiny)")
@@ -46,10 +49,12 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.sd3 or args.flux:
-        raise NotImplementedError("SD3 / Flux export needs their models, not ported yet (ROADMAP.md queue 1, item 9)")
+    if args.flux:
+        raise NotImplementedError("Flux export needs its model, not ported yet (ROADMAP.md queue 1, item 9)")
     device = torch_device(args.device)
-    if args.xl:
+    if args.sd3:
+        _, tes, unet, _ = factory.load_models_sd3(args.base, device=device)
+    elif args.xl:
         _, tes, unet, _, vae = factory.load_models_xl(args.base, with_vae=True, device=device)
     else:
         _, te, unet, _, vae = factory.load_models(args.base, scheduler_name="ddim", v2=args.v2, with_vae=True,
@@ -59,11 +64,14 @@ def main(argv=None):
         parts = load_slider_file(args.slider)
         if parts.unet is None:
             raise ValueError(f"No matching LoRA keys between UNet and {args.slider}")
-        sites, lora_params = unet_slider(unet, args.slider, parts.unet, device)
+        slider_of = sd3_slider if args.sd3 else unet_slider
+        sites, lora_params = slider_of(unet, args.slider, parts.unet, device)
         unet_sd.update(lora_lib.merge_lora_params(unet, sites, lora_params, args.scale))
         print(f"baked {len(sites)} LoRA sites at scale {args.scale}")
 
-    if args.xl:
+    if args.sd3:
+        sd = ldm_export.export_sd3_checkpoint(unet_sd, tes[0].model.state_dict(), tes[1].model.state_dict())
+    elif args.xl:
         sd = ldm_export.export_sdxl_checkpoint(unet_sd, tes[0].model.state_dict(), tes[1].model.state_dict(),
                                                vae.state_dict())
     else:

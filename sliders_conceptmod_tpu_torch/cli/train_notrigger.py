@@ -7,11 +7,12 @@
       --config_file data/config-notrigger-xl.yaml --alpha 1 --rank 4 \\
       --clip_index 0 --positive "smiling" --negative "frowning"
 
-``--clip_index`` picks the SDXL tower (0: CLIP-L, keys ``lora_te1_…``; 1:
+``--clip_index`` picks the tower (0: CLIP-L, keys ``lora_te1_…``; 1:
 OpenCLIP bigG, ``lora_te2_…``); ``--peft_type`` is ``dora`` by default;
-``--model`` is ``SDXL``, ``PonyXL`` (the config's ``name_or_path``) or
-``tiny`` (the tiny-xl towers, for the CPU). SD3 and Flux (their CLIP and T5
-towers) are not ported yet. Saves are ``{name}_{clip_index}_{i}steps``
+``--model`` is ``SDXL``, ``PonyXL`` (the config's ``name_or_path``), ``tiny``
+(the tiny-xl towers, for the CPU), ``SD3-Medium`` (SD3's towers through
+``load_models_sd3``: CLIP-L with its projection, bigG) or ``tiny-sd3``.
+Flux (its T5 tower) is not ported yet. Saves are ``{name}_{clip_index}_{i}steps``
 and ``{name}_{clip_index}_last.safetensors`` in ``save.precision``, with a
 resume checkpoint beside each periodic save. ``--device`` picks the torch
 device (default ``cuda``; ``cpu`` for tiny configs).
@@ -39,7 +40,8 @@ from sliders_conceptmod_tpu_torch.train import notrigger as nt
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 
-_SD3_FLUX = ("SD3-Medium", "FLUX.1", "tiny-sd3", "tiny-flux")
+_SD3 = ("SD3-Medium", "tiny-sd3")
+_FLUX = ("FLUX.1", "tiny-flux")
 
 
 def _prompt(p):
@@ -71,14 +73,20 @@ def train(
             "notrigger trainer touches only text encoders — set "
             "quantize_base: false."
         )
-    if model in _SD3_FLUX:
-        raise NotImplementedError(f"model={model}: the SD3 / Flux text encoders (CLIP-G, T5) are not ported yet "
+    if model in _FLUX:
+        raise NotImplementedError(f"model={model}: the Flux text encoders (CLIP-L, T5) are not ported yet "
                                   "(ROADMAP.md queue 1, item 9)")
-    if model not in ("SDXL", "PonyXL", "tiny"):
+    if model not in ("SDXL", "PonyXL", "tiny") + _SD3:
         raise NotImplementedError(f"model={model} not supported (SDXL/PonyXL/SD3-Medium/FLUX.1)")
     weight_dtype = config_util.parse_precision(config.train.precision)
-    name = "tiny-xl" if model == "tiny" else config.pretrained_model.name_or_path
-    _, text_encoders, _, _ = factory.load_models_xl(name, weight_dtype=weight_dtype, device=device, with_unet=False)
+    if model in _SD3:  # SD3's own towers: CLIP-L with its 768-dim projection, bigG
+        name = "tiny-sd3" if "tiny" in model else config.pretrained_model.name_or_path
+        _, text_encoders, _, _ = factory.load_models_sd3(name, weight_dtype=weight_dtype, device=device,
+                                                         with_transformer=False)
+    else:
+        name = "tiny-xl" if model == "tiny" else config.pretrained_model.name_or_path
+        _, text_encoders, _, _ = factory.load_models_xl(name, weight_dtype=weight_dtype, device=device,
+                                                        with_unet=False)
     te = text_encoders[clip_index]
     encoder = te.model
     prefix = ["lora_te1", "lora_te2"][clip_index]
@@ -220,7 +228,7 @@ def build_parser():
                         help="resume checkpoint ({name}_{clip_index}_resume.pt next to the saves, or its directory)")
     parser.add_argument("--positive", type=str, nargs="+", default=None)
     parser.add_argument("--model", type=str, default="SDXL",
-                        help="SDXL | PonyXL | tiny (SD3-Medium and FLUX.1 are not ported yet)")
+                        help="SDXL | PonyXL | tiny | SD3-Medium | tiny-sd3 (FLUX.1 is not ported yet)")
     parser.add_argument("--negative", type=str, default=None)
     parser.add_argument("--clip_index", type=int, required=True)
     return parser

@@ -14,6 +14,10 @@ the name before it), and its leaves convert by the layer type:
 An int8 ``QuantLinear`` (``adapters/quant.py``) takes JAX's quantized leaves:
 an int8 ``kernel [in, out]`` → ``weight_q [out, in]`` and ``kernel_scale`` →
 ``scale``; given a full-precision kernel it quantizes it (from fp32).
+The same rules carry every model of the port, the SD3 MMDiT included (its
+Dense layers, the patch conv, ``to_out_0``/``net_0``/``net_2`` as the
+ModuleLists' ``to_out.0``/``net.0``/``net.2``, and its quantized leaves):
+its module names are diffusers', so no model needs a rule of its own.
 :func:`to_jax_tree` is the way back: a module's state in the JAX layout.
 Leaves may be numpy arrays or torch tensors (bfloat16 included).
 """

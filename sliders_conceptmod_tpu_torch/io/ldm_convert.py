@@ -21,7 +21,12 @@ in torch layout under the port's module names (diffusers' names, see
   layer and its ``text_projection``) — split the fused ``in_proj`` into
   q/k/v and rename ``ln_1/ln_2/c_fc/c_proj``.
 
-SD3, Flux and Stable Cascade checkpoints raise ``NotImplementedError``
+An SD3 file (``model.diffusion_model.joint_blocks.…``, the SGM MM-DiT
+layout of ``sd3_medium*.safetensors``) gives ``{"transformer"[, "vae",
+"text_encoder", "text_encoder_2"]}`` (:func:`convert_sd3_mmdit_state_dict`;
+the towers under ``text_encoders.clip_l/clip_g.transformer.`` in the
+transformers layout; a T5 tower, which SD3 here does without, is skipped).
+Flux and Stable Cascade checkpoints raise ``NotImplementedError``
 (ROADMAP.md queue 1, items 9 and 10).
 """
 
@@ -40,6 +45,8 @@ OPENCLIP_PREFIX = "cond_stage_model.model."
 XL_TE1_PREFIX = "conditioner.embedders.0.transformer."
 XL_TE2_PREFIX = "conditioner.embedders.1.model."
 SD2_TEXT_LAYERS = 23
+SD3_TE1_PREFIX = "text_encoders.clip_l.transformer."
+SD3_TE2_PREFIX = "text_encoders.clip_g.transformer."
 
 _RESNET_RENAMES = {
     "in_layers.0": "norm1",
@@ -154,11 +161,84 @@ def openclip_to_transformers(sd: StateDict, max_layers: int = None) -> StateDict
     return out
 
 
+def swap_scale_shift(value: torch.Tensor) -> torch.Tensor:
+    """SGM's AdaLN heads emit (shift, scale); diffusers' (and
+    ``models/mmdit.py``'s continuous AdaLN) chunk (scale, shift): swap the
+    two halves of the output axis. Its own inverse."""
+    half = value.shape[0] // 2
+    return torch.cat([value[half:], value[:half]], dim=0)
+
+
+def convert_sd3_mmdit_state_dict(sd: StateDict) -> StateDict:
+    """SD3's SGM MMDiT (keys without ``model.diffusion_model.``) → the port's
+    ``SD3Transformer2DModel`` names, the renames of diffusers' single-file
+    conversion (the JAX ``convert_sd3_mmdit_state_dict``): each fused
+    ``attn.qkv`` splits into ``to_q/to_k/to_v`` (``add_q/k/v_proj`` in the
+    context stream), ``adaLN_modulation.1`` → ``norm1(_context).linear`` /
+    ``norm_out.linear``, and every 2·dim AdaLN head (``norm_out`` and the
+    last block's context norm) swaps its (shift, scale) halves. Without the
+    swap the weights load and the images come out wrong. The stored
+    ``pos_embed`` table is dropped: the model computes it."""
+    out: StateDict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "pos_embed":
+            continue
+        if parts[0] == "x_embedder":
+            out[".".join(["pos_embed"] + parts[1:])] = value
+        elif parts[0] in ("t_embedder", "y_embedder"):
+            sub = "timestep_embedder" if parts[0] == "t_embedder" else "text_embedder"
+            out[".".join(["time_text_embed", sub, {"0": "linear_1", "2": "linear_2"}[parts[2]]] + parts[3:])] = value
+        elif parts[0] == "context_embedder":
+            out[key] = value
+        elif parts[0] == "final_layer":
+            if parts[1] == "adaLN_modulation":
+                out["norm_out.linear." + parts[-1]] = swap_scale_shift(value)
+            else:
+                out[".".join(["proj_out"] + parts[2:])] = value
+        elif parts[0] == "joint_blocks":
+            base = f"transformer_blocks.{parts[1]}."
+            ctx = parts[2] == "context_block"
+            rest = parts[3:]
+            if rest[:2] == ["attn", "qkv"]:
+                names = ("add_q_proj", "add_k_proj", "add_v_proj") if ctx else ("to_q", "to_k", "to_v")
+                for name, chunk in zip(names, value.chunk(3, dim=0)):
+                    out[f"{base}attn.{name}.{rest[2]}"] = chunk.contiguous()
+            elif rest[:2] == ["attn", "proj"]:
+                out[base + ("attn.to_add_out." if ctx else "attn.to_out.0.") + rest[2]] = value
+            elif rest[0] == "adaLN_modulation":
+                # the last block's context head is 2·dim (the continuous AdaLN):
+                # read off the sibling weight, so its bias swaps with it
+                w = sd[".".join(parts[:-1] + ["weight"])]
+                if ctx and w.shape[0] == 2 * w.shape[1]:
+                    value = swap_scale_shift(value)
+                out[base + ("norm1_context.linear." if ctx else "norm1.linear.") + rest[2]] = value
+            elif rest[0] == "mlp":
+                fc = {"fc1": "net.0.proj", "fc2": "net.2"}[rest[1]]
+                out[base + ("ff_context." if ctx else "ff.") + fc + "." + rest[2]] = value
+            else:
+                raise ValueError(f"Unmapped SD3 MMDiT key: {key}")
+        else:
+            raise ValueError(f"Unmapped SD3 MMDiT key: {key}")
+    return out
+
+
+def _convert_sd3(sd: StateDict) -> Dict[str, StateDict]:
+    out = {"transformer": convert_sd3_mmdit_state_dict(
+        {k[len(UNET_PREFIX):]: v for k, v in sd.items() if k.startswith(UNET_PREFIX)})}
+    vae_sd = {k: v for k, v in sd.items() if k.startswith(VAE_PREFIX)}
+    if vae_sd:
+        out["vae"] = convert_ldm_checkpoint(vae_sd)["vae"]
+    for prefix, name in ((SD3_TE1_PREFIX, "text_encoder"), (SD3_TE2_PREFIX, "text_encoder_2")):
+        te = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if te:
+            out[name] = clip_state_dict(te)
+    return out
+
+
 def _refuse_other_families(sd: StateDict) -> None:
     if any(k.startswith(("double_blocks.", "single_blocks.")) for k in sd):
         raise NotImplementedError("Flux single-file checkpoints are not ported yet (ROADMAP.md queue 1, item 9)")
-    if any(k.startswith(UNET_PREFIX + "joint_blocks.") for k in sd):
-        raise NotImplementedError("SD3 single-file checkpoints are not ported yet (ROADMAP.md queue 1, item 9)")
     if any(k.startswith(("clip_txt_mapper.", "effnet_mapper.", "clip_txt_pooled_mapper.")) for k in sd):
         raise NotImplementedError("Stable Cascade checkpoints are not ported yet (ROADMAP.md queue 1, item 10)")
 
@@ -167,6 +247,8 @@ def convert_ldm_checkpoint(sd: StateDict) -> Dict[str, StateDict]:
     """Split and rename a whole LDM/SGM state dict (see the module
     docstring)."""
     _refuse_other_families(sd)
+    if any(k.startswith(UNET_PREFIX + "joint_blocks.") for k in sd):
+        return _convert_sd3(sd)
     up = [int(k[len(VAE_PREFIX):].split(".")[2]) for k in sd if k.startswith(VAE_PREFIX + "decoder.up.")]
     num_up_blocks = max(up) + 1 if up else 4
     unet: StateDict = {}

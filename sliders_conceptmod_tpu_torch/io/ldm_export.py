@@ -20,7 +20,12 @@ module's ``state_dict()`` under the port's (diffusers') names and returns
   (``conditioner.embedders.1.model.``, with ``text_projection`` as
   ``x @ W``) — re-fuse q/k/v into ``attn.in_proj_*``.
 
-SD3 MMDiT and Flux exports wait for the models (ROADMAP.md queue 1, item 9).
+* SD3's MMDiT → ``model.diffusion_model.`` in the SGM MM-DiT layout
+  (:func:`export_sd3_mmdit`): q/k/v re-fused into ``attn.qkv``, the 2·dim
+  AdaLN heads swapped back to (shift, scale); its towers →
+  ``text_encoders.clip_l/clip_g.transformer.`` (:func:`export_sd3_checkpoint`).
+
+The Flux export waits for its model (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 import torch
+
+from sliders_conceptmod_tpu_torch.io.ldm_convert import swap_scale_shift
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -200,6 +207,73 @@ def export_sdxl_checkpoint(unet_sd: Mapping[str, torch.Tensor], te1_sd: Optional
         sd.update(export_clip_text(te1_sd, prefix="conditioner.embedders.0.transformer."))
     if te2_sd is not None:
         sd.update(export_openclip_text(te2_sd, prefix="conditioner.embedders.1.model."))
+    if vae_sd is not None:
+        sd.update(export_vae(vae_sd))
+    return sd
+
+
+def export_sd3_mmdit(mmdit_sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The MMDiT → SD3's SGM layout (inverse of
+    ``ldm_convert.convert_sd3_mmdit_state_dict``; the JAX
+    ``export_sd3_mmdit``)."""
+    p = "model.diffusion_model."
+    out: StateDict = {}
+    qkv: Dict[str, Dict[int, torch.Tensor]] = {}
+    for key, value in mmdit_sd.items():
+        parts = key.split(".")
+        head = parts[0]
+        if head == "pos_embed":  # the patchifying conv
+            out[p + "x_embedder." + ".".join(parts[1:])] = value
+        elif head == "time_text_embed":
+            emb = "t_embedder" if parts[1] == "timestep_embedder" else "y_embedder"
+            out[p + f"{emb}.mlp." + {"linear_1": "0", "linear_2": "2"}[parts[2]] + "." + parts[3]] = value
+        elif head == "context_embedder":
+            out[p + key] = value
+        elif head == "norm_out":
+            out[p + "final_layer.adaLN_modulation.1." + parts[2]] = swap_scale_shift(value)
+        elif head == "proj_out":
+            out[p + "final_layer.linear." + parts[1]] = value
+        elif head == "transformer_blocks":
+            rest = parts[2:]
+            xb, cb = f"joint_blocks.{parts[1]}.x_block.", f"joint_blocks.{parts[1]}.context_block."
+            leaf = rest[-1]
+            if rest[0] == "attn" and rest[1] in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+                blk = cb if rest[1].startswith("add_") else xb
+                slot = "qkv".index(rest[1].replace("add_", "to_")[3])
+                qkv.setdefault(p + blk + "attn.qkv." + leaf, {})[slot] = value
+            elif rest[0] == "attn" and rest[1] == "to_out":
+                out[p + xb + "attn.proj." + leaf] = value
+            elif rest[0] == "attn" and rest[1] == "to_add_out":
+                out[p + cb + "attn.proj." + leaf] = value
+            elif rest[0] in ("norm1", "norm1_context"):
+                ctx = rest[0] == "norm1_context"
+                if ctx:  # the last block's 2·dim continuous head swaps, its bias with it
+                    w = mmdit_sd[".".join(parts[:-1] + ["weight"])]
+                    if w.shape[0] == 2 * w.shape[1]:
+                        value = swap_scale_shift(value)
+                out[p + (cb if ctx else xb) + "adaLN_modulation.1." + leaf] = value
+            elif rest[0] in ("ff", "ff_context"):
+                fc = "fc1" if rest[2] == "0" else "fc2"
+                out[p + (cb if rest[0] == "ff_context" else xb) + "mlp." + fc + "." + leaf] = value
+            else:
+                raise ValueError(f"Cannot export SD3 MMDiT key: {key}")
+        else:
+            raise ValueError(f"Cannot export SD3 MMDiT key: {key}")
+    for key, chunks in qkv.items():
+        out[key] = torch.cat([chunks[0], chunks[1], chunks[2]], dim=0)
+    return out
+
+
+def export_sd3_checkpoint(mmdit_sd: Mapping[str, torch.Tensor], te1_sd: Optional[Mapping] = None,
+                          te2_sd: Optional[Mapping] = None, vae_sd: Optional[Mapping] = None) -> StateDict:
+    """SD3's single file: the MMDiT, and the towers in the transformers layout
+    under ``text_encoders.clip_l/clip_g.transformer.`` (an ``*_incl_clips``
+    file)."""
+    sd = export_sd3_mmdit(mmdit_sd)
+    if te1_sd is not None:
+        sd.update(export_clip_text(te1_sd, prefix="text_encoders.clip_l.transformer."))
+    if te2_sd is not None:
+        sd.update(export_clip_text(te2_sd, prefix="text_encoders.clip_g.transformer."))
     if vae_sd is not None:
         sd.update(export_vae(vae_sd))
     return sd

@@ -6,8 +6,8 @@ directory holds ``unet/``, ``vae/``, ``text_encoder/`` and (SDXL)
 ``.safetensors`` file or as shards listed in a ``*.safetensors.index.json``.
 The weights are read with the port's own reader (``io/safetensors.py``).
 
-The port's UNet and VAE use diffusers' module names, so their state dicts
-load by name; the VAE attention's older diffusers names, which the
+The port's UNet, SD3 MMDiT (``transformer/``) and VAE use diffusers' module
+names, so their state dicts load by name; the VAE attention's older diffusers names, which the
 SD1.x-era directories still carry, are renamed (``query/key/value/proj_attn``
 → ``to_q/to_k/to_v/to_out.0``). The CLIP
 towers come in the transformers layout and map onto
@@ -38,6 +38,7 @@ from torch import nn
 from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig
+from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig
 from sliders_conceptmod_tpu_torch.models.unet import UNetConfig
 from sliders_conceptmod_tpu_torch.models.vae import VAEConfig
 
@@ -107,18 +108,27 @@ def unet_config_from_json(cfg: dict) -> UNetConfig:
 
 
 def vae_config_from_json(cfg: dict) -> VAEConfig:
-    """diffusers ``vae/config.json`` → ``VAEConfig``. The flow families'
-    VAEs (no quant convs, a shift factor) are queue item 9 and raise."""
-    if not cfg.get("use_quant_conv", True) or not cfg.get("use_post_quant_conv", True) or cfg.get("shift_factor"):
-        raise NotImplementedError("a VAE without quant convs or with a shift factor (SD3, Flux) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9)")
+    """diffusers ``vae/config.json`` → ``VAEConfig`` (the JAX factory's
+    ``_load_or_init_vae``): the flow families' VAEs declare a
+    ``shift_factor`` and ``use_quant_conv: false``; missing keys give the
+    SD1/XL layout."""
     return VAEConfig(
         latent_channels=cfg.get("latent_channels", 4),
         block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
         layers_per_block=cfg.get("layers_per_block", 2),
         norm_num_groups=cfg.get("norm_num_groups", 32),
         scaling_factor=cfg.get("scaling_factor", 0.18215),
+        shift_factor=cfg.get("shift_factor") or 0.0,
+        use_quant_conv=cfg.get("use_quant_conv", True),
+        use_post_quant_conv=cfg.get("use_post_quant_conv", True),
     )
+
+
+def mmdit_config_from_json(cfg: dict) -> MMDiTConfig:
+    """diffusers ``transformer/config.json`` → ``MMDiTConfig``."""
+    base = MMDiTConfig()
+    return MMDiTConfig(**{f.name: getattr(base, f.name) if cfg.get(f.name) is None else cfg[f.name]
+                          for f in dataclasses.fields(MMDiTConfig)})
 
 
 def clip_config_from_json(cfg: dict, base: CLIPTextConfig, sd: StateDict) -> CLIPTextConfig:
@@ -196,6 +206,12 @@ def load_unet_state(model_dir: str) -> Tuple[StateDict, UNetConfig]:
 def load_vae_state(model_dir: str) -> Tuple[StateDict, VAEConfig]:
     sd, cfg = read_component(model_dir, "vae")
     return diffusers_state_dict(sd), vae_config_from_json(cfg)
+
+
+def load_transformer_state(model_dir: str) -> Tuple[StateDict, MMDiTConfig]:
+    """SD3's ``transformer/``: diffusers' names are the port's."""
+    sd, cfg = read_component(model_dir, "transformer")
+    return sd, mmdit_config_from_json(cfg)
 
 
 def load_text_encoder_state(model_dir: str, component: str, base: CLIPTextConfig) -> Tuple[StateDict, CLIPTextConfig]:

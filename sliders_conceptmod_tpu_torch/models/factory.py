@@ -1,6 +1,7 @@
 """Model loading + prompt encoding — counterpart of
-``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2 and SDXL
-families.
+``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2, SDXL and SD3
+families (SD3: :func:`load_models_sd3` and :func:`encode_prompts_sd3`, whose
+docstrings give its sources).
 
 ``load_models`` (SD1/SD2) and ``load_models_xl`` build the weightless
 families, chosen from the name as the JAX factory's ``_family_from_path``
@@ -175,10 +176,14 @@ def is_diffusers_dir(name_or_path: str) -> bool:
     return os.path.isdir(os.path.join(str(name_or_path), "unet"))
 
 
-def _check_target(name_or_path: str, device: str) -> torch.device:
+def is_sd3_dir(name_or_path: str) -> bool:
+    return os.path.isdir(os.path.join(str(name_or_path), "transformer"))
+
+
+def _check_target(name_or_path: str, device: str, marker: str = "unet") -> torch.device:
     p = str(name_or_path)
-    if os.path.exists(p) and not (is_single_file(p) or is_diffusers_dir(p)):
-        raise ValueError(f"{p}: neither a diffusers directory (no unet/) nor a .ckpt/.safetensors checkpoint")
+    if os.path.exists(p) and not (is_single_file(p) or os.path.isdir(os.path.join(p, marker))):
+        raise ValueError(f"{p}: neither a diffusers directory (no {marker}/) nor a .ckpt/.safetensors checkpoint")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
@@ -213,16 +218,26 @@ def _single_file_vae(path: str, trees: dict, full: VAEConfig, device, dtype) -> 
     if not trees.get("vae"):
         raise ValueError(f"{path} carries no VAE (first_stage_model.*) but with_vae=True was requested")
     # the tiny escape may carry the tiny VAE or the full one: width off the checkpoint
-    cfg = VAEConfig.tiny() if trees["vae"]["decoder.conv_in.weight"].shape[0] <= 32 else full
+    conv_in = trees["vae"]["decoder.conv_in.weight"]
+    cfg = VAEConfig.tiny() if conv_in.shape[0] <= 32 else full
+    cfg = dataclasses.replace(cfg, latent_channels=conv_in.shape[1],
+                              use_quant_conv="quant_conv.weight" in trees["vae"],
+                              use_post_quant_conv="post_quant_conv.weight" in trees["vae"])
     return module_from_state(lambda: AutoencoderKL(cfg), trees["vae"], device, dtype, f"{path} vae")
 
 
 def quantized_unet_from_artifact(path: str, cfg: UNetConfig, device, dtype) -> nn.Module:
     """A UNet from an int8 artifact (``io/quant_cache.py``): the file's int8
     set is quantized, every other leaf is cast to ``dtype``."""
+    return quantized_from_artifact(path, lambda: UNet2DConditionModel(cfg), device, dtype)
+
+
+def quantized_from_artifact(path: str, factory, device, dtype) -> nn.Module:
+    """The model ``factory()`` builds, from an int8 artifact: the file's int8
+    set is quantized, every other leaf is cast to ``dtype``."""
     tree, scales = quant_cache.load_quantized(path, dtype)
     with torch.device("meta"):
-        model = UNet2DConditionModel(cfg).to(dtype)
+        model = factory().to(dtype)
         quant.quantize_module(model, paths=scales)
     model = model.to_empty(device=device)
     unused = load_jax_params(model, tree)
@@ -380,6 +395,122 @@ def load_models_xl(
         # both weightless families decode with the full SDXL VAE, as the JAX factory's do
         return out + (_vae(name_or_path, VAEConfig.sdxl(), device, weight_dtype, 3),)
     return out
+
+
+def load_models_sd3(
+    name_or_path: str,
+    weight_dtype: torch.dtype = torch.float32,
+    device: str = "cuda",
+    quantize_base: bool = False,
+    with_vae: bool = False,
+    with_transformer: bool = True,
+):
+    """SD3 (the JAX ``load_models_sd3``; T5 dropped, as the reference loads
+    the pipeline): ``([tok1, tok2], [te1, te2], transformer, scheduler[,
+    vae])`` with the flow-match scheduler (shift 3). te1 is CLIP-L with a
+    768-dim projection, te2 bigG with its 1280-dim projection, padding with
+    id 0. Sources:
+
+    * a diffusers directory (one holding ``transformer/``): each module from
+      its ``config.json`` and weights (``io/torch_convert.py``), a tower or
+      VAE the directory lacks weightless;
+    * an int8 artifact (``io/quant_cache.py``, ``cli/quantize_checkpoint.py
+      --family sd3``): the transformer from it, the towers and VAE
+      weightless;
+    * an SGM single file (``sd3_medium_incl_clips*.safetensors``): the MMDiT
+      and both CLIP towers (``io/ldm_convert.py``); a file without the
+      towers raises, as the JAX loader does;
+    * any other name: the weightless family, SD3-Medium's widths (a name
+      containing "tiny": the tiny family), module i of (te1, te2,
+      transformer, vae) initialised from seed i.
+
+    A single file's or artifact's name containing "tiny" selects the tiny
+    widths. ``quantize_base``: the transformer's large Linears int8.
+    ``with_transformer=False`` loads the towers only (the notrigger
+    trainer)."""
+    from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
+
+    p = str(name_or_path)
+    device = _check_target(p, device, marker="transformer")
+    scheduler = FlowMatchScheduler(shift=3.0)
+    tiny = "tiny" in (os.path.basename(p) if is_single_file(p) else p).lower()
+    te_cfgs = ((CLIPTextConfig.tiny(hidden_size=16, projection_dim=16),) * 2 if tiny
+               else (CLIPTextConfig(projection_dim=768), CLIPTextConfig.sdxl_te2()))
+    mm_cfg = MMDiTConfig.tiny() if tiny else MMDiTConfig.sd3_medium()
+    comps = ("text_encoder", "text_encoder_2")
+    if is_single_file(p) and quant_cache.is_quantized_artifact(p):
+        toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
+        tes = [_text_encoder("", comp, c, device, weight_dtype, seed, tok)
+               for seed, (c, comp, tok) in enumerate(zip(te_cfgs, comps, toks))]
+        transformer = (quantized_from_artifact(p, lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype)
+                       if with_transformer else None)
+        vae = sd3_vae("", device, weight_dtype) if with_vae else None
+    elif is_single_file(p):
+        from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
+
+        trees = load_ldm_checkpoint(p)
+        if "transformer" not in trees:
+            raise ValueError(f"{p} is not an SD3 single file (no joint_blocks under model.diffusion_model)")
+        if not trees.get("text_encoder") or not trees.get("text_encoder_2"):
+            raise ValueError(
+                f"{p} carries no bundled text encoders "
+                "(text_encoders.clip_l/clip_g towers). Use an *_incl_clips "
+                "single file or a diffusers checkpoint directory."
+            )
+        toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
+        tes = [TextEncoderBundle(module_from_state(lambda c=c: CLIPTextEncoder(c), trees[comp], device, weight_dtype,
+                                                   f"{p} {comp}"), tok)
+               for c, comp, tok in zip(te_cfgs, comps, toks)]
+        transformer = (module_from_state(lambda: SD3Transformer2DModel(mm_cfg), trees["transformer"], device,
+                                         weight_dtype, f"{p} transformer", quantize_base) if with_transformer else None)
+        vae = _single_file_vae(p, trees, VAEConfig.sd3(), device, weight_dtype) if with_vae else None
+    else:
+        toks = [_tokenizer(p, "tokenizer"), _tokenizer(p, "tokenizer_2", pad_token_id=0)]
+        tes = [_text_encoder(p, comp, c, device, weight_dtype, seed, tok)
+               for seed, (c, comp, tok) in enumerate(zip(te_cfgs, comps, toks))]
+        transformer = None
+        if with_transformer and is_sd3_dir(p):
+            sd, cfg = tc.load_transformer_state(p)
+            transformer = module_from_state(lambda: SD3Transformer2DModel(cfg), sd, device, weight_dtype,
+                                            f"{p}/transformer", quantize_base)
+        elif with_transformer:
+            transformer = build_module(lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype, 2, quantize_base)
+        vae = sd3_vae(p, device, weight_dtype) if with_vae else None
+    out = (toks, tes, transformer, scheduler)
+    return out + (vae,) if with_vae else out
+
+
+def sd3_vae(name_or_path: str, device, dtype) -> nn.Module:
+    """The 16-channel VAE: a directory's ``vae/``, else the weightless one
+    (seed 3)."""
+    return _vae(name_or_path, VAEConfig.sd3(), device, dtype, 3)
+
+
+@torch.inference_mode()
+def encode_prompts_sd3(text_encoders: List[TextEncoderBundle], prompts: List[str], joint_attention_dim: int = 4096,
+                       t5_seq_len: int = 256):
+    """SD3's prompt encoding with T5 dropped (diffusers zero-fills its
+    slot): both towers' penultimate states side by side, zero-padded to
+    ``joint_attention_dim``, then a zero T5 segment of ``t5_seq_len`` tokens
+    along the sequence; pooled = both towers' projected pools side by side.
+    ``(text [B, 77 + t5_seq_len, joint_dim], pooled [B, P1 + P2])``."""
+    embeds, pooled = [], []
+    for te in text_encoders:
+        out = te.encode(prompts)
+        embeds.append(penultimate_hidden_state(out))
+        pooled.append(out.projected if out.projected is not None else out.pooled_output)
+    clip = torch.cat(embeds, dim=-1)
+    B, _, D = clip.shape
+    if D < joint_attention_dim:
+        clip = torch.nn.functional.pad(clip, (0, joint_attention_dim - D))
+    t5_zeros = clip.new_zeros((B, t5_seq_len, joint_attention_dim))
+    return torch.cat([clip, t5_zeros], dim=1), torch.cat(pooled, dim=-1)
+
+
+def sd3_t5_seq_len(name_or_path: str) -> int:
+    """The zero T5 segment's length: 4 for the tiny family, else 256."""
+    return 4 if "tiny" in str(name_or_path).lower() else 256
 
 
 @torch.inference_mode()

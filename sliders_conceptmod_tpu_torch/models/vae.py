@@ -36,6 +36,11 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
+    # the flow families' VAEs (SD3 0.0609): x = z / scaling + shift before
+    # the decode (infer/generate_flow.py); 0.0 for the epsilon families
+    shift_factor: float = 0.0
+    # SD3's VAE ships no (post_)quant_conv (diffusers use_quant_conv=false)
+    use_quant_conv: bool = True
     use_post_quant_conv: bool = True
 
     @classmethod
@@ -46,6 +51,13 @@ class VAEConfig:
     @classmethod
     def sdxl(cls) -> "VAEConfig":
         return cls(scaling_factor=0.13025)
+
+    @classmethod
+    def sd3(cls) -> "VAEConfig":
+        """The 16-channel SD3 VAE: no quant convs, so the encoder's conv_out
+        emits the 2·16 moments directly."""
+        return cls(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609, use_quant_conv=False,
+                   use_post_quant_conv=False)
 
     @classmethod
     def tiny(cls) -> "VAEConfig":
@@ -210,12 +222,16 @@ class AutoencoderKL(nn.Module):
             nn.Conv2d(config.latent_channels, config.latent_channels, 1) if config.use_post_quant_conv else None
         )
         self.encoder = Encoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+        self.quant_conv = (
+            nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1) if config.use_quant_conv else None
+        )
 
     def encode(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Images → (mean, logvar clipped to [−30, 20]), each ``[B, C, h, w]``
         in the weights' dtype."""
-        moments = self.quant_conv(self.encoder(images.to(self.encoder.conv_in.weight.dtype)))
+        moments = self.encoder(images.to(self.encoder.conv_in.weight.dtype))
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
         mean, logvar = moments.chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 

@@ -1,4 +1,4 @@
-"""Slider serving on the GPU, SDXL and SD1.x/SD2.x — counterpart of
+"""Slider serving on the GPU, SDXL, SD1.x/SD2.x and SD3 — counterpart of
 ``sliders_conceptmod_tpu/serve.py``.
 
 Models load once (bf16 weights, resident on the device); each request pays
@@ -10,11 +10,14 @@ sampler call (:class:`MicroBatcher`), padded to a {1, 2, 4} bucket.
   python -m sliders_conceptmod_tpu_torch.serve --slider s.safetensors --port 8500
   python -m sliders_conceptmod_tpu_torch.serve --base path/to/sd15 --family sd1 --slider s.safetensors
 
-``--family`` (xl or sd1) is read off ``--base`` when omitted
+``--family`` (xl, sd1 or sd3) is read off ``--base`` when omitted
 (:func:`detect_family`); ``--base`` is a family name, a diffusers directory or
 a single checkpoint file. :class:`SliderService` serves SDXL (both CLIP
 towers, 25 DDIM steps by default), :class:`SD1SliderService` SD1.x/SD2.x (one
-tower, no added conditioning, 50 steps; ``--v2``, ``--v_pred``).
+tower, no added conditioning, 50 steps; ``--v2``, ``--v_pred``),
+:class:`SD3SliderService` SD3-Medium (the MMDiT and the flow-Euler sampler,
+28 steps; ``-``-delimited sliders). ``--family flux`` exits: Flux is ROADMAP
+queue 1, item 9.
 
   curl -s 'localhost:8500/generate?prompt=a+photo+of+a+person&scale=1.5&seed=7' > out.png
   curl -s localhost:8500/healthz
@@ -48,6 +51,7 @@ import argparse
 import collections
 import functools
 import json
+import os
 import queue
 import threading
 import time
@@ -56,6 +60,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+import numpy as np
 import torch
 
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
@@ -68,7 +73,9 @@ from sliders_conceptmod_tpu_torch.cli.generate_images_xl import (  # noqa: F401 
     settings_from_tensors,
     unet_slider,
 )
+from sliders_conceptmod_tpu_torch.cli.generate_images_sd3 import sd3_slider
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
+from sliders_conceptmod_tpu_torch.infer import generate_flow
 from sliders_conceptmod_tpu_torch.infer.generate import (
     flip_step_for_start_noise,
     latents_to_images,
@@ -212,7 +219,7 @@ class SliderService:
         self._load(base)
         quant.set_act_quant(self.unet, w8a8)
         self.schedule = self.scheduler.set_timesteps(steps)
-        self.flip = flip_step_for_start_noise(self.schedule, start_noise)
+        self.flip = self._flip(start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
         self._te: dict = {}  # slider name -> (SliderParts with text-encoder parts, version)
         self._te_version = 0
@@ -242,6 +249,9 @@ class SliderService:
             quantize_base=self.quantize_base,
         )
 
+    def _flip(self, start_noise: float) -> int:
+        return flip_step_for_start_noise(self.schedule, start_noise)
+
     # -- slider registry -----------------------------------------------------
 
     def add_slider(self, name: str, slider_path: str) -> None:
@@ -251,7 +261,7 @@ class SliderService:
         parts = load_slider_file(slider_path, [te.model for te in self.text_encoders])
         sites, lora_params = [], {}
         if parts.unet is not None:
-            sites, lora_params = unet_slider(self.unet, str(slider_path), parts.unet, device=self.device)
+            sites, lora_params = self._model_slider(str(slider_path), parts.unet)
         elif not parts.has_te:
             raise ValueError(f"{slider_path} carries neither unet nor text-encoder slider parts")
         overlay = lora_lib.LoRAOverlay(self.unet, sites, lora_params)
@@ -270,6 +280,10 @@ class SliderService:
                     del self._sliders[evicted]
                     self._te.pop(evicted, None)
             self._registry_changed()
+
+    def _model_slider(self, path: str, part):
+        """(sites, factors) of a slider file's model part."""
+        return unet_slider(self.unet, path, part, device=self.device)
 
     def remove_slider(self, name: str) -> None:
         """Drop a slider; ``default`` is pinned (``ValueError``), an unknown
@@ -501,6 +515,92 @@ class SD1SliderService(SliderService):
         return torch.cat([self._encode_row("", r) for r in padded] + [self._encode_row(r[0], r) for r in padded]), None
 
 
+class SD3SliderService(SliderService):
+    """SD3 (MMDiT) slider serving: the CFG flow-Euler sampler (28 steps and
+    ``start_noise`` 750 by default) with the slider through the per-row LoRA
+    overlay on the transformer (``self.unet``), the uncond rows first and
+    every row's scale doubled over them (the slider is on in the uncond rows
+    too, as JAX's service runs it), no merged weights ever built. The
+    registry, the micro-batcher, cross-slider stacks, text-encoder parts
+    (CLIP-L / bigG), ``static_guidance`` and ``quantize_base`` / ``w8a8`` are
+    :class:`SliderService`'s. Sliders are ``-``-delimited SD3 files
+    (``cli/train_lora_sd3.py``). The VAE (fp32, as JAX loads it) decodes
+    when ``base`` is a directory with ``vae/``; otherwise each image is the
+    JAX service's latent preview (the first three latent channels,
+    normalised). The initial latents are each row's N(0, 1) draw from its
+    seed (torch's numbers, not JAX's)."""
+
+    def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 28,
+                 start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
+                 max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
+                 static_guidance: Optional[float] = None, quantize_base: bool = False, w8a8: bool = False,
+                 device: str = "cuda"):
+        super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
+                         max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
+                         cross_slider_stack=cross_slider_stack, static_guidance=static_guidance,
+                         quantize_base=quantize_base, w8a8=w8a8, device=device)
+
+    def _load(self, base: str) -> None:
+        self.tokenizers, self.text_encoders, self.unet, self.scheduler = factory.load_models_sd3(
+            base, weight_dtype=self.weight_dtype, device=self.device, quantize_base=self.quantize_base)
+        self.vae = (factory.sd3_vae(base, self.device, torch.float32)
+                    if os.path.isdir(os.path.join(str(base), "vae")) else None)
+        self._t5_len = factory.sd3_t5_seq_len(base)
+
+    def _flip(self, start_noise: float) -> int:  # continuous flow timesteps
+        return generate_flow.flip_step_for_start_noise(self.schedule, start_noise)
+
+    def _model_slider(self, path: str, part):
+        return sd3_slider(self.unet, path, part, device=self.device)
+
+    def _encode_impl(self, prompt: str):
+        return factory.encode_prompts_sd3(self.text_encoders, [prompt], self.unet.config.joint_attention_dim,
+                                          self._t5_len)
+
+    def _conditioning(self, padded):
+        """(text [2B], pooled [2B]) uncond ++ cond of a group."""
+        enc = [self._encode_row("", r) for r in padded] + [self._encode_row(r[0], r) for r in padded]
+        return torch.cat([t for t, _ in enc]), torch.cat([p for _, p in enc])
+
+    def _draw_latents(self, seeds) -> torch.Tensor:
+        """Each row's N(0, 1) draw from its own seed, fp32 ``[B, 16, h, w]``."""
+        res = self.image_size // 8
+        return torch.cat([torch.randn((1, self.unet.config.in_channels, res, res), device=self.device,
+                                      generator=torch.Generator(device=self.device).manual_seed(s)) for s in seeds])
+
+    @staticmethod
+    def _latents_preview(lat: torch.Tensor) -> list:
+        """The JAX service's weightless preview: the first 3 latent channels,
+        each image normalised to [0, 255]."""
+        imgs = []
+        for row in lat.float().cpu().numpy()[:, :3]:
+            a = (row - row.min()) / max(float(row.max() - row.min()), 1e-6)
+            imgs.append(np.round(np.transpose(a, (1, 2, 0)) * 255).astype(np.uint8))
+        return imgs
+
+    @torch.inference_mode()
+    def _sample_group(self, padded, guidance: float, entry, adapter_idx=None):
+        _, _, overlay = entry
+        dev = self.device
+        text, pooled = self._conditioning(padded)
+        latents = self._draw_latents([r[2] for r in padded])
+        scales = torch.tensor([r[1] for r in padded], dtype=torch.float32, device=dev)
+        idx = None if adapter_idx is None else torch.as_tensor(adapter_idx, dtype=torch.long, device=dev)
+        # a static guidance <= 1 runs the cond rows only: the multipliers are not doubled then
+        sg = self._static_guidance
+        if sg is None or float(sg) > 1.0:
+            scales = torch.cat([scales] * 2)
+            idx = None if idx is None else torch.cat([idx] * 2)
+        g = sg if sg is not None else torch.tensor(guidance, dtype=torch.float32, device=dev)
+        final = generate_flow.sample_flow_loop(self.unet, self.flip, self.schedule, latents.to(self.weight_dtype),
+                                               text, pooled, guidance_scale=g, overlay=overlay, row_scale=scales,
+                                               adapter_idx=idx)
+        if self.vae is None:
+            return self._latents_preview(final)
+        return generate_flow.sd3_latents_to_images(self.vae.decode, final, self.vae.config.scaling_factor,
+                                                   self.vae.config.shift_factor)
+
+
 def detect_family(base: str) -> str:
     """The family of a ``--base`` from its name (the JAX ``detect_family``):
     flux, sd3, sd1 (SD1.x and SD2.x names) or xl."""
@@ -654,7 +754,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="register extra sliders over the same base (repeatable)")
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--image_size", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=None, help="default 25 (xl) / 50 (sd1)")
+    ap.add_argument("--steps", type=int, default=None, help="default 25 (xl) / 28 (sd3) / 50 (sd1)")
     ap.add_argument("--start_noise", type=float, default=None, help="default 750")
     ap.add_argument("--family", choices=["xl", "sd3", "flux", "sd1"], default=None,
                     help="read off --base when omitted")
@@ -688,10 +788,11 @@ def build_parser() -> argparse.ArgumentParser:
 def service_settings(args):
     """(service class, keyword arguments) for parsed ``main`` arguments: the
     family (``--family`` or :func:`detect_family`) and its step and
-    ``start_noise`` defaults. SD3 and Flux are not ported yet."""
+    ``start_noise`` defaults (SD3: 28 steps and 750, as JAX's). Flux is not
+    ported yet."""
     family = args.family or detect_family(args.base)
-    if family in ("sd3", "flux"):
-        raise SystemExit(f"--family {family}: SD3 and Flux serving are not ported yet (ROADMAP.md queue 1, item 9)")
+    if family == "flux":
+        raise SystemExit("--family flux: Flux serving is not ported yet (ROADMAP.md queue 1, item 9)")
     kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
                   batch_window_ms=args.batch_window_ms, max_batch=1 if args.no_microbatch else args.max_batch,
                   max_queue=args.max_queue, max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack,
@@ -700,6 +801,8 @@ def service_settings(args):
     if family == "sd1":
         return SD1SliderService, dict(kwargs, steps=50 if args.steps is None else args.steps, v2=args.v2,
                                       v_pred=args.v_pred)
+    if family == "sd3":
+        return SD3SliderService, dict(kwargs, steps=28 if args.steps is None else args.steps)
     return SliderService, dict(kwargs, steps=25 if args.steps is None else args.steps)
 
 

@@ -1,13 +1,17 @@
 """Kernels K1, K2, K3, K4a, K4b and K4c on the card: edge shapes, strided
 views (dO from autograd included), the dispatch's head-dim padding and
 routes, gradients through the autograd Functions, K4a's key-range and K4c's
-query-range splits, determinism, input checks and the launch counts. Marked
+query-range splits, determinism, input checks and the launch counts; SD3's
+joint lengths (K1 at 1357 and 4429, K2/K3 at 1357, 24 heads of 64) and the
+tiny MMDiT and SD3 sampler against the CPU. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+
+import copy
 
 import pytest
 import torch
@@ -1036,3 +1040,80 @@ def test_int8_esd_step_on_the_card_matches_the_cpu(gen):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * max(1.0, abs(out["cpu"][0]))
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# SD3: the joint attention's ragged lengths, 24 heads of 64
+# ---------------------------------------------------------------------------
+
+SD3_JOINT = [(1357, 1), (1357, 2), (4429, 2)]  # 512px training (1024 + 333), 1024px serving (4096 + 333)
+
+
+@pytest.mark.parametrize("s,rows", SD3_JOINT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_at_sd3_joint_lengths(gen, s, rows, dtype):
+    """K1 at SD3-Medium's joint sequences (not a multiple of any tile: 4429 =
+    69·64 + 13), H 24, d 64, against its plain version."""
+    q = _rand(gen, (rows, s, 24, 64), dtype, scale=3.0)
+    k, v = (_rand(gen, (rows, s, 24, 64), dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), 64**-0.5)
+    tol = 1e-4 if dtype == torch.float32 else _fwd_tol(ref)
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * max(1.0, ref_lse.abs().max().item())
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_at_sd3_training_length(gen, rows, dtype):
+    """K2 (with the key split its rule picks at 24 heads) and K3 (its query
+    split) at 1357², H 24, d 64, against their plain versions."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, (rows, 1357, 1357, 24, 64), dtype)
+    scale = 64**-0.5
+    if dtype == torch.bfloat16:
+        _check_k2(q, k, v, o, lse, do, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w).abs().max().item() <= _grad_tol(w, dtype), name
+
+
+def _tiny_sd3():
+    """The tiny MMDiT with seeded weights, made on the CPU (a CUDA generator
+    draws other numbers)."""
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
+
+    return factory.build_module(lambda: SD3Transformer2DModel(MMDiTConfig.tiny()), "cpu", torch.float32, 5)
+
+
+def test_tiny_mmdit_and_sd3_sampler_on_the_card_match_the_cpu(gen):
+    """The tiny MMDiT forward and a 3-step SD3 flow sampler call with the
+    slider through the overlay (K1 inside every joint attention), card vs
+    CPU, fp32."""
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop
+
+    g = torch.Generator().manual_seed(3)
+    lat = torch.randn((2, 16, 8, 8), generator=g)
+    text = torch.randn((4, 81, 32), generator=g)
+    pooled = torch.randn((4, 32), generator=g)
+    sched = FlowMatchScheduler().set_timesteps(3)
+    out = {}
+    cpu_model = _tiny_sd3()
+    for device in ("cpu", "cuda"):
+        model = cpu_model if device == "cpu" else copy.deepcopy(cpu_model).to(device)
+        sites = lora.create_sites(model, rank=2, target_replace=["Attention"], delimiter="-")
+        lp = lora.init_lora_params(sites, generator=torch.Generator().manual_seed(1))
+        lp = {n: {k: (t + 0.1).to(device) for k, t in leaf.items()} for n, leaf in lp.items()}
+        fwd = model(lat[:1].to(device), torch.tensor([500.0], device=device), text[:1].to(device),
+                    pooled[:1].to(device))
+        final = sample_flow_loop(model, 1, sched, lat.to(device), text.to(device), pooled.to(device),
+                                 guidance_scale=7.0, overlay=lora.LoRAOverlay(model, sites, lp),
+                                 row_scale=torch.tensor([1.5, -1.0, 1.5, -1.0], device=device))
+        out[device] = (fwd.cpu(), final.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3, rtol=0)

@@ -8,7 +8,7 @@ package, on the CPU.
   back every module's state bit-exactly;
 * ``cli/export_single_file``: a slider baked into a tiny SD1 file (fp32 and
   ``--half``) and a tiny SDXL file writes the JAX CLI's file byte for byte;
-  ``--sd3`` / ``--flux`` raise;
+  ``--flux`` raises and ``--sd3`` writes the SD3 layout;
 * ``cli/combine_loras``: SD1/XL and SD3-style UNet keys, two text-encoder
   parts (one a torch ``.pt``), strengths on ``_down``, ``alpha`` and
   ``dora_scale`` unscaled: the JAX ``combine``'s tensors and file, byte for
@@ -149,9 +149,14 @@ def test_export_single_file_cli_writes_the_jax_file(tiny, tmp_path, fam, extra):
 
 
 def test_export_cli_refuses_sd3_and_flux(tmp_path):
-    for flag in ("--sd3", "--flux"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            texport_cli.main(["--base", "tiny", "--output", str(tmp_path / "x.safetensors"), flag, "--device", "cpu"])
+    """Flux is refused (ROADMAP queue 1, item 9); SD3 exports since its
+    slice (tests/test_torch_sd3_io.py holds it against JAX)."""
+    with pytest.raises(NotImplementedError, match="item 9"):
+        texport_cli.main(["--base", "tiny", "--output", str(tmp_path / "x.safetensors"), "--flux", "--device", "cpu"])
+    sd = texport_cli.main(["--base", "tiny-sd3", "--output", str(tmp_path / "sd3.safetensors"), "--sd3",
+                           "--device", "cpu"])
+    assert any(k.startswith("model.diffusion_model.joint_blocks.0.x_block.attn.qkv.") for k in sd)
+    assert any(k.startswith("text_encoders.clip_g.transformer.") for k in sd)
 
 
 def test_combine_loras_matches_jax(tmp_path):

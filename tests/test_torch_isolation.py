@@ -68,6 +68,20 @@ MERGED_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.cli.combine_loras",
 }
 
+# modules the SD3 slice added or extended
+SD3_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.models.mmdit",
+    "sliders_conceptmod_tpu_torch.diffusion.flow_match",
+    "sliders_conceptmod_tpu_torch.infer.generate_flow",
+    "sliders_conceptmod_tpu_torch.train.esd_sd3",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_sd3",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_sd3",
+    "sliders_conceptmod_tpu_torch.cli.train_notrigger",
+    "sliders_conceptmod_tpu_torch.cli.quantize_checkpoint",
+    "sliders_conceptmod_tpu_torch.models.vae",
+    "sliders_conceptmod_tpu_torch.serve",
+}
+
 
 def test_port_and_smoke_import_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -80,6 +94,7 @@ def test_port_and_smoke_import_without_jax():
     assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
     walked = set(res.stdout.split(":", 1)[1].split())
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
+    assert SD3_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():
