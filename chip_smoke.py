@@ -95,6 +95,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   2 and 16 with the splits their rules pick; device ms,
                   TFLOP/s, share of the bound, ratio to SDPA (forward, or
                   whole backward). Emitted as kernel / kernel_bwd rows.
+5d. kernel_flux — Flux's joint attention at native d 128 (24 heads): the
+                  same rows (phase_kernel_joint) for K1 at 1536² rows 1, 2
+                  and 6 (512px: 512 T5 + 1024 image tokens; a request, the
+                  student at batch 2, its 3-row teacher) and 4608² rows 1
+                  (1024px), K2/K3 at 1536² rows 2 and 6; then K1 fp32 at
+                  1536² and 4608², K2/K3 fp32 at 1536² rows 2, and bf16 K2/K3
+                  with their splits forced to 1, 2 and 64, repeats and δ bit
+                  for bit (phase_kernel_flux_checks).
 6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
 7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
@@ -105,14 +113,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8b. sd3_parity — the tiny MMDiT flow sampler (3 steps, CFG 7, the overlay)
                   and one tiny SD3 ESD step (CFG 7, blocks checkpointed),
                   card vs CPU, fp32; K1 2 per forward, K2/K3 2 per step.
+8c. flux_parity — the tiny Flux packed sampler (3 steps, the overlay from
+                  step 1) and one tiny Flux ESD micro-step (MultiSteps, the
+                  overlay student, blocks checkpointed), card vs CPU, fp32.
 9. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
                   in the encoder's mid-block) and one tiny-xl image-pair step
                   (K1/K2/K3) on the card against the same on the CPU, fp32.
-10. serve       — full-width SDXL (random weights from a seed) at 1024px, 25 DDIM
-                  steps: a rank-4 slider made with create_sites, written with the
-                  port's .safetensors writer and loaded through add_slider; four
+10. serve       — full-width SDXL (random weights from a seed) at 1024px, 12 DDIM
+                  steps (the service's 25, cut): a rank-4 slider made with
+                  create_sites, written with the port's .safetensors writer
+                  and loaded through add_slider; four
                   requests (scale 0, +2, and -2/+1 concurrently in one micro-batch);
-                  per sampler call K1 25×140 launches and one K4a (the decode);
+                  per sampler call K1 12×140 launches and one K4a (the decode);
                   latency, images/s, peak memory.
 11. http        — one /generate through make_handler on localhost.
 12. profile     — one more request under torch.profiler: device busy time,
@@ -188,17 +200,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   v2 and v_pred, 512px, 10 steps, scales 0 and +2: per call K1
                   10×32 = 320, K4a 1 (the decode).
 21. sweep_xl    — cli/generate_images_xl.run on the SDXL name at the CLI's
-                  defaults (512px, start_noise 750) but 25 DDIM steps
+                  defaults (512px, start_noise 750) but 12 DDIM steps
                   (SWEEP_XL_STEPS, cut from 50), scales -2, 0, 2 and one
                   sample of prompts/prompts-person.csv's first case:
-                  sequential (merged weights; K1 25×140 per
+                  sequential (merged weights; K1 12×140 per
                   trajectory, 3 trajectories), --batch_scales (one
                   trajectory), and each scale alone with --batch_scales; one
                   K4a per decode. Files and composite, seconds per image, the
                   merged-vs-overlay pixel gap at the same batch and batched.
                   Then a combine_loras file with text-encoder parts (the UNet
                   slider, lora_te1 and lora_te3 at full width), merged and
-                  --batch_scales at scales -2 and 2 (25 steps): the gap
+                  --batch_scales at scales -2 and 2 (12 steps): the gap
                   between the two routes, its mean held to 2/255.
 22. sweep_sd1   — cli/generate_images_sd1.run over the SD1.5 directory: LMS,
                   50 steps, start_noise 850, scales -2 and 2, one sample;
@@ -255,12 +267,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   the fp32 merge rounded once.
 22m. sd3_notrigger — cli/train_notrigger --model SD3-Medium in the
                   directory's bigG, 5 steps (no kernel: the towers'
-                  attention is plain).
+                  attention is plain); the SD3 directory is deleted after.
+22n. flux_train — FLUX.1-schnell at full width and depth (seeded bf16
+                  weights, the stand-in encoder), cli/train_lora_flux.train
+                  from data/config-flux.yaml + data/prompts-flux.yaml with
+                  tpu.quantize_base off (512px, batch 2: 4 micro-steps per
+                  optimizer step; 1000 → 2 optimizer steps = 9 micro-steps):
+                  K1 57 × 3 and K2 = K3 = 57 per micro-step; micro- and
+                  optimizer steps/s, first step, peak, 76 sites, saved keys;
+                  one more micro-step profiled (idle share).
+22o. flux_serve — FluxSliderService at its defaults (512px, 8 steps,
+                  start_noise 800; no vae/: the latent preview): two solo
+                  requests, a concurrent pair, one over HTTP, one profiled;
+                  456 K1 per sampler call.
+22p. flux_sweep — cli/generate_images_flux at its defaults, scales -2, 0, 2
+                  × 1 sample × case 0 (latents as .npy); seconds per image.
+22q. flux_load — a schnell diffusers directory (transformer at full width and
+                  depth in 5 shards; T5-XXL's width with 2 of its 24 layers;
+                  CLIP-L; the 16-channel VAE with FLUX.1's factors; a
+                  synthetic spiece.model) served: every tensor bit-equal,
+                  one request decoded (456 K1, 1 K4a); GB, seconds, GB/s;
+                  the directory deleted after.
+22r. flux_int8  — 2 optimizer steps on tpu.quantize_base, one --w8a8 request
+                  (its gap to the bf16 image), the quantize_checkpoint
+                  --family flux artifact of the weightless schnell reloaded,
+                  its forward bit-equal to the in-memory int8 base.
+22s. flux_export — export_single_file --flux --half (the fp32 base, a slider
+                  at scale 2; BFL's layout) reloaded through the BFL loader
+                  bit-equal to the file.
+22t. flux_notrigger — cli/train_notrigger --model FLUX.1 --clip_index 1: a
+                  slider in a seeded T5-XXL (full width and depth), 5 steps
+                  (no kernel: T5's attention is plain), swept over the same
+                  T5 at 0 (bit-equal to the tower without it) and +1.
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
-                  and K4a and no backward kernel; the SD3 paths join K1, K2/K3
-                  in training and K4a where they decode). On every path the
+                  and K4a and no backward kernel; the SD3 and Flux paths join
+                  K1, K2/K3 in training and K4a where they decode). On every
+                  path the
                   plain attention versions, forward and backward, ran 0 times
                   on the card.
 
@@ -276,6 +320,7 @@ import gc
 import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -295,29 +340,40 @@ from sliders_conceptmod_tpu_torch.adapters import dora, lora, quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
 from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file, quantize_checkpoint
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
+from sliders_conceptmod_tpu_torch.cli import generate_images_flux as gen_flux
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd3 as gen_sd3
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
-from sliders_conceptmod_tpu_torch.cli import train_lora_scale, train_lora_sd3, train_notrigger
+from sliders_conceptmod_tpu_torch.cli import train_lora_flux, train_lora_scale, train_lora_sd3, train_notrigger
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
 from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
-from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop
+from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop, sample_packed_flow
 from sliders_conceptmod_tpu_torch.infer.generate import latents_to_images, sample_loop, sample_loop_scales
+from sliders_conceptmod_tpu_torch.io import ldm_export
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel, prepare_latent_image_ids
 from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
-from sliders_conceptmod_tpu_torch.models.tokenizer import write_synthetic_bpe_files
+from sliders_conceptmod_tpu_torch.models.t5 import T5Config, T5EncoderModel
+from sliders_conceptmod_tpu_torch.models.tokenizer import HashTokenizer, write_synthetic_bpe_files, write_synthetic_spm
 from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
-from sliders_conceptmod_tpu_torch.serve import SD1SliderService, SD3SliderService, SliderService, make_handler, metrics
-from sliders_conceptmod_tpu_torch.train import esd, esd_sd3, imageslider, trainer
-from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params, get_lr_schedule, get_optimizer
+from sliders_conceptmod_tpu_torch.serve import (
+    FluxSliderService,
+    SD1SliderService,
+    SD3SliderService,
+    SliderService,
+    make_handler,
+    metrics,
+)
+from sliders_conceptmod_tpu_torch.train import esd, esd_flux, esd_sd3, imageslider, trainer
+from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, Optimizer, flat_params, get_lr_schedule, get_optimizer
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -331,7 +387,7 @@ PEAK_BYTES = 3.35e12
 FP32_TOL, BF16_REL, BF16_TOL = 1e-4, 2e-2, 3e-2
 LSE_TOL = 1e-3
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
-IMAGE_SIZE, STEPS = 1024, 25
+IMAGE_SIZE, STEPS = 1024, 12  # SDXL serving: the service's 25 DDIM steps, cut to 12 when Flux joined the smoke
 SD2_STEPS = 10  # SD2.1 serving: cut from the service's 50 to keep the smoke short
 # (name, Sq, Sk, heads): the attention calls of one SDXL UNet forward at 1024px
 PATH_SHAPES = [
@@ -404,7 +460,14 @@ IMAGES_PER_FOLDER = 4
 REPO = Path(__file__).resolve().parent
 
 
+T_START = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's row carries ``at_s``, the seconds since the
+    smoke started (phase durations are the differences)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=round(time.time() - T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -527,20 +590,32 @@ def device_ms(fn, iters: int):
     few tens of microseconds. The profiler now and then returns a window
     with no device activity at all: such a window is taken again, up to
     three times, and then reported as not measured (None)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled_window(lambda: [fn() for _ in range(iters)])
         us = sum(e.time_range.elapsed_us() for e in prof.events()
                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
         if us > 0:
             return us / 1e3 / iters
     return None
+
+
+def profiled_window(fn):
+    """``fn()`` (then a synchronize) under torch.profiler, tracing the
+    card's activity alone: the host's operator events, which the device
+    times here never read, cost tens of seconds to collect over a
+    training step's ~10⁵ kernels. A window that shows no kernel is traced
+    again with the host's events too (the tracer's older mode)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(str(getattr(e, "device_type", "")).endswith("CUDA") for e in prof.events()):
+            break
+    return prof
 
 
 def sdpa_backward_ms(q, k, v, do, iters: int) -> float:
@@ -1419,14 +1494,17 @@ def phase_imageslider_parity(tmp: Path) -> None:
 def device_profile(fn) -> dict:
     """Run ``fn`` under torch.profiler: wall, device busy seconds (sum of
     kernel durations on the one stream), idle share, top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def timed():
         t = time.time()
         fn()
         torch.cuda.synchronize()
-        wall = time.time() - t
+        wall.append(time.time() - t)
+
+    prof = profiled_window(timed)
+    wall = wall[-1]
     by_name: dict = {}
     n_kernels = 0
     for evt in prof.events():
@@ -1827,7 +1905,7 @@ def phase_notrigger(tmp: Path) -> dict:
     each; steps/s, pdist/ndist at the first and last step. Each file loads
     through load_slider_file as its tower's part; cli/combine_loras.py
     merges both (with an empty UNet part) into one file, which the
-    sweep_xl CLI runs at scales 0 and +1 (25 DDIM steps): at 0 the image is
+    sweep_xl CLI runs at scales 0 and +1 (SWEEP_XL_STEPS DDIM steps): at 0 the image is
     bit-equal to the image of a slider that changes nothing (a zero UNet
     slider), at +1 it differs. The trainer reaches no kernel."""
     runs, files = {}, []
@@ -1870,7 +1948,7 @@ def phase_notrigger(tmp: Path) -> dict:
     make_slider(zero, UNetConfig.sdxl())
     zsd = load_file(str(zero))
     save_file({k: (torch.zeros_like(v) if k.endswith("lora_up.weight") else v) for k, v in zsd.items()}, str(zero))
-    steps = 25
+    steps = SWEEP_XL_STEPS
     imgs, launches = {}, [0] * len(KERNEL_NAMES)
     for name, slider, scales in (("no_slider", zero, "0.0"), ("notrigger", combined, "0.0,1.0")):
         save = tmp / f"notrigger_sweep_{name}"
@@ -2115,11 +2193,11 @@ def image_gap(a: np.ndarray, b: np.ndarray) -> dict:
     return dict(max_abs=int(d.max()), mean_abs=float(d.mean()))
 
 
-def per_sampler_call(unet_cfg: UNetConfig, steps: int) -> tuple:
+def per_sampler_call(unet_cfg: UNetConfig, steps: int, decode: bool = True) -> tuple:
     """(K1, K4a) launches of one sampler call and its decode: ``steps`` UNet
-    forwards, then one K4a in the VAE's mid-block."""
+    forwards, then (``decode``) one K4a in the VAE's mid-block."""
     k1, _, _, k4a, _, _ = per_step_launches(unet_cfg, steps, 0)
-    return k1, k4a + 1
+    return k1, k4a + int(decode)
 
 
 def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: bool = True,
@@ -2129,7 +2207,9 @@ def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: 
     concurrently in one micro-batch. K1 and K4a launch their per-call counts
     in every sampler call; latency, images/s, peak memory."""
     size, steps = svc.image_size, svc.steps
-    k1_call, k4a_call = per_sampler_call(svc.unet.config, steps)
+    decodes = getattr(svc, "vae", None) is not None  # else the latent preview (a weightless flow family)
+    side = size if decodes else size // 8
+    k1_call, k4a_call = per_sampler_call(svc.unet.config, steps, decodes)
     batcher = svc._batcher
     reset_counts()  # count this serving path only
     requests = []
@@ -2189,7 +2269,7 @@ def phase_serve(svc: SliderService, what: str, model: str, load_s: float, pair: 
         extra = dict(pair_wall_seconds=pair_wall, pair_images_per_second=2 / pair_wall, pair_k1_launches=pair_k1,
                      pair_k4a_launches=pair_k4a)
     for scale, img in images.items():
-        if img.dtype != np.uint8 or img.shape != (size, size, 3):
+        if img.dtype != np.uint8 or img.shape != (side, side, 3):
             raise AssertionError(f"{what} scale {scale}: image {img.dtype} {img.shape}")
     if np.array_equal(images[0.0], images[2.0]):
         raise AssertionError(f"{what}: scale 0 and scale +2 gave the same image")
@@ -2229,10 +2309,12 @@ def phase_http(svc: SliderService, what: str = "http", guidance: float = 7.5) ->
         thread.join(30)
     launches = fa.flash_attention_fwd.launches - l0
     k4a = kg.flash_attention_kgrid_fwd.launches - d0
-    k1_call, k4a_call = per_sampler_call(svc.unet.config, svc.steps)
+    decodes = getattr(svc, "vae", None) is not None
+    side = svc.image_size if decodes else svc.image_size // 8
+    k1_call, k4a_call = per_sampler_call(svc.unet.config, svc.steps, decodes)
     emit(dict(phase=what, status=status, seconds=secs, shape=list(img.shape), healthz=health["status"],
               sliders=[s["name"] for s in sliders["sliders"]], k1_launches=launches, k4a_launches=k4a))
-    if status != 200 or img.shape != (svc.image_size, svc.image_size, 3) or health["status"] != "ok":
+    if status != 200 or img.shape != (side, side, 3) or health["status"] != "ok":
         raise AssertionError(f"{what}: HTTP /generate failed")
     if launches != k1_call or k4a != k4a_call:
         raise AssertionError(f"{what}: the HTTP request launched K1 {launches} and K4a {k4a} times, not "
@@ -2549,7 +2631,7 @@ def check_sweep_tree(root: Path, scales, case: int, size: int) -> dict:
     return imgs
 
 
-SWEEP_XL_STEPS = 25  # the XL sweep CLI's 50 DDIM steps, cut (since the SD3 phases joined the smoke)
+SWEEP_XL_STEPS = 12  # the XL sweep CLI's 50 DDIM steps, cut (to 25 when SD3 joined the smoke, to 12 with Flux)
 
 
 def phase_sweep_xl(tmp: Path) -> tuple:
@@ -2610,7 +2692,7 @@ def phase_sweep_xl(tmp: Path) -> tuple:
 
     # a combine_loras file with text-encoder parts: each scale's encode through the merged towers
     te_slider = make_te_slider(tmp, slider, "sweep_xl_te")
-    te_scales, te_steps = [-2.0, 2.0], 25
+    te_scales, te_steps = [-2.0, 2.0], SWEEP_XL_STEPS
     k1_te = per_step_launches(UNetConfig.sdxl(), te_steps, 0)[0]
     te_out = {}
     for mode, extra in (("te_merged", []), ("te_batch_scales", ["--batch_scales"])):
@@ -2906,14 +2988,15 @@ SD3_K23_SHAPES = [("sd3_train_joint_1357", 2, 1357, 24, 64), ("sd3_train_joint_1
 SD3_INT8_REQUEST = ("a photo of a person", 2.0, 7, SD3_GUIDANCE, "smoke")
 
 
-def phase_kernel_sd3(gen: torch.Generator) -> tuple:
-    """K1 (bf16) against its plain version at SD3-Medium's joint shapes
-    (SD3_K1_SHAPES) and K2/K3 at the 512px student's (SD3_K23_SHAPES), with
-    the splits their rules pick at 24 heads: errors, events, device ms, the
-    plain versions, SDPA (forward; whole backward), the bound, TFLOP/s, share
-    of the bound. Returns (K1 rows, K2/K3 rows)."""
+def phase_kernel_joint(gen: torch.Generator, k1_shapes=SD3_K1_SHAPES, k23_shapes=SD3_K23_SHAPES) -> tuple:
+    """K1 (bf16) against its plain version at a flow transformer's joint
+    shapes (SD3-Medium's SD3_K1_SHAPES, Flux's FLUX_K1_SHAPES) and K2/K3 at
+    its student's (SD3_K23_SHAPES, FLUX_K23_SHAPES), with the splits their
+    rules pick at 24 heads: errors, events, device ms, the plain versions,
+    SDPA (forward; whole backward), the bound, TFLOP/s, share of the bound.
+    Returns (K1 rows, K2/K3 rows)."""
     k1_rows, bwd_rows = [], []
-    for name, rows, s, h, d in SD3_K1_SHAPES:
+    for name, rows, s, h, d in k1_shapes:
         q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
         c = check_k1(q, k, v, f"{name} rows={rows} bf16")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2931,7 +3014,7 @@ def phase_kernel_sd3(gen: torch.Generator) -> tuple:
         k1_rows.append(row)
         del q, k, v, qt, kt, vt, c
         torch.cuda.empty_cache()
-    for name, rows, s, h, d in SD3_K23_SHAPES:
+    for name, rows, s, h, d in k23_shapes:
         scale = d**-0.5
         q, k, v, do = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for _ in range(4))
@@ -3045,6 +3128,24 @@ def phase_sd3_parity() -> None:
                              f"launches {launches} (expected {want_launches})")
 
 
+def write_component(root: Path, comp: str, sd: dict, config: dict, shards: int = 1) -> int:
+    """One diffusers component: ``shards`` safetensors files (an index above
+    one), its config.json; the bytes written."""
+    sub = root / comp
+    sub.mkdir(parents=True)
+    (sub / "config.json").write_text(json.dumps(config))
+    keys, weight_map, nbytes = sorted(sd), {}, 0
+    for i in range(shards):
+        name = (f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
+                else "model.safetensors")
+        save_file({key: sd[key] for key in keys[i::shards]}, str(sub / name))
+        weight_map.update({key: name for key in keys[i::shards]})
+        nbytes += (sub / name).stat().st_size
+    if shards > 1:
+        (sub / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+    return nbytes
+
+
 SD3_TE_CONFIGS = {"text_encoder": CLIPTextConfig(projection_dim=768), "text_encoder_2": CLIPTextConfig.sdxl_te2()}
 
 
@@ -3067,24 +3168,10 @@ def phase_sd3_load(tmp: Path) -> Path:
     configs = {"transformer": MMDiTConfig.sd3_medium(), "vae": VAEConfig.sd3(), **SD3_TE_CONFIGS}
     nbytes = 0
     for comp, module in src.items():
-        sd = {k: v.cpu() for k, v in module.state_dict().items()}
+        sd = module.state_dict()
         if comp.startswith("text_encoder"):
             sd = clip_transformers_names(sd)
-        sub = root / comp
-        sub.mkdir(parents=True)
-        (sub / "config.json").write_text(json.dumps(dataclasses.asdict(configs[comp])))
-        keys = sorted(sd)
-        shards = 2 if comp == "transformer" else 1
-        weight_map = {}
-        for i in range(shards):
-            name = (f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
-                    else "model.safetensors")
-            save_file({k: sd[k] for k in keys[i::shards]}, str(sub / name))
-            weight_map.update({k: name for k in keys[i::shards]})
-            nbytes += (sub / name).stat().st_size
-        if shards > 1:
-            (sub / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
-        del sd
+        nbytes += write_component(root, comp, sd, dataclasses.asdict(configs[comp]), 2 if comp == "transformer" else 1)
     prompts = [p for f in sorted((REPO / "data").glob("prompts*.yaml"))
                for e in yaml_subset.load_file(str(f)) or [] for k, p in e.items()
                if k in ("target", "positive", "negative", "neutral", "unconditional") and isinstance(p, str)]
@@ -3357,6 +3444,507 @@ def phase_sd3_notrigger(tmp: Path, sd3_dir: Path) -> None:
     torch.cuda.empty_cache()
 
 
+FLUX = "black-forest-labs/FLUX.1-schnell"
+FLUX_TRAIN_ITERATIONS = 2  # data/config-flux.yaml's 1000, cut: 2 optimizer steps = 2 × 4 + 1 micro-steps
+FLUX_GUIDANCE = 3.5  # the requests' guidance (a dev model's input; schnell ignores it)
+FLUX_T5_LAYERS = 2  # flux_load's text_encoder_2: T5-XXL's width, its 24 layers cut to 2 in its config.json
+FLUX_SHARDS = 5
+FLUX_VAE = dict(scaling_factor=0.3611, shift_factor=0.1159)  # FLUX.1's vae/config.json
+FLUX_INT8_REQUEST = ("a photo of a person", 2.0, 7, FLUX_GUIDANCE, "smoke")
+# (name, rows, S, heads, head dim): K1 at Flux's joint sequence (512 T5
+# tokens first, then the image's). 512px: 1024 + 512 = 1536 at rows 1 (a
+# request), 2 (the student at data/prompts-flux.yaml's batch 2) and 6 (its
+# 3-row teacher); 1024px: 4096 + 512 = 4608 at rows 1. K2/K3 at the
+# student's rows 2, and at rows 6.
+FLUX_K1_SHAPES = [
+    ("flux_joint_1536", 1, 1536, 24, 128),
+    ("flux_joint_1536", 2, 1536, 24, 128),
+    ("flux_joint_1536", 6, 1536, 24, 128),
+    ("flux_joint_4608", 1, 4608, 24, 128),
+]
+FLUX_K23_SHAPES = [("flux_joint_1536", 2, 1536, 24, 128), ("flux_joint_1536", 6, 1536, 24, 128)]
+
+
+def phase_kernel_flux_checks(gen: torch.Generator) -> tuple:
+    """At Flux's shapes, beyond phase_kernel_joint's bf16 rows: K1 fp32 at
+    1536² and 4608² (rows 1), K2/K3 fp32 at 1536² rows 2, and bf16 K2's key
+    split and K3's query split forced to 1, 2 and 64 at FLUX_K23_SHAPES
+    against the plain versions over the same splits, each call repeated bit
+    for bit (K2's δ the same bits at every split). Returns the max errors
+    of (K1, K2, K3)."""
+    errs = {"k1": [], "k2": [], "k3": []}
+    fp32 = []
+    for name, rows, s, h, d in (FLUX_K1_SHAPES[0], FLUX_K1_SHAPES[3]):
+        q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda") for _ in range(3))
+        c = check_k1(q, k, v, f"{name} rows={rows} fp32")
+        errs["k1"].append(c["max_abs_err"])
+        fp32.append(dict(kernel="K1", shape=name, rows=rows, max_abs_err=c["max_abs_err"]))
+        del q, k, v, c
+    name, rows, s, h, d = FLUX_K23_SHAPES[0]
+    scale = d**-0.5
+    q, k, v, do = (torch.randn((rows, s, h, d), generator=gen, device="cuda") for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+    e = [(x - w).abs().max().item() for x, w in zip(got, ref)]
+    t = [grad_tol(w, torch.float32) for w in ref]
+    fp32.append(dict(kernel="K2/K3", shape=name, rows=rows, max_abs_err=e, tol=t))
+    if any(not a <= b for a, b in zip(e, t)):
+        raise AssertionError(f"K2/K3 fp32 at {name}: {e} > {t}")
+    errs["k2"].append(e[0])
+    errs["k3"].append(max(e[1:]))
+    del q, k, v, do, o, lse, got, ref
+    forced = []
+    for name, rows, s, h, d in FLUX_K23_SHAPES:
+        scale = d**-0.5
+        q, k, v, do = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+        for splits in (1, 2, fa.MAX_SPLITS):
+            got, got_delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+            again, again_delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
+            want, _ = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale, splits)
+            dkv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+            dkv_again = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+            dkv_want = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale, splits)
+            torch.cuda.synchronize()
+            e2 = (got.float() - want).abs().max().item()
+            e3 = [(x.float() - w).abs().max().item() for x, w in zip(dkv, dkv_want)]
+            t2, t3 = grad_tol(want, torch.bfloat16), [grad_tol(w, torch.bfloat16) for w in dkv_want]
+            same = (torch.equal(got, again) and torch.equal(got_delta, again_delta) and torch.equal(got_delta, delta)
+                    and all(torch.equal(x, y) for x, y in zip(dkv, dkv_again)))
+            forced.append(dict(shape=name, rows=rows, splits=splits,
+                               k2_rule_splits=fa.pick_k2_splits(rows * h, s, s, torch.bfloat16),
+                               k3_rule_splits=fa.pick_k3_splits(rows * h, s, s, torch.bfloat16),
+                               max_abs_err_dq=e2, max_abs_err_dk_dv=e3, tol_dq=t2, tol_dk_dv=t3,
+                               repeats_and_delta_bit_equal=same))
+            if not same or not e2 <= t2 or any(not a <= b for a, b in zip(e3, t3)):
+                raise AssertionError(f"K2/K3 with forced splits at Flux's shapes: {forced[-1]}")
+            errs["k2"].append(e2)
+            errs["k3"].append(max(e3))
+            del got, again, want, dkv, dkv_again, dkv_want
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    emit(dict(phase="kernel_flux", fp32=fp32, forced_splits_bf16=forced))
+    return max(errs["k1"]), max(errs["k2"]), max(errs["k3"])
+
+
+def flux_lora(model, seed: int, rank: int = 2):
+    """Sites over ``model``'s Flux transformer and factors with a non-zero up
+    (CPU)."""
+    sites = lora.create_sites(model, rank=rank, target_replace=["Attention"], train_method="full", delimiter="-")
+    g = torch.Generator().manual_seed(seed)
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+    return sites, lp
+
+
+def phase_flux_parity() -> None:
+    """The tiny Flux packed sampler (3 steps, the slider through the overlay
+    from step 1) and one tiny Flux ESD micro-step (MultiSteps k 2, the
+    overlay student, each block checkpointed), fp32: card (K1 in every
+    attention, K2/K3 in the student's backward) against the CPU, same
+    weights, factors, inputs and draws."""
+    cpu = factory.build_module(lambda: FluxTransformer2DModel(FluxConfig.tiny()), "cpu", torch.float32, 5)
+    sites, lp = flux_lora(cpu, 1)
+    g = torch.Generator().manual_seed(2)
+    tokens, text, pooled = torch.randn((2, 16, 16), generator=g), torch.randn((2, 8, 32), generator=g), \
+        torch.randn((2, 32), generator=g)
+    sched = FlowMatchScheduler(use_dynamic_shifting=True).set_timesteps(3, mu=0.7)
+    ids = torch.from_numpy(prepare_latent_image_ids(4, 4))
+    row_scale = torch.tensor([1.5, -1.0])
+
+    def sample(model, device):
+        lp_d = {n: {k: t.to(device) for k, t in leaf.items()} for n, leaf in lp.items()}
+        return sample_packed_flow(model, 1, sched, tokens.to(device), text.to(device), pooled.to(device),
+                                  ids.to(device), overlay=lora.LoRAOverlay(model, sites, lp_d),
+                                  row_scale=row_scale.to(device)).cpu()
+
+    gpu = copy.deepcopy(cpu).to("cuda")
+    reset_counts()
+    got = sample(gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("flux_parity sampler")
+    err = (got - sample(cpu, "cpu")).abs().max().item()
+    emit(dict(phase="flux_parity", what="sampler", model="tiny Flux", steps=3, max_abs_err=err, tol=1e-3,
+              launches_k1_to_k4c=launches))
+    if not err <= 1e-3 or launches != per_step_launches(gpu.config, 3, 0):
+        raise AssertionError(f"tiny Flux sampler on the card: error {err}, launches {launches}")
+
+    bank_g = torch.Generator().manual_seed(3)
+    bank = esd.PromptBank(torch.randn((1, 5, 8, 32), generator=bank_g), [3.0], [1.0],
+                          torch.randn((1, 5, 32), generator=bank_g))
+    lat = torch.randn((2, 4, 16, 16), generator=bank_g)
+
+    def step(model, device):
+        lp_d = {n: {k: t.to(device).clone().requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        opt = MultiSteps(get_optimizer("adamw", get_lr_schedule("cosine", 1e-3, 50, 1e-6), weight_decay=1e-6,
+                                       grad_clip_value=1.0), 1)
+        cfg = esd_flux.FluxESDConfig(batch_size=2, height=32, width=32, latent_channels=4, vae_scale=2, remat=True,
+                                     student_overlay=True)
+        st = esd_flux.make_flux_esd_train_step(model, sites, lp_d, FlowMatchScheduler(use_dynamic_shifting=True)
+                                               .set_timesteps(8, mu=0.6), opt, cfg)
+        bank_d = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign, bank.pooled.to(device))
+        m = st(opt.init(flat_params(sites, lp_d)), bank_d, draws=[esd_flux.Draw(0, lat.to(device))])
+        return float(m["loss"]), lora.state_dict_numpy(sites, lp_d)
+
+    reset_counts()
+    got = step(gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("flux_parity ESD step")
+    want = step(cpu, "cpu")
+    want_launches = per_step_launches(gpu.config, 3, 1)
+    loss_err = abs(got[0] - want[0])
+    factor_err = max(float(np.abs(got[1][k] - want[1][k]).max()) for k in want[1])
+    emit(dict(phase="flux_parity", what="esd_step", model="tiny Flux", loss_card=got[0], loss_cpu=want[0],
+              loss_abs_err=loss_err, factor_max_abs_err=factor_err, tol=1e-3, launches_k1_to_k4c=launches,
+              expected_launches=want_launches))
+    if not (loss_err <= 1e-3 * max(1.0, abs(want[0])) and factor_err <= 1e-3) or launches != want_launches:
+        raise AssertionError(f"tiny Flux ESD step on the card: loss {loss_err}, factors {factor_err}, "
+                             f"launches {launches} (expected {want_launches})")
+
+
+def phase_flux_train(tmp: Path, what: str = "flux_train", iterations: int = FLUX_TRAIN_ITERATIONS,
+                     quantize_base: bool = False, profile: bool = True) -> list:
+    """Full-width FLUX.1-schnell ESD training at 512px through
+    cli/train_lora_flux.train from data/config-flux.yaml +
+    data/prompts-flux.yaml (batch 2: 4 micro-steps per optimizer step, 8
+    flow steps; the seeded weightless family at bf16; only train.iterations,
+    save.path and tpu.quantize_base overridden, the last to
+    ``quantize_base``): per micro-step K1 57 × 3 (the 6-row teacher, the
+    student and its recompute) and K2 = K3 = 57; micro-steps/s and
+    optimizer steps/s after the first, first-step seconds, peak memory, the
+    saved keys (76 sites); one more micro-step profiled."""
+    cfg, prompts = train_config(tmp / what, "config-flux.yaml", iterations)
+    set_tpu(cfg, quantize_base=quantize_base)
+    k = train_lora_flux.accumulation_steps(prompts[0].batch_size, max(cfg.tpu.samples_per_step, 1))
+    micro = iterations * k + 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = train_lora_flux.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain(what)
+    flux_cfg = FluxConfig.schnell()
+    want = per_step_launches(flux_cfg, 3 * micro, micro)
+    saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
+    with torch.device("meta"):
+        ref_sites = lora.create_sites(FluxTransformer2DModel(flux_cfg), rank=cfg.network.rank,
+                                      target_replace=["Attention"], train_method=cfg.network.training_method,
+                                      delimiter="-")
+    keys_ok = set(saved) == {f"{s.lora_name}.{key}" for s in ref_sites
+                             for key in ("lora_down.weight", "lora_up.weight", "alpha")}
+    ups_zero = sum(not leaf["up"].detach().abs().max().item() > 0 for leaf in res.lora_params.values())
+    row = dict(phase=what, model=f"{FLUX} (seeded random weights)", image_size=prompts[0].resolution,
+               batch_size=prompts[0].batch_size, micro_steps_per_optimizer_step=k, precision=cfg.train.precision,
+               quantize_base=quantize_base, lora_sites=len(res.sites), iterations=iterations, micro_steps=micro,
+               losses=res.losses, grad_norms=[r["grad_norm"] for r in res.metrics],
+               micro_steps_per_sec_after_first=res.steps_per_sec,
+               optimizer_steps_per_sec_after_first=res.steps_per_sec / k,
+               first_step_seconds=res.first_step_seconds, setup_seconds=res.setup_seconds, wall_seconds=wall,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, launches_k1_to_k4c=launches,
+               expected_launches=want, saved_keys=len(saved), saved_keys_match_reference=keys_ok,
+               up_factors_still_zero=ups_zero)
+    emit(row)
+    if (not all(np.isfinite(res.losses)) or len(res.losses) != micro or ups_zero or not keys_ok
+            or len(res.sites) != 76 or launches != want):
+        raise AssertionError(f"{what}: {row}")
+    if profile:
+        reset_counts()
+        prof = device_profile(res.next_step)
+        emit(dict(phase=f"{what}_profile", launches_k1_to_k4c=list(counts()), **prof))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def make_flux_slider(path: Path, rank: int = 4, seed: int = 4) -> None:
+    """A rank-4 '-'-delimited slider over schnell's 76 dual-stream sites (the
+    trainer's under train_method full), non-zero up."""
+    with torch.device("meta"):
+        model = FluxTransformer2DModel(FluxConfig.schnell())
+    lora.save_weights(str(path), *flux_lora(model, seed, rank))
+
+
+def phase_flux_serve(tmp: Path, ref: dict) -> tuple:
+    """FluxSliderService at its defaults (512px, 8 steps, start_noise 800;
+    the seeded weightless schnell, no vae/: JAX's latent preview): two solo
+    requests (scales 0 and +2), a concurrent pair (-2 and +1), one
+    /generate over HTTP, one profiled request; 8 × 57 = 456 K1 launches per
+    sampler call and no K4a. Keeps the slider and the bf16 image of
+    FLUX_INT8_REQUEST in ``ref`` for flux_int8."""
+    ref["slider"] = str(tmp / "flux_serve_noxattn_rank4_alpha1.safetensors")
+
+    def after(svc):
+        ref["png"] = svc.generate(*FLUX_INT8_REQUEST)
+
+    return served(tmp, "flux_serve", lambda p: FluxSliderService(FLUX, p, device="cuda", batch_window_ms=50.0),
+                  FluxConfig.schnell(), f"{FLUX} (seeded random weights)", guidance=FLUX_GUIDANCE,
+                  slider=make_flux_slider, after=after)
+
+
+def phase_flux_sweep(tmp: Path, slider: str) -> list:
+    """cli/generate_images_flux at its defaults (512px, 8 steps, start_noise
+    800, the weightless schnell: the final latents as .npy), scales -2, 0,
+    2 × one sample × case 0 of prompts/prompts-person.csv: 456 K1 per
+    trajectory; seconds per image."""
+    save = tmp / "flux_sweep"
+    scales = ("-2.0", "0.0", "2.0")
+    argv = ["--model_name", slider, "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
+            "--save_path", str(save), "--scales=" + ",".join(scales), "--till_case", "0"]
+    reset_counts()
+    t0 = time.time()
+    gen_flux.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain("flux_sweep")
+    lats = {s: np.load(save / Path(slider).name / s / "0_0.npy") for s in scales}
+    k1_call, _ = per_sampler_call(FluxConfig.schnell(), 8, decode=False)
+    want = [len(scales) * k1_call, 0, 0, 0, 0, 0]
+    row = dict(phase="flux_sweep", model=f"{FLUX} (seeded random weights)", image_size=512, steps=8,
+               scales=list(scales), wall_seconds=wall, seconds_per_image=wall / len(scales),
+               launches_k1_to_k4c=launches, expected_launches=want, shapes=[list(v.shape) for v in lats.values()],
+               scale_minus2_vs_2_max_abs=float(np.abs(lats["-2.0"] - lats["2.0"]).max()))
+    emit(row)
+    if (launches != want or any(v.shape != (1, 16, 64, 64) or not np.isfinite(v).all() for v in lats.values())
+            or np.array_equal(lats["-2.0"], lats["2.0"])):
+        raise AssertionError(f"flux_sweep: {row}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flux_load(tmp: Path, ref: dict) -> list:
+    """A FLUX.1-schnell diffusers directory of seeded bf16 weights —
+    transformer/ at full width and depth (FLUX_SHARDS shards and an index),
+    text_encoder_2/ T5-XXL's width with its depth cut to FLUX_T5_LAYERS in
+    its config.json, text_encoder/ CLIP-L under transformers names, vae/
+    (16 channels, FLUX.1's scaling and shift), tokenizer_2/spiece.model and
+    tokenizer/ (synthetic) — served: FluxSliderService over it (its load is
+    factory.load_models_flux) holds every tensor bit-equal to its source,
+    then one 512px request decoded through the VAE (456 K1, 1 K4a). GB, write
+    and load seconds, GB/s; the directory is deleted after."""
+    root = tmp / "flux1-schnell-diffusers"
+    t0 = time.time()
+    t5_cfg = T5Config(num_layers=FLUX_T5_LAYERS)
+    vae_cfg = dataclasses.replace(VAEConfig.sd3(), **FLUX_VAE)
+    src = {"transformer": factory.build_module(lambda: FluxTransformer2DModel(FluxConfig.schnell()), "cuda",
+                                               torch.bfloat16, 0),
+           "text_encoder_2": factory.build_module(lambda: T5EncoderModel(t5_cfg), "cuda", torch.bfloat16, 1),
+           "text_encoder": factory.build_module(lambda: CLIPTextEncoder(CLIPTextConfig.sd15_te()), "cuda",
+                                                torch.bfloat16, 2),
+           "vae": factory.build_module(lambda: AutoencoderKL(vae_cfg), "cuda", torch.bfloat16, 3)}
+    configs = {"transformer": dataclasses.asdict(FluxConfig.schnell()), "text_encoder_2": dataclasses.asdict(t5_cfg),
+               "text_encoder": dataclasses.asdict(CLIPTextConfig.sd15_te()), "vae": dataclasses.asdict(vae_cfg)}
+    nbytes = 0
+    for comp, module in src.items():
+        sd = module.state_dict()
+        if comp == "text_encoder":
+            sd = clip_transformers_names(sd)
+        nbytes += write_component(root, comp, sd, configs[comp], FLUX_SHARDS if comp == "transformer" else 1)
+    prompts = [p for f in sorted((REPO / "data").glob("prompts*.yaml"))
+               for e in yaml_subset.load_file(str(f)) or [] for k, p in e.items()
+               if k in ("target", "positive", "negative", "neutral", "unconditional") and isinstance(p, str)]
+    (root / "tokenizer_2").mkdir()
+    write_synthetic_spm(str(root / "tokenizer_2" / "spiece.model"), prompts)
+    write_synthetic_bpe_files(str(root / "tokenizer"), prompts)
+    write_s = time.time() - t0
+    torch.cuda.synchronize()
+    svc = FluxSliderService(str(root), ref["slider"], device="cuda")
+    try:
+        got = {"transformer": svc.unet, "text_encoder_2": svc.encoder.t5, "text_encoder": svc.encoder.clip.model,
+               "vae": svc.vae}
+        mismatched = [f"{comp}.{key}" for comp, m in got.items() for key, v in m.state_dict().items()
+                      if not torch.equal(v, src[comp].state_dict()[key].to(v.dtype))]
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        svc.add_slider("smoke", ref["slider"])
+        reset_counts()
+        t1 = time.time()
+        img = decode_png(svc.generate(*FLUX_INT8_REQUEST))
+        secs = time.time() - t1
+        launches = list(counts())
+        check_no_plain("flux_load")
+        row = dict(phase="flux_load", model=f"{FLUX} (seeded random weights)",
+                   layout=f"diffusers directory (transformer in {FLUX_SHARDS} shards)",
+                   reduced={"text_encoder_2.num_layers": [24, FLUX_T5_LAYERS]},
+                   params={c: sum(p.numel() for p in m.parameters()) for c, m in got.items()},
+                   gb=nbytes / 1e9, write_seconds=write_s, load_seconds=svc.load_seconds,
+                   load_gb_per_second=nbytes / svc.load_seconds / 1e9, tokenizer=type(svc.tokenizers[0]).__name__,
+                   vae_factors=[svc.vae.config.scaling_factor, svc.vae.config.shift_factor], bit_equal=not mismatched,
+                   request_seconds=secs, image_shape=list(img.shape), launches_k1_to_k4c=launches)
+        emit(row)
+        k1_call, k4a_call = per_sampler_call(FluxConfig.schnell(), 8)
+        if (mismatched or launches != [k1_call, 0, 0, k4a_call, 0, 0] or img.shape != (512, 512, 3)
+                or type(svc.tokenizers[0]).__name__ != "T5SpmTokenizer"):
+            raise AssertionError(f"flux_load: {len(mismatched)} tensors differ (e.g. {mismatched[:3]}); {row}")
+    finally:
+        svc.close()
+    del svc, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return launches
+
+
+def phase_flux_int8(tmp: Path, ref: dict) -> dict:
+    """Flux's int8 base: 2 optimizer steps with tpu.quantize_base (launches
+    as bf16's, finite, moved factors); one 512px request under --w8a8
+    (latency, peak, the gap to the bf16 image of flux_serve); the
+    quantize_checkpoint --family flux artifact of the weightless schnell
+    (bytes, seconds) loaded as the base, one forward bit-equal to
+    load_models_flux(..., quantize_base=True)'s, the file deleted after."""
+    paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 2, quantize_base=True, profile=False)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    svc = FluxSliderService(FLUX, ref["slider"], device="cuda", w8a8=True)
+    load_s = time.time() - t0
+    try:
+        svc.add_slider("smoke", ref["slider"])
+        reset_counts()
+        t0 = time.time()
+        png = svc.generate(*FLUX_INT8_REQUEST)
+        secs = time.time() - t0
+        paths["flux_int8_serve"] = list(counts())
+        check_no_plain("flux_int8_serve")
+        n_q = sum(isinstance(m, quant.QuantLinear) for m in svc.unet.modules())
+    finally:
+        svc.close()
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    img, bf16 = decode_png(png), decode_png(ref["png"])
+    k1_call, _ = per_sampler_call(FluxConfig.schnell(), 8, decode=False)
+    row = dict(phase="flux_int8_serve", mode="w8a8", load_seconds=load_s, request_seconds=secs, quant_linears=n_q,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               gap_to_bf16=image_gap(img, bf16), launches_k1_to_k4c=paths["flux_int8_serve"])
+    emit(row)
+    if paths["flux_int8_serve"] != [k1_call, 0, 0, 0, 0, 0] or img.shape != bf16.shape:
+        raise AssertionError(f"flux_int8_serve: {row}")
+
+    out = tmp / "flux1-schnell.int8.safetensors"
+    t0 = time.time()
+    n_q = quantize_checkpoint.main(["--base", FLUX, "--family", "flux", "--out", str(out)])
+    cli_s = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.time()
+    _, _, from_artifact, _ = factory.load_models_flux(str(out), weight_dtype=torch.bfloat16, device="cuda")
+    reload_s = time.time() - t0
+    _, _, in_memory, _ = factory.load_models_flux(FLUX, weight_dtype=torch.bfloat16, device="cuda",
+                                                  quantize_base=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((1, 1024, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((1, 512, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    pooled = torch.randn((1, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([0.7], device="cuda")
+    txt_ids, img_ids = torch.zeros((512, 3), device="cuda"), torch.from_numpy(prepare_latent_image_ids(32, 32)).cuda()
+    with torch.inference_mode():
+        a = from_artifact(x, t, ctx, pooled, txt_ids, img_ids)
+        b = in_memory(x, t, ctx, pooled, txt_ids, img_ids)
+    paths["flux_quantize_checkpoint"] = list(counts())
+    check_no_plain("flux_quantize_checkpoint")
+    row = dict(phase="flux_quantize_checkpoint", int8_kernels=n_q, artifact_bytes=out.stat().st_size,
+               cli_seconds=cli_s, reload_seconds=reload_s, forward_bit_equal=bool(torch.equal(a, b)),
+               forward_finite=bool(torch.isfinite(a).all()), launches_k1_to_k4c=paths["flux_quantize_checkpoint"])
+    emit(row)
+    if (not row["forward_bit_equal"] or not row["forward_finite"]
+            or paths["flux_quantize_checkpoint"] != per_step_launches(FluxConfig.schnell(), 2, 0)):
+        raise AssertionError(f"flux_quantize_checkpoint: {row}")
+    del from_artifact, in_memory, a, b
+    out.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_flux_export(tmp: Path, slider: str) -> None:
+    """cli/export_single_file --flux --half over the weightless schnell (its
+    fp32 base on the card) with the serve slider baked at --scale 2 (BFL's
+    layout, fp16); the file reloaded through the BFL loader at fp16
+    (factory.load_models_flux) and exported again: every tensor bit-equal
+    to the file's; bytes, write and reload seconds; the file deleted
+    after."""
+    out = tmp / "flux1-schnell-merged.safetensors"
+    t0 = time.time()
+    sd = export_single_file.main(["--base", FLUX, "--slider", slider, "--scale", "2", "--output", str(out),
+                                  "--flux", "--half", "--device", "0"])
+    write_s = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    _, _, model, _ = factory.load_models_flux(str(out), weight_dtype=torch.float16, device="cuda")
+    reload_s = time.time() - t0
+    back = ldm_export.export_flux_bfl(model.state_dict())
+    bad = [k for k, v in sd.items() if k not in back or not torch.equal(back[k], v.to(back[k].device))]
+    row = dict(phase="flux_export", model=f"{FLUX} (seeded random weights, fp32 base)", scale=2.0, dtype="float16",
+               tensors=len(sd), file_bytes=out.stat().st_size, write_seconds=write_s, reload_seconds=reload_s,
+               guidance_embeds=model.config.guidance_embeds, mismatched=len(bad) + len(set(back) - set(sd)))
+    emit(row)
+    out.unlink()
+    del sd, model, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if row["mismatched"] or row["guidance_embeds"]:
+        raise AssertionError(f"flux_export: {len(bad)} tensors differ (e.g. {bad[:3]})")
+
+
+def phase_flux_notrigger(tmp: Path) -> None:
+    """cli/train_notrigger.train with --model FLUX.1 and clip_index 1: a LoRA
+    slider in a seeded T5-XXL at full width and depth (bf16, the hash
+    tokenizer, 512 tokens; the t5attn method), NOTRIGGER_STEPS steps;
+    finite losses, the saved keys (lora_te2_encoder_block_…, 4 sites per
+    layer); no attention kernel (T5's attention is plain). Then the saved
+    part swept over the same seeded T5 at 0 and +1 (a prompt's encode with
+    the part merged): 0 bit-equal to the tower without it, +1 not."""
+    cfg = load_config_from_yaml(str(REPO / "data" / "config-notrigger-xl.yaml"))
+    cfg.save.path = str(tmp / "flux_notrigger")
+    cfg.train.iterations, cfg.train.lr = NOTRIGGER_STEPS, NOTRIGGER_LR
+    reset_counts()
+    t0 = time.time()
+    train_notrigger.train(cfg, positive="a person, smiling", negative="a person, frowning", clip_index=1,
+                          peft_type="lora", model="FLUX.1", device="cuda")
+    wall = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = [json.loads(x) for x in (Path(cfg.save.path) / f"{cfg.save.name}_metrics.jsonl").read_text().splitlines()]
+    rows = [x for x in lines if "step" in x]
+    path = Path(cfg.save.path) / f"{cfg.save.name}_1_last.safetensors"
+    saved = load_file(str(path))
+    t5_cfg = T5Config.xxl()
+    t5 = factory.build_module(lambda: T5EncoderModel(t5_cfg), "cuda", torch.bfloat16, 0)  # the trainer's tower
+    tok = HashTokenizer(vocab_size=t5_cfg.vocab_size, max_length=512, bos=0, eos=1, pad=0)
+    ids = torch.from_numpy(tok(["a photo of a person"]).astype(np.int64)).cuda()
+    parts = load_slider_file(str(path), [None, t5], te2_is_t5=True)
+    with torch.inference_mode():
+        base = t5(ids)
+        sweep = {}
+        for scale in (0.0, 1.0):
+            with parts.merged_text_encoders(scale):
+                sweep[scale] = t5(ids)
+    at0 = bool(torch.equal(sweep[0.0], base))
+    at1 = float((sweep[1.0].float() - base.float()).abs().max())
+    row = dict(phase="flux_notrigger", model="T5-XXL (seeded random weights, bf16, 24 layers)", steps=len(rows),
+               losses=[r["loss"] for r in rows], wall_seconds=wall,
+               steps_per_sec_after_first=lines[-1]["steps_per_sec"], saved_keys=len(saved),
+               sweep_scale0_bit_equal=at0, sweep_scale1_max_abs_diff=at1, launches_k1_to_k4c=list(counts()))
+    emit(row)
+    del t5, parts, base, sweep
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (len(rows) != NOTRIGGER_STEPS or not all(np.isfinite(row["losses"])) or any(counts()) or any(plain_calls())
+            or len(saved) != 3 * 4 * t5_cfg.num_layers or not all(k.startswith("lora_te2_encoder_block_")
+                                                                   for k in saved)
+            or not at0 or not at1 > 0):
+        raise AssertionError(f"flux_notrigger: {row}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -3377,11 +3965,14 @@ def main() -> int:
     kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
     kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
     k1_sd_errors, k4a_sd_errors = phase_kernel_sd_serve(gen)
-    sd3_k1_rows, sd3_bwd_rows = phase_kernel_sd3(gen)
+    sd3_k1_rows, sd3_bwd_rows = phase_kernel_joint(gen)
+    flux_k1_rows, flux_bwd_rows = phase_kernel_joint(gen, FLUX_K1_SHAPES, FLUX_K23_SHAPES)
+    flux_k1_err, flux_k2_err, flux_k3_err = phase_kernel_flux_checks(gen)
     phase_parity()
     phase_train_parity()
     phase_sd_train_parity()
     phase_sd3_parity()
+    phase_flux_parity()
     paths = {}  # each path's launches of K1..K4c, counted from 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3469,6 +4060,17 @@ def main() -> int:
         phase_sd3_export(tmp, sd3_dir, sd3_ref["slider"])
         phase_sd3_notrigger(tmp, sd3_dir)
         emit(dict(phase="sd3_phases", seconds=time.time() - t_sd3))
+        shutil.rmtree(sd3_dir)
+        t_flux = time.time()
+        paths["flux_train"] = phase_flux_train(tmp)
+        flux_ref = {}
+        paths["flux_serve"] = phase_flux_serve(tmp, flux_ref)
+        paths["flux_sweep"] = phase_flux_sweep(tmp, flux_ref["slider"])
+        paths["flux_load"] = phase_flux_load(tmp, flux_ref)
+        paths.update(phase_flux_int8(tmp, flux_ref))
+        phase_flux_export(tmp, flux_ref["slider"])
+        phase_flux_notrigger(tmp)
+        emit(dict(phase="flux_phases", seconds=time.time() - t_flux))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
@@ -3486,11 +4088,15 @@ def main() -> int:
     sd3_train = ("sd3_train", "sd3_int8_train")
     sd3_decode = ("sd3_serve", "sd3_sweep", "sd3_int8_serve")
     sd3_inference = sd3_decode + ("sd3_quantize_checkpoint",)
+    # Flux: every attention is K1 (K2/K3 in training); only flux_load decodes (K4a)
+    flux_train = ("flux_train", "flux_int8_train")
+    flux_inference = ("flux_serve", "flux_sweep", "flux_load", "flux_int8_serve", "flux_quantize_checkpoint")
     runs_on = {
-        "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference,
-        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train,
-        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train,
-        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode,
+        "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference
+              + flux_train + flux_inference,
+        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train,
+        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train,
+        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode + ("flux_load",),
         "K4b": sd15_train,
         "K4c": sd15_train,
     }
@@ -3501,7 +4107,10 @@ def main() -> int:
         raise AssertionError(f"SD2.1 training launched K4a/K4b/K4c: {paths['sd2_train']}")
     if any(paths[p][4] or paths[p][5] or paths[p][3] for p in sd3_train + ("sd3_quantize_checkpoint",)):
         raise AssertionError(f"an SD3 path launched a k-grid kernel in the MMDiT: {paths}")
-    if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5] for p in inference + ("serve",) + sd3_inference):
+    if any(paths[p][3] or paths[p][4] or paths[p][5] for p in flux_train + flux_inference if p != "flux_load"):
+        raise AssertionError(f"a Flux path launched a k-grid kernel in the transformer: {paths}")
+    if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5]
+           for p in inference + ("serve",) + sd3_inference + flux_inference):
         raise AssertionError(f"an inference path launched a backward kernel: {paths}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time
@@ -3524,7 +4133,8 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
             **launches("K1"),
-            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows + sd3_k1_rows] + k1_sd_errors),
+            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows + sd3_k1_rows + flux_k1_rows]
+                            + k1_sd_errors + [flux_k1_err]),
             ms=main_row["kernel_ms"],
             device_ms=main_row["device_ms"],
             plain_ms=main_row["plain_ms"],
@@ -3540,6 +4150,9 @@ def main() -> int:
             sd3=[{k: r[k] for k in ("shape", "rows", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                                     "library_device_ms", "tflops", "share_of_bound", "over_library", "max_abs_err")}
                  for r in sd3_k1_rows],
+            flux=[{k: r[k] for k in ("shape", "rows", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                     "library_device_ms", "tflops", "share_of_bound", "over_library", "max_abs_err")}
+                  for r in flux_k1_rows],
         ),
         dict(
             name="flash_attention_bwd_dq",
@@ -3547,7 +4160,7 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:107",
             **launches("K2"),
-            max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows + sd3_bwd_rows),
+            max_abs_err=max([r["max_abs_err"]["dq"] for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows] + [flux_k2_err]),
             ms=bwd_main["k2_ms"],
             device_ms=bwd_main["k2_device_ms"],
             plain_ms=bwd_main["k2_plain_ms"],
@@ -3564,6 +4177,9 @@ def main() -> int:
             sd3=[{k: r[k] for k in ("shape", "rows", "k2_splits", "k2_ms", "k2_device_ms", "k2_plain_ms", "k2_bound_ms",
                                     "library_ms", "k2_tflops", "k2_share_of_bound", "k2_over_library")}
                  for r in sd3_bwd_rows],
+            flux=[{k: r[k] for k in ("shape", "rows", "k2_splits", "k2_ms", "k2_device_ms", "k2_plain_ms",
+                                     "k2_bound_ms", "library_ms", "k2_tflops", "k2_share_of_bound", "k2_over_library")}
+                  for r in flux_bwd_rows],
         ),
         dict(
             name="flash_attention_bwd_dkv",
@@ -3571,7 +4187,8 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:139",
             **launches("K3"),
-            max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]) for r in bwd_rows + sd3_bwd_rows),
+            max_abs_err=max([max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
+                             for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows] + [flux_k3_err]),
             ms=bwd_main["k3_ms"],
             device_ms=bwd_main["k3_device_ms"],
             plain_ms=bwd_main["k3_plain_ms"],
@@ -3587,6 +4204,9 @@ def main() -> int:
             sd3=[{k: r[k] for k in ("shape", "rows", "k3_splits", "k3_ms", "k3_device_ms", "k3_plain_ms", "k3_bound_ms",
                                     "library_ms", "k3_tflops", "k3_share_of_bound", "k3_over_library")}
                  for r in sd3_bwd_rows],
+            flux=[{k: r[k] for k in ("shape", "rows", "k3_splits", "k3_ms", "k3_device_ms", "k3_plain_ms",
+                                     "k3_bound_ms", "library_ms", "k3_tflops", "k3_share_of_bound", "k3_over_library")}
+                  for r in flux_bwd_rows],
         ),
         dict(
             name="flash_attention_kgrid_fwd",

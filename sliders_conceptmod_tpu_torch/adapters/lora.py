@@ -85,6 +85,14 @@ def module_path(name: str) -> Tuple[str, ...]:
     return tuple(segs)
 
 
+def jax_path_fn(model: nn.Module) -> Callable[[str], Tuple[str, ...]]:
+    """The model's rule from a module name (relative to ``model``) to its
+    JAX-tree path: the model's own ``jax_path`` where its JAX tree names
+    modules otherwise (Flux flattens some, T5 has no ``encoder`` level),
+    else :func:`module_path`."""
+    return getattr(model, "jax_path", module_path)
+
+
 def _dotted(segments: Sequence[str]) -> str:
     """path segments → diffusers dotted name (``to_out_0`` → ``to_out.0``)."""
     out = []
@@ -130,6 +138,8 @@ def _classify_module(path: Tuple[str, ...]) -> Optional[Tuple[str, str, str]]:
         return "Upsample2D", _dotted(path[:-1]), child
     if parent_seg == "self_attn" and child in _CLIP_ATTN_CHILDREN:
         return "CLIPAttention", _dotted(path[:-1]), child
+    if parent_seg == "SelfAttention" and child in ("q", "k", "v", "o"):
+        return "T5Attention", _dotted(path[:-1]), child
     return None
 
 
@@ -184,8 +194,9 @@ def create_sites(
     targets = set(target_replace)
     if "DownBlock2D" in targets or "UpBlock2D" in targets:
         targets.update(("ResnetBlock2D", "Downsample2D", "Upsample2D"))
+    path_of = jax_path_fn(model)
     layers = sorted(
-        (module_path(name), mod)
+        (path_of(name), mod)
         for name, mod in model.named_modules()
         if isinstance(mod, (nn.Linear, QuantLinear, nn.Conv2d))
     )
@@ -265,7 +276,8 @@ class LoRAOverlay:
 
     def __init__(self, model: nn.Module, sites: Sequence[LoRASite], lora_params: LoRAParams):
         self._lock = model_lock(model)
-        by_path = {module_path(n): m for n, m in model.named_modules()}
+        path_of = jax_path_fn(model)
+        by_path = {path_of(n): m for n, m in model.named_modules()}
         self._targets = []
         for site in sites:
             mod = by_path.get(site.module_path)
@@ -430,7 +442,8 @@ def _refuse_quantized(mod: nn.Module, path: Sequence[str]) -> None:
 def site_weights(model: nn.Module, sites: Sequence[LoRASite]) -> Iterator[Tuple[LoRASite, str, torch.Tensor]]:
     """(site, parameter name, weight) of each site's module, in site order; a
     quantized site raises."""
-    by_path = {module_path(n): n for n, _ in model.named_modules()}
+    path_of = jax_path_fn(model)
+    by_path = {path_of(n): n for n, _ in model.named_modules()}
     for site in sites:
         name = by_path.get(site.module_path)
         if name is None:
@@ -484,7 +497,7 @@ def merged_weights(model: nn.Module, merged: Dict[str, torch.Tensor]) -> Iterato
     for name, tensor in merged.items():
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name)
-        _refuse_quantized(mod, module_path(mod_name))
+        _refuse_quantized(mod, jax_path_fn(model)(mod_name))
         slots.append((mod, leaf, tensor))
     originals = [mod._parameters[leaf] for mod, leaf, _ in slots]
     try:

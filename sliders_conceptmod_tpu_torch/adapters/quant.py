@@ -160,15 +160,16 @@ def quantize_module(module: nn.Module, min_elems: Optional[int] = None,
     by a :class:`QuantLinear` in place (computing in the weight's dtype), and
     mark the module quantized. Returns ``{JAX module path: scale}``. On the
     ``meta`` device it builds the structure only."""
-    from sliders_conceptmod_tpu_torch.adapters.lora import module_path
+    from sliders_conceptmod_tpu_torch.adapters.lora import jax_path_fn
 
     min_elems = QUANT_MIN_ELEMS if min_elems is None else min_elems
     wanted = None if paths is None else set(paths)
     scales: ScaleDict = {}
+    path_of = jax_path_fn(module)
     for name, mod in list(module.named_modules()):
         if not isinstance(mod, nn.Linear):
             continue
-        path = module_path(name)
+        path = path_of(name)
         if (path not in wanted) if wanted is not None else mod.weight.numel() < min_elems:
             continue
         q = QuantLinear.from_linear(mod)
@@ -190,9 +191,10 @@ def is_quantized(module: nn.Module) -> bool:
 
 def quant_scales(module: nn.Module) -> ScaleDict:
     """``{JAX module path: scale}`` of the module's QuantLinears."""
-    from sliders_conceptmod_tpu_torch.adapters.lora import module_path
+    from sliders_conceptmod_tpu_torch.adapters.lora import jax_path_fn
 
-    return {module_path(n): m.scale for n, m in module.named_modules() if isinstance(m, QuantLinear)}
+    path_of = jax_path_fn(module)
+    return {path_of(n): m.scale for n, m in module.named_modules() if isinstance(m, QuantLinear)}
 
 
 def set_act_quant(module: nn.Module, on: bool) -> nn.Module:

@@ -7,10 +7,11 @@ text-encoder sliders ``lora_te1_…`` / ``lora_te2_…``, and combined-file part
 (``transformer.<dotted>.lora_A/lora_B``, ``lora_te3_…`` for the second
 tower), all mapped back to the canonical keys.
 
-A text-encoder part binds to one CLIP tower (:func:`load_te_part`): its sites
-are the notrigger trainer's (``CLIPAttention`` projections, ``train_method``
-"full", names under ``text_model.encoder``), kept to the keys the part
-carries; a DoRA part (``.dora_scale``) binds through ``adapters/dora.py``.
+A text-encoder part binds to one tower (:func:`load_te_part`): its sites
+are the notrigger trainer's — a CLIP tower's ``CLIPAttention`` projections
+(``train_method`` "full", names under ``text_model.encoder``), or Flux's T5
+(``te2_is_t5``: ``T5Attention`` q/k/v/o, ``t5attn``, names under
+``encoder``) — kept to the keys the part carries; a DoRA part (``.dora_scale``) binds through ``adapters/dora.py``.
 It has no ``start_noise`` gate: the prompt embeddings are made once per
 trajectory, so the slider multiplier applies to the encode — the uncond
 prompt's too — through the tower's weights merged at that multiplier
@@ -33,7 +34,8 @@ from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 # torch-module-path segments above the port's CLIP layers in the reference's
 # key names: lora_teN_text_model_encoder_layers_…
 CLIP_NAME_PATH_PREFIX = ("text_model", "encoder")
-_T5_QUEUE = "ROADMAP.md queue 1, item 9"
+# … and above T5's blocks (Flux's te2): lora_te2_encoder_block_…
+T5_NAME_PATH_PREFIX = ("encoder",)
 
 _SUFFIXES = (".lora_down.weight", ".lora_up.weight", ".alpha", ".dora_scale")
 _PEFT_TO_CANON = {
@@ -129,17 +131,19 @@ class TEPart:
 
 def load_te_part(encoder: nn.Module, part: Dict[str, torch.Tensor], index: int, is_t5: bool = False,
                  dtype: torch.dtype = torch.float32) -> TEPart:
-    """Bind a ``lora_te{1,2}`` part to a CLIP tower. A part whose keys match
-    no site, or any key that lands on no site, raises: a partial
-    text-encoder slider would make wrong images with no signal. Each site
-    keeps its own ``.alpha``."""
-    if is_t5:
-        raise NotImplementedError(f"a T5 text-encoder part needs the T5 encoder, not ported yet ({_T5_QUEUE})")
+    """Bind a ``lora_te{1,2}`` part to a CLIP tower (``is_t5``: a T5 tower).
+    A part whose keys match no site, or any key that lands on no site,
+    raises: a partial text-encoder slider would make wrong images with no
+    signal. Each site keeps its own ``.alpha``."""
     rank, alpha = infer_rank_alpha(part)
     prefix = f"lora_te{index + 1}"
     peft_mod = dora_lib if part_is_dora(part) else lora_lib
-    sites = peft_mod.create_sites(encoder, rank=rank, alpha=alpha, target_replace=["CLIPAttention", "CLIPSdpaAttention"],
-                                  prefix=prefix, train_method="full", name_path_prefix=CLIP_NAME_PATH_PREFIX)
+    if is_t5:
+        target, method, path_prefix = ["T5Attention"], "t5attn", T5_NAME_PATH_PREFIX
+    else:
+        target, method, path_prefix = ["CLIPAttention", "CLIPSdpaAttention"], "full", CLIP_NAME_PATH_PREFIX
+    sites = peft_mod.create_sites(encoder, rank=rank, alpha=alpha, target_replace=target, prefix=prefix,
+                                  train_method=method, name_path_prefix=path_prefix)
     sites = lora_lib.filter_sites_to_keys(part.keys(), sites)
     if not sites:
         raise ValueError(f"no matching {prefix} keys between the text encoder and the slider part "
@@ -190,7 +194,8 @@ class SliderParts:
 def load_slider_file(path: str, text_encoders: Optional[Sequence[nn.Module]] = None,
                      te2_is_t5: bool = False) -> SliderParts:
     """Read + split a slider file and bind its text-encoder parts to
-    ``text_encoders`` (the CLIP tower modules, te1[, te2]). A file with a
+    ``text_encoders`` (the tower modules, te1[, te2]; ``te2_is_t5``: te2 is
+    Flux's T5). A file with a
     text-encoder part and no matching tower raises, rather than serving the
     slider without its text-encoder half."""
     parts = split_parts(read_tensors(path))

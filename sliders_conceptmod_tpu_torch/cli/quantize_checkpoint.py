@@ -1,17 +1,17 @@
-"""CLI: quantize a frozen base's UNet (SD3: its MMDiT) once to an int8
+"""CLI: quantize a frozen base's UNet (SD3, Flux: the transformer) once to an int8
 artifact — counterpart of ``sliders_conceptmod_tpu/cli/quantize_checkpoint.py``.
 
 The artifact (``io/quant_cache.py``: int8 kernels and fp32 per-column scales
 in one safetensors file, in the JAX package's layout and format tag) loads
-as ``--base`` in ``load_models`` / ``load_models_xl`` / ``load_models_sd3``
-and so in the trainers, the sweeps and serving, of this package and of the
-JAX package. It holds the UNet (the SD3 transformer) only: the text towers
-and the VAE of a run from it are the weightless family's.
+as ``--base`` in ``load_models`` / ``load_models_xl`` / ``load_models_sd3`` /
+``load_models_flux`` and so in the trainers, the sweeps and serving, of this
+package and of the JAX package. It holds the UNet (the transformer) only:
+the text towers and the VAE of a run from it are the weightless family's
+(Flux: the stand-in encoder). A Flux artifact of schnell at full depth is
+about 12 GB.
 
   python -m sliders_conceptmod_tpu_torch.cli.quantize_checkpoint \\
       --base /ckpts/sd15 --family sd1 --out sd15.int8.safetensors
-
-``--family flux`` exits: Flux is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,10 +26,11 @@ from sliders_conceptmod_tpu_torch.models import factory
 
 def run(args) -> int:
     """Quantize ``args.base``'s UNet and write ``args.out``; the int8 kernel count."""
-    if args.family == "flux":
-        raise SystemExit("--family flux: Flux is not ported yet (ROADMAP.md queue 1, item 9)")
     dtype = torch.bfloat16 if args.precision == "bfloat16" else torch.float32
-    if args.family == "sd3":  # the transformer only, as JAX's artifact
+    if args.family == "flux":  # the transformer only, as JAX's artifact
+        _, _, unet, _ = factory.load_models_flux(args.base, weight_dtype=dtype, device=args.device,
+                                                 quantize_base=True)
+    elif args.family == "sd3":  # the transformer only, as JAX's artifact
         _, _, unet, _ = factory.load_models_sd3(args.base, weight_dtype=dtype, device=args.device, quantize_base=True)
     elif args.family == "xl":
         _, _, unet, _ = factory.load_models_xl(args.base, weight_dtype=dtype, device=args.device, quantize_base=True)

@@ -11,8 +11,12 @@
 OpenCLIP bigG, ``lora_te2_…``); ``--peft_type`` is ``dora`` by default;
 ``--model`` is ``SDXL``, ``PonyXL`` (the config's ``name_or_path``), ``tiny``
 (the tiny-xl towers, for the CPU), ``SD3-Medium`` (SD3's towers through
-``load_models_sd3``: CLIP-L with its projection, bigG) or ``tiny-sd3``.
-Flux (its T5 tower) is not ported yet. Saves are ``{name}_{clip_index}_{i}steps``
+``load_models_sd3``: CLIP-L with its projection, bigG), ``tiny-sd3``,
+``FLUX.1`` or ``tiny-flux`` (as JAX's: te1 is the SDXL family's CLIP-L —
+tiny-xl's for ``tiny-flux`` —, te2 a seeded T5 at ``train.precision``, XXL's
+full width and depth or the tiny T5, with the hash tokenizer (512 tokens,
+16 for tiny), the ``t5attn`` method over its ``T5Attention`` q/k/v/o and
+keys ``lora_te2_encoder_block_…``). Saves are ``{name}_{clip_index}_{i}steps``
 and ``{name}_{clip_index}_last.safetensors`` in ``save.precision``, with a
 resume checkpoint beside each periodic save. ``--device`` picks the torch
 device (default ``cuda``; ``cpu`` for tiny configs).
@@ -32,9 +36,11 @@ import torch
 
 from sliders_conceptmod_tpu_torch.adapters import dora as dora_lib
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
-from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX
+from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, T5_NAME_PATH_PREFIX
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.models.t5 import T5Config, T5EncoderModel
+from sliders_conceptmod_tpu_torch.models.tokenizer import HashTokenizer
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import notrigger as nt
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
@@ -73,18 +79,23 @@ def train(
             "notrigger trainer touches only text encoders — set "
             "quantize_base: false."
         )
-    if model in _FLUX:
-        raise NotImplementedError(f"model={model}: the Flux text encoders (CLIP-L, T5) are not ported yet "
-                                  "(ROADMAP.md queue 1, item 9)")
-    if model not in ("SDXL", "PonyXL", "tiny") + _SD3:
+    if model not in ("SDXL", "PonyXL", "tiny") + _SD3 + _FLUX:
         raise NotImplementedError(f"model={model} not supported (SDXL/PonyXL/SD3-Medium/FLUX.1)")
     weight_dtype = config_util.parse_precision(config.train.precision)
-    if model in _SD3:  # SD3's own towers: CLIP-L with its 768-dim projection, bigG
+    target_replace, name_path_prefix, train_method = nt.CLIP_TARGET_REPLACE, CLIP_NAME_PATH_PREFIX, None
+    if model in _FLUX and clip_index == 1:  # te2 = T5 (reference train_notrigger.py:188-191)
+        tiny = "tiny" in model
+        t5_cfg = T5Config.tiny() if tiny else T5Config.xxl()
+        t5 = factory.build_module(lambda: T5EncoderModel(t5_cfg), device, weight_dtype, 0)
+        tok = HashTokenizer(vocab_size=t5_cfg.vocab_size, max_length=16 if tiny else 512, bos=0, eos=1, pad=0)
+        text_encoders = [None, factory.TextEncoderBundle(t5, tok)]
+        target_replace, name_path_prefix, train_method = ["T5Attention"], T5_NAME_PATH_PREFIX, "t5attn"
+    elif model in _SD3:  # SD3's own towers: CLIP-L with its 768-dim projection, bigG
         name = "tiny-sd3" if "tiny" in model else config.pretrained_model.name_or_path
         _, text_encoders, _, _ = factory.load_models_sd3(name, weight_dtype=weight_dtype, device=device,
                                                          with_transformer=False)
     else:
-        name = "tiny-xl" if model == "tiny" else config.pretrained_model.name_or_path
+        name = "tiny-xl" if model in ("tiny", "tiny-flux") else config.pretrained_model.name_or_path
         _, text_encoders, _, _ = factory.load_models_xl(name, weight_dtype=weight_dtype, device=device,
                                                         with_unet=False)
     te = text_encoders[clip_index]
@@ -94,7 +105,7 @@ def train(
     positive, negative = _prompt(positive), _prompt(negative)
     if positive is None and negative is None:
         raise ValueError("at least one of positive/negative is required")
-    dev = encoder.token_embedding.weight.device
+    dev = next(encoder.parameters()).device
 
     def ids(prompt: str) -> torch.Tensor:
         return torch.from_numpy(te.tokenizer([prompt]).astype(np.int64)).to(dev)
@@ -107,9 +118,9 @@ def train(
         neutral_target = hidden(neutral_ids)
 
     peft_mod = dora_lib if peft_type == "dora" else lora_lib
-    sites = peft_mod.create_sites(encoder, rank=rank, alpha=config.network.alpha, target_replace=nt.CLIP_TARGET_REPLACE,
-                                  prefix=prefix, train_method=config.network.training_method,
-                                  name_path_prefix=CLIP_NAME_PATH_PREFIX)
+    sites = peft_mod.create_sites(encoder, rank=rank, alpha=config.network.alpha, target_replace=target_replace,
+                                  prefix=prefix, train_method=train_method or config.network.training_method,
+                                  name_path_prefix=name_path_prefix)
     init_gen = torch.Generator().manual_seed(config.tpu.seed)
     if peft_type == "dora":  # dora_scale = the column norms of the tower's weights
         lora_params = dora_lib.init_lora_params(sites, encoder, generator=init_gen)
@@ -228,7 +239,7 @@ def build_parser():
                         help="resume checkpoint ({name}_{clip_index}_resume.pt next to the saves, or its directory)")
     parser.add_argument("--positive", type=str, nargs="+", default=None)
     parser.add_argument("--model", type=str, default="SDXL",
-                        help="SDXL | PonyXL | tiny | SD3-Medium | tiny-sd3 (FLUX.1 is not ported yet)")
+                        help="SDXL | PonyXL | tiny | SD3-Medium | tiny-sd3 | FLUX.1 | tiny-flux")
     parser.add_argument("--negative", type=str, default=None)
     parser.add_argument("--clip_index", type=int, required=True)
     return parser

@@ -1,5 +1,5 @@
-"""Slider inference for the flow-matching family (SD3) — counterpart of
-``sliders_conceptmod_tpu/infer/generate_flow.py``.
+"""Slider inference for the flow-matching families (SD3, Flux) — counterpart
+of ``sliders_conceptmod_tpu/infer/generate_flow.py``.
 
 :func:`sample_flow_loop` is the two-phase flow-Euler sampler: the base
 weights while ``t > start_noise`` (steps before ``flip_step``), then the
@@ -8,8 +8,16 @@ slider — merged weights swapped in for each call
 the int8 base, where nothing can be merged). The loop is eager Python over
 host step indices; the schedule's coefficients are host floats.
 
-:func:`sd3_latents_to_images` is the 16-channel VAE's convention:
-``z / 1.5305 + 0.0609`` before the decode.
+:func:`sample_packed_flow` is Flux's (JAX's
+``make_packed_overlay_sampler``, plain or ``indexed``): the same two phases
+over packed tokens, one un-guided forward per step (no CFG rows; a dev model
+takes ``guidance`` as its distilled-guidance input), the timestep in [0, 1]
+(``t / 1000``); on the overlay every float scale rides one call, and an
+``adapter_idx`` per row routes stacked factors.
+
+:func:`sd3_latents_to_images` is the 16-channel VAEs' convention:
+``z / scaling + shift`` before the decode, with the VAE's own factors —
+SD3's 1.5305 and 0.0609, and Flux's from its ``vae/config.json``.
 """
 
 from __future__ import annotations
@@ -93,6 +101,53 @@ def sample_flow_loop(
             guided = forward(i, lat, t)
         lat = FlowMatchScheduler.step(schedule, guided, i, lat)
     return lat
+
+
+@torch.inference_mode()
+def sample_packed_flow(
+    transformer: nn.Module,
+    flip_step: int,
+    schedule: FlowSchedule,
+    tokens: torch.Tensor,  # [B, S_img, 4C] packed latents
+    text: torch.Tensor,  # [B, S_txt, joint_dim]
+    pooled: torch.Tensor,  # [B, pooled_dim]
+    img_ids,  # [S_img, 3]
+    *,
+    guidance=None,
+    merged: Optional[Dict[str, torch.Tensor]] = None,
+    overlay: Optional[LoRAOverlay] = None,
+    row_scale: Optional[torch.Tensor] = None,
+    adapter_idx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Two-phase flow-Euler over Flux's packed tokens: the base weights for
+    steps below ``flip_step``, then the ``overlay`` at ``row_scale``
+    (``[B]``; ``adapter_idx`` routes stacked factors), else ``merged`` in
+    place of the site weights, else the base. ``guidance`` feeds a dev
+    model's guidance embedding (schnell ignores it). Returns the final
+    tokens in ``tokens``' dtype."""
+    b = tokens.shape[0]
+    txt_ids = torch.zeros((text.shape[1], 3), device=tokens.device)
+    timesteps = schedule.timesteps.to(tokens.device)
+
+    def forward(i, x):
+        t = (timesteps[i] / 1000.0).expand(b)
+        args = (x, t, text, pooled, txt_ids, img_ids, guidance)
+        if i < flip_step:
+            with (overlay(None) if overlay is not None else model_lock(transformer)):
+                return transformer(*args)
+        if overlay is not None:
+            with overlay(row_scale, adapter_idx):
+                return transformer(*args)
+        with model_lock(transformer):
+            if merged is None:
+                return transformer(*args)
+            with merged_weights(transformer, merged):
+                return transformer(*args)
+
+    tok = tokens
+    for i in range(schedule.num_inference_steps):
+        tok = FlowMatchScheduler.step(schedule, forward(i, tok), i, tok)
+    return tok
 
 
 @torch.inference_mode()

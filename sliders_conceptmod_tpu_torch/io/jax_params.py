@@ -17,7 +17,12 @@ an int8 ``kernel [in, out]`` → ``weight_q [out, in]`` and ``kernel_scale`` →
 The same rules carry every model of the port, the SD3 MMDiT included (its
 Dense layers, the patch conv, ``to_out_0``/``net_0``/``net_2`` as the
 ModuleLists' ``to_out.0``/``net.0``/``net.2``, and its quantized leaves):
-its module names are diffusers', so no model needs a rule of its own.
+its module names are diffusers'. An RMS norm (``models/norms.py::RMSNorm``)
+takes ``scale`` as a norm does. Where a JAX tree names modules otherwise,
+the model says so through its ``jax_path`` (``adapters/lora.py::
+jax_path_fn``): Flux's flat ``ff_net_0_proj`` / ``attn_to_q`` /
+``norm_linear`` (``models/flux.py``), T5's tree without the ``encoder``
+level (``models/t5.py``).
 :func:`to_jax_tree` is the way back: a module's state in the JAX layout.
 Leaves may be numpy arrays or torch tensors (bfloat16 included).
 """
@@ -30,8 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from sliders_conceptmod_tpu_torch.adapters.lora import module_path
+from sliders_conceptmod_tpu_torch.adapters.lora import jax_path_fn
 from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
+from sliders_conceptmod_tpu_torch.models.norms import RMSNorm
 
 
 def _leaf_paths(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterable[Tuple[str, ...]]:
@@ -42,27 +48,29 @@ def _leaf_paths(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterable[Tuple[s
             yield prefix + (k,)
 
 
-def _tensor(x) -> torch.Tensor:
-    """A leaf as a CPU tensor: int8 and torch tensors as they are, any other
-    array through fp32 (numpy has no bfloat16 of its own)."""
+def _tensor(x, device) -> torch.Tensor:
+    """A leaf as a tensor on ``device``: int8 and torch tensors as they are,
+    any other array through fp32 (numpy has no bfloat16 of its own). It
+    moves as it is stored, so a layout change after runs on the device."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu()
+        return x.detach().to(device)
     a = np.asarray(x)
-    return torch.from_numpy(np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+    return torch.from_numpy(np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32)).to(device)
 
 
-def _convert(mod: nn.Module, pname: str, node: Mapping) -> Tuple[str, torch.Tensor]:
-    """(JAX leaf name, tensor in the torch layout) for one torch parameter."""
+def _convert(mod: nn.Module, pname: str, node: Mapping, device) -> Tuple[str, torch.Tensor]:
+    """(JAX leaf name, tensor in the torch layout on ``device``) for one
+    torch parameter."""
     if pname == "bias":
-        return "bias", _tensor(node["bias"])
+        return "bias", _tensor(node["bias"], device)
     if isinstance(mod, nn.Linear):
-        return "kernel", _tensor(node["kernel"]).T
+        return "kernel", _tensor(node["kernel"], device).T
     if isinstance(mod, nn.Conv2d):
-        return "kernel", _tensor(node["kernel"]).permute(3, 2, 0, 1)
+        return "kernel", _tensor(node["kernel"], device).permute(3, 2, 0, 1)
     if isinstance(mod, nn.Embedding):
-        return "embedding", _tensor(node["embedding"])
-    if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-        return "scale", _tensor(node["scale"])
+        return "embedding", _tensor(node["embedding"], device)
+    if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
+        return "scale", _tensor(node["scale"], device)
     raise TypeError(f"no JAX layout rule for {type(mod).__name__}.{pname}")
 
 
@@ -77,7 +85,7 @@ def _state(mod: nn.Module):
 
 def _load_quant(mod: QuantLinear, node: Mapping, path: Tuple[str, ...]) -> List[Tuple[str, ...]]:
     """A QuantLinear from its JAX node; the leaf paths it took."""
-    kernel = _tensor(node["kernel"]).T
+    kernel = _tensor(node["kernel"], mod.weight_q.device).T
     if tuple(kernel.shape) != tuple(mod.weight_q.shape):
         raise ValueError(f"{'/'.join(path)}: JAX kernel gives {tuple(kernel.shape)}, "
                          f"module has {tuple(mod.weight_q.shape)}")
@@ -85,7 +93,7 @@ def _load_quant(mod: QuantLinear, node: Mapping, path: Tuple[str, ...]) -> List[
         mod.set_weight(kernel)
         return [path + ("kernel",)]
     mod.weight_q.copy_(kernel)
-    mod.scale.copy_(_tensor(node["kernel_scale"]))
+    mod.scale.copy_(_tensor(node["kernel_scale"], mod.scale.device))
     return [path + ("kernel",), path + ("kernel_scale",)]
 
 
@@ -96,11 +104,12 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> List[Tuple[str, ...]]:
     paths that no parameter took (e.g. the VAE encoder for a decoder-only
     module), sorted."""
     used: Set[Tuple[str, ...]] = set()
+    path_of = jax_path_fn(module)
     for name, mod in module.named_modules():
         own = _state(mod)
         if not own:
             continue
-        path = module_path(name)
+        path = path_of(name)
         node = tree
         for seg in path:
             if seg not in node:
@@ -110,7 +119,7 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> List[Tuple[str, ...]]:
             used.update(_load_quant(mod, node, path))
             own = [(n, p) for n, p in own if n == "bias"]
         for pname, p in own:
-            leaf, t = _convert(mod, pname, node)
+            leaf, t = _convert(mod, pname, node, p.device)
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}.{pname}: JAX {leaf} gives {tuple(t.shape)}, module has {tuple(p.shape)}")
             p.copy_(t.to(p.dtype))
@@ -133,7 +142,7 @@ def _jax_leaves(mod: nn.Module):
             yield "kernel", t.permute(2, 3, 1, 0)
         elif isinstance(mod, nn.Embedding):
             yield "embedding", t
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
             yield "scale", t
         else:
             raise TypeError(f"no JAX layout rule for {type(mod).__name__}.{pname}")
@@ -143,7 +152,8 @@ def jax_layout_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """``{"a/b/kernel": shape}`` of the JAX tree this module's state maps to —
     works on a ``meta``-device module, so full-width structures cost no
     memory."""
-    return {"/".join(module_path(name) + (leaf,)): tuple(t.shape)
+    path_of = jax_path_fn(module)
+    return {"/".join(path_of(name) + (leaf,)): tuple(t.shape)
             for name, mod in module.named_modules() for leaf, t in _jax_leaves(mod)}
 
 
@@ -152,12 +162,13 @@ def to_jax_tree(module: nn.Module) -> Dict:
     (contiguous CPU tensors at their dtype; a QuantLinear gives its int8
     ``kernel`` and fp32 ``kernel_scale``) — :func:`load_jax_params`'s inverse."""
     tree: Dict = {}
+    path_of = jax_path_fn(module)
     for name, mod in module.named_modules():
         for leaf, t in _jax_leaves(mod):
             node = tree
-            for seg in module_path(name):
+            for seg in path_of(name):
                 node = node.setdefault(seg, {})
-            node[leaf] = t.detach().to("cpu").contiguous()
+            node[leaf] = t.detach().contiguous().to("cpu")  # the layout change on the module's device
     return tree
 
 

@@ -26,8 +26,10 @@ layout of ``sd3_medium*.safetensors``) gives ``{"transformer"[, "vae",
 "text_encoder", "text_encoder_2"]}`` (:func:`convert_sd3_mmdit_state_dict`;
 the towers under ``text_encoders.clip_l/clip_g.transformer.`` in the
 transformers layout; a T5 tower, which SD3 here does without, is skipped).
-Flux and Stable Cascade checkpoints raise ``NotImplementedError``
-(ROADMAP.md queue 1, items 9 and 10).
+A BFL Flux file (``double_blocks.…`` / ``single_blocks.…`` at the top level)
+gives ``{"transformer"}`` (:func:`convert_flux_bfl_state_dict`). Stable
+Cascade checkpoints raise ``NotImplementedError`` (ROADMAP.md queue 1, item
+10).
 """
 
 from __future__ import annotations
@@ -236,9 +238,75 @@ def _convert_sd3(sd: StateDict) -> Dict[str, StateDict]:
     return out
 
 
+def convert_flux_bfl_state_dict(sd: StateDict) -> StateDict:
+    """A BFL single-file Flux transformer (``flux1-dev/schnell.safetensors``:
+    ``double_blocks`` / ``single_blocks`` at the top level, fused qkv and
+    qkv+mlp Linears) → the port's (diffusers') names (the JAX
+    ``convert_flux_bfl_state_dict``): a double block's ``img_attn.qkv`` /
+    ``txt_attn.qkv`` split into ``to_q/k/v`` / ``add_q/k/v_proj``, a single
+    block's ``linear1`` into q, k, v (d rows each) and ``proj_mlp`` (4d), the
+    final AdaLN's (shift, scale) swapped to diffusers' (scale, shift). The
+    text towers and the VAE ship separately in BFL's distribution."""
+    out: StateDict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        head = parts[0]
+        if head == "img_in":
+            out["x_embedder." + parts[1]] = value
+        elif head == "txt_in":
+            out["context_embedder." + parts[1]] = value
+        elif head in ("time_in", "vector_in", "guidance_in"):
+            sub = {"time_in": "timestep_embedder", "vector_in": "text_embedder", "guidance_in": "guidance_embedder"}
+            lin = {"in_layer": "linear_1", "out_layer": "linear_2"}[parts[1]]
+            out[f"time_text_embed.{sub[head]}.{lin}.{parts[2]}"] = value
+        elif head == "final_layer":
+            if parts[1] == "adaLN_modulation":
+                out["norm_out.linear." + parts[3]] = swap_scale_shift(value)
+            else:
+                out["proj_out." + parts[2]] = value
+        elif head == "double_blocks":
+            base = f"transformer_blocks.{parts[1]}."
+            mod, rest = parts[2], parts[3:]
+            txt = mod.startswith("txt_")
+            kind = mod.split("_", 1)[1]  # mod | attn | mlp
+            if kind == "mod":
+                out[base + ("norm1_context.linear." if txt else "norm1.linear.") + rest[1]] = value
+            elif kind == "mlp":
+                ff = "ff_context" if txt else "ff"
+                out[base + ff + {"0": ".net.0.proj.", "2": ".net.2."}[rest[0]] + rest[1]] = value
+            elif kind == "attn" and rest[0] == "qkv":
+                names = ("add_q_proj", "add_k_proj", "add_v_proj") if txt else ("to_q", "to_k", "to_v")
+                for name, chunk in zip(names, value.chunk(3, dim=0)):
+                    out[f"{base}attn.{name}.{rest[1]}"] = chunk.contiguous()
+            elif kind == "attn" and rest[0] == "norm":
+                which = "q" if rest[1] == "query_norm" else "k"
+                out[base + f"attn.norm_{'added_' if txt else ''}{which}.weight"] = value
+            elif kind == "attn" and rest[0] == "proj":
+                out[base + ("attn.to_add_out." if txt else "attn.to_out.0.") + rest[1]] = value
+            else:
+                raise ValueError(f"Unmapped BFL Flux key: {key}")
+        elif head == "single_blocks":
+            base = f"single_transformer_blocks.{parts[1]}."
+            mod, rest = parts[2], parts[3:]
+            if mod == "linear1":
+                d = value.shape[0] // 7  # rows: 3d qkv + 4d mlp
+                for name, chunk in zip(("attn.to_q.", "attn.to_k.", "attn.to_v.", "proj_mlp."),
+                                       value.split([d, d, d, 4 * d], dim=0)):
+                    out[base + name + rest[0]] = chunk.contiguous()
+            elif mod == "linear2":
+                out[base + "proj_out." + rest[0]] = value
+            elif mod == "norm":
+                out[base + f"attn.norm_{'q' if rest[0] == 'query_norm' else 'k'}.weight"] = value
+            elif mod == "modulation":
+                out[base + "norm.linear." + rest[1]] = value
+            else:
+                raise ValueError(f"Unmapped BFL Flux key: {key}")
+        else:
+            raise ValueError(f"Unmapped BFL Flux key: {key}")
+    return out
+
+
 def _refuse_other_families(sd: StateDict) -> None:
-    if any(k.startswith(("double_blocks.", "single_blocks.")) for k in sd):
-        raise NotImplementedError("Flux single-file checkpoints are not ported yet (ROADMAP.md queue 1, item 9)")
     if any(k.startswith(("clip_txt_mapper.", "effnet_mapper.", "clip_txt_pooled_mapper.")) for k in sd):
         raise NotImplementedError("Stable Cascade checkpoints are not ported yet (ROADMAP.md queue 1, item 10)")
 
@@ -247,6 +315,8 @@ def convert_ldm_checkpoint(sd: StateDict) -> Dict[str, StateDict]:
     """Split and rename a whole LDM/SGM state dict (see the module
     docstring)."""
     _refuse_other_families(sd)
+    if any(k.startswith(("double_blocks.", "single_blocks.")) for k in sd):  # BFL Flux: the transformer at top level
+        return {"transformer": convert_flux_bfl_state_dict(sd)}
     if any(k.startswith(UNET_PREFIX + "joint_blocks.") for k in sd):
         return _convert_sd3(sd)
     up = [int(k[len(VAE_PREFIX):].split(".")[2]) for k in sd if k.startswith(VAE_PREFIX + "decoder.up.")]

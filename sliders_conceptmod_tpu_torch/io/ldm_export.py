@@ -25,7 +25,11 @@ module's ``state_dict()`` under the port's (diffusers') names and returns
   AdaLN heads swapped back to (shift, scale); its towers →
   ``text_encoders.clip_l/clip_g.transformer.`` (:func:`export_sd3_checkpoint`).
 
-The Flux export waits for its model (ROADMAP.md queue 1, item 9).
+* Flux's transformer → the BFL single-file layout (:func:`export_flux_bfl`,
+  the JAX ``export_flux_bfl``): q/k/v re-fused into ``img_attn.qkv`` /
+  ``txt_attn.qkv``, a single block's q/k/v and ``proj_mlp`` into
+  ``linear1``, the final AdaLN swapped back to (shift, scale). The text
+  towers are not part of a BFL file.
 """
 
 from __future__ import annotations
@@ -279,8 +283,66 @@ def export_sd3_checkpoint(mmdit_sd: Mapping[str, torch.Tensor], te1_sd: Optional
     return sd
 
 
+def export_flux_bfl(transformer_sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The Flux transformer → BFL's single-file layout (inverse of
+    ``ldm_convert.convert_flux_bfl_state_dict``)."""
+    out: StateDict = {}
+    fused: Dict[str, Dict[str, torch.Tensor]] = {}
+    embedders = {"timestep_embedder": "time_in", "text_embedder": "vector_in", "guidance_embedder": "guidance_in"}
+    for key, value in transformer_sd.items():
+        parts = key.split(".")
+        head, leaf = parts[0], parts[-1]
+        if head == "x_embedder":
+            out["img_in." + leaf] = value
+        elif head == "context_embedder":
+            out["txt_in." + leaf] = value
+        elif head == "time_text_embed":
+            out[f"{embedders[parts[1]]}.{ {'linear_1': 'in_layer', 'linear_2': 'out_layer'}[parts[2]] }.{leaf}"] = value
+        elif head == "norm_out":
+            out["final_layer.adaLN_modulation.1." + leaf] = swap_scale_shift(value)
+        elif head == "proj_out":
+            out["final_layer.linear." + leaf] = value
+        elif head == "transformer_blocks":
+            base, rest = f"double_blocks.{parts[1]}.", parts[2:]
+            if rest[0] in ("norm1", "norm1_context"):
+                out[base + ("txt_mod" if rest[0] == "norm1_context" else "img_mod") + ".lin." + leaf] = value
+            elif rest[0] in ("ff", "ff_context"):
+                stream = "txt_mlp" if rest[0] == "ff_context" else "img_mlp"
+                out[base + f"{stream}.{rest[2]}." + leaf] = value
+            elif rest[0] == "attn" and rest[1] in ("to_q", "to_k", "to_v"):
+                fused.setdefault(base + "img_attn.qkv." + leaf, {})[rest[1][3]] = value
+            elif rest[0] == "attn" and rest[1] in ("add_q_proj", "add_k_proj", "add_v_proj"):
+                fused.setdefault(base + "txt_attn.qkv." + leaf, {})[rest[1][4]] = value
+            elif rest[0] == "attn" and rest[1] in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+                stream = "txt_attn" if "added" in rest[1] else "img_attn"
+                out[base + f"{stream}.norm." + ("query_norm" if rest[1][-1] == "q" else "key_norm") + ".scale"] = value
+            elif rest[0] == "attn" and rest[1] in ("to_out", "to_add_out"):
+                out[base + ("txt_attn" if rest[1] == "to_add_out" else "img_attn") + ".proj." + leaf] = value
+            else:
+                raise ValueError(f"Cannot export Flux key: {key}")
+        elif head == "single_transformer_blocks":
+            base, rest = f"single_blocks.{parts[1]}.", parts[2:]
+            if rest[0] == "norm":
+                out[base + "modulation.lin." + leaf] = value
+            elif rest[0] == "proj_mlp" or (rest[0] == "attn" and rest[1] in ("to_q", "to_k", "to_v")):
+                slot = "m" if rest[0] == "proj_mlp" else rest[1][3]
+                fused.setdefault(base + "linear1." + leaf, {})[slot] = value
+            elif rest[0] == "attn" and rest[1] in ("norm_q", "norm_k"):
+                out[base + "norm." + ("query_norm" if rest[1] == "norm_q" else "key_norm") + ".scale"] = value
+            elif rest[0] == "proj_out":
+                out[base + "linear2." + leaf] = value
+            else:
+                raise ValueError(f"Cannot export Flux key: {key}")
+        else:
+            raise ValueError(f"Cannot export Flux key: {key}")
+    for key, chunks in fused.items():
+        out[key] = torch.cat([chunks[s] for s in ("q", "k", "v", "m") if s in chunks], dim=0)
+    return out
+
+
 def save_ldm_checkpoint(path: str, sd: Mapping[str, torch.Tensor]) -> None:
-    """``.safetensors`` through the port's writer (contiguous CPU tensors)."""
+    """``.safetensors`` through the port's writer (each tensor copied to the
+    host as it is written)."""
     from sliders_conceptmod_tpu_torch.io.safetensors import save_file
 
-    save_file({k: v.detach().cpu().contiguous() for k, v in sd.items()}, str(path))
+    save_file(dict(sd), str(path))

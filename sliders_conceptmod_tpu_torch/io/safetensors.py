@@ -10,6 +10,7 @@ relative to the end of the header. Tensors come back as CPU ``torch.Tensor``s
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Dict, Mapping, Optional
 
@@ -42,69 +43,79 @@ def read_metadata(path: str) -> Dict[str, str]:
     """The header's ``__metadata__`` (empty when it has none), read without
     the tensors."""
     with open(path, "rb") as f:
-        head = f.read(8)
-        if len(head) < 8:
-            raise ValueError(f"{path}: too short for a safetensors file")
-        (n,) = struct.unpack("<Q", head)
-        if n > _MAX_HEADER:
-            raise ValueError(f"{path}: header length {n} is not a safetensors header's")
-        header = json.loads(f.read(n).decode("utf-8"))
+        header, _ = _read_header(f, path)
     return dict(header.get("__metadata__") or {})
 
 
-def load_file(path: str) -> Dict[str, torch.Tensor]:
+def read_keys(path: str) -> list:
+    """The tensor names of the header, read without the tensors."""
     with open(path, "rb") as f:
-        data = f.read()
-    if len(data) < 8:
+        header, _ = _read_header(f, path)
+    return [k for k in header if k != "__metadata__"]
+
+
+def _read_header(f, path: str) -> dict:
+    head = f.read(8)
+    if len(head) < 8:
         raise ValueError(f"{path}: too short for a safetensors file")
-    (n,) = struct.unpack("<Q", data[:8])
-    if 8 + n > len(data):
-        raise ValueError(f"{path}: header length {n} runs past the end of the file")
-    header = json.loads(data[8 : 8 + n].decode("utf-8"))
-    buf = memoryview(data)[8 + n :]
+    (n,) = struct.unpack("<Q", head)
+    if n > _MAX_HEADER:
+        raise ValueError(f"{path}: header length {n} is not a safetensors header's")
+    return json.loads(f.read(n).decode("utf-8")), 8 + n
+
+
+def load_file(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor, each read from the file into its own buffer (one copy
+    of the data in memory, whatever the file's size)."""
+    size = os.path.getsize(path)
     out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = _DTYPES.get(info["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: unsupported dtype {info['dtype']} for {name}")
-        begin, end = info["data_offsets"]
-        shape = tuple(int(s) for s in info["shape"])
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        if not 0 <= begin <= end <= len(buf) or end - begin != int(np.prod(shape, dtype=np.int64)) * itemsize:
-            raise ValueError(f"{path}: bad data_offsets {info['data_offsets']} for {name}")
-        raw = bytearray(buf[begin:end])
-        t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
-        out[name] = t.view(dtype).reshape(shape)
+    with open(path, "rb") as f:
+        header, start = _read_header(f, path)
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: unsupported dtype {info['dtype']} for {name}")
+            begin, end = info["data_offsets"]
+            shape = tuple(int(s) for s in info["shape"])
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            if (not 0 <= begin <= end <= size - start
+                    or end - begin != int(np.prod(shape, dtype=np.int64)) * itemsize):
+                raise ValueError(f"{path}: bad data_offsets {info['data_offsets']} for {name}")
+            raw = bytearray(end - begin)
+            f.seek(start + begin)
+            if f.readinto(raw) != len(raw):
+                raise ValueError(f"{path}: {name} runs past the end of the file")
+            t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
+            out[name] = t.view(dtype).reshape(shape)
     return out
 
 
 def save_file(
     tensors: Mapping[str, object], path: str, metadata: Optional[Mapping[str, str]] = None
 ) -> None:
-    """Write tensors (torch tensors or numpy arrays) in name order."""
+    """Write tensors (torch tensors on any device, or numpy arrays) in name
+    order, one at a time: the header from their shapes first, then each
+    buffer, so no second copy of the whole set is held."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    blobs = []
     offset = 0
     for name in sorted(tensors):
-        t = _as_tensor(tensors[name]).contiguous()
-        if t.dtype not in _NAMES:
-            raise ValueError(f"unsupported dtype {t.dtype} for {name}")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
-        header[name] = {
-            "dtype": _NAMES[t.dtype],
-            "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(raw)],
-        }
-        blobs.append(raw)
-        offset += len(raw)
+        t = tensors[name]
+        dtype = t.dtype if isinstance(t, torch.Tensor) else torch.from_numpy(np.zeros(0, dtype=t.dtype)).dtype
+        if dtype not in _NAMES:
+            raise ValueError(f"unsupported dtype {dtype} for {name}")
+        nbytes = int(np.prod(tuple(t.shape), dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+        header[name] = {"dtype": _NAMES[dtype], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     head = json.dumps(header, separators=(",", ":")).encode("utf-8")
     head += b" " * (-len(head) % 8)  # buffers start 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for raw in blobs:
-            f.write(raw)
+        for name in sorted(tensors):
+            t = _as_tensor(tensors[name]).contiguous()
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)

@@ -6,8 +6,10 @@ directory holds ``unet/``, ``vae/``, ``text_encoder/`` and (SDXL)
 ``.safetensors`` file or as shards listed in a ``*.safetensors.index.json``.
 The weights are read with the port's own reader (``io/safetensors.py``).
 
-The port's UNet, SD3 MMDiT (``transformer/``) and VAE use diffusers' module
-names, so their state dicts load by name; the VAE attention's older diffusers names, which the
+The port's UNet, SD3 MMDiT and Flux transformer (``transformer/``) and VAE
+use diffusers' module names, so their state dicts load by name, as does
+Flux's T5 tower (``text_encoder_2/``, transformers' names, the tied
+``encoder.embed_tokens`` dropped); the VAE attention's older diffusers names, which the
 SD1.x-era directories still carry, are renamed (``query/key/value/proj_attn``
 → ``to_q/to_k/to_v/to_out.0``). The CLIP
 towers come in the transformers layout and map onto
@@ -38,7 +40,9 @@ from torch import nn
 from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig
+from sliders_conceptmod_tpu_torch.models.flux import FluxConfig
 from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig
+from sliders_conceptmod_tpu_torch.models.t5 import T5Config, convert_t5_state_dict
 from sliders_conceptmod_tpu_torch.models.unet import UNetConfig
 from sliders_conceptmod_tpu_torch.models.vae import VAEConfig
 
@@ -218,3 +222,28 @@ def load_text_encoder_state(model_dir: str, component: str, base: CLIPTextConfig
     sd, cfg = read_component(model_dir, component)
     sd = clip_state_dict(sd)
     return sd, clip_config_from_json(cfg, base, sd)
+
+
+def flux_config_from_json(cfg: dict) -> FluxConfig:
+    """diffusers' Flux ``transformer/config.json`` → ``FluxConfig``: its
+    widths and depths, and ``guidance_embeds`` (dev)."""
+    base = FluxConfig()
+    kw = {f: cfg[f] for f in ("in_channels", "num_layers", "num_single_layers", "attention_head_dim",
+                               "num_attention_heads", "joint_attention_dim", "pooled_projection_dim",
+                               "guidance_embeds") if cfg.get(f) is not None}
+    if cfg.get("axes_dims_rope") is not None:
+        kw["axes_dims_rope"] = tuple(cfg["axes_dims_rope"])
+    return FluxConfig(**{**{f: getattr(base, f) for f in base.__dataclass_fields__}, **kw})
+
+
+def load_flux_transformer_state(model_dir: str) -> Tuple[StateDict, FluxConfig]:
+    """Flux's ``transformer/``: diffusers' names are the port's."""
+    sd, cfg = read_component(model_dir, "transformer")
+    return sd, flux_config_from_json(cfg)
+
+
+def load_t5_state(model_dir: str, component: str = "text_encoder_2") -> Tuple[StateDict, T5Config]:
+    """An HF T5 encoder directory: its weights and ``config.json`` (depth and
+    widths, as the JAX loader reads them)."""
+    sd, cfg = read_component(model_dir, component)
+    return convert_t5_state_dict(sd), T5Config.from_json(cfg)

@@ -1,7 +1,8 @@
 """Model loading + prompt encoding — counterpart of
-``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2, SDXL and SD3
-families (SD3: :func:`load_models_sd3` and :func:`encode_prompts_sd3`, whose
-docstrings give its sources).
+``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2, SDXL, SD3 and
+Flux families (SD3: :func:`load_models_sd3` and :func:`encode_prompts_sd3`;
+Flux: :func:`load_models_flux` and :class:`FluxEncoder`; their docstrings
+give their sources).
 
 ``load_models`` (SD1/SD2) and ``load_models_xl`` build the weightless
 families, chosen from the name as the JAX factory's ``_family_from_path``
@@ -72,6 +73,7 @@ from sliders_conceptmod_tpu_torch.models.clip import (
     clip_skip_hidden_state,
     penultimate_hidden_state,
 )
+from sliders_conceptmod_tpu_torch.models.norms import RMSNorm
 from sliders_conceptmod_tpu_torch.models.tokenizer import load_tokenizer
 from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -114,7 +116,7 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
                 p.fill_(1.0)
             elif isinstance(mod, nn.Embedding):
                 w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
@@ -575,3 +577,142 @@ def load_for_training(model_cfg, scheduler_name: str, weight_dtype: torch.dtype,
 
         is_xl = False
     return TrainingModels(is_xl, unet, scheduler, vae[0] if vae else None, encode)
+
+
+# ---------------------------------------------------------------------------
+# Flux
+# ---------------------------------------------------------------------------
+
+
+def is_flux_dir(name_or_path: str) -> bool:
+    return os.path.isdir(os.path.join(str(name_or_path), "transformer"))
+
+
+class FluxEncoder:
+    """Flux's one-prompt encoder (the JAX loader's ``encode_fn``):
+    ``encoder(prompt) -> (text [seq_len, joint_dim], pooled [pooled_dim])``
+    in the weights' dtype on the device.
+
+    With text towers (a diffusers directory): T5's final hidden state of the
+    prompt's ``seq_len`` tokens and CLIP-L's pooled output; ``text_encoders``
+    is ``[CLIP-L, T5]`` (te1, te2: a slider's text-encoder parts bind to
+    them, ``adapters/slider_file.py`` with ``te2_is_t5``), and an encode runs
+    under both towers' locks. Without (a weightless name, a BFL single file,
+    an int8 artifact): JAX's stand-in, pseudo-embeddings N(0, 0.1²) drawn
+    from the prompt's T5 ids — a generator seeded with ``sum(ids) % 2**31``
+    (JAX's integer seed, torch's numbers: the two packages' stand-ins
+    differ), the text first, then the pooled vector, in fp32 on the CPU,
+    then cast and moved."""
+
+    def __init__(self, tokenizer, seq_len: int, joint_dim: int, pooled_dim: int, dtype: torch.dtype, device,
+                 t5: Optional[nn.Module] = None, clip: Optional[TextEncoderBundle] = None):
+        self.tokenizer, self.seq_len = tokenizer, seq_len
+        self.joint_dim, self.pooled_dim = joint_dim, pooled_dim
+        self.dtype, self.device = dtype, torch.device(device)
+        self.t5, self.clip = t5, clip
+
+    @property
+    def text_encoders(self) -> Optional[List[nn.Module]]:
+        return None if self.t5 is None else [self.clip.model, self.t5]
+
+    @torch.inference_mode()
+    def __call__(self, prompt: str):
+        ids = self.tokenizer([prompt])
+        if self.t5 is None:
+            gen = torch.Generator().manual_seed(int(np.asarray(ids[0], np.int64).sum()) % (2**31))
+            text = torch.randn((self.seq_len, self.joint_dim), generator=gen) * 0.1
+            pooled = torch.randn((self.pooled_dim,), generator=gen) * 0.1
+            return text.to(self.dtype).to(self.device), pooled.to(self.dtype).to(self.device)
+        t5_ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
+        with model_lock(self.t5):
+            text = self.t5(t5_ids)[0]
+        return text, self.clip.encode([prompt]).pooled_output[0]
+
+
+def load_models_flux(
+    name_or_path: str,
+    weight_dtype: torch.dtype = torch.float32,
+    device: str = "cuda",
+    quantize_base: bool = False,
+    with_transformer: bool = True,
+):
+    """Flux (the JAX ``load_models_flux``): ``([t5 tokenizer], encoder,
+    transformer, scheduler)`` with the flow-match scheduler under dynamic
+    shifting (μ from the image's token count). Sources:
+
+    * a diffusers directory (one holding ``transformer/``): the transformer
+      from its ``config.json`` (dev when it declares ``guidance_embeds``) and
+      weights; ``text_encoder_2/`` T5 (its ``config.json`` sets the depth and
+      widths), ``text_encoder/`` CLIP-L (weightless from seed 0 when
+      absent), T5's tokenizer from ``tokenizer_2/spiece.model`` (else the
+      hash stand-in), CLIP's from ``tokenizer/``;
+    * an int8 artifact (``io/quant_cache.py``, ``cli/quantize_checkpoint.py
+      --family flux``): the transformer from it, the stand-in encoder;
+    * a BFL single file (``flux1-schnell.safetensors``): the transformer
+      (``io/ldm_convert.py``), the stand-in encoder;
+    * any other name: the weightless family (``FluxConfig.schnell()``, a name
+      containing "tiny": the tiny family), the transformer from seed 0, the
+      stand-in encoder.
+
+    A file or tree carrying ``guidance_embedder`` weights is dev; a name
+    containing "tiny" (the whole path, as JAX reads it) selects the tiny
+    widths and an 8-token T5 context (else 512). ``quantize_base``: the
+    transformer's large Linears int8 (an artifact always is).
+    ``with_transformer=False`` loads the encoder alone (the notrigger
+    trainer)."""
+    from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from sliders_conceptmod_tpu_torch.io.safetensors import read_keys
+    from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel
+    from sliders_conceptmod_tpu_torch.models.t5 import T5EncoderModel
+    from sliders_conceptmod_tpu_torch.models.tokenizer import load_t5_tokenizer
+
+    p = str(name_or_path)
+    device = _check_target(p, device, marker="transformer")
+    tiny = "tiny" in p.lower()
+    base_cfg = FluxConfig.tiny() if tiny else FluxConfig.schnell()
+    seq_len = 8 if tiny else 512  # the reference's max_sequence_length
+    scheduler = FlowMatchScheduler(use_dynamic_shifting=True)
+    local = is_flux_dir(p)
+    tok = load_t5_tokenizer(p if local else "", max_length=seq_len)
+
+    def with_guidance(keys) -> FluxConfig:
+        return dataclasses.replace(base_cfg, guidance_embeds=any(".guidance_embedder." in k for k in keys))
+
+    transformer = None
+    if is_single_file(p) and quant_cache.is_quantized_artifact(p):
+        if with_transformer:
+            cfg = with_guidance(k.replace("/", ".") for k in read_keys(p))
+            transformer = quantized_from_artifact(p, lambda: FluxTransformer2DModel(cfg), device, weight_dtype)
+    elif is_single_file(p):
+        from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
+
+        if with_transformer:
+            sd = load_ldm_checkpoint(p)
+            if "transformer" not in sd or "x_embedder.weight" not in sd["transformer"]:
+                raise ValueError(f"{p} is not a BFL Flux single file (no double_blocks / single_blocks)")
+            cfg = with_guidance(sd["transformer"])
+            transformer = module_from_state(lambda: FluxTransformer2DModel(cfg), sd["transformer"], device,
+                                            weight_dtype, f"{p} transformer", quantize_base)
+    elif local:
+        if with_transformer:
+            sd, cfg = tc.load_flux_transformer_state(p)
+            transformer = module_from_state(lambda: FluxTransformer2DModel(cfg), sd, device, weight_dtype,
+                                            f"{p}/transformer", quantize_base)
+    elif with_transformer:
+        transformer = build_module(lambda: FluxTransformer2DModel(base_cfg), device, weight_dtype, 0, quantize_base)
+    cfg = transformer.config if transformer is not None else base_cfg
+    t5 = clip = None
+    if local:
+        t5_sd, t5_cfg = tc.load_t5_state(p)
+        t5 = module_from_state(lambda: T5EncoderModel(t5_cfg), t5_sd, device, weight_dtype, f"{p}/text_encoder_2")
+        clip = _text_encoder(p, "text_encoder", CLIPTextConfig.sd15_te(), device, weight_dtype, 0,
+                             _tokenizer(p, "tokenizer"))
+    encoder = FluxEncoder(tok, seq_len, cfg.joint_attention_dim, cfg.pooled_projection_dim, weight_dtype, device,
+                          t5=t5, clip=clip)
+    return [tok], encoder, transformer, scheduler
+
+
+def flux_vae_scale(name_or_path: str) -> int:
+    """Pixels per latent: 8, or 2 for the tiny family (the JAX Flux
+    entry points' ``vae_scale``)."""
+    return 2 if "tiny" in str(name_or_path).lower() else 8

@@ -1,4 +1,4 @@
-"""Slider serving on the GPU, SDXL, SD1.x/SD2.x and SD3 — counterpart of
+"""Slider serving on the GPU, SDXL, SD1.x/SD2.x, SD3 and Flux — counterpart of
 ``sliders_conceptmod_tpu/serve.py``.
 
 Models load once (bf16 weights, resident on the device); each request pays
@@ -10,14 +10,15 @@ sampler call (:class:`MicroBatcher`), padded to a {1, 2, 4} bucket.
   python -m sliders_conceptmod_tpu_torch.serve --slider s.safetensors --port 8500
   python -m sliders_conceptmod_tpu_torch.serve --base path/to/sd15 --family sd1 --slider s.safetensors
 
-``--family`` (xl, sd1 or sd3) is read off ``--base`` when omitted
+``--family`` (xl, sd1, sd3 or flux) is read off ``--base`` when omitted
 (:func:`detect_family`); ``--base`` is a family name, a diffusers directory or
 a single checkpoint file. :class:`SliderService` serves SDXL (both CLIP
 towers, 25 DDIM steps by default), :class:`SD1SliderService` SD1.x/SD2.x (one
 tower, no added conditioning, 50 steps; ``--v2``, ``--v_pred``),
 :class:`SD3SliderService` SD3-Medium (the MMDiT and the flow-Euler sampler,
-28 steps; ``-``-delimited sliders). ``--family flux`` exits: Flux is ROADMAP
-queue 1, item 9.
+28 steps; ``-``-delimited sliders), :class:`FluxSliderService` FLUX.1
+schnell/dev (the packed-token sampler, 8 un-guided steps, ``start_noise``
+800; ``--static_guidance`` is refused, as in JAX).
 
   curl -s 'localhost:8500/generate?prompt=a+photo+of+a+person&scale=1.5&seed=7' > out.png
   curl -s localhost:8500/healthz
@@ -81,8 +82,10 @@ from sliders_conceptmod_tpu_torch.infer.generate import (
     latents_to_images,
     sample_loop_scales,
 )
+from sliders_conceptmod_tpu_torch.diffusion.flow_match import calculate_shift
 from sliders_conceptmod_tpu_torch.io.png import encode_png
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.models.flux import pack_latents, prepare_latent_image_ids, unpack_latents
 
 
 class QueueFullError(Exception):
@@ -204,6 +207,7 @@ class SliderService:
     _BUCKETS = (1, 2, 4)
     _STACK_CACHE_MAX = 16  # each stack holds fp32 copies of its members' factors
     weight_dtype = torch.bfloat16  # the weights' and the sampled latents' dtype
+    te2_is_t5 = False  # Flux: a slider's te2 part binds to T5
 
     def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 25,
                  start_noise: float = 750, batch_window_ms: float = 8.0,
@@ -218,7 +222,7 @@ class SliderService:
         self.quantize_base = quantize_base or w8a8
         self._load(base)
         quant.set_act_quant(self.unet, w8a8)
-        self.schedule = self.scheduler.set_timesteps(steps)
+        self.schedule = self._schedule(steps)
         self.flip = self._flip(start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
         self._te: dict = {}  # slider name -> (SliderParts with text-encoder parts, version)
@@ -249,8 +253,16 @@ class SliderService:
             quantize_base=self.quantize_base,
         )
 
+    def _schedule(self, steps: int):
+        return self.scheduler.set_timesteps(steps)
+
     def _flip(self, start_noise: float) -> int:
         return flip_step_for_start_noise(self.schedule, start_noise)
+
+    def _text_encoder_modules(self):
+        """The towers a slider's text-encoder parts bind to (te1[, te2]), or
+        None where there are none to merge into."""
+        return [te.model for te in self.text_encoders]
 
     # -- slider registry -----------------------------------------------------
 
@@ -258,7 +270,7 @@ class SliderService:
         """Register (or replace) a slider file under ``name``: a UNet part,
         text-encoder parts (a notrigger save, a ``combine_loras`` output), or
         both. A text-encoder-only slider has no UNet sites."""
-        parts = load_slider_file(slider_path, [te.model for te in self.text_encoders])
+        parts = load_slider_file(slider_path, self._text_encoder_modules(), te2_is_t5=self.te2_is_t5)
         sites, lora_params = [], {}
         if parts.unet is not None:
             sites, lora_params = self._model_slider(str(slider_path), parts.unet)
@@ -601,6 +613,79 @@ class SD3SliderService(SliderService):
                                                    self.vae.config.shift_factor)
 
 
+class FluxSliderService(SD3SliderService):
+    """Flux slider serving (schnell / dev): the few-step un-guided flow
+    sampler over packed tokens (512px, 8 steps and ``start_noise`` 800 by
+    default; the schedule shifted by μ from the image's token count) with
+    the slider through the per-row LoRA overlay on the transformer
+    (``self.unet``), never merged; a request's ``guidance`` is a dev model's
+    distilled-guidance input (schnell ignores it) and still groups the
+    micro-batch, as in JAX. The registry, the micro-batcher, cross-slider
+    stacks (``adapter_idx`` over stacked factors), text-encoder parts (te1
+    CLIP-L, te2 T5: a base directory's towers, merged per row's scale) and
+    ``quantize_base`` / ``w8a8`` are :class:`SliderService`'s; the VAE decode
+    or the latent preview :class:`SD3SliderService`'s. The initial latents
+    are each row's N(0, 1) draw from its seed (torch's numbers, not JAX's)."""
+
+    te2_is_t5 = True
+
+    def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 8,
+                 start_noise: float = 800, batch_window_ms: float = 8.0, max_batch: int = 4,
+                 max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
+        super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
+                         max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
+                         cross_slider_stack=cross_slider_stack, quantize_base=quantize_base, w8a8=w8a8,
+                         device=device)
+
+    def _load(self, base: str) -> None:
+        self.tokenizers, self.encoder, self.unet, self.scheduler = factory.load_models_flux(
+            base, weight_dtype=self.weight_dtype, device=self.device, quantize_base=self.quantize_base)
+        self.vae = (factory.sd3_vae(base, self.device, torch.float32)
+                    if os.path.isdir(os.path.join(str(base), "vae")) else None)
+        self.latent_res = self.image_size // factory.flux_vae_scale(base)
+        g = self.latent_res // 2
+        self.img_ids = torch.from_numpy(prepare_latent_image_ids(g, g)).to(self.device)
+
+    def _schedule(self, steps: int):
+        return self.scheduler.set_timesteps(steps, mu=calculate_shift((self.latent_res // 2) ** 2))
+
+    def _text_encoder_modules(self):
+        return self.encoder.text_encoders
+
+    def _encode_impl(self, prompt: str):
+        text, pooled = self.encoder(prompt)
+        return text[None], pooled[None]
+
+    def _conditioning(self, padded):
+        """(text [B], pooled [B]) of a group: the prompts only (no CFG)."""
+        enc = [self._encode_row(r[0], r) for r in padded]
+        return torch.cat([t for t, _ in enc]), torch.cat([p for _, p in enc])
+
+    def _draw_latents(self, seeds) -> torch.Tensor:
+        """Each row's N(0, 1) draw from its own seed, fp32 ``[B, 16, h, w]``."""
+        c, res = self.unet.config.in_channels // 4, self.latent_res
+        return torch.cat([torch.randn((1, c, res, res), device=self.device,
+                                      generator=torch.Generator(device=self.device).manual_seed(s)) for s in seeds])
+
+    @torch.inference_mode()
+    def _sample_group(self, padded, guidance: float, entry, adapter_idx=None):
+        _, _, overlay = entry
+        dev = self.device
+        text, pooled = self._conditioning(padded)
+        tokens = pack_latents(self._draw_latents([r[2] for r in padded])).to(self.weight_dtype)
+        scales = torch.tensor([r[1] for r in padded], dtype=torch.float32, device=dev)
+        idx = None if adapter_idx is None else torch.as_tensor(adapter_idx, dtype=torch.long, device=dev)
+        final = generate_flow.sample_packed_flow(self.unet, self.flip, self.schedule, tokens, text, pooled,
+                                                 self.img_ids, guidance=float(guidance), overlay=overlay,
+                                                 row_scale=scales, adapter_idx=idx)
+        lat = unpack_latents(final, self.latent_res, self.latent_res)
+        if self.vae is None:
+            return self._latents_preview(lat)
+        return generate_flow.sd3_latents_to_images(self.vae.decode, lat, self.vae.config.scaling_factor,
+                                                   self.vae.config.shift_factor)
+
+
 def detect_family(base: str) -> str:
     """The family of a ``--base`` from its name (the JAX ``detect_family``):
     flux, sd3, sd1 (SD1.x and SD2.x names) or xl."""
@@ -754,8 +839,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="register extra sliders over the same base (repeatable)")
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--image_size", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=None, help="default 25 (xl) / 28 (sd3) / 50 (sd1)")
-    ap.add_argument("--start_noise", type=float, default=None, help="default 750")
+    ap.add_argument("--steps", type=int, default=None, help="default 25 (xl) / 28 (sd3) / 8 (flux) / 50 (sd1)")
+    ap.add_argument("--start_noise", type=float, default=None, help="default 750 (xl/sd3/sd1) / 800 (flux)")
     ap.add_argument("--family", choices=["xl", "sd3", "flux", "sd1"], default=None,
                     help="read off --base when omitted")
     ap.add_argument("--v2", action="store_true", help="sd1 family only: SD2.x base (OpenCLIP tower, SD2.1 widths)")
@@ -788,11 +873,20 @@ def build_parser() -> argparse.ArgumentParser:
 def service_settings(args):
     """(service class, keyword arguments) for parsed ``main`` arguments: the
     family (``--family`` or :func:`detect_family`) and its step and
-    ``start_noise`` defaults (SD3: 28 steps and 750, as JAX's). Flux is not
-    ported yet."""
+    ``start_noise`` defaults (SD3: 28 steps and 750, Flux: 8 and 800, as
+    JAX's). ``--static_guidance`` with Flux exits with JAX's message."""
     family = args.family or detect_family(args.base)
     if family == "flux":
-        raise SystemExit("--family flux: Flux serving is not ported yet (ROADMAP.md queue 1, item 9)")
+        if args.static_guidance is not None:
+            raise SystemExit("--static_guidance applies to CFG families (xl/sd3); flux "
+                             "schnell has no CFG batch and dev's guidance embedding is "
+                             "already a cheap per-request input")
+        return FluxSliderService, dict(
+            image_size=args.image_size, steps=8 if args.steps is None else args.steps,
+            start_noise=800 if args.start_noise is None else args.start_noise, batch_window_ms=args.batch_window_ms,
+            max_batch=1 if args.no_microbatch else args.max_batch, max_queue=args.max_queue,
+            max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack, quantize_base=args.quantize_base,
+            w8a8=args.w8a8, device=args.device)
     kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
                   batch_window_ms=args.batch_window_ms, max_batch=1 if args.no_microbatch else args.max_batch,
                   max_queue=args.max_queue, max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack,

@@ -74,7 +74,13 @@ class NoTriggerConfig:
 
 
 def hidden_of(encoder: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``ids → hidden_states[-1]`` of the tower (the final pre-LN state)."""
+    """``ids → hidden_states[-1]`` of a CLIP tower (the final pre-LN state);
+    a T5 tower's output itself (its final norm's, as JAX's ``t5attn``
+    method encodes)."""
+    from sliders_conceptmod_tpu_torch.models.t5 import T5EncoderModel
+
+    if isinstance(encoder, T5EncoderModel):
+        return encoder
     return lambda ids: encoder(ids).hidden_states[-1]
 
 
@@ -84,7 +90,7 @@ def _merged_encode(encoder, sites, lora_params, merge, multiplier: float, ids, g
     with lora_lib.model_lock(encoder):
         merged = merge(encoder, sites, lora_params, multiplier, grad=grad)
         with lora_lib.merged_weights(encoder, merged):
-            return encoder(ids).hidden_states[-1]
+            return hidden_of(encoder)(ids)
 
 
 def make_notrigger_step(

@@ -430,6 +430,44 @@ def get_optimizer(
     raise ValueError("Optimizer must be adam, adamw, lion, sgd, prodigy or dadapt*")
 
 
+class MultiSteps:
+    """optax ``MultiSteps(inner, every_k_schedule=k)`` (the mean of the
+    gradients, optax's default): each call adds a micro-step's gradients to
+    a running mean, ``acc ← acc + (g − acc)/(n + 1)`` in fp32 as optax
+    accumulates them; on every k-th call the inner optimizer — its clips,
+    its update and its schedule, counted in optimizer steps — runs on that
+    mean, and the mean restarts at zero. The state holds the mini-step, the
+    optimizer-step count, the inner state and the running mean, so a resume
+    mid-accumulation continues bit for bit. ``step`` returns whether the
+    inner optimizer ran."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner, self.every_k = inner, every_k
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict:
+        return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
+                "acc_grads": [torch.zeros_like(p) for p in params]}
+
+    global_norm = staticmethod(Optimizer.global_norm)
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict,
+             g_norm: Optional[torch.Tensor] = None) -> bool:
+        acc, n = state["acc_grads"], state["mini_step"]
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(list(grads), acc), float(n + 1)))
+        if n < self.every_k - 1:
+            state["mini_step"] = n + 1
+            return False
+        self.inner.step(params, acc, state["inner"])
+        for a in acc:
+            a.zero_()
+        state["mini_step"] = 0
+        state["gradient_step"] += 1
+        return True
+
+
 def flat_params(sites, lora_params) -> List[torch.Tensor]:
     """Every trained leaf in a fixed order: (down, up) of each site in site
     order, then its ``dora_scale`` where it has one (DoRA: the JAX trainer

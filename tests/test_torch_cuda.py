@@ -1117,3 +1117,107 @@ def test_tiny_mmdit_and_sd3_sampler_on_the_card_match_the_cpu(gen):
         out[device] = (fwd.cpu(), final.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=2e-4, rtol=0)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [2, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_k3_at_flux_joint_length(gen, rows, dtype):
+    """Flux's joint attention at native d 128 (no padding), H 24, 1536² (512
+    T5 + 1024 image tokens): K1 (out and lse), K2 with the key split its
+    rule picks and K3 with its query split, against their plain versions, at
+    the student's rows 2 and the teacher's 6."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, (rows, 1536, 1536, 24, 128), dtype)
+    scale = 128**-0.5
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), scale)
+    tol = 1e-4 if dtype == torch.float32 else _fwd_tol(ref)
+    assert (o.float() - ref).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * max(1.0, ref_lse.abs().max().item())
+    del ref, ref_lse
+    if dtype == torch.bfloat16:
+        _check_k2(q, k, v, o, lse, do, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w).abs().max().item() <= _grad_tol(w, dtype), name
+
+
+def _tiny_flux():
+    """The tiny Flux transformer with seeded weights, made on the CPU."""
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel
+
+    return factory.build_module(lambda: FluxTransformer2DModel(FluxConfig.tiny()), "cpu", torch.float32, 5)
+
+
+def _flux_lora(model, device):
+    from sliders_conceptmod_tpu_torch.adapters import lora
+
+    sites = lora.create_sites(model, rank=2, target_replace=["Attention"], delimiter="-")
+    lp = lora.init_lora_params(sites, generator=torch.Generator().manual_seed(1))
+    return sites, {n: {k: (t + 0.1).to(device) for k, t in leaf.items()} for n, leaf in lp.items()}
+
+
+def test_tiny_flux_and_packed_sampler_on_the_card_match_the_cpu(gen):
+    """The tiny Flux forward and a 3-step packed sampler call with the slider
+    through the overlay from step 1 (K1 inside every attention), card vs
+    CPU, fp32."""
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_packed_flow
+    from sliders_conceptmod_tpu_torch.models.flux import prepare_latent_image_ids
+
+    g = torch.Generator().manual_seed(3)
+    tokens, text, pooled = (torch.randn(s, generator=g) for s in ((2, 16, 16), (2, 8, 32), (2, 32)))
+    ids = torch.from_numpy(prepare_latent_image_ids(4, 4))
+    sched = FlowMatchScheduler(use_dynamic_shifting=True).set_timesteps(3, mu=0.7)
+    out = {}
+    cpu_model = _tiny_flux()
+    for device in ("cpu", "cuda"):
+        model = cpu_model if device == "cpu" else copy.deepcopy(cpu_model).to(device)
+        sites, lp = _flux_lora(model, device)
+        args = [x.to(device) for x in (tokens, text, pooled)]
+        fwd = model(args[0][:1], torch.tensor([0.5], device=device), args[1][:1], args[2][:1],
+                    torch.zeros((8, 3), device=device), ids.to(device))
+        final = sample_packed_flow(model, 1, sched, *args, ids.to(device), overlay=lora.LoRAOverlay(model, sites, lp),
+                                   row_scale=torch.tensor([1.5, -1.0], device=device))
+        out[device] = (fwd.cpu(), final.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3, rtol=0)
+
+
+def test_tiny_flux_esd_step_on_the_card_matches_the_cpu(gen):  # gen: skips without a card, sets TF32 off
+    """One tiny Flux ESD micro-step (the overlay student, blocks
+    checkpointed; MultiSteps k 1) card vs CPU, fp32: K1 3 and K2/K3 1 per
+    attention."""
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from sliders_conceptmod_tpu_torch.train import esd, esd_flux
+    from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, flat_params, get_lr_schedule, get_optimizer
+
+    g = torch.Generator().manual_seed(3)
+    text, pooled, lat = torch.randn((1, 5, 8, 32), generator=g), torch.randn((1, 5, 32), generator=g), \
+        torch.randn((2, 4, 16, 16), generator=g)
+    cpu_model = _tiny_flux()
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = cpu_model if device == "cpu" else copy.deepcopy(cpu_model).to(device)
+        sites, lp = _flux_lora(model, device)
+        for leaf in lp.values():
+            for t in leaf.values():
+                t.requires_grad_(True)
+        opt = MultiSteps(get_optimizer("adamw", get_lr_schedule("cosine", 1e-3, 50, 1e-6), weight_decay=1e-6,
+                                       grad_clip_value=1.0), 1)
+        cfg = esd_flux.FluxESDConfig(batch_size=2, height=32, width=32, latent_channels=4, vae_scale=2, remat=True,
+                                     student_overlay=True)
+        step = esd_flux.make_flux_esd_train_step(
+            model, sites, lp, FlowMatchScheduler(use_dynamic_shifting=True).set_timesteps(8, mu=0.6), opt, cfg)
+        before = fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches
+        m = step(opt.init(flat_params(sites, lp)), esd.PromptBank(text.to(device), [3.0], [1.0], pooled.to(device)),
+                 draws=[esd_flux.Draw(0, lat.to(device))])
+        launches = (fa.flash_attention_fwd.launches - before[0], fa.flash_attention_bwd_dq.launches - before[1])
+        out[device] = (float(m["loss"]), lora.state_dict_numpy(sites, lp), launches)
+    assert out["cuda"][2] == (3 * 4, 4)  # 4 attentions per forward: teacher, student, recompute; one backward
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * max(1.0, abs(out["cpu"][0]))
+    for k, v in out["cpu"][1].items():
+        assert abs(out["cuda"][1][k] - v).max() <= 1e-3, k

@@ -8,7 +8,7 @@ package, on the CPU.
   back every module's state bit-exactly;
 * ``cli/export_single_file``: a slider baked into a tiny SD1 file (fp32 and
   ``--half``) and a tiny SDXL file writes the JAX CLI's file byte for byte;
-  ``--flux`` raises and ``--sd3`` writes the SD3 layout;
+  ``--flux`` writes the BFL layout and ``--sd3`` the SD3 layout;
 * ``cli/combine_loras``: SD1/XL and SD3-style UNet keys, two text-encoder
   parts (one a torch ``.pt``), strengths on ``_down``, ``alpha`` and
   ``dora_scale`` unscaled: the JAX ``combine``'s tensors and file, byte for
@@ -149,10 +149,12 @@ def test_export_single_file_cli_writes_the_jax_file(tiny, tmp_path, fam, extra):
 
 
 def test_export_cli_refuses_sd3_and_flux(tmp_path):
-    """Flux is refused (ROADMAP queue 1, item 9); SD3 exports since its
-    slice (tests/test_torch_sd3_io.py holds it against JAX)."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        texport_cli.main(["--base", "tiny", "--output", str(tmp_path / "x.safetensors"), "--flux", "--device", "cpu"])
+    """SD3 and Flux export since their slices (tests/test_torch_sd3_io.py and
+    tests/test_torch_flux_io.py hold them against JAX): Flux writes BFL's
+    transformer-only layout."""
+    sd = texport_cli.main(["--base", "tiny-flux", "--output", str(tmp_path / "x.safetensors"), "--flux",
+                           "--device", "cpu"])
+    assert "double_blocks.0.img_attn.qkv.weight" in sd and "single_blocks.0.linear1.weight" in sd
     sd = texport_cli.main(["--base", "tiny-sd3", "--output", str(tmp_path / "sd3.safetensors"), "--sd3",
                            "--device", "cpu"])
     assert any(k.startswith("model.diffusion_model.joint_blocks.0.x_block.attn.qkv.") for k in sd)

@@ -81,6 +81,20 @@ SD3_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.models.vae",
     "sliders_conceptmod_tpu_torch.serve",
 }
+# modules the Flux slice added or extended
+FLUX_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.models.flux",
+    "sliders_conceptmod_tpu_torch.models.t5",
+    "sliders_conceptmod_tpu_torch.models.tokenizer",
+    "sliders_conceptmod_tpu_torch.models.norms",
+    "sliders_conceptmod_tpu_torch.train.esd_flux",
+    "sliders_conceptmod_tpu_torch.train.optim",
+    "sliders_conceptmod_tpu_torch.train.notrigger",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_flux",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_flux",
+    "sliders_conceptmod_tpu_torch.adapters.slider_file",
+    "sliders_conceptmod_tpu_torch.io.safetensors",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -94,7 +108,7 @@ def test_port_and_smoke_import_without_jax():
     assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
     walked = set(res.stdout.split(":", 1)[1].split())
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
-    assert SD3_SLICE_MODULES <= walked
+    assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():

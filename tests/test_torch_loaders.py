@@ -261,8 +261,8 @@ def test_loader_refusals(tmp_path):
         tfactory.load_models(str(tmp_path / "notes.txt"), device="cpu")
     with pytest.raises(ValueError, match="Unmapped SD3 MMDiT key"):  # SD3 converts since its slice: a bad key raises
         tldm.convert_ldm_checkpoint({"model.diffusion_model.joint_blocks.0.x.weight": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tldm.convert_ldm_checkpoint({"double_blocks.0.img_attn.qkv.weight": torch.zeros(3, 1)})
+    with pytest.raises(ValueError, match="Unmapped BFL Flux key"):  # Flux converts since its slice: a bad key raises
+        tldm.convert_ldm_checkpoint({"double_blocks.0.img_attn.bogus.weight": torch.zeros(3, 1)})
     with pytest.raises(NotImplementedError, match="item 10"):
         tldm.convert_ldm_checkpoint({"clip_txt_mapper.weight": torch.zeros(1, 1)})
 

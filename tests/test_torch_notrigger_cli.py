@@ -8,7 +8,7 @@ holds the towers and the step parity):
   part of the tower it was trained in, as LoRA or DoRA;
 * a resume from the ``{name}_{clip_index}_resume.pt`` continues bit for bit;
 * the early exit fires on a stalled logger;
-* the Flux models raise naming ROADMAP queue 1, item 9, and the int8
+* unknown models raise (FLUX.1 trains since its slice), and the int8
   knobs raise JAX's message.
 """
 
@@ -118,8 +118,8 @@ def test_early_exit_fires_on_a_stalled_logger(tmp_path, monkeypatch):
 
 def test_refusals():
     cfg = _config("/nonexistent")
-    for model in ("FLUX.1", "tiny-flux"):  # SD3 trains since its slice (tests/test_torch_sd3_serve.py)
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    for model in ("FLUX.2", "flux"):  # SD3 and FLUX.1 train since their slices (tests/test_torch_flux_io.py)
+        with pytest.raises(NotImplementedError, match="not supported"):
             tcli.train(cfg, positive=POS, clip_index=0, model=model, device="cpu")
     with pytest.raises(NotImplementedError, match="not supported"):
         tcli.train(cfg, positive=POS, clip_index=0, model="SD2", device="cpu")

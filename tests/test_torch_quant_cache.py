@@ -8,7 +8,7 @@ and the int8 SDXL sweep against the JAX package's, on the CPU (fp32):
   UNet (forward within 2e-4);
 * both packages' ``quantize_checkpoint`` CLIs over the same JAX-written tiny
   single files (``tests/_sweep_cli_assets.py``) write the same artifact, and
-  ``--family flux`` exits naming the ROADMAP item.
+  ``--family flux`` writes the tiny Flux transformer.
 
 The int8 sweep and serving are tests/test_torch_quant_serve.py.
 
@@ -171,6 +171,8 @@ def test_quantize_checkpoint_cli_weightless_and_refusals(tmp_path, capsys):
     assert tqc.main(["--base", "tiny-xl", "--family", "xl", "--out", out, "--device", "cpu"]) == 0
     assert f"wrote {out}: 0 int8 kernels (family=xl)" in capsys.readouterr().out
     assert tcache.is_quantized_artifact(out)
-    with pytest.raises(SystemExit, match="item 9"):  # sd3 quantizes since its slice (tests/test_torch_sd3_io.py)
-        tqc.main(["--base", "x", "--family", "flux", "--out", out])
+    # sd3 and flux quantize since their slices (tests/test_torch_sd3_io.py, tests/test_torch_flux_io.py)
+    flux_out = str(tmp_path / "tiny-flux.int8.safetensors")
+    assert tqc.main(["--base", "tiny-flux", "--family", "flux", "--out", flux_out, "--device", "cpu"]) == 0
+    assert f"wrote {flux_out}: 0 int8 kernels (family=flux)" in capsys.readouterr().out
     assert tqc.build_parser().parse_args(["--base", "b", "--family", "sd1", "--out", "o"]).precision == "bfloat16"

@@ -11,7 +11,7 @@
 * the service end to end on the CPU: PNG bytes, the slider changing the
   image, the micro-batcher and the HTTP handler;
 * ``detect_family`` against JAX's on a table of names, and ``main``'s
-  ``--family`` handling (defaults by family, SD3's 28 steps, Flux refused)."""
+  ``--family`` handling (defaults by family, SD3's 28 steps, Flux's 8)."""
 
 import json
 import threading
@@ -148,8 +148,8 @@ def test_main_family_handling():
     assert cls is tserve.SliderService  # --family wins over the name
     cls, kw = tserve.service_settings(parse("--base", "stabilityai/stable-diffusion-3-medium"))
     assert cls is tserve.SD3SliderService and kw["steps"] == 28 and kw["start_noise"] == 750
-    for base, fam in (("black-forest-labs/FLUX.1-schnell", None), ("x", "flux")):
-        with pytest.raises(SystemExit, match="item 9"):
-            tserve.service_settings(parse("--base", base, *(("--family", fam) if fam else ())))
+    for base, fam in (("black-forest-labs/FLUX.1-schnell", None), ("x", "flux")):  # Flux serves since its slice
+        cls, kw = tserve.service_settings(parse("--base", base, *(("--family", fam) if fam else ())))
+        assert cls is tserve.FluxSliderService and kw["steps"] == 8 and kw["start_noise"] == 800
     with pytest.raises(SystemExit):
         parse("--family", "cascade")
