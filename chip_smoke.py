@@ -103,6 +103,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   1536² and 4608², K2/K3 fp32 at 1536² rows 2, and bf16 K2/K3
                   with their splits forced to 1, 2 and 64, repeats and δ bit
                   for bit (phase_kernel_flux_checks).
+5e. kernel_cascade — the Stable Cascade prior's attentions (32 heads of
+                  64, bf16; phase_kernel_joint at CASCADE_K1_SHAPES and
+                  CASCADE_K23_SHAPES): K1 at 144×229 (level 0 of the 12 × 12
+                  grid of 512px) and 36×121 (level 1) rows 2 and 4, K2/K3 at
+                  both rows 2; emitted as kernel / kernel_bwd rows.
 6. parity       — the tiny-xl sampler on the card (K1 inside every UNet
                   attention) against the same weights and inputs on the CPU.
 7. train_parity — one tiny-xl ESD step on the card (K1/K2/K3 inside) against
@@ -116,6 +121,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8c. flux_parity — the tiny Flux packed sampler (3 steps, the overlay from
                   step 1) and one tiny Flux ESD micro-step (MultiSteps, the
                   overlay student, blocks checkpointed), card vs CPU, fp32.
+8d. cascade_parity — the tiny Stable Cascade prior on a 5 × 5 grid (the
+                  odd grid's bilinear resize) and one tiny Cascade ESD step
+                  (the merged student, its layers checkpointed; euler_a, T 3),
+                  card vs CPU, fp32; K1 4 per forward, K2/K3 4 per step.
 9. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
                   in the encoder's mid-block) and one tiny-xl image-pair step
                   (K1/K2/K3) on the card against the same on the CPU, fp32.
@@ -190,12 +199,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   generator), loaded by factory.load_models(dir, "cuda", bf16,
                   with_vae=True): every tensor bit-equal to its source; load
                   seconds and bytes.
-19. sd_serve    — SD1SliderService over that directory, 512px, 50 DDIM steps,
+19. sd_serve    — SD1SliderService over that directory, 512px, 20 DDIM steps
+                  (the service's 50, cut when Stable Cascade joined),
                   a rank-4 slider: scale 0 and +2 solo (different images), -2
                   and +1 in one micro-batch, one /generate through
                   make_handler (sd_serve_http), one profiled request
-                  (sd_serve_profile). Per sampler call K1 50×20 = 1000 and K4a
-                  50×12 + 1 = 601 launches.
+                  (sd_serve_profile). Per sampler call K1 20×20 = 400 and K4a
+                  20×12 + 1 = 241 launches.
 20. sd2_serve   — SD1SliderService on stabilityai/stable-diffusion-2-1 with
                   v2 and v_pred, 512px, 10 steps, scales 0 and +2: per call K1
                   10×32 = 320, K4a 1 (the decode).
@@ -282,13 +292,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   456 K1 per sampler call.
 22p. flux_sweep — cli/generate_images_flux at its defaults, scales -2, 0, 2
                   × 1 sample × case 0 (latents as .npy); seconds per image.
-22q. flux_load — a schnell diffusers directory (transformer at full width and
-                  depth in 5 shards; T5-XXL's width with 2 of its 24 layers;
+22q. flux_load — a schnell diffusers directory (transformer at full width in
+                  5 shards, its 19 + 38 blocks cut to 2 + 4 when Stable
+                  Cascade joined; T5-XXL's width with 2 of its 24 layers;
                   CLIP-L; the 16-channel VAE with FLUX.1's factors; a
                   synthetic spiece.model) served: every tensor bit-equal,
-                  one request decoded (456 K1, 1 K4a); GB, seconds, GB/s;
+                  one request decoded (48 K1, 1 K4a); GB, seconds, GB/s;
                   the directory deleted after.
-22r. flux_int8  — 2 optimizer steps on tpu.quantize_base, one --w8a8 request
+22r. flux_int8  — 1 optimizer step (2 before Stable Cascade joined) on
+                  tpu.quantize_base, one --w8a8 request
                   (its gap to the bf16 image), the quantize_checkpoint
                   --family flux artifact of the weightless schnell reloaded,
                   its forward bit-equal to the in-memory int8 base.
@@ -299,11 +311,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   slider in a seeded T5-XXL (full width and depth), 5 steps
                   (no kernel: T5's attention is plain), swept over the same
                   T5 at 0 (bit-equal to the tower without it) and +1.
+22u. cascade_load — a full-width Stable Cascade diffusers directory of
+                  seeded bf16 weights (prior/ in 4 shards, CLIP-G
+                  text_encoder/, tokenizer/), loaded by
+                  factory.load_models_cascade bit-equal.
+22v. cascade_train — cli/train_lora_cascade.train over that directory from
+                  data/config-cascade.yaml + data/prompts-cascade.yaml (512px,
+                  euler_a, T 20, bf16, c3lier rank 4), 3 steps: K1 1408 and
+                  K2 = K3 = 64 per step, the saved .pt's 256 sites; one more
+                  step profiled. Then the routes, 2 steps each on the seeded
+                  weightless prior: cascade_wuerstchen, cascade_dora,
+                  cascade_w8a8 (the dual-tree warm-up), cascade_overlay and
+                  cascade_samples2_share (K1 64 · (19 + 2 · 3) per step).
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
                   and K4a and no backward kernel; the SD3 and Flux paths join
-                  K1, K2/K3 in training and K4a where they decode). On every
+                  K1, K2/K3 in training and K4a where they decode; the Cascade
+                  paths K1, K2 and K3 and no k-grid kernel). On every
                   path the
                   plain attention versions, forward and backward, ran 0 times
                   on the card.
@@ -343,7 +368,13 @@ from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_flux as gen_flux
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd3 as gen_sd3
 from sliders_conceptmod_tpu_torch.cli import generate_images_xl as gen_xl
-from sliders_conceptmod_tpu_torch.cli import train_lora_flux, train_lora_scale, train_lora_sd3, train_notrigger
+from sliders_conceptmod_tpu_torch.cli import (
+    train_lora_cascade,
+    train_lora_flux,
+    train_lora_scale,
+    train_lora_sd3,
+    train_notrigger,
+)
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
@@ -355,6 +386,7 @@ from sliders_conceptmod_tpu_torch.io import ldm_export
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.models.cascade import CascadeConfig, StableCascadeUNet
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
 from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel, prepare_latent_image_ids
 from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
@@ -372,7 +404,7 @@ from sliders_conceptmod_tpu_torch.serve import (
     make_handler,
     metrics,
 )
-from sliders_conceptmod_tpu_torch.train import esd, esd_flux, esd_sd3, imageslider, trainer
+from sliders_conceptmod_tpu_torch.train import esd, esd_cascade, esd_flux, esd_sd3, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, Optimizer, flat_params, get_lr_schedule, get_optimizer
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
@@ -389,6 +421,7 @@ LSE_TOL = 1e-3
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
 IMAGE_SIZE, STEPS = 1024, 12  # SDXL serving: the service's 25 DDIM steps, cut to 12 when Flux joined the smoke
 SD2_STEPS = 10  # SD2.1 serving: cut from the service's 50 to keep the smoke short
+SD1_STEPS = 20  # SD1.5 serving over the load phase's directory: the service's 50, cut when Cascade joined
 # (name, Sq, Sk, heads): the attention calls of one SDXL UNet forward at 1024px
 PATH_SHAPES = [
     ("self_4096", 4096, 4096, 10),
@@ -2988,20 +3021,27 @@ SD3_K23_SHAPES = [("sd3_train_joint_1357", 2, 1357, 24, 64), ("sd3_train_joint_1
 SD3_INT8_REQUEST = ("a photo of a person", 2.0, 7, SD3_GUIDANCE, "smoke")
 
 
+def joint_dims(shape) -> tuple:
+    """(name, rows, Sq, Sk, heads, head dim) of a kernel-row shape; a
+    self-attention row (name, rows, S, heads, head dim) has Sq = Sk = S."""
+    return tuple(shape) if len(shape) == 6 else tuple(shape[:3]) + tuple(shape[2:])
+
+
 def phase_kernel_joint(gen: torch.Generator, k1_shapes=SD3_K1_SHAPES, k23_shapes=SD3_K23_SHAPES) -> tuple:
-    """K1 (bf16) against its plain version at a flow transformer's joint
-    shapes (SD3-Medium's SD3_K1_SHAPES, Flux's FLUX_K1_SHAPES) and K2/K3 at
-    its student's (SD3_K23_SHAPES, FLUX_K23_SHAPES), with the splits their
-    rules pick at 24 heads: errors, events, device ms, the plain versions,
-    SDPA (forward; whole backward), the bound, TFLOP/s, share of the bound.
-    Returns (K1 rows, K2/K3 rows)."""
+    """K1 (bf16) against its plain version at a model's attention shapes
+    (SD3-Medium's SD3_K1_SHAPES, Flux's FLUX_K1_SHAPES, Stable Cascade's
+    CASCADE_K1_SHAPES) and K2/K3 at its student's (SD3_K23_SHAPES,
+    FLUX_K23_SHAPES, CASCADE_K23_SHAPES), with the splits their rules pick:
+    errors, events, device ms, the plain versions, SDPA (forward; whole
+    backward), the bound, TFLOP/s, share of the bound. Returns (K1 rows,
+    K2/K3 rows)."""
     k1_rows, bwd_rows = [], []
-    for name, rows, s, h, d in k1_shapes:
-        q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    for name, rows, sq, sk, h, d in map(joint_dims, k1_shapes):
+        q, k, v = (torch.randn((rows, n, h, d), generator=gen, device="cuda").to(torch.bfloat16) for n in (sq, sk, sk))
         c = check_k1(q, k, v, f"{name} rows={rows} bf16")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        bound_ms, bound_by = bound(rows, s, s, h, d, torch.bfloat16)
-        row = dict(phase="kernel", shape=name, rows=rows, sq=s, sk=s, heads=h, head_dim=d, dtype="torch.bfloat16",
+        bound_ms, bound_by = bound(rows, sq, sk, h, d, torch.bfloat16)
+        row = dict(phase="kernel", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d, dtype="torch.bfloat16",
                    **{key: val for key, val in c.items() if key not in ("out", "lse")},
                    kernel_ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 10),
                    device_ms=device_ms(lambda: fa.flash_attention_fwd(q, k, v), 5),
@@ -3009,27 +3049,27 @@ def phase_kernel_joint(gen: torch.Generator, k1_shapes=SD3_K1_SHAPES, k23_shapes
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
                    library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5),
                    bound_ms=bound_ms, bound_by=bound_by)
-        row.update(rates(4 * rows * h * s * s * d, row["device_ms"], bound_ms, row["library_device_ms"]))
+        row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], bound_ms, row["library_device_ms"]))
         emit(row)
         k1_rows.append(row)
         del q, k, v, qt, kt, vt, c
         torch.cuda.empty_cache()
-    for name, rows, s, h, d in k23_shapes:
+    for name, rows, sq, sk, h, d in map(joint_dims, k23_shapes):
         scale = d**-0.5
-        q, k, v, do = (torch.randn((rows, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(4))
+        q, k, v, do = (torch.randn((rows, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for n in (sq, sk, sk, sq))
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale)
         torch.cuda.synchronize()
-        k2_splits = fa.pick_k2_splits(rows * h, s, s, torch.bfloat16)
-        k3_splits = fa.pick_k3_splits(rows * h, s, s, torch.bfloat16)
+        k2_splits = fa.pick_k2_splits(rows * h, sq, sk, torch.bfloat16)
+        k3_splits = fa.pick_k3_splits(rows * h, sq, sk, torch.bfloat16)
         ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
                                                k3_splits, dq_splits=k2_splits)
         errs = {g: (got.float() - want).abs().max().item() for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         tols = {g: grad_tol(want, torch.bfloat16) for g, want in zip(("dq", "dk", "dv"), ref)}
         del dq, dk, dv, ref
-        row = dict(phase="kernel_bwd", shape=name, rows=rows, sq=s, sk=s, heads=h, head_dim=d,
+        row = dict(phase="kernel_bwd", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
                    padded_head_dim=d, dtype="torch.bfloat16", k2_splits=k2_splits, k3_splits=k3_splits,
                    max_abs_err=errs, tol=tols,
                    k2_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale), 10),
@@ -3040,10 +3080,10 @@ def phase_kernel_joint(gen: torch.Generator, k1_shapes=SD3_K1_SHAPES, k23_shapes
                    k3_plain_ms=cuda_ms(lambda: fa.bwd_dkv_reference(q, k, v, lse, delta, do, scale), 2),
                    library_ms=library_backward_ms(q, k, v, do, 5))
         (row["k2_bound_ms"], row["k2_bound_by"]), (row["k3_bound_ms"], row["k3_bound_by"]) = (
-            bwd_bound("dq", s, s, rows * h, d, torch.bfloat16), bwd_bound("dkv", s, s, rows * h, d, torch.bfloat16))
+            bwd_bound("dq", sq, sk, rows * h, d, torch.bfloat16), bwd_bound("dkv", sq, sk, rows * h, d, torch.bfloat16))
         for kern, mult in (("k2", 6), ("k3", 8)):
             row.update({f"{kern}_{key}": val for key, val in rates(
-                mult * rows * h * s * s * d, row[f"{kern}_device_ms"], row[f"{kern}_bound_ms"],
+                mult * rows * h * sq * sk * d, row[f"{kern}_device_ms"], row[f"{kern}_bound_ms"],
                 row["library_ms"]).items()})
         emit(row)
         bad = [g for g in errs if not errs[g] <= tols[g]]
@@ -3448,6 +3488,9 @@ FLUX = "black-forest-labs/FLUX.1-schnell"
 FLUX_TRAIN_ITERATIONS = 2  # data/config-flux.yaml's 1000, cut: 2 optimizer steps = 2 × 4 + 1 micro-steps
 FLUX_GUIDANCE = 3.5  # the requests' guidance (a dev model's input; schnell ignores it)
 FLUX_T5_LAYERS = 2  # flux_load's text_encoder_2: T5-XXL's width, its 24 layers cut to 2 in its config.json
+# flux_load's transformer/: schnell's width, its 19 + 38 blocks cut to 2 + 4 in its config.json when
+# Stable Cascade joined (flux_export and flux_quantize_checkpoint still write and read 12-24 GB files)
+FLUX_LOAD_BLOCKS = dict(num_layers=2, num_single_layers=4)
 FLUX_SHARDS = 5
 FLUX_VAE = dict(scaling_factor=0.3611, shift_factor=0.1159)  # FLUX.1's vae/config.json
 FLUX_INT8_REQUEST = ("a photo of a person", 2.0, 7, FLUX_GUIDANCE, "smoke")
@@ -3720,25 +3763,26 @@ def phase_flux_sweep(tmp: Path, slider: str) -> list:
 
 def phase_flux_load(tmp: Path, ref: dict) -> list:
     """A FLUX.1-schnell diffusers directory of seeded bf16 weights —
-    transformer/ at full width and depth (FLUX_SHARDS shards and an index),
+    transformer/ at full width with its depth cut to FLUX_LOAD_BLOCKS in its
+    config.json (FLUX_SHARDS shards and an index),
     text_encoder_2/ T5-XXL's width with its depth cut to FLUX_T5_LAYERS in
     its config.json, text_encoder/ CLIP-L under transformers names, vae/
     (16 channels, FLUX.1's scaling and shift), tokenizer_2/spiece.model and
     tokenizer/ (synthetic) — served: FluxSliderService over it (its load is
     factory.load_models_flux) holds every tensor bit-equal to its source,
-    then one 512px request decoded through the VAE (456 K1, 1 K4a). GB, write
+    then one 512px request decoded through the VAE (48 K1, 1 K4a). GB, write
     and load seconds, GB/s; the directory is deleted after."""
     root = tmp / "flux1-schnell-diffusers"
     t0 = time.time()
     t5_cfg = T5Config(num_layers=FLUX_T5_LAYERS)
+    flux_cfg = dataclasses.replace(FluxConfig.schnell(), **FLUX_LOAD_BLOCKS)
     vae_cfg = dataclasses.replace(VAEConfig.sd3(), **FLUX_VAE)
-    src = {"transformer": factory.build_module(lambda: FluxTransformer2DModel(FluxConfig.schnell()), "cuda",
-                                               torch.bfloat16, 0),
+    src = {"transformer": factory.build_module(lambda: FluxTransformer2DModel(flux_cfg), "cuda", torch.bfloat16, 0),
            "text_encoder_2": factory.build_module(lambda: T5EncoderModel(t5_cfg), "cuda", torch.bfloat16, 1),
            "text_encoder": factory.build_module(lambda: CLIPTextEncoder(CLIPTextConfig.sd15_te()), "cuda",
                                                 torch.bfloat16, 2),
            "vae": factory.build_module(lambda: AutoencoderKL(vae_cfg), "cuda", torch.bfloat16, 3)}
-    configs = {"transformer": dataclasses.asdict(FluxConfig.schnell()), "text_encoder_2": dataclasses.asdict(t5_cfg),
+    configs = {"transformer": dataclasses.asdict(flux_cfg), "text_encoder_2": dataclasses.asdict(t5_cfg),
                "text_encoder": dataclasses.asdict(CLIPTextConfig.sd15_te()), "vae": dataclasses.asdict(vae_cfg)}
     nbytes = 0
     for comp, module in src.items():
@@ -3772,14 +3816,16 @@ def phase_flux_load(tmp: Path, ref: dict) -> list:
         check_no_plain("flux_load")
         row = dict(phase="flux_load", model=f"{FLUX} (seeded random weights)",
                    layout=f"diffusers directory (transformer in {FLUX_SHARDS} shards)",
-                   reduced={"text_encoder_2.num_layers": [24, FLUX_T5_LAYERS]},
+                   reduced={"text_encoder_2.num_layers": [24, FLUX_T5_LAYERS],
+                            "transformer.num_layers": [19, FLUX_LOAD_BLOCKS["num_layers"]],
+                            "transformer.num_single_layers": [38, FLUX_LOAD_BLOCKS["num_single_layers"]]},
                    params={c: sum(p.numel() for p in m.parameters()) for c, m in got.items()},
                    gb=nbytes / 1e9, write_seconds=write_s, load_seconds=svc.load_seconds,
                    load_gb_per_second=nbytes / svc.load_seconds / 1e9, tokenizer=type(svc.tokenizers[0]).__name__,
                    vae_factors=[svc.vae.config.scaling_factor, svc.vae.config.shift_factor], bit_equal=not mismatched,
                    request_seconds=secs, image_shape=list(img.shape), launches_k1_to_k4c=launches)
         emit(row)
-        k1_call, k4a_call = per_sampler_call(FluxConfig.schnell(), 8)
+        k1_call, k4a_call = per_sampler_call(flux_cfg, 8)
         if (mismatched or launches != [k1_call, 0, 0, k4a_call, 0, 0] or img.shape != (512, 512, 3)
                 or type(svc.tokenizers[0]).__name__ != "T5SpmTokenizer"):
             raise AssertionError(f"flux_load: {len(mismatched)} tensors differ (e.g. {mismatched[:3]}); {row}")
@@ -3793,13 +3839,14 @@ def phase_flux_load(tmp: Path, ref: dict) -> list:
 
 
 def phase_flux_int8(tmp: Path, ref: dict) -> dict:
-    """Flux's int8 base: 2 optimizer steps with tpu.quantize_base (launches
-    as bf16's, finite, moved factors); one 512px request under --w8a8
-    (latency, peak, the gap to the bf16 image of flux_serve); the
-    quantize_checkpoint --family flux artifact of the weightless schnell
-    (bytes, seconds) loaded as the base, one forward bit-equal to
-    load_models_flux(..., quantize_base=True)'s, the file deleted after."""
-    paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 2, quantize_base=True, profile=False)}
+    """Flux's int8 base: 1 optimizer step (5 micro-steps; 2 before Stable
+    Cascade joined the smoke) with tpu.quantize_base (launches as bf16's,
+    finite, moved factors); one 512px request under --w8a8 (latency, peak,
+    the gap to the bf16 image of flux_serve); the quantize_checkpoint
+    --family flux artifact of the weightless schnell (bytes, seconds) loaded
+    as the base, one forward bit-equal to load_models_flux(...,
+    quantize_base=True)'s, the file deleted after."""
+    paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 1, quantize_base=True, profile=False)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     svc = FluxSliderService(FLUX, ref["slider"], device="cuda", w8a8=True)
@@ -3945,6 +3992,232 @@ def phase_flux_notrigger(tmp: Path) -> None:
         raise AssertionError(f"flux_notrigger: {row}")
 
 
+# ---------------------------------------------------------------------------
+# Stable Cascade: the Stage-C prior (32 heads of 64) and its trainer
+# ---------------------------------------------------------------------------
+
+CASCADE = "stabilityai/stable-cascade-prior"
+CASCADE_TRAIN_ITERATIONS = 3  # data/config-cascade.yaml's 2000, cut
+CASCADE_ROUTE_ITERATIONS = 2  # the route phases' steps
+CASCADE_SHARDS = 4
+# (name, rows, Sq, Sk, heads, head dim): the prior's attentions at
+# data/prompts-cascade.yaml's 512px, a 12 × 12 effnet grid (ceil(512 /
+# 42.67)): 144 queries over the 144 image tokens + 77 text + 4 pooled + 4
+# image slots at level 0, 36 over 36 + 85 after the stride-2 conv at level
+# 1; rows 2 (the warm-up's and the student's CFG pair) and 4 (the teacher).
+# K2/K3 at the student's rows 2.
+CASCADE_K1_SHAPES = [
+    ("cascade_l0_144x229", 2, 144, 229, 32, 64),
+    ("cascade_l0_144x229", 4, 144, 229, 32, 64),
+    ("cascade_l1_36x121", 2, 36, 121, 32, 64),
+    ("cascade_l1_36x121", 4, 36, 121, 32, 64),
+]
+CASCADE_K23_SHAPES = [("cascade_l0_144x229", 2, 144, 229, 32, 64), ("cascade_l1_36x121", 2, 36, 121, 32, 64)]
+
+
+def tiny_cascade_prior() -> StableCascadeUNet:
+    """The tiny prior (CPU, fp32) from seed 5, its GlobalResponseNorms'
+    gamma and beta drawn too (the flax default leaves them 0: an identity)."""
+    prior = factory.build_module(lambda: StableCascadeUNet(CascadeConfig.tiny()), "cpu", torch.float32, 5)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, p in prior.named_parameters():
+            if name.endswith(("gamma", "beta")):
+                p.copy_(0.5 * torch.randn(p.shape, generator=g))
+    return prior
+
+
+def phase_cascade_parity() -> None:
+    """The tiny prior, fp32, card (K1 in every attention; K2/K3 in the
+    student's backward) against the CPU with the same weights, factors,
+    inputs and draws: one forward on the odd 5 × 5 grid (the up path's
+    bilinear resize), then one ESD step on the default route (the merged
+    student, its layers checkpointed; euler_a, T 3) with exact launches."""
+    cpu = tiny_cascade_prior()
+    cfg = cpu.config
+    gpu = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(2)
+    args = (torch.randn((2, 16, 5, 5), generator=g), torch.rand(2, generator=g), torch.randn((2, 77, 16), generator=g),
+            torch.randn((2, 1, 16), generator=g), torch.randn((2, 1, 16), generator=g))
+    reset_counts()
+    with torch.no_grad():
+        got = gpu(*(a.to("cuda") for a in args)).cpu()
+    launches = list(counts())
+    check_no_plain("cascade_parity forward")
+    with torch.no_grad():
+        err = (got - cpu(*args)).abs().max().item()
+    want_launches = per_step_launches(cfg, 1, 0)
+    emit(dict(phase="cascade_parity", what="forward_5x5", model="tiny Stable Cascade prior", max_abs_err=err,
+              tol=1e-3, launches_k1_to_k4c=launches, expected_launches=want_launches))
+    if not err <= 1e-3 or launches != want_launches:
+        raise AssertionError(f"tiny prior on the card: error {err}, launches {launches}")
+
+    sites = lora.create_sites(cpu, rank=2, target_replace=["Attention"])
+    lp = lora.init_lora_params(sites, generator=g)
+    for leaf in lp.values():
+        leaf["up"] = torch.randn(leaf["up"].shape, generator=g) * 0.05
+    bank = esd.PromptBank(torch.randn((1, 5, 77, 16), generator=g), [4.0], [1.0],
+                          torch.randn((1, 5, 1, 16), generator=g))
+    empty_text, empty_pooled = torch.randn((77, 16), generator=g), torch.randn((1, 16), generator=g)
+    steps = 3
+    draw = esd_cascade.Draw(0, torch.randn((1, 16, 5, 5), generator=g),
+                            torch.randn((steps - 1, 1, 16, 5, 5), generator=g))
+    sched = factory.create_noise_scheduler("euler_a")
+
+    def step(model, device):
+        lp_d = {n: {k: t.to(device).clone().requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10))
+        ccfg = esd_cascade.CascadeESDConfig(max_denoising_steps=steps, height=200, width=200, remat=True)
+        st = esd_cascade.make_cascade_esd_train_step(model, sites, lp_d, sched, sched.set_timesteps(steps), opt, ccfg,
+                                                     empty_text.to(device), empty_pooled.to(device), 16)
+        bank_d = esd.PromptBank(bank.text.to(device), bank.guidance, bank.sign, bank.pooled.to(device))
+        d = esd_cascade.Draw(0, draw.latents0.to(device), draw.warm_noise.to(device))
+        m = st(opt.init(flat_params(sites, lp_d)), bank_d, draws=[d])
+        return float(m["loss"]), lora.state_dict_numpy(sites, lp_d)
+
+    reset_counts()
+    got = step(gpu, "cuda")
+    launches = list(counts())
+    check_no_plain("cascade_parity ESD step")
+    want = step(cpu, "cpu")
+    want_launches = per_step_launches(cfg, steps - 1 + 3, 1)
+    loss_err = abs(got[0] - want[0])
+    factor_err = max(float(np.abs(got[1][k] - want[1][k]).max()) for k in want[1])
+    emit(dict(phase="cascade_parity", what="esd_step", model="tiny Stable Cascade prior", max_denoising_steps=steps,
+              loss_card=got[0], loss_cpu=want[0], loss_abs_err=loss_err, factor_max_abs_err=factor_err, tol=1e-3,
+              launches_k1_to_k4c=launches, expected_launches=want_launches))
+    if not (loss_err <= 1e-3 * max(1.0, abs(want[0])) and factor_err <= 1e-3) or launches != want_launches:
+        raise AssertionError(f"tiny Cascade ESD step on the card: loss {loss_err}, factors {factor_err}, "
+                             f"launches {launches} (expected {want_launches})")
+
+
+def phase_cascade_load(tmp: Path) -> Path:
+    """A full-width Stable Cascade diffusers directory of seeded random bf16
+    weights: prior/ (CascadeConfig.prior(), CASCADE_SHARDS shards and an
+    index), text_encoder/ (CLIP-G with its projection, transformers names),
+    config.json files and tokenizer/ (the synthetic BPE files); then
+    factory.load_models_cascade(dir, "euler_a", bf16, "cuda"), every tensor
+    bit-equal to its source; GB and GB/s."""
+    root = tmp / "stable-cascade-diffusers"
+    t0 = time.time()
+    te_cfg = CLIPTextConfig.sdxl_te2()
+    src = {"text_encoder": factory.build_module(lambda: CLIPTextEncoder(te_cfg), "cuda", torch.bfloat16, 0),
+           "prior": factory.build_module(lambda: StableCascadeUNet(CascadeConfig.prior()), "cuda", torch.bfloat16, 1)}
+    nbytes = write_component(root, "prior", src["prior"].state_dict(), dataclasses.asdict(CascadeConfig.prior()),
+                             CASCADE_SHARDS)
+    nbytes += write_component(root, "text_encoder", clip_transformers_names(src["text_encoder"].state_dict()),
+                              dataclasses.asdict(te_cfg))
+    prompts = [p for f in sorted((REPO / "data").glob("prompts*.yaml"))
+               for e in yaml_subset.load_file(str(f)) or [] for k, p in e.items()
+               if k in ("target", "positive", "negative", "neutral", "unconditional") and isinstance(p, str)]
+    write_synthetic_bpe_files(str(root / "tokenizer"), prompts)
+    write_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tok, te, prior, sched = factory.load_models_cascade(str(root), "euler_a", torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    got = {"text_encoder": te.model, "prior": prior}
+    mismatched = [f"{comp}.{k}" for comp, m in got.items() for k, v in m.state_dict().items()
+                  if v.dtype != torch.bfloat16 or not torch.equal(v, src[comp].state_dict()[k])]
+    emit(dict(phase="cascade_load", model=f"{CASCADE} (seeded random weights)",
+              layout=f"diffusers directory (prior in {CASCADE_SHARDS} shards)",
+              params={c: sum(p.numel() for p in m.parameters()) for c, m in got.items()},
+              tensors=sum(len(m.state_dict()) for m in src.values()), gb=nbytes / 1e9, write_seconds=write_s,
+              load_seconds=load_s, load_gb_per_second=nbytes / load_s / 1e9, tokenizer=type(tok).__name__,
+              scheduler=sched.kind, bit_equal=not mismatched))
+    if mismatched or prior.config != CascadeConfig.prior() or type(tok).__name__ == "HashTokenizer":
+        raise AssertionError(f"cascade_load: {len(mismatched)} tensors differ from their source "
+                             f"(e.g. {mismatched[:3]})")
+    del src, got, te, prior
+    gc.collect()
+    torch.cuda.empty_cache()
+    return root
+
+
+def phase_cascade_train(tmp: Path, cascade_dir, what: str = "cascade_train",
+                        iterations: int = CASCADE_TRAIN_ITERATIONS, yaml_edit=None, peft_type: str = "lora",
+                        profile: bool = True) -> list:
+    """Full-width Stable Cascade ESD training through
+    cli/train_lora_cascade.train from data/config-cascade.yaml +
+    data/prompts-cascade.yaml (512px, euler_a, T 20, bf16, c3lier rank 4,
+    batch 1; only train.iterations, save.path, the model — the cascade_load
+    directory, or the seeded weightless prior of the YAML's name where
+    ``cascade_dir`` is None — and ``yaml_edit``'s route overridden): per
+    step and sample K1 64·(19 + 3) (the warm-up, teacher, student and its
+    recompute; 64·(19 + 3·S) with share_warmup) and K2 = K3 = 64; steps/s
+    after the first, first-step and set-up seconds, peak memory, the saved
+    .pt keys (256 sites, JAX's names), moved up factors; one more step
+    profiled."""
+    cfg, prompts = train_config(tmp / what, "config-cascade.yaml", iterations)
+    if cascade_dir is not None:
+        cfg.pretrained_model.name_or_path = str(cascade_dir)
+    if yaml_edit is not None:
+        yaml_edit(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = train_lora_cascade.train(cfg, prompts, rank=cfg.network.rank, peft_type=peft_type, device="cuda")
+    wall = time.time() - t0
+    launches = list(counts())
+    check_no_plain(what)
+    samples = max(cfg.tpu.samples_per_step, 1)
+    warm = cfg.train.max_denoising_steps - 1
+    forwards = warm + 3 * samples if cfg.tpu.share_warmup else samples * (warm + 3)
+    prior_cfg = CascadeConfig.prior()
+    want = per_step_launches(prior_cfg, forwards * iterations, samples * iterations)
+    saved = torch.load(str(Path(cfg.save.path) / f"{cfg.save.name}_last.pt"))
+    with torch.device("meta"):
+        ref_sites = lora.create_sites(StableCascadeUNet(prior_cfg), rank=cfg.network.rank,
+                                      target_replace=lora.DEFAULT_TARGET_REPLACE + lora.UNET_TARGET_REPLACE_MODULE_CONV,
+                                      train_method=cfg.network.training_method)
+    want_keys = {f"{s.lora_name}.{key}" for s in ref_sites for key in ("lora_down.weight", "lora_up.weight", "alpha")}
+    if peft_type == "dora":
+        want_keys |= {f"{s.lora_name}.dora_scale" for s in ref_sites}
+    keys_ok = set(saved) == want_keys and all(v.dtype == torch.bfloat16 for v in saved.values())
+    ups_zero = sum(not leaf["up"].detach().abs().max().item() > 0 for leaf in res.lora_params.values())
+    source = "the cascade_load directory" if cascade_dir else "seeded random weights"
+    row = dict(phase=what, model=f"{CASCADE} ({source})",
+               image_size=prompts[0].resolution, batch_size=prompts[0].batch_size,
+               noise_scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
+               precision=cfg.train.precision, peft_type=peft_type, student_overlay=cfg.tpu.student_overlay,
+               w8a8_warmup=cfg.tpu.w8a8_warmup, samples_per_step=samples, share_warmup=cfg.tpu.share_warmup,
+               lora_sites=len(res.sites), iterations=iterations, losses=res.losses,
+               grad_norms=[r["grad_norm"] for r in res.metrics], steps_per_sec_after_first=res.steps_per_sec,
+               first_step_seconds=res.first_step_seconds, setup_seconds=res.setup_seconds, wall_seconds=wall,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, launches_k1_to_k4c=launches,
+               expected_launches=want, saved_keys=len(saved), saved_keys_match_reference=keys_ok,
+               saved_sites=len(ref_sites), up_factors_still_zero=ups_zero)
+    emit(row)
+    if (not all(np.isfinite(res.losses)) or len(res.losses) != iterations or ups_zero or not keys_ok
+            or len(res.sites) != 256 or launches != want):
+        raise AssertionError(f"{what}: {row}")
+    if profile:
+        reset_counts()
+        prof = device_profile(res.next_step)
+        emit(dict(phase=f"{what}_profile", launches_k1_to_k4c=list(counts()), **prof))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cascade_routes(tmp: Path) -> dict:
+    """The Cascade trainer's other routes, CASCADE_ROUTE_ITERATIONS steps
+    each on the seeded weightless prior: the wuerstchen scheduler, DoRA (the
+    merged student), the dual-tree W8A8 warm-up, the overlay student, and
+    samples_per_step 2 with share_warmup. Returns each route's launches."""
+    routes = {
+        "cascade_wuerstchen": (lambda c: setattr(c.train, "noise_scheduler", "wuerstchen"), "lora"),
+        "cascade_dora": (None, "dora"),
+        "cascade_w8a8": (functools.partial(set_tpu, w8a8_warmup=True), "lora"),
+        "cascade_overlay": (functools.partial(set_tpu, student_overlay=True), "lora"),
+        "cascade_samples2_share": (functools.partial(set_tpu, samples_per_step=2, share_warmup=True), "lora"),
+    }
+    return {what: phase_cascade_train(tmp, None, what, CASCADE_ROUTE_ITERATIONS, edit, peft, profile=False)
+            for what, (edit, peft) in routes.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -3968,11 +4241,17 @@ def main() -> int:
     sd3_k1_rows, sd3_bwd_rows = phase_kernel_joint(gen)
     flux_k1_rows, flux_bwd_rows = phase_kernel_joint(gen, FLUX_K1_SHAPES, FLUX_K23_SHAPES)
     flux_k1_err, flux_k2_err, flux_k3_err = phase_kernel_flux_checks(gen)
+    t_cascade = time.time()
+    cascade_k1_rows, cascade_bwd_rows = phase_kernel_joint(gen, CASCADE_K1_SHAPES, CASCADE_K23_SHAPES)
+    cascade_seconds = time.time() - t_cascade  # the Cascade phases' time: the kernel rows, the parity, the paths
     phase_parity()
     phase_train_parity()
     phase_sd_train_parity()
     phase_sd3_parity()
     phase_flux_parity()
+    t_cascade = time.time()
+    phase_cascade_parity()
+    cascade_seconds += time.time() - t_cascade
     paths = {}  # each path's launches of K1..K4c, counted from 0 just before it
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -4033,7 +4312,7 @@ def main() -> int:
         t_new = time.time()
         sd_dir = phase_load(tmp)
         paths["sd_serve"] = served(tmp, "sd_serve", lambda p: SD1SliderService(
-            str(sd_dir), p, image_size=512, steps=50, device="cuda", batch_window_ms=50.0), UNetConfig.sd15(),
+            str(sd_dir), p, image_size=512, steps=SD1_STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sd15(),
             f"{SD15} (the load phase's directory)")
         paths["sd2_serve"] = served(tmp, "sd2_serve", lambda p: SD1SliderService(
             SD21, p, image_size=512, steps=SD2_STEPS, v2=True, v_pred=True, device="cuda"), UNetConfig.sd21(),
@@ -4071,6 +4350,13 @@ def main() -> int:
         phase_flux_export(tmp, flux_ref["slider"])
         phase_flux_notrigger(tmp)
         emit(dict(phase="flux_phases", seconds=time.time() - t_flux))
+        t_cascade = time.time()
+        cascade_dir = phase_cascade_load(tmp)
+        paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir)
+        shutil.rmtree(cascade_dir)
+        paths.update(phase_cascade_routes(tmp))
+        emit(dict(phase="cascade_phases", seconds=time.time() - t_cascade + cascade_seconds,
+                  kernel_and_parity_seconds=cascade_seconds))
 
     # the paths that run each kernel: every one launched it, and SD2.1 (head
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
@@ -4091,11 +4377,14 @@ def main() -> int:
     # Flux: every attention is K1 (K2/K3 in training); only flux_load decodes (K4a)
     flux_train = ("flux_train", "flux_int8_train")
     flux_inference = ("flux_serve", "flux_sweep", "flux_load", "flux_int8_serve", "flux_quantize_checkpoint")
+    # Stable Cascade: every attention of the prior is K1 (d 64), K2/K3 in training; no decode
+    cascade_train = ("cascade_train", "cascade_wuerstchen", "cascade_dora", "cascade_w8a8", "cascade_overlay",
+                     "cascade_samples2_share")
     runs_on = {
         "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference
-              + flux_train + flux_inference,
-        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train,
-        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train,
+              + flux_train + flux_inference + cascade_train,
+        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train,
+        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train,
         "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode + ("flux_load",),
         "K4b": sd15_train,
         "K4c": sd15_train,
@@ -4109,6 +4398,8 @@ def main() -> int:
         raise AssertionError(f"an SD3 path launched a k-grid kernel in the MMDiT: {paths}")
     if any(paths[p][3] or paths[p][4] or paths[p][5] for p in flux_train + flux_inference if p != "flux_load"):
         raise AssertionError(f"a Flux path launched a k-grid kernel in the transformer: {paths}")
+    if any(paths[p][3] or paths[p][4] or paths[p][5] for p in cascade_train):
+        raise AssertionError(f"a Stable Cascade path launched a k-grid kernel: {paths}")
     if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5]
            for p in inference + ("serve",) + sd3_inference + flux_inference):
         raise AssertionError(f"an inference path launched a backward kernel: {paths}")
@@ -4133,8 +4424,8 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:62",
             **launches("K1"),
-            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows + sd3_k1_rows + flux_k1_rows]
-                            + k1_sd_errors + [flux_k1_err]),
+            max_abs_err=max([r["max_abs_err"] for r in k1_rows + k1_train_rows + sd3_k1_rows + flux_k1_rows
+                             + cascade_k1_rows] + k1_sd_errors + [flux_k1_err]),
             ms=main_row["kernel_ms"],
             device_ms=main_row["device_ms"],
             plain_ms=main_row["plain_ms"],
@@ -4153,6 +4444,10 @@ def main() -> int:
             flux=[{k: r[k] for k in ("shape", "rows", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                                      "library_device_ms", "tflops", "share_of_bound", "over_library", "max_abs_err")}
                   for r in flux_k1_rows],
+            cascade=[{k: r[k] for k in ("shape", "rows", "sq", "sk", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                                        "library_ms", "library_device_ms", "tflops", "share_of_bound", "over_library",
+                                        "max_abs_err")}
+                     for r in cascade_k1_rows],
         ),
         dict(
             name="flash_attention_bwd_dq",
@@ -4160,7 +4455,8 @@ def main() -> int:
             source="sliders_conceptmod_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:107",
             **launches("K2"),
-            max_abs_err=max([r["max_abs_err"]["dq"] for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows] + [flux_k2_err]),
+            max_abs_err=max([r["max_abs_err"]["dq"] for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows + cascade_bwd_rows]
+                            + [flux_k2_err]),
             ms=bwd_main["k2_ms"],
             device_ms=bwd_main["k2_device_ms"],
             plain_ms=bwd_main["k2_plain_ms"],
@@ -4180,6 +4476,10 @@ def main() -> int:
             flux=[{k: r[k] for k in ("shape", "rows", "k2_splits", "k2_ms", "k2_device_ms", "k2_plain_ms",
                                      "k2_bound_ms", "library_ms", "k2_tflops", "k2_share_of_bound", "k2_over_library")}
                   for r in flux_bwd_rows],
+            cascade=[{k: r[k] for k in ("shape", "rows", "sq", "sk", "k2_splits", "k2_ms", "k2_device_ms",
+                                        "k2_plain_ms", "k2_bound_ms", "library_ms", "k2_tflops",
+                                        "k2_share_of_bound", "k2_over_library", "max_abs_err")}
+                     for r in cascade_bwd_rows],
         ),
         dict(
             name="flash_attention_bwd_dkv",
@@ -4188,7 +4488,7 @@ def main() -> int:
             replaces="sliders_conceptmod_tpu/ops/flash_attention.py:139",
             **launches("K3"),
             max_abs_err=max([max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
-                             for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows] + [flux_k3_err]),
+                             for r in bwd_rows + sd3_bwd_rows + flux_bwd_rows + cascade_bwd_rows] + [flux_k3_err]),
             ms=bwd_main["k3_ms"],
             device_ms=bwd_main["k3_device_ms"],
             plain_ms=bwd_main["k3_plain_ms"],
@@ -4207,6 +4507,10 @@ def main() -> int:
             flux=[{k: r[k] for k in ("shape", "rows", "k3_splits", "k3_ms", "k3_device_ms", "k3_plain_ms",
                                      "k3_bound_ms", "library_ms", "k3_tflops", "k3_share_of_bound", "k3_over_library")}
                   for r in flux_bwd_rows],
+            cascade=[{k: r[k] for k in ("shape", "rows", "sq", "sk", "k3_splits", "k3_ms", "k3_device_ms",
+                                        "k3_plain_ms", "k3_bound_ms", "library_ms", "k3_tflops",
+                                        "k3_share_of_bound", "k3_over_library", "max_abs_err")}
+                     for r in cascade_bwd_rows],
         ),
         dict(
             name="flash_attention_kgrid_fwd",

@@ -7,6 +7,11 @@ the name before it), and its leaves convert by the layer type:
 
 * Dense ``kernel [in, out]``          → ``Linear.weight [out, in]``
 * Conv ``kernel [kh, kw, in, out]``   → ``Conv2d.weight [out, in, kh, kw]``
+  (a depthwise conv's ``[kh, kw, 1, C]`` → ``[C, 1, kh, kw]``)
+* ConvTranspose ``kernel [kh, kw, in, out]``, spatially flipped against
+  torch's → ``ConvTranspose2d.weight [in, out, kh, kw]`` (the flip undone)
+* ``gamma`` / ``beta`` (Stable Cascade's GlobalResponseNorm, ``(1, 1, 1, C)``
+  on both sides) → copied through
 * ``scale``                           → norm ``weight``
 * ``embedding``                       → ``Embedding.weight``
 * ``bias``                            → ``bias``
@@ -61,12 +66,14 @@ def _tensor(x, device) -> torch.Tensor:
 def _convert(mod: nn.Module, pname: str, node: Mapping, device) -> Tuple[str, torch.Tensor]:
     """(JAX leaf name, tensor in the torch layout on ``device``) for one
     torch parameter."""
-    if pname == "bias":
-        return "bias", _tensor(node["bias"], device)
+    if pname in ("bias", "gamma", "beta"):
+        return pname, _tensor(node[pname], device)
     if isinstance(mod, nn.Linear):
         return "kernel", _tensor(node["kernel"], device).T
     if isinstance(mod, nn.Conv2d):
         return "kernel", _tensor(node["kernel"], device).permute(3, 2, 0, 1)
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "kernel", _tensor(node["kernel"], device).flip(0, 1).permute(2, 3, 0, 1)
     if isinstance(mod, nn.Embedding):
         return "embedding", _tensor(node["embedding"], device)
     if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
@@ -130,8 +137,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> List[Tuple[str, ...]]:
 def _jax_leaves(mod: nn.Module):
     """(JAX leaf name, tensor in the JAX layout) of a module's own state."""
     for pname, t in _state(mod):
-        if pname == "bias":
-            yield "bias", t
+        if pname in ("bias", "gamma", "beta"):
+            yield pname, t
         elif pname == "weight_q":
             yield "kernel", t.T
         elif pname == "scale" and isinstance(mod, QuantLinear):
@@ -140,6 +147,8 @@ def _jax_leaves(mod: nn.Module):
             yield "kernel", t.T
         elif isinstance(mod, nn.Conv2d):
             yield "kernel", t.permute(2, 3, 1, 0)
+        elif isinstance(mod, nn.ConvTranspose2d):
+            yield "kernel", t.permute(2, 3, 0, 1).flip(0, 1)
         elif isinstance(mod, nn.Embedding):
             yield "embedding", t
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):

@@ -27,9 +27,10 @@ layout of ``sd3_medium*.safetensors``) gives ``{"transformer"[, "vae",
 the towers under ``text_encoders.clip_l/clip_g.transformer.`` in the
 transformers layout; a T5 tower, which SD3 here does without, is skipped).
 A BFL Flux file (``double_blocks.…`` / ``single_blocks.…`` at the top level)
-gives ``{"transformer"}`` (:func:`convert_flux_bfl_state_dict`). Stable
-Cascade checkpoints raise ``NotImplementedError`` (ROADMAP.md queue 1, item
-10).
+gives ``{"transformer"}`` (:func:`convert_flux_bfl_state_dict`). A Stable
+Cascade single file raises ``NotImplementedError``: the JAX package has no
+single-file loader for it either, and the prior loads from a diffusers
+directory's ``prior/`` (``models/factory.py::load_models_cascade``).
 """
 
 from __future__ import annotations
@@ -306,9 +307,14 @@ def convert_flux_bfl_state_dict(sd: StateDict) -> StateDict:
     return out
 
 
+CASCADE_SINGLE_FILE_REFUSAL = (
+    "Stable Cascade single files are not loaded: the JAX package has no single-file loader for Stable Cascade "
+    "either; load the prior from a diffusers directory's prior/ (load_models_cascade)")
+
+
 def _refuse_other_families(sd: StateDict) -> None:
     if any(k.startswith(("clip_txt_mapper.", "effnet_mapper.", "clip_txt_pooled_mapper.")) for k in sd):
-        raise NotImplementedError("Stable Cascade checkpoints are not ported yet (ROADMAP.md queue 1, item 10)")
+        raise NotImplementedError(CASCADE_SINGLE_FILE_REFUSAL)
 
 
 def convert_ldm_checkpoint(sd: StateDict) -> Dict[str, StateDict]:

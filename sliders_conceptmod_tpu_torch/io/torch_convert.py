@@ -6,13 +6,14 @@ directory holds ``unet/``, ``vae/``, ``text_encoder/`` and (SDXL)
 ``.safetensors`` file or as shards listed in a ``*.safetensors.index.json``.
 The weights are read with the port's own reader (``io/safetensors.py``).
 
-The port's UNet, SD3 MMDiT and Flux transformer (``transformer/``) and VAE
-use diffusers' module names, so their state dicts load by name, as does
-Flux's T5 tower (``text_encoder_2/``, transformers' names, the tied
-``encoder.embed_tokens`` dropped); the VAE attention's older diffusers names, which the
-SD1.x-era directories still carry, are renamed (``query/key/value/proj_attn``
-→ ``to_q/to_k/to_v/to_out.0``). The CLIP
-towers come in the transformers layout and map onto
+The port's UNet, SD3 MMDiT, Flux transformer (``transformer/``), Stable
+Cascade prior (``prior/``) and VAE use diffusers' module names, so their
+state dicts load by name, as does Flux's T5 tower (``text_encoder_2/``,
+transformers' names, the tied ``encoder.embed_tokens`` dropped); the VAE
+attention's older diffusers names, which the SD1.x-era directories still
+carry, are renamed (``query/key/value/proj_attn`` →
+``to_q/to_k/to_v/to_out.0``). The CLIP towers come in the transformers
+layout and map onto
 ``models/clip.py::CLIPTextEncoder``:
 
 * ``text_model.embeddings.{token,position}_embedding.weight`` →
@@ -39,6 +40,7 @@ from torch import nn
 
 from sliders_conceptmod_tpu_torch.adapters.quant import QuantLinear
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file
+from sliders_conceptmod_tpu_torch.models.cascade import CascadeConfig
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig
 from sliders_conceptmod_tpu_torch.models.flux import FluxConfig
 from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig
@@ -247,3 +249,23 @@ def load_t5_state(model_dir: str, component: str = "text_encoder_2") -> Tuple[St
     widths, as the JAX loader reads them)."""
     sd, cfg = read_component(model_dir, component)
     return convert_t5_state_dict(sd), T5Config.from_json(cfg)
+
+
+def load_cascade_prior_state(model_dir: str) -> Tuple[StateDict, CascadeConfig]:
+    """Stable Cascade's ``prior/`` (diffusers ``StableCascadeUNet``, sharded
+    or not): diffusers' names are the port's, so the state dict is returned
+    as stored, and :func:`load_state` places every key or refuses it. The
+    architecture is always ``CascadeConfig.prior()``, as the JAX loader
+    builds it; a ``config.json`` that declares other widths or depths (the
+    1B "lite" prior) raises, naming the first key that differs."""
+    sd, cfg = read_component(model_dir, "prior")
+    prior = CascadeConfig.prior()
+    for f in dataclasses.fields(CascadeConfig):
+        if cfg.get(f.name) is None:
+            continue
+        want = getattr(prior, f.name)
+        got = tuple(cfg[f.name]) if isinstance(cfg[f.name], list) else cfg[f.name]
+        if got != want:
+            raise ValueError(f"{model_dir}/prior/config.json: {f.name} is {cfg[f.name]!r}, but the prior "
+                             f"this port builds (CascadeConfig.prior(), stable-cascade-prior) has {want!r}")
+    return sd, prior

@@ -1,8 +1,9 @@
 """Model loading + prompt encoding — counterpart of
-``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2, SDXL, SD3 and
-Flux families (SD3: :func:`load_models_sd3` and :func:`encode_prompts_sd3`;
-Flux: :func:`load_models_flux` and :class:`FluxEncoder`; their docstrings
-give their sources).
+``sliders_conceptmod_tpu/models/factory.py`` for the SD1/SD2, SDXL, SD3,
+Flux and Stable Cascade families (SD3: :func:`load_models_sd3` and
+:func:`encode_prompts_sd3`; Flux: :func:`load_models_flux` and
+:class:`FluxEncoder`; Stable Cascade: :func:`load_models_cascade` and
+:func:`encode_prompts_cascade`; their docstrings give their sources).
 
 ``load_models`` (SD1/SD2) and ``load_models_xl`` build the weightless
 families, chosen from the name as the JAX factory's ``_family_from_path``
@@ -17,7 +18,8 @@ uses, so random-weight models stay finite the same way:
 
 * Linear / Conv kernels: lecun-normal — a normal truncated at ±2σ, rescaled
   to std ``1/sqrt(fan_in)`` (``fan_in`` = in · kh · kw);
-* biases zero, norm scales one;
+* ConvTranspose kernels: the same over in · kh · kw;
+* biases zero, norm scales one, GlobalResponseNorm's gamma and beta zero;
 * embeddings: normal with std ``1/sqrt(features)``.
 
 Real weights load as the JAX factory loads them:
@@ -67,6 +69,7 @@ from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_sched
 from sliders_conceptmod_tpu_torch.io import quant_cache
 from sliders_conceptmod_tpu_torch.io import torch_convert as tc
 from sliders_conceptmod_tpu_torch.io.jax_params import load_jax_params
+from sliders_conceptmod_tpu_torch.models.cascade import CascadeConfig, GlobalResponseNorm, StableCascadeUNet
 from sliders_conceptmod_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPTextEncoder,
@@ -124,6 +127,10 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
                 p.copy_(w)
             elif isinstance(mod, (nn.Linear, nn.Conv2d)):
                 p.copy_(_lecun_normal(p.shape, p.device, generator))
+            elif isinstance(mod, nn.ConvTranspose2d):  # [in, out, kh, kw]: fan-in over in·kh·kw
+                p.copy_(_lecun_normal(p.transpose(0, 1).shape, p.device, generator).transpose(0, 1))
+            elif isinstance(mod, GlobalResponseNorm):
+                p.zero_()
             else:
                 raise TypeError(f"no initialiser for {name}.{pname} ({type(mod).__name__})")
 
@@ -716,3 +723,65 @@ def flux_vae_scale(name_or_path: str) -> int:
     """Pixels per latent: 8, or 2 for the tiny family (the JAX Flux
     entry points' ``vae_scale``)."""
     return 2 if "tiny" in str(name_or_path).lower() else 8
+
+
+def is_cascade_dir(name_or_path: str) -> bool:
+    return os.path.isdir(os.path.join(str(name_or_path), "prior"))
+
+
+def load_models_cascade(
+    name_or_path: str,
+    scheduler_name: str = "euler_a",
+    weight_dtype: torch.dtype = torch.float32,
+    device: str = "cuda",
+):
+    """Stable Cascade (the JAX ``load_models_cascade``): ``(tokenizer,
+    text encoder, prior, scheduler)`` — CLIP-G (bigG, its 1280-dim
+    projection) and the Stage-C prior. Sources:
+
+    * a diffusers directory (one holding ``prior/``): the prior from it
+      (``io/torch_convert.py::load_cascade_prior_state``, always
+      ``CascadeConfig.prior()``), ``text_encoder/`` and ``tokenizer/`` when
+      it has them;
+    * a ``.safetensors`` / ``.ckpt`` file raises ``NotImplementedError``
+      (JAX has no single-file loader for Stable Cascade; it builds the
+      weightless prior for one);
+    * any other name: the weightless family at the prior's widths (a name
+      containing "tiny": ``CascadeConfig.tiny()`` with the tiny CLIP tower,
+      hidden and projection 16), the tower from seed 0 and the prior from
+      seed 1.
+
+    ``scheduler_name="wuerstchen"`` gives the ratio-space
+    :class:`~sliders_conceptmod_tpu_torch.diffusion.wuerstchen.WuerstchenScheduler`;
+    any other name goes through ``create_noise_scheduler``."""
+    from sliders_conceptmod_tpu_torch.diffusion.wuerstchen import WuerstchenScheduler
+
+    p = str(name_or_path)
+    if is_single_file(p):
+        from sliders_conceptmod_tpu_torch.io.ldm_convert import CASCADE_SINGLE_FILE_REFUSAL
+
+        raise NotImplementedError(CASCADE_SINGLE_FILE_REFUSAL)
+    device = _check_target(p, device, marker="prior")
+    tiny = "tiny" in p.lower()
+    te_cfg = CLIPTextConfig.tiny(hidden_size=16, projection_dim=16) if tiny else CLIPTextConfig.sdxl_te2()
+    tok = _tokenizer(p, "tokenizer")
+    te = _text_encoder(p, "text_encoder", te_cfg, device, weight_dtype, 0, tok)
+    if is_cascade_dir(p):
+        sd, cfg = tc.load_cascade_prior_state(p)
+        prior = module_from_state(lambda: StableCascadeUNet(cfg), sd, device, weight_dtype, f"{p}/prior")
+    else:
+        cfg = CascadeConfig.tiny() if tiny else CascadeConfig.prior()
+        prior = build_module(lambda: StableCascadeUNet(cfg), device, weight_dtype, 1)
+    scheduler = WuerstchenScheduler() if scheduler_name == "wuerstchen" else create_noise_scheduler(scheduler_name)
+    return tok, te, prior, scheduler
+
+
+@torch.inference_mode()
+def encode_prompts_cascade(te: TextEncoderBundle, prompts: List[str]):
+    """Stable Cascade's prompt encoding (the reference's
+    ``encode_prompt_cascade``): ``(hidden_states[-1] [B, 77, D]`` — the last
+    layer's output before the final LayerNorm —, the projected pooled
+    embedding ``[B, 1, P])``."""
+    out = te.encode(prompts)
+    pooled = out.projected if out.projected is not None else out.pooled_output
+    return out.hidden_states[-1], pooled[:, None, :]

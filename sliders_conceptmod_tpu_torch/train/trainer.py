@@ -91,7 +91,8 @@ def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type
     if peft_type not in ("lora", "dora"):
         raise ValueError(f"peft_type must be 'lora' or 'dora', got {peft_type!r}")
     if tpu.mesh_model != 1 or tpu.mesh_data not in (-1, 1) or (tpu.num_processes or 1) > 1 or tpu.sequence_parallel:
-        raise NotImplementedError(f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, parallelism)")
+        raise NotImplementedError(
+            f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, item 12: parallelism)")
 
 
 def resolve_int8_routes(tpu_cfg, peft_type: str):

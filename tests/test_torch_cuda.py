@@ -3,7 +3,9 @@ views (dO from autograd included), the dispatch's head-dim padding and
 routes, gradients through the autograd Functions, K4a's key-range and K4c's
 query-range splits, determinism, input checks and the launch counts; SD3's
 joint lengths (K1 at 1357 and 4429, K2/K3 at 1357, 24 heads of 64) and the
-tiny MMDiT and SD3 sampler against the CPU. Marked
+tiny MMDiT and SD3 sampler against the CPU; Stable Cascade's prior
+attentions (K1 at 144×229 and 36×121, rows 2 and 4; K2/K3 at rows 2; 32
+heads of 64) and the tiny prior and an ESD step against the CPU. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -1221,3 +1223,92 @@ def test_tiny_flux_esd_step_on_the_card_matches_the_cpu(gen):  # gen: skips with
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3 * max(1.0, abs(out["cpu"][0]))
     for k, v in out["cpu"][1].items():
         assert abs(out["cuda"][1][k] - v).max() <= 1e-3, k
+
+
+# ---------------------------------------------------------------------------
+# Stable Cascade: the prior's attentions at 512px, 32 heads of 64
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk): level 0 of the 12 × 12 effnet grid (144 image tokens + 77 text +
+# 4 pooled + 4 image slots as keys) and level 1 after the stride-2 conv
+CASCADE_ATTENTION = [(144, 229), (36, 121)]
+
+
+@pytest.mark.parametrize("sq,sk", CASCADE_ATTENTION)
+@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_at_cascade_lengths(gen, sq, sk, rows, dtype):
+    """K1 where both lengths are ragged and Sq ≠ Sk at small sizes (36
+    queries: under one tile and not a multiple of 16; 144: a last tile of 16
+    rows), H 32, d 64, against its plain version, at the CFG pair's rows 2
+    and the teacher's 4."""
+    q = _rand(gen, (rows, sq, 32, 64), dtype, scale=3.0)
+    k, v = (_rand(gen, (rows, sk, 32, 64), dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), 64**-0.5)
+    tol = 1e-4 if dtype == torch.float32 else _fwd_tol(ref)
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * max(1.0, ref_lse.abs().max().item())
+
+
+@pytest.mark.parametrize("sq,sk", CASCADE_ATTENTION)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_at_cascade_lengths(gen, sq, sk, dtype):
+    """K2 and K3 at the student's rows 2, with the splits their rules pick
+    (1 at these sizes), against their plain versions."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, (2, sq, sk, 32, 64), dtype)
+    scale = 64**-0.5
+    assert fa.pick_k2_splits(64, sq, sk, dtype) == fa.pick_k3_splits(64, sq, sk, dtype) == 1
+    if dtype == torch.bfloat16:
+        _check_k2(q, k, v, o, lse, do, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w).abs().max().item() <= _grad_tol(w, dtype), name
+
+
+def test_tiny_cascade_prior_and_esd_step_on_the_card_match_the_cpu(gen):  # gen: skips without a card, sets TF32 off
+    """The tiny Stable Cascade prior on the odd 5 × 5 grid and one ESD step
+    (the merged student, layers checkpointed, euler_a T 3), card vs CPU,
+    fp32; K1 4 per forward, K2 4 per step."""
+    from sliders_conceptmod_tpu_torch.adapters import lora
+    from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.models.cascade import CascadeConfig, StableCascadeUNet
+    from sliders_conceptmod_tpu_torch.train import esd, esd_cascade
+    from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = factory.build_module(lambda: StableCascadeUNet(CascadeConfig.tiny()), "cpu", torch.float32, 5)
+    g = torch.Generator().manual_seed(3)
+    args = (torch.randn((2, 16, 5, 5), generator=g), torch.rand(2, generator=g), torch.randn((2, 77, 16), generator=g),
+            torch.randn((2, 1, 16), generator=g), torch.randn((2, 1, 16), generator=g))
+    bank = (torch.randn((1, 5, 77, 16), generator=g), torch.randn((1, 5, 1, 16), generator=g))
+    empty = (torch.randn((77, 16), generator=g), torch.randn((1, 16), generator=g))
+    lat, noise = torch.randn((1, 16, 5, 5), generator=g), torch.randn((2, 1, 16, 5, 5), generator=g)
+    sched = create_noise_scheduler("euler_a")
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = cpu_model if device == "cpu" else copy.deepcopy(cpu_model).to(device)
+        with torch.no_grad():
+            fwd = model(*(a.to(device) for a in args)).cpu()
+        sites = lora.create_sites(model, rank=2, target_replace=["Attention"])
+        lp = lora.init_lora_params(sites, generator=torch.Generator().manual_seed(1))
+        lp = {n: {k: (t + 0.05).to(device).requires_grad_(True) for k, t in leaf.items()} for n, leaf in lp.items()}
+        opt = get_optimizer("adamw", get_lr_schedule("constant", 1e-3, 10))
+        step = esd_cascade.make_cascade_esd_train_step(
+            model, sites, lp, sched, sched.set_timesteps(3), opt,
+            esd_cascade.CascadeESDConfig(max_denoising_steps=3, height=200, width=200, remat=True),
+            empty[0].to(device), empty[1].to(device), 16)
+        before = fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches
+        m = step(opt.init(flat_params(sites, lp)), esd.PromptBank(bank[0].to(device), [4.0], [1.0], bank[1].to(device)),
+                 draws=[esd_cascade.Draw(0, lat.to(device), noise.to(device))])
+        launches = (fa.flash_attention_fwd.launches - before[0], fa.flash_attention_bwd_dq.launches - before[1])
+        out[device] = (fwd, float(m["loss"]), lora.state_dict_numpy(sites, lp), launches)
+    assert out["cuda"][3] == (4 * (2 + 3), 4)  # the warm-up's 2 forwards, the teacher, the student, its recompute
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=2e-4, rtol=0)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * max(1.0, abs(out["cpu"][1]))
+    for k, v in out["cpu"][2].items():
+        assert abs(out["cuda"][2][k] - v).max() <= 1e-3, k
