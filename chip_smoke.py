@@ -11,6 +11,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   (csrc/flash_attention_kgrid_bwd.cu) with nvcc for sm_90a, one
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
+1b. image_decode — host only: every committed fixture of
+                  tests/data/image_decode (JPEG baseline and progressive,
+                  4:4:4/4:2:2/4:2:0/4:4:0, grey, restart markers, Adobe RGB;
+                  palette, 2-bit, 16-bit and Adam7 PNGs; the JPEG bank's
+                  folders) through io/image.py::load_rgb, each held to the
+                  stored SHA-256 of Pillow's RGB decode; seconds per image.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
                   request, 2 rows), in bf16 (the tensor-core kernel) and in
@@ -128,12 +134,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 9. imageslider_parity — the image bank through the full SDXL VAE at 64px (K4a
                   in the encoder's mid-block) and one tiny-xl image-pair step
                   (K1/K2/K3) on the card against the same on the CPU, fp32.
-10. serve       — full-width SDXL (random weights from a seed) at 1024px, 12 DDIM
+10. serve       — full-width SDXL (random weights from a seed) at 1024px, 8 DDIM
                   steps (the service's 25, cut): a rank-4 slider made with
                   create_sites, written with the port's .safetensors writer
                   and loaded through add_slider; four
                   requests (scale 0, +2, and -2/+1 concurrently in one micro-batch);
-                  per sampler call K1 12×140 launches and one K4a (the decode);
+                  per sampler call K1 8×140 launches and one K4a (the decode);
                   latency, images/s, peak memory.
 11. http        — one /generate through make_handler on localhost.
 12. profile     — one more request under torch.profiler: device busy time,
@@ -182,15 +188,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   forward, K2/K3 20 and K4b/K4c 12 per step.
 15b. sd_dora_train — as 15 with peft_type dora (the merged route), 3 steps:
                   every dora_scale moved, the saved .dora_scale keys [1, in],
-                  the file reloaded through adapters/dora.py bit-equal.
+                  the file reloaded through adapters/dora.py bit-equal; not
+                  profiled (since the image-editing phases joined).
 16. sd2_train   — the same YAML turned to SD2.1 (v2, v_pred), 2 steps: head
-                  dim 64 everywhere, so K1/K2/K3 only (32 per forward / step).
+                  dim 64 everywhere, so K1/K2/K3 only (32 per forward / step);
+                  not profiled.
 17. sd_imageslider — as 14 for SD1.5 at 256px: K4a once per folder at the
                   bank build (the VAE mid-block, 1024², d 512); per step K1
                   20, K4a 12, K2/K3 20, K4b/K4c 12.
-17b. sd_imageslider_merged — as 17 with tpu.student_overlay: false, 2 steps:
-                  the merged ±s students, two 1-row calls a step, so every
-                  kernel launches twice per step what the overlay launches.
+17b. sd_imageslider_merged — as 17 with tpu.student_overlay: false, 2 steps,
+                  over the committed JPEG bank (tests/data/image_decode/bank:
+                  two 96px JPEGs a folder, baseline and progressive, resized
+                  to 256 by the bank): the merged ±s students, two 1-row
+                  calls a step, so every kernel launches twice per step what
+                  the overlay launches.
 18. load        — a full-width SD1.5 diffusers directory written with the
                   port's .safetensors writer (seeded random bf16 weights;
                   unet/ in two shards with an index, vae/, text_encoder/ under
@@ -199,39 +210,65 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   generator), loaded by factory.load_models(dir, "cuda", bf16,
                   with_vae=True): every tensor bit-equal to its source; load
                   seconds and bytes.
-19. sd_serve    — SD1SliderService over that directory, 512px, 20 DDIM steps
-                  (the service's 50, cut when Stable Cascade joined),
+19. sd_serve    — SD1SliderService over that directory, 512px, 10 DDIM steps
+                  (the service's 50, cut to 20 when Stable Cascade joined, to
+                  10 with the image-editing phases),
                   a rank-4 slider: scale 0 and +2 solo (different images), -2
                   and +1 in one micro-batch, one /generate through
                   make_handler (sd_serve_http), one profiled request
-                  (sd_serve_profile). Per sampler call K1 20×20 = 400 and K4a
-                  20×12 + 1 = 241 launches.
+                  (sd_serve_profile). Per sampler call K1 10×20 = 200 and K4a
+                  10×12 + 1 = 121 launches.
 20. sd2_serve   — SD1SliderService on stabilityai/stable-diffusion-2-1 with
-                  v2 and v_pred, 512px, 10 steps, scales 0 and +2: per call K1
-                  10×32 = 320, K4a 1 (the decode).
+                  v2 and v_pred, 512px, 5 steps, scales 0 and +2: per call K1
+                  5×32 = 160, K4a 1 (the decode).
 21. sweep_xl    — cli/generate_images_xl.run on the SDXL name at the CLI's
-                  defaults (512px, start_noise 750) but 12 DDIM steps
+                  defaults (512px, start_noise 750) but 6 DDIM steps
                   (SWEEP_XL_STEPS, cut from 50), scales -2, 0, 2 and one
                   sample of prompts/prompts-person.csv's first case:
-                  sequential (merged weights; K1 12×140 per
+                  sequential (merged weights; K1 6×140 per
                   trajectory, 3 trajectories), --batch_scales (one
                   trajectory), and each scale alone with --batch_scales; one
                   K4a per decode. Files and composite, seconds per image, the
                   merged-vs-overlay pixel gap at the same batch and batched.
                   Then a combine_loras file with text-encoder parts (the UNet
                   slider, lora_te1 and lora_te3 at full width), merged and
-                  --batch_scales at scales -2 and 2 (12 steps): the gap
+                  --batch_scales at scales -2 and 2 (6 steps): the gap
                   between the two routes, its mean held to 2/255.
 22. sweep_sd1   — cli/generate_images_sd1.run over the SD1.5 directory: LMS,
                   50 steps, start_noise 850, scales -2 and 2, one sample;
                   per trajectory K1 1000 and K4a 600, plus one K4a per decode;
                   the composite 512 × 1024.
+22-1. scorers  — eval/clip_score.py over a seeded full-width ViT-B/32
+                  CLIPModel directory (the port's writer, synthetic BPE
+                  files) and eval/lpip_score.py over seeded AlexNet and
+                  lin-head .pth files, both over sweep_xl's folders (scales
+                  -2, 0, 2): on the card, then with --device cpu; finite
+                  scores, the expected columns, card against CPU within 2e-4
+                  relative (fp32). No kernel: the ViT's attention is plain.
+22-2. edit      — demos/demo_image_editing.run over the SD1.5 directory at
+                  512px in fp32 (the demo's default): a committed JPEG,
+                  null-text inversion with EDIT_STEPS DDIM steps and
+                  EDIT_INNER_STEPS inner steps (the demo's 50 and 10, cut),
+                  edits at scales 0, -2, 2 with a seeded rank-4 slider
+                  (start_noise 500). Per part (load, invert,
+                  null_optimization, each edit) K1..K4c against the count
+                  predicted from which inputs need a gradient: K1 20 and K4a
+                  12 a forward, K2 = K3 = 19 and K4b = K4c = 12 an inner
+                  backward (the first self-attention of down_blocks.0 has no
+                  gradient path to the embedding); one K4a per encode and
+                  decode; the scale-0 edit's reconstruction MSE against
+                  latent0; seconds per part. Then one forward under
+                  capture_attention_maps (K1 20 and K4a 12 fewer: every
+                  attention materialised) and one under
+                  reweight_cross_attention (10 and 6 fewer: the
+                  cross-attentions), each against the kernels' forward.
 22b. export     — cli/export_single_file over the SD1.5 directory and the
                   sd_serve slider at --scale 2 (fp32); the file reloaded in
                   bf16: every non-site tensor bit-equal to the directory's,
                   every site weight to the fp32 merge rounded once; one 512px
-                  50-step sampler call over it equal, pixel for pixel, to the
-                  directory's model with those weights (K1 1000, K4a 601);
+                  EXPORT_STEPS-step (20; 50 before the image-editing phases
+                  joined) sampler call over it equal, pixel for pixel, to the
+                  directory's model with those weights (K1 400, K4a 241);
                   write and reload seconds, and the gap to the sweeps' bf16
                   merge.
 22c. quant      — the SDXL UNet (seeded random bf16) quantized in place on
@@ -272,9 +309,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   request under --w8a8 (its gap to the bf16 image), and the
                   quantize_checkpoint --family sd3 artifact loaded, its
                   forward bit-equal to the quantized directory's.
-22l. sd3_export — cli/export_single_file --sd3 (a slider at scale 2, fp32)
-                  reloaded: every tensor bit-equal to the directory's or to
-                  the fp32 merge rounded once.
+22l. sd3_export — cli/export_single_file --sd3 --half (a slider at scale 2;
+                  fp16 since the image-editing phases joined, fp32 before)
+                  reloaded in bf16: every tensor bit-equal to the directory's
+                  or to the fp32 merge, each rounded to fp16 and then bf16.
 22m. sd3_notrigger — cli/train_notrigger --model SD3-Medium in the
                   directory's bigG, 5 steps (no kernel: the towers'
                   attention is plain); the SD3 directory is deleted after.
@@ -304,9 +342,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   (its gap to the bf16 image), the quantize_checkpoint
                   --family flux artifact of the weightless schnell reloaded,
                   its forward bit-equal to the in-memory int8 base.
-22s. flux_export — export_single_file --flux --half (the fp32 base, a slider
-                  at scale 2; BFL's layout) reloaded through the BFL loader
-                  bit-equal to the file.
+22s. flux_export — export_single_file --flux --half over flux_load's
+                  directory (full width, 2 + 4 blocks since the image-editing
+                  phases joined; the fp32 base, a slider at scale 2; BFL's
+                  layout) read back through the BFL conversion bit-equal to
+                  the file.
 22t. flux_notrigger — cli/train_notrigger --model FLUX.1 --clip_index 1: a
                   slider in a seeded T5-XXL (full width and depth), 5 steps
                   (no kernel: T5's attention is plain), swept over the same
@@ -328,8 +368,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
                   and K4a and no backward kernel; the SD3 and Flux paths join
                   K1, K2/K3 in training and K4a where they decode; the Cascade
-                  paths K1, K2 and K3 and no k-grid kernel). On every
-                  path the
+                  paths K1, K2 and K3 and no k-grid kernel; the edit path all
+                  six). On every path the
                   plain attention versions, forward and backward, ran 0 times
                   on the card.
 
@@ -339,9 +379,11 @@ Then the card as nvidia-smi names it, and the result line.
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import re
@@ -378,14 +420,21 @@ from sliders_conceptmod_tpu_torch.cli import (
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
+from sliders_conceptmod_tpu_torch.demos import demo_image_editing as demo_edit
 from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
+from sliders_conceptmod_tpu_torch.eval import clip_score as clip_score_cli
+from sliders_conceptmod_tpu_torch.eval import lpip_score as lpip_score_cli
 from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop, sample_packed_flow
+from sliders_conceptmod_tpu_torch.infer import null_inversion
 from sliders_conceptmod_tpu_torch.infer.generate import latents_to_images, sample_loop, sample_loop_scales
 from sliders_conceptmod_tpu_torch.io import ldm_export
+from sliders_conceptmod_tpu_torch.io.image import load_rgb
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
-from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.models import clip_vision, factory
+from sliders_conceptmod_tpu_torch.models import lpips as lpips_model
+from sliders_conceptmod_tpu_torch.models import unet as unet_module
 from sliders_conceptmod_tpu_torch.models.cascade import CascadeConfig, StableCascadeUNet
 from sliders_conceptmod_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
 from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel, prepare_latent_image_ids
@@ -419,9 +468,12 @@ PEAK_BYTES = 3.35e12
 FP32_TOL, BF16_REL, BF16_TOL = 1e-4, 2e-2, 3e-2
 LSE_TOL = 1e-3
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
-IMAGE_SIZE, STEPS = 1024, 12  # SDXL serving: the service's 25 DDIM steps, cut to 12 when Flux joined the smoke
-SD2_STEPS = 10  # SD2.1 serving: cut from the service's 50 to keep the smoke short
-SD1_STEPS = 20  # SD1.5 serving over the load phase's directory: the service's 50, cut when Cascade joined
+# Steps of the older phases, cut to keep the smoke inside its time limit on slower hosts: the same tree's
+# smoke read 970-1294 s across calls, every phase slower on a slow host (PERF.md §6)
+IMAGE_SIZE, STEPS = 1024, 8  # SDXL serving: the service's 25 DDIM steps, cut to 12 with Flux, to 8 with editing
+SD2_STEPS = 5  # SD2.1 serving: the service's 50, cut to 10, then to 5 when the image-editing phases joined
+SD1_STEPS = 10  # SD1.5 serving over the load phase's directory: the service's 50, 20 with Cascade, 10 with editing
+EXPORT_STEPS = 20  # the export phase's sampler calls: 50 before the image-editing phases joined
 # (name, Sq, Sk, heads): the attention calls of one SDXL UNet forward at 1024px
 PATH_SHAPES = [
     ("self_4096", 4096, 4096, 10),
@@ -448,7 +500,7 @@ TRAIN_SHAPES = [
     ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2, 0),
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
-TRAIN_ITERATIONS = 4  # SDXL and SD1.5 ESD: 500 / 1000 cut (6 before the SD3 phases joined the smoke)
+TRAIN_ITERATIONS = 3  # SDXL and SD1.5 ESD: 500 / 1000 cut (6 before SD3 joined the smoke, 4 before image editing)
 ROUTE_ITERATIONS = 3  # the other slider routes and DoRA: 3 steps each
 # (name, rows, Sq, Sk, heads, head dim): K4a's calls on the paths — the VAE
 # mid-block attention (one head, head dim = channels = 512) and SD1.5's
@@ -1636,7 +1688,7 @@ def phase_sd_train_parity() -> None:
 
 
 def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: int = TRAIN_ITERATIONS,
-              peft_type: str = "lora") -> dict:
+              peft_type: str = "lora", profile: bool = True) -> dict:
     """Full-width ESD training at the prompts' resolution through
     trainer.train (the path of cli/train_lora_xl.py and cli/train_lora.py),
     from data/<yaml_name> and its prompts file (only train.iterations and
@@ -1690,10 +1742,11 @@ def phase_esd(tmp: Path, what: str, yaml_name: str, yaml_edit=None, iterations: 
     emit(row)
     check_trained(what, res, summary, launches, want_launches, iterations)
 
-    profiled = {}
-    prof = device_profile(lambda: profiled.update(res.next_step()))
-    emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
-    row["profile"] = prof
+    if profile:
+        profiled = {}
+        prof = device_profile(lambda: profiled.update(res.next_step()))
+        emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
+        row["profile"] = prof
     return row
 
 
@@ -2004,20 +2057,25 @@ def phase_notrigger(tmp: Path) -> dict:
 
 
 def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, seed: int, yaml_edit=None,
-                      iterations: int = TRAIN_ITERATIONS, first_wh=None) -> list:
+                      iterations: int = TRAIN_ITERATIONS, first_wh=None, image_root=None) -> list:
     """Full-width image-pair slider training through
     cli/train_lora_scale.train from data/<yaml_name> and its prompts file
     (SDXL at 512px, SD1.5 at 256px: the trainer's resolution for the family),
     four folders of four synthetic PNGs at scales -2, -1, 1, 2 (``first_wh``:
-    the first folder's at that size, resized on the host by the bank), plus
-    ``yaml_edit`` (the merged students: ``tpu.student_overlay: false``); then
-    one more step under torch.profiler. Returns the launches of K1..K4c."""
+    the first folder's at that size, resized on the host by the bank) or the
+    folders under ``image_root`` (the committed JPEG bank: two 96px JPEGs a
+    folder, baseline and progressive), plus ``yaml_edit`` (the merged
+    students: ``tpu.student_overlay: false``); then one more step under
+    torch.profiler. Returns the launches of K1..K4c."""
     cfg, prompts = train_config(tmp / what, yaml_name, iterations)
     if yaml_edit is not None:
         yaml_edit(cfg)
-    root = tmp / f"{what}_images"
-    write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution, seed,
-                        first_wh)
+    root = image_root
+    if root is None:
+        root = tmp / f"{what}_images"
+        write_image_folders(root, IMAGE_FOLDERS, [f"{i:03d}.png" for i in range(IMAGES_PER_FOLDER)], resolution,
+                            seed, first_wh)
+    names = imageslider.list_paired_images(str(root), IMAGE_FOLDERS)
     unet_cfg = factory.unet_config_for(cfg.pretrained_model.name_or_path, cfg.pretrained_model.v2)
     student_overlay = train_lora_scale.resolve_student(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2038,7 +2096,8 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     row = dict(
         phase=what, model=cfg.pretrained_model.name_or_path, image_size=resolution,
         student_overlay=student_overlay, student_calls_per_step=calls // iterations,
-        folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=IMAGES_PER_FOLDER,
+        folders=IMAGE_FOLDERS, scales=IMAGE_SCALES, images_per_folder=len(names), image_files=names,
+        image_root=str(root.relative_to(REPO)) if image_root is not None else "synthetic PNGs",
         first_folder_image_wh=first_wh or (resolution, resolution),
         scheduler=cfg.train.noise_scheduler, max_denoising_steps=cfg.train.max_denoising_steps,
         precision=cfg.train.precision, lora_sites=len(res.sites), iterations=iterations,
@@ -2108,7 +2167,7 @@ def phase_export(tmp: Path, sd_dir: Path) -> list:
     factory.load_models in bf16: every non-site tensor bit-equal to the
     directory's (loaded in bf16), every site weight bit-equal to
     merge_lora_params over the fp32 directory at 2.0 rounded once to bf16;
-    then one 512px, 50-step DDIM sample_loop over the reloaded model against
+    then one 512px, EXPORT_STEPS-step DDIM sample_loop over the reloaded model against
     the directory's model with those merged weights (swapped in per call),
     pixel for pixel, and against the sweeps' merge over the bf16 weights (the
     double rounding, reported). Returns the launches of the reloaded model's
@@ -2139,7 +2198,7 @@ def phase_export(tmp: Path, sd_dir: Path) -> list:
                   for k, v in got.state_dict().items()
                   if not torch.equal(v, exact[k] if comp == "unet" and k in exact else src.state_dict()[k])]
 
-    schedule = sched.set_timesteps(50)
+    schedule = sched.set_timesteps(EXPORT_STEPS)
     with torch.inference_mode():
         emb = torch.cat([factory.encode_prompts(te, [""]), factory.encode_prompts(te, ["a photo of a person"])])
     lat = torch.randn((1, 4, 64, 64), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
@@ -2158,8 +2217,8 @@ def phase_export(tmp: Path, sd_dir: Path) -> list:
     check_no_plain("export")
     want = images(unet_b, exact)
     sweep = images(unet_b, lora.merge_lora_params(unet_b, sites, lp, 2.0))
-    k1, k4a = per_sampler_call(UNetConfig.sd15(), 50)
-    row = dict(phase="export", model=f"{SD15} (the load phase's directory)", slider=slider.name, scale=2.0,
+    k1, k4a = per_sampler_call(UNetConfig.sd15(), EXPORT_STEPS)
+    row = dict(phase="export", sampler_steps=EXPORT_STEPS, model=f"{SD15} (the load phase's directory)", slider=slider.name, scale=2.0,
                file_bytes=out.stat().st_size, tensors=n_tensors, export_dtype="float32",
                reload_dtype="bfloat16", baked_sites=len(sites), write_seconds=write_s, reload_seconds=reload_s,
                bit_equal=not mismatched, sample_seconds=sample_s,
@@ -2664,7 +2723,7 @@ def check_sweep_tree(root: Path, scales, case: int, size: int) -> dict:
     return imgs
 
 
-SWEEP_XL_STEPS = 12  # the XL sweep CLI's 50 DDIM steps, cut (to 25 when SD3 joined the smoke, to 12 with Flux)
+SWEEP_XL_STEPS = 6  # the XL sweep CLI's 50 DDIM steps, cut (to 25 with SD3, to 12 with Flux, to 6 with editing)
 
 
 def phase_sweep_xl(tmp: Path) -> tuple:
@@ -3422,14 +3481,15 @@ def phase_sd3_int8(tmp: Path, sd3_dir: Path, ref: dict) -> dict:
 
 def phase_sd3_export(tmp: Path, sd3_dir: Path, slider: str) -> None:
     """cli/export_single_file --sd3 over the sd3_load directory and the serve
-    slider at --scale 2 (fp32, the *_incl_clips layout); the file reloaded
-    through factory.load_models_sd3 in bf16: every non-site tensor bit-equal
-    to the directory's, every site weight to the fp32 merge rounded once;
-    write and reload seconds."""
+    slider at --scale 2 (fp16 --half, the *_incl_clips layout; fp32 before the
+    image-editing phases joined: the 11.4 GB round trip took 38-48 s); the
+    file reloaded through factory.load_models_sd3 in bf16: every non-site
+    tensor bit-equal to the directory's, every site weight to the fp32 merge,
+    each rounded to fp16 and then to bf16; write and reload seconds."""
     out = tmp / "sd3-medium-merged_incl_clips.safetensors"
     t0 = time.time()
     export_single_file.main(["--base", str(sd3_dir), "--slider", slider, "--scale", "2", "--output", str(out),
-                             "--sd3", "--device", "0"])
+                             "--sd3", "--half", "--device", "0"])
     write_s = time.time() - t0
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -3438,13 +3498,17 @@ def phase_sd3_export(tmp: Path, sd3_dir: Path, slider: str) -> None:
     _, dir_tes, base, _ = factory.load_models_sd3(str(sd3_dir), weight_dtype=torch.float32, device="cuda")
     sites, lp = gen_sd3.sd3_slider(base, slider, load_slider_file(slider).unet, "cuda")
     merged = lora.merge_lora_params(base, sites, lp, 2.0)  # the CLI's fp32 merge
-    want = {k: v.to(torch.bfloat16) for k, v in base.state_dict().items()}
-    want.update({k: v.to(torch.bfloat16) for k, v in merged.items()})
+    def via_file(t):  # the CLI writes fp16, the reload casts to bf16
+        return t.to(torch.float16).to(torch.bfloat16)
+
+    want = {k: via_file(v) for k, v in base.state_dict().items()}
+    want.update({k: via_file(v) for k, v in merged.items()})
     got = merged_model.state_dict()
     bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
     bad += [f"te{i}.{k}" for i, (a, b) in enumerate(zip(tes, dir_tes)) for k, v in b.model.state_dict().items()
-            if not torch.equal(a.model.state_dict()[k], v.to(torch.bfloat16))]
+            if not torch.equal(a.model.state_dict()[k], via_file(v))]
     row = dict(phase="sd3_export", model=f"{SD3} (the sd3_load directory)", scale=2.0, sites=len(sites),
+               export_dtype="float16",
                file_bytes=out.stat().st_size, write_seconds=write_s, reload_seconds=reload_s,
                tensors_checked=len(want), mismatched=len(bad))
     emit(row)
@@ -3489,7 +3553,8 @@ FLUX_TRAIN_ITERATIONS = 2  # data/config-flux.yaml's 1000, cut: 2 optimizer step
 FLUX_GUIDANCE = 3.5  # the requests' guidance (a dev model's input; schnell ignores it)
 FLUX_T5_LAYERS = 2  # flux_load's text_encoder_2: T5-XXL's width, its 24 layers cut to 2 in its config.json
 # flux_load's transformer/: schnell's width, its 19 + 38 blocks cut to 2 + 4 in its config.json when
-# Stable Cascade joined (flux_export and flux_quantize_checkpoint still write and read 12-24 GB files)
+# Stable Cascade joined; flux_export exports that directory since the image-editing phases joined
+# (flux_quantize_checkpoint still writes and reads a 12 GB file)
 FLUX_LOAD_BLOCKS = dict(num_layers=2, num_single_layers=4)
 FLUX_SHARDS = 5
 FLUX_VAE = dict(scaling_factor=0.3611, shift_factor=0.1159)  # FLUX.1's vae/config.json
@@ -3771,7 +3836,7 @@ def phase_flux_load(tmp: Path, ref: dict) -> list:
     tokenizer/ (synthetic) — served: FluxSliderService over it (its load is
     factory.load_models_flux) holds every tensor bit-equal to its source,
     then one 512px request decoded through the VAE (48 K1, 1 K4a). GB, write
-    and load seconds, GB/s; the directory is deleted after."""
+    and load seconds, GB/s; the directory stays for flux_export (``ref["dir"]``)."""
     root = tmp / "flux1-schnell-diffusers"
     t0 = time.time()
     t5_cfg = T5Config(num_layers=FLUX_T5_LAYERS)
@@ -3834,7 +3899,7 @@ def phase_flux_load(tmp: Path, ref: dict) -> list:
     del svc, got
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(root)
+    ref["dir"] = root
     return launches
 
 
@@ -3911,16 +3976,19 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
     return paths
 
 
-def phase_flux_export(tmp: Path, slider: str) -> None:
-    """cli/export_single_file --flux --half over the weightless schnell (its
-    fp32 base on the card) with the serve slider baked at --scale 2 (BFL's
-    layout, fp16); the file reloaded through the BFL loader at fp16
-    (factory.load_models_flux) and exported again: every tensor bit-equal
-    to the file's; bytes, write and reload seconds; the file deleted
-    after."""
+def phase_flux_export(tmp: Path, slider: str, flux_dir: Path) -> None:
+    """cli/export_single_file --flux --half over flux_load's directory (its
+    transformer at schnell's full width, 19 + 38 blocks cut to
+    FLUX_LOAD_BLOCKS when the image-editing phases joined: the full depth's
+    24 GB write and reload took 75 s) as the fp32 base, with the serve
+    slider baked at --scale 2 on the sites that depth has (BFL's layout,
+    fp16); the file reloaded through the BFL loader at fp16
+    (factory.load_models_flux: schnell, and the depth the file's blocks
+    hold) and exported again: every tensor bit-equal to the file's; bytes,
+    write and reload seconds; the file and the directory deleted after."""
     out = tmp / "flux1-schnell-merged.safetensors"
     t0 = time.time()
-    sd = export_single_file.main(["--base", FLUX, "--slider", slider, "--scale", "2", "--output", str(out),
+    sd = export_single_file.main(["--base", str(flux_dir), "--slider", slider, "--scale", "2", "--output", str(out),
                                   "--flux", "--half", "--device", "0"])
     write_s = time.time() - t0
     gc.collect()
@@ -3930,16 +3998,21 @@ def phase_flux_export(tmp: Path, slider: str) -> None:
     reload_s = time.time() - t0
     back = ldm_export.export_flux_bfl(model.state_dict())
     bad = [k for k, v in sd.items() if k not in back or not torch.equal(back[k], v.to(back[k].device))]
-    row = dict(phase="flux_export", model=f"{FLUX} (seeded random weights, fp32 base)", scale=2.0, dtype="float16",
-               tensors=len(sd), file_bytes=out.stat().st_size, write_seconds=write_s, reload_seconds=reload_s,
-               guidance_embeds=model.config.guidance_embeds, mismatched=len(bad) + len(set(back) - set(sd)))
+    depth = {"num_layers": model.config.num_layers, "num_single_layers": model.config.num_single_layers}
+    row = dict(phase="flux_export", model=f"{FLUX} (seeded random weights, fp32 base; flux_load's directory)",
+               reduced={"transformer.num_layers": [19, FLUX_LOAD_BLOCKS["num_layers"]],
+                        "transformer.num_single_layers": [38, FLUX_LOAD_BLOCKS["num_single_layers"]]},
+               scale=2.0, dtype="float16", tensors=len(sd), file_bytes=out.stat().st_size, write_seconds=write_s,
+               reload_seconds=reload_s, reloaded_depth=depth, guidance_embeds=model.config.guidance_embeds,
+               mismatched=len(bad) + len(set(back) - set(sd)))
     emit(row)
     out.unlink()
+    shutil.rmtree(flux_dir)
     del sd, model, back
     gc.collect()
     torch.cuda.empty_cache()
-    if row["mismatched"] or row["guidance_embeds"]:
-        raise AssertionError(f"flux_export: {len(bad)} tensors differ (e.g. {bad[:3]})")
+    if row["mismatched"] or row["guidance_embeds"] or depth != FLUX_LOAD_BLOCKS:
+        raise AssertionError(f"flux_export: {len(bad)} tensors differ (e.g. {bad[:3]}); {row}")
 
 
 def phase_flux_notrigger(tmp: Path) -> None:
@@ -4218,6 +4291,223 @@ def phase_cascade_routes(tmp: Path) -> dict:
             for what, (edit, peft) in routes.items()}
 
 
+# ---------------------------------------------------------------------------
+# image decoding, the scorers and null-text inversion editing
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURES = REPO / "tests" / "data" / "image_decode"  # written with Pillow by tests/_make_image_fixtures.py
+EDIT_STEPS, EDIT_INNER_STEPS = 10, 2  # the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut
+EDIT_SCALES = (0.0, -2.0, 2.0)
+SCORER_TOL = 2e-4  # card against CPU, fp32, relative
+
+
+def phase_image_decode() -> None:
+    """Host only: every committed fixture (JPEG baseline and progressive at
+    4:4:4/4:2:2/4:2:0/4:4:0, grey, restart markers, Adobe RGB; palette,
+    2-bit, 16-bit and Adam7 PNGs; the JPEG bank's folders) through
+    io/image.py::load_rgb, each held to the SHA-256 of Pillow's decode stored
+    beside it; seconds per image."""
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    seconds, bad = {}, []
+    for name, want in sorted(digests.items()):
+        t0 = time.time()
+        img = load_rgb(str(IMAGE_FIXTURES / name))
+        seconds[name] = time.time() - t0
+        if list(img.shape) != want["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+            bad.append(name)
+    emit(dict(phase="image_decode", files=len(digests), mismatched=bad, seconds_total=sum(seconds.values()),
+              seconds_per_image_mean=sum(seconds.values()) / len(seconds), seconds_per_image_max=max(seconds.values()),
+              seconds_by_file=seconds))
+    if bad or len(digests) < 20:
+        raise AssertionError(f"image_decode: the port's decode differs from Pillow's on {bad}")
+
+
+def write_clip_dir(root: Path) -> Path:
+    """A transformers CLIPModel directory of a seeded full-width ViT-B/32
+    scorer (vision 768 × 12, text 512 × 12, projections 512; fp32 under
+    transformers names, the port's writer) with synthetic BPE files."""
+    torch.manual_seed(11)
+    vcfg, tcfg = clip_vision.CLIPVisionConfig.vit_b32(), CLIPTextConfig(
+        hidden_size=512, intermediate_size=2048, num_hidden_layers=12, num_attention_heads=8, projection_dim=512)
+    scorer = clip_vision.CLIPScorer(vcfg, tcfg)
+    root.mkdir(parents=True, exist_ok=True)
+    save_file(clip_vision.hf_state_dict(scorer), str(root / "model.safetensors"))
+    config = {"projection_dim": 512,
+              "vision_config": {k: getattr(vcfg, k) for k in ("hidden_size", "intermediate_size", "num_hidden_layers",
+                                                              "num_attention_heads", "image_size", "patch_size")},
+              "text_config": {k: getattr(tcfg, k) for k in ("vocab_size", "hidden_size", "intermediate_size",
+                                                            "num_hidden_layers", "num_attention_heads")}}
+    (root / "config.json").write_text(json.dumps(config))
+    write_synthetic_bpe_files(str(root), ["a photo of a person", "image of a person, smiling"])
+    return root
+
+
+def write_lpips_files(root: Path) -> tuple:
+    """Seeded torchvision-AlexNet and lpips lin-head state dicts (the real
+    files' keys and shapes), as .pth."""
+    root.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator().manual_seed(12)
+    alex = {}
+    for idx, (cin, cout, k, _, _) in zip(lpips_model.TORCHVISION_CONV_INDEX, lpips_model._ALEX_CONVS):
+        alex[f"features.{idx}.weight"] = torch.randn((cout, cin, k, k), generator=g) * 0.05
+        alex[f"features.{idx}.bias"] = torch.randn((cout,), generator=g) * 0.01
+    lin = {f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=g) * 0.1
+           for i, c in enumerate(lpips_model.ALEX_CHANNELS)}
+    torch.save(alex, root / "alexnet.pth")
+    torch.save(lin, root / "lpips_alex.pth")
+    return root / "alexnet.pth", root / "lpips_alex.pth"
+
+
+def read_score_csv(path: str) -> tuple:
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def phase_scorers(tmp: Path) -> None:
+    """eval/clip_score.py (a seeded ViT-B/32) and eval/lpip_score.py (seeded
+    AlexNet + lin heads) over the SDXL sweep's folders (sweep_xl, merged:
+    scales -2, 0, 2, case 0 at 512px) on the card, then the same CLIs with
+    --device cpu: finite scores, the expected columns, card against CPU
+    within 2e-4 relative. The ViT's attention is a plain product (as in JAX):
+    no kernel runs."""
+    (sweep,) = [p for p in (tmp / "sweep_xl_merged").iterdir() if p.is_dir()]
+    prompts = str(REPO / "prompts" / "prompts-person.csv")
+    t0 = time.time()
+    clip_dir = write_clip_dir(tmp / "clip_vit_b32")
+    alex, lin = write_lpips_files(tmp / "lpips")
+    seconds = {"write_weights": time.time() - t0}
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        path = clip_score_cli.run(clip_score_cli.build_parser().parse_args(
+            ["--im_path", str(sweep), "--prompt", "a photo of a person", "--prompts_path", prompts,
+             "--clip_model", str(clip_dir), "--device", device]))
+        seconds[f"clip_score_{device}"] = time.time() - t0
+        t0 = time.time()
+        lpath = lpip_score_cli.run(lpip_score_cli.build_parser().parse_args(
+            ["--im_path", str(sweep), "--prompts_path", prompts, "--true", "0.0", "--alexnet_weights", str(alex),
+             "--lpips_weights", str(lin), "--device", device]))
+        seconds[f"lpip_score_{device}"] = time.time() - t0
+        out[device] = (read_score_csv(path), read_score_csv(lpath))
+    c_head, l_head = out["cuda"][0][0], out["cuda"][1][0]
+    want_clip, want_lpips = ["clip_-2.0", "clip_0.0", "clip_2.0"], ["lpips_-2.0", "lpips_2.0"]
+    if c_head[-3:] != want_clip or sorted(h for h in l_head if h.startswith("lpips_")) != want_lpips:
+        raise AssertionError(f"scorers: columns {c_head}, {l_head}")
+    scores, worst = {}, 0.0
+    for (head, rows), (_, cpu_rows) in ((out["cuda"][0], out["cpu"][0]), (out["cuda"][1], out["cpu"][1])):
+        for col in [h for h in head if h.startswith(("clip_", "lpips_"))]:
+            j = head.index(col)
+            card, cpu = float(rows[0][j]), float(cpu_rows[0][j])  # case 0, the sweep's one case
+            scores[col] = dict(card=card, cpu=cpu)
+            if not (np.isfinite(card) and np.isfinite(cpu)):
+                raise AssertionError(f"scorers: {col} is not finite: {card}, {cpu}")
+            worst = max(worst, abs(card - cpu) / max(abs(cpu), 1e-6))
+    emit(dict(phase="scorers", clip_model="ViT-B/32 (seeded, full width)", sweep=str(sweep.relative_to(tmp)),
+              scores_case0=scores, max_rel_err_card_vs_cpu=worst, tol=SCORER_TOL, seconds=seconds))
+    if worst > SCORER_TOL:
+        raise AssertionError(f"scorers: the card's scores differ from the CPU's by {worst} relative")
+
+
+def attention_kinds(unet) -> list:
+    """(is_cross, 'K1' or 'K4a') of every attention of ``unet``, as the dispatch routes it."""
+    return [(m.is_cross, "K1" if m.to_q.out_features // m.heads <= 128 else "K4a")
+            for m in unet.modules() if isinstance(m, unet_module.Attention)]
+
+
+def phase_edit(tmp: Path, sd_dir: Path) -> list:
+    """Null-text inversion editing (demos/demo_image_editing.run) on the SD1.5
+    directory at 512px in fp32 (the demo's default): a committed JPEG,
+    EDIT_STEPS DDIM steps, EDIT_INNER_STEPS inner steps, a seeded rank-4
+    slider at scales 0, -2, 2 (start_noise 500). Each part's K1..K4c
+    launches against the count predicted from which inputs need a gradient
+    (the first self-attention of down_blocks.0 has no gradient path to the
+    embedding, so its backward never launches); the scale-0 edit's
+    reconstruction MSE against latent0; seconds per part. Then one forward
+    each under capture_attention_maps and reweight_cross_attention: each
+    launches one K1/K4a fewer per attention it materialises, and agrees with
+    the kernels' forward."""
+    slider = tmp / "edit_noxattn_rank4_alpha1.safetensors"
+    make_slider(slider, UNetConfig.sd15())
+    args = demo_edit.build_parser().parse_args(
+        ["--base", str(sd_dir), "--image", str(IMAGE_FIXTURES / "bank" / "plus1" / "000.jpg"),
+         "--prompt", "a photo of a person", "--slider", str(slider), "--scales", ",".join(map(str, EDIT_SCALES)),
+         "--ddim_steps", str(EDIT_STEPS), "--out", str(tmp / "edit")])
+    parts = {}
+    total = [0] * 6
+
+    def after_part(name: str) -> None:
+        parts[name] = list(counts())
+        for i, c in enumerate(parts[name]):
+            total[i] += c
+        reset_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # count the edit path only
+    t0 = time.time()
+    res = demo_edit.run(args, null_inversion.NullOptConfig(num_inner_steps=EDIT_INNER_STEPS), after_part)
+    wall = time.time() - t0
+    check_no_plain("edit")
+    kinds = attention_kinds(res["unet"])
+    k1, k4a = sum(k == "K1" for _, k in kinds), sum(k == "K4a" for _, k in kinds)
+    first_cross = next(i for i, (cross, _) in enumerate(kinds) if cross)
+    no_grad = kinds[:first_cross]  # attentions before the first cross-attention: no path from the embedding
+    k1_bwd, k4_bwd = k1 - sum(k == "K1" for _, k in no_grad), k4a - sum(k == "K4a" for _, k in no_grad)
+    inner = sum(res["inner_steps"])
+    fwd_null = 2 * EDIT_STEPS + inner  # per step the cond forward, each inner step's, the final guided one
+    want = {"load": [0] * 6,
+            "invert": [k1 * EDIT_STEPS, 0, 0, k4a * EDIT_STEPS + 1, 0, 0],  # + the VAE encoder's mid-block
+            "null_optimization": [k1 * fwd_null, k1_bwd * inner, k1_bwd * inner, k4a * fwd_null, k4_bwd * inner,
+                                  k4_bwd * inner]}
+    for s in EDIT_SCALES:
+        want[f"edit_{s}"] = [2 * k1 * EDIT_STEPS, 0, 0, 2 * k4a * EDIT_STEPS + 1, 0, 0]  # + the decode
+    mse = float(torch.mean((res["finals"][0.0] - res["latent0"]) ** 2))
+    moved = {s: float(np.abs(res["images"][s].astype(int) - res["images"][0.0]).mean()) for s in EDIT_SCALES}
+
+    unet, x = res["unet"], res["trajectory"][-1]
+    controllers = {}
+    with torch.no_grad():
+        plain = unet(x, 500, res["cond"])
+        scale = float(plain.abs().max())
+        for name, make, materialised in (("capture", unet_module.capture_attention_maps, kinds),
+                                         ("reweight", lambda: unet_module.reweight_cross_attention(torch.ones(77)),
+                                          [k for k in kinds if k[0]])):
+            reset_counts()
+            with make():
+                got = unet(x, 500, res["cond"])
+            launched = counts()
+            fewer = (sum(k == "K1" for _, k in materialised), sum(k == "K4a" for _, k in materialised))
+            controllers[name] = dict(k1=launched[0], k4a=launched[3], k1_fewer=k1 - launched[0],
+                                     k4a_fewer=k4a - launched[3], materialised_k1=fewer[0], materialised_k4a=fewer[1],
+                                     max_rel_diff_to_kernels=float((got - plain).abs().max()) / scale)
+            if (k1 - launched[0], k4a - launched[3]) != fewer or any(launched[1:3] + launched[4:]):
+                raise AssertionError(f"edit: {name} launched K1/K4a {launched}, expected {fewer} fewer than "
+                                     f"{k1}/{k4a}")
+        weights = torch.ones(77)
+        weights[2:4] = 2.0  # the prompt's first two tokens doubled: the output moves
+        with unet_module.reweight_cross_attention(weights):
+            controllers["reweight"]["moved_by_weights"] = float((unet(x, 500, res["cond"]) - plain).abs().max())
+        check_no_plain("edit_controllers")
+    emit(dict(phase="edit", model=f"{SD15} (the load phase's directory)", precision="float32", image_size=512,
+              image=str((IMAGE_FIXTURES / "bank" / "plus1" / "000.jpg").relative_to(REPO)), ddim_steps=EDIT_STEPS,
+              num_inner_steps=EDIT_INNER_STEPS, inner_steps_taken=res["inner_steps"], scales=list(EDIT_SCALES),
+              flip_step=res["flip_step"], reconstruction_mse_scale0=mse, mean_abs_pixel_change_vs_scale0=moved,
+              launches_by_part=parts, expected_by_part=want, controllers=controllers, seconds_by_part=res["seconds"],
+              wall_seconds=wall, max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30))
+    if parts != want:
+        raise AssertionError(f"edit: launches by part {parts}, expected {want}")
+    if not (np.isfinite(mse) and all(torch.isfinite(f).all() for f in res["finals"].values())):
+        raise AssertionError(f"edit: non-finite latents (reconstruction MSE {mse})")
+    if min(moved[s] for s in EDIT_SCALES if s != 0.0) <= 0.0:
+        raise AssertionError(f"edit: a ±s edit gave the scale-0 image: {moved}")
+    if max(c["max_rel_diff_to_kernels"] for c in controllers.values()) > 1e-3 \
+            or controllers["reweight"]["moved_by_weights"] <= 0:
+        raise AssertionError(f"edit: a controller's forward differs from the kernels': {controllers}")
+    del res, unet
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -4233,6 +4523,9 @@ def main() -> int:
               card=card, torch=torch.__version__, cuda=torch.version.cuda))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t_image = time.time()
+    phase_image_decode()
+    image_eval_seconds = time.time() - t_image
     k1_rows = phase_kernel(gen)
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
     kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
@@ -4290,9 +4583,9 @@ def main() -> int:
         train_rows["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
         torch.cuda.empty_cache()
         train_rows["sd_dora_train"] = phase_esd(tmp, "sd_dora_train", "config.yaml", iterations=ROUTE_ITERATIONS,
-                                                peft_type="dora")
+                                                peft_type="dora", profile=False)
         torch.cuda.empty_cache()
-        train_rows["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2)
+        train_rows["sd2_train"] = phase_esd(tmp, "sd2_train", "config.yaml", sd21_config, iterations=2, profile=False)
         torch.cuda.empty_cache()
         paths.update({k: row["launches_k1_to_k4c"] for k, row in train_rows.items()})
         t_knobs = time.time()
@@ -4306,7 +4599,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["sd_imageslider_merged"] = phase_image_pairs(
             tmp, "sd_imageslider_merged", "config.yaml", train_lora_scale.SD_RESOLUTION, seed=8,
-            yaml_edit=functools.partial(set_tpu, student_overlay=False), iterations=2)
+            yaml_edit=functools.partial(set_tpu, student_overlay=False), iterations=2,
+            image_root=IMAGE_FIXTURES / "bank")
         torch.cuda.empty_cache()
         emit(dict(phase="route_phases", seconds=time.time() - t_routes))
         t_new = time.time()
@@ -4320,6 +4614,11 @@ def main() -> int:
         paths["sweep_xl"] = phase_sweep_xl(tmp)
         paths["sweep_sd1"] = phase_sweep_sd1(tmp, sd_dir)
         emit(dict(phase="inference_paths", seconds=time.time() - t_new))
+        t_image = time.time()
+        phase_scorers(tmp)
+        paths["edit"] = phase_edit(tmp, sd_dir)
+        emit(dict(phase="image_eval_phases", seconds=time.time() - t_image + image_eval_seconds,
+                  image_decode_seconds=image_eval_seconds))
         t_export = time.time()
         paths["export"] = phase_export(tmp, sd_dir)
         emit(dict(phase="export_path", seconds=time.time() - t_export))
@@ -4347,7 +4646,7 @@ def main() -> int:
         paths["flux_sweep"] = phase_flux_sweep(tmp, flux_ref["slider"])
         paths["flux_load"] = phase_flux_load(tmp, flux_ref)
         paths.update(phase_flux_int8(tmp, flux_ref))
-        phase_flux_export(tmp, flux_ref["slider"])
+        phase_flux_export(tmp, flux_ref["slider"], flux_ref["dir"])
         phase_flux_notrigger(tmp)
         emit(dict(phase="flux_phases", seconds=time.time() - t_flux))
         t_cascade = time.time()
@@ -4363,6 +4662,8 @@ def main() -> int:
     # its decodes when serving
     inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep",
                  "serve_int8_quantize_base", "serve_int8_w8a8", "quantize_checkpoint")
+    # null-text inversion editing: SD1.5 in fp32, forward and backward (the embedding's gradient)
+    edit = ("edit",)
     xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider", "knob_samples2",
                 "knob_fuse_teacher_student", "knob_pipeline_warmup", "knob_share_warmup", "knob_dynamic_res_crops",
                 "knob_lion", "knob_prodigy_restarts", "knob_1024_remat", "profile_dir", "int8_bf16_reference",
@@ -4382,12 +4683,12 @@ def main() -> int:
                      "cascade_samples2_share")
     runs_on = {
         "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference
-              + flux_train + flux_inference + cascade_train,
-        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train,
-        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train,
-        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode + ("flux_load",),
-        "K4b": sd15_train,
-        "K4c": sd15_train,
+              + flux_train + flux_inference + cascade_train + edit,
+        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
+        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
+        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode + ("flux_load",) + edit,
+        "K4b": sd15_train + edit,
+        "K4c": sd15_train + edit,
     }
     for i, name in enumerate(KERNEL_NAMES):
         if min(paths[p][i] for p in runs_on[name]) <= 0:

@@ -30,7 +30,8 @@ import torch
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
 from sliders_conceptmod_tpu_torch.cli.generate_images_sd3 import sd3_slider
-from sliders_conceptmod_tpu_torch.cli.generate_images_xl import torch_device, unet_slider
+from sliders_conceptmod_tpu_torch.cli.generate_images_xl import unet_slider
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.io import ldm_export
 from sliders_conceptmod_tpu_torch.models import factory
 

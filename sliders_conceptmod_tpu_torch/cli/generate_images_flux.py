@@ -39,7 +39,8 @@ from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
 from sliders_conceptmod_tpu_torch.cli.generate_images_sd3 import sd3_slider
-from sliders_conceptmod_tpu_torch.cli.generate_images_xl import draw_latents, load_prompts_csv, torch_device
+from sliders_conceptmod_tpu_torch.cli.generate_images_xl import draw_latents, load_prompts_csv
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.diffusion.flow_match import calculate_shift
 from sliders_conceptmod_tpu_torch.infer.generate_flow import (
     flip_step_for_start_noise,

@@ -32,9 +32,9 @@ from sliders_conceptmod_tpu_torch.cli.generate_images_xl import (
     load_prompts_csv,
     save_composite,
     save_images,
-    torch_device,
     unet_slider,
 )
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.infer.generate import flip_step_for_start_noise, latents_to_images, sample_loop
 from sliders_conceptmod_tpu_torch.models import factory
 

@@ -41,8 +41,8 @@ from sliders_conceptmod_tpu_torch.cli.generate_images_xl import (
     draw_latents,
     load_prompts_csv,
     settings_from_tensors,
-    torch_device,
 )
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.infer.generate_flow import (
     flip_step_for_start_noise,
     sample_flow_loop,

@@ -52,6 +52,7 @@ import torch
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import load_slider_file
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.infer.generate import (
     flip_step_for_start_noise,
@@ -122,11 +123,6 @@ def unet_slider(unet, path: str, unet_sd, device=None):
     if not sites:
         raise ValueError(f"No matching LoRA keys between UNet and {path}")
     return sites, lora_lib.load_weights_from_tensors(unet_sd, sites, device=device)
-
-
-def torch_device(spec: str) -> str:
-    """``--device``: a CUDA ordinal ("0") or a torch device name ("cpu")."""
-    return f"cuda:{spec}" if str(spec).isdigit() else str(spec)
 
 
 def draw_latents(seed: int, shape, device) -> torch.Tensor:

@@ -43,9 +43,9 @@ import torch
 from sliders_conceptmod_tpu_torch.adapters import dora as dora_lib
 from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters import quant
-from sliders_conceptmod_tpu_torch.cli.generate_images_xl import torch_device
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
+from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd, esd_cascade

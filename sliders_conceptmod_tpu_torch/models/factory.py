@@ -636,6 +636,12 @@ class FluxEncoder:
         return text, self.clip.encode([prompt]).pooled_output[0]
 
 
+def _block_count(sd, prefix: str) -> int:
+    """1 + the largest ``{prefix}{i}.`` index among ``sd``'s names (0 when none)."""
+    idx = [int(k[len(prefix):].split(".", 1)[0]) for k in sd if k.startswith(prefix)]
+    return max(idx) + 1 if idx else 0
+
+
 def load_models_flux(
     name_or_path: str,
     weight_dtype: torch.dtype = torch.float32,
@@ -656,7 +662,9 @@ def load_models_flux(
     * an int8 artifact (``io/quant_cache.py``, ``cli/quantize_checkpoint.py
       --family flux``): the transformer from it, the stand-in encoder;
     * a BFL single file (``flux1-schnell.safetensors``): the transformer
-      (``io/ldm_convert.py``), the stand-in encoder;
+      (``io/ldm_convert.py``) at the depth the file's ``double_blocks`` /
+      ``single_blocks`` hold (19 + 38 in BFL's files, the family's widths),
+      the stand-in encoder;
     * any other name: the weightless family (``FluxConfig.schnell()``, a name
       containing "tiny": the tiny family), the transformer from seed 0, the
       stand-in encoder.
@@ -697,7 +705,9 @@ def load_models_flux(
             sd = load_ldm_checkpoint(p)
             if "transformer" not in sd or "x_embedder.weight" not in sd["transformer"]:
                 raise ValueError(f"{p} is not a BFL Flux single file (no double_blocks / single_blocks)")
-            cfg = with_guidance(sd["transformer"])
+            cfg = dataclasses.replace(with_guidance(sd["transformer"]),
+                                      num_layers=_block_count(sd["transformer"], "transformer_blocks."),
+                                      num_single_layers=_block_count(sd["transformer"], "single_transformer_blocks."))
             transformer = module_from_state(lambda: FluxTransformer2DModel(cfg), sd["transformer"], device,
                                             weight_dtype, f"{p} transformer", quantize_base)
     elif local:

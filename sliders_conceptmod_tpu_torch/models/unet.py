@@ -11,13 +11,22 @@ dtype. Every self- and cross-attention goes through
 dims up to 128 (SDXL's and SD2.1's 64, SD1.5's 40 and 80) and K4a for
 SD1.5's 1280-channel level (8 heads of 160 — diffusers' ``attention_head_dim``
 means heads).
+
+Prompt-to-prompt attention controllers (JAX ``models/unet.py``'s
+``capture_attention_maps`` and ``reweight_cross_attention``; the reference
+monkey-patches ``CrossAttention.forward``): while a controller is active, the
+attentions it concerns take a materialising path — fp32 logits, softmax, the
+probabilities kept or reweighted, then the product with V, all plain PyTorch,
+as JAX computes them with XLA einsums outside any Pallas kernel. Every other
+attention, and every attention outside the contexts, goes through the
+kernels as before.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +34,63 @@ from torch import nn
 
 from sliders_conceptmod_tpu_torch.models.norms import GroupNorm32, LayerNorm32
 from sliders_conceptmod_tpu_torch.ops.attention import dot_product_attention
+
+
+# the active controllers; each context restores the outer one on exit
+_CAPTURE: List[Optional["capture_attention_maps"]] = [None]
+_CROSS_ATTN_WEIGHTS: list = [None]
+
+
+class capture_attention_maps:
+    """While active, every :class:`Attention` materialises its attention and
+    appends its fp32 probabilities ``[B, heads, Sq, Sk]`` to :attr:`maps` as
+    ``(module, probs)`` in call order — the port's counterpart of JAX's sown
+    ``attn_probs``. :meth:`by_module` groups them per module name. Eager
+    PyTorch has no trace: the switch applies to every call inside the block,
+    and nested use restores the outer capture on exit.
+
+        with capture_attention_maps() as cap:
+            unet(sample, t, emb)
+        maps = cap.by_module(unet)  # {"down_blocks.0.attentions.0.transformer_blocks.0.attn1": [probs], ...}
+    """
+
+    def __init__(self):
+        self.maps: List[Tuple[nn.Module, torch.Tensor]] = []
+
+    def __enter__(self) -> "capture_attention_maps":
+        self._prev = _CAPTURE[0]
+        _CAPTURE[0] = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CAPTURE[0] = self._prev
+
+    def by_module(self, model: nn.Module) -> Dict[str, List[torch.Tensor]]:
+        names = {id(m): n for n, m in model.named_modules()}
+        out: Dict[str, List[torch.Tensor]] = {}
+        for mod, probs in self.maps:
+            out.setdefault(names.get(id(mod), "?"), []).append(probs)
+        return out
+
+
+class reweight_cross_attention:
+    """While active, every cross-attention scales its probabilities per text
+    token and renormalises them — prompt-to-prompt attention reweighting
+    (the reference's alpha-schedule helpers, ``infer/ptp.py``). ``weights``
+    is ``[S_text]`` (every row) or ``[B_rows, S_text]`` (CFG callers put ones
+    on the uncond rows, the reference's conditional-only reweighting).
+    Self-attentions keep the kernels. Nested use restores the outer weights."""
+
+    def __init__(self, weights):
+        self.weights = weights
+
+    def __enter__(self) -> "reweight_cross_attention":
+        self._prev = _CROSS_ATTN_WEIGHTS[0]
+        _CROSS_ATTN_WEIGHTS[0] = self.weights
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CROSS_ATTN_WEIGHTS[0] = self._prev
 
 
 @dataclass(frozen=True)
@@ -203,11 +269,18 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """to_q/to_k/to_v (no bias) + to_out.0; attention through the dispatch."""
+    """to_q/to_k/to_v (no bias) + to_out.0; attention through the dispatch,
+    or the materialising path under a controller. ``capture_maps`` makes this
+    module materialise and keep its probabilities on every call: in the
+    active :class:`capture_attention_maps`, else in :attr:`attn_probs`."""
 
-    def __init__(self, query_dim: int, heads: int, cross_attention_dim: Optional[int] = None):
+    def __init__(self, query_dim: int, heads: int, cross_attention_dim: Optional[int] = None,
+                 capture_maps: bool = False):
         super().__init__()
         self.heads = heads
+        self.is_cross = cross_attention_dim is not None
+        self.capture_maps = capture_maps
+        self.attn_probs: List[torch.Tensor] = []
         kv_dim = query_dim if cross_attention_dim is None else cross_attention_dim
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
@@ -221,7 +294,23 @@ class Attention(nn.Module):
         q = self.to_q(x).view(B, S, self.heads, hd)
         k = self.to_k(context).view(B, context.shape[1], self.heads, hd)
         v = self.to_v(context).view(B, context.shape[1], self.heads, hd)
-        out = dot_product_attention(q, k, v).reshape(B, S, inner)
+        capture = _CAPTURE[0]
+        reweight = _CROSS_ATTN_WEIGHTS[0] if self.is_cross else None
+        if self.capture_maps or capture is not None or reweight is not None:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k).float()
+            probs = torch.softmax(logits, dim=-1)
+            if reweight is not None:
+                w = torch.as_tensor(reweight, dtype=torch.float32, device=probs.device)
+                w = w.reshape(1, 1, 1, -1) if w.ndim == 1 else w[:, None, None, :]
+                probs = probs * w
+                probs = probs / probs.sum(dim=-1, keepdim=True)
+            if capture is not None:
+                capture.maps.append((self, probs))
+            elif self.capture_maps:
+                self.attn_probs.append(probs)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v).reshape(B, S, inner)
+        else:
+            out = dot_product_attention(q, k, v).reshape(B, S, inner)
         return self.to_out[0](out)
 
 

@@ -20,13 +20,14 @@ into an :class:`ImageBank` of posterior moments on the device; on the card the
 encoder's mid-block attention runs kernel K4a, and the student's attentions
 run K1 forward and K2/K3 backward.
 
-Images: PNG of any size (``io/png.py``; the GPU machine has no PIL), resized
-to the training resolution as the JAX ``load_image_array`` resizes them —
-PIL's default bicubic with antialiasing, mirrored bit for bit in numpy
+Images: PNG or JPEG of any size, read as PIL's ``convert("RGB")`` reads them
+(``io/image.py``; the GPU machine has no PIL), resized to the training
+resolution as the JAX ``load_image_array`` resizes them — PIL's default
+bicubic with antialiasing, mirrored bit for bit in numpy
 (``io/resample.py``). The JAX bank prefers its native loader when
 ``libimload.so`` loads, which resizes bilinearly; the port follows the PIL
-path, the reference's. JPEG/WebP raise ``NotImplementedError``: the port has
-no decoder for them.
+path, the reference's. WebP raises ``ValueError`` (ROADMAP.md queue 1,
+item 14).
 
 Randomness: the step takes its draws (:class:`Draws`) — as the parity tests
 derive them from the JAX key — or makes them from ``esd.TrainRNG``: pair,
@@ -47,7 +48,7 @@ from sliders_conceptmod_tpu_torch.adapters import lora as lora_lib
 from sliders_conceptmod_tpu_torch.adapters.lora import LoRAOverlay, LoRAParams, LoRASite
 from sliders_conceptmod_tpu_torch.diffusion.sampling import current_train_timestep
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import NoiseScheduler, Schedule
-from sliders_conceptmod_tpu_torch.io.png import decode_png
+from sliders_conceptmod_tpu_torch.io.image import load_rgb
 from sliders_conceptmod_tpu_torch.io.resample import resize_like_pil
 from sliders_conceptmod_tpu_torch.models.vae import sample_latents
 from sliders_conceptmod_tpu_torch.train.esd import TrainRNG, merged_call, raise_if_nonfinite
@@ -79,18 +80,11 @@ def list_paired_images(folder_main: str, folders: Sequence[str]) -> List[str]:
 
 
 def load_image_array(path: str, resolution: int) -> np.ndarray:
-    """A PNG → ``[1, 3, R, R]`` float32 in [-1, 1], as the JAX loader's
-    ``Image.open(p).convert("RGB").resize((R, R))``: grey repeated, alpha
-    dropped, then PIL's default resize (``io/resample.py``; an image at
-    ``R × R`` passes unchanged)."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: the port has no JPEG/WebP decoder (PNG only, io/png.py); save as PNG")
-    with open(path, "rb") as f:
-        img = decode_png(f.read())
-    if img.ndim == 2:
-        img = img[:, :, None]
-    img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] in (1, 2) else img[:, :, :3]
-    img = resize_like_pil(img, (resolution, resolution))
+    """A PNG or JPEG → ``[1, 3, R, R]`` float32 in [-1, 1], as the JAX
+    loader's ``Image.open(p).convert("RGB").resize((R, R))``: the file as
+    ``io/image.py::load_rgb`` reads it, then PIL's default resize
+    (``io/resample.py``; an image at ``R × R`` passes unchanged)."""
+    img = resize_like_pil(load_rgb(path), (resolution, resolution))
     arr = np.asarray(img, dtype=np.float32) / 255.0
     arr = arr * 2.0 - 1.0
     return arr.transpose(2, 0, 1)[None]

@@ -37,10 +37,11 @@ def jax_init(cfg, gh: int = 4, gw: int = 4):
 
 
 @functools.lru_cache(maxsize=None)
-def random_flux(seed: int = 3, scale: float = 0.1, dev: bool = False):
+def random_flux(seed: int = 3, scale: float = 0.1, dev: bool = False, **depth):
     """(JAX model, JAX params with N(0, scale²) leaves, the port's tiny Flux
-    transformer holding them — the whole tree, nothing left over)."""
-    cfg = dataclasses.replace(jflux.FluxConfig.tiny(), guidance_embeds=dev)
+    transformer holding them — the whole tree, nothing left over). ``depth``:
+    ``num_layers`` / ``num_single_layers`` other than the tiny family's."""
+    cfg = dataclasses.replace(jflux.FluxConfig.tiny(), guidance_embeds=dev, **depth)
     model, shapes = jax_init(cfg)
     rng = np.random.default_rng(seed)
     params = jax.tree.map(lambda a: (scale * rng.standard_normal(a.shape)).astype(np.float32), shapes)

@@ -5,7 +5,8 @@ query-range splits, determinism, input checks and the launch counts; SD3's
 joint lengths (K1 at 1357 and 4429, K2/K3 at 1357, 24 heads of 64) and the
 tiny MMDiT and SD3 sampler against the CPU; Stable Cascade's prior
 attentions (K1 at 144×229 and 36×121, rows 2 and 4; K2/K3 at rows 2; 32
-heads of 64) and the tiny prior and an ESD step against the CPU. Marked
+heads of 64) and the tiny prior and an ESD step against the CPU; an fp32
+null-text optimisation step and the attention controllers' launches. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -1312,3 +1313,59 @@ def test_tiny_cascade_prior_and_esd_step_on_the_card_match_the_cpu(gen):  # gen:
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * max(1.0, abs(out["cpu"][1]))
     for k, v in out["cpu"][2].items():
         assert abs(out["cuda"][2][k] - v).max() <= 1e-3, k
+
+
+def test_null_optimization_step_and_controllers_on_the_card_match_the_cpu(gen):  # gen: skips without a card
+    """One fp32 null-text optimisation step (``infer/null_inversion.py``, 2
+    DDIM steps, 2 inner steps) of the tiny SD UNet with a d-160 mid block:
+    the embeddings and latents on the card against the CPU (≤ 1e-3); K1 and
+    K4a in every forward, K2/K3 and K4b/K4c in every inner backward except
+    the first self-attention's, which has no gradient path to the embedding;
+    a forward under each controller launches one K1/K4a fewer per attention
+    it materialises."""
+    import dataclasses
+
+    from sliders_conceptmod_tpu_torch.diffusion.schedulers import create_noise_scheduler
+    from sliders_conceptmod_tpu_torch.infer import null_inversion as ni
+    from sliders_conceptmod_tpu_torch.models import factory
+    from sliders_conceptmod_tpu_torch.models import unet as tunet
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(tunet.UNetConfig.tiny(), block_out_channels=(32, 160), attention_head_dim=1)
+    cpu_unet = factory.build_module(lambda: tunet.UNet2DConditionModel(cfg), "cpu", torch.float32, 3)
+    assert cfg.attention_calls_by_head_dim() == {32: 6, 160: 2}
+    g = torch.Generator().manual_seed(4)
+    lat0, cond, uncond = torch.randn(1, 4, 8, 8, generator=g), torch.randn(1, 7, 32, generator=g), \
+        0.5 * torch.randn(1, 7, 32, generator=g)
+    schedule = create_noise_scheduler("ddim").set_timesteps(2)
+    null_cfg = ni.NullOptConfig(num_inner_steps=2, epsilon=-1.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        unet = cpu_unet if device == "cpu" else copy.deepcopy(cpu_unet).to(device)
+        traj = ni.ddim_invert(unet, schedule, lat0.to(device), cond.to(device))
+        before = [f.launches for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                                       kg.flash_attention_kgrid_fwd, kg.flash_attention_kgrid_bwd_dq,
+                                       kg.flash_attention_kgrid_bwd_dkv)]
+        u, lat = ni.null_optimization(unet, schedule, traj, cond.to(device), uncond.to(device), null_cfg)
+        launches = [f.launches - b for f, b in zip(
+            (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+             kg.flash_attention_kgrid_fwd, kg.flash_attention_kgrid_bwd_dq, kg.flash_attention_kgrid_bwd_dkv),
+            before)]
+        out[device] = (traj.cpu(), u.cpu(), lat.cpu(), launches)
+    forwards, backwards = 2 * (2 + 2), 2 * 2  # per step: cond, 2 inner, the final guided; 2 inner backwards
+    assert out["cuda"][3] == [6 * forwards, 5 * backwards, 5 * backwards, 2 * forwards, 2 * backwards, 2 * backwards]
+    assert out["cpu"][3] == [0] * 6
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], atol=1e-3, rtol=1e-3)
+
+    unet = copy.deepcopy(cpu_unet).to("cuda")
+    x, ctx = lat0.to("cuda"), cond.to("cuda")
+    for ctx_mgr, want in ((tunet.capture_attention_maps, (0, 0)),
+                          (lambda: tunet.reweight_cross_attention(torch.ones(7)), (3, 1))):
+        before = fa.flash_attention_fwd.launches, kg.flash_attention_kgrid_fwd.launches
+        with ctx_mgr(), torch.no_grad():
+            got = unet(x, 500, ctx)
+        assert (fa.flash_attention_fwd.launches - before[0], kg.flash_attention_kgrid_fwd.launches - before[1]) == want
+        with torch.no_grad():
+            torch.testing.assert_close(got, unet(x, 500, ctx), atol=2e-4, rtol=2e-4)

@@ -6,7 +6,7 @@ notrigger towers in the port against the JAX package, on the CPU.
   spiece tokenizer's ids equal, one prompt's (T5 text, CLIP pool) within
   2e-4, the VAE's factors;
 * BFL single files (schnell and dev, JAX-written) load bit-equal, dev read
-  off the tree;
+  off the tree, the depth off the file's blocks;
 * ``quantize_checkpoint --family flux`` writes JAX's artifact (every tensor
   and the metadata) and the artifact loads as ``--base`` in both packages,
   its forward bit-equal to the directory quantized in memory;
@@ -128,6 +128,17 @@ def test_bfl_single_file_loads_bit_equal(tmp_path, dev):
     assert ttr.config.guidance_embeds == dev and enc.text_encoders is None
     assert_same_tree(ttr, params)
     assert_same_tree(ttr, jtr.params)
+
+
+def test_bfl_single_file_depth_from_file(tmp_path):
+    """A BFL file cut in depth (1 double and 3 single blocks at the tiny
+    widths, written by the JAX exporter) loads at the file's depth."""
+    _, params, _ = random_flux(num_layers=1, num_single_layers=3)
+    path = str(tmp_path / "tiny-flux1-cut.safetensors")
+    jle.save_ldm_checkpoint(path, jle.export_flux_bfl(params))
+    _, _, ttr, _ = tfactory.load_models_flux(path, device="cpu")
+    assert (ttr.config.num_layers, ttr.config.num_single_layers, ttr.config.guidance_embeds) == (1, 3, False)
+    assert_same_tree(ttr, params)
 
 
 def test_quantize_checkpoint_flux_matches_jax(assets, tmp_path, min_elems_1, capsys):

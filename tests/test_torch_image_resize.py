@@ -7,7 +7,7 @@ antialiasing when it shrinks). The port mirrors Pillow's fixed-point
 resample in numpy (``io/resample.py``), so the arrays are compared bit for
 bit — the stated bound of 1/255 is not needed. Cases: down- and upscaling,
 non-square inputs, grey, grey + alpha and RGBA; an ``r × r`` image passes
-unchanged; JPEG/WebP stay refused.
+unchanged; JPEG loads as the JAX loader loads it; WebP stays refused.
 """
 
 import numpy as np
@@ -58,9 +58,15 @@ def test_resize_matches_pil_on_uint8_and_passes_the_target_size_through():
 
 
 def test_jpeg_and_webp_stay_refused(tmp_path):
+    """WebP stays refused (ROADMAP.md queue 1, item 14); JPEG, refused until
+    ``io/jpeg.py``, now loads and resizes as the JAX loader does."""
     img = _image(16, 16, seed=1)[:, :, :3]
-    for ext in ("jpg", "webp"):
-        path = str(tmp_path / f"im.{ext}")
-        Image.fromarray(img).save(path)
-        with pytest.raises(NotImplementedError, match="JPEG/WebP decoder"):
-            timage.load_image_array(path, 16)
+    path = str(tmp_path / "im.webp")
+    Image.fromarray(img).save(path)
+    with pytest.raises(ValueError, match="WebP is not supported.*queue 1, item 14"):
+        timage.load_image_array(path, 16)
+    path = str(tmp_path / "im.jpg")
+    Image.fromarray(img).save(path)
+    for resolution in (16, 40):
+        np.testing.assert_array_equal(timage.load_image_array(path, resolution),
+                                      jimage.load_image_array(path, resolution))

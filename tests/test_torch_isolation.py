@@ -3,8 +3,8 @@ package, nor any package the GPU machine lacks: every module is imported in a
 fresh interpreter whose import system refuses ``jax``, ``flax``, ``optax`` and
 ``sliders_conceptmod_tpu`` (that exact top-level name, so
 ``sliders_conceptmod_tpu_torch`` itself still imports), and also ``yaml``,
-``pydantic``, ``transformers``, ``tokenizers``, ``PIL``, ``safetensors`` and
-``regex``. A lazy import inside a function escapes that check, so the source
+``pydantic``, ``transformers``, ``tokenizers``, ``PIL``, ``safetensors``,
+``regex``, ``pandas``, ``torchvision`` and ``lpips``. A lazy import inside a function escapes that check, so the source
 of every port module and of chip_smoke.py is also scanned for an import
 statement of a refused package."""
 
@@ -21,7 +21,7 @@ CHECK = textwrap.dedent(
     import importlib, importlib.util, pkgutil, sys
 
     REFUSED = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
-               "tokenizers", "PIL", "safetensors", "regex"}
+               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips"}
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -95,6 +95,23 @@ FLUX_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.adapters.slider_file",
     "sliders_conceptmod_tpu_torch.io.safetensors",
 }
+# modules the image-decoding, scorer and null-text-inversion slice added or extended
+IMAGE_EVAL_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.io.jpeg",
+    "sliders_conceptmod_tpu_torch.io.png",
+    "sliders_conceptmod_tpu_torch.io.image",
+    "sliders_conceptmod_tpu_torch.train.imageslider",
+    "sliders_conceptmod_tpu_torch.models.clip_vision",
+    "sliders_conceptmod_tpu_torch.models.lpips",
+    "sliders_conceptmod_tpu_torch.models.unet",
+    "sliders_conceptmod_tpu_torch.eval.table",
+    "sliders_conceptmod_tpu_torch.eval.clip_score",
+    "sliders_conceptmod_tpu_torch.eval.lpip_score",
+    "sliders_conceptmod_tpu_torch.infer.ptp",
+    "sliders_conceptmod_tpu_torch.infer.null_inversion",
+    "sliders_conceptmod_tpu_torch.demos.demo_image_editing",
+    "sliders_conceptmod_tpu_torch.core.device",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -108,7 +125,7 @@ def test_port_and_smoke_import_without_jax():
     assert n >= 31  # every module of the package was walked (core/, train/ and cli/ included)
     walked = set(res.stdout.split(":", 1)[1].split())
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
-    assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked
+    assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():
@@ -120,7 +137,7 @@ def test_refusal_hook_bites():
 
 
 REFUSED_TOP = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
-               "tokenizers", "PIL", "safetensors", "regex"}
+               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips"}
 
 
 def _imported_tops(path):
