@@ -185,7 +185,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 15. sd_train    — as 13 for SD1.5 at 512px (cli/train_lora.py's path) from
                   data/config.yaml + data/prompts.yaml (DDIM,
                   max_denoising_steps 50): K1 20 and K4a 12 launches per UNet
-                  forward, K2/K3 20 and K4b/K4c 12 per step.
+                  forward, K2/K3 20 and K4b/K4c 12 per step; not profiled
+                  since the baseline phases joined (its profiled step, up to
+                  50 warm-up forwards, took ~20 s; PERF.md §5 keeps F10's).
 15b. sd_dora_train — as 15 with peft_type dora (the merged route), 3 steps:
                   every dora_scale moved, the saved .dora_scale keys [1, in],
                   the file reloaded through adapters/dora.py bit-equal; not
@@ -357,12 +359,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   factory.load_models_cascade bit-equal.
 22v. cascade_train — cli/train_lora_cascade.train over that directory from
                   data/config-cascade.yaml + data/prompts-cascade.yaml (512px,
-                  euler_a, T 20, bf16, c3lier rank 4), 3 steps: K1 1408 and
-                  K2 = K3 = 64 per step, the saved .pt's 256 sites; one more
-                  step profiled. Then the routes, 2 steps each on the seeded
+                  euler_a, T 20, bf16, c3lier rank 4), 2 steps: K1 1408 and
+                  K2 = K3 = 64 per step, the saved .pt's 256 sites; not
+                  profiled since the baseline phases joined (PERF.md §5
+                  keeps D16's). Then the routes, 2 steps each on the seeded
                   weightless prior: cascade_wuerstchen, cascade_dora,
                   cascade_w8a8 (the dual-tree warm-up), cascade_overlay and
                   cascade_samples2_share (K1 64 · (19 + 2 · 3) per step).
+22w. baselines — the four baseline generators at 512px, one case, one
+                  sample, BASELINE_STEPS steps: cli/generate_images_uce over
+                  the load phase's SD1.5 directory (a seeded bf16 edit of its
+                  attn2 K/V tensors as .safetensors; scales -1, 0, 0.5, 2:
+                  the scale-0 trajectory bit-equal to the original UNet's),
+                  cli/generate_images_textinversion over the directory (a
+                  learned_embeds.safetensors), cli/generate_images_textinversion_xl
+                  and cli/generate_images_customdiffusion (a delta.bin: one
+                  plain and one compressed K/V entry, one token) on the SDXL
+                  name; file trees, K1/K4a per trajectory and decode.
+22x. acceptance — cli/acceptance --skip_train on sweep_xl's slider: a
+                  3-scale SDXL sweep at ACCEPTANCE_STEPS, both scorers from
+                  the scorers phase's files; acceptance.json's curves and
+                  lpips_identity 0.0.
+22y. demos      — demos/demo_sdxl_turbo on the SDXL name (4 Euler-A steps,
+                  guidance 0, scales -2, 0, 2) and demos/demo_concept_sliders
+                  (SDXL fp32 training, 2 steps at 512px: K2/K3; a 2-scale
+                  Euler-A sweep).
+22z. parity_dump — eval/parity dump of the SD1.5 directory on the card (fp32:
+                  K1 20, K4a 12) and on the CPU, then compare (atol 5e-3).
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
@@ -405,7 +428,11 @@ from torch.func import functional_call
 
 from sliders_conceptmod_tpu_torch.adapters import dora, lora, quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
-from sliders_conceptmod_tpu_torch.cli import combine_loras, export_single_file, quantize_checkpoint
+from sliders_conceptmod_tpu_torch.cli import acceptance, combine_loras, export_single_file, quantize_checkpoint
+from sliders_conceptmod_tpu_torch.cli import generate_images_customdiffusion as gen_cd
+from sliders_conceptmod_tpu_torch.cli import generate_images_textinversion as gen_ti
+from sliders_conceptmod_tpu_torch.cli import generate_images_textinversion_xl as gen_ti_xl
+from sliders_conceptmod_tpu_torch.cli import generate_images_uce as gen_uce
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd1 as gen_sd1
 from sliders_conceptmod_tpu_torch.cli import generate_images_flux as gen_flux
 from sliders_conceptmod_tpu_torch.cli import generate_images_sd3 as gen_sd3
@@ -420,15 +447,19 @@ from sliders_conceptmod_tpu_torch.cli import (
 from sliders_conceptmod_tpu_torch.core import yaml_subset
 from sliders_conceptmod_tpu_torch.core.config import load_config_from_yaml, resolve_student_overlay
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings, load_prompts_from_yaml
+from sliders_conceptmod_tpu_torch.demos import demo_concept_sliders as demo_concept
 from sliders_conceptmod_tpu_torch.demos import demo_image_editing as demo_edit
+from sliders_conceptmod_tpu_torch.demos import demo_sdxl_turbo as demo_turbo
 from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.eval import clip_score as clip_score_cli
 from sliders_conceptmod_tpu_torch.eval import lpip_score as lpip_score_cli
+from sliders_conceptmod_tpu_torch.eval import parity
 from sliders_conceptmod_tpu_torch.infer.generate_flow import sample_flow_loop, sample_packed_flow
 from sliders_conceptmod_tpu_torch.infer import null_inversion
 from sliders_conceptmod_tpu_torch.infer.generate import latents_to_images, sample_loop, sample_loop_scales
 from sliders_conceptmod_tpu_torch.io import ldm_export
+from sliders_conceptmod_tpu_torch.io import torch_convert
 from sliders_conceptmod_tpu_torch.io.image import load_rgb
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.io.safetensors import load_file, save_file
@@ -3908,9 +3939,12 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
     Cascade joined the smoke) with tpu.quantize_base (launches as bf16's,
     finite, moved factors); one 512px request under --w8a8 (latency, peak,
     the gap to the bf16 image of flux_serve); the quantize_checkpoint
-    --family flux artifact of the weightless schnell (bytes, seconds) loaded
-    as the base, one forward bit-equal to load_models_flux(...,
-    quantize_base=True)'s, the file deleted after."""
+    --family flux artifact of flux_load's directory (full width, its depth
+    cut to FLUX_LOAD_BLOCKS: the full depth's 12 GB round trip and two 12 B
+    builds took ~29 s of the smoke before the baseline phases joined; bytes,
+    seconds) loaded as the base at the artifact's depth, one forward
+    bit-equal to load_models_flux(dir, quantize_base=True)'s, the file
+    deleted after."""
     paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 1, quantize_base=True, profile=False)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -3939,9 +3973,9 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
     if paths["flux_int8_serve"] != [k1_call, 0, 0, 0, 0, 0] or img.shape != bf16.shape:
         raise AssertionError(f"flux_int8_serve: {row}")
 
-    out = tmp / "flux1-schnell.int8.safetensors"
+    out = tmp / "flux1-schnell-cut.int8.safetensors"
     t0 = time.time()
-    n_q = quantize_checkpoint.main(["--base", FLUX, "--family", "flux", "--out", str(out)])
+    n_q = quantize_checkpoint.main(["--base", str(ref["dir"]), "--family", "flux", "--out", str(out)])
     cli_s = time.time() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3949,7 +3983,7 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
     t0 = time.time()
     _, _, from_artifact, _ = factory.load_models_flux(str(out), weight_dtype=torch.bfloat16, device="cuda")
     reload_s = time.time() - t0
-    _, _, in_memory, _ = factory.load_models_flux(FLUX, weight_dtype=torch.bfloat16, device="cuda",
+    _, _, in_memory, _ = factory.load_models_flux(str(ref["dir"]), weight_dtype=torch.bfloat16, device="cuda",
                                                   quantize_base=True)
     gen = torch.Generator(device="cuda").manual_seed(17)
     x = torch.randn((1, 1024, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -3962,12 +3996,18 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
         b = in_memory(x, t, ctx, pooled, txt_ids, img_ids)
     paths["flux_quantize_checkpoint"] = list(counts())
     check_no_plain("flux_quantize_checkpoint")
-    row = dict(phase="flux_quantize_checkpoint", int8_kernels=n_q, artifact_bytes=out.stat().st_size,
-               cli_seconds=cli_s, reload_seconds=reload_s, forward_bit_equal=bool(torch.equal(a, b)),
-               forward_finite=bool(torch.isfinite(a).all()), launches_k1_to_k4c=paths["flux_quantize_checkpoint"])
+    cut = dataclasses.replace(FluxConfig.schnell(), **FLUX_LOAD_BLOCKS)
+    depth = [from_artifact.config.num_layers, from_artifact.config.num_single_layers]
+    row = dict(phase="flux_quantize_checkpoint", base="flux_load's directory", int8_kernels=n_q,
+               artifact_bytes=out.stat().st_size, depth=depth, cli_seconds=cli_s, reload_seconds=reload_s,
+               forward_bit_equal=bool(torch.equal(a, b)), forward_finite=bool(torch.isfinite(a).all()),
+               launches_k1_to_k4c=paths["flux_quantize_checkpoint"],
+               reduced={"transformer.num_layers": [19, cut.num_layers],
+                        "transformer.num_single_layers": [38, cut.num_single_layers]})
     emit(row)
     if (not row["forward_bit_equal"] or not row["forward_finite"]
-            or paths["flux_quantize_checkpoint"] != per_step_launches(FluxConfig.schnell(), 2, 0)):
+            or depth != [cut.num_layers, cut.num_single_layers]
+            or paths["flux_quantize_checkpoint"] != per_step_launches(cut, 2, 0)):
         raise AssertionError(f"flux_quantize_checkpoint: {row}")
     del from_artifact, in_memory, a, b
     out.unlink()
@@ -4070,7 +4110,7 @@ def phase_flux_notrigger(tmp: Path) -> None:
 # ---------------------------------------------------------------------------
 
 CASCADE = "stabilityai/stable-cascade-prior"
-CASCADE_TRAIN_ITERATIONS = 3  # data/config-cascade.yaml's 2000, cut
+CASCADE_TRAIN_ITERATIONS = 2  # data/config-cascade.yaml's 2000, cut (3 before the baseline phases joined)
 CASCADE_ROUTE_ITERATIONS = 2  # the route phases' steps
 CASCADE_SHARDS = 4
 # (name, rows, Sq, Sk, heads, head dim): the prior's attentions at
@@ -4508,6 +4548,238 @@ def phase_edit(tmp: Path, sd_dir: Path) -> list:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the baseline generators, the acceptance chain, the demos, the parity dump
+# ---------------------------------------------------------------------------
+
+BASELINE_STEPS = 4  # the baseline CLIs' 50 steps, cut
+ACCEPTANCE_STEPS = 4  # the acceptance chain's sweep: 50 DDIM steps, cut
+TURBO_STEPS = 4  # the turbo demo's default
+CONCEPT_DEMO_STEPS = 2  # the concept-slider demo's 8 training steps, cut
+
+
+def one_case_csv(path: Path) -> Path:
+    """prompts/prompts-person.csv's first case alone (the acceptance chain
+    scores every case of its CSV, so it holds only the sampled one)."""
+    lines = (REPO / "prompts" / "prompts-person.csv").read_text().splitlines()
+    path.write_text("\n".join(lines[:2]) + "\n")
+    return path
+
+
+def counted(what: str, fn) -> tuple:
+    """``fn()`` with every count at 0 first: (its result, K1..K4c launches,
+    wall seconds); no plain attention may run."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_no_plain(what)
+    return out, list(counts()), wall
+
+
+def check_launches(what: str, got: list, k1: int, k4a: int, k2k3: int = 0) -> None:
+    want = [k1, k2k3, k2k3, k4a, 0, 0]
+    if got != want:
+        raise AssertionError(f"{what}: launched K1..K4c {got}, expected {want}")
+
+
+def phase_baselines(tmp: Path, sd_dir: Path) -> dict:
+    """The four baseline generators (cli/generate_images_{uce,textinversion,
+    textinversion_xl,customdiffusion}.py) at 512px, one case, one sample,
+    BASELINE_STEPS steps (cut from 50; UCE's 5 samples and 7 scales cut to 1
+    and -1, 0, 0.5, 2; the others' 5 samples to 1). UCE and TI-SD1 over the
+    load phase's SD1.5 directory, TI-XL and Custom Diffusion XL on the SDXL
+    name. UCE's scale-0 trajectory is run again with the original UNet's own
+    weights (``sample_loop(merged=None)``): the final latents bit-equal."""
+    out = {}
+    csv_path = str(REPO / "prompts" / "prompts-person.csv")
+    common = ["--prompts_path", csv_path, "--num_samples", "1", "--till_case", "0", "--ddim_steps",
+              str(BASELINE_STEPS), "--device", "0"]
+    g = torch.Generator().manual_seed(21)
+
+    # UCE: the directory's UNet with every attn2 K/V tensor moved, stored bf16 like the base
+    t0 = time.time()
+    sd, _ = torch_convert.load_unet_state(str(sd_dir))
+    edited = {k: ((v.float() + 0.02 * torch.randn(v.shape, generator=g)).to(v.dtype)
+                  if "attn2" in k and (".to_k." in k or ".to_v." in k) else v) for k, v in sd.items()}
+    uce_file = tmp / "uce_sd15.safetensors"
+    save_file(edited, str(uce_file))
+    n_edited = sum(not torch.equal(edited[k], sd[k]) for k in sd)
+    del sd, edited
+    write_s = time.time() - t0
+    calls, real = [], gen_uce.sample_loop
+
+    def recording(*a, **k):
+        final = real(*a, **k)
+        calls.append((a, k, final))
+        return final
+
+    scales = [-1.0, 0.0, 0.5, 2.0]
+    gen_uce.sample_loop = recording
+    try:
+        _, launches, wall = counted("baseline_uce", lambda: gen_uce.main(
+            ["--model_name", str(uce_file), "--save_path", str(tmp / "uce"), "--base", str(sd_dir),
+             "--scales=" + ",".join(map(str, scales)), *common]))
+    finally:
+        gen_uce.sample_loop = real
+    a, k, final0 = calls[scales.index(0.0)]
+    n_interpolated = len(a[1])
+    before = counts()
+    original = real(a[0], None, *a[2:], **k)  # scale 0 again, with the original UNet's own weights
+    extra = [x - y for x, y in zip(counts(), before)]
+    del calls, a, k
+    uce_file.unlink()
+    k1, k4a = per_sampler_call(UNetConfig.sd15(), BASELINE_STEPS, decode=False)
+    check_launches("baseline_uce", launches, len(scales) * k1, len(scales) * (k4a + 1))
+    out["baseline_uce"] = [x + y for x, y in zip(launches, extra)]
+    root = tmp / "uce" / "uce_sd15.safetensors"
+    folders = sorted(p.name for p in root.iterdir())
+    imgs = {f: decode_png((root / f / "0_0.png").read_bytes()) for f in ("-1", "0", "half", "2")}
+    row = dict(phase="baselines", cli="generate_images_uce", model=f"{SD15} (the load phase's directory)",
+               image_size=512, steps=BASELINE_STEPS, scheduler="lms", scales=scales, edited_tensors=n_edited,
+               interpolated_tensors=n_interpolated, folders=folders, edit_write_seconds=write_s, wall_seconds=wall,
+               scale0_bit_equal_to_original=bool(torch.equal(final0, original)),
+               gap_scale_minus1_to_2=image_gap(imgs["-1"], imgs["2"]), launches_k1_to_k4c=launches)
+    emit(row)
+    if (folders != ["-1", "0", "2", "all", "half"] or not row["scale0_bit_equal_to_original"]
+            or n_interpolated != n_edited or row["gap_scale_minus1_to_2"]["max_abs"] == 0
+            or any(im.shape != (512, 512, 3) for im in imgs.values())):
+        raise AssertionError(f"baselines: UCE {row}")
+
+    # Textual Inversion, SD1.5 (the directory's BPE tokenizer) and SDXL (the weightless towers' hash tokenizer)
+    save_file({"<sks>": torch.randn((768,), generator=g) * 0.02}, str(tmp / "learned_embeds.safetensors"))
+    save_file({"clip_l": torch.randn((768,), generator=g) * 0.02, "clip_g": torch.randn((1280,), generator=g) * 0.02},
+              str(tmp / "learned_embeds_xl.safetensors"))
+    k1_xl, k4a_xl = per_sampler_call(UNetConfig.sdxl(), BASELINE_STEPS)
+    runs = [("baseline_ti_sd1", gen_ti, ["--model_name", str(sd_dir), "--token", "<sks>", "--embedding_path",
+                                         str(tmp / "learned_embeds.safetensors")], sd_dir.name, (k1, k4a + 1)),
+            ("baseline_ti_xl", gen_ti_xl, ["--model_name", SDXL, "--token", "<sks>", "--embedding_path",
+                                           str(tmp / "learned_embeds_xl.safetensors")], Path(SDXL).name,
+             (k1_xl, k4a_xl))]
+
+    # Custom Diffusion XL: one plain and one compressed (rank 4) attn2 K/V entry, one token for both towers
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape) for n, p in UNet2DConditionModel(UNetConfig.sdxl()).named_parameters()}
+    kv = sorted(n for n in shapes if "attn2" in n and (".to_k." in n or ".to_v." in n))
+    (tmp / "cd").mkdir()
+    torch.save({"unet": {kv[0]: torch.randn(shapes[kv[0]], generator=g) * 0.02,
+                         kv[1]: {"u": torch.randn((shapes[kv[1]][0], 4), generator=g) * 0.05,
+                                 "v": torch.randn((4, shapes[kv[1]][1]), generator=g) * 0.05}},
+                "modifier_token": {"<new1>": [torch.randn((768,), generator=g) * 0.02,
+                                              torch.randn((1280,), generator=g) * 0.02]}}, tmp / "cd" / "delta.bin")
+    runs.append(("baseline_cd_xl", gen_cd, ["--model_name", str(tmp / "cd" / "delta.bin"), "--token", "<new1>",
+                                            "--family", "xl", "--base", SDXL], "delta.bin", (k1_xl, k4a_xl)))
+    for what, cli, argv, folder, (w_k1, w_k4a) in runs:
+        save = tmp / what
+        _, launches, wall = counted(what, lambda: cli.main([*argv, "--save_path", str(save), *common]))
+        check_launches(what, launches, w_k1, w_k4a)
+        files = sorted(str(p.relative_to(save)) for p in save.rglob("*.png"))
+        img = decode_png((save / folder / "0_0.png").read_bytes())
+        emit(dict(phase="baselines", cli=cli.__name__.rsplit(".", 1)[-1], image_size=512, steps=BASELINE_STEPS,
+                  files=files, wall_seconds=wall, launches_k1_to_k4c=launches, image_mean=float(img.mean())))
+        if files != [f"{folder}/0_0.png"] or img.shape != (512, 512, 3):
+            raise AssertionError(f"baselines: {what} wrote {files}")
+        out[what] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_acceptance(tmp: Path) -> list:
+    """cli/acceptance --skip_train on sweep_xl's slider over the SDXL name: a
+    3-scale sweep (-2, 0, 2) at 512px and ACCEPTANCE_STEPS DDIM steps (cut
+    from 50), one case (prompts-person.csv's first), then both scorers with
+    the scorers phase's seeded weights, on the card. acceptance.json: JAX's
+    keys, finite curves, lpips_identity exactly 0.0."""
+    save = tmp / "acceptance"
+    argv = ["--prompts_path", str(one_case_csv(tmp / "acceptance_prompts.csv")), "--save_path", str(save),
+            "--base", SDXL, "--skip_train", "--model_name", str(tmp / "sweep_xl_noxattn_rank4_alpha1.safetensors"),
+            "--ddim_steps", str(ACCEPTANCE_STEPS), "--scales=-2,0,2", "--clip_prompt", "a photo of a person",
+            "--clip_model", str(tmp / "clip_vit_b32"), "--alexnet_weights", str(tmp / "lpips" / "alexnet.pth"),
+            "--lpips_weights", str(tmp / "lpips" / "lpips_alex.pth"), "--device", "0"]
+    _, launches, wall = counted("acceptance", lambda: acceptance.main(argv))
+    report = json.loads((save / "acceptance.json").read_text())
+    k1, k4a = per_sampler_call(UNetConfig.sdxl(), ACCEPTANCE_STEPS)
+    emit(dict(phase="acceptance", model=SDXL, image_size=512, steps=ACCEPTANCE_STEPS, scales=[-2.0, 0.0, 2.0],
+              report={k: v for k, v in report.items() if k not in ("slider", "sweep_dir")}, wall_seconds=wall,
+              launches_k1_to_k4c=launches))
+    check_launches("acceptance", launches, 3 * k1, 3 * k4a)
+    curves = list(report["clip_curve"].values()) + list(report["lpips_curve"].values())
+    if (report.get("lpips_identity") != 0.0 or len(report["clip_curve"]) != 3 or len(report["lpips_curve"]) != 2
+            or not all(np.isfinite(curves))):
+        raise AssertionError(f"acceptance: {report}")
+    return launches
+
+
+def phase_demos(tmp: Path) -> dict:
+    """demos/demo_sdxl_turbo on the SDXL name with sweep_xl's slider (512px,
+    TURBO_STEPS Euler-A steps, guidance 0: the cond-only rows, start_noise
+    800, scales -2, 0, 2), then demos/demo_concept_sliders on it: fp32 ESD
+    training through the programmatic API (CONCEPT_DEMO_STEPS steps at 512px,
+    cut from 8 at 64px: K2/K3) and a 2-scale sweep (4 Euler-A steps, CFG)."""
+    out = {}
+    args = demo_turbo.build_parser().parse_args(
+        ["--base", SDXL, "--slider", str(tmp / "sweep_xl_noxattn_rank4_alpha1.safetensors"), "--prompt",
+         "a photo of a person", "--steps", str(TURBO_STEPS), "--out", str(tmp / "turbo")])
+    images, launches, wall = counted("demo_turbo", lambda: demo_turbo.run(args))
+    k1, k4a = per_sampler_call(UNetConfig.sdxl(), TURBO_STEPS)
+    emit(dict(phase="demos", demo="demo_sdxl_turbo", model=SDXL, image_size=512, steps=TURBO_STEPS,
+              guidance_scale=0.0, scales=sorted(images), wall_seconds=wall, launches_k1_to_k4c=launches,
+              gap_scale_minus2_to_2=image_gap(images[-2.0], images[2.0])))
+    check_launches("demo_turbo", launches, 3 * k1, 3 * k4a)
+    if any(im.shape != (512, 512, 3) for im in images.values()) or np.array_equal(images[-2.0], images[2.0]):
+        raise AssertionError("demo_turbo: the images are not three distinct 512px renders")
+    out["demo_turbo"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    args = demo_concept.build_parser().parse_args(
+        ["--base", SDXL, "--steps", str(CONCEPT_DEMO_STEPS), "--resolution", "512", "--scales=-2,2", "--out",
+         str(tmp / "concept_demo")])
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted("demo_concept", lambda: demo_concept.run(args))
+    t_to = [row["timesteps_to"] for row in res["result"].metrics]
+    train = per_step_launches(UNetConfig.sdxl(), sum(t + 2 for t in t_to), CONCEPT_DEMO_STEPS)
+    k1, k4a = per_sampler_call(UNetConfig.sdxl(), demo_concept.SWEEP_STEPS)
+    want = [train[0] + 2 * k1, train[1], train[2], 2 * k4a, 0, 0]
+    losses = res["result"].losses
+    emit(dict(phase="demos", demo="demo_concept_sliders", model=SDXL, precision="float32", image_size=512,
+              train_steps=CONCEPT_DEMO_STEPS, timesteps_to=t_to, losses=losses, sweep_steps=demo_concept.SWEEP_STEPS,
+              scales=sorted(res["images"]), wall_seconds=wall, launches_k1_to_k4c=launches, expected=want,
+              max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30))
+    if launches != want or len(losses) != CONCEPT_DEMO_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"demo_concept: launched {launches}, expected {want}; losses {losses}")
+    out["demo_concept"] = launches
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parity_dump(tmp: Path, sd_dir: Path) -> list:
+    """eval/parity dump of the SD1.5 directory (fp32, the probes: one UNet
+    forward and the text tower) on the card, then the same dump on the CPU,
+    then compare at its default atol (5e-3 relative): seconds of each."""
+    card, cpu = tmp / "parity_card.npz", tmp / "parity_cpu.npz"
+    dump = ["dump", "--model_dir", str(sd_dir), "--family", "sd15"]
+    _, launches, card_s = counted("parity_dump", lambda: parity.main([*dump, "--out", str(card), "--device", "0"]))
+    t0 = time.time()
+    parity.main([*dump, "--out", str(cpu), "--device", "cpu"])
+    cpu_s = time.time() - t0
+    ok = parity.compare(str(cpu), str(card))
+    a, b = np.load(cpu), np.load(card)
+    rel = {k: float(np.abs(a[k] - b[k]).max() / (np.abs(b[k]).max() + 1e-8)) for k in a.files}
+    k1, k4a = per_sampler_call(UNetConfig.sd15(), 1, decode=False)
+    emit(dict(phase="parity_dump", model=f"{SD15} (the load phase's directory)", precision="float32", ok=ok,
+              max_rel_err_card_vs_cpu=rel, card_seconds=card_s, cpu_seconds=cpu_s, launches_k1_to_k4c=launches))
+    check_launches("parity_dump", launches, k1, k4a)
+    if not ok:
+        raise AssertionError(f"parity_dump: the card's activations differ from the CPU's: {rel}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -4580,7 +4852,7 @@ def main() -> int:
         paths["imageslider"] = phase_image_pairs(tmp, "imageslider", "config-xl.yaml",
                                                  train_lora_scale.XL_RESOLUTION, seed=6, first_wh=(600, 400))
         torch.cuda.empty_cache()
-        train_rows["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml")
+        train_rows["sd_train"] = phase_esd(tmp, "sd_train", "config.yaml", profile=False)
         torch.cuda.empty_cache()
         train_rows["sd_dora_train"] = phase_esd(tmp, "sd_dora_train", "config.yaml", iterations=ROUTE_ITERATIONS,
                                                 peft_type="dora", profile=False)
@@ -4619,6 +4891,12 @@ def main() -> int:
         paths["edit"] = phase_edit(tmp, sd_dir)
         emit(dict(phase="image_eval_phases", seconds=time.time() - t_image + image_eval_seconds,
                   image_decode_seconds=image_eval_seconds))
+        t_eval = time.time()
+        paths.update(phase_baselines(tmp, sd_dir))
+        paths["acceptance"] = phase_acceptance(tmp)
+        paths.update(phase_demos(tmp))
+        paths["parity_dump"] = phase_parity_dump(tmp, sd_dir)
+        emit(dict(phase="eval_phases", seconds=time.time() - t_eval))
         t_export = time.time()
         paths["export"] = phase_export(tmp, sd_dir)
         emit(dict(phase="export_path", seconds=time.time() - t_export))
@@ -4651,7 +4929,7 @@ def main() -> int:
         emit(dict(phase="flux_phases", seconds=time.time() - t_flux))
         t_cascade = time.time()
         cascade_dir = phase_cascade_load(tmp)
-        paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir)
+        paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir, profile=False)
         shutil.rmtree(cascade_dir)
         paths.update(phase_cascade_routes(tmp))
         emit(dict(phase="cascade_phases", seconds=time.time() - t_cascade + cascade_seconds,
@@ -4661,13 +4939,14 @@ def main() -> int:
     # dim 64 everywhere) launched no K4a/K4b/K4c in training and K4a only in
     # its decodes when serving
     inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep",
-                 "serve_int8_quantize_base", "serve_int8_w8a8", "quantize_checkpoint")
+                 "serve_int8_quantize_base", "serve_int8_w8a8", "quantize_checkpoint", "baseline_uce",
+                 "baseline_ti_sd1", "baseline_ti_xl", "baseline_cd_xl", "acceptance", "demo_turbo", "parity_dump")
     # null-text inversion editing: SD1.5 in fp32, forward and backward (the embedding's gradient)
     edit = ("edit",)
     xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider", "knob_samples2",
                 "knob_fuse_teacher_student", "knob_pipeline_warmup", "knob_share_warmup", "knob_dynamic_res_crops",
                 "knob_lion", "knob_prodigy_restarts", "knob_1024_remat", "profile_dir", "int8_bf16_reference",
-                "int8_quantize_base", "int8_w8a8_dual", "int8_both")
+                "int8_quantize_base", "int8_w8a8_dual", "int8_both", "demo_concept")
     sd15_train = ("sd_train", "sd_dora_train", "sd_imageslider", "sd_imageslider_merged", "sd_knob_lion_step",
                   "sd_knob_sgd_linear_clip", "sd_knob_dadaptadam_samples2", "sd_int8_bf16_reference",
                   "sd_int8_quantize_base")
@@ -4686,7 +4965,7 @@ def main() -> int:
               + flux_train + flux_inference + cascade_train + edit,
         "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
         "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
-        "K4a": ("serve", "imageslider") + sd15_train + inference + sd3_decode + ("flux_load",) + edit,
+        "K4a": ("serve", "imageslider", "demo_concept") + sd15_train + inference + sd3_decode + ("flux_load",) + edit,
         "K4b": sd15_train + edit,
         "K4c": sd15_train + edit,
     }

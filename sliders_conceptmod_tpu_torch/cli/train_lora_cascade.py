@@ -52,6 +52,7 @@ from sliders_conceptmod_tpu_torch.train import esd, esd_cascade
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, profiled
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
 def refuse_unsupported(tpu_cfg, peft_type: str):
@@ -86,6 +87,7 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     """Train one Stable Cascade slider. Runs on ``cuda`` unless
     ``device="cpu"``."""
     t_entry = time.time()
+    apply_tpu_runtime_flags(config.tpu)
     tpu_cfg = config.tpu
     student_overlay, w8a8_warmup = refuse_unsupported(tpu_cfg, peft_type)
     check_supported(config, prompts, peft_type)

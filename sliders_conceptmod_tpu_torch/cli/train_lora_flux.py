@@ -55,6 +55,7 @@ from sliders_conceptmod_tpu_torch.train import esd, esd_flux
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, flat_params, get_lr_schedule, get_optimizer
 from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 N_STEPS = 8  # the reference's num_inference_steps (train_lora_flux.py:240)
 
@@ -69,6 +70,7 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
           resume_from=None, device: str = "cuda") -> TrainResult:
     """Train one Flux slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
+    apply_tpu_runtime_flags(config.tpu)
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
     quantize_base = bool(tpu_cfg.quantize_base)

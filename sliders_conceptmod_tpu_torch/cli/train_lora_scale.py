@@ -53,6 +53,7 @@ from sliders_conceptmod_tpu_torch.train.esd import TrainRNG
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 from sliders_conceptmod_tpu_torch.train.trainer import TrainResult
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 XL_RESOLUTION = 512  # reference train_lora-scale-xl.py:220
 SD_RESOLUTION = 256  # reference train_lora-scale.py:219
@@ -78,6 +79,7 @@ def train(config, prompts, folder_main: str, folders, scales, rank: int = 4, sav
           resume_from=None, device: str = "cuda") -> TrainResult:
     """Train one image-pair slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
+    apply_tpu_runtime_flags(config.tpu)
     student_overlay = resolve_student(config)
     scales, folders = list(scales), list(folders)
     if len(folders) != len(scales):

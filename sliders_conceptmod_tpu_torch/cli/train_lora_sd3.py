@@ -48,12 +48,14 @@ from sliders_conceptmod_tpu_torch.train import esd, esd_sd3
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, profiled, resolve_int8_routes
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
 def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bool = True, on_step_complete=None,
           resume_from=None, device: str = "cuda") -> TrainResult:
     """Train one SD3 slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
+    apply_tpu_runtime_flags(config.tpu)
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
     student_overlay, overlay_warmup, quantize_base = resolve_int8_routes(tpu_cfg, peft_type)

@@ -45,6 +45,7 @@ from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import notrigger as nt
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 _SD3 = ("SD3-Medium", "tiny-sd3")
 _FLUX = ("FLUX.1", "tiny-flux")
@@ -73,6 +74,7 @@ def train(
     when it saves, else the reference-schema state dict (numpy). Runs on
     ``cuda`` unless ``device="cpu"``."""
     tpu = getattr(config, "tpu", None)
+    apply_tpu_runtime_flags(tpu)
     if getattr(tpu, "quantize_base", False) or getattr(tpu, "w8a8_warmup", False):
         raise NotImplementedError(
             "tpu.quantize_base / tpu.w8a8_warmup quantize a frozen diffusion transformer; the "

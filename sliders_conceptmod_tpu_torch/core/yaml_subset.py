@@ -1,5 +1,7 @@
 """A reader for the subset of YAML that the repository's config and prompt
-files use — the port's own, since the GPU machine has no ``yaml`` package.
+files use — the port's own, since the GPU machine has no ``yaml`` package —
+and the smallest writer of it (:func:`dumps`, ``yaml.dump``'s output for the
+block mappings and lists of scalars that ``cli/make_config.py`` writes).
 
 The subset:
 
@@ -118,7 +120,7 @@ def _scalar(s: str, lineno: int) -> Any:
         if len(s) < 2 or not s.endswith("'") or "'" in s[1:-1].replace("''", ""):
             raise YAMLSubsetError(f"line {lineno}: text after a quoted scalar, or a multi-line one")
         return s[1:-1].replace("''", "'")
-    if s[:1] in ("[", "{", "&", "*", "!", "|", ">", "@", "`", "%", "?"):
+    if s[:1] in ("[", "{", "&", "*", "!", "|", ">", "@", "`", "%") or s == "?" or s.startswith("? "):
         raise YAMLSubsetError(f"line {lineno}: {s[:1]!r} (flow style, anchor, alias, tag or block scalar)")
     if s == "-" or s.startswith("- "):
         raise YAMLSubsetError(f"line {lineno}: a list entry where a value belongs")
@@ -251,3 +253,103 @@ def loads(text: str) -> Any:
 def load_file(path) -> Any:
     with open(path, "r", encoding="utf-8") as f:
         return loads(f.read())
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+_TIMESTAMP = re.compile(
+    r"^(?:[0-9]{4}-[0-9]{2}-[0-9]{2}|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt]|[ \t]+)[0-9]{1,2}:[0-9]{2}:[0-9]{2}"
+    r"(?:\.[0-9]*)?(?:[ \t]*(?:Z|[-+][0-9]{1,2}(?::[0-9]{2})?))?)$"
+)
+
+
+def _resolves_to_other(s: str) -> bool:
+    """A plain ``s`` would load as something other than this string
+    (PyYAML's implicit resolvers): null, bool, int, float, a timestamp, the
+    merge key or the value key."""
+    return bool(s in _NULL or s in _BOOL or _INT.match(s) or _FLOAT.match(s) or _INF.match(s) or _NAN.match(s)
+                or _OTHER_NUMBERS.match(s) or _TIMESTAMP.match(s) or s in ("<<", "="))
+
+
+def _plain_allowed(s: str) -> bool:
+    """PyYAML's ``analyze_scalar``: may ``s`` stand as a block plain scalar
+    (no indicator at its start, no ``": "``/``" #"``, no edge spaces)?"""
+    if s.startswith(("---", "...")) or s[0] == " " or s[-1] == " ":
+        return False
+    for i, ch in enumerate(s):
+        before_ws = i == 0 or s[i - 1] == " "
+        after_ws = i + 1 >= len(s) or s[i + 1] == " "
+        if i == 0 and (ch in "#,[]{}&*!|>'\"%@`" or (ch in "?:-" and after_ws)):
+            return False
+        if i > 0 and ((ch == ":" and after_ws) or (ch == "#" and before_ws)):
+            return False
+    return True
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if not isinstance(value, str):
+        raise YAMLSubsetError(f"{type(value).__name__} values are outside the writer's subset")
+    if any(not " " <= ch <= "~" for ch in value):
+        raise YAMLSubsetError(f"{value!r}: only printable ASCII on one line is inside the writer's subset")
+    if value and not _resolves_to_other(value) and _plain_allowed(value):
+        return value
+    return "'" + value.replace("'", "''") + "'"
+
+
+def _dump_block(value: Any, indent: int, out: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(value, dict):
+        if not value:
+            raise YAMLSubsetError("an empty mapping is flow style, outside the subset")
+        for key in sorted(value):
+            item = value[key]
+            if isinstance(item, dict):
+                out.append(f"{pad}{_dump_scalar(key)}:")
+                _dump_block(item, indent + 2, out)
+            elif isinstance(item, list):
+                out.append(f"{pad}{_dump_scalar(key)}:")
+                _dump_block(item, indent, out)  # PyYAML's indentless sequence
+            else:
+                out.append(f"{pad}{_dump_scalar(key)}: {_dump_scalar(item)}")
+    elif isinstance(value, list):
+        if not value:
+            raise YAMLSubsetError("an empty list is flow style, outside the subset")
+        for item in value:
+            if isinstance(item, dict):
+                sub: List[str] = []
+                _dump_block(item, indent + 2, sub)
+                out.append(f"{pad}- {sub[0][indent + 2:]}")
+                out.extend(sub[1:])
+            elif isinstance(item, list):
+                raise YAMLSubsetError("nested inline lists are outside the subset")
+            else:
+                out.append(f"{pad}- {_dump_scalar(item)}")
+    else:
+        out.append(f"{pad}{_dump_scalar(value)}")
+
+
+def dumps(value: Any) -> str:
+    """``yaml.dump(value)`` (block style, keys sorted, PyYAML's choice of
+    plain or single-quoted scalars, ``''`` for an empty string) for block
+    mappings and lists of str, int, float, bool and None, which
+    :func:`loads` reads back equal. Outside PyYAML's output: a line is never
+    folded (PyYAML folds a string past column 80), and strings are printable
+    ASCII (else :class:`YAMLSubsetError`)."""
+    out: List[str] = []
+    _dump_block(value, 0, out)
+    return "\n".join(out) + "\n"

@@ -660,7 +660,8 @@ def load_models_flux(
       absent), T5's tokenizer from ``tokenizer_2/spiece.model`` (else the
       hash stand-in), CLIP's from ``tokenizer/``;
     * an int8 artifact (``io/quant_cache.py``, ``cli/quantize_checkpoint.py
-      --family flux``): the transformer from it, the stand-in encoder;
+      --family flux``): the transformer from it, at the depth its blocks
+      hold (the family's widths), the stand-in encoder;
     * a BFL single file (``flux1-schnell.safetensors``): the transformer
       (``io/ldm_convert.py``) at the depth the file's ``double_blocks`` /
       ``single_blocks`` hold (19 + 38 in BFL's files, the family's widths),
@@ -696,7 +697,9 @@ def load_models_flux(
     transformer = None
     if is_single_file(p) and quant_cache.is_quantized_artifact(p):
         if with_transformer:
-            cfg = with_guidance(k.replace("/", ".") for k in read_keys(p))
+            keys = [k.replace("/", ".") for k in read_keys(p)]
+            cfg = dataclasses.replace(with_guidance(keys), num_layers=_block_count(keys, "transformer_blocks_"),
+                                      num_single_layers=_block_count(keys, "single_transformer_blocks_"))
             transformer = quantized_from_artifact(p, lambda: FluxTransformer2DModel(cfg), device, weight_dtype)
     elif is_single_file(p):
         from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint

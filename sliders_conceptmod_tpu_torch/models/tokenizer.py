@@ -128,6 +128,41 @@ class CLIPTokenizerFiles:
         self.pad_id = self.eos_id if pad_token_id is None else int(pad_token_id)
         self.max_length = max_length
         self._cache: Dict[str, List[str]] = {BOS: [BOS], EOS: [EOS]}
+        self._added: Dict[str, int] = {}  # modifier/TI tokens: text -> id past the vocabulary
+
+    @property
+    def vocab_size(self) -> int:
+        """``len(CLIPTokenizer)``: the vocabulary and the added tokens."""
+        return len(self.encoder) + len(self._added)
+
+    def add_tokens(self, token: str) -> int:
+        """Register a modifier/TI token and return its id, as
+        ``CLIPTokenizer.add_tokens`` + ``convert_tokens_to_ids`` give it: the
+        next id, ``len(tokenizer)``. The token is matched case-sensitively in
+        the raw text before cleaning and the split, so it is never split into
+        sub-words; the text around it is tokenized as before. An empty token,
+        or one the vocabulary or an earlier call already holds, raises."""
+        if not token or token in self.encoder or token in self._added:
+            raise ValueError(f"tokenizer already contains the token {token}")
+        self._added[token] = self.vocab_size
+        return self._added[token]
+
+    def _segments(self, text: str) -> List[Tuple[str, bool]]:
+        """``text`` cut at the added tokens (the earliest match, the longest
+        there, as transformers' ``Trie.split``): (segment, is_added)."""
+        out, start, i = [], 0, 0
+        while i < len(text):
+            match = max((t for t in self._added if text.startswith(t, i)), key=len, default=None)
+            if match is None:
+                i += 1
+                continue
+            if i > start:
+                out.append((text[start:i], False))
+            out.append((match, True))
+            i = start = i + len(match)
+        if start < len(text):
+            out.append((text[start:], False))
+        return out
 
     def bpe(self, token: str) -> List[str]:
         """One split piece (already byte-mapped) → its BPE symbols."""
@@ -154,6 +189,12 @@ class CLIPTokenizerFiles:
 
     def encode(self, text: str) -> List[int]:
         """Token ids without BOS/EOS, untruncated."""
+        if self._added:
+            return [i for seg, added in self._segments(text)
+                    for i in ([self._added[seg]] if added else self._encode_plain(seg))]
+        return self._encode_plain(text)
+
+    def _encode_plain(self, text: str) -> List[int]:
         unk = self.eos_id
         ids = []
         for piece in _PAT.findall(clean_text(text)):
@@ -223,12 +264,25 @@ class HashTokenizer:
         self.max_length = max_length
         self.bos, self.eos = bos, eos
         self.pad = eos if pad is None else pad
+        self._added: Dict[str, int] = {}  # modifier/TI tokens: lower-cased word -> id past the table
+
+    def add_tokens(self, token: str) -> int:
+        """Register a modifier/TI token (a whole word, any case): its id is
+        the next past the table; a repeat raises."""
+        key = token.lower()
+        if key in self._added:
+            raise ValueError(f"tokenizer already contains the token {token}")
+        self._added[key] = self.vocab_size + len(self._added)
+        return self._added[key]
 
     def __call__(self, prompts: Sequence[str]) -> np.ndarray:
         out = np.full((len(prompts), self.max_length), self.pad, dtype=np.int32)
         for i, p in enumerate(prompts):
             ids = [self.bos]
             for w in p.lower().split()[: self.max_length - 2]:
+                if w in self._added:
+                    ids.append(self._added[w])
+                    continue
                 h = 0
                 for ch in w:  # stable across runs (unlike hash())
                     h = (h * 131 + ord(ch)) % (self.vocab_size - 3)

@@ -199,6 +199,14 @@ def _nvcc() -> str:
     return found
 
 
+def set_build_dir(path) -> None:
+    """Build the kernels into, and reuse them from, ``path`` (created at the
+    first build; ``utils/debug.py::apply_tpu_runtime_flags``'s
+    ``compilation_cache_dir``). A library already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
 def _library_path(name: str) -> Path:
     # the source and every header of csrc/ it may include
     src = SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))

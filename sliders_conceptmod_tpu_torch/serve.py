@@ -38,7 +38,9 @@ sampler call when the sliders' site sets stack (``--no_stack`` splits them).
 UNet's large Linears as int8 (``adapters/quant.py``) and ``--w8a8`` (which
 implies it) also quantizes their activations per token; sliders ride the
 overlay on the int8 UNet, and text-encoder parts merge into the CLIP towers,
-which are never quantized.
+which are never quantized. ``--compilation_cache_dir DIR`` builds the CUDA
+kernels into ``DIR`` and reuses them from there
+(``utils/debug.py::apply_tpu_runtime_flags``), so a restart skips ``nvcc``.
 
 GET /generate params: prompt (required), scale (default 0), seed (default
 0), guidance (default 7.5), slider (default "default"). A seed reproduces the
@@ -58,6 +60,7 @@ import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from types import SimpleNamespace
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
@@ -86,6 +89,7 @@ from sliders_conceptmod_tpu_torch.diffusion.flow_match import calculate_shift
 from sliders_conceptmod_tpu_torch.io.png import encode_png
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.models.flux import pack_latents, prepare_latent_image_ids, unpack_latents
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
 class QueueFullError(Exception):
@@ -867,6 +871,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_sliders", type=int, default=None,
                     help="bound the slider registry: registering past it (POST /sliders) evicts the least "
                          "recently used slider ('default' is pinned)")
+    ap.add_argument("--compilation_cache_dir", default=None,
+                    help="the directory the CUDA kernels are built into and reused from, so a restarted server "
+                         "skips nvcc (utils/debug.apply_tpu_runtime_flags)")
     return ap
 
 
@@ -903,6 +910,8 @@ def service_settings(args):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.compilation_cache_dir:
+        apply_tpu_runtime_flags(SimpleNamespace(compilation_cache_dir=args.compilation_cache_dir))
     cls, kwargs = service_settings(args)
     service = cls(args.base, args.slider, **kwargs)
     for spec in args.add_slider:

@@ -74,6 +74,7 @@ from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
+from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 _QUEUE1 = "ROADMAP.md queue 1"
 
@@ -175,6 +176,7 @@ def train(
 ) -> TrainResult:
     """Train one slider. Runs on ``cuda`` unless ``device="cpu"``."""
     t_entry = time.time()
+    apply_tpu_runtime_flags(config.tpu)
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
     student_overlay, overlay_warmup, quantize_base = resolve_int8_routes(tpu_cfg, peft_type)

@@ -6,7 +6,8 @@ joint lengths (K1 at 1357 and 4429, K2/K3 at 1357, 24 heads of 64) and the
 tiny MMDiT and SD3 sampler against the CPU; Stable Cascade's prior
 attentions (K1 at 144×229 and 36×121, rows 2 and 4; K2/K3 at rows 2; 32
 heads of 64) and the tiny prior and an ESD step against the CPU; an fp32
-null-text optimisation step and the attention controllers' launches. Marked
+null-text optimisation step and the attention controllers' launches; the
+baselines' token growth and K/V patch against the CPU. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -1369,3 +1370,44 @@ def test_null_optimization_step_and_controllers_on_the_card_match_the_cpu(gen): 
         assert (fa.flash_attention_fwd.launches - before[0], kg.flash_attention_kgrid_fwd.launches - before[1]) == want
         with torch.no_grad():
             torch.testing.assert_close(got, unet(x, 500, ctx), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inversion_token_and_kv_patch_on_the_card_match_the_cpu(gen, dtype):  # gen: skips without a card
+    """The baselines' weight edits on the card: a textual-inversion token
+    grows the tiny tower's table (old rows bit-equal, the row written) and
+    the encode agrees with the CPU's; a Custom Diffusion delta (a copy and a
+    rank-3 ``u @ v``) patches the tiny SDXL UNet to the CPU's weights."""
+    from sliders_conceptmod_tpu_torch.eval import baselines
+    from sliders_conceptmod_tpu_torch.models import factory
+
+    emb = torch.randn(32, generator=torch.Generator().manual_seed(1))
+    _, te_cpu, _, _ = factory.load_models("tiny", device="cpu", weight_dtype=dtype)
+    towers = {}
+    for device in ("cpu", "cuda"):
+        te = factory.TextEncoderBundle(copy.deepcopy(te_cpu.model).to(device), copy.deepcopy(te_cpu.tokenizer))
+        old = te.model.token_embedding.weight.detach().clone()
+        assert baselines.add_inversion_token(te, "<sks>", emb) == 49408
+        table = te.model.token_embedding.weight
+        assert table.shape[0] == te.model.config.vocab_size == 49409 and torch.equal(table[:49408], old)
+        with torch.no_grad():
+            towers[device] = (table.detach().cpu(), te.encode(["a photo with <sks>"]).last_hidden_state.float().cpu())
+    assert torch.equal(towers["cuda"][0], towers["cpu"][0])
+    torch.testing.assert_close(towers["cuda"][1], towers["cpu"][1], atol=2e-4 if dtype == torch.float32 else 3e-2,
+                               rtol=0)
+
+    _, _, unet_cpu, _ = factory.load_models_xl("tiny-xl", device="cpu", weight_dtype=dtype)
+    sd = unet_cpu.state_dict()
+    kv = sorted(k for k in sd if "attn2" in k and (".to_k." in k or ".to_v." in k))
+    g = torch.Generator().manual_seed(2)
+    delta = {kv[0]: sd[kv[0]].float() + 0.5,
+             kv[1]: {"u": torch.randn((sd[kv[1]].shape[0], 3), generator=g),
+                     "v": torch.randn((3, sd[kv[1]].shape[1]), generator=g)}}
+    patched = {}
+    for device in ("cpu", "cuda"):
+        unet = copy.deepcopy(unet_cpu).to(device)
+        baselines.patch_custom_diffusion_kv(unet, delta)
+        patched[device] = {k: unet.state_dict()[k].cpu() for k in kv[:2]}
+    for k, v in patched["cpu"].items():
+        torch.testing.assert_close(patched["cuda"][k].float(), v.float(), rtol=2e-6 if dtype == torch.float32
+                                   else 2 ** -8, atol=0)

@@ -141,6 +141,25 @@ def test_bfl_single_file_depth_from_file(tmp_path):
     assert_same_tree(ttr, params)
 
 
+def test_int8_artifact_depth_from_file(tmp_path, min_elems_1):
+    """An int8 artifact of a transformer cut in depth (1 double and 3 single
+    blocks at the tiny widths) loads at the artifact's depth, its forward
+    bit-equal to the cut transformer quantized in memory."""
+    _, _, port = random_flux(num_layers=1, num_single_layers=3)
+    path = str(tmp_path / "tiny-flux-cut.int8.safetensors")
+    tquant.quantize_module(port)
+    assert tqc.quant_cache.save_quantized(path, port) > 0
+    _, _, ttr, _ = tfactory.load_models_flux(path, device="cpu")
+    assert (ttr.config.num_layers, ttr.config.num_single_layers) == (1, 3) and tquant.is_quantized(ttr)
+    r = np.random.default_rng(1)
+    args = [torch.from_numpy(x) for x in (r.standard_normal((1, 16, 16)).astype(np.float32),
+                                          np.array([0.5], np.float32), r.standard_normal((1, 8, 32)).astype(np.float32),
+                                          r.standard_normal((1, 32)).astype(np.float32), np.zeros((8, 3), np.float32),
+                                          np.zeros((16, 3), np.float32))]
+    with torch.no_grad():
+        assert torch.equal(ttr(*args), port(*args))
+
+
 def test_quantize_checkpoint_flux_matches_jax(assets, tmp_path, min_elems_1, capsys):
     jout, tout = str(tmp_path / "tiny-flux.jax.int8.safetensors"), str(tmp_path / "tiny-flux.port.int8.safetensors")
     jqc.run(jqc.build_parser().parse_args(["--base", assets["base"], "--family", "flux", "--out", jout,

@@ -112,6 +112,22 @@ IMAGE_EVAL_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.demos.demo_image_editing",
     "sliders_conceptmod_tpu_torch.core.device",
 }
+# modules the baselines, acceptance, parity and demos slice added or extended (utils/ and demos/ included)
+EVAL_REST_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.eval.baselines",
+    "sliders_conceptmod_tpu_torch.eval.parity",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_uce",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_textinversion",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_textinversion_xl",
+    "sliders_conceptmod_tpu_torch.cli.generate_images_customdiffusion",
+    "sliders_conceptmod_tpu_torch.cli.acceptance",
+    "sliders_conceptmod_tpu_torch.cli.make_config",
+    "sliders_conceptmod_tpu_torch.cli.run_batch",
+    "sliders_conceptmod_tpu_torch.core.yaml_subset",
+    "sliders_conceptmod_tpu_torch.utils.debug",
+    "sliders_conceptmod_tpu_torch.demos.demo_concept_sliders",
+    "sliders_conceptmod_tpu_torch.demos.demo_sdxl_turbo",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -126,6 +142,7 @@ def test_port_and_smoke_import_without_jax():
     walked = set(res.stdout.split(":", 1)[1].split())
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
     assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
+    assert EVAL_REST_SLICE_MODULES <= walked
 
 
 def test_refusal_hook_bites():
