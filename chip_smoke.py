@@ -293,18 +293,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   artifact bytes and seconds; one UNet forward from the
                   artifact bit-equal to load_models(dir, quantize_base=True)'s.
 22g. sd3_load  — a full-width SD3-Medium diffusers directory of seeded bf16
-                  weights (transformer in two shards, CLIP-L with its
+                  weights (transformer in two shards, 24 blocks cut to
+                  SD3_LAYERS 12 since the mesh phases joined; CLIP-L with its
                   projection, bigG, the 16-channel VAE with use_quant_conv
                   false, scaling 1.5305, shift 0.0609, both tokenizers),
                   loaded by factory.load_models_sd3 bit for bit; GB, GB/s.
 22h. sd3_train — cli/train_lora_sd3.train from data/config-sd3.yaml +
                   data/prompts-sd3.yaml over that directory (512px, batch 8,
                   CFG 7, 28 flow steps; iterations cut 1000 → 4): K1
-                  24·(tₖ + 3), K2 = K3 = 24 per step; steps/s, first step,
+                  12·(tₖ + 3), K2 = K3 = 12 per step (the directory's 12
+                  of SD3-Medium's 24 blocks); steps/s, first step,
                   peak memory, timesteps_to, saved keys; one step profiled.
 22i. sd3_serve — SD3SliderService over the directory, 1024px, 28 steps, CFG
                   7: two solo requests, a concurrent pair, one over HTTP,
-                  one profiled; 672 K1 per sampler call and 1 K4a per decode.
+                  one profiled; 336 K1 per sampler call (12 blocks) and 1
+                  K4a per decode.
 22j. sd3_sweep — cli/generate_images_sd3 at its defaults (512px, 28 steps),
                   scales -2, 0, 2 × 1 sample × case 0.
 22k. sd3_int8  — 2 training steps with tpu.quantize_base, one 1024px
@@ -386,13 +389,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   Euler-A sweep).
 22z. parity_dump — eval/parity dump of the SD1.5 directory on the card (fp32:
                   K1 20, K4a 12) and on the CPU, then compare (atol 5e-3).
+22za. mesh     — ONE world of two ranks on the card, spawned once
+                  (parallel/mesh.py: gloo, CUDA tensors staged through
+                  pinned host memory; mesh_world), held in the parent
+                  against one rank: ring (ring attention at 1024px Flux's
+                  4608 and SD3's 4250 joint tokens, bf16: O and dQ/dK/dV
+                  against K1/K2/K3 on the whole sequence; K1 = K2 = K3 = 2
+                  a call per rank; ms of the ring's forward, of K1 on a
+                  block and on the whole sequence), sp_train (Flux over
+                  flux_load's directory at 1024px, tpu.sequence_parallel,
+                  one micro-step: every joint attention through the ring),
+                  tp (its forward with every Linear's rows over the two
+                  ranks, against the whole forward), dp_train (SD1.5 ESD
+                  over the load directory, samples_per_step 2 on mesh_data
+                  2, 2 steps, all six kernels, against the one-rank run of
+                  the same draws), mesh_sweep (sweep_xl's te run with
+                  --mesh_data 2, against its images) and mesh_serve (SDXL
+                  with mesh_data 2, two requests, against the serve
+                  phase's images); the world's seconds by phase.
 23. kernels     — every ported kernel with its launches on its paths (each
                   path counted from 0 just before it; the inference paths
                   sd_serve, sd2_serve, sweep_xl, sweep_sd1 and export run K1
                   and K4a and no backward kernel; the SD3 and Flux paths join
                   K1, K2/K3 in training and K4a where they decode; the Cascade
-                  paths K1, K2 and K3 and no k-grid kernel; the edit path all
-                  six). On every path the
+                  paths K1, K2 and K3 and no k-grid kernel; the edit path
+                  all six; the mesh paths rank 0's launches: dp_train all
+                  six, the ring and sp_train K1-K3, tp K1, the sharded sweep
+                  and serving K1 and K4a). On every path the
                   plain attention versions, forward and backward, ran 0 times
                   on the card.
 
@@ -476,6 +499,8 @@ from sliders_conceptmod_tpu_torch.models.unet import UNet2DConditionModel, UNetC
 from sliders_conceptmod_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
 from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
+from sliders_conceptmod_tpu_torch.parallel.ring_attention import ring_attention
 from sliders_conceptmod_tpu_torch.serve import (
     FluxSliderService,
     SD1SliderService,
@@ -3093,6 +3118,9 @@ def phase_kernel_sd_serve(gen: torch.Generator) -> tuple:
 SD3 = "stabilityai/stable-diffusion-3-medium"
 SD3_TRAIN_ITERATIONS = 4  # data/config-sd3.yaml's 1000, cut
 SD3_SERVE_SIZE, SD3_SERVE_STEPS, SD3_GUIDANCE = 1024, 28, 7.0
+# the sd3_load directory's MMDiT: SD3-Medium's full width, its 24 blocks cut to 12 when the mesh phases joined
+SD3_LAYERS = 12
+SD3_DIR_CFG = dataclasses.replace(MMDiTConfig.sd3_medium(), num_layers=SD3_LAYERS)
 # (name, rows, S, heads, head dim): K1 at the joint sequence (image tokens +
 # 77 CLIP + 256 zero T5 tokens). 1024px serving with CFG: 4096 + 333 = 4429
 # at rows 2; 512px training: 1024 + 333 = 1357 at rows 1, 2 and 4 (one
@@ -3281,7 +3309,7 @@ SD3_TE_CONFIGS = {"text_encoder": CLIPTextConfig(projection_dim=768), "text_enco
 
 def phase_sd3_load(tmp: Path) -> Path:
     """A full-width SD3-Medium diffusers directory of seeded random bf16
-    weights: transformer/ (MMDiTConfig.sd3_medium(), two shards and an
+    weights: transformer/ (MMDiTConfig.sd3_medium() at SD3_LAYERS blocks, two shards and an
     index), text_encoder/ (CLIP-L with its 768-dim projection) and
     text_encoder_2/ (bigG) under transformers names, vae/ (VAEConfig.sd3():
     16 channels, use_quant_conv false, scaling 1.5305, shift 0.0609),
@@ -3292,10 +3320,10 @@ def phase_sd3_load(tmp: Path) -> Path:
     t0 = time.time()
     src = {comp: factory.build_module(lambda c=c: CLIPTextEncoder(c), "cuda", torch.bfloat16, seed)
            for seed, (comp, c) in enumerate(SD3_TE_CONFIGS.items())}
-    src["transformer"] = factory.build_module(lambda: SD3Transformer2DModel(MMDiTConfig.sd3_medium()), "cuda",
+    src["transformer"] = factory.build_module(lambda: SD3Transformer2DModel(SD3_DIR_CFG), "cuda",
                                               torch.bfloat16, 2)
     src["vae"] = factory.build_module(lambda: AutoencoderKL(VAEConfig.sd3()), "cuda", torch.bfloat16, 3)
-    configs = {"transformer": MMDiTConfig.sd3_medium(), "vae": VAEConfig.sd3(), **SD3_TE_CONFIGS}
+    configs = {"transformer": SD3_DIR_CFG, "vae": VAEConfig.sd3(), **SD3_TE_CONFIGS}
     nbytes = 0
     for comp, module in src.items():
         sd = module.state_dict()
@@ -3324,7 +3352,7 @@ def phase_sd3_load(tmp: Path) -> Path:
               load_seconds=load_s, load_gb_per_second=nbytes / load_s / 1e9,
               tokenizers=[type(t).__name__ for t in toks], vae_shift_factor=vae.config.shift_factor,
               vae_quant_convs=vae.quant_conv is not None, scheduler_shift=sched.shift, bit_equal=not mismatched))
-    if mismatched or vae.quant_conv is not None or transformer.config != MMDiTConfig.sd3_medium():
+    if mismatched or vae.quant_conv is not None or transformer.config != SD3_DIR_CFG:
         raise AssertionError(f"sd3_load: {len(mismatched)} tensors differ from their source (e.g. {mismatched[:3]})")
     del src, got, tes, transformer, vae
     torch.cuda.empty_cache()
@@ -3336,8 +3364,8 @@ def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iteration
     """Full-width SD3-Medium ESD training at 512px through
     cli/train_lora_sd3.train from data/config-sd3.yaml + data/prompts-sd3.yaml
     (batch 8, CFG 7, 28 flow steps; only the model — the sd3_load directory —,
-    train.iterations and save.path overridden): per step K1 24·(tₖ + 3) (the
-    warm-up, teacher, student and the student's recompute) and K2 = K3 = 24;
+    train.iterations and save.path overridden): per step K1 12·(tₖ + 3) (the
+    warm-up, teacher, student and the student's recompute) and K2 = K3 = 12;
     steps/s after the first, first-step seconds, peak memory, the drawn
     timesteps_to, the saved keys; one more step profiled."""
     cfg, prompts = train_config(tmp / what, "config-sd3.yaml", iterations)
@@ -3352,7 +3380,7 @@ def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iteration
     launches = list(counts())
     check_no_plain(what)
     t_to = [r["timesteps_to"] for r in res.metrics]
-    mm_cfg = MMDiTConfig.sd3_medium()
+    mm_cfg = SD3_DIR_CFG
     want = per_step_launches(mm_cfg, sum(t + 3 for t in t_to), iterations)
     saved = load_file(str(Path(cfg.save.path) / f"{cfg.save.name}_last.safetensors"))
     with torch.device("meta"):
@@ -3374,7 +3402,7 @@ def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iteration
                up_factors_still_zero=ups_zero)
     emit(row)
     if (not all(np.isfinite(res.losses)) or len(res.losses) != iterations or ups_zero or not keys_ok
-            or len(res.sites) != 96 or launches != want):
+            or len(res.sites) != 4 * SD3_LAYERS or launches != want):
         raise AssertionError(f"{what}: {row}")
     if profile:
         profiled = {}
@@ -3386,17 +3414,17 @@ def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iteration
 
 
 def make_sd3_slider(path: Path, rank: int = 4, seed: int = 4) -> None:
-    """A rank-4 '-'-delimited slider over SD3-Medium's 96 image-stream sites
+    """A rank-4 '-'-delimited slider over the sd3_load MMDiT's 48 image-stream sites
     (the trainer's under train_method full), non-zero up."""
     with torch.device("meta"):
-        model = SD3Transformer2DModel(MMDiTConfig.sd3_medium())
+        model = SD3Transformer2DModel(SD3_DIR_CFG)
     lora.save_weights(str(path), *sd3_lora(model, seed, rank))
 
 
 def phase_sd3_serve(tmp: Path, sd3_dir: Path, ref: dict) -> tuple:
     """SD3SliderService over the sd3_load directory at 1024px, 28 flow steps,
     CFG 7: two solo requests, a concurrent pair, one /generate over HTTP, one
-    profiled request; 24 × 28 = 672 K1 launches per sampler call and one K4a
+    profiled request; 12 × 28 = 336 K1 launches per sampler call and one K4a
     per decode (the fp32 VAE's mid-block). Keeps the slider and the bf16
     image of SD3_INT8_REQUEST in ``ref`` for sd3_int8."""
     ref["slider"] = str(tmp / "sd3_serve_noxattn_rank4_alpha1.safetensors")
@@ -3407,14 +3435,14 @@ def phase_sd3_serve(tmp: Path, sd3_dir: Path, ref: dict) -> tuple:
     return served(tmp, "sd3_serve", lambda p: SD3SliderService(str(sd3_dir), p, image_size=SD3_SERVE_SIZE,
                                                                steps=SD3_SERVE_STEPS, device="cuda",
                                                                batch_window_ms=50.0),
-                  MMDiTConfig.sd3_medium(), f"{SD3} (the sd3_load directory)", guidance=SD3_GUIDANCE,
+                  SD3_DIR_CFG, f"{SD3} (the sd3_load directory)", guidance=SD3_GUIDANCE,
                   slider=make_sd3_slider, after=after)
 
 
 def phase_sd3_sweep(tmp: Path, sd3_dir: Path, slider: str) -> list:
     """cli/generate_images_sd3 at its defaults (512px, 28 steps, CFG 7,
     start_noise 750) over the sd3_load directory, scales -2, 0, 2 × one
-    sample × case 0 of prompts/prompts-person.csv: per trajectory 24 × 28 K1,
+    sample × case 0 of prompts/prompts-person.csv: per trajectory 12 × 28 K1,
     one K4a per decode; seconds per image."""
     save = tmp / "sd3_sweep"
     scales = ("-2.0", "0.0", "2.0")
@@ -3428,7 +3456,7 @@ def phase_sd3_sweep(tmp: Path, sd3_dir: Path, slider: str) -> list:
     launches = list(counts())
     check_no_plain("sd3_sweep")
     imgs = {s: decode_png((save / Path(slider).name / s / "0_0.png").read_bytes()) for s in scales}
-    k1_call, k4a_call = per_sampler_call(MMDiTConfig.sd3_medium(), 28)
+    k1_call, k4a_call = per_sampler_call(SD3_DIR_CFG, 28)
     want = [len(scales) * k1_call, 0, 0, len(scales) * k4a_call, 0, 0]
     row = dict(phase="sd3_sweep", model=f"{SD3} (the sd3_load directory)", image_size=512, steps=28,
                scales=list(scales), wall_seconds=wall, seconds_per_image=wall / len(scales),
@@ -3468,7 +3496,7 @@ def phase_sd3_int8(tmp: Path, sd3_dir: Path, ref: dict) -> dict:
     del svc
     torch.cuda.empty_cache()
     img, bf16 = decode_png(png), decode_png(ref["png"])
-    k1_call, k4a_call = per_sampler_call(MMDiTConfig.sd3_medium(), SD3_SERVE_STEPS)
+    k1_call, k4a_call = per_sampler_call(SD3_DIR_CFG, SD3_SERVE_STEPS)
     row = dict(phase="sd3_int8_serve", mode="w8a8", load_seconds=load_s, request_seconds=secs, quant_linears=n_q,
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                gap_to_bf16=image_gap(img, bf16), launches_k1_to_k4c=paths["sd3_int8_serve"])
@@ -3502,7 +3530,7 @@ def phase_sd3_int8(tmp: Path, sd3_dir: Path, ref: dict) -> dict:
                launches_k1_to_k4c=paths["sd3_quantize_checkpoint"])
     emit(row)
     if (not row["forward_bit_equal"] or not row["forward_finite"]
-            or paths["sd3_quantize_checkpoint"] != per_step_launches(MMDiTConfig.sd3_medium(), 2, 0)):
+            or paths["sd3_quantize_checkpoint"] != per_step_launches(SD3_DIR_CFG, 2, 0)):
         raise AssertionError(f"sd3_quantize_checkpoint: {row}")
     del from_artifact, from_dir, a, b
     out.unlink()
@@ -3546,7 +3574,7 @@ def phase_sd3_export(tmp: Path, sd3_dir: Path, slider: str) -> None:
     out.unlink()
     del tes, merged_model, dir_tes, base, got, want, merged
     torch.cuda.empty_cache()
-    if bad or len(sites) != 96:
+    if bad or len(sites) != 4 * SD3_LAYERS:
         raise AssertionError(f"sd3_export: {len(bad)} tensors differ (e.g. {bad[:3]}), {len(sites)} sites")
 
 
@@ -4025,7 +4053,8 @@ def phase_flux_export(tmp: Path, slider: str, flux_dir: Path) -> None:
     fp16); the file reloaded through the BFL loader at fp16
     (factory.load_models_flux: schnell, and the depth the file's blocks
     hold) and exported again: every tensor bit-equal to the file's; bytes,
-    write and reload seconds; the file and the directory deleted after."""
+    write and reload seconds; the file deleted after (the directory stays
+    for the mesh phases)."""
     out = tmp / "flux1-schnell-merged.safetensors"
     t0 = time.time()
     sd = export_single_file.main(["--base", str(flux_dir), "--slider", slider, "--scale", "2", "--output", str(out),
@@ -4047,7 +4076,6 @@ def phase_flux_export(tmp: Path, slider: str, flux_dir: Path) -> None:
                mismatched=len(bad) + len(set(back) - set(sd)))
     emit(row)
     out.unlink()
-    shutil.rmtree(flux_dir)
     del sd, model, back
     gc.collect()
     torch.cuda.empty_cache()
@@ -4780,6 +4808,353 @@ def phase_parity_dump(tmp: Path, sd_dir: Path) -> list:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# the mesh phases: one world of two ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2  # two ranks share the card: gloo, the ring's hops staged through pinned host memory
+# ring attention at the joint sequences of 1024px Flux (4096 + 512 tokens) and SD3 (4096 + 154):
+# (name, rows, tokens, heads, head dim); each rank holds half the tokens
+RING_SHAPES = [("flux_1024_joint", 1, 4608, 24, 128), ("sd3_1024_joint", 1, 4250, 24, 64)]
+RING_SEED = 31
+MESH_SD_ITERATIONS = 2  # dp_train: SD1.5 ESD steps, samples_per_step 2 over the data axis
+SP_MIN_SEQ = 4096  # sp_train: the JAX default of tpu.sp_min_seq
+TP_LATENT = 64  # tp: a 512px Flux latent (32 × 32 packed tokens) and its 512 T5 tokens
+# mesh_serve: two requests of one micro-batch (one row per rank), also asked of the serve phase's service;
+# "default" is the serve phase's slider on both (serve_sliders changes the rest of that registry)
+MESH_SERVE_REQUESTS = [("a photo of a person", -1.0, 13, 7.5, "default"),
+                       ("a photo of a person", 1.5, 17, 7.5, "default")]
+
+
+def ring_inputs(i: int) -> list:
+    """q, k, v and dO of RING_SHAPES[i], N(0, 1) in bf16 from a seed: every
+    rank and the parent make the same."""
+    _, rows, seq, heads, d = RING_SHAPES[i]
+    gen = torch.Generator(device="cuda").manual_seed(RING_SEED + i)
+    return [torch.randn((rows, seq, heads, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4)]
+
+
+def world_ring(mesh) -> dict:
+    """ring (in each rank): ring attention on this rank's half of each
+    RING_SHAPES sequence, forward and backward (K1 on each block, K2 and K3
+    on each block against the global lse and the merged O); the blocks, the
+    launches, and the forward's milliseconds per call (both ranks on the
+    card at once)."""
+    out = {}
+    for i, (name, *_) in enumerate(RING_SHAPES):
+        q, k, v, do = ring_inputs(i)
+        lo, hi = mesh_lib.data_share(q.shape[1], mesh)
+        qb, kb, vb = (t[:, lo:hi].contiguous().requires_grad_(True) for t in (q, k, v))
+        reset_counts()
+        o = ring_attention(qb, kb, vb, mesh=mesh)
+        o.backward(do[:, lo:hi].contiguous())
+        torch.cuda.synchronize()
+        launches = counts()
+        check_no_plain(f"ring {name}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: ring_attention(qb, kb, vb, mesh=mesh), 5)
+        out[name] = dict(lo=lo, hi=hi, o=o.detach().cpu(), dq=qb.grad.cpu(), dk=kb.grad.cpu(), dv=vb.grad.cpu(),
+                         launches=launches, ring_ms=ms)
+    return out
+
+
+def world_sp_train(tmp: Path, flux_dir: Path) -> dict:
+    """sp_train (in each rank): cli/train_lora_flux.train over flux_load's
+    directory (full width, 2 + 4 blocks, bf16) from data/config-flux.yaml at
+    1024px, batch 1, with tpu.sequence_parallel over the two ranks: every
+    joint self-attention (4608 tokens) runs as ring attention.
+    train.iterations 0: the CLI's iterations·k + 1 micro-steps are one."""
+    cfg, prompts = train_config(tmp / "sp_train", "config-flux.yaml", 0)
+    cfg.pretrained_model.name_or_path = str(flux_dir)
+    set_tpu(cfg, quantize_base=False, sequence_parallel=True, sp_min_seq=SP_MIN_SEQ, mesh_data=MESH_RANKS)
+    prompts = [dataclasses.replace(p, resolution=1024, batch_size=1) for p in prompts]
+    reset_counts()
+    t0 = time.time()
+    res = train_lora_flux.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    torch.cuda.synchronize()
+    launches = counts()
+    check_no_plain("sp_train")
+    return dict(losses=res.losses, grad_norms=[float(r["grad_norm"]) for r in res.metrics], launches=launches,
+                wall_seconds=time.time() - t0, first_step_seconds=res.first_step_seconds,
+                setup_seconds=res.setup_seconds, max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def tp_inputs(cfg) -> tuple:
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    g = TP_LATENT // 2
+    x = torch.randn((1, g * g, cfg.in_channels), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((1, 512, cfg.joint_attention_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    ids = torch.from_numpy(prepare_latent_image_ids(g, g)).to("cuda")
+    return x, torch.ones(1, device="cuda"), ctx, pooled, torch.zeros((512, 3), device="cuda"), ids
+
+
+def world_tp(flux_dir: Path) -> dict:
+    """tp (in each rank): flux_load's transformer (full width, 2 + 4
+    blocks, bf16) run once whole (mesh_model 1), then with every Linear's
+    output rows sharded over the two ranks (parallel/mesh.py::tp_shard_tree:
+    each rank holds half of them and gathers the outputs); both outputs, the
+    sharded forward's launches, the share of the tensors held."""
+    _, _, model, _ = factory.load_models_flux(str(flux_dir), weight_dtype=torch.bfloat16, device="cuda")
+    inputs = tp_inputs(model.config)
+    before = sum(t.numel() for t in model.state_dict().values())
+    with torch.no_grad():
+        whole = model(*inputs)
+        mesh_lib.tp_shard_tree(model, mesh_lib.make_mesh(data=1, model=MESH_RANKS))
+        reset_counts()
+        t0 = time.time()
+        sharded = model(*inputs)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    launches = counts()
+    check_no_plain("tp")
+    held = sum(t.numel() for t in model.state_dict().values()) / before
+    return dict(whole=whole.float().cpu(), sharded=sharded.float().cpu(), launches=launches, held=held,
+                sharded_forward_seconds=secs)
+
+
+def dp_config(tmp: Path, sd_dir: Path, what: str, mesh_data: int = -1):
+    """data/config.yaml (SD1.5 ESD at 512px, bf16, DDIM) over the load
+    phase's directory, MESH_SD_ITERATIONS steps of samples_per_step 2."""
+    cfg, prompts = train_config(tmp / what, "config.yaml", MESH_SD_ITERATIONS)
+    cfg.pretrained_model.name_or_path = str(sd_dir)
+    set_tpu(cfg, samples_per_step=2, mesh_data=mesh_data)
+    return cfg, prompts
+
+
+def world_dp_train(tmp: Path, sd_dir: Path) -> dict:
+    """dp_train (in each rank): trainer.train on dp_config with mesh_data 2:
+    each rank runs one of each step's two samples (K1 and K2/K3 at head dims
+    40/80, K4a/K4b/K4c at 160), the gradient summed over the ranks."""
+    cfg, prompts = dp_config(tmp, sd_dir, "dp_train", MESH_RANKS)
+    reset_counts()
+    t0 = time.time()
+    res = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda")
+    torch.cuda.synchronize()
+    launches = counts()
+    check_no_plain("dp_train")
+    return dict(losses=res.losses, grad_norms=[float(r["grad_norm"]) for r in res.metrics],
+                timesteps_to=[r["timesteps_to"] for r in res.metrics], launches=launches,
+                wall_seconds=time.time() - t0, factors={n: {k: t.detach().float().cpu() for k, t in leaf.items()}
+                                                        for n, leaf in res.lora_params.items()})
+
+
+def mesh_sweep_argv(tmp: Path, save: str, *extra) -> list:
+    """sweep_xl's te_batch_scales run (its combine_loras file, scales -2 and
+    2: two rows)."""
+    return ["--model_name", str(tmp / "sweep_xl_te_noxattn_rank4_alpha1.safetensors"), "--prompts_path",
+            str(REPO / "prompts" / "prompts-person.csv"), "--save_path", str(tmp / save), "--base", SDXL,
+            "--num_samples", "1", "--till_case", "0", "--ddim_steps", str(SWEEP_XL_STEPS), "--scales=-2.0,2.0",
+            "--batch_scales", *extra]
+
+
+def world_mesh_sweep(tmp: Path) -> dict:
+    """mesh_sweep (in each rank): cli/generate_images_xl with --mesh_data 2
+    on sweep_xl's te_batch_scales arguments: one row per rank; rank 0 writes
+    the images."""
+    run = timed_sweep(gen_xl, mesh_sweep_argv(tmp, "mesh_sweep", "--mesh_data", str(MESH_RANKS)))
+    check_no_plain("mesh_sweep")
+    return dict(launches=run["launches"], wall_seconds=run["wall_seconds"], sweep_seconds=run["sweep_seconds"])
+
+
+def world_mesh_serve(tmp: Path) -> dict:
+    """mesh_serve (in each rank): SliderService on the SDXL name at the
+    serve phase's 1024px and 8 steps with mesh_data 2 and the serve phase's
+    slider; rank 0 takes MESH_SERVE_REQUESTS as one micro-batch (one row
+    per rank, gathered on rank 0) and closes the service, which releases
+    rank 1."""
+    slider = str(tmp / "serve_noxattn_rank4_alpha1.safetensors")
+    svc = SliderService(SDXL, slider, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", mesh_data=MESH_RANKS)
+    reset_counts()
+    out = {}
+    if svc.serve_ranks():
+        t0 = time.time()
+        out["pngs"] = svc._generate_batch(MESH_SERVE_REQUESTS)
+        out["batch_seconds"] = time.time() - t0
+        out["max_batch"], out["buckets"] = svc._batcher.max_batch, svc._buckets
+        svc.close()
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    check_no_plain("mesh_serve")
+    return out
+
+
+def mesh_world(tmp: str, sd_dir: str, flux_dir: str) -> None:
+    """Every mesh phase in one rank of the smoke's world, in order; the
+    results go to ``{tmp}/mesh_rank{r}.pt`` for the parent to check. A
+    failure raises here, and the parent's spawn_world raises it again."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp, t0 = Path(tmp), time.time()
+    seconds, res = {}, {}
+    for name, run in (("ring", lambda: world_ring(mesh_lib.make_mesh(data=MESH_RANKS, model=1))),
+                      ("sp_train", lambda: world_sp_train(tmp, Path(flux_dir))),
+                      ("tp", lambda: world_tp(Path(flux_dir))),
+                      ("dp_train", lambda: world_dp_train(tmp, Path(sd_dir))),
+                      ("mesh_sweep", lambda: world_mesh_sweep(tmp)),
+                      ("mesh_serve", lambda: world_mesh_serve(tmp))):
+        t = time.time()
+        res[name] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = time.time() - t
+    res["seconds"], res["world_seconds"] = seconds, time.time() - t0
+    res["backend"] = mesh_lib._WORLD["backend"]
+    torch.save(res, tmp / f"mesh_rank{mesh_lib.rank()}.pt")
+
+
+def blocks_gap(got, want: torch.Tensor, tol: float) -> dict:
+    err = (got.float() - want.float()).abs().max().item()
+    return dict(max_abs_err=err, ref_max_abs=want.abs().max().item(), tol=tol, ok=err <= tol)
+
+
+def check_ring(ranks: list) -> list:
+    """The ring's blocks of both ranks against K1 on the whole sequence
+    (O) and K2/K3 on it (dQ, dK, dV), within the bf16 bounds of the kernel
+    checks; the milliseconds of K1 on a block, on the whole sequence and the
+    ring's call (rank 0, its peer on the card at the same time). Returns
+    rank 0's launches over both shapes."""
+    launches = None
+    for i, (name, rows_, seq, heads, d) in enumerate(RING_SHAPES):
+        q, k, v, do = ring_inputs(i)
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        got = {key: torch.cat([r["ring"][name][key] for r in ranks], dim=1) for key in ("o", "dq", "dk", "dv")}
+        o_ref = o.float().cpu()
+        checks = {"o": blocks_gap(got["o"], o_ref, min(BF16_TOL, BF16_REL * o_ref.abs().max().item()))}
+        for key, ref in (("dq", dq), ("dk", dk), ("dv", dv)):
+            ref = ref.float().cpu()
+            checks[key] = blocks_gap(got[key], ref, grad_tol(ref, torch.bfloat16))
+        half = seq // MESH_RANKS
+        block_ms = cuda_ms(lambda: fa.flash_attention_fwd(q[:, :half], k[:, :half], v[:, :half], scale), 10)
+        whole_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10)
+        per_rank = [list(r["ring"][name]["launches"]) for r in ranks]
+        row = dict(phase="ring", shape=name, rows=rows_, tokens=seq, heads=heads, head_dim=d, ranks=MESH_RANKS,
+                   block=[half, half], checks=checks, launches_per_rank=per_rank,
+                   ring_forward_ms=ranks[0]["ring"][name]["ring_ms"], k1_block_ms=block_ms, k1_whole_ms=whole_ms)
+        emit(row)
+        want = [MESH_RANKS, MESH_RANKS, MESH_RANKS, 0, 0, 0]
+        if not all(c["ok"] for c in checks.values()) or any(p != want for p in per_rank):
+            raise AssertionError(f"ring {name}: {row}")
+        launches = per_rank[0] if launches is None else [a + b for a, b in zip(launches, per_rank[0])]
+    return launches
+
+
+def phase_mesh(tmp: Path, sd_dir: Path, flux_dir: Path, serve_ref: list) -> dict:
+    """The mesh phases (parallel/mesh.py) in ONE world of MESH_RANKS ranks
+    on the one card, spawned once: ring, sp_train, tp, dp_train, mesh_sweep
+    and mesh_serve (mesh_world), each held here against its one-rank
+    counterpart: the whole-sequence kernels, the one-rank SD1.5 run of the
+    same draws, the unsharded forward, and the images sweep_xl and the serve
+    phase wrote for the same seeds. Two ranks on one card, with host-staged
+    hops, show that the code is right on CUDA tensors, not how fast it runs
+    across cards. Returns each path's launches (rank 0's)."""
+    t0 = time.time()
+    cfg, prompts = dp_config(tmp, sd_dir, "dp_one_rank")
+    one = trainer.train(cfg, prompts, rank=cfg.network.rank, device="cuda", save_file=False)
+    one_factors = {n: {k: t.detach().float().cpu() for k, t in leaf.items()} for n, leaf in one.lora_params.items()}
+    one_losses, one_t_to = list(one.losses), [r["timesteps_to"] for r in one.metrics]
+    one_s = time.time() - t0
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    mesh_lib.spawn_world(mesh_world, (str(tmp), str(sd_dir), str(flux_dir)), MESH_RANKS, device="cuda")
+    world_s = time.time() - t1
+    ranks = [torch.load(tmp / f"mesh_rank{r}.pt", weights_only=False) for r in range(MESH_RANKS)]
+    paths = {}
+    paths["ring"] = check_ring(ranks)
+
+    # sp_train: both ranks ran the same step, every joint attention through the ring
+    sp = [r["sp_train"] for r in ranks]
+    flux_cfg = dataclasses.replace(FluxConfig.schnell(), **FLUX_LOAD_BLOCKS)
+    micro = len(sp[0]["losses"])
+    want = [MESH_RANKS * n for n in per_step_launches(flux_cfg, 3 * micro, micro)]
+    row = dict(phase="sp_train", model=f"{FLUX} (flux_load's directory: 2 + 4 blocks)", image_size=1024,
+               joint_tokens=4096 + 512, sp_min_seq=SP_MIN_SEQ, micro_steps=micro,
+               losses=[s["losses"] for s in sp], grad_norms=[s["grad_norms"] for s in sp],
+               launches_per_rank=[list(s["launches"]) for s in sp], expected_launches=want,
+               first_step_seconds=sp[0]["first_step_seconds"], setup_seconds=sp[0]["setup_seconds"],
+               wall_seconds=sp[0]["wall_seconds"], max_memory_allocated_gib=sp[0]["max_memory_allocated_gib"])
+    emit(row)
+    if (micro != 1 or any(list(s["launches"]) != want for s in sp) or not all(np.isfinite(sp[0]["losses"]))
+            or sp[0]["losses"] != sp[1]["losses"]):
+        raise AssertionError(f"sp_train: {row}")
+    paths["sp_train"] = list(sp[0]["launches"])
+
+    # tp: the sharded forward against the whole one
+    tp = ranks[0]["tp"]
+    gap = (tp["sharded"] - tp["whole"]).abs()
+    rel = gap.max().item() / tp["whole"].abs().max().item()
+    row = dict(phase="tp", model=f"{FLUX} (flux_load's directory: 2 + 4 blocks)", image_size=TP_LATENT * 8,
+               mesh_model=MESH_RANKS, held_share=[r["tp"]["held"] for r in ranks], max_abs_gap=gap.max().item(),
+               mean_abs_gap=gap.mean().item(), relative_gap=rel, launches_per_rank=[list(r["tp"]["launches"])
+                                                                                    for r in ranks],
+               sharded_forward_seconds=tp["sharded_forward_seconds"])
+    emit(row)
+    if not rel <= 0.05 or any(r["tp"]["held"] >= 0.75 for r in ranks) or list(tp["launches"]) != [6, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"tp: {row}")
+    paths["tp"] = list(tp["launches"])
+
+    # dp_train: the one-rank run of the same draws
+    dp = [r["dp_train"] for r in ranks]
+    same = all(torch.equal(dp[0]["factors"][n][k], dp[1]["factors"][n][k]) for n in one_factors
+               for k in one_factors[n])
+    factor_gap = max((dp[0]["factors"][n][k] - t).abs().max().item() for n, leaf in one_factors.items()
+                     for k, t in leaf.items())
+    lr = cfg.train.lr
+    row = dict(phase="dp_train", model=f"{SD15} (the load phase's directory)", image_size=512, samples_per_step=2,
+               mesh_data=MESH_RANKS, iterations=MESH_SD_ITERATIONS, losses=dp[0]["losses"],
+               one_rank_losses=one_losses, timesteps_to=dp[0]["timesteps_to"], one_rank_timesteps_to=one_t_to,
+               grad_norms=dp[0]["grad_norms"], ranks_bit_equal=same, factor_gap_to_one_rank=factor_gap,
+               factor_gap_bound=2 * lr * MESH_SD_ITERATIONS, launches_per_rank=[list(d["launches"]) for d in dp],
+               one_rank_seconds=one_s, wall_seconds=dp[0]["wall_seconds"])
+    emit(row)
+    loss_gap = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(dp[0]["losses"], one_losses))
+    if (not same or not factor_gap <= 2 * lr * MESH_SD_ITERATIONS or not loss_gap <= 0.05
+            or dp[0]["timesteps_to"] != one_t_to or min(dp[0]["launches"]) <= 0):
+        raise AssertionError(f"dp_train: {row}")
+    paths["dp_train"] = list(dp[0]["launches"])
+
+    # mesh_sweep: the images sweep_xl's te_batch_scales run wrote for the same seeds and scales
+    name = "sweep_xl_te_noxattn_rank4_alpha1.safetensors"
+    gaps = {str(sc): image_gap(decode_png((tmp / "mesh_sweep" / name / str(sc) / "0_0.png").read_bytes()),
+                               decode_png((tmp / "sweep_xl_te_batch_scales" / name / str(sc) / "0_0.png").read_bytes()))
+            for sc in (-2.0, 2.0)}
+    sw = [r["mesh_sweep"] for r in ranks]
+    k1_traj = per_step_launches(UNetConfig.sdxl(), SWEEP_XL_STEPS, 0)[0]
+    row = dict(phase="mesh_sweep", model=SDXL, image_size=512, steps=SWEEP_XL_STEPS, mesh_data=MESH_RANKS,
+               rows_per_rank=1, gap_to_one_rank=gaps, launches_per_rank=[list(w["launches"]) for w in sw],
+               wall_seconds=sw[0]["wall_seconds"], sweep_seconds=sw[0]["sweep_seconds"])
+    emit(row)
+    if (any(g["mean_abs"] > 2.0 for g in gaps.values())
+            or any((w["launches"][0], w["launches"][3]) != (k1_traj, 1) for w in sw)):
+        raise AssertionError(f"mesh_sweep: {row}")
+    paths["mesh_sweep"] = list(sw[0]["launches"])
+
+    # mesh_serve: the serve phase's service's images of the same requests
+    sv = [r["mesh_serve"] for r in ranks]
+    got = sv[0]["pngs"]
+    if any(isinstance(x, Exception) for x in got):
+        raise AssertionError(f"mesh_serve: {got}")
+    gaps = [image_gap(decode_png(a), decode_png(b)) for a, b in zip(got, serve_ref)]
+    k1_call, k4a_call = per_sampler_call(UNetConfig.sdxl(), STEPS)
+    row = dict(phase="mesh_serve", model=SDXL, image_size=IMAGE_SIZE, steps=STEPS, mesh_data=MESH_RANKS,
+               requests=len(MESH_SERVE_REQUESTS), max_batch=sv[0]["max_batch"], buckets=list(sv[0]["buckets"]),
+               gap_to_one_rank=gaps, batch_seconds=sv[0]["batch_seconds"],
+               launches_per_rank=[list(v["launches"]) for v in sv])
+    emit(row)
+    if (len(got) != len(serve_ref) or any(g["mean_abs"] > 2.0 for g in gaps)
+            or any(list(v["launches"]) != [k1_call, 0, 0, k4a_call, 0, 0] for v in sv)):
+        raise AssertionError(f"mesh_serve: {row}")
+    paths["mesh_serve"] = list(sv[0]["launches"])
+    emit(dict(phase="mesh_phases", seconds=time.time() - t0, world_seconds=world_s, one_rank_reference_seconds=one_s,
+              in_world_seconds=ranks[0]["world_seconds"], by_phase=ranks[0]["seconds"], backend=ranks[0]["backend"]))
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke runs only on the card", file=sys.stderr)
@@ -4827,6 +5202,7 @@ def main() -> int:
         def after_serve(svc):
             paths["serve_sliders"] = phase_serve_sliders(tmp, svc)
             bf16_ref["png"] = svc.generate(*INT8_REQUEST)
+            bf16_ref["mesh_serve"] = svc._generate_batch(MESH_SERVE_REQUESTS)  # mesh_serve's one-rank images
 
         paths["serve"] = served(tmp, "serve", lambda p: SliderService(
             SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL,
@@ -4927,6 +5303,8 @@ def main() -> int:
         phase_flux_export(tmp, flux_ref["slider"], flux_ref["dir"])
         phase_flux_notrigger(tmp)
         emit(dict(phase="flux_phases", seconds=time.time() - t_flux))
+        paths.update(phase_mesh(tmp, sd_dir, flux_ref["dir"], bf16_ref["mesh_serve"]))
+        shutil.rmtree(flux_ref["dir"])
         t_cascade = time.time()
         cascade_dir = phase_cascade_load(tmp)
         paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir, profile=False)
@@ -4960,14 +5338,20 @@ def main() -> int:
     # Stable Cascade: every attention of the prior is K1 (d 64), K2/K3 in training; no decode
     cascade_train = ("cascade_train", "cascade_wuerstchen", "cascade_dora", "cascade_w8a8", "cascade_overlay",
                      "cascade_samples2_share")
+    # the mesh phases' paths (rank 0's launches): the ring and sequence-parallel training run K1 and
+    # K2/K3 on every block, dp_train all six (SD1.5), tp K1 alone, the sharded sweep and serving K1 and
+    # K4a (the decode of each rank's rows)
+    mesh_train = ("ring", "sp_train", "dp_train")
+    mesh_decode = ("mesh_sweep", "mesh_serve")
     runs_on = {
         "K1": ("serve",) + xl_train + sd15_train + ("sd2_train",) + inference + sd3_train + sd3_inference
-              + flux_train + flux_inference + cascade_train + edit,
-        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
-        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit,
-        "K4a": ("serve", "imageslider", "demo_concept") + sd15_train + inference + sd3_decode + ("flux_load",) + edit,
-        "K4b": sd15_train + edit,
-        "K4c": sd15_train + edit,
+              + flux_train + flux_inference + cascade_train + edit + mesh_train + ("tp",) + mesh_decode,
+        "K2": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit + mesh_train,
+        "K3": xl_train + sd15_train + ("sd2_train",) + sd3_train + flux_train + cascade_train + edit + mesh_train,
+        "K4a": ("serve", "imageslider", "demo_concept") + sd15_train + inference + sd3_decode + ("flux_load",) + edit
+               + ("dp_train",) + mesh_decode,
+        "K4b": sd15_train + edit + ("dp_train",),
+        "K4c": sd15_train + edit + ("dp_train",),
     }
     for i, name in enumerate(KERNEL_NAMES):
         if min(paths[p][i] for p in runs_on[name]) <= 0:
@@ -4981,7 +5365,7 @@ def main() -> int:
     if any(paths[p][3] or paths[p][4] or paths[p][5] for p in cascade_train):
         raise AssertionError(f"a Stable Cascade path launched a k-grid kernel: {paths}")
     if any(paths[p][1] or paths[p][2] or paths[p][4] or paths[p][5]
-           for p in inference + ("serve",) + sd3_inference + flux_inference):
+           for p in inference + ("serve",) + sd3_inference + flux_inference + ("tp",) + mesh_decode):
         raise AssertionError(f"an inference path launched a backward kernel: {paths}")
     main_row = k1_rows[0]  # 4096x4096 self-attention: the largest share of K1's serving time
     bwd_main = bwd_rows[0]  # 1024x1024 self-attention, bf16: the largest share of K2/K3's time

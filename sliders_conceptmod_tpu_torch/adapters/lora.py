@@ -462,13 +462,20 @@ def merge_site_weights(model: nn.Module, sites: Sequence[LoRASite], params: LoRA
     factors and the cast, whose gradient reaches the fp32 factors in fp32 (the
     merged student); without it no graph is built (sweeps, the warm-up). An
     integer (quantized) weight cannot hold a delta and raises."""
+    from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
+
     merged = {}
     with nullcontext() if grad else torch.no_grad():
         for site, key, weight in site_weights(model, sites):
             if not weight.dtype.is_floating_point:
                 raise ValueError(f"cannot merge an adapter into integer (quantized) weight {key}: use the overlay")
             leaf = {k: t.to(weight.device) for k, t in params[site.lora_name].items()}
-            merged[key] = weight + (multiplier * delta_fn(site, leaf, weight)).to(weight.dtype)
+            # a tensor-sharded module (parallel/mesh.py::tp_shard_tree) merges its whole weight and keeps its rows
+            mod = model.get_submodule(key.rpartition(".")[0])
+            full = mesh_lib.tp_full_weight(mod, weight)
+            out = full + (multiplier * delta_fn(site, leaf, full)).to(full.dtype)
+            rows = mesh_lib.tp_rows(mod)
+            merged[key] = out if rows is None else out[rows]
     return merged
 
 

@@ -35,8 +35,10 @@ runs with no UNet sites. ``--device`` is a CUDA ordinal (default ``0``) or
 token (and implies ``--quantize_base``). Both need ``--batch_scales``: the
 default path merges the slider into the weights, which an int8 base cannot
 hold (JAX's rule and message). The text towers are never quantized, so
-text-encoder parts merge into them as before. ``--mesh_data > 1`` exits
-naming the ROADMAP item that owns it.
+text-encoder parts merge into them as before. ``--mesh_data N`` (with
+``--batch_scales``, as in JAX) runs N ranks (``parallel/mesh.py``; one per
+card, or N gloo ranks with ``--device cpu``): each samples its share of the
+scale × sample rows, and rank 0 gathers the images and writes them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -62,6 +65,7 @@ from sliders_conceptmod_tpu_torch.infer.generate import (
 )
 from sliders_conceptmod_tpu_torch.io.png import decode_png, encode_png
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 
 WEIGHT_DTYPE = torch.bfloat16  # the weights' and the sampled latents' dtype, as the JAX CLI loads them
 
@@ -133,15 +137,24 @@ def draw_latents(seed: int, shape, device) -> torch.Tensor:
 
 
 def check_args(args) -> None:
-    """JAX's int8 rules (``--w8a8`` implies ``--quantize_base``, which needs
-    ``--batch_scales``), then what is not ported."""
+    """JAX's rules: ``--w8a8`` implies ``--quantize_base``, which needs
+    ``--batch_scales``, as ``--mesh_data`` > 1 does; the data axis must
+    divide the scale × sample rows."""
     if getattr(args, "w8a8", False):
         args.quantize_base = True
     if getattr(args, "quantize_base", False) and not args.batch_scales:
         raise SystemExit("--quantize_base requires --batch_scales (the slider "
                          "runs via the apply-time overlay, never merged)")
-    if getattr(args, "mesh_data", 1) > 1:
-        raise SystemExit("--mesh_data > 1: sharded sweeps are not ported yet (ROADMAP.md queue 1, item 12)")
+    mesh_data = getattr(args, "mesh_data", 1)
+    if mesh_data > 1 and not args.batch_scales:
+        raise SystemExit("--mesh_data shards the batched scale grid — it "
+                         "requires --batch_scales")
+    n_scales = len(args.scales.split(","))
+    if mesh_data > 1 and (n_scales * args.num_samples) % mesh_data:
+        raise SystemExit(
+            f"--mesh_data={mesh_data} must divide scales*num_samples "
+            f"({n_scales}*{args.num_samples}={n_scales * args.num_samples})"
+        )
 
 
 def save_images(out_dir: str, case_number: int, images: np.ndarray) -> None:
@@ -164,13 +177,18 @@ def save_composite(root: str, case_number: int, firsts) -> None:
 
 def run(args):
     check_args(args)
-    device = torch_device(args.device)
+    device = str(mesh_lib.local_device(torch_device(args.device)))
+    # --mesh_data N (a world of N ranks, mesh.spawn_world): each rank samples its share of the
+    # scale × sample rows; rank 0 gathers the images and writes every file
+    mesh = mesh_lib.make_mesh(data=args.mesh_data, devices=range(args.mesh_data)) if args.mesh_data > 1 else None
+    writer = mesh_lib.is_writer()
     rows = load_prompts_csv(args.prompts_path)
     scales = [float(s) for s in args.scales.split(",")]
     name = os.path.basename(args.model_name)
     root = f"{args.save_path}/{name}"
-    for scale in scales:
-        os.makedirs(f"{root}/{scale}", exist_ok=True)
+    if writer:
+        for scale in scales:
+            os.makedirs(f"{root}/{scale}", exist_ok=True)
 
     _, text_encoders, unet, scheduler, vae = factory.load_models_xl(
         args.base, scheduler_name="ddim", weight_dtype=WEIGHT_DTYPE, with_vae=True, device=device,
@@ -214,18 +232,29 @@ def run(args):
                 lat0 = draw_latents(seed, (N, 4, res, res), device) * schedule.init_noise_sigma
                 # rows are scale-major uncond (S·N) ++ cond (S·N), as sample_loop_scales reads them
                 per_scale = [encode_case(prompt, s) for s in scales] if parts.has_te else [(emb, pooled)] * S
-                emb_b = torch.cat([e[:N] for e, _ in per_scale] + [e[N:] for e, _ in per_scale])
-                added = {"text_embeds": torch.cat([p[:N] for _, p in per_scale] + [p[N:] for _, p in per_scale]),
-                         "time_ids": time_ids.expand(2 * S * N, -1)}
+                lo, hi = mesh_lib.data_share(S * N, mesh)  # this rank's rows (all of them off-mesh)
+                emb_b = torch.cat([torch.cat([e[:N] for e, _ in per_scale])[lo:hi],
+                                   torch.cat([e[N:] for e, _ in per_scale])[lo:hi]])
+                added = {"text_embeds": torch.cat([torch.cat([p[:N] for _, p in per_scale])[lo:hi],
+                                                   torch.cat([p[N:] for _, p in per_scale])[lo:hi]]),
+                         "time_ids": time_ids.expand(2 * (hi - lo), -1)}
+                row_scales = [s for s in scales for _ in range(N)][lo:hi]
                 final = sample_loop_scales(
-                    unet, sites, lora_params, scales, flip, scheduler, schedule, lat0.repeat(S, 1, 1, 1).to(WEIGHT_DTYPE),
-                    emb_b, guidance_scale=args.guidance_scale, added_cond_kwargs=added,
+                    unet, sites, lora_params, row_scales, flip, scheduler, schedule,
+                    lat0.repeat(S, 1, 1, 1)[lo:hi].to(WEIGHT_DTYPE), emb_b, guidance_scale=args.guidance_scale,
+                    added_cond_kwargs=added,
                 )
-                for si, scale in enumerate(scales):
-                    images = latents_to_images(vae.decode, final[si * N:(si + 1) * N], vae.config.scaling_factor)
-                    save_images(f"{root}/{scale}", case_number, images)
-                    firsts.append(images[0])
-                print(f"case {case_number}: saved {S * N} images (batched scales)")
+                # one decode per scale, of this rank's rows of it
+                bounds = [(max(lo, si * N), min(hi, (si + 1) * N)) for si in range(S)]
+                images = np.concatenate([latents_to_images(vae.decode, final[a - lo:b - lo], vae.config.scaling_factor)
+                                         for a, b in bounds if a < b])
+                if mesh is not None:
+                    images = np.concatenate(mesh_lib.gather_objects(images, mesh.data_group))
+                if writer:
+                    for si, scale in enumerate(scales):
+                        save_images(f"{root}/{scale}", case_number, images[si * N:(si + 1) * N])
+                        firsts.append(images[si * N])
+                    print(f"case {case_number}: saved {S * N} images (batched scales)")
         else:
             for scale in scales:
                 out_path = f"{root}/{scale}/{case_number}_0.png"
@@ -244,7 +273,7 @@ def run(args):
                 save_images(f"{root}/{scale}", case_number, images)
                 firsts.append(images[0])
                 print(f"case {case_number} scale {scale}: saved {images.shape[0]} images")
-        if firsts:
+        if firsts and writer:
             save_composite(root, case_number, firsts)
 
 
@@ -271,13 +300,21 @@ def build_parser():
     parser.add_argument("--w8a8", action="store_true",
                         help="per-token int8 activations on the int8 Linears, int8 x int8 matmuls "
                              "(implies --quantize_base)")
-    parser.add_argument("--mesh_data", type=int, default=1, help="> 1 is not ported yet (ROADMAP.md queue 1, item 12)")
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="shard the batched scale grid over N ranks (one per card; on --device cpu N gloo "
+                             "ranks); rank 0 writes the images")
     parser.add_argument("--device", type=str, default="0", help="CUDA ordinal, or cpu")
     return parser
 
 
 def main(argv=None):
-    run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.mesh_data > 1 and not mesh_lib.active():
+        check_args(args)  # refuse here, before any rank starts
+        mesh_lib.spawn_world(main, (sys.argv[1:] if argv is None else argv,), args.mesh_data,
+                             device=mesh_lib.device_kind(args.device))
+        return
+    run(args)
 
 
 if __name__ == "__main__":

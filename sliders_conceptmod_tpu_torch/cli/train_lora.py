@@ -21,11 +21,15 @@ import argparse
 from sliders_conceptmod_tpu_torch.cli.train_lora_xl import _decorate
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train import trainer
 
 
 def main(args):
     config = config_util.load_config_from_yaml(args.config_file)
+    # a config that asks for more ranks than this process: run main in a spawned world of them
+    if mesh_lib.spawn_for_config(config.tpu, config.tpu.samples_per_step, args.device, main, (args,)):
+        return None
     if args.name is not None:
         config.save.name = args.name
     attributes = [a.strip() for a in args.attributes.split(",")] if args.attributes is not None else []

@@ -23,7 +23,9 @@ torch-pickle ``.pt``. The student runs each layer under
 warm-up, LoRA only), ``debug_nans``, ``profile_dir``; the prompts'
 ``dynamic_resolution`` picks a bucket per iteration. Refused with JAX's
 words: ``quantize_base``, ``w8a8_warmup`` with DoRA, ``overlay_warmup:
-true``; meshes raise. ``--resume_from`` continues a run bit for bit; saves
+true``. Meshes as ``train/trainer.py`` takes them (``parallel/mesh.py``:
+DP over ``samples_per_step``, ``mesh_model`` tensor-shards the prior).
+``--resume_from`` continues a run bit for bit; saves
 are ``{name}_{i}steps.pt`` (with a resume checkpoint beside it) and
 ``{name}_last.pt`` in ``save.precision``. ``--device`` picks the torch
 device (default ``cuda``; a bare integer is a CUDA ordinal; ``cpu`` for the
@@ -47,11 +49,12 @@ from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
 from sliders_conceptmod_tpu_torch.core.device import torch_device
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd, esd_cascade
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
-from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, profiled
+from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, mesh_step_start, profiled
 from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
@@ -91,7 +94,14 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     tpu_cfg = config.tpu
     student_overlay, w8a8_warmup = refuse_unsupported(tpu_cfg, peft_type)
     check_supported(config, prompts, peft_type)
-    device = torch.device(torch_device(device))
+    samples_per_step = max(tpu_cfg.samples_per_step, 1)
+    # joins the yaml world when configured; None on one rank (the one-process step)
+    mesh = mesh_lib.training_mesh_from_config(tpu_cfg, samples_per_step, torch_device(device))
+    if mesh is not None and not mesh.member:  # a shrunk data axis: this rank idles
+        mesh_step_start(mesh)
+        return None
+    device = mesh_lib.local_device(torch_device(device))
+    writer = mesh_lib.is_writer()
     weight_dtype = config_util.parse_precision(config.train.precision)
     save_dtype = config_util.parse_save_precision(config.save.precision)
     save_path = Path(config.save.path)
@@ -137,6 +147,13 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     del encode, te  # the tower goes before the (dual-tree) int8 copy
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if mesh is not None:  # the prior tensor-sharded when mesh_model > 1; the rest replicates
+        mesh_lib.place_training_state(mesh, prior, lora_params, opt_state, bank, tp=mesh.model > 1)
+        if w8a8_warmup and mesh.model > 1:
+            raise NotImplementedError(
+                "dual-tree w8a8_warmup + tensor parallelism: the int8 "
+                "warm-up copy is not TP-sharded — use mesh_model: 1."
+            )
     warm = quant.quantized_copy(prior, act_quant=True) if w8a8_warmup else None
 
     resolution, batch_size = prompts[0].resolution, prompts[0].batch_size
@@ -152,10 +169,11 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             latent_channels=prior_cfg.in_channels,
             resolution_multiple=prior_cfg.resolution_multiple,
             remat=not is_tiny,
-            samples_per_step=max(tpu_cfg.samples_per_step, 1),
+            samples_per_step=samples_per_step,
             share_warmup=tpu_cfg.share_warmup,
             student_overlay=student_overlay,
             overlay_warmup=w8a8_warmup,
+            mesh=mesh,
         )
         return esd_cascade.make_cascade_esd_train_step(
             prior, sites, lora_params, scheduler, schedule, optimizer, ccfg, empty_text=empty_text,
@@ -167,8 +185,10 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
 
-    save_path.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
+    if writer:
+        save_path.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose, write=writer)
+    mesh_step_start(mesh)
     iterations = config.train.iterations
     t_loop = time.time()
     first_step_seconds = float("nan")
@@ -184,14 +204,15 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             logger.log(i, metrics)
             if i == start_step:
                 first_step_seconds = time.time() - t_loop
-            if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
+            if (save_file and writer and config.save.per_steps and i % config.save.per_steps == 0
+                    and i not in (0, iterations - 1)):
                 peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.pt", sites, lora_params,
                                       dtype=save_dtype)
                 ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
             if on_step_complete is not None:
                 on_step_complete(i)
         sps = logger.close()
-    if save_file:
+    if save_file and writer:
         peft_mod.save_weights(save_path / f"{config.save.name}_last.pt", sites, lora_params, dtype=save_dtype)
     return TrainResult(sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps,
                        metrics=logger.rows, setup_seconds=t_loop - t_entry, first_step_seconds=first_step_seconds,
@@ -207,6 +228,9 @@ def _decorate(config, alpha, rank):
 
 def main(args):
     config = config_util.load_config_from_yaml(args.config_file)
+    # a config that asks for more ranks than this process: run main in a spawned world of them
+    if mesh_lib.spawn_for_config(config.tpu, config.tpu.samples_per_step, args.device, main, (args,)):
+        return None
     if args.name is not None:
         config.save.name = args.name
     attributes = [a.strip() for a in args.attributes.split(",")] if args.attributes is not None else []

@@ -25,7 +25,11 @@ unless the model is the tiny family.
 ``tpu:`` knobs: ``samples_per_step``, ``quantize_base`` (JAX's refusals:
 ``w8a8_warmup`` — Flux has no warm-up chain — and DoRA over int8),
 ``student_overlay``, ``debug_nans``; the prompts' ``dynamic_resolution``
-picks a bucket per micro-step, μ from its token count. Meshes raise.
+picks a bucket per micro-step, μ from its token count. Meshes
+(``parallel/mesh.py``, as ``train/trainer.py`` takes them): DP over
+``samples_per_step``, ``mesh_model`` tensor-shards the transformer, and
+``tpu.sequence_parallel`` runs the joint self-attention as ring attention
+(``ops/attention.py::sequence_parallel_from_config``).
 ``--resume_from`` continues a run, mid-accumulation included, bit for bit;
 saves are ``{name}_{i}steps`` (i a micro-step) and ``{name}_last
 .safetensors`` in ``save.precision`` with a resume checkpoint beside each
@@ -50,11 +54,13 @@ from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
 from sliders_conceptmod_tpu_torch.diffusion.flow_match import calculate_shift
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.ops.attention import sequence_parallel_from_config
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd, esd_flux
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, flat_params, get_lr_schedule, get_optimizer
-from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported
+from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, mesh_step_start
 from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 N_STEPS = 8  # the reference's num_inference_steps (train_lora_flux.py:240)
@@ -88,7 +94,14 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             "quantized base."
         )
     student_overlay, _ = config_util.resolve_student_overlay(tpu_cfg, quantize_base, peft_type)
-    device = torch.device(device)
+    samples_per_step = max(tpu_cfg.samples_per_step, 1)
+    # joins the yaml world when configured; None on one rank (the one-process step)
+    mesh = mesh_lib.training_mesh_from_config(tpu_cfg, samples_per_step, device)
+    if mesh is not None and not mesh.member:  # a shrunk data axis: this rank idles
+        mesh_step_start(mesh)
+        return None
+    device = mesh_lib.local_device(device)
+    writer = mesh_lib.is_writer()
     weight_dtype = config_util.parse_precision(config.train.precision)
     save_dtype = config_util.parse_save_precision(config.save.precision)
     save_path = Path(config.save.path)
@@ -112,7 +125,6 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             leaf[k] = leaf[k].to(device).requires_grad_(True)
 
     resolution, batch_size = prompts[0].resolution, prompts[0].batch_size
-    samples_per_step = max(tpu_cfg.samples_per_step, 1)
     k = accumulation_steps(batch_size, samples_per_step)
     inner = get_optimizer("adamw", get_lr_schedule("cosine", 1e-4, 50, 1e-6), weight_decay=1e-6, grad_clip_value=1.0)
     optimizer = MultiSteps(inner, k)
@@ -122,6 +134,8 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     del encoder  # the text towers go before training
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if mesh is not None:  # the transformer tensor-sharded when mesh_model > 1; the rest replicates
+        mesh_lib.place_training_state(mesh, transformer, lora_params, opt_state, bank, tp=mesh.model > 1)
 
     vae_scale = factory.flux_vae_scale(name)
     dynamic_resolution = any(p.dynamic_resolution for p in prompts)
@@ -132,7 +146,7 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
         fcfg = esd_flux.FluxESDConfig(num_inference_steps=N_STEPS, batch_size=batch_size, height=height, width=width,
                                       latent_channels=flux_cfg.in_channels // 4, vae_scale=vae_scale,
                                       remat=not is_tiny, samples_per_step=samples_per_step,
-                                      student_overlay=student_overlay)
+                                      student_overlay=student_overlay, mesh=mesh)
         return esd_flux.make_flux_esd_train_step(transformer, sites, lora_params, schedule, optimizer, fcfg,
                                                  merge_fn=peft_mod.merge_lora_params, debug_nans=tpu_cfg.debug_nans)
 
@@ -141,31 +155,36 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
 
-    save_path.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
+    if writer:
+        save_path.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose, write=writer)
+    mesh_step_start(mesh)
     total_micro = config.train.iterations * k + 1  # the reference's count (train_lora_flux.py:227)
     t_loop = time.time()
     first_step_seconds = float("nan")
-    for i in range(start, total_micro):
-        # the reference draws the bucket per prompt-pair iteration: per micro-step
-        bi = pick_bucket(i) if pick_bucket is not None else 0
-        try:
-            metrics = step_fns[bi](opt_state, bank, rng)
-        except FloatingPointError as e:  # tpu.debug_nans
-            raise FloatingPointError(f"step {i}: {e}") from None
-        if pick_bucket is not None:
-            metrics = dict(metrics, height=buckets[bi][0], width=buckets[bi][1])
-        logger.log(i, metrics)
-        if i == start:
-            first_step_seconds = time.time() - t_loop
-        if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, total_micro - 1):
-            peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
-                                  dtype=save_dtype, metadata=metadata)
-            ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
-        if (i + 1) % k == 0 and on_step_complete is not None:
-            on_step_complete((i + 1) // k)
+    # tpu.sequence_parallel: the joint self-attention rings K/V over the data axis
+    with sequence_parallel_from_config(tpu_cfg):
+        for i in range(start, total_micro):
+            # the reference draws the bucket per prompt-pair iteration: per micro-step
+            bi = pick_bucket(i) if pick_bucket is not None else 0
+            try:
+                metrics = step_fns[bi](opt_state, bank, rng)
+            except FloatingPointError as e:  # tpu.debug_nans
+                raise FloatingPointError(f"step {i}: {e}") from None
+            if pick_bucket is not None:
+                metrics = dict(metrics, height=buckets[bi][0], width=buckets[bi][1])
+            logger.log(i, metrics)
+            if i == start:
+                first_step_seconds = time.time() - t_loop
+            if (save_file and writer and config.save.per_steps and i % config.save.per_steps == 0
+                    and i not in (0, total_micro - 1)):
+                peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
+                                      dtype=save_dtype, metadata=metadata)
+                ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
+            if (i + 1) % k == 0 and on_step_complete is not None:
+                on_step_complete((i + 1) // k)
     sps = logger.close()
-    if save_file:
+    if save_file and writer:
         peft_mod.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
                               dtype=save_dtype, metadata=metadata)
     return TrainResult(sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps,
@@ -182,6 +201,9 @@ def _decorate(config, alpha, rank):
 
 def main(args):
     config = config_util.load_config_from_yaml(args.config_file)
+    # a config that asks for more ranks than this process: run main in a spawned world of them
+    if mesh_lib.spawn_for_config(config.tpu, config.tpu.samples_per_step, args.device, main, (args,)):
+        return None
     if args.name is not None:
         config.save.name = args.name
     attributes = [a.strip() for a in args.attributes.split(",")] if args.attributes is not None else []

@@ -20,7 +20,11 @@ the gradient norm clipped at 0.2. The student runs each MMDiT block under
 and ``w8a8_warmup`` (single tree or dual tree, JAX's refusals:
 ``train/trainer.py::resolve_int8_routes``), ``student_overlay`` /
 ``overlay_warmup``, ``debug_nans``, ``profile_dir``; the prompts'
-``dynamic_resolution`` picks a bucket per iteration. Meshes raise.
+``dynamic_resolution`` picks a bucket per iteration. Meshes
+(``parallel/mesh.py``, as ``train/trainer.py`` takes them): DP over
+``samples_per_step``, ``mesh_model`` tensor-shards the MMDiT, and
+``tpu.sequence_parallel`` runs the joint self-attention as ring attention
+(``ops/attention.py::sequence_parallel_from_config``).
 ``--resume_from`` continues a run; saves are ``{name}_{i}steps`` and
 ``{name}_last.safetensors`` in ``save.precision`` with a resume checkpoint
 beside each periodic save. ``--device`` picks the torch device (default
@@ -43,11 +47,20 @@ from sliders_conceptmod_tpu_torch.adapters import quant
 from sliders_conceptmod_tpu_torch.core import config as config_util
 from sliders_conceptmod_tpu_torch.core import prompts as prompt_util
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.ops.attention import sequence_parallel_from_config
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd, esd_sd3
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
-from sliders_conceptmod_tpu_torch.train.trainer import TrainResult, check_supported, profiled, resolve_int8_routes
+from sliders_conceptmod_tpu_torch.train.trainer import (
+    TrainResult,
+    check_supported,
+    check_tp_warm_tree,
+    mesh_step_start,
+    profiled,
+    resolve_int8_routes,
+)
 from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
@@ -59,7 +72,16 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
     student_overlay, overlay_warmup, quantize_base = resolve_int8_routes(tpu_cfg, peft_type)
-    device = torch.device(device)
+    # knowable from the config alone: JAX refuses it before the model load
+    check_tp_warm_tree(tpu_cfg, bool(tpu_cfg.w8a8_warmup) and not quantize_base)
+    samples_per_step = max(tpu_cfg.samples_per_step, 1)
+    # joins the yaml world when configured; None on one rank (the one-process step)
+    mesh = mesh_lib.training_mesh_from_config(tpu_cfg, samples_per_step, device)
+    if mesh is not None and not mesh.member:  # a shrunk data axis: this rank idles
+        mesh_step_start(mesh)
+        return None
+    device = mesh_lib.local_device(device)
+    writer = mesh_lib.is_writer()
     weight_dtype = config_util.parse_precision(config.train.precision)
     save_dtype = config_util.parse_save_precision(config.save.precision)
     save_path = Path(config.save.path)
@@ -97,6 +119,8 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     del encode, text_encoders  # the towers go before the (dual-tree) int8 copy
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if mesh is not None:  # the MMDiT tensor-sharded when mesh_model > 1; the rest replicates
+        mesh_lib.place_training_state(mesh, transformer, lora_params, opt_state, bank, tp=mesh.model > 1)
     warm = quant.quantized_copy(transformer, act_quant=True) if tpu_cfg.w8a8_warmup else None
 
     resolution, batch_size = prompts[0].resolution, prompts[0].batch_size
@@ -112,10 +136,11 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             width=width,
             latent_channels=mm_cfg.in_channels,
             remat=not is_tiny,
-            samples_per_step=max(tpu_cfg.samples_per_step, 1),
+            samples_per_step=samples_per_step,
             share_warmup=tpu_cfg.share_warmup,
             student_overlay=student_overlay,
             overlay_warmup=overlay_warmup,
+            mesh=mesh,
         )
         return esd_sd3.make_sd3_esd_train_step(transformer, sites, lora_params, schedule, optimizer, scfg,
                                                merge_fn=peft_mod.merge_lora_params, debug_nans=tpu_cfg.debug_nans,
@@ -126,12 +151,15 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
     rng = esd.TrainRNG(tpu_cfg.seed, device)
     start_step = ckpt.maybe_restore(resume_from, lora_params, opt_state, rng)
 
-    save_path.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
+    if writer:
+        save_path.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose, write=writer)
+    mesh_step_start(mesh)
     iterations = config.train.iterations
     t_loop = time.time()
     first_step_seconds = float("nan")
-    with profiled(tpu_cfg.profile_dir, config.save.name, device):
+    # tpu.sequence_parallel: the MMDiT's joint self-attention rings K/V over the data axis
+    with sequence_parallel_from_config(tpu_cfg), profiled(tpu_cfg.profile_dir, config.save.name, device):
         for i in range(start_step, iterations):
             bi = pick_bucket(i) if pick_bucket is not None else 0
             try:
@@ -143,14 +171,15 @@ def train(config, prompts, rank: int = 4, peft_type: str = "lora", save_file: bo
             logger.log(i, metrics)
             if i == start_step:
                 first_step_seconds = time.time() - t_loop
-            if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
+            if (save_file and writer and config.save.per_steps and i % config.save.per_steps == 0
+                    and i not in (0, iterations - 1)):
                 peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
                                       dtype=save_dtype, metadata=metadata)
                 ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
             if on_step_complete is not None:
                 on_step_complete(i)
         sps = logger.close()
-    if save_file:
+    if save_file and writer:
         peft_mod.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
                               dtype=save_dtype, metadata=metadata)
     return TrainResult(sites=sites, lora_params=lora_params, losses=logger.losses, steps_per_sec=sps,
@@ -167,6 +196,9 @@ def _decorate(config, alpha, rank):
 
 def main(args):
     config = config_util.load_config_from_yaml(args.config_file)
+    # a config that asks for more ranks than this process: run main in a spawned world of them
+    if mesh_lib.spawn_for_config(config.tpu, config.tpu.samples_per_step, args.device, main, (args,)):
+        return None
     if args.name is not None:
         config.save.name = args.name
     attributes = [a.strip() for a in args.attributes.split(",")] if args.attributes is not None else []

@@ -424,11 +424,12 @@ def load_models_sd3(
       its ``config.json`` and weights (``io/torch_convert.py``), a tower or
       VAE the directory lacks weightless;
     * an int8 artifact (``io/quant_cache.py``, ``cli/quantize_checkpoint.py
-      --family sd3``): the transformer from it, the towers and VAE
-      weightless;
+      --family sd3``): the transformer from it, at the depth its blocks
+      hold, the towers and VAE weightless;
     * an SGM single file (``sd3_medium_incl_clips*.safetensors``): the MMDiT
-      and both CLIP towers (``io/ldm_convert.py``); a file without the
-      towers raises, as the JAX loader does;
+      (at the depth its ``joint_blocks`` hold) and both CLIP towers
+      (``io/ldm_convert.py``); a file without the towers raises, as the JAX
+      loader does;
     * any other name: the weightless family, SD3-Medium's widths (a name
       containing "tiny": the tiny family), module i of (te1, te2,
       transformer, vae) initialised from seed i.
@@ -452,8 +453,13 @@ def load_models_sd3(
         toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
         tes = [_text_encoder("", comp, c, device, weight_dtype, seed, tok)
                for seed, (c, comp, tok) in enumerate(zip(te_cfgs, comps, toks))]
-        transformer = (quantized_from_artifact(p, lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype)
-                       if with_transformer else None)
+        transformer = None
+        if with_transformer:
+            from sliders_conceptmod_tpu_torch.io.safetensors import read_keys
+
+            keys = [k.replace("/", ".") for k in read_keys(p)]
+            mm_cfg = dataclasses.replace(mm_cfg, num_layers=_block_count(keys, "transformer_blocks_"))
+            transformer = quantized_from_artifact(p, lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype)
         vae = sd3_vae("", device, weight_dtype) if with_vae else None
     elif is_single_file(p):
         from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
@@ -471,6 +477,7 @@ def load_models_sd3(
         tes = [TextEncoderBundle(module_from_state(lambda c=c: CLIPTextEncoder(c), trees[comp], device, weight_dtype,
                                                    f"{p} {comp}"), tok)
                for c, comp, tok in zip(te_cfgs, comps, toks)]
+        mm_cfg = dataclasses.replace(mm_cfg, num_layers=_block_count(trees["transformer"], "transformer_blocks."))
         transformer = (module_from_state(lambda: SD3Transformer2DModel(mm_cfg), trees["transformer"], device,
                                          weight_dtype, f"{p} transformer", quantize_base) if with_transformer else None)
         vae = _single_file_vae(p, trees, VAEConfig.sd3(), device, weight_dtype) if with_vae else None

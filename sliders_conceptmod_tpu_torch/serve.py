@@ -42,6 +42,17 @@ which are never quantized. ``--compilation_cache_dir DIR`` builds the CUDA
 kernels into ``DIR`` and reuses them from there
 (``utils/debug.py::apply_tpu_runtime_flags``), so a restart skips ``nvcc``.
 
+Meshes (``parallel/mesh.py``; every family): ``--mesh_data N`` shards each
+micro-batch's rows over N ranks (the buckets and ``--max_batch`` scale by N,
+as in JAX); ``--mesh_model M`` tensor-shards the UNet / transformer over M
+ranks (each row against each rank's weight shard). The server spawns its
+N·M ranks itself (one per card; gloo ranks with ``--device cpu``). Rank 0
+runs HTTP and the micro-batcher and broadcasts each batch's requests and
+each slider registration or removal to the other ranks (:func:`serve_ranks`
+runs them); the images are gathered on rank 0, and the ranks leave when the
+service closes. A row's image depends only on its (prompt, scale, seed),
+not on its rank or its batch.
+
 GET /generate params: prompt (required), scale (default 0), seed (default
 0), guidance (default 7.5), slider (default "default"). A seed reproduces the
 port's image for that request whatever it is batched with; it does not
@@ -56,9 +67,11 @@ import functools
 import json
 import os
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import Future
+from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from types import SimpleNamespace
 from typing import Optional
@@ -89,6 +102,7 @@ from sliders_conceptmod_tpu_torch.diffusion.flow_match import calculate_shift
 from sliders_conceptmod_tpu_torch.io.png import encode_png
 from sliders_conceptmod_tpu_torch.models import factory
 from sliders_conceptmod_tpu_torch.models.flux import pack_latents, prepare_latent_image_ids, unpack_latents
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
 
 
@@ -206,7 +220,10 @@ class SliderService:
     fixes the guidance for every request: a Python float, so a value <= 1
     takes the sampler's cond-only path and per-request guidances no longer
     split a micro-batch. ``quantize_base``: an int8 UNet; ``w8a8`` (implies
-    it): W8A8 on its int8 Linears."""
+    it): W8A8 on its int8 Linears. ``mesh_data`` / ``mesh_model``: DP and TP
+    serving inside a world of ``mesh_data · mesh_model`` ranks (see the
+    module docstring; every rank constructs the service alike, then calls
+    :meth:`serve_ranks`)."""
 
     _BUCKETS = (1, 2, 4)
     _STACK_CACHE_MAX = 16  # each stack holds fp32 copies of its members' factors
@@ -217,15 +234,20 @@ class SliderService:
                  start_noise: float = 750, batch_window_ms: float = 8.0,
                  max_batch: int = 4, max_queue: int = 64, max_sliders: Optional[int] = None,
                  cross_slider_stack: bool = True, static_guidance: Optional[float] = None,
-                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda",
+                 mesh_data: int = 1, mesh_model: int = 1):
         t0 = time.time()
-        self.device = torch.device(device)
+        self.device = mesh_lib.local_device(device)
         self.image_size = image_size
         self.steps = steps
         self._static_guidance = static_guidance
         self.quantize_base = quantize_base or w8a8
         self._load(base)
         quant.set_act_quant(self.unet, w8a8)
+        max_batch = self._mesh_init(mesh_data, mesh_model, max_batch)
+        # rank 0 of a mesh service broadcasts each batch and registry change once live (serve_ranks)
+        self._world_live = False
+        self._world_lock = threading.Lock()
         self.schedule = self._schedule(steps)
         self.flip = self._flip(start_noise)
         self._sliders: "collections.OrderedDict" = collections.OrderedDict()
@@ -251,6 +273,62 @@ class SliderService:
         )
         self.load_seconds = time.time() - t0
 
+    def _mesh_init(self, mesh_data: int, mesh_model: int, max_batch: int) -> int:
+        """DP/TP bring-up (JAX ``_SliderRegistry._mesh_init``): the (data,
+        model) mesh over the world's first ``mesh_data · mesh_model`` ranks,
+        the model tensor-sharded when ``mesh_model`` > 1, the buckets and
+        ``max_batch`` scaled by ``mesh_data``. Returns the scaled max_batch."""
+        self._mesh = None
+        self._buckets = self._BUCKETS
+        if mesh_data > 1 or mesh_model > 1:
+            if mesh_lib.world_size() < mesh_data * mesh_model:
+                raise ValueError(f"mesh_data={mesh_data} x mesh_model={mesh_model} needs a world of that many ranks "
+                                 "(serve.py spawns it; in code, parallel/mesh.py::spawn_world)")
+            self._mesh = mesh_lib.make_mesh(data=mesh_data, model=mesh_model, devices=range(mesh_data * mesh_model))
+            if mesh_model > 1:
+                mesh_lib.tp_shard_tree(self.unet, self._mesh)
+            self._buckets = tuple(b * mesh_data for b in self._BUCKETS)
+            max_batch = max_batch * mesh_data
+        return max_batch
+
+    # -- the mesh's ranks ------------------------------------------------------
+
+    @contextmanager
+    def _world_op(self, op: tuple):
+        """On rank 0 of a live mesh service: ``op`` broadcast to the other
+        ranks, then run here, one op at a time (every rank runs the same ops
+        in the same order); elsewhere a no-op."""
+        if not (self._world_live and mesh_lib.is_writer()):
+            yield
+            return
+        with self._world_lock:
+            mesh_lib.broadcast_object(op)
+            yield
+
+    def serve_ranks(self) -> bool:
+        """After every rank has built the service (and registered its
+        start-up sliders): True on rank 0, which now serves and broadcasts;
+        on every other rank, run rank 0's ops until it closes the service,
+        then False. True off-mesh."""
+        if not mesh_lib.active():
+            return True
+        if mesh_lib.is_writer():
+            self._world_live = True
+            return True
+        while True:
+            op = mesh_lib.broadcast_object(None)
+            if op[0] == "stop":
+                return False
+            try:
+                if op[0] == "batch":
+                    self._run_batch(op[1])
+                elif op[0] == "add":
+                    self._add_slider(op[1], op[2])
+                elif op[0] == "remove":
+                    self._remove_slider(op[1])
+            except Exception:  # noqa: BLE001 — rank 0 raised the same to its caller
+                pass
+
     def _load(self, base: str) -> None:
         (self.tokenizers, self.text_encoders, self.unet, self.scheduler, self.vae) = factory.load_models_xl(
             base, scheduler_name="ddim", weight_dtype=self.weight_dtype, with_vae=True, device=self.device,
@@ -273,7 +351,12 @@ class SliderService:
     def add_slider(self, name: str, slider_path: str) -> None:
         """Register (or replace) a slider file under ``name``: a UNet part,
         text-encoder parts (a notrigger save, a ``combine_loras`` output), or
-        both. A text-encoder-only slider has no UNet sites."""
+        both. A text-encoder-only slider has no UNet sites. (Every rank of a
+        mesh service registers it.)"""
+        with self._world_op(("add", name, str(slider_path))):
+            self._add_slider(name, slider_path)
+
+    def _add_slider(self, name: str, slider_path: str) -> None:
         parts = load_slider_file(slider_path, self._text_encoder_modules(), te2_is_t5=self.te2_is_t5)
         sites, lora_params = [], {}
         if parts.unet is not None:
@@ -304,6 +387,10 @@ class SliderService:
     def remove_slider(self, name: str) -> None:
         """Drop a slider; ``default`` is pinned (``ValueError``), an unknown
         name raises ``KeyError``."""
+        with self._world_op(("remove", name)):
+            self._remove_slider(name)
+
+    def _remove_slider(self, name: str) -> None:
         if name == "default":
             raise ValueError("the 'default' slider is pinned and cannot be removed")
         with self._registry_lock:
@@ -381,12 +468,19 @@ class SliderService:
         return self._batcher.submit((prompt, float(scale), int(seed), float(guidance), slider))
 
     def close(self) -> None:
+        """Stop the batcher (after its queued batches); on rank 0 of a mesh
+        service, then release the other ranks."""
         self._batcher.close()
+        if self._world_live and mesh_lib.is_writer():
+            with self._world_lock:
+                mesh_lib.broadcast_object(("stop",))
+                self._world_live = False
 
     def _bucket_for(self, n: int) -> int:
-        if n <= self._BUCKETS[-1]:
-            return next(b for b in self._BUCKETS if b >= n)
-        return n
+        if n <= self._buckets[-1]:
+            return next(b for b in self._buckets if b >= n)
+        d = mesh_lib.dp_size(self._mesh)
+        return -(-n // d) * d
 
     def _groups(self, rows) -> list:
         """``[(rows, entry or slider name, adapter_idx or None)]`` of one
@@ -417,7 +511,11 @@ class SliderService:
         by :meth:`_groups`; pad each group to a bucket, run one sampler call
         per group, PNG-encode, and route results back by request index. A
         failing group poisons only its own requests: their result is the
-        exception."""
+        exception. (On a mesh every rank runs the batch.)"""
+        with self._world_op(("batch", reqs)):
+            return self._run_batch(reqs)
+
+    def _run_batch(self, reqs) -> list:
         by_guidance: dict = {}
         for i, r in enumerate(reqs):
             key = self._static_guidance if self._static_guidance is not None else r[3]
@@ -431,14 +529,24 @@ class SliderService:
                     n = len(srows)
                     pad = self._bucket_for(n) - n
                     padded = [r for _, r in srows] + [srows[-1][1]] * pad
-                    imgs = self._sample_group(padded, guidance, entry,
-                                              adapter_idx=None if idx is None else idx + [idx[-1]] * pad)
+                    imgs = self._sample_rows(padded, guidance, entry,
+                                             adapter_idx=None if idx is None else idx + [idx[-1]] * pad)
                     for (i, _), img in zip(srows, imgs[:n]):
                         out[i] = encode_png(img)
                 except Exception as e:  # noqa: BLE001 — contain to this group
                     for i, _ in srows:
                         out[i] = e
         return [out[i] for i in range(len(reqs))]
+
+    def _sample_rows(self, padded, guidance: float, entry, adapter_idx=None):
+        """:meth:`_sample_group` over a padded group; on a data axis each
+        rank samples its share of the rows and the images are gathered."""
+        if mesh_lib.dp_size(self._mesh) <= 1:
+            return self._sample_group(padded, guidance, entry, adapter_idx=adapter_idx)
+        lo, hi = mesh_lib.data_share(len(padded), self._mesh)
+        mine = self._sample_group(padded[lo:hi], guidance, entry,
+                                  adapter_idx=None if adapter_idx is None else adapter_idx[lo:hi])
+        return np.concatenate(mesh_lib.gather_objects(np.asarray(mine), self._mesh.data_group))
 
     def _encode_impl(self, prompt: str):
         return factory.encode_prompts_xl(self.text_encoders, [prompt])
@@ -510,12 +618,14 @@ class SD1SliderService(SliderService):
                  start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
                  max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
                  static_guidance: Optional[float] = None, v2: bool = False, v_pred: bool = False,
-                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda", mesh_data: int = 1,
+                 mesh_model: int = 1):
         self.v2, self.v_pred = v2, v_pred
         super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
                          max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
                          cross_slider_stack=cross_slider_stack, static_guidance=static_guidance,
-                         quantize_base=quantize_base, w8a8=w8a8, device=device)
+                         quantize_base=quantize_base, w8a8=w8a8, device=device, mesh_data=mesh_data,
+                         mesh_model=mesh_model)
 
     def _load(self, base: str) -> None:
         tok, te, self.unet, self.scheduler, self.vae = factory.load_models(
@@ -550,11 +660,12 @@ class SD3SliderService(SliderService):
                  start_noise: float = 750, batch_window_ms: float = 8.0, max_batch: int = 4,
                  max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
                  static_guidance: Optional[float] = None, quantize_base: bool = False, w8a8: bool = False,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh_data: int = 1, mesh_model: int = 1):
         super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
                          max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
                          cross_slider_stack=cross_slider_stack, static_guidance=static_guidance,
-                         quantize_base=quantize_base, w8a8=w8a8, device=device)
+                         quantize_base=quantize_base, w8a8=w8a8, device=device, mesh_data=mesh_data,
+                         mesh_model=mesh_model)
 
     def _load(self, base: str) -> None:
         self.tokenizers, self.text_encoders, self.unet, self.scheduler = factory.load_models_sd3(
@@ -636,11 +747,12 @@ class FluxSliderService(SD3SliderService):
     def __init__(self, base: str, slider_path: str, image_size: int = 512, steps: int = 8,
                  start_noise: float = 800, batch_window_ms: float = 8.0, max_batch: int = 4,
                  max_queue: int = 64, max_sliders: Optional[int] = None, cross_slider_stack: bool = True,
-                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda"):
+                 quantize_base: bool = False, w8a8: bool = False, device: str = "cuda", mesh_data: int = 1,
+                 mesh_model: int = 1):
         super().__init__(base, slider_path, image_size, steps, start_noise, batch_window_ms=batch_window_ms,
                          max_batch=max_batch, max_queue=max_queue, max_sliders=max_sliders,
                          cross_slider_stack=cross_slider_stack, quantize_base=quantize_base, w8a8=w8a8,
-                         device=device)
+                         device=device, mesh_data=mesh_data, mesh_model=mesh_model)
 
     def _load(self, base: str) -> None:
         self.tokenizers, self.encoder, self.unet, self.scheduler = factory.load_models_flux(
@@ -871,6 +983,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_sliders", type=int, default=None,
                     help="bound the slider registry: registering past it (POST /sliders) evicts the least "
                          "recently used slider ('default' is pinned)")
+    ap.add_argument("--mesh_data", type=int, default=1,
+                    help="DP serving: shard each micro-batch's rows over N ranks (one per card; gloo ranks with "
+                         "--device cpu); the buckets and --max_batch scale by N")
+    ap.add_argument("--mesh_model", type=int, default=1,
+                    help="TP serving: shard the UNet / transformer's weight output dims over M ranks; composes "
+                         "with --mesh_data (N·M ranks)")
     ap.add_argument("--compilation_cache_dir", default=None,
                     help="the directory the CUDA kernels are built into and reused from, so a restarted server "
                          "skips nvcc (utils/debug.apply_tpu_runtime_flags)")
@@ -893,12 +1011,12 @@ def service_settings(args):
             start_noise=800 if args.start_noise is None else args.start_noise, batch_window_ms=args.batch_window_ms,
             max_batch=1 if args.no_microbatch else args.max_batch, max_queue=args.max_queue,
             max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack, quantize_base=args.quantize_base,
-            w8a8=args.w8a8, device=args.device)
+            w8a8=args.w8a8, device=args.device, mesh_data=args.mesh_data, mesh_model=args.mesh_model)
     kwargs = dict(image_size=args.image_size, start_noise=750 if args.start_noise is None else args.start_noise,
                   batch_window_ms=args.batch_window_ms, max_batch=1 if args.no_microbatch else args.max_batch,
                   max_queue=args.max_queue, max_sliders=args.max_sliders, cross_slider_stack=not args.no_stack,
                   static_guidance=args.static_guidance, quantize_base=args.quantize_base, w8a8=args.w8a8,
-                  device=args.device)
+                  device=args.device, mesh_data=args.mesh_data, mesh_model=args.mesh_model)
     if family == "sd1":
         return SD1SliderService, dict(kwargs, steps=50 if args.steps is None else args.steps, v2=args.v2,
                                       v_pred=args.v_pred)
@@ -913,12 +1031,19 @@ def main(argv=None):
     if args.compilation_cache_dir:
         apply_tpu_runtime_flags(SimpleNamespace(compilation_cache_dir=args.compilation_cache_dir))
     cls, kwargs = service_settings(args)
+    ranks = args.mesh_data * args.mesh_model
+    if ranks > 1 and not mesh_lib.active():  # this process starts the mesh's ranks and waits for them
+        mesh_lib.spawn_world(main, (sys.argv[1:] if argv is None else argv,), ranks,
+                             device=mesh_lib.device_kind(args.device))
+        return
     service = cls(args.base, args.slider, **kwargs)
     for spec in args.add_slider:
         name, _, path = spec.partition("=")
         if not path:
             ap.error(f"--add_slider takes NAME=PATH, got {spec!r}")
         service.add_slider(name, path)
+    if not service.serve_ranks():  # a rank other than 0: rank 0 has closed the service
+        return
     server = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(service))
     print(f"slider server on :{args.port} (models loaded in {service.load_seconds:.1f}s)")
     try:

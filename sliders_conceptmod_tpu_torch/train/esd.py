@@ -45,6 +45,14 @@ combinations (``ValueError``):
   sample only;
 * ``dynamic_crops`` (XL): the crop conditioning redrawn every iteration
   (:func:`draw_time_ids`), the same crop for warm-up, teacher and student;
+* ``mesh`` (data parallelism, ``parallel/mesh.py``): every rank draws all S
+  samples from the one seed, as one process does, and takes its own
+  ``S / mesh_data`` of them (:func:`shard_draws`); the loss and the gradient
+  are summed over the data axis (each sample's share already divided by S)
+  before the clip and the optimizer, so every rank takes the same step and
+  the result does not depend on the mesh. Under tensor parallelism the
+  merged student's factor gradients, each rank's through its rows of the
+  merged weights, are summed over the model axis;
 * ``remat_student``: the student call under ``torch.utils.checkpoint``
   (non-reentrant; the overlay's hooks and the merged weights are entered
   inside the checkpointed function, so the recompute sees them), by default
@@ -93,6 +101,7 @@ from sliders_conceptmod_tpu_torch.diffusion.sampling import (
     predict_noise,
 )
 from sliders_conceptmod_tpu_torch.diffusion.schedulers import NoiseScheduler, Schedule
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params
 
 # role order inside the stacked bank
@@ -167,6 +176,8 @@ class ESDConfig:
     pipeline_warmup: bool = False
     share_warmup: bool = False
     remat_student: Optional[bool] = None  # None: max(height, width) > 512
+    # the (data, model) mesh: the samples shard over its data axis (parallel/mesh.py); None: one process
+    mesh: Optional[object] = None
 
     @property
     def fused_samples(self) -> bool:
@@ -211,6 +222,8 @@ class FusedDraws:
     latents0: torch.Tensor  # [S, 4, H/8, W/8]
     warm_noise: torch.Tensor  # [max(timesteps_to), S, ...]; [..., 1, ...] under share_warmup
     time_ids: Optional[torch.Tensor] = None  # [S, 6] each sample's crop (dynamic_crops)
+    # share_warmup on a data-axis rank: the step's sample 0's crop, which the one chain takes
+    chain_time_ids: Optional[torch.Tensor] = None
 
 
 StepDraws = Union[Draws, FusedDraws, List[Draws]]
@@ -290,6 +303,38 @@ def draw_step(rng: TrainRNG, n_pairs: int, schedule: Schedule, cfg: ESDConfig, d
     if cfg.fused_samples:
         return draw_fused(rng, n_pairs, schedule, cfg, device, crops)
     return [draw(rng, n_pairs, schedule, cfg, device, crops) for _ in range(cfg.samples_per_step)]
+
+
+def shard_draws(draws: StepDraws, cfg: ESDConfig) -> StepDraws:
+    """This rank's share of one iteration's draws along the mesh's data
+    axis (all of them off-mesh). Under ``share_warmup`` every rank keeps the
+    step's one chain (sample 0's latent, pair, crop and noise) and its own
+    snapshot depths."""
+    mesh = cfg.mesh
+    if mesh_lib.dp_size(mesh) <= 1 or isinstance(draws, Draws):
+        return draws
+    lo, hi = mesh_lib.data_share(cfg.samples_per_step, mesh)
+    if isinstance(draws, list):
+        return draws[lo:hi]
+    tids = None if draws.time_ids is None else draws.time_ids[lo:hi]
+    if cfg.share_warmup:
+        return FusedDraws([draws.pairs[0]] * (hi - lo), draws.timesteps_to[lo:hi], draws.latents0[:1],
+                          draws.warm_noise, tids, None if draws.time_ids is None else draws.time_ids[:1])
+    return FusedDraws(draws.pairs[lo:hi], draws.timesteps_to[lo:hi], draws.latents0[lo:hi],
+                      draws.warm_noise[:, lo:hi], tids)
+
+
+def mesh_reduce(loss: torch.Tensor, grads: Sequence[torch.Tensor], mesh, merged_student: bool):
+    """A rank's ``(loss, grads)`` over its share of the step's samples (each
+    sample's loss already divided by the step's sample count) → the step's,
+    the same on every rank: summed over the data axis, and, for a merged
+    student over a tensor-sharded base (each model rank's gradient flows
+    through its rows of the merged weights), over the model axis first."""
+    if mesh is None:
+        return loss, list(grads)
+    if merged_student:
+        grads = mesh_lib.sum_grads(grads, mesh.model_group)
+    return mesh_lib.data_mean(loss, grads, mesh)
 
 
 def raise_if_nonfinite(loss: torch.Tensor, grads: Sequence[torch.Tensor]) -> None:
@@ -441,8 +486,10 @@ class ESDStep:
         role_text, role_pooled, tids_rows = self._fused_rows(bank, pairs, draws.time_ids)
         with self._warm_unet() as warm:
             if cfg.share_warmup:  # one batch-1 chain: sample 0's latent, context and crop
+                chain_tids = None if tids_rows is None else (
+                    tids_rows[:1] if draws.chain_time_ids is None else draws.chain_time_ids)
                 rows, kw = self._cfg_rows(lambda r: role_text(r)[:1], role_pooled and (lambda r: role_pooled(r)[:1]),
-                                          None if tids_rows is None else tids_rows[:1], ROLE_TARGET)
+                                          chain_tids, ROLE_TARGET)
                 denoised = denoise_shared_snapshots(
                     warm, sched, schedule, draws.latents0[:1], rows, total_steps=draws.timesteps_to,
                     guidance_scale=cfg.train_cfg_scale, added_cond_kwargs=kw, noise=draws.warm_noise)
@@ -537,14 +584,16 @@ class ESDStep:
     def _loss_and_grads(self, losses_of: Callable[[], List[torch.Tensor]]):
         """Mean loss and its gradients; the one-sample loop backpropagates
         each sample's share as it goes."""
+        cfg = self.cfg
         with torch.enable_grad():
             total, grads = None, None
             for loss in losses_of():
-                n = self.cfg.samples_per_step if not self.cfg.fused_samples else 1
+                # each sample's share of the whole step's mean (a fused rank's rows are 1/mesh_data of it)
+                n = cfg.samples_per_step if not cfg.fused_samples else mesh_lib.dp_size(cfg.mesh)
                 g = torch.autograd.grad(loss / n, self.params)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 total = loss.detach() / n if total is None else total + loss.detach() / n
-        return total, grads
+        return mesh_reduce(total, grads, cfg.mesh, merged_student=not cfg.student_overlay)
 
     # --- the step -------------------------------------------------------------
 
@@ -568,6 +617,11 @@ class ESDStep:
         else:
             if draws is None:
                 draws = self.draw(bank, rng)
+            # the whole step's warm-up lengths, whichever share of the samples this rank runs
+            t_to = [d.timesteps_to for d in draws] if isinstance(draws, list) else draws.timesteps_to
+            if isinstance(t_to, list) and len(t_to) == 1:
+                t_to = t_to[0]
+            draws = shard_draws(draws, cfg)
             samples = draws if isinstance(draws, list) else [draws]
             carries: List[Carry] = []
 
@@ -577,7 +631,6 @@ class ESDStep:
                     yield self.sample_loss(carries[-1], bank)
 
             loss, grads = self._loss_and_grads(losses)
-            t_to = carries[0].timesteps_to if len(carries) == 1 else [c.timesteps_to for c in carries]
         if self.debug_nans:
             raise_if_nonfinite(loss, grads)
         g_norm = self.optimizer.global_norm(grads)

@@ -73,8 +73,10 @@ from sliders_conceptmod_tpu_torch.train.esd import (
     ROLE_UNCOND,
     PromptBank,
     TrainRNG,
+    mesh_reduce,
     raise_if_nonfinite,
 )
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params
 
 
@@ -92,6 +94,7 @@ class CascadeESDConfig:
     share_warmup: bool = False
     student_overlay: bool = False
     overlay_warmup: bool = False
+    mesh: Optional[object] = None  # the samples shard over its data axis (parallel/mesh.py); None: one process
 
     @property
     def latent_hw(self):
@@ -281,15 +284,16 @@ class CascadeESDStep:
         if len(draws) != cfg.samples_per_step:
             raise ValueError(f"{len(draws)} draws for samples_per_step={cfg.samples_per_step}")
         n = len(draws)
+        lo, hi = mesh_lib.data_share(n, cfg.mesh)  # this rank's samples (all of them off-mesh)
 
         def tails():
-            """(pair, warm-up context) of each sample."""
+            """(pair, warm-up context) of each of this rank's samples."""
             if cfg.share_warmup:  # one chain from sample 0's draws; the tails keep their pairs
                 x_in = self.warm_up(bank, draws[0])
-                for d in draws:
+                for d in draws[lo:hi]:
                     yield d.pair, x_in
             else:
-                for d in draws:
+                for d in draws[lo:hi]:
                     yield d.pair, self.warm_up(bank, d)
 
         loss, grads = None, None
@@ -299,6 +303,7 @@ class CascadeESDStep:
                 g = torch.autograd.grad(l_j / n, self.params)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 loss = l_j.detach() / n if loss is None else loss + l_j.detach() / n
+        loss, grads = mesh_reduce(loss, grads, cfg.mesh, merged_student=not cfg.student_overlay)
         if self.debug_nans:
             raise_if_nonfinite(loss, grads)
         g_norm = self.optimizer.global_norm(grads)

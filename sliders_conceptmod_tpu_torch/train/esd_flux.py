@@ -47,8 +47,10 @@ from sliders_conceptmod_tpu_torch.train.esd import (
     ROLE_TARGET,
     PromptBank,
     TrainRNG,
+    mesh_reduce,
     raise_if_nonfinite,
 )
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train.optim import flat_params
 
 
@@ -63,6 +65,7 @@ class FluxESDConfig:
     remat: bool = True  # the student's blocks under torch.utils.checkpoint
     samples_per_step: int = 1
     student_overlay: bool = False
+    mesh: Optional[object] = None  # the samples shard over its data axis (parallel/mesh.py); None: one process
 
 
 @dataclass
@@ -152,13 +155,15 @@ class FluxESDStep:
         if len(draws) != self.cfg.samples_per_step:
             raise ValueError(f"{len(draws)} draws for samples_per_step={self.cfg.samples_per_step}")
         n = len(draws)
+        lo, hi = mesh_lib.data_share(n, self.cfg.mesh)  # this rank's samples (all of them off-mesh)
         loss, grads = None, None
         with torch.enable_grad():
-            for d in draws:
+            for d in draws[lo:hi]:
                 l_j = self.sample_loss(bank, d)
                 g = torch.autograd.grad(l_j / n, self.params)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 loss = l_j.detach() / n if loss is None else loss + l_j.detach() / n
+        loss, grads = mesh_reduce(loss, grads, self.cfg.mesh, merged_student=not self.cfg.student_overlay)
         if self.debug_nans:
             raise_if_nonfinite(loss, grads)
         g_norm = self.optimizer.global_norm(grads)

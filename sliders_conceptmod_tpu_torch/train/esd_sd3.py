@@ -60,8 +60,10 @@ from sliders_conceptmod_tpu_torch.train.esd import (
     ROLE_UNCOND,
     PromptBank,
     TrainRNG,
+    mesh_reduce,
     raise_if_nonfinite,
 )
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train.optim import Optimizer, flat_params
 
 
@@ -78,6 +80,7 @@ class SD3ESDConfig:
     share_warmup: bool = False
     student_overlay: bool = False
     overlay_warmup: Optional[bool] = None  # None follows student_overlay
+    mesh: Optional[object] = None  # the samples shard over its data axis (parallel/mesh.py); None: one process
 
 
 @dataclass
@@ -252,15 +255,17 @@ class SD3ESDStep:
             raise ValueError(f"{len(draws)} draws for samples_per_step={cfg.samples_per_step}")
         n = len(draws)
         t_to = [d.timesteps_to for d in draws]
+        lo, hi = mesh_lib.data_share(n, cfg.mesh)  # this rank's samples (all of them off-mesh)
+
         def tails():
-            """(pair, warm-up context, t_k) of each sample."""
+            """(pair, warm-up context, t_k) of each of this rank's samples."""
             if cfg.share_warmup:  # one chain: sample 0's pair and latents, a snapshot at each t_k
                 pair0 = draws[0].pair
-                snaps = self.warm_up(bank, pair0, draws[0].latents0[:1], t_to)
-                for j, t in enumerate(t_to):
+                snaps = self.warm_up(bank, pair0, draws[0].latents0[:1], t_to[lo:hi])
+                for j, t in enumerate(t_to[lo:hi]):
                     yield pair0, snaps[j], t
             else:
-                for d in draws:
+                for d in draws[lo:hi]:
                     yield d.pair, self.warm_up(bank, d.pair, d.latents0, [d.timesteps_to])[0], d.timesteps_to
 
         loss, grads = None, None
@@ -270,6 +275,7 @@ class SD3ESDStep:
                 g = torch.autograd.grad(l_j / n, self.params)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 loss = l_j.detach() / n if loss is None else loss + l_j.detach() / n
+        loss, grads = mesh_reduce(loss, grads, cfg.mesh, merged_student=not cfg.student_overlay)
         if self.debug_nans:
             raise_if_nonfinite(loss, grads)
         g_norm = self.optimizer.global_norm(grads)

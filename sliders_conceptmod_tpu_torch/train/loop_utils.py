@@ -56,15 +56,19 @@ def _sync(value) -> None:
 class MetricsLogger:
     """Appends one JSON line per step to ``{name}_metrics.jsonl`` in
     ``save_path`` and a closing ``{"steps_per_sec": ...}`` line. Tensor
-    metrics are buffered; host numbers are written as they are."""
+    metrics are buffered; host numbers are written as they are. ``write``
+    False (a mesh rank other than 0) keeps the rows and writes and prints
+    nothing."""
 
-    def __init__(self, save_path, name: str, verbose: bool = False):
+    def __init__(self, save_path, name: str, verbose: bool = False, write: bool = True):
         self.path = Path(save_path)
-        self.path.mkdir(parents=True, exist_ok=True)
-        # line-buffered, and flushed at exit: a crash mid-run keeps the rows
-        self._f = open(self.path / f"{name}_metrics.jsonl", "a", buffering=1)
-        atexit.register(self._flush_safe)
-        self.verbose = verbose
+        self._f = None
+        if write:
+            self.path.mkdir(parents=True, exist_ok=True)
+            # line-buffered, and flushed at exit: a crash mid-run keeps the rows
+            self._f = open(self.path / f"{name}_metrics.jsonl", "a", buffering=1)
+            atexit.register(self._flush_safe)
+        self.verbose = verbose and write
         self._t_start: Optional[float] = None
         self._n = 0
         self._pending: List[Tuple[int, dict]] = []
@@ -97,7 +101,8 @@ class MetricsLogger:
             row.update({k: v for k, v in m.items() if k not in ks})
             self.losses.append(row["loss"])
             self.rows.append(row)
-            self._f.write(json.dumps(row) + "\n")
+            if self._f is not None:
+                self._f.write(json.dumps(row) + "\n")
             if self.verbose:
                 print(f"step {step} loss*1k {row['loss'] * 1000:.4f}")
 
@@ -107,7 +112,7 @@ class MetricsLogger:
         return self.losses[-1] if self.losses else None
 
     def _flush_safe(self) -> None:
-        if not self._f.closed:
+        if self._f is not None and not self._f.closed:
             self.flush()
 
     def close(self) -> float:
@@ -116,6 +121,7 @@ class MetricsLogger:
         _sync(self._last_loss)  # the last step has finished on the device
         sps = steps_per_sec(self._n, time.time() - self._t_start) if self._t_start else float("nan")
         self.flush()
-        self._f.write(json.dumps({"steps_per_sec": sps}) + "\n")
-        self._f.close()
+        if self._f is not None:
+            self._f.write(json.dumps({"steps_per_sec": sps}) + "\n")
+            self._f.close()
         return sps

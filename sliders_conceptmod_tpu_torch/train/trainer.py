@@ -43,8 +43,18 @@ student and warm-up (an int8 base cannot host a merge); DoRA with it raises.
 or, without ``quantize_base``, over an int8 copy of the full-precision base
 quantized once after the text towers are freed (the dual tree: it shares
 every tensor it does not quantize with the base); the dual tree needs LoRA
-and the overlay student and warm-up. Meshes and multi-process worlds are not
-ported yet: they raise ``NotImplementedError`` naming the ROADMAP item.
+and the overlay student and warm-up.
+
+Meshes (``parallel/mesh.py``, JAX's yaml surface): ``tpu.samples_per_step``
+over ``tpu.mesh_data`` ranks is data parallelism — each rank takes its share
+of the step's samples (``train/esd.py::shard_draws``) and the gradient is
+summed over the data axis before the clip and the optimizer; ``tpu.mesh_model``
+tensor-shards the frozen base (``mesh.place_training_state(..., tp=True)``);
+``tpu.coordinator_address`` / ``num_processes`` / ``process_id`` join a world
+of separate processes. Rank 0 alone writes the metrics, the checkpoints and
+the slider; every rank crosses ``barrier("sliders_pre_first_step")`` before
+step 1. A CLI whose config asks for more ranks than its world has spawns
+them itself (``mesh.spawn_for_config``).
 """
 
 from __future__ import annotations
@@ -70,13 +80,12 @@ from sliders_conceptmod_tpu_torch.core.config import (
 from sliders_conceptmod_tpu_torch.core.prompts import PromptSettings
 from sliders_conceptmod_tpu_torch.diffusion.sampling import get_add_time_ids
 from sliders_conceptmod_tpu_torch.models import factory
+from sliders_conceptmod_tpu_torch.parallel import mesh as mesh_lib
 from sliders_conceptmod_tpu_torch.train import checkpoint as ckpt
 from sliders_conceptmod_tpu_torch.train import esd
 from sliders_conceptmod_tpu_torch.train.loop_utils import MetricsLogger, resolution_bucket_picker
 from sliders_conceptmod_tpu_torch.train.optim import flat_params, get_lr_schedule, get_optimizer
 from sliders_conceptmod_tpu_torch.utils.debug import apply_tpu_runtime_flags
-
-_QUEUE1 = "ROADMAP.md queue 1"
 
 
 def _uniform_field(prompts: List[PromptSettings], field: str):
@@ -87,13 +96,29 @@ def _uniform_field(prompts: List[PromptSettings], field: str):
 
 
 def check_supported(config: RootConfig, prompts: List[PromptSettings], peft_type: str) -> None:
-    """Refuse what the port does not carry yet, naming where it is queued."""
-    tpu = config.tpu
+    """The trainer's up-front refusals."""
     if peft_type not in ("lora", "dora"):
         raise ValueError(f"peft_type must be 'lora' or 'dora', got {peft_type!r}")
-    if tpu.mesh_model != 1 or tpu.mesh_data not in (-1, 1) or (tpu.num_processes or 1) > 1 or tpu.sequence_parallel:
+
+
+def check_tp_warm_tree(tpu_cfg, dual_tree: bool) -> None:
+    """JAX's refusal of a dual-tree W8A8 warm-up copy under tensor
+    parallelism, raised where JAX's trainers raise it (this trainer once the
+    mesh is placed, SD3's from the config alone)."""
+    if dual_tree and max(tpu_cfg.mesh_model, 1) > 1:
         raise NotImplementedError(
-            f"meshes and multi-process worlds are not ported yet ({_QUEUE1}, item 12: parallelism)")
+            "dual-tree w8a8_warmup + tensor parallelism: the int8 "
+            "warm-up copy is not TP-sharded — use quantize_base: true "
+            "(one int8 tree, TP-shardable) or mesh_model: 1."
+        )
+
+
+def mesh_step_start(mesh) -> None:
+    """Every rank crosses the store barrier before step 1 (JAX's
+    ``sliders_pre_first_step``): ranks whose set-up times diverged meet
+    before their first collective."""
+    if mesh_lib.active():
+        mesh_lib.barrier("sliders_pre_first_step")
 
 
 def resolve_int8_routes(tpu_cfg, peft_type: str):
@@ -180,7 +205,14 @@ def train(
     tpu_cfg = config.tpu
     check_supported(config, prompts, peft_type)
     student_overlay, overlay_warmup, quantize_base = resolve_int8_routes(tpu_cfg, peft_type)
-    device = torch.device(device)
+    samples_per_step = max(tpu_cfg.samples_per_step, 1)
+    # joins the yaml world when configured; None on one rank (the one-process step)
+    mesh = mesh_lib.training_mesh_from_config(tpu_cfg, samples_per_step, device)
+    if mesh is not None and not mesh.member:  # a shrunk data axis: this rank idles, as JAX's spare devices do
+        mesh_step_start(mesh)
+        return None
+    device = mesh_lib.local_device(device)
+    writer = mesh_lib.is_writer()
     weight_dtype = parse_precision(config.train.precision)
     save_dtype = parse_save_precision(config.save.precision)
     save_path = Path(config.save.path)
@@ -228,6 +260,9 @@ def train(
     models.encode = None  # the closure holds the towers
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if mesh is not None:  # the base tensor-sharded when mesh_model > 1; the rest replicates
+        mesh_lib.place_training_state(mesh, unet, lora_params, None, bank, tp=mesh.model > 1)
+        check_tp_warm_tree(tpu_cfg, bool(tpu_cfg.w8a8_warmup) and not quantize_base)
     # tpu.w8a8_warmup: the warm-up's own UNet, made after the towers are freed
     warm_unet = quant.quantized_copy(unet, act_quant=True) if tpu_cfg.w8a8_warmup else None
 
@@ -249,11 +284,12 @@ def train(
             width=width,
             student_overlay=student_overlay,
             overlay_warmup=overlay_warmup,
-            samples_per_step=max(tpu_cfg.samples_per_step, 1),
+            samples_per_step=samples_per_step,
             fuse_teacher_student=tpu_cfg.fuse_teacher_student,
             dynamic_crops=bool(dynamic_crops) and is_xl,
             pipeline_warmup=tpu_cfg.pipeline_warmup,
             share_warmup=tpu_cfg.share_warmup,
+            mesh=mesh,
             # the student under torch.utils.checkpoint above 512px, as the JAX trainer sets remat_unet
         )
         add_time_ids = torch.from_numpy(get_add_time_ids(height, width)).to(device) if is_xl else None
@@ -271,10 +307,12 @@ def train(
         # a resumed run re-draws the carry (it is not checkpointed), as the JAX trainer does
         step_fns[0].init_carry(bank, rng)
 
-    save_path.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose)
+    if writer:
+        save_path.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(save_path, config.save.name, verbose=config.logging.verbose, write=writer)
+    mesh_step_start(mesh)
 
-    if config.logging.use_wandb:
+    if config.logging.use_wandb and writer:
         print("wandb is not part of the port: metrics go to the jsonl only")
 
     # --- loop -------------------------------------------------------------
@@ -292,7 +330,8 @@ def train(
             logger.log(i, metrics)  # waits for the first step to finish on the device
             if i == start_step:
                 first_step_seconds = time.time() - t_loop
-            if save_file and config.save.per_steps and i % config.save.per_steps == 0 and i not in (0, iterations - 1):
+            if (save_file and writer and config.save.per_steps and i % config.save.per_steps == 0
+                    and i not in (0, iterations - 1)):
                 peft_mod.save_weights(save_path / f"{config.save.name}_{i}steps.safetensors", sites, lora_params,
                                       dtype=save_dtype, metadata=metadata)
                 ckpt.save_resume(save_path, config.save.name, lora_params, opt_state, i + 1, rng)
@@ -300,7 +339,7 @@ def train(
                 on_step_complete(i)
         sps = logger.close()
 
-    if save_file:
+    if save_file and writer:
         peft_mod.save_weights(save_path / f"{config.save.name}_last.safetensors", sites, lora_params,
                               dtype=save_dtype, metadata=metadata)
     return TrainResult(

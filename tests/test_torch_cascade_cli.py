@@ -9,8 +9,9 @@
   a CUDA ordinal;
 * ``train_lora`` returns the reference-schema state dict;
 * the trainer's refusals: JAX's words for ``quantize_base``,
-  ``w8a8_warmup`` with DoRA and ``overlay_warmup``; meshes cite ROADMAP
-  queue 1, item 12.
+  ``w8a8_warmup`` with DoRA and ``overlay_warmup``; meshes are ported
+  (queue 1, item 12): ``mesh_data`` 2 in one process trains the one-device
+  step.
 """
 
 import os
@@ -139,7 +140,18 @@ def test_trainer_refusals_match_jax_word_for_word(tmp_path, tpu, peft):
 
 
 def test_meshes_cite_item_12(tmp_path):
-    cfg = tconfig.load_config_from_yaml(_tiny_yaml(tmp_path, mesh_data=2))
+    """Meshes are ported (item 12; tests/test_torch_mesh_trainers.py spawns
+    the Cascade CLI's data axis). One sample per step and no model axis ask
+    for no mesh — JAX's ``training_mesh_from_config`` returns None — so
+    ``mesh_data: 2`` in one process trains the one-device step."""
     prompts = tprompts.load_prompts_from_yaml(os.path.join(REPO, "data", "prompts-tiny.yaml"), [])
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        tcli.train(cfg, prompts, rank=2, device="cpu")
+    runs = []
+    for tpu in ({}, {"mesh_data": 2}):
+        (tmp_path / str(len(runs))).mkdir()
+        cfg = tconfig.load_config_from_yaml(_tiny_yaml(tmp_path / str(len(runs)), **tpu))
+        cfg.train.iterations = 2
+        runs.append(tcli.train(cfg, prompts, rank=2, device="cpu", save_file=False))
+    assert runs[1].losses == runs[0].losses
+    for n, leaf in runs[0].lora_params.items():
+        for k, t in leaf.items():
+            assert torch.equal(runs[1].lora_params[n][k], t)

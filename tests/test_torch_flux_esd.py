@@ -16,7 +16,7 @@
 * the CLI through ``main`` on ``data/config-tiny-flux.yaml``: the JAX
   trainer's key set and micro-step count, a resume from the middle of an
   accumulation bit for bit, the parser and save name of the JAX CLI, its
-  refusals.
+  refusals; ``mesh_model`` 2 in one process trains the one-device step.
 """
 
 import functools
@@ -272,8 +272,15 @@ def test_cli_parser_save_name_and_refusals_match_the_jax_cli(monkeypatch, tmp_pa
     prompts = tprompts.load_prompts_from_yaml(os.path.join(REPO, "data", "prompts-tiny.yaml"), [])
     for tpu, peft, exc in (({"quantize_base": True}, "dora", NotImplementedError),
                            ({"w8a8_warmup": True}, "lora", NotImplementedError),
-                           ({"quantize_base": True, "student_overlay": False}, "lora", ValueError),
-                           ({"mesh_model": 2}, "lora", NotImplementedError)):
+                           ({"quantize_base": True, "student_overlay": False}, "lora", ValueError)):
         cfg = tconfig.load_config_from_yaml(_tiny_yaml(tmp_path, **tpu))
         with pytest.raises(exc):
             tcli.train(cfg, prompts, rank=2, peft_type=peft, device="cpu")
+    # meshes are ported (tests/test_torch_mesh_trainers.py); in one process, as on one JAX device,
+    # mesh_model 2 asks for no world and trains the one-device step
+    runs = []
+    for tpu in ({}, {"mesh_model": 2}):
+        cfg = tconfig.load_config_from_yaml(_tiny_yaml(tmp_path, **tpu))
+        cfg.train.iterations = 1
+        runs.append(tcli.train(cfg, prompts, rank=2, device="cpu", save_file=False).losses)
+    assert runs[1] == runs[0]

@@ -128,6 +128,18 @@ EVAL_REST_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.demos.demo_concept_sliders",
     "sliders_conceptmod_tpu_torch.demos.demo_sdxl_turbo",
 }
+# modules the parallelism slice added or extended: the mesh, ring attention, and the entry points whose
+# workers a spawned world runs (the trainer CLIs, the sweep, serving)
+PARALLEL_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.parallel",
+    "sliders_conceptmod_tpu_torch.parallel.mesh",
+    "sliders_conceptmod_tpu_torch.parallel.ring_attention",
+    "sliders_conceptmod_tpu_torch.ops.attention",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_xl",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_sd3",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_flux",
+    "sliders_conceptmod_tpu_torch.cli.train_lora_cascade",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -142,7 +154,31 @@ def test_port_and_smoke_import_without_jax():
     walked = set(res.stdout.split(":", 1)[1].split())
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
     assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
-    assert EVAL_REST_SLICE_MODULES <= walked
+    assert EVAL_REST_SLICE_MODULES <= walked and PARALLEL_SLICE_MODULES <= walked
+
+
+def test_spawned_worker_entry_points_import_without_jax():
+    """A spawned rank imports its worker's module and nothing else of the
+    parent: the tests' worker module (``tests/_torch_mesh_workers.py``) and
+    the port's spawn entry (``parallel/mesh.py::_spawned``) load under the
+    same refusals, and the source of the worker module imports nothing
+    refused."""
+    code = CHECK.split("import sliders_conceptmod_tpu_torch as pkg")[0] + textwrap.dedent(
+        """
+        spec = importlib.util.spec_from_file_location("_torch_mesh_workers", sys.argv[1])
+        workers = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(workers)
+        from sliders_conceptmod_tpu_torch.parallel import mesh
+        assert callable(mesh._spawned) and callable(workers.esd_steps) and callable(workers.serve)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+        assert not leaked, leaked
+        print("ok")
+        """)
+    workers = os.path.join(REPO, "tests", "_torch_mesh_workers.py")
+    res = subprocess.run([sys.executable, "-c", code, workers], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+    assert not [top for top, _ in _imported_tops(workers) if top in REFUSED_TOP]
 
 
 def test_refusal_hook_bites():

@@ -137,6 +137,33 @@ def test_incl_clips_single_file_loads_bit_equal_and_round_trips(tmp_path):
         assert torch.equal(back["transformer"][k], v), k
 
 
+def test_single_file_and_artifact_load_at_their_depth(tmp_path):
+    """An MMDiT cut in depth (3 blocks at the tiny widths, its last block
+    context-only) loads from an ``*_incl_clips`` single file and from an
+    int8 artifact at the depth its blocks hold, bit for bit."""
+    import dataclasses
+
+    from sliders_conceptmod_tpu_torch.models import mmdit as tmmdit
+
+    _, ttes, _, _ = tfactory.load_models_sd3("tiny-sd3", device="cpu")
+    cfg = dataclasses.replace(tmmdit.MMDiTConfig.tiny(), num_layers=3)
+    cut = tfactory.build_module(lambda: tmmdit.SD3Transformer2DModel(cfg), "cpu", torch.float32, 7)
+    path = str(tmp_path / "tiny-sd3-cut_incl_clips.safetensors")
+    tle.save_ldm_checkpoint(path, tle.export_sd3_checkpoint(cut.state_dict(), ttes[0].model.state_dict(),
+                                                            ttes[1].model.state_dict()))
+    _, _, got, _ = tfactory.load_models_sd3(path, device="cpu")
+    assert got.config.num_layers == 3
+    for k, v in cut.state_dict().items():
+        assert torch.equal(got.state_dict()[k], v), k
+    art = str(tmp_path / "tiny-sd3-cut.int8.safetensors")
+    tquant.quantize_module(cut, min_elems=1)
+    assert tqc.quant_cache.save_quantized(art, cut) > 0
+    _, _, got, _ = tfactory.load_models_sd3(art, device="cpu")
+    assert got.config.num_layers == 3 and tquant.is_quantized(got)
+    for k, v in cut.state_dict().items():
+        assert torch.equal(got.state_dict()[k], v), k
+
+
 def test_single_file_without_towers_is_refused(tmp_path):
     _, _, jtr, _ = jfactory.load_models_sd3("tiny-sd3")
     path = str(tmp_path / "tiny-sd3.safetensors")

@@ -70,9 +70,10 @@ def test_xl_sweep_resumes(assets, tmp_path, monkeypatch):
 
 def test_sweep_refusals(assets, tmp_path):
     # the int8 base runs with --batch_scales (tests/test_torch_quant_serve.py); without it JAX's rule
-    # refuses it (the default path merges), and sharded sweeps are not ported
+    # refuses it (the default path merges), as it refuses a sharded sweep without it
+    # (tests/test_torch_mesh_sweep.py runs one with it)
     for flag, match in (("--quantize_base", "requires --batch_scales"), ("--w8a8", "requires --batch_scales"),
-                        ("--mesh_data=2", "item 12")):
+                        ("--mesh_data=2", "requires --batch_scales")):
         with pytest.raises(SystemExit, match=match):
             tcli_xl.main(A.args(assets, "xl", tmp_path / "out", flag, "--device", "cpu"))
     # text-encoder parts apply since they were ported (tests/test_torch_te_slider.py); a partial

@@ -386,7 +386,9 @@ def test_debug_nans_raises_at_the_first_non_finite_step(slice_setup, tmp_path, m
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """Meshes are refused (not ported); the int8 base trains
+    """Meshes are ported (tests/test_torch_mesh_trainers.py): in one
+    process, as on one JAX device, the mesh knobs train the one-device step,
+    and a world of processes without a coordinator cannot be joined; the int8 base trains
     (tests/test_torch_quant_train.py) under JAX's rules — DoRA over an int8
     base, or on the dual-tree W8A8 warm-up, raises — and the ESD knobs train
     (tests/test_torch_esd_knobs.py), with the JAX trainer's ValueErrors for
@@ -398,12 +400,16 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         setattr(cfg.tpu, knob, True)
         with pytest.raises(NotImplementedError, match=match):
             ttrainer.train(cfg, prompts, peft_type="dora", device="cpu")
-    for knobs in (dict(mesh_model=2), dict(mesh_data=4), dict(num_processes=2), dict(sequence_parallel=True)):
-        cfg = _tiny_config(tmp_path)
+    one = ttrainer.train(_tiny_config(tmp_path, iterations=1), prompts, device="cpu", save_file=False)
+    for knobs in (dict(mesh_model=2), dict(mesh_data=4), dict(sequence_parallel=True)):
+        cfg = _tiny_config(tmp_path, iterations=1)
         for k, v in knobs.items():
             setattr(cfg.tpu, k, v)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.train(cfg, prompts, device="cpu")
+        assert ttrainer.train(cfg, prompts, device="cpu", save_file=False).losses == one.losses
+    cfg = _tiny_config(tmp_path)
+    cfg.tpu.num_processes = 2
+    with pytest.raises(ValueError, match="coordinator_address"):
+        ttrainer.train(cfg, prompts, device="cpu")
     for knobs, match in ((dict(share_warmup=True), "share_warmup needs"),
                          (dict(pipeline_warmup=True, samples_per_step=2), "pipeline_warmup supports"),
                          (dict(fuse_teacher_student=True, samples_per_step=2), "fuse_teacher_student supports")):
