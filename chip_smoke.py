@@ -12,11 +12,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
 1b. image_decode — host only: every committed fixture of
-                  tests/data/image_decode (JPEG baseline and progressive,
-                  4:4:4/4:2:2/4:2:0/4:4:0, grey, restart markers, Adobe RGB;
-                  palette, 2-bit, 16-bit and Adam7 PNGs; the JPEG bank's
-                  folders) through io/image.py::load_rgb, each held to the
-                  stored SHA-256 of Pillow's RGB decode; seconds per image.
+                  tests/data/image_decode (52: JPEG baseline, progressive,
+                  arithmetic-coded, lossless, CMYK and YCCK; PNG of every
+                  type; lossy and lossless WebP, with alpha, an offset
+                  animation frame, the simple filter over 4 partitions; GIF,
+                  BMP and TIFF variants; the bank's JPEG and WebP folders)
+                  and tests/data/image_decode_timing (a 512x512 lossy WebP
+                  and a 512x512 4:2:0 JPEG) through io/image.py::load_rgb,
+                  each held to the stored SHA-256 of Pillow's RGB decode;
+                  seconds per format and for the two 512x512 files.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
                   request, 2 rows), in bf16 (the tensor-core kernel) and in
@@ -199,9 +203,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   bank build (the VAE mid-block, 1024², d 512); per step K1
                   20, K4a 12, K2/K3 20, K4b/K4c 12.
 17b. sd_imageslider_merged — as 17 with tpu.student_overlay: false, 2 steps,
-                  over the committed JPEG bank (tests/data/image_decode/bank:
-                  two 96px JPEGs a folder, baseline and progressive, resized
-                  to 256 by the bank): the merged ±s students, two 1-row
+                  over the committed bank (tests/data/image_decode/bank:
+                  four 96px images a folder, a baseline and a progressive
+                  JPEG, a lossy and a lossless WebP, resized to 256 by the
+                  bank): the merged ±s students, two 1-row
                   calls a step, so every kernel launches twice per step what
                   the overlay launches.
 18. load        — a full-width SD1.5 diffusers directory written with the
@@ -2119,8 +2124,8 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     (SDXL at 512px, SD1.5 at 256px: the trainer's resolution for the family),
     four folders of four synthetic PNGs at scales -2, -1, 1, 2 (``first_wh``:
     the first folder's at that size, resized on the host by the bank) or the
-    folders under ``image_root`` (the committed JPEG bank: two 96px JPEGs a
-    folder, baseline and progressive), plus ``yaml_edit`` (the merged
+    folders under ``image_root`` (the committed bank: four 96px images a
+    folder, two JPEGs and two WebPs), plus ``yaml_edit`` (the merged
     students: ``tpu.student_overlay: false``); then one more step under
     torch.profiler. Returns the launches of K1..K4c."""
     cfg, prompts = train_config(tmp / what, yaml_name, iterations)
@@ -4364,30 +4369,50 @@ def phase_cascade_routes(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 IMAGE_FIXTURES = REPO / "tests" / "data" / "image_decode"  # written with Pillow by tests/_make_image_fixtures.py
+IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the two 512x512 files, by the same script
+IMAGE_FIXTURES_MIN = 52  # every committed fixture (the bank's 16 files included)
 EDIT_STEPS, EDIT_INNER_STEPS = 10, 2  # the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut
 EDIT_SCALES = (0.0, -2.0, 2.0)
 SCORER_TOL = 2e-4  # card against CPU, fp32, relative
 
 
 def phase_image_decode() -> None:
-    """Host only: every committed fixture (JPEG baseline and progressive at
-    4:4:4/4:2:2/4:2:0/4:4:0, grey, restart markers, Adobe RGB; palette,
-    2-bit, 16-bit and Adam7 PNGs; the JPEG bank's folders) through
-    io/image.py::load_rgb, each held to the SHA-256 of Pillow's decode stored
-    beside it; seconds per image."""
-    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
-    seconds, bad = {}, []
-    for name, want in sorted(digests.items()):
-        t0 = time.time()
-        img = load_rgb(str(IMAGE_FIXTURES / name))
-        seconds[name] = time.time() - t0
-        if list(img.shape) != want["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
-            bad.append(name)
-    emit(dict(phase="image_decode", files=len(digests), mismatched=bad, seconds_total=sum(seconds.values()),
-              seconds_per_image_mean=sum(seconds.values()) / len(seconds), seconds_per_image_max=max(seconds.values()),
+    """Host only: every committed fixture (JPEG baseline, progressive,
+    arithmetic-coded, lossless, CMYK and YCCK; PNG of every type; lossy and
+    lossless WebP, with alpha, an offset animation frame, the simple filter
+    over 4 partitions; GIF, BMP and TIFF variants; the bank's JPEG and WebP
+    folders) and the two 512x512 timing files (a lossy WebP at quality 90
+    and a 4:2:0 JPEG) through io/image.py::load_rgb, each held to the SHA-256
+    of Pillow's decode stored beside it; seconds per format and for the
+    512x512 files. Any mismatch fails the run."""
+    seconds, bad, shapes = {}, [], {}
+    tables = [(IMAGE_FIXTURES, json.loads((IMAGE_FIXTURES / "digests.json").read_text())),
+              (IMAGE_TIMING, json.loads((IMAGE_TIMING / "digests.json").read_text()))]
+    for root, digests in tables:
+        for name, want in sorted(digests.items()):
+            t0 = time.perf_counter()
+            img = load_rgb(str(root / name))
+            seconds[str((root / name).relative_to(IMAGE_FIXTURES.parent))] = time.perf_counter() - t0
+            shapes[name] = list(img.shape)
+            if list(img.shape) != want["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+                bad.append(name)
+    by_format = {}
+    for path, s in seconds.items():
+        if "image_decode_timing" in path:
+            continue
+        row = by_format.setdefault(Path(path).suffix.lstrip("."), {"files": 0, "seconds_total": 0.0,
+                                                                   "seconds_max": 0.0})
+        row["files"] += 1
+        row["seconds_total"] += s
+        row["seconds_max"] = max(row["seconds_max"], s)
+    timing = {p.split("/")[-1]: s for p, s in seconds.items() if "image_decode_timing" in p}
+    n_fixtures = len(tables[0][1])
+    emit(dict(phase="image_decode", files=len(seconds), fixtures=n_fixtures, mismatched=bad,
+              seconds_total=sum(seconds.values()), seconds_by_format=by_format, seconds_512x512=timing,
               seconds_by_file=seconds))
-    if bad or len(digests) < 20:
-        raise AssertionError(f"image_decode: the port's decode differs from Pillow's on {bad}")
+    if bad or n_fixtures < IMAGE_FIXTURES_MIN or len(timing) != 2:
+        raise AssertionError(f"image_decode: the port's decode differs from Pillow's on {bad} "
+                             f"({n_fixtures} fixtures, {len(timing)} timing files)")
 
 
 def write_clip_dir(root: Path) -> Path:

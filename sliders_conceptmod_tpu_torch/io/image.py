@@ -1,15 +1,29 @@
 """``load_rgb``: the port's ``PIL.Image.open(path).convert("RGB")`` (the GPU
 machine has no PIL). The format comes from the file's signature, not its
-name, as Pillow finds it: PNG through ``io/png.py``, JPEG through
-``io/jpeg.py``. WebP is refused: lossy VP8 is a codec of its own (ROADMAP.md
-queue 1, item 14), and so is any other format."""
+name, as Pillow identifies it: PNG (``io/png.py``), JPEG (``io/jpeg.py``),
+WebP (``io/webp.py`` over ``io/vp8.py`` and ``io/vp8l.py``), GIF
+(``io/gif.py``), BMP (``io/bmp.py``) and TIFF (``io/tiff.py``). Any other
+format is refused (ROADMAP.md queue 1, item 14)."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from sliders_conceptmod_tpu_torch.io.bmp import decode_bmp
+from sliders_conceptmod_tpu_torch.io.gif import decode_gif
 from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, decode_jpeg
 from sliders_conceptmod_tpu_torch.io.png import decode_png
+from sliders_conceptmod_tpu_torch.io.tiff import decode_tiff
+from sliders_conceptmod_tpu_torch.io.webp import decode_webp
+
+# (signature test, format) for the formats Pillow opens that the port refuses
+_REFUSED = (
+    (lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis"), "AVIF"),
+    (lambda d: d[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P7", b"Pf", b"PF"), "PPM/PGM/PBM"),
+    (lambda d: d[:4] == b"\0\0\1\0", "ICO"),
+    (lambda d: d[:4] == b"8BPS", "PSD"),
+)
 
 
 def decode_rgb(data: bytes, name: str = "image") -> np.ndarray:
@@ -22,9 +36,17 @@ def decode_rgb(data: bytes, name: str = "image") -> np.ndarray:
     if data[:3] == b"\xff\xd8\xff":
         return decode_jpeg(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError(f"{name}: WebP is not supported: lossy VP8 is a codec of its own ({ITEM}); "
-                         "save the image as PNG or JPEG")
-    raise ValueError(f"{name}: not a PNG or JPEG file (the port decodes those two; {ITEM})")
+        return decode_webp(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return decode_tiff(data)
+    for test, fmt in _REFUSED:
+        if test(data):
+            raise ValueError(f"{name}: {fmt} is not supported ({ITEM}); save the image as PNG, JPEG or WebP")
+    raise ValueError(f"{name}: not a PNG, JPEG, WebP, GIF, BMP or TIFF file (the port decodes those; {ITEM})")
 
 
 def load_rgb(path: str) -> np.ndarray:

@@ -8,11 +8,22 @@ Scope, as libjpeg-turbo decodes with Pillow's settings (``JDCT_ISLOW``,
 
 * entropy coding: baseline and extended sequential Huffman (SOF0/SOF1) and
   progressive Huffman (SOF2: spectral selection, successive approximation of
-  DC and AC, first and refinement scans), restart intervals (DRI/RSTn),
-  8-bit samples;
-* one component (grey, repeated to RGB) or three: YCbCr, or RGB where no
+  DC and AC, first and refinement scans); arithmetic coding, sequential and
+  progressive (SOF9/SOF10): the QM decoder of T.81 Annex D with libjpeg's
+  113-state table, the DC and AC statistics of F.1.4.4 and G.1.3.3, a DAC
+  marker's conditioning (defaults L 0, U 1, K 5), the statistics reset at
+  every scan and restart; restart intervals (DRI/RSTn); 8-bit samples;
+* lossless frames (SOF3, Huffman): the seven predictors of T.81 H.1.2.1 and
+  the point transform, one sample a data unit, no subsampling; libjpeg-turbo
+  3 decodes them without colour conversion, so a file marked YCbCr (JFIF or
+  Adobe 1) or YCCK is refused, as Pillow refuses it;
+* one component (grey, repeated to RGB), three: YCbCr, or RGB where no
   JFIF marker is present and the Adobe marker's transform is 0 or the
-  component ids are 'R', 'G', 'B' (``jdapimin.c::default_decompress_parms``);
+  component ids are 'R', 'G', 'B' (any ids for a lossless frame;
+  ``jdapimin.c::default_decompress_parms``), or four: CMYK (Adobe transform
+  0 or no Adobe marker) or YCCK (any other transform), which ``jdcolor.c``
+  turns to CMYK, then Pillow's inverted Adobe rawmode ``CMYK;I`` and
+  ``Convert.c::cmyk2rgb``;
 * the integer "islow" IDCT of ``jidctint.c``: its 13-bit fixed-point
   constants, two passes descaled by 11 and 18 bits, and the post-IDCT range
   limit table (a ``& 1023`` index, so far-out values wrap as libjpeg's do);
@@ -27,9 +38,10 @@ Scope, as libjpeg-turbo decodes with Pillow's settings (``JDCT_ISLOW``,
   size before it is upsampled, the image after.
 
 EXIF orientation is not applied: ``Image.open`` does not apply it either.
-Arithmetic coding, 12-bit, lossless and hierarchical JPEGs, and four
-components (CMYK/YCCK) raise ``ValueError``. Huffman decoding is plain
-Python over a 16-bit lookup table; the IDCT, upsampling and colour passes
+12-bit, hierarchical (SOF5–7, SOF13–15, DHP) and arithmetic-coded lossless
+(SOF11) JPEGs raise ``ValueError`` saying Pillow refuses them too.
+Entropy decoding is plain Python (Huffman over a 16-bit lookup table, the
+arithmetic decoder per decision); the IDCT, upsampling and colour passes
 run on whole planes in numpy.
 """
 
@@ -67,22 +79,46 @@ def _range_limit_table() -> np.ndarray:
 
 _RANGE_LIMIT = _range_limit_table()
 
+# frame kinds libjpeg-turbo 3 (and so Pillow) does not decode: hierarchical (differential) frames, and
+# arithmetic-coded lossless
 _SOF_REFUSED = {
-    0xC3: "lossless JPEGs are not supported",
-    0xC5: "hierarchical JPEGs are not supported",
-    0xC6: "hierarchical JPEGs are not supported",
-    0xC7: "hierarchical JPEGs are not supported",
-    0xC9: "arithmetic-coded JPEGs are not supported",
-    0xCA: "arithmetic-coded JPEGs are not supported",
-    0xCB: "arithmetic-coded JPEGs are not supported",
-    0xCD: "arithmetic-coded hierarchical JPEGs are not supported",
-    0xCE: "arithmetic-coded hierarchical JPEGs are not supported",
-    0xCF: "arithmetic-coded lossless JPEGs are not supported",
+    0xC5: "hierarchical JPEGs", 0xC6: "hierarchical JPEGs", 0xC7: "hierarchical JPEGs",
+    0xCB: "arithmetic-coded lossless JPEGs",
+    0xCD: "hierarchical JPEGs", 0xCE: "hierarchical JPEGs", 0xCF: "hierarchical JPEGs",
 }
+
+# T.81 Table D.2 as libjpeg's jpeg_aritab holds it: Qe << 16 | next index after an MPS << 8 | switch << 7 |
+# next index after an LPS; entry 113 is the fixed, non-adapting bin of probability one half
+ARITAB = [
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+]
+assert len(ARITAB) == 114
 
 
 def _refuse(what: str) -> ValueError:
     return ValueError(f"JPEG: {what} ({ITEM})")
+
+
+def _refused_by_pillow(what: str) -> ValueError:
+    return ValueError(f"JPEG: {what} are not supported; Pillow refuses them too")
 
 
 class _Component:
@@ -142,6 +178,171 @@ class _Bits:
 
 def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+class _Arith:
+    """``jdarith.c::arith_decode`` over one entropy-coded segment (stuffing
+    removed): the QM decoder of T.81 Annex D, reading zeros past its end."""
+
+    def __init__(self, segment: bytes):
+        self.data, self.pos = segment, 0
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def decode(self, st: List[int], i: int) -> int:
+        """One binary decision with the adaptive state ``st[i]``."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                data = self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+                c = (c << 8) | data
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:  # the two first bytes are in: A starts at 0x10000
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:  # conditional exchange: the LPS interval was the larger
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+class _BadArithmeticCode(Exception):
+    """libjpeg's ``JWRN_ARITH_BAD_CODE``: a warning, after which the rest of
+    the restart interval decodes nothing (``entropy->ct = -1``)."""
+
+
+def _jcoef(v: int) -> int:
+    """A coefficient as libjpeg stores it: a 16-bit ``JCOEF``."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+class _ArithStats:
+    """One interval's statistics: 64 DC and 256 AC bins per table, the DC
+    predictions and contexts per component, the fixed bin."""
+
+    def __init__(self, ncomp: int):
+        self.dc = [[0] * 64 for _ in range(4)]
+        self.ac = [[0] * 256 for _ in range(4)]
+        self.last_dc = [0] * ncomp
+        self.dc_context = [0] * ncomp
+        self.fixed = [113]
+
+
+def _arith_magnitude(dec: _Arith, st: List[int], i: int, x1: int, dc: bool) -> Tuple[int, int]:
+    """Figures F.23–F.24: the magnitude category from bin ``i`` (SP or SN),
+    then from ``x1`` on (a DC goes there at once, an AC after a second
+    decision at ``i``), then its bits; returns (|v| − 1, the category's top
+    bit)."""
+    m = dec.decode(st, i)
+    if m:
+        if dc or dec.decode(st, i):
+            if not dc:
+                m <<= 1
+            i = x1
+            while dec.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise _BadArithmeticCode("magnitude overflow")
+                i += 1
+    v, cat = m, m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if dec.decode(st, i):
+            v |= m
+    return v, cat
+
+
+def _arith_dc_diff(dec: _Arith, stats: _ArithStats, k: int, tbl: int, cond: dict) -> int:
+    """Figure F.19 with the conditioning of F.1.4.4.1: one DC difference."""
+    st = stats.dc[tbl]
+    i = stats.dc_context[k]
+    if dec.decode(st, i) == 0:
+        stats.dc_context[k] = 0
+        return 0
+    sign = dec.decode(st, i + 1)
+    v, cat = _arith_magnitude(dec, st, i + 2 + sign, 20, True)
+    lo, hi = cond["dc"].get(tbl, (0, 1))
+    if cat < (1 << lo) >> 1:
+        stats.dc_context[k] = 0
+    elif cat > (1 << hi) >> 1:
+        stats.dc_context[k] = 12 + 4 * sign
+    else:
+        stats.dc_context[k] = 4 + 4 * sign
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac(dec: _Arith, stats: _ArithStats, coefs: List[int], base: int, ss: int, se: int, al: int, tbl: int,
+              cond: dict) -> None:
+    """Figure F.20 (G.1.3.3 for a first progressive scan): AC coefficients
+    ``ss..se`` of one block."""
+    st = stats.ac[tbl]
+    kx = cond["ac"].get(tbl, 5)
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if dec.decode(st, i):
+            return  # end of block
+        while dec.decode(st, i + 1) == 0:
+            i += 3
+            k += 1
+            if k > se:
+                raise _BadArithmeticCode("spectral overflow")
+        sign = dec.decode(stats.fixed, 0)
+        v, _ = _arith_magnitude(dec, st, i + 2, 189 if k <= kx else 217, False)
+        v += 1
+        coefs[base + k] = _jcoef((-v if sign else v) * (1 << al))
+        k += 1
+
+
+def _arith_ac_refine(dec: _Arith, stats: _ArithStats, coefs: List[int], base: int, ss: int, se: int, al: int,
+                     tbl: int) -> None:
+    """``decode_mcu_AC_refine``: one more bit of ``ss..se`` of one block."""
+    st = stats.ac[tbl]
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coefs[base + kex]:
+        kex -= 1
+    k = ss - 1
+    while k < se:
+        i = 3 * k
+        if k >= kex and dec.decode(st, i):
+            return
+        while True:
+            j = base + k + 1
+            if coefs[j]:  # previously nonzero: a correction bit
+                if dec.decode(st, i + 2):
+                    coefs[j] = _jcoef(coefs[j] + (m1 if coefs[j] < 0 else p1))
+                break
+            if dec.decode(st, i + 1):  # newly nonzero
+                coefs[j] = m1 if dec.decode(stats.fixed, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k >= se:
+                raise _BadArithmeticCode("spectral overflow")
+        k += 1
 
 
 def _segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
@@ -233,8 +434,9 @@ def _upsample(plane: np.ndarray, fh: int, fv: int, fancy: bool) -> np.ndarray:
     return np.repeat(np.repeat(p, fv, axis=0), fh, axis=1)  # box: h2v1_upsample, h2v2_upsample, int_upsample
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """``jdcolor.c::ycc_rgb_convert`` with its tables (SCALEBITS 16)."""
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True) -> np.ndarray:
+    """``jdcolor.c::ycc_rgb_convert`` with its tables (SCALEBITS 16);
+    ``clip=False`` leaves the sums unclipped (int64)."""
     one_half = 1 << 15
 
     def fix(x):
@@ -248,7 +450,8 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     r = y + cr_r[cr]
     g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
     b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    out = np.stack([r, g, b], axis=-1)
+    return np.clip(out, 0, 255).astype(np.uint8) if clip else out
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -259,8 +462,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     dc_luts: Dict[int, List[int]] = {}
     ac_luts: Dict[int, List[int]] = {}
     comps: List[_Component] = []
-    frame = None  # (height, width, progressive)
+    frame = None  # (height, width, progressive, coding: "huffman", "arithmetic" or "lossless")
     restart_interval = 0
+    conditioning = {"dc": {}, "ac": {}}  # DAC: table → (L, U) for DC, K for AC
     saw_jfif = False
     adobe_transform = None
     pos = 2
@@ -281,18 +485,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         seg = data[pos + 2 : pos + length]
         nxt = pos + length
         if marker in _SOF_REFUSED:
-            raise _refuse(_SOF_REFUSED[marker])
+            raise _refused_by_pillow(_SOF_REFUSED[marker])
         if marker == 0xDE:
-            raise _refuse("hierarchical JPEGs are not supported (DHP marker)")
-        if marker == 0xCC:
-            raise _refuse("arithmetic-coded JPEGs are not supported (DAC marker)")
-        if marker in (0xC0, 0xC1, 0xC2):
+            raise _refused_by_pillow("hierarchical JPEGs (DHP marker)")
+        if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             precision, height, width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
             if precision != 8:
-                raise _refuse(f"{precision}-bit samples are not supported (8-bit only)")
-            if nc == 4:
-                raise _refuse("4-component (CMYK/YCCK) JPEGs are not supported")
-            if nc not in (1, 3):
+                raise _refused_by_pillow(f"{precision}-bit samples (8-bit only)")
+            if nc not in (1, 3, 4):
                 raise _refuse(f"{nc}-component JPEGs are not supported")
             if height == 0 or width == 0:
                 raise _refuse("a JPEG whose height comes in a DNL marker is not supported")
@@ -300,8 +500,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             for i in range(nc):
                 cid, hv, tq = seg[6 + 3 * i : 9 + 3 * i]
                 comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-            frame = (height, width, marker == 0xC2)
+            coding = "lossless" if marker == 0xC3 else "arithmetic" if marker in (0xC9, 0xCA) else "huffman"
+            frame = (height, width, marker in (0xC2, 0xCA), coding)
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+            if coding == "lossless":
+                if hmax != 1 or vmax != 1:
+                    raise _refuse("a lossless JPEG with subsampled components is not supported")
+                for c in comps:
+                    c.bw, c.bh, c.dw, c.dh = width, height, width, height
+                    c.coefs = [0] * (width * height)  # the samples
+                continue
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             for c in comps:
                 c.bw, c.bh = mcux * c.h, mcuy * c.v
@@ -316,6 +524,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 n = sum(counts)
                 (dc_luts if tc == 0 else ac_luts)[th] = _huffman_lut(counts, seg[p + 17 : p + 17 + n])
                 p += 17 + n
+        elif marker == 0xCC:  # DAC
+            for p in range(0, len(seg) - 1, 2):
+                tc, tb, cs = seg[p] >> 4, seg[p] & 15, seg[p + 1]
+                if tc == 0:
+                    conditioning["dc"][tb] = (cs & 15, cs >> 4)
+                else:
+                    conditioning["ac"][tb] = cs
         elif marker == 0xDB:  # DQT (values in zigzag order, as the coefficients are kept)
             p = 0
             while p < len(seg):
@@ -342,24 +557,28 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c = by_id[seg[1 + 2 * i]]
                 c.dc_table, c.ac_table = seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15
                 if c.qtable is None:
-                    c.qtable = qtables[c.tq]
+                    c.qtable = qtables[c.tq] if frame[3] != "lossless" else 1
                 scomps.append(c)
             ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
             segments, nxt = _segments(data, pos + length)
-            _decode_scan(frame, comps, scomps, ss, se, ahal >> 4, ahal & 15, segments, restart_interval,
-                         dc_luts, ac_luts)
+            if frame[3] == "lossless":
+                _decode_lossless_scan(frame, scomps, ss, ahal & 15, segments, restart_interval, dc_luts)
+            else:
+                _decode_scan(frame, comps, scomps, ss, se, ahal >> 4, ahal & 15, segments, restart_interval,
+                             dc_luts, ac_luts, conditioning)
         pos = nxt
     if frame is None:
         raise ValueError("JPEG without a frame header")
     return _output(frame, comps, saw_jfif, adobe_transform)
 
 
-def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interval, dc_luts, ac_luts) -> None:
+def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interval, dc_luts, ac_luts,
+                 conditioning) -> None:
     """Decode one scan's MCUs into the components' coefficient lists."""
-    height, width, progressive = frame
+    height, width, progressive, coding = frame
     if len(scomps) == 1:  # non-interleaved: one block per MCU over the component's own extent
         c = scomps[0]
-        units = [(c, by * c.bw + bx) for by in range(c.height_in_blocks) for bx in range(c.width_in_blocks)]
+        units = [(0, c, by * c.bw + bx) for by in range(c.height_in_blocks) for bx in range(c.width_in_blocks)]
         mcus = [[u] for u in units]
     else:
         hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
@@ -367,8 +586,8 @@ def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interva
         mcus = []
         for my in range(mcuy):
             for mx in range(mcux):
-                mcus.append([(c, (my * c.v + y) * c.bw + mx * c.h + x)
-                             for c in scomps for y in range(c.v) for x in range(c.h)])
+                mcus.append([(k, c, (my * c.v + y) * c.bw + mx * c.h + x)
+                             for k, c in enumerate(scomps) for y in range(c.v) for x in range(c.h)])
     per = restart_interval or len(mcus)
     if not progressive:
         kind = "baseline"
@@ -377,11 +596,16 @@ def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interva
     else:
         kind = "ac_first" if ah == 0 else "ac_refine"
     for r, start in enumerate(range(0, len(mcus), per)):
-        reader = _Bits(segments[r] if r < len(segments) else b"")
+        segment = segments[r] if r < len(segments) else b""
+        if coding == "arithmetic":  # statistics and the decoder restart with every interval
+            _arith_interval(_Arith(segment), _ArithStats(len(scomps)), mcus[start : start + per], kind, ss, se, al,
+                            conditioning)
+            continue
+        reader = _Bits(segment)
         pred = {id(c): 0 for c in scomps}
         eobrun = [0]
         for mcu in mcus[start : start + per]:
-            for c, block in mcu:
+            for _, c, block in mcu:
                 base = block * 64
                 if kind == "baseline":
                     _block_baseline(reader, c, base, pred, dc_luts[c.dc_table], ac_luts[c.ac_table])
@@ -396,6 +620,67 @@ def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interva
                     _block_ac_first(reader, c.coefs, base, ss, se, al, ac_luts[c.ac_table], eobrun)
                 else:
                     _block_ac_refine(reader, c.coefs, base, ss, se, al, ac_luts[c.ac_table], eobrun)
+
+
+def _arith_interval(dec: _Arith, stats: _ArithStats, mcus, kind: str, ss: int, se: int, al: int,
+                    conditioning: dict) -> None:
+    """One restart interval of an arithmetic-coded scan (``jdarith.c``); a
+    bad code leaves the rest of the interval as it was, as libjpeg does."""
+    try:
+        for mcu in mcus:
+            for k, c, block in mcu:
+                base = block * 64
+                if kind == "baseline":
+                    stats.last_dc[k] += _arith_dc_diff(dec, stats, k, c.dc_table, conditioning)
+                    c.coefs[base] = _jcoef(stats.last_dc[k])
+                    _arith_ac(dec, stats, c.coefs, base, 1, 63, 0, c.ac_table, conditioning)
+                elif kind == "dc_first":
+                    stats.last_dc[k] += _arith_dc_diff(dec, stats, k, c.dc_table, conditioning)
+                    c.coefs[base] = _jcoef(stats.last_dc[k] * (1 << al))
+                elif kind == "dc_refine":
+                    if dec.decode(stats.fixed, 0):
+                        c.coefs[base] = _jcoef(c.coefs[base] | (1 << al))
+                elif kind == "ac_first":
+                    _arith_ac(dec, stats, c.coefs, base, ss, se, al, c.ac_table, conditioning)
+                else:
+                    _arith_ac_refine(dec, stats, c.coefs, base, ss, se, al, c.ac_table)
+    except _BadArithmeticCode:
+        pass
+
+
+def _decode_lossless_scan(frame, scomps, predictor, pt, segments, restart_interval, dc_luts) -> None:
+    """A lossless (SOF3) scan: per sample a Huffman-coded difference
+    (category 16 is 32768 with no extra bits) from T.81 H.1.2.1's predictor:
+    ``2^(7 − Pt)`` at the start of the first row of each restart interval,
+    the left sample along that row, the sample above at the start of the
+    other rows, the selected predictor elsewhere; modulo 2^16."""
+    height, width = frame[:2]
+    if len(scomps) > 1 and any(c.h != 1 or c.v != 1 for c in scomps):
+        raise _refuse("a lossless JPEG with subsampled components is not supported")
+    if restart_interval and restart_interval % width:
+        raise _refuse("a lossless JPEG whose restart interval is not whole rows is not supported")
+    rows_per = restart_interval // width if restart_interval else height
+    planes = [[0] * (width * height) for _ in scomps]
+    for r, y_start in enumerate(range(0, height, rows_per)):
+        reader = _Bits(segments[r] if r < len(segments) else b"")
+        for y in range(y_start, min(y_start + rows_per, height)):
+            for x in range(width):
+                for k, c in enumerate(scomps):
+                    plane = planes[k]
+                    s = reader.decode(dc_luts[c.dc_table])
+                    diff = 32768 if s == 16 else _extend(reader.bits(s), s)
+                    i = y * width + x
+                    if y == y_start:
+                        pred = plane[i - 1] if x else 1 << (7 - pt)
+                    elif x == 0:
+                        pred = plane[i - width]
+                    else:
+                        ra, rb, rc = plane[i - 1], plane[i - width], plane[i - width - 1]
+                        pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                                (ra + rb) >> 1)[predictor - 1]
+                    plane[i] = (pred + diff) & 0xFFFF
+    for k, c in enumerate(scomps):
+        c.coefs = [(v << pt) & 0xFF for v in planes[k]]
 
 
 def _block_baseline(reader: _Bits, c: _Component, base: int, pred: dict, dc: List[int], ac: List[int]) -> None:
@@ -481,12 +766,15 @@ def _block_ac_refine(reader: _Bits, coefs: List[int], base: int, ss: int, se: in
 
 
 def _output(frame, comps: List[_Component], saw_jfif: bool, adobe_transform) -> np.ndarray:
-    height, width, _ = frame
+    height, width, _, coding = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
     for c in comps:
         if c.qtable is None:
             raise ValueError(f"JPEG component {c.id} has no scan")
+        if coding == "lossless":
+            planes.append(np.asarray(c.coefs, np.int64).reshape(height, width))
+            continue
         zz = np.asarray(c.coefs, np.int64).reshape(-1, 64) * c.qtable[None, :]
         samples = idct_islow(zz[:, _NATURAL_FROM_ZIGZAG].reshape(-1, 8, 8))
         plane = samples.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
@@ -496,8 +784,38 @@ def _output(frame, comps: List[_Component], saw_jfif: bool, adobe_transform) -> 
         planes.append(_upsample(plane[: c.dh, : c.dw], fh, fv, fancy=True)[:height, :width])
     if len(comps) == 1:
         return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, axis=2)
+    if len(comps) == 4:
+        if adobe_transform not in (None, 0):  # YCCK (an unknown transform is taken for YCCK as well)
+            if coding == "lossless":
+                raise _refused_by_pillow("lossless JPEGs in YCCK (libjpeg converts no lossless colour space)")
+            planes = list(_ycck_to_cmyk(*planes))
+        return _cmyk_to_rgb(np.stack(planes, axis=-1))
     ids = tuple(c.id for c in comps)
-    rgb = not saw_jfif and (adobe_transform == 0 if adobe_transform is not None else ids == (82, 71, 66))
+    if saw_jfif:
+        rgb = False
+    elif adobe_transform is not None:
+        rgb = adobe_transform == 0
+    else:  # no marker: the component ids decide, and a lossless file is taken for RGB
+        rgb = ids == (82, 71, 66) or coding == "lossless"
     if rgb:
         return np.stack(planes, axis=-1).astype(np.uint8)
+    if coding == "lossless":
+        raise _refused_by_pillow("lossless JPEGs in YCbCr (libjpeg converts no lossless colour space)")
     return _ycc_to_rgb(*planes)
+
+
+def _ycck_to_cmyk(y, cb, cr, k):
+    """``jdcolor.c::ycck_cmyk_convert``: YCbCr → RGB by the same tables,
+    each inverted to C, M, Y and range-limited; K passes through."""
+    rgb = _ycc_to_rgb(y, cb, cr, clip=False)
+    return tuple(np.clip(255 - rgb[..., i], 0, 255) for i in range(3)) + (k,)
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """What Pillow makes of libjpeg's CMYK: the Adobe rawmode ``CMYK;I``
+    inverts every channel, then ``Convert.c::cmyk2rgb``:
+    ``nk − MULDIV255(c, nk)`` with ``nk = 255 − k``."""
+    inv = 255 - cmyk.astype(np.int64)
+    nk = 255 - inv[..., 3:4]
+    t = inv[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

@@ -20,14 +20,13 @@ into an :class:`ImageBank` of posterior moments on the device; on the card the
 encoder's mid-block attention runs kernel K4a, and the student's attentions
 run K1 forward and K2/K3 backward.
 
-Images: PNG or JPEG of any size, read as PIL's ``convert("RGB")`` reads them
-(``io/image.py``; the GPU machine has no PIL), resized to the training
-resolution as the JAX ``load_image_array`` resizes them — PIL's default
-bicubic with antialiasing, mirrored bit for bit in numpy
-(``io/resample.py``). The JAX bank prefers its native loader when
+Images: PNG, JPEG, WebP (or GIF, BMP, TIFF) of any size, read as PIL's
+``convert("RGB")`` reads them (``io/image.py``; the GPU machine has no
+PIL), resized to the training resolution as the JAX ``load_image_array``
+resizes them — PIL's default bicubic with antialiasing, mirrored bit for
+bit in numpy (``io/resample.py``). The JAX bank prefers its native loader when
 ``libimload.so`` loads, which resizes bilinearly; the port follows the PIL
-path, the reference's. WebP raises ``ValueError`` (ROADMAP.md queue 1,
-item 14).
+path, the reference's.
 
 Randomness: the step takes its draws (:class:`Draws`) — as the parity tests
 derive them from the JAX key — or makes them from ``esd.TrainRNG``: pair,

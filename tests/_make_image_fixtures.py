@@ -1,11 +1,14 @@
-"""Writes ``tests/data/image_decode/``: small JPEG and PNG files of the kinds
-the port decodes (``io/jpeg.py``, ``io/png.py``), the four folders of a JPEG
-image-pair bank (``bank/{minus2,minus1,plus1,plus2}``, scales −2, −1, 1, 2),
-and ``digests.json``: the SHA-256 of Pillow's ``convert("RGB")`` of each file
+"""Writes ``tests/data/image_decode/``: small files of every kind the port
+decodes (``io/image.py``: JPEG, PNG, WebP, GIF, BMP, TIFF), the four
+folders of an image-pair bank (``bank/{minus2,minus1,plus1,plus2}``, scales
+−2, −1, 1, 2: two JPEGs, a lossy and a lossless WebP each), and
+``digests.json``: the SHA-256 of Pillow's ``convert("RGB")`` of each file
 with its shape, which ``chip_smoke.py`` holds the port's decode to on a
 machine without Pillow. Pillow writes what it can (baseline and progressive
-JPEG at 4:4:4, 4:2:2 and 4:2:0, grey, restart markers, an Adobe RGB file);
-``_jpeg_writer`` and ``_png_writer`` write the rest.
+JPEG at 4:4:4, 4:2:2 and 4:2:0, grey, restart markers, an Adobe RGB file,
+CMYK, WebP, GIF); ``_jpeg_writer``, ``_png_writer``, ``_image_writers`` and
+``_webp_encoder`` (libwebp's own encoder, for the simple loop filter and
+token partitions) write the rest.
 
     python tests/_make_image_fixtures.py
 """
@@ -14,16 +17,22 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
 from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _jpeg_writer import write_jpeg  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from _image_writers import write_bmp, write_gif, write_tiff  # noqa: E402
+from _jpeg_writer import write_jpeg, write_jpeg_arithmetic, write_jpeg_lossless  # noqa: E402
 from _png_writer import write_png  # noqa: E402
+from _webp_encoder import encode_lossy  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "image_decode")
+# two 512x512 files whose decode chip_smoke.py times on the card's host: a lossy WebP and a 4:2:0 JPEG
+OUT_TIMING = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "image_decode_timing")
 BANK_FOLDERS = ("minus2", "minus1", "plus1", "plus2")
 
 
@@ -41,6 +50,29 @@ def pil_jpeg(img: np.ndarray, mode: str = "RGB", **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(img).convert(mode).save(buf, "JPEG", **kw)
     return buf.getvalue()
+
+
+def pil_save(img: np.ndarray, fmt: str, mode: str = None, **kw) -> bytes:
+    buf = io.BytesIO()
+    im = Image.fromarray(img)
+    (im.convert(mode) if mode else im).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def webp_first_frame_offset(frame: bytes, x: int, y: int, canvas: tuple) -> bytes:
+    """An animated WebP whose only frame (a simple file's bitstream chunk)
+    sits at (2x, 2y) on a larger canvas."""
+    def chunk(tag, payload):
+        return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+    def u24(v):
+        return struct.pack("<I", v)[:3]
+
+    img = Image.open(io.BytesIO(frame))
+    anmf = u24(x) + u24(y) + u24(img.width - 1) + u24(img.height - 1) + u24(100) + b"\0" + frame[12:]
+    body = (chunk(b"VP8X", bytes([0x12, 0, 0, 0]) + u24(canvas[0] - 1) + u24(canvas[1] - 1))
+            + chunk(b"ANIM", b"\xff\xff\xff\xff\0\0") + chunk(b"ANMF", anmf))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
 
 
 def files() -> dict:
@@ -62,25 +94,75 @@ def files() -> dict:
         "adam7_rgba.png": write_png(np.concatenate([pattern(23, 29, 10), rng.integers(0, 256, (23, 29, 1))], -1),
                                     8, 6, interlace=True),
     }
-    for i, folder in enumerate(BANK_FOLDERS):  # the same two images a brightness step apart per folder
+    rgba = np.concatenate([pattern(33, 47, 11), rng.integers(0, 256, (33, 47, 1)).astype(np.uint8)], -1)
+    pal16 = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    out.update({
+        "webp_lossy_q80.webp": pil_save(pattern(40, 56, 12), "WEBP", quality=80),
+        "webp_lossy_alpha.webp": pil_save(rgba, "WEBP", quality=60, alpha_quality=50),
+        "webp_lossless.webp": pil_save(pattern(37, 29, 13), "WEBP", lossless=True),
+        "webp_lossless_palette16.webp": pil_save(pal16[rng.integers(0, 16, (21, 35))], "WEBP", lossless=True),
+        "webp_anim_offset.webp": webp_first_frame_offset(pil_save(pattern(13, 11, 14), "WEBP", quality=70), 3, 2,
+                                                         (30, 24)),
+        "webp_simple_filter_4parts.webp": encode_lossy(pattern(48, 40, 15), 50, simple_filter=True, partitions=2),
+        "arithmetic_420.jpg": write_jpeg_arithmetic(pattern(37, 45, 16)),
+        "arithmetic_progressive_restart.jpg": write_jpeg_arithmetic(pattern(40, 32, 17), progressive=True, restart=3),
+        "cmyk.jpg": pil_save(pattern(29, 35, 18), "JPEG", "CMYK", quality=85),
+        "ycck.jpg": write_jpeg(np.concatenate([pattern(31, 27, 19), rng.integers(0, 256, (31, 27, 1))], -1),
+                               ((2, 2), (1, 1), (1, 1), (2, 2)), adobe_transform=2, jfif=False, ids=(1, 2, 3, 4)),
+        "lossless_p4.jpg": write_jpeg_lossless(pattern(19, 23, 20), predictor=4),
+        "gif_interlaced_offset_transparent.gif": write_gif(rng.integers(0, 16, (21, 17)), screen=(30, 28),
+                                                           offset=(5, 4), local_palette=rng.integers(0, 256, (16, 3)),
+                                                           transparency=3, interlace=True, min_size=4),
+        "gif_pillow.gif": pil_save(pattern(33, 41, 21), "GIF"),
+        "bmp_rle8.bmp": write_bmp(rng.integers(0, 4, (19, 29)), 8, 40, palette=rng.integers(0, 256, (256, 3)),
+                                  compression=1),
+        "bmp_rle4.bmp": write_bmp(rng.integers(0, 3, (13, 23)), 4, 108, palette=rng.integers(0, 256, (16, 3)),
+                                  compression=2),
+        "bmp_24_top_down.bmp": write_bmp(pattern(17, 21, 22)[:, :, ::-1], 24, 124, top_down=True),
+        "bmp_16_bitfields.bmp": write_bmp(rng.integers(0, 65536, (15, 19)), 16, 56, compression=3,
+                                          masks=(0xF800, 0x7E0, 0x1F)),
+        "bmp_os2_4bit.bmp": write_bmp(rng.integers(0, 16, (11, 13)), 4, 12, palette=rng.integers(0, 256, (16, 3))),
+        "tiff_lzw_predictor_mm.tif": write_tiff(pattern(27, 33, 23), 8, 2, ">", 5, predictor=2, rows_per_strip=8),
+        "tiff_tiled_packbits.tif": write_tiff(pattern(40, 37, 24), 8, 2, "<", 32773, tile=(16, 16)),
+        "tiff_palette4_deflate.tif": write_tiff(rng.integers(0, 16, (17, 23, 1)), 4, 3, "<", 8,
+                                                colormap=rng.integers(0, 65536, (16, 3))),
+        "tiff_1bit_white_is_zero.tif": write_tiff(rng.integers(0, 2, (19, 21, 1)), 1, 0, ">", 1),
+        "tiff_rgba_associated.tif": write_tiff(np.concatenate([pattern(15, 17, 25), rng.integers(0, 256, (15, 17, 1))],
+                                                              -1), 8, 2, "<", 32946, predictor=2, extra_samples=(1,)),
+    })
+    for i, folder in enumerate(BANK_FOLDERS):  # the same four images a brightness step apart per folder
         for j, kw in enumerate((dict(quality=90), dict(quality=90, progressive=True))):
             img = np.clip(pattern(96, 96, 20 + j).astype(int) + 30 * (i - 1.5), 0, 255).astype(np.uint8)
             out[f"bank/{folder}/{j:03d}.jpg"] = pil_jpeg(img, **kw)
+        for j, kw in ((2, dict(quality=90)), (3, dict(lossless=True))):
+            img = np.clip(pattern(96, 96, 20 + j).astype(int) + 30 * (i - 1.5), 0, 255).astype(np.uint8)
+            out[f"bank/{folder}/{j:03d}.webp"] = pil_save(img, "WEBP", **kw)
     return out
 
 
-def main() -> None:
+def timing_files() -> dict:
+    img = pattern(512, 512, 30)
+    return {"webp_lossy_q90_512.webp": pil_save(img, "WEBP", quality=90),
+            "jpeg_420_q90_512.jpg": pil_jpeg(img, quality=90, subsampling=2)}
+
+
+def write(out_dir: str, table: dict) -> None:
     digests = {}
-    for name, data in files().items():
-        path = os.path.join(OUT, name)
+    for name, data in table.items():
+        path = os.path.join(out_dir, name)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
         rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         digests[name] = {"shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
-    with open(os.path.join(OUT, "digests.json"), "w") as f:
+    with open(os.path.join(out_dir, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
+
+
+def main() -> None:
+    write(OUT, files())
+    write(OUT_TIMING, timing_files())
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """The port's image decoding (``io/jpeg.py``, ``io/png.py``, ``io/image.py``)
-against Pillow's ``Image.open(p).convert("RGB")`` on this host, and the JPEG
-image-pair bank against JAX's ``build_image_bank``.
+against Pillow's ``Image.open(p).convert("RGB")`` on this host, and the
+image-pair bank (JPEG and WebP) against JAX's ``build_image_bank``. The
+other formats have tests of their own (``test_torch_webp.py``,
+``test_torch_image_formats.py``).
 
 Files are written with Pillow where it writes the kind (baseline and
 progressive JPEG at 4:4:4, 4:2:2 and 4:2:0, grey, ``optimize``, restart
@@ -28,7 +30,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from _jpeg_writer import write_jpeg
+from _jpeg_writer import write_jpeg, write_jpeg_arithmetic, write_jpeg_lossless
 from _png_writer import write_png
 from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 from sliders_conceptmod_tpu.models import vae as jvae
@@ -143,32 +145,42 @@ def _patch_sof(data: bytes, marker: int = None, precision: int = None) -> bytes:
 
 
 @pytest.mark.parametrize("what,make,match", [
-    ("arithmetic", lambda d: _patch_sof(d, marker=0xC9), "arithmetic"),
-    ("arithmetic_progressive", lambda d: _patch_sof(d, marker=0xCA), "arithmetic"),
+    ("arithmetic", lambda d: write_jpeg_arithmetic(_pattern(16, 16, 1), restart=2), "arithmetic"),
+    ("arithmetic_progressive", lambda d: write_jpeg_arithmetic(_pattern(16, 16, 1), progressive=True), "arithmetic"),
     ("12-bit", lambda d: _patch_sof(d, marker=0xC1, precision=12), "12-bit"),
-    ("lossless", lambda d: _patch_sof(d, marker=0xC3), "lossless"),
+    ("lossless", lambda d: write_jpeg_lossless(_pattern(16, 16, 1), predictor=4), "lossless"),
     ("hierarchical", lambda d: _patch_sof(d, marker=0xC5), "hierarchical"),
 ])
 def test_refused_jpeg_kinds(what, make, match):
+    """The kinds the port once refused: arithmetic-coded (sequential and
+    progressive) and lossless JPEGs now decode as Pillow decodes them;
+    12-bit and hierarchical ones stay refused, as Pillow refuses them."""
     data = make(_pil_jpeg(_pattern(16, 16, 1), quality=90))
-    with pytest.raises(ValueError, match=match) as err:
-        decode_jpeg(data)
-    assert "queue 1, item 14" in str(err.value)
+    if what in ("12-bit", "hierarchical"):
+        with pytest.raises(Exception):
+            _pil_rgb(data)
+        with pytest.raises(ValueError, match=match) as err:
+            decode_jpeg(data)
+        assert "Pillow refuses them too" in str(err.value)
+    else:
+        _assert_like_pil(data, decode_jpeg(data))
 
 
 def test_cmyk_and_webp_refused(tmp_path):
+    """CMYK JPEGs, WebP and GIF, once refused, now decode as Pillow decodes
+    them; bytes of no known format are refused citing item 14."""
     buf = io.BytesIO()
     Image.fromarray(_pattern(16, 16, 2)).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(ValueError, match="CMYK") as err:
-        decode_jpeg(buf.getvalue())
-    assert "queue 1, item 14" in str(err.value)
+    _assert_like_pil(buf.getvalue(), decode_jpeg(buf.getvalue()))
     path = tmp_path / "im.webp"
     Image.fromarray(_pattern(16, 16, 2)).save(path)
-    with pytest.raises(ValueError, match="WebP") as err:
-        load_rgb(str(path))
+    _assert_like_pil(path.read_bytes(), load_rgb(str(path)))
+    buf = io.BytesIO()
+    Image.fromarray(_pattern(16, 16, 2)).save(buf, "GIF")
+    _assert_like_pil(buf.getvalue(), decode_rgb(buf.getvalue()))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, GIF, BMP or TIFF") as err:
+        decode_rgb(b"\0\0\0\0" + bytes(20))
     assert "queue 1, item 14" in str(err.value)
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
-        decode_rgb(b"GIF89a" + bytes(20))
 
 
 def test_512px_decode_time_and_signature_dispatch(tmp_path):
@@ -238,7 +250,7 @@ def test_png_errors():
 def test_committed_fixtures_match_their_digests():
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         digests = json.load(f)
-    assert len(digests) >= 20 and any(n.startswith("bank/") for n in digests)
+    assert len(digests) >= 52 and any(n.startswith("bank/") and n.endswith(".webp") for n in digests)
     for name, want in digests.items():
         path = os.path.join(FIXTURES, name)
         with open(path, "rb") as f:
@@ -251,19 +263,39 @@ def test_committed_fixtures_match_their_digests():
         os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(FIXTURES) for n in ns) < 400_000
 
 
+def test_timing_files_match_their_digests():
+    """The two 512x512 files whose decode chip_smoke.py times (a lossy WebP
+    and a 4:2:0 JPEG, outside the fixtures' size bound)."""
+    root = os.path.join(os.path.dirname(FIXTURES), "image_decode_timing")
+    with open(os.path.join(root, "digests.json")) as f:
+        digests = json.load(f)
+    assert sorted(digests) == ["jpeg_420_q90_512.jpg", "webp_lossy_q90_512.webp"]
+    for name, want in digests.items():
+        path = os.path.join(root, name)
+        with open(path, "rb") as f:
+            assert hashlib.sha256(_pil_rgb(f.read()).tobytes()).hexdigest() == want["sha256"], name
+        got = load_rgb(path)
+        assert list(got.shape) == want["shape"] == [512, 512, 3]
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"], name
+
+
 @pytest.mark.parametrize("resolution", [96, 32])
-def test_jpeg_bank_matches_jax(monkeypatch, resolution):
-    """The committed JPEG folders through JAX's PIL loader (its native loader
-    turned off: it resizes bilinearly) and through the port, one tiny VAE."""
+def test_image_bank_matches_jax(monkeypatch, resolution):
+    """The committed bank's folders (two JPEGs, a lossy and a lossless WebP
+    each) through JAX's PIL loader (its native loader turned off: it
+    resizes bilinearly) and through the port, one tiny VAE."""
     from sliders_conceptmod_tpu.io import native
 
     monkeypatch.setattr(native, "load_images_native", lambda paths, res: None)
     root = os.path.join(FIXTURES, "bank")
     scales = [-2.0, -1.0, 1.0, 2.0]
-    for name in timage.list_paired_images(root, BANK_FOLDERS):
-        path = os.path.join(root, BANK_FOLDERS[0], name)
-        np.testing.assert_array_equal(timage.load_image_array(path, resolution),
-                                      jimage.load_image_array(path, resolution))
+    names = timage.list_paired_images(root, BANK_FOLDERS)
+    assert sorted(os.path.splitext(n)[1] for n in names) == [".jpg", ".jpg", ".webp", ".webp"]
+    for name in names:
+        for folder in BANK_FOLDERS:
+            path = os.path.join(root, folder, name)
+            np.testing.assert_array_equal(timage.load_image_array(path, resolution),
+                                          jimage.load_image_array(path, resolution))
     model = jvae.AutoencoderKL(jvae.VAEConfig.tiny())
     rng = np.random.default_rng(3)
     params = jax.tree.map(lambda a: (0.2 * rng.standard_normal(a.shape)).astype(np.float32),
@@ -274,6 +306,7 @@ def test_jpeg_bank_matches_jax(monkeypatch, resolution):
     assert load_jax_params(port, to_numpy_tree(params)) == []
     got = timage.build_image_bank(root, BANK_FOLDERS, scales, port.eval().encode, resolution)
     assert got.pair_table == [tuple(r) for r in np.asarray(want.pair_table).tolist()]
-    assert tuple(got.mean.shape) == np.asarray(want.mean).shape == (4, 2, 4, resolution // 2, resolution // 2)
+    assert tuple(got.mean.shape) == np.asarray(want.mean).shape == (4, len(names), 4, resolution // 2,
+                                                                    resolution // 2)
     np.testing.assert_allclose(got.mean.numpy(), np.asarray(want.mean), atol=2e-4, rtol=0)
     np.testing.assert_allclose(got.logvar.numpy(), np.asarray(want.logvar), atol=2e-4, rtol=0)

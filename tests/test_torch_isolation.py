@@ -141,6 +141,18 @@ PARALLEL_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.cli.train_lora_cascade",
 }
 
+# modules the image-format slice added or extended (WebP, arithmetic/CMYK/lossless JPEG, GIF, BMP, TIFF)
+IMAGE_FORMAT_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.io.vp8",
+    "sliders_conceptmod_tpu_torch.io.vp8l",
+    "sliders_conceptmod_tpu_torch.io.webp",
+    "sliders_conceptmod_tpu_torch.io.gif",
+    "sliders_conceptmod_tpu_torch.io.bmp",
+    "sliders_conceptmod_tpu_torch.io.tiff",
+    "sliders_conceptmod_tpu_torch.io.jpeg",
+    "sliders_conceptmod_tpu_torch.io.image",
+}
+
 
 def test_port_and_smoke_import_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -155,6 +167,7 @@ def test_port_and_smoke_import_without_jax():
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
     assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
     assert EVAL_REST_SLICE_MODULES <= walked and PARALLEL_SLICE_MODULES <= walked
+    assert IMAGE_FORMAT_SLICE_MODULES <= walked
 
 
 def test_spawned_worker_entry_points_import_without_jax():
