@@ -161,6 +161,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   /sliders/<name> (the pinned default: 400), GET /metrics
                   through make_handler; max_sliders 3 evicting the least
                   recently used slider and keeping default.
+12c. bench_serve_url — cli/bench_serve.py --url against make_handler
+                  over the same loaded service: a warm-up of 4 requests, then
+                  8 from 4 client threads; every request served, none shed,
+                  mean batch > 1, K1 and K4a per_sampler_call × the sampler
+                  calls; req/s and latency percentiles.
+12d. bench_serve_xl — cli/bench_serve.py in-process (run(build_parser()
+                  .parse_args(...))) on full-width SDXL at 1024px, 8 steps,
+                  --slider synth (the sites from the UNet on the meta device),
+                  8 requests from 4 clients, a 50 ms window: the same checks
+                  on its own service.
 13. train       — full-width SDXL ESD slider training at 512px through
                   trainer.train from data/config-xl.yaml + data/prompts-xl.yaml
                   (only train.iterations and save.path overridden; the unset
@@ -171,11 +181,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   torch.profiler (phase_esd).
 13b. train_overlay_warmup — as 13 with tpu.overlay_warmup: true (the warm-up
                   through the overlay, the port's route before the default
-                  followed JAX), 3 steps; then warmup_routes: steps/s, UNet
+                  followed JAX), 2 steps; then warmup_routes: steps/s, UNet
                   forwards/s and first-step seconds of both warm-up routes.
 13c. train_merged — as 13 with tpu.student_overlay: false (the merged
                   student: autograd through the merge, full dL/dW′ per site),
-                  3 steps, profiled; then merged_call_cost: the host cost of
+                  2 steps, not profiled since bench_serve joined (nor 13b);
+                  then merged_call_cost: the host cost of
                   one merged-weights forward (SDXL 512px, 560 merged weights),
                   by the port's parameter swap and by functional_call.
 14. imageslider — full-width SDXL image-pair slider training at 512px through
@@ -184,15 +195,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   first folder's at 600×400, resized by the bank): bank
                   build seconds, K4a launches at the bank build, K1/K2/K3 per
                   step, losses, moving factors, saved keys, steps/s, first
-                  step, peak memory; then one more step under torch.profiler
-                  (phase_image_pairs).
+                  step, peak memory (phase_image_pairs; its profiled extra
+                  step dropped when bench_serve joined).
 15. sd_train    — as 13 for SD1.5 at 512px (cli/train_lora.py's path) from
                   data/config.yaml + data/prompts.yaml (DDIM,
                   max_denoising_steps 50): K1 20 and K4a 12 launches per UNet
                   forward, K2/K3 20 and K4b/K4c 12 per step; not profiled
                   since the baseline phases joined (its profiled step, up to
                   50 warm-up forwards, took ~20 s; PERF.md §5 keeps F10's).
-15b. sd_dora_train — as 15 with peft_type dora (the merged route), 3 steps:
+15b. sd_dora_train — as 15 with peft_type dora (the merged route), 2 steps:
                   every dora_scale moved, the saved .dora_scale keys [1, in],
                   the file reloaded through adapters/dora.py bit-equal; not
                   profiled (since the image-editing phases joined).
@@ -201,7 +212,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   not profiled.
 17. sd_imageslider — as 14 for SD1.5 at 256px: K4a once per folder at the
                   bank build (the VAE mid-block, 1024², d 512); per step K1
-                  20, K4a 12, K2/K3 20, K4b/K4c 12.
+                  20, K4a 12, K2/K3 20, K4b/K4c 12; not profiled (nor 17b)
+                  since bench_serve joined.
 17b. sd_imageslider_merged — as 17 with tpu.student_overlay: false, 2 steps,
                   over the committed bank (tests/data/image_decode/bank:
                   four 96px images a folder, a baseline and a progressive
@@ -217,13 +229,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   generator), loaded by factory.load_models(dir, "cuda", bf16,
                   with_vae=True): every tensor bit-equal to its source; load
                   seconds and bytes.
+18b. bench_serve_sd1_stacked, bench_serve_sd1_unstacked — cli/bench_serve.py
+                  --num_sliders 2 over that directory (--family sd1, 512px, 10
+                  steps, --slider synth), with and without --no_stack: the
+                  stacked run's mixed micro-batches ride one call with
+                  per-row adapter indices, the unstacked run's one call per
+                  slider; the checks of 12d; bench_serve_phases sums the
+                  bench phases' seconds and sets their req/s side by side.
 19. sd_serve    — SD1SliderService over that directory, 512px, 10 DDIM steps
                   (the service's 50, cut to 20 when Stable Cascade joined, to
                   10 with the image-editing phases),
                   a rank-4 slider: scale 0 and +2 solo (different images), -2
                   and +1 in one micro-batch, one /generate through
-                  make_handler (sd_serve_http), one profiled request
-                  (sd_serve_profile). Per sampler call K1 10×20 = 200 and K4a
+                  make_handler (sd_serve_http); not profiled since bench_serve
+                  joined. Per sampler call K1 10×20 = 200 and K4a
                   10×12 + 1 = 121 launches.
 20. sd2_serve   — SD1SliderService on stabilityai/stable-diffusion-2-1 with
                   v2 and v_pred, 512px, 5 steps, scales 0 and +2: per call K1
@@ -273,9 +292,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   sd_serve slider at --scale 2 (fp32); the file reloaded in
                   bf16: every non-site tensor bit-equal to the directory's,
                   every site weight to the fp32 merge rounded once; one 512px
-                  EXPORT_STEPS-step (20; 50 before the image-editing phases
-                  joined) sampler call over it equal, pixel for pixel, to the
-                  directory's model with those weights (K1 400, K4a 241);
+                  EXPORT_STEPS-step (10; 50 before the image-editing phases
+                  joined, 20 before bench_serve) sampler call over it equal,
+                  pixel for pixel, to the directory's model with those
+                  weights (K1 200, K4a 121);
                   write and reload seconds, and the gap to the sweeps' bf16
                   merge.
 22c. quant      — the SDXL UNet (seeded random bf16) quantized in place on
@@ -286,7 +306,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   to the CPU's int32 product; the weight-only QuantLinear
                   against F.linear of its dequantized weight in bf16; device
                   ms and host µs per call of nn.Linear, weight-only and W8A8.
-22d. train_int8 — SDXL ESD (data/config-xl.yaml) 3 steps each on bf16,
+22d. train_int8 — SDXL ESD (data/config-xl.yaml) 2 steps each on bf16,
                   tpu.quantize_base, the dual-tree tpu.w8a8_warmup, and both;
                   SD1.5 ESD on bf16 and quantize_base, 2 steps: steps/s on the
                   same timesteps_to draws, peak, K1..K4c per step equal to the
@@ -299,19 +319,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   artifact bit-equal to load_models(dir, quantize_base=True)'s.
 22g. sd3_load  — a full-width SD3-Medium diffusers directory of seeded bf16
                   weights (transformer in two shards, 24 blocks cut to
-                  SD3_LAYERS 12 since the mesh phases joined; CLIP-L with its
+                  SD3_LAYERS 12 when the mesh phases joined, 6 with
+                  bench_serve; CLIP-L with its
                   projection, bigG, the 16-channel VAE with use_quant_conv
                   false, scaling 1.5305, shift 0.0609, both tokenizers),
                   loaded by factory.load_models_sd3 bit for bit; GB, GB/s.
 22h. sd3_train — cli/train_lora_sd3.train from data/config-sd3.yaml +
                   data/prompts-sd3.yaml over that directory (512px, batch 8,
-                  CFG 7, 28 flow steps; iterations cut 1000 → 4): K1
-                  12·(tₖ + 3), K2 = K3 = 12 per step (the directory's 12
+                  CFG 7, 28 flow steps; iterations cut 1000 → 2): K1
+                  6·(tₖ + 3), K2 = K3 = 6 per step (the directory's 6
                   of SD3-Medium's 24 blocks); steps/s, first step,
-                  peak memory, timesteps_to, saved keys; one step profiled.
+                  peak memory, timesteps_to, saved keys; not profiled since
+                  bench_serve joined.
 22i. sd3_serve — SD3SliderService over the directory, 1024px, 28 steps, CFG
                   7: two solo requests, a concurrent pair, one over HTTP,
-                  one profiled; 336 K1 per sampler call (12 blocks) and 1
+                  not profiled since bench_serve joined; 168 K1 per sampler
+                  call (6 blocks) and 1
                   K4a per decode.
 22j. sd3_sweep — cli/generate_images_sd3 at its defaults (512px, 28 steps),
                   scales -2, 0, 2 × 1 sample × case 0.
@@ -330,14 +353,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   weights, the stand-in encoder), cli/train_lora_flux.train
                   from data/config-flux.yaml + data/prompts-flux.yaml with
                   tpu.quantize_base off (512px, batch 2: 4 micro-steps per
-                  optimizer step; 1000 → 2 optimizer steps = 9 micro-steps):
+                  optimizer step; 1000 → 1 optimizer step = 5 micro-steps):
                   K1 57 × 3 and K2 = K3 = 57 per micro-step; micro- and
                   optimizer steps/s, first step, peak, 76 sites, saved keys;
-                  one more micro-step profiled (idle share).
+                  not profiled since bench_serve joined.
 22o. flux_serve — FluxSliderService at its defaults (512px, 8 steps,
                   start_noise 800; no vae/: the latent preview): two solo
-                  requests, a concurrent pair, one over HTTP, one profiled;
-                  456 K1 per sampler call.
+                  requests, a concurrent pair, one over HTTP (not profiled
+                  since bench_serve joined); 456 K1 per sampler call.
 22p. flux_sweep — cli/generate_images_flux at its defaults, scales -2, 0, 2
                   × 1 sample × case 0 (latents as .npy); seconds per image.
 22q. flux_load — a schnell diffusers directory (transformer at full width in
@@ -407,7 +430,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   tp (its forward with every Linear's rows over the two
                   ranks, against the whole forward), dp_train (SD1.5 ESD
                   over the load directory, samples_per_step 2 on mesh_data
-                  2, 2 steps, all six kernels, against the one-rank run of
+                  2, 1 step, all six kernels, against the one-rank run of
                   the same draws), mesh_sweep (sweep_xl's te run with
                   --mesh_data 2, against its images) and mesh_serve (SDXL
                   with mesh_data 2, two requests, against the serve
@@ -429,6 +452,7 @@ Then the card as nvidia-smi names it, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -456,7 +480,13 @@ from torch.func import functional_call
 
 from sliders_conceptmod_tpu_torch.adapters import dora, lora, quant
 from sliders_conceptmod_tpu_torch.adapters.slider_file import CLIP_NAME_PATH_PREFIX, load_slider_file
-from sliders_conceptmod_tpu_torch.cli import acceptance, combine_loras, export_single_file, quantize_checkpoint
+from sliders_conceptmod_tpu_torch.cli import (
+    acceptance,
+    bench_serve,
+    combine_loras,
+    export_single_file,
+    quantize_checkpoint,
+)
 from sliders_conceptmod_tpu_torch.cli import generate_images_customdiffusion as gen_cd
 from sliders_conceptmod_tpu_torch.cli import generate_images_textinversion as gen_ti
 from sliders_conceptmod_tpu_torch.cli import generate_images_textinversion_xl as gen_ti_xl
@@ -534,7 +564,7 @@ SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
 IMAGE_SIZE, STEPS = 1024, 8  # SDXL serving: the service's 25 DDIM steps, cut to 12 with Flux, to 8 with editing
 SD2_STEPS = 5  # SD2.1 serving: the service's 50, cut to 10, then to 5 when the image-editing phases joined
 SD1_STEPS = 10  # SD1.5 serving over the load phase's directory: the service's 50, 20 with Cascade, 10 with editing
-EXPORT_STEPS = 20  # the export phase's sampler calls: 50 before the image-editing phases joined
+EXPORT_STEPS = 10  # the export phase's sampler calls: 50 before the image-editing phases joined, 20 before bench_serve
 # (name, Sq, Sk, heads): the attention calls of one SDXL UNet forward at 1024px
 PATH_SHAPES = [
     ("self_4096", 4096, 4096, 10),
@@ -561,8 +591,9 @@ TRAIN_SHAPES = [
     ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2, 0),
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
-TRAIN_ITERATIONS = 3  # SDXL and SD1.5 ESD: 500 / 1000 cut (6 before SD3 joined the smoke, 4 before image editing)
-ROUTE_ITERATIONS = 3  # the other slider routes and DoRA: 3 steps each
+# SDXL and SD1.5 ESD: 500 / 1000 cut (6 before SD3 joined, 4 before image editing, 3 before bench_serve)
+TRAIN_ITERATIONS = 2
+ROUTE_ITERATIONS = 2  # the other slider routes and DoRA: 2 steps each (3 before bench_serve joined)
 # (name, rows, Sq, Sk, heads, head dim): K4a's calls on the paths — the VAE
 # mid-block attention (one head, head dim = channels = 512) and SD1.5's
 # 1280-channel UNet level (8 heads of 160, run zero-padded to 192; bound_ms
@@ -2126,8 +2157,8 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     the first folder's at that size, resized on the host by the bank) or the
     folders under ``image_root`` (the committed bank: four 96px images a
     folder, two JPEGs and two WebPs), plus ``yaml_edit`` (the merged
-    students: ``tpu.student_overlay: false``); then one more step under
-    torch.profiler. Returns the launches of K1..K4c."""
+    students: ``tpu.student_overlay: false``). Returns the launches of
+    K1..K4c."""
     cfg, prompts = train_config(tmp / what, yaml_name, iterations)
     if yaml_edit is not None:
         yaml_edit(cfg)
@@ -2172,10 +2203,6 @@ def phase_image_pairs(tmp: Path, what: str, yaml_name: str, resolution: int, see
     )
     emit(row)
     check_trained(what, res, summary, launches, want_launches, iterations)
-
-    profiled = {}
-    prof = device_profile(lambda: profiled.update(res.next_step()))
-    emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], scale=profiled["scale"], **prof))
     return launches
 
 
@@ -2661,6 +2688,120 @@ def served(tmp: Path, what: str, make, unet_cfg: UNetConfig, model: str, pair: b
     return launches
 
 
+BENCH_REQUESTS, BENCH_CONCURRENCY = 8, 4  # cli/bench_serve.py: 8 timed requests from 4 clients, after a warm-up of 4
+
+
+@contextlib.contextmanager
+def sampler_calls():
+    """Each sampler call of the SDXL and SD1.x services
+    (``SliderService._sample_rows``, one padded group's call) while the block
+    runs: (rows, adapter_idx)."""
+    calls, real = [], SliderService._sample_rows
+
+    def counting(svc, padded, guidance, entry, adapter_idx=None):
+        calls.append((len(padded), adapter_idx))
+        return real(svc, padded, guidance, entry, adapter_idx=adapter_idx)
+
+    SliderService._sample_rows = counting
+    try:
+        yield calls
+    finally:
+        SliderService._sample_rows = real
+
+
+def check_sampler_launches(what: str, launches: tuple, calls: list, unet_cfg: UNetConfig, steps: int) -> None:
+    """K1 and K4a launched per_sampler_call × the sampler calls, no backward kernel, no plain attention."""
+    check_no_plain(what)
+    k1_call, k4a_call = per_sampler_call(unet_cfg, steps)
+    want = (k1_call * len(calls), 0, 0, k4a_call * len(calls), 0, 0)
+    if tuple(launches) != want:
+        raise AssertionError(f"{what}: launches {launches} over {len(calls)} sampler calls, not {want}")
+
+
+def bench_argv(*argv) -> list:
+    return list(argv) + ["--requests", str(BENCH_REQUESTS), "--concurrency", str(BENCH_CONCURRENCY)]
+
+
+def phase_bench_serve(what: str, argv: list, unet_cfg: UNetConfig, model: str) -> tuple:
+    """cli/bench_serve.py in-process on the card, every count set to 0 first:
+    its service loaded, warmed up and timed by ``run``. Every request
+    completed, none shed, more than one a micro-batch; K1 and K4a launched
+    per_sampler_call × the sampler calls of the whole run (the warm-up's
+    included). Returns (the path's launches, the bench's line, the calls)."""
+    args = bench_serve.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    with sampler_calls() as calls:
+        out = bench_serve.run(args)
+    seconds = time.time() - t
+    launches = counts()
+    gc.collect()  # the closed service sits in reference cycles: free its weights before the next phase
+    torch.cuda.empty_cache()
+    check_sampler_launches(what, launches, calls, unet_cfg, args.steps)
+    emit(dict(phase=what, model=model, argv=argv, seconds=seconds, bench=out, sampler_calls=len(calls),
+              rows_per_call=[n for n, _ in calls], stacked_calls=sum(i is not None for _, i in calls),
+              launches_k1_to_k4c=list(launches), max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30))
+    if out["completed"] != args.requests or out["shed_429"] != 0 or out["mean_batch"] <= 1:
+        raise AssertionError(f"{what}: {out}")
+    return launches, out, calls
+
+
+def phase_bench_serve_url(svc: SliderService, model: str) -> tuple:
+    """cli/bench_serve.py --url against make_handler over the serve phase's
+    loaded service (every count set to 0 first): every request (warm-up and
+    timed) served, none shed, more than one a micro-batch, K1 and K4a
+    launched per_sampler_call × the sampler calls. Returns (the path's
+    launches, the bench's line)."""
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    b = svc._batcher
+    rows0, batches0, rejected0 = b.total_rows, b.total_batches, b.rejected
+    argv = bench_argv("--url", f"http://127.0.0.1:{server.server_address[1]}")
+    reset_counts()
+    t = time.time()
+    try:
+        with sampler_calls() as calls:
+            out = bench_serve.run(bench_serve.build_parser().parse_args(argv))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    seconds = time.time() - t
+    launches = counts()
+    check_sampler_launches("bench_serve_url", launches, calls, svc.unet.config, svc.steps)
+    sizes = list(b.batch_sizes)[-(b.total_batches - batches0):]
+    mean_batch = sum(sizes) / len(sizes)
+    emit(dict(phase="bench_serve_url", model=model, image_size=svc.image_size, steps=svc.steps, seconds=seconds,
+              bench=out, rows_served=b.total_rows - rows0, batch_sizes=sizes, mean_batch=mean_batch,
+              sampler_calls=len(calls), launches_k1_to_k4c=list(launches)))
+    served_rows = min(BENCH_CONCURRENCY, BENCH_REQUESTS) + BENCH_REQUESTS
+    if b.total_rows - rows0 != served_rows or b.rejected != rejected0 or out["shed_429"] or mean_batch <= 1:
+        raise AssertionError(f"bench_serve_url: {b.total_rows - rows0} of {served_rows} rows served, "
+                             f"{b.rejected - rejected0} shed, mean batch {mean_batch}: {out}")
+    return launches, out
+
+
+def phase_bench_sd1_stacking(sd_dir: Path) -> dict:
+    """cli/bench_serve.py --num_sliders 2 over the SD1.5 directory, stacked
+    and with --no_stack (the A/B of cross-slider batching): the stacked run
+    sends its mixed micro-batches through one call with per-row adapter
+    indices, the unstacked run one call per slider. Returns each run's
+    launches and line."""
+    runs = {}
+    for what, extra in (("bench_serve_sd1_stacked", []), ("bench_serve_sd1_unstacked", ["--no_stack"])):
+        argv = bench_argv("--base", str(sd_dir), "--family", "sd1", "--slider", "synth", "--image_size", "512",
+                          "--steps", str(SD1_STEPS), "--num_sliders", "2", "--batch_window_ms", "50",
+                          "--device", "cuda", *extra)
+        launches, out, calls = phase_bench_serve(what, argv, UNetConfig.sd15(), f"{SD15} (the load phase's directory)")
+        stacked = sum(i is not None for _, i in calls)
+        if (stacked > 0) == bool(extra):  # stacked calls with stacking on, none with --no_stack
+            raise AssertionError(f"{what}: {stacked} of {len(calls)} sampler calls stacked")
+        runs[what] = (launches, out)
+    return runs
+
+
 def clip_transformers_names(sd: dict) -> dict:
     """The port's CLIP state dict under the transformers names a diffusers
     directory's text_encoder/ holds (the inverse of
@@ -2982,7 +3123,7 @@ def phase_quant() -> dict:
 
 
 def phase_train_int8(tmp: Path) -> dict:
-    """SDXL ESD (data/config-xl.yaml, 512px) for 3 steps on bf16 and on each
+    """SDXL ESD (data/config-xl.yaml, 512px) for 2 steps on bf16 and on each
     int8 route — quantize_base, the dual-tree w8a8_warmup, both — and SD1.5
     ESD (data/config.yaml) for 2 steps on bf16 and quantize_base, through
     trainer.train (phase_knob: K1..K4c per step as the bf16 route's count,
@@ -3121,10 +3262,11 @@ def phase_kernel_sd_serve(gen: torch.Generator) -> tuple:
 # ---------------------------------------------------------------------------
 
 SD3 = "stabilityai/stable-diffusion-3-medium"
-SD3_TRAIN_ITERATIONS = 4  # data/config-sd3.yaml's 1000, cut
+SD3_TRAIN_ITERATIONS = 2  # data/config-sd3.yaml's 1000, cut (4 before bench_serve joined)
 SD3_SERVE_SIZE, SD3_SERVE_STEPS, SD3_GUIDANCE = 1024, 28, 7.0
-# the sd3_load directory's MMDiT: SD3-Medium's full width, its 24 blocks cut to 12 when the mesh phases joined
-SD3_LAYERS = 12
+# the sd3_load directory's MMDiT: SD3-Medium's full width, its 24 blocks cut to 12 when the mesh phases joined, to 6
+# when bench_serve did
+SD3_LAYERS = 6
 SD3_DIR_CFG = dataclasses.replace(MMDiTConfig.sd3_medium(), num_layers=SD3_LAYERS)
 # (name, rows, S, heads, head dim): K1 at the joint sequence (image tokens +
 # 77 CLIP + 256 zero T5 tokens). 1024px serving with CFG: 4096 + 333 = 4429
@@ -3365,14 +3507,14 @@ def phase_sd3_load(tmp: Path) -> Path:
 
 
 def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iterations: int = SD3_TRAIN_ITERATIONS,
-                    yaml_edit=None, profile: bool = True) -> list:
+                    yaml_edit=None) -> list:
     """Full-width SD3-Medium ESD training at 512px through
     cli/train_lora_sd3.train from data/config-sd3.yaml + data/prompts-sd3.yaml
     (batch 8, CFG 7, 28 flow steps; only the model — the sd3_load directory —,
-    train.iterations and save.path overridden): per step K1 12·(tₖ + 3) (the
-    warm-up, teacher, student and the student's recompute) and K2 = K3 = 12;
-    steps/s after the first, first-step seconds, peak memory, the drawn
-    timesteps_to, the saved keys; one more step profiled."""
+    train.iterations and save.path overridden): per step K1 SD3_LAYERS·(tₖ + 3)
+    (the warm-up, teacher, student and the student's recompute) and K2 = K3 =
+    SD3_LAYERS; steps/s after the first, first-step seconds, peak memory, the
+    drawn timesteps_to, the saved keys."""
     cfg, prompts = train_config(tmp / what, "config-sd3.yaml", iterations)
     cfg.pretrained_model.name_or_path = str(sd3_dir)
     if yaml_edit is not None:
@@ -3409,17 +3551,13 @@ def phase_sd3_train(tmp: Path, sd3_dir: Path, what: str = "sd3_train", iteration
     if (not all(np.isfinite(res.losses)) or len(res.losses) != iterations or ups_zero or not keys_ok
             or len(res.sites) != 4 * SD3_LAYERS or launches != want):
         raise AssertionError(f"{what}: {row}")
-    if profile:
-        profiled = {}
-        prof = device_profile(lambda: profiled.update(res.next_step()))
-        emit(dict(phase=f"{what}_profile", timesteps_to=profiled["timesteps_to"], **prof))
     del res
     torch.cuda.empty_cache()
     return launches
 
 
 def make_sd3_slider(path: Path, rank: int = 4, seed: int = 4) -> None:
-    """A rank-4 '-'-delimited slider over the sd3_load MMDiT's 48 image-stream sites
+    """A rank-4 '-'-delimited slider over the sd3_load MMDiT's 4 × SD3_LAYERS image-stream sites
     (the trainer's under train_method full), non-zero up."""
     with torch.device("meta"):
         model = SD3Transformer2DModel(SD3_DIR_CFG)
@@ -3428,8 +3566,8 @@ def make_sd3_slider(path: Path, rank: int = 4, seed: int = 4) -> None:
 
 def phase_sd3_serve(tmp: Path, sd3_dir: Path, ref: dict) -> tuple:
     """SD3SliderService over the sd3_load directory at 1024px, 28 flow steps,
-    CFG 7: two solo requests, a concurrent pair, one /generate over HTTP, one
-    profiled request; 12 × 28 = 336 K1 launches per sampler call and one K4a
+    CFG 7: two solo requests, a concurrent pair, one /generate over HTTP;
+    SD3_LAYERS × 28 K1 launches per sampler call and one K4a
     per decode (the fp32 VAE's mid-block). Keeps the slider and the bf16
     image of SD3_INT8_REQUEST in ``ref`` for sd3_int8."""
     ref["slider"] = str(tmp / "sd3_serve_noxattn_rank4_alpha1.safetensors")
@@ -3441,14 +3579,14 @@ def phase_sd3_serve(tmp: Path, sd3_dir: Path, ref: dict) -> tuple:
                                                                steps=SD3_SERVE_STEPS, device="cuda",
                                                                batch_window_ms=50.0),
                   SD3_DIR_CFG, f"{SD3} (the sd3_load directory)", guidance=SD3_GUIDANCE,
-                  slider=make_sd3_slider, after=after)
+                  slider=make_sd3_slider, after=after, profile=False)
 
 
 def phase_sd3_sweep(tmp: Path, sd3_dir: Path, slider: str) -> list:
     """cli/generate_images_sd3 at its defaults (512px, 28 steps, CFG 7,
     start_noise 750) over the sd3_load directory, scales -2, 0, 2 × one
-    sample × case 0 of prompts/prompts-person.csv: per trajectory 12 × 28 K1,
-    one K4a per decode; seconds per image."""
+    sample × case 0 of prompts/prompts-person.csv: per trajectory SD3_LAYERS ×
+    28 K1, one K4a per decode; seconds per image."""
     save = tmp / "sd3_sweep"
     scales = ("-2.0", "0.0", "2.0")
     argv = ["--model_name", slider, "--prompts_path", str(REPO / "prompts" / "prompts-person.csv"),
@@ -3481,7 +3619,7 @@ def phase_sd3_int8(tmp: Path, sd3_dir: Path, ref: dict) -> dict:
     --family sd3 artifact (bytes, seconds) loaded as the base, one forward
     bit-equal to load_models_sd3(dir, quantize_base=True)'s."""
     paths = {"sd3_int8_train": phase_sd3_train(tmp, sd3_dir, "sd3_int8_train", 2,
-                                               functools.partial(set_tpu, quantize_base=True), profile=False)}
+                                               functools.partial(set_tpu, quantize_base=True))}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     svc = SD3SliderService(str(sd3_dir), ref["slider"], image_size=SD3_SERVE_SIZE, steps=SD3_SERVE_STEPS,
@@ -3613,7 +3751,8 @@ def phase_sd3_notrigger(tmp: Path, sd3_dir: Path) -> None:
 
 
 FLUX = "black-forest-labs/FLUX.1-schnell"
-FLUX_TRAIN_ITERATIONS = 2  # data/config-flux.yaml's 1000, cut: 2 optimizer steps = 2 × 4 + 1 micro-steps
+# data/config-flux.yaml's 1000, cut: 1 optimizer step = 1 × 4 + 1 micro-steps (2 before bench_serve joined)
+FLUX_TRAIN_ITERATIONS = 1
 FLUX_GUIDANCE = 3.5  # the requests' guidance (a dev model's input; schnell ignores it)
 FLUX_T5_LAYERS = 2  # flux_load's text_encoder_2: T5-XXL's width, its 24 layers cut to 2 in its config.json
 # flux_load's transformer/: schnell's width, its 19 + 38 blocks cut to 2 + 4 in its config.json when
@@ -3779,7 +3918,7 @@ def phase_flux_parity() -> None:
 
 
 def phase_flux_train(tmp: Path, what: str = "flux_train", iterations: int = FLUX_TRAIN_ITERATIONS,
-                     quantize_base: bool = False, profile: bool = True) -> list:
+                     quantize_base: bool = False) -> list:
     """Full-width FLUX.1-schnell ESD training at 512px through
     cli/train_lora_flux.train from data/config-flux.yaml +
     data/prompts-flux.yaml (batch 2: 4 micro-steps per optimizer step, 8
@@ -3788,7 +3927,7 @@ def phase_flux_train(tmp: Path, what: str = "flux_train", iterations: int = FLUX
     ``quantize_base``): per micro-step K1 57 × 3 (the 6-row teacher, the
     student and its recompute) and K2 = K3 = 57; micro-steps/s and
     optimizer steps/s after the first, first-step seconds, peak memory, the
-    saved keys (76 sites); one more micro-step profiled."""
+    saved keys (76 sites)."""
     cfg, prompts = train_config(tmp / what, "config-flux.yaml", iterations)
     set_tpu(cfg, quantize_base=quantize_base)
     k = train_lora_flux.accumulation_steps(prompts[0].batch_size, max(cfg.tpu.samples_per_step, 1))
@@ -3824,10 +3963,6 @@ def phase_flux_train(tmp: Path, what: str = "flux_train", iterations: int = FLUX
     if (not all(np.isfinite(res.losses)) or len(res.losses) != micro or ups_zero or not keys_ok
             or len(res.sites) != 76 or launches != want):
         raise AssertionError(f"{what}: {row}")
-    if profile:
-        reset_counts()
-        prof = device_profile(res.next_step)
-        emit(dict(phase=f"{what}_profile", launches_k1_to_k4c=list(counts()), **prof))
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -3846,7 +3981,7 @@ def phase_flux_serve(tmp: Path, ref: dict) -> tuple:
     """FluxSliderService at its defaults (512px, 8 steps, start_noise 800;
     the seeded weightless schnell, no vae/: JAX's latent preview): two solo
     requests (scales 0 and +2), a concurrent pair (-2 and +1), one
-    /generate over HTTP, one profiled request; 8 × 57 = 456 K1 launches per
+    /generate over HTTP; 8 × 57 = 456 K1 launches per
     sampler call and no K4a. Keeps the slider and the bf16 image of
     FLUX_INT8_REQUEST in ``ref`` for flux_int8."""
     ref["slider"] = str(tmp / "flux_serve_noxattn_rank4_alpha1.safetensors")
@@ -3856,7 +3991,7 @@ def phase_flux_serve(tmp: Path, ref: dict) -> tuple:
 
     return served(tmp, "flux_serve", lambda p: FluxSliderService(FLUX, p, device="cuda", batch_window_ms=50.0),
                   FluxConfig.schnell(), f"{FLUX} (seeded random weights)", guidance=FLUX_GUIDANCE,
-                  slider=make_flux_slider, after=after)
+                  slider=make_flux_slider, after=after, profile=False)
 
 
 def phase_flux_sweep(tmp: Path, slider: str) -> list:
@@ -3978,7 +4113,7 @@ def phase_flux_int8(tmp: Path, ref: dict) -> dict:
     seconds) loaded as the base at the artifact's depth, one forward
     bit-equal to load_models_flux(dir, quantize_base=True)'s, the file
     deleted after."""
-    paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 1, quantize_base=True, profile=False)}
+    paths = {"flux_int8_train": phase_flux_train(tmp, "flux_int8_train", 1, quantize_base=True)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     svc = FluxSliderService(FLUX, ref["slider"], device="cuda", w8a8=True)
@@ -4144,7 +4279,7 @@ def phase_flux_notrigger(tmp: Path) -> None:
 
 CASCADE = "stabilityai/stable-cascade-prior"
 CASCADE_TRAIN_ITERATIONS = 2  # data/config-cascade.yaml's 2000, cut (3 before the baseline phases joined)
-CASCADE_ROUTE_ITERATIONS = 2  # the route phases' steps
+CASCADE_ROUTE_ITERATIONS = 1  # the route phases' steps (2 before bench_serve joined)
 CASCADE_SHARDS = 4
 # (name, rows, Sq, Sk, heads, head dim): the prior's attentions at
 # data/prompts-cascade.yaml's 512px, a 12 × 12 effnet grid (ceil(512 /
@@ -4282,8 +4417,7 @@ def phase_cascade_load(tmp: Path) -> Path:
 
 
 def phase_cascade_train(tmp: Path, cascade_dir, what: str = "cascade_train",
-                        iterations: int = CASCADE_TRAIN_ITERATIONS, yaml_edit=None, peft_type: str = "lora",
-                        profile: bool = True) -> list:
+                        iterations: int = CASCADE_TRAIN_ITERATIONS, yaml_edit=None, peft_type: str = "lora") -> list:
     """Full-width Stable Cascade ESD training through
     cli/train_lora_cascade.train from data/config-cascade.yaml +
     data/prompts-cascade.yaml (512px, euler_a, T 20, bf16, c3lier rank 4,
@@ -4293,8 +4427,7 @@ def phase_cascade_train(tmp: Path, cascade_dir, what: str = "cascade_train",
     step and sample K1 64·(19 + 3) (the warm-up, teacher, student and its
     recompute; 64·(19 + 3·S) with share_warmup) and K2 = K3 = 64; steps/s
     after the first, first-step and set-up seconds, peak memory, the saved
-    .pt keys (256 sites, JAX's names), moved up factors; one more step
-    profiled."""
+    .pt keys (256 sites, JAX's names), moved up factors."""
     cfg, prompts = train_config(tmp / what, "config-cascade.yaml", iterations)
     if cascade_dir is not None:
         cfg.pretrained_model.name_or_path = str(cascade_dir)
@@ -4338,10 +4471,6 @@ def phase_cascade_train(tmp: Path, cascade_dir, what: str = "cascade_train",
     if (not all(np.isfinite(res.losses)) or len(res.losses) != iterations or ups_zero or not keys_ok
             or len(res.sites) != 256 or launches != want):
         raise AssertionError(f"{what}: {row}")
-    if profile:
-        reset_counts()
-        prof = device_profile(res.next_step)
-        emit(dict(phase=f"{what}_profile", launches_k1_to_k4c=list(counts()), **prof))
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4360,7 +4489,7 @@ def phase_cascade_routes(tmp: Path) -> dict:
         "cascade_overlay": (functools.partial(set_tpu, student_overlay=True), "lora"),
         "cascade_samples2_share": (functools.partial(set_tpu, samples_per_step=2, share_warmup=True), "lora"),
     }
-    return {what: phase_cascade_train(tmp, None, what, CASCADE_ROUTE_ITERATIONS, edit, peft, profile=False)
+    return {what: phase_cascade_train(tmp, None, what, CASCADE_ROUTE_ITERATIONS, edit, peft)
             for what, (edit, peft) in routes.items()}
 
 
@@ -4371,7 +4500,8 @@ def phase_cascade_routes(tmp: Path) -> dict:
 IMAGE_FIXTURES = REPO / "tests" / "data" / "image_decode"  # written with Pillow by tests/_make_image_fixtures.py
 IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the two 512x512 files, by the same script
 IMAGE_FIXTURES_MIN = 52  # every committed fixture (the bank's 16 files included)
-EDIT_STEPS, EDIT_INNER_STEPS = 10, 2  # the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut
+# the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut (10 DDIM steps before bench_serve joined)
+EDIT_STEPS, EDIT_INNER_STEPS = 6, 2
 EDIT_SCALES = (0.0, -2.0, 2.0)
 SCORER_TOL = 2e-4  # card against CPU, fp32, relative
 
@@ -4843,7 +4973,7 @@ MESH_RANKS = 2  # two ranks share the card: gloo, the ring's hops staged through
 # (name, rows, tokens, heads, head dim); each rank holds half the tokens
 RING_SHAPES = [("flux_1024_joint", 1, 4608, 24, 128), ("sd3_1024_joint", 1, 4250, 24, 64)]
 RING_SEED = 31
-MESH_SD_ITERATIONS = 2  # dp_train: SD1.5 ESD steps, samples_per_step 2 over the data axis
+MESH_SD_ITERATIONS = 1  # dp_train: SD1.5 ESD steps, samples_per_step 2 over the data axis (2 before bench_serve)
 SP_MIN_SEQ = 4096  # sp_train: the JAX default of tpu.sp_min_seq
 TP_LATENT = 64  # tp: a 512px Flux latent (32 × 32 packed tokens) and its 512 T5 tokens
 # mesh_serve: two requests of one micro-batch (one row per rank), also asked of the serve phase's service;
@@ -5223,21 +5353,32 @@ def main() -> int:
         phase_imageslider_parity(tmp)
         # each serving and training phase sets every count to 0 first
         bf16_ref = {}  # the bf16 service's image of INT8_REQUEST, for serve_int8's gap
+        bench, bench_seconds = {}, []  # cli/bench_serve.py's lines, and the seconds of its phases
 
         def after_serve(svc):
             paths["serve_sliders"] = phase_serve_sliders(tmp, svc)
             bf16_ref["png"] = svc.generate(*INT8_REQUEST)
             bf16_ref["mesh_serve"] = svc._generate_batch(MESH_SERVE_REQUESTS)  # mesh_serve's one-rank images
+            t = time.time()
+            paths["bench_serve_url"], bench["url"] = phase_bench_serve_url(svc, SDXL)
+            bench_seconds.append(time.time() - t)
 
         paths["serve"] = served(tmp, "serve", lambda p: SliderService(
             SDXL, p, image_size=IMAGE_SIZE, steps=STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sdxl(), SDXL,
             after=after_serve)
+        t = time.time()
+        paths["bench_serve_xl"], bench["xl"], _ = phase_bench_serve(
+            "bench_serve_xl", bench_argv("--base", SDXL, "--slider", "synth", "--image_size", str(IMAGE_SIZE),
+                                         "--steps", str(STEPS), "--batch_window_ms", "50", "--device", "cuda"),
+            UNetConfig.sdxl(), SDXL)
+        torch.cuda.empty_cache()
+        bench_seconds.append(time.time() - t)
         train_rows = {"train": phase_esd(tmp, "train", "config-xl.yaml")}
         torch.cuda.empty_cache()
         t_routes = time.time()
         train_rows["train_overlay_warmup"] = phase_esd(tmp, "train_overlay_warmup", "config-xl.yaml",
                                                        functools.partial(set_tpu, overlay_warmup=True),
-                                                       iterations=ROUTE_ITERATIONS)
+                                                       iterations=ROUTE_ITERATIONS, profile=False)
         torch.cuda.empty_cache()
         emit(dict(phase="warmup_routes", model=SDXL, **{
             name: {k: row[k] for k in ("student_overlay", "overlay_warmup", "iterations", "timesteps_to",
@@ -5247,7 +5388,7 @@ def main() -> int:
                               ("overlay_warmup", train_rows["train_overlay_warmup"]))}))
         train_rows["train_merged"] = phase_esd(tmp, "train_merged", "config-xl.yaml",
                                                functools.partial(set_tpu, student_overlay=False),
-                                               iterations=ROUTE_ITERATIONS)
+                                               iterations=ROUTE_ITERATIONS, profile=False)
         torch.cuda.empty_cache()
         phase_merged_call_cost()
         paths["imageslider"] = phase_image_pairs(tmp, "imageslider", "config-xl.yaml",
@@ -5278,9 +5419,20 @@ def main() -> int:
         emit(dict(phase="route_phases", seconds=time.time() - t_routes))
         t_new = time.time()
         sd_dir = phase_load(tmp)
+        t = time.time()
+        for what, (launches, out) in phase_bench_sd1_stacking(sd_dir).items():
+            paths[what], bench[what] = launches, out
+        torch.cuda.empty_cache()
+        bench_seconds.append(time.time() - t)
+        stacked, unstacked = bench["bench_serve_sd1_stacked"]["value"], bench["bench_serve_sd1_unstacked"]["value"]
+        emit(dict(phase="bench_serve_phases", seconds=sum(bench_seconds), card=card,
+                  sdxl={k: bench["xl"][k] for k in ("value", "p50_s", "p95_s", "p99_s", "mean_batch")},
+                  sdxl_url={k: bench["url"][k] for k in ("value", "p50_s", "p95_s")},
+                  sd1_stacked_req_per_s=stacked, sd1_unstacked_req_per_s=unstacked,
+                  sd1_stacked_over_unstacked=stacked / unstacked))
         paths["sd_serve"] = served(tmp, "sd_serve", lambda p: SD1SliderService(
             str(sd_dir), p, image_size=512, steps=SD1_STEPS, device="cuda", batch_window_ms=50.0), UNetConfig.sd15(),
-            f"{SD15} (the load phase's directory)")
+            f"{SD15} (the load phase's directory)", profile=False)
         paths["sd2_serve"] = served(tmp, "sd2_serve", lambda p: SD1SliderService(
             SD21, p, image_size=512, steps=SD2_STEPS, v2=True, v_pred=True, device="cuda"), UNetConfig.sd21(),
             SD21, pair=False, http=False, profile=False)
@@ -5332,7 +5484,7 @@ def main() -> int:
         shutil.rmtree(flux_ref["dir"])
         t_cascade = time.time()
         cascade_dir = phase_cascade_load(tmp)
-        paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir, profile=False)
+        paths["cascade_train"] = phase_cascade_train(tmp, cascade_dir)
         shutil.rmtree(cascade_dir)
         paths.update(phase_cascade_routes(tmp))
         emit(dict(phase="cascade_phases", seconds=time.time() - t_cascade + cascade_seconds,
@@ -5343,7 +5495,8 @@ def main() -> int:
     # its decodes when serving
     inference = ("serve_sliders", "sd_serve", "sd2_serve", "sweep_xl", "sweep_sd1", "export", "notrigger_sweep",
                  "serve_int8_quantize_base", "serve_int8_w8a8", "quantize_checkpoint", "baseline_uce",
-                 "baseline_ti_sd1", "baseline_ti_xl", "baseline_cd_xl", "acceptance", "demo_turbo", "parity_dump")
+                 "baseline_ti_sd1", "baseline_ti_xl", "baseline_cd_xl", "acceptance", "demo_turbo", "parity_dump",
+                 "bench_serve_xl", "bench_serve_url", "bench_serve_sd1_stacked", "bench_serve_sd1_unstacked")
     # null-text inversion editing: SD1.5 in fp32, forward and backward (the embedding's gradient)
     edit = ("edit",)
     xl_train = ("train", "train_overlay_warmup", "train_merged", "imageslider", "knob_samples2",

@@ -355,16 +355,17 @@ def convert_ldm_checkpoint(sd: StateDict) -> Dict[str, StateDict]:
     return out
 
 
-def read_checkpoint(path: str) -> StateDict:
-    """Every tensor of a ``.safetensors`` or ``.ckpt`` file, on the CPU."""
+def read_checkpoint(path: str, meta: bool = False) -> StateDict:
+    """Every tensor of a ``.safetensors`` or ``.ckpt`` file, on the CPU
+    (``meta``: on the meta device, no tensor data read)."""
     if str(path).endswith(".safetensors"):
-        from sliders_conceptmod_tpu_torch.io.safetensors import load_file
+        from sliders_conceptmod_tpu_torch.io.safetensors import load_file, load_meta
 
-        return load_file(str(path))
-    data = torch.load(str(path), map_location="cpu", weights_only=True)
+        return (load_meta if meta else load_file)(str(path))
+    data = torch.load(str(path), map_location="meta" if meta else "cpu", weights_only=True)
     data = data.get("state_dict", data)
     return {k: v for k, v in data.items() if isinstance(v, torch.Tensor)}
 
 
-def load_ldm_checkpoint(path: str) -> Dict[str, StateDict]:
-    return convert_ldm_checkpoint(read_checkpoint(path))
+def load_ldm_checkpoint(path: str, meta: bool = False) -> Dict[str, StateDict]:
+    return convert_ldm_checkpoint(read_checkpoint(path, meta))

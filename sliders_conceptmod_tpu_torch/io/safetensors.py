@@ -54,6 +54,22 @@ def read_keys(path: str) -> list:
     return [k for k in header if k != "__metadata__"]
 
 
+def load_meta(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor's name, shape and dtype, as tensors on the meta device,
+    read from the header alone."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f, path)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: unsupported dtype {info['dtype']} for {name}")
+        out[name] = torch.empty(tuple(int(s) for s in info["shape"]), dtype=dtype, device="meta")
+    return out
+
+
 def _read_header(f, path: str) -> dict:
     head = f.read(8)
     if len(head) < 8:

@@ -48,7 +48,9 @@ are the weightless family's.
 
 ``load_for_training`` is the trainers' one entry: it picks the family from
 the config and returns the UNet, scheduler, optional VAE and a one-prompt
-encoder.
+encoder. ``denoiser_on_meta`` builds the denoiser a loader would, on the
+meta device and without reading a tensor (LoRA sites without a second load
+of the base).
 """
 
 from __future__ import annotations
@@ -280,7 +282,7 @@ def load_models(
     scheduler = create_noise_scheduler(scheduler_name, prediction_type="v_prediction" if v_pred else "epsilon")
     if is_single_file(name_or_path) and quant_cache.is_quantized_artifact(name_or_path):
         tiny = "tiny" in os.path.basename(str(name_or_path)).lower()
-        unet_cfg = UNetConfig.tiny() if tiny else (UNetConfig.sd21() if v2 else UNetConfig.sd15())
+        unet_cfg = denoiser_config(name_or_path, "sd1", v2)
         clip_cfg = CLIPTextConfig.tiny() if tiny else (CLIPTextConfig.sd2_te() if v2 else CLIPTextConfig.sd15_te())
         tok = load_tokenizer("", component="tokenizer")
         te = _text_encoder("", "text_encoder", clip_cfg, device, weight_dtype, 0, tok)
@@ -294,10 +296,9 @@ def load_models(
         trees = load_ldm_checkpoint(path)
         if "tiny" in os.path.basename(path).lower():
             clip_cfg = CLIPTextConfig.tiny()
-            unet_cfg = dataclasses.replace(UNetConfig.tiny(), layers_per_block=_tiny_lpb(trees["unet"]))
         else:
             clip_cfg = CLIPTextConfig.sd2_te() if v2 else CLIPTextConfig.sd15_te()
-            unet_cfg = UNetConfig.sd21() if v2 else UNetConfig.sd15()
+        unet_cfg = denoiser_config(path, "sd1", v2, trees["unet"])
         tok = load_tokenizer("", component="tokenizer")
         te = TextEncoderBundle(module_from_state(lambda: CLIPTextEncoder(clip_cfg), trees.get("text_encoder", {}),
                                                  device, weight_dtype, f"{path} text_encoder"), tok)
@@ -361,8 +362,8 @@ def load_models_xl(
         toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
         tes = [_text_encoder("", comp, c, device, weight_dtype, seed, tok)
                for seed, (c, comp, tok) in enumerate(zip(te_cfgs, ("text_encoder", "text_encoder_2"), toks))]
-        unet = (quantized_unet_from_artifact(str(name_or_path), UNetConfig.tiny_xl() if tiny else UNetConfig.sdxl(),
-                                             device, weight_dtype) if with_unet else None)
+        unet = (quantized_unet_from_artifact(str(name_or_path), denoiser_config(name_or_path, "xl"), device,
+                                             weight_dtype) if with_unet else None)
         out = (toks, tes, unet, scheduler)
         return out + (_vae("", VAEConfig.sdxl(), device, weight_dtype, 3),) if with_vae else out
     if is_single_file(name_or_path):
@@ -370,12 +371,9 @@ def load_models_xl(
 
         path = str(name_or_path)
         trees = load_ldm_checkpoint(path)
-        if "tiny" in os.path.basename(path).lower():
-            te_cfgs = tiny_cfgs
-            unet_cfg = dataclasses.replace(UNetConfig.tiny_xl(), layers_per_block=_tiny_lpb(trees["unet"]))
-        else:
-            te_cfgs = (CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2())
-            unet_cfg = UNetConfig.sdxl()
+        te_cfgs = (tiny_cfgs if "tiny" in os.path.basename(path).lower()
+                   else (CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2()))
+        unet_cfg = denoiser_config(path, "xl", names=trees["unet"])
         toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
         tes = [TextEncoderBundle(module_from_state(lambda c=c: CLIPTextEncoder(c), trees.get(comp, {}), device,
                                                    weight_dtype, f"{path} {comp}"), tok)
@@ -439,7 +437,7 @@ def load_models_sd3(
     ``with_transformer=False`` loads the towers only (the notrigger
     trainer)."""
     from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
-    from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig, SD3Transformer2DModel
+    from sliders_conceptmod_tpu_torch.models.mmdit import SD3Transformer2DModel
 
     p = str(name_or_path)
     device = _check_target(p, device, marker="transformer")
@@ -447,7 +445,6 @@ def load_models_sd3(
     tiny = "tiny" in (os.path.basename(p) if is_single_file(p) else p).lower()
     te_cfgs = ((CLIPTextConfig.tiny(hidden_size=16, projection_dim=16),) * 2 if tiny
                else (CLIPTextConfig(projection_dim=768), CLIPTextConfig.sdxl_te2()))
-    mm_cfg = MMDiTConfig.tiny() if tiny else MMDiTConfig.sd3_medium()
     comps = ("text_encoder", "text_encoder_2")
     if is_single_file(p) and quant_cache.is_quantized_artifact(p):
         toks = [load_tokenizer("", component="tokenizer"), load_tokenizer("", component="tokenizer_2", pad_token_id=0)]
@@ -455,10 +452,7 @@ def load_models_sd3(
                for seed, (c, comp, tok) in enumerate(zip(te_cfgs, comps, toks))]
         transformer = None
         if with_transformer:
-            from sliders_conceptmod_tpu_torch.io.safetensors import read_keys
-
-            keys = [k.replace("/", ".") for k in read_keys(p)]
-            mm_cfg = dataclasses.replace(mm_cfg, num_layers=_block_count(keys, "transformer_blocks_"))
+            mm_cfg = denoiser_config(p, "sd3")
             transformer = quantized_from_artifact(p, lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype)
         vae = sd3_vae("", device, weight_dtype) if with_vae else None
     elif is_single_file(p):
@@ -477,7 +471,7 @@ def load_models_sd3(
         tes = [TextEncoderBundle(module_from_state(lambda c=c: CLIPTextEncoder(c), trees[comp], device, weight_dtype,
                                                    f"{p} {comp}"), tok)
                for c, comp, tok in zip(te_cfgs, comps, toks)]
-        mm_cfg = dataclasses.replace(mm_cfg, num_layers=_block_count(trees["transformer"], "transformer_blocks."))
+        mm_cfg = denoiser_config(p, "sd3", names=trees["transformer"])
         transformer = (module_from_state(lambda: SD3Transformer2DModel(mm_cfg), trees["transformer"], device,
                                          weight_dtype, f"{p} transformer", quantize_base) if with_transformer else None)
         vae = _single_file_vae(p, trees, VAEConfig.sd3(), device, weight_dtype) if with_vae else None
@@ -491,7 +485,8 @@ def load_models_sd3(
             transformer = module_from_state(lambda: SD3Transformer2DModel(cfg), sd, device, weight_dtype,
                                             f"{p}/transformer", quantize_base)
         elif with_transformer:
-            transformer = build_module(lambda: SD3Transformer2DModel(mm_cfg), device, weight_dtype, 2, quantize_base)
+            cfg = denoiser_config(p, "sd3")
+            transformer = build_module(lambda: SD3Transformer2DModel(cfg), device, weight_dtype, 2, quantize_base)
         vae = sd3_vae(p, device, weight_dtype) if with_vae else None
     out = (toks, tes, transformer, scheduler)
     return out + (vae,) if with_vae else out
@@ -684,7 +679,6 @@ def load_models_flux(
     ``with_transformer=False`` loads the encoder alone (the notrigger
     trainer)."""
     from sliders_conceptmod_tpu_torch.diffusion.flow_match import FlowMatchScheduler
-    from sliders_conceptmod_tpu_torch.io.safetensors import read_keys
     from sliders_conceptmod_tpu_torch.models.flux import FluxConfig, FluxTransformer2DModel
     from sliders_conceptmod_tpu_torch.models.t5 import T5EncoderModel
     from sliders_conceptmod_tpu_torch.models.tokenizer import load_t5_tokenizer
@@ -698,15 +692,10 @@ def load_models_flux(
     local = is_flux_dir(p)
     tok = load_t5_tokenizer(p if local else "", max_length=seq_len)
 
-    def with_guidance(keys) -> FluxConfig:
-        return dataclasses.replace(base_cfg, guidance_embeds=any(".guidance_embedder." in k for k in keys))
-
     transformer = None
     if is_single_file(p) and quant_cache.is_quantized_artifact(p):
         if with_transformer:
-            keys = [k.replace("/", ".") for k in read_keys(p)]
-            cfg = dataclasses.replace(with_guidance(keys), num_layers=_block_count(keys, "transformer_blocks_"),
-                                      num_single_layers=_block_count(keys, "single_transformer_blocks_"))
+            cfg = denoiser_config(p, "flux")
             transformer = quantized_from_artifact(p, lambda: FluxTransformer2DModel(cfg), device, weight_dtype)
     elif is_single_file(p):
         from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
@@ -715,9 +704,7 @@ def load_models_flux(
             sd = load_ldm_checkpoint(p)
             if "transformer" not in sd or "x_embedder.weight" not in sd["transformer"]:
                 raise ValueError(f"{p} is not a BFL Flux single file (no double_blocks / single_blocks)")
-            cfg = dataclasses.replace(with_guidance(sd["transformer"]),
-                                      num_layers=_block_count(sd["transformer"], "transformer_blocks."),
-                                      num_single_layers=_block_count(sd["transformer"], "single_transformer_blocks."))
+            cfg = denoiser_config(p, "flux", names=sd["transformer"])
             transformer = module_from_state(lambda: FluxTransformer2DModel(cfg), sd["transformer"], device,
                                             weight_dtype, f"{p} transformer", quantize_base)
     elif local:
@@ -726,7 +713,8 @@ def load_models_flux(
             transformer = module_from_state(lambda: FluxTransformer2DModel(cfg), sd, device, weight_dtype,
                                             f"{p}/transformer", quantize_base)
     elif with_transformer:
-        transformer = build_module(lambda: FluxTransformer2DModel(base_cfg), device, weight_dtype, 0, quantize_base)
+        transformer = build_module(lambda: FluxTransformer2DModel(denoiser_config(p, "flux")), device, weight_dtype, 0,
+                                   quantize_base)
     cfg = transformer.config if transformer is not None else base_cfg
     t5 = clip = None
     if local:
@@ -743,6 +731,82 @@ def flux_vae_scale(name_or_path: str) -> int:
     """Pixels per latent: 8, or 2 for the tiny family (the JAX Flux
     entry points' ``vae_scale``)."""
     return 2 if "tiny" in str(name_or_path).lower() else 8
+
+
+def _denoiser_names(path: str, artifact: bool) -> list:
+    """A single file's denoiser tensor names in the port's names (its
+    tensors on the meta device through ``load_ldm_checkpoint``'s
+    conversion), or an int8 artifact's ("/" read as "."); from the header
+    alone."""
+    if artifact:
+        from sliders_conceptmod_tpu_torch.io.safetensors import read_keys
+
+        return [k.replace("/", ".") for k in read_keys(path)]
+    from sliders_conceptmod_tpu_torch.io.ldm_convert import load_ldm_checkpoint
+
+    trees = load_ldm_checkpoint(path, meta=True)
+    return list(trees.get("transformer", trees.get("unet", {})))
+
+
+def denoiser_config(name_or_path: str, family: str, v2: bool = False, names=None):
+    """The architecture of the denoiser that ``family``'s loader builds for
+    ``name_or_path``: a UNetConfig for ``sd1`` (SD2.1's with ``v2``) and
+    ``xl``, an MMDiTConfig for ``sd3``, a FluxConfig for ``flux``. A
+    directory's ``config.json``; a single file's or int8 artifact's family
+    widths (a basename holding "tiny": the tiny family's; Flux reads the
+    whole path, as JAX does) at what its tensor ``names`` hold (a tiny UNet
+    file's layers_per_block, the MMDiT's blocks, Flux's double and single
+    blocks and guidance embedder); else the family's name. ``names``: the
+    port's names of a loaded file's denoiser tree, or an artifact's; read
+    from the header when None. The loaders and ``denoiser_on_meta`` share
+    this rule."""
+    from sliders_conceptmod_tpu_torch.models.flux import FluxConfig
+    from sliders_conceptmod_tpu_torch.models.mmdit import MMDiTConfig
+
+    p = str(name_or_path)
+    single = is_single_file(p)
+    artifact = single and quant_cache.is_quantized_artifact(p)
+    if single and names is None:
+        names = _denoiser_names(p, artifact)
+    tiny = "tiny" in (os.path.basename(p) if single else p).lower()
+    blocks = "transformer_blocks" + ("_" if artifact else ".")
+    if family == "flux":
+        if is_flux_dir(p):
+            return tc.flux_config_from_json(tc.read_json(os.path.join(p, "transformer", "config.json")))
+        cfg = FluxConfig.tiny() if "tiny" in p.lower() else FluxConfig.schnell()
+        if not single:
+            return cfg
+        return dataclasses.replace(cfg, num_layers=_block_count(names, blocks),
+                                   num_single_layers=_block_count(names, "single_" + blocks),
+                                   guidance_embeds=any(".guidance_embedder." in k for k in names))
+    if family == "sd3":
+        if is_sd3_dir(p):
+            return tc.mmdit_config_from_json(tc.read_json(os.path.join(p, "transformer", "config.json")))
+        cfg = MMDiTConfig.tiny() if tiny else MMDiTConfig.sd3_medium()
+        return dataclasses.replace(cfg, num_layers=_block_count(names, blocks)) if single else cfg
+    if is_diffusers_dir(p):
+        return tc.unet_config_from_json(tc.read_json(os.path.join(p, "unet", "config.json")))
+    if not single:
+        return unet_config_for(p, v2)
+    if family == "xl":
+        cfg = UNetConfig.tiny_xl() if tiny else UNetConfig.sdxl()
+    else:
+        cfg = UNetConfig.tiny() if tiny else (UNetConfig.sd21() if v2 else UNetConfig.sd15())
+    return dataclasses.replace(cfg, layers_per_block=_tiny_lpb(names)) if tiny and not artifact else cfg
+
+
+def denoiser_on_meta(name_or_path: str, family: str) -> nn.Module:
+    """The denoiser the ``family``'s loader builds for ``name_or_path`` (the
+    UNet of ``xl`` and ``sd1``, the transformer of ``sd3`` and ``flux``) on
+    the meta device: its module tree at ``denoiser_config``'s architecture,
+    no weights; no tensor is read."""
+    from sliders_conceptmod_tpu_torch.models.flux import FluxTransformer2DModel
+    from sliders_conceptmod_tpu_torch.models.mmdit import SD3Transformer2DModel
+
+    cls = {"flux": FluxTransformer2DModel, "sd3": SD3Transformer2DModel}.get(family, UNet2DConditionModel)
+    cfg = denoiser_config(name_or_path, family)
+    with torch.device("meta"):
+        return cls(cfg)
 
 
 def is_cascade_dir(name_or_path: str) -> bool:

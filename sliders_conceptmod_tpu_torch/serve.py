@@ -421,9 +421,14 @@ class SliderService:
         with self._registry_lock:
             return sum(v is not None for v in self._stack_cache.values())
 
+    # single-slider conveniences (the "default" registration, as JAX's)
     @property
     def sites(self):
         return self._sliders["default"][0]
+
+    @property
+    def lora_params(self):
+        return self._sliders["default"][1]
 
     def _stacked_entry(self, names: tuple):
         """``(sites, stacked factors, overlay, name -> adapter index)`` for a
