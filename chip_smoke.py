@@ -38,9 +38,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   head dims 40 and 80 zero-padded to 64 and 128 as the path
                   pads them; SD1.5 image pairs at 256px, rows 2; SD2.1's
                   4096² with 5 heads), bf16 and fp32, plus ragged (Sq 65; Sk
-                  77, 129) and strided-dO cases; bf16 K2 with its key split
-                  and K3 with its query split forced to 1, 2 and 64 at every
-                  training shape, against the plain versions over the same
+                  77, 129) and strided-dO cases (fp32 K2/K3 on the tensor
+                  cores since PR 22: 3×TF32 mma.sync); K2 with its key split
+                  and K3 with its query split forced to 1, 2 and 64, bf16 at
+                  every training shape and fp32 at the edit path's four
+                  (EDIT_K23_SHAPES), against the plain versions over the same
                   splits, each call repeated bit for bit (K2's δ the same bits
                   at every split); bf16 K2 at ragged Sq/Sk ∈ {1, 63, 65, 77,
                   129, 4097} (d 64 and 128) and on head slices and views off
@@ -283,7 +285,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   backward (the first self-attention of down_blocks.0 has no
                   gradient path to the embedding); one K4a per encode and
                   decode; the scale-0 edit's reconstruction MSE against
-                  latent0; seconds per part. Then one forward under
+                  latent0; seconds per part (null_optimization's alone too)
+                  and the launches of a demo-default edit by the same count
+                  (50 DDIM steps, at most 10 inner steps each, 3 scales).
+                  Then one forward under
                   capture_attention_maps (K1 20 and K4a 12 fewer: every
                   attention materialised) and one under
                   reweight_cross_attention (10 and 6 fewer: the
@@ -547,8 +552,11 @@ from sliders_conceptmod_tpu_torch.serve import (
 from sliders_conceptmod_tpu_torch.train import esd, esd_cascade, esd_flux, esd_sd3, imageslider, trainer
 from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, Optimizer, flat_params, get_lr_schedule, get_optimizer
 
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (dense): bf16 tensor cores; fp32 as the least time
+# of fp32-accurate products, three TF32 tensor-core passes each (494.7 / 3
+# TFLOP/s, the scheme of fp32 K2/K3; the CUDA cores' 67 TFLOP/s is slower);
+# HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 # K1 and K4a vs their fp32 plain versions. fp32: the same math up to
 # summation order (1e-4 flat; at most the 1e-4·max(1, max|ref|) asked of K4a).
@@ -591,6 +599,9 @@ TRAIN_SHAPES = [
     ("sd15_pair_cross_256x77", 256, 77, 8, 80, 2, 0),
     ("sd21_self_4096", 4096, 4096, 5, 64, 1, 3),  # SD2.1 ESD at 512px: 5 heads of 64 at level 0
 ]
+# K2/K3's shapes on the edit path (null-text inversion, SD1.5 at 512px in
+# fp32, rows 1): the SD1.5 ESD student's
+EDIT_K23_SHAPES = ("sd15_self_4096", "sd15_cross_4096x77", "sd15_self_1024", "sd15_cross_1024x77")
 # SDXL and SD1.5 ESD: 500 / 1000 cut (6 before SD3 joined, 4 before image editing, 3 before bench_serve)
 TRAIN_ITERATIONS = 2
 ROUTE_ITERATIONS = 2  # the other slider routes and DoRA: 2 steps each (3 before bench_serve joined)
@@ -904,15 +915,19 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
                 raise AssertionError(f"K2/K3 ragged/strided check failed: {checks[-1]}")
     emit(dict(phase="kernel_bwd", ragged_and_strided=checks))
 
-    # bf16 K2 with its key split and K3 with its query split forced to 1, 2
-    # and the maximum (64: empty splits included) against the plain versions
-    # over the same splits, and repeated calls bit for bit, at every training
-    # shape; K2's δ is the same bits at every split count (split 0 writes it)
-    forced, forced_k2 = [], []
-    for name, sq, sk, h, d, n_rows, _ in TRAIN_SHAPES:
+    # K2 with its key split and K3 with its query split forced to 1, 2 and
+    # the maximum (64: empty splits included) against the plain versions over
+    # the same splits, and repeated calls bit for bit: bf16 at every training
+    # shape, fp32 at the edit path's (SD1.5 ESD's rows-1 shapes); K2's δ is
+    # the same bits at every split count (split 0 writes it)
+    forced = {torch.bfloat16: ([], []), torch.float32: ([], [])}  # dtype: (K3 rows, K2 rows)
+    cases = [(shape, torch.bfloat16) for shape in TRAIN_SHAPES]
+    cases += [(shape, torch.float32) for shape in TRAIN_SHAPES if shape[0] in EDIT_K23_SHAPES]
+    for (name, sq, sk, h, d, n_rows, _), dtype in cases:
         scale = d**-0.5
-        q, do = (path_randn(gen, (n_rows, sq, h), d, torch.bfloat16) for _ in range(2))
-        k, v = (path_randn(gen, (n_rows, sk, h), d, torch.bfloat16) for _ in range(2))
+        forced_dkv, forced_k2 = forced[dtype]
+        q, do = (path_randn(gen, (n_rows, sq, h), d, dtype) for _ in range(2))
+        k, v = (path_randn(gen, (n_rows, sk, h), d, dtype) for _ in range(2))
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
         for splits in (1, 2, fa.MAX_SPLITS):
@@ -920,31 +935,32 @@ def phase_kernel_bwd(gen: torch.Generator) -> tuple:
             again, again_delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=splits)
             want, _ = fa.bwd_dq_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale, splits)
             torch.cuda.synchronize()
-            err, tol = (got.float() - want).abs().max().item(), grad_tol(want, torch.bfloat16)
+            err, tol = (got.float() - want).abs().max().item(), grad_tol(want, dtype)
             same = torch.equal(got, again) and torch.equal(got_delta, again_delta) and torch.equal(got_delta, delta)
             forced_k2.append(dict(shape=name, rows=n_rows, padded_head_dim=q.shape[-1], splits=splits,
-                                  rule_splits=fa.pick_k2_splits(n_rows * h, sq, sk), max_abs_err_dq=err, tol=tol,
-                                  repeat_and_delta_bit_equal=same))
+                                  rule_splits=fa.pick_k2_splits(n_rows * h, sq, sk, dtype), max_abs_err_dq=err,
+                                  tol=tol, repeat_and_delta_bit_equal=same))
             if not same or not err <= tol:
-                raise AssertionError(f"K2 with forced splits failed: {forced_k2[-1]}")
+                raise AssertionError(f"K2 with forced splits failed ({dtype}): {forced_k2[-1]}")
             del got, again, want
             got = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
             again = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
             want = fa.bwd_dkv_reference(q.float(), k.float(), v.float(), lse, delta, do.float(), scale, splits)
             torch.cuda.synchronize()
             errs = [(x.float() - w).abs().max().item() for x, w in zip(got, want)]
-            tols = [grad_tol(w, torch.bfloat16) for w in want]
+            tols = [grad_tol(w, dtype) for w in want]
             same = all(torch.equal(x, y) for x, y in zip(got, again))
-            forced.append(dict(shape=name, rows=n_rows, padded_head_dim=q.shape[-1], splits=splits,
-                               rule_splits=fa.pick_k3_splits(n_rows * h, sq, sk), max_abs_err_dk_dv=errs, tol=tols,
-                               repeat_bit_equal=same))
+            forced_dkv.append(dict(shape=name, rows=n_rows, padded_head_dim=q.shape[-1], splits=splits,
+                                   rule_splits=fa.pick_k3_splits(n_rows * h, sq, sk, dtype), max_abs_err_dk_dv=errs,
+                                   tol=tols, repeat_bit_equal=same))
             if not same or any(not e <= t for e, t in zip(errs, tols)):
-                raise AssertionError(f"K3 with forced splits failed: {forced[-1]}")
+                raise AssertionError(f"K3 with forced splits failed ({dtype}): {forced_dkv[-1]}")
             del got, again, want
         del q, k, v, o, lse, do, delta
         torch.cuda.empty_cache()
-    emit(dict(phase="kernel_bwd", k2_forced_splits_bf16=forced_k2))
-    emit(dict(phase="kernel_bwd", k3_forced_splits_bf16=forced))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        emit({"phase": "kernel_bwd", f"k2_forced_splits_{tag}": forced[dtype][1]})
+        emit({"phase": "kernel_bwd", f"k3_forced_splits_{tag}": forced[dtype][0]})
     emit(dict(phase="kernel_bwd", k2_ragged_and_views_bf16=check_k2_edges(gen)))
     emit(dict(phase="kernel_bwd", k1_at_training_shapes=k1_rows))
     return rows, k1_rows
@@ -1694,10 +1710,10 @@ def device_profile(fn) -> dict:
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
     # profiler names by substring: a tensor-core kernel's name does not
-    # contain its SIMT sibling's ("flash_bwd_dq_tc_kernel")
+    # contain its SIMT sibling's ("flash_fwd_tc_kernel")
     for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-                       ("k2", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_dq_merge_kernel")),
-                       ("k3", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_dkv_merge_kernel")),
+                       ("k2", ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_tf32_kernel", "flash_dq_merge_kernel")),
+                       ("k3", ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tf32_kernel", "flash_dkv_merge_kernel")),
                        ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_merge_kernel")),
                        ("k4b", ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel")),
                        ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel"))):
@@ -4684,6 +4700,14 @@ def phase_edit(tmp: Path, sd_dir: Path) -> list:
                                   k4_bwd * inner]}
     for s in EDIT_SCALES:
         want[f"edit_{s}"] = [2 * k1 * EDIT_STEPS, 0, 0, 2 * k4a * EDIT_STEPS + 1, 0, 0]  # + the decode
+    # a demo-default edit by the same count: its DDIM steps, null_optimization's inner steps (at most;
+    # a step stops early once its loss is small), its scales
+    defaults = demo_edit.build_parser().parse_args(["--image", "x", "--prompt", "x", "--slider", "x"])
+    steps, n_scales = defaults.ddim_steps, len(defaults.scales.split(","))
+    most_inner = steps * null_inversion.NullOptConfig().num_inner_steps
+    forwards = steps * (3 + 2 * n_scales) + most_inner  # inversion, null-text and each scale's 2 per step
+    default_edit = dict(zip(KERNEL_NAMES, [k1 * forwards, k1_bwd * most_inner, k1_bwd * most_inner,
+                                           k4a * forwards + 1 + n_scales, k4_bwd * most_inner, k4_bwd * most_inner]))
     mse = float(torch.mean((res["finals"][0.0] - res["latent0"]) ** 2))
     moved = {s: float(np.abs(res["images"][s].astype(int) - res["images"][0.0]).mean()) for s in EDIT_SCALES}
 
@@ -4716,6 +4740,9 @@ def phase_edit(tmp: Path, sd_dir: Path) -> list:
               num_inner_steps=EDIT_INNER_STEPS, inner_steps_taken=res["inner_steps"], scales=list(EDIT_SCALES),
               flip_step=res["flip_step"], reconstruction_mse_scale0=mse, mean_abs_pixel_change_vs_scale0=moved,
               launches_by_part=parts, expected_by_part=want, controllers=controllers, seconds_by_part=res["seconds"],
+              null_optimization_seconds=res["seconds"]["null_optimization"],
+              launches_per_default_edit=dict(default_edit, ddim_steps=steps, most_inner_steps=most_inner,
+                                             scales=n_scales),
               wall_seconds=wall, max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30))
     if parts != want:
         raise AssertionError(f"edit: launches by part {parts}, expected {want}")

@@ -21,16 +21,19 @@
 // and the UNet's q/k/v views go in without copies. D is 64 or 128; outputs
 // are written with their own strides. K2 does 6*BH*Sq*Sk*D flops and K3
 // 8*BH*Sq*Sk*D (at the unpadded D) against q, k, v, o, dO, lse, delta and
-// the gradients moved once: the bf16 tensor-core rate (989 TFLOP/s) bounds
-// them at the training paths' self-attentions of 1024 and 4096 tokens, the
-// bytes (3.35 TB/s) at the 77-key cross-attentions and at 256 tokens.
+// the gradients moved once: the bf16 tensor-core rate (989 TFLOP/s), and in
+// fp32 the rate of fp32-accurate products on the tensor cores (3 TF32 passes:
+// 494.7 / 3 = 164.9 TFLOP/s), bound them at the paths' self-attentions of
+// 1024 and 4096 tokens, the bytes (3.35 TB/s) at the 77-key
+// cross-attentions and at 256 tokens.
 //
 // By dtype:
 //
-// The bf16 kernels' bodies (bwd_dq_tc, bwd_dkv_tc and their merges dq_merge,
-// dkv_merge) live in hopper_tc.cuh, where K4b/K4c (flash_attention_kgrid_bwd.cu)
-// run them at other block shapes; the kernels here are thin wrappers that fix
-// this file's shapes (DqCfg, DkvCfg) and names.
+// The kernels' bodies (bwd_dq_tc, bwd_dkv_tc and their merges dq_merge,
+// dkv_merge) live in hopper_tc.cuh, over a block shape and element type,
+// where K4b/K4c (flash_attention_kgrid_bwd.cu) run them in bf16 at other
+// block shapes; the kernels here are thin wrappers that fix this file's
+// shapes (DqCfg, DkvCfg; fp32 DqCfg32, DkvCfg32) and names.
 //
 // K2, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores (mma.sync
 // m16n8k16, bf16 operands, fp32 accumulators); the mirror image of K3's
@@ -102,17 +105,55 @@
 //   77 ones (1-16 splits) 0.15-0.89x SDPA's whole backward (PERF.md,
 //   section 6).
 //
-// Both tensor-core kernels read rows with 16-byte loads (cp.async, K2's O):
-// the wrapper makes one contiguous copy of a bf16 tensor whose rows fail the
-// check, and these entry points return cudaErrorInvalidValue for one that
-// reaches them anyway.
+// K2 and K3, float32: flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel
+// (null-text inversion editing, every precision: float32 config), the same
+// bodies, blocks, rings, split rules and merges with fp32 tiles, every
+// product on the tensor cores in fp32 accuracy. They replace the first SIMT
+// kernels (fp32 math on the CUDA cores, 1-3 % of the bound). Design:
+//   * each product is mma.sync m16n8k8 TF32 issued three times over
+//     operands split into TF32 halves, x = big + small (tf32_split: x rounded
+//     to nearest, then the exact residual rounded again): small*big +
+//     big*small + big*big into a fresh fp32 sum per 8-deep k step, added to
+//     the accumulator on the CUDA cores (mma_tf32x3). One TF32 pass keeps
+//     about 2^-11 of a product and misses the fp32 bound of
+//     1e-4 * max(1, |ref|) (tests/test_torch_tf32x3.py); three keep about
+//     2^-21. The fresh sum per step matters as much: summed straight into
+//     the accumulator, the tensor cores' truncated sums grew with the k loop
+//     and missed the bound with one key and large logits
+//     (tests/test_torch_cuda.py::test_fp32_k2_k3_on_ragged_lengths);
+//   * tiles are fp32 rows in 16-byte chunks of 4 floats, XOR-swizzled by
+//     (row & 7) as the bf16 ones, through the same 2-stage cp.async ring.
+//     The non-transposed ldmatrix moves 32-bit words as b16 pairs, so it
+//     gives the TF32 A fragment and the B fragments of S = Q K^T and dP =
+//     dO V^T as it gives bf16's (keys_by_q_tf32). ldmatrix has no 32-bit
+//     transpose: the B operand of dQ += dS K (K3: dV += P^T dO, dK += dS^T
+//     Q) is read one float per lane, on 32 distinct banks under the
+//     swizzle, and that product takes its k steps in a permuted order (k = t
+//     is key 2t, k = t + 4 key 2t + 1) in which the accumulator layout of dS
+//     is the A fragment, with no shuffle (keys_by_d_tf32);
+//   * streamed tiles of 64 rows at D 64 and 16 at D 128: shared memory K2
+//     96 KB and K3 97 KB at D 64, 96 and 96.3 KB at D 128, two blocks an SM.
+//   ptxas: K2 187 registers at D 64, 168 at D 128, no spills; K3 255 at both,
+//   8 and 104 bytes spilled.
+//   What bounds them: 6 and 8 * BH*Sq*Sk*D flops at the 3xTF32 rate at the
+//   self-attentions; but the SASS holds about 14 other instructions for
+//   each HMMA (3696 and 240 in K2 at D 64: the B operands' splits, the
+//   per-step sums, addresses, exp), each warp splitting the streamed tile
+//   again, so the kernels are issue-bound well under that rate.
+//   Measured (bench_attention.py --sections fp32, device time, NVIDIA H100
+//   80GB HBM3, 700.00 W), SD1.5's null-text inner step, rows 1, 8 heads:
+//   4096^2 (d 40 run at 64) K2 1.34 ms and K3 1.58-1.59 ms, 15 and 16 % of
+//   the bound at d 40 (the SIMT kernels: 3.59 and 4.36 ms), the pair 1.16x
+//   SDPA's fp32 backward (efficient backend); 1024^2 (d 80 run at 128)
+//   0.255 and 0.32 ms (0.65, 0.66), 1.95x; 4096x77 (16 query splits in K3)
+//   0.048 and 0.057 ms (0.107, 1.53), 0.11x; 1024x77 0.031 and 0.112 ms
+//   (0.082, 0.644), 0.52x. One inner step's K2+K3: 53.6 -> 16 ms of device
+//   time (PERF.md, section 6).
 //
-// float32 keeps the first SIMT kernels of K2 and K3, unchanged: fp32 math on
-// the CUDA cores (67 TFLOP/s peak), one block of 128 threads per
-// (batch*head, 64-row tile), thread t owning row t/2 and the even or odd
-// rows of each streamed tile, tiles staged as fp32 with rows padded by 4
-// floats, P and dS through shared memory. fp32 stays there because TF32
-// tensor cores would break the fp32 bound of 1e-4 against the plain version.
+// Every kernel here reads rows with 16-byte loads (cp.async, K2's O): the
+// wrapper makes one contiguous copy of a tensor whose rows fail the check,
+// and these entry points return cudaErrorInvalidValue for one that reaches
+// them anyway.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,301 +163,33 @@
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per tile
-constexpr int BK = 64;         // keys per tile
-constexpr int NTHREADS = 128;  // 2 threads per owned row
-constexpr int NJ = 32;         // streamed rows per thread per tile (64 / 2)
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
 using hopper::Strides;
-using hopper::unpack;
-
-template <int D>
-struct Smem {
-  static constexpr int RS = D + 4;   // row stride of the q / dO / k / v tiles
-  static constexpr int PS = 64 + 2;  // row stride of the P and dS tiles
-  // K2: sQ, sdO [BQ][RS]; sK, sV [BK][RS]; sS [BQ][PS]
-  static constexpr size_t dq_bytes = ((size_t)(2 * BQ + 2 * BK) * RS + (size_t)BQ * PS) * sizeof(float);
-  // K3: sK, sV [BK][RS]; sQ, sdO [BQ][RS]; sP, sS [BK][PS]; sL, sD [BQ]
-  static constexpr size_t dkv_bytes =
-      ((size_t)(2 * BK + 2 * BQ) * RS + 2 * (size_t)BK * PS + 2 * (size_t)BQ) * sizeof(float);
-};
-
-// Stage rows [r0, r0 + 64) of a BSHD slice (base already offset to its batch
-// and head) as fp32; rows at or past n are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, long long row_stride, int r0,
-                                           int n) {
-  constexpr int RS = Smem<D>::RS;
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
-    const int rr = idx / D;
-    const int d = idx - rr * D;
-    const int row = r0 + rr;
-    dst[rr * RS + d] = row < n ? to_f32<T>(src[(long long)row * row_stride + d]) : 0.f;
-  }
-}
-
-// acc[j] += dot(a_row, B[2j + half]) over D, a_row and B rows in shared memory
-template <int D>
-__device__ __forceinline__ void row_dots(float (&acc)[NJ], const float* a_row, const float* B, int half) {
-  constexpr int RS = Smem<D>::RS;
-#pragma unroll 4
-  for (int d4 = 0; d4 < D; d4 += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(&a_row[d4]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(&B[(2 * j + half) * RS + d4]);
-      acc[j] = fmaf(a.x, bv.x, acc[j]);
-      acc[j] = fmaf(a.y, bv.y, acc[j]);
-      acc[j] = fmaf(a.z, bv.z, acc[j]);
-      acc[j] = fmaf(a.w, bv.w, acc[j]);
-    }
-  }
-}
-
-// K2: dQ for one (batch*head, 64-row q tile); also writes delta for its rows.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ o,
-    const T* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq, int H,
-    int Sq, int Sk, Strides st, float scale) {
-  using S = Smem<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sQ = smem;               // [BQ][RS]
-  float* sdO = sQ + BQ * S::RS;   // [BQ][RS]
-  float* sK = sdO + BQ * S::RS;   // [BK][RS]
-  float* sV = sK + BK * S::RS;    // [BK][RS]
-  float* sS = sV + BK * S::RS;    // [BQ][PS]: P, then dS
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;    // q row within the tile
-  const int half = tid & 1;  // even / odd keys; interleaved output column groups
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + r;
-  const bool row_ok = qi < Sq;
-
-  const T* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const T* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const T* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const T* ob = o + b * st.t[3][0] + h * st.t[3][2];
-  const T* gb = dout + b * st.t[4][0] + h * st.t[4][2];
-
-  stage_rows<T, D>(sQ, qb, st.t[0][1], q0, Sq);
-  stage_rows<T, D>(sdO, gb, st.t[4][1], q0, Sq);
-  __syncthreads();
-
-  // delta = rowsum(dO o O): the row's two threads split the head dim
-  float delta_r = 0.f;
-  if (row_ok) {
-    const T* orow = ob + (long long)qi * st.t[3][1];
-    for (int d = half; d < D; d += 2) delta_r = fmaf(sdO[r * S::RS + d], to_f32<T>(orow[d]), delta_r);
-  }
-  delta_r += __shfl_xor_sync(0xffffffffu, delta_r, 1);
-  const float lse_r = row_ok ? lse[(long long)bh * Sq + qi] : 0.f;
-  if (row_ok && half == 0) delta[(long long)bh * Sq + qi] = delta_r;
-
-  constexpr int NG = D / 8;  // float4 output groups per thread
-  float acc[NG * 4];
-#pragma unroll
-  for (int e = 0; e < NG * 4; ++e) acc[e] = 0.f;
-
-  const int num_k = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < num_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's reads of sK / sV / sS are done
-    stage_rows<T, D>(sK, kb, st.t[1][1], k0, Sk);
-    stage_rows<T, D>(sV, vb, st.t[2][1], k0, Sk);
-    __syncthreads();
-
-    float s[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-    row_dots<D>(s, &sQ[r * S::RS], sK, half);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = 2 * j + half;
-      const bool ok = row_ok && k0 + c < Sk;  // masked keys: P is an exact 0
-      sS[r * S::PS + c] = ok ? expf(scale * s[j] - lse_r) : 0.f;
-      s[j] = 0.f;
-    }
-    row_dots<D>(s, &sdO[r * S::RS], sV, half);  // dP = dO . v
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = 2 * j + half;
-      sS[r * S::PS + c] = sS[r * S::PS + c] * (s[j] - delta_r);
-    }
-    __syncthreads();  // the row partner's dS columns are written
-
-    const int ncols = min(BK, Sk - k0);
-    for (int c = 0; c < ncols; ++c) {
-      const float ds = sS[r * S::PS + c];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 kv = *reinterpret_cast<const float4*>(&sK[c * S::RS + (2 * g + half) * 4]);
-        acc[4 * g + 0] = fmaf(ds, kv.x, acc[4 * g + 0]);
-        acc[4 * g + 1] = fmaf(ds, kv.y, acc[4 * g + 1]);
-        acc[4 * g + 2] = fmaf(ds, kv.z, acc[4 * g + 2]);
-        acc[4 * g + 3] = fmaf(ds, kv.w, acc[4 * g + 3]);
-      }
-    }
-  }
-
-  if (row_ok) {
-    T* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) row[(2 * g + half) * 4 + e] = from_f32<T>(scale * acc[4 * g + e]);
-    }
-  }
-}
-
-// K3: dK and dV for one (batch*head, 64-row key tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-    int Sq, int Sk, Strides st, float scale) {
-  using S = Smem<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sK = smem;               // [BK][RS]
-  float* sV = sK + BK * S::RS;    // [BK][RS]
-  float* sQ = sV + BK * S::RS;    // [BQ][RS]
-  float* sdO = sQ + BQ * S::RS;   // [BQ][RS]
-  float* sP = sdO + BQ * S::RS;   // [BK][PS]: P^T
-  float* sS = sP + BK * S::PS;    // [BK][PS]: dS^T
-  float* sL = sS + BK * S::PS;    // [BQ] lse
-  float* sD = sL + BQ;            // [BQ] delta
-
-  const int tid = threadIdx.x;
-  const int c = tid >> 1;    // key row within the tile
-  const int half = tid & 1;  // even / odd q rows; interleaved output column groups
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.x * BK;
-
-  const T* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const T* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const T* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const T* gb = dout + b * st.t[3][0] + h * st.t[3][2];
-  const float* lse_b = lse + (long long)bh * Sq;
-  const float* delta_b = delta + (long long)bh * Sq;
-
-  stage_rows<T, D>(sK, kb, st.t[1][1], k0, Sk);
-  stage_rows<T, D>(sV, vb, st.t[2][1], k0, Sk);
-
-  constexpr int NG = D / 8;
-  float acc_k[NG * 4];
-  float acc_v[NG * 4];
-#pragma unroll
-  for (int e = 0; e < NG * 4; ++e) {
-    acc_k[e] = 0.f;
-    acc_v[e] = 0.f;
-  }
-
-  const int num_q = (Sq + BQ - 1) / BQ;
-  for (int qt = 0; qt < num_q; ++qt) {
-    const int i0 = qt * BQ;
-    __syncthreads();  // the previous tile's reads are done (and sK / sV are staged)
-    stage_rows<T, D>(sQ, qb, st.t[0][1], i0, Sq);
-    stage_rows<T, D>(sdO, gb, st.t[3][1], i0, Sq);
-    for (int i = tid; i < BQ; i += NTHREADS) {
-      const bool ok = i0 + i < Sq;
-      sL[i] = ok ? lse_b[i0 + i] : 0.f;
-      sD[i] = ok ? delta_b[i0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-    row_dots<D>(s, &sK[c * S::RS], sQ, half);  // q_i . k_c
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int i = 2 * j + half;
-      // padded query rows would contaminate dK / dV: their P is 0
-      sP[c * S::PS + i] = i0 + i < Sq ? expf(scale * s[j] - sL[i]) : 0.f;
-      s[j] = 0.f;
-    }
-    row_dots<D>(s, &sV[c * S::RS], sdO, half);  // dP = dO_i . v_c
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int i = 2 * j + half;
-      sS[c * S::PS + i] = sP[c * S::PS + i] * (s[j] - sD[i]);
-    }
-    __syncthreads();  // the row partner's P / dS columns are written
-
-    const int nrows = min(BQ, Sq - i0);
-    for (int i = 0; i < nrows; ++i) {
-      const float p = sP[c * S::PS + i];
-      const float ds = sS[c * S::PS + i];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int col = (2 * g + half) * 4;
-        const float4 gv = *reinterpret_cast<const float4*>(&sdO[i * S::RS + col]);
-        const float4 qv = *reinterpret_cast<const float4*>(&sQ[i * S::RS + col]);
-        acc_v[4 * g + 0] = fmaf(p, gv.x, acc_v[4 * g + 0]);
-        acc_v[4 * g + 1] = fmaf(p, gv.y, acc_v[4 * g + 1]);
-        acc_v[4 * g + 2] = fmaf(p, gv.z, acc_v[4 * g + 2]);
-        acc_v[4 * g + 3] = fmaf(p, gv.w, acc_v[4 * g + 3]);
-        acc_k[4 * g + 0] = fmaf(ds, qv.x, acc_k[4 * g + 0]);
-        acc_k[4 * g + 1] = fmaf(ds, qv.y, acc_k[4 * g + 1]);
-        acc_k[4 * g + 2] = fmaf(ds, qv.z, acc_k[4 * g + 2]);
-        acc_k[4 * g + 3] = fmaf(ds, qv.w, acc_k[4 * g + 3]);
-      }
-    }
-  }
-
-  const int key = k0 + c;
-  if (key < Sk) {
-    T* krow = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1];
-    T* vrow = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        krow[(2 * g + half) * 4 + e] = from_f32<T>(scale * acc_k[4 * g + e]);
-        vrow[(2 * g + half) * 4 + e] = from_f32<T>(acc_v[4 * g + e]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
-// K2 and K3 for bfloat16: the tensor-core loops of hopper_tc.cuh (bwd_dq_tc,
-// bwd_dkv_tc) at this file's block shapes, under kernel names of their own
+// K2 and K3: the tensor-core loops of hopper_tc.cuh (bwd_dq_tc, bwd_dkv_tc)
+// at this file's block shapes, under kernel names of their own: bf16
+// (m16n8k16) and fp32 (3xTF32 m16n8k8)
 // ---------------------------------------------------------------------------
 namespace tc {
 
 using namespace hopper;
 
-// K2: four warps per 64-row q tile, 64-key tiles, the key range split in
+// bf16 K2: four warps per 64-row q tile, 64-key tiles, the key range split in
 // 64-key units
 template <int D>
 using DqCfg = BwdCfg<D, 4, 1, 64, 64>;
-// K3: four warps per 64-key tile; q tiles of 64 rows at D 64 and 32 at D 128
-// (which keeps dK, dV in registers); the query range split in 64-row units
+// bf16 K3: four warps per 64-key tile; q tiles of 64 rows at D 64 and 32 at
+// D 128 (which keeps dK, dV in registers); the query range split in 64-row
+// units
 template <int D>
 using DkvCfg = BwdCfg<D, 4, 1, D == 64 ? 64 : 32, 64>;
+// fp32 K2 and K3: the same blocks and split units; streamed tiles of 64 rows
+// at D 64 and 16 at D 128, where fp32 rows of 512 bytes would otherwise keep
+// a block's shared memory above half the SM's
+template <int D>
+using DqCfg32 = BwdCfg<D, 4, 1, D == 64 ? 64 : 16, 64, float>;
+template <int D>
+using DkvCfg32 = BwdCfg<D, 4, 1, D == 64 ? 64 : 16, 64, float>;
 
 template <int D>
 __global__ void __launch_bounds__(DqCfg<D>::THREADS) flash_bwd_dq_tc_kernel(
@@ -428,8 +201,17 @@ __global__ void __launch_bounds__(DqCfg<D>::THREADS) flash_bwd_dq_tc_kernel(
 }
 
 template <int D>
-__global__ void flash_dq_merge_kernel(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH, int H,
-                                      int Sq, int splits, Strides st, float scale) {
+__global__ void __launch_bounds__(DqCfg32<D>::THREADS) flash_bwd_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ part_dq, int H, int Sq, int Sk, int splits,
+    Strides st, float scale) {
+  bwd_dq_tc<DqCfg32<D>>(q, k, v, o, dout, lse, delta, dq, part_dq, H, Sq, Sk, splits, st, scale);
+}
+
+template <int D, typename T>
+__global__ void flash_dq_merge_kernel(const float* __restrict__ part_dq, T* __restrict__ dq, int BH, int H, int Sq,
+                                      int splits, Strides st, float scale) {
   dq_merge<D>(part_dq, dq, BH, H, Sq, splits, st, scale);
 }
 
@@ -443,65 +225,52 @@ __global__ void __launch_bounds__(DkvCfg<D>::THREADS) flash_bwd_dkv_tc_kernel(
 }
 
 template <int D>
+__global__ void __launch_bounds__(DkvCfg32<D>::THREADS) flash_bwd_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part_dk, float* __restrict__ part_dv, int H,
+    int Sq, int Sk, int splits, Strides st, float scale) {
+  bwd_dkv_tc<DkvCfg32<D>>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+}
+
+template <int D, typename T>
 __global__ void flash_dkv_merge_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
-                                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH, int H,
-                                       int Sk, int splits, Strides st) {
+                                       T* __restrict__ dk, T* __restrict__ dv, int BH, int H, int Sk, int splits,
+                                       Strides st) {
   dkv_merge<D>(part_dk, part_dv, dk, dv, BH, H, Sk, splits, st);
 }
 
-template <int D>
+// K2 for element type T (fp32 or bf16) and head dim D
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
               float* delta, void* dq, float* part_dq, int B, int H, int Sq, int Sk, int splits, const long long* s,
               float scale, cudaStream_t stream) {
   static uint64_t smem_set = 0;
-  return launch_bwd_dq<DqCfg<D>>(flash_bwd_dq_tc_kernel<D>, flash_dq_merge_kernel<D>, smem_set, q, k, v, o, dout, lse,
-                                 delta, dq, part_dq, B, H, Sq, Sk, splits, s, scale, stream);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_bwd_dq<DqCfg32<D>>(flash_bwd_dq_tf32_kernel<D>, flash_dq_merge_kernel<D, float>, smem_set, q, k, v,
+                                     o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, s, scale, stream);
+  else
+    return launch_bwd_dq<DqCfg<D>>(flash_bwd_dq_tc_kernel<D>, flash_dq_merge_kernel<D, __nv_bfloat16>, smem_set, q,
+                                   k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, s, scale, stream);
 }
 
-template <int D>
+// K3 for element type T (fp32 or bf16) and head dim D
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, float* part_dk, float* part_dv, int B, int H, int Sq, int Sk, int splits,
                const long long* s, float scale, cudaStream_t stream) {
   static uint64_t smem_set = 0;
-  return launch_bwd_dkv<DkvCfg<D>>(flash_bwd_dkv_tc_kernel<D>, flash_dkv_merge_kernel<D>, smem_set, q, k, v, dout,
-                                   lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, s, scale, stream);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_bwd_dkv<DkvCfg32<D>>(flash_bwd_dkv_tf32_kernel<D>, flash_dkv_merge_kernel<D, float>, smem_set, q, k,
+                                       v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, s, scale,
+                                       stream);
+  else
+    return launch_bwd_dkv<DkvCfg<D>>(flash_bwd_dkv_tc_kernel<D>, flash_dkv_merge_kernel<D, __nv_bfloat16>, smem_set,
+                                     q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, s,
+                                     scale, stream);
 }
 
 }  // namespace tc
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-              float* delta, void* dq, int B, int H, int Sq, int Sk, const long long* strides, float scale,
-              cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<float, D>;
-  const int smem = (int)Smem<D>::dq_bytes;
-  static uint64_t smem_set = 0;
-  cudaError_t err = hopper::allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                           static_cast<const float*>(v), static_cast<const float*>(o),
-                                           static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), H,
-                                           Sq, Sk, unpack(strides), scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-               void* dk, void* dv, int B, int H, int Sq, int Sk, const long long* strides, float scale,
-               cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<float, D>;
-  const int smem = (int)Smem<D>::dkv_bytes;
-  static uint64_t smem_set = 0;
-  cudaError_t err = hopper::allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + BK - 1) / BK, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                           static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-                                           static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
-                                           unpack(strides), scale);
-  return (int)cudaGetLastError();
-}
 
 bool shape_ok(int B, int H, int Sq, int Sk) { return B > 0 && H > 0 && Sq > 0 && Sk > 0 && B * H <= 65535; }
 
@@ -512,47 +281,52 @@ bool shape_ok(int B, int H, int Sq, int Sk) { return B > 0 && H > 0 && Sq > 0 &&
 // cudaErrorInvalidValue for a head dim / dtype / shape it does not take.
 //
 // K2. strides: 18 element strides, (batch, seq, head) for q, k, v, o, dO, dQ
-// in turn. lse [B*H, Sq] fp32 in; delta [B*H, Sq] fp32 out. bfloat16 runs
+// in turn. lse [B*H, Sq] fp32 in; delta [B*H, Sq] fp32 out. Both dtypes run
 // the tensor-core kernel over `splits` ranges of the key axis (fp32 partials
-// part_dq [splits, B*H, Sq, D], then the merge; unused when splits is 1);
-// float32 runs the SIMT kernel, which does not split.
+// part_dq [splits, B*H, Sq, D], then the merge; unused when splits is 1).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                       const float* lse, float* delta, void* dq, float* part_dq, int dtype, int B,
                                       int H, int Sq, int Sk, int D, int splits, const long long* strides, float scale,
                                       void* stream) {
   if (!shape_ok(B, H, Sq, Sk) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && splits == 1 && D == 64)
-    return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 0 && splits == 1 && D == 128)
-    return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 0 && D == 64)
+    return tc::launch_dq<float, 64>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale,
+                                    s);
+  if (dtype == 0 && D == 128)
+    return tc::launch_dq<float, 128>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale,
+                                     s);
   if (dtype == 1 && D == 64)
-    return tc::launch_dq<64>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale, s);
+    return tc::launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides,
+                                            scale, s);
   if (dtype == 1 && D == 128)
-    return tc::launch_dq<128>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides, scale, s);
+    return tc::launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, delta, dq, part_dq, B, H, Sq, Sk, splits, strides,
+                                             scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K3. strides: 18 element strides, (batch, seq, head) for q, k, v, dO, dK, dV
-// in turn. lse and delta [B*H, Sq] fp32 in (delta as K2 wrote it). bfloat16
-// runs the tensor-core kernel over `splits` ranges of the query axis (fp32
-// partials part_dk / part_dv [splits, B*H, Sk, D], then the merge; unused
-// when splits is 1); float32 runs the SIMT kernel, which does not split.
+// in turn. lse and delta [B*H, Sq] fp32 in (delta as K2 wrote it). Both
+// dtypes run the tensor-core kernel over `splits` ranges of the query axis
+// (fp32 partials part_dk / part_dv [splits, B*H, Sk, D], then the merge;
+// unused when splits is 1).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                        const float* lse, const float* delta, void* dk, void* dv, float* part_dk,
                                        float* part_dv, int dtype, int B, int H, int Sq, int Sk, int D, int splits,
                                        const long long* strides, float scale, void* stream) {
   if (!shape_ok(B, H, Sq, Sk) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && splits == 1 && D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 0 && splits == 1 && D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 0 && D == 64)
+    return tc::launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits,
+                                     strides, scale, s);
+  if (dtype == 0 && D == 128)
+    return tc::launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits,
+                                      strides, scale, s);
   if (dtype == 1 && D == 64)
-    return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, strides,
-                              scale, s);
+    return tc::launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits,
+                                             strides, scale, s);
   if (dtype == 1 && D == 128)
-    return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk, splits, strides,
-                               scale, s);
+    return tc::launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, part_dk, part_dv, B, H, Sq, Sk,
+                                              splits, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,13 +6,16 @@
 //     cudaGetDriverEntryPoint, so no library links -lcuda);
 //   * wgmma: 128-byte-swizzle shared-memory descriptors and the m64nNk16
 //     products the forward kernels issue;
-//   * mma.sync m16n8k16, ldmatrix and cp.async for the backward kernels, and
-//     the backward kernels themselves: the shared-memory layout of a block
-//     (BwdLayout), the swizzled row loads (load_rows), the two products
-//     (keys_by_q, keys_by_d), the bodies of K2/K4b (bwd_dq_tc) and K3/K4c
-//     (bwd_dkv_tc) over a block shape (BwdCfg), their split merges (dq_merge,
-//     dkv_merge) and launches (launch_bwd_dq, launch_bwd_dkv); each source
-//     wraps a body in a __global__ kernel of its own name and shape;
+//   * mma.sync m16n8k16 (bf16) and m16n8k8 (TF32, issued three times per
+//     fp32 product: tf32_split, mma_tf32x3), ldmatrix and cp.async for the
+//     backward kernels, and the backward kernels themselves: the
+//     shared-memory layout of a block (BwdLayout), the swizzled row loads
+//     (load_rows), the two products in bf16 (keys_by_q, keys_by_d) and in
+//     fp32 (keys_by_q_tf32, keys_by_d_tf32), the bodies of K2/K4b
+//     (bwd_dq_tc) and K3/K4c (bwd_dkv_tc) over a block shape and element
+//     type (BwdCfg), their split merges (dq_merge, dkv_merge) and launches
+//     (launch_bwd_dq, launch_bwd_dkv); each source wraps a body in a
+//     __global__ kernel of its own name and shape;
 //   * allow_smem (the dynamic shared-memory attribute, once per device) and
 //     rows_aligned (what cp.async and TMA need of a tensor's rows).
 // Every function is inline; each source that includes this header is built
@@ -25,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -163,11 +168,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // ---------------------------------------------------------------------------
 
 // byte address of 16-byte chunk `chunk` of row `row` in a tile of D-element
-// bf16 rows whose chunks are XOR-swizzled by (row & 7): ldmatrix's eight rows
-// and cp.async's writes hit distinct banks
-template <int D>
+// rows of T (bf16 unless named) whose chunks are XOR-swizzled by (row & 7):
+// ldmatrix's eight rows and cp.async's writes hit distinct banks
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int chunk) {
-  return tile + row * (D * 2) + ((chunk ^ (row & 7)) << 4);
+  return tile + row * (D * (int)sizeof(T)) + ((chunk ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
@@ -204,6 +209,65 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x: half of the dropped range added to the
+// magnitude's bits, then the 13 dropped bits cleared. Two integer operations,
+// where cvt.rna compiles to about four (it also sorts out infinities and NaN,
+// which no attention gradient here holds) and slowed K2 and K3 measurably.
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = big + small, both TF32: big is x rounded to TF32 and small the exact
+// residual x - big rounded again. big * b_big + big * b_small + small * b_big
+// then misses the product of x and b by the two small terms' product and the
+// second rounding, about 2^-21 of it: fp32-class, where one TF32 pass keeps
+// about 2^-11.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 A operand of m16n8k8 (four elements a thread) split into its TF32
+// halves
+struct SplitA {
+  uint32_t big[4], small[4];
+};
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3) {
+  SplitA s;
+  tf32_split(a0, s.big[0], s.small[0]);
+  tf32_split(a1, s.big[1], s.small[1]);
+  tf32_split(a2, s.big[2], s.small[2]);
+  tf32_split(a3, s.big[3], s.small[3]);
+  return s;
+}
+
+// d += a b in fp32 accuracy on the tensor cores (3xTF32): the two small
+// terms first, then big * big, into a fresh fp32 sum of this 8-deep k step,
+// which is then added to d on the CUDA cores. The tensor cores truncate the
+// sums they write: taken into d itself, three truncations per k step at d's
+// size pile up over a k loop thousands of keys long (dQ, dK, dV) and reach
+// the fp32 bound, where one rounding to nearest per step at d's size and
+// three truncations at the step's size do not.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const SplitA& a, float b0, float b1) {
+  uint32_t b0_big, b0_small, b1_big, b1_small;
+  tf32_split(b0, b0_big, b0_small);
+  tf32_split(b1, b1_big, b1_small);
+  float step[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(step, a.small, b0_big, b1_big);
+  mma_tf32(step, a.big, b0_small, b1_small);
+  mma_tf32(step, a.big, b0_big, b1_big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += step[i];
+}
+
 // ---------------------------------------------------------------------------
 // the mma.sync backward loops (K2/K3 in flash_attention_bwd.cu, K4b/K4c in
 // flash_attention_kgrid_bwd.cu)
@@ -221,14 +285,36 @@ __device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
   return acc;
 }
 
-// Shared memory of a backward block: two resident [ROWS][D] bf16 tiles
-// (K2/K4b: Q and dO; K3/K4c: K and V) and a 2-stage ring of two streamed
-// [TILE][D] bf16 tiles (K2/K4b: K and V; K3/K4c: Q and dO), with SCALARS two
-// fp32 [TILE] vectors per stage (lse and delta). Rows are swizzled by swz<D>;
-// every tile starts on 128 bytes.
-template <int D, int ROWS, int TILE, bool SCALARS>
+// the sum of the products of two 16-byte chunks of T (8 bf16 or 4 fp32), in fp32
+template <typename T>
+__device__ __forceinline__ float dot_chunk(const uint4& a, const uint4& b) {
+  if constexpr (std::is_same<T, float>::value) {
+    float acc = 0.f;
+    acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+    acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+    acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+  } else {
+    return dot8_bf16(a, b);
+  }
+}
+
+// two neighbouring output elements, from fp32
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// Shared memory of a backward block: two resident [ROWS][D] tiles (K2/K4b: Q
+// and dO; K3/K4c: K and V) and a 2-stage ring of two streamed [TILE][D] tiles
+// (K2/K4b: K and V; K3/K4c: Q and dO), of ELEM-byte elements, with SCALARS
+// two fp32 [TILE] vectors per stage (lse and delta). Rows are swizzled by
+// swz; every tile starts on 128 bytes.
+template <int D, int ROWS, int TILE, bool SCALARS, int ELEM = 2>
 struct BwdLayout {
-  static constexpr int ROW = D * 2;
+  static constexpr int ROW = D * ELEM;
   static constexpr int A_OFF = 0;  // the resident tiles
   static constexpr int B_OFF = ROWS * ROW;
   static constexpr int RING_OFF = 2 * ROWS * ROW;
@@ -240,18 +326,18 @@ struct BwdLayout {
   static constexpr int BYTES = RING_OFF + 2 * STAGE;
 };
 
-// rows [r0, r0 + ROWS) of a bf16 BSHD slice into a swizzled tile by a block of
-// THREADS threads, one 16-byte cp.async per chunk; rows at or past n are
-// zero-filled
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, long long row_stride, int r0,
-                                          int n) {
-  constexpr int CH = D / 8;
+// rows [r0, r0 + ROWS) of a BSHD slice of T (bf16 or fp32) into a swizzled
+// tile by a block of THREADS threads, one 16-byte cp.async per chunk; rows at
+// or past n are zero-filled
+template <int D, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src, long long row_stride, int r0, int n) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per chunk
+  constexpr int CH = D / EPC;
   for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
     const int r = i / CH;
     const int c = i - r * CH;
     const bool ok = r0 + r < n;
-    cp_async16(swz<D>(dst, r, c), src + (ok ? (long long)(r0 + r) * row_stride : 0) + c * 8, ok);
+    cp_async16(swz<D, T>(dst, r, c), src + (ok ? (long long)(r0 + r) * row_stride : 0) + c * EPC, ok);
   }
 }
 
@@ -301,6 +387,91 @@ __device__ __forceinline__ void keys_by_d(float (&acc)[N / 8][4], const float (&
   }
 }
 
+// The fp32 counterparts of keys_by_q and keys_by_d, on the tensor cores in
+// fp32 accuracy: every product is mma.sync m16n8k8 TF32 issued three times
+// over the split operands (mma_tf32x3). The tiles hold fp32 rows swizzled by
+// swz<D, float> in 16-byte chunks of 4 floats.
+//
+// keys_by_q_tf32: acc[16 rows x BQ] += A[16 rows x D] B[BQ x D]^T. The
+// non-transposed ldmatrix moves 32-bit words as pairs of b16 halves, so its
+// four 8x8 b16 matrices are four 8-row x 4-float blocks: exactly the TF32 A
+// fragment of m16n8k8 (rows g, g + 8 x columns t, t + 4) and two n-blocks'
+// B fragments, at the addresses keys_by_q gives them, an 8-float k step in
+// place of a 16-bf16 one. Chunk c of acc holds columns 8c + 2t (+1) of rows
+// g (e = 0, 1) and g + 8 (e = 2, 3), as in bf16.
+template <int D, int BQ>
+__device__ __forceinline__ void keys_by_q_tf32(float (&acc)[BQ / 8][4], uint32_t a_tile, uint32_t b_tile, int row0,
+                                               int lane) {
+  // not unrolled: unrolled, the compiler hoists the loads of every k step
+  // and runs out of registers (spills in K2, K3)
+#pragma unroll 1
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, swz<D, float>(a_tile, row0 + (lane & 15), 2 * kk + (lane >> 4)));
+    const SplitA sa = split_a(__uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+                              __uint_as_float(a[3]));
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      uint32_t bq[4];
+      ldsm_x4(bq, swz<D, float>(b_tile, 16 * j + ((lane >> 4) << 3) + (lane & 7), 2 * kk + ((lane >> 3) & 1)));
+      mma_tf32x3(acc[2 * j], sa, __uint_as_float(bq[0]), __uint_as_float(bq[1]));
+      mma_tf32x3(acc[2 * j + 1], sa, __uint_as_float(bq[2]), __uint_as_float(bq[3]));
+    }
+  }
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float r;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(r) : "r"(addr) : "memory");
+  return r;
+}
+
+// keys_by_d_tf32: acc[16 rows x N] += P[16 rows x BQ] X[BQ x (columns
+// 4*chunk0 .. + N)], P from registers in keys_by_q_tf32's accumulator layout.
+// That layout is not the TF32 A fragment (a thread holds columns 2t, 2t + 1,
+// the fragment wants t, t + 4), so each 8-key k step is taken in a permuted
+// order, the same for A and B: k = t is key 2t and k = t + 4 key 2t + 1. A is
+// then (p[kk][0], p[kk][2], p[kk][1], p[kk][3]) with no shuffle, and B's
+// elements X[8kk + 2t (+1)][column g of the n-block] are read one float each
+// (ldmatrix has no 32-bit transpose). The swizzle puts the warp's 32 reads on
+// 32 distinct banks: rows 2t and 2t + 1 XOR the chunk by 2t (+1), and the
+// lanes' columns g span two chunks of 4 words.
+template <int D, int N, int BQ>
+__device__ __forceinline__ void keys_by_d_tf32(float (&acc)[N / 8][4], const float (&p)[BQ / 8][4], uint32_t x_tile,
+                                               int chunk0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BQ / 8; ++kk) {
+    const SplitA sa = split_a(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
+    const int r0 = 8 * kk + 2 * t;
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const int col = 4 * chunk0 + 8 * n + g;
+      const uint32_t word = (col & 3) << 2;
+      mma_tf32x3(acc[n], sa, lds_f32(swz<D, float>(x_tile, r0, col >> 2) + word),
+                 lds_f32(swz<D, float>(x_tile, r0 + 1, col >> 2) + word));
+    }
+  }
+}
+
+// the products of a backward body for its element type T
+template <typename T, int D, int BQ>
+__device__ __forceinline__ void keys_by_q_t(float (&acc)[BQ / 8][4], uint32_t a_tile, uint32_t b_tile, int row0,
+                                            int lane) {
+  if constexpr (std::is_same<T, float>::value)
+    keys_by_q_tf32<D, BQ>(acc, a_tile, b_tile, row0, lane);
+  else
+    keys_by_q<D, BQ>(acc, a_tile, b_tile, row0, lane);
+}
+template <typename T, int D, int N, int BQ>
+__device__ __forceinline__ void keys_by_d_t(float (&acc)[N / 8][4], const float (&p)[BQ / 8][4], uint32_t x_tile,
+                                            int chunk0, int lane) {
+  if constexpr (std::is_same<T, float>::value)
+    keys_by_d_tf32<D, N, BQ>(acc, p, x_tile, chunk0, lane);
+  else
+    keys_by_d<D, N, BQ>(acc, p, x_tile, chunk0, lane);
+}
+
 // (batch, seq, head) element strides of the six tensors a backward kernel
 // touches, in the order of its C entry point
 struct Strides {
@@ -312,17 +483,20 @@ struct Strides {
 // the slab's S and dP over the whole head dim and owning DC = D / CS of the
 // gradient columns. The streamed axis (K2/K4b: keys; K3/K4c: q rows) passes
 // in TILE-row tiles through a 2-stage ring, and splits across blocks (grid z)
-// in runs of whole UNIT rows.
-template <int D_, int SLABS, int CS_, int TILE_, int UNIT_>
+// in runs of whole UNIT rows. T is the tensors' element type: bf16
+// (m16n8k16 products) or fp32 (3xTF32 m16n8k8 products).
+template <int D_, int SLABS, int CS_, int TILE_, int UNIT_, typename T_ = __nv_bfloat16>
 struct BwdCfg {
+  using T = T_;
   static constexpr int D = D_, CS = CS_, TILE = TILE_, UNIT = UNIT_;
   static constexpr int ROWS = 16 * SLABS;
   static constexpr int THREADS = 32 * SLABS * CS;
   static constexpr int DC = D / CS;
-  using DqSmem = BwdLayout<D, ROWS, TILE, false>;  // Q, dO resident; K, V streamed
-  using DkvSmem = BwdLayout<D, ROWS, TILE, true>;  // K, V resident; Q, dO, lse, delta streamed
-  static_assert(DC % 16 == 0, "a warp's columns are whole 16-column ldmatrix blocks");
-  static_assert(UNIT % TILE == 0, "a split is whole tiles");
+  static constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  using DqSmem = BwdLayout<D, ROWS, TILE, false, sizeof(T)>;  // Q, dO resident; K, V streamed
+  using DkvSmem = BwdLayout<D, ROWS, TILE, true, sizeof(T)>;  // K, V resident; Q, dO, lse, delta streamed
+  static_assert(DC % (2 * EPC) == 0, "a warp's columns are whole blocks of the transposed B loads");
+  static_assert(UNIT % TILE == 0 && TILE % 16 == 0, "a split is whole tiles, a tile whole ldmatrix blocks");
 };
 
 // [lo, hi) of split `split` of a length-n axis cut in `splits` runs of whole
@@ -339,18 +513,17 @@ __device__ __forceinline__ int2 split_range(int n, int splits, int split, int un
 // fp32; an exact 0 for keys past the split's end), dP = dO V^T, dS = P o (dP
 // - delta), dQ[:, col0..] += dS K[:, col0..]. delta = rowsum(dO o O) in the
 // prologue (a quad of threads per row, O in 16-byte loads); split 0 writes it.
-// splits == 1 writes dQ (bf16, its own strides); splits > 1 writes unscaled
+// splits == 1 writes dQ (C::T, its own strides); splits > 1 writes unscaled
 // fp32 partials [splits, B*H, Sq, D] for dq_merge. Strides: q, k, v, o, dO, dQ.
-template <class C>
-__device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                                          float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                                          float* __restrict__ part_dq, int H, int Sq, int Sk, int splits, Strides st,
-                                          float scale) {
-  constexpr int D = C::D, TILE = C::TILE;
+template <class C, typename T = typename C::T>
+__device__ __forceinline__ void bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                          const T* __restrict__ o, const T* __restrict__ dout,
+                                          const float* __restrict__ lse, float* __restrict__ delta,
+                                          T* __restrict__ dq, float* __restrict__ part_dq, int H, int Sq, int Sk,
+                                          int splits, Strides st, float scale) {
+  constexpr int D = C::D, TILE = C::TILE, EPC = C::EPC;
   using L = typename C::DqSmem;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int CH = D / EPC;  // 16-byte chunks per row
   extern __shared__ __align__(128) uint8_t bwd_smem[];
   const uint32_t base = smem_u32(bwd_smem);
   const uint32_t sQ = base + L::A_OFF, sG = base + L::B_OFF;
@@ -371,11 +544,11 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
   const int lo = range.x, hi = range.y;
   const int n_tiles = (hi - lo + TILE - 1) / TILE;
 
-  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const __nv_bfloat16* ob = o + b * st.t[3][0] + h * st.t[3][2];
-  const __nv_bfloat16* gb = dout + b * st.t[4][0] + h * st.t[4][2];
+  const T* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const T* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const T* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const T* ob = o + b * st.t[3][0] + h * st.t[3][2];
+  const T* gb = dout + b * st.t[4][0] + h * st.t[4][2];
 
   auto load_kv_tile = [&](int stage, int k0) {
     const uint32_t ring = base + L::RING_OFF + stage * L::STAGE;
@@ -400,11 +573,11 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
     const int qi = q0 + row;
     float acc = 0.f;
     if (qi < Sq) {
-      const __nv_bfloat16* orow = ob + (long long)qi * st.t[3][1];
+      const T* orow = ob + (long long)qi * st.t[3][1];
 #pragma unroll
       for (int c = t * (CH / 4); c < (t + 1) * (CH / 4); ++c)
-        acc += dot8_bf16(*reinterpret_cast<const uint4*>(orow + 8 * c),
-                         *reinterpret_cast<const uint4*>(bwd_smem + swz<D>(L::B_OFF, row, c)));
+        acc += dot_chunk<T>(*reinterpret_cast<const uint4*>(orow + EPC * c),
+                            *reinterpret_cast<const uint4*>(bwd_smem + swz<D, T>(L::B_OFF, row, c)));
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -440,7 +613,7 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
-    keys_by_q<D, TILE>(p, sQ, sK, qrow, lane);
+    keys_by_q_t<T, D, TILE>(p, sQ, sK, qrow, lane);
 #pragma unroll
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
@@ -456,12 +629,12 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
-    keys_by_q<D, TILE>(ds, sG, sV, qrow, lane);
+    keys_by_q_t<T, D, TILE>(ds, sG, sV, qrow, lane);
 #pragma unroll
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - dl[e >> 1]);
-    keys_by_d<D, C::DC, TILE>(acc_dq, ds, sK, col0 / 8, lane);
+    keys_by_d_t<T, D, C::DC, TILE>(acc_dq, ds, sK, col0 / EPC, lane);
     __syncthreads();  // the stage is free for the tile after next
   }
 
@@ -470,11 +643,10 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
     const int qi = q0 + qrow + g + 8 * r;
     if (qi >= Sq) continue;
     if (splits == 1) {
-      __nv_bfloat16* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col0;
+      T* row = dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col0;
 #pragma unroll
       for (int n = 0; n < C::DC / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(scale * acc_dq[n][2 * r], scale * acc_dq[n][2 * r + 1]);
+        store2(row + 8 * n + 2 * t, scale * acc_dq[n][2 * r], scale * acc_dq[n][2 * r + 1]);
     } else {
       float* row = part_dq + (((long long)split * gridDim.y + bh) * Sq + qi) * D + col0;
 #pragma unroll
@@ -489,18 +661,16 @@ __device__ __forceinline__ void bwd_dq_tc(const __nv_bfloat16* __restrict__ q, c
 // Per TILE-row q tile: S^T = K Q^T, P^T = exp(scale S^T - lse) (an exact 0 on
 // padded query rows), dV += P^T dO, dP^T = V dO^T, dS^T = P^T o (dP^T -
 // delta), dK += dS^T Q, each over the warp's DC columns. splits == 1 writes
-// dK, dV (bf16, their own strides); splits > 1 writes fp32 partials [splits,
+// dK, dV (C::T, their own strides); splits > 1 writes fp32 partials [splits,
 // B*H, Sk, D] (dK already scaled; zeros for a split with no q rows) for
 // dkv_merge. Strides: q, k, v, dO, dK, dV.
-template <class C>
-__device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                                           const __nv_bfloat16* __restrict__ v,
-                                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                                           __nv_bfloat16* __restrict__ dv, float* __restrict__ part_dk,
-                                           float* __restrict__ part_dv, int H, int Sq, int Sk, int splits,
-                                           Strides st, float scale) {
-  constexpr int D = C::D, TILE = C::TILE;
+template <class C, typename T = typename C::T>
+__device__ __forceinline__ void bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                           const T* __restrict__ dout, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                                           float* __restrict__ part_dk, float* __restrict__ part_dv, int H, int Sq,
+                                           int Sk, int splits, Strides st, float scale) {
+  constexpr int D = C::D, TILE = C::TILE, EPC = C::EPC;
   using L = typename C::DkvSmem;
   extern __shared__ __align__(128) uint8_t bwd_smem[];
   const uint32_t base = smem_u32(bwd_smem);
@@ -522,10 +692,10 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
   const int lo = range.x, hi = range.y;
   const int n_tiles = (hi - lo + TILE - 1) / TILE;
 
-  const __nv_bfloat16* qb = q + b * st.t[0][0] + h * st.t[0][2];
-  const __nv_bfloat16* kb = k + b * st.t[1][0] + h * st.t[1][2];
-  const __nv_bfloat16* vb = v + b * st.t[2][0] + h * st.t[2][2];
-  const __nv_bfloat16* gb = dout + b * st.t[3][0] + h * st.t[3][2];
+  const T* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const T* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const T* vb = v + b * st.t[2][0] + h * st.t[2][2];
+  const T* gb = dout + b * st.t[3][0] + h * st.t[3][2];
   const float* lse_b = lse + (long long)bh * Sq;
   const float* delta_b = delta + (long long)bh * Sq;
 
@@ -574,7 +744,7 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[c][e] = 0.f;
-    keys_by_q<D, TILE>(p, sK, sQ, krow, lane);
+    keys_by_q_t<T, D, TILE>(p, sK, sQ, krow, lane);
 #pragma unroll
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
@@ -583,7 +753,7 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
         // padded query rows would add to dK and dV: their P is an exact 0
         p[c][e] = i0 + col < Sq ? exp2f(fmaf(p[c][e], scale_log2, -sL[col] * LOG2E)) : 0.f;
       }
-    keys_by_d<D, C::DC, TILE>(acc_dv, p, sG, col0 / 8, lane);  // dV += P^T dO
+    keys_by_d_t<T, D, C::DC, TILE>(acc_dv, p, sG, col0 / EPC, lane);  // dV += P^T dO
 
     // dP^T = V dO^T, then dS^T = P^T o (dP^T - delta)
     float ds[TILE / 8][4];
@@ -591,12 +761,12 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[c][e] = 0.f;
-    keys_by_q<D, TILE>(ds, sV, sG, krow, lane);
+    keys_by_q_t<T, D, TILE>(ds, sV, sG, krow, lane);
 #pragma unroll
     for (int c = 0; c < TILE / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[c][e] = p[c][e] * (ds[c][e] - sD[8 * c + 2 * t + (e & 1)]);
-    keys_by_d<D, C::DC, TILE>(acc_dk, ds, sQ, col0 / 8, lane);  // dK += dS^T Q (scaled at the end)
+    keys_by_d_t<T, D, C::DC, TILE>(acc_dk, ds, sQ, col0 / EPC, lane);  // dK += dS^T Q (scaled at the end)
     __syncthreads();  // the stage is free for the tile after next
   }
 
@@ -605,14 +775,12 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
     const int key = k0 + krow + g + 8 * r;
     if (key >= Sk) continue;
     if (splits == 1) {
-      __nv_bfloat16* krow_p = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col0;
-      __nv_bfloat16* vrow_p = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col0;
+      T* krow_p = dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col0;
+      T* vrow_p = dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col0;
 #pragma unroll
       for (int n = 0; n < C::DC / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(krow_p + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(vrow_p + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+        store2(krow_p + 8 * n + 2 * t, scale * acc_dk[n][2 * r], scale * acc_dk[n][2 * r + 1]);
+        store2(vrow_p + 8 * n + 2 * t, acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
       }
     } else {
       const long long row = ((long long)split * gridDim.y + bh) * Sk + key;
@@ -628,12 +796,12 @@ __device__ __forceinline__ void bwd_dkv_tc(const __nv_bfloat16* __restrict__ q, 
   }
 }
 
-// dQ = scale * the sum of the splits' fp32 partials, in split order (no
-// atomics: two runs give the same bits); one thread per (batch*head, q row,
-// column pair)
-template <int D>
-__device__ __forceinline__ void dq_merge(const float* __restrict__ part_dq, __nv_bfloat16* __restrict__ dq, int BH,
-                                         int H, int Sq, int splits, Strides st, float scale) {
+// dQ (bf16 or fp32) = scale * the sum of the splits' fp32 partials, in split
+// order (no atomics: two runs give the same bits); one thread per
+// (batch*head, q row, column pair)
+template <int D, typename T>
+__device__ __forceinline__ void dq_merge(const float* __restrict__ part_dq, T* __restrict__ dq, int BH, int H, int Sq,
+                                         int splits, Strides st, float scale) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long plane = (long long)BH * Sq * D;
   if (2 * i >= plane) return;
@@ -649,16 +817,15 @@ __device__ __forceinline__ void dq_merge(const float* __restrict__ part_dq, __nv
     sum.x += a.x;
     sum.y += a.y;
   }
-  *reinterpret_cast<__nv_bfloat162*>(dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col) =
-      __floats2bfloat162_rn(scale * sum.x, scale * sum.y);
+  store2(dq + b * st.t[5][0] + h * st.t[5][2] + (long long)qi * st.t[5][1] + col, scale * sum.x, scale * sum.y);
 }
 
-// dK, dV = the sum of the splits' fp32 partials, in split order; one thread
-// per (batch*head, key, column pair)
-template <int D>
+// dK, dV (bf16 or fp32) = the sum of the splits' fp32 partials, in split
+// order; one thread per (batch*head, key, column pair)
+template <int D, typename T>
 __device__ __forceinline__ void dkv_merge(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
-                                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH,
-                                          int H, int Sk, int splits, Strides st) {
+                                          T* __restrict__ dk, T* __restrict__ dv, int BH, int H, int Sk, int splits,
+                                          Strides st) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long plane = (long long)BH * Sk * D;
   if (2 * i >= plane) return;
@@ -677,10 +844,8 @@ __device__ __forceinline__ void dkv_merge(const float* __restrict__ part_dk, con
     sv.x += c.x;
     sv.y += c.y;
   }
-  *reinterpret_cast<__nv_bfloat162*>(dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col) =
-      __floats2bfloat162_rn(sk.x, sk.y);
-  *reinterpret_cast<__nv_bfloat162*>(dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col) =
-      __floats2bfloat162_rn(sv.x, sv.y);
+  store2(dk + b * st.t[4][0] + h * st.t[4][2] + (long long)key * st.t[4][1] + col, sk.x, sk.y);
+  store2(dv + b * st.t[5][0] + h * st.t[5][2] + (long long)key * st.t[5][1] + col, sv.x, sv.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -699,10 +864,12 @@ inline cudaError_t allow_smem(K kernel, int bytes, uint64_t& done) {
   return err;
 }
 
-// every row of a BSHD tensor (element strides sb, ss, sh) starts on 16 bytes
-inline bool rows_aligned(const void* p, long long sb, long long ss, long long sh, int B, int S, int H) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 8 == 0) && (S == 1 || ss % 8 == 0) &&
-         (H == 1 || sh % 8 == 0);
+// every row of a BSHD tensor (element strides sb, ss, sh of `elem`-byte
+// elements) starts on 16 bytes
+inline bool rows_aligned(const void* p, long long sb, long long ss, long long sh, int B, int S, int H,
+                         int elem = 2) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb * elem % 16 == 0) &&
+         (S == 1 || ss * elem % 16 == 0) && (H == 1 || sh * elem % 16 == 0);
 }
 
 inline Strides unpack(const long long* s) {
@@ -713,18 +880,20 @@ inline Strides unpack(const long long* s) {
 }
 
 // The launch of a bwd_dq_tc kernel (K2, K4b) of shape C over a grid of
-// (q tiles, B*H, splits), then of its dq_merge kernel when split. cp.async and
-// the delta prologue move 16-byte chunks: q, k, v, o and dO rows must start on
-// 16 bytes (else cudaErrorInvalidValue). `smem_set` is the kernel's
+// (q tiles, B*H, splits), then of its dq_merge kernel when split; tensors of
+// C::T. cp.async and the delta prologue move 16-byte chunks: q, k, v, o and dO
+// rows must start on 16 bytes (else cudaErrorInvalidValue). `smem_set` is the kernel's
 // allow_smem record. Strides: q, k, v, o, dO, dQ.
 template <class C, typename Kernel, typename Merge>
 inline int launch_bwd_dq(Kernel kernel, Merge merge, uint64_t& smem_set, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse, float* delta, void* dq, float* part_dq,
                          int B, int H, int Sq, int Sk, int splits, const long long* s, float scale,
                          cudaStream_t stream) {
-  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
-      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(o, s[9], s[10], s[11], B, Sq, H) ||
-      !rows_aligned(dout, s[12], s[13], s[14], B, Sq, H))
+  using T = typename C::T;
+  constexpr int E = sizeof(T);
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H, E) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H, E) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H, E) || !rows_aligned(o, s[9], s[10], s[11], B, Sq, H, E) ||
+      !rows_aligned(dout, s[12], s[13], s[14], B, Sq, H, E))
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || (splits > 1 && part_dq == nullptr)) return (int)cudaErrorInvalidValue;
   constexpr int smem = C::DqSmem::BYTES;
@@ -732,15 +901,15 @@ inline int launch_bwd_dq(Kernel kernel, Merge merge, uint64_t& smem_set, const v
   if (err != cudaSuccess) return (int)err;
   const Strides st = unpack(s);
   dim3 grid((Sq + C::ROWS - 1) / C::ROWS, B * H, splits);
-  kernel<<<grid, C::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), part_dq, H, Sq, Sk, splits, st, scale);
+  kernel<<<grid, C::THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                             static_cast<const T*>(v), static_cast<const T*>(o),
+                                             static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), part_dq, H,
+                                             Sq, Sk, splits, st, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long pairs = (long long)B * H * Sq * C::D / 2;
-  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(part_dq, static_cast<__nv_bfloat16*>(dq), B * H, H, Sq,
-                                                              splits, st, scale);
+  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(part_dq, static_cast<T*>(dq), B * H, H, Sq, splits, st,
+                                                              scale);
   return (int)cudaGetLastError();
 }
 
@@ -752,8 +921,10 @@ inline int launch_bwd_dkv(Kernel kernel, Merge merge, uint64_t& smem_set, const 
                           const void* dout, const float* lse, const float* delta, void* dk, void* dv, float* part_dk,
                           float* part_dv, int B, int H, int Sq, int Sk, int splits, const long long* s, float scale,
                           cudaStream_t stream) {
-  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H) ||
-      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H) || !rows_aligned(dout, s[9], s[10], s[11], B, Sq, H))
+  using T = typename C::T;
+  constexpr int E = sizeof(T);
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H, E) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H, E) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H, E) || !rows_aligned(dout, s[9], s[10], s[11], B, Sq, H, E))
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || (splits > 1 && (part_dk == nullptr || part_dv == nullptr))) return (int)cudaErrorInvalidValue;
   constexpr int smem = C::DkvSmem::BYTES;
@@ -761,15 +932,15 @@ inline int launch_bwd_dkv(Kernel kernel, Merge merge, uint64_t& smem_set, const 
   if (err != cudaSuccess) return (int)err;
   const Strides st = unpack(s);
   dim3 grid((Sk + C::ROWS - 1) / C::ROWS, B * H, splits);
-  kernel<<<grid, C::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), part_dk, part_dv, H, Sq, Sk, splits, st, scale);
+  kernel<<<grid, C::THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                             static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+                                             static_cast<T*>(dk), static_cast<T*>(dv), part_dk, part_dv, H, Sq, Sk,
+                                             splits, st, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long pairs = (long long)B * H * Sk * C::D / 2;
-  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-      part_dk, part_dv, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B * H, H, Sk, splits, st);
+  merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(part_dk, part_dv, static_cast<T*>(dk),
+                                                              static_cast<T*>(dv), B * H, H, Sk, splits, st);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,9 @@ What bounds them on the H100 (K1 does 4·B·H·Sq·Sk·D flops, K2 6·, K3 8·,
 at the unpadded head dim, against their tensors moved once): the bf16
 tensor-core rate (989 TFLOP/s) at the paths' self-attentions of 1024 and
 4096 tokens; the bytes (3.35 TB/s) at the 77-key cross-attentions and at
-256 tokens, where a call takes a few microseconds. The designs, by dtype:
+256 tokens, where a call takes a few microseconds. In fp32 the products'
+bound is the rate of fp32-accurate products on the tensor cores, three TF32
+passes each (494.7 / 3 = 164.9 TFLOP/s). The designs, by dtype:
 
 * bfloat16 (the paths' dtype), on the tensor cores:
 
@@ -45,10 +47,26 @@ tensor-core rate (989 TFLOP/s) at the paths' self-attentions of 1024 and
   K4c's rule) across blocks: fp32 partials summed in split order by a
   second kernel, no atomics, so two runs give the same bits. TMA and
   ``cp.async`` need 16-byte-aligned bases and row strides: the wrappers
-  make one contiguous copy of a bf16 tensor that fails the check
+  make one contiguous copy of a tensor that fails the check
   (:func:`_aligned`).
-* float32: the first (SIMT) kernels, fp32 math on the CUDA cores, which
-  keep the fp32 bound of 1e-4; K2 and K3 do not split there.
+* float32 (null-text inversion editing, every ``precision: float32``
+  config):
+
+  - K1: the first (SIMT) kernel, fp32 math on the CUDA cores.
+  - K2 and K3: the bf16 kernels' loops (the same blocks, rings, splits and
+    merges) with fp32 tiles and every product on the tensor cores as
+    ``mma.sync`` m16n8k8 TF32 issued three times over operands split into
+    TF32 halves (x = big + small; big·big + big·small + small·big). One
+    TF32 pass keeps about 2⁻¹¹ of a product and would break the fp32 bound
+    of 1e-4·max(1, |ref|); the three keep about 2⁻²¹, as fp32 does. The
+    bf16 loops' transposing ``ldmatrix`` moves 16-bit halves, so the fp32
+    loops read those operands one float each from the swizzled tiles, and
+    take the k steps of P·X in a permuted order that makes the accumulator
+    the A fragment (``csrc/hopper_tc.cuh``, ``keys_by_d_tf32``). At
+    SD1.5's 4096² (8 heads of 40 run at 64) K2 1.34 ms and K3 1.59 ms of
+    device time, 15–16 % of the 3×TF32 bound, 2.7× under the first (SIMT)
+    kernels and 1.16× SDPA's fp32 backward (NVIDIA H100 80GB HBM3,
+    700.00 W; ``PERF.md``).
 
 Each CUDA source of the port — these two, K4a's
 (``csrc/flash_attention_kgrid.cu``) and K4b/K4c's
@@ -172,19 +190,16 @@ def _check_splits(splits: int) -> int:
 
 def pick_k2_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """K2's split count of the key range for ``bh`` = batch·heads (blocks:
-    one per 64-row q tile and batch·head; tiles: the 64-key units). The fp32
-    kernel does not split: 1."""
-    if dtype == torch.float32:
-        return 1
+    one per 64-row q tile and batch·head; tiles: the 64-key units). The bf16
+    and fp32 kernels have the same blocks and units, so ``dtype`` does not
+    change the count."""
     return _fill_splits(_cdiv(sq, K2_TILE) * bh, _cdiv(sk, K2_TILE))
 
 
 def pick_k3_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """K3's split count of the query range for ``bh`` = batch·heads (blocks:
-    one per 64-key tile and batch·head; tiles: the 64-row q units). The fp32
-    kernel does not split: 1."""
-    if dtype == torch.float32:
-        return 1
+    one per 64-key tile and batch·head; tiles: the 64-row q units), the same
+    for both dtypes as :func:`pick_k2_splits`."""
     return _fill_splits(_cdiv(sk, K3_TILE) * bh, _cdiv(sq, K3_TILE))
 
 
@@ -400,7 +415,8 @@ def _check_kernel_inputs(*tensors: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` when its base and its batch/seq/head strides (of dims longer
     than 1) sit on 16 bytes, as TMA (K1, K4a) and 16-byte loads (K2, K3)
-    need for bf16 rows; else one contiguous copy, which does."""
+    need for bf16 rows (K2 and K3 for fp32 rows too); else one contiguous
+    copy, which does."""
     b, s, h, _ = t.shape  # one read of the shape, the strides and the base: this runs on every call
     sb, ss, sh, _ = t.stride()
     item = t.element_size()
@@ -468,11 +484,10 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, scale, *, splits: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])``. bf16 runs the
-    tensor-core kernel over ``splits`` ranges of the key axis (plus the sum
-    of their partials when there are more than one); ``None`` lets
-    :func:`pick_k2_splits` choose, a number forces it (tests). fp32 runs the
-    SIMT kernel, which does not split (a forced count above 1 raises). CPU
+    """K2: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])``. bf16 and fp32
+    run their tensor-core kernels over ``splits`` ranges of the key axis
+    (plus the sum of their partials when there are more than one); ``None``
+    lets :func:`pick_k2_splits` choose, a number forces it (tests). CPU
     tensors go through :func:`bwd_dq_reference`."""
     if q.device.type == "cpu":
         return bwd_dq_reference(q, k, v, o, lse, do, scale, splits)
@@ -480,10 +495,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, scale, *, splits: Optional[int] 
     b, sq, h, d = q.shape
     sk = k.shape[1]
     splits = _check_splits(pick_k2_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
-    if q.dtype == torch.float32 and splits != 1:
-        raise ValueError(f"the fp32 K2 kernel does not split the key range (splits={splits})")
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte loads
-        q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)
+    q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)  # 16-byte loads
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     part_dq = None
@@ -508,22 +520,18 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: ``(dK, dV)`` in k's / v's dtype, from K2's δ. bf16 runs the
-    tensor-core kernel over ``splits`` ranges of the query axis (plus the
-    sum of their partials when there are more than one); ``None`` lets
-    :func:`pick_k3_splits` choose, a number forces it (tests). fp32 runs the
-    SIMT kernel, which does not split (a forced count above 1 raises). CPU
-    tensors go through :func:`bwd_dkv_reference`."""
+    """K3: ``(dK, dV)`` in k's / v's dtype, from K2's δ. bf16 and fp32 run
+    their tensor-core kernels over ``splits`` ranges of the query axis (plus
+    the sum of their partials when there are more than one); ``None`` lets
+    :func:`pick_k3_splits` choose, a number forces it (tests). CPU tensors
+    go through :func:`bwd_dkv_reference`."""
     if q.device.type == "cpu":
         return bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits)
     _check_kernel_inputs(q, k, v, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     splits = _check_splits(pick_k3_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
-    if q.dtype == torch.float32 and splits != 1:
-        raise ValueError(f"the fp32 K3 kernel does not split the query range (splits={splits})")
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's cp.async loads
-        q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)  # the cp.async loads
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
     part_dk = part_dv = None

@@ -7,7 +7,9 @@ tiny MMDiT and SD3 sampler against the CPU; Stable Cascade's prior
 attentions (K1 at 144×229 and 36×121, rows 2 and 4; K2/K3 at rows 2; 32
 heads of 64) and the tiny prior and an ESD step against the CPU; an fp32
 null-text optimisation step and the attention controllers' launches; the
-baselines' token growth and K/V patch against the CPU. Marked
+baselines' token growth and K/V patch against the CPU; fp32 K2/K3 on the
+tensor cores (3xTF32) at every shape of a null-text inner step, ragged,
+strided and unaligned, with forced splits and bit-equal repeats. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -446,7 +448,7 @@ def test_tensor_core_k3_forced_splits_match_plain_version(gen, shape):
     """K3 bf16 with the query range split 1, 2 and 64 ways (empty splits
     included) against the plain version over the same splits; a repeated call
     gives the same bits (partials summed in split order, no atomics); the
-    fp32 kernel refuses a split."""
+    fp32 kernel splits as well (its own cases: test_fp32_k2_k3_forced_splits_...)."""
     q, k, v, o, lse, do = _bwd_inputs(gen, shape, torch.bfloat16)
     scale = shape[-1] ** -0.5
     _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
@@ -461,8 +463,10 @@ def test_tensor_core_k3_forced_splits_match_plain_version(gen, shape):
             assert torch.equal(g, a)
             assert (g.float() - w).abs().max().item() <= _grad_tol(w, torch.bfloat16), splits
     f = [x.float() for x in (q, k, v, do)]
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dkv(f[0], f[1], f[2], lse, delta, f[3], scale, splits=2)
+    got = fa.flash_attention_bwd_dkv(f[0], f[1], f[2], lse, delta, f[3], scale, splits=2)
+    want = fa.bwd_dkv_reference(f[0], f[1], f[2], lse, delta, f[3], scale, splits=2)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= _grad_tol(w, torch.float32)
 
 
 def test_tensor_core_k3_is_deterministic_at_the_split_shapes(gen):
@@ -555,7 +559,7 @@ def test_tensor_core_k2_forced_splits_match_plain_version(gen, shape):
     included) against the plain version over the same splits; a repeated
     call gives the same bits (partials summed in split order, no atomics);
     δ is the same bits whatever the split (split 0 writes it); the fp32
-    kernel refuses a split."""
+    kernel splits as well."""
     q, k, v, o, lse, do = _bwd_inputs(gen, shape, torch.bfloat16)
     scale = shape[-1] ** -0.5
     deltas = []
@@ -569,8 +573,9 @@ def test_tensor_core_k2_forced_splits_match_plain_version(gen, shape):
         deltas.append(delta)
     assert all(torch.equal(deltas[0], x) for x in deltas[1:])
     f = [x.float() for x in (q, k, v, o, do)]
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dq(*f[:4], lse, f[4], scale, splits=2)
+    got, _ = fa.flash_attention_bwd_dq(*f[:4], lse, f[4], scale, splits=2)
+    want, _ = fa.bwd_dq_reference(*f[:4], lse, f[4], scale, splits=2)
+    assert (got - want).abs().max().item() <= _grad_tol(want, torch.float32)
 
 
 def test_tensor_core_k2_takes_strided_do_head_slices_and_unaligned_views(gen):
@@ -593,15 +598,16 @@ def test_tensor_core_k2_takes_strided_do_head_slices_and_unaligned_views(gen):
 
 
 def test_k2_and_k4a_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen):
-    """The kernels that run, by name: bf16 K2 is flash_bwd_dq_tc_kernel (and
-    its merge when split), fp32 K2 the SIMT flash_bwd_dq_kernel; bf16 K4a is
-    kgrid_fwd_tc_kernel, fp32 K4a the SIMT kgrid_fwd_kernel."""
+    """The kernels that run, by name: bf16 K2 is flash_bwd_dq_tc_kernel and
+    fp32 K2 the 3xTF32 flash_bwd_dq_tf32_kernel (each with its merge when
+    split); bf16 K4a is kgrid_fwd_tc_kernel, fp32 K4a the SIMT
+    kgrid_fwd_kernel."""
     for dtype, want_k2, want_k4a in ((torch.bfloat16, "flash_bwd_dq_tc_kernel", "kgrid_fwd_tc_kernel"),
-                                     (torch.float32, "flash_bwd_dq_kernel", "kgrid_fwd_kernel")):
+                                     (torch.float32, "flash_bwd_dq_tf32_kernel", "kgrid_fwd_kernel")):
         q, k, v, o, lse, do = _bwd_inputs(gen, (1, 1024, 1024, 10, 64), dtype)
         names = _kernel_names(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 0.125))
         assert any(want_k2 in n for n in names), names
-        assert dtype == torch.float32 or any("flash_dq_merge_kernel" in n for n in names), names  # 2 splits
+        assert any("flash_dq_merge_kernel" in n for n in names), names  # 2 splits
         if dtype == torch.float32:
             assert not any("_tc_" in n for n in names), names
         x = _rand(gen, (1, 1024, 1, 512), dtype)
@@ -609,6 +615,121 @@ def test_k2_and_k4a_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(
         assert any(want_k4a in n for n in names), names
         if dtype == torch.float32:
             assert not any("_tc_" in n for n in names), names
+
+
+# --- fp32 K2 and K3 on the tensor cores (3xTF32 mma.sync m16n8k8)
+
+# null-text inversion editing (SD1.5 at 512px, fp32, rows 1, 8 heads): every
+# K2/K3 shape of an inner step, (Sq, Sk, unpadded head dim)
+EDIT_K23_SHAPES = [(4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80), (1024, 77, 80)]
+
+
+def _padded_fp32_inputs(gen, b, sq, sk, h, d):
+    """fp32 inputs zero-padded in the head dim to 64 or 128, as
+    ops/attention.py pads them, with K1's O and lse."""
+    pad = -d % 64
+    q, do = (torch.nn.functional.pad(_rand(gen, (b, sq, h, d), torch.float32), (0, pad)) for _ in range(2))
+    k, v = (torch.nn.functional.pad(_rand(gen, (b, sk, h, d), torch.float32), (0, pad)) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, d**-0.5)
+    return q, k, v, o, lse, do
+
+
+def _check_fp32_k2_k3(q, k, v, o, lse, do, scale, splits=None, dq_splits=None):
+    """fp32 K2 then K3 against their plain versions over the same splits,
+    each within 1e-4·max(1, |ref|), δ too; a repeated call gives the same
+    bits. Returns (dQ, δ, dK, dV)."""
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
+    again = (*fa.flash_attention_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits),
+             *fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits))
+    torch.cuda.synchronize()
+    want_dq, want_delta = fa.bwd_dq_reference(q, k, v, o, lse, do, scale, dq_splits)
+    want_dk, want_dv = fa.bwd_dkv_reference(q, k, v, lse, want_delta, do, scale, splits)
+    got = (dq, delta, dk, dv)
+    for name, g, w in zip(("dq", "delta", "dk", "dv"), got, (want_dq, want_delta, want_dk, want_dv)):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= _grad_tol(w, torch.float32), (name, tuple(q.shape), k.shape[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("sq,sk,d", EDIT_K23_SHAPES, ids=lambda x: str(x))
+def test_fp32_k2_k3_at_the_edit_shapes(gen, sq, sk, d):
+    """fp32 K2 and K3 at every shape of a null-text inner step (the splits
+    their rules pick: 3 at 1024², 16 query splits at 4096x77 in K3), against
+    the plain versions within the fp32 bound; repeats bit-equal; no plain
+    version on the card."""
+    q, k, v, o, lse, do = _padded_fp32_inputs(gen, 1, sq, sk, 8, d)
+    before = (fa.bwd_dq_reference.cuda_calls, fa.bwd_dkv_reference.cuda_calls)
+    launches = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, d**-0.5)
+    fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, d**-0.5)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_reference.cuda_calls, fa.bwd_dkv_reference.cuda_calls) == before
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == tuple(x + 1 for x in launches)
+    _check_fp32_k2_k3(q, k, v, o, lse, do, d**-0.5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(65, 77), (77, 65), (1, 300), (300, 1), (129, 4097)])
+def test_fp32_k2_k3_on_ragged_lengths(gen, d, sq, sk):
+    """fp32 K2/K3 with Sq and Sk off their 64-row blocks and 64/16-row tiles
+    (cp.async zero-fills rows past the end; keys and q rows past it get P =
+    0), with large logits (q x 3: a peaked softmax)."""
+    b, h = 2, 3
+    q = _rand(gen, (b, sq, h, d), torch.float32, scale=3.0)
+    do = _rand(gen, (b, sq, h, d), torch.float32)
+    k, v = (_rand(gen, (b, sk, h, d), torch.float32) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    _check_fp32_k2_k3(q, k, v, o, lse, do, d**-0.5)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024, 8, 64), (1, 1024, 77, 8, 128), (2, 300, 129, 3, 128),
+                                   (1, 65, 4097, 2, 64)])
+def test_fp32_k2_k3_forced_splits_are_right_and_deterministic(gen, shape):
+    """fp32 K2's key split and K3's query split forced to 1, 2 and 64
+    (empty splits included) against the plain versions over the same
+    splits; repeats bit-equal; δ the same bits at every split count."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, shape, torch.float32)
+    scale = shape[-1] ** -0.5
+    deltas = [_check_fp32_k2_k3(q, k, v, o, lse, do, scale, splits, splits)[1] for splits in (1, 2, fa.MAX_SPLITS)]
+    assert all(torch.equal(deltas[0], x) for x in deltas[1:])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_k2_k3_take_head_slices_strided_do_and_unaligned_views(gen, d):
+    """fp32 q, k, v, o and dO as head slices of wider tensors (autograd's
+    strided dO among them) and as views off 16 bytes (copied once by the
+    wrapper): the contiguous copies' bits, one launch each."""
+    b, sq, sk, h = 2, 200, 77, 3
+    for make in (lambda s: _rand(gen, (b, s, 2 * h, d), torch.float32)[:, :, 1::2],
+                 lambda s: _rand(gen, (b, s, h, d + 4), torch.float32)[..., 1:d + 1]):
+        q, k, v, do, o = make(sq), make(sk), make(sk), make(sq), make(sq)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        o.copy_(out)
+        assert not (q.is_contiguous() or o.is_contiguous() or do.is_contiguous())
+        before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        got = _check_fp32_k2_k3(q, k, v, o, lse, do, d**-0.5)
+        assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == tuple(
+            x + 2 for x in before)
+        c = [x.contiguous() for x in (q, k, v, o, do)]
+        dq, delta = fa.flash_attention_bwd_dq(*c[:4], lse, c[4], d**-0.5)
+        want = (dq, delta, *fa.flash_attention_bwd_dkv(*c[:3], lse, delta, c[4], d**-0.5))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_fp32_k2_k3_run_the_tf32_kernels(gen):
+    """By name: fp32 K2 is flash_bwd_dq_tf32_kernel and K3
+    flash_bwd_dkv_tf32_kernel, with their merges when split; no SIMT
+    backward kernel exists any more."""
+    q, k, v, o, lse, do = _padded_fp32_inputs(gen, 1, 4096, 77, 8, 40)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 40**-0.5)
+    names = _kernel_names(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 40**-0.5))
+    assert any("flash_bwd_dq_tf32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, 40**-0.5))
+    assert any("flash_bwd_dkv_tf32_kernel" in n for n in names), names
+    assert any("flash_dkv_merge_kernel" in n for n in names), names  # 16 query splits at 4096x77
+    assert not any("_tc_" in n for n in names), names
 
 
 def _check_k4a(q, k, v, splits=None):

@@ -65,8 +65,8 @@ def test_split_plain_dkv_matches_jax_pallas_vjp(sq, sk, splits):
 def test_k3_split_rule_fills_two_waves_or_hits_its_cap(shape):
     """At every K1-class training shape (the student's rows): the key-tile
     blocks times the splits reach two waves of the H100's 132 SMs, or the
-    split count is at its cap (4 q units per split, at most 64); fp32 never
-    splits."""
+    split count is at its cap (4 q units per split, at most 64); fp32 splits
+    by the same rule (the same blocks and units)."""
     _, sq, sk, h, _, rows, _ = shape
     bh = rows * h
     splits = fa.pick_k3_splits(bh, sq, sk)
@@ -79,7 +79,27 @@ def test_k3_split_rule_fills_two_waves_or_hits_its_cap(shape):
         ranges = fa.split_ranges(sq, splits, fa.K3_TILE)
         assert all(hi - lo >= fa.MIN_TILES_PER_SPLIT * fa.K3_TILE for lo, hi in ranges[:-1])
         assert ranges[0][0] == 0 and ranges[-1][1] == sq and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    assert fa.pick_k3_splits(bh, sq, sk, torch.float32) == 1
+    assert fa.pick_k3_splits(bh, sq, sk, torch.float32) == splits
+
+
+@pytest.mark.parametrize("sq,sk", [(512, 77), (700, 100)])
+def test_fp32_rule_split_plain_dkv_matches_jax_pallas_vjp(sq, sk):
+    """The fp32 wrapper on the CPU with the split its rule picks (2 at these
+    lengths: 4 blocks of keys against 8 and 11 q units) is the split plain
+    version, against ``jax.vjp`` of the Pallas kernel, fp32."""
+    b, h, d = 1, 2, 64
+    assert fa.pick_k3_splits(b * h, sq, sk, torch.float32) == 2
+    q, k, v, g = _inputs(b, sq, sk, h, d, seed=sq + sk)
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, interpret=True), *map(jnp.asarray, (q, k, v)))
+    _, want_dk, want_dv = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    o, lse = fa.flash_attention_reference(tq, tk, tv, d**-0.5)
+    _, delta = fa.bwd_dq_reference(tq, tk, tv, o, lse, tg, d**-0.5)
+    dk, dv = fa.flash_attention_bwd_dkv(tq, tk, tv, lse, delta, tg, d**-0.5)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL, err_msg=name)
+    split = fa.bwd_dkv_reference(tq, tk, tv, lse, delta, tg, d**-0.5, splits=2)
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv), split))
 
 
 # (batch·heads, Sq, Sk[, padded head dim]) -> splits: K4a's and K4c's counts at

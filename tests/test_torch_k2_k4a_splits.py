@@ -100,7 +100,26 @@ K2_SPLITS = {
 def test_k2_split_counts_at_the_training_shapes(shape):
     name, sq, sk, h, _, rows, _ = shape
     assert fa.pick_k2_splits(rows * h, sq, sk) == K2_SPLITS[name]
-    assert fa.pick_k2_splits(rows * h, sq, sk, torch.float32) == 1  # the SIMT kernel does not split
+    # the fp32 kernel has the bf16 kernel's blocks and 64-key units: the same rule
+    assert fa.pick_k2_splits(rows * h, sq, sk, torch.float32) == K2_SPLITS[name]
+
+
+@pytest.mark.parametrize("sq,sk", [(65, 512), (100, 700)])
+def test_fp32_rule_split_plain_dq_matches_jax_pallas_vjp(sq, sk):
+    """The fp32 wrapper on the CPU with the split its rule picks (2 at these
+    lengths: 4 blocks of q rows against 8 and 11 key units) is the
+    split plain version, against ``jax.vjp`` of the Pallas kernel, fp32."""
+    b, h, d = 1, 2, 64
+    assert fa.pick_k2_splits(b * h, sq, sk, torch.float32) == 2
+    q, k, v, g = _inputs(b, sq, sk, h, d, seed=sq + sk)
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, interpret=True), *map(jnp.asarray, (q, k, v)))
+    want_dq = np.asarray(vjp(jnp.asarray(g))[0])
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    o, lse = fa.flash_attention_reference(tq, tk, tv, d**-0.5)
+    dq, delta = fa.flash_attention_bwd_dq(tq, tk, tv, o, lse, tg, d**-0.5)
+    np.testing.assert_allclose(dq.numpy(), want_dq, atol=TOL, rtol=TOL)
+    split = fa.bwd_dq_reference(tq, tk, tv, o, lse, tg, d**-0.5, splits=2)
+    assert all(torch.equal(x, y) for x, y in zip((dq, delta), split))
 
 
 # K4a's key-range split at every path shape of chip_smoke.py: (bf16, fp32).
