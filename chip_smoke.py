@@ -23,15 +23,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   seconds per format and for the two 512x512 files.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
-                  request, 2 rows), in bf16 (the tensor-core kernel) and in
-                  fp32 (the SIMT kernel); max-abs error, kernel_ms, device_ms,
+                  request, 2 rows), in bf16 (the wgmma kernel) and in fp32
+                  (the 3×TF32 kernel since PR 23); max-abs error, kernel_ms, device_ms,
                   plain_ms, library_ms (F.scaled_dot_product_attention, timed
                   as a yardstick only), bound_ms; for bf16 the achieved
                   TFLOP/s, share of the bound and ratio to SDPA on device
                   times, and K1's host µs per call at 1024×77. bf16 K1 at
                   ragged Sq/Sk ∈ {1, 63, 65, 77, 129, 4097} (d 64 and 128),
                   on head slices of wider tensors and on views off TMA's
-                  16-byte alignment (copied once by the wrapper).
+                  16-byte alignment (copied once by the wrapper). fp32 K1 at
+                  ragged (Sq, Sk) ∈ {(65, 77), (65, 129), (1, 300), (300, 1)}
+                  (d 64 and 128) with its key split forced to 1, 2 and 64,
+                  repeats bit-equal, and on head slices and views off 16
+                  bytes; O and lse within 1e-4·max(1, |ref|).
 3. kernel_bwd   — K2 (dQ) and K3 (dK, dV) against their plain versions at the
                   K1-class attention shapes of every training path
                   (TRAIN_SHAPES: 512px SDXL and SD1.5 ESD at batch 1, SD1.5
@@ -67,10 +71,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   key-range split forced to 1, 2 and 64 at every path shape,
                   repeated calls bit for bit; bf16 at ragged Sq/Sk ∈ {1, 63,
                   65, 77, 129, 4097} at d 64, 192, 320 and 512, on head slices
-                  and on views off 16 bytes; fp32 with forced splits. Times
+                  and on views off 16 bytes; fp32 (the 3×TF32 kernel since
+                  PR 23) with the split forced to 1, 2 and 64 at every path
+                  shape, repeats bit-equal, at ragged lengths at d 64, 192,
+                  320 and 512, on head slices and views off 16 bytes. Times
                   the kernel (events, device time, host µs per call), its
                   plain version and SDPA's forward (a yardstick) at every
-                  path shape in bf16, with the bound and its share.
+                  path shape in bf16, with the bound and its share, and in
+                  fp32 at the VAE's 4096² and 16384² (rows 1, d 512) against
+                  the 3×TF32 bound and SDPA in fp32 (the efficient backend,
+                  else the backend that takes d 512, named).
 5. kernel_kgrid_bwd — K4b (dQ, δ) and K4c (dK, dV) against their plain
                   versions at SD1.5's d-160 attentions (8 heads, zero-padded
                   to 192; bound_ms at d 160): the 512px ESD student (256²,
@@ -554,12 +564,13 @@ from sliders_conceptmod_tpu_torch.train.optim import MultiSteps, Optimizer, flat
 
 # H100 SXM published peaks (dense): bf16 tensor cores; fp32 as the least time
 # of fp32-accurate products, three TF32 tensor-core passes each (494.7 / 3
-# TFLOP/s, the scheme of fp32 K2/K3; the CUDA cores' 67 TFLOP/s is slower);
+# TFLOP/s, the scheme of the fp32 kernels; the CUDA cores' 67 TFLOP/s is slower);
 # HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 # K1 and K4a vs their fp32 plain versions. fp32: the same math up to
-# summation order (1e-4 flat; at most the 1e-4·max(1, max|ref|) asked of K4a).
+# summation order (1e-4 flat on O; at most the 1e-4·max(1, max|ref|) asked of
+# K4a; lse within 1e-4·max(1, max|ref lse|), bf16's lse within LSE_TOL).
 # bf16: rounding the output alone costs up to 2^-8·|out|, so the bound is
 # 2e-2 of the reference's largest value (and never above 3e-2). At 4096² with
 # N(0,1) inputs the output's typical value is ~sqrt(e/4096) ≈ 0.026 and this
@@ -751,15 +762,21 @@ def check_fwd(name: str, kernel, plain, q, k, v, what: str, scale=None) -> dict:
     err = (out.float() - ref_out).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ref_max = ref_out.abs().max().item()
-    tol = min(BF16_TOL, BF16_REL * ref_max) if q.dtype == torch.bfloat16 else FP32_TOL
-    if not err <= tol or not lse_err <= LSE_TOL:
+    if q.dtype == torch.bfloat16:
+        tol, lse_tol = min(BF16_TOL, BF16_REL * ref_max), LSE_TOL
+    else:
+        tol, lse_tol = FP32_TOL, FP32_TOL * max(1.0, ref_lse.abs().max().item())
+    if not err <= tol or not lse_err <= lse_tol:
         raise AssertionError(f"{name} disagrees with its plain version at {what}: {err} > {tol} (lse {lse_err})")
     return dict(out=out, lse=lse, max_abs_err=err, ref_max_abs=ref_max, tol=tol, lse_max_abs_err=lse_err,
-                lse_tol=LSE_TOL)
+                lse_tol=lse_tol)
 
 
-def check_k1(q, k, v, what: str, scale=None) -> dict:
-    return check_fwd("K1", fa.flash_attention_fwd, fa.flash_attention_reference, q, k, v, what, scale)
+def check_k1(q, k, v, what: str, scale=None, splits=None) -> dict:
+    """K1 with ``splits`` (fp32; None: the launcher's choice) against its
+    plain version, which needs no split (only the summation order changes)."""
+    return check_fwd("K1", functools.partial(fa.flash_attention_fwd, splits=splits), fa.flash_attention_reference,
+                     q, k, v, what, scale)
 
 
 def check_k4a(q, k, v, what: str, splits=None, scale=None) -> dict:
@@ -1112,7 +1129,58 @@ def phase_kernel(gen: torch.Generator) -> list:
         if not same or launched != 2:
             raise AssertionError(f"K1 on unaligned views: {checks[-1]}")
     emit(dict(phase="kernel", k1_ragged_strided_unaligned_bf16=checks))
+
+    # fp32 K1 (3×TF32): ragged lengths around its 128-row q tiles and 16-key
+    # tiles with the key split forced to 1, 2 and 64, repeats bit-equal; head
+    # slices and views off 16 bytes (copied once) bit-equal to contiguous copies
+    checks = []
+    for dd in (64, 128):
+        for sq, sk in ((65, 77), (65, 129), (1, 300), (300, 1)):
+            q = torch.randn((2, sq, 3, dd), generator=gen, device="cuda") * 3.0  # a peaked softmax
+            k, v = (torch.randn((2, sk, 3, dd), generator=gen, device="cuda") for _ in range(2))
+            for splits in (1, 2, fa.MAX_SPLITS):
+                c = check_k1(q, k, v, f"ragged Sq {sq} Sk {sk} d {dd} splits {splits} fp32", splits=splits)
+                again = fa.flash_attention_fwd(q, k, v, splits=splits)
+                same = torch.equal(c["out"], again[0]) and torch.equal(c["lse"], again[1])
+                checks.append(dict(sq=sq, sk=sk, head_dim=dd, splits=splits, max_abs_err=c["max_abs_err"],
+                                   tol=c["tol"], lse_max_abs_err=c["lse_max_abs_err"], lse_tol=c["lse_tol"],
+                                   repeat_bit_equal=same))
+                if not same:
+                    raise AssertionError(f"fp32 K1 changed its bits on repeat: {checks[-1]}")
+        for kind, make in (("strided", lambda s: torch.randn((2, s, 6, dd), generator=gen, device="cuda")[:, :, 1::2]),
+                           ("unaligned", lambda s: torch.randn((2, s, 3, dd + 4), generator=gen,
+                                                               device="cuda")[..., 1:dd + 1])):
+            q, k, v = make(300), make(77), make(77)
+            before = fa.flash_attention_fwd.launches
+            c = check_k1(q, k, v, f"{kind} views d {dd} fp32")
+            want = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+            same = torch.equal(c["out"], want[0]) and torch.equal(c["lse"], want[1])
+            launched = fa.flash_attention_fwd.launches - before
+            checks.append(dict(sq=300, sk=77, head_dim=dd, views=kind, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                               lse_max_abs_err=c["lse_max_abs_err"], equals_contiguous=same, launches=launched))
+            if not same or launched != 2:
+                raise AssertionError(f"fp32 K1 on {kind} views: {checks[-1]}")
+    emit(dict(phase="kernel", k1_ragged_splits_views_fp32=checks))
     return results
+
+
+def sdpa_fp32(q, k, v, iters: int) -> tuple:
+    """SDPA in fp32 on the same BSHD tensors: (event ms, device ms, the
+    backend): the efficient backend (CUTLASS's 3×TF32), else the math one
+    where the efficient backend refuses the head dim."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qt, kt, vt)
+        try:
+            ms = cuda_ms(call, iters)
+        except RuntimeError:
+            continue
+        return ms, device_ms(call, iters), backend.name
+    return None, None, None
 
 
 def sdpa_ms(q, k, v, iters: int):
@@ -1134,7 +1202,7 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
     consumer warpgroups); head slices and views off 16 bytes bit-equal to
     contiguous copies; the fp32 kernel's forced splits. Returns the timed
     rows and every check's error."""
-    rows_out, errors = [], []
+    rows_out, fp32_rows, errors = [], [], []
     for dtype in (torch.bfloat16, torch.float32):
         for name, rows, sq, sk, h, d in KGRID_PATH_SHAPES:
             q, k, v = (path_randn(gen, (rows, n, h), d, dtype) for n in (sq, sk, sk))
@@ -1162,6 +1230,15 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
                 row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], row["bound_ms"],
                                  row["library_device_ms"]))
                 rows_out.append(row)
+            elif rows == 1 and d == 512:  # fp32 at the VAE's 4096² (SD1.5's edit) and 16384² (SD3's 1024px decode)
+                k4a = lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale)  # noqa: E731
+                row.update(kernel_ms=cuda_ms(k4a, 3), device_ms=device_ms(k4a, 3),
+                           plain_ms=cuda_ms(lambda: kg.flash_attention_kgrid_reference(q, k, v, scale), 2))
+                row["library_ms"], row["library_device_ms"], row["library"] = sdpa_fp32(q, k, v, 3)
+                row["bound_ms"], row["bound_by"] = bound(rows, sq, sk, h, d, dtype)
+                row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], row["bound_ms"],
+                                 row["library_device_ms"]))
+                fp32_rows.append(row)
             emit(row)
             del q, k, v
             torch.cuda.empty_cache()
@@ -1219,20 +1296,48 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
                 raise AssertionError(f"K4a on {kind} views: {edges[-1]}")
     emit(dict(phase="kernel_kgrid", k4a_ragged_and_views_bf16=edges))
 
-    # fp32 (the SIMT kernel): the split forced to 1 and to more than 1, at one
-    # 512px image (the launcher picks 3) and at the JAX test's ragged shape
+    # fp32 (the 3×TF32 kernel): the split forced to 1, 2 and 64 at every path
+    # shape and at ragged lengths at d 64, 192, 320 and 512 (one, two and four
+    # warps a slab; 32-, 16- and 8-key tiles), repeats bit-equal; head slices
+    # and views off 16 bytes (copied once) bit-equal to contiguous copies
     checks = []
-    cases = [(1, 4096, 4096, 1, 512, sp) for sp in (1, 6)]
-    cases += [(2, 300, 77, 2, dd, sp) for dd in (64, 512) for sp in (1, 3)]
-    for b, sq, sk, h, dd, splits in cases:
-        q = torch.randn((b, sq, h, dd), generator=gen, device="cuda")
-        k, v = (torch.randn((b, sk, h, dd), generator=gen, device="cuda") for _ in range(2))
-        c = check_k4a(q, k, v, f"B {b} Sq {sq} Sk {sk} H {h} d {dd} splits {splits} fp32", splits=splits)
-        checks.append(dict(dtype="torch.float32", b=b, sq=sq, sk=sk, heads=h, head_dim=dd, splits=splits,
-                           max_abs_err=c["max_abs_err"], tol=c["tol"], lse_max_abs_err=c["lse_max_abs_err"]))
-        errors.append(c["max_abs_err"])
-    emit(dict(phase="kernel_kgrid", forced_splits_fp32=checks))
-    return rows_out, errors
+    cases = [(f"{name} rows={rows}", path_randn(gen, (rows, sq, h), d, torch.float32),
+              *(path_randn(gen, (rows, sk, h), d, torch.float32) for _ in range(2)), d**-0.5)
+             for name, rows, sq, sk, h, d in KGRID_PATH_SHAPES]
+    for dd in (64, 192, 320, 512):
+        for sq, sk in ((65, 77), (65, 129), (1, 300), (300, 1)):
+            cases.append((f"ragged Sq {sq} Sk {sk} d {dd}", torch.randn((2, sq, 2, dd), generator=gen, device="cuda")
+                          * 3.0, *(torch.randn((2, sk, 2, dd), generator=gen, device="cuda") for _ in range(2)), None))
+    for what, q, k, v, scale in cases:
+        for splits in (1, 2, fa.MAX_SPLITS):
+            c = check_k4a(q, k, v, f"{what} splits {splits} fp32", splits=splits, scale=scale)
+            again = kg.flash_attention_kgrid_fwd(q, k, v, scale if scale else q.shape[-1] ** -0.5, splits=splits)
+            same = torch.equal(c["out"], again[0]) and torch.equal(c["lse"], again[1])
+            checks.append(dict(at=what, splits=splits, max_abs_err=c["max_abs_err"], tol=c["tol"],
+                               lse_max_abs_err=c["lse_max_abs_err"], lse_tol=c["lse_tol"], repeat_bit_equal=same))
+            errors.append(c["max_abs_err"])
+            if not same:
+                raise AssertionError(f"fp32 K4a changed its bits on repeat: {checks[-1]}")
+            del c, again
+    del cases
+    torch.cuda.empty_cache()
+    for dd in (192, 512):
+        for kind, make in (("strided", lambda: torch.randn((2, 300, 4, dd), generator=gen, device="cuda")[:, :, 1::2]),
+                           ("unaligned", lambda: torch.randn((2, 300, 2, dd + 4), generator=gen,
+                                                             device="cuda")[..., 1:dd + 1])):
+            q, k, v = make(), make(), make()
+            before = kg.flash_attention_kgrid_fwd.launches
+            c = check_k4a(q, k, v, f"{kind} views d {dd} fp32")
+            out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+            same = torch.equal(c["out"], out_c) and torch.equal(c["lse"], lse_c)
+            launched = kg.flash_attention_kgrid_fwd.launches - before
+            checks.append(dict(at=f"{kind} views d {dd}", max_abs_err=c["max_abs_err"], tol=c["tol"],
+                               equals_contiguous=same, launches=launched))
+            errors.append(c["max_abs_err"])
+            if not same or launched != 2:
+                raise AssertionError(f"fp32 K4a on {kind} views: {checks[-1]}")
+    emit(dict(phase="kernel_kgrid", forced_splits_ragged_views_fp32=checks))
+    return rows_out, fp32_rows, errors
 
 
 # (name, rows, Sq, Sk): K4b/K4c's calls on the SD1.5 training paths, the
@@ -1711,10 +1816,12 @@ def device_profile(fn) -> dict:
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
     # profiler names by substring: a tensor-core kernel's name does not
     # contain its SIMT sibling's ("flash_fwd_tc_kernel")
-    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
+    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_tf32_kernel",
+                               "flash_fwd_merge_kernel")),
                        ("k2", ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_tf32_kernel", "flash_dq_merge_kernel")),
                        ("k3", ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tf32_kernel", "flash_dkv_merge_kernel")),
-                       ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_merge_kernel")),
+                       ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_fwd_tf32_kernel",
+                                "kgrid_merge_kernel")),
                        ("k4b", ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel")),
                        ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel"))):
         secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
@@ -5357,7 +5464,7 @@ def main() -> int:
     image_eval_seconds = time.time() - t_image
     k1_rows = phase_kernel(gen)
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
-    kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
+    kgrid_rows, kgrid_fp32_rows, kgrid_errors = phase_kernel_kgrid(gen)
     kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
     k1_sd_errors, k4a_sd_errors = phase_kernel_sd_serve(gen)
     sd3_k1_rows, sd3_bwd_rows = phase_kernel_joint(gen)
@@ -5701,6 +5808,10 @@ def main() -> int:
             share_of_bound=kgrid_main["share_of_bound"],
             over_library=kgrid_main["over_library"],
             at=f"{kgrid_main['shape']} rows={kgrid_main['rows']} heads=1 d={kgrid_main['head_dim']} bf16",
+            fp32=[{k: r[k] for k in ("shape", "rows", "splits", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                                     "library_ms", "library_device_ms", "library", "tflops", "share_of_bound",
+                                     "over_library", "max_abs_err")}
+                  for r in kgrid_fp32_rows],
         ),
         dict(
             name="flash_attention_kgrid_bwd_dq",

@@ -33,13 +33,22 @@ the same bits), and one of their bf16 outputs (equal across trees whose
 bf16 kernels compute the same bits). Then a line with the card's name and
 power limit. Needs a CUDA device: exits 2 without one.
 
-``--sections`` picks what each process runs (default: all but ``edit``):
+``--sections`` picks what each process runs (default: ``kernels``, ``fp32``
+and ``digest``):
 ``kernels`` (the bf16 rows above), ``fp32`` (all six kernels in fp32 at the
 shapes of null-text inversion editing, SD1.5 at 512px, 8 heads: K1/K2/K3 at
 4096 and 1024 queries against themselves and 77 keys, head dims 40 and 80
 padded to 64 and 128; K4a/K4b/K4c at 256 and 64 queries, 160 padded to 192;
 each against its plain version, its fp32 bound and SDPA in fp32 with the
-efficient backend pinned), ``edit`` (one null-text inner step of the
+efficient backend pinned; then K4a alone at the fp32 VAEs' mid-block, one
+head of 512 at 4096² (SD1.5's encode and decode in the edit) and 16384²
+(SD3's 1024px decode), against SDPA's efficient backend or, where that
+refuses d 512, the backend that takes it, named), ``variants`` (fp32 K1
+and K4a as built against the same sources built with
+``-DFWD_TF32_FLIP_SPLIT``, which moves each one's TF32 split to the other
+place — K1 splits its operands once per block, K4a in every warp — at the
+edit and VAE shapes, device time, in turns: built, flipped, flipped, built;
+skipped for a tree without the switch), ``edit`` (one null-text inner step of the
 full-width SD1.5 UNet in fp32 with seeded weights, profiled, and the
 launches of a demo-default edit; then the tree's ``chip_smoke.py`` edit
 phase over the directory its load phase writes) and ``digest``.
@@ -123,12 +132,15 @@ EDIT_SHAPES = [
     ("edit_self_64", 64, 64, 8, 160, 1),
     ("edit_cross_64x77", 64, 77, 8, 160, 1),
 ]
+# K4a in fp32 at the VAE mid-block (one head of 512, rows 1): SD1.5's encode
+# and decode of a 512px image in the edit, SD3's 1024px decode
+FP32_VAE_SHAPES = [("vae_mid_4096", 4096, 4096, 1, 512, 1), ("sd3_decode_16384", 16384, 16384, 1, 512, 1)]
 # the demo's defaults: 50 DDIM steps, at most 10 null-text inner steps each, scales 0, 2, 4
 EDIT_STEPS, EDIT_INNER_STEPS, EDIT_SCALES = 50, 10, 3
 # the least time of fp32-accurate work on the H100: products as three TF32
 # tensor-core passes (494.7 TFLOP/s / 3), bytes at HBM3's rate
 FP32_PEAK_FLOPS, PEAK_BYTES = 494.7e12 / 3, 3.35e12
-SECTIONS = ("kernels", "fp32", "edit", "digest")
+SECTIONS = ("kernels", "fp32", "variants", "edit", "digest")
 
 
 def fp32_bound(kind: str, bh: int, sq: int, sk: int, d: int) -> tuple:
@@ -170,6 +182,31 @@ def _event_ms(torch, fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(torch, fn, iters: int) -> float:
+    """Device ms per call of ``fn`` with no host time in it: ``iters`` calls
+    captured in one CUDA graph, replayed between two events. Unlike
+    ``_device_ms`` it cannot lose a kernel: torch.profiler now and then drops
+    some of a window's kernel events (a fp32 K1 row read 2.14 ms of device
+    time where its events read 2.70)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the first call (builds, allocates) outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -384,6 +421,9 @@ def worker(tree: str, sections) -> int:
                     plain[2](q, k, v, lse, delta, do, scale))
             row = dict(tree=tree, kind="fp32", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
                        padded_head_dim=q.shape[-1])
+            pick = getattr(fa, "pick_k1_splits", None)  # a tree before the 3xTF32 K1 has no K1 split
+            row[f"{ids[0]}_splits"] = (pick(rows * h, sq, sk, torch.float32) if pick else 1) if d <= 128 else \
+                kg.pick_splits(rows * h, sq, sk, torch.float32)
             for kern, got, ref in zip(ids, ((o, lse), (dq, delta), (dk, dv)), want):
                 row[f"{kern}_err"] = max((x - w).abs().max().item() for x, w in zip(got, ref))
                 row[f"{kern}_tol"] = 1e-4 * max(1.0, max(w.abs().max().item() for w in ref))
@@ -412,6 +452,94 @@ def worker(tree: str, sections) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, o, lse, do, delta
             torch.cuda.empty_cache()
+
+        for name, sq, sk, h, d, rows in FP32_VAE_SHAPES:
+            scale = d**-0.5
+            q, k, v = (randn((rows, s, h), d, torch.float32) for s in (sq, sk, sk))
+            fwd = lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale)  # noqa: E731
+            got, want = fwd(), kg.flash_attention_kgrid_reference(q, k, v, scale)
+            row = dict(tree=tree, kind="fp32_vae", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
+                       k4a_splits=kg.pick_splits(rows * h, sq, sk, torch.float32),
+                       k4a_err=max((x - w).abs().max().item() for x, w in zip(got, want)),
+                       k4a_tol=1e-4 * max(1.0, max(w.abs().max().item() for w in want)))
+            del got, want
+            row["k4a_ms"] = _event_ms(torch, fwd, 3)
+            row["k4a_device_ms"] = _device_ms(torch, fwd, 3)
+            row["k4a_plain_ms"] = _event_ms(torch, lambda: kg.flash_attention_kgrid_reference(q, k, v, scale), 2)
+            row["k4a_bound_ms"], row["k4a_bound_by"] = fp32_bound("fwd", rows * h, sq, sk, d)
+            dev = row["k4a_device_ms"]
+            row["k4a_share_of_bound"] = row["k4a_bound_ms"] / dev if dev else None
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+                def sdpa():
+                    with sdpa_kernel([backend]):
+                        return F.scaled_dot_product_attention(qt, kt, vt)
+                try:
+                    row["sdpa_fwd_device_ms"] = _device_ms(torch, sdpa, 3)
+                except RuntimeError:
+                    continue
+                row["sdpa_backend"] = backend.name
+                break
+            lib = row.get("sdpa_fwd_device_ms")
+            row["fwd_over_sdpa"] = dev / lib if dev and lib else None
+            print(json.dumps(row), flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
+
+    def variants():
+        """fp32 K1 and K4a as built against the flipped build (see the
+        module's docstring), device ms per call at EDIT_SHAPES and
+        FP32_VAE_SHAPES (CUDA graphs: this section's profiler windows lost
+        up to a third of their events), two runs of each in turns."""
+        import ctypes
+
+        if "FWD_TF32_FLIP_SPLIT" not in (fa.CSRC / "hopper_tc.cuh").read_text():
+            return
+        built = {n: fa._library(n) for n in ("fwd", "kgrid")}
+        # compiled from a copy of the sources, under names of their own
+        work = fa.BUILD_DIR / "flip_split"
+        work.mkdir(parents=True, exist_ok=True)
+        for src in [fa.SOURCES[n] for n in built] + sorted(fa.CSRC.glob("*.cuh")):
+            (work / src.name).write_bytes(src.read_bytes())
+        paths = {n: work / f"{fa._library_path(n).stem}.so" for n in built}
+        procs = {n: subprocess.Popen([fa._nvcc(), *fa.NVCC_FLAGS, "-DFWD_TF32_FLIP_SPLIT", "-o", str(paths[n]),
+                                      str(work / fa.SOURCES[n].name)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+                 for n in built}
+        flipped = {}
+        for n, proc in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -DFWD_TF32_FLIP_SPLIT failed on {fa.SOURCES[n].name}:\n{err[-4000:]}")
+            flipped[n] = ctypes.CDLL(str(paths[n]))
+            for fn_name, argtypes in fa._SIGNATURES[n].items():
+                fn = getattr(flipped[n], fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        try:
+            for name, sq, sk, h, d, rows in EDIT_SHAPES + FP32_VAE_SHAPES:
+                scale = d**-0.5
+                q, k, v = (randn((rows, s, h), d, torch.float32) for s in (sq, sk, sk))
+                k1 = q.shape[-1] <= 128
+                fwd = (lambda: fa.flash_attention_fwd(q, k, v, scale)) if k1 else (
+                    lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale))
+                row = dict(tree=tree, kind="variants", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
+                           padded_head_dim=q.shape[-1], kernel="k1" if k1 else "k4a",
+                           built_split="per block" if k1 else "per warp",
+                           flipped_split="per warp" if k1 else "per block", built_ms=[], flipped_ms=[])
+                want = fwd()
+                iters = 3 if sq * sk >= 1 << 26 else 20
+                for which in ("built", "flipped", "flipped", "built"):
+                    fa._libs.update(built if which == "built" else flipped)
+                    got = fwd()
+                    row[f"{which}_err"] = max((x - w).abs().max().item() for x, w in zip(got, want))
+                    row[f"{which}_ms"].append(_graph_ms(torch, fwd, iters))
+                built_ms, flipped_ms = min(row["built_ms"]), min(row["flipped_ms"])
+                row["flipped_over_built"] = flipped_ms / built_ms if built_ms and flipped_ms else None
+                print(json.dumps(row), flush=True)
+                del q, k, v, want, got
+                torch.cuda.empty_cache()
+        finally:
+            fa._libs.update(built)
 
     def edit():
         """One null-text inner step (the full-width SD1.5 UNet in fp32,
@@ -462,12 +590,12 @@ def worker(tree: str, sections) -> int:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         busy = sum(by_name.values())
         # kernel names by substring, as chip_smoke.py's profiles read them
-        groups = {"k1": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
+        groups = {"k1": ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_tf32_kernel", "flash_fwd_merge_kernel"),
                   "k2": ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dq_tf32_kernel",
                          "flash_dq_merge_kernel"),
                   "k3": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tf32_kernel",
                          "flash_dkv_merge_kernel"),
-                  "k4a": ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_merge_kernel"),
+                  "k4a": ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_fwd_tf32_kernel", "kgrid_merge_kernel"),
                   "k4b": ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel"),
                   "k4c": ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel")}
         row = dict(tree=tree, kind="edit_inner_step", model="SD1.5 UNet, fp32, 64x64 latent, seeded weights",
@@ -531,6 +659,8 @@ def worker(tree: str, sections) -> int:
         kernels()
     if "fp32" in sections:
         fp32()
+    if "variants" in sections:
+        variants()
     if "edit" in sections:
         edit()
     if "digest" in sections:
@@ -544,7 +674,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", help="checkout root (repeatable; default: this one)")
     ap.add_argument("--rounds", type=int, default=1, help="with two trees: 2 runs A B B A")
     ap.add_argument("--sections", default="kernels,fp32,digest",
-                    help=f"comma-separated, of {','.join(SECTIONS)} (default: all but edit)")
+                    help=f"comma-separated, of {','.join(SECTIONS)} (default: kernels,fp32,digest)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sections = args.sections.split(",")

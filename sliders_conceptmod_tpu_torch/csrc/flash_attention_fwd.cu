@@ -59,14 +59,53 @@
 //   that fails the check; this entry point returns cudaErrorInvalidValue
 //   for one that reaches it anyway.
 //
-// * float32 -> flash_fwd_kernel, the first (SIMT) kernel, unchanged: fp32
-//   math on the CUDA cores (67 TFLOP/s peak), one block per (batch*head,
-//   64-row q tile), thread pairs per q row, K/V staged in shared memory as
-//   fp32 (rows padded by 4 floats), P through shared memory. fp32 inputs
-//   stay there because TF32 tensor cores would round the operands to 10
-//   mantissa bits and break the fp32 bound of 1e-4 against the plain
-//   version; on the path only the card-vs-CPU parity runs and a user's
-//   `precision: fp32` take it.
+// * float32 -> flash_fwd_tf32_kernel (null-text inversion editing, every
+//   `precision: float32` config), on the tensor cores in fp32 accuracy; it
+//   replaced the first (SIMT) kernel, fp32 math on the CUDA cores at 5 % of
+//   the bound at 4096^2. What bounds it: 4*B*H*Sq*Sk*D flops at the rate of
+//   fp32-accurate products on the tensor cores, three TF32 passes each
+//   (494.7 / 3 = 164.9 TFLOP/s), at the edit path's self-attentions (4096^2
+//   at d 40 -> 64, 1024^2 at d 80 -> 128); the bytes at the 77-key crosses.
+//   One TF32 pass keeps about 2^-11 of a product and misses the fp32 bound
+//   of 1e-4 * max(1, |ref|) (tests/test_torch_fwd_tf32x3.py); three keep
+//   about 2^-21. Design (hopper_tc.cuh: FwdCfg, fwd_tf32):
+//     - one block per (batch*head, 128-row q tile, split of the key range):
+//       at D 64 four warps of two 16-row m-tiles each, so every K and V
+//       fragment a warp reads feeds two products; at D 128 eight warps of
+//       one. A warp keeps its rows' scores and O (fp32) in registers; every
+//       product is mma.sync m16n8k8 TF32 issued three times over operands
+//       split into TF32 halves (x = big + small; small*big + big*small +
+//       big*big into a fresh sum per 8-deep k step, added on the CUDA cores);
+//     - each operand is split once, by the block, not by every warp that
+//       reads it (what held PR 22's backward kernels to 15 % of their
+//       bound: the instructions around each product): Q, times
+//       scale * log2(e), before the key loop; each K and V tile as it comes
+//       in, into big and small shared tiles whose TF32 words the warps read
+//       with ldmatrix. V is stored transposed with its keys permuted within
+//       each 8, so that P's accumulator layout is the A fragment of O += P V
+//       and V's B fragments come by the non-transposed ldmatrix;
+//     - K and V tiles of 16 keys are prefetched into registers one tile
+//       ahead with 16-byte loads, split and stored between two barriers; the
+//       online softmax in base 2 with fp32 statistics;
+//     - where the q tiles leave SMs idle (fewer than 132 blocks: two share an
+//       SM at D 64; 1024^2 with 8 heads gives 64) the key range splits
+//       across blocks in 32-key units (ops/flash_attention.py::
+//       pick_k1_splits); each split writes unnormalised fp32 partials and
+//       flash_fwd_merge_kernel (K4a's merge, fwd_merge) combines them;
+//     - shared memory: Q + K + V^T, big and small, 80 KB at D 64, 160 KB at
+//       D 128.
+//   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
+//   700.00 W): SD1.5's 4096^2 (8 heads of 40 run at 64) 0.709 ms, 18 % of
+//   the bound, 0.54x SDPA's fp32 forward (the SIMT kernel: 2.64-2.66 ms);
+//   1024^2 (80 run at 128, 5 splits) 0.151-0.153 ms, 11 %, 1.71-1.74x; the
+//   77-key crosses 0.019-0.022 ms. Splitting per warp instead measured
+//   1.05-1.10x slower at the self-attentions (bench_attention.py --sections
+//   variants). Shared memory, not the
+//   tensor cores, bounds it: each product reads its B fragment, pre-split
+//   twice over, from shared memory (PERF.md, section 6).
+//   16-byte loads need 16-byte-aligned rows: the wrapper copies a tensor
+//   that fails the check once (_aligned), and this entry point returns
+//   cudaErrorInvalidValue for one that reaches it anyway.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,160 +116,7 @@
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // keys per K/V tile
-constexpr int NTHREADS = 128;  // 2 threads per q row
 constexpr float NEG_INF = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
-template <int D>
-struct Smem {
-  static constexpr int QS = D + 4;   // padded row stride of sQ and sK
-  static constexpr int VS = D;       // sV row stride
-  static constexpr int PS = BK + 2;  // sP row stride
-  static constexpr size_t floats = (size_t)BQ * QS + (size_t)BK * QS + (size_t)BK * VS + (size_t)BQ * PS;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, int H, int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, float scale) {
-  using S = Smem<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sQ = smem;                 // [BQ][QS], pre-scaled
-  float* sK = sQ + BQ * S::QS;      // [BK][QS]
-  float* sV = sK + BK * S::QS;      // [BK][VS]
-  float* sP = sV + BK * S::VS;      // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;    // q row within the tile
-  const int half = tid & 1;  // even / odd key columns; interleaved output groups
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-
-  // stage the (scaled) q tile; rows past Sq are zeros and never stored
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
-    const int rr = idx / D;
-    const int d = idx - rr * D;
-    const int qi = q0 + rr;
-    sQ[rr * S::QS + d] = qi < Sq ? to_f32<T>(qb[(long long)qi * q_ss + d]) * scale : 0.f;
-  }
-
-  constexpr int NJ = BK / 2;  // score columns per thread
-  constexpr int NG = D / 8;   // float4 output groups per thread
-  float acc[NG * 4];
-#pragma unroll
-  for (int e = 0; e < NG * 4; ++e) acc[e] = 0.f;
-  float m_i = NEG_INF;
-  float l_i = 0.f;
-
-  const int num_k = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < num_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's P*V reads are done (and sQ is staged)
-    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
-      const int c = idx / D;
-      const int d = idx - c * D;
-      const int key = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (key < Sk) {  // ragged tail: zero K and V so masked columns add exact zeros
-        kv = to_f32<T>(kb[(long long)key * k_ss + d]);
-        vv = to_f32<T>(vb[(long long)key * v_ss + d]);
-      }
-      sK[c * S::QS + d] = kv;
-      sV[c * S::VS + d] = vv;
-    }
-    __syncthreads();
-
-    // scores for this thread's row and its 32 key columns (2j + half)
-    float s[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < D; d4 += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(&sQ[r * S::QS + d4]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(&sK[(2 * j + half) * S::QS + d4]);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-
-    // online softmax carry, shared by the thread pair of this row
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (k0 + 2 * j + half >= Sk) s[j] = NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float p = expf(s[j] - m_new);
-      rs += p;
-      sP[r * S::PS + 2 * j + half] = p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l_i = l_i * corr + rs;
-    m_i = m_new;
-#pragma unroll
-    for (int e = 0; e < NG * 4; ++e) acc[e] *= corr;
-    __syncthreads();  // the whole P row is written
-
-    const int ncols = min(BK, Sk - k0);  // masked columns have p == 0 exactly
-    for (int c = 0; c < ncols; ++c) {
-      const float p = sP[r * S::PS + c];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sV[c * S::VS + (2 * g + half) * 4]);
-        acc[4 * g + 0] = fmaf(p, vv.x, acc[4 * g + 0]);
-        acc[4 * g + 1] = fmaf(p, vv.y, acc[4 * g + 1]);
-        acc[4 * g + 2] = fmaf(p, vv.z, acc[4 * g + 2]);
-        acc[4 * g + 3] = fmaf(p, vv.w, acc[4 * g + 3]);
-      }
-    }
-  }
-
-  const int qi = q0 + r;
-  if (qi < Sq) {
-    T* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) orow[(2 * g + half) * 4 + e] = from_f32<T>(acc[4 * g + e] / l_i);
-    }
-    if (half == 0) lse[(long long)bh * Sq + qi] = m_i + logf(l_i);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (wgmma), TMA-fed
@@ -438,34 +324,65 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace tc
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
-           int Sk, const long long* st, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, H,
-      Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// float32: tensor cores (3xTF32 mma.sync), operands split once per block
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace hopper;
+
+// 128 q rows a block: at D 64 four warps of two 16-row m-tiles each (every
+// K and V fragment a warp reads feeds two products), at D 128 eight warps of
+// one; 16-key tiles (with 32-key tiles the D-64 kernel spilled 112 bytes);
+// 32-key split units; operands split once per block
+template <int D>
+using Cfg = FwdCfg<D, D == 64 ? 4 : 8, 1, 16, 32, D == 64 ? 2 : 1, true>;
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, float* __restrict__ part_acc, float* __restrict__ part_m, float* __restrict__ part_l,
+    int H, int Sq, int Sk, Strides st, float scale_log2) {
+  fwd_tf32<Cfg<D>>(q, k, v, o, lse, part_acc, part_m, part_l, H, Sq, Sk, st, scale_log2);
 }
+
+__global__ void __launch_bounds__(FWD_MERGE_THREADS) flash_fwd_merge_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m, const float* __restrict__ part_l,
+    float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int D, int splits, long long o_sb, long long o_ss,
+    long long o_sh) {
+  fwd_merge<float>(part_acc, part_m, part_l, o, lse, H, Sq, D, splits, o_sb, o_ss, o_sh);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* part_acc, float* part_m,
+           float* part_l, int B, int H, int Sq, int Sk, int splits, const long long* st, float scale,
+           cudaStream_t stream) {
+  static uint64_t smem_set = 0;
+  return launch_fwd_tf32<Cfg<D>>(flash_fwd_tf32_kernel<D>, flash_fwd_merge_kernel, smem_set, q, k, v, o, lse,
+                                 part_acc, part_m, part_l, B, H, Sq, Sk, splits, st, scale, stream);
+}
+
+}  // namespace tf32
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32 (the SIMT
-// kernel), 1 = bfloat16 (the tensor-core kernel).
-// strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn.
-// Returns the cudaError_t of the launch (0 = launched), or
-// cudaErrorInvalidValue for a head dim / dtype / shape it does not take.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
-                                   int B, int H, int Sq, int Sk, int D, const long long* strides, float scale,
-                                   void* stream) {
+// Plain C entry point (bound with ctypes). dtype: 0 = float32 (the 3xTF32
+// kernel, its key range split `splits` ways), 1 = bfloat16 (the wgmma
+// kernel, splits 1). strides: 12 element strides, (batch, seq, head) for q,
+// k, v, o in turn. splits > 1 needs part_acc [splits, B*H, Sq, D] and
+// part_m / part_l [splits, B*H, Sq], fp32 and contiguous. Returns the
+// cudaError_t of the launches (0 = launched), or cudaErrorInvalidValue for a
+// head dim / dtype / shape / split count it does not take.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, float* part_acc,
+                                   float* part_m, float* part_l, int dtype, int B, int H, int Sq, int Sk, int D,
+                                   int splits, const long long* strides, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
+  if (dtype == 0 && D == 64)
+    return tf32::launch<64>(q, k, v, o, lse, part_acc, part_m, part_l, B, H, Sq, Sk, splits, strides, scale, s);
+  if (dtype == 0 && D == 128)
+    return tf32::launch<128>(q, k, v, o, lse, part_acc, part_m, part_l, B, H, Sq, Sk, splits, strides, scale, s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && D == 64) return tc::launch<64>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
   if (dtype == 1 && D == 128) return tc::launch<128>(q, k, v, o, lse, B, H, Sq, Sk, strides, scale, s);
   return (int)cudaErrorInvalidValue;

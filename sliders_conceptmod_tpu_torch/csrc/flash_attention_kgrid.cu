@@ -72,17 +72,38 @@
 //   d-160 shapes 4.5-12 us, 2-19 % of their (bytes) bound, 0.6-1.3x SDPA's
 //   forward (PERF.md, section 6).
 //
-// * float32 -> kgrid_fwd_kernel, the first (SIMT) kernel, unchanged: fp32
-//   math on the CUDA cores (67 TFLOP/s peak), which keeps the fp32 bound of
-//   1e-4 (TF32 tensor cores would not). 256 threads, a 32-row q tile;
-//   thread t owns q row t/8 and, within each 32-key tile, keys (t%8) + 8j,
-//   so the 8 threads of a row reduce its max and sum with three
-//   __shfl_xor_sync; the q tile (pre-scaled), one K and one V tile sit in
-//   shared memory as fp32, rows padded by 4 floats, staged in 16-byte
-//   chunks with up to 8 loads in flight per thread (stage_rows); P goes
-//   through shared memory (row stride 40), read back by the row's own warp;
-//   the 32 x D accumulator is split across the row's 8 threads by D. The
-//   key range splits in 32-key tiles.
+// * float32 -> kgrid_fwd_tf32_kernel (null-text inversion editing at SD1.5's
+//   d 160 -> 192, the fp32 VAEs' mid-blocks at d 512), on the tensor cores in
+//   fp32 accuracy: K1's fp32 body (hopper_tc.cuh: FwdCfg, fwd_tf32, its
+//   header in flash_attention_fwd.cu) at 32 q rows per block and every D of
+//   this kernel. It replaced the first (SIMT) kernel, fp32 math on the CUDA
+//   cores (5 % of the bound at d 192, 7-8 % at d 512). What bounds it: the
+//   products at 164.9 TFLOP/s (three TF32 passes, 494.7 / 3) at the VAE's
+//   4096^2 and 16384^2; the bytes and the launch at SD1.5's 256- and
+//   64-token calls. Design:
+//     - one block of two 16-row slabs per (batch*head, 32-row q tile, split
+//       of the key range); above D 64 two (D 128) or four warps share a
+//       slab, each owning D / 2 or D / 4 of the head-dim columns of Q, K, V
+//       and O: its partial scores over its columns are summed across the
+//       slab's warps through shared memory in a fixed order, so every warp
+//       holds the same scores, and its O (16 x D/4 fp32 at D 512) stays in
+//       registers; no product is repeated;
+//     - Q, K and V^T stay fp32 in shared memory and every warp splits the
+//       operands it reads into TF32 halves (PR 22's scheme): with two to
+//       four warps sharing a tile, splitting once per block measured
+//       1.09-1.12x slower at d 192 and 1.24-1.26x at d 512
+//       (bench_attention.py --sections variants), its big and small tiles
+//       doubling the shared-memory traffic that bounds the kernel;
+//     - tiles of 16 keys, 8 above D 320, so that the registers hold the
+//       next tile's prefetch;
+//     - the key range splits in the same 32-key units as before
+//       (ops/flash_attention_kgrid.py::pick_splits for float32), merged by
+//       kgrid_merge_kernel.
+//   Measured (bench_attention.py, device time, NVIDIA H100 80GB HBM3,
+//   700.00 W): SD3's 1024px decode (16384^2, d 512) 21.3 ms, 16 % of the
+//   bound, 1.55-1.56x SDPA's fp32 forward (the SIMT kernel: 44.6 ms); the
+//   edit's VAE 4096^2 1.42 ms, 1.27-1.28x; SD1.5's 256^2 at d 192 (2
+//   splits) 0.0246 ms, 0.71x (PERF.md, section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,305 +113,66 @@
 
 namespace {
 
-constexpr int BQ = 32;          // q rows per block
-constexpr int BK = 32;          // keys per K/V tile
-constexpr int TPR = 8;          // threads per q row
-constexpr int NTHREADS = BQ * TPR;
-constexpr int MERGE_THREADS = 128;
-constexpr int MAX_SPLITS = 64;
 constexpr float NEG_INF = -1e30f;
 
+// One block per (q row, batch*head): merges the splits' partials into O and
+// lse (hopper_tc.cuh: fwd_merge), for both dtypes.
 template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One 16-byte chunk of T (4 fp32), as fp32 times `mul`, into shared memory
-// at `out` (16-byte aligned).
-template <typename T>
-__device__ __forceinline__ void store_chunk(const uint4& raw, float* out, float mul);
-template <>
-__device__ __forceinline__ void store_chunk<float>(const uint4& raw, float* out, float mul) {
-  *reinterpret_cast<float4*>(out) = make_float4(__uint_as_float(raw.x) * mul, __uint_as_float(raw.y) * mul,
-                                                __uint_as_float(raw.z) * mul, __uint_as_float(raw.w) * mul);
-}
-// Stages rows [row0, row0 + ROWS) of one (batch, head) slice (row i at
-// src + i * rs, D contiguous elements) into shared memory as fp32 times
-// `mul`, row i - row0 at dst + (i - row0) * ds; rows at or past `limit` become
-// zeros (the ragged tail). With `vec` (every row start 16-byte aligned) each
-// thread moves 16-byte chunks, up to 8 loads in flight before it stores any:
-// the block waits for its global loads once per batch, not once per element.
-// Otherwise one element at a time.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, long long rs, int row0, int limit,
-                                           float* __restrict__ dst, int ds, float mul, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int E = 16 / sizeof(T);  // elements per chunk
-    constexpr int PER_ROW = D / E;
-    constexpr int N = ROWS * PER_ROW / NTHREADS;  // chunks per thread
-    constexpr int BATCH = N < 8 ? N : 8;
-    static_assert((ROWS * PER_ROW) % NTHREADS == 0, "chunks must split evenly over the block");
-#pragma unroll
-    for (int b0 = 0; b0 < N; b0 += BATCH) {
-      uint4 raw[BATCH];
-#pragma unroll
-      for (int i = 0; i < BATCH && b0 + i < N; ++i) {
-        const int idx = tid + (b0 + i) * NTHREADS;
-        const int row = row0 + idx / PER_ROW;
-        raw[i] = row < limit ? __ldg(reinterpret_cast<const uint4*>(src + row * rs + (idx % PER_ROW) * E))
-                             : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int i = 0; i < BATCH && b0 + i < N; ++i) {
-        const int idx = tid + (b0 + i) * NTHREADS;
-        store_chunk<T>(raw[i], dst + (idx / PER_ROW) * ds + (idx % PER_ROW) * E, mul);
-      }
-    }
-    return;
-  }
-  for (int idx = tid; idx < ROWS * D; idx += NTHREADS) {
-    const int rr = idx / D;
-    const int d = idx - rr * D;
-    const int row = row0 + rr;
-    dst[rr * ds + d] = row < limit ? to_f32<T>(src[row * rs + d]) * mul : 0.f;
-  }
-}
-
-template <int D>
-struct Smem {
-  static constexpr int QS = D + 4;       // padded row stride of sQ and sK
-  static constexpr int VS = D;           // sV row stride
-  static constexpr int PS = BK + TPR;    // sP row stride
-  static constexpr size_t floats = (size_t)BQ * QS + (size_t)BK * QS + (size_t)BK * VS + (size_t)BQ * PS;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) kgrid_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, float* __restrict__ part_acc, float* __restrict__ part_m,
-    float* __restrict__ part_l, int H, int Sq, int Sk, int tiles_per_split, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale, bool vec) {
-  using S = Smem<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sQ = smem;              // [BQ][QS], pre-scaled
-  float* sK = sQ + BQ * S::QS;   // [BK][QS]
-  float* sV = sK + BK * S::QS;   // [BK][VS]
-  float* sP = sV + BK * S::VS;   // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;  // q row within the tile
-  const int c = tid % TPR;  // key columns c + TPR*j; output float4 groups c + TPR*g
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.z;
-  const int num_k = (Sk + BK - 1) / BK;
-  const int kt_begin = split * tiles_per_split;
-  const int kt_end = min(num_k, kt_begin + tiles_per_split);
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-
-  // stage the (scaled) q tile; rows past Sq are zeros and never stored
-  stage_rows<T, D, BQ>(qb, q_ss, q0, Sq, sQ, S::QS, scale, vec);
-
-  constexpr int NJ = BK / TPR;       // score columns per thread
-  constexpr int NG = D / (4 * TPR);  // float4 output groups per thread
-  float acc[NG * 4];
-#pragma unroll
-  for (int e = 0; e < NG * 4; ++e) acc[e] = 0.f;
-  float m_i = NEG_INF;
-  float l_i = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's reads of sK/sV are done (and sQ is staged)
-    // ragged tail: K and V rows past Sk are zeros, so masked columns add exact zeros
-    stage_rows<T, D, BK>(kb, k_ss, k0, Sk, sK, S::QS, 1.f, vec);
-    stage_rows<T, D, BK>(vb, v_ss, k0, Sk, sV, S::VS, 1.f, vec);
-    __syncthreads();
-
-    // scores of this thread's row against its NJ keys (c + TPR*j)
-    float s[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < D; d4 += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(&sQ[r * S::QS + d4]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(&sK[(c + TPR * j) * S::QS + d4]);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-
-    // online softmax carry, shared by the row's 8 lanes
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (k0 + c + TPR * j >= Sk) s[j] = NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float p = expf(s[j] - m_new);
-      rs += p;
-      sP[r * S::PS + c + TPR * j] = p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    l_i = l_i * corr + rs;
-    m_i = m_new;
-#pragma unroll
-    for (int e = 0; e < NG * 4; ++e) acc[e] *= corr;
-    __syncwarp();  // the row's P is written (its 8 lanes are in this warp)
-
-    const int ncols = min(BK, Sk - k0);  // masked columns have p == 0 exactly
-    for (int cc = 0; cc < ncols; ++cc) {
-      const float p = sP[r * S::PS + cc];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sV[cc * S::VS + (c + TPR * g) * 4]);
-        acc[4 * g + 0] = fmaf(p, vv.x, acc[4 * g + 0]);
-        acc[4 * g + 1] = fmaf(p, vv.y, acc[4 * g + 1]);
-        acc[4 * g + 2] = fmaf(p, vv.z, acc[4 * g + 2]);
-        acc[4 * g + 3] = fmaf(p, vv.w, acc[4 * g + 3]);
-      }
-    }
-  }
-
-  const int qi = q0 + r;
-  if (qi >= Sq) return;
-  if (gridDim.z == 1) {  // one split: normalise here
-    T* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
-    const float inv = 1.f / l_i;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) orow[(c + TPR * g) * 4 + e] = from_f32<T>(acc[4 * g + e] * inv);
-    }
-    if (c == 0) lse[(long long)bh * Sq + qi] = m_i + logf(l_i);
-    return;
-  }
-  // several splits: the unnormalised partials, [split][B*H][Sq](, D)
-  const long long row = ((long long)split * gridDim.y + bh) * Sq + qi;
-  float* prow = part_acc + row * D;
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    *reinterpret_cast<float4*>(&prow[(c + TPR * g) * 4]) =
-        make_float4(acc[4 * g + 0], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
-  }
-  if (c == 0) {
-    part_m[row] = m_i;
-    part_l[row] = l_i;
-  }
-}
-
-// One block per (q row, batch*head): merges the splits' partials into O and lse.
-template <typename T>
-__global__ void __launch_bounds__(MERGE_THREADS) kgrid_merge_kernel(
+__global__ void __launch_bounds__(hopper::FWD_MERGE_THREADS) kgrid_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_m, const float* __restrict__ part_l,
     T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int D, int splits, long long o_sb,
     long long o_ss, long long o_sh) {
-  __shared__ float w[MAX_SPLITS];
-  __shared__ float inv_l;
-  const int qi = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const long long plane = (long long)gridDim.y * Sq;  // rows per split
-  const long long row = (long long)bh * Sq + qi;
-  if (threadIdx.x == 0) {
-    float m_star = NEG_INF;
-    for (int s = 0; s < splits; ++s) m_star = fmaxf(m_star, part_m[s * plane + row]);
-    float l_star = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      w[s] = expf(part_m[s * plane + row] - m_star);  // an empty split: exp(-1e30 - m*) = 0
-      l_star += part_l[s * plane + row] * w[s];
-    }
-    inv_l = 1.f / l_star;
-    lse[row] = m_star + logf(l_star);
-  }
-  __syncthreads();
-  T* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
-  for (int col = threadIdx.x; col < D; col += MERGE_THREADS) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc = fmaf(part_acc[(s * plane + row) * D + col], w[s], acc);
-    orow[col] = from_f32<T>(acc * inv_l);
-  }
+  hopper::fwd_merge<T>(part_acc, part_m, part_l, o, lse, H, Sq, D, splits, o_sb, o_ss, o_sh);
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// float32: tensor cores (3xTF32 mma.sync), operands split once per block
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace hopper;
+
+// 32 q rows (two 16-row slabs); 1, 2 or 4 warps a slab (four from D 192:
+// faster, and no spill there); 16-key tiles, 8 above D 320 (registers; and
+// what fits shared memory split once per block); the key range split in
+// 32-key units (the first kernel's); each warp splits the operands it reads
+// (faster here than splitting once per block: PERF.md)
+template <int D>
+using Cfg = FwdCfg<D, 2, (D <= 64 ? 1 : D <= 128 ? 2 : 4), (D <= 320 ? 16 : 8), 32, 1, false>;
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS) kgrid_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, float* __restrict__ part_acc, float* __restrict__ part_m, float* __restrict__ part_l,
+    int H, int Sq, int Sk, Strides st, float scale_log2) {
+  fwd_tf32<Cfg<D>>(q, k, v, o, lse, part_acc, part_m, part_l, H, Sq, Sk, st, scale_log2);
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* part_acc, float* part_m,
            float* part_l, int B, int H, int Sq, int Sk, int splits, const long long* st, float scale,
            cudaStream_t stream) {
-  auto kernel = kgrid_fwd_kernel<T, D>;
-  const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int num_k = (Sk + BK - 1) / BK;
-  const int tiles_per_split = (num_k + splits - 1) / splits;
-  // 16-byte staging when every q/k/v row starts 16-byte aligned: aligned
-  // bases and batch/seq/head strides in whole 16-byte chunks
-  constexpr long long E = 16 / sizeof(T);
-  bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (int i = 0; i < 9; ++i) vec = vec && st[i] % E == 0;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H, splits);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse,
-      part_acc, part_m, part_l, H, Sq, Sk, tiles_per_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  dim3 mgrid(Sq, B * H);
-  kgrid_merge_kernel<T><<<mgrid, MERGE_THREADS, 0, stream>>>(part_acc, part_m, part_l, static_cast<T*>(o), lse,
-                                                             H, Sq, D, splits, st[9], st[10], st[11]);
-  return (int)cudaGetLastError();
+  static uint64_t smem_set = 0;
+  return launch_fwd_tf32<Cfg<D>>(kgrid_fwd_tf32_kernel<D>, kgrid_merge_kernel<float>, smem_set, q, k, v, o, lse,
+                                 part_acc, part_m, part_l, B, H, Sq, Sk, splits, st, scale, stream);
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, float* pa, float* pm, float* pl,
-             int B, int H, int Sq, int Sk, int D, int splits, const long long* st, float scale, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, float* pa, float* pm, float* pl, int B,
+             int H, int Sq, int Sk, int D, int splits, const long long* st, float scale, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 192: return launch<T, 192>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 320: return launch<T, 320>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 384: return launch<T, 384>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 448: return launch<T, 448>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
-    case 512: return launch<T, 512>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 192: return launch<192>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 320: return launch<320>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 384: return launch<384>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 448: return launch<448>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
+    case 512: return launch<512>(q, k, v, o, lse, pa, pm, pl, B, H, Sq, Sk, splits, st, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (wgmma), TMA-fed
@@ -632,7 +414,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, flo
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   dim3 mgrid(Sq, B * H);
-  kgrid_merge_kernel<__nv_bfloat16><<<mgrid, MERGE_THREADS, 0, stream>>>(
+  kgrid_merge_kernel<__nv_bfloat16><<<mgrid, FWD_MERGE_THREADS, 0, stream>>>(
       part_acc, part_m, part_l, static_cast<__nv_bfloat16*>(o), lse, H, Sq, D, splits, st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
@@ -656,9 +438,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, f
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32 (the SIMT
-// kernel, the key range split in 32-key tiles), 1 = bfloat16 (the
-// tensor-core kernel, split in 64-key units).
+// Plain C entry point (bound with ctypes). dtype: 0 = float32 (the 3xTF32
+// kernel, the key range split in 32-key units), 1 = bfloat16 (the wgmma
+// kernel, split in 64-key units).
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn.
 // splits > 1 needs part_acc [splits, B*H, Sq, D] and part_m / part_l
 // [splits, B*H, Sq], fp32 and contiguous; with splits == 1 they are unused.
@@ -669,13 +451,13 @@ extern "C" int flash_attention_kgrid_fwd(const void* q, const void* k, const voi
                                          float* part_acc, float* part_m, float* part_l, int dtype, int B, int H,
                                          int Sq, int Sk, int D, int splits, const long long* strides, float scale,
                                          void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 || splits < 1 || splits > MAX_SPLITS)
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 || splits < 1 || splits > hopper::FWD_MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (part_acc == nullptr || part_m == nullptr || part_l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, lse, part_acc, part_m, part_l, B, H, Sq, Sk, D, splits, strides, scale, s);
+    return tf32::launch_d(q, k, v, o, lse, part_acc, part_m, part_l, B, H, Sq, Sk, D, splits, strides, scale, s);
   if (dtype == 1)
     return tc::launch_d(q, k, v, o, lse, part_acc, part_m, part_l, B, H, Sq, Sk, D, splits, strides, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -16,6 +16,10 @@
 //     type (BwdCfg), their split merges (dq_merge, dkv_merge) and launches
 //     (launch_bwd_dq, launch_bwd_dkv); each source wraps a body in a
 //     __global__ kernel of its own name and shape;
+//   * the fp32 forward of K1 and K4a on the same 3xTF32 products (fwd_tf32
+//     over a block shape FwdCfg: Q, K and V split into TF32 halves once per
+//     block or by each warp, V stored transposed, swz_rows), its split merge
+//     (fwd_merge, also K4a's bf16 merge) and launch (launch_fwd_tf32);
 //   * allow_smem (the dynamic shared-memory attribute, once per device) and
 //     rows_aligned (what cp.async and TMA need of a tensor's rows).
 // Every function is inline; each source that includes this header is built
@@ -249,23 +253,32 @@ __device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3
   return s;
 }
 
-// d += a b in fp32 accuracy on the tensor cores (3xTF32): the two small
-// terms first, then big * big, into a fresh fp32 sum of this 8-deep k step,
-// which is then added to d on the CUDA cores. The tensor cores truncate the
-// sums they write: taken into d itself, three truncations per k step at d's
-// size pile up over a k loop thousands of keys long (dQ, dK, dV) and reach
-// the fp32 bound, where one rounding to nearest per step at d's size and
-// three truncations at the step's size do not.
+// d += a b in fp32 accuracy on the tensor cores (3xTF32), b already split
+// into its TF32 halves: the two small terms first, then big * big, into a
+// fresh fp32 sum of this 8-deep k step, which is then added to d on the CUDA
+// cores. The tensor cores truncate the sums they write: taken into d itself,
+// three truncations per k step at d's size pile up over a k loop thousands
+// of keys long (dQ, dK, dV, O) and reach the fp32 bound, where one rounding
+// to nearest per step at d's size and three truncations at the step's size
+// do not.
+__device__ __forceinline__ void mma_tf32x3_split(float (&d)[4], const uint32_t (&a_big)[4],
+                                                 const uint32_t (&a_small)[4], uint32_t b0_big, uint32_t b1_big,
+                                                 uint32_t b0_small, uint32_t b1_small) {
+  float step[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(step, a_small, b0_big, b1_big);
+  mma_tf32(step, a_big, b0_small, b1_small);
+  mma_tf32(step, a_big, b0_big, b1_big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += step[i];
+}
+
+// the same with b in fp32, split here (the backward kernels: every warp
+// splits the B operand it reads)
 __device__ __forceinline__ void mma_tf32x3(float (&d)[4], const SplitA& a, float b0, float b1) {
   uint32_t b0_big, b0_small, b1_big, b1_small;
   tf32_split(b0, b0_big, b0_small);
   tf32_split(b1, b1_big, b1_small);
-  float step[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(step, a.small, b0_big, b1_big);
-  mma_tf32(step, a.big, b0_small, b1_small);
-  mma_tf32(step, a.big, b0_big, b1_big);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += step[i];
+  mma_tf32x3_split(d, a.big, a.small, b0_big, b1_big, b0_small, b1_small);
 }
 
 // ---------------------------------------------------------------------------
@@ -849,6 +862,427 @@ __device__ __forceinline__ void dkv_merge(const float* __restrict__ part_dk, con
 }
 
 // ---------------------------------------------------------------------------
+// the fp32 forward (K1 in flash_attention_fwd.cu, K4a in
+// flash_attention_kgrid.cu): 3xTF32 mma.sync on operands split once per block
+// ---------------------------------------------------------------------------
+
+constexpr float MASKED = -1e30f;  // a masked logit: exp2 of it minus any real max is an exact 0
+
+// byte address of 16-byte chunk `chunk` of row `row` in a tile of rows of CH
+// chunks (CH 2, 4 or a multiple of 8), XOR-swizzled so that chunk c of any 8
+// consecutive rows falls on 8 distinct 16-byte bank groups: an ldmatrix
+// 8x8 matrix is read in one pass. For CH >= 8 this is swz<4 * CH, float>.
+template <int CH>
+__device__ __forceinline__ uint32_t swz_rows(uint32_t tile, int row, int chunk) {
+  constexpr int PER_LINE = CH >= 8 ? 1 : 8 / CH;  // rows per 128-byte line
+  constexpr int MASK = (CH >= 8 ? 8 : CH) - 1;
+  return tile + row * (CH * 16) + ((chunk ^ ((row / PER_LINE) & MASK)) << 4);
+}
+
+__device__ __forceinline__ void sts_v4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+__device__ __forceinline__ void sts_b32(uint32_t addr, uint32_t a) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
+}
+
+// -DFWD_TF32_FLIP_SPLIT builds every fp32 forward with the other place of
+// the TF32 split than its configuration's (FwdCfg's PRESPLIT): a variant
+// that bench_attention.py --sections variants times against the kernels.
+#ifdef FWD_TF32_FLIP_SPLIT
+constexpr bool FWD_FLIP_SPLIT = true;
+#else
+constexpr bool FWD_FLIP_SPLIT = false;
+#endif
+
+// four fp32 values times `mul` as one 16-byte chunk at `off`: split into
+// TF32 halves in the big and the small tile (PRESPLIT), or as they are in
+// the big tile (each warp splits what it reads)
+template <bool PRESPLIT>
+__device__ __forceinline__ void sts_split4(uint32_t big, uint32_t small, uint32_t off, float4 x, float mul) {
+  if (!PRESPLIT) {
+    sts_v4(big + off, __float_as_uint(x.x * mul), __float_as_uint(x.y * mul), __float_as_uint(x.z * mul),
+           __float_as_uint(x.w * mul));
+    return;
+  }
+  uint32_t b[4], s[4];
+  tf32_split(x.x * mul, b[0], s[0]);
+  tf32_split(x.y * mul, b[1], s[1]);
+  tf32_split(x.z * mul, b[2], s[2]);
+  tf32_split(x.w * mul, b[3], s[3]);
+  sts_v4(big + off, b[0], b[1], b[2], b[3]);
+  sts_v4(small + off, s[0], s[1], s[2], s[3]);
+}
+
+// one split operand, element for element as ldmatrix gives it: from the big
+// and the small tile at the same offset (PRESPLIT), or read as fp32 from the
+// big tile and split here
+template <bool PRESPLIT>
+__device__ __forceinline__ void ldsm_x4_split(uint32_t (&big)[4], uint32_t (&small)[4], uint32_t big_tile,
+                                              uint32_t small_tile, uint32_t off) {
+  ldsm_x4(big, big_tile + off);
+  if (PRESPLIT) {
+    ldsm_x4(small, small_tile + off);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(big[i]), big[i], small[i]);
+  }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The shape of an fp32 forward block: SLABS slabs of 16 * WM q rows; CS
+// warps share a slab, warp `part` owning head-dim columns [part * DC, (part
+// + 1) * DC) of Q, K, V and O: it computes the slab's scores over its
+// columns, the CS partial scores are summed through shared memory (in part
+// order, so every warp of the slab holds the same bits), and it accumulates
+// O on its columns. A warp's WM 16-row m-tiles share every B fragment it
+// reads. Keys pass in TILE-key tiles; the key range splits across blocks
+// (grid z) in runs of whole UNIT keys. PRESPLIT: the block splits Q, K and V
+// into TF32 halves once, into a big and a small shared tile each; else the
+// tiles hold fp32 and each warp splits what it reads (half the shared
+// memory and its traffic, more instructions a product).
+template <int D_, int SLABS_, int CS_, int TILE_, int UNIT_, int WM_, bool PRESPLIT_>
+struct FwdCfg {
+  static constexpr int D = D_, SLABS = SLABS_, CS = CS_, TILE = TILE_, UNIT = UNIT_, WM = WM_;
+  static constexpr bool PRESPLIT = PRESPLIT_ != FWD_FLIP_SPLIT;
+  static constexpr int ROWS = 16 * WM * SLABS;
+  static constexpr int THREADS = 32 * SLABS * CS;
+  static constexpr int DC = D / CS;
+  static constexpr int CH = D / 4;     // 16-byte chunks of a Q or K row
+  static constexpr int TCH = TILE / 4;  // ... of a row of the transposed V tile
+  // shared memory (bytes): Q [ROWS][D], K [TILE][D] and V^T [D][TILE], each
+  // a big and (PRESPLIT) a small tile; the partial scores
+  static constexpr int NT = PRESPLIT ? 2 : 1;
+  static constexpr int Q_BYTES = ROWS * D * 4, KV_BYTES = TILE * D * 4;
+  static constexpr int QB = 0, QS = (NT - 1) * Q_BYTES, KB = NT * Q_BYTES, KS = KB + (NT - 1) * KV_BYTES,
+                       VB = KB + NT * KV_BYTES, VS = VB + (NT - 1) * KV_BYTES, X_OFF = VB + NT * KV_BYTES;
+  static constexpr int BYTES = X_OFF + (CS > 1 ? SLABS * CS * WM * 16 * TILE * 4 : 0);
+  // 16-byte chunks of K (and of V) a thread carries: the tile's TILE * CH
+  // over the block, the last ones partly empty where they do not divide
+  static constexpr int PREFETCH = (TILE * CH + THREADS - 1) / THREADS;
+  static constexpr bool RAGGED = (TILE * CH) % THREADS != 0;
+  static_assert(DC % 16 == 0 && TILE % 8 == 0 && UNIT % TILE == 0, "whole ldmatrix blocks; a split is whole tiles");
+  static_assert(TCH == 2 || TCH == 4 || TCH % 8 == 0, "swz_rows takes the transposed rows");
+  static_assert(BYTES <= 232448, "shared memory of one block");
+};
+
+// The fp32 forward of K1 (flash_fwd_tf32_kernel) and K4a
+// (kgrid_fwd_tf32_kernel) for one (ROWS-row q tile, batch*head, split of the
+// key range). Every product is 3xTF32 mma.sync m16n8k8 (mma_tf32x3_split)
+// on operands split into TF32 halves: by the block once, in shared memory
+// (PRESPLIT: Q, times scale * log2(e), before the key loop; each K and V tile
+// as it lands), or by each warp as it reads them. V is stored transposed
+// with its keys permuted within each 8 (position t holds key 2t, position
+// t + 4 key 2t + 1), so that P's accumulator layout is the A fragment
+// (keys_by_d_tf32's order) and V^T's B fragments come by ldmatrix. K and V
+// tiles are prefetched into registers one tile ahead (16-byte loads; keys at
+// or past the split's end are zeros), then stored after a barrier. Per tile:
+// S = Q K^T (over the warp's columns, then summed across the slab), keys
+// past the split's end masked, the online softmax in base 2 (fp32 m, l;
+// P = exp2(S - m)), O += P V on the warp's columns. splits == 1 writes
+// O = acc / l and lse = (m + log2 l) ln 2; splits > 1 writes the unnormalised
+// fp32 partials [splits, B*H, Sq](, D) for fwd_merge (m in natural-log
+// units; an empty split keeps m = MASKED, l = 0, acc = 0). Strides: q, k,
+// v, o.
+template <class C>
+__device__ __forceinline__ void fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                                         float* __restrict__ part_acc, float* __restrict__ part_m,
+                                         float* __restrict__ part_l, int H, int Sq, int Sk, Strides st,
+                                         float scale_log2) {
+  constexpr int D = C::D, TILE = C::TILE, CH = C::CH, TCH = C::TCH, DC = C::DC, NP = C::PREFETCH, WM = C::WM;
+  constexpr int NC = TILE / 8;  // 8-key chunks of a tile
+  constexpr bool PRE = C::PRESPLIT;
+  constexpr int KP_UNROLL = WM == 1 ? 2 : 1;  // two m-tiles' A fragments of two k-step pairs do not fit
+  extern __shared__ __align__(128) uint8_t fwd_smem[];
+  const uint32_t base = smem_u32(fwd_smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp / C::CS;
+  const int part = warp % C::CS;
+  const int row0 = 16 * WM * slab;  // the warp's q rows of the tile: m-tile i at row0 + 16 i
+  const int col0 = part * DC;       // and its head-dim columns [col0, col0 + DC)
+  const int c0 = col0 / 4;          // as 16-byte chunks
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * C::ROWS;
+  const int splits = gridDim.z;
+  const int split = blockIdx.z;
+  const int2 range = split_range(Sk, splits, split, C::UNIT);
+  const int lo = range.x, hi = range.y;
+  const int n_tiles = (hi - lo + TILE - 1) / TILE;
+
+  const float* qb = q + b * st.t[0][0] + h * st.t[0][2];
+  const float* kb = k + b * st.t[1][0] + h * st.t[1][2];
+  const float* vb = v + b * st.t[2][0] + h * st.t[2][2];
+
+  // K: chunk c of key r (chunks of a key on neighbouring threads, as the
+  // K tile is stored); V: key r of chunk c (keys on neighbouring threads, so
+  // that the transposed stores of a warp spread over the banks)
+  float4 kr[NP], vr[NP];
+  auto prefetch = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int i = tid + j * C::THREADS;
+      if (C::RAGGED && i >= TILE * CH) break;
+      const int rk = i / CH, ck = i - rk * CH;
+      const int rv = i % TILE, cv = i / TILE;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      kr[j] = k0 + rk < hi ? __ldg(reinterpret_cast<const float4*>(kb + (long long)(k0 + rk) * st.t[1][1] + 4 * ck))
+                           : zero;
+      vr[j] = k0 + rv < hi ? __ldg(reinterpret_cast<const float4*>(vb + (long long)(k0 + rv) * st.t[2][1] + 4 * cv))
+                           : zero;
+    }
+  };
+  if (n_tiles > 0) prefetch(lo);
+
+  // Q times scale * log2(e); rows past Sq are zeros and never stored
+  for (int i = tid; i < C::ROWS * CH; i += C::THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) x = __ldg(reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * st.t[0][1] + 4 * c));
+    sts_split4<PRE>(base + C::QB, base + C::QS, swz_rows<CH>(0, r, c), x, scale_log2);
+  }
+
+  float acc[WM][DC / 8][4];
+  float m_r[WM][2], l_r[WM][2];  // running max of the base-2 scores, rows g and g + 8; this thread's part of the sum
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    m_r[i][0] = m_r[i][1] = MASKED;
+    l_r[i][0] = l_r[i][1] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = lo + it * TILE;
+    __syncthreads();  // every warp is done with the previous tile (and Q is stored)
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int i = tid + j * C::THREADS;
+      if (C::RAGGED && i >= TILE * CH) break;
+      const int rk = i / CH, ck = i - rk * CH;
+      sts_split4<PRE>(base + C::KB, base + C::KS, swz_rows<CH>(0, rk, ck), kr[j], 1.f);
+      const int rv = i % TILE, cv = i / TILE;
+      const int pos = (rv & ~7) | ((rv & 7) >> 1) | ((rv & 1) << 2);  // key 2t -> t, 2t + 1 -> t + 4
+      const float x[4] = {vr[j].x, vr[j].y, vr[j].z, vr[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = swz_rows<TCH>(0, 4 * cv + e, pos >> 2) + 4 * (pos & 3);
+        if (PRE) {
+          uint32_t big, small;
+          tf32_split(x[e], big, small);
+          sts_b32(base + C::VB + off, big);
+          sts_b32(base + C::VS + off, small);
+        } else {
+          sts_b32(base + C::VB + off, __float_as_uint(x[e]));
+        }
+      }
+    }
+    __syncthreads();  // the tiles are stored; the registers are free for the next tile
+    if (it + 1 < n_tiles) prefetch(k0 + TILE);
+
+    // S = Q K^T over this warp's columns, two 8-deep k steps per ldmatrix:
+    // chunk c of s[i] holds keys 8c + 2t (+1) of m-tile i's rows g (e = 0, 1)
+    // and g + 8 (e = 2, 3)
+    float s[WM][NC][4];
+#pragma unroll
+    for (int i = 0; i < WM; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][c][e] = 0.f;
+#pragma unroll(KP_UNROLL)
+    for (int kp = 0; kp < DC / 16; ++kp) {
+      uint32_t qa[WM][2][4], qs[WM][2][4];
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          ldsm_x4_split<PRE>(qa[i][hh], qs[i][hh], base + C::QB, base + C::QS,
+                             swz_rows<CH>(0, row0 + 16 * i + (lane & 15), c0 + 4 * kp + 2 * hh + (lane >> 4)));
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        uint32_t kb4[4], ks4[4];
+        ldsm_x4_split<PRE>(kb4, ks4, base + C::KB, base + C::KS,
+                           swz_rows<CH>(0, 8 * j + (lane & 7), c0 + 4 * kp + (lane >> 3)));
+#pragma unroll
+        for (int i = 0; i < WM; ++i) {
+          mma_tf32x3_split(s[i][j], qa[i][0], qs[i][0], kb4[0], kb4[1], ks4[0], ks4[1]);
+          mma_tf32x3_split(s[i][j], qa[i][1], qs[i][1], kb4[2], kb4[3], ks4[2], ks4[3]);
+        }
+      }
+    }
+    if constexpr (C::CS > 1) {
+      // the slab's full scores: the CS parts summed in part order through
+      // shared memory, [part][m-tile][chunk][lane] float4 per slab
+      float4* x = reinterpret_cast<float4*>(fwd_smem + C::X_OFF) + slab * C::CS * WM * NC * 32;
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          x[((part * WM + i) * NC + c) * 32 + lane] = make_float4(s[i][c][0], s[i][c][1], s[i][c][2], s[i][c][3]);
+      bar_sync(1 + slab, 32 * C::CS);
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float4 sum = x[(i * NC + c) * 32 + lane];
+#pragma unroll
+          for (int p = 1; p < C::CS; ++p) {
+            const float4 y = x[((p * WM + i) * NC + c) * 32 + lane];
+            sum.x += y.x;
+            sum.y += y.y;
+            sum.z += y.z;
+            sum.w += y.w;
+          }
+          s[i][c][0] = sum.x;
+          s[i][c][1] = sum.y;
+          s[i][c][2] = sum.z;
+          s[i][c][3] = sum.w;
+        }
+    }
+
+    // online softmax in base 2 (Q carries scale * log2(e)); keys past the
+    // split's end are masked before the max
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      float mx[2] = {m_r[i][0], m_r[i][1]};
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (k0 + 8 * c + 2 * t + (e & 1) >= hi) s[i][c][e] = MASKED;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[i][c][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m_r[i][r] - mx[r]);
+        m_r[i][r] = mx[r];
+        l_r[i][r] *= corr[r];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][c][e] = exp2f(s[i][c][e] - m_r[i][e >> 1]);
+          l_r[i][e >> 1] += s[i][c][e];
+        }
+#pragma unroll
+      for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= corr[e >> 1];
+    }
+
+    // O[:, col0..] += P V[:, col0..]: each 8-key k step in the permuted
+    // order, A = P split from the accumulator layout, B from V^T
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) {
+      SplitA pa[WM];
+#pragma unroll
+      for (int i = 0; i < WM; ++i) pa[i] = split_a(s[i][kk][0], s[i][kk][2], s[i][kk][1], s[i][kk][3]);
+#pragma unroll
+      for (int n2 = 0; n2 < DC / 16; ++n2) {
+        uint32_t vb4[4], vs4[4];
+        ldsm_x4_split<PRE>(
+            vb4, vs4, base + C::VB, base + C::VS,
+            swz_rows<TCH>(0, col0 + 16 * n2 + ((lane >> 4) << 3) + (lane & 7), 2 * kk + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int i = 0; i < WM; ++i) {
+          mma_tf32x3_split(acc[i][2 * n2], pa[i].big, pa[i].small, vb4[0], vb4[1], vs4[0], vs4[1]);
+          mma_tf32x3_split(acc[i][2 * n2 + 1], pa[i].big, pa[i].small, vb4[2], vb4[3], vs4[2], vs4[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[i][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int qi = q0 + row0 + 16 * i + g + 8 * r;
+      if (qi >= Sq) continue;
+      if (splits == 1) {
+        const float inv = 1.f / l;
+        float* orow = o + b * st.t[3][0] + h * st.t[3][2] + (long long)qi * st.t[3][1] + col0;
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n)
+          store2(orow + 8 * n + 2 * t, acc[i][n][2 * r] * inv, acc[i][n][2 * r + 1] * inv);
+        if (part == 0 && t == 0) lse[(long long)bh * Sq + qi] = (m_r[i][r] + log2f(l)) * LN2;
+      } else {
+        const long long row = ((long long)split * gridDim.y + bh) * Sq + qi;
+        float* prow = part_acc + row * D + col0;
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n)
+          *reinterpret_cast<float2*>(prow + 8 * n + 2 * t) = make_float2(acc[i][n][2 * r], acc[i][n][2 * r + 1]);
+        if (part == 0 && t == 0) {
+          part_m[row] = m_r[i][r] == MASKED ? MASKED : m_r[i][r] * LN2;
+          part_l[row] = l;
+        }
+      }
+    }
+}
+
+// A forward's output element from fp32
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+constexpr int FWD_MERGE_THREADS = 128;
+constexpr int FWD_MAX_SPLITS = 64;
+
+// The merge of a split forward (K4a's kgrid_merge_kernel, fp32 K1's
+// flash_fwd_merge_kernel), one block per (q row, batch*head): m* = max m_s,
+// l* = sum l_s e^(m_s - m*), O = sum acc_s e^(m_s - m*) / l*, lse = m* +
+// log l*. An empty split (m = MASKED, l = 0) has weight exp(-1e30 - m*) = 0.
+template <typename T>
+__device__ __forceinline__ void fwd_merge(const float* __restrict__ part_acc, const float* __restrict__ part_m,
+                                          const float* __restrict__ part_l, T* __restrict__ o,
+                                          float* __restrict__ lse, int H, int Sq, int D, int splits, long long o_sb,
+                                          long long o_ss, long long o_sh) {
+  __shared__ float w[FWD_MAX_SPLITS];
+  __shared__ float inv_l;
+  const int qi = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const long long plane = (long long)gridDim.y * Sq;  // rows per split
+  const long long row = (long long)bh * Sq + qi;
+  if (threadIdx.x == 0) {
+    float m_star = MASKED;
+    for (int s = 0; s < splits; ++s) m_star = fmaxf(m_star, part_m[s * plane + row]);
+    float l_star = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      w[s] = expf(part_m[s * plane + row] - m_star);
+      l_star += part_l[s * plane + row] * w[s];
+    }
+    inv_l = 1.f / l_star;
+    lse[row] = m_star + logf(l_star);
+  }
+  __syncthreads();
+  T* orow = o + b * o_sb + h * o_sh + (long long)qi * o_ss;
+  for (int col = threadIdx.x; col < D; col += FWD_MERGE_THREADS) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc = fmaf(part_acc[(s * plane + row) * D + col], w[s], acc);
+    store1(orow + col, acc * inv_l);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -941,6 +1375,37 @@ inline int launch_bwd_dkv(Kernel kernel, Merge merge, uint64_t& smem_set, const 
   const long long pairs = (long long)B * H * Sk * C::D / 2;
   merge<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(part_dk, part_dv, static_cast<T*>(dk),
                                                               static_cast<T*>(dv), B * H, H, Sk, splits, st);
+  return (int)cudaGetLastError();
+}
+
+// The launch of an fwd_tf32 kernel (fp32 K1, K4a) of shape C over a grid of
+// (q tiles, B*H, splits), then of its fwd_merge kernel when split. The
+// 16-byte loads need q, k and v rows on 16 bytes (else
+// cudaErrorInvalidValue); o is written with float2 stores. Strides (12): q,
+// k, v, o.
+template <class C, typename Kernel, typename Merge>
+inline int launch_fwd_tf32(Kernel kernel, Merge merge, uint64_t& smem_set, const void* q, const void* k,
+                           const void* v, void* o, float* lse, float* part_acc, float* part_m, float* part_l, int B,
+                           int H, int Sq, int Sk, int splits, const long long* s, float scale, cudaStream_t stream) {
+  if (!rows_aligned(q, s[0], s[1], s[2], B, Sq, H, 4) || !rows_aligned(k, s[3], s[4], s[5], B, Sk, H, 4) ||
+      !rows_aligned(v, s[6], s[7], s[8], B, Sk, H, 4))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > FWD_MAX_SPLITS || (splits > 1 && (part_acc == nullptr || part_m == nullptr ||
+                                                               part_l == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, C::BYTES, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  Strides st{};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) st.t[i][j] = s[3 * i + j];
+  dim3 grid((Sq + C::ROWS - 1) / C::ROWS, B * H, splits);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                                 static_cast<const float*>(v), static_cast<float*>(o), lse, part_acc,
+                                                 part_m, part_l, H, Sq, Sk, st, scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  merge<<<dim3(Sq, B * H), FWD_MERGE_THREADS, 0, stream>>>(part_acc, part_m, part_l, static_cast<float*>(o), lse, H,
+                                                           Sq, C::D, splits, s[9], s[10], s[11]);
   return (int)cudaGetLastError();
 }
 

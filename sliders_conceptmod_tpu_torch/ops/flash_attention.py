@@ -50,9 +50,23 @@ passes each (494.7 / 3 = 164.9 TFLOP/s). The designs, by dtype:
   make one contiguous copy of a tensor that fails the check
   (:func:`_aligned`).
 * float32 (null-text inversion editing, every ``precision: float32``
-  config):
+  config), every product on the tensor cores as ``mma.sync`` m16n8k8 TF32
+  issued three times over operands split into TF32 halves (x = big +
+  small; big·big + big·small + small·big):
 
-  - K1: the first (SIMT) kernel, fp32 math on the CUDA cores.
+  - K1 (PR 23; ``csrc/hopper_tc.cuh``: ``fwd_tf32``, K4a's body too): 128 q
+    rows per block — at d 64 four warps of two 16-row m-tiles, so every K
+    and V fragment a warp reads feeds two products; at d 128 eight warps of
+    one — against 16-key tiles. Q (times scale·log₂e) is split once
+    per block before the key loop and each K and V tile once as it comes in,
+    into big and small shared tiles the warps read with ``ldmatrix``; V is
+    stored transposed with its keys permuted within each 8, so that P's
+    accumulator layout is the A fragment of O += PV. Tiles are prefetched
+    into registers a tile ahead. Where its blocks leave SMs idle the key
+    range splits (:func:`pick_k1_splits`) and a merge kernel (K4a's)
+    combines the partials. At SD1.5's 4096² (d 40 run at 64) 0.709 ms, 18 %
+    of the 3×TF32 bound, 0.54× SDPA's fp32 forward (the first SIMT kernel:
+    2.64–2.66 ms; NVIDIA H100 80GB HBM3, 700.00 W; ``PERF.md``).
   - K2 and K3: the bf16 kernels' loops (the same blocks, rings, splits and
     merges) with fp32 tiles and every product on the tensor cores as
     ``mma.sync`` m16n8k8 TF32 issued three times over operands split into
@@ -134,7 +148,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # exported C functions of each library and their ctypes argument types
 _SIGNATURES = {
-    "fwd": {"flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_STRIDES, ctypes.c_float, _P]},
+    "fwd": {"flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P]},
     "bwd": {
         "flash_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
         "flash_attention_bwd_dkv": [_P] * 10 + [_I] * 7 + [_STRIDES, ctypes.c_float, _P],
@@ -150,14 +164,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 build_info: Dict[str, dict] = {}  # per source name: path, seconds, cached, ptxas
 
-# Splitting a kernel's sequential loop across blocks (K2 and K3 here, K4a,
-# K4b and K4c in ops/flash_attention_kgrid.py): two waves of blocks over the
-# H100's 132 SMs, at least 4 loop tiles per split, at most 64 splits.
+# Splitting a kernel's sequential loop across blocks (fp32 K1, K2 and K3
+# here, K4a, K4b and K4c in ops/flash_attention_kgrid.py): two waves of
+# blocks over the H100's 132 SMs, at least 4 loop tiles per split, at most 64
+# splits.
 MAX_SPLITS = 64
 TARGET_BLOCKS = 2 * 132
 MIN_TILES_PER_SPLIT = 4
 K2_TILE = 64  # K2's q rows per block, and the unit of its key-range split
 K3_TILE = 64  # K3's keys per block, and the unit of its query-range split
+K1_ROWS, K1_SPLIT_KEYS = 128, 32  # fp32 K1's q rows per block and the unit of its key-range split
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -186,6 +202,19 @@ def _check_splits(splits: int) -> int:
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
     return splits
+
+
+def pick_k1_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.float32) -> int:
+    """K1's split count of the key range for ``bh`` = batch·heads. The fp32
+    kernel (blocks: one per 128-row q tile and batch·head; tiles: the 32-key
+    units) splits only where its blocks leave SMs idle, fewer than one an SM:
+    two of its blocks share an SM at d 64, so 132–263 blocks already fill the
+    card (SD1.5's 4096², 256 blocks, runs unsplit); below that, the rule of
+    the other kernels. The bf16 kernel does not split: 1."""
+    blocks = _cdiv(sq, K1_ROWS) * bh
+    if dtype == torch.bfloat16 or blocks >= TARGET_BLOCKS // 2:
+        return 1
+    return _fill_splits(blocks, _cdiv(sk, K1_SPLIT_KEYS))
 
 
 def pick_k2_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -414,9 +443,8 @@ def _check_kernel_inputs(*tensors: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` when its base and its batch/seq/head strides (of dims longer
-    than 1) sit on 16 bytes, as TMA (K1, K4a) and 16-byte loads (K2, K3)
-    need for bf16 rows (K2 and K3 for fp32 rows too); else one contiguous
-    copy, which does."""
+    than 1) sit on 16 bytes, as TMA (bf16 K1, K4a) and 16-byte loads (every
+    other kernel, both dtypes) need; else one contiguous copy, which does."""
     b, s, h, _ = t.shape  # one read of the shape, the strides and the base: this runs on every call
     sb, ss, sh, _ = t.stride()
     item = t.element_size()
@@ -438,21 +466,30 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: Optional[int] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 (or its plain version for CPU tensors), without autograd."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check_kernel_inputs(q, k, v)
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's TMA loads
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, sq, h, d = q.shape
+    sk = k.shape[1]
+    splits = _check_splits(pick_k1_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
+    if q.dtype == torch.bfloat16 and splits != 1:
+        raise ValueError(f"the bf16 K1 kernel does not split the key range (splits={splits})")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)  # TMA (bf16) and 16-byte loads (fp32)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    part_acc = part_m = part_l = None
+    if splits > 1:
+        part_acc = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
+        part_m, part_l = (torch.empty((splits, b * h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
     lib = _library("fwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, out), float(scale), _stream(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(part_acc), _ptr(part_m),
+            _ptr(part_l), _DTYPE_CODES[q.dtype], b, h, sq, sk, d, splits, _strides(q, k, v, out), float(scale),
+            _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
@@ -461,22 +498,25 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Tup
 
 
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None, *,
+    splits: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional attention, BSHD. Returns ``(out [B,Sq,H,D], lse [B·H,Sq])``.
 
     CPU tensors go through :func:`flash_attention_reference`. CUDA tensors
-    launch kernel K1 on the current stream; the head dim must be 64 or 128,
-    the dtype float32 or bfloat16, and the head-dim stride 1. When autograd
-    needs a graph (grad mode on and an input that requires grad) the call
-    goes through :class:`FlashAttention`: ``out`` is differentiable, ``lse``
-    is not."""
+    launch kernel K1 on the current stream (fp32: plus its merge when the
+    key range is split); the head dim must be 64 or 128, the dtype float32 or
+    bfloat16, and the head-dim stride 1. ``splits`` forces fp32 K1's split
+    count (tests; bf16 takes only 1); ``None`` lets :func:`pick_k1_splits`
+    choose. When autograd needs a graph (grad mode on and an input that
+    requires grad) the call goes through :class:`FlashAttention`: ``out`` is
+    differentiable, ``lse`` is not."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, float(scale))
-    return _fwd(q, k, v, scale)
+        return FlashAttention.apply(q, k, v, float(scale), splits)
+    return _fwd(q, k, v, scale, splits)
 
 
 flash_attention_fwd.launches = 0
@@ -564,12 +604,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale) -> Tuple[torch.Tensor, torch
 
 
 class FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 + K3 backward. ``apply(q, k, v, scale) → (out, lse)``;
-    lse is returned for the caller and is not differentiable."""
+    """K1 forward, K2 + K3 backward. ``apply(q, k, v, scale, splits) →
+    (out, lse)``; ``splits`` is fp32 K1's (None: the launcher's choice); lse
+    is returned for the caller and is not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = _fwd(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, splits=None):
+        out, lse = _fwd(q, k, v, scale, splits)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)
@@ -581,4 +622,4 @@ class FlashAttention(torch.autograd.Function):
         if d_out.stride(-1) != 1:  # the kernels read dO with unit head-dim stride
             d_out = d_out.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, d_out, ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None

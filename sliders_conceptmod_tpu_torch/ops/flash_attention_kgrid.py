@@ -10,8 +10,13 @@ the input dtype — for the head dims K1 does not take: multiples of 64 up to
 512. bf16 runs on the tensor cores (``wgmma`` fed by TMA, 64 q rows per
 block, up to two consumer warpgroups that each own a slice of O's columns;
 20 % of the bound at the VAE decode's 16384², d 512, on an NVIDIA H100 80GB
-HBM3 at 700 W, ``PERF.md``); fp32 keeps the first (SIMT) kernel, fp32 math
-on the CUDA cores. K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are
+HBM3 at 700 W, ``PERF.md``). fp32 runs K1's fp32 body (``mma.sync`` TF32
+three times a product) at 32 q rows per block, with two (d 128) or four
+warps sharing each 16-row slab above d 64 (each owning a slice of the head dim:
+its partial scores are summed across the slab, its O columns stay in its
+registers) and every warp splitting the operands it reads into TF32 halves,
+which measured faster here than splitting once per block (``PERF.md``).
+K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are
 its backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
 lse, K4c dK and dV from δ. bf16 runs them on the tensor cores (``mma.sync``
 fed by ``cp.async``, K2's and K3's loops with the gradient columns split
@@ -24,7 +29,7 @@ backward).
 The TPU kernels carry their sums in scratch along a sequential grid axis. On
 the card that axis becomes a loop inside the block over tiles of rows, and
 where the grid is too small for the H100's 132 SMs the loop's range is split
-across blocks: K4a splits the key range — in 32-key tiles for fp32, in
+across blocks: K4a splits the key range — in 32-key units for fp32, in
 64-key units for bf16 (:func:`split_unit`); each split writes unnormalised
 fp32 partials and a second small kernel merges them: ``m* = max mₛ``,
 ``l* = Σ lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log
@@ -76,16 +81,16 @@ from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     split_ranges as _split_ranges,
 )
 
-BQ, BK = 32, 32  # fp32 K4a's q rows per block and keys per tile; K4b/K4c's streamed rows per tile
+BQ, BK = 32, 32  # fp32 K4a's q rows per block and its split unit (keys); K4b/K4c's streamed rows per tile
 TC_BQ, TC_SPLIT_KEYS = 64, 64  # bf16 K4a's q rows per block and the unit of its key-range split
 KGRID_HEAD_DIMS = tuple(range(64, 513, 64))
 NEG_INF = -1e30  # as in the kernel: exp(NEG_INF − m) is an exact 0
 
 
 def split_unit(dtype: torch.dtype) -> int:
-    """Keys per unit of K4a's key-range split for inputs of ``dtype``: the
-    fp32 kernel's 32-key tile, or 64 for the bf16 kernel (whose 32- or
-    64-key tiles both divide it)."""
+    """Keys per unit of K4a's key-range split for inputs of ``dtype``: 32
+    for the fp32 kernel (whose 32-, 16- or 8-key tiles divide it), or 64
+    for the bf16 kernel (whose 32- or 64-key tiles both divide it)."""
     return TC_SPLIT_KEYS if dtype == torch.bfloat16 else BK
 
 
@@ -268,8 +273,7 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits
     b, sq, h, d = q.shape
     sk = k.shape[1]
     splits = _check_splits(pick_splits(b * h, sq, sk, q.dtype) if splits is None else splits)
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's TMA loads
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)  # TMA (bf16) and 16-byte loads (fp32)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     part_acc = part_m = part_l = None

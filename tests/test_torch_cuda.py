@@ -9,7 +9,10 @@ heads of 64) and the tiny prior and an ESD step against the CPU; an fp32
 null-text optimisation step and the attention controllers' launches; the
 baselines' token growth and K/V patch against the CPU; fp32 K2/K3 on the
 tensor cores (3xTF32) at every shape of a null-text inner step, ragged,
-strided and unaligned, with forced splits and bit-equal repeats. Marked
+strided and unaligned, with forced splits and bit-equal repeats; fp32 K1
+and K4a on the tensor cores at every forward shape of a null-text inner
+step and every head dim they are built for, ragged, strided and unaligned,
+with forced splits and bit-equal repeats. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -167,8 +170,8 @@ def test_kgrid_empty_splits_and_strided_views(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kgrid_unaligned_views_match_contiguous_copies(gen, dtype):
     """Views whose rows do not start on 16 bytes (an offset of one element,
-    a row stride of d + 1) take the element-by-element staging; contiguous
-    copies take the 16-byte one. Both stage the same values."""
+    a row stride of d + 1) are copied once by the wrapper, whose 16-byte loads
+    (TMA in bf16) need aligned rows: the contiguous copies' bits."""
     b, s, h, d = 2, 70, 2, 512
     q, k, v = (_rand(gen, (b, s, h, d + 1), dtype)[..., 1:] for _ in range(3))
     for splits in (1, 3):
@@ -507,19 +510,19 @@ def test_autograd_through_the_dispatch_in_bf16(gen, d):
 
 
 def _kernel_names(fn):
-    """Names of the kernels ``fn`` runs on the card (torch.profiler). The
-    profiler now and then returns a window with no device activity at all:
-    such a window is taken again, up to three times."""
+    """Names of the kernels ``fn`` runs on the card (torch.profiler): the
+    union over three windows of one call each. The profiler now and then
+    drops some or all of a window's kernel events (a window with no event at
+    all; one that held K4c's merge but not K4c), never adds one."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = set()
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")}
-        if names:
-            return names
+        names |= {e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")}
     return names
 
 
@@ -600,10 +603,10 @@ def test_tensor_core_k2_takes_strided_do_head_slices_and_unaligned_views(gen):
 def test_k2_and_k4a_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen):
     """The kernels that run, by name: bf16 K2 is flash_bwd_dq_tc_kernel and
     fp32 K2 the 3xTF32 flash_bwd_dq_tf32_kernel (each with its merge when
-    split); bf16 K4a is kgrid_fwd_tc_kernel, fp32 K4a the SIMT
-    kgrid_fwd_kernel."""
+    split); bf16 K4a is kgrid_fwd_tc_kernel, fp32 K4a the 3xTF32
+    kgrid_fwd_tf32_kernel (the SIMT kernels are gone)."""
     for dtype, want_k2, want_k4a in ((torch.bfloat16, "flash_bwd_dq_tc_kernel", "kgrid_fwd_tc_kernel"),
-                                     (torch.float32, "flash_bwd_dq_tf32_kernel", "kgrid_fwd_kernel")):
+                                     (torch.float32, "flash_bwd_dq_tf32_kernel", "kgrid_fwd_tf32_kernel")):
         q, k, v, o, lse, do = _bwd_inputs(gen, (1, 1024, 1024, 10, 64), dtype)
         names = _kernel_names(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, 0.125))
         assert any(want_k2 in n for n in names), names
@@ -788,6 +791,127 @@ def test_tensor_core_k4a_takes_head_slices_and_unaligned_views(gen, d):
         out_c, lse_c = kg.flash_attention_kgrid_fwd(q.contiguous(), k.contiguous(), v.contiguous())
         assert kg.flash_attention_kgrid_fwd.launches == before + 2
         assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+
+
+# --- fp32 K1 and K4a on the tensor cores (3xTF32 mma.sync, operands split once per block)
+
+# null-text inversion editing (SD1.5 at 512px, fp32, rows 1, 8 heads): every
+# forward of an inner step, (Sq, Sk, unpadded head dim); d 40/80 run K1 at
+# 64/128, d 160 K4a at 192
+EDIT_FWD_SHAPES = EDIT_K23_SHAPES + [(256, 256, 160), (256, 77, 160), (64, 64, 160), (64, 77, 160)]
+
+
+def _fp32_fwd(q, k, v, splits=None, scale=None):
+    """fp32 K1 (d <= 128) or K4a against its plain version (K4a's cut into
+    the same key ranges), O and lse each within 1e-4·max(1, |ref|); a
+    repeated call gives the same bits. Returns (O, lse)."""
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    if d <= 128:
+        got = fa.flash_attention_fwd(q, k, v, scale, splits=splits)
+        again = fa.flash_attention_fwd(q, k, v, scale, splits=splits)
+        want = fa.flash_attention_reference(q, k, v, scale)
+    else:
+        got = kg.flash_attention_kgrid_fwd(q, k, v, scale, splits=splits)
+        again = kg.flash_attention_kgrid_fwd(q, k, v, scale, splits=splits)
+        want = kg.flash_attention_kgrid_reference(q, k, v, scale, splits=splits)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "lse"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol, (name, tuple(q.shape), k.shape[1], splits)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("sq,sk,d", EDIT_FWD_SHAPES, ids=lambda x: str(x))
+def test_fp32_k1_k4a_at_the_edit_shapes(gen, sq, sk, d):
+    """fp32 K1 and K4a at every forward shape of a null-text inner step, on
+    inputs zero-padded as ops/attention.py pads them, with the splits their
+    rules pick (K1 3 at 1024², K4a 2 at 256²): one launch, no plain version
+    on the card, within the fp32 bound."""
+    pad = -d % 64
+    q, k, v = (torch.nn.functional.pad(_rand(gen, (1, s, 8, d), torch.float32), (0, pad)) for s in (sq, sk, sk))
+    wrapper = fa.flash_attention_fwd if d + pad <= 128 else kg.flash_attention_kgrid_fwd
+    plain = (fa.flash_attention_reference.cuda_calls, kg.flash_attention_kgrid_reference.cuda_calls)
+    before = wrapper.launches
+    wrapper(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert (fa.flash_attention_reference.cuda_calls, kg.flash_attention_kgrid_reference.cuda_calls) == plain
+    _fp32_fwd(q, k, v, scale=d**-0.5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_k1_on_ragged_lengths_with_forced_splits(gen, d):
+    """fp32 K1 with Sq and Sk off its 128-row q tiles and 16-key tiles, one
+    query and one key, large logits (q x 3: a peaked softmax), the key range
+    split 1, 2 and 64 ways (empty splits included)."""
+    for sq, sk in ((65, 77), (65, 129), (1, 300), (300, 1), (1, 1), (129, 4097)):
+        q = _rand(gen, (2, sq, 3, d), torch.float32, scale=3.0)
+        k, v = (_rand(gen, (2, sk, 3, d), torch.float32) for _ in range(2))
+        for splits in (1, 2, fa.MAX_SPLITS):
+            _fp32_fwd(q, k, v, splits)
+
+
+@pytest.mark.parametrize("d", kg.KGRID_HEAD_DIMS)
+def test_fp32_k4a_at_every_head_dim_ragged_with_forced_splits(gen, d):
+    """fp32 K4a at every head dim it is built for (one, two and four warps a
+    slab; 32-, 16- and 8-key tiles) with Sq and Sk off its tiles, one query
+    and one key, large logits, the key range split 1, 2 and 64 ways."""
+    for sq, sk in ((65, 77), (65, 129), (1, 300), (300, 1), (1, 1)):
+        q = _rand(gen, (2, sq, 2, d), torch.float32, scale=3.0)
+        k, v = (_rand(gen, (2, sk, 2, d), torch.float32) for _ in range(2))
+        for splits in (1, 2, fa.MAX_SPLITS):
+            _fp32_fwd(q, k, v, splits)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 512])
+def test_fp32_k1_k4a_take_head_slices_and_unaligned_views(gen, d):
+    """fp32 q, k, v as head slices of wider tensors (read with their
+    strides) and as views off 16 bytes (copied once by the wrapper): the
+    contiguous copies' bits, one launch each."""
+    wrapper = fa.flash_attention_fwd if d <= 128 else kg.flash_attention_kgrid_fwd
+    b, h = 2, 2
+    for make in (lambda s: _rand(gen, (b, s, 2 * h, d), torch.float32)[:, :, 1::2],
+                 lambda s: _rand(gen, (b, s, h, d + 4), torch.float32)[..., 1:d + 1]):
+        q, k, v = make(200), make(77), make(77)
+        assert not q.is_contiguous()
+        before = wrapper.launches
+        got = _fp32_fwd(q, k, v)
+        assert wrapper.launches == before + 2  # the check's call and its repeat
+        want = wrapper(q.contiguous(), k.contiguous(), v.contiguous())
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_fp32_k1_k4a_run_the_tf32_kernels(gen):
+    """By name: fp32 K1 is flash_fwd_tf32_kernel (with flash_fwd_merge_kernel
+    when split: 3 splits at 1024² with 8 heads) and fp32 K4a
+    kgrid_fwd_tf32_kernel (with kgrid_merge_kernel: 3 splits at 4096², one
+    head); no tensor-core bf16 kernel runs and no SIMT forward exists any
+    more."""
+    x = _rand(gen, (1, 1024, 8, 128), torch.float32)
+    names = _kernel_names(lambda: fa.flash_attention_fwd(x, x, x))
+    assert any("flash_fwd_tf32_kernel" in n for n in names), names
+    assert any("flash_fwd_merge_kernel" in n for n in names), names
+    assert not any("_tc_" in n for n in names), names
+    y = _rand(gen, (1, 4096, 1, 512), torch.float32)
+    names = _kernel_names(lambda: kg.flash_attention_kgrid_fwd(y, y, y))
+    assert any("kgrid_fwd_tf32_kernel" in n for n in names), names
+    assert any("kgrid_merge_kernel" in n for n in names), names
+    assert not any("_tc_" in n for n in names), names
+
+
+def test_bf16_k1_refuses_a_forced_split(gen):
+    """The bf16 K1 kernel does not split its key range: a forced count above
+    1 raises before any launch."""
+    q = _rand(gen, (1, 64, 2, 64), torch.bfloat16)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q, splits=2)
+    fa.flash_attention_fwd(q, q, q, splits=1)
+    assert fa.flash_attention_fwd.launches == before + 1
 
 
 # --- the tensor-core kernels K4b and K4c (mma.sync, cp.async) on bf16
