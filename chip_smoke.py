@@ -77,10 +77,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   320 and 512, on head slices and views off 16 bytes. Times
                   the kernel (events, device time, host µs per call), its
                   plain version and SDPA's forward (a yardstick) at every
-                  path shape in bf16, with the bound and its share, and in
-                  fp32 at the VAE's 4096² and 16384² (rows 1, d 512) against
-                  the 3×TF32 bound and SDPA in fp32 (the efficient backend,
-                  else the backend that takes d 512, named).
+                  path shape in bf16, with the bound and its share (fp32
+                  K4a is timed by bench_attention.py's fp32 section).
 5. kernel_kgrid_bwd — K4b (dQ, δ) and K4c (dK, dV) against their plain
                   versions at SD1.5's d-160 attentions (8 heads, zero-padded
                   to 192; bound_ms at d 160): the 512px ESD student (256²,
@@ -1164,25 +1162,6 @@ def phase_kernel(gen: torch.Generator) -> list:
     return results
 
 
-def sdpa_fp32(q, k, v, iters: int) -> tuple:
-    """SDPA in fp32 on the same BSHD tensors: (event ms, device ms, the
-    backend): the efficient backend (CUTLASS's 3×TF32), else the math one
-    where the efficient backend refuses the head dim."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
-        def call():
-            with sdpa_kernel([backend]):
-                return F.scaled_dot_product_attention(qt, kt, vt)
-        try:
-            ms = cuda_ms(call, iters)
-        except RuntimeError:
-            continue
-        return ms, device_ms(call, iters), backend.name
-    return None, None, None
-
-
 def sdpa_ms(q, k, v, iters: int):
     """F.scaled_dot_product_attention on the same BSHD tensors, or None when
     no backend takes them."""
@@ -1202,7 +1181,7 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
     consumer warpgroups); head slices and views off 16 bytes bit-equal to
     contiguous copies; the fp32 kernel's forced splits. Returns the timed
     rows and every check's error."""
-    rows_out, fp32_rows, errors = [], [], []
+    rows_out, errors = [], []
     for dtype in (torch.bfloat16, torch.float32):
         for name, rows, sq, sk, h, d in KGRID_PATH_SHAPES:
             q, k, v = (path_randn(gen, (rows, n, h), d, dtype) for n in (sq, sk, sk))
@@ -1230,15 +1209,6 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
                 row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], row["bound_ms"],
                                  row["library_device_ms"]))
                 rows_out.append(row)
-            elif rows == 1 and d == 512:  # fp32 at the VAE's 4096² (SD1.5's edit) and 16384² (SD3's 1024px decode)
-                k4a = lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale)  # noqa: E731
-                row.update(kernel_ms=cuda_ms(k4a, 3), device_ms=device_ms(k4a, 3),
-                           plain_ms=cuda_ms(lambda: kg.flash_attention_kgrid_reference(q, k, v, scale), 2))
-                row["library_ms"], row["library_device_ms"], row["library"] = sdpa_fp32(q, k, v, 3)
-                row["bound_ms"], row["bound_by"] = bound(rows, sq, sk, h, d, dtype)
-                row.update(rates(4 * rows * h * sq * sk * d, row["device_ms"], row["bound_ms"],
-                                 row["library_device_ms"]))
-                fp32_rows.append(row)
             emit(row)
             del q, k, v
             torch.cuda.empty_cache()
@@ -1337,7 +1307,7 @@ def phase_kernel_kgrid(gen: torch.Generator) -> tuple:
             if not same or launched != 2:
                 raise AssertionError(f"fp32 K4a on {kind} views: {checks[-1]}")
     emit(dict(phase="kernel_kgrid", forced_splits_ragged_views_fp32=checks))
-    return rows_out, fp32_rows, errors
+    return rows_out, errors
 
 
 # (name, rows, Sq, Sk): K4b/K4c's calls on the SD1.5 training paths, the
@@ -5464,7 +5434,7 @@ def main() -> int:
     image_eval_seconds = time.time() - t_image
     k1_rows = phase_kernel(gen)
     bwd_rows, k1_train_rows = phase_kernel_bwd(gen)
-    kgrid_rows, kgrid_fp32_rows, kgrid_errors = phase_kernel_kgrid(gen)
+    kgrid_rows, kgrid_errors = phase_kernel_kgrid(gen)
     kgrid_bwd_rows, k4b_errors, k4c_errors = phase_kernel_kgrid_bwd(gen)
     k1_sd_errors, k4a_sd_errors = phase_kernel_sd_serve(gen)
     sd3_k1_rows, sd3_bwd_rows = phase_kernel_joint(gen)
@@ -5808,10 +5778,6 @@ def main() -> int:
             share_of_bound=kgrid_main["share_of_bound"],
             over_library=kgrid_main["over_library"],
             at=f"{kgrid_main['shape']} rows={kgrid_main['rows']} heads=1 d={kgrid_main['head_dim']} bf16",
-            fp32=[{k: r[k] for k in ("shape", "rows", "splits", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
-                                     "library_ms", "library_device_ms", "library", "tflops", "share_of_bound",
-                                     "over_library", "max_abs_err")}
-                  for r in kgrid_fp32_rows],
         ),
         dict(
             name="flash_attention_kgrid_bwd_dq",

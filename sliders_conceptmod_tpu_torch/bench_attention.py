@@ -43,15 +43,13 @@ each against its plain version, its fp32 bound and SDPA in fp32 with the
 efficient backend pinned; then K4a alone at the fp32 VAEs' mid-block, one
 head of 512 at 4096² (SD1.5's encode and decode in the edit) and 16384²
 (SD3's 1024px decode), against SDPA's efficient backend or, where that
-refuses d 512, the backend that takes it, named), ``variants`` (fp32 K1
-and K4a as built against the same sources built with
-``-DFWD_TF32_FLIP_SPLIT``, which moves each one's TF32 split to the other
-place — K1 splits its operands once per block, K4a in every warp — at the
-edit and VAE shapes, device time, in turns: built, flipped, flipped, built;
-skipped for a tree without the switch), ``edit`` (one null-text inner step of the
+refuses d 512, the backend that takes it, named), ``edit`` (one null-text inner step of the
 full-width SD1.5 UNet in fp32 with seeded weights, profiled, and the
 launches of a demo-default edit; then the tree's ``chip_smoke.py`` edit
-phase over the directory its load phase writes) and ``digest``.
+phase over the directory its load phase writes), ``smoke`` (the seconds of
+the tree's ``chip_smoke.py`` kernel and kernel_kgrid phases, run as its main
+runs them: what the smoke's kernel checks cost against its time limit) and
+``digest``.
 """
 
 from __future__ import annotations
@@ -140,7 +138,7 @@ EDIT_STEPS, EDIT_INNER_STEPS, EDIT_SCALES = 50, 10, 3
 # the least time of fp32-accurate work on the H100: products as three TF32
 # tensor-core passes (494.7 TFLOP/s / 3), bytes at HBM3's rate
 FP32_PEAK_FLOPS, PEAK_BYTES = 494.7e12 / 3, 3.35e12
-SECTIONS = ("kernels", "fp32", "variants", "edit", "digest")
+SECTIONS = ("kernels", "fp32", "edit", "smoke", "digest")
 
 
 def fp32_bound(kind: str, bh: int, sq: int, sk: int, d: int) -> tuple:
@@ -182,31 +180,6 @@ def _event_ms(torch, fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph_ms(torch, fn, iters: int) -> float:
-    """Device ms per call of ``fn`` with no host time in it: ``iters`` calls
-    captured in one CUDA graph, replayed between two events. Unlike
-    ``_device_ms`` it cannot lose a kernel: torch.profiler now and then drops
-    some of a window's kernel events (a fp32 K1 row read 2.14 ms of device
-    time where its events read 2.70)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # the first call (builds, allocates) outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -271,9 +244,9 @@ def worker(tree: str, sections) -> int:
         x = torch.randn((*lead, d), generator=gen, device="cuda").to(dtype)
         return F.pad(x, (0, -d % 64)) if d % 64 else x
 
-    def sdpa_fwd_ms(qt, kt, vt):  # None where no backend takes the head dim
+    def sdpa_fwd_ms(qt, kt, vt, iters: int = 10):  # None where no backend takes the head dim
         try:
-            return _device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+            return _device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
         except RuntimeError:
             return None
 
@@ -390,14 +363,19 @@ def worker(tree: str, sections) -> int:
         K2+K3 and K4b+K4c pairs), each output against its plain version."""
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
-        def efficient(fn):  # None where the efficient backend refuses the call
-            def run(*a):
+        def pinned(fn, backends=("EFFICIENT_ATTENTION",)):
+            """``fn()`` (an SDPA time) with SDPA pinned to the first of
+            ``backends`` that takes the call, and that backend's name; (None,
+            None) where none does."""
+            for name in backends:
                 try:
-                    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                        return fn(*a)
+                    with sdpa_kernel([getattr(SDPBackend, name)]):
+                        ms = fn()
                 except RuntimeError:
-                    return None
-            return run
+                    ms = None
+                if ms is not None:
+                    return ms, name
+            return None, None
 
         for name, sq, sk, h, d, rows in EDIT_SHAPES:
             scale = d**-0.5
@@ -442,8 +420,8 @@ def worker(tree: str, sections) -> int:
                 dev = row[f"{kern}_device_ms"]
                 row[f"{kern}_share_of_bound"] = row[f"{kern}_bound_ms"] / dev if dev else None
             qt, kt, vt = (x[..., :d].transpose(1, 2) for x in (q, k, v))
-            row["sdpa_fwd_device_ms"] = efficient(sdpa_fwd_ms)(qt, kt, vt)
-            row["sdpa_bwd_device_ms"] = efficient(sdpa_bwd_ms)(q, k, v, do, d)
+            row["sdpa_fwd_device_ms"] = pinned(lambda: sdpa_fwd_ms(qt, kt, vt))[0]
+            row["sdpa_bwd_device_ms"] = pinned(lambda: sdpa_bwd_ms(q, k, v, do, d))[0]
             pair = [row[f"{kern}_device_ms"] for kern in ids[1:]]
             row["bwd_pair_device_ms"] = sum(pair) if all(pair) else None
             for key, ms, lib in (("fwd_over_sdpa", row[f"{ids[0]}_device_ms"], row["sdpa_fwd_device_ms"]),
@@ -470,76 +448,13 @@ def worker(tree: str, sections) -> int:
             dev = row["k4a_device_ms"]
             row["k4a_share_of_bound"] = row["k4a_bound_ms"] / dev if dev else None
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
-                def sdpa():
-                    with sdpa_kernel([backend]):
-                        return F.scaled_dot_product_attention(qt, kt, vt)
-                try:
-                    row["sdpa_fwd_device_ms"] = _device_ms(torch, sdpa, 3)
-                except RuntimeError:
-                    continue
-                row["sdpa_backend"] = backend.name
-                break
-            lib = row.get("sdpa_fwd_device_ms")
+            row["sdpa_fwd_device_ms"], row["sdpa_backend"] = pinned(lambda: sdpa_fwd_ms(qt, kt, vt, 3),
+                                                                    ("EFFICIENT_ATTENTION", "MATH"))
+            lib = row["sdpa_fwd_device_ms"]
             row["fwd_over_sdpa"] = dev / lib if dev and lib else None
             print(json.dumps(row), flush=True)
             del q, k, v
             torch.cuda.empty_cache()
-
-    def variants():
-        """fp32 K1 and K4a as built against the flipped build (see the
-        module's docstring), device ms per call at EDIT_SHAPES and
-        FP32_VAE_SHAPES (CUDA graphs: this section's profiler windows lost
-        up to a third of their events), two runs of each in turns."""
-        import ctypes
-
-        if "FWD_TF32_FLIP_SPLIT" not in (fa.CSRC / "hopper_tc.cuh").read_text():
-            return
-        built = {n: fa._library(n) for n in ("fwd", "kgrid")}
-        # compiled from a copy of the sources, under names of their own
-        work = fa.BUILD_DIR / "flip_split"
-        work.mkdir(parents=True, exist_ok=True)
-        for src in [fa.SOURCES[n] for n in built] + sorted(fa.CSRC.glob("*.cuh")):
-            (work / src.name).write_bytes(src.read_bytes())
-        paths = {n: work / f"{fa._library_path(n).stem}.so" for n in built}
-        procs = {n: subprocess.Popen([fa._nvcc(), *fa.NVCC_FLAGS, "-DFWD_TF32_FLIP_SPLIT", "-o", str(paths[n]),
-                                      str(work / fa.SOURCES[n].name)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True)
-                 for n in built}
-        flipped = {}
-        for n, proc in procs.items():
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc -DFWD_TF32_FLIP_SPLIT failed on {fa.SOURCES[n].name}:\n{err[-4000:]}")
-            flipped[n] = ctypes.CDLL(str(paths[n]))
-            for fn_name, argtypes in fa._SIGNATURES[n].items():
-                fn = getattr(flipped[n], fn_name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        try:
-            for name, sq, sk, h, d, rows in EDIT_SHAPES + FP32_VAE_SHAPES:
-                scale = d**-0.5
-                q, k, v = (randn((rows, s, h), d, torch.float32) for s in (sq, sk, sk))
-                k1 = q.shape[-1] <= 128
-                fwd = (lambda: fa.flash_attention_fwd(q, k, v, scale)) if k1 else (
-                    lambda: kg.flash_attention_kgrid_fwd(q, k, v, scale))
-                row = dict(tree=tree, kind="variants", shape=name, rows=rows, sq=sq, sk=sk, heads=h, head_dim=d,
-                           padded_head_dim=q.shape[-1], kernel="k1" if k1 else "k4a",
-                           built_split="per block" if k1 else "per warp",
-                           flipped_split="per warp" if k1 else "per block", built_ms=[], flipped_ms=[])
-                want = fwd()
-                iters = 3 if sq * sk >= 1 << 26 else 20
-                for which in ("built", "flipped", "flipped", "built"):
-                    fa._libs.update(built if which == "built" else flipped)
-                    got = fwd()
-                    row[f"{which}_err"] = max((x - w).abs().max().item() for x, w in zip(got, want))
-                    row[f"{which}_ms"].append(_graph_ms(torch, fwd, iters))
-                built_ms, flipped_ms = min(row["built_ms"]), min(row["flipped_ms"])
-                row["flipped_over_built"] = flipped_ms / built_ms if built_ms and flipped_ms else None
-                print(json.dumps(row), flush=True)
-                del q, k, v, want, got
-                torch.cuda.empty_cache()
-        finally:
-            fa._libs.update(built)
 
     def edit():
         """One null-text inner step (the full-width SD1.5 UNet in fp32,
@@ -626,6 +541,18 @@ def worker(tree: str, sections) -> int:
             sd_dir = chip_smoke.phase_load(Path(tmp))
             chip_smoke.phase_edit(Path(tmp), sd_dir)
 
+    def smoke():
+        import chip_smoke  # the tree's own smoke
+
+        gen = torch.Generator(device="cuda").manual_seed(0)  # as the smoke's main seeds these phases
+        for phase in (chip_smoke.phase_kernel, chip_smoke.phase_kernel_kgrid):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            phase(gen)
+            torch.cuda.synchronize()
+            print(json.dumps(dict(tree=tree, kind="smoke_phase", phase=phase.__name__,
+                                  seconds=time.perf_counter() - t)), flush=True)
+
     def digest(dtype) -> str:
         """SHA-256 of K1, K2, K3, K4a, K4b and K4c's outputs in ``dtype`` on
         fixed inputs: two trees whose kernels compute the same bits print
@@ -659,10 +586,10 @@ def worker(tree: str, sections) -> int:
         kernels()
     if "fp32" in sections:
         fp32()
-    if "variants" in sections:
-        variants()
     if "edit" in sections:
         edit()
+    if "smoke" in sections:
+        smoke()
     if "digest" in sections:
         print(json.dumps(dict(tree=tree, fp32_sha256=digest(torch.float32), bf16_sha256=digest(torch.bfloat16))),
               flush=True)

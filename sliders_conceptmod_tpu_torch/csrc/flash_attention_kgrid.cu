@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(hopper::FWD_MERGE_THREADS) kgrid_merge_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32: tensor cores (3xTF32 mma.sync), operands split once per block
+// float32: tensor cores (3xTF32 mma.sync), each warp splits the operands it reads
 // ---------------------------------------------------------------------------
 namespace tf32 {
 

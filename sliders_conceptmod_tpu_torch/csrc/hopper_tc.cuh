@@ -886,15 +886,6 @@ __device__ __forceinline__ void sts_b32(uint32_t addr, uint32_t a) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
 }
 
-// -DFWD_TF32_FLIP_SPLIT builds every fp32 forward with the other place of
-// the TF32 split than its configuration's (FwdCfg's PRESPLIT): a variant
-// that bench_attention.py --sections variants times against the kernels.
-#ifdef FWD_TF32_FLIP_SPLIT
-constexpr bool FWD_FLIP_SPLIT = true;
-#else
-constexpr bool FWD_FLIP_SPLIT = false;
-#endif
-
 // four fp32 values times `mul` as one 16-byte chunk at `off`: split into
 // TF32 halves in the big and the small tile (PRESPLIT), or as they are in
 // the big tile (each warp splits what it reads)
@@ -947,7 +938,7 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 template <int D_, int SLABS_, int CS_, int TILE_, int UNIT_, int WM_, bool PRESPLIT_>
 struct FwdCfg {
   static constexpr int D = D_, SLABS = SLABS_, CS = CS_, TILE = TILE_, UNIT = UNIT_, WM = WM_;
-  static constexpr bool PRESPLIT = PRESPLIT_ != FWD_FLIP_SPLIT;
+  static constexpr bool PRESPLIT = PRESPLIT_;
   static constexpr int ROWS = 16 * WM * SLABS;
   static constexpr int THREADS = 32 * SLABS * CS;
   static constexpr int DC = D / CS;

@@ -793,7 +793,8 @@ def test_tensor_core_k4a_takes_head_slices_and_unaligned_views(gen, d):
         assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
 
 
-# --- fp32 K1 and K4a on the tensor cores (3xTF32 mma.sync, operands split once per block)
+# --- fp32 K1 and K4a on the tensor cores (3xTF32 mma.sync; K1 splits its operands once per
+# block, in K4a each warp splits the operands it reads)
 
 # null-text inversion editing (SD1.5 at 512px, fp32, rows 1, 8 heads): every
 # forward of an inner step, (Sq, Sk, unpadded head dim); d 40/80 run K1 at
@@ -829,7 +830,7 @@ def _fp32_fwd(q, k, v, splits=None, scale=None):
 def test_fp32_k1_k4a_at_the_edit_shapes(gen, sq, sk, d):
     """fp32 K1 and K4a at every forward shape of a null-text inner step, on
     inputs zero-padded as ops/attention.py pads them, with the splits their
-    rules pick (K1 3 at 1024², K4a 2 at 256²): one launch, no plain version
+    rules pick (K1 5 at 1024², K4a 2 at 256²): one launch, no plain version
     on the card, within the fp32 bound."""
     pad = -d % 64
     q, k, v = (torch.nn.functional.pad(_rand(gen, (1, s, 8, d), torch.float32), (0, pad)) for s in (sq, sk, sk))
@@ -887,7 +888,7 @@ def test_fp32_k1_k4a_take_head_slices_and_unaligned_views(gen, d):
 
 def test_fp32_k1_k4a_run_the_tf32_kernels(gen):
     """By name: fp32 K1 is flash_fwd_tf32_kernel (with flash_fwd_merge_kernel
-    when split: 3 splits at 1024² with 8 heads) and fp32 K4a
+    when split: 5 splits at 1024² with 8 heads) and fp32 K4a
     kgrid_fwd_tf32_kernel (with kgrid_merge_kernel: 3 splits at 4096², one
     head); no tensor-core bf16 kernel runs and no SIMT forward exists any
     more."""
