@@ -84,18 +84,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   to 192; bound_ms at d 160): the 512px ESD student (256²,
                   256×77, 64², 64×77) and
                   the 256px image-pair student (rows 2: 64², 64×77, 16²,
-                  16×77), bf16 (the tensor-core kernels) and fp32 (the SIMT
-                  kernels), on K4a's O and lse (K4a held against its plain
-                  version there too), with the splits their rules pick;
-                  ragged shapes, d 64 / 320 / 512, a strided dO, K4c's query
-                  split forced to 1, 4 and 12, repeated calls bit-equal; bf16
-                  K4b's key split and K4c's query split forced to 1, 2 and 64
-                  at every path shape, repeats bit-equal and δ the same bits
-                  at every split; bf16 at ragged Sq/Sk ∈ {1, 63, 65, 77, 129}
-                  at d 64, 192, 256, 320 and 512; head slices and views off
-                  16 bytes of q, k, v, O and dO bit-equal to contiguous
-                  copies; at d 64 against K2/K3 at 300×77 (B 2, H 2) and
-                  16384² (one head). Times K4b, K4c (events, device time and
+                  16×77), bf16 and fp32 (both on the tensor cores, fp32 as
+                  3×TF32), on K4a's O and lse (K4a held against
+                  its plain version there too), with the splits their rules
+                  pick; ragged shapes, d 64 / 320 / 512, a strided dO,
+                  repeated calls bit-equal; in both dtypes K4b's key split
+                  and K4c's query split forced to 1, 2 and 64 at every path
+                  shape, repeats bit-equal and δ the same bits at every
+                  split; ragged Sq/Sk ∈ {1, 63, 65, 77, 129} at d 64, 192,
+                  256, 320 and 512 in bf16 and at d 64, 320 and 512 in fp32
+                  (peaked logits); bf16 head slices and views off 16 bytes
+                  of q, k, v, O and dO bit-equal to contiguous copies; at
+                  d 64 against K2/K3 at 300×77 (B 2, H 2) and 16384² (one
+                  head). Times K4b, K4c (events, device time and
                   host µs per call), their plain versions and SDPA's backward
                   (device time) at every path shape in bf16, with each
                   kernel's TFLOP/s, share of the bound, ratio to SDPA's whole
@@ -1379,12 +1380,11 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
     """K4b (dQ, δ) and K4c (dK, dV) against their plain versions at the SD1.5
     training paths' shapes (bf16 and fp32; timed in bf16), on d-160 inputs
     zero-padded to 192 as the path pads them, with K4a's O and lse as the
-    forward gives them; ragged shapes, d 64 and 512, a strided dO, the
-    query-range split forced to 1 and to more, two identical calls bit-equal;
-    bf16 with both splits forced at every path shape; bf16 ragged lengths
-    at five head dims, head slices and unaligned views; and at d 64 against
-    K2/K3 on K1's O and lse. Returns the timed rows and every K4b and K4c
-    error."""
+    forward gives them; ragged shapes, d 64 and 512, a strided dO, two
+    identical calls bit-equal; both dtypes with both splits forced at every
+    path shape; ragged lengths at five head dims in bf16 and three in fp32,
+    bf16 head slices and unaligned views; and at d 64 against K2/K3 on K1's
+    O and lse. Returns the timed rows and every K4b and K4c error."""
     h, d = KGRID_BWD_HEADS, KGRID_BWD_D
     scale = d**-0.5
     rows_out, errs_b, errs_c, k4a_rows = [], [], [], []
@@ -1435,13 +1435,11 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
             torch.cuda.empty_cache()
 
     # ragged tails, every head-dim class's edge (d 64, 192, 320, 512), one
-    # row / one key, the split forced to 1 and to more (empty splits
-    # included), a strided dO (a head slice of a wider tensor) equal to a
+    # row / one key, a strided dO (a head slice of a wider tensor) equal to a
     # contiguous one bit for bit, and two identical calls bit-equal
     checks = []
     cases = [(1, 65, 33, 3, 192, None), (2, 300, 77, 2, 512, None), (2, 300, 77, 2, 64, None),
              (1, 1, 1, 1, 512, None), (1, 70, 100, 1, 320, None)]
-    cases += [(1, 256, 77, 8, 192, sp) for sp in (1, 4, 12)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, sk, hh, dd, splits in cases:
             q = torch.randn((b, sq, hh, dd), generator=gen, device="cuda").to(dtype)
@@ -1461,47 +1459,55 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
             note(c)
     emit(dict(phase="kernel_kgrid_bwd", ragged_splits_strided=checks))
 
-    # bf16: K4b's key split and K4c's query split forced to 1, 2 and the
-    # maximum (64: empty splits included) at every path shape, against the
-    # plain versions over the same 32-row units; repeated calls bit-equal,
-    # and δ the same bits at every split (split 0 writes it)
-    forced = []
-    for name, rows, sq, sk in KGRID_BWD_SHAPES:
-        q, do = (path_randn(gen, (rows, sq, h), d, torch.bfloat16) for _ in range(2))
-        k, v = (path_randn(gen, (rows, sk, h), d, torch.bfloat16) for _ in range(2))
-        o, lse = kg.flash_attention_kgrid_fwd(q, k, v, scale)
-        _, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
-        for splits in (1, 2, fa.MAX_SPLITS):
-            c = check_kgrid_bwd(q, k, v, o, lse, do, f"{name} rows={rows} splits {splits} bf16", scale, splits, splits)
-            again = kgrid_bwd_all(q, k, v, o, lse, do, scale, splits, splits)
-            same = all(torch.equal(x, y) for x, y in zip(c["grads"], again)) and torch.equal(c["grads"][1], delta)
-            forced.append(dict(shape=name, rows=rows, splits=splits,
-                               rule_k4b_splits=kg.pick_k4b_splits(rows * h, sq, sk, q.shape[-1], torch.bfloat16),
-                               rule_dkv_splits=kg.pick_dkv_splits(rows * h, sq, sk, q.shape[-1], torch.bfloat16),
-                               max_abs_err=c["max_abs_err"], tol=c["tol"], repeat_and_delta_bit_equal=same))
-            if not same:
-                raise AssertionError(f"K4b/K4c with forced splits changed their bits: {forced[-1]}")
-            note(c)
-            del c, again
-        del q, k, v, o, lse, do, delta
-        torch.cuda.empty_cache()
-    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_forced_splits_bf16=forced))
-
-    # bf16 at ragged lengths around the 32-row tiles and the 64/32-row
-    # blocks, at one, two and four warps per slab; head slices of wider
-    # tensors and views off 16 bytes (copied once by the wrappers) of q, k,
-    # v, O and dO, bit-equal to contiguous copies
-    edges = []
-    for dd in (64, 192, 256, 320, 512):
-        for s in (1, 63, 65, 77, 129):
-            for sq, sk in ((s, s), (s, 77), (77, s)):
-                q, do = (torch.randn((2, sq, 2, dd), generator=gen, device="cuda").to(torch.bfloat16)
-                         for _ in range(2))
-                k, v = (torch.randn((2, sk, 2, dd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
-                o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
-                c = check_kgrid_bwd(q, k, v, o, lse, do, f"ragged Sq {sq} Sk {sk} d {dd} bf16")
-                edges.append(dict(sq=sq, sk=sk, head_dim=dd, max_abs_err=c["max_abs_err"], tol=c["tol"]))
+    # both dtypes: K4b's key split and K4c's query split forced to 1, 2 and
+    # the maximum (64: empty splits included) at every path shape, against
+    # the plain versions over the same 32-row units; repeated calls
+    # bit-equal, and δ the same bits at every split (split 0 writes it)
+    for dtype in (torch.bfloat16, torch.float32):
+        forced = []
+        for name, rows, sq, sk in KGRID_BWD_SHAPES:
+            q, do = (path_randn(gen, (rows, sq, h), d, dtype) for _ in range(2))
+            k, v = (path_randn(gen, (rows, sk, h), d, dtype) for _ in range(2))
+            o, lse = kg.flash_attention_kgrid_fwd(q, k, v, scale)
+            _, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale)
+            for splits in (1, 2, fa.MAX_SPLITS):
+                c = check_kgrid_bwd(q, k, v, o, lse, do, f"{name} rows={rows} splits {splits} {dtype}", scale, splits,
+                                    splits)
+                again = kgrid_bwd_all(q, k, v, o, lse, do, scale, splits, splits)
+                same = all(torch.equal(x, y) for x, y in zip(c["grads"], again)) and torch.equal(c["grads"][1], delta)
+                forced.append(dict(shape=name, rows=rows, splits=splits,
+                                   rule_k4b_splits=kg.pick_k4b_splits(rows * h, sq, sk, q.shape[-1], dtype),
+                                   rule_dkv_splits=kg.pick_dkv_splits(rows * h, sq, sk, q.shape[-1], dtype),
+                                   max_abs_err=c["max_abs_err"], tol=c["tol"], repeat_and_delta_bit_equal=same))
+                if not same:
+                    raise AssertionError(f"K4b/K4c with forced splits changed their bits: {forced[-1]}")
                 note(c)
+                del c, again
+            del q, k, v, o, lse, do, delta
+            torch.cuda.empty_cache()
+        emit({"phase": "kernel_kgrid_bwd", f"k4b_k4c_forced_splits_{'bf16' if dtype == torch.bfloat16 else 'fp32'}":
+              forced})
+
+    # ragged lengths around the 32-row split units, the 32/16-row tiles and
+    # the 64/32/16-row blocks, at one to eight warps per slab (bf16 at five
+    # head dims, fp32 at d 64, 320 and 512, whose q x 3 makes the softmax
+    # peaked); bf16 head slices of wider tensors and views off 16 bytes
+    # (copied once by the wrappers) of q, k, v, O and dO, bit-equal to
+    # contiguous copies
+    edges = []
+    ragged = ((torch.bfloat16, (64, 192, 256, 320, 512), 1.0), (torch.float32, (64, 320, 512), 3.0))
+    for dtype, dims, q_scale in ragged:
+        for dd in dims:
+            for s in (1, 63, 65, 77, 129):
+                for sq, sk in ((s, s), (s, 77), (77, s)):
+                    q = (torch.randn((2, sq, 2, dd), generator=gen, device="cuda") * q_scale).to(dtype)
+                    do = torch.randn((2, sq, 2, dd), generator=gen, device="cuda").to(dtype)
+                    k, v = (torch.randn((2, sk, 2, dd), generator=gen, device="cuda").to(dtype) for _ in range(2))
+                    o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+                    c = check_kgrid_bwd(q, k, v, o, lse, do, f"ragged Sq {sq} Sk {sk} d {dd} {dtype}")
+                    edges.append(dict(dtype=str(dtype), sq=sq, sk=sk, head_dim=dd, max_abs_err=c["max_abs_err"],
+                                      tol=c["tol"]))
+                    note(c)
     for dd in (192, 512):
         for kind, make in (("strided", lambda n: torch.randn((2, n, 4, dd), generator=gen, device="cuda").to(
                                torch.bfloat16)[:, :, 1::2]),
@@ -1521,7 +1527,7 @@ def phase_kernel_kgrid_bwd(gen: torch.Generator) -> tuple:
             note(c)
             if not same or launched != (2, 2):
                 raise AssertionError(f"K4b/K4c on {kind} views: {edges[-1]}")
-    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_ragged_and_views_bf16=edges))
+    emit(dict(phase="kernel_kgrid_bwd", k4b_k4c_ragged_and_views=edges))
 
     # d 64: K4b/K4c against K2/K3 on the same inputs and K1's O and lse
     versus = []
@@ -1784,16 +1790,14 @@ def device_profile(fn) -> dict:
     out = dict(wall_seconds_profiled=wall, device_kernels=n_kernels, device_busy_seconds=busy if by_name else "not measured",
                idle_share=1 - busy / wall if by_name else "not measured",
                top_kernels=[dict(name=n[:120], seconds=v, share_of_busy=v / busy) for n, v in top])
-    # profiler names by substring: a tensor-core kernel's name does not
-    # contain its SIMT sibling's ("flash_fwd_tc_kernel")
-    for key, names in (("k1", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_tf32_kernel",
-                               "flash_fwd_merge_kernel")),
+    # profiler names by substring: the bf16 (_tc_) and fp32 (_tf32_) kernels
+    # and the merges of each of the six
+    for key, names in (("k1", ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel", "flash_fwd_merge_kernel")),
                        ("k2", ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_tf32_kernel", "flash_dq_merge_kernel")),
                        ("k3", ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tf32_kernel", "flash_dkv_merge_kernel")),
-                       ("k4a", ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_fwd_tf32_kernel",
-                                "kgrid_merge_kernel")),
-                       ("k4b", ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel")),
-                       ("k4c", ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel"))):
+                       ("k4a", ("kgrid_fwd_tc_kernel", "kgrid_fwd_tf32_kernel", "kgrid_merge_kernel")),
+                       ("k4b", ("kgrid_bwd_dq_tc_kernel", "kgrid_bwd_dq_tf32_kernel", "kgrid_dq_merge_kernel")),
+                       ("k4c", ("kgrid_bwd_dkv_tc_kernel", "kgrid_bwd_dkv_tf32_kernel", "kgrid_dkv_merge_kernel"))):
         secs = sum(v for k, v in by_name.items() if any(n in k for n in names))
         out[f"{key}_seconds"] = secs
         out[f"{key}_share_of_busy"] = secs / busy if busy else "not measured"

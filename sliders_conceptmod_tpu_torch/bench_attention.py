@@ -511,8 +511,10 @@ def worker(tree: str, sections) -> int:
                   "k3": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tf32_kernel",
                          "flash_dkv_merge_kernel"),
                   "k4a": ("kgrid_fwd_kernel", "kgrid_fwd_tc_kernel", "kgrid_fwd_tf32_kernel", "kgrid_merge_kernel"),
-                  "k4b": ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_dq_merge_kernel"),
-                  "k4c": ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_dkv_merge_kernel")}
+                  "k4b": ("kgrid_bwd_dq_kernel", "kgrid_bwd_dq_tc_kernel", "kgrid_bwd_dq_tf32_kernel",
+                          "kgrid_dq_merge_kernel"),
+                  "k4c": ("kgrid_bwd_dkv_kernel", "kgrid_bwd_dkv_tc_kernel", "kgrid_bwd_dkv_tf32_kernel",
+                          "kgrid_dkv_merge_kernel")}
         row = dict(tree=tree, kind="edit_inner_step", model="SD1.5 UNet, fp32, 64x64 latent, seeded weights",
                    wall_ms=sorted(walls)[1], device_busy_ms=busy if busy else "not measured",
                    launches_per_forward=dict(zip(groups, per_forward)),

@@ -20,11 +20,14 @@ K4b and K4c (``csrc/flash_attention_kgrid_bwd.cu``) are
 its backward: K4b computes dQ and ``δ = rowsum(dO∘O)`` from K4a's saved O and
 lse, K4c dK and dV from δ. bf16 runs them on the tensor cores (``mma.sync``
 fed by ``cp.async``, K2's and K3's loops with the gradient columns split
-between the warps that share a 16-row slab above d 128); fp32 keeps the first
-(SIMT) kernels. Their paths: the VAE mid-block's single-head attention (head
-dim = channels = 512; forward only) and SD1.5's UNet attentions at 1280
-channels (8 heads of 160, padded to 192; forward and, in training,
-backward).
+between the warps that share a 16-row slab above d 128), and fp32 runs the
+same loops with every product on the tensor cores in fp32 accuracy
+(``mma.sync`` TF32 three times a product over operands split into TF32
+halves, as fp32 K2/K3), at 32 owned rows a block up to d 256 and 16 above,
+with one to eight warps sharing each 16-row slab. Their paths: the VAE
+mid-block's single-head attention (head dim = channels = 512; forward only)
+and SD1.5's UNet attentions at 1280 channels (8 heads of 160, padded to 192;
+forward and, in training and null-text inversion, backward).
 
 The TPU kernels carry their sums in scratch along a sequential grid axis. On
 the card that axis becomes a loop inside the block over tiles of rows, and
@@ -33,9 +36,9 @@ across blocks: K4a splits the key range — in 32-key units for fp32, in
 64-key units for bf16 (:func:`split_unit`); each split writes unnormalised
 fp32 partials and a second small kernel merges them: ``m* = max mₛ``,
 ``l* = Σ lₛ·e^(mₛ−m*)``, ``O = Σ accₛ·e^(mₛ−m*) / l*``, ``lse = m* + log
-l*``. K4b splits the key range (bf16 only) and K4c the query range, both in
-32-row units: fp32 partials summed in split order by a merge kernel, no
-atomics, so two runs give the same bits. :func:`pick_splits`,
+l*``. K4b splits the key range and K4c the query range, both in 32-row
+units and in both dtypes: fp32 partials summed in split order by a merge
+kernel, no atomics, so two runs give the same bits. :func:`pick_splits`,
 :func:`pick_k4b_splits` and :func:`pick_dkv_splits` choose the counts from
 the shape and dtype; ``splits=`` exists so that tests can force 1 or more.
 The sources' headers say what bounds the kernels and what their design does
@@ -81,7 +84,7 @@ from sliders_conceptmod_tpu_torch.ops.flash_attention import (
     split_ranges as _split_ranges,
 )
 
-BQ, BK = 32, 32  # fp32 K4a's q rows per block and its split unit (keys); K4b/K4c's streamed rows per tile
+BQ, BK = 32, 32  # fp32 K4a's q rows per block and its split unit (keys); the unit of K4b's and K4c's splits
 TC_BQ, TC_SPLIT_KEYS = 64, 64  # bf16 K4a's q rows per block and the unit of its key-range split
 KGRID_HEAD_DIMS = tuple(range(64, 513, 64))
 NEG_INF = -1e30  # as in the kernel: exp(NEG_INF − m) is an exact 0
@@ -106,20 +109,20 @@ def pick_splits(bh: int, sq: int, sk: int, dtype: torch.dtype = torch.float32) -
 
 def bwd_rows_per_block(d: int, dtype: torch.dtype = torch.float32) -> int:
     """Rows a K4b/K4c block owns (q rows for dQ, key rows for dK/dV). The
-    fp32 kernels: 32 at head dims up to 256, 16 above, where 16 threads
-    share a row so that the accumulators stay in registers. The bf16
-    (tensor-core) kernels: 64 up to 128, 32 above, where two or four warps
-    share each 16-row slab and own a part of its gradient columns."""
+    fp32 kernels: 32 at head dims up to 256, 16 above, where two fp32
+    resident tiles of 32 rows and the streamed ring would not fit shared
+    memory. The bf16 kernels: 64 up to 128, 32 above. In both, several warps
+    (up to four in bf16, eight in fp32) share each 16-row slab and own a
+    part of its gradient columns."""
     if dtype == torch.bfloat16:
         return 64 if d <= 128 else 32
     return 32 if d <= 256 else 16
 
 
 def pick_k4b_splits(bh: int, sq: int, sk: int, d: int, dtype: torch.dtype) -> int:
-    """K4b's split count of the key range (blocks: one per owned q tile and
-    batch·head; tiles: the 32-key units). The fp32 kernel does not split: 1."""
-    if dtype == torch.float32:
-        return 1
+    """K4b's split count of the key range, as the kernel for ``dtype`` runs
+    it (blocks: one per owned q tile — :func:`bwd_rows_per_block` — and
+    batch·head; tiles: the 32-key units, both dtypes' unit)."""
     return _fill_splits(_cdiv(sq, bwd_rows_per_block(d, dtype)) * bh, _cdiv(sk, BK))
 
 
@@ -321,21 +324,18 @@ flash_attention_kgrid_fwd.launches = 0
 def flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, *, splits: Optional[int] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4b: ``(dQ [B,Sq,H,D] in q's dtype, δ fp32 [B·H, Sq])`` from K4a's O and
-    lse. bf16 runs the tensor-core kernel over ``splits`` ranges of the key
-    axis (plus the sum of their partials when there are more than one);
-    ``None`` lets :func:`pick_k4b_splits` choose, a number forces it
-    (tests). fp32 runs the SIMT kernel, which does not split (a forced count
-    above 1 raises). CPU tensors go through :func:`kgrid_bwd_dq_reference`."""
+    lse. Both dtypes run the tensor-core kernel (fp32 as 3×TF32) over
+    ``splits`` ranges of the key axis (plus the sum of their partials when
+    there are more than one); ``None`` lets :func:`pick_k4b_splits` choose
+    for the inputs' dtype, a number forces it (tests). CPU tensors go
+    through :func:`kgrid_bwd_dq_reference`."""
     if q.device.type == "cpu":
         return kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale, splits)
     _check_kernel_inputs(q, k, v, o, do, head_dims=KGRID_HEAD_DIMS)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     splits = _check_splits(pick_k4b_splits(b * h, sq, sk, d, q.dtype) if splits is None else splits)
-    if q.dtype == torch.float32 and splits != 1:
-        raise ValueError(f"the fp32 K4b kernel does not split the key range (splits={splits})")
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte loads
-        q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)
+    q, k, v, o, do = _aligned(q), _aligned(k), _aligned(v), _aligned(o), _aligned(do)  # 16-byte loads
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     part_dq = None
@@ -361,8 +361,8 @@ flash_attention_kgrid_bwd_dq.launches = 0
 def flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4c: ``(dK, dV)`` in k's / v's dtype, from K4b's δ (plus the sum of
-    the splits' partials when the query range is split). bf16 runs the
-    tensor-core kernel, fp32 the SIMT kernel; both split in 32-row units.
+    the splits' partials when the query range is split). Both dtypes run
+    the tensor-core kernel (fp32 as 3×TF32) and split in 32-row units.
     ``splits`` forces the split count (tests); ``None`` lets
     :func:`pick_dkv_splits` choose for the inputs' dtype. CPU tensors go
     through :func:`kgrid_bwd_dkv_reference`."""
@@ -372,8 +372,7 @@ def flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, *, splits: Opt
     b, sq, h, d = q.shape
     sk = k.shape[1]
     splits = _check_splits(pick_dkv_splits(b * h, sq, sk, d, q.dtype) if splits is None else splits)
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel's cp.async loads
-        q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)  # cp.async's 16-byte loads
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
     part_dk = part_dv = None

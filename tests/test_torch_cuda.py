@@ -12,7 +12,10 @@ tensor cores (3xTF32) at every shape of a null-text inner step, ragged,
 strided and unaligned, with forced splits and bit-equal repeats; fp32 K1
 and K4a on the tensor cores at every forward shape of a null-text inner
 step and every head dim they are built for, ragged, strided and unaligned,
-with forced splits and bit-equal repeats. Marked
+with forced splits and bit-equal repeats; fp32 K4b and K4c on the tensor
+cores at every 1280-channel shape of a null-text inner step and every head
+dim they are built for, ragged down to one row and one key, strided and
+unaligned, with forced splits and bit-equal repeats. Marked
 ``cuda``; every test
 skips where there is no CUDA device (this file imports no JAX, so it runs on
 the GPU machine as it is):
@@ -918,11 +921,11 @@ def test_bf16_k1_refuses_a_forced_split(gen):
 # --- the tensor-core kernels K4b and K4c (mma.sync, cp.async) on bf16
 
 
-def _check_k4b_k4c(q, k, v, o, lse, do, splits=None, dq_splits=None):
+def _check_k4b_k4c(q, k, v, o, lse, do, splits=None, dq_splits=None, scale=None):
     """K4b and K4c against their plain versions over the same key and query
     ranges (None: the rules' for q's dtype), δ within the fp32 bound.
     Returns (dQ, δ, dK, dV)."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits)
     dk, dv = kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits)
     torch.cuda.synchronize()
@@ -958,7 +961,8 @@ def test_tensor_core_k4b_k4c_forced_splits_match_plain_version(gen, shape):
     splits included) against the plain versions over the same 32-row units;
     repeated calls give the same bits (partials summed in split order, no
     atomics) and δ the same bits at every split (split 0 writes it); the
-    fp32 K4b kernel refuses a split."""
+    fp32 kernels take the same forced splits (held at every head dim by the
+    fp32 tests below)."""
     b, sq, sk, h, d = shape
     q, do = (_rand(gen, (b, sq, h, d), torch.bfloat16) for _ in range(2))
     k, v = (_rand(gen, (b, sk, h, d), torch.bfloat16) for _ in range(2))
@@ -975,8 +979,7 @@ def test_tensor_core_k4b_k4c_forced_splits_match_plain_version(gen, shape):
         deltas.append(delta)
     assert all(torch.equal(deltas[0], x) for x in deltas[1:])
     f = [x.float() for x in (q, k, v, o, do)]
-    with pytest.raises(ValueError):
-        kg.flash_attention_kgrid_bwd_dq(*f[:4], lse, f[4], d**-0.5, splits=2)
+    _check_k4b_k4c(*f[:4], lse, f[4], 2, 2)
 
 
 @pytest.mark.parametrize("d", [192, 512])
@@ -1003,30 +1006,113 @@ def test_tensor_core_k4b_k4c_take_head_slices_and_unaligned_views(gen, d):
         assert all(torch.equal(a, x) for a, x in zip(got, (dq, delta, dk, dv)))
 
 
-def test_k4b_k4c_route_bf16_to_the_tensor_cores_and_fp32_to_the_simt_kernels(gen):
+def test_k4b_k4c_route_bf16_and_fp32_to_the_tensor_core_kernels(gen):
     """The kernels that run, by name, at SD1.5's 256² with 8 heads of 192
-    (both rules split 2 ways in bf16): bf16 K4b is kgrid_bwd_dq_tc_kernel and
-    kgrid_dq_merge_kernel, bf16 K4c kgrid_bwd_dkv_tc_kernel and
-    kgrid_dkv_merge_kernel; fp32 runs the SIMT kgrid_bwd_dq_kernel and
-    kgrid_bwd_dkv_kernel (which splits too)."""
-    for dtype in (torch.bfloat16, torch.float32):
+    (both rules split 2 ways in both dtypes): bf16 K4b is
+    kgrid_bwd_dq_tc_kernel and kgrid_dq_merge_kernel, bf16 K4c
+    kgrid_bwd_dkv_tc_kernel and kgrid_dkv_merge_kernel; fp32 K4b is
+    kgrid_bwd_dq_tf32_kernel and K4c kgrid_bwd_dkv_tf32_kernel, with the same
+    merges; no SIMT kernel (kgrid_bwd_dq_kernel, kgrid_bwd_dkv_kernel) runs."""
+    for dtype, body in ((torch.bfloat16, "_tc_kernel"), (torch.float32, "_tf32_kernel")):
         q, do = (_rand(gen, (1, 256, 8, 192), dtype) for _ in range(2))
         k, v = (_rand(gen, (1, 256, 8, 192), dtype) for _ in range(2))
         o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
         dq_names = _kernel_names(lambda: kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, 0.1))
         _, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, 0.1)
         dkv_names = _kernel_names(lambda: kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, 0.1))
+        assert kg.pick_k4b_splits(8, 256, 256, 192, dtype) == kg.pick_dkv_splits(8, 256, 256, 192, dtype) == 2
+        assert any(f"kgrid_bwd_dq{body}" in n for n in dq_names), dq_names
+        assert any("kgrid_dq_merge_kernel" in n for n in dq_names), dq_names
+        assert any(f"kgrid_bwd_dkv{body}" in n for n in dkv_names), dkv_names
         assert any("kgrid_dkv_merge_kernel" in n for n in dkv_names), dkv_names
-        if dtype == torch.bfloat16:
-            assert kg.pick_k4b_splits(8, 256, 256, 192, dtype) == kg.pick_dkv_splits(8, 256, 256, 192, dtype) == 2
-            assert any("kgrid_bwd_dq_tc_kernel" in n for n in dq_names), dq_names
-            assert any("kgrid_dq_merge_kernel" in n for n in dq_names), dq_names
-            assert any("kgrid_bwd_dkv_tc_kernel" in n for n in dkv_names), dkv_names
-        else:
-            assert any("kgrid_bwd_dq_kernel" in n for n in dq_names), dq_names
-            assert any("kgrid_bwd_dkv_kernel" in n for n in dkv_names), dkv_names
-            assert not any("_tc_" in n or "merge" in n for n in dq_names), dq_names
-            assert not any("_tc_" in n for n in dkv_names), dkv_names
+        names = dq_names | dkv_names
+        assert not any("kgrid_bwd_dq_kernel" in n or "kgrid_bwd_dkv_kernel" in n for n in names), names
+
+
+# --- fp32 K4b and K4c on the tensor cores (3xTF32 mma.sync): null-text
+# inversion editing's backward at the 1280-channel level
+
+
+def _check_fp32_k4b_k4c(q, k, v, o, lse, do, splits=None, dq_splits=None, scale=None):
+    """fp32 K4b then K4c against their plain versions over the same key and
+    query ranges (None: the fp32 rules'), dQ, δ, dK and dV each within
+    1e-4·max(1, |ref|); a repeated call gives the same bits. Returns (dQ, δ,
+    dK, dV)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    got = _check_k4b_k4c(q, k, v, o, lse, do, splits, dq_splits, scale)
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, scale, splits=dq_splits)
+    again = (dq, delta, *kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, scale, splits=splits))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("sq,sk", [(256, 256), (256, 77), (64, 64), (64, 77)])
+def test_fp32_k4b_k4c_at_the_edit_shapes(gen, sq, sk):
+    """fp32 K4b and K4c at every 1280-channel shape of a null-text inner step
+    (8 heads of 160 zero-padded to 192, K4a's O and lse; the splits their
+    rules pick: 2 and 2 at 256²), within the fp32 bound; repeats bit-equal;
+    one launch each and no plain version on the card."""
+    q, do = (torch.nn.functional.pad(_rand(gen, (1, sq, 8, 160), torch.float32), (0, 32)) for _ in range(2))
+    k, v = (torch.nn.functional.pad(_rand(gen, (1, sk, 8, 160), torch.float32), (0, 32)) for _ in range(2))
+    o, lse = kg.flash_attention_kgrid_fwd(q, k, v, 160**-0.5)
+    before = (kg.kgrid_bwd_dq_reference.cuda_calls, kg.kgrid_bwd_dkv_reference.cuda_calls)
+    launches = (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches)
+    dq, delta = kg.flash_attention_kgrid_bwd_dq(q, k, v, o, lse, do, 160**-0.5)
+    kg.flash_attention_kgrid_bwd_dkv(q, k, v, lse, delta, do, 160**-0.5)
+    torch.cuda.synchronize()
+    assert (kg.kgrid_bwd_dq_reference.cuda_calls, kg.kgrid_bwd_dkv_reference.cuda_calls) == before
+    assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == tuple(
+        x + 1 for x in launches)
+    _check_fp32_k4b_k4c(q, k, v, o, lse, do, scale=160**-0.5)
+
+
+@pytest.mark.parametrize("d", list(kg.KGRID_HEAD_DIMS))
+@pytest.mark.parametrize("sq,sk", [(1, 1), (1, 300), (300, 1), (65, 77), (77, 65), (129, 1000)])
+def test_fp32_k4b_k4c_on_ragged_lengths(gen, d, sq, sk):
+    """fp32 K4b/K4c at every head dim with Sq and Sk down to 1 and off their
+    16-row tiles, 32-row split units and 16/32-row blocks (cp.async zero-fills
+    rows past the end; keys and q rows past it get P = 0), with large logits
+    (q x 3: a peaked softmax, where sums written straight into the
+    accumulator by the tensor cores missed the bound)."""
+    b, h = 2, 2
+    q = _rand(gen, (b, sq, h, d), torch.float32, scale=3.0)
+    do = _rand(gen, (b, sq, h, d), torch.float32)
+    k, v = (_rand(gen, (b, sk, h, d), torch.float32) for _ in range(2))
+    o, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+    _check_fp32_k4b_k4c(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 8, 192), (1, 256, 77, 8, 192), (2, 64, 77, 8, 192),
+                                   (1, 300, 129, 2, 512), (2, 100, 70, 3, 64), (1, 65, 1000, 2, 320)])
+def test_fp32_k4b_k4c_forced_splits_are_right_and_deterministic(gen, shape):
+    """fp32 K4b's key split and K4c's query split forced to 1, 2 and 64
+    (empty splits included) against the plain versions over the same 32-row
+    units; repeats bit-equal; δ the same bits at every split count."""
+    q, k, v, o, lse, do = _kgrid_bwd_inputs(gen, shape, torch.float32)
+    deltas = [_check_fp32_k4b_k4c(q, k, v, o, lse, do, splits, splits)[1] for splits in (1, 2, fa.MAX_SPLITS)]
+    assert all(torch.equal(deltas[0], x) for x in deltas[1:])
+
+
+@pytest.mark.parametrize("d", list(kg.KGRID_HEAD_DIMS))
+def test_fp32_k4b_k4c_take_head_slices_strided_do_and_unaligned_views(gen, d):
+    """fp32 q, k, v, O and dO as head slices of wider tensors (autograd's
+    strided dO among them) and as views off 16 bytes (copied once by the
+    wrappers): the contiguous copies' bits, one launch of each kernel."""
+    b, sq, sk, h = 2, 100, 77, 2
+    for make in (lambda s: _rand(gen, (b, s, 2 * h, d), torch.float32)[:, :, 1::2],
+                 lambda s: _rand(gen, (b, s, h, d + 4), torch.float32)[..., 1:d + 1]):
+        q, k, v, o, do = make(sq), make(sk), make(sk), make(sq), make(sq)
+        out, lse = kg.flash_attention_kgrid_fwd(q, k, v)
+        o.copy_(out)
+        assert not (q.is_contiguous() or o.is_contiguous() or do.is_contiguous())
+        before = kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches
+        got = _check_k4b_k4c(q, k, v, o, lse, do)
+        assert (kg.flash_attention_kgrid_bwd_dq.launches, kg.flash_attention_kgrid_bwd_dkv.launches) == (
+            before[0] + 1, before[1] + 1)
+        c = [x.contiguous() for x in (q, k, v, o, do)]
+        dq, delta = kg.flash_attention_kgrid_bwd_dq(*c[:4], lse, c[4], d**-0.5)
+        want = (dq, delta, *kg.flash_attention_kgrid_bwd_dkv(*c[:3], lse, delta, c[4], d**-0.5))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def _tiny_xl_unet_and_stack(device):

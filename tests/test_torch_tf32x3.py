@@ -15,6 +15,17 @@ plain fp32 K2/K3 (``bwd_dq_reference``, ``bwd_dkv_reference``) at head dims
 pass alone misses that bound: that is why the kernels take three. The
 kernels themselves are held against the same plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+fp32 K4b (the k-grid dQ) and K4c (dK, dV) run the same loops at head dims
+64…512 (``csrc/flash_attention_kgrid_bwd.cu``): two or four warps share a
+16-row slab above d 64, each taking the slab's S and dP over the whole head
+dim and a slice of the gradient columns, and the key range (K4b) or query
+range (K4c) is split into 32-row units whose fp32 partials are summed in
+split order. Their emulation here takes each warp's column slice apart and
+sums the splits as the merge kernels do, at SD1.5's d 160 run at 192 and at
+d 512, with peaked logits, one key and one query row, against the plain
+fp32 ``kgrid_bwd_dq_reference`` / ``kgrid_bwd_dkv_reference`` over the same
+splits.
 """
 
 import numpy as np
@@ -22,6 +33,7 @@ import pytest
 import torch
 
 from sliders_conceptmod_tpu_torch.ops import flash_attention as fa
+from sliders_conceptmod_tpu_torch.ops import flash_attention_kgrid as kg
 from _torch_threads import share_cores_among_workers  # noqa: F401 (autouse: torch's share of the cores)
 
 FP32_BOUND = 1e-4
@@ -162,3 +174,99 @@ def test_one_tf32_pass_breaks_the_fp32_bound(d):
     one = (emulated_k2(q, k, v, o, lse, do, scale, passes=1), *emulated_k3(q, k, v, lse, delta, do, scale, passes=1))
     errs = [_rel_err(g, w) for g, w in zip(one, (want_dq, want_dk, want_dv))]
     assert max(errs) > FP32_BOUND, errs
+
+
+def _heads(*xs):
+    return [x.permute(0, 2, 1, 3) for x in xs]  # BSHD -> [B, H, S, D]
+
+
+def emulated_k4b(q, k, v, o, lse, do, scale, splits, warps_per_slab):
+    """fp32 K4b with the kernel's products: per split of the key range (32-key
+    units) S = QKᵀ, P = exp(scale·S − lse), dP = dO·Vᵀ, dS = P∘(dP − δ) over
+    the whole head dim, and each of a slab's ``warps_per_slab`` warps its
+    slice of the unscaled partial dS·K; the partials summed in split order
+    from zero (an empty split adds zeros), then scaled."""
+    b, sq, h, d = q.shape
+    qh, kh, vh, gh = _heads(q, k, v, do)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]
+    dc = d // warps_per_slab
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32)
+    for lo, hi in kg.split_ranges(k.shape[1], splits):
+        if lo == hi:
+            continue
+        kk, vv = kh[:, :, lo:hi], vh[:, :, lo:hi]
+        p = torch.exp(mm_3xtf32(qh, kk.transpose(-1, -2)) * scale - lse.reshape(b, h, sq, 1))
+        ds = p * (mm_3xtf32(gh, vv.transpose(-1, -2)) - delta)
+        acc = acc + torch.cat([mm_3xtf32(ds, kk[..., c:c + dc]) for c in range(0, d, dc)], dim=-1)
+    return (acc * scale).permute(0, 2, 1, 3)
+
+
+def emulated_k4c(q, k, v, lse, delta, do, scale, splits, warps_per_slab):
+    """fp32 K4c with the kernel's products: per split of the query range Sᵀ =
+    KQᵀ, Pᵀ, dPᵀ = V·dOᵀ, dSᵀ over the whole head dim, each warp's column
+    slice of dV = Pᵀ·dO and dK = scale·dSᵀ·Q (scaled in the partial); the
+    partials summed in split order."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh, gh = _heads(q, k, v, do)
+    lse4, delta4 = lse.reshape(b, h, 1, sq), delta.reshape(b, h, 1, sq)
+    dc = d // warps_per_slab
+    dk = torch.zeros((b, h, sk, d), dtype=torch.float32)
+    dv = torch.zeros((b, h, sk, d), dtype=torch.float32)
+    for lo, hi in kg.split_ranges(sq, splits):
+        if lo == hi:
+            continue
+        qq, gg = qh[:, :, lo:hi], gh[:, :, lo:hi]
+        pt = torch.exp(mm_3xtf32(kh, qq.transpose(-1, -2)) * scale - lse4[..., lo:hi])
+        dst = pt * (mm_3xtf32(vh, gg.transpose(-1, -2)) - delta4[..., lo:hi])
+        cols = range(0, d, dc)
+        dv = dv + torch.cat([mm_3xtf32(pt, gg[..., c:c + dc]) for c in cols], dim=-1)
+        dk = dk + torch.cat([mm_3xtf32(dst, qq[..., c:c + dc]) * scale for c in cols], dim=-1)
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _kgrid_inputs(sq, sk, h, d, d_pad, seed, q_scale=4.0):
+    """``_inputs`` at head dim ``d`` zero-padded to ``d_pad`` (as
+    ops/attention.py pads d 160 to 192), with K4a's plain O and lse."""
+    rng = np.random.default_rng(seed)
+    pad = [(0, 0)] * 3 + [(0, d_pad - d)]
+    q = np.pad(rng.standard_normal((1, sq, h, d)).astype(np.float32) * np.float32(q_scale), pad)
+    k, v = (np.pad(rng.standard_normal((1, sk, h, d)).astype(np.float32), pad) for _ in range(2))
+    do = np.pad(rng.standard_normal((1, sq, h, d)).astype(np.float32), pad)
+    q, k, v, do = map(torch.from_numpy, (q, k, v, do))
+    o, lse = kg.flash_attention_kgrid_reference(q, k, v, d**-0.5, splits=1)
+    return q, k, v, o, lse, do
+
+
+# (d, padded d, warps per 16-row slab): SD1.5's 160 run at 192, its columns
+# split between two warps; d 512, one slab a block, four warps
+K4_CONFIGS = [(160, 192, 2), (512, 512, 4)]
+# (Sq, Sk): ragged on both axes (100 keys or queries are four 32-row units,
+# so 2 and 3 splits cut 64 + 36 and 32 + 32 + 36), one key, one query row
+K4_SHAPES = [(77, 100), (100, 77), (65, 1), (1, 65)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("sq,sk", K4_SHAPES)
+@pytest.mark.parametrize("d,d_pad,warps", K4_CONFIGS)
+def test_emulated_3xtf32_k4b_is_within_the_fp32_bound(d, d_pad, warps, sq, sk, splits):
+    q, k, v, o, lse, do = _kgrid_inputs(sq, sk, 2, d, d_pad, seed=sq + 3 * sk + d + splits)
+    scale = d**-0.5
+    want, _ = kg.kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale, splits=splits)
+    got = emulated_k4b(q, k, v, o, lse, do, scale, splits, warps)
+    assert _rel_err(got, want) <= FP32_BOUND
+    # the column split only hands out the columns: one warp's products are the same bits
+    assert torch.equal(got, emulated_k4b(q, k, v, o, lse, do, scale, splits, 1))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("sq,sk", K4_SHAPES)
+@pytest.mark.parametrize("d,d_pad,warps", K4_CONFIGS)
+def test_emulated_3xtf32_k4c_is_within_the_fp32_bound(d, d_pad, warps, sq, sk, splits):
+    q, k, v, o, lse, do = _kgrid_inputs(sq, sk, 2, d, d_pad, seed=sq + 3 * sk + d + splits + 1)
+    scale = d**-0.5
+    _, delta = kg.kgrid_bwd_dq_reference(q, k, v, o, lse, do, scale, splits=1)
+    want = kg.kgrid_bwd_dkv_reference(q, k, v, lse, delta, do, scale, splits=splits)
+    got = emulated_k4c(q, k, v, lse, delta, do, scale, splits, warps)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        assert _rel_err(g, w) <= FP32_BOUND, name
