@@ -12,15 +12,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
 1b. image_decode — host only: every committed fixture of
-                  tests/data/image_decode (52: JPEG baseline, progressive,
+                  tests/data/image_decode (93: JPEG baseline, progressive,
                   arithmetic-coded, lossless, CMYK and YCCK; PNG of every
                   type; lossy and lossless WebP, with alpha, an offset
                   animation frame, the simple filter over 4 partitions; GIF,
-                  BMP and TIFF variants; the bank's JPEG and WebP folders)
-                  and tests/data/image_decode_timing (a 512x512 lossy WebP
-                  and a 512x512 4:2:0 JPEG) through io/image.py::load_rgb,
-                  each held to the stored SHA-256 of Pillow's RGB decode;
-                  seconds per format and for the two 512x512 files.
+                  BMP and TIFF variants (BigTIFF, 16-bit, planar, CMYK,
+                  JPEG, LZMA); JPEG 2000 (reversible, irreversible, tiles,
+                  each progression, layers, sYCC, palette); PBM/PGM/PPM,
+                  TGA, ICO/CUR, PSD, QOI; the bank's JPEG and WebP folders)
+                  and tests/data/image_decode_timing (a 512x512 lossy WebP,
+                  a 512x512 4:2:0 JPEG and a 512x512 irreversible JPEG
+                  2000) through io/image.py::load_rgb, each held to the
+                  stored SHA-256 of Pillow's RGB decode; seconds per format
+                  and for the three 512x512 files.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
                   request, 2 rows), in bf16 (the wgmma kernel) and in fp32
@@ -4595,8 +4599,9 @@ def phase_cascade_routes(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 IMAGE_FIXTURES = REPO / "tests" / "data" / "image_decode"  # written with Pillow by tests/_make_image_fixtures.py
-IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the two 512x512 files, by the same script
-IMAGE_FIXTURES_MIN = 52  # every committed fixture (the bank's 16 files included)
+IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the three 512x512 files, by the same script
+IMAGE_FIXTURES_MIN = 93  # every committed fixture (the bank's 16 files included)
+EDIT_IMAGE = IMAGE_TIMING / "j2k_irreversible_512.jp2"  # the edit phase's --image: io/jpeg2000.py feeds K4a
 # the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut (10 DDIM steps before bench_serve joined)
 EDIT_STEPS, EDIT_INNER_STEPS = 6, 2
 EDIT_SCALES = (0.0, -2.0, 2.0)
@@ -4607,10 +4612,12 @@ def phase_image_decode() -> None:
     """Host only: every committed fixture (JPEG baseline, progressive,
     arithmetic-coded, lossless, CMYK and YCCK; PNG of every type; lossy and
     lossless WebP, with alpha, an offset animation frame, the simple filter
-    over 4 partitions; GIF, BMP and TIFF variants; the bank's JPEG and WebP
-    folders) and the two 512x512 timing files (a lossy WebP at quality 90
-    and a 4:2:0 JPEG) through io/image.py::load_rgb, each held to the SHA-256
-    of Pillow's decode stored beside it; seconds per format and for the
+    over 4 partitions; GIF, BMP and TIFF variants; JPEG 2000, PBM/PGM/PPM,
+    TGA, ICO/CUR, PSD and QOI; the bank's JPEG and WebP folders) and the
+    three 512x512 timing files (a lossy WebP at quality 90, a 4:2:0 JPEG and
+    an irreversible JPEG 2000 at OpenJPEG's defaults) through
+    io/image.py::load_rgb, each held to the SHA-256 of Pillow's decode
+    stored beside it; seconds per format (by file extension) and for the
     512x512 files. Any mismatch fails the run."""
     seconds, bad, shapes = {}, [], {}
     tables = [(IMAGE_FIXTURES, json.loads((IMAGE_FIXTURES / "digests.json").read_text())),
@@ -4637,7 +4644,7 @@ def phase_image_decode() -> None:
     emit(dict(phase="image_decode", files=len(seconds), fixtures=n_fixtures, mismatched=bad,
               seconds_total=sum(seconds.values()), seconds_by_format=by_format, seconds_512x512=timing,
               seconds_by_file=seconds))
-    if bad or n_fixtures < IMAGE_FIXTURES_MIN or len(timing) != 2:
+    if bad or n_fixtures < IMAGE_FIXTURES_MIN or len(timing) != 3:
         raise AssertionError(f"image_decode: the port's decode differs from Pillow's on {bad} "
                              f"({n_fixtures} fixtures, {len(timing)} timing files)")
 
@@ -4737,7 +4744,8 @@ def attention_kinds(unet) -> list:
 
 def phase_edit(tmp: Path, sd_dir: Path) -> list:
     """Null-text inversion editing (demos/demo_image_editing.run) on the SD1.5
-    directory at 512px in fp32 (the demo's default): a committed JPEG,
+    directory at 512px in fp32 (the demo's default): the committed 512x512
+    irreversible JPEG 2000 (EDIT_IMAGE, decoded by io/jpeg2000.py),
     EDIT_STEPS DDIM steps, EDIT_INNER_STEPS inner steps, a seeded rank-4
     slider at scales 0, -2, 2 (start_noise 500). Each part's K1..K4c
     launches against the count predicted from which inputs need a gradient
@@ -4750,7 +4758,7 @@ def phase_edit(tmp: Path, sd_dir: Path) -> list:
     slider = tmp / "edit_noxattn_rank4_alpha1.safetensors"
     make_slider(slider, UNetConfig.sd15())
     args = demo_edit.build_parser().parse_args(
-        ["--base", str(sd_dir), "--image", str(IMAGE_FIXTURES / "bank" / "plus1" / "000.jpg"),
+        ["--base", str(sd_dir), "--image", str(EDIT_IMAGE),
          "--prompt", "a photo of a person", "--slider", str(slider), "--scales", ",".join(map(str, EDIT_SCALES)),
          "--ddim_steps", str(EDIT_STEPS), "--out", str(tmp / "edit")])
     parts = {}
@@ -4817,7 +4825,7 @@ def phase_edit(tmp: Path, sd_dir: Path) -> list:
             controllers["reweight"]["moved_by_weights"] = float((unet(x, 500, res["cond"]) - plain).abs().max())
         check_no_plain("edit_controllers")
     emit(dict(phase="edit", model=f"{SD15} (the load phase's directory)", precision="float32", image_size=512,
-              image=str((IMAGE_FIXTURES / "bank" / "plus1" / "000.jpg").relative_to(REPO)), ddim_steps=EDIT_STEPS,
+              image=str(EDIT_IMAGE.relative_to(REPO)), ddim_steps=EDIT_STEPS,
               num_inner_steps=EDIT_INNER_STEPS, inner_steps_taken=res["inner_steps"], scales=list(EDIT_SCALES),
               flip_step=res["flip_step"], reconstruction_mse_scale0=mse, mean_abs_pixel_change_vs_scale0=moved,
               launches_by_part=parts, expected_by_part=want, controllers=controllers, seconds_by_part=res["seconds"],

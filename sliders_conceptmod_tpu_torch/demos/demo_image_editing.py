@@ -9,7 +9,9 @@ is written as ``<out>/edit_scale_<scale>.png``.
     python -m sliders_conceptmod_tpu_torch.demos.demo_image_editing --base tiny \\
         --image photo.jpg --prompt "a photo of a person" --slider slider.safetensors --scales 0,2,4
 
-``--image`` is a PNG or JPEG (``train/imageslider.py::load_image_array``);
+``--image`` is any file ``io/image.py::load_rgb`` reads: PNG, JPEG, WebP,
+GIF, BMP, TIFF, JPEG 2000, PBM/PGM/PPM, TGA, ICO/CUR, PSD or QOI
+(``train/imageslider.py::load_image_array``);
 ``--device`` is ``cuda`` (the default), a CUDA ordinal or ``cpu``.
 """
 

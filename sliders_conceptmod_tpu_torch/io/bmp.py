@@ -119,10 +119,17 @@ def decode_bmp(data: bytes) -> np.ndarray:
     """BMP bytes → uint8 ``[H, W, 3]``."""
     if data[:2] != b"BM" or len(data) < 26:
         raise _error("not a BMP file")
-    offset = _u32(data, 10)
-    header_size = _u32(data, 14)
-    h = data[18 : 14 + header_size]
-    pos = 14 + header_size
+    return decode_bitmap(data, 14, _u32(data, 10))
+
+
+def decode_bitmap(data: bytes, at: int, offset: int = 0, halve: bool = False) -> np.ndarray:
+    """The bitmap whose info header starts at ``at``: its pixels at
+    ``offset``, or (``offset`` 0, a DIB) right after its header, masks and
+    palette. ``halve``: an icon's or cursor's DIB, whose stored height
+    counts its AND mask too, read at half that height."""
+    header_size = _u32(data, at)
+    h = data[at + 4 : at + header_size]
+    pos = at + header_size
     top_down = False
     masks = None
     if header_size == 12:
@@ -143,6 +150,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
     else:
         raise _error(f"a header of {header_size} bytes ({ITEM})")
     colors = colors or (1 << bits)
+    if halve:
+        height //= 2
     if offset == 14 + header_size and bits <= 8:
         offset += 4 * colors  # Pillow's reading of an offset that leaves out the palette
     if bits not in (1, 4, 8, 16, 24, 32):
@@ -160,6 +169,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
         if not 0 < colors <= 65536:
             raise _error(f"a palette of {colors} entries")
         raw = np.frombuffer(data[pos : pos + entry * colors].ljust(entry * colors, b"\0"), np.uint8)
+        pos += entry * colors
         pal = raw.reshape(colors, entry)[:, 2::-1]  # BGR(X) → RGB
         ramp = (0, 255) if colors == 2 else range(colors)
         if all(tuple(pal[i]) == (v, v, v) for i, v in enumerate(ramp)):
@@ -169,6 +179,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
         else:
             palette = np.zeros((256, 3), np.uint8)
             palette[: min(colors, 256)] = pal[:256]
+    offset = offset or pos
     if compression in (1, 2):
         if bits > 8:
             raise _error("run-length coding of a direct-colour image")

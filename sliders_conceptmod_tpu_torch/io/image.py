@@ -1,52 +1,136 @@
 """``load_rgb``: the port's ``PIL.Image.open(path).convert("RGB")`` (the GPU
-machine has no PIL). The format comes from the file's signature, not its
-name, as Pillow identifies it: PNG (``io/png.py``), JPEG (``io/jpeg.py``),
-WebP (``io/webp.py`` over ``io/vp8.py`` and ``io/vp8l.py``), GIF
-(``io/gif.py``), BMP (``io/bmp.py``) and TIFF (``io/tiff.py``). Any other
-format is refused (ROADMAP.md queue 1, item 14)."""
+machine has no PIL). The format comes from the file's bytes, not its name,
+tried in the order of Pillow 12.1's ``Image.ID`` with each plugin's
+``_accept`` test; where a format's header checks fail as Pillow's ``_open``
+fails (``NotThisFormat``), the next format is tried, as
+``Image._open_core`` does. The port decodes BMP and DIB (``io/bmp.py``),
+GIF (``io/gif.py``), JPEG (``io/jpeg.py``), PBM/PGM/PPM (``io/pnm.py``),
+PNG (``io/png.py``), ICO and CUR (``io/ico.py``), JPEG 2000
+(``io/jpeg2000.py``), TIFF (``io/tiff.py``), PSD (``io/psd.py``), QOI
+(``io/qoi.py``), TGA (``io/tga.py``, tried last: it has no signature) and
+WebP (``io/webp.py``). Every other format Pillow reads is refused citing
+ROADMAP item 14; those Pillow cannot load here either are refused saying
+so."""
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.bmp import decode_bmp
+from sliders_conceptmod_tpu_torch.io.bmp import decode_bitmap, decode_bmp
 from sliders_conceptmod_tpu_torch.io.gif import decode_gif
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, decode_jpeg
-from sliders_conceptmod_tpu_torch.io.png import decode_png
+from sliders_conceptmod_tpu_torch.io.ico import accept_cur, accept_ico, decode_cur, decode_ico
+from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, decode_jpeg
+from sliders_conceptmod_tpu_torch.io.jpeg2000 import accept as accept_jpeg2000
+from sliders_conceptmod_tpu_torch.io.jpeg2000 import decode_jpeg2000
+from sliders_conceptmod_tpu_torch.io.png import png_rgb
+from sliders_conceptmod_tpu_torch.io.pnm import accept as accept_pnm
+from sliders_conceptmod_tpu_torch.io.pnm import decode_pnm
+from sliders_conceptmod_tpu_torch.io.psd import accept as accept_psd
+from sliders_conceptmod_tpu_torch.io.psd import decode_psd
+from sliders_conceptmod_tpu_torch.io.qoi import accept as accept_qoi
+from sliders_conceptmod_tpu_torch.io.qoi import decode_qoi
+from sliders_conceptmod_tpu_torch.io.tga import decode_tga
+from sliders_conceptmod_tpu_torch.io.tiff import accept as accept_tiff
 from sliders_conceptmod_tpu_torch.io.tiff import decode_tiff
 from sliders_conceptmod_tpu_torch.io.webp import decode_webp
 
-# (signature test, format) for the formats Pillow opens that the port refuses
-_REFUSED = (
-    (lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
-    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis"), "AVIF"),
-    (lambda d: d[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P7", b"Pf", b"PF"), "PPM/PGM/PBM"),
-    (lambda d: d[:4] == b"\0\0\1\0", "ICO"),
-    (lambda d: d[:4] == b"8BPS", "PSD"),
+_DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+_NOT_HERE = "Pillow cannot load it here either"
+
+
+def _u32(d: bytes, at: int = 0, bo: str = "<") -> int:
+    return struct.unpack_from(bo + "I", d, at)[0] if len(d) >= at + 4 else -1
+
+
+def _pcx(d: bytes) -> bool:
+    """PCX's ``_accept`` and the size check its ``_open`` makes first."""
+    if len(d) < 12 or d[0] != 10 or d[1] not in (0, 2, 3, 5):
+        return False
+    x0, y0, x1, y1 = struct.unpack_from("<HHHH", d, 4)
+    return x1 + 1 > x0 and y1 + 1 > y0
+
+
+def _mpeg(d: bytes) -> bool:
+    """MPEG's ``_accept`` and the non-zero size its ``_open`` needs."""
+    return len(d) >= 7 and d[:4] == b"\0\0\1\xb3" and (d[4] << 4 | d[5] >> 4) > 0 and ((d[5] & 15) << 8 | d[6]) > 0
+
+
+def _gbr(d: bytes) -> bool:
+    """GBR's ``_accept`` and the header checks of its ``_open``."""
+    if len(d) < 20 or _u32(d, 0, ">") < 20 or _u32(d, 4, ">") not in (1, 2):
+        return False
+    w, h, depth = (_u32(d, k, ">") for k in (8, 12, 16))
+    return w > 0 and h > 0 and depth in (1, 4) and (_u32(d, 4, ">") == 1 or d[20:24] == b"GIMP")
+
+
+# Pillow 12.1's Image.ID: first the formats ``Image.preinit`` registers, then
+# the rest in the order ``Image.init`` registers them. A format is
+# (name, accept, decoder); a decoder of None is refused citing ROADMAP item
+# 14, a string is the reason Pillow cannot load it here either.
+_FORMATS = (
+    ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
+    ("DIB", lambda d: _u32(d) in _DIB_HEADERS, lambda d: decode_bitmap(d, 0)),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), decode_gif),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg),
+    ("PPM", accept_pnm, decode_pnm),
+    ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", png_rgb),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), None),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), "Pillow has only a stub for it"),
+    ("CUR", accept_cur, decode_cur),
+    ("PCX", _pcx, None),
+    ("DCX", lambda d: _u32(d) == 0x3ADE68B1, None),
+    ("DDS", lambda d: d[:4] == b"DDS ", None),
+    ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, "Pillow needs Ghostscript for it"),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FLI", lambda d: len(d) >= 16 and struct.unpack_from("<H", d, 4)[0] in (0xAF11, 0xAF12)
+     and struct.unpack_from("<H", d, 14)[0] in (0, 3), None),
+    ("FTEX", lambda d: d[:4] == b"FTEX", None),
+    ("GBR", _gbr, None),
+    ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "Pillow has only a stub for it"),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", "Pillow has only a stub for it"),
+    ("JPEG2000", accept_jpeg2000, decode_jpeg2000),
+    ("ICNS", lambda d: d[:4] == b"icns", None),
+    ("ICO", accept_ico, decode_ico),
+    ("IM", lambda d: d[:11] == b"Image type:", None),
+    ("IPTC", lambda d: d[:2] == b"\x1c\x02", None),
+    ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\x04", None),
+    ("MPEG", _mpeg, "Pillow reads only its size"),
+    ("TIFF", accept_tiff, decode_tiff),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
+    ("PCD", lambda d: d[2048:2055] == b"PCD_IPI", None),
+    ("PIXAR", lambda d: d[:4] == b"\200\350\0\0", None),
+    ("PSD", accept_psd, decode_psd),
+    ("QOI", accept_qoi, decode_qoi),
+    ("SGI", lambda d: len(d) >= 2 and struct.unpack_from(">H", d)[0] == 474, None),
+    ("SUN", lambda d: _u32(d, 0, ">") == 0x59A66A95, None),
+    ("TGA", lambda d: True, decode_tga),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L"),
+     decode_webp),
+    ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\1\0\0\0", "Pillow has no WMF loader here"),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), None),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", None),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332", None),
 )
 
 
 def decode_rgb(data: bytes, name: str = "image") -> np.ndarray:
     """Image bytes → uint8 ``[H, W, 3]``: grey repeated, alpha dropped."""
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        img = decode_png(data)
-        if img.ndim == 2:
-            img = img[:, :, None]
-        return np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] in (1, 2) else np.ascontiguousarray(img[:, :, :3])
-    if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif(data)
-    if data[:2] == b"BM":
-        return decode_bmp(data)
-    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
-        return decode_tiff(data)
-    for test, fmt in _REFUSED:
-        if test(data):
+    for fmt, accept, decoder in _FORMATS:
+        if not accept(data):
+            continue
+        if decoder is None:
             raise ValueError(f"{name}: {fmt} is not supported ({ITEM}); save the image as PNG, JPEG or WebP")
-    raise ValueError(f"{name}: not a PNG, JPEG, WebP, GIF, BMP or TIFF file (the port decodes those; {ITEM})")
+        if isinstance(decoder, str):
+            raise ValueError(f"{name}: {fmt} is not supported ({decoder}: {_NOT_HERE}; {ITEM})")
+        try:
+            return decoder(data)
+        except NotThisFormat:
+            continue
+    raise ValueError(f"{name}: not an image format the port identifies ({ITEM} lists the formats Pillow reads "
+                     "that the port refuses)")
 
 
 def load_rgb(path: str) -> np.ndarray:

@@ -14,9 +14,11 @@ Scope, as libjpeg-turbo decodes with Pillow's settings (``JDCT_ISLOW``,
   marker's conditioning (defaults L 0, U 1, K 5), the statistics reset at
   every scan and restart; restart intervals (DRI/RSTn); 8-bit samples;
 * lossless frames (SOF3, Huffman): the seven predictors of T.81 H.1.2.1 and
-  the point transform, one sample a data unit, no subsampling; libjpeg-turbo
-  3 decodes them without colour conversion, so a file marked YCbCr (JFIF or
-  Adobe 1) or YCCK is refused, as Pillow refuses it;
+  the point transform, one sample a data unit, subsampled components
+  upsampled by replication; restart intervals of whole MCU rows (others are
+  refused, as libjpeg-turbo refuses them); libjpeg-turbo 3 decodes them
+  without colour conversion, so a file marked YCbCr (JFIF or Adobe 1) or
+  YCCK is refused, as Pillow refuses it;
 * one component (grey, repeated to RGB), three: YCbCr, or RGB where no
   JFIF marker is present and the Adobe marker's transform is 0 or the
   component ids are 'R', 'G', 'B' (any ids for a lossless frame;
@@ -27,6 +29,9 @@ Scope, as libjpeg-turbo decodes with Pillow's settings (``JDCT_ISLOW``,
 * the integer "islow" IDCT of ``jidctint.c``: its 13-bit fixed-point
   constants, two passes descaled by 11 and 18 bits, and the post-IDCT range
   limit table (a ``& 1023`` index, so far-out values wrap as libjpeg's do);
+* ``jpeg_planes``: a stream's components without colour conversion, its
+  tables optionally from a separate abbreviated stream (a TIFF's
+  ``JPEGTables``);
 * upsampling as ``jdsample.c`` picks it per component: the triangle
   ("fancy") filters for h2v1 and h2v2 when the component is more than two
   samples wide, and for h1v2, with their alternating rounding biases; box
@@ -52,6 +57,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 ITEM = "ROADMAP.md queue 1, item 14"
+
+
+class NotThisFormat(ValueError):
+    """A file fails a format's header checks where Pillow's ``_open`` raises
+    ``SyntaxError`` (or an error it turns into one): ``io/image.py`` goes on
+    to the next format, as ``Image._open_core`` does."""
 
 # jpeg_natural_order: zigzag index k → natural (row-major) index
 ZIGZAG = np.array([
@@ -434,7 +445,7 @@ def _upsample(plane: np.ndarray, fh: int, fv: int, fancy: bool) -> np.ndarray:
     return np.repeat(np.repeat(p, fv, axis=0), fh, axis=1)  # box: h2v1_upsample, h2v2_upsample, int_upsample
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True) -> np.ndarray:
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True) -> np.ndarray:
     """``jdcolor.c::ycc_rgb_convert`` with its tables (SCALEBITS 16);
     ``clip=False`` leaves the sums unclipped (int64)."""
     one_half = 1 << 15
@@ -456,6 +467,26 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes → uint8 ``[H, W, 3]``, as ``Image.open(p).convert("RGB")``."""
+    return _output(*_read(data))
+
+
+def jpeg_planes(data: bytes, tables: bytes = b"") -> List[np.ndarray]:
+    """The components of a JPEG stream, each upsampled to the image's size
+    and not colour converted, as libjpeg gives them for an unknown colour
+    space (or before converting YCbCr, as a TIFF's reader asks). ``tables``:
+    an abbreviated stream of tables only (a TIFF's ``JPEGTables``), read
+    before ``data``'s own markers."""
+    if tables:
+        if data[:2] != b"\xff\xd8" or tables[:2] != b"\xff\xd8":
+            raise ValueError("not a JPEG stream (no SOI marker)")
+        data = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + data[2:]
+    frame, comps, _, _ = _read(data)
+    return _planes(frame, comps)
+
+
+def _read(data: bytes):
+    """The markers and scans of a JPEG stream: (frame, components, JFIF
+    seen, Adobe transform)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG stream (no SOI marker)")
     qtables: Dict[int, np.ndarray] = {}
@@ -503,12 +534,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             coding = "lossless" if marker == 0xC3 else "arithmetic" if marker in (0xC9, 0xCA) else "huffman"
             frame = (height, width, marker in (0xC2, 0xCA), coding)
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-            if coding == "lossless":
-                if hmax != 1 or vmax != 1:
-                    raise _refuse("a lossless JPEG with subsampled components is not supported")
+            if coding == "lossless":  # one sample a data unit; c.bw × c.bh the MCU-padded plane
                 for c in comps:
-                    c.bw, c.bh, c.dw, c.dh = width, height, width, height
-                    c.coefs = [0] * (width * height)  # the samples
+                    c.dw, c.dh = -(-width * c.h // hmax), -(-height * c.v // vmax)
+                    c.bw, c.bh = -(-width // hmax) * c.h, -(-height // vmax) * c.v
+                    c.coefs = [0] * (c.dw * c.dh)  # the samples
                 continue
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             for c in comps:
@@ -562,14 +592,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
             segments, nxt = _segments(data, pos + length)
             if frame[3] == "lossless":
-                _decode_lossless_scan(frame, scomps, ss, ahal & 15, segments, restart_interval, dc_luts)
+                _decode_lossless_scan(frame, comps, scomps, ss, ahal & 15, segments, restart_interval, dc_luts)
             else:
                 _decode_scan(frame, comps, scomps, ss, se, ahal >> 4, ahal & 15, segments, restart_interval,
                              dc_luts, ac_luts, conditioning)
         pos = nxt
     if frame is None:
         raise ValueError("JPEG without a frame header")
-    return _output(frame, comps, saw_jfif, adobe_transform)
+    return frame, comps, saw_jfif, adobe_transform
 
 
 def _decode_scan(frame, comps, scomps, ss, se, ah, al, segments, restart_interval, dc_luts, ac_luts,
@@ -648,39 +678,62 @@ def _arith_interval(dec: _Arith, stats: _ArithStats, mcus, kind: str, ss: int, s
         pass
 
 
-def _decode_lossless_scan(frame, scomps, predictor, pt, segments, restart_interval, dc_luts) -> None:
-    """A lossless (SOF3) scan: per sample a Huffman-coded difference
-    (category 16 is 32768 with no extra bits) from T.81 H.1.2.1's predictor:
-    ``2^(7 − Pt)`` at the start of the first row of each restart interval,
-    the left sample along that row, the sample above at the start of the
-    other rows, the selected predictor elsewhere; modulo 2^16."""
+def _decode_lossless_scan(frame, comps, scomps, predictor, pt, segments, restart_interval, dc_luts) -> None:
+    """A lossless (SOF3) scan as libjpeg-turbo 3 decodes it
+    (``jddiffct.c``, ``jdlhuff.c``, ``jdlossls.c``): per sample a
+    Huffman-coded difference (category 16 is 32768 with no extra bits),
+    MCUs of h × v samples of each component (one sample where the scan has
+    one component), the padding samples past a component's edge decoded and
+    dropped. Each component's rows are then undone from T.81 H.1.2.1's
+    predictors: ``2^(7 − Pt)`` at the start of the first row after the
+    scan's start or a restart, the left sample along that row, the sample
+    above at the start of the other rows, the selected predictor elsewhere;
+    modulo 2^16. Restarts are taken at the start of MCU rows only, so an
+    interval that is not whole MCU rows is refused, as libjpeg-turbo
+    refuses it."""
     height, width = frame[:2]
-    if len(scomps) > 1 and any(c.h != 1 or c.v != 1 for c in scomps):
-        raise _refuse("a lossless JPEG with subsampled components is not supported")
-    if restart_interval and restart_interval % width:
-        raise _refuse("a lossless JPEG whose restart interval is not whole rows is not supported")
-    rows_per = restart_interval // width if restart_interval else height
-    planes = [[0] * (width * height) for _ in scomps]
-    for r, y_start in enumerate(range(0, height, rows_per)):
+    if len(scomps) == 1:
+        c = scomps[0]
+        mcux, mcuy, units = c.dw, c.dh, [(c, 1, 1)]
+    else:
+        hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+        mcux, mcuy, units = -(-width // hmax), -(-height // vmax), [(c, c.h, c.v) for c in scomps]
+    if restart_interval and restart_interval % mcux:
+        raise _refused_by_pillow(f"a lossless restart interval of {restart_interval} MCUs in rows of {mcux} "
+                                 "(libjpeg-turbo takes whole MCU rows only)")
+    rows_per = restart_interval // mcux if restart_interval else mcuy
+    diffs = [[[0] * (mcux * h) for _ in range(mcuy * v)] for c, h, v in units]
+    for r, y_start in enumerate(range(0, mcuy, rows_per)):
         reader = _Bits(segments[r] if r < len(segments) else b"")
-        for y in range(y_start, min(y_start + rows_per, height)):
-            for x in range(width):
-                for k, c in enumerate(scomps):
-                    plane = planes[k]
-                    s = reader.decode(dc_luts[c.dc_table])
-                    diff = 32768 if s == 16 else _extend(reader.bits(s), s)
-                    i = y * width + x
-                    if y == y_start:
-                        pred = plane[i - 1] if x else 1 << (7 - pt)
-                    elif x == 0:
-                        pred = plane[i - width]
-                    else:
-                        ra, rb, rc = plane[i - 1], plane[i - width], plane[i - width - 1]
-                        pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
-                                (ra + rb) >> 1)[predictor - 1]
-                    plane[i] = (pred + diff) & 0xFFFF
-    for k, c in enumerate(scomps):
-        c.coefs = [(v << pt) & 0xFF for v in planes[k]]
+        for my in range(y_start, min(y_start + rows_per, mcuy)):
+            for mx in range(mcux):
+                for k, (c, h, v) in enumerate(units):
+                    lut = dc_luts[c.dc_table]
+                    for yy in range(v):
+                        row = diffs[k][my * v + yy]
+                        for xx in range(h):
+                            s = reader.decode(lut)
+                            row[mx * h + xx] = 32768 if s == 16 else _extend(reader.bits(s), s)
+    for k, (c, h, v) in enumerate(units):
+        plane = [0] * (c.dw * c.dh)
+        w = c.dw
+        for y in range(c.dh):
+            d = diffs[k][y]
+            i0 = y * w
+            if (y // v) % rows_per == 0 and y % v == 0:  # the first row after the scan's start or a restart
+                acc = 1 << (7 - pt)
+                for x in range(w):
+                    acc = (acc + d[x]) & 0xFFFF
+                    plane[i0 + x] = acc
+                continue
+            plane[i0] = (plane[i0 - w] + d[0]) & 0xFFFF
+            for x in range(1, w):
+                i = i0 + x
+                ra, rb, rc = plane[i - 1], plane[i - w], plane[i - w - 1]
+                pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                        (ra + rb) >> 1)[predictor - 1]
+                plane[i] = (pred + d[x]) & 0xFFFF
+        c.coefs = [(val << pt) & 0xFF for val in plane]
 
 
 def _block_baseline(reader: _Bits, c: _Component, base: int, pred: dict, dc: List[int], ac: List[int]) -> None:
@@ -765,23 +818,31 @@ def _block_ac_refine(reader: _Bits, coefs: List[int], base: int, ss: int, se: in
         eobrun[0] -= 1
 
 
-def _output(frame, comps: List[_Component], saw_jfif: bool, adobe_transform) -> np.ndarray:
+def _planes(frame, comps: List[_Component]) -> List[np.ndarray]:
+    """Each component's samples at the image's size."""
     height, width, _, coding = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
     for c in comps:
         if c.qtable is None:
             raise ValueError(f"JPEG component {c.id} has no scan")
-        if coding == "lossless":
-            planes.append(np.asarray(c.coefs, np.int64).reshape(height, width))
+        fh, fv = hmax // c.h, vmax // c.v
+        if coding == "lossless":  # libjpeg-turbo upsamples lossless samples by replication
+            plane = np.asarray(c.coefs, np.int64).reshape(c.dh, c.dw)
+            planes.append(_upsample(plane, fh, fv, fancy=False)[:height, :width])
             continue
         zz = np.asarray(c.coefs, np.int64).reshape(-1, 64) * c.qtable[None, :]
         samples = idct_islow(zz[:, _NATURAL_FROM_ZIGZAG].reshape(-1, 8, 8))
         plane = samples.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
-        fh, fv = hmax // c.h, vmax // c.v
         if hmax % c.h or vmax % c.v:
             raise ValueError("JPEG: fractional sampling factors are not supported (libjpeg refuses them too)")
         planes.append(_upsample(plane[: c.dh, : c.dw], fh, fv, fancy=True)[:height, :width])
+    return planes
+
+
+def _output(frame, comps: List[_Component], saw_jfif: bool, adobe_transform) -> np.ndarray:
+    coding = frame[3]
+    planes = _planes(frame, comps)
     if len(comps) == 1:
         return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, axis=2)
     if len(comps) == 4:
@@ -801,21 +862,25 @@ def _output(frame, comps: List[_Component], saw_jfif: bool, adobe_transform) -> 
         return np.stack(planes, axis=-1).astype(np.uint8)
     if coding == "lossless":
         raise _refused_by_pillow("lossless JPEGs in YCbCr (libjpeg converts no lossless colour space)")
-    return _ycc_to_rgb(*planes)
+    return ycc_to_rgb(*planes)
 
 
 def _ycck_to_cmyk(y, cb, cr, k):
     """``jdcolor.c::ycck_cmyk_convert``: YCbCr → RGB by the same tables,
     each inverted to C, M, Y and range-limited; K passes through."""
-    rgb = _ycc_to_rgb(y, cb, cr, clip=False)
+    rgb = ycc_to_rgb(y, cb, cr, clip=False)
     return tuple(np.clip(255 - rgb[..., i], 0, 255) for i in range(3)) + (k,)
 
 
 def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     """What Pillow makes of libjpeg's CMYK: the Adobe rawmode ``CMYK;I``
-    inverts every channel, then ``Convert.c::cmyk2rgb``:
-    ``nk − MULDIV255(c, nk)`` with ``nk = 255 − k``."""
-    inv = 255 - cmyk.astype(np.int64)
-    nk = 255 - inv[..., 3:4]
-    t = inv[..., :3] * nk + 128
+    inverts every channel, then ``cmyk2rgb``."""
+    return cmyk2rgb(255 - cmyk.astype(np.int64))
+
+
+def cmyk2rgb(cmyk: np.ndarray) -> np.ndarray:
+    """``Convert.c::cmyk2rgb``: ``nk − MULDIV255(c, nk)`` with ``nk = 255 − k``."""
+    cmyk = cmyk.astype(np.int64)
+    nk = 255 - cmyk[..., 3:4]
+    t = cmyk[..., :3] * nk + 128
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

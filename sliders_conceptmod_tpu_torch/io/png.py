@@ -166,3 +166,11 @@ def decode_png(data: bytes) -> np.ndarray:
         vals = vals * (255 // ((1 << depth) - 1))
     img = vals.astype(np.uint8)
     return img[:, :, 0] if ch == 1 else img
+
+
+def png_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes → uint8 ``[H, W, 3]``: grey repeated, alpha dropped."""
+    img = decode_png(data)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    return np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] in (1, 2) else np.ascontiguousarray(img[:, :, :3])

@@ -1,38 +1,65 @@
 """TIFF decoding (the first image file directory) in numpy and plain
 Python, as ``PIL.Image.open(p).convert("RGB")`` gives it with Pillow 12's
-``TiffImagePlugin`` and its libtiff (the GPU machine has no PIL).
+``TiffImagePlugin`` and its libtiff 4.7 (the GPU machine has no PIL).
 
-* Both byte orders (``II*\\0`` and ``MM\\0*``); strips and tiles (edge
-  tiles cut to the image); planar configuration 1.
-* Compression: none, PackBits, LZW (most significant bit first, code
-  widths 9–12 switched one code early, as libtiff's ``tif_lzw.c`` reads
-  it) and Deflate (8 and 32946); the horizontal predictor (2) on 8-bit
-  samples under LZW and Deflate (libtiff's codecs that take one); fill
-  order 2 reverses the bits of each stored byte first.
-* Pixels, by Pillow's ``OPEN_INFO`` for 8 bits a sample and less: bilevel
-  and 2/4/8-bit grey (``WhiteIsZero`` inverted; 2 and 4 bits scaled by 85
-  and 17), grey with alpha, RGB with or without extra samples (associated
-  alpha is divided out as Pillow's ``RGBa`` unpacker does:
-  ``c · 255 // a``, 0 where ``a`` is 0), and 1/2/4/8-bit palettes
-  (``ColorMap`` entries taken by their high byte, black past its end).
+* Headers: both byte orders, and BigTIFF (``II+\\0``: 8-byte counts and
+  offsets). Pillow takes a big-endian BigTIFF (``MM\\0+``) for a classic
+  file and fails on it, so it is not identified; neither is any file whose
+  tags Pillow's ``OPEN_INFO`` has no mode for.
+* Strips and tiles (edge tiles cut to the image); planar configuration 1,
+  and 2 (each sample in planes of its own).
+* Uncompressed data goes through Pillow's own raw decoder, the rest
+  through libtiff's codecs: PackBits, LZW (most significant bit first,
+  code widths 9–12 switched one code early, as ``tif_lzw.c`` reads it),
+  Deflate (8 and 32946), LZMA (34925, the standard library's ``lzma``) and
+  JPEG (7: each strip or tile a JPEG stream, the ``JPEGTables`` stream read
+  before it, decoded by ``io/jpeg.py``; YCbCr converted to RGB by libjpeg
+  as libtiff's ``JPEGCOLORMODE_RGB`` asks, any other photometric passed
+  through as libtiff's unknown colour space passes it). The horizontal
+  predictor (2) on 8, 16 and 32-bit samples; fill order 2 reverses the bits
+  of each stored byte first.
+* Pixels, by Pillow's ``OPEN_INFO`` (mode, rawmode): bilevel and 2/4/8-bit
+  grey (``WhiteIsZero`` inverted; 2 and 4 bits scaled by 85 and 17), 12,
+  16 and 32-bit grey (modes ``I;16``, ``I`` and ``F``, which
+  ``convert("RGB")`` clips at 255, not scales; a 16-bit ``WhiteIsZero`` is
+  read as ``BlackIsZero``, as Pillow reads it), grey with alpha, RGB and
+  CMYK at 8 and 16 bits (16-bit samples by their high byte) with extra
+  samples (associated alpha is divided out as Pillow's ``RGBa`` unpacker
+  does: ``c · 255 // a``, 0 where ``a`` is 0), CMYK by ``cmyk2rgb``, and
+  1/2/4/8-bit palettes (``ColorMap`` entries taken by their high byte,
+  black past its end).
 
-JPEG-in-TIFF, the other compressions, more than 8 bits a sample, CMYK,
-separate planes and BigTIFF raise ``ValueError`` citing ROADMAP item 14.
+Refused citing ROADMAP item 14: CCITT (2, 3, 4), ZSTD, old-style JPEG (6)
+and the other codecs libtiff has; YCbCr other than in JPEG (libtiff's RGBA
+interface), Lab (converted through LittleCMS) and planar uncompressed data
+of more than 8 bits a sample. WebP-compressed TIFF is refused as Pillow
+refuses it (its libtiff is built without WebP).
 """
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 from typing import Dict, List
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM
+from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, cmyk2rgb, jpeg_planes, ycc_to_rgb
 
-_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d"}
-_SIZES = {"B": 1, "s": 1, "H": 2, "I": 4, "II": 8, "b": 1, "h": 2, "i": 4, "ii": 8, "f": 4, "d": 8}
+_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
+_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
+          13: "I", 16: "Q"}
 _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# Pillow's COMPRESSION_INFO: what it names (anything else is not identified)
+_COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lzw", 6: "tiff_jpeg", 7: "jpeg",
+                 8: "tiff_adobe_deflate", 32771: "tiff_raw_16", 32773: "packbits", 32809: "tiff_thunderscan",
+                 32946: "tiff_deflate", 34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
+                 50001: "webp"}
+
+
+def accept(prefix: bytes) -> bool:
+    return prefix[:4] in _PREFIXES
 
 
 def _error(what: str) -> ValueError:
@@ -43,24 +70,38 @@ def _refuse(what: str) -> ValueError:
     return ValueError(f"TIFF: {what} is not supported ({ITEM})")
 
 
-def _read_ifd(data: bytes, bo: str, offset: int) -> Dict[int, List]:
-    """The first IFD's entries: tag → list of values."""
-    (n,) = struct.unpack_from(bo + "H", data, offset)
+def _read_ifd(data: bytes, bo: str, offset: int, big: bool) -> Dict[int, List]:
+    """The first IFD's entries as Pillow's ``ImageFileDirectory_v2.load``
+    reads them: tag → list of values; a truncated directory keeps the
+    entries read before its end."""
     tags: Dict[int, List] = {}
-    for i in range(n):
-        tag, typ, count, value = struct.unpack_from(bo + "HHI4s", data, offset + 2 + 12 * i)
-        fmt = _TYPES.get(typ)
-        if fmt is None:
-            continue
-        size = _SIZES[fmt] * count
-        raw = value[:size] if size <= 4 else data[struct.unpack(bo + "I", value)[0]:][:size]
-        if fmt == "s":
-            tags[tag] = [raw]
-        elif fmt in ("II", "ii"):
-            vals = struct.unpack(bo + fmt[0] * (2 * count), raw)
-            tags[tag] = [vals[2 * k] / vals[2 * k + 1] if vals[2 * k + 1] else 0 for k in range(count)]
-        else:
-            tags[tag] = list(struct.unpack(bo + fmt * count, raw))
+    word = 8 if big else 4
+    try:
+        (n,) = struct.unpack_from(bo + ("Q" if big else "H"), data, offset)
+        pos = offset + (8 if big else 2)
+        for _ in range(n):
+            tag, typ, count, value = struct.unpack_from(bo + ("HHQ8s" if big else "HHI4s"), data, pos)
+            pos += 20 if big else 12
+            fmt = _TYPES.get(typ)
+            if fmt is None:
+                continue
+            size = struct.calcsize(fmt) * count
+            if size > word:
+                at = struct.unpack(bo + ("Q" if big else "I"), value)[0]
+                raw = data[at : at + size]
+            else:
+                raw = value[:size]
+            if len(raw) != size or not raw:
+                continue
+            if fmt == "s":
+                tags[tag] = [raw]
+            elif fmt in ("II", "ii"):
+                vals = struct.unpack(bo + fmt[0] * (2 * count), raw)
+                tags[tag] = [vals[2 * k] / vals[2 * k + 1] if vals[2 * k + 1] else 0 for k in range(count)]
+            else:
+                tags[tag] = list(struct.unpack(bo + fmt * count, raw))
+    except struct.error:
+        pass
     return tags
 
 
@@ -116,122 +157,336 @@ def lzw_decode(data: bytes, size: int) -> bytes:
     return bytes(out)
 
 
-def _unpack(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
-    """Packed rows → ``[h, width]`` samples of ``bits`` (1, 2, 4 or 8)."""
+# Pillow 12.1's TiffImagePlugin.OPEN_INFO: (photometric, sample format, fill order, bits, extra samples)
+# → (mode, rawmode): the entries both byte orders share, then each order's own
+_OPEN_INFO = {
+    (0, (1,), 1, (1,), ()): ("1", "1;I"), (0, (1,), 2, (1,), ()): ("1", "1;IR"),
+    (1, (1,), 1, (1,), ()): ("1", "1"), (1, (1,), 2, (1,), ()): ("1", "1;R"),
+    (0, (1,), 1, (2,), ()): ("L", "L;2I"), (0, (1,), 2, (2,), ()): ("L", "L;2IR"),
+    (1, (1,), 1, (2,), ()): ("L", "L;2"), (1, (1,), 2, (2,), ()): ("L", "L;2R"),
+    (0, (1,), 1, (4,), ()): ("L", "L;4I"), (0, (1,), 2, (4,), ()): ("L", "L;4IR"),
+    (1, (1,), 1, (4,), ()): ("L", "L;4"), (1, (1,), 2, (4,), ()): ("L", "L;4R"),
+    (0, (1,), 1, (8,), ()): ("L", "L;I"), (0, (1,), 2, (8,), ()): ("L", "L;IR"),
+    (1, (1,), 1, (8,), ()): ("L", "L"), (1, (2,), 1, (8,), ()): ("L", "L"), (1, (1,), 2, (8,), ()): ("L", "L;R"),
+    (1, (1,), 1, (8, 8), (2,)): ("LA", "LA"), (2, (1,), 1, (8, 8, 8), ()): ("RGB", "RGB"),
+    (2, (1,), 2, (8, 8, 8), ()): ("RGB", "RGB;R"), (2, (1,), 1, (8, 8, 8, 8), ()): ("RGBA", "RGBA"),
+    (2, (1,), 1, (8, 8, 8, 8), (0,)): ("RGB", "RGBX"), (2, (1,), 1, (8, 8, 8, 8, 8), (0, 0)): ("RGB", "RGBXX"),
+    (2, (1,), 1, (8, 8, 8, 8, 8, 8), (0, 0, 0)): ("RGB", "RGBXXX"),
+    (2, (1,), 1, (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"), (2, (1,), 1, (8, 8, 8, 8, 8), (1, 0)): ("RGBA", "RGBaX"),
+    (2, (1,), 1, (8, 8, 8, 8, 8, 8), (1, 0, 0)): ("RGBA", "RGBaXX"),
+    (2, (1,), 1, (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"), (2, (1,), 1, (8, 8, 8, 8, 8), (2, 0)): ("RGBA", "RGBAX"),
+    (2, (1,), 1, (8, 8, 8, 8, 8, 8), (2, 0, 0)): ("RGBA", "RGBAXX"),
+    (2, (1,), 1, (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"), (3, (1,), 1, (1,), ()): ("P", "P;1"),
+    (3, (1,), 2, (1,), ()): ("P", "P;1R"), (3, (1,), 1, (2,), ()): ("P", "P;2"),
+    (3, (1,), 2, (2,), ()): ("P", "P;2R"), (3, (1,), 1, (4,), ()): ("P", "P;4"),
+    (3, (1,), 2, (4,), ()): ("P", "P;4R"), (3, (1,), 1, (8,), ()): ("P", "P"),
+    (3, (1,), 1, (8, 8), (0,)): ("P", "PX"), (3, (1,), 1, (8, 8), (2,)): ("PA", "PA"),
+    (3, (1,), 2, (8,), ()): ("P", "P;R"), (5, (1,), 1, (8, 8, 8, 8), ()): ("CMYK", "CMYK"),
+    (5, (1,), 1, (8, 8, 8, 8, 8), (0,)): ("CMYK", "CMYKX"),
+    (5, (1,), 1, (8, 8, 8, 8, 8, 8), (0, 0)): ("CMYK", "CMYKXX"), (6, (1,), 1, (8,), ()): ("L", "L"),
+    (6, (1,), 1, (8, 8, 8), ()): ("RGB", "RGBX"), (8, (1,), 1, (8, 8, 8), ()): ("LAB", "LAB")
+}
+_OPEN_INFO_II = {
+    (1, (1,), 1, (12,), ()): ("I;16", "I;12"), (0, (1,), 1, (16,), ()): ("I;16", "I;16"),
+    (1, (1,), 1, (16,), ()): ("I;16", "I;16"), (1, (1,), 2, (16,), ()): ("I;16", "I;16R"),
+    (1, (2,), 1, (16,), ()): ("I", "I;16S"), (0, (3,), 1, (32,), ()): ("F", "F;32F"),
+    (1, (1,), 1, (32,), ()): ("I", "I;32N"), (1, (2,), 1, (32,), ()): ("I", "I;32S"),
+    (1, (3,), 1, (32,), ()): ("F", "F;32F"), (2, (1,), 1, (16, 16, 16), ()): ("RGB", "RGB;16L"),
+    (2, (1,), 1, (16, 16, 16, 16), ()): ("RGBA", "RGBA;16L"),
+    (2, (1,), 1, (16, 16, 16, 16), (0,)): ("RGB", "RGBX;16L"),
+    (2, (1,), 1, (16, 16, 16, 16), (1,)): ("RGBA", "RGBa;16L"),
+    (2, (1,), 1, (16, 16, 16, 16), (2,)): ("RGBA", "RGBA;16L"),
+    (5, (1,), 1, (16, 16, 16, 16), ()): ("CMYK", "CMYK;16L")
+}
+_OPEN_INFO_MM = {
+    (1, (1,), 1, (16,), ()): ("I;16B", "I;16B"), (1, (2,), 1, (16,), ()): ("I", "I;16BS"),
+    (0, (3,), 1, (32,), ()): ("F", "F;32BF"), (1, (2,), 1, (32,), ()): ("I", "I;32BS"),
+    (1, (3,), 1, (32,), ()): ("F", "F;32BF"), (2, (1,), 1, (16, 16, 16), ()): ("RGB", "RGB;16B"),
+    (2, (1,), 1, (16, 16, 16, 16), ()): ("RGBA", "RGBA;16B"),
+    (2, (1,), 1, (16, 16, 16, 16), (0,)): ("RGB", "RGBX;16B"),
+    (2, (1,), 1, (16, 16, 16, 16), (1,)): ("RGBA", "RGBa;16B"),
+    (2, (1,), 1, (16, 16, 16, 16), (2,)): ("RGBA", "RGBA;16B"),
+    (5, (1,), 1, (16, 16, 16, 16), ()): ("CMYK", "CMYK;16B")
+}
+
+
+def _open_info(bo: str, photo: int, fmt: tuple, fill: int, bps: tuple, extra: tuple):
+    key = (photo, fmt, fill, bps, extra)
+    return _OPEN_INFO.get(key) or (_OPEN_INFO_II if bo == "<" else _OPEN_INFO_MM).get(key)
+
+
+def _unpack(rows: np.ndarray, bits: int, count: int, bo: str, fmt: int) -> np.ndarray:
+    """Packed rows ``[h, bytes]`` → ``[h, count]`` samples of ``bits``."""
+    if bits < 8:
+        per = 8 // bits
+        shifts = (8 - bits) - bits * np.arange(per)
+        vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
+        return vals.reshape(rows.shape[0], -1)[:, :count].astype(np.int64)
     if bits == 8:
-        return rows[:, :width]
-    per = 8 // bits
-    shifts = (8 - bits) - bits * np.arange(per)
-    vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
-    return vals.reshape(rows.shape[0], -1)[:, :width]
+        return rows[:, :count].astype(np.int64)
+    if bits == 12:  # I;12: pairs of samples in three bytes, high bits first
+        r = rows[:, : (count * 3 + 1) // 2].astype(np.int64)
+        r = np.pad(r, ((0, 0), (0, (-r.shape[1]) % 3)))
+        t = r.reshape(r.shape[0], -1, 3)
+        v = np.stack([(t[..., 0] << 4) | (t[..., 1] >> 4), ((t[..., 1] & 15) << 8) | t[..., 2]], -1)
+        return v.reshape(r.shape[0], -1)[:, :count]
+    dt = {(16, 1): "u2", (16, 2): "i2", (32, 1): "i4", (32, 2): "i4", (32, 3): "f4"}[(bits, fmt)]
+    v = rows[:, : count * bits // 8].copy().view(np.dtype(bo + dt))
+    return v if dt == "f4" else v.astype(np.int64)
 
 
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes → uint8 ``[H, W, 3]`` of the first image."""
-    if data[:4] == b"II*\0":
-        bo = "<"
-    elif data[:4] == b"MM\0*":
-        bo = ">"
-    elif data[:4] in (b"II+\0", b"MM\0+"):
-        raise _refuse("BigTIFF")
-    else:
-        raise _error("not a TIFF file")
-    tags = _read_ifd(data, bo, struct.unpack_from(bo + "I", data, 4)[0])
+    if not accept(data):
+        raise NotThisFormat("not a TIFF file")
+    bo = "<" if data[:2] == b"II" else ">"
+    big = data[2] == 43
+    first = struct.unpack_from(bo + ("Q" if big else "I"), data, 8 if big else 4)[0]
+    tags = _read_ifd(data, bo, first, big)
 
     def get(tag, default=None):
         v = tags.get(tag)
         return v[0] if v else default
 
+    compression = get(259, 1)
+    if compression not in _COMPRESSIONS:
+        raise NotThisFormat(f"TIFF: compression {compression} is unknown to Pillow")
+    planar, photo, fill, predictor = get(284, 1), get(262, 0), get(266, 1), get(317, 1)
+    if compression == 6:
+        photo = 6
     width, height = get(256), get(257)
-    if not width or not height:
-        raise _error("no image size")
-    compression, photo = get(259, 1), get(262, 0)
-    fill, planar, predictor = get(266, 1), get(284, 1), get(317, 1)
-    spp = get(277, 1)
+    if width is None or height is None:
+        raise NotThisFormat("TIFF: no image size")
+    fmt = tuple(tags.get(339, [1]))
+    if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+        fmt = (1,)
     bps = tuple(tags.get(258, [1]))
-    if len(bps) == 1 and spp > 1:
-        bps = bps * spp
-    bps = bps[:spp]
     extra = tuple(tags.get(338, []))
-    if compression in (6, 7):
-        raise _refuse("JPEG-compressed TIFF")
-    if compression not in (1, 5, 8, 32773, 32946):
-        raise _refuse(f"TIFF compression {compression}")
-    if max(bps) > 8 or len(set(bps)) > 1:
-        raise _refuse(f"a TIFF of {bps} bits a sample")
-    if photo not in (0, 1, 2, 3):
-        raise _refuse(f"photometric interpretation {photo} (CMYK, YCbCr, Lab, ...)")
-    if planar != 1 and spp > 1:
-        raise _refuse("a TIFF with separate planes")
-    if compression in (1, 32773):
-        predictor = 1  # neither Pillow's raw reader nor libtiff's PackBits codec applies one
-    if predictor not in (1, 2) or (predictor == 2 and bps[0] != 8):
-        raise _refuse(f"predictor {predictor} on {bps[0]}-bit samples")
+    count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
+    spp = get(277, 3 if compression == 6 and photo in (2, 6) else 1)
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise NotThisFormat("TIFF: unknown data organization")
+    raw_path = compression == 1
+    info = _open_info(bo, photo, fmt, fill if raw_path else 1, bps, extra)
+    if info is None:
+        raise NotThisFormat(f"TIFF: no Pillow mode for photometric {photo}, {bps} bits, extra samples {extra}")
+    if width <= 0 or height <= 0:
+        raise NotThisFormat("TIFF: an empty image")
+    mode, rawmode = info
+    if compression in (2, 3, 4, 50000):
+        raise _refuse(f"{_COMPRESSIONS[compression]} compression")
+    if compression == 50001:
+        raise _error("WebP compression (Pillow refuses it too: its libtiff is built without WebP)")
+    if compression not in (1, 5, 7, 8, 32773, 32946, 34925):
+        raise _refuse(f"{_COMPRESSIONS[compression]} compression")
+    if mode == "LAB":
+        raise _refuse("Lab colour (Pillow converts it through LittleCMS)")
+    if photo == 6 and compression != 7:
+        raise _refuse("YCbCr outside JPEG compression (libtiff's RGBA interface)")
     bits = bps[0]
-    if fill == 2 and compression == 1 and ((photo == 3 and bits < 8) or (photo == 0 and bits == 8)):
+    if fill == 2 and raw_path and ((photo == 3 and bits < 8) or (photo == 0 and bits == 8)):
         raise _error(f"uncompressed, bit-reversed {bits}-bit samples of photometric {photo} (Pillow has no "
-                     "unpacker for them and refuses them too)")
+                     "unpacker for them and refuses it too)")
+    if raw_path:
+        predictor = 1  # Pillow's raw reader applies none
+    if predictor not in (1, 2) or (predictor == 2 and fmt == (3,)):
+        raise _refuse(f"predictor {predictor} on {'floating-point' if fmt == (3,) else 'integer'} samples")
     if 322 in tags:
         tw, th = get(322), get(323)
-        offsets, counts = tags[324], tags[325]
+        offsets, counts = tags.get(324, []), tags.get(325, [])
     else:
         tw, th = width, min(get(278, height), height)
-        offsets, counts = tags[273], tags.get(279, [len(data)] * len(tags[273]))
-    row_bytes = (tw * spp * bits + 7) // 8
-    tiles_across = -(-width // tw)
-    need = row_bytes * th
-    # each tile's rows side by side, tile rows under each other
-    planes = np.zeros((-(-height // th) * th, tiles_across * row_bytes), np.uint8)
-    for k, (off, cnt) in enumerate(zip(offsets, counts)):
-        ty, tx = divmod(k, tiles_across)
-        if ty * th >= height:
-            break
-        raw = data[off : off + cnt]
+        offsets = tags.get(273)
+        if offsets is None:
+            raise NotThisFormat("TIFF: unknown data organization")
+        counts = tags.get(279, [len(data)] * len(offsets))
+    separate = planar == 2 and spp > 1
+    if compression == 7:
+        rgb, samples = _jpeg_image(data, tags, photo, width, height, tw, th, offsets, counts, separate, spp)
+        return rgb if rgb is not None else _to_rgb(samples, mode, rawmode, bits, tags)
+    if raw_path:
+        samples = _raw_samples(data, bo, mode, rawmode, width, height, tw, th, offsets, planar, bps, count, fill)
+        if planar == 2:  # one-band unpackers: 8-bit samples (1-bit for mode "1"), no inversion
+            return _to_rgb(samples, mode, mode, 1 if mode == "1" else 8, tags)
+        return _to_rgb(samples, mode, rawmode, bits, tags)
+    if separate and spp > 4 and 322 not in tags:
+        raise _error(f"{spp} separate planes (Pillow's libtiff decoder refuses them too)")
+    if predictor == 2 and bits < 8 and compression != 32773:
+        raise _error(f"the predictor on {bits}-bit samples (libtiff refuses it, and Pillow too)")
+    per_plane = 1 if separate else spp
+    row_bytes = (tw * bits * per_plane + 7) // 8
+    across, down = -(-width // tw), -(-height // th)
+    samples = np.zeros((height, width, spp), np.float32 if fmt == (3,) else np.int64)
+    for plane in range(spp if separate else 1):
+        for ty in range(down):
+            for tx in range(across):
+                k = plane * across * down + ty * across + tx
+                if k >= len(offsets):
+                    raise _error("fewer strips or tiles than the image needs")
+                raw = data[offsets[k] : offsets[k] + (counts[k] if k < len(counts) else 0)]
+                rows_here = th if 322 in tags else min(th, height - ty * th)
+                need = row_bytes * rows_here
+                if fill == 2:
+                    raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+                if compression == 32773:
+                    buf = packbits_decode(raw, need)
+                elif compression == 5:
+                    buf = lzw_decode(raw, need)
+                elif compression == 34925:
+                    buf = lzma.LZMADecompressor().decompress(raw, need)
+                else:
+                    buf = zlib.decompressobj().decompress(raw)
+                tile = np.frombuffer(buf[:need].ljust(need, b"\0"), np.uint8).reshape(rows_here, row_bytes)
+                vals = _unpack(tile, bits, tw * per_plane, bo, fmt[0]).reshape(rows_here, tw, per_plane)
+                if predictor == 2 and compression != 32773:  # libtiff's PackBits codec takes no predictor
+                    vals = np.cumsum(vals, axis=1) % (1 << bits)
+                    if fmt == (2,):
+                        vals = np.where(vals >= 1 << (bits - 1), vals - (1 << bits), vals)
+                y0, x0 = ty * th, tx * tw
+                part = vals[: height - y0, : width - x0]
+                if separate:
+                    samples[y0 : y0 + part.shape[0], x0 : x0 + part.shape[1], plane] = part[:, :, 0]
+                else:
+                    samples[y0 : y0 + part.shape[0], x0 : x0 + part.shape[1]] = part
+    if rawmode in ("I;16BS", "I;32BS", "F;32BF"):
+        # Pillow renames only the ";16B"/";16L" rawmodes to native order for
+        # libtiff, whose output is native (little-endian): these are read
+        # byte-swapped
+        kind = {"I;16BS": "<i2", "I;32BS": "<i4", "F;32BF": "<f4"}[rawmode]
+        samples = samples.astype(kind).view(">" + kind[1:]).astype(samples.dtype)
+    return _to_rgb(samples, mode, rawmode, bits, tags)
+
+
+_BAND_BITS = {"R": 8, "G": 8, "B": 8, "A": 8, "C": 8, "M": 8, "Y": 8, "K": 8, "L": 8, "P": 8, "I": 32, "F": 32, "1": 1}
+_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "L": "L", "P": "P", "I": "I", "F": "F", "1": "1"}
+
+
+def _raw_samples(data, bo, mode, rawmode, width, height, tw, th, offsets, planar, bps, count, fill):
+    """Pillow's own raw decoder over its tile list: each strip or tile read
+    from its offset to the end of its rows (the byte counts are not read),
+    rows of the tile's width where it overhangs the image's right edge; with
+    separate planes each plane goes through the one-band unpacker of the
+    rawmode's character at the plane's index, as Pillow picks it."""
+    spp = len(bps)
+    out = np.zeros((height, width, max(spp, len(_BANDS.get(mode, "")))), np.float64 if mode == "F" else np.int64)
+    if tw == width and th == height and planar != 2:
+        offsets = offsets[-1:]
+    x = y = layer = 0
+    for offset in offsets:
+        stride = tw * sum(bps) / 8 if x + tw > width else 0
+        tile_raw = rawmode
+        if planar == 2:
+            if layer >= len(rawmode):
+                raise NotThisFormat("TIFF: more planes than the rawmode has bands")
+            tile_raw = rawmode[layer]
+            stride /= count
+            if tile_raw not in _BANDS.get(mode, "") or tile_raw not in _BAND_BITS:
+                raise _error(f"unknown raw mode {tile_raw!r} for a plane of mode {mode} (Pillow refuses it too)")
+        xs, ys = min(x + tw, width) - x, min(y + th, height) - y
+        pixel_bits = _BAND_BITS[tile_raw] if planar == 2 else sum(bps)
+        row = (xs * pixel_bits + 7) // 8
+        step = int(stride) or row
+        if step < row:
+            raise _error("a strip narrower than its rows (Pillow refuses it too)")
+        need = step * (ys - 1) + row
+        raw = data[offset : offset + need]
+        if len(raw) < need:
+            raise _error("the image data is truncated")
+        raw = np.frombuffer(raw + b"\0" * (step - row), np.uint8).reshape(ys, step)[:, :row]
         if fill == 2:
-            raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-        if compression == 1:
-            buf = raw
-        elif compression == 32773:
-            buf = packbits_decode(raw, need)
-        elif compression == 5:
-            buf = lzw_decode(raw, need)
+            raw = _BIT_REVERSE[raw]
+        if planar == 2:
+            band = _BANDS[mode].index(tile_raw)
+            if tile_raw in "IF":
+                vals = raw.copy().view("<i4" if tile_raw == "I" else "<f4")
+            else:
+                vals = _unpack(raw, _BAND_BITS[tile_raw], xs, "<", 1)
+            out[y : y + ys, x : x + xs, band] = vals[:, :xs]
         else:
-            buf = zlib.decompressobj().decompress(raw)
-        tile = np.frombuffer(buf[:need].ljust(need, b"\0"), np.uint8).reshape(th, row_bytes)
-        if predictor == 2:
-            tile = np.cumsum(tile.reshape(th, tw, spp).astype(np.int64), axis=1).astype(np.uint8).reshape(th, -1)
-        planes[ty * th : (ty + 1) * th, tx * row_bytes : (tx + 1) * row_bytes] = tile
-    planes = planes[:height].reshape(height, tiles_across, row_bytes)
-    s = np.concatenate([_unpack(planes[:, t], bits, tw * spp) for t in range(tiles_across)], axis=1)
-    s = s[:, : width * spp].reshape(height, width, spp).astype(np.int64)
-    return _to_rgb(s, photo, bits, extra, tags)
+            bits = bps[0]
+            fmt = 3 if mode == "F" else 2 if rawmode in ("I;16S", "I;16BS", "I;32S", "I;32BS") else 1
+            vals = _unpack(raw, bits, xs * spp, bo, fmt)
+            out[y : y + ys, x : x + xs, :spp] = vals.reshape(ys, xs, spp)
+        x += tw
+        if x >= width:
+            x, y = 0, y + th
+            if y >= height:
+                y, layer = 0, layer + 1
+    return out
 
 
-def _to_rgb(s: np.ndarray, photo: int, bits: int, extra: tuple, tags: dict) -> np.ndarray:
+def _jpeg_image(data, tags, photo, width, height, tw, th, offsets, counts, separate, spp):
+    """JPEG-compressed strips or tiles, each a JPEG stream read after the
+    ``JPEGTables`` stream: (RGB, None) for YCbCr, which libjpeg converts, or
+    (None, samples) for any other photometric, whose components libjpeg
+    passes through."""
+    tables = tags.get(347, [b""])[0]
+    if isinstance(tables, int):
+        tables = bytes(tags[347])
+    across, down = -(-width // tw), -(-height // th)
+    ycc = photo == 6 and not separate
+    out = np.zeros((height, width, 3 if ycc else spp), np.int64)
+    for plane in range(spp if separate else 1):
+        for ty in range(down):
+            for tx in range(across):
+                k = plane * across * down + ty * across + tx
+                if k >= min(len(offsets), len(counts)):
+                    raise _error("fewer strips or tiles than the image needs")
+                comps = jpeg_planes(data[offsets[k] : offsets[k] + counts[k]], tables)
+                if ycc:
+                    px = ycc_to_rgb(*comps[:3])
+                elif photo == 6 or any(c.shape != comps[0].shape for c in comps):
+                    raise _refuse(f"JPEG-compressed photometric {photo} in separate or subsampled components")
+                else:
+                    px = np.stack(comps, -1)
+                y0, x0 = ty * th, tx * tw
+                part = px[: min(th, height - y0), : min(tw, width - x0)]
+                sl = (slice(y0, y0 + part.shape[0]), slice(x0, x0 + part.shape[1]))
+                if separate:
+                    out[sl + (plane,)] = part[..., 0]
+                else:
+                    out[sl] = part[..., : out.shape[2]]
+    return (out.astype(np.uint8), None) if ycc else (None, out)
+
+
+def _to_rgb(s: np.ndarray, mode: str, rawmode: str, bits: int, tags: dict) -> np.ndarray:
     """Samples ``[H, W, spp]`` → RGB by Pillow's mode and rawmode."""
-    spp = s.shape[2]
-    if photo in (0, 1):
-        if spp != 1 + len(extra) or spp > 2:
-            raise _refuse(f"grey with {spp} samples")
+    if mode in ("1", "L", "LA"):
         g = s[..., 0]
         top = (1 << bits) - 1
-        if photo == 0:
+        if "I" in rawmode.partition(";")[2]:
             g = top - g
-        g = g * (255 // top)
+        g = g * (255 // top) if bits < 8 else g
         return np.repeat(g.astype(np.uint8)[:, :, None], 3, axis=2)
-    if photo == 2:
-        if bits != 8 or spp < 3:
-            raise _refuse(f"RGB of {bits}-bit samples")
-        rgb = s[..., :3]
-        if spp > 3 and extra[:1] == (1,):  # associated alpha
-            a = s[..., 3:4]
-            rgb = np.where(a == 0, 0, np.where(a == 255, rgb, np.minimum(rgb * 255 // np.maximum(a, 1), 255)))
-        return rgb.astype(np.uint8)
-    cmap = tags.get(320)
-    if cmap is None:
-        raise _error("a palette image without a ColorMap")
-    n = len(cmap) // 3
-    pal = (np.array(cmap, np.int64).reshape(3, n).T // 256).astype(np.uint8)
-    full = np.zeros((256, 3), np.uint8)
-    full[: min(n, 256)] = pal[:256]
-    return full[s[..., 0]]
+    if mode in ("I;16", "I;16B", "I"):
+        g = s[..., 0]
+        if rawmode == "I;32N":
+            g = g.astype(np.uint32).view(np.int32).astype(np.int64)
+        return np.repeat(np.clip(g, 0, 255).astype(np.uint8)[:, :, None], 3, axis=2)
+    if mode == "F":
+        v = s[..., 0]
+        with np.errstate(invalid="ignore"):
+            g = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.where(v > 0, v, 0)), 0)).astype(np.uint8)
+        return np.repeat(g[:, :, None], 3, axis=2)
+    if bits == 16:
+        s = s >> 8
+    if mode in ("P", "PA"):
+        cmap = tags.get(320)
+        if cmap is None:
+            raise _error("a palette image without a ColorMap")
+        n = len(cmap) // 3
+        pal = (np.array(cmap, np.int64).reshape(3, n).T // 256).astype(np.uint8)
+        full = np.zeros((256, 3), np.uint8)
+        full[: min(n, 256)] = pal[:256]
+        return full[s[..., 0]]
+    if mode == "CMYK":
+        return cmyk2rgb(s[..., :4])
+    rgb = s[..., :3]
+    if rawmode.startswith("RGBa"):  # associated alpha
+        a = s[..., 3:4]
+        rgb = np.where(a == 0, 0, np.where(a == 255, rgb, np.minimum(rgb * 255 // np.maximum(a, 1), 255)))
+    return rgb.astype(np.uint8)

@@ -79,7 +79,9 @@ def list_paired_images(folder_main: str, folders: Sequence[str]) -> List[str]:
 
 
 def load_image_array(path: str, resolution: int) -> np.ndarray:
-    """A PNG or JPEG → ``[1, 3, R, R]`` float32 in [-1, 1], as the JAX
+    """An image file of any format ``io/image.py::load_rgb`` reads (PNG,
+    JPEG, WebP, GIF, BMP, TIFF, JPEG 2000, PNM, TGA, ICO/CUR, PSD, QOI) →
+    ``[1, 3, R, R]`` float32 in [-1, 1], as the JAX
     loader's ``Image.open(p).convert("RGB").resize((R, R))``: the file as
     ``io/image.py::load_rgb`` reads it, then PIL's default resize
     (``io/resample.py``; an image at ``R × R`` passes unchanged)."""

@@ -543,41 +543,73 @@ def write_jpeg_arithmetic(image: np.ndarray, sampling=((2, 2), (1, 1), (1, 1)), 
 LOSSLESS_DC = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0], list(range(17)))
 
 
-def write_jpeg_lossless(image: np.ndarray, predictor: int = 1, point_transform: int = 0) -> bytes:
-    """8-bit lossless JPEG (SOF3) of ``image`` (grey or 3 components, no
-    subsampling), one interleaved scan with the given predictor (1–7)."""
+def write_jpeg_lossless(image: np.ndarray, predictor: int = 1, point_transform: int = 0, sampling=None,
+                        restart: int = 0) -> bytes:
+    """8-bit lossless JPEG (SOF3) of ``image`` (grey, 3 or 4 components),
+    one interleaved scan with the given predictor (1–7). ``sampling``: each
+    component's (h, v); a subsampled component takes every ``hmax // h``-th
+    column and ``vmax // v``-th row of its plane. ``restart``: an RSTn
+    marker every that many MCUs; the prediction restarts (first-row rules)
+    only where an interval starts a row of MCUs."""
     img = np.asarray(image, np.int64)
     if img.ndim == 2:
         img = img[:, :, None]
     h, w, nc = img.shape
-    x = img >> point_transform
-    codes = _codes(LOSSLESS_DC)
-    wr = _BitWriter()
-    for y in range(h):
-        for xx in range(w):
-            for c in range(nc):
-                ra = int(x[y, xx - 1, c]) if xx else None
-                rb = int(x[y - 1, xx, c]) if y else None
-                rc = int(x[y - 1, xx - 1, c]) if xx and y else None
-                if y == 0 and xx == 0:
-                    p = 1 << (8 - point_transform - 1)
-                elif y == 0:
-                    p = ra
+    sampling = sampling or ((1, 1),) * nc
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    planes = []
+    for c, (sh, sv) in enumerate(sampling):
+        real = img[:: vmax // sv, :: hmax // sh, c][: -(-h * sv // vmax), : -(-w * sh // hmax)] >> point_transform
+        padded = np.pad(real, ((0, mcuy * sv - real.shape[0]), (0, mcux * sh - real.shape[1])), mode="edge")
+        planes.append(padded)
+    reset_rows = {0} | ({r * restart // mcux for r in range(1, mcux * mcuy // restart + 1)
+                        if (r * restart) % mcux == 0} if restart else set())
+    diffs = []
+    for c, (sh, sv) in enumerate(sampling):
+        x = planes[c]
+        d = np.zeros_like(x)
+        first = True
+        for y in range(x.shape[0]):
+            if y % sv == 0 and y // sv in reset_rows:
+                first = True
+            for xx in range(x.shape[1]):
+                ra = int(x[y, xx - 1]) if xx else None
+                if first:
+                    p = ra if xx else 1 << (8 - point_transform - 1)
                 elif xx == 0:
-                    p = rb
+                    p = int(x[y - 1, xx])
                 else:
+                    rb, rc = int(x[y - 1, xx]), int(x[y - 1, xx - 1])
                     p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
                          7: (ra + rb) // 2}[predictor]
-                diff = (int(x[y, xx, c]) - p) % 65536
-                if diff >= 32768:
-                    diff -= 65536
-                s = _category(diff)
-                wr.put(*codes[s])
-                if s and s < 16:
-                    wr.put(diff if diff > 0 else diff - 1, s)
+                diff = (int(x[y, xx]) - p) % 65536
+                d[y, xx] = diff - 65536 if diff >= 32768 else diff
+            first = False
+        diffs.append(d)
+    codes = _codes(LOSSLESS_DC)
+    wr = _BitWriter()
+    n = 0
+    for my in range(mcuy):
+        for mx in range(mcux):
+            if restart and n and n % restart == 0:
+                wr.flush()
+                wr.out += bytes([0xFF, 0xD0 + (n // restart - 1) % 8])
+            n += 1
+            for c, (sh, sv) in enumerate(sampling):
+                for yy in range(sv):
+                    for xx in range(sh):
+                        diff = int(diffs[c][my * sv + yy, mx * sh + xx])
+                        s = _category(diff)
+                        wr.put(*codes[s])
+                        if s and s < 16:
+                            wr.put(diff if diff > 0 else diff - 1, s)
     wr.flush()
-    sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(bytes([c + 1, 0x11, 0]) for c in range(nc))
+    sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(bytes([c + 1, (sh << 4) | sv, 0])
+                                                       for c, (sh, sv) in enumerate(sampling))
     out = b"\xff\xd8" + _marker(0xC3, sof)
     out += _marker(0xC4, bytes([0]) + bytes(LOSSLESS_DC[0]) + bytes(LOSSLESS_DC[1]))
+    if restart:
+        out += _marker(0xDD, struct.pack(">H", restart))
     sos = bytes([nc]) + b"".join(bytes([c + 1, 0x00]) for c in range(nc)) + bytes([predictor, 0, point_transform])
     return out + _marker(0xDA, sos) + bytes(wr.out) + b"\xff\xd9"

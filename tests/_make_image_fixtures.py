@@ -1,14 +1,20 @@
 """Writes ``tests/data/image_decode/``: small files of every kind the port
-decodes (``io/image.py``: JPEG, PNG, WebP, GIF, BMP, TIFF), the four
+decodes (``io/image.py``: JPEG, PNG, WebP, GIF, BMP, TIFF, JPEG 2000,
+PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI), the four
 folders of an image-pair bank (``bank/{minus2,minus1,plus1,plus2}``, scales
 −2, −1, 1, 2: two JPEGs, a lossy and a lossless WebP each), and
 ``digests.json``: the SHA-256 of Pillow's ``convert("RGB")`` of each file
 with its shape, which ``chip_smoke.py`` holds the port's decode to on a
 machine without Pillow. Pillow writes what it can (baseline and progressive
 JPEG at 4:4:4, 4:2:2 and 4:2:0, grey, restart markers, an Adobe RGB file,
-CMYK, WebP, GIF); ``_jpeg_writer``, ``_png_writer``, ``_image_writers`` and
+CMYK, WebP, GIF; JPEG 2000 reversible and irreversible, tiled, at several
+resolutions, in each progression order, with small code-blocks and
+precincts and several layers; TGA, PPM/PGM/PBM, ICO, QOI; TIFF with JPEG,
+LZMA and CMYK); ``_jpeg_writer``, ``_png_writer``, ``_image_writers`` and
 ``_webp_encoder`` (libwebp's own encoder, for the simple loop filter and
-token partitions) write the rest.
+token partitions) write the rest (PSD, CUR, BigTIFF, 16-bit, planar and
+YCbCr-JPEG TIFF, 15/16-bit and colour-mapped TGA, plain PNM and odd
+maxvals, JP2 boxes for sYCC and palettes, subsampled lossless JPEG).
 
     python tests/_make_image_fixtures.py
 """
@@ -25,13 +31,15 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from _image_writers import write_bmp, write_gif, write_tiff  # noqa: E402
+from _image_writers import (icon_dib, jp2_wrap, jpeg_tiff, write_bmp, write_gif, write_icon, write_psd,  # noqa: E402
+                            write_tga, write_tiff)
 from _jpeg_writer import write_jpeg, write_jpeg_arithmetic, write_jpeg_lossless  # noqa: E402
 from _png_writer import write_png  # noqa: E402
 from _webp_encoder import encode_lossy  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "image_decode")
-# two 512x512 files whose decode chip_smoke.py times on the card's host: a lossy WebP and a 4:2:0 JPEG
+# three 512x512 files whose decode chip_smoke.py times on the card's host: a lossy WebP, a 4:2:0 JPEG and an
+# irreversible JPEG 2000 (OpenJPEG's defaults)
 OUT_TIMING = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "image_decode_timing")
 BANK_FOLDERS = ("minus2", "minus1", "plus1", "plus2")
 
@@ -130,6 +138,7 @@ def files() -> dict:
         "tiff_rgba_associated.tif": write_tiff(np.concatenate([pattern(15, 17, 25), rng.integers(0, 256, (15, 17, 1))],
                                                               -1), 8, 2, "<", 32946, predictor=2, extra_samples=(1,)),
     })
+    out.update(pillow_formats(rng))
     for i, folder in enumerate(BANK_FOLDERS):  # the same four images a brightness step apart per folder
         for j, kw in enumerate((dict(quality=90), dict(quality=90, progressive=True))):
             img = np.clip(pattern(96, 96, 20 + j).astype(int) + 30 * (i - 1.5), 0, 255).astype(np.uint8)
@@ -140,10 +149,85 @@ def files() -> dict:
     return out
 
 
+def pillow_formats(rng) -> dict:
+    """The formats of ROADMAP item 14 the port reads since: JPEG 2000,
+    PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI, and the TIFF and lossless-JPEG
+    kinds beyond the first TIFF reader's."""
+    rgba = np.concatenate([pattern(23, 29, 40), rng.integers(0, 256, (23, 29, 1)).astype(np.uint8)], -1)
+    grey16 = Image.fromarray(pattern(19, 21, 41)[:, :, 0].astype(np.uint16) * 37 + 100)
+    j2k_grey = io.BytesIO()
+    Image.fromarray(pattern(21, 19, 42)[:, :, 0]).save(j2k_grey, "JPEG2000", no_jp2=True, irreversible=True)
+    j2k_i16 = io.BytesIO()
+    grey16.save(j2k_i16, "JPEG2000")
+    rgb_cs = io.BytesIO()
+    Image.fromarray(pattern(17, 23, 43)).save(rgb_cs, "JPEG2000", no_jp2=True)
+    idx_cs = io.BytesIO()
+    Image.fromarray(rng.integers(0, 12, (15, 18)).astype(np.uint8)).save(idx_cs, "JPEG2000", no_jp2=True)
+    cur_entries = [(icon_dib(rng.integers(0, 16, (16, 16)), 4, rng.integers(0, 256, (16, 3)),
+                             rng.integers(0, 2, (16, 16))), 16, 16, 0, 4),
+                   (icon_dib(pattern(24, 24, 44)[:, :, ::-1], 24, mask=rng.integers(0, 2, (24, 24))), 24, 24, 0, 24)]
+    ico_bmp = io.BytesIO()
+    Image.fromarray(rgba).save(ico_bmp, "ICO", sizes=[(16, 16), (23, 23)], bitmap_format="bmp")
+    tiff16 = pattern(13, 17, 45).astype(np.int64) * 257 + rng.integers(0, 257, (13, 17, 3))
+    return {
+        "j2k_rgb_reversible.jp2": pil_save(pattern(33, 27, 46), "JPEG2000"),
+        "j2k_rgb_irreversible_tiles_rpcl.jp2": pil_save(pattern(37, 41, 47), "JPEG2000", irreversible=True,
+                                                        tile_size=(16, 16), progression="RPCL", num_resolutions=3),
+        "j2k_pcrl_codeblock4_precinct16.j2k": pil_save(pattern(29, 31, 48), "JPEG2000", no_jp2=True,
+                                                       progression="PCRL", codeblock_size=(4, 4),
+                                                       precinct_size=(16, 16), num_resolutions=3),
+        "j2k_cprl_layers_offset.j2k": pil_save(pattern(27, 35, 49), "JPEG2000", no_jp2=True, irreversible=True,
+                                               progression="CPRL", quality_mode="rates",
+                                               quality_layers=[40, 20, 8], tile_size=(16, 16), tile_offset=(3, 5),
+                                               offset=(7, 9)),
+        "j2k_rlcp_rgba.jp2": pil_save(rgba, "JPEG2000", progression="RLCP", num_resolutions=2),
+        "j2k_grey_irreversible.j2k": j2k_grey.getvalue(),
+        "j2k_grey16.jp2": j2k_i16.getvalue(),
+        "j2k_sycc.jp2": jp2_wrap(rgb_cs.getvalue(), 3, 8, 17, 23, enumcs=18),
+        "j2k_palette.jp2": jp2_wrap(idx_cs.getvalue(), 1, 8, 15, 18, palette=rng.integers(0, 256, (12, 3))),
+        "tga_rgb_rle.tga": pil_save(pattern(19, 23, 50), "TGA", compression="tga_rle"),
+        "tga_rgba.tga": pil_save(rgba, "TGA"),
+        "tga_palette_rle.tga": pil_save(pattern(17, 21, 51), "TGA", "P", compression="tga_rle"),
+        "tga_grey.tga": pil_save(pattern(13, 15, 52), "TGA", "L"),
+        "tga_16bit_top_mirrored_rle.tga": write_tga(rng.integers(0, 65536, (11, 14)), 10, 16, top=True,
+                                                    mirror=True),
+        "tga_map16_rle_rows.tga": write_tga(rng.integers(0, 9, (12, 10)), 9, 8, rng.integers(0, 65536, 9), 16,
+                                            map_start=2, cross_rows=False),
+        "ppm_binary.ppm": pil_save(pattern(17, 19, 53), "PPM"),
+        "pgm_binary.pgm": pil_save(pattern(13, 17, 54), "PPM", "L"),
+        "pbm_binary.pbm": pil_save(pattern(15, 21, 55), "PPM", "1"),
+        "pgm_plain_maxval7.pgm": b"P2\n# a comment\n5 3\n7\n" + " ".join(
+            str(v) for v in rng.integers(0, 8, 15)).encode() + b"\n",
+        "ppm_plain.ppm": b"P3 4 2 255\n" + " ".join(str(v) for v in rng.integers(0, 256, 24)).encode() + b"\n",
+        "pbm_plain.pbm": b"P1\n6 3\n" + "".join(str(v) for v in rng.integers(0, 2, 18)).encode(),
+        "pgm_maxval1000.pgm": b"P5 7 5 1000\n" + rng.integers(0, 1001, 35).astype(">u2").tobytes(),
+        "ppm_maxval300.ppm": b"P6 5 4 300\n" + rng.integers(0, 301, 60).astype(">u2").tobytes(),
+        "ico_png.ico": pil_save(rgba, "ICO", sizes=[(16, 16), (23, 23)]),
+        "ico_bmp.ico": ico_bmp.getvalue(),
+        "cursor.cur": write_icon(cur_entries, cursor=True),
+        "psd_rgb_packbits.psd": write_psd(pattern(14, 19, 56).transpose(2, 0, 1), 3, compression=1),
+        "psd_rgba_raw.psd": write_psd(rgba.transpose(2, 0, 1), 3),
+        "psd_cmyk_packbits.psd": write_psd(rng.integers(0, 256, (4, 9, 13)), 4, compression=1),
+        "psd_indexed.psd": write_psd(rng.integers(0, 256, (1, 8, 11)), 2, palette=rng.integers(0, 256, (256, 3))),
+        "psd_bitmap.psd": write_psd(rng.integers(0, 2, (1, 9, 13)), 0, bits=1, compression=1),
+        "qoi_rgb.qoi": pil_save(pattern(21, 25, 57), "QOI"),
+        "qoi_rgba.qoi": pil_save(rgba, "QOI"),
+        "tiff_jpeg_pillow.tif": pil_save(pattern(24, 32, 58), "TIFF", compression="jpeg"),
+        "tiff_ycbcr_jpeg_420_tables.tif": jpeg_tiff(pattern(37, 45, 59), rows_per_strip=16),
+        "tiff_lzma_cmyk.tif": pil_save(pattern(15, 17, 60), "TIFF", "CMYK", compression="lzma"),
+        "tiff_bigtiff_tiled.tif": write_tiff(pattern(21, 23, 61), 8, 2, "<", 8, tile=(16, 16), bigtiff=True),
+        "tiff_rgb16_mm_predictor.tif": write_tiff(tiff16, 16, 2, ">", 5, predictor=2, rows_per_strip=5),
+        "tiff_grey16.tif": pil_save(np.asarray(grey16), "TIFF"),
+        "tiff_planar_deflate.tif": write_tiff(pattern(13, 19, 62), 8, 2, "<", 8, planar=2, rows_per_strip=4),
+        "lossless_420.jpg": write_jpeg_lossless(pattern(19, 23, 63), 1, 0, ((2, 2), (1, 1), (1, 1))),
+    }
+
+
 def timing_files() -> dict:
     img = pattern(512, 512, 30)
     return {"webp_lossy_q90_512.webp": pil_save(img, "WEBP", quality=90),
-            "jpeg_420_q90_512.jpg": pil_jpeg(img, quality=90, subsampling=2)}
+            "jpeg_420_q90_512.jpg": pil_jpeg(img, quality=90, subsampling=2),
+            "j2k_irreversible_512.jp2": pil_save(img, "JPEG2000", irreversible=True)}
 
 
 def write(out_dir: str, table: dict) -> None:

@@ -60,7 +60,7 @@ def test_resize_matches_pil_on_uint8_and_passes_the_target_size_through():
 def test_jpeg_and_webp_stay_refused(tmp_path):
     """JPEG and WebP, refused until ``io/jpeg.py`` and ``io/webp.py``, now
     load and resize as the JAX loader does (lossy and lossless WebP); a
-    format the port leaves out (PPM) stays refused (ROADMAP.md queue 1,
+    format the port leaves out (AVIF) stays refused (ROADMAP.md queue 1,
     item 14)."""
     img = _image(16, 16, seed=1)[:, :, :3]
     for name, kw in (("im.jpg", {}), ("im.webp", {}), ("lossless.webp", {"lossless": True})):
@@ -69,7 +69,7 @@ def test_jpeg_and_webp_stay_refused(tmp_path):
         for resolution in (16, 40):
             np.testing.assert_array_equal(timage.load_image_array(path, resolution),
                                           jimage.load_image_array(path, resolution))
-    path = str(tmp_path / "im.ppm")
+    path = str(tmp_path / "im.avif")
     Image.fromarray(img).save(path)
-    with pytest.raises(ValueError, match="PPM/PGM/PBM is not supported.*queue 1, item 14"):
+    with pytest.raises(ValueError, match="AVIF is not supported.*queue 1, item 14"):
         timage.load_image_array(path, 16)

@@ -152,6 +152,23 @@ IMAGE_FORMAT_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.io.jpeg",
     "sliders_conceptmod_tpu_torch.io.image",
 }
+# modules the slice of the formats Pillow reads beyond those added or extended
+# (JPEG 2000, PNM, TGA, ICO/CUR, PSD, QOI; TIFF, lossless JPEG and BMP extended)
+PILLOW_FORMAT_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.io.jpeg2000",
+    "sliders_conceptmod_tpu_torch.io.j2k_tier1",
+    "sliders_conceptmod_tpu_torch.io.j2k_dwt",
+    "sliders_conceptmod_tpu_torch.io.pnm",
+    "sliders_conceptmod_tpu_torch.io.tga",
+    "sliders_conceptmod_tpu_torch.io.ico",
+    "sliders_conceptmod_tpu_torch.io.psd",
+    "sliders_conceptmod_tpu_torch.io.qoi",
+    "sliders_conceptmod_tpu_torch.io.tiff",
+    "sliders_conceptmod_tpu_torch.io.jpeg",
+    "sliders_conceptmod_tpu_torch.io.bmp",
+    "sliders_conceptmod_tpu_torch.io.png",
+    "sliders_conceptmod_tpu_torch.io.image",
+}
 
 
 def test_port_and_smoke_import_without_jax():
@@ -167,7 +184,7 @@ def test_port_and_smoke_import_without_jax():
     assert SD_SLICE_MODULES <= walked and SWEEP_SLICE_MODULES <= walked and MERGED_SLICE_MODULES <= walked
     assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
     assert EVAL_REST_SLICE_MODULES <= walked and PARALLEL_SLICE_MODULES <= walked
-    assert IMAGE_FORMAT_SLICE_MODULES <= walked
+    assert IMAGE_FORMAT_SLICE_MODULES <= walked and PILLOW_FORMAT_SLICE_MODULES <= walked
 
 
 def test_spawned_worker_entry_points_import_without_jax():
