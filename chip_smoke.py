@@ -12,19 +12,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                   nvcc per source, started together; seconds, registers and
                   spills per kernel, card name and power limit.
 1b. image_decode — host only: every committed fixture of
-                  tests/data/image_decode (93: JPEG baseline, progressive,
+                  tests/data/image_decode (136: JPEG baseline, progressive,
                   arithmetic-coded, lossless, CMYK and YCCK; PNG of every
                   type; lossy and lossless WebP, with alpha, an offset
                   animation frame, the simple filter over 4 partitions; GIF,
                   BMP and TIFF variants (BigTIFF, 16-bit, planar, CMYK,
-                  JPEG, LZMA); JPEG 2000 (reversible, irreversible, tiles,
-                  each progression, layers, sYCC, palette); PBM/PGM/PPM,
-                  TGA, ICO/CUR, PSD, QOI; the bank's JPEG and WebP folders)
-                  and tests/data/image_decode_timing (a 512x512 lossy WebP,
-                  a 512x512 4:2:0 JPEG and a 512x512 irreversible JPEG
-                  2000) through io/image.py::load_rgb, each held to the
-                  stored SHA-256 of Pillow's RGB decode; seconds per format
-                  and for the three 512x512 files.
+                  JPEG, LZMA, CCITT MH/T.4/T.6, ZSTD, YCbCr at several
+                  subsamplings); JPEG 2000 (reversible, irreversible,
+                  tiles, each progression, layers, sYCC, palette);
+                  PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI, PCX/DCX, SGI, DDS
+                  (raw, masks, palette, BC1-BC7), FTEX, BLP (palette, JPEG,
+                  DXT), ICNS; the bank's JPEG and WebP folders) and
+                  tests/data/image_decode_timing (a 512x512 lossy WebP, a
+                  512x512 4:2:0 JPEG, a 512x512 irreversible JPEG 2000, a
+                  512x512 RGB ZSTD TIFF and a 1728-pixel-wide Group 4 page)
+                  through io/image.py::load_rgb, each held to the stored
+                  SHA-256 of Pillow's RGB decode; seconds per format (by
+                  extension, and by the kinds added last) and for the five
+                  timing files.
 2. kernel       — K1 against its plain PyTorch version on the card at the four
                   attention shapes of 1024px SDXL serving with CFG (one
                   request, 2 rows), in bf16 (the wgmma kernel) and in fp32
@@ -4599,8 +4604,8 @@ def phase_cascade_routes(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 IMAGE_FIXTURES = REPO / "tests" / "data" / "image_decode"  # written with Pillow by tests/_make_image_fixtures.py
-IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the three 512x512 files, by the same script
-IMAGE_FIXTURES_MIN = 93  # every committed fixture (the bank's 16 files included)
+IMAGE_TIMING = REPO / "tests" / "data" / "image_decode_timing"  # the five timing files, by the same script
+IMAGE_FIXTURES_MIN = 136  # every committed fixture (the bank's 16 files included)
 EDIT_IMAGE = IMAGE_TIMING / "j2k_irreversible_512.jp2"  # the edit phase's --image: io/jpeg2000.py feeds K4a
 # the demo's 50 DDIM steps and null_optimization's 10 inner steps, cut (10 DDIM steps before bench_serve joined)
 EDIT_STEPS, EDIT_INNER_STEPS = 6, 2
@@ -4612,13 +4617,16 @@ def phase_image_decode() -> None:
     """Host only: every committed fixture (JPEG baseline, progressive,
     arithmetic-coded, lossless, CMYK and YCCK; PNG of every type; lossy and
     lossless WebP, with alpha, an offset animation frame, the simple filter
-    over 4 partitions; GIF, BMP and TIFF variants; JPEG 2000, PBM/PGM/PPM,
-    TGA, ICO/CUR, PSD and QOI; the bank's JPEG and WebP folders) and the
-    three 512x512 timing files (a lossy WebP at quality 90, a 4:2:0 JPEG and
-    an irreversible JPEG 2000 at OpenJPEG's defaults) through
-    io/image.py::load_rgb, each held to the SHA-256 of Pillow's decode
-    stored beside it; seconds per format (by file extension) and for the
-    512x512 files. Any mismatch fails the run."""
+    over 4 partitions; GIF, BMP and TIFF variants, CCITT, ZSTD and YCbCr
+    TIFF included; JPEG 2000, PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI, PCX/DCX,
+    SGI, DDS, FTEX, BLP and ICNS; the bank's JPEG and WebP folders) and the
+    five timing files (a lossy WebP at quality 90, a 4:2:0 JPEG and an
+    irreversible JPEG 2000 at OpenJPEG's defaults, all 512x512; a 512x512
+    RGB ZSTD TIFF in one strip of several blocks; a 1728-pixel-wide Group 4
+    page) through io/image.py::load_rgb, each held to the SHA-256 of
+    Pillow's decode stored beside it; seconds per format (by file
+    extension), per file and for the timing files.
+    Any mismatch fails the run."""
     seconds, bad, shapes = {}, [], {}
     tables = [(IMAGE_FIXTURES, json.loads((IMAGE_FIXTURES / "digests.json").read_text())),
               (IMAGE_TIMING, json.loads((IMAGE_TIMING / "digests.json").read_text()))]
@@ -4642,9 +4650,9 @@ def phase_image_decode() -> None:
     timing = {p.split("/")[-1]: s for p, s in seconds.items() if "image_decode_timing" in p}
     n_fixtures = len(tables[0][1])
     emit(dict(phase="image_decode", files=len(seconds), fixtures=n_fixtures, mismatched=bad,
-              seconds_total=sum(seconds.values()), seconds_by_format=by_format, seconds_512x512=timing,
-              seconds_by_file=seconds))
-    if bad or n_fixtures < IMAGE_FIXTURES_MIN or len(timing) != 3:
+              seconds_total=sum(seconds.values()), seconds_by_format=by_format,
+              seconds_timing_files=timing, seconds_by_file=seconds))
+    if bad or n_fixtures < IMAGE_FIXTURES_MIN or len(timing) != 5:
         raise AssertionError(f"image_decode: the port's decode differs from Pillow's on {bad} "
                              f"({n_fixtures} fixtures, {len(timing)} timing files)")
 

@@ -27,7 +27,7 @@ import struct
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM
+from sliders_conceptmod_tpu_torch.io._common import ITEM, error
 
 _BITFIELDS = {  # (bits, masks) → the channel order of Pillow's rawmode
     (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
@@ -42,10 +42,6 @@ _BITFIELDS = {  # (bits, masks) → the channel order of Pillow's rawmode
     (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
     (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
 }
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"BMP: {what}")
 
 
 def _u16(b, o):
@@ -118,7 +114,7 @@ def _unpack_bits(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
 def decode_bmp(data: bytes) -> np.ndarray:
     """BMP bytes → uint8 ``[H, W, 3]``."""
     if data[:2] != b"BM" or len(data) < 26:
-        raise _error("not a BMP file")
+        raise error("BMP", "not a BMP file")
     return decode_bitmap(data, 14, _u32(data, 10))
 
 
@@ -148,26 +144,26 @@ def decode_bitmap(data: bytes, at: int, offset: int = 0, halve: bool = False) ->
                 masks = tuple(_u32(data, pos + 4 * i) for i in range(3)) + (0,)
                 pos += 12
     else:
-        raise _error(f"a header of {header_size} bytes ({ITEM})")
+        raise error("BMP", f"a header of {header_size} bytes ({ITEM})")
     colors = colors or (1 << bits)
     if halve:
         height //= 2
     if offset == 14 + header_size and bits <= 8:
         offset += 4 * colors  # Pillow's reading of an offset that leaves out the palette
     if bits not in (1, 4, 8, 16, 24, 32):
-        raise _error(f"{bits} bits a pixel ({ITEM})")
+        raise error("BMP", f"{bits} bits a pixel ({ITEM})")
     if compression not in (0, 1, 2, 3):
-        raise _error(f"compression {compression} ({ITEM})")
+        raise error("BMP", f"compression {compression} ({ITEM})")
     rawmode = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}[bits]
     if compression == 3:
         key = (bits, masks) if bits == 32 else (bits, masks[:3])
         if key not in _BITFIELDS:
-            raise _error(f"a bitfields layout Pillow refuses too: {bits} bits, masks {masks}")
+            raise error("BMP", f"a bitfields layout Pillow refuses too: {bits} bits, masks {masks}")
         rawmode = _BITFIELDS[key]
     palette = None
     if bits <= 8:
         if not 0 < colors <= 65536:
-            raise _error(f"a palette of {colors} entries")
+            raise error("BMP", f"a palette of {colors} entries")
         raw = np.frombuffer(data[pos : pos + entry * colors].ljust(entry * colors, b"\0"), np.uint8)
         pos += entry * colors
         pal = raw.reshape(colors, entry)[:, 2::-1]  # BGR(X) → RGB
@@ -175,14 +171,15 @@ def decode_bitmap(data: bytes, at: int, offset: int = 0, halve: bool = False) ->
         if all(tuple(pal[i]) == (v, v, v) for i, v in enumerate(ramp)):
             rawmode = "1" if colors == 2 else "L"
             if compression == 0 and bits != (1 if colors == 2 else 8):
-                raise _error(f"a {bits}-bit image with a {colors}-entry grey-ramp palette (Pillow refuses it too)")
+                raise error("BMP", f"a {bits}-bit image with a {colors}-entry grey-ramp palette "
+                                   "(Pillow refuses it too)")
         else:
             palette = np.zeros((256, 3), np.uint8)
             palette[: min(colors, 256)] = pal[:256]
     offset = offset or pos
     if compression in (1, 2):
         if bits > 8:
-            raise _error("run-length coding of a direct-colour image")
+            raise error("BMP", "run-length coding of a direct-colour image")
         idx = _rle(data, offset, width, height, compression == 2)
     else:
         stride = ((width * bits + 31) >> 3) & ~3

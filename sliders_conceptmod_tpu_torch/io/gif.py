@@ -21,9 +21,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"GIF: {what}")
+from sliders_conceptmod_tpu_torch.io._common import error
 
 
 def _sub_blocks(data: bytes, pos: int) -> Tuple[bytes, int]:
@@ -70,7 +68,7 @@ def lzw_decode(data: bytes, min_size: int, count: int) -> List[int]:
             break
         n = len(prefix)
         if code > n or (prev == -1 and code == n):
-            raise _error("a code past the table")
+            raise error("GIF", "a code past the table")
         if prev != -1 and n < 4096:
             prefix.append(prev)
             suffix.append(first[code] if code < n else first[prev])  # code == n: KwKwK
@@ -102,7 +100,7 @@ def _palette(raw: bytes) -> Optional[np.ndarray]:
 def decode_gif(data: bytes) -> np.ndarray:
     """GIF bytes → uint8 ``[H, W, 3]`` of the first frame."""
     if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
-        raise _error("not a GIF file")
+        raise error("GIF", "not a GIF file")
     width, height = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
     flags = data[10]
     pos = 13
@@ -114,7 +112,7 @@ def decode_gif(data: bytes) -> np.ndarray:
     transparency = None
     while True:
         if pos >= len(data) or data[pos] == 0x3B:
-            raise _error("no image in the file")
+            raise error("GIF", "no image in the file")
         kind = data[pos]
         pos += 1
         if kind == 0x21:  # extension
@@ -127,7 +125,7 @@ def decode_gif(data: bytes) -> np.ndarray:
             pos = after
             continue
         if kind != 0x2C:
-            raise _error(f"an unknown block 0x{kind:02x}")
+            raise error("GIF", f"an unknown block 0x{kind:02x}")
         x0, y0, fw, fh = (int.from_bytes(data[pos + 2 * i : pos + 2 * i + 2], "little") for i in range(4))
         fflags = data[pos + 8]
         pos += 9

@@ -22,7 +22,7 @@ import struct
 import numpy as np
 
 from sliders_conceptmod_tpu_torch.io.bmp import decode_bitmap
-from sliders_conceptmod_tpu_torch.io.jpeg import NotThisFormat
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat, error
 from sliders_conceptmod_tpu_torch.io.png import png_rgb
 
 
@@ -32,10 +32,6 @@ def accept_ico(prefix: bytes) -> bool:
 
 def accept_cur(prefix: bytes) -> bool:
     return prefix[:4] == b"\0\0\2\0"
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"ICO: {what}")
 
 
 def decode_ico(data: bytes) -> np.ndarray:
@@ -63,12 +59,12 @@ def decode_ico(data: bytes) -> np.ndarray:
     if bpp == 32:
         need = width * height * 4
         if len(data) < _pixel_offset(data, offset) + need:
-            raise _error("the alpha bytes are truncated (Pillow refuses it too)")
+            raise error("ICO", "the alpha bytes are truncated (Pillow refuses it too)")
     else:
         stride = -(-width // 32) * 4
         mask_at = offset + size - stride * height
         if mask_at < 0 or len(data[mask_at : mask_at + stride * height]) < stride * height:
-            raise _error("the AND mask is truncated (Pillow refuses it too)")
+            raise error("ICO", "the AND mask is truncated (Pillow refuses it too)")
     return img
 
 

@@ -4,26 +4,40 @@ tried in the order of Pillow 12.1's ``Image.ID`` with each plugin's
 ``_accept`` test; where a format's header checks fail as Pillow's ``_open``
 fails (``NotThisFormat``), the next format is tried, as
 ``Image._open_core`` does. The port decodes BMP and DIB (``io/bmp.py``),
-GIF (``io/gif.py``), JPEG (``io/jpeg.py``), PBM/PGM/PPM (``io/pnm.py``),
-PNG (``io/png.py``), ICO and CUR (``io/ico.py``), JPEG 2000
-(``io/jpeg2000.py``), TIFF (``io/tiff.py``), PSD (``io/psd.py``), QOI
-(``io/qoi.py``), TGA (``io/tga.py``, tried last: it has no signature) and
-WebP (``io/webp.py``). Every other format Pillow reads is refused citing
-ROADMAP item 14; those Pillow cannot load here either are refused saying
-so."""
+BLP (``io/blp.py``), DDS (``io/dds.py``, its BC1–BC7 blocks by
+``io/bcn.py``), FTEX (``io/ftex.py``), GIF (``io/gif.py``), ICNS
+(``io/icns.py``), JPEG (``io/jpeg.py``), PBM/PGM/PPM (``io/pnm.py``), PCX
+and DCX (``io/pcx.py``), PNG (``io/png.py``), ICO and CUR (``io/ico.py``),
+JPEG 2000 (``io/jpeg2000.py``), SGI (``io/sgi.py``), TIFF (``io/tiff.py``,
+its CCITT fax codes by ``io/ccitt.py`` and its ZSTD by ``io/zstd.py``), PSD
+(``io/psd.py``), QOI (``io/qoi.py``), TGA (``io/tga.py``, tried last: it
+has no signature) and WebP (``io/webp.py``). Every other format Pillow
+reads is refused citing ROADMAP item 14; those Pillow cannot load here
+either are refused saying so."""
 
 from __future__ import annotations
 
+import re
 import struct
 
 import numpy as np
 
+from sliders_conceptmod_tpu_torch.io.blp import accept as accept_blp
+from sliders_conceptmod_tpu_torch.io.blp import decode_blp
 from sliders_conceptmod_tpu_torch.io.bmp import decode_bitmap, decode_bmp
+from sliders_conceptmod_tpu_torch.io.dds import accept as accept_dds
+from sliders_conceptmod_tpu_torch.io.dds import decode_dds
+from sliders_conceptmod_tpu_torch.io.ftex import accept as accept_ftex
+from sliders_conceptmod_tpu_torch.io.ftex import decode_ftex
 from sliders_conceptmod_tpu_torch.io.gif import decode_gif
+from sliders_conceptmod_tpu_torch.io.icns import accept as accept_icns
+from sliders_conceptmod_tpu_torch.io.icns import decode_icns
 from sliders_conceptmod_tpu_torch.io.ico import accept_cur, accept_ico, decode_cur, decode_ico
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, decode_jpeg
+from sliders_conceptmod_tpu_torch.io._common import ITEM, NotThisFormat
+from sliders_conceptmod_tpu_torch.io.jpeg import decode_jpeg
 from sliders_conceptmod_tpu_torch.io.jpeg2000 import accept as accept_jpeg2000
 from sliders_conceptmod_tpu_torch.io.jpeg2000 import decode_jpeg2000
+from sliders_conceptmod_tpu_torch.io.pcx import accept_dcx, accept_pcx, decode_dcx, decode_pcx
 from sliders_conceptmod_tpu_torch.io.png import png_rgb
 from sliders_conceptmod_tpu_torch.io.pnm import accept as accept_pnm
 from sliders_conceptmod_tpu_torch.io.pnm import decode_pnm
@@ -31,6 +45,8 @@ from sliders_conceptmod_tpu_torch.io.psd import accept as accept_psd
 from sliders_conceptmod_tpu_torch.io.psd import decode_psd
 from sliders_conceptmod_tpu_torch.io.qoi import accept as accept_qoi
 from sliders_conceptmod_tpu_torch.io.qoi import decode_qoi
+from sliders_conceptmod_tpu_torch.io.sgi import accept as accept_sgi
+from sliders_conceptmod_tpu_torch.io.sgi import decode_sgi
 from sliders_conceptmod_tpu_torch.io.tga import decode_tga
 from sliders_conceptmod_tpu_torch.io.tiff import accept as accept_tiff
 from sliders_conceptmod_tpu_torch.io.tiff import decode_tiff
@@ -44,17 +60,79 @@ def _u32(d: bytes, at: int = 0, bo: str = "<") -> int:
     return struct.unpack_from(bo + "I", d, at)[0] if len(d) >= at + 4 else -1
 
 
-def _pcx(d: bytes) -> bool:
-    """PCX's ``_accept`` and the size check its ``_open`` makes first."""
-    if len(d) < 12 or d[0] != 10 or d[1] not in (0, 2, 3, 5):
-        return False
-    x0, y0, x1, y1 = struct.unpack_from("<HHHH", d, 4)
-    return x1 + 1 > x0 and y1 + 1 > y0
-
-
 def _mpeg(d: bytes) -> bool:
     """MPEG's ``_accept`` and the non-zero size its ``_open`` needs."""
     return len(d) >= 7 and d[:4] == b"\0\0\1\xb3" and (d[4] << 4 | d[5] >> 4) > 0 and ((d[5] & 15) << 8 | d[6]) > 0
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt(d: bytes) -> bool:
+    """IM Tools has no ``_accept``: its ``_open`` reads ``key value`` lines
+    (a newline within the first 100 bytes) and identifies the file when they
+    give a width, a height and ``pixel n8``; a number that does not parse
+    fails the open (so the file is taken for IMT and refused)."""
+    buffer, pos = d[:100], 100
+    if b"\n" not in buffer:
+        return False
+    size, grey = [0, 0], False
+    while True:
+        if buffer:
+            s, buffer = buffer[:1], buffer[1:]
+        else:
+            s, pos = d[pos : pos + 1], pos + 1
+        if not s or s == b"\x0c":
+            break
+        if b"\n" not in buffer:
+            buffer, pos = buffer + d[pos : pos + 100], pos + 100
+        lines = buffer.split(b"\n")
+        s += lines.pop(0)
+        buffer = b"\n".join(lines)
+        if len(s) == 1 or len(s) > 100:
+            break
+        if s[0] == ord(b"*"):
+            continue
+        m = _IMT_FIELD.match(s)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        if k in (b"width", b"height"):
+            try:
+                size[k == b"height"] = int(v)
+            except ValueError:
+                return True
+        elif k == b"pixel" and v == b"n8":
+            grey = True
+    return grey and size[0] > 0 and size[1] > 0
+
+
+def _spider(d: bytes) -> bool:
+    """SPIDER has no ``_accept``: its ``_open`` takes 27 floats (big-endian,
+    else little-endian) for a header whose integer fields agree, of a 2D
+    image (``iform`` 1) with consistent stack fields."""
+    if len(d) < 108:
+        return False
+
+    def whole(f):
+        return f == f and abs(f) != float("inf") and f == int(f)
+
+    for order in ">", "<":
+        h = (99,) + struct.unpack(order + "27f", d[:108])
+        if not all(whole(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+            continue
+        if int(h[5]) not in (1, 3, -11, -12, -21, -22) or int(h[22]) != int(h[13]) * int(h[23]):
+            continue
+        if int(h[22]) == 0:
+            continue
+        if int(h[5]) != 1:
+            return False
+        try:
+            stack, number = int(h[24]), int(h[27])
+        except (ValueError, OverflowError):
+            return True  # the open fails on them: refused
+        return (stack >= 0 and number == 0) or (stack == 0 and number > 0)
+    return False
 
 
 def _gbr(d: bytes) -> bool:
@@ -77,24 +155,25 @@ _FORMATS = (
     ("PPM", accept_pnm, decode_pnm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", png_rgb),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
-    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), None),
+    ("BLP", accept_blp, decode_blp),
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), "Pillow has only a stub for it"),
     ("CUR", accept_cur, decode_cur),
-    ("PCX", _pcx, None),
-    ("DCX", lambda d: _u32(d) == 0x3ADE68B1, None),
-    ("DDS", lambda d: d[:4] == b"DDS ", None),
+    ("PCX", accept_pcx, decode_pcx),
+    ("DCX", accept_dcx, decode_dcx),
+    ("DDS", accept_dds, decode_dds),
     ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, "Pillow needs Ghostscript for it"),
     ("FITS", lambda d: d[:6] == b"SIMPLE", None),
     ("FLI", lambda d: len(d) >= 16 and struct.unpack_from("<H", d, 4)[0] in (0xAF11, 0xAF12)
      and struct.unpack_from("<H", d, 14)[0] in (0, 3), None),
-    ("FTEX", lambda d: d[:4] == b"FTEX", None),
+    ("FTEX", accept_ftex, decode_ftex),
     ("GBR", _gbr, None),
     ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "Pillow has only a stub for it"),
     ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", "Pillow has only a stub for it"),
     ("JPEG2000", accept_jpeg2000, decode_jpeg2000),
-    ("ICNS", lambda d: d[:4] == b"icns", None),
+    ("ICNS", accept_icns, decode_icns),
     ("ICO", accept_ico, decode_ico),
     ("IM", lambda d: d[:11] == b"Image type:", None),
+    ("IMT", _imt, None),
     ("IPTC", lambda d: d[:2] == b"\x1c\x02", None),
     ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\x04", None),
     ("MPEG", _mpeg, "Pillow reads only its size"),
@@ -104,7 +183,8 @@ _FORMATS = (
     ("PIXAR", lambda d: d[:4] == b"\200\350\0\0", None),
     ("PSD", accept_psd, decode_psd),
     ("QOI", accept_qoi, decode_qoi),
-    ("SGI", lambda d: len(d) >= 2 and struct.unpack_from(">H", d)[0] == 474, None),
+    ("SGI", accept_sgi, decode_sgi),
+    ("SPIDER", _spider, None),
     ("SUN", lambda d: _u32(d, 0, ">") == 0x59A66A95, None),
     ("TGA", lambda d: True, decode_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L"),

@@ -56,13 +56,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-ITEM = "ROADMAP.md queue 1, item 14"
-
-
-class NotThisFormat(ValueError):
-    """A file fails a format's header checks where Pillow's ``_open`` raises
-    ``SyntaxError`` (or an error it turns into one): ``io/image.py`` goes on
-    to the next format, as ``Image._open_core`` does."""
+# ITEM, NotThisFormat and cmyk2rgb are re-exported here, where the readers first found them
+from sliders_conceptmod_tpu_torch.io._common import ITEM, NotThisFormat, cmyk2rgb, error  # noqa: F401
 
 # jpeg_natural_order: zigzag index k → natural (row-major) index
 ZIGZAG = np.array([
@@ -122,10 +117,6 @@ ARITAB = [
     0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
 ]
 assert len(ARITAB) == 114
-
-
-def _refuse(what: str) -> ValueError:
-    return ValueError(f"JPEG: {what} ({ITEM})")
 
 
 def _refused_by_pillow(what: str) -> ValueError:
@@ -524,9 +515,9 @@ def _read(data: bytes):
             if precision != 8:
                 raise _refused_by_pillow(f"{precision}-bit samples (8-bit only)")
             if nc not in (1, 3, 4):
-                raise _refuse(f"{nc}-component JPEGs are not supported")
+                raise error("JPEG", f"{nc}-component JPEGs are not supported ({ITEM})")
             if height == 0 or width == 0:
-                raise _refuse("a JPEG whose height comes in a DNL marker is not supported")
+                raise error("JPEG", f"a JPEG whose height comes in a DNL marker is not supported ({ITEM})")
             comps = []
             for i in range(nc):
                 cid, hv, tq = seg[6 + 3 * i : 9 + 3 * i]
@@ -876,11 +867,3 @@ def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     """What Pillow makes of libjpeg's CMYK: the Adobe rawmode ``CMYK;I``
     inverts every channel, then ``cmyk2rgb``."""
     return cmyk2rgb(255 - cmyk.astype(np.int64))
-
-
-def cmyk2rgb(cmyk: np.ndarray) -> np.ndarray:
-    """``Convert.c::cmyk2rgb``: ``nk − MULDIV255(c, nk)`` with ``nk = 255 − k``."""
-    cmyk = cmyk.astype(np.int64)
-    nk = 255 - cmyk[..., 3:4]
-    t = cmyk[..., :3] * nk + 128
-    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from sliders_conceptmod_tpu_torch.io import j2k_dwt, j2k_tier1
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, cmyk2rgb
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat, cmyk2rgb, error, refuse
 
 _JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
 # OpenJPEG's colour spaces
@@ -51,14 +51,6 @@ _ENUMCS = {16: SRGB, 17: GRAY, 18: SYCC, 12: CMYK}
 
 def accept(prefix: bytes) -> bool:
     return prefix[:4] == b"\xff\x4f\xff\x51" or prefix[:12] == _JP2_SIGNATURE
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"JPEG 2000: {what}")
-
-
-def _refuse(what: str) -> ValueError:
-    return ValueError(f"JPEG 2000: {what} is not supported ({ITEM})")
 
 
 def _ceildiv(a: int, b: int) -> int:
@@ -118,20 +110,20 @@ def _jp2(data: bytes):
             depths = data[a + 3 : a + 3 + npc]
             if max(depths) <= 8:
                 if npc != 3:
-                    raise _refuse(f"a palette of {npc} columns")
+                    raise refuse("JPEG 2000", f"a palette of {npc} columns")
                 entries = np.frombuffer(data[a + 3 + npc : a + 3 + npc + ne * npc], np.uint8).reshape(ne, npc)
                 # ImagePalette.getcolor: each new colour takes the next slot, a repeated one none
                 colours: Dict[tuple, int] = {}
                 for e in map(tuple, entries.tolist()):
                     colours.setdefault(e, len(colours))
                 if len(colours) > 256:
-                    raise _error("a palette of more than 256 colours (Pillow refuses it too)")
+                    raise error("JPEG 2000", "a palette of more than 256 colours (Pillow refuses it too)")
                 palette = np.array(list(colours) or [(0, 0, 0)], np.uint8)
                 mode = "P" if mode == "L" else "PA"
     if mode is None:
         raise NotThisFormat("JPEG 2000: malformed JP2 header")
     if codestream is None or codestream[:4] != b"\xff\x4f\xff\x51":
-        raise _error("no codestream")
+        raise error("JPEG 2000", "no codestream")
     return mode, palette, _ENUMCS.get(enumcs, UNKNOWN), codestream
 
 
@@ -185,11 +177,11 @@ def _spcod(seg: bytes, pos: int, comp: _Comp, with_precincts: bool) -> None:
     comp.style = seg[pos + 3]
     comp.reversible = seg[pos + 4] == 1
     if comp.levels > 32 or comp.xcb + comp.ycb > 12:
-        raise _error("bad coding style parameters")
+        raise error("JPEG 2000", "bad coding style parameters")
     if with_precincts:
         pp = seg[pos + 5 : pos + 6 + comp.levels]
         if len(pp) < comp.levels + 1:
-            raise _error("a truncated COD/COC")
+            raise error("JPEG 2000", "a truncated COD/COC")
         comp.precincts = [(b & 15, b >> 4) for b in pp]
     else:
         comp.precincts = None
@@ -205,7 +197,7 @@ def _quant(seg: bytes, pos: int, comp: _Comp) -> None:
         vals = struct.unpack(f">{len(body) // 2}H", body[: len(body) // 2 * 2])
         comp.steps = [(v >> 11, v & 0x7FF) for v in vals]
     else:
-        raise _error(f"quantization style {comp.quant_style}")
+        raise error("JPEG 2000", f"quantization style {comp.quant_style}")
 
 
 def _apply_marker(marker: int, seg: bytes, coding: _Coding, ncomp: int) -> None:
@@ -235,7 +227,7 @@ def _apply_marker(marker: int, seg: bytes, coding: _Coding, ncomp: int) -> None:
     elif marker == 0xFF5E:  # RGN
         ci, pos = comp_index(0)
         if seg[pos] != 0:
-            raise _refuse(f"ROI style {seg[pos]}")
+            raise refuse("JPEG 2000", f"ROI style {seg[pos]}")
         if ci < ncomp:
             coding.comps[ci].roishift = seg[pos + 1]
     elif marker == 0xFF5F:  # POC
@@ -256,7 +248,7 @@ def _step(comp: _Comp, resno: int, bandno: int) -> Tuple[int, int]:
         e0, m0 = comp.steps[0]
         return (max(e0 - (k - 1) // 3, 0) if k else e0), m0
     if k >= len(comp.steps):
-        raise _error("a quantization table shorter than the subbands")
+        raise error("JPEG 2000", "a quantization table shorter than the subbands")
     return comp.steps[k]
 
 
@@ -498,7 +490,7 @@ def _read_packet(data: bytes, pos: int, end: int, header, res: _Resolution, prec
                     take = min(seg[0] - seg[1], n)
                     bits = blk.lenbits + (take.bit_length() - 1)
                     if bits > 32:
-                        raise _error("a code-block length of more than 32 bits")
+                        raise error("JPEG 2000", "a code-block length of more than 32 bits")
                     parts.append((seg, take, bio.read(bits)))
                     n -= take
                     if n <= 0:
@@ -520,7 +512,7 @@ def _read_packet(data: bytes, pos: int, end: int, header, res: _Resolution, prec
     for blk, parts in included:
         for seg, take, length in parts:
             if pos + length > end:
-                raise _error("a packet runs past its tile's data")
+                raise error("JPEG 2000", "a packet runs past its tile's data")
             seg[2] += data[pos : pos + length]
             seg[1] += take
             pos += length
@@ -631,7 +623,7 @@ def _packets(coding: _Coding, comps: List[_Comp], tcs: list, dx: List[int], dy: 
                             if emit((l, r, c, p)):
                                 yield l, r, c, p
         else:
-            raise _error(f"progression order {order}")
+            raise error("JPEG 2000", f"progression order {order}")
 
 
 # ---------------------------------------------------------------------------
@@ -643,12 +635,12 @@ def _decode_codestream(cs: bytes):
     """A codestream → (components as int64 ``[h, w]`` over the image area,
     their precisions and signedness)."""
     if cs[:4] != b"\xff\x4f\xff\x51":
-        raise _error("no SOC/SIZ")
+        raise error("JPEG 2000", "no SOC/SIZ")
     lsiz = struct.unpack_from(">H", cs, 4)[0]
     siz = cs[6 : 4 + lsiz]
     _, xsiz, ysiz, xo, yo, xt, yt, xto, yto, nc = struct.unpack_from(">HIIIIIIIIH", siz, 0)
     if nc == 0 or xt == 0 or yt == 0 or xsiz <= xo or ysiz <= yo:
-        raise _error("a bad SIZ marker")
+        raise error("JPEG 2000", "a bad SIZ marker")
     prec, sgnd, dx, dy = [], [], [], []
     for i in range(nc):
         s, rx, ry = siz[36 + 3 * i : 39 + 3 * i]
@@ -657,16 +649,16 @@ def _decode_codestream(cs: bytes):
         dx.append(rx)
         dy.append(ry)
     if any(v != 1 for v in dx + dy):
-        raise _refuse("a component sampled other than 1 × 1")
+        raise refuse("JPEG 2000", "a component sampled other than 1 × 1")
     if max(prec) > 31:
-        raise _error("more than 31 bits a sample")
+        raise error("JPEG 2000", "more than 31 bits a sample")
     main = _Coding(nc)
     ppm: List[bytes] = []
     pos = 4 + lsiz
     # main header
     while True:
         if pos + 4 > len(cs):
-            raise _error("the codestream ends in its main header")
+            raise error("JPEG 2000", "the codestream ends in its main header")
         marker, length = struct.unpack_from(">HH", cs, pos)
         if marker == 0xFF90:
             break
@@ -676,7 +668,7 @@ def _decode_codestream(cs: bytes):
         elif marker in (0xFF52, 0xFF53, 0xFF5C, 0xFF5D, 0xFF5E, 0xFF5F):
             _apply_marker(marker, seg, main, nc)
         elif marker in (0xFF50, 0xFF59, 0xFF74, 0xFF75, 0xFF77, 0xFF78):
-            raise _refuse(f"a Part 2 marker ({marker:04X})")
+            raise refuse("JPEG 2000", f"a Part 2 marker ({marker:04X})")
         pos += 2 + length
     ppm_chunks = []
     if ppm:
@@ -694,7 +686,7 @@ def _decode_codestream(cs: bytes):
         if marker == 0xFFD9:
             break
         if marker != 0xFF90:
-            raise _error(f"marker {marker:04X} where a tile-part should start")
+            raise error("JPEG 2000", f"marker {marker:04X} where a tile-part should start")
         _, isot, psot, tpsot, _ = struct.unpack_from(">HHIBB", cs, pos + 2)
         start = pos
         end = len(cs) if psot == 0 else min(start + psot, len(cs))
@@ -726,7 +718,7 @@ def _decode_codestream(cs: bytes):
             _apply_marker(m, seg, coding, nc)
         tx, ty = t % ntx, t // ntx
         if ty >= nty:
-            raise _error("a tile index past the grid")
+            raise error("JPEG 2000", "a tile index past the grid")
         box = (max(xto + tx * xt, xo), max(yto + ty * yt, yo), min(xto + (tx + 1) * xt, xsiz),
                min(yto + (ty + 1) * yt, ysiz))
         header = None
@@ -745,9 +737,9 @@ def _decode_tile(data: bytes, header, coding: _Coding, box, prec, sgnd, dx, dy) 
     comps = coding.comps
     for c in comps:
         if not c.steps:
-            raise _error("no quantization parameters")
+            raise error("JPEG 2000", "no quantization parameters")
         if c.style & ~63:
-            raise _refuse(f"code-block style {c.style:#x} (HT or Part 2)")
+            raise refuse("JPEG 2000", f"code-block style {c.style:#x} (HT or Part 2)")
     tcs = [_tile_component(comps[c], prec[c], dx[c], dy[c], *box) for c in range(nc)]
     pos = 0
     for l, r, c, p in _packets(coding, comps, tcs, dx, dy, box):
@@ -805,7 +797,7 @@ def _decode_tile(data: bytes, header, coding: _Coding, box, prec, sgnd, dx, dy) 
         planes.append(j2k_dwt.inverse(tile, boxes, comp.reversible))
     if coding.mct:
         if coding.mct != 1:
-            raise _refuse("a Part 2 multiple component transform")
+            raise refuse("JPEG 2000", "a Part 2 multiple component transform")
         if nc >= 3 and planes[0].shape == planes[1].shape == planes[2].shape:
             y, u, v = planes[:3]
             if comps[0].reversible:
@@ -889,8 +881,8 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
     if space in (UNSPECIFIED, UNKNOWN):  # Pillow picks by the component count (an ICC profile among them)
         space = GRAY if nc <= 2 else SRGB
     if (mode, space, nc) not in _UNPACKERS:
-        raise _error(f"mode {mode} with {nc} components in colour space {space} (Pillow has no unpacker for it "
-                     "and refuses it too)")
+        raise error("JPEG 2000", f"mode {mode} with {nc} components in colour space {space} (Pillow has no "
+                                 "unpacker for it and refuses it too)")
     if mode == "I;16":
         g = np.minimum(_to8(comps[0], prec[0], sgnd[0], 16), 255)
         return np.repeat(g.astype(np.uint8)[:, :, None], 3, axis=2)

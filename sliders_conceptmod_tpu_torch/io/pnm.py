@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import NotThisFormat, cmyk2rgb
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat, cmyk2rgb, error
 
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 _MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB", b"P0CMYK": "CMYK",
@@ -37,10 +37,6 @@ _BLOCK = 1 << 20  # ImageFile.SAFEBLOCK: the plain decoder reads in blocks of th
 
 def accept(prefix: bytes) -> bool:
     return len(prefix) >= 2 and prefix[:1] == b"P" and prefix[1] in b"0123456fy"
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"PPM: {what}")
 
 
 class _Reader:
@@ -68,9 +64,9 @@ class _Reader:
                 continue
             tok += c
         if not tok:
-            raise _error("the header ends early")
+            raise error("PPM", "the header ends early")
         if len(tok) > 10:
-            raise _error(f"a header token too long: {tok!r}")
+            raise error("PPM", f"a header token too long: {tok!r}")
         return tok
 
 
@@ -108,12 +104,12 @@ def _plain_bitmap(data: bytes, total: int) -> np.ndarray:
     for block in _plain_blocks(data):
         tokens = b"".join(block.split())
         if tokens.strip(b"01"):
-            raise _error("a bitmap token other than 0 and 1")
+            raise error("PPM", "a bitmap token other than 0 and 1")
         out = (out + tokens)[:total]
         if len(out) == total:
             break
     if len(out) < total:
-        raise _error("not enough image data")
+        raise error("PPM", "not enough image data")
     return np.where(np.frombuffer(out, np.uint8) == ord("0"), 255, 0).astype(np.uint8)
 
 
@@ -133,18 +129,18 @@ def _plain_values(data: bytes, total: int, maxval: int, top: int) -> np.ndarray:
         if block and not block[-1:].isspace():
             half = tokens.pop()
             if len(half) > 10:
-                raise _error(f"a data token too long: {half[:11]!r}")
+                raise error("PPM", f"a data token too long: {half[:11]!r}")
         for tok in tokens:
             if len(tok) > 10:
-                raise _error(f"a data token too long: {tok[:11]!r}")
+                raise error("PPM", f"a data token too long: {tok[:11]!r}")
             v = int(tok)
             if v < 0 or v > maxval:
-                raise _error(f"a sample of {v} outside 0…{maxval}")
+                raise error("PPM", f"a sample of {v} outside 0…{maxval}")
             out.append(round(v / maxval * top))
             if len(out) == total:
                 break
     if len(out) < total:
-        raise _error("not enough image data")
+        raise error("PPM", "not enough image data")
     return np.array(out, np.int64)
 
 
@@ -168,11 +164,11 @@ def decode_pnm(data: bytes) -> np.ndarray:
     if mode == "F":
         scale = float(r.token())
         if scale == 0.0 or not np.isfinite(scale):
-            raise _error("scale must be finite and non-zero")
+            raise error("PPM", "scale must be finite and non-zero")
     elif mode != "1":
         maxval = int(r.token())
         if not 0 < maxval < 65536:
-            raise _error("maxval must be greater than 0 and less than 65536")
+            raise error("PPM", "maxval must be greater than 0 and less than 65536")
         if maxval > 255 and mode == "L":
             mode = "I"
     body = data[r.pos :]
@@ -184,13 +180,13 @@ def decode_pnm(data: bytes) -> np.ndarray:
         else:
             stride = (width + 7) // 8
             if len(body) < stride * height:
-                raise _error("the image data is truncated")
+                raise error("PPM", "the image data is truncated")
             bits = np.unpackbits(np.frombuffer(body[: stride * height], np.uint8).reshape(height, stride), axis=1)
             g = np.where(bits[:, :width] == 1, 0, 255).astype(np.uint8)
         return np.repeat(g[:, :, None], 3, axis=2)
     if mode == "F":
         if len(body) < 4 * width * height:
-            raise _error("the image data is truncated")
+            raise error("PPM", "the image data is truncated")
         v = np.frombuffer(body[: 4 * width * height], "<f4" if scale < 0 else ">f4").reshape(height, width)[::-1]
         with np.errstate(invalid="ignore"):
             g = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.where(v > 0, v, 0)), 0)).astype(np.uint8)
@@ -201,13 +197,13 @@ def decode_pnm(data: bytes) -> np.ndarray:
     elif maxval == 255 or (maxval == 65535 and mode == "I"):
         size = 2 if maxval == 65535 else 1
         if len(body) < total * size:
-            raise _error("the image data is truncated")
+            raise error("PPM", "the image data is truncated")
         s = np.frombuffer(body[: total * size], ">u2" if size == 2 else np.uint8).astype(np.int64)
     else:
         size = 1 if maxval < 256 else 2
         n = min(len(body) // (size * bands), width * height) * bands
         if n < total:
-            raise _error("not enough image data")
+            raise error("PPM", "not enough image data")
         v = np.frombuffer(body[: n * size], ">u2" if size == 2 else np.uint8).astype(np.float64)
         s = np.minimum(top, np.rint(v / maxval * top)).astype(np.int64)
     s = s.reshape(height, width, bands)

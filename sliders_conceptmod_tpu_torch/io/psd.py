@@ -26,7 +26,7 @@ import struct
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, cmyk2rgb
+from sliders_conceptmod_tpu_torch.io._common import ITEM, NotThisFormat, cmyk2rgb, error
 
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1), (3, 8): ("RGB", 3),
           (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
@@ -36,28 +36,24 @@ def accept(prefix: bytes) -> bool:
     return prefix[:4] == b"8BPS"
 
 
-def _error(what: str) -> ValueError:
-    return ValueError(f"PSD: {what}")
-
-
 def _packbits_rows(data: bytes, pos: int, stride: int, rows: int) -> bytes:
     out = bytearray()
     x = 0
     while len(out) < stride * rows:
         if pos >= len(data):
-            raise _error("the image data is truncated")
+            raise error("PSD", "the image data is truncated")
         n = data[pos]
         if n == 0x80:
             pos += 1
             continue
         if n > 0x80:
             if pos + 2 > len(data):
-                raise _error("the image data is truncated")
+                raise error("PSD", "the image data is truncated")
             chunk = data[pos + 1 : pos + 2] * (257 - n)
             pos += 2
         else:
             if pos + n + 2 > len(data):
-                raise _error("the image data is truncated")
+                raise error("PSD", "the image data is truncated")
             chunk = data[pos + 1 : pos + n + 2]
             pos += n + 2
         chunk = chunk[: stride - x]
@@ -76,7 +72,7 @@ def decode_psd(data: bytes) -> np.ndarray:
             raise NotThisFormat(f"PSD: colour mode {psd_mode} at {bits} bits")
         mode, channels = _MODES[(psd_mode, bits)]
         if channels > channels_stored:
-            raise _error("not enough channels (Pillow refuses it too)")
+            raise error("PSD", "not enough channels (Pillow refuses it too)")
         if mode == "RGB" and channels_stored == 4:
             channels = 4  # RGBA; its row-count table has four channels' rows, any other count three
         pos = 26
@@ -95,7 +91,7 @@ def decode_psd(data: bytes) -> np.ndarray:
     if width <= 0 or height <= 0:
         raise NotThisFormat("PSD: an empty image")
     if mode == "LAB":
-        raise _error(f"Lab colour is not supported ({ITEM}; Pillow converts it through LittleCMS)")
+        raise error("PSD", f"Lab colour is not supported ({ITEM}; Pillow converts it through LittleCMS)")
     stride = (width + 7) // 8 if mode == "1" else width
     need = stride * height
     planes = []
@@ -103,19 +99,19 @@ def decode_psd(data: bytes) -> np.ndarray:
         for c in range(channels):
             raw = data[pos + c * width * height : pos + c * width * height + need]
             if len(raw) < need:
-                raise _error("the image data is truncated")
+                raise error("PSD", "the image data is truncated")
             planes.append(np.frombuffer(raw, np.uint8).reshape(height, stride))
     elif compression == 1:
         counts = np.frombuffer(data[pos : pos + 2 * channels * height], ">u2").astype(np.int64)
         if len(counts) < channels * height:
-            raise _error("the row byte counts are truncated")
+            raise error("PSD", "the row byte counts are truncated")
         start = pos + 2 * channels * height
         for c in range(channels):
             buf = _packbits_rows(data, start, stride, height)
             planes.append(np.frombuffer(buf, np.uint8).reshape(height, stride))
             start += int(counts[c * height : (c + 1) * height].sum())
     else:
-        raise _error(f"compression {compression} (Pillow cannot load it either)")
+        raise error("PSD", f"compression {compression} (Pillow cannot load it either)")
     if mode == "1":
         g = np.unpackbits(planes[0], axis=1)[:, :width] * 255
         return np.repeat(g[:, :, None], 3, axis=2)

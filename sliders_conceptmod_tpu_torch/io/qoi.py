@@ -13,7 +13,7 @@ import struct
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import NotThisFormat
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat
 
 
 def accept(prefix: bytes) -> bool:

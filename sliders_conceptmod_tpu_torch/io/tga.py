@@ -22,11 +22,7 @@ import struct
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import NotThisFormat
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"TGA: {what}")
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat, error
 
 
 def _rgb15(v: np.ndarray) -> np.ndarray:
@@ -43,19 +39,19 @@ def _rle(data: bytes, pos: int, depth: int, row_bytes: int, rows: int) -> bytes:
     x = 0
     while len(out) < total:
         if pos >= len(data):
-            raise _error("the run-length data is truncated")
+            raise error("TGA", "the run-length data is truncated")
         head = data[pos]
         n = depth * ((head & 0x7F) + 1)
         if head & 0x80:
             if pos + 1 + depth > len(data):
-                raise _error("the run-length data is truncated")
+                raise error("TGA", "the run-length data is truncated")
             if x + n > row_bytes:
-                raise _error("a repeat packet crosses a row's end (Pillow refuses it too)")
+                raise error("TGA", "a repeat packet crosses a row's end (Pillow refuses it too)")
             out += data[pos + 1 : pos + 1 + depth] * (n // depth)
             pos += 1 + depth
         else:
             if pos + 1 + n > len(data):
-                raise _error("the run-length data is truncated")
+                raise error("TGA", "the run-length data is truncated")
             out += data[pos + 1 : pos + 1 + n]
             pos += 1 + n
         x = (x + n) % row_bytes
@@ -91,7 +87,7 @@ def decode_tga(data: bytes) -> np.ndarray:
         if entry is None:
             raise NotThisFormat("unknown TGA map depth")
         if entry == 4:
-            raise _error("a 32-bit colour map (Pillow has no unpacker for it and refuses it too)")
+            raise error("TGA", "a 32-bit colour map (Pillow has no unpacker for it and refuses it too)")
         raw = data[pos : pos + entry * size]
         pos += entry * size
         raw = bytes(entry * start) + raw
@@ -103,16 +99,16 @@ def decode_tga(data: bytes) -> np.ndarray:
     raw_kind = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z", (2, 24): "BGR",
                 (2, 32): "BGRA"}.get((kind, depth))
     if raw_kind is None or (raw_kind == "P" and mode == "L"):
-        raise _error(f"image type {image_type} at {depth} bits (Pillow cannot decode it either)")
+        raise error("TGA", f"image type {image_type} at {depth} bits (Pillow cannot decode it either)")
     row_bytes = (width * depth + 7) // 8
     if image_type & 8 and depth == 1:
-        raise _error("a run-length coded 1-bit image (Pillow cannot decode it either)")
+        raise error("TGA", "a run-length coded 1-bit image (Pillow cannot decode it either)")
     if image_type & 8:
         buf = _rle(data, pos, depth // 8, row_bytes, height)
     else:
         buf = data[pos : pos + row_bytes * height]
         if len(buf) < row_bytes * height:
-            raise _error("the image data is truncated")
+            raise error("TGA", "the image data is truncated")
     rows = np.frombuffer(buf, np.uint8).reshape(height, row_bytes)
     if raw_kind == "1":
         px = np.unpackbits(rows, axis=1)[:, :width] * 255

@@ -11,13 +11,25 @@ Python, as ``PIL.Image.open(p).convert("RGB")`` gives it with Pillow 12's
 * Uncompressed data goes through Pillow's own raw decoder, the rest
   through libtiff's codecs: PackBits, LZW (most significant bit first,
   code widths 9–12 switched one code early, as ``tif_lzw.c`` reads it),
-  Deflate (8 and 32946), LZMA (34925, the standard library's ``lzma``) and
-  JPEG (7: each strip or tile a JPEG stream, the ``JPEGTables`` stream read
-  before it, decoded by ``io/jpeg.py``; YCbCr converted to RGB by libjpeg
-  as libtiff's ``JPEGCOLORMODE_RGB`` asks, any other photometric passed
-  through as libtiff's unknown colour space passes it). The horizontal
-  predictor (2) on 8, 16 and 32-bit samples; fill order 2 reverses the bits
-  of each stored byte first.
+  Deflate (8 and 32946), LZMA (34925, the standard library's ``lzma``),
+  ZSTD (50000, ``io/zstd.py``: a strip's first frame, which must hold the
+  strip), CCITT modified Huffman, T.4 and T.6 (2, 3 and 4,
+  ``io/ccitt.py``; bilevel only) and JPEG (7: each strip or tile a JPEG
+  stream, the ``JPEGTables`` stream read before it, decoded by
+  ``io/jpeg.py``; YCbCr converted to RGB by libjpeg as libtiff's
+  ``JPEGCOLORMODE_RGB`` asks, any other photometric passed through as
+  libtiff's unknown colour space passes it). The horizontal predictor (2)
+  on 8, 16 and 32-bit samples; fill order 2 reverses the bits of each
+  stored byte first.
+* YCbCr under any codec but JPEG goes, as Pillow sends it, through
+  libtiff's RGBA interface: ``YCbCrSubsampling`` 1×1, 1×2, 2×1, 2×2, 4×1,
+  4×2 and 4×4 (each data unit's chroma replicated over its pixels; 1×1 in
+  separate planes too), ``YCbCrCoefficients`` and ``ReferenceBlackWhite``
+  through ``TIFFYCbCrToRGBInit``'s single-precision tables and
+  ``TIFFYCbCrtoRGB``'s clamping; ``YCbCrPositioning`` is read by nobody.
+  Uncompressed YCbCr goes through Pillow's raw reader, 4 bytes a pixel and
+  no conversion, as Pillow reads it (so a file Pillow writes is refused as
+  truncated, as Pillow refuses it).
 * Pixels, by Pillow's ``OPEN_INFO`` (mode, rawmode): bilevel and 2/4/8-bit
   grey (``WhiteIsZero`` inverted; 2 and 4 bits scaled by 85 and 17), 12,
   16 and 32-bit grey (modes ``I;16``, ``I`` and ``F``, which
@@ -29,9 +41,9 @@ Python, as ``PIL.Image.open(p).convert("RGB")`` gives it with Pillow 12's
   1/2/4/8-bit palettes (``ColorMap`` entries taken by their high byte,
   black past its end).
 
-Refused citing ROADMAP item 14: CCITT (2, 3, 4), ZSTD, old-style JPEG (6)
-and the other codecs libtiff has; YCbCr other than in JPEG (libtiff's RGBA
-interface), Lab (converted through LittleCMS) and planar uncompressed data
+Refused citing ROADMAP item 14: old-style JPEG (6) and the other codecs
+libtiff has that Pillow cannot write here, Lab (converted through
+LittleCMS), the predictor on subsampled YCbCr and planar uncompressed data
 of more than 8 bits a sample. WebP-compressed TIFF is refused as Pillow
 refuses it (its libtiff is built without WebP).
 """
@@ -45,7 +57,10 @@ from typing import Dict, List
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM, NotThisFormat, cmyk2rgb, jpeg_planes, ycc_to_rgb
+from sliders_conceptmod_tpu_torch.io._common import NotThisFormat, cmyk2rgb, error, refuse
+from sliders_conceptmod_tpu_torch.io.ccitt import decode_ccitt
+from sliders_conceptmod_tpu_torch.io.jpeg import jpeg_planes, ycc_to_rgb
+from sliders_conceptmod_tpu_torch.io.zstd import decode_zstd
 
 _PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 _TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
@@ -60,14 +75,6 @@ _COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_l
 
 def accept(prefix: bytes) -> bool:
     return prefix[:4] in _PREFIXES
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"TIFF: {what}")
-
-
-def _refuse(what: str) -> ValueError:
-    return ValueError(f"TIFF: {what} is not supported ({ITEM})")
 
 
 def _read_ifd(data: bytes, bo: str, offset: int, big: bool) -> Dict[int, List]:
@@ -139,7 +146,7 @@ def lzw_decode(data: bytes, size: int) -> bytes:
         if code == 257:
             break
         if not table:
-            raise _error("LZW data without a clear code first")
+            raise error("TIFF", "LZW data without a clear code first")
         if prev is None:
             entry = table[code]
         elif code < len(table):
@@ -149,7 +156,7 @@ def lzw_decode(data: bytes, size: int) -> bytes:
             entry = prev + prev[:1]
             table.append(entry)
         else:
-            raise _error("an LZW code past the table")
+            raise error("TIFF", "an LZW code past the table")
         out += entry
         prev = entry
         if len(table) + 1 >= (1 << width) and width < 12:
@@ -277,24 +284,25 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if width <= 0 or height <= 0:
         raise NotThisFormat("TIFF: an empty image")
     mode, rawmode = info
-    if compression in (2, 3, 4, 50000):
-        raise _refuse(f"{_COMPRESSIONS[compression]} compression")
+    if compression in (2, 3, 4) and (bps != (1,) or photo not in (0, 1)):
+        raise error("TIFF", f"CCITT compression of {bps}-bit samples, photometric {photo} (libtiff refuses it)")
     if compression == 50001:
-        raise _error("WebP compression (Pillow refuses it too: its libtiff is built without WebP)")
-    if compression not in (1, 5, 7, 8, 32773, 32946, 34925):
-        raise _refuse(f"{_COMPRESSIONS[compression]} compression")
+        raise error("TIFF", "WebP compression (Pillow refuses it too: its libtiff is built without WebP)")
+    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000):
+        raise refuse("TIFF", f"{_COMPRESSIONS[compression]} compression")
     if mode == "LAB":
-        raise _refuse("Lab colour (Pillow converts it through LittleCMS)")
-    if photo == 6 and compression != 7:
-        raise _refuse("YCbCr outside JPEG compression (libtiff's RGBA interface)")
+        raise refuse("TIFF", "Lab colour (Pillow converts it through LittleCMS)")
+    ycbcr = photo == 6 and compression != 7 and not raw_path  # libtiff's RGBA interface converts it
+    if ycbcr and (bps != (8, 8, 8) or extra):
+        raise error("TIFF", f"YCbCr of {bps}-bit samples (libtiff's RGBA interface refuses it, and Pillow too)")
     bits = bps[0]
     if fill == 2 and raw_path and ((photo == 3 and bits < 8) or (photo == 0 and bits == 8)):
-        raise _error(f"uncompressed, bit-reversed {bits}-bit samples of photometric {photo} (Pillow has no "
-                     "unpacker for them and refuses it too)")
+        raise error("TIFF", f"uncompressed, bit-reversed {bits}-bit samples of photometric {photo} (Pillow has no "
+                            "unpacker for them and refuses it too)")
     if raw_path:
         predictor = 1  # Pillow's raw reader applies none
     if predictor not in (1, 2) or (predictor == 2 and fmt == (3,)):
-        raise _refuse(f"predictor {predictor} on {'floating-point' if fmt == (3,) else 'integer'} samples")
+        raise refuse("TIFF", f"predictor {predictor} on {'floating-point' if fmt == (3,) else 'integer'} samples")
     if 322 in tags:
         tw, th = get(322), get(323)
         offsets, counts = tags.get(324, []), tags.get(325, [])
@@ -308,39 +316,40 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if compression == 7:
         rgb, samples = _jpeg_image(data, tags, photo, width, height, tw, th, offsets, counts, separate, spp)
         return rgb if rgb is not None else _to_rgb(samples, mode, rawmode, bits, tags)
+    sub = tuple(tags.get(530, [2, 2])[:2]) if ycbcr else (1, 1)
+    if ycbcr and (sub not in _SUBSAMPLINGS or (separate and sub != (1, 1))):
+        raise error("TIFF", f"YCbCr subsampled {sub[0]}x{sub[1]}{' in separate planes' if separate else ''} "
+                            "(libtiff's RGBA interface refuses it, and Pillow too)")
+    if ycbcr and predictor == 2 and sub != (1, 1):
+        raise refuse("TIFF", "the predictor on subsampled YCbCr")
     if raw_path:
+        if photo == 6 and planar != 2 and spp == 3:  # Pillow's raw reader takes 4 bytes a pixel ("RGBX")
+            bps = (8, 8, 8, 8)
         samples = _raw_samples(data, bo, mode, rawmode, width, height, tw, th, offsets, planar, bps, count, fill)
         if planar == 2:  # one-band unpackers: 8-bit samples (1-bit for mode "1"), no inversion
             return _to_rgb(samples, mode, mode, 1 if mode == "1" else 8, tags)
         return _to_rgb(samples, mode, rawmode, bits, tags)
     if separate and spp > 4 and 322 not in tags:
-        raise _error(f"{spp} separate planes (Pillow's libtiff decoder refuses them too)")
+        raise error("TIFF", f"{spp} separate planes (Pillow's libtiff decoder refuses them too)")
     if predictor == 2 and bits < 8 and compression != 32773:
-        raise _error(f"the predictor on {bits}-bit samples (libtiff refuses it, and Pillow too)")
+        raise error("TIFF", f"the predictor on {bits}-bit samples (libtiff refuses it, and Pillow too)")
     per_plane = 1 if separate else spp
     row_bytes = (tw * bits * per_plane + 7) // 8
     across, down = -(-width // tw), -(-height // th)
+    if sub != (1, 1):
+        return _ycbcr_subsampled(data, tags, compression, fill, width, height, tw, th, offsets, counts, sub)
     samples = np.zeros((height, width, spp), np.float32 if fmt == (3,) else np.int64)
     for plane in range(spp if separate else 1):
         for ty in range(down):
             for tx in range(across):
                 k = plane * across * down + ty * across + tx
                 if k >= len(offsets):
-                    raise _error("fewer strips or tiles than the image needs")
+                    raise error("TIFF", "fewer strips or tiles than the image needs")
                 raw = data[offsets[k] : offsets[k] + (counts[k] if k < len(counts) else 0)]
                 rows_here = th if 322 in tags else min(th, height - ty * th)
                 need = row_bytes * rows_here
-                if fill == 2:
-                    raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-                if compression == 32773:
-                    buf = packbits_decode(raw, need)
-                elif compression == 5:
-                    buf = lzw_decode(raw, need)
-                elif compression == 34925:
-                    buf = lzma.LZMADecompressor().decompress(raw, need)
-                else:
-                    buf = zlib.decompressobj().decompress(raw)
-                tile = np.frombuffer(buf[:need].ljust(need, b"\0"), np.uint8).reshape(rows_here, row_bytes)
+                buf = _decompress(raw, compression, fill, need, tw, rows_here, get(292, 0))
+                tile = np.frombuffer(buf, np.uint8).reshape(rows_here, row_bytes)
                 vals = _unpack(tile, bits, tw * per_plane, bo, fmt[0]).reshape(rows_here, tw, per_plane)
                 if predictor == 2 and compression != 32773:  # libtiff's PackBits codec takes no predictor
                     vals = np.cumsum(vals, axis=1) % (1 << bits)
@@ -358,7 +367,129 @@ def decode_tiff(data: bytes) -> np.ndarray:
         # byte-swapped
         kind = {"I;16BS": "<i2", "I;32BS": "<i4", "F;32BF": "<f4"}[rawmode]
         samples = samples.astype(kind).view(">" + kind[1:]).astype(samples.dtype)
+    if ycbcr:
+        return _ycbcr_to_rgb(tags, samples[..., 0], samples[..., 1], samples[..., 2])
     return _to_rgb(samples, mode, rawmode, bits, tags)
+
+
+def _decompress(raw: bytes, compression: int, fill: int, need: int, width: int, rows: int, t4options: int) -> bytes:
+    """A strip's or tile's stored bytes → ``need`` bytes of samples (cut, or
+    padded with zeros)."""
+    if fill == 2:
+        raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+    if compression == 32773:
+        buf = packbits_decode(raw, need)
+    elif compression == 5:
+        buf = lzw_decode(raw, need)
+    elif compression in (2, 3, 4):
+        buf = decode_ccitt(raw, width, rows, compression, t4options)
+    elif compression == 50000:  # libtiff reads one frame a strip and fails where it falls short
+        buf = decode_zstd(raw)
+        if len(buf) < need:
+            raise error("TIFF", f"a ZSTD strip {need - len(buf)} bytes short (libtiff refuses it, and Pillow too)")
+    else:  # LZMA and Deflate stop, as libtiff's codecs do, once the strip is full
+        try:
+            if compression == 34925:
+                buf = lzma.LZMADecompressor().decompress(raw, need)
+            else:
+                buf = zlib.decompressobj().decompress(raw, need)
+        except (lzma.LZMAError, zlib.error) as e:
+            raise error("TIFF", f"corrupt {_COMPRESSIONS[compression]} data ({e})") from None
+    return buf[:need].ljust(need, b"\0")
+
+
+# the subsamplings libtiff's RGBA interface has a routine for (4×4, 4×2, 4×1, 2×2, 2×1, 1×2, 1×1), and the
+# bytes a unit each routine skips past a tile's right edge by (4×4's routine takes 4×2's 10, not 18)
+_SUBSAMPLINGS = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+_SKEW_UNIT = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4, (1, 2): 4, (1, 1): 3}
+
+
+def _ycbcr_tables(tags: dict):
+    """``tif_color.c::TIFFYCbCrToRGBInit`` in its single precision: the
+    tables indexed by Y, Cb and Cr that ``TIFFYCbCrtoRGB`` sums, from
+    ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` (libtiff's defaults
+    0.299/0.587/0.114 and 0, 255, 128, 255, 128, 255)."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(529, [0.299, 0.587, 0.114])[:3]]
+    rbw = [f32(v) for v in tags.get(532, [0, 255, 128, 255, 128, 255])[:6]]
+    if len(luma) < 3 or len(rbw) < 6 or any(np.isnan(luma)) or abs(luma[1]) < 1e-10:
+        raise error("TIFF", "invalid YCbCrCoefficients (libtiff refuses them, and Pillow too)")
+    if not all(f32(-0x7FFFFFFF + 128) < v < f32(0x7FFFFFFF) for v in rbw):
+        raise error("TIFF", "invalid ReferenceBlackWhite values (libtiff refuses them, and Pillow too)")
+    lr, lg, lb = luma
+
+    def fix(v):
+        return int(float(f32(min(max(v, f32(0)), f32(2))) * f32(65536)) + 0.5)
+
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2, d3, d4 = fix(f1), -fix(lr * f1 / lg), fix(f3), -fix(lb * f3 / lg)
+    x = np.arange(-128, 128)
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb
+        v = (c - int(rb)).astype(f32) * f32(cr) / (den if den != 0 else f32(1))
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    y = code2v(x + 128, rbw[0], rbw[1], 255)
+    return y, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768
+
+
+def _ycbcr_to_rgb(tags: dict, y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """``TIFFYCbCrtoRGB`` on 8-bit samples, each result clamped to 0–255."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(tags)
+    y, cb, cr = (np.asarray(v, np.int64) for v in (y, cb, cr))
+    r = y_tab[y] + cr_r[cr]
+    g = y_tab[y] + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = y_tab[y] + cb_b[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _ycbcr_subsampled(data, tags, compression, fill, width, height, tw, th, offsets, counts, sub):
+    """Subsampled YCbCr strips or tiles as libtiff's RGBA interface puts them
+    (``putcontig8bitYCbCr{44,42,41,22,21,12}tile``): data units of h × v Y
+    samples (row by row), then Cb and Cr, each pixel of a unit converted
+    with the unit's chroma; units past the image's edge are cut. A strip is
+    read as ``gtStripContig`` reads it: its rows rounded up to whole units,
+    times ``TIFFScanlineSize``, a unit row's bytes divided by v and rounded
+    down, so 4 × 4 units an odd number across lose their strip's last two
+    bytes a unit row to the zeros of libtiff's buffer. In a tile that
+    overhangs the image's right edge, each unit row after the first starts
+    where the put routine's skip leaves it (``_SKEW_UNIT``)."""
+    h, v = sub
+    across, down = -(-width // tw), -(-height // th)
+    y = np.zeros((height, width), np.int64)
+    cb = np.zeros_like(y)
+    cr = np.zeros_like(y)
+    t4 = tags.get(292, [0])[0]
+    for ty in range(down):
+        for tx in range(across):
+            k = ty * across + tx
+            if k >= len(offsets):
+                raise error("TIFF", "fewer strips or tiles than the image needs")
+            rows_here = th if 322 in tags else min(th, height - ty * th)
+            ur, uc = -(-rows_here // v), -(-tw // h)
+            unit = h * v + 2
+            need = ur * uc * unit
+            read = need if 322 in tags else ur * v * (uc * unit // v)
+            raw = data[offsets[k] : offsets[k] + (counts[k] if k < len(counts) else 0)]
+            buf = np.frombuffer(_decompress(raw, compression, fill, read, tw, rows_here, t4).ljust(need, b"\0"),
+                                np.uint8)
+            npix = min(tw, width - tx * tw)
+            used = -(-npix // h)
+            skew = (tw - npix) // h * _SKEW_UNIT[sub]  # the put routine's own skip past the tile's right edge
+            at = (np.arange(ur)[:, None] * (used * unit + skew) + np.arange(used)[None, :] * unit)[..., None]
+            units = np.zeros((ur, uc, unit), np.int64)
+            units[:, :used] = buf[np.minimum(at + np.arange(unit), need - 1)]
+            luma = units[:, :, : h * v].reshape(ur, uc, v, h).transpose(0, 2, 1, 3).reshape(ur * v, uc * h)
+            chroma = [np.repeat(np.repeat(units[:, :, h * v + i], v, 0), h, 1) for i in (0, 1)]
+            y0, x0 = ty * th, tx * tw
+            rows, cols = min(rows_here, height - y0), min(tw, width - x0)
+            for plane, src in ((y, luma), (cb, chroma[0]), (cr, chroma[1])):
+                plane[y0 : y0 + rows, x0 : x0 + cols] = src[:rows, :cols]
+    return _ycbcr_to_rgb(tags, y, cb, cr)
 
 
 _BAND_BITS = {"R": 8, "G": 8, "B": 8, "A": 8, "C": 8, "M": 8, "Y": 8, "K": 8, "L": 8, "P": 8, "I": 32, "F": 32, "1": 1}
@@ -385,17 +516,17 @@ def _raw_samples(data, bo, mode, rawmode, width, height, tw, th, offsets, planar
             tile_raw = rawmode[layer]
             stride /= count
             if tile_raw not in _BANDS.get(mode, "") or tile_raw not in _BAND_BITS:
-                raise _error(f"unknown raw mode {tile_raw!r} for a plane of mode {mode} (Pillow refuses it too)")
+                raise error("TIFF", f"unknown raw mode {tile_raw!r} for a plane of mode {mode} (Pillow refuses it too)")
         xs, ys = min(x + tw, width) - x, min(y + th, height) - y
         pixel_bits = _BAND_BITS[tile_raw] if planar == 2 else sum(bps)
         row = (xs * pixel_bits + 7) // 8
         step = int(stride) or row
         if step < row:
-            raise _error("a strip narrower than its rows (Pillow refuses it too)")
+            raise error("TIFF", "a strip narrower than its rows (Pillow refuses it too)")
         need = step * (ys - 1) + row
         raw = data[offset : offset + need]
         if len(raw) < need:
-            raise _error("the image data is truncated")
+            raise error("TIFF", "the image data is truncated")
         raw = np.frombuffer(raw + b"\0" * (step - row), np.uint8).reshape(ys, step)[:, :row]
         if fill == 2:
             raw = _BIT_REVERSE[raw]
@@ -435,12 +566,12 @@ def _jpeg_image(data, tags, photo, width, height, tw, th, offsets, counts, separ
             for tx in range(across):
                 k = plane * across * down + ty * across + tx
                 if k >= min(len(offsets), len(counts)):
-                    raise _error("fewer strips or tiles than the image needs")
+                    raise error("TIFF", "fewer strips or tiles than the image needs")
                 comps = jpeg_planes(data[offsets[k] : offsets[k] + counts[k]], tables)
                 if ycc:
                     px = ycc_to_rgb(*comps[:3])
                 elif photo == 6 or any(c.shape != comps[0].shape for c in comps):
-                    raise _refuse(f"JPEG-compressed photometric {photo} in separate or subsampled components")
+                    raise refuse("TIFF", f"JPEG-compressed photometric {photo} in separate or subsampled components")
                 else:
                     px = np.stack(comps, -1)
                 y0, x0 = ty * th, tx * tw
@@ -477,7 +608,7 @@ def _to_rgb(s: np.ndarray, mode: str, rawmode: str, bits: int, tags: dict) -> np
     if mode in ("P", "PA"):
         cmap = tags.get(320)
         if cmap is None:
-            raise _error("a palette image without a ColorMap")
+            raise error("TIFF", "a palette image without a ColorMap")
         n = len(cmap) // 3
         pal = (np.array(cmap, np.int64).reshape(3, n).T // 256).astype(np.uint8)
         full = np.zeros((256, 3), np.uint8)

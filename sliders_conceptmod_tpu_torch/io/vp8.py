@@ -42,7 +42,7 @@ from typing import List
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM
+from sliders_conceptmod_tpu_torch.io._common import ITEM, error
 
 # RFC 6386, section 13.5: default_coeff_probs [4 types][8 bands][3 contexts][11 nodes], row-major
 _COEFF_PROBS_HEX = (
@@ -146,10 +146,6 @@ B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU = range(10)
 # kYModesIntra4: the B-mode tree, node i's branches at 2i and 2i + 1, leaves as −mode
 _BMODE_TREE = (-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE, 5, -B_RD, -B_VR, -B_LD, 7, -B_VL, 8, -B_HD, -B_HU)
 _NORM = [0] + [7 - (r.bit_length() - 1) if r < 128 else 0 for r in range(1, 256)]
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"WebP lossy (VP8): {what}")
 
 
 class BoolDecoder:
@@ -589,7 +585,7 @@ def _predict4(mode: int, top: list, left: list, tl: int) -> list:
         put(_avg3(K, J, I), (1, 2), (3, 3))
         put(_avg3(L, K, J), (1, 3))
     else:
-        raise _error(f"B-mode {mode}")
+        raise error("WebP lossy (VP8)", f"B-mode {mode}")
     return d
 
 
@@ -613,7 +609,7 @@ def _predict_block(mode: int, top: np.ndarray, left: np.ndarray, tl: int, size: 
         return np.broadcast_to(top[None, :], (size, size))
     if mode == B_HE:
         return np.broadcast_to(left[:, None], (size, size))
-    raise _error(f"16x16 mode {mode}")
+    raise error("WebP lossy (VP8)", f"16x16 mode {mode}")
 
 
 def _reconstruct(modes: list, resid: np.ndarray, mb_w: int, mb_h: int):
@@ -777,21 +773,21 @@ def decode_vp8_yuv(data: bytes):
     """A VP8 key frame (the ``VP8 `` chunk's payload) → its Y ``[H, W]``, U
     and V ``[(H + 1) // 2, (W + 1) // 2]`` planes, uint8."""
     if len(data) < 10:
-        raise _error("the frame is truncated")
+        raise error("WebP lossy (VP8)", "the frame is truncated")
     bits = data[0] | (data[1] << 8) | (data[2] << 16)
     if bits & 1:
-        raise _error("not a key frame")
+        raise error("WebP lossy (VP8)", "not a key frame")
     if (bits >> 1) & 7 > 3:
-        raise _error(f"profile {(bits >> 1) & 7} ({ITEM})")
+        raise error("WebP lossy (VP8)", f"profile {(bits >> 1) & 7} ({ITEM})")
     part0_size = bits >> 5
     if data[3:6] != b"\x9d\x01\x2a":
-        raise _error("no start code")
+        raise error("WebP lossy (VP8)", "no start code")
     width = (data[6] | (data[7] << 8)) & 0x3FFF
     height = (data[8] | (data[9] << 8)) & 0x3FFF
     if width == 0 or height == 0:
-        raise _error("an empty frame")
+        raise error("WebP lossy (VP8)", "an empty frame")
     if 10 + part0_size > len(data):
-        raise _error("the first partition is truncated")
+        raise error("WebP lossy (VP8)", "the first partition is truncated")
     br = BoolDecoder(data[10 : 10 + part0_size])
     h = _parse_header(br)
     pos = 10 + part0_size
@@ -803,7 +799,7 @@ def decode_vp8_yuv(data: bytes):
         else:
             size = len(data) - pos
         if size < 0 or pos + size > len(data):
-            raise _error("a token partition is truncated")
+            raise error("WebP lossy (VP8)", "a token partition is truncated")
         parts.append(BoolDecoder(data[pos : pos + size]))
         pos += size
     quant = _quant_matrices(br, h)

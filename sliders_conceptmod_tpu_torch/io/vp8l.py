@@ -34,7 +34,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM
+from sliders_conceptmod_tpu_torch.io._common import ITEM, error
 
 NUM_LITERAL_CODES, NUM_LENGTH_CODES, NUM_DISTANCE_CODES = 256, 24, 40
 CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
@@ -61,10 +61,6 @@ PREDICTOR, CROSS_COLOR, SUBTRACT_GREEN, COLOR_INDEXING = range(4)
 BLACK = 0xFF000000
 
 
-def _error(what: str) -> ValueError:
-    return ValueError(f"WebP lossless: {what}")
-
-
 class BitReader:
     """Least-significant-bit-first reader over the stream; ``win[i]`` holds
     the 32 bits from byte ``i`` on."""
@@ -82,7 +78,7 @@ class BitReader:
 
     def check(self) -> None:
         if self.pos > self.nbits:
-            raise _error("the stream is truncated")
+            raise error("WebP lossless", "the stream is truncated")
 
 
 Code = Tuple[List[int], int]  # (table of symbol << 4 | length, mask of the bits it is indexed by)
@@ -95,7 +91,7 @@ def build_code(lengths: List[int]) -> Code:
     zero bits."""
     used = [(n, s) for s, n in enumerate(lengths) if n]
     if not used:
-        raise _error("a prefix code with no symbol")
+        raise error("WebP lossless", "a prefix code with no symbol")
     if len(used) == 1:
         return [used[0][1] << 4], 0
     maxlen = max(n for n, _ in used)
@@ -108,7 +104,7 @@ def build_code(lengths: List[int]) -> Code:
             code += 1
         code <<= 1
     if code != 1 << (maxlen + 1):
-        raise _error("a prefix code that is not complete")
+        raise error("WebP lossless", "a prefix code that is not complete")
     return table.tolist(), (1 << maxlen) - 1
 
 
@@ -126,12 +122,12 @@ def _read_code(br: BitReader, alphabet: int) -> Code:
         num = br.read(1) + 1
         first = br.read(8 if br.read(1) else 1)
         if first >= alphabet:
-            raise _error("a simple code's symbol is past its alphabet")
+            raise error("WebP lossless", "a simple code's symbol is past its alphabet")
         lengths[first] = 1
         if num == 2:
             second = br.read(8)
             if second >= alphabet:
-                raise _error("a simple code's symbol is past its alphabet")
+                raise error("WebP lossless", "a simple code's symbol is past its alphabet")
             lengths[second] = 1
         return build_code(lengths)
     num_codes = br.read(4) + 4
@@ -142,7 +138,7 @@ def _read_code(br: BitReader, alphabet: int) -> Code:
     if br.read(1):
         max_symbol = 2 + br.read(2 + 2 * br.read(3))
         if max_symbol > alphabet:
-            raise _error("more code lengths than symbols")
+            raise error("WebP lossless", "more code lengths than symbols")
     else:
         max_symbol = alphabet
     symbol, prev = 0, 8
@@ -160,7 +156,7 @@ def _read_code(br: BitReader, alphabet: int) -> Code:
         extra, offset = ((2, 3), (3, 3), (7, 11))[n - 16]
         repeat = br.read(extra) + offset
         if symbol + repeat > alphabet:
-            raise _error("a repeat code runs past the alphabet")
+            raise error("WebP lossless", "a repeat code runs past the alphabet")
         fill = prev if n == 16 else 0
         lengths[symbol : symbol + repeat] = [fill] * repeat
         symbol += repeat
@@ -186,7 +182,7 @@ def _decode_stream(br: BitReader, width: int, height: int, top_level: bool) -> n
     if br.read(1):
         cache_bits = br.read(4)
         if not 1 <= cache_bits <= 11:
-            raise _error(f"colour cache of {cache_bits} bits")
+            raise error("WebP lossless", f"colour cache of {cache_bits} bits")
     meta_bits, meta = 0, None
     if top_level and br.read(1):
         meta_bits = br.read(3) + 2
@@ -261,7 +257,7 @@ def _decode_pixels(br: BitReader, width: int, height: int, groups, meta, meta_bi
                 dx, dy = DISTANCE_MAP[dist_code - 1]
                 dist = max(dy * width + dx, 1)
             if dist > i or length > total - i:
-                raise _error("a backward reference outside the image")
+                raise error("WebP lossless", "a backward reference outside the image")
             if dist >= length:
                 out[i : i + length] = out[i - dist : i - dist + length]
             else:
@@ -290,9 +286,9 @@ def _decode_pixels(br: BitReader, width: int, height: int, groups, meta, meta_bi
                 col = 0
                 row += 1
         else:
-            raise _error("a symbol past the green alphabet")
+            raise error("WebP lossless", "a symbol past the green alphabet")
         if pos > nbits:
-            raise _error("the stream is truncated")
+            raise error("WebP lossless", "the stream is truncated")
     br.pos = pos
     return np.array(out, np.uint32).reshape(height, width)
 
@@ -455,19 +451,19 @@ def decode_vp8l(data: bytes) -> np.ndarray:
     """A VP8L bitstream (the ``VP8L`` chunk's payload) → uint32 ARGB
     ``[H, W]``."""
     if len(data) < 5 or data[0] != 0x2F:
-        raise _error("no VP8L signature")
+        raise error("WebP lossless", "no VP8L signature")
     br = BitReader(data)
     br.read(8)
     width, height = br.read(14) + 1, br.read(14) + 1
     br.read(1)  # alpha hint
     if br.read(3) != 0:
-        raise _error(f"unknown version ({ITEM})")
+        raise error("WebP lossless", f"unknown version ({ITEM})")
     transforms = []
     xsize = width
     while br.read(1):
         kind = br.read(2)
         if any(t[0] == kind for t in transforms):
-            raise _error("a transform used twice")
+            raise error("WebP lossless", "a transform used twice")
         if kind in (PREDICTOR, CROSS_COLOR):
             bits = br.read(3) + 2
             sub = _decode_stream(br, _subsample(xsize, bits), _subsample(height, bits), False)

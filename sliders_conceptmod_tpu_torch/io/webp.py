@@ -20,13 +20,9 @@ from typing import List, Tuple
 
 import numpy as np
 
-from sliders_conceptmod_tpu_torch.io.jpeg import ITEM
+from sliders_conceptmod_tpu_torch.io._common import ITEM, error
 from sliders_conceptmod_tpu_torch.io.vp8 import decode_vp8
 from sliders_conceptmod_tpu_torch.io.vp8l import argb_to_rgb, decode_vp8l
-
-
-def _error(what: str) -> ValueError:
-    return ValueError(f"WebP: {what}")
 
 
 def _chunks(data: bytes, start: int, end: int) -> List[Tuple[bytes, bytes]]:
@@ -38,7 +34,7 @@ def _chunks(data: bytes, start: int, end: int) -> List[Tuple[bytes, bytes]]:
         tag = data[pos : pos + 4]
         (size,) = struct.unpack("<I", data[pos + 4 : pos + 8])
         if pos + 8 + size > end:
-            raise _error(f"the {tag!r} chunk is truncated")
+            raise error("WebP", f"the {tag!r} chunk is truncated")
         out.append((tag, data[pos + 8 : pos + 8 + size]))
         pos += 8 + size + (size & 1)
     return out
@@ -51,7 +47,7 @@ def _decode_frame(chunks: List[Tuple[bytes, bytes]]) -> np.ndarray:
             return decode_vp8(payload)
         if tag == b"VP8L":
             return argb_to_rgb(decode_vp8l(payload))
-    raise _error("no VP8 or VP8L bitstream")
+    raise error("WebP", "no VP8 or VP8L bitstream")
 
 
 def _u24(b: bytes) -> int:
@@ -61,38 +57,38 @@ def _u24(b: bytes) -> int:
 def decode_webp(data: bytes) -> np.ndarray:
     """WebP bytes → uint8 ``[H, W, 3]``."""
     if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
-        raise _error("not a RIFF WebP file")
+        raise error("WebP", "not a RIFF WebP file")
     (riff_size,) = struct.unpack("<I", data[4:8])
     end = min(len(data), 8 + riff_size)
     chunks = _chunks(data, 12, end)
     if not chunks:
-        raise _error("no chunk")
+        raise error("WebP", "no chunk")
     first, payload = chunks[0]
     if first in (b"VP8 ", b"VP8L"):
         return _decode_frame(chunks[:1])
     if first != b"VP8X":
-        raise _error(f"a file that starts with a {first!r} chunk ({ITEM})")
+        raise error("WebP", f"a file that starts with a {first!r} chunk ({ITEM})")
     if len(payload) < 10:
-        raise _error("the VP8X chunk is truncated")
+        raise error("WebP", "the VP8X chunk is truncated")
     flags = payload[0]
     canvas_w, canvas_h = _u24(payload[4:7]) + 1, _u24(payload[7:10]) + 1
     if not flags & 0x02:  # a still image: its bitstream fills the canvas
         img = _decode_frame(chunks[1:])
         if img.shape[:2] != (canvas_h, canvas_w):
-            raise _error(f"an image of {img.shape[1]}x{img.shape[0]} on a canvas of {canvas_w}x{canvas_h}")
+            raise error("WebP", f"an image of {img.shape[1]}x{img.shape[0]} on a canvas of {canvas_w}x{canvas_h}")
         return img
     anmf = next((p for t, p in chunks if t == b"ANMF"), None)
     if anmf is None:
-        raise _error("an animation without frames")
+        raise error("WebP", "an animation without frames")
     if len(anmf) < 16:
-        raise _error("the ANMF chunk is truncated")
+        raise error("WebP", "the ANMF chunk is truncated")
     x0, y0 = 2 * _u24(anmf[0:3]), 2 * _u24(anmf[3:6])
     fw, fh = _u24(anmf[6:9]) + 1, _u24(anmf[9:12]) + 1
     if x0 + fw > canvas_w or y0 + fh > canvas_h:
-        raise _error("the first frame lies outside the canvas")
+        raise error("WebP", "the first frame lies outside the canvas")
     img = _decode_frame(_chunks(anmf, 16, len(anmf)))
     if img.shape[:2] != (fh, fw):
-        raise _error("the first frame's bitstream and its ANMF header disagree on its size")
+        raise error("WebP", "the first frame's bitstream and its ANMF header disagree on its size")
     canvas = np.zeros((canvas_h, canvas_w, 3), np.uint8)
     canvas[y0 : y0 + fh, x0 : x0 + fw] = img
     return canvas

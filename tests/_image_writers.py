@@ -1,11 +1,15 @@
-"""Writers of GIF, BMP and TIFF files for the decoder tests, for the kinds
-Pillow does not write: GIF frames offset on a larger screen, local and
-short palettes, transparency and interlacing; BMP headers of every size,
-16/32-bit and bitfields layouts, top-down rows and RLE4/RLE8 streams;
-TIFF in both byte orders, with tiles, several strips, PackBits, LZW and
-Deflate, the horizontal predictor, fill order 2, WhiteIsZero, 2/4-bit grey
-and palettes, and associated alpha. The tests take Pillow's decode of these
-files as the reference."""
+"""Writers of image files for the decoder tests, for the kinds Pillow does
+not write: GIF frames offset on a larger screen, local and short palettes,
+transparency and interlacing; BMP headers of every size, 16/32-bit and
+bitfields layouts, top-down rows and RLE4/RLE8 streams; TIFF in both byte
+orders, with tiles, several strips, PackBits, LZW, Deflate and ZSTD, the
+horizontal predictor, fill order 2, WhiteIsZero, 2/4-bit grey and palettes,
+associated alpha, CCITT fax rows (T.4 with 2-D coding and fill bits, T.6)
+and subsampled YCbCr data units; TGA, PSD, ICO/CUR and JP2 boxes; PCX bit
+planes and DCX, SGI run-length rows, DDS headers of every pixel format
+(BC4, BC6H, BC7 and masks included), FTEX, BLP (JPEG and DXT) and ICNS
+(legacy run-length and mask entries). The tests take Pillow's decode of
+these files as the reference."""
 
 import lzma
 import struct
@@ -304,6 +308,10 @@ def write_tiff(samples: np.ndarray, bits: int = 8, photometric: int = 2, byte_or
                         raw = zlib.compress(raw)
                     elif compression == 34925:
                         raw = lzma.compress(raw)
+                    elif compression == 50000:
+                        import zstandard
+
+                        raw = zstandard.ZstdCompressor(level=9).compress(raw)
                     if fill_order == 2:  # the stored bytes, bit-reversed
                         raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
                     pieces.append(raw)
@@ -340,9 +348,9 @@ def write_tiff(samples: np.ndarray, bits: int = 8, photometric: int = 2, byte_or
     ifd, extra = b"", b""
     for tag in sorted(entries):
         typ, vals = entries[tag]
-        fmt = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}[typ]
+        fmt = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}[typ]  # 5: rationals as (num, den) pairs
         payload = vals if isinstance(vals, bytes) else struct.pack(bo + fmt * len(vals), *vals)
-        count = len(payload) if isinstance(vals, bytes) else len(vals)
+        count = len(payload) if isinstance(vals, bytes) else len(vals) // (2 if typ == 5 else 1)
         if len(payload) <= word:
             field = payload.ljust(word, b"\0")
         else:
@@ -542,3 +550,363 @@ def jp2_wrap(codestream: bytes, nc: int, bpc: int, height: int, width: int, enum
         boxes += _box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k) for k in range(3)))
     return (b"\0\0\0\x0cjP  \r\n\x87\n" + _box(b"ftyp", b"jp2 \0\0\0\0jp2 ") + _box(b"jp2h", boxes)
             + _box(b"jp2c", codestream))
+
+
+# ---------------------------------------------------------------------------
+# TIFF: CCITT fax rows, subsampled YCbCr
+# ---------------------------------------------------------------------------
+
+# T.4's codes, as the decoder under test has them: the tests pin them against Pillow's writer separately
+from sliders_conceptmod_tpu_torch.io.ccitt import BLACK_CODES, EXTENDED_CODES, MODE_CODES, WHITE_CODES  # noqa: E402
+
+
+def _fax_run(run: int, black: bool) -> str:
+    codes = BLACK_CODES if black else WHITE_CODES
+    out = ""
+    while run >= 2624:
+        out += EXTENDED_CODES[2560]
+        run -= 2560
+    if run >= 64:
+        make = run & ~63
+        out += EXTENDED_CODES[make] if make > 1728 else codes[make]
+        run -= make
+    return out + codes[run]
+
+
+def _fax_changes(row: np.ndarray) -> list:
+    """Positions where a row of 0/1 (1 black) changes colour, white before it."""
+    prev = np.concatenate([[0], row[:-1]])
+    return [int(i) for i in np.flatnonzero(row != prev)]
+
+
+def _fax_1d(row: np.ndarray) -> str:
+    w = len(row)
+    edges = _fax_changes(row) + [w]
+    out, a0, black = "", 0, False
+    for e in edges:
+        out += _fax_run(e - a0, black)
+        a0, black = e, not black
+        if e == w:
+            break
+    return out
+
+
+def _fax_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """T.4's two-dimensional coding of ``row`` against ``ref``."""
+    w = len(row)
+    cur = _fax_changes(row) + [w, w]
+    above = _fax_changes(ref) + [w, w]
+    out, a0, colour, start = "", 0, 0, True
+
+    def first(changes, pos, parity=None):
+        for i, c in enumerate(changes):
+            if (c > pos or (start and c >= pos)) and (parity is None or i % 2 == parity or c >= w):
+                return i
+        return len(changes) - 1
+
+    while a0 < w:
+        ia1 = first(cur, a0)
+        a1 = cur[ia1]
+        ib1 = first(above, a0, colour)
+        b1 = above[ib1]
+        b2 = above[min(ib1 + 1, len(above) - 1)]
+        if b2 < a1:
+            out += MODE_CODES["P"]
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out += MODE_CODES[a1 - b1]
+            a0, colour = a1, colour ^ 1
+        else:
+            a2 = cur[ia1 + 1]
+            out += MODE_CODES["H"] + _fax_run(a1 - a0, bool(colour)) + _fax_run(a2 - a1, not colour)
+            a0 = a2
+        start = False
+    return out
+
+
+def fax_strip(bits: np.ndarray, compression: int, t4options: int = 0, k: int = 2, fill_order: int = 1,
+              rtc: bool = False) -> bytes:
+    """Rows of 0/1 (1 black) → one strip of compression 2 (rows byte-aligned),
+    3 (T.4: an EOL before every row; with ``t4options`` bit 0, a tag bit
+    after it and every ``k``-th row one-dimensional, the rest coded against
+    the row above; bit 2, fill bits so each EOL ends on a byte) or 4 (T.6).
+    ``rtc`` ends a T.4 strip with six EOLs (T.6: an EOFB)."""
+    h, w = bits.shape
+    out = ""
+    ref = np.zeros(w, np.int64)
+    eol = "000000000001"
+    for y in range(h):
+        row = bits[y].astype(np.int64)
+        if compression == 2:
+            out += _fax_1d(row)
+            out += "0" * (-len(out) % 8)
+        elif compression == 3:
+            if t4options & 4:
+                out += "0" * ((4 - len(out)) % 8)  # the EOL's 12 bits end on a byte
+            out += eol
+            one_d = not t4options & 1 or y % k == 0
+            if t4options & 1:
+                out += "1" if one_d else "0"
+            out += _fax_1d(row) if one_d else _fax_2d(row, ref)
+        else:
+            out += _fax_2d(row, ref)
+        ref = row
+    if rtc:
+        out += (eol + ("1" if t4options & 1 else "")) * 6 if compression == 3 else eol * 2
+    out += "0" * (-len(out) % 8)
+    data = bytes(int(out[i : i + 8], 2) for i in range(0, len(out), 8))
+    if fill_order == 2:
+        data = bytes(int(f"{b:08b}"[::-1], 2) for b in data)
+    return data
+
+
+def fax_tiff(bits: np.ndarray, compression: int, photometric: int = 0, rows_per_strip=None, fill_order: int = 1,
+             byte_order: str = "<", **kw) -> bytes:
+    """A bilevel TIFF whose strips ``fax_strip`` codes (``T4Options`` from
+    ``t4options``)."""
+    h, w = bits.shape
+    rps = rows_per_strip or h
+    pieces = [fax_strip(bits[y : y + rps], compression, fill_order=fill_order, **kw) for y in range(0, h, rps)]
+    extra = {292: (4, [kw.get("t4options", 0)])} if compression == 3 else {}
+    return write_tiff(np.zeros((h, w, 1), np.int64), 1, photometric, byte_order, compression, rows_per_strip=rps,
+                      fill_order=fill_order, pieces=pieces, extra_tags=extra)
+
+
+def ycbcr_units(ycc: np.ndarray, sub, rows: int, cols: int) -> bytes:
+    """A strip or tile ``[rows, cols]`` of Y, Cb, Cr as TIFF's data units:
+    h × v Y samples, then the unit's Cb and Cr (taken at its first pixel);
+    ``ycc`` is padded by edge copies to whole units."""
+    h, v = sub
+    ur, uc = -(-rows // v), -(-cols // h)
+    pad = np.pad(ycc, ((0, ur * v - ycc.shape[0]), (0, uc * h - ycc.shape[1]), (0, 0)), mode="edge")
+    blocks = pad.reshape(ur, v, uc, h, 3).transpose(0, 2, 1, 3, 4)
+    luma = blocks[..., 0].reshape(ur, uc, v * h)
+    chroma = blocks[:, :, 0, 0, 1:]
+    return np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()
+
+
+def ycbcr_tiff(ycc: np.ndarray, sub=(2, 2), compression: int = 8, rows_per_strip=None, tile=None,
+               byte_order: str = "<", extra_tags=None) -> bytes:
+    """A YCbCr TIFF (photometric 6) of ``ycc`` ``[h, w, 3]`` at ``sub``
+    subsampling, each strip or tile compressed by Deflate (8), LZW (5),
+    PackBits (32773), LZMA (34925) or ZSTD (50000)."""
+    h, w, _ = ycc.shape
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    pieces = []
+    for ty in range(0, h, th):
+        for tx in range(0, w, tw):
+            part = ycc[ty : ty + th, tx : tx + tw]
+            rows = th if tile else part.shape[0]
+            raw = ycbcr_units(part, sub, rows, tw)
+            if compression == 8:
+                raw = zlib.compress(raw)
+            elif compression == 5:
+                raw = tiff_lzw(raw)
+            elif compression == 32773:
+                raw = tiff_packbits(raw)
+            elif compression == 34925:
+                raw = lzma.compress(raw)
+            elif compression == 50000:
+                import zstandard
+
+                raw = zstandard.ZstdCompressor().compress(raw)
+            pieces.append(raw)
+    extra = {530: (3, list(sub))}
+    extra.update(extra_tags or {})
+    return write_tiff(ycc, 8, 6, byte_order, compression, rows_per_strip=rows_per_strip, tile=tile, pieces=pieces,
+                      extra_tags=extra)
+
+
+# ---------------------------------------------------------------------------
+# PCX, DCX, SGI
+# ---------------------------------------------------------------------------
+
+
+def pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX run-length rows: runs of up to 63 within a row, single bytes of
+    192 and above escaped as runs of one."""
+    out = bytearray()
+    for row in rows:
+        x = 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and row[x + n] == row[x] and n < 63:
+                n += 1
+            if n > 1 or row[x] >= 0xC0:
+                out += bytes([0xC0 | n, row[x]])
+            else:
+                out.append(row[x])
+            x += n
+    return bytes(out)
+
+
+def write_pcx(rows: np.ndarray, width: int, bits: int, planes: int, version: int = 5, stride=None,
+              palette16=None, palette256=None, origin=(0, 0)) -> bytes:
+    """A PCX of ``rows`` ``[h, planes * stride]`` bytes as stored; the
+    header's stride is ``stride`` (default: the rows' own)."""
+    h = rows.shape[0]
+    stored = rows.shape[1] // planes
+    head = bytearray(128)
+    x0, y0 = origin
+    struct.pack_into("<BBBBHHHHHH", head, 0, 10, version, 1, bits, x0, y0, x0 + width - 1, y0 + h - 1, 72, 72)
+    if palette16 is not None:
+        head[16:64] = np.asarray(palette16, np.uint8).reshape(-1)[:48].tobytes().ljust(48, b"\0")
+    head[65] = planes
+    struct.pack_into("<HH", head, 66, stride if stride is not None else stored, 1)
+    tail = b"" if palette256 is None else b"\x0c" + np.asarray(palette256, np.uint8).tobytes()
+    return bytes(head) + pcx_rle(rows.astype(np.uint8)) + tail
+
+
+def pcx_planes(index: np.ndarray, planes: int, stride: int) -> np.ndarray:
+    """Palette indices ``[h, w]`` → ``planes`` 1-bit planes of ``stride``
+    bytes a row (bit k of an index in plane k)."""
+    h, w = index.shape
+    out = np.zeros((h, planes * stride), np.uint8)
+    for k in range(planes):
+        bits = np.zeros((h, stride * 8), np.uint8)
+        bits[:, :w] = (index >> k) & 1
+        out[:, k * stride : (k + 1) * stride] = np.packbits(bits, axis=1)
+    return out
+
+
+def write_dcx(frames) -> bytes:
+    """A DCX directory over PCX ``frames``."""
+    head = struct.pack("<I", 0x3ADE68B1)
+    offset = 4 + 4 * (len(frames) + 1)
+    table = b""
+    for f in frames:
+        table += struct.pack("<I", offset)
+        offset += len(f)
+    return head + table + b"\0\0\0\0" + b"".join(frames)
+
+
+def write_sgi(planes: np.ndarray, bpc: int = 1, rle: bool = True, dimension=None) -> bytes:
+    """``planes`` ``[z, h, w]`` (top row first) → an SGI file, its rows
+    stored bottom up, run-length coded (``rle``: literal and repeat runs of
+    up to 127, each row ending in a zero count) or raw."""
+    z, h, w = planes.shape
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHH", 474, 1 if rle else 0, bpc, dim, w, h, z).ljust(512, b"\0")
+    fmt = ">u2" if bpc == 2 else "u1"
+    flipped = planes[:, ::-1]
+    if not rle:
+        return head + flipped.astype(fmt).tobytes()
+    rows, starts, lengths = [], [], []
+    pos = 512 + 8 * z * h
+    for k in range(z):
+        for y in range(h):
+            row = flipped[k, y].astype(np.int64)
+            code = []
+            x = 0
+            while x < w:
+                n = 1
+                while x + n < w and row[x + n] == row[x] and n < 127:
+                    n += 1
+                if n >= 3:
+                    code += [n, int(row[x])]
+                    x += n
+                    continue
+                m = 1
+                while x + m < w and m < 127 and not (x + m + 2 < w and row[x + m] == row[x + m + 1] == row[x + m + 2]):
+                    m += 1
+                code += [0x80 | m] + [int(v) for v in row[x : x + m]]
+                x += m
+            code.append(0)
+            blob = np.array(code, fmt).tobytes()
+            rows.append(blob)
+            starts.append(pos)
+            lengths.append(len(blob))
+            pos += len(blob)
+    tables = struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *lengths)
+    return head + tables + b"".join(rows)
+
+
+# ---------------------------------------------------------------------------
+# DDS, FTEX, BLP
+# ---------------------------------------------------------------------------
+
+DXGI = {"BC1": 71, "BC2": 74, "BC3": 77, "BC4": 80, "BC5": 83, "BC5S": 84, "BC6H": 95, "BC6HS": 96, "BC7": 98,
+        "RGBA": 28}
+
+
+def write_dds(width: int, height: int, payload: bytes, fourcc: bytes = b"", dxgi=None, pfflags: int = 0,
+              bitcount: int = 0, masks=(0, 0, 0, 0), palette=None) -> bytes:
+    """A DDS header and ``payload``: a FourCC (``fourcc``), the DX10 header
+    of ``dxgi`` (a ``DXGI`` name), or ``pfflags`` with ``bitcount`` and
+    ``masks`` (uncompressed, luminance, or a 256-entry RGBA ``palette``)."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    flags = 0x4 if fourcc else pfflags
+    head = struct.pack("<7I", 124, 0x1007, height, width, 0, 0, 0) + b"\0" * 44
+    head += struct.pack("<II4sI", 32, flags, fourcc.ljust(4, b"\0") if fourcc else b"\0" * 4, bitcount)
+    head += struct.pack("<4I", *masks) + struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    out = b"DDS " + head
+    if dxgi is not None:
+        out += struct.pack("<5I", DXGI[dxgi], 3, 0, 1, 0)
+    if palette is not None:
+        out += np.asarray(palette, np.uint8).tobytes()
+    return out + payload
+
+
+def write_ftex(width: int, height: int, payload: bytes, kind: int) -> bytes:
+    """An FTEX file of one format (0 DXT1, 1 uncompressed) and one mipmap."""
+    head = b"FTEX" + struct.pack("<6i", 1, width, height, 1, 1, kind) + struct.pack("<i", 32)
+    return head + struct.pack("<i", len(payload)) + payload
+
+
+def write_blp(version: int, width: int, height: int, mip: bytes, compression: int = 1, encoding: int = 1,
+              alpha: int = 0, alpha_encoding: int = 0, palette=None, jpeg_header: bytes = None) -> bytes:
+    """A BLP1 or BLP2 file whose first mipmap is ``mip``: after a 256-entry
+    BGRA ``palette`` (zeros by default), or after BLP1's shared
+    ``jpeg_header``."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, width, height, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 0, width, height)
+    if jpeg_header is not None:
+        middle = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        middle = np.zeros((256, 4), np.uint8).tobytes() if palette is None else np.asarray(palette, np.uint8).tobytes()
+    offset = len(head) + 128 + len(middle)
+    return (head + struct.pack("<16I", offset, *([0] * 15)) + struct.pack("<16I", len(mip), *([0] * 15)) + middle
+            + mip)
+
+
+def split_jpeg(stream: bytes):
+    """A JPEG stream → (its markers up to the scan, the scan and EOI), as
+    BLP1 keeps a header shared by its mipmaps."""
+    sos = stream.index(b"\xff\xda")
+    return stream[:sos], stream[sos:]
+
+
+# ---------------------------------------------------------------------------
+# ICNS
+# ---------------------------------------------------------------------------
+
+
+def icns_rle(channel: np.ndarray) -> bytes:
+    """The ICNS run-length scheme: a byte below 128 copies that count plus
+    one, 128 + n − 3 repeats the next byte n times (3 ≤ n ≤ 130)."""
+    data = channel.astype(np.uint8).reshape(-1).tolist()
+    out, x = bytearray(), 0
+    while x < len(data):
+        n = 1
+        while x + n < len(data) and data[x + n] == data[x] and n < 130:
+            n += 1
+        if n >= 3:
+            out += bytes([n + 125, data[x]])
+            x += n
+            continue
+        m = 1
+        while x + m < len(data) and m < 128 and not (x + m + 2 < len(data) and data[x + m] == data[x + m + 1]
+                                                     == data[x + m + 2]):
+            m += 1
+        out += bytes([m - 1]) + bytes(data[x : x + m])
+        x += m
+    return bytes(out)
+
+
+def write_icns(entries) -> bytes:
+    """``entries``: (type, payload) in file order."""
+    body = b"".join(kind + struct.pack(">I", 8 + len(p)) + p for kind, p in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body

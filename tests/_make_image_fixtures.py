@@ -1,6 +1,7 @@
 """Writes ``tests/data/image_decode/``: small files of every kind the port
 decodes (``io/image.py``: JPEG, PNG, WebP, GIF, BMP, TIFF, JPEG 2000,
-PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI), the four
+PBM/PGM/PPM, TGA, ICO/CUR, PSD, QOI, PCX/DCX, SGI, DDS, FTEX, BLP, ICNS;
+TIFF's CCITT, ZSTD and YCbCr kinds), the four
 folders of an image-pair bank (``bank/{minus2,minus1,plus1,plus2}``, scales
 −2, −1, 1, 2: two JPEGs, a lossy and a lossless WebP each), and
 ``digests.json``: the SHA-256 of Pillow's ``convert("RGB")`` of each file
@@ -14,7 +15,12 @@ LZMA and CMYK); ``_jpeg_writer``, ``_png_writer``, ``_image_writers`` and
 ``_webp_encoder`` (libwebp's own encoder, for the simple loop filter and
 token partitions) write the rest (PSD, CUR, BigTIFF, 16-bit, planar and
 YCbCr-JPEG TIFF, 15/16-bit and colour-mapped TGA, plain PNM and odd
-maxvals, JP2 boxes for sYCC and palettes, subsampled lossless JPEG).
+maxvals, JP2 boxes for sYCC and palettes, subsampled lossless JPEG, T.4
+2-D and T.6 fax rows, subsampled YCbCr units, ZSTD frames libtiff does not
+write, PCX bit planes, DCX, SGI run-length rows, DDS BC4/BC6H/BC7 and
+masks, FTEX, BLP JPEG and DXT, ICNS legacy entries). The two timing files
+added with them: a 512x512 RGB ZSTD TIFF in one strip (several blocks) and
+a 1728-pixel-wide Group 4 page.
 
     python tests/_make_image_fixtures.py
 """
@@ -31,8 +37,9 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from _image_writers import (icon_dib, jp2_wrap, jpeg_tiff, write_bmp, write_gif, write_icon, write_psd,  # noqa: E402
-                            write_tga, write_tiff)
+from _image_writers import (fax_tiff, icns_rle, icon_dib, jp2_wrap, jpeg_tiff, pcx_planes, split_jpeg,  # noqa: E402
+                            write_blp, write_bmp, write_dcx, write_dds, write_ftex, write_gif, write_icns, write_icon,
+                            write_pcx, write_psd, write_sgi, write_tga, write_tiff, ycbcr_tiff)
 from _jpeg_writer import write_jpeg, write_jpeg_arithmetic, write_jpeg_lossless  # noqa: E402
 from _png_writer import write_png  # noqa: E402
 from _webp_encoder import encode_lossy  # noqa: E402
@@ -139,6 +146,7 @@ def files() -> dict:
                                                               -1), 8, 2, "<", 32946, predictor=2, extra_samples=(1,)),
     })
     out.update(pillow_formats(rng))
+    out.update(more_formats(np.random.default_rng(26)))
     for i, folder in enumerate(BANK_FOLDERS):  # the same four images a brightness step apart per folder
         for j, kw in enumerate((dict(quality=90), dict(quality=90, progressive=True))):
             img = np.clip(pattern(96, 96, 20 + j).astype(int) + 30 * (i - 1.5), 0, 255).astype(np.uint8)
@@ -223,11 +231,111 @@ def pillow_formats(rng) -> dict:
     }
 
 
+def fax_page(h: int, w: int, seed: int) -> np.ndarray:
+    """A fax-like page, 0/1 (1 black): lines of glyphs of a few strokes
+    each, with margins, and a ruled box."""
+    rng = np.random.default_rng(seed)
+    page = np.zeros((h, w), np.uint8)
+    for top in range(h // 12, h - h // 12 - 20, 28):
+        x = w // 12
+        while x < w - w // 12 - 20:
+            gw = int(rng.integers(8, 18))
+            if rng.random() < 0.85:  # a glyph of two to four strokes
+                for _ in range(int(rng.integers(2, 5))):
+                    if rng.random() < 0.5:
+                        c = int(rng.integers(0, gw - 2))
+                        page[top + int(rng.integers(0, 6)) : top + 20, x + c : x + c + 2] = 1
+                    else:
+                        r = int(rng.integers(0, 18))
+                        page[top + r : top + r + 2, x : x + gw] = 1
+            x += gw + int(rng.integers(2, 6))
+    page[h // 20 : h // 20 + 3, w // 12 : -w // 12] = 1
+    page[h // 20 : -h // 20, w // 12 : w // 12 + 3] = 1
+    return page
+
+
+def more_formats(rng) -> dict:
+    """The kinds of the slice of the image formats Pillow writes that the
+    port decoded last: TIFF's CCITT, ZSTD and YCbCr; PCX/DCX, SGI, DDS
+    (BC1–BC7), ICNS, BLP, FTEX."""
+    import zstandard
+
+    img = pattern(19, 23, 70)
+    rgba = np.concatenate([pattern(17, 21, 71), rng.integers(0, 256, (17, 21, 1)).astype(np.uint8)], -1)
+    idx = rng.integers(0, 16, (11, 13))
+    fax = fax_page(40, 61, 72)
+    # a checksummed frame of the strip, then a skippable frame and another frame, which libtiff does not read
+    zframes = (zstandard.ZstdCompressor(level=3, write_checksum=True).compress(img.tobytes())
+               + b"\x50\x2a\x4d\x18" + struct.pack("<I", 4) + b"skip"
+               + zstandard.ZstdCompressor(level=19, write_content_size=False).compress(img[10:].tobytes()))
+    head, scan = split_jpeg(pil_jpeg(pattern(16, 24, 73), quality=85))
+
+    def blocks(n, size):
+        return rng.integers(0, 256, n * size).astype(np.uint8).tobytes()
+
+    return {
+        "tiff_group3.tif": pil_save(fax * 255, "TIFF", "1", compression="group3"),
+        "tiff_group4.tif": pil_save(fax * 255, "TIFF", "1", compression="group4"),
+        "tiff_ccitt_rle.tif": pil_save(fax * 255, "TIFF", "1", compression="tiff_ccitt"),
+        "tiff_t4_2d_fill_bits_fill_order_2.tif": fax_tiff(fax, 3, 0, rows_per_strip=16, fill_order=2,
+                                                          t4options=5, k=4, rtc=True),
+        "tiff_t6_white_is_zero.tif": fax_tiff(fax, 4, 0, rows_per_strip=24),
+        "tiff_zstd.tif": pil_save(img, "TIFF", compression="zstd"),
+        "tiff_zstd_predictor.tif": write_tiff(pattern(13, 17, 74), 8, 2, ">", 50000, predictor=2, rows_per_strip=5),
+        "tiff_zstd_frames_checksum_skippable.tif": write_tiff(img, 8, 2, "<", 50000, pieces=[zframes]),
+        "tiff_ycc_lzw.tif": pil_save(img, "TIFF", "YCbCr", compression="tiff_lzw"),
+        "tiff_ycc_422_deflate.tif": ycbcr_tiff(pattern(13, 19, 75), (2, 1), 8, rows_per_strip=4),
+        "tiff_ycc_420_tiles_refbw.tif": ycbcr_tiff(pattern(21, 19, 76), (2, 2), 5, tile=(16, 16),
+                                                     extra_tags={532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1,
+                                                                           240, 1])}),
+        "tiff_ycc_44_odd_units.tif": ycbcr_tiff(pattern(9, 11, 77), (4, 4), 32773, rows_per_strip=4),
+        "pcx_rgb_odd.pcx": pil_save(img, "PCX"),
+        "pcx_palette.pcx": pil_save(img, "PCX", "P"),
+        "pcx_1bit.pcx": pil_save(img, "PCX", "1"),
+        "pcx_grey.pcx": pil_save(img, "PCX", "L"),
+        "pcx_4_planes.pcx": write_pcx(pcx_planes(idx, 4, 2), 13, 1, 4, palette16=rng.integers(0, 256, (16, 3))),
+        "dcx_first.dcx": write_dcx([pil_save(pattern(9, 14, 78), "PCX", "P"), pil_save(img, "PCX")]),
+        "sgi_rgb_raw.sgi": pil_save(img, "SGI"),
+        "sgi_rgba_16bit_rle.sgi": write_sgi(rgba.transpose(2, 0, 1).astype(np.int64) * 257, 2, True),
+        "sgi_grey_rle.sgi": write_sgi(img[None, :, :, 0].astype(np.int64), 1, True),
+        "dds_rgb.dds": pil_save(img, "DDS"),
+        "dds_luminance_alpha.dds": pil_save(rgba, "DDS", "LA"),
+        "dds_dxt1.dds": pil_save(rgba, "DDS", pixel_format="DXT1"),
+        "dds_dxt5.dds": pil_save(rgba, "DDS", pixel_format="DXT5"),
+        "dds_bc5.dds": pil_save(img, "DDS", pixel_format="BC5"),
+        "dds_bc4_ati1.dds": write_dds(21, 17, blocks(30, 8), fourcc=b"ATI1"),
+        "dds_bc6h.dds": write_dds(21, 17, blocks(30, 16), dxgi="BC6H"),
+        "dds_bc6h_signed.dds": write_dds(21, 17, blocks(30, 16), dxgi="BC6HS"),
+        "dds_bc7.dds": write_dds(21, 17, blocks(30, 16), dxgi="BC7"),
+        "dds_565.dds": write_dds(13, 11, blocks(143, 2), pfflags=0x40, bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0)),
+        "dds_palette.dds": write_dds(13, 11, blocks(143, 1), pfflags=0x20, bitcount=8,
+                                     palette=rng.integers(0, 256, (256, 4))),
+        "ftex_dxt1.ftc": write_ftex(21, 17, blocks(30, 8), 0),
+        "ftex_rgb.ftu": write_ftex(23, 19, img.tobytes(), 1),
+        "blp1_palette.blp": pil_save(img, "BLP", "P", blp_version="BLP1"),
+        "blp2_palette.blp": pil_save(img, "BLP", "P"),
+        "blp1_jpeg.blp": write_blp(1, 24, 16, scan, 0, 5, jpeg_header=head),
+        "blp2_dxt1_alpha.blp": write_blp(2, 21, 17, blocks(30, 8), 1, 2, 1, 0),
+        "blp2_dxt3.blp": write_blp(2, 20, 16, blocks(20, 16), 1, 2, 8, 1),
+        "blp2_dxt5_no_alpha.blp": write_blp(2, 21, 17, blocks(30, 16), 1, 2, 0, 7),
+        "icns_png.icns": write_icns([(b"icp4", pil_save(pattern(16, 16, 79), "PNG")),
+                                     (b"ic11", pil_save(pattern(32, 32, 80), "PNG"))]),
+        "icns_legacy_rle_mask.icns": write_icns(
+            [(b"is32", b"".join(icns_rle(pattern(16, 16, 81)[:, :, c]) for c in range(3))),
+             (b"s8mk", rng.integers(0, 256, 256).astype(np.uint8).tobytes()),
+             (b"il32", b"".join(icns_rle(np.repeat(pattern(8, 8, 82), 4, 0).repeat(4, 1)[:, :, c]) for c in range(3))),
+             (b"l8mk", rng.integers(0, 256, 1024).astype(np.uint8).tobytes())]),
+        "icns_jpeg2000.icns": write_icns([(b"icp4", pil_save(pattern(16, 16, 83), "JPEG2000"))]),
+    }
+
+
 def timing_files() -> dict:
     img = pattern(512, 512, 30)
     return {"webp_lossy_q90_512.webp": pil_save(img, "WEBP", quality=90),
             "jpeg_420_q90_512.jpg": pil_jpeg(img, quality=90, subsampling=2),
-            "j2k_irreversible_512.jp2": pil_save(img, "JPEG2000", irreversible=True)}
+            "j2k_irreversible_512.jp2": pil_save(img, "JPEG2000", irreversible=True),
+            "tiff_zstd_rgb_512.tif": pil_save(img, "TIFF", compression="zstd", strip_size=1 << 20),
+            "tiff_group4_1728.tif": pil_save(fax_page(1100, 1728, 31) * 255, "TIFF", "1", compression="group4")}
 
 
 def write(out_dir: str, table: dict) -> None:

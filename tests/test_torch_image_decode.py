@@ -264,16 +264,18 @@ def test_committed_fixtures_match_their_digests():
 
 
 def test_timing_files_match_their_digests():
-    """The three 512x512 files whose decode chip_smoke.py times (a lossy
-    WebP, a 4:2:0 JPEG and an irreversible JPEG 2000, outside the fixtures'
-    size bound): Pillow's decode of each is its stored digest; the port's
-    decode is held to it here for the WebP and the JPEG, and on the card's
-    host by chip_smoke.py for the JPEG 2000 (its lockstep tier-1 takes
-    seconds there, too long for this suite)."""
+    """The files whose decode chip_smoke.py times (outside the fixtures'
+    size bound): three 512x512 ones (a lossy WebP, a 4:2:0 JPEG and an
+    irreversible JPEG 2000), a 512x512 RGB ZSTD TIFF in one strip of
+    several blocks and a 1728-pixel-wide Group 4 page. Pillow's decode of
+    each is its stored digest; the port's decode is held to it here, and on
+    the card's host by chip_smoke.py for the JPEG 2000 (its lockstep tier-1
+    takes seconds there, too long for this suite)."""
     root = os.path.join(os.path.dirname(FIXTURES), "image_decode_timing")
     with open(os.path.join(root, "digests.json")) as f:
         digests = json.load(f)
-    assert sorted(digests) == ["j2k_irreversible_512.jp2", "jpeg_420_q90_512.jpg", "webp_lossy_q90_512.webp"]
+    assert sorted(digests) == ["j2k_irreversible_512.jp2", "jpeg_420_q90_512.jpg", "tiff_group4_1728.tif",
+                               "tiff_zstd_rgb_512.tif", "webp_lossy_q90_512.webp"]
     for name, want in digests.items():
         path = os.path.join(root, name)
         with open(path, "rb") as f:
@@ -282,17 +284,20 @@ def test_timing_files_match_their_digests():
             assert want["shape"] == [512, 512, 3]
             continue
         got = load_rgb(path)
-        assert list(got.shape) == want["shape"] == [512, 512, 3]
+        assert list(got.shape) == want["shape"] == ([1100, 1728, 3] if "1728" in name else [512, 512, 3])
         assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"], name
 
 
 @pytest.mark.parametrize("name", ["j2k_rgb_irreversible_tiles_rpcl.jp2", "j2k_grey_irreversible.j2k",
                                   "ppm_maxval300.ppm", "pbm_plain.pbm", "tga_palette_rle.tga", "ico_bmp.ico",
                                   "cursor.cur", "psd_cmyk_packbits.psd", "qoi_rgba.qoi", "tiff_rgb16_mm_predictor.tif",
-                                  "tiff_ycbcr_jpeg_420_tables.tif", "tiff_bigtiff_tiled.tif", "lossless_420.jpg"])
+                                  "tiff_ycbcr_jpeg_420_tables.tif", "tiff_bigtiff_tiled.tif", "lossless_420.jpg",
+                                  "pcx_palette.pcx", "dcx_first.dcx", "sgi_rgba_16bit_rle.sgi", "dds_bc7.dds",
+                                  "ftex_dxt1.ftc", "blp2_dxt3.blp", "icns_png.icns", "tiff_group4.tif",
+                                  "tiff_zstd_predictor.tif", "tiff_ycc_420_tiles_refbw.tif"])
 def test_new_formats_load_as_jax_loads_them(name):
-    """One committed file of each format (and TIFF and JPEG kind) the
-    slice of the formats Pillow reads beyond adds: the port's
+    """One committed file of each format (and TIFF and JPEG kind) that the
+    port decodes beyond JPEG, PNG, WebP, GIF and BMP: the port's
     ``load_image_array`` against the JAX package's, which reads through
     Pillow, at the file's size and resized."""
     path = os.path.join(FIXTURES, name)

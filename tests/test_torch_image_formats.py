@@ -352,22 +352,31 @@ def _refused_files():
         "tiff_ccitt": _pil_save(img, "TIFF", "1", compression="group4"),
         "tiff_zstd": _pil_save(img, "TIFF", compression="zstd"),
         "tiff_webp": write_tiff(img, 8, 2, "<", 50001, pieces=[rng.integers(0, 256, 64).astype(np.uint8).tobytes()]),
+        "tiff_lab": _pil_save(img, "TIFF", "LAB"),
+        "imt": b"width 4\nheight 3\npixel n8\n\x0c" + bytes(range(12)),
+        "spider": _pil_save(img[:, :, 0].astype(np.float32), "SPIDER"),
+        "xbm": _pil_save(img, "XBM", "1"),
     }
     return out
 
 
-# refused citing item 14, refused as Pillow refuses it; every other kind now decodes as Pillow decodes it
-_STILL_REFUSED = {"avif": "queue 1, item 14", "tiff_ccitt": "queue 1, item 14", "tiff_zstd": "queue 1, item 14",
-                  "tiff_webp": "Pillow refuses it too"}
+# refused citing item 14, refused as Pillow refuses it; every other kind now decodes as Pillow decodes it (TIFF's
+# CCITT and ZSTD since the slice of the formats Pillow writes)
+_STILL_REFUSED = {"avif": "queue 1, item 14", "tiff_webp": "Pillow refuses it too", "tiff_lab": "queue 1, item 14",
+                  "imt": "IMT is not supported .*queue 1, item 14",
+                  "spider": "SPIDER is not supported .*queue 1, item 14",
+                  "xbm": "XBM is not supported .*queue 1, item 14"}
 
 
 @pytest.mark.parametrize("kind", ["jpeg2000", "avif", "ppm", "pgm", "ico", "tga", "psd", "jpeg_in_tiff", "tiff_16bit",
-                                  "tiff_cmyk", "bigtiff", "tiff_ccitt", "tiff_zstd", "tiff_webp"])
+                                  "tiff_cmyk", "bigtiff", "tiff_ccitt", "tiff_zstd", "tiff_webp", "tiff_lab", "imt",
+                                  "spider", "xbm"])
 def test_left_out_formats_refused(kind):
-    """The kinds ROADMAP item 14 left out: AVIF and TIFF's CCITT and ZSTD
-    compressions stay refused citing it, WebP-in-TIFF as Pillow refuses it
-    (its libtiff is built without WebP); the rest, refused until the slice
-    of the formats Pillow reads beyond, decode bit-equal to Pillow."""
+    """The kinds ROADMAP item 14 leaves out: AVIF, Lab TIFF, IMT, SPIDER and
+    XBM stay refused citing it (IMT and SPIDER in Pillow's place, not with
+    the generic message), WebP-in-TIFF as Pillow refuses it (its libtiff is
+    built without WebP); the rest, refused until the slices of the formats
+    Pillow reads and writes beyond, decode bit-equal to Pillow."""
     data = _refused_files()[kind]
     if kind in _STILL_REFUSED:
         if kind == "tiff_webp":

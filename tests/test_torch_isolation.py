@@ -4,9 +4,10 @@ fresh interpreter whose import system refuses ``jax``, ``flax``, ``optax`` and
 ``sliders_conceptmod_tpu`` (that exact top-level name, so
 ``sliders_conceptmod_tpu_torch`` itself still imports), and also ``yaml``,
 ``pydantic``, ``transformers``, ``tokenizers``, ``PIL``, ``safetensors``,
-``regex``, ``pandas``, ``torchvision`` and ``lpips``. A lazy import inside a function escapes that check, so the source
-of every port module and of chip_smoke.py is also scanned for an import
-statement of a refused package."""
+``regex``, ``pandas``, ``torchvision``, ``lpips`` and ``zstandard``. A lazy
+import inside a function escapes that check, so the source of every port
+module and of chip_smoke.py is also scanned for an import statement of a
+refused package."""
 
 import ast
 import os
@@ -21,7 +22,7 @@ CHECK = textwrap.dedent(
     import importlib, importlib.util, pkgutil, sys
 
     REFUSED = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
-               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips"}
+               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips", "zstandard"}
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -170,6 +171,24 @@ PILLOW_FORMAT_SLICE_MODULES = {
     "sliders_conceptmod_tpu_torch.io.image",
 }
 
+# modules the slice of the formats Pillow writes added or extended (TIFF's CCITT, ZSTD and YCbCr; PCX/DCX, SGI,
+# DDS and its BCn blocks, FTEX, BLP, ICNS; the readers' shared pieces)
+PILLOW_WRITES_SLICE_MODULES = {
+    "sliders_conceptmod_tpu_torch.io._common",
+    "sliders_conceptmod_tpu_torch.io.ccitt",
+    "sliders_conceptmod_tpu_torch.io.zstd",
+    "sliders_conceptmod_tpu_torch.io.tiff",
+    "sliders_conceptmod_tpu_torch.io.pcx",
+    "sliders_conceptmod_tpu_torch.io.sgi",
+    "sliders_conceptmod_tpu_torch.io.bcn",
+    "sliders_conceptmod_tpu_torch.io.dds",
+    "sliders_conceptmod_tpu_torch.io.icns",
+    "sliders_conceptmod_tpu_torch.io.blp",
+    "sliders_conceptmod_tpu_torch.io.ftex",
+    "sliders_conceptmod_tpu_torch.io.jpeg",
+    "sliders_conceptmod_tpu_torch.io.image",
+}
+
 
 def test_port_and_smoke_import_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -185,6 +204,7 @@ def test_port_and_smoke_import_without_jax():
     assert SD3_SLICE_MODULES <= walked and FLUX_SLICE_MODULES <= walked and IMAGE_EVAL_SLICE_MODULES <= walked
     assert EVAL_REST_SLICE_MODULES <= walked and PARALLEL_SLICE_MODULES <= walked
     assert IMAGE_FORMAT_SLICE_MODULES <= walked and PILLOW_FORMAT_SLICE_MODULES <= walked
+    assert PILLOW_WRITES_SLICE_MODULES <= walked
 
 
 def test_spawned_worker_entry_points_import_without_jax():
@@ -220,7 +240,7 @@ def test_refusal_hook_bites():
 
 
 REFUSED_TOP = {"jax", "jaxlib", "flax", "optax", "sliders_conceptmod_tpu", "yaml", "pydantic", "transformers",
-               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips"}
+               "tokenizers", "PIL", "safetensors", "regex", "pandas", "torchvision", "lpips", "zstandard"}
 
 
 def _imported_tops(path):
